@@ -1,0 +1,12 @@
+"""PyTorch/CUDA port of ``myconvnet_tpu`` for one NVIDIA H100.
+
+The JAX package beside this one is the reference; module paths here mirror
+its paths where that helps a reader find the counterpart
+(``myconvnet_tpu/serving.py`` -> ``myconvnet_tpu_torch/serving.py``).
+This package imports ``torch`` and ``numpy``, never ``jax``.
+
+Slice 1 covers the eval/serving path of the ResNet-50 recipe
+(``configs/imagenet_resnet50.py``): NHWC activations, cuDNN convolutions,
+and two hand-written CUDA kernels (``ops/kernels``) where the JAX package
+has Pallas kernels for the same math.
+"""

@@ -1,0 +1,159 @@
+"""ResNet v1.5 with bottleneck blocks (depth 50), NHWC, eval forward.
+
+Port of ``myconvnet_tpu/models/resnet.py:92-254`` for the serving slice.
+Module paths equal the JAX scope paths with "/" read as "."
+(``stem.conv``, ``stage1.block1.conv_a``, ``logits``), and both stems
+(``conv7``, ``s2d``) and ``torch_padding`` carry over.  BN eps is 1e-5
+(``resnet.py:47``).  Basic blocks (depth 18/34), ResNeXt groups, SE and
+dilated stages come with later slices.
+
+Where the kernels sit in the forward:
+
+* a block whose 3x3 has stride 1 runs conv_a -> bn_a -> relu -> conv_b ->
+  bn_b -> relu through ``conv1x1_conv3x3_bn_relu`` when its channel counts
+  are ones the kernel takes (``Bottleneck.pair``, fixed at construction)
+  and the activations are bf16 (the kernel's type); in ResNet-50 that is
+  13 of the 16 blocks;
+* every other conv -> BN -> ReLU (the stem; conv_a and the stride-2 conv_b
+  of each stage's first block) is a cuDNN conv without bias followed by
+  ``fused_scale_shift_act`` with the bias and BN folded into (a, b).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from myconvnet_tpu_torch.nn import (BatchNorm, Conv, Dense, conv_epilogue,
+                                    gap, relu)
+from myconvnet_tpu_torch.ops.kernels import (conv1x1_conv3x3_bn_relu,
+                                             fused_scale_shift_act)
+from myconvnet_tpu_torch.ops.kernels import conv_pair as conv_pair_lib
+from myconvnet_tpu_torch.ops.pool import max_pool2d
+
+STAGE_BLOCKS = {50: (3, 4, 6, 3)}
+BN_EPS = 1e-5
+
+
+def conv_bn_relu(conv: Conv, bn: BatchNorm, x: torch.Tensor
+                 ) -> torch.Tensor:
+    """cuDNN conv, then bias/BN + ReLU in one pass of the bn_act kernel."""
+    a, b = conv_epilogue(conv, bn)
+    return fused_scale_shift_act(conv(x, add_bias=False).contiguous(),
+                                 a, b, "relu")
+
+
+def _pad3(torch_padding: bool):
+    # torch pads a 3x3 by 1 on both sides at any stride; TF-SAME differs
+    # only at stride 2 (``resnet.py:52-58``)
+    return ((1, 1), (1, 1)) if torch_padding else "SAME"
+
+
+class Bottleneck(nn.Module):
+    def __init__(self, cin: int, features: int, *, stride: int,
+                 projection: bool, torch_padding: bool = False):
+        super().__init__()
+        out = 4 * features
+        self.conv_a = Conv(cin, features, 1)
+        self.bn_a = BatchNorm(features, BN_EPS)
+        self.conv_b = Conv(features, features, 3, stride=stride,
+                           padding=_pad3(torch_padding))
+        self.bn_b = BatchNorm(features, BN_EPS)
+        self.conv_c = Conv(features, out, 1)
+        self.bn_c = BatchNorm(out, BN_EPS)
+        if projection:
+            self.conv_proj = Conv(cin, out, 1, stride=stride)
+            self.bn_proj = BatchNorm(out, BN_EPS)
+        self.projection = projection
+        # static routing: conv_a + conv_b go through the fused pair kernel
+        # when the 3x3 has stride 1 (SAME and torch padding agree there)
+        # and the kernel takes these channel counts
+        self.pair = stride == 1 and conv_pair_lib.supports(cin, features,
+                                                           features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.pair and x.dtype == torch.bfloat16:
+            a1, b1 = conv_epilogue(self.conv_a, self.bn_a)
+            a3, b3 = conv_epilogue(self.conv_b, self.bn_b)
+            y = conv1x1_conv3x3_bn_relu(x, self.conv_a.w, a1, b1,
+                                        self.conv_b.w, a3, b3)
+        else:
+            y = conv_bn_relu(self.conv_a, self.bn_a, x)
+            y = conv_bn_relu(self.conv_b, self.bn_b, y)
+        y = self.bn_c(self.conv_c(y))
+        shortcut = x
+        if self.projection:
+            shortcut = self.bn_proj(self.conv_proj(x))
+        return relu(y + shortcut)
+
+
+class Stem(nn.Module):
+    def __init__(self, cin: int, width: int, kind: str,
+                 torch_padding: bool):
+        super().__init__()
+        if kind not in ("conv7", "s2d"):
+            raise ValueError(f"unknown stem {kind!r}")
+        if torch_padding and kind == "s2d":
+            raise ValueError("torch_padding reproduces the torchvision "
+                             "conv7 stem; combine it with stem='conv7'")
+        self.kind = kind
+        self.torch_padding = torch_padding
+        if kind == "s2d":
+            # 2x2 space-to-depth, then a 4x4 stride-1 conv
+            self.conv = Conv(4 * cin, width, 4)
+        else:
+            self.conv = Conv(cin, width, 7, stride=2,
+                             padding=((3, 3), (3, 3)) if torch_padding
+                             else "SAME")
+        self.bn = BatchNorm(width, BN_EPS)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.kind == "s2d":
+            n, h, w, c = x.shape
+            x = (x.reshape(n, h // 2, 2, w // 2, 2, c)
+                 .permute(0, 1, 3, 2, 4, 5).reshape(n, h // 2, w // 2,
+                                                    4 * c))
+        x = conv_bn_relu(self.conv, self.bn, x)
+        return max_pool2d(x, 3, 2, padding=((1, 1), (1, 1))
+                          if self.torch_padding else "SAME")
+
+
+class ResNet(nn.Module):
+    """``forward(x)``: x [N, H, W, C] in the compute dtype -> logits
+    [N, num_classes] in the compute dtype."""
+
+    def __init__(self, num_classes: int = 1000, depth: int = 50, *,
+                 width: int = 64, stem: str = "conv7",
+                 torch_padding: bool = False, in_channels: int = 3):
+        super().__init__()
+        if depth not in STAGE_BLOCKS:
+            raise ValueError(f"the port has ResNet depth "
+                             f"{sorted(STAGE_BLOCKS)}, not {depth}")
+        self.stem = Stem(in_channels, width, stem, torch_padding)
+        cin = width
+        for s, n_blocks in enumerate(STAGE_BLOCKS[depth]):
+            features = width * 2 ** s
+            stride = 1 if s == 0 else 2
+            stage = nn.Module()
+            for b in range(n_blocks):
+                blk_stride = stride if b == 0 else 1
+                stage.add_module(f"block{b + 1}", Bottleneck(
+                    cin, features, stride=blk_stride,
+                    projection=b == 0 and (blk_stride != 1
+                                           or cin != 4 * features),
+                    torch_padding=torch_padding))
+                cin = 4 * features
+            self.add_module(f"stage{s + 1}", stage)
+        self.n_stages = len(STAGE_BLOCKS[depth])
+        self.logits = Dense(cin, num_classes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.stem(x)
+        for s in range(self.n_stages):
+            for blk in getattr(self, f"stage{s + 1}").children():
+                x = blk(x)
+        return self.logits(gap(x))
+
+
+def resnet50(num_classes: int = 1000, **kwargs) -> ResNet:
+    return ResNet(num_classes, depth=50, **kwargs)

@@ -1,0 +1,106 @@
+"""Layers of the eval path, as ``torch.nn`` modules on NHWC tensors.
+
+Port of the subset of ``myconvnet_tpu/nn.py`` that ResNet-50 serving uses.
+Module names follow the JAX scope names, so ``weights.from_jax`` maps
+``{"stage1/block1/conv_a": {"w": ...}}`` onto ``stage1.block1.conv_a``.
+
+* :class:`Conv` keeps its weight OIHW in channels_last memory (the layout
+  cuDNN and the CUDA kernels read without a copy) and exposes it in the
+  JAX package's HWIO layout through :attr:`Conv.w`.  Its bias is optional
+  and is filled in when a following BN is folded into it (``nn.py:100-105``).
+* :class:`BatchNorm` is eval-only here, with a per-module eps, and becomes
+  the identity once folded (``nn.py:254-282``).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from myconvnet_tpu_torch.ops.batch_norm import (batch_norm_inference,
+                                                bn_scale_shift)
+from myconvnet_tpu_torch.ops.conv import Padding, conv2d
+from myconvnet_tpu_torch.ops.pool import global_avg_pool
+
+
+class Conv(nn.Module):
+    def __init__(self, cin: int, cout: int, kernel_size: int, *,
+                 stride: int = 1, padding: Padding = "SAME",
+                 bias: bool = False):
+        super().__init__()
+        self.stride = stride
+        self.padding = padding
+        w = torch.empty(cout, cin, kernel_size, kernel_size)
+        self.weight = nn.Parameter(
+            w.contiguous(memory_format=torch.channels_last))
+        self.register_parameter(
+            "bias", nn.Parameter(torch.zeros(cout)) if bias else None)
+
+    @property
+    def w(self) -> torch.Tensor:
+        """The weight in HWIO, a view of the OIHW channels_last storage."""
+        return self.weight.permute(2, 3, 1, 0)
+
+    def forward(self, x: torch.Tensor, add_bias: bool = True
+                ) -> torch.Tensor:
+        return conv2d(x, self.w, self.bias if add_bias else None,
+                      stride=self.stride, padding=self.padding)
+
+
+class BatchNorm(nn.Module):
+    """Eval BN over the last axis: float32 gamma/beta and moving stats."""
+
+    def __init__(self, c: int, eps: float = 1e-3):
+        super().__init__()
+        self.eps = eps
+        self.folded = False
+        self.gamma = nn.Parameter(torch.ones(c))
+        self.beta = nn.Parameter(torch.zeros(c))
+        self.register_buffer("moving_mean", torch.zeros(c))
+        self.register_buffer("moving_var", torch.ones(c))
+
+    def mark_folded(self) -> None:
+        """Drop the parameters: the preceding conv now carries them."""
+        self.folded = True
+        self.gamma = self.beta = None
+        self.moving_mean = self.moving_var = None
+
+    def scale_shift(self) -> tuple[torch.Tensor, torch.Tensor]:
+        return bn_scale_shift(self.gamma, self.beta, self.moving_mean,
+                              self.moving_var, self.eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.folded:
+            return x
+        return batch_norm_inference(x, self.gamma, self.beta,
+                                    self.moving_mean, self.moving_var,
+                                    self.eps)
+
+
+def conv_epilogue(conv: Conv, bn: BatchNorm
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel float32 (a, b) with bn(conv(x)) == conv_nobias(x)*a + b:
+    (1, bias) once the BN is folded, the BN's scale and shift otherwise."""
+    b = (conv.bias.float() if conv.bias is not None
+         else torch.zeros(conv.weight.shape[0], device=conv.weight.device))
+    if bn.folded:
+        return torch.ones_like(b), b
+    a, shift = bn.scale_shift()
+    return a, b * a + shift
+
+
+class Dense(nn.Module):
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(cout, cin))
+        self.bias = nn.Parameter(torch.zeros(cout))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.nn.functional.linear(x, self.weight, self.bias)
+
+
+def relu(x: torch.Tensor) -> torch.Tensor:
+    return torch.relu(x)
+
+
+gap = global_avg_pool

@@ -1,0 +1,164 @@
+"""Weight bridge between the JAX package's trees and the port's modules.
+
+The JAX package keeps parameters and state as numpy-convertible trees
+``{scope: {name: array}}`` (``myconvnet_tpu/core/module.py``), with scopes
+like ``stage1/block1/conv_a``.  The port's module paths are the same
+scopes with "/" read as "." (``stage1.block1.conv_a``), so the mapping is
+by name:
+
+* ``Conv``: ``w`` HWIO <-> ``weight`` OIHW (channels_last); optional ``b``;
+* ``BatchNorm``: params ``gamma``, ``beta``; state ``moving_mean``,
+  ``moving_var``.  A scope missing from the tree means the JAX fold removed
+  it (``models/folding.py``), and the module is marked folded;
+* ``Dense``: ``w`` [in, out] <-> ``weight`` [out, in]; ``b``.
+
+:func:`load_jax_checkpoint` reads the ``.npz`` the JAX trainer writes
+(``ckpt/checkpoint.py``): keys ``params::<scope>::<name>`` and
+``model_state::<scope>::<name>``.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+
+import numpy as np
+import torch
+from torch import nn
+
+from myconvnet_tpu_torch.nn import BatchNorm, Conv, Dense
+
+Tree = dict[str, dict[str, np.ndarray]]
+SEP = "::"
+
+
+def _layers(model: nn.Module):
+    for path, m in model.named_modules():
+        if isinstance(m, (Conv, BatchNorm, Dense)):
+            yield path.replace(".", "/"), m
+
+
+def _set(param: torch.Tensor, value: np.ndarray, scope: str, name: str):
+    if tuple(param.shape) != tuple(np.shape(value)):
+        raise ValueError(f"{scope}:{name}: shape {np.shape(value)} does "
+                         f"not fit {tuple(param.shape)}")
+    param.copy_(torch.as_tensor(np.asarray(value, np.float32)))
+
+
+def _new_param(value: np.ndarray, like: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(torch.as_tensor(np.asarray(value, np.float32)).to(
+        device=like.device, dtype=like.dtype))
+
+
+@torch.no_grad()
+def from_jax(model: nn.Module, params: Tree, state: Tree) -> nn.Module:
+    """Load JAX-layout trees into ``model`` in place; every scope of the
+    trees must land on a module and every module must be covered."""
+    used = set()
+    for scope, m in _layers(model):
+        p = params.get(scope)
+        if isinstance(m, BatchNorm):
+            if p is None:
+                m.mark_folded()
+                continue
+            s = state[scope]
+            if m.folded:
+                raise ValueError(f"{scope}: module already folded")
+            _set(m.gamma, p["gamma"], scope, "gamma")
+            _set(m.beta, p["beta"], scope, "beta")
+            _set(m.moving_mean, s["moving_mean"], scope, "moving_mean")
+            _set(m.moving_var, s["moving_var"], scope, "moving_var")
+            used.add(scope)
+            continue
+        if p is None:
+            raise KeyError(f"no parameters for {scope}")
+        if isinstance(m, Conv):
+            _set(m.w, p["w"], scope, "w")
+            m.bias = (_new_param(p["b"], m.weight) if "b" in p else None)
+        else:
+            _set(m.weight, np.asarray(p["w"]).T, scope, "w")
+            _set(m.bias, p["b"], scope, "b")
+        used.add(scope)
+    extra = (set(params) | set(state)) - used
+    if extra:
+        raise KeyError(f"scopes with no module: {sorted(extra)[:5]}")
+    return model
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy().copy()
+
+
+def to_jax(model: nn.Module) -> tuple[Tree, Tree]:
+    """The inverse of :func:`from_jax`: float32 numpy trees."""
+    params, state = {}, {}
+    for scope, m in _layers(model):
+        if isinstance(m, BatchNorm):
+            if m.folded:
+                continue
+            params[scope] = {"gamma": _np(m.gamma), "beta": _np(m.beta)}
+            state[scope] = {"moving_mean": _np(m.moving_mean),
+                            "moving_var": _np(m.moving_var)}
+        elif isinstance(m, Conv):
+            params[scope] = {"w": _np(m.w)}
+            if m.bias is not None:
+                params[scope]["b"] = _np(m.bias)
+        else:
+            params[scope] = {"w": _np(m.weight).T.copy(),
+                             "b": _np(m.bias)}
+    return params, state
+
+
+def latest_checkpoint(directory: str) -> str:
+    steps = [int(m.group(1)) for f in os.listdir(directory)
+             if (m := re.fullmatch(r"ckpt-(\d+)\.npz", f))]
+    if not steps:
+        raise FileNotFoundError(f"no ckpt-<step>.npz in {directory!r}")
+    return os.path.join(directory, f"ckpt-{max(steps)}.npz")
+
+
+def load_jax_checkpoint(path: str) -> tuple[Tree, Tree]:
+    """(params, model_state) from a JAX ``.npz`` checkpoint, or from the
+    newest ``ckpt-<step>.npz`` when ``path`` is a directory."""
+    if os.path.isdir(path):
+        path = latest_checkpoint(path)
+    trees = {"params": {}, "model_state": {}}
+    with np.load(path) as data:
+        for key in data.files:
+            parts = key.split(SEP)
+            if len(parts) == 3 and parts[0] in trees:
+                trees[parts[0]].setdefault(parts[1], {})[parts[2]] = \
+                    data[key]
+    if not trees["params"]:
+        raise ValueError(f"{path!r} holds no params::<scope>::<name> keys")
+    return trees["params"], trees["model_state"]
+
+
+def random_jax_params(model: nn.Module, seed: int) -> tuple[Tree, Tree]:
+    """JAX-layout trees of random weights for ``model``'s shapes, made
+    from ``seed`` with numpy: He-normal convs, Glorot-uniform dense, and
+    BN with random gamma, beta and moving statistics (a block's last BN
+    gets a small gamma, as the zero-init recipe intends, so the residual
+    stream stays in range through 16 blocks)."""
+    rng = np.random.RandomState(seed)
+    params, state = to_jax(model)
+    for scope in sorted(params):
+        p = params[scope]
+        if "gamma" in p:
+            c = p["gamma"].shape[0]
+            lo, hi = (0.1, 0.3) if scope.endswith("bn_c") else (0.5, 1.0)
+            p["gamma"] = rng.uniform(lo, hi, c).astype(np.float32)
+            p["beta"] = (0.1 * rng.randn(c)).astype(np.float32)
+            state[scope] = {
+                "moving_mean": (0.1 * rng.randn(c)).astype(np.float32),
+                "moving_var": rng.uniform(0.5, 1.5, c).astype(np.float32)}
+        elif p["w"].ndim == 4:
+            kh, kw, cin, _ = p["w"].shape
+            std = np.sqrt(2.0 / (kh * kw * cin))
+            p["w"] = (std * rng.randn(*p["w"].shape)).astype(np.float32)
+        else:
+            cin, cout = p["w"].shape
+            lim = np.sqrt(6.0 / (cin + cout))
+            p["w"] = rng.uniform(-lim, lim, (cin, cout)).astype(np.float32)
+            p["b"] = np.zeros(cout, np.float32)
+    return params, state

@@ -1,0 +1,173 @@
+"""The port's kernel modules against the JAX Pallas kernels.
+
+On the CPU each wrapper runs its plain PyTorch version; those are held
+against the Pallas kernels run in interpret mode (as tests/test_pallas.py
+and tests/test_pallas_conv_pair.py run them) and against the XLA
+reference.  The CUDA kernels themselves are held against the plain
+versions in tests/test_torch_kernels_gpu.py, on the card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from jax.experimental.pallas import tpu as pltpu
+
+from myconvnet_tpu.ops.pallas import bn_act as jbn_act
+from myconvnet_tpu.ops.pallas import conv_pair as jconv_pair
+from myconvnet_tpu_torch.ops.kernels import (bn_inference_fused,
+                                             conv1x1_conv3x3_bn_relu,
+                                             fused_scale_shift_act,
+                                             reset_launch_counts,
+                                             launch_counts)
+from myconvnet_tpu_torch.ops.kernels import bn_act, conv_pair
+
+torch.set_num_threads(1)
+
+ACTS = ["none", "relu", "relu6", "leaky_relu"]
+# the same float32 x*a+b on both sides, possibly fused into one FMA by
+# XLA: 1 float32 ulp, or 1 bf16 ulp (2**-8 relative) after rounding
+BN_ACT_TOL = {"float32": dict(rtol=1e-6, atol=1e-6),
+              "bfloat16": dict(rtol=2 ** -8, atol=1e-6)}
+
+
+def _bn_act_inputs(dtype, c=24, seed=0):
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(2, 5, 3, c) * 4).astype(np.float32)
+    a = (rng.rand(c) + 0.5).astype(np.float32)
+    b = rng.randn(c).astype(np.float32)
+    x = np.array(jnp.asarray(x, dtype).astype(jnp.float32))  # on grid
+    return x, a, b
+
+
+def _t(x, dtype):
+    return torch.from_numpy(x).to(getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act", ACTS)
+def test_scale_shift_act_plain_matches_pallas(dtype, act):
+    x, a, b = _bn_act_inputs(dtype)
+    ref = jbn_act.fused_scale_shift_act(jnp.asarray(x, dtype),
+                                        jnp.asarray(a), jnp.asarray(b),
+                                        act=act, interpret=True)
+    reset_launch_counts()
+    out = fused_scale_shift_act(_t(x, dtype), torch.from_numpy(a),
+                                torch.from_numpy(b), act)
+    assert out.dtype == getattr(torch, dtype)
+    assert launch_counts()["bn_act"] == 0  # CPU: plain version, no launch
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref, np.float32),
+                               **BN_ACT_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bn_inference_fused_plain_matches_pallas(dtype):
+    x, _, _ = _bn_act_inputs(dtype, seed=1)
+    rng = np.random.RandomState(2)
+    g, b = rng.rand(24) + 0.5, rng.randn(24)
+    m, v = rng.randn(24), rng.rand(24) + 0.1
+    stats = [s.astype(np.float32) for s in (g, b, m, v)]
+    ref = jbn_act.bn_inference_fused(jnp.asarray(x, dtype),
+                                     *map(jnp.asarray, stats), 1e-5,
+                                     act="relu", interpret=True)
+    out = bn_inference_fused(_t(x, dtype), *map(torch.from_numpy, stats),
+                             1e-5, act="relu")
+    # the rsqrt may differ by an ulp between XLA and ATen
+    tol = dict(BN_ACT_TOL[dtype], rtol=max(BN_ACT_TOL[dtype]["rtol"], 4e-6))
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref, np.float32), **tol)
+
+
+def test_bn_act_wrapper_checks():
+    x = torch.zeros(2, 8)
+    with pytest.raises(ValueError):
+        fused_scale_shift_act(x, torch.ones(4), torch.zeros(8))
+    with pytest.raises(ValueError):
+        fused_scale_shift_act(x, torch.ones(8), torch.zeros(8), "gelu")
+    with pytest.raises(ValueError):  # no kernel and no plain path there
+        fused_scale_shift_act(x.to("meta"), torch.ones(8), torch.zeros(8))
+
+
+# (n, h, w, cin, cm, cout): a 7x7 map as in stage 4, and odd sizes that
+# leave partial tiles
+PAIR_SHAPES = [(2, 7, 7, 32, 16, 16), (1, 9, 6, 64, 32, 48),
+               (2, 5, 4, 16, 8, 8)]
+
+
+def _pair_inputs(n, h, w, cin, cm, co, seed=0):
+    rng = np.random.RandomState(seed)
+
+    def bf(a):  # values on the bf16 grid, held as float32
+        return np.array(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+
+    x = bf(rng.randn(n, h, w, cin))
+    w1 = bf(rng.randn(1, 1, cin, cm) / np.sqrt(cin))
+    w3 = bf(rng.randn(3, 3, cm, co) / np.sqrt(9 * cm))
+    s1 = (rng.rand(cm) + 0.5).astype(np.float32)
+    b1 = (rng.randn(cm) * 0.3).astype(np.float32)
+    s3 = (rng.rand(co) + 0.5).astype(np.float32)
+    b3 = (rng.randn(co) * 0.3).astype(np.float32)
+    return x, w1, s1, b1, w3, s3, b3
+
+
+def _torch_pair_args(args):
+    x, w1, s1, b1, w3, s3, b3 = (torch.from_numpy(a) for a in args)
+    return (x.bfloat16(), w1.bfloat16(), s1, b1, w3.bfloat16(), s3, b3)
+
+
+# Both sides take bf16 inputs, sum in float32 and round the intermediate
+# to bf16; sums in another order can flip an intermediate by 1 bf16 ulp,
+# which moves an output by ~|w3| * 2**-8 before its own bf16 rounding.
+# Allowed: 2 bf16 ulps of the output (measured on the CPU: 2.4e-4
+# absolute, 0.4% relative at most, against the Pallas kernel).
+PAIR_TOL = dict(rtol=2 ** -6, atol=2 ** -7)
+
+
+@pytest.mark.parametrize("shape", PAIR_SHAPES)
+def test_conv_pair_plain_matches_pallas(shape):
+    args = _pair_inputs(*shape)
+    jargs = [jnp.asarray(a, jnp.bfloat16 if i in (0, 1, 4) else
+                         jnp.float32) for i, a in enumerate(args)]
+    with pltpu.force_tpu_interpret_mode():
+        ref = jconv_pair.conv1x1_conv3x3_bn_relu(*jargs)
+    xla = jconv_pair.conv_pair_reference(*jargs)
+    reset_launch_counts()
+    out = conv1x1_conv3x3_bn_relu(*_torch_pair_args(args))
+    assert launch_counts()["conv_pair"] == 0
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    got = out.float().numpy()
+    np.testing.assert_allclose(got, np.asarray(ref, np.float32), **PAIR_TOL)
+    np.testing.assert_allclose(got, np.asarray(xla, np.float32), **PAIR_TOL)
+
+
+def test_conv_pair_zero_pads_the_intermediate():
+    """A halo pixel outside the image is 0, not relu(bias1): with a large
+    bias1 the border outputs differ between the two readings."""
+    n, h, w, cin, cm, co = 1, 4, 4, 16, 16, 16
+    x = torch.zeros(n, h, w, cin, dtype=torch.bfloat16)
+    w1 = torch.zeros(1, 1, cin, cm, dtype=torch.bfloat16)
+    w3 = torch.ones(3, 3, cm, co, dtype=torch.bfloat16) / 16
+    one_c, one_o = torch.ones(cm), torch.ones(co)
+    out = conv1x1_conv3x3_bn_relu(x, w1, one_c, one_c, w3, one_o,
+                                  torch.zeros(co)).float()
+    # interior pixel sees 9 taps of 1 (x cm/16 = 1), a corner only 4
+    assert out[0, 1, 1, 0].item() == 9.0
+    assert out[0, 0, 0, 0].item() == 4.0
+
+
+def test_conv_pair_wrapper_checks_and_routing_helpers():
+    args = _torch_pair_args(_pair_inputs(1, 4, 4, 16, 8, 8))
+    bad = list(args)
+    bad[4] = bad[4][:, :, :4]  # w3 Cm mismatch
+    with pytest.raises(ValueError):
+        conv1x1_conv3x3_bn_relu(*bad)
+    with pytest.raises(ValueError):
+        conv1x1_conv3x3_bn_relu(*[a.to("meta") for a in args])
+    assert conv_pair.supports(256, 64, 64)
+    assert conv_pair.supports(2048, 512, 512)
+    assert not conv_pair.supports(32, 32, 32)    # Cin not a multiple of 64
+    assert not conv_pair.supports(64, 16, 16)    # Cm not a multiple of 32
+    assert not conv_pair.supports(64, 32, 8)     # Cout not a multiple of 16
+    assert not conv_pair.supports(4096, 1024, 1024)  # tile > 227 KB
