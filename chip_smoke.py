@@ -5,22 +5,35 @@
 
 1. Needs CUDA and this checkout; prints the card (nvidia-smi name and
    power limit), the torch and nvcc versions.
-2. Builds the hand-written kernels from ``myconvnet_tpu_torch/csrc`` and
-   prints the build time.
+2. Builds the hand-written kernels from ``myconvnet_tpu_torch/csrc`` (one
+   nvcc per source, all at once) and prints the build time.
 3. Holds each kernel against its plain PyTorch version at every shape the
-   served ResNet-50 gives it (batch 8, 224x224): max error against the
-   stated tolerance, and both times from CUDA events (plus the unfused
-   cuDNN bf16 pair, for conv_pair).
-4. Builds ResNet-50 at full width from ``configs/imagenet_resnet50.py``
+   main paths give it: the served ResNet-50 (batch 8, 224x224) and the
+   CIFAR-100 ResNet-18 recipe (batch 128, 32x32).  Max error against the
+   stated tolerance, and both device times from CUDA events with the
+   stream held (plus cuDNN's unfused bf16 version of conv_pair and
+   conv_fused).
+4. Serving: builds ResNet-50 at full width from ``configs/imagenet_resnet50.py``
    with random weights made from a seed in the JAX layout, loads them
    through ``weights.from_jax``, folds BN, and serves a classify route
-   over HTTP on localhost.
-5. Sends 3 predict requests (JSON bodies of 1, 3 and 8 images), counts the
-   kernel launches they cause (13 conv_pair and 7 bn_act per device call)
-   and checks the logits against the plain path (the same module on the
-   host CPU, where each wrapper runs its plain version).
-6. Prints measure_latency p50 for request sizes 1 and 8 (measured before
-   the host reference of step 5 runs).
+   over HTTP on localhost; sends 3 predict requests (JSON bodies of 1, 3
+   and 8 images), counts the kernel launches they cause (13 conv_pair and
+   7 bn_act per device call), checks the logits against the plain path
+   (the same module on the host CPU, where each wrapper runs its plain
+   version) and prints measure_latency p50 for request sizes 1 and 8.
+5. Training: step 1 of ``configs/cifar100_resnet18.py`` at full width from
+   seeded JAX-layout weights, with the same batch and draws, on the card
+   and on the host (loss and every gradient's norm compared); then
+   ``myconvnet_tpu_torch.train.main`` for 20 steps at batch 128 with a
+   validation every 10 steps, counting launches (pad_crop_u8 once a train
+   step; normalize_u8 once, conv_fused 5 and bn_act 4 times an eval
+   batch), checking every loss is finite and the BN moving statistics
+   moved, then the train step's images/s (CUDA events), host ms and
+   device busy time (torch.profiler).
+6. Eval: ``myconvnet_tpu_torch.test.main`` restores the checkpoint just
+   written and scores the 512-image synthetic split (launches counted);
+   the restored model's logits must equal the writer's, and agree with
+   the plain path on the host.
 
 Exits non-zero on any failure.  The second-to-last line of stdout is the
 kernels' JSON record, the last ``{"ok": true, "device": {...}}``.  Details
@@ -59,11 +72,44 @@ ACT_SITES = [("stem.conv", (BATCH, 112, 112, 64)),
              ("stage4.block1.conv_a", (BATCH, 14, 14, 512)),
              ("stage4.block1.conv_b", (BATCH, 7, 7, 512))]
 PER_CALL = {"conv_pair": 13, "bn_act": 7}
-# kernel vs plain: bn_act rounds like its plain version (bit-exact
-# expected; 1 bf16 ulp allowed); conv_pair sums in another order, which
-# can flip the bf16 intermediate by an ulp (2 bf16 ulps allowed)
+
+# CIFAR-100 ResNet-18 at 32x32, batch 128: the stem runs at 16x16, the
+# four stages at 8x8, 4x4, 2x2 and 1x1
+CIFAR_CONFIG = os.path.join(ROOT, "configs", "cifar100_resnet18.py")
+TRAIN_BATCH = 128
+TRAIN_STEPS = 20
+VAL_EVERY = 10
+EVAL_BATCHES = 4    # the 512-image synthetic split at batch 128
+# conv_fused sites (n, h, w, c, cout) and how many run at that shape in
+# one eval forward: stage1.block1-2, stage2-4.block2
+FUSED_SITES = [((TRAIN_BATCH, 8, 8, 64, 64), 2),
+               ((TRAIN_BATCH, 4, 4, 128, 128), 1),
+               ((TRAIN_BATCH, 2, 2, 256, 256), 1),
+               ((TRAIN_BATCH, 1, 1, 512, 512), 1)]
+# ResNet-18's bn_act sites: the stem and the stride-2 conv_a of stages 2-4
+ACT_SITES_R18 = [("r18 stem.conv", (TRAIN_BATCH, 16, 16, 64)),
+                 ("r18 stage2.block1.conv_a", (TRAIN_BATCH, 4, 4, 128)),
+                 ("r18 stage3.block1.conv_a", (TRAIN_BATCH, 2, 2, 256)),
+                 ("r18 stage4.block1.conv_a", (TRAIN_BATCH, 1, 1, 512))]
+INPUT_SHAPE = (TRAIN_BATCH, 32, 32, 3)
+PER_TRAIN_STEP = {"pad_crop_u8": 1}
+PER_EVAL_BATCH = {"normalize_u8": 1, "conv_fused": 5, "bn_act": 4}
+
+# kernel vs plain: bn_act, normalize_u8 and pad_crop_u8 round like their
+# plain versions (bit-exact expected; 1 bf16 or 1 float32 ulp allowed);
+# conv_pair and conv_fused sum in another order, which can move the bf16
+# output (or conv_pair's intermediate) by an ulp (2 bf16 ulps allowed)
+ULP32 = dict(rtol=2 ** -23, atol=2 ** -30)
 TOL = {"bn_act": dict(rtol=2 ** -8, atol=1e-6),
-       "conv_pair": dict(rtol=2 ** -6, atol=2 ** -7)}
+       "conv_pair": dict(rtol=2 ** -6, atol=2 ** -7),
+       "normalize_u8": ULP32, "pad_crop_u8": ULP32,
+       "conv_fused": dict(rtol=2 ** -6, atol=2 ** -7)}
+# step 1 on the card vs the host, both bf16 (cuDNN vs the CPU's convs,
+# rounding at other points): the loss within 2e-2 and each gradient's
+# norm within 5e-2 relative, plus 1e-3 of the largest norm for the
+# small ones
+STEP1_LOSS_RTOL = 2e-2
+STEP1_GRAD_RTOL = 5e-2
 # served logits (bf16 on the card) vs the plain path on the host, as a
 # fraction of max |logit|: the CPU test of the same comparison against JAX
 # holds 0.05 (tests/test_torch_resnet.py)
@@ -71,7 +117,13 @@ LOGIT_REL_TOL = 0.05
 SOURCES = {"conv_pair": ("myconvnet_tpu_torch/csrc/conv_pair.cu",
                          "myconvnet_tpu/ops/pallas/conv_pair.py:101"),
            "bn_act": ("myconvnet_tpu_torch/csrc/bn_act.cu",
-                      "myconvnet_tpu/ops/pallas/bn_act.py:48")}
+                      "myconvnet_tpu/ops/pallas/bn_act.py:48"),
+           "normalize_u8": ("myconvnet_tpu_torch/csrc/normalize_u8.cu",
+                            "myconvnet_tpu/ops/pallas/normalize_u8.py:34"),
+           "pad_crop_u8": ("myconvnet_tpu_torch/csrc/pad_crop_u8.cu",
+                           "myconvnet_tpu/ops/pallas/pad_crop_u8.py:68"),
+           "conv_fused": ("myconvnet_tpu_torch/csrc/conv_fused.cu",
+                          "myconvnet_tpu/ops/pallas/conv_fused.py:82")}
 
 
 def log(*a):
@@ -169,7 +221,7 @@ def check_kernels(dev):
             f"atol={TOL['conv_pair']['atol']:.3g}) ok={ok} "
             f"kernel={row['ms']:.4f}ms plain={row['plain_ms']:.4f}ms "
             f"cudnn_bf16_unfused={row['cudnn_bf16_ms']:.4f}ms")
-    for site, shape in ACT_SITES:
+    for site, shape in ACT_SITES + ACT_SITES_R18:
         x = randn(*shape).to(torch.bfloat16)
         c = shape[-1]
         a, b = torch.ones(c, device=dev), randn(c, scale=0.5)
@@ -188,6 +240,7 @@ def check_kernels(dev):
             f"(tol rtol={TOL['bn_act']['rtol']:.3g} "
             f"atol={TOL['bn_act']['atol']:.3g}) ok={ok} "
             f"kernel={row['ms']:.4f}ms plain={row['plain_ms']:.4f}ms")
+    details += check_cifar_kernels(dev, g)
     for name in SOURCES:
         rows = [r for r in details if r["kernel"] == name]
         summary[name] = dict(
@@ -196,6 +249,78 @@ def check_kernels(dev):
             ms=sum(r["ms"] * r["sites"] for r in rows),
             plain_ms=sum(r["plain_ms"] * r["sites"] for r in rows))
     return summary, details
+
+
+def check_cifar_kernels(dev, g):
+    """normalize_u8, pad_crop_u8 and conv_fused against their plain
+    versions at the CIFAR recipe's shapes; one row per shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from myconvnet_tpu_torch import recipes
+    from myconvnet_tpu_torch.data.augment import stats
+    from myconvnet_tpu_torch.ops.kernels import conv_fused, normalize_u8, \
+        pad_crop_u8
+
+    def row(kernel, shape, sites, out, ref, fn, plain_fn, **extra):
+        torch.cuda.synchronize()
+        err, ok = compare(out, ref, **TOL[kernel])
+        r = dict(kernel=kernel, shape=list(shape), sites=sites,
+                 max_abs_err=err, ok=ok, ms=cuda_ms(fn),
+                 plain_ms=cuda_ms(plain_fn),
+                 **{k: cuda_ms(f) for k, f in extra.items()})
+        log(f"{kernel} {r['shape']} x{sites}: max_abs_err={err:.3g} "
+            f"(tol rtol={TOL[kernel]['rtol']:.3g} "
+            f"atol={TOL[kernel]['atol']:.3g}) ok={ok} "
+            + " ".join(f"{k}={r[k]:.4f}ms" for k in
+                       ("ms", "plain_ms", *extra)))
+        return r
+
+    mean, std = stats(recipes.make_augment(
+        recipes.load_config(CIFAR_CONFIG)["augment"]), dev)
+    rows = []
+    x = torch.randint(0, 256, INPUT_SHAPE, generator=g, device=dev,
+                      dtype=torch.uint8)
+    rows.append(row(
+        "normalize_u8", INPUT_SHAPE, 1,
+        normalize_u8.normalize_u8(x, mean, std),
+        normalize_u8.normalize_u8_reference(x, mean, std),
+        lambda: normalize_u8.normalize_u8(x, mean, std),
+        lambda: normalize_u8.normalize_u8_reference(x, mean, std)))
+    off = torch.randint(-4, 5, (TRAIN_BATCH, 2), generator=g, device=dev,
+                        dtype=torch.int32)
+    flip = torch.rand(TRAIN_BATCH, generator=g, device=dev) < 0.5
+    args = (x, off, flip, mean, std)
+    rows.append(row(
+        "pad_crop_u8", INPUT_SHAPE, 1,
+        pad_crop_u8.pad_crop_flip_normalize(*args),
+        pad_crop_u8.pad_crop_reference(*args),
+        lambda: pad_crop_u8.pad_crop_flip_normalize(*args),
+        lambda: pad_crop_u8.pad_crop_reference(*args)))
+
+    def cudnn_bf16(x, w3, s, b):
+        """cuDNN's bf16 conv with an eager epilogue, for timing only."""
+        y = F.conv2d(x.permute(0, 3, 1, 2), w3.permute(3, 2, 0, 1),
+                     padding=1)
+        return torch.relu(y * s[:, None, None] + b[:, None, None]
+                          ).to(torch.bfloat16).permute(0, 2, 3, 1)
+
+    for (n, h, w, c, co), count in FUSED_SITES:
+        xb = (torch.randn(n, h, w, c, generator=g, device=dev)
+              .to(torch.bfloat16))
+        w3 = (torch.randn(co, 3, 3, c, generator=g, device=dev)
+              * (9 * c) ** -0.5).to(torch.bfloat16).permute(1, 2, 3, 0)
+        s = torch.rand(co, generator=g, device=dev) + 0.5
+        b = torch.randn(co, generator=g, device=dev) * 0.3
+        a = (xb, w3, s, b)
+        rows.append(row(
+            "conv_fused", (n, h, w, c, co), count,
+            conv_fused.conv3x3_bn_relu(*a),
+            conv_fused.conv3x3_bn_relu_reference(*a),
+            lambda: conv_fused.conv3x3_bn_relu(*a),
+            lambda: conv_fused.conv3x3_bn_relu_reference(*a),
+            cudnn_bf16_ms=lambda: cudnn_bf16(*a)))
+    return rows
 
 
 def post(url, body):
@@ -309,6 +434,218 @@ def serve_and_check(dev):
     return counts, calls, checks
 
 
+def device_busy(fn, iters=5):
+    """torch.profiler over ``iters`` calls of ``fn``: (device busy ms per
+    call = the union of the kernels' intervals, span ms per call from the
+    first kernel's start to the last one's end, kernels per call, the ten
+    kernels with the most device time as [name, ms per call, launches per
+    call]); busy is None when the trace shows no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    # device kernels, copies and fills; not the record_function ranges
+    # (Optimizer.step, ...) that the profiler mirrors onto the device
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    if not spans:
+        return None, None, 0, []
+    by_name = {}
+    for e in events:
+        t, k = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.end - e.time_range.start, k + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    top = [[name[:90], t / 1e3 / iters, k / iters]
+           for name, (t, k) in top]
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo, hi = busy + hi - lo, a, b
+        else:
+            hi = max(hi, b)
+    busy += hi - lo
+    span = max(b for _, b in spans) - spans[0][0]
+    return busy / 1e3 / iters, span / 1e3 / iters, len(spans) / iters, top
+
+
+def check_counts(counts, expect, what):
+    for name, want in expect.items():
+        if counts[name] != want:
+            raise AssertionError(f"{what}: {name} launched {counts[name]} "
+                                 f"times, want {want}")
+    log(f"{what}: launches {counts} ok")
+
+
+def step_one_against_host(dev):
+    """Step 1 of the recipe from the same seeded JAX-layout weights,
+    batch and draws on the card and on the host (where every kernel
+    wrapper runs its plain version)."""
+    import numpy as np
+    import torch
+
+    from myconvnet_tpu_torch import recipes, weights
+    from myconvnet_tpu_torch.data.mix import MixDraws
+    from myconvnet_tpu_torch.train.trainer import StepDraws
+
+    cfg = recipes.load_config(CIFAR_CONFIG)
+    card, train_set, _ = recipes.build_classifier(cfg, True, device=dev)
+    host, _, _ = recipes.build_classifier(cfg, True,
+                                          device=torch.device("cpu"))
+    params, state = weights.random_jax_params(card.model, SEED)
+    for t in (card, host):
+        weights.from_jax(t.model, params, state)
+    xs, ys = train_set.source.get_batch(np.arange(TRAIN_BATCH))
+    x, y = torch.from_numpy(xs), torch.from_numpy(ys)
+    draws = card.sample(TRAIN_BATCH, INPUT_SHAPE[1:3])
+    on_host = StepDraws(draws.boxes.cpu(), draws.flip.cpu(),
+                        MixDraws(*(t.cpu() for t in draws.mix)))
+    t0 = time.perf_counter()
+    loss_card = float(card.loss_and_grads(x.to(dev), y.to(dev), draws)[0])
+    t1 = time.perf_counter()
+    loss_host = float(host.loss_and_grads(x, y, on_host)[0])
+    t2 = time.perf_counter()
+    norms = [(path, float(pc.grad.float().norm()), float(ph.grad.norm()))
+             for (path, pc, _), (_, ph, _) in zip(
+                 weights.param_views(card.model),
+                 weights.param_views(host.model))]
+    biggest = max(h for _, _, h in norms)
+    bad = [(p, c, h) for p, c, h in norms
+           if abs(c - h) > STEP1_GRAD_RTOL * h + 1e-3 * biggest]
+    worst = max(abs(c - h) / max(h, 1e-30) for _, c, h in norms)
+    loss_rel = abs(loss_card - loss_host) / abs(loss_host)
+    log(f"step 1, card vs host: loss {loss_card:.6f} vs {loss_host:.6f} "
+        f"(rel {loss_rel:.3g}, tol {STEP1_LOSS_RTOL}); {len(norms)} "
+        f"gradient norms, worst rel diff {worst:.3g} (tol "
+        f"{STEP1_GRAD_RTOL} + 1e-3 of the largest), outside: {len(bad)}; "
+        f"card {t1 - t0:.2f}s (first, cold), host {t2 - t1:.2f}s")
+    if not (np.isfinite(loss_card) and loss_rel <= STEP1_LOSS_RTOL):
+        raise AssertionError("step-1 loss disagrees with the host")
+    if bad:
+        raise AssertionError(f"step-1 gradient norms disagree: {bad[:5]}")
+    return dict(loss_card=loss_card, loss_host=loss_host, loss_rel=loss_rel,
+                grad_worst_rel=worst, n_grads=len(norms))
+
+
+def train_and_check(dev):
+    """Drive the train and test entry points; returns (launch counts of
+    the two runs, checks).  The run's checkpoints (~90 MB each at full
+    width) go under build/, which is git-ignored, and are removed."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from myconvnet_tpu_torch import recipes, test, train
+    from myconvnet_tpu_torch.nn import BatchNorm
+    from myconvnet_tpu_torch.ops import kernels
+
+    checks = {"step1": step_one_against_host(dev)}
+    run_dir = os.path.join(ROOT, "build", "chip_smoke_run")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    trainer = train.main([
+        "--config", CIFAR_CONFIG, "--synthetic", "--steps", str(TRAIN_STEPS),
+        "--val_every", str(VAL_EVERY), "--batch", str(TRAIN_BATCH),
+        "--out", run_dir, "--set", "log_every=1", "--device", "cuda"])
+    torch.cuda.synchronize()
+    train_counts = kernels.launch_counts()
+    log(f"train.main: {TRAIN_STEPS} steps in "
+        f"{time.perf_counter() - t0:.1f}s (first steps build cuDNN plans)")
+    evals = (TRAIN_STEPS // VAL_EVERY + 1) * EVAL_BATCHES
+    check_counts(train_counts, {
+        "pad_crop_u8": PER_TRAIN_STEP["pad_crop_u8"] * TRAIN_STEPS,
+        **{k: v * evals for k, v in PER_EVAL_BATCH.items()},
+        "conv_pair": 0}, f"train.main ({TRAIN_STEPS} steps, {evals} eval "
+                         "batches)")
+    with open(os.path.join(run_dir, "train.jsonl")) as f:
+        losses = [r["loss"] for r in map(json.loads, f) if "loss" in r]
+    if len(losses) != TRAIN_STEPS or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"losses not all finite: {losses}")
+    bns = [m for m in trainer.model.modules() if isinstance(m, BatchNorm)]
+    still = [m for m in bns if not bool(
+        (m.moving_mean != 0).any() and (m.moving_var != 1).any())]
+    if still:
+        raise AssertionError(f"{len(still)} of {len(bns)} BN moving stats "
+                             "did not move")
+    log(f"losses finite: first {losses[0]:.4f} last {losses[-1]:.4f}; "
+        f"moving stats of all {len(bns)} BNs moved")
+    checks.update(losses=losses)
+
+    kernels.reset_launch_counts()
+    score, restored = test.main(["--config", CIFAR_CONFIG, "--synthetic",
+                                 "--ckpt", run_dir, "--device", "cuda"])
+    torch.cuda.synchronize()
+    eval_counts = kernels.launch_counts()
+    check_counts(eval_counts, {
+        **{k: v * EVAL_BATCHES for k, v in PER_EVAL_BATCH.items()},
+        "pad_crop_u8": 0, "conv_pair": 0}, "test.main")
+    _, _, val_set = recipes.build_classifier(
+        recipes.load_config(CIFAR_CONFIG), True, device=torch.device("cpu"))
+    xs, _ = val_set.source.get_batch(np.arange(TRAIN_BATCH))
+    x = torch.from_numpy(xs)
+    writer = trainer.eval_step(x.to(dev))
+    reread = restored.eval_step(x.to(dev))
+    host, _, _ = recipes.build_classifier(
+        recipes.load_config(CIFAR_CONFIG), True, device=torch.device("cpu"))
+    host.load_state(trainer.state())
+    plain = host.eval_step(x).numpy()
+    card = writer.cpu().numpy()
+    rel = float(np.abs(card - plain).max() / np.abs(plain).max())
+    same = bool(torch.equal(writer, reread))
+    log(f"test.main top-1 {score:.4f} on {EVAL_BATCHES * TRAIN_BATCH} "
+        f"images; restored logits equal the writer's: {same}; card vs host "
+        f"plain path max|diff|/max|logit| = {rel:.4g} (tol "
+        f"{LOGIT_REL_TOL}); finite {bool(np.isfinite(card).all())}")
+    if not same:
+        raise AssertionError("restored model's logits differ")
+    if card.shape != (TRAIN_BATCH, 100) or not np.isfinite(card).all() \
+            or rel > LOGIT_REL_TOL:
+        raise AssertionError("eval logits disagree with the plain path")
+    checks.update(top1=score, eval_logit_rel_err=rel)
+    shutil.rmtree(run_dir)
+
+    # the train step's rate, after the runs above (it moves the weights)
+    xd = x.to(dev)
+    yd = torch.from_numpy(val_set.source.labels[:TRAIN_BATCH]).to(dev)
+    for _ in range(3):
+        trainer.train_step(xd, yd)
+    torch.cuda.synchronize()
+    iters = 20
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        trainer.train_step(xd, yd)
+    host_ms = (time.perf_counter() - t0) * 1e3 / iters
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / iters
+    busy, span, n_kernels, top = device_busy(
+        lambda: trainer.train_step(xd, yd))
+    rate = dict(step_ms=step_ms, images_per_sec=TRAIN_BATCH * 1e3 / step_ms,
+                host_enqueue_ms=host_ms, device_busy_ms=busy,
+                device_span_ms=span, kernels_per_step=n_kernels,
+                top_kernels=top)
+    log(f"train step (batch {TRAIN_BATCH}, CUDA events over {iters} steps "
+        f"after 3 warm-up): {step_ms:.3f} ms, "
+        f"{rate['images_per_sec']:.1f} images/s; host enqueue "
+        f"{host_ms:.3f} ms/step; torch.profiler: device busy "
+        f"{busy if busy is None else round(busy, 3)} ms/step over "
+        f"{n_kernels:.0f} kernels")
+    checks["train_step"] = rate
+    return train_counts, eval_counts, checks
+
+
 def main() -> int:
     try:
         import torch
@@ -328,9 +665,10 @@ def main() -> int:
         print(f"chip_smoke: the port's package is not here ({e}); run from "
               "a checkout of the repo", file=sys.stderr)
         return 1
-    if not os.path.exists(CONFIG):
-        print(f"chip_smoke: {CONFIG} is missing", file=sys.stderr)
-        return 1
+    for path in (CONFIG, CIFAR_CONFIG):
+        if not os.path.exists(path):
+            print(f"chip_smoke: {path} is missing", file=sys.stderr)
+            return 1
 
     dev = torch.device("cuda", 0)
     card = run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -349,22 +687,27 @@ def main() -> int:
         f"{compile_s:.1f}s, build+load {time.perf_counter() - t0:.1f}s")
 
     summary, details = check_kernels(dev)
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
     counts, calls, checks = serve_and_check(dev)
+    train_counts, eval_counts, checks["cifar"] = train_and_check(dev)
+    launches = {name: counts[name] + train_counts[name] + eval_counts[name]
+                for name in SOURCES}
 
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
-         "replaces": SOURCES[name][1], "launches": counts[name],
+         "replaces": SOURCES[name][1], "launches": launches[name],
          "max_abs_err": summary[name]["max_abs_err"],
          "ms": summary[name]["ms"], "plain_ms": summary[name]["plain_ms"]}
         for name in SOURCES]}
     bad = [n for n, s in summary.items() if not s["ok"]]
-    out_dir = os.path.join(ROOT, "chiprun_out")
-    os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__,
                    "kernels": record["kernels"], "per_shape": details,
-                   "device_calls": calls, "checks": checks,
-                   "failed": bad}, f, indent=1)
+                   "device_calls": calls,
+                   "launches": {"serve": counts, "train": train_counts,
+                                "test": eval_counts},
+                   "checks": checks, "failed": bad}, f, indent=1)
     if bad:
         raise AssertionError(f"kernels outside tolerance: {bad}")
     log(json.dumps(record))

@@ -6,7 +6,9 @@ its paths where that helps a reader find the counterpart
 This package imports ``torch`` and ``numpy``, never ``jax``.
 
 Slice 1 covers the eval/serving path of the ResNet-50 recipe
-(``configs/imagenet_resnet50.py``): NHWC activations, cuDNN convolutions,
-and two hand-written CUDA kernels (``ops/kernels``) where the JAX package
-has Pallas kernels for the same math.
+(``configs/imagenet_resnet50.py``), slice 2 the training and evaluation
+path of the CIFAR-100 ResNet-18 recipe (``configs/cifar100_resnet18.py``,
+``python -m myconvnet_tpu_torch.train`` and ``.test``): NHWC activations,
+cuDNN convolutions, and hand-written CUDA kernels (``ops/kernels``) where
+the JAX package has Pallas kernels for the same math.
 """

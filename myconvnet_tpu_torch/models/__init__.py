@@ -1,6 +1,7 @@
-from myconvnet_tpu_torch.models.resnet import ResNet, resnet50
+from myconvnet_tpu_torch.models.resnet import (ResNet, resnet18, resnet34,
+                                               resnet50)
 
-MODELS = {"resnet50": resnet50}
+MODELS = {"resnet18": resnet18, "resnet34": resnet34, "resnet50": resnet50}
 
 
 def get_model(name: str, num_classes: int, **kwargs) -> ResNet:
@@ -10,4 +11,5 @@ def get_model(name: str, num_classes: int, **kwargs) -> ResNet:
     return MODELS[name](num_classes, **kwargs)
 
 
-__all__ = ["MODELS", "ResNet", "get_model", "resnet50"]
+__all__ = ["MODELS", "ResNet", "get_model", "resnet18", "resnet34",
+           "resnet50"]

@@ -1,22 +1,30 @@
-"""ResNet v1.5 with bottleneck blocks (depth 50), NHWC, eval forward.
+"""ResNet v1.5 (depths 18, 34 and 50), NHWC, train and eval forward.
 
-Port of ``myconvnet_tpu/models/resnet.py:92-254`` for the serving slice.
-Module paths equal the JAX scope paths with "/" read as "."
-(``stem.conv``, ``stage1.block1.conv_a``, ``logits``), and both stems
-(``conv7``, ``s2d``) and ``torch_padding`` carry over.  BN eps is 1e-5
-(``resnet.py:47``).  Basic blocks (depth 18/34), ResNeXt groups, SE and
-dilated stages come with later slices.
+Port of ``myconvnet_tpu/models/resnet.py:61-259``.  Module paths equal the
+JAX scope paths with "/" read as "." (``stem.conv``,
+``stage1.block1.conv_a``, ``logits``), and both stems (``conv7``, ``s2d``)
+and ``torch_padding`` carry over.  BN momentum is 0.9 and eps 1e-5
+(``resnet.py:47``); each block's last BN starts with gamma 0 (``bn_b`` of a
+basic block, ``bn_c`` of a bottleneck).  A projection shortcut sits only
+where the shape changes, so stage 1 of ResNet-18/34 keeps identity
+shortcuts (``resnet.py:199-210``).  ResNeXt groups, SE and dilated stages
+come with later slices.
 
-Where the kernels sit in the forward:
+In train mode (``module.training``) every layer is plain PyTorch, in the
+JAX order: conv in the compute dtype -> BN (float32 statistics, output in
+the compute dtype) -> ReLU.  The kernels are inference epilogues and run
+only in eval mode:
 
-* a block whose 3x3 has stride 1 runs conv_a -> bn_a -> relu -> conv_b ->
-  bn_b -> relu through ``conv1x1_conv3x3_bn_relu`` when its channel counts
-  are ones the kernel takes (``Bottleneck.pair``, fixed at construction)
-  and the activations are bf16 (the kernel's type); in ResNet-50 that is
-  13 of the 16 blocks;
-* every other conv -> BN -> ReLU (the stem; conv_a and the stride-2 conv_b
-  of each stage's first block) is a cuDNN conv without bias followed by
-  ``fused_scale_shift_act`` with the bias and BN folded into (a, b).
+* a bottleneck whose 3x3 has stride 1 runs conv_a -> bn_a -> relu ->
+  conv_b -> bn_b -> relu through ``conv1x1_conv3x3_bn_relu`` when its
+  channel counts are ones the kernel takes (``Bottleneck.pair``) and the
+  activations are bf16; in ResNet-50 that is 13 of the 16 blocks;
+* a basic block whose conv_a has stride 1 runs conv_a -> bn_a -> relu
+  through ``conv3x3_bn_relu`` (bf16); in ResNet-18 that is 5 of the 8
+  blocks (stage1.block1-2, stage2-4.block2);
+* every other conv -> BN -> ReLU (the stem; the remaining conv_a and the
+  stride-2 conv_b of a bottleneck) is a cuDNN conv without bias followed
+  by ``fused_scale_shift_act`` with the bias and BN folded into (a, b).
 """
 
 from __future__ import annotations
@@ -27,17 +35,27 @@ from torch import nn
 from myconvnet_tpu_torch.nn import (BatchNorm, Conv, Dense, conv_epilogue,
                                     gap, relu)
 from myconvnet_tpu_torch.ops.kernels import (conv1x1_conv3x3_bn_relu,
+                                             conv3x3_bn_relu,
                                              fused_scale_shift_act)
+from myconvnet_tpu_torch.ops.kernels import conv_fused as conv_fused_lib
 from myconvnet_tpu_torch.ops.kernels import conv_pair as conv_pair_lib
 from myconvnet_tpu_torch.ops.pool import max_pool2d
 
-STAGE_BLOCKS = {50: (3, 4, 6, 3)}
+STAGE_BLOCKS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3)}
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9
+
+
+def _bn(c: int, zero_init: bool = False) -> BatchNorm:
+    return BatchNorm(c, BN_EPS, BN_MOMENTUM, zero_init=zero_init)
 
 
 def conv_bn_relu(conv: Conv, bn: BatchNorm, x: torch.Tensor
                  ) -> torch.Tensor:
-    """cuDNN conv, then bias/BN + ReLU in one pass of the bn_act kernel."""
+    """Train mode: conv -> BN -> ReLU as plain ops.  Eval mode: cuDNN
+    conv, then bias/BN + ReLU in one pass of the bn_act kernel."""
+    if bn.training:
+        return relu(bn(conv(x)))
     a, b = conv_epilogue(conv, bn)
     return fused_scale_shift_act(conv(x, add_bias=False).contiguous(),
                                  a, b, "relu")
@@ -49,21 +67,56 @@ def _pad3(torch_padding: bool):
     return ((1, 1), (1, 1)) if torch_padding else "SAME"
 
 
+class BasicBlock(nn.Module):
+    expansion = 1
+
+    def __init__(self, cin: int, features: int, *, stride: int,
+                 projection: bool, torch_padding: bool = False):
+        super().__init__()
+        self.conv_a = Conv(cin, features, 3, stride=stride,
+                           padding=_pad3(torch_padding))
+        self.bn_a = _bn(features)
+        self.conv_b = Conv(features, features, 3,
+                           padding=_pad3(torch_padding))
+        self.bn_b = _bn(features, zero_init=True)
+        if projection:
+            self.conv_proj = Conv(cin, features, 1, stride=stride)
+            self.bn_proj = _bn(features)
+        self.projection = projection
+        # static routing: a stride-1 conv_a (SAME and torch padding agree
+        # there) goes through the fused conv3x3 kernel in eval mode
+        self.fused = stride == 1 and conv_fused_lib.supports(cin)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fused and not self.training and x.dtype == torch.bfloat16:
+            a, b = conv_epilogue(self.conv_a, self.bn_a)
+            y = conv3x3_bn_relu(x, self.conv_a.w.to(x.dtype), a, b)
+        else:
+            y = conv_bn_relu(self.conv_a, self.bn_a, x)
+        y = self.bn_b(self.conv_b(y))
+        shortcut = x
+        if self.projection:
+            shortcut = self.bn_proj(self.conv_proj(x))
+        return relu(y + shortcut)
+
+
 class Bottleneck(nn.Module):
+    expansion = 4
+
     def __init__(self, cin: int, features: int, *, stride: int,
                  projection: bool, torch_padding: bool = False):
         super().__init__()
         out = 4 * features
         self.conv_a = Conv(cin, features, 1)
-        self.bn_a = BatchNorm(features, BN_EPS)
+        self.bn_a = _bn(features)
         self.conv_b = Conv(features, features, 3, stride=stride,
                            padding=_pad3(torch_padding))
-        self.bn_b = BatchNorm(features, BN_EPS)
+        self.bn_b = _bn(features)
         self.conv_c = Conv(features, out, 1)
-        self.bn_c = BatchNorm(out, BN_EPS)
+        self.bn_c = _bn(out, zero_init=True)
         if projection:
             self.conv_proj = Conv(cin, out, 1, stride=stride)
-            self.bn_proj = BatchNorm(out, BN_EPS)
+            self.bn_proj = _bn(out)
         self.projection = projection
         # static routing: conv_a + conv_b go through the fused pair kernel
         # when the 3x3 has stride 1 (SAME and torch padding agree there)
@@ -72,11 +125,11 @@ class Bottleneck(nn.Module):
                                                            features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.pair and x.dtype == torch.bfloat16:
+        if self.pair and not self.training and x.dtype == torch.bfloat16:
             a1, b1 = conv_epilogue(self.conv_a, self.bn_a)
             a3, b3 = conv_epilogue(self.conv_b, self.bn_b)
-            y = conv1x1_conv3x3_bn_relu(x, self.conv_a.w, a1, b1,
-                                        self.conv_b.w, a3, b3)
+            y = conv1x1_conv3x3_bn_relu(x, self.conv_a.w.to(x.dtype), a1, b1,
+                                        self.conv_b.w.to(x.dtype), a3, b3)
         else:
             y = conv_bn_relu(self.conv_a, self.bn_a, x)
             y = conv_bn_relu(self.conv_b, self.bn_b, y)
@@ -105,7 +158,7 @@ class Stem(nn.Module):
             self.conv = Conv(cin, width, 7, stride=2,
                              padding=((3, 3), (3, 3)) if torch_padding
                              else "SAME")
-        self.bn = BatchNorm(width, BN_EPS)
+        self.bn = _bn(width)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.kind == "s2d":
@@ -129,20 +182,21 @@ class ResNet(nn.Module):
         if depth not in STAGE_BLOCKS:
             raise ValueError(f"the port has ResNet depth "
                              f"{sorted(STAGE_BLOCKS)}, not {depth}")
+        block = Bottleneck if depth >= 50 else BasicBlock
         self.stem = Stem(in_channels, width, stem, torch_padding)
         cin = width
         for s, n_blocks in enumerate(STAGE_BLOCKS[depth]):
             features = width * 2 ** s
+            out = block.expansion * features
             stride = 1 if s == 0 else 2
             stage = nn.Module()
             for b in range(n_blocks):
                 blk_stride = stride if b == 0 else 1
-                stage.add_module(f"block{b + 1}", Bottleneck(
+                stage.add_module(f"block{b + 1}", block(
                     cin, features, stride=blk_stride,
-                    projection=b == 0 and (blk_stride != 1
-                                           or cin != 4 * features),
+                    projection=b == 0 and (blk_stride != 1 or cin != out),
                     torch_padding=torch_padding))
-                cin = 4 * features
+                cin = out
             self.add_module(f"stage{s + 1}", stage)
         self.n_stages = len(STAGE_BLOCKS[depth])
         self.logits = Dense(cin, num_classes)
@@ -153,6 +207,14 @@ class ResNet(nn.Module):
             for blk in getattr(self, f"stage{s + 1}").children():
                 x = blk(x)
         return self.logits(gap(x))
+
+
+def resnet18(num_classes: int = 1000, **kwargs) -> ResNet:
+    return ResNet(num_classes, depth=18, **kwargs)
+
+
+def resnet34(num_classes: int = 1000, **kwargs) -> ResNet:
+    return ResNet(num_classes, depth=34, **kwargs)
 
 
 def resnet50(num_classes: int = 1000, **kwargs) -> ResNet:

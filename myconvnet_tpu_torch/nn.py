@@ -1,6 +1,7 @@
-"""Layers of the eval path, as ``torch.nn`` modules on NHWC tensors.
+"""Layers of the train and eval paths, as ``torch.nn`` modules on NHWC
+tensors.
 
-Port of the subset of ``myconvnet_tpu/nn.py`` that ResNet-50 serving uses.
+Port of the subset of ``myconvnet_tpu/nn.py`` that the ResNets use.
 Module names follow the JAX scope names, so ``weights.from_jax`` maps
 ``{"stage1/block1/conv_a": {"w": ...}}`` onto ``stage1.block1.conv_a``.
 
@@ -8,8 +9,15 @@ Module names follow the JAX scope names, so ``weights.from_jax`` maps
   cuDNN and the CUDA kernels read without a copy) and exposes it in the
   JAX package's HWIO layout through :attr:`Conv.w`.  Its bias is optional
   and is filled in when a following BN is folded into it (``nn.py:100-105``).
-* :class:`BatchNorm` is eval-only here, with a per-module eps, and becomes
-  the identity once folded (``nn.py:254-282``).
+  Parameters stay float32 under the bf16 policy and are cast to the
+  activations' dtype at use, as ``pol.cast_to_compute(w)`` does
+  (``nn.py:97``); a served model casts them once instead.
+* :class:`BatchNorm` (``nn.py:254-282``) normalizes with batch statistics
+  when the module is training and updates its moving statistics in place,
+  ``moving = m * moving + (1 - m) * batch`` on the biased variance; torch's
+  ``BatchNorm2d`` keeps an unbiased running variance and the inverse
+  momentum, so it is not used.  In eval mode it normalizes with the moving
+  statistics, and it becomes the identity once folded.
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ import torch
 from torch import nn
 
 from myconvnet_tpu_torch.ops.batch_norm import (batch_norm_inference,
+                                                batch_norm_train,
                                                 bn_scale_shift)
 from myconvnet_tpu_torch.ops.conv import Padding, conv2d
 from myconvnet_tpu_torch.ops.pool import global_avg_pool
@@ -43,18 +52,24 @@ class Conv(nn.Module):
 
     def forward(self, x: torch.Tensor, add_bias: bool = True
                 ) -> torch.Tensor:
-        return conv2d(x, self.w, self.bias if add_bias else None,
-                      stride=self.stride, padding=self.padding)
+        b = self.bias.to(x.dtype) if add_bias and self.bias is not None \
+            else None
+        return conv2d(x, self.w.to(x.dtype), b, stride=self.stride,
+                      padding=self.padding)
 
 
 class BatchNorm(nn.Module):
-    """Eval BN over the last axis: float32 gamma/beta and moving stats."""
+    """BN over the last axis: float32 gamma/beta and moving stats.
+    ``zero_init`` starts gamma at 0 (a residual branch's last BN)."""
 
-    def __init__(self, c: int, eps: float = 1e-3):
+    def __init__(self, c: int, eps: float = 1e-3, momentum: float = 0.99,
+                 zero_init: bool = False):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.folded = False
-        self.gamma = nn.Parameter(torch.ones(c))
+        self.gamma = nn.Parameter(torch.zeros(c) if zero_init
+                                  else torch.ones(c))
         self.beta = nn.Parameter(torch.zeros(c))
         self.register_buffer("moving_mean", torch.zeros(c))
         self.register_buffer("moving_var", torch.ones(c))
@@ -70,6 +85,16 @@ class BatchNorm(nn.Module):
                               self.moving_var, self.eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            if self.folded:
+                raise RuntimeError("a folded BN cannot train")
+            y, mean, var = batch_norm_train(x, self.gamma, self.beta,
+                                            self.eps)
+            m = self.momentum
+            with torch.no_grad():
+                self.moving_mean.copy_(m * self.moving_mean + (1.0 - m) * mean)
+                self.moving_var.copy_(m * self.moving_var + (1.0 - m) * var)
+            return y
         if self.folded:
             return x
         return batch_norm_inference(x, self.gamma, self.beta,
@@ -96,7 +121,8 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.nn.functional.linear(x, self.weight, self.bias)
+        return torch.nn.functional.linear(x, self.weight.to(x.dtype),
+                                          self.bias.to(x.dtype))
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:

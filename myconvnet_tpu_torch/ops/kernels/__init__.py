@@ -6,13 +6,23 @@ version (which the wrapper runs for CPU tensors), and a note on the Pallas
 kernel it replaces.  ``_build`` compiles ``csrc/*.cu`` at first use.
 """
 
+from myconvnet_tpu_torch.ops.kernels import (bn_act, conv_fused, conv_pair,
+                                             normalize_u8, pad_crop_u8)
 from myconvnet_tpu_torch.ops.kernels.bn_act import (bn_inference_fused,
                                                     fused_scale_shift_act)
+from myconvnet_tpu_torch.ops.kernels.conv_fused import conv3x3_bn_relu
 from myconvnet_tpu_torch.ops.kernels.conv_pair import \
     conv1x1_conv3x3_bn_relu
+from myconvnet_tpu_torch.ops.kernels.pad_crop_u8 import \
+    pad_crop_flip_normalize
 
+# kernel name -> wrapper; ``normalize_u8.normalize_u8`` keeps the module's
+# name for the module
 WRAPPERS = {"bn_act": fused_scale_shift_act,
-            "conv_pair": conv1x1_conv3x3_bn_relu}
+            "conv_pair": conv1x1_conv3x3_bn_relu,
+            "normalize_u8": normalize_u8.normalize_u8,
+            "pad_crop_u8": pad_crop_flip_normalize,
+            "conv_fused": conv3x3_bn_relu}
 
 
 def reset_launch_counts() -> None:
@@ -24,5 +34,7 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
-__all__ = ["WRAPPERS", "bn_inference_fused", "conv1x1_conv3x3_bn_relu",
-           "fused_scale_shift_act", "launch_counts", "reset_launch_counts"]
+__all__ = ["WRAPPERS", "bn_act", "bn_inference_fused", "conv1x1_conv3x3_bn_relu",
+           "conv3x3_bn_relu", "conv_fused", "conv_pair",
+           "fused_scale_shift_act", "launch_counts", "normalize_u8",
+           "pad_crop_flip_normalize", "pad_crop_u8", "reset_launch_counts"]

@@ -1,16 +1,19 @@
 """Build and load the hand-written CUDA kernels under ``csrc/``.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` into one shared
-library with a plain C interface, which ``ctypes`` loads:
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` into an object, one
+process per source, all started together, then links the objects into one
+shared library with a plain C interface, which ``ctypes`` loads:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/kernels/<hash>/libmcn_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -c -o <name>.o csrc/<name>.cu      (each source)
+    nvcc -shared -o build/kernels/<hash>/libmcn_kernels.so *.o
 
 ``<hash>`` covers the sources, the flags and the compiler path, so an edit
-rebuilds and an unchanged tree reuses the library.  The compiler writes to
-a temporary file in the same directory and ``os.replace`` moves it into
-place, so processes that build at the same time never load a half-written
-library.  ``build/`` sits at the root of the checkout and is git-ignored.
+rebuilds and an unchanged tree reuses the library.  The compiler writes
+into a temporary directory beside it and ``os.replace`` moves the library
+into place, so processes that build at the same time never load a
+half-written library.  ``build/`` sits at the root of the checkout and is
+git-ignored.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch; the
 wrappers raise on a non-zero code.  Pointers and the stream are passed as
@@ -34,7 +37,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 LIB_NAME = "libmcn_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 P = ctypes.c_void_p
 I32 = ctypes.c_int
@@ -50,6 +53,15 @@ SIGNATURES = {
                       I32, I32, I32, I32, I32, I32, P),
     # n, h, w, cin, cm, cout, int[4] out: TH, TW, CS, shared-memory bytes
     "mcn_conv_pair_plan": (I32, I32, I32, I32, I32, I32, P),
+    # x, w, scale, bias, y, n, h, w, c, cout, stream
+    "mcn_conv3x3_bn_relu": (P, P, P, P, P, I32, I32, I32, I32, I32, P),
+    # x, mean, std, y, total, c, stream
+    "mcn_normalize_u8_f32": (P, P, P, P, I64, I32, P),
+    "mcn_normalize_u8_bf16": (P, P, P, P, I64, I32, P),
+    # x, offsets [N, 2] int32, flip [N] bool, mean, std, y, n, h, w, c,
+    # stream
+    "mcn_pad_crop_u8_f32": (P, P, P, P, P, P, I32, I32, I32, I32, P),
+    "mcn_pad_crop_u8_bf16": (P, P, P, P, P, P, I32, I32, I32, I32, P),
 }
 
 
@@ -88,19 +100,28 @@ def build() -> tuple[Path, float]:
     if lib.exists():
         return lib, 0.0
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=out_dir, suffix=".so.tmp")
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in sources()]
+        compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                    for src, obj in zip(sources(), objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for cmd in compiles]
+        failed = []
+        for cmd, proc in zip(compiles, procs):
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{err}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp_lib = os.path.join(tmp, LIB_NAME)
+        link = [nvcc, "-shared", "-o", tmp_lib, *objs]
+        proc = subprocess.run(link, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stderr}")
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(link)}\n{proc.stderr}")
+        os.replace(tmp_lib, lib)
     return lib, time.perf_counter() - t0
 
 

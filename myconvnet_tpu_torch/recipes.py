@@ -1,25 +1,44 @@
-"""Recipe configs (``configs/*.py``) read without the JAX package.
+"""Recipe configs (``configs/*.py``) read and wired without the JAX package.
 
-Port of ``myconvnet_tpu/recipes/common.load_config`` and of the mean/std
-resolution in ``serving_http.build_route`` (``:134-145``): a recipe's
-``augment`` block may set ``mean``/``std``, and otherwise the ImageNet
-statistics of ``data/augment.AugmentConfig`` apply.
+Port of ``myconvnet_tpu/recipes``: ``load_config`` and ``apply_overrides``
+(``common.py``), ``make_optimizer`` (``common.py:68``), ``make_augment``
+(``:124``), ``make_sources`` (``:131-163``) and, for classification,
+``build_classifier`` (``vision.py:23-65``), which here builds the trainer
+directly (the ``ConvNet`` wrapper of ``models/base.py`` comes later).
+Also the mean/std resolution of ``serving_http.build_route``
+(``:134-145``): a recipe's ``augment`` block may set ``mean``/``std``, and
+otherwise the ImageNet statistics of ``AugmentConfig`` apply.
 """
 
 from __future__ import annotations
 
+import ast
 import importlib.util
 import json
 
 import numpy as np
+import torch
 
-IMAGENET_MEAN = (0.485, 0.456, 0.406)
-IMAGENET_STD = (0.229, 0.224, 0.225)
+from myconvnet_tpu_torch import models
+from myconvnet_tpu_torch.core.init import init_model
+from myconvnet_tpu_torch.core.precision import apply_backend_flags, \
+    get_policy
+from myconvnet_tpu_torch.data.augment import IMAGENET_MEAN, IMAGENET_STD, \
+    AugmentConfig
+from myconvnet_tpu_torch.data.mix import MixConfig
+from myconvnet_tpu_torch.data.pipeline import DataSet
+from myconvnet_tpu_torch.eval.evaluators import AccuracyEvaluator
+from myconvnet_tpu_torch.subsets import cifar100
+from myconvnet_tpu_torch.train import optim
+from myconvnet_tpu_torch.train.losses import softmax_cross_entropy
+from myconvnet_tpu_torch.train.trainer import Trainer
+from myconvnet_tpu_torch.utils.logging import MetricLogger
+from myconvnet_tpu_torch.weights import param_views
 
 
 def load_config(path: str) -> dict:
     """A recipe: a .py module exposing ``config``, or the .json dump that
-    ``train.py`` writes next to its checkpoints."""
+    the train entry point writes next to its checkpoints."""
     if path.endswith(".json"):
         with open(path) as f:
             return json.load(f)
@@ -27,6 +46,29 @@ def load_config(path: str) -> dict:
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return dict(mod.config)
+
+
+def apply_overrides(cfg: dict, pairs) -> dict:
+    """``KEY=VALUE`` overrides (``--set``): values parse as Python
+    literals, else stay strings; dotted keys reach nested dicts
+    (``--set model_kwargs.width=8``)."""
+    for pair in pairs or []:
+        key, sep, raw = pair.partition("=")
+        if not sep or not key:
+            raise ValueError(f"--set wants KEY=VALUE, got {pair!r}")
+        try:
+            val = ast.literal_eval(raw)
+        except (ValueError, SyntaxError):
+            val = raw
+        tgt = cfg
+        parts = key.split(".")
+        for seg in parts[:-1]:
+            nxt = tgt.get(seg)
+            if not isinstance(nxt, dict):
+                nxt = tgt[seg] = {}
+            tgt = nxt
+        tgt[parts[-1]] = val
+    return cfg
 
 
 def normalization(cfg: dict | None, channels: int = 3
@@ -39,3 +81,78 @@ def normalization(cfg: dict | None, channels: int = 3
         mean = np.full((channels,), float(mean.mean()), np.float32)
         std = np.full((channels,), float(std.mean()), np.float32)
     return mean, std
+
+
+def make_augment(aug_cfg: dict | None) -> AugmentConfig | None:
+    if aug_cfg is None:
+        return None
+    return AugmentConfig(**{k: tuple(v) if isinstance(v, list) else v
+                            for k, v in aug_cfg.items()})
+
+
+def make_optimizer(model: torch.nn.Module, opt_cfg: dict) -> optim.SGD:
+    """The recipe's optimizer over ``model``'s parameters (by JAX path)."""
+    opt_cfg = dict(opt_cfg)
+    name = opt_cfg.pop("name")
+    lr = opt_cfg.pop("lr")
+    if isinstance(lr, dict):
+        lr = optim.make_schedule(lr)
+    if opt_cfg.pop("wd_exclude_norms", False):
+        opt_cfg["weight_decay_exclude"] = optim.norm_and_bias_exclusion
+    named = [(path, p) for path, p, _ in param_views(model)]
+    return optim.make_optimizer(named, name, lr, **opt_cfg)
+
+
+def make_sources(cfg: dict, synthetic: bool, splits=("train", "val")):
+    """One ``ArraySource`` per split; CIFAR's "val" split is "test"."""
+    table = {"cifar100": cifar100}
+    name = cfg["dataset"]
+    if name not in table:
+        raise ValueError(f"the port has datasets {sorted(table)}, not "
+                         f"{name!r}")
+    data_dir = cfg.get("data_dir")
+    return [table[name].make_source(
+        data_dir, "test" if split == "val" else split,
+        synthetic=synthetic or data_dir is None) for split in splits]
+
+
+def build_evaluator(cfg: dict) -> AccuracyEvaluator:
+    if cfg["task"] != "classification":
+        raise ValueError(f"the port has the classification task, not "
+                         f"{cfg['task']!r}")
+    return AccuracyEvaluator()
+
+
+def build_classifier(cfg: dict, synthetic: bool = False, *,
+                     device: torch.device, ckpt_dir: str | None = None,
+                     log_dir: str | None = None
+                     ) -> tuple[Trainer, DataSet, DataSet]:
+    """(trainer, train set, val set) for a classification recipe: the
+    model initialised from ``cfg["seed"]``, softmax CE with the recipe's
+    label smoothing, its augmentation, MixUp/CutMix and optimizer."""
+    if cfg.get("cls_loss", "ce") != "ce":
+        raise ValueError(f"the port has cls_loss 'ce', not "
+                         f"{cfg['cls_loss']!r}")
+    seed = cfg.get("seed", 0)
+    model = models.get_model(cfg["model"], cfg["num_classes"],
+                             **cfg.get("model_kwargs", {}))
+    init_model(model, torch.Generator().manual_seed(seed))
+    smoothing = cfg.get("label_smoothing", 0.0)
+
+    def loss(logits, y):
+        return softmax_cross_entropy(logits, y, label_smoothing=smoothing)
+
+    augment = make_augment(cfg.get("augment"))
+    mix = MixConfig(**cfg["mix"]) if cfg.get("mix") is not None else None
+    policy = get_policy(cfg.get("precision", "f32"))
+    apply_backend_flags(policy)
+    model.to(device)
+    trainer = Trainer(model, make_optimizer(model, cfg["optimizer"]), loss,
+                      device=device, policy=policy,
+                      num_classes=cfg["num_classes"], augment=augment,
+                      mix=mix, evaluator=build_evaluator(cfg), seed=seed,
+                      ckpt_dir=ckpt_dir, log_every=cfg.get("log_every", 50),
+                      logger=MetricLogger(log_dir))
+    train_src, val_src = make_sources(cfg, synthetic)
+    # the batch order's seed is DataSet's default 0, as in the JAX recipe
+    return trainer, DataSet(train_src, augment), DataSet(val_src, augment)

@@ -1,0 +1,276 @@
+"""Training driver: the train step, validation, logging and checkpoints.
+
+Port of ``myconvnet_tpu/train/trainer.py``: ``TrainState`` (``:43-62``),
+``train_step`` with one microbatch (``:211-274``), ``eval_step``
+(``:276-282``), ``fit`` (``:361-501``) and ``evaluate``/``save``/
+``restore`` (``:550-621``).  Gradient accumulation, remat, SAM, ZeRO,
+dispatch chaining and the mesh come with later slices.
+
+Where JAX compiles one program per step, the port runs eagerly and keeps
+the step free of host syncs: the augmentation draws are made on the
+device (``data.augment.sample_geometry``) or copied from pinned memory
+(``data.mix.sample_mix``), and ``fit`` reads each step's metrics one step
+late, as the JAX loop does, so the host enqueues step k+1 while the
+device runs step k.
+
+Random numbers are a function of (seed, step), as JAX's
+``fold_in(key, step)``: :meth:`Trainer.sample` reseeds its generators from
+both before each step, so a restored run draws what the original would
+have.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Iterable, NamedTuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from myconvnet_tpu_torch import weights
+from myconvnet_tpu_torch.ckpt import checkpoint as ckpt_lib
+from myconvnet_tpu_torch.core.precision import Policy
+from myconvnet_tpu_torch.data.augment import (AugmentConfig, augment_eval,
+                                              augment_train, sample_geometry,
+                                              stats)
+from myconvnet_tpu_torch.data.mix import MixConfig, MixDraws, mixup_cutmix, \
+    sample_mix
+from myconvnet_tpu_torch.eval.evaluators import Evaluator
+from myconvnet_tpu_torch.train.optim import SGD
+from myconvnet_tpu_torch.utils.logging import MetricLogger
+
+
+class TrainState(NamedTuple):
+    """The full training state as numpy trees in the JAX layout: the
+    checkpoint unit."""
+    params: dict
+    model_state: dict       # BN moving statistics
+    opt_state: dict         # momentum buffers, laid out as params
+    step: np.ndarray        # int32 scalar
+    rng: np.ndarray         # [1] int64, the seed every draw derives from
+
+
+class StepDraws(NamedTuple):
+    """One train step's random numbers, on the device."""
+    boxes: torch.Tensor | None   # [N, 4] pad-crop boxes
+    flip: torch.Tensor | None    # [N] bool
+    mix: MixDraws | None
+
+
+class Trainer:
+    """Drives training of ``model`` (``forward(x)`` on NHWC input in the
+    policy's compute dtype; train mode by ``module.training``)."""
+
+    def __init__(self, model: nn.Module, optimizer: SGD,
+                 loss_fn: Callable[[torch.Tensor, torch.Tensor],
+                                   torch.Tensor], *,
+                 device: torch.device, policy: Policy, num_classes: int,
+                 augment: AugmentConfig | None = None,
+                 mix: MixConfig | None = None,
+                 evaluator: Evaluator | None = None, seed: int = 0,
+                 ckpt_dir: str | None = None, keep_checkpoints: int = 3,
+                 log_every: int = 50, logger: MetricLogger | None = None):
+        self.device = torch.device(device)
+        self.model = model.to(self.device)
+        self.optimizer = optimizer
+        self.loss_fn = loss_fn
+        self.policy = policy
+        self.num_classes = num_classes
+        self.augment = augment
+        self.mix = mix
+        self.evaluator = evaluator
+        self.seed = seed
+        self.ckpt_dir = ckpt_dir
+        self.keep_checkpoints = keep_checkpoints
+        self.log_every = log_every
+        self.logger = logger or MetricLogger()
+        self.step = 0
+        self._mean_std = stats(augment, self.device) if augment else None
+        self._gen = torch.Generator(device=self.device)
+
+    # ------------------------------------------------------------- steps
+
+    def sample(self, n: int, hw: tuple[int, int]) -> StepDraws:
+        """This step's draws, a function of (seed, step)."""
+        boxes = flip = mix = None
+        if self.augment is not None:
+            self._gen.manual_seed((self.seed << 32) + self.step)
+            boxes, flip = sample_geometry(self._gen, n, hw, self.augment)
+        if self.mix is not None:
+            rng = np.random.default_rng([self.seed, self.step])
+            mix = sample_mix(rng, n, self.mix, self.device)
+        return StepDraws(boxes, flip, mix)
+
+    def loss_and_grads(self, x: torch.Tensor, y: torch.Tensor,
+                       draws: StepDraws | None = None):
+        """Augment, mix, forward in train mode (BN moving statistics
+        update) and backward: (loss, logits, labels after mixing), with
+        the gradients in each parameter's ``.grad``."""
+        if draws is None:
+            draws = self.sample(x.shape[0], tuple(x.shape[1:3]))
+        if self.augment is not None:
+            x = augment_train(x, draws.boxes, draws.flip, self.augment,
+                              self._mean_std)
+        if self.mix is not None:
+            x, y = mixup_cutmix(x, y, self.num_classes, self.mix, draws.mix)
+        self.model.train()
+        logits = self.model(x.to(self.policy.compute_dtype)).float()
+        loss = self.loss_fn(logits, y)
+        self.optimizer.zero_grad()
+        loss.backward()
+        return loss.detach(), logits.detach(), y
+
+    def train_step(self, x: torch.Tensor, y: torch.Tensor,
+                   draws: StepDraws | None = None) -> dict:
+        """One step on a uint8 batch x [N, H, W, C] and int labels y [N]
+        on the device; ``draws`` defaults to :meth:`sample`.  Returns the
+        metrics as device tensors (no sync).  The optimizer may reuse the
+        ``.grad`` tensors as scratch (torch's foreach SGD adds the nesterov
+        term into them), so read gradients from :meth:`loss_and_grads`."""
+        loss, logits, y = self.loss_and_grads(x, y, draws)
+        self.optimizer.step(self.step)
+        self.step += 1
+        metrics = {"loss": loss}
+        pred = logits.argmax(-1)
+        if y.dim() == 1:
+            metrics["accuracy"] = (pred == y).float().mean()
+        else:  # soft labels (MixUp/CutMix): the dominant mix component
+            metrics["accuracy"] = (pred == y.argmax(-1)).float().mean()
+        return metrics
+
+    @torch.no_grad()
+    def eval_step(self, x: torch.Tensor) -> torch.Tensor:
+        """float32 logits of a uint8 batch, eval mode (kernels on)."""
+        if self.augment is not None:
+            x = augment_eval(x, self.augment, self._mean_std)
+        self.model.eval()
+        return self.model(x.to(self.policy.compute_dtype)).float()
+
+    # ----------------------------------------------------------- running
+
+    def fit(self, train_iter: Iterable, *, total_steps: int,
+            val_iter_fn: Callable[[], Iterable] | None = None,
+            val_every: int = 0, early_stop_patience: int = 0) -> None:
+        """Run the step loop until ``total_steps``; validate every
+        ``val_every`` steps (saving a checkpoint each time, ``best.npz``
+        when the score improves) and save the final state."""
+        best = self.evaluator.worst_score() if self.evaluator else None
+        bad_rounds = 0
+        # (end step, start step, metrics), read one step late so that the
+        # host's read does not wait on the step it just enqueued
+        pending = None
+        t0, window, input_wait = time.perf_counter(), 0, 0.0
+        it = iter(train_iter)
+        try:
+            while self.step < total_steps:
+                t_in = time.perf_counter()
+                try:
+                    x, y = next(it)
+                except StopIteration:
+                    break
+                input_wait += time.perf_counter() - t_in
+                prev = self.step
+                metrics = self.train_step(x, y)
+                window += int(x.shape[0])
+                if pending is not None and (pending[0] // self.log_every
+                                            > pending[1] // self.log_every):
+                    self._log_train(pending[0], pending[2], window, t0,
+                                    input_wait)
+                    window, t0, input_wait = 0, time.perf_counter(), 0.0
+                pending = (self.step, prev, metrics)
+                if (val_every and self.step % val_every == 0
+                        and val_iter_fn is not None and self.evaluator):
+                    score = self.evaluate(val_iter_fn())
+                    self.logger.log(self.step,
+                                    {f"val_{self.evaluator.name}": score})
+                    improved = self.evaluator.is_better(score, best)
+                    if improved:
+                        best, bad_rounds = score, 0
+                    else:
+                        bad_rounds += 1
+                    if self.ckpt_dir:
+                        self.save(metric=score, is_best=improved)
+                    if early_stop_patience \
+                            and bad_rounds >= early_stop_patience:
+                        self.logger.log(self.step, {"early_stop": 1.0})
+                        break
+            if pending is not None:
+                self._log_train(pending[0], pending[2], window, t0,
+                                input_wait)
+            if self.ckpt_dir:
+                self.save()
+        finally:
+            if hasattr(train_iter, "close"):
+                train_iter.close()
+
+    def _log_train(self, step, metrics, window, t0, input_wait):
+        host = {k: float(v) for k, v in metrics.items()}
+        dt = time.perf_counter() - t0
+        if window and dt > 0:
+            host["images_per_sec"] = window / dt
+            # share of wall time the host sat waiting on input
+            host["input_wait_frac"] = input_wait / dt
+        self.logger.log(step, host)
+
+    def evaluate(self, data_iter: Iterable) -> float:
+        """Score every example of ``data_iter`` (uint8 batches and labels
+        on the device) with the evaluator.  Eager PyTorch needs no fixed
+        batch shape, so the short tail batch runs as it is."""
+        if self.evaluator is None:
+            raise ValueError("no evaluator configured")
+        self.evaluator.reset()
+        try:
+            for x, y in data_iter:
+                self.evaluator.update(self.eval_step(x), y)
+        finally:
+            if hasattr(data_iter, "close"):
+                data_iter.close()
+        return self.evaluator.score()
+
+    # ------------------------------------------------------ checkpoints
+
+    def state(self) -> TrainState:
+        params, model_state = weights.to_jax(self.model)
+        buffers = self.optimizer.momentum_buffers()
+        opt_state = {}
+        for path, _, view in weights.param_views(self.model):
+            if path in buffers:
+                scope, name = path.rsplit("/", 1)
+                opt_state.setdefault(scope, {})[name] = view(
+                    buffers[path]).detach().to(
+                        "cpu", torch.float32).numpy().copy()
+        return TrainState(params, model_state, opt_state,
+                          np.asarray(self.step, np.int32),
+                          np.asarray([self.seed], np.int64))
+
+    @torch.no_grad()
+    def load_state(self, state: TrainState) -> None:
+        weights.from_jax(self.model, state.params, state.model_state)
+        buffers = {}
+        for path, p, view in weights.param_views(self.model):
+            scope, name = path.rsplit("/", 1)
+            arr = state.opt_state.get(scope, {}).get(name)
+            if arr is not None:
+                buf = torch.empty_like(p)
+                view(buf).copy_(torch.from_numpy(np.array(arr, np.float32)))
+                buffers[path] = buf
+        self.optimizer.load_momentum_buffers(buffers)
+        self.step = int(state.step)
+        self.seed = int(np.asarray(state.rng).reshape(-1)[0])
+
+    def save(self, metric: float | None = None,
+             is_best: bool = False) -> str:
+        if not self.ckpt_dir:
+            raise ValueError("no checkpoint directory configured")
+        return ckpt_lib.save_checkpoint(
+            self.ckpt_dir, self.step, self.state()._asdict(),
+            keep=self.keep_checkpoints, metric=metric, is_best=is_best)
+
+    def restore(self, path: str | None = None) -> None:
+        """Load a checkpoint file, or the newest one in a directory."""
+        path = path or self.ckpt_dir
+        if not path:
+            raise ValueError("no checkpoint path given")
+        restored = ckpt_lib.restore_checkpoint(path, self.state()._asdict())
+        self.load_state(TrainState(**restored))

@@ -1,0 +1,40 @@
+"""Metric logging: console lines plus a JSONL stream.
+
+Port of ``myconvnet_tpu/utils/logging.MetricLogger`` without the optional
+TensorBoard writer: one ``[step N] key=value ...`` line per call, and one
+JSON record per call in ``<log_dir>/<name>.jsonl``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Any
+
+
+class MetricLogger:
+    def __init__(self, log_dir: str | None = None, name: str = "train",
+                 stdout: bool = True):
+        self.stdout = stdout
+        self._jsonl = None
+        if log_dir:
+            os.makedirs(log_dir, exist_ok=True)
+            self._jsonl = open(os.path.join(log_dir, f"{name}.jsonl"), "a")
+
+    def log(self, step: int, metrics: dict[str, Any]) -> None:
+        clean = {k: (float(v) if hasattr(v, "__float__") else v)
+                 for k, v in metrics.items()}
+        if self.stdout:
+            parts = " ".join(f"{k}={v:.5g}" if isinstance(v, float)
+                             else f"{k}={v}" for k, v in clean.items())
+            print(f"[step {step}] {parts}", flush=True)
+        if self._jsonl:
+            rec = {"step": step, "time": time.time(), **clean}
+            self._jsonl.write(json.dumps(rec) + "\n")
+            self._jsonl.flush()
+
+    def close(self) -> None:
+        if self._jsonl:
+            self._jsonl.close()
+            self._jsonl = None

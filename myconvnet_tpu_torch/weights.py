@@ -20,16 +20,15 @@ by name:
 from __future__ import annotations
 
 import os
-import re
 
 import numpy as np
 import torch
 from torch import nn
 
+from myconvnet_tpu_torch.ckpt.checkpoint import SEP, latest_checkpoint
 from myconvnet_tpu_torch.nn import BatchNorm, Conv, Dense
 
 Tree = dict[str, dict[str, np.ndarray]]
-SEP = "::"
 
 
 def _layers(model: nn.Module):
@@ -38,11 +37,40 @@ def _layers(model: nn.Module):
             yield path.replace(".", "/"), m
 
 
+def _same(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+def _hwio(t: torch.Tensor) -> torch.Tensor:
+    return t.permute(2, 3, 1, 0)
+
+
+def _transpose(t: torch.Tensor) -> torch.Tensor:
+    return t.t()
+
+
+def param_views(model: nn.Module):
+    """(JAX path ``scope/name``, parameter, view) for every parameter,
+    where ``view(t)`` shows a tensor of the parameter's shape in the JAX
+    layout (HWIO for a conv weight, [in, out] for a dense weight).  The
+    optimizer's state goes through the same views."""
+    for scope, m in _layers(model):
+        if isinstance(m, BatchNorm):
+            if not m.folded:
+                yield f"{scope}/gamma", m.gamma, _same
+                yield f"{scope}/beta", m.beta, _same
+            continue
+        yield f"{scope}/w", m.weight, _hwio if isinstance(m, Conv) \
+            else _transpose
+        if m.bias is not None:
+            yield f"{scope}/b", m.bias, _same
+
+
 def _set(param: torch.Tensor, value: np.ndarray, scope: str, name: str):
     if tuple(param.shape) != tuple(np.shape(value)):
         raise ValueError(f"{scope}:{name}: shape {np.shape(value)} does "
                          f"not fit {tuple(param.shape)}")
-    param.copy_(torch.as_tensor(np.asarray(value, np.float32)))
+    param.copy_(torch.as_tensor(np.array(value, np.float32)))
 
 
 def _new_param(value: np.ndarray, like: torch.Tensor) -> nn.Parameter:
@@ -109,19 +137,14 @@ def to_jax(model: nn.Module) -> tuple[Tree, Tree]:
     return params, state
 
 
-def latest_checkpoint(directory: str) -> str:
-    steps = [int(m.group(1)) for f in os.listdir(directory)
-             if (m := re.fullmatch(r"ckpt-(\d+)\.npz", f))]
-    if not steps:
-        raise FileNotFoundError(f"no ckpt-<step>.npz in {directory!r}")
-    return os.path.join(directory, f"ckpt-{max(steps)}.npz")
-
-
 def load_jax_checkpoint(path: str) -> tuple[Tree, Tree]:
     """(params, model_state) from a JAX ``.npz`` checkpoint, or from the
     newest ``ckpt-<step>.npz`` when ``path`` is a directory."""
     if os.path.isdir(path):
-        path = latest_checkpoint(path)
+        found = latest_checkpoint(path)
+        if found is None:
+            raise FileNotFoundError(f"no ckpt-<step>.npz in {path!r}")
+        path = found
     trees = {"params": {}, "model_state": {}}
     with np.load(path) as data:
         for key in data.files:
@@ -137,16 +160,19 @@ def load_jax_checkpoint(path: str) -> tuple[Tree, Tree]:
 def random_jax_params(model: nn.Module, seed: int) -> tuple[Tree, Tree]:
     """JAX-layout trees of random weights for ``model``'s shapes, made
     from ``seed`` with numpy: He-normal convs, Glorot-uniform dense, and
-    BN with random gamma, beta and moving statistics (a block's last BN
-    gets a small gamma, as the zero-init recipe intends, so the residual
-    stream stays in range through 16 blocks)."""
+    BN with random gamma, beta and moving statistics (a block's last BN,
+    ``bn_c`` of a bottleneck or ``bn_b`` of a basic block, gets a small
+    gamma, as the zero-init recipe intends, so the residual stream stays
+    in range through 16 blocks)."""
     rng = np.random.RandomState(seed)
     params, state = to_jax(model)
     for scope in sorted(params):
         p = params[scope]
         if "gamma" in p:
             c = p["gamma"].shape[0]
-            lo, hi = (0.1, 0.3) if scope.endswith("bn_c") else (0.5, 1.0)
+            last = scope.endswith("bn_c") or (
+                scope.endswith("bn_b") and scope[:-1] + "c" not in params)
+            lo, hi = (0.1, 0.3) if last else (0.5, 1.0)
             p["gamma"] = rng.uniform(lo, hi, c).astype(np.float32)
             p["beta"] = (0.1 * rng.randn(c)).astype(np.float32)
             state[scope] = {

@@ -11,17 +11,29 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
+from myconvnet_tpu.data import augment as jaug
 from myconvnet_tpu.ops.pallas import bn_act as jbn_act
+from myconvnet_tpu.ops.pallas import conv_fused as jconv_fused
 from myconvnet_tpu.ops.pallas import conv_pair as jconv_pair
+from myconvnet_tpu.ops.pallas.normalize_u8 import \
+    normalize_u8 as jnormalize_u8
+from myconvnet_tpu.ops.pallas.pad_crop_u8 import (
+    pad_crop_flip_normalize as jpad_crop,
+    reference_pad_crop_flip_normalize as jpad_crop_numpy)
+from myconvnet_tpu_torch.data import augment as taug
 from myconvnet_tpu_torch.ops.kernels import (bn_inference_fused,
                                              conv1x1_conv3x3_bn_relu,
+                                             conv3x3_bn_relu,
                                              fused_scale_shift_act,
+                                             pad_crop_flip_normalize,
                                              reset_launch_counts,
                                              launch_counts)
-from myconvnet_tpu_torch.ops.kernels import bn_act, conv_pair
+from myconvnet_tpu_torch.ops.kernels import (bn_act, conv_fused, conv_pair,
+                                             normalize_u8)
 
 torch.set_num_threads(1)
 
@@ -171,3 +183,181 @@ def test_conv_pair_wrapper_checks_and_routing_helpers():
     assert not conv_pair.supports(64, 16, 16)    # Cm not a multiple of 32
     assert not conv_pair.supports(64, 32, 8)     # Cout not a multiple of 16
     assert not conv_pair.supports(4096, 1024, 1024)  # tile > 227 KB
+
+
+# ---------------------------------------------------------------- inputs
+
+CIFAR_MEAN = (0.5071, 0.4866, 0.4409)
+CIFAR_STD = (0.2673, 0.2564, 0.2762)
+# float32 on both sides; x * (1 / (255 std)) - mean / std against the JAX
+# (x / 255 - mean) / std rounds differently: atol 1e-5 (values are O(2))
+INPUT_TOL = dict(rtol=0, atol=1e-5)
+# bf16 outputs: the float32 values may differ by an ulp before rounding,
+# which can move a bf16 result by 1 bf16 ulp
+INPUT_TOL_BF16 = dict(rtol=2 ** -8, atol=1e-5)
+
+
+def _cifar_cfg(**kw):
+    kw = dict(dict(out_hw=(32, 32), area_range=None, pad=4, flip=True,
+                   mean=CIFAR_MEAN, std=CIFAR_STD), **kw)
+    return jaug.AugmentConfig(**kw), taug.AugmentConfig(**kw)
+
+
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+def test_normalize_u8_plain_matches_pallas_and_augment_eval(out_dtype):
+    imgs = np.random.RandomState(0).randint(0, 256, (3, 32, 32, 3),
+                                            dtype=np.uint8)
+    reset_launch_counts()
+    out = normalize_u8.normalize_u8(torch.from_numpy(imgs), CIFAR_MEAN,
+                                    CIFAR_STD, getattr(torch, out_dtype))
+    assert launch_counts()["normalize_u8"] == 0
+    assert out.dtype == getattr(torch, out_dtype)
+    got = out.float().numpy()
+    pallas = jnormalize_u8(
+        jnp.asarray(imgs), CIFAR_MEAN, CIFAR_STD,
+        out_dtype=jnp.dtype(out_dtype), interpret=True)
+    tol = INPUT_TOL if out_dtype == "float32" else INPUT_TOL_BF16
+    np.testing.assert_allclose(got, np.asarray(pallas, np.float32), **tol)
+    # augment_eval at the model's size is this kernel, in both packages
+    jcfg, tcfg = _cifar_cfg(out_dtype=out_dtype)
+    np.testing.assert_allclose(
+        got, np.asarray(jaug.augment_eval(jnp.asarray(imgs), jcfg),
+                        np.float32), **tol)
+    np.testing.assert_array_equal(
+        taug.augment_eval(torch.from_numpy(imgs), tcfg).float().numpy(), got)
+
+
+@pytest.mark.parametrize("shape,pad", [((8, 32, 32, 3), 4),
+                                       ((5, 9, 7, 2), 3)])
+def test_pad_crop_plain_matches_pallas_and_numpy(shape, pad):
+    rng = np.random.RandomState(1)
+    imgs = rng.randint(0, 256, shape, dtype=np.uint8)
+    n, c = shape[0], shape[-1]
+    offsets = rng.randint(-pad, pad + 1, (n, 2)).astype(np.int32)
+    offsets[0] = (-pad, pad)  # the corners of the offset range
+    offsets[1] = (pad, -pad)
+    flip = (np.arange(n) % 2).astype(np.int32)
+    mean, std = CIFAR_MEAN[:c], CIFAR_STD[:c]
+    reset_launch_counts()
+    got = pad_crop_flip_normalize(
+        torch.from_numpy(imgs), torch.from_numpy(offsets),
+        torch.from_numpy(flip), mean, std, pad=pad).numpy()
+    assert launch_counts()["pad_crop_u8"] == 0
+    pallas = jpad_crop(
+        jnp.asarray(imgs), jnp.asarray(offsets), jnp.asarray(flip), mean,
+        std, pad=pad, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(pallas), **INPUT_TOL)
+    np.testing.assert_allclose(
+        got, jpad_crop_numpy(
+            imgs, offsets, flip, mean, std, pad=pad), **INPUT_TOL)
+
+
+def test_augment_train_matches_jax_at_jax_draws():
+    """The JAX augment_train (its bilinear matmuls at integer boxes,
+    clamp=False) against the port's kernel application, fed the draws JAX
+    made from the same key: pad_crop_boxes' layout and the flips."""
+    imgs = np.random.RandomState(2).randint(0, 256, (16, 32, 32, 3),
+                                            dtype=np.uint8)
+    jcfg, tcfg = _cifar_cfg()
+    key = jax.random.key(7)
+    k_geom = jax.random.split(key, 3)[0]  # as augment_train splits it
+    boxes, flip, clamp = jaug._sample_geometry(k_geom, 16, (32, 32), jcfg)
+    assert clamp is False and np.asarray(flip).any()
+    want = np.asarray(jaug.augment_train(key, jnp.asarray(imgs), jcfg))
+    got = taug.augment_train(torch.from_numpy(imgs),
+                             torch.from_numpy(np.array(boxes)),
+                             torch.from_numpy(np.array(flip)), tcfg)
+    np.testing.assert_allclose(got.numpy(), want, **INPUT_TOL)
+
+
+def test_input_wrapper_checks():
+    x = torch.zeros(2, 4, 4, 3, dtype=torch.uint8)
+    with pytest.raises(TypeError):
+        normalize_u8.normalize_u8(x.float(), CIFAR_MEAN, CIFAR_STD)
+    with pytest.raises(ValueError):
+        normalize_u8.normalize_u8(x, CIFAR_MEAN[:2], CIFAR_STD[:2])
+    with pytest.raises(ValueError):
+        normalize_u8.normalize_u8(x.to("meta"), CIFAR_MEAN, CIFAR_STD)
+    off, flip = torch.zeros(2, 2, dtype=torch.int32), torch.zeros(2)
+    with pytest.raises(ValueError):
+        pad_crop_flip_normalize(x, off[:1], flip, CIFAR_MEAN, CIFAR_STD)
+    with pytest.raises(TypeError):
+        pad_crop_flip_normalize(x, off.float(), flip, CIFAR_MEAN, CIFAR_STD)
+    with pytest.raises(TypeError):
+        pad_crop_flip_normalize(x, off, flip, CIFAR_MEAN, CIFAR_STD,
+                                out_dtype=torch.float16)
+
+
+# ------------------------------------------------------------ conv_fused
+
+
+def _fused_inputs(n, hw, c, co, seed=0):
+    rng = np.random.RandomState(seed)
+
+    def bf(a):  # values on the bf16 grid, held as float32
+        return np.array(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+
+    x = bf(rng.randn(n, hw, hw, c))
+    w3 = bf(rng.randn(3, 3, c, co) / np.sqrt(9 * c))
+    s = (rng.rand(co) + 0.5).astype(np.float32)
+    b = (rng.randn(co) * 0.3).astype(np.float32)
+    return x, w3, s, b
+
+
+def _torch_fused_args(args):
+    x, w3, s, b = (torch.from_numpy(a) for a in args)
+    return x.bfloat16(), w3.bfloat16(), s, b
+
+
+# Both sides take bf16 inputs, sum in float32 and apply the epilogue to
+# the float32 sum before one bf16 rounding; sums in another order can move
+# the output by a bf16 ulp: 2 bf16 ulps allowed, as for conv_pair.
+FUSED_TOL = dict(rtol=2 ** -6, atol=2 ** -7)
+
+
+@pytest.mark.parametrize("hw", [1, 2, 4, 8])
+@pytest.mark.parametrize("c", [8, 64])
+def test_conv3x3_bn_relu_plain_matches_pallas(hw, c):
+    args = _fused_inputs(2, hw, c, c)
+    jargs = [jnp.asarray(a, jnp.bfloat16 if i < 2 else jnp.float32)
+             for i, a in enumerate(args)]
+    # both images in one Pallas block: with one image of 1x1, the
+    # kernel's row shift (up to W + 1 = 2 rows) exceeds its block of 1 row
+    # and the Pallas kernel fails to trace (a limit of the TPU kernel)
+    with pltpu.force_tpu_interpret_mode():
+        ref = jconv_fused.conv3x3_bn_relu(*jargs, images_per_block=2)
+    xla = jconv_fused.conv3x3_bn_relu_reference(*jargs)
+    reset_launch_counts()
+    out = conv3x3_bn_relu(*_torch_fused_args(args))
+    assert launch_counts()["conv_fused"] == 0
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    got = out.float().numpy()
+    np.testing.assert_allclose(got, np.asarray(ref, np.float32), **FUSED_TOL)
+    np.testing.assert_allclose(got, np.asarray(xla, np.float32), **FUSED_TOL)
+
+
+def test_conv3x3_bn_relu_1x1_reads_only_the_centre_tap():
+    """At H = W = 1 eight of the nine taps read padding: the output with
+    random off-centre taps equals the output with them zeroed, bit for
+    bit, and equals the centre tap's 1x1 conv."""
+    x, w3, s, b = _torch_fused_args(_fused_inputs(4, 1, 64, 32, seed=3))
+    centre = torch.zeros_like(w3)
+    centre[1, 1] = w3[1, 1]
+    out = conv3x3_bn_relu(x, w3, s, b)
+    torch.testing.assert_close(out, conv3x3_bn_relu(x, centre, s, b),
+                               rtol=0, atol=0)
+    one = torch.relu((x.float()[:, 0, 0] @ w3.float()[1, 1]) * s + b)
+    torch.testing.assert_close(out[:, 0, 0].float(),
+                               one.bfloat16().float(), **FUSED_TOL)
+
+
+def test_conv_fused_wrapper_checks():
+    x, w3, s, b = _torch_fused_args(_fused_inputs(1, 4, 16, 8))
+    with pytest.raises(ValueError):  # w3 Cin mismatch
+        conv3x3_bn_relu(x, w3[:, :, :8], s, b)
+    with pytest.raises(ValueError):  # scale length
+        conv3x3_bn_relu(x, w3, s[:4], b)
+    with pytest.raises(ValueError):  # no kernel and no plain path there
+        conv3x3_bn_relu(*[a.to("meta") for a in (x, w3, s, b)])
+    assert conv_fused.supports(8) and conv_fused.supports(512)
+    assert not conv_fused.supports(12) and not conv_fused.supports(0)

@@ -8,15 +8,20 @@ torch, numpy and the port, so it runs where JAX is not installed:
 (``--noconftest`` skips tests/conftest.py, which sets up JAX.)
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
-from myconvnet_tpu_torch import models, serving
+from myconvnet_tpu_torch import models, recipes, serving, weights
 from myconvnet_tpu_torch.core.precision import BF16
+from myconvnet_tpu_torch.data.mix import MixDraws
 from myconvnet_tpu_torch.models.resnet import Bottleneck
 from myconvnet_tpu_torch.ops import kernels
-from myconvnet_tpu_torch.ops.kernels import bn_act, conv_pair
+from myconvnet_tpu_torch.ops.kernels import (bn_act, conv_fused, conv_pair,
+                                             normalize_u8, pad_crop_u8)
+from myconvnet_tpu_torch.train.trainer import StepDraws
 from myconvnet_tpu_torch.weights import random_jax_params
 
 pytestmark = pytest.mark.gpu
@@ -162,7 +167,198 @@ def test_resnet50_forward_on_card_matches_host(cuda):
     # (stages 2-4 at width 16); every other conv + ReLU is a bn_act
     # epilogue
     assert kernels.launch_counts() == {"conv_pair": pairs,
-                                       "bn_act": 7 + 2 * (13 - pairs)}
+                                       "bn_act": 7 + 2 * (13 - pairs),
+                                       "normalize_u8": 0, "pad_crop_u8": 0,
+                                       "conv_fused": 0}
     host = build("cpu")(x).numpy()
     assert np.isfinite(card).all()
     assert np.abs(card - host).max() / np.abs(host).max() < 0.05
+
+
+# ------------------------------------------- CIFAR input and conv_fused
+
+CIFAR_CONFIG = os.path.join(os.path.dirname(__file__), "..", "configs",
+                            "cifar100_resnet18.py")
+CIFAR_MEAN = (0.5071, 0.4866, 0.4409)
+CIFAR_STD = (0.2673, 0.2564, 0.2762)
+# the kernels round like their plain versions (a product, a correctly
+# rounded reciprocal and quotient for the fold, then a separate multiply
+# and add): bit-exact
+INPUT_TOL = dict(rtol=0, atol=0)
+# conv_fused sums in another order than cuDNN: 2 bf16 ulps, as conv_pair
+FUSED_TOL = PAIR_TOL
+INPUT_SHAPES = [(128, 32, 32, 3),   # the recipe's batch
+                (3, 5, 7, 3),       # 315 elements: vector body + tail
+                (2, 4, 4, 8)]
+
+
+def _stats(dev, c):
+    return (torch.tensor(CIFAR_MEAN[:c] if c == 3 else [0.25] * c,
+                         device=dev),
+            torch.tensor(CIFAR_STD[:c] if c == 3 else [0.5] * c,
+                         device=dev))
+
+
+def _images(shape, dev, seed=0, offset=0):
+    """uint8 images; ``offset`` > 0 returns a contiguous view that starts
+    ``offset`` images into a larger buffer (unaligned for odd sizes)."""
+    rng = np.random.RandomState(seed)
+    n, *rest = shape
+    buf = torch.from_numpy(rng.randint(0, 256, (n + offset, *rest),
+                                       dtype=np.uint8)).to(dev)
+    return buf[offset:]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", INPUT_SHAPES)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_normalize_u8_kernel_matches_plain(cuda, dtype, shape, offset):
+    x = _images(shape, cuda, offset=offset)
+    mean, std = _stats(cuda, shape[-1])
+    before = normalize_u8.normalize_u8.launches
+    out = normalize_u8.normalize_u8(x, mean, std, dtype)
+    torch.cuda.synchronize()
+    assert normalize_u8.normalize_u8.launches == before + 1
+    ref = normalize_u8.normalize_u8_reference(x, mean, std, dtype)
+    assert out.dtype == dtype
+    torch.testing.assert_close(out, ref, **INPUT_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", INPUT_SHAPES)
+def test_pad_crop_kernel_matches_plain(cuda, dtype, shape):
+    x = _images(shape, cuda, seed=1)
+    n, pad = shape[0], 4
+    rng = np.random.RandomState(2)
+    off = rng.randint(-pad, pad + 1, (n, 2)).astype(np.int32)
+    off[0] = (-pad, pad)  # the ends of the offset range
+    off[-1] = (pad, -pad)
+    flip = torch.from_numpy(np.arange(n) % 2 == 0).to(cuda)
+    off = torch.from_numpy(off).to(cuda)
+    mean, std = _stats(cuda, shape[-1])
+    before = pad_crop_u8.pad_crop_flip_normalize.launches
+    out = pad_crop_u8.pad_crop_flip_normalize(x, off, flip, mean, std,
+                                              pad=pad, out_dtype=dtype)
+    torch.cuda.synchronize()
+    assert pad_crop_u8.pad_crop_flip_normalize.launches == before + 1
+    ref = pad_crop_u8.pad_crop_reference(x, off, flip, mean, std, pad=pad,
+                                         out_dtype=dtype)
+    torch.testing.assert_close(out, ref, **INPUT_TOL)
+
+
+def _fused_args(shape, dev, seed=0):
+    n, h, w, c, co = shape
+    rng = np.random.RandomState(seed)
+    x = _bf16_grid(rng.randn(n, h, w, c))
+    w3 = _bf16_grid(rng.randn(co, 3, 3, c) / np.sqrt(9 * c))
+    s = torch.from_numpy((rng.rand(co) + 0.5).astype(np.float32))
+    b = torch.from_numpy((rng.randn(co) * 0.3).astype(np.float32))
+    # the weight as nn.Conv keeps it: OIHW channels_last, seen as HWIO
+    return (x.to(dev, torch.bfloat16),
+            w3.to(dev, torch.bfloat16).permute(1, 2, 3, 0), s.to(dev),
+            b.to(dev))
+
+
+@pytest.mark.parametrize("shape", [
+    (128, 8, 8, 64, 64),      # ResNet-18 at 32x32: stage 1
+    (128, 4, 4, 128, 128),    # stage 2
+    (128, 2, 2, 256, 256),    # stage 3
+    (128, 1, 1, 512, 512),    # stage 4: the centre tap alone
+    (3, 1, 1, 8, 16),
+    (3, 2, 2, 8, 24),         # Cout not a multiple of the 64-wide tile
+    (2, 5, 7, 40, 72),        # C not a multiple of the 32-wide stage
+    (1, 9, 3, 16, 130)])
+def test_conv_fused_kernel_matches_plain(cuda, shape):
+    args = _fused_args(shape, cuda)
+    before = conv_fused.conv3x3_bn_relu.launches
+    out = conv_fused.conv3x3_bn_relu(*args)
+    torch.cuda.synchronize()
+    assert conv_fused.conv3x3_bn_relu.launches == before + 1
+    ref = conv_fused.conv3x3_bn_relu_reference(*args)
+    torch.testing.assert_close(out.float(), ref.float(), **FUSED_TOL)
+
+
+@pytest.mark.parametrize("c", [8, 512])
+def test_conv_fused_kernel_1x1_reads_only_the_centre_tap(cuda, c):
+    x, w3, s, b = _fused_args((4, 1, 1, c, 64), cuda, seed=3)
+    centre = torch.zeros_like(w3)
+    centre[1, 1] = w3[1, 1]
+    out = conv_fused.conv3x3_bn_relu(x, w3, s, b)
+    torch.testing.assert_close(
+        out, conv_fused.conv3x3_bn_relu(x, centre, s, b), rtol=0, atol=0)
+
+
+def test_cifar_kernels_reject_what_they_do_not_take(cuda):
+    x, w3, s, b = _fused_args((2, 4, 4, 16, 16), cuda)
+    with pytest.raises(TypeError):
+        conv_fused.conv3x3_bn_relu(x.float(), w3, s, b)
+    with pytest.raises(ValueError):  # C = 12: rows not 16-byte vectors
+        conv_fused.conv3x3_bn_relu(*_fused_args((2, 4, 4, 12, 16), cuda))
+    with pytest.raises(ValueError):
+        conv_fused.conv3x3_bn_relu(x.transpose(1, 2), w3, s, b)
+    img = _images((2, 4, 4, 3), cuda)
+    mean, std = _stats(cuda, 3)
+    with pytest.raises(TypeError):
+        normalize_u8.normalize_u8(img.float(), mean, std)
+    with pytest.raises(ValueError):
+        normalize_u8.normalize_u8(img.transpose(1, 2), mean, std)
+    off = torch.zeros(2, 2, dtype=torch.int32, device=cuda)
+    flip = torch.zeros(2, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError):
+        pad_crop_u8.pad_crop_flip_normalize(img, off, flip[:1], mean, std)
+    with pytest.raises(ValueError):
+        pad_crop_u8.pad_crop_flip_normalize(img.transpose(1, 2), off, flip,
+                                            mean, std)
+
+
+def test_resnet18_eval_on_card_matches_host(cuda):
+    """Full-width ResNet-18 at 32x32 through both kernels on the card
+    against the same module on the host (plain versions): 5 conv_fused
+    and 4 bn_act launches a forward."""
+    def build(device):
+        model = models.resnet18(100)
+        params, state = random_jax_params(model, seed=0)
+        return serving.make_inference_fn(model, params, state,
+                                         device=device, policy=BF16)
+
+    x = np.random.RandomState(1).randn(4, 32, 32, 3).astype(np.float32)
+    fn = build(cuda)
+    kernels.reset_launch_counts()
+    card = fn(x).cpu().numpy()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["conv_fused"] == 5 and counts["bn_act"] == 4
+    host = build("cpu")(x).numpy()
+    assert np.isfinite(card).all()
+    assert np.abs(card - host).max() / np.abs(host).max() < 0.05
+
+
+def test_train_step_on_card_matches_host(cuda):
+    """Step 1 of the recipe at width 16, batch 16, with the same weights,
+    batch and draws on the card and on the host: the loss within 2e-2 and
+    each gradient's norm within 5e-2 (plus 1e-3 of the largest), as in
+    chip_smoke.py; one pad_crop_u8 launch a step."""
+    cfg = recipes.load_config(CIFAR_CONFIG)
+    cfg["model_kwargs"] = {"width": 16}
+    card, train_set, _ = recipes.build_classifier(cfg, True, device=cuda)
+    host, _, _ = recipes.build_classifier(cfg, True,
+                                          device=torch.device("cpu"))
+    params, state = random_jax_params(card.model, 0)
+    for t in (card, host):
+        weights.from_jax(t.model, params, state)
+    xs, ys = train_set.source.get_batch(np.arange(16))
+    x, y = torch.from_numpy(xs), torch.from_numpy(ys)
+    draws = card.sample(16, (32, 32))
+    before = pad_crop_u8.pad_crop_flip_normalize.launches
+    loss_card = float(card.loss_and_grads(x.to(cuda), y.to(cuda), draws)[0])
+    assert pad_crop_u8.pad_crop_flip_normalize.launches == before + 1
+    on_host = StepDraws(draws.boxes.cpu(), draws.flip.cpu(),
+                        MixDraws(*(t.cpu() for t in draws.mix)))
+    loss_host = float(host.loss_and_grads(x, y, on_host)[0])
+    assert abs(loss_card - loss_host) <= 2e-2 * abs(loss_host)
+    norms = [(float(pc.grad.float().norm()), float(ph.grad.norm()))
+             for (_, pc, _), (_, ph, _) in zip(
+                 weights.param_views(card.model),
+                 weights.param_views(host.model))]
+    biggest = max(h for _, h in norms)
+    assert all(abs(c - h) <= 5e-2 * h + 1e-3 * biggest for c, h in norms)
