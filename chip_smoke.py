@@ -34,6 +34,25 @@
    written and scores the 512-image synthetic split (launches counted);
    the restored model's logits must equal the writer's, and agree with
    the plain path on the host.
+7. Flash attention: the forward, dQ and dK/dV kernels against their plain
+   versions at ViT-B/16's [128, 12, 197, 64] and [256, 12, 197, 64] and at
+   [32, 12, 577, 64] (ViT-B/16 at 384), bf16, with the kernel, plain and
+   ``scaled_dot_product_attention`` times (the last a yardstick only).
+8. ViT-B/16 (``configs/imagenet_vit_b16.py`` with RandAugment off): step 1
+   at batch 8 on the card against the host from seeded JAX-layout weights
+   with the same draws and drop-path masks; ``train.main`` for 20 steps at
+   batch 256 as 2 microbatches with a validation every 10 steps (12
+   forward, 12 dQ and 12 dK/dV launches a microbatch, 12 forward launches
+   an eval batch; every loss finite, every parameter moved); the recipe's
+   batch of 1024 as 4 microbatches of 256 (images/s, device busy time,
+   peak memory), and the same step with the attention on the einsum path
+   for comparison; ``test.main`` on the checkpoint (restored logits equal
+   the writer's and agree with the host's plain path).
+
+Every kernel's record carries its bound: the larger of the bytes it must
+move over 3.35 TB/s and the operations it must do over the peak rate of
+their type (989 TFLOP/s bf16 tensor-core products, 67 TFLOP/s float32
+elementwise), from this run's shapes.
 
 Exits non-zero on any failure.  The second-to-last line of stdout is the
 kernels' JSON record, the last ``{"ok": true, "device": {...}}``.  Details
@@ -42,7 +61,9 @@ go to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import importlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -114,6 +135,29 @@ STEP1_GRAD_RTOL = 5e-2
 # fraction of max |logit|: the CPU test of the same comparison against JAX
 # holds 0.05 (tests/test_torch_resnet.py)
 LOGIT_REL_TOL = 0.05
+# ViT-B/16 with RandAugment off (its kernels come with slice 4)
+VIT_CONFIG = os.path.join(ROOT, "configs", "imagenet_vit_b16.py")
+VIT_SET = ["augment.randaugment=None"]
+VIT_BATCH, VIT_ACCUM, VIT_STEPS, VIT_VAL_EVERY = 256, 2, 20, 10
+VIT_STEP1_BATCH = 8
+VIT_SPLIT = 256   # images in each synthetic split, as the JAX package
+VIT_RECIPE_BATCH, VIT_RECIPE_ACCUM = 1024, 4
+VIT_DEPTH = 12
+# flash shapes [B, H, L, D] and how many launches of each kernel one
+# forward (and backward) of the recipe's microbatch of 256 makes there
+FLASH_SITES = [((128, 12, 197, 64), 0), ((256, 12, 197, 64), VIT_DEPTH),
+               ((32, 12, 577, 64), 0)]
+FLASH = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv")
+# kernel vs plain: the kernel rounds P (and dS) to bf16 before the second
+# product and sums in another order: the output within 2 bf16 ulps of
+# max |O|, each gradient within 2^-6 of its max; lse and D are float32
+# sums of the same products (2^-16 of their max)
+FLASH_OUT_ULPS = 2
+FLASH_GRAD_TOL = 2 ** -6
+FLASH_STAT_TOL = 2 ** -16
+# peak rates of the H100 SXM (NVIDIA's data sheet): HBM bytes/s, dense
+# bf16 tensor-core and float32 FLOP/s
+HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 SOURCES = {"conv_pair": ("myconvnet_tpu_torch/csrc/conv_pair.cu",
                          "myconvnet_tpu/ops/pallas/conv_pair.py:101"),
            "bn_act": ("myconvnet_tpu_torch/csrc/bn_act.cu",
@@ -123,7 +167,16 @@ SOURCES = {"conv_pair": ("myconvnet_tpu_torch/csrc/conv_pair.cu",
            "pad_crop_u8": ("myconvnet_tpu_torch/csrc/pad_crop_u8.cu",
                            "myconvnet_tpu/ops/pallas/pad_crop_u8.py:68"),
            "conv_fused": ("myconvnet_tpu_torch/csrc/conv_fused.cu",
-                          "myconvnet_tpu/ops/pallas/conv_fused.py:82")}
+                          "myconvnet_tpu/ops/pallas/conv_fused.py:82"),
+           "flash_attention_fwd": (
+               "myconvnet_tpu_torch/csrc/flash_attention.cu",
+               "myconvnet_tpu/ops/pallas/flash_attention.py:108"),
+           "flash_attention_dq": (
+               "myconvnet_tpu_torch/csrc/flash_attention.cu",
+               "myconvnet_tpu/ops/pallas/flash_attention.py:153"),
+           "flash_attention_dkv": (
+               "myconvnet_tpu_torch/csrc/flash_attention.cu",
+               "myconvnet_tpu/ops/pallas/flash_attention.py:161")}
 
 
 def log(*a):
@@ -168,6 +221,19 @@ def compare(out, ref, rtol, atol):
     return float(d.max()), ok
 
 
+def bound(nbytes, ops, ops_rate):
+    """(least ms the card needs, "bytes" or "operations"): bytes over the
+    HBM rate against operations over their peak rate."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / ops_rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def taps(size):
+    """Input positions a 3x3 SAME conv reads inside the frame along one
+    axis of ``size`` (the padding taps multiply zeros)."""
+    return 3 * size - 2 if size > 1 else 1
+
+
 def check_kernels(dev):
     """Kernel vs plain at every slice shape; returns the per-kernel
     summary (times summed over one batch-8 forward) and the details."""
@@ -206,8 +272,14 @@ def check_kernels(dev):
         ref = conv_pair.conv_pair_reference(*args)
         torch.cuda.synchronize()
         err, ok = compare(out, ref, **TOL["conv_pair"])
+        b_ms, b_by = bound(
+            2 * n * h * w * (cin + co) + 2 * (cin * cm + 9 * cm * co)
+            + 8 * (cm + co),
+            2 * n * h * w * cin * cm + 2 * n * taps(h) * taps(w) * cm * co,
+            BF16_FLOPS)
         row = dict(kernel="conv_pair", shape=[n, h, w, cin, cm, co],
-                   sites=count, max_abs_err=err, ok=ok,
+                   sites=count, max_abs_err=err, ok=ok, bound_ms=b_ms,
+                   bound_by=b_by, library_ms=None,
                    plan=conv_pair.plan(n, h, w, cin, cm, co),
                    ms=cuda_ms(lambda: conv_pair.conv1x1_conv3x3_bn_relu(
                        *args)),
@@ -229,8 +301,10 @@ def check_kernels(dev):
         ref = bn_act.scale_shift_act_reference(x, a, b, "relu")
         torch.cuda.synchronize()
         err, ok = compare(out, ref, **TOL["bn_act"])
+        b_ms, b_by = bound(4 * x.numel() + 8 * c, 3 * x.numel(), F32_FLOPS)
         row = dict(kernel="bn_act", site=site, shape=list(shape), sites=1,
-                   max_abs_err=err, ok=ok,
+                   max_abs_err=err, ok=ok, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=None,
                    ms=cuda_ms(lambda: bn_act.fused_scale_shift_act(
                        x, a, b, "relu")),
                    plain_ms=cuda_ms(lambda: bn_act.scale_shift_act_reference(
@@ -241,13 +315,21 @@ def check_kernels(dev):
             f"atol={TOL['bn_act']['atol']:.3g}) ok={ok} "
             f"kernel={row['ms']:.4f}ms plain={row['plain_ms']:.4f}ms")
     details += check_cifar_kernels(dev, g)
+    details += check_flash_kernels(dev, g)
     for name in SOURCES:
         rows = [r for r in details if r["kernel"] == name]
+        on_path = [r for r in rows if r["sites"]]
+        lib = [r["library_ms"] for r in on_path]
         summary[name] = dict(
             ok=all(r["ok"] for r in rows),
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=sum(r["ms"] * r["sites"] for r in rows),
-            plain_ms=sum(r["plain_ms"] * r["sites"] for r in rows))
+            plain_ms=sum(r["plain_ms"] * r["sites"] for r in rows),
+            bound_ms=sum(r["bound_ms"] * r["sites"] for r in rows),
+            bound_by=max(on_path, key=lambda r: r["bound_ms"] * r["sites"]
+                         )["bound_by"],
+            library_ms=(None if None in lib else
+                        sum(t * r["sites"] for t, r in zip(lib, on_path))))
     return summary, details
 
 
@@ -262,11 +344,14 @@ def check_cifar_kernels(dev, g):
     from myconvnet_tpu_torch.ops.kernels import conv_fused, normalize_u8, \
         pad_crop_u8
 
-    def row(kernel, shape, sites, out, ref, fn, plain_fn, **extra):
+    def row(kernel, shape, sites, out, ref, fn, plain_fn, nbytes, ops,
+            rate, **extra):
         torch.cuda.synchronize()
         err, ok = compare(out, ref, **TOL[kernel])
+        b_ms, b_by = bound(nbytes, ops, rate)
         r = dict(kernel=kernel, shape=list(shape), sites=sites,
-                 max_abs_err=err, ok=ok, ms=cuda_ms(fn),
+                 max_abs_err=err, ok=ok, bound_ms=b_ms, bound_by=b_by,
+                 library_ms=None, ms=cuda_ms(fn),
                  plain_ms=cuda_ms(plain_fn),
                  **{k: cuda_ms(f) for k, f in extra.items()})
         log(f"{kernel} {r['shape']} x{sites}: max_abs_err={err:.3g} "
@@ -286,7 +371,8 @@ def check_cifar_kernels(dev, g):
         normalize_u8.normalize_u8(x, mean, std),
         normalize_u8.normalize_u8_reference(x, mean, std),
         lambda: normalize_u8.normalize_u8(x, mean, std),
-        lambda: normalize_u8.normalize_u8_reference(x, mean, std)))
+        lambda: normalize_u8.normalize_u8_reference(x, mean, std),
+        5 * x.numel() + 24, 2 * x.numel(), F32_FLOPS))
     off = torch.randint(-4, 5, (TRAIN_BATCH, 2), generator=g, device=dev,
                         dtype=torch.int32)
     flip = torch.rand(TRAIN_BATCH, generator=g, device=dev) < 0.5
@@ -296,7 +382,8 @@ def check_cifar_kernels(dev, g):
         pad_crop_u8.pad_crop_flip_normalize(*args),
         pad_crop_u8.pad_crop_reference(*args),
         lambda: pad_crop_u8.pad_crop_flip_normalize(*args),
-        lambda: pad_crop_u8.pad_crop_reference(*args)))
+        lambda: pad_crop_u8.pad_crop_reference(*args),
+        5 * x.numel() + 9 * TRAIN_BATCH + 24, 2 * x.numel(), F32_FLOPS))
 
     def cudnn_bf16(x, w3, s, b):
         """cuDNN's bf16 conv with an eager epilogue, for timing only."""
@@ -319,7 +406,104 @@ def check_cifar_kernels(dev, g):
             conv_fused.conv3x3_bn_relu_reference(*a),
             lambda: conv_fused.conv3x3_bn_relu(*a),
             lambda: conv_fused.conv3x3_bn_relu_reference(*a),
+            2 * n * h * w * (c + co) + 18 * c * co + 8 * co,
+            2 * n * taps(h) * taps(w) * c * co, BF16_FLOPS,
             cudnn_bf16_ms=lambda: cudnn_bf16(*a)))
+    return rows
+
+
+def check_flash_kernels(dev, g):
+    """The three flash-attention kernels against their plain versions at
+    FLASH_SITES; each kernel gets the plain version's residuals (lse, D)
+    so that it is held on its own.  One row per kernel and shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from myconvnet_tpu_torch.ops.kernels import flash_attention as fa
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(
+            torch.bfloat16)
+
+    def err_of(out, ref, tol):
+        d = float((out.float() - ref.float()).abs().max())
+        return d, d <= tol and bool(torch.isfinite(out).all())
+
+    rows = []
+    for (b, h, l, d), sites in FLASH_SITES:
+        # q, k and v as the ViT hands them over: views of a packed qkv
+        q, k, v = (t.transpose(1, 2) for t in rnd(b, l, 3, h, d).unbind(2))
+        do = rnd(b, h, l, d)
+        qc, kc, vc, doc = (t.contiguous() for t in (q, k, v, do))
+        out, lse = fa.flash_attention_fwd(q, k, v)
+        o_ref, lse_ref = fa.flash_fwd_reference(q, k, v)
+        dq, dl = fa.flash_attention_dq(q, k, v, o_ref, do, lse_ref)
+        dq_ref, dl_ref = fa.flash_dq_reference(q, k, v, o_ref, do, lse_ref)
+        dk, dv = fa.flash_attention_dkv(q, k, v, do, lse_ref, dl_ref)
+        dk_ref, dv_ref = fa.flash_dkv_reference(q, k, v, do, lse_ref,
+                                                dl_ref)
+        torch.cuda.synchronize()
+        top = float(o_ref.float().abs().max())
+        ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
+        checks = {
+            "flash_attention_fwd": [
+                ("out", out, o_ref, FLASH_OUT_ULPS * ulp),
+                ("lse", lse, lse_ref,
+                 FLASH_STAT_TOL * float(lse_ref.abs().max()))],
+            "flash_attention_dq": [
+                ("dq", dq, dq_ref,
+                 FLASH_GRAD_TOL * float(dq_ref.float().abs().max())),
+                ("D", dl, dl_ref,
+                 FLASH_STAT_TOL * float(dl_ref.abs().max()))],
+            "flash_attention_dkv": [
+                (n, t, r, FLASH_GRAD_TOL * float(r.float().abs().max()))
+                for n, t, r in (("dk", dk, dk_ref), ("dv", dv, dv_ref))]}
+        bhld, bhl, sq = b * h * l * d, b * h * l, b * h * l * l * d
+        sizes = {"flash_attention_fwd": (8 * bhld + 4 * bhl, 4 * sq),
+                 "flash_attention_dq": (12 * bhld + 8 * bhl, 6 * sq),
+                 "flash_attention_dkv": (12 * bhld + 8 * bhl, 8 * sq)}
+        fns = {"flash_attention_fwd": (
+                   lambda: fa.flash_attention_fwd(q, k, v),
+                   lambda: fa.flash_fwd_reference(q, k, v),
+                   lambda: F.scaled_dot_product_attention(qc, kc, vc)),
+               "flash_attention_dq": (
+                   lambda: fa.flash_attention_dq(q, k, v, o_ref, do,
+                                                 lse_ref),
+                   lambda: fa.flash_dq_reference(q, k, v, o_ref, do,
+                                                 lse_ref), None),
+               "flash_attention_dkv": (
+                   lambda: fa.flash_attention_dkv(q, k, v, do, lse_ref,
+                                                  dl_ref),
+                   lambda: fa.flash_dkv_reference(q, k, v, do, lse_ref,
+                                                  dl_ref), None)}
+        for name in FLASH:
+            errs = {what: err_of(t, r, tol) + (tol,)
+                    for what, t, r, tol in checks[name]}
+            fn, plain_fn, lib_fn = fns[name]
+            b_ms, b_by = bound(*sizes[name], BF16_FLOPS)
+            r = dict(kernel=name, shape=[b, h, l, d], sites=sites,
+                     max_abs_err=max(e for e, _, _ in errs.values()),
+                     errors={w: [e, t] for w, (e, _, t) in errs.items()},
+                     ok=all(ok for _, ok, _ in errs.values()),
+                     bound_ms=b_ms, bound_by=b_by, ms=cuda_ms(fn),
+                     plain_ms=cuda_ms(plain_fn, iters=5),
+                     library_ms=cuda_ms(lib_fn) if lib_fn else None)
+            rows.append(r)
+            log(f"{name} {r['shape']} x{sites}: "
+                + " ".join(f"{w} err={e:.3g} (tol {t:.3g})"
+                           for w, (e, t) in r["errors"].items())
+                + f" ok={r['ok']} kernel={r['ms']:.4f}ms "
+                f"plain={r['plain_ms']:.4f}ms bound={b_ms:.4f}ms ({b_by})"
+                + (f" sdpa={r['library_ms']:.4f}ms" if lib_fn else ""))
+        # the library's backward (dq, dk, dv in one call), beside dQ + dK/dV
+        qs, ks, vs = (t.detach().requires_grad_() for t in (qc, kc, vc))
+        o_lib = F.scaled_dot_product_attention(qs, ks, vs)
+        bwd = cuda_ms(lambda: torch.autograd.grad(
+            o_lib, (qs, ks, vs), doc, retain_graph=True))
+        rows[-1]["sdpa_bwd_ms"] = bwd
+        log(f"scaled_dot_product_attention backward {[b, h, l, d]}: "
+            f"{bwd:.4f}ms (dq + dk + dv in one call)")
+        del o_lib
     return rows
 
 
@@ -646,6 +830,229 @@ def train_and_check(dev):
     return train_counts, eval_counts, checks
 
 
+def vit_cfg():
+    from myconvnet_tpu_torch import recipes
+    return recipes.apply_overrides(recipes.load_config(VIT_CONFIG),
+                                   list(VIT_SET))
+
+
+def vit_step_one(dev):
+    """Step 1 of the ViT-B/16 recipe at batch 8 from seeded JAX-layout
+    weights, with the same batch, crop boxes, flips, MixUp/CutMix draws
+    and drop-path masks on the card and on the host."""
+    import numpy as np
+    import torch
+
+    from myconvnet_tpu_torch import recipes, weights
+    from myconvnet_tpu_torch.data.mix import MixDraws
+    from myconvnet_tpu_torch.train.trainer import StepDraws
+
+    cfg = vit_cfg()
+    card, train_set, _ = recipes.build_classifier(cfg, True, device=dev)
+    host, _, _ = recipes.build_classifier(cfg, True,
+                                          device=torch.device("cpu"))
+    params, state = weights.random_jax_params(card.model, SEED)
+    for t in (card, host):
+        weights.from_jax(t.model, params, state)
+    n = VIT_STEP1_BATCH
+    xs, ys = train_set.source.get_batch(np.arange(n))
+    x, y = torch.from_numpy(xs), torch.from_numpy(ys)
+    draws = card.sample(n, tuple(xs.shape[1:3]))
+    on_host = StepDraws(draws.boxes.cpu(), draws.flip.cpu(),
+                        MixDraws(*(t.cpu() for t in draws.mix)),
+                        [{k: m.cpu() for k, m in d.items()}
+                         for d in draws.masks])
+    t0 = time.perf_counter()
+    loss_card = float(card.loss_and_grads(x.to(dev), y.to(dev), draws)[0])
+    t1 = time.perf_counter()
+    loss_host = float(host.loss_and_grads(x, y, on_host)[0])
+    t2 = time.perf_counter()
+    norms = [(path, float(pc.grad.float().norm()), float(ph.grad.norm()))
+             for (path, pc, _), (_, ph, _) in zip(
+                 weights.param_views(card.model),
+                 weights.param_views(host.model))]
+    biggest = max(h for _, _, h in norms)
+    bad = [(p, c, h) for p, c, h in norms
+           if abs(c - h) > STEP1_GRAD_RTOL * h + 1e-3 * biggest]
+    worst = max(abs(c - h) / max(h, 1e-30) for _, c, h in norms)
+    loss_rel = abs(loss_card - loss_host) / abs(loss_host)
+    dropped = sum(int((~m).sum()) for m in draws.masks[0].values())
+    log(f"ViT-B/16 step 1 (batch {n}), card vs host: loss {loss_card:.6f} "
+        f"vs {loss_host:.6f} (rel {loss_rel:.3g}, tol {STEP1_LOSS_RTOL}); "
+        f"{len(norms)} gradient norms, worst rel diff {worst:.3g} (tol "
+        f"{STEP1_GRAD_RTOL} + 1e-3 of the largest), outside: {len(bad)}; "
+        f"{len(draws.masks[0])} drop-path masks, {dropped} paths dropped; "
+        f"card {t1 - t0:.2f}s (first, cold), host {t2 - t1:.2f}s")
+    if not (np.isfinite(loss_card) and loss_rel <= STEP1_LOSS_RTOL):
+        raise AssertionError("ViT step-1 loss disagrees with the host")
+    if bad:
+        raise AssertionError(f"ViT step-1 gradient norms disagree: "
+                             f"{bad[:5]}")
+    return dict(loss_card=loss_card, loss_host=loss_host, loss_rel=loss_rel,
+                grad_worst_rel=worst, n_grads=len(norms))
+
+
+def timed_steps(trainer, x, y, iters):
+    """CUDA-event ms per train step, host enqueue ms per step."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        trainer.train_step(x, y)
+    host_ms = (time.perf_counter() - t0) * 1e3 / iters
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters, host_ms
+
+
+def vit_train_and_check(dev):
+    """ViT-B/16: step 1 against the host, train.main, the recipe's batch
+    of 1024 and test.main; returns (train launches, test launches,
+    checks)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from myconvnet_tpu_torch import recipes, test, train, weights
+    from myconvnet_tpu_torch.ops import kernels
+
+    checks = {"step1": vit_step_one(dev)}
+    run_dir = os.path.join(ROOT, "build", "chip_smoke_vit")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    sets = [a for kv in VIT_SET for a in ("--set", kv)]
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    trainer = train.main([
+        "--config", VIT_CONFIG, "--synthetic", "--steps", str(VIT_STEPS),
+        "--val_every", str(VIT_VAL_EVERY), "--batch", str(VIT_BATCH),
+        "--out", run_dir, *sets, "--set", f"accum_steps={VIT_ACCUM}",
+        "--set", "log_every=1", "--device", dev.type])
+    torch.cuda.synchronize()
+    train_counts = kernels.launch_counts()
+    log(f"ViT train.main: {VIT_STEPS} steps of {VIT_BATCH} as {VIT_ACCUM} "
+        f"microbatches in {time.perf_counter() - t0:.1f}s (checkpoints "
+        "included)")
+    micro = VIT_STEPS * VIT_ACCUM
+    evals = (VIT_STEPS // VIT_VAL_EVERY + 1) * -(-VIT_SPLIT // VIT_BATCH)
+    none = {k: 0 for k in kernels.WRAPPERS if k not in FLASH}
+    check_counts(train_counts, {
+        "flash_attention_fwd": VIT_DEPTH * (micro + evals),
+        "flash_attention_dq": VIT_DEPTH * micro,
+        "flash_attention_dkv": VIT_DEPTH * micro, **none},
+        f"ViT train.main ({micro} microbatches, {evals} eval batches)")
+    with open(os.path.join(run_dir, "train.jsonl")) as f:
+        losses = [r["loss"] for r in map(json.loads, f) if "loss" in r]
+    if len(losses) != VIT_STEPS or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"ViT losses not all finite: {losses}")
+    cfg = vit_cfg()
+    start, _, val_set = recipes.build_classifier(
+        cfg, True, device=torch.device("cpu"))
+    p0, _ = weights.to_jax(start.model)
+    p1, _ = weights.to_jax(trainer.model)
+    still = [f"{s}/{k}" for s in p0 for k in p0[s]
+             if np.array_equal(p0[s][k], p1[s][k])]
+    if still:
+        raise AssertionError(f"parameters that did not move: {still[:5]}")
+    log(f"ViT losses finite: first {losses[0]:.4f} last {losses[-1]:.4f}; "
+        f"all {sum(len(v) for v in p0.values())} parameters moved")
+    checks.update(losses=losses)
+
+    kernels.reset_launch_counts()
+    score, restored = test.main(["--config", VIT_CONFIG, "--synthetic",
+                                 "--ckpt", run_dir, *sets,
+                                 "--batch", str(VIT_BATCH),
+                                 "--device", dev.type])
+    torch.cuda.synchronize()
+    eval_counts = kernels.launch_counts()
+    batches = -(-VIT_SPLIT // VIT_BATCH)
+    check_counts(eval_counts, {"flash_attention_fwd": VIT_DEPTH * batches,
+                               "flash_attention_dq": 0,
+                               "flash_attention_dkv": 0, **none},
+                 f"ViT test.main ({batches} eval batches)")
+    xs, _ = val_set.source.get_batch(np.arange(VIT_STEP1_BATCH))
+    x = torch.from_numpy(xs)
+    writer = trainer.eval_step(x.to(dev))
+    reread = restored.eval_step(x.to(dev))
+    start.load_state(trainer.state())
+    plain = start.eval_step(x).numpy()
+    card = writer.cpu().numpy()
+    rel = float(np.abs(card - plain).max() / np.abs(plain).max())
+    same = bool(torch.equal(writer, reread))
+    log(f"ViT test.main top-1 {score:.4f} on {len(val_set)} images; "
+        f"restored logits equal the writer's: {same}; card vs host plain "
+        f"path max|diff|/max|logit| = {rel:.4g} (tol {LOGIT_REL_TOL}); "
+        f"finite {bool(np.isfinite(card).all())}")
+    if not same:
+        raise AssertionError("restored ViT's logits differ")
+    if card.shape != (VIT_STEP1_BATCH, 1000) \
+            or not np.isfinite(card).all() or rel > LOGIT_REL_TOL:
+        raise AssertionError("ViT eval logits disagree with the plain path")
+    checks.update(top1=score, eval_logit_rel_err=rel)
+    shutil.rmtree(run_dir)
+    del start, restored
+
+    # the recipe's batch: 1024 as 4 microbatches of 256, on the 256
+    # synthetic images tiled four times
+    train_set = recipes.make_sources(cfg, True, splits=("train",))[0]
+    reps = VIT_RECIPE_BATCH // len(train_set)
+    xd = torch.from_numpy(train_set.images).to(dev).repeat(reps, 1, 1, 1)
+    yd = torch.from_numpy(train_set.labels).to(dev).repeat(reps)
+    trainer.accum_steps = VIT_RECIPE_ACCUM
+    for _ in range(2):
+        trainer.train_step(xd, yd)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    iters = 5
+    step_ms, host_ms = timed_steps(trainer, xd, yd, iters)
+    peak = torch.cuda.max_memory_allocated(dev)
+    busy, span, n_kernels, top = device_busy(
+        lambda: trainer.train_step(xd, yd), iters=2)
+    rate = dict(batch=VIT_RECIPE_BATCH, accum_steps=VIT_RECIPE_ACCUM,
+                step_ms=step_ms,
+                images_per_sec=VIT_RECIPE_BATCH * 1e3 / step_ms,
+                host_enqueue_ms=host_ms, device_busy_ms=busy,
+                device_span_ms=span,
+                idle_share=None if busy is None else 1 - busy / step_ms,
+                kernels_per_step=n_kernels, top_kernels=top,
+                max_memory_allocated_gb=peak / 2 ** 30)
+    log(f"ViT-B/16 recipe step (batch {VIT_RECIPE_BATCH} as "
+        f"{VIT_RECIPE_ACCUM} x {VIT_RECIPE_BATCH // VIT_RECIPE_ACCUM}, CUDA "
+        f"events over {iters} steps after 2 warm-up): {step_ms:.1f} ms, "
+        f"{rate['images_per_sec']:.1f} images/s; host enqueue "
+        f"{host_ms:.1f} ms/step; torch.profiler: device busy "
+        f"{busy if busy is None else round(busy, 1)} ms/step over "
+        f"{n_kernels:.0f} kernels, idle share "
+        f"{rate['idle_share'] if busy is None else round(rate['idle_share'], 3)}"
+        f"; max_memory_allocated {rate['max_memory_allocated_gb']:.1f} GiB")
+    checks["recipe_step"] = rate
+
+    # the same step with the attention sent to the einsum path (what the
+    # JAX package runs below L = 256), for comparison only
+    vit_mod = importlib.import_module("myconvnet_tpu_torch.models.vit")
+    mha = vit_mod.multi_head_attention
+    vit_mod.multi_head_attention = lambda *a, **k: mha(
+        *a, **{**k, "use_flash": False})
+    try:
+        trainer.train_step(xd, yd)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        einsum_ms, _ = timed_steps(trainer, xd, yd, 3)
+        einsum_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    finally:
+        vit_mod.multi_head_attention = mha
+    checks["recipe_step_einsum"] = dict(
+        step_ms=einsum_ms, images_per_sec=VIT_RECIPE_BATCH * 1e3 / einsum_ms,
+        max_memory_allocated_gb=einsum_peak)
+    log(f"ViT-B/16 recipe step with einsum attention (comparison only): "
+        f"{einsum_ms:.1f} ms, {VIT_RECIPE_BATCH * 1e3 / einsum_ms:.1f} "
+        f"images/s; max_memory_allocated {einsum_peak:.1f} GiB")
+    return train_counts, eval_counts, checks
+
+
 def main() -> int:
     try:
         import torch
@@ -665,7 +1072,7 @@ def main() -> int:
         print(f"chip_smoke: the port's package is not here ({e}); run from "
               "a checkout of the repo", file=sys.stderr)
         return 1
-    for path in (CONFIG, CIFAR_CONFIG):
+    for path in (CONFIG, CIFAR_CONFIG, VIT_CONFIG):
         if not os.path.exists(path):
             print(f"chip_smoke: {path} is missing", file=sys.stderr)
             return 1
@@ -691,22 +1098,25 @@ def main() -> int:
     os.makedirs(out_dir, exist_ok=True)
     counts, calls, checks = serve_and_check(dev)
     train_counts, eval_counts, checks["cifar"] = train_and_check(dev)
-    launches = {name: counts[name] + train_counts[name] + eval_counts[name]
+    torch.cuda.empty_cache()
+    vit_train, vit_test, checks["vit"] = vit_train_and_check(dev)
+    runs = {"serve": counts, "train": train_counts, "test": eval_counts,
+            "vit_train": vit_train, "vit_test": vit_test}
+    launches = {name: sum(c[name] for c in runs.values())
                 for name in SOURCES}
 
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": launches[name],
-         "max_abs_err": summary[name]["max_abs_err"],
-         "ms": summary[name]["ms"], "plain_ms": summary[name]["plain_ms"]}
+         **{k: summary[name][k] for k in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")}}
         for name in SOURCES]}
     bad = [n for n, s in summary.items() if not s["ok"]]
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__,
                    "kernels": record["kernels"], "per_shape": details,
-                   "device_calls": calls,
-                   "launches": {"serve": counts, "train": train_counts,
-                                "test": eval_counts},
+                   "device_calls": calls, "launches": runs,
                    "checks": checks, "failed": bad}, f, indent=1)
     if bad:
         raise AssertionError(f"kernels outside tolerance: {bad}")

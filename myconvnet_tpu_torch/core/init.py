@@ -1,4 +1,5 @@
-"""Weight initializers (He / Glorot / zeros) drawn from a ``torch.Generator``.
+"""Weight initializers (He / Glorot / normal / zeros) drawn from a
+``torch.Generator``.
 
 Port of ``myconvnet_tpu/core/init.py:31-80`` for the layers the port has.
 Fans follow the JAX package's HWIO / [in, out] layouts (``_fans``); the
@@ -8,8 +9,10 @@ generators differ), so parity tests carry weights across with
 
 :func:`init_model` initialises a fresh model in place: He-normal convs
 (truncated at 2 sigma), Glorot-uniform dense weights, zero biases.  BN
-gamma/beta and moving statistics keep their constructor values (ones, or
-zeros for a zero-init gamma).
+gamma/beta and moving statistics and LN gamma/beta keep their constructor
+values (ones, or zeros for a zero-init gamma; zeros for beta).  A module
+with parameters of its own (the ViT's ``cls_token`` and ``pos_embed``)
+initialises them in its ``init_own_params(generator)``.
 """
 
 from __future__ import annotations
@@ -64,6 +67,13 @@ def glorot_uniform() -> Initializer:
     return variance_scaling(1.0, "fan_avg", "uniform")
 
 
+def normal(stddev: float = 0.01) -> Initializer:
+    def init(shape, generator):
+        return torch.randn(shape, generator=generator,
+                           device=generator.device) * stddev
+    return init
+
+
 def zeros(shape, generator=None) -> torch.Tensor:
     return torch.zeros(shape)
 
@@ -84,4 +94,7 @@ def init_model(model: nn.Module, generator: torch.Generator) -> nn.Module:
             continue
         if m.bias is not None:
             m.bias.copy_(zeros(tuple(m.bias.shape)))
+    for m in model.modules():
+        if hasattr(m, "init_own_params"):
+            m.init_own_params(generator)
     return model

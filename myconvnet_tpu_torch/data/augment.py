@@ -1,26 +1,39 @@
-"""On-device augmentation: sampled geometry, applied by the CUDA kernels.
+"""On-device augmentation: sampled geometry, applied by kernels or by
+two float32 matmuls.
 
-Port of the parts of ``myconvnet_tpu/data/augment.py`` the CIFAR recipe
-uses: ``AugmentConfig`` (``:36-73``), ``pad_crop_boxes`` (``:191-203``),
-``_sample_geometry`` (``:329-347``), ``augment_train`` (``:350-388``),
-``augment_eval`` (``:391-402``) and ``normalize`` (``:320-324``).
+Port of the parts of ``myconvnet_tpu/data/augment.py`` the CIFAR and
+ViT recipes use: ``AugmentConfig`` (``:36-73``), ``_axis_matrix`` and
+``batched_crop_resize`` (``:78-145``), ``random_resized_crop_boxes``
+(``:148-188``), ``pad_crop_boxes`` (``:191-203``), ``center_crop_boxes``
+(``:205-212``), ``_sample_geometry`` (``:329-347``), ``augment_train``
+(``:350-388``), ``augment_eval`` (``:391-402``) and ``normalize``
+(``:320-324``).
 
-Sampling is split from applying.  :func:`sample_geometry` draws the
-integer crop offsets and the flips from a ``torch.Generator`` on the
-device (threefry and torch's generators give different numbers, so tests
-inject JAX's draws into the application instead).  The application is a
-kernel: :func:`augment_train` in the pad-crop mode is exactly
-``pad_crop_flip_normalize`` (integer boxes, zero fill outside the frame,
-crop then flip), and :func:`augment_eval` at the model's size is exactly
-``normalize_u8``.
+Sampling is split from applying.  :func:`sample_geometry` draws the crop
+boxes and the flips from a ``torch.Generator`` on the device (threefry
+and torch's generators give different numbers, so tests inject JAX's
+draws into the application instead).  The random-resized boxes are
+clamped to the frame rather than rejected, as in JAX.  The application:
 
-The modes this recipe does not use (random-resized crop, resize, colour
-jitter, RandAugment, AutoAugment) raise ``NotImplementedError``: they come
-with the ResNet-50 training slice.
+* the pad-crop mode at the input's size is the ``pad_crop_flip_normalize``
+  kernel (integer boxes, zero fill outside the frame, crop then flip), and
+  :func:`augment_eval` at the model's size is the ``normalize_u8`` kernel;
+* every other box (random-resized crop, the eval centre crop at
+  ``crop_fraction`` 0.875, a resize) goes through
+  :func:`batched_crop_resize`: per-image bilinear sampling matrices and two
+  float32 einsums, which cuBLAS runs in true float32 (PyTorch leaves
+  ``torch.backends.cuda.matmul.allow_tf32`` off by default, the
+  counterpart of JAX's ``precision="highest"``), then x / 255 and the
+  mean/std normalize as plain ops.  Only the float32 interpolation
+  (``interp_dtype``) is ported.
+
+Colour jitter, RandAugment and AutoAugment raise ``NotImplementedError``:
+they come with slice 4 of the port (RandAugment's kernels).
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -32,7 +45,7 @@ from myconvnet_tpu_torch.ops.kernels.normalize_u8 import normalize_u8
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
-_LATER = "comes with the ResNet-50 training slice of the port"
+_LATER = "comes with slice 4 of the port (RandAugment)"
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -65,15 +78,81 @@ def stats(cfg: AugmentConfig, device) -> tuple[torch.Tensor, torch.Tensor]:
             torch.tensor(cfg.std, dtype=torch.float32, device=device))
 
 
-def _check_train_mode(cfg: AugmentConfig, hw: tuple[int, int]) -> None:
-    if cfg.area_range is not None:
-        raise NotImplementedError(f"random-resized crop {_LATER}")
-    if tuple(cfg.out_hw) != tuple(hw):
-        raise NotImplementedError(f"resizing {hw} to {cfg.out_hw} {_LATER}")
+def _check_train_mode(cfg: AugmentConfig) -> None:
     if cfg.brightness or cfg.contrast or cfg.saturation or cfg.hue:
         raise NotImplementedError(f"colour jitter {_LATER}")
     if cfg.randaugment is not None or cfg.autoaugment is not None:
         raise NotImplementedError(f"RandAugment / AutoAugment {_LATER}")
+
+
+def _axis_matrix(start: torch.Tensor, extent: torch.Tensor, in_size: int,
+                 out_size: int, flip: torch.Tensor | None = None,
+                 clamp: bool = True) -> torch.Tensor:
+    """Per-image bilinear sampling matrix [N, out_size, in_size]: output
+    index i reads source coordinate start + (i + 0.5) * extent / out_size
+    - 0.5 (half-pixel), reversed where ``flip``; ``clamp=False`` leaves
+    out-of-frame rows all-zero (zero padding)."""
+    n, dev = start.shape[0], start.device
+    i = torch.arange(out_size, dtype=torch.float32, device=dev)
+    frac = ((i + 0.5) / out_size)[None, :].expand(n, out_size)
+    if flip is not None:
+        frac = torch.where(flip[:, None], 1.0 - frac, frac)
+    src = start[:, None] + frac * extent[:, None] - 0.5
+    if clamp:
+        src = torch.clamp(src, 0.0, in_size - 1.0)
+    j = torch.arange(in_size, dtype=torch.float32, device=dev)
+    return torch.clamp(1.0 - torch.abs(src[:, :, None] - j[None, None, :]),
+                       min=0.0)
+
+
+def batched_crop_resize(images: torch.Tensor, boxes: torch.Tensor,
+                        out_hw: tuple[int, int],
+                        flip: torch.Tensor | None = None,
+                        clamp: bool = True) -> torch.Tensor:
+    """Crop + bilinear resize (+ horizontal flip) of every image with its
+    own box.  images [N, H, W, C] (any dtype), boxes [N, 4] float32
+    (y0, x0, h, w) in pixels, flip [N] bool or None -> [N, OH, OW, C]
+    float32, by two float32 einsums."""
+    _, h, w, _ = images.shape
+    oh, ow = out_hw
+    boxes = boxes.float()
+    mh = _axis_matrix(boxes[:, 0], boxes[:, 2], h, oh, clamp=clamp)
+    mw = _axis_matrix(boxes[:, 1], boxes[:, 3], w, ow, flip, clamp=clamp)
+    y = torch.einsum("nih,nhwc->niwc", mh, images.float())
+    return torch.einsum("njw,niwc->nijc", mw, y).contiguous()
+
+
+def random_resized_crop_boxes(generator: torch.Generator, n: int,
+                              in_hw: tuple[int, int],
+                              area_range=(0.08, 1.0),
+                              aspect_range=(3 / 4, 4 / 3)) -> torch.Tensor:
+    """Inception-style crop boxes [N, 4] = (y0, x0, h, w), on the
+    generator's device: area and log-aspect drawn once and the box
+    clamped to the image (no rejection loop)."""
+    h, w = in_hw
+    u = torch.rand((4, n), generator=generator, device=generator.device)
+    area = (area_range[0] + (area_range[1] - area_range[0]) * u[0]) \
+        * float(h * w)
+    lo, hi = math.log(aspect_range[0]), math.log(aspect_range[1])
+    aspect = torch.exp(lo + (hi - lo) * u[1])
+    ch = torch.sqrt(area / aspect)
+    cw = ch * aspect
+    ch = torch.clamp(ch, max=float(h))
+    cw = torch.clamp(cw, max=float(w))
+    y0 = u[2] * (h - ch)
+    x0 = u[3] * (w - cw)
+    return torch.stack([y0, x0, ch, cw], dim=1)
+
+
+def center_crop_boxes(n: int, in_hw: tuple[int, int],
+                      crop_fraction: float = 0.875,
+                      device=None) -> torch.Tensor:
+    """The same centred square box [N, 4] for every image."""
+    h, w = in_hw
+    side = crop_fraction * min(h, w)
+    box = torch.tensor([(h - side) / 2.0, (w - side) / 2.0, side, side],
+                       dtype=torch.float32, device=device)
+    return box[None, :].expand(n, 4)
 
 
 def pad_crop_boxes(generator: torch.Generator, n: int,
@@ -93,25 +172,47 @@ def pad_crop_boxes(generator: torch.Generator, n: int,
 def sample_geometry(generator: torch.Generator, n: int,
                     hw: tuple[int, int], cfg: AugmentConfig
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(boxes [N, 4], flip [N] bool) for the pad-crop mode, drawn on the
-    generator's device (no host sync).  ``cfg.pad == 0`` gives the
-    whole-frame box; ``cfg.flip`` False gives no flips."""
-    _check_train_mode(cfg, hw)
-    boxes = pad_crop_boxes(generator, n, hw, cfg.pad)
+    """(boxes [N, 4], flip [N] bool) for the configured crop mode
+    (random-resized when ``cfg.area_range`` is set, else pad-crop, whose
+    ``cfg.pad == 0`` is the whole-frame box), drawn on the generator's
+    device (no host sync).  ``cfg.flip`` False gives no flips."""
+    _check_train_mode(cfg)
+    if cfg.area_range is not None:
+        boxes = random_resized_crop_boxes(generator, n, hw, cfg.area_range,
+                                          cfg.aspect_range)
+    else:
+        boxes = pad_crop_boxes(generator, n, hw, cfg.pad)
     flip = torch.rand(n, generator=generator, device=generator.device) < 0.5
     if not cfg.flip:
         flip = torch.zeros_like(flip)
     return boxes, flip
 
 
+def _resized(images_u8, boxes, flip, cfg, mean_std, clamp):
+    if cfg.interp_dtype != "float32":
+        raise NotImplementedError(f"interp_dtype {cfg.interp_dtype!r}: the "
+                                  "port interpolates in float32")
+    mean, std = mean_std or stats(cfg, images_u8.device)
+    x = batched_crop_resize(images_u8, boxes, tuple(cfg.out_hw), flip,
+                            clamp=clamp)
+    return normalize(x * (1.0 / 255.0), mean, std).to(
+        _DTYPES[cfg.out_dtype])
+
+
 def augment_train(images_u8: torch.Tensor, boxes: torch.Tensor,
                   flip: torch.Tensor, cfg: AugmentConfig,
                   mean_std=None) -> torch.Tensor:
-    """[N, H, W, C] uint8 + sampled (boxes, flip) -> [N, H, W, C] in
-    ``cfg.out_dtype``, normalized: one pass of the pad_crop_u8 kernel.
-    ``mean_std``: the (mean, std) of :func:`stats`, made once."""
+    """[N, H, W, C] uint8 + sampled (boxes, flip) -> [N, OH, OW, C] in
+    ``cfg.out_dtype``, normalized: one pass of the pad_crop_u8 kernel in
+    the pad-crop mode at the input's size, :func:`batched_crop_resize`
+    otherwise.  ``mean_std``: the (mean, std) of :func:`stats`, made
+    once."""
     n, h, w, _ = images_u8.shape
-    _check_train_mode(cfg, (h, w))
+    _check_train_mode(cfg)
+    if cfg.area_range is not None or tuple(cfg.out_hw) != (h, w):
+        # zero padding outside the frame only in the pad-crop mode
+        clamp = cfg.area_range is not None or cfg.pad == 0
+        return _resized(images_u8, boxes, flip, cfg, mean_std, clamp)
     mean, std = mean_std or stats(cfg, images_u8.device)
     offsets = boxes[:, :2].to(torch.int32)
     return pad_crop_flip_normalize(images_u8, offsets, flip, mean, std,
@@ -120,13 +221,16 @@ def augment_train(images_u8: torch.Tensor, boxes: torch.Tensor,
 
 
 def augment_eval(images_u8: torch.Tensor, cfg: AugmentConfig,
-                 mean_std=None) -> torch.Tensor:
-    """Eval input at the model's size: one pass of the normalize_u8
-    kernel.  The centre-crop-and-resize branch raises."""
+                 mean_std=None, crop_fraction: float = 0.875
+                 ) -> torch.Tensor:
+    """Eval input: at the model's size one pass of the normalize_u8
+    kernel; otherwise the centre crop (``crop_fraction`` of the shorter
+    side) resized to ``cfg.out_hw``."""
     n, h, w, _ = images_u8.shape
     if (h, w) != tuple(cfg.out_hw):
-        raise NotImplementedError(f"eval resize {(h, w)} -> {cfg.out_hw} "
-                                  f"{_LATER}")
+        boxes = center_crop_boxes(n, (h, w), crop_fraction,
+                                  images_u8.device)
+        return _resized(images_u8, boxes, None, cfg, mean_std, True)
     mean, std = mean_std or stats(cfg, images_u8.device)
     return normalize_u8(images_u8, mean, std, _DTYPES[cfg.out_dtype])
 

@@ -1,7 +1,8 @@
 """Layers of the train and eval paths, as ``torch.nn`` modules on NHWC
 tensors.
 
-Port of the subset of ``myconvnet_tpu/nn.py`` that the ResNets use.
+Port of the subset of ``myconvnet_tpu/nn.py`` that the ResNets and the
+ViTs use.
 Module names follow the JAX scope names, so ``weights.from_jax`` maps
 ``{"stage1/block1/conv_a": {"w": ...}}`` onto ``stage1.block1.conv_a``.
 
@@ -18,6 +19,14 @@ Module names follow the JAX scope names, so ``weights.from_jax`` maps
   ``BatchNorm2d`` keeps an unbiased running variance and the inverse
   momentum, so it is not used.  In eval mode it normalizes with the moving
   statistics, and it becomes the identity once folded.
+* :class:`LayerNorm` (``nn.py:285-296``): eps 1e-6 (torch's default is
+  1e-5), float32 statistics and float32 gamma/beta, output in the input's
+  dtype (the compute dtype).
+* :func:`gelu` is the exact (erf) GELU of ``vit.py:73-75``.
+* :func:`dropout` and :func:`drop_path` (``nn.py:340-345``, ``:422-433``)
+  keep ``x / keep`` where a Bernoulli(keep) mask is true and 0 elsewhere;
+  the mask is given (tests hand both frameworks the same one) or drawn
+  from an explicit ``torch.Generator`` by :func:`keep_mask`.
 """
 
 from __future__ import annotations
@@ -125,8 +134,69 @@ class Dense(nn.Module):
                                           self.bias.to(x.dtype))
 
 
+class LayerNorm(nn.Module):
+    """LN over the last axis: float32 math and parameters, output in x's
+    dtype."""
+
+    def __init__(self, c: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.gamma = nn.Parameter(torch.ones(c))
+        self.beta = nn.Parameter(torch.zeros(c))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        var = (xf - mean).square().mean(-1, keepdim=True)
+        y = (xf - mean) * torch.rsqrt(var + self.eps) * self.gamma \
+            + self.beta
+        return y.to(x.dtype)
+
+
 def relu(x: torch.Tensor) -> torch.Tensor:
     return torch.relu(x)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) GELU."""
+    return torch.nn.functional.gelu(x, approximate="none")
+
+
+def keep_mask(shape, rate: float, generator: torch.Generator
+              ) -> torch.Tensor:
+    """Bernoulli(1 - rate) bool mask on the generator's device."""
+    return torch.rand(shape, generator=generator,
+                      device=generator.device) < 1.0 - rate
+
+
+def _drop(x, rate, train, shape, generator, mask, what):
+    if not train or rate <= 0.0:
+        return x
+    if mask is None:
+        if generator is None:
+            raise ValueError(f"{what} with rate > 0 in training needs a "
+                             "mask or a generator")
+        mask = keep_mask(shape, rate, generator)
+    keep = 1.0 - rate
+    mask = mask.to(x.device).reshape(shape)
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def dropout(x: torch.Tensor, rate: float, *, train: bool,
+            generator: torch.Generator | None = None,
+            mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Elementwise dropout; ``mask`` (x's shape, True = keep) or a draw
+    from ``generator``."""
+    return _drop(x, rate, train, tuple(x.shape), generator, mask, "dropout")
+
+
+def drop_path(x: torch.Tensor, rate: float, *, train: bool,
+              generator: torch.Generator | None = None,
+              mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Stochastic depth: drop the whole residual branch per sample;
+    ``mask`` is [N] (True = keep) or a draw from ``generator``."""
+    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    return _drop(x, rate, train, shape, generator, mask, "drop_path")
 
 
 gap = global_avg_pool

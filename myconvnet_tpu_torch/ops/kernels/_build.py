@@ -42,6 +42,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 P = ctypes.c_void_p
 I32 = ctypes.c_int
 I64 = ctypes.c_int64
+F32 = ctypes.c_float
+STRIDES = ctypes.POINTER(ctypes.c_longlong)
 
 # C entry points: name -> argtypes (restype is int, a cudaError_t)
 SIGNATURES = {
@@ -62,6 +64,17 @@ SIGNATURES = {
     # stream
     "mcn_pad_crop_u8_f32": (P, P, P, P, P, P, I32, I32, I32, I32, P),
     "mcn_pad_crop_u8_bf16": (P, P, P, P, P, P, I32, I32, I32, I32, P),
+    # q, k, v, out, lse, strides [8 x 3], batch, heads, len, dim, scale,
+    # stream
+    "mcn_flash_fwd": (P, P, P, P, P, STRIDES, I32, I32, I32, I32, F32, P),
+    # q, k, v, o, dO, lse, D (out), dq, strides, batch, heads, len, dim,
+    # scale, stream
+    "mcn_flash_bwd_dq": (P, P, P, P, P, P, P, P, STRIDES, I32, I32, I32,
+                         I32, F32, P),
+    # q, k, v, dO, lse, D, dk, dv, strides, batch, heads, len, dim, scale,
+    # stream
+    "mcn_flash_bwd_dkv": (P, P, P, P, P, P, P, P, STRIDES, I32, I32, I32,
+                          I32, F32, P),
 }
 
 

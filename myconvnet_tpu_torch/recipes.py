@@ -1,10 +1,13 @@
 """Recipe configs (``configs/*.py``) read and wired without the JAX package.
 
 Port of ``myconvnet_tpu/recipes``: ``load_config`` and ``apply_overrides``
-(``common.py``), ``make_optimizer`` (``common.py:68``), ``make_augment``
-(``:124``), ``make_sources`` (``:131-163``) and, for classification,
-``build_classifier`` (``vision.py:23-65``), which here builds the trainer
-directly (the ``ConvNet`` wrapper of ``models/base.py`` comes later).
+(``common.py``), ``make_optimizer`` (``common.py:68-103``: SGD, momentum,
+Adam, AdamW, with ``clip_norm``), ``make_augment`` (``:124``),
+``make_sources`` (``:131-163``: CIFAR-100 and the synthetic ImageNet
+split at the recipe's ``raw_hw``) and, for classification,
+``build_classifier`` (``vision.py:23-65``, with ``accum_steps`` and
+``accum_dtype``), which here builds the trainer directly (the ``ConvNet``
+wrapper of ``models/base.py`` comes later).
 Also the mean/std resolution of ``serving_http.build_route``
 (``:134-145``): a recipe's ``augment`` block may set ``mean``/``std``, and
 otherwise the ImageNet statistics of ``AugmentConfig`` apply.
@@ -28,7 +31,7 @@ from myconvnet_tpu_torch.data.augment import IMAGENET_MEAN, IMAGENET_STD, \
 from myconvnet_tpu_torch.data.mix import MixConfig
 from myconvnet_tpu_torch.data.pipeline import DataSet
 from myconvnet_tpu_torch.eval.evaluators import AccuracyEvaluator
-from myconvnet_tpu_torch.subsets import cifar100
+from myconvnet_tpu_torch.subsets import cifar100, imagenet
 from myconvnet_tpu_torch.train import optim
 from myconvnet_tpu_torch.train.losses import softmax_cross_entropy
 from myconvnet_tpu_torch.train.trainer import Trainer
@@ -90,7 +93,8 @@ def make_augment(aug_cfg: dict | None) -> AugmentConfig | None:
                             for k, v in aug_cfg.items()})
 
 
-def make_optimizer(model: torch.nn.Module, opt_cfg: dict) -> optim.SGD:
+def make_optimizer(model: torch.nn.Module, opt_cfg: dict
+                   ) -> optim.SGD | optim.Adam:
     """The recipe's optimizer over ``model``'s parameters (by JAX path)."""
     opt_cfg = dict(opt_cfg)
     name = opt_cfg.pop("name")
@@ -105,15 +109,19 @@ def make_optimizer(model: torch.nn.Module, opt_cfg: dict) -> optim.SGD:
 
 def make_sources(cfg: dict, synthetic: bool, splits=("train", "val")):
     """One ``ArraySource`` per split; CIFAR's "val" split is "test"."""
-    table = {"cifar100": cifar100}
+    table = {"cifar100": cifar100, "imagenet": imagenet}
     name = cfg["dataset"]
     if name not in table:
         raise ValueError(f"the port has datasets {sorted(table)}, not "
                          f"{name!r}")
     data_dir = cfg.get("data_dir")
+    kw = {}
+    if name == "imagenet" and cfg.get("raw_hw") is not None:
+        kw["raw_hw"] = tuple(cfg["raw_hw"])
     return [table[name].make_source(
-        data_dir, "test" if split == "val" else split,
-        synthetic=synthetic or data_dir is None) for split in splits]
+        data_dir, "test" if split == "val" and name.startswith("cifar")
+        else split, synthetic=synthetic or data_dir is None, **kw)
+        for split in splits]
 
 
 def build_evaluator(cfg: dict) -> AccuracyEvaluator:
@@ -135,6 +143,7 @@ def build_classifier(cfg: dict, synthetic: bool = False, *,
                          f"{cfg['cls_loss']!r}")
     seed = cfg.get("seed", 0)
     model = models.get_model(cfg["model"], cfg["num_classes"],
+                             input_hw=cfg.get("input_hw"),
                              **cfg.get("model_kwargs", {}))
     init_model(model, torch.Generator().manual_seed(seed))
     smoothing = cfg.get("label_smoothing", 0.0)
@@ -152,7 +161,9 @@ def build_classifier(cfg: dict, synthetic: bool = False, *,
                       num_classes=cfg["num_classes"], augment=augment,
                       mix=mix, evaluator=build_evaluator(cfg), seed=seed,
                       ckpt_dir=ckpt_dir, log_every=cfg.get("log_every", 50),
-                      logger=MetricLogger(log_dir))
+                      logger=MetricLogger(log_dir),
+                      accum_steps=cfg.get("accum_steps", 1),
+                      accum_dtype=cfg.get("accum_dtype", "float32"))
     train_src, val_src = make_sources(cfg, synthetic)
     # the batch order's seed is DataSet's default 0, as in the JAX recipe
     return trainer, DataSet(train_src, augment), DataSet(val_src, augment)

@@ -1,10 +1,13 @@
-"""SGD with (nesterov) momentum, the weight-decay mask, LR schedules.
+"""SGD with (nesterov) momentum, Adam/AdamW, gradient clipping, the
+weight-decay mask, LR schedules.
 
-Port of the parts of ``myconvnet_tpu/train/optim.py`` the CIFAR recipe
-uses: ``cosine_decay``/``cosine_restarts`` (``:62-101``), ``warmup``
-(``:104-112``), ``norm_and_bias_exclusion`` and the decay mask
-(``:131-157``), ``sgd``/``momentum`` (``:159-199``) and ``make_schedule``
-/ ``make_optimizer`` (``:374-415``).
+Port of the parts of ``myconvnet_tpu/train/optim.py`` the CIFAR and ViT
+recipes use: ``cosine_decay``/``cosine_restarts`` (``:62-101``),
+``warmup`` (``:104-112``), ``norm_and_bias_exclusion`` and the decay mask
+(``:131-157``), ``sgd``/``momentum`` (``:159-199``), ``adam``/``adamw``
+(``:202-249``), ``make_schedule`` / ``make_optimizer`` (``:374-415``) and
+``global_norm``/``clip_by_global_norm``/``with_gradient_clipping``
+(``:416-437``).
 
 A schedule is a function of the step counter evaluated in float32, as the
 JAX schedules are inside the jitted step.  The update is the JAX one:
@@ -18,6 +21,21 @@ JAX schedules are inside the jitted step.  The update is the JAX one:
 step copies gd into the buffer, which equals 0.9 * 0 + gd), so
 :class:`SGD` drives it with two parameter groups, decayed and excluded,
 and sets the learning rate of both before every step.
+
+:class:`Adam` writes the JAX update out, in float32, with ``count`` the
+step + 1 (``:215-232``):
+
+    mu = b1 mu + (1 - b1) g,   nu = b2 nu + (1 - b2) g^2
+    d  = (mu / (1 - b1^count)) / (sqrt(nu / (1 - b2^count)) + eps)
+    d += wd p    (decoupled, AdamW: decayed parameters only; coupled Adam
+                  adds wd p to g instead)
+    p -= lr(step) d
+
+``torch.optim.AdamW`` decays p by lr * wd before the moment update and
+``torch.optim.Adam`` couples the decay, so neither is used.  Clipping is
+JAX's: g *= min(1, max_norm / max(||g||, 1e-12)) over the global norm
+(``torch.nn.utils.clip_grad_norm_`` divides by norm + 1e-6).  Both run as
+``torch._foreach_*`` ops on device tensors: no host sync in a step.
 """
 
 from __future__ import annotations
@@ -109,13 +127,16 @@ def decay_mask(named_params: Iterable[tuple[str, torch.Tensor]],
 
 
 class SGD:
-    """``optim.sgd``/``momentum`` over (JAX path, parameter) pairs;
+    """``optim.sgd``/``momentum`` over (JAX path, parameter) pairs, with
+    the optional global-norm clipping of ``with_gradient_clipping``;
     ``step(i)`` applies the update with ``lr(i)``."""
 
     def __init__(self, named_params: list[tuple[str, torch.Tensor]], lr, *,
                  momentum: float = 0.0, nesterov: bool = False,
-                 weight_decay: float = 0.0, weight_decay_exclude=None):
+                 weight_decay: float = 0.0, weight_decay_exclude=None,
+                 clip_norm: float | None = None):
         self.schedule = lr if callable(lr) else constant(float(lr))
+        self.clip_norm = clip_norm
         self.paths = {p: path for path, p in named_params}
         mask = decay_mask(named_params, weight_decay_exclude)
         groups = [
@@ -133,6 +154,9 @@ class SGD:
 
     def step(self, step: int) -> float:
         lr = self.schedule(step)
+        if self.clip_norm:
+            clip_by_global_norm([p.grad for p in self.paths
+                                 if p.grad is not None], self.clip_norm)
         for group in self.opt.param_groups:
             group["lr"] = lr
         self.opt.step()
@@ -156,12 +180,122 @@ class SGD:
                 self.opt.state[p]["momentum_buffer"] = \
                     torch.empty_like(p).copy_(buffers[path])
 
+    def state_trees(self) -> dict[str, dict[str, torch.Tensor]]:
+        """The optimizer state as {field: {path: tensor}}; the field ""
+        is the JAX state itself (the momentum tree, empty without
+        momentum)."""
+        return {"": self.momentum_buffers()}
 
-def make_optimizer(named_params, name: str, lr, **kwargs) -> SGD:
-    """Config-string optimizer factory (``sgd`` and ``momentum``)."""
+    def load_state_trees(self, trees: dict) -> None:
+        self.load_momentum_buffers(trees.get("", {}))
+
+
+def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, float32, on the
+    device."""
+    norms = torch._foreach_norm([t.float() for t in tensors])
+    return torch.linalg.vector_norm(torch.stack(norms))
+
+
+def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float
+                        ) -> torch.Tensor:
+    """Scale ``grads`` in place so their global norm is <= max_norm
+    (JAX's min(1, max_norm / max(norm, 1e-12))); returns the norm before
+    clipping."""
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+    torch._foreach_mul_(grads, scale)
+    return norm
+
+
+class Adam:
+    """``optim.adam``/``adamw`` over (JAX path, parameter) pairs, with the
+    optional global-norm clipping of ``with_gradient_clipping``;
+    ``step(i)`` applies the update with ``lr(i)``."""
+
+    def __init__(self, named_params: list[tuple[str, torch.Tensor]], lr, *,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 weight_decay: float = 0.0, decoupled: bool = False,
+                 weight_decay_exclude=None, clip_norm: float | None = None):
+        self.schedule = lr if callable(lr) else constant(float(lr))
+        self.named = list(named_params)
+        self.params = [p for _, p in self.named]
+        mask = decay_mask(self.named, weight_decay_exclude)
+        # indices of the decayed parameters
+        self.decayed = [i for i, (path, _) in enumerate(self.named)
+                        if mask[path] and weight_decay > 0.0]
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.weight_decay, self.decoupled = weight_decay, decoupled
+        self.clip_norm = clip_norm
+        self.mu = [torch.zeros_like(p, dtype=torch.float32)
+                   for p in self.params]
+        self.nu = [torch.zeros_like(p, dtype=torch.float32)
+                   for p in self.params]
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self, step: int) -> float:
+        lr = self.schedule(step)
+        count = F32(step + 1)
+        bc1 = float(F32(1) - F32(self.b1) ** count)
+        bc2 = float(F32(1) - F32(self.b2) ** count)
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad.float()
+                 for p in self.params]
+        if self.clip_norm:
+            clip_by_global_norm(grads, float(self.clip_norm))
+        wd = self.weight_decay
+        if not self.decoupled:
+            for i in self.decayed:
+                grads[i] = grads[i] + wd * self.params[i]
+        b1, b2 = self.b1, self.b2
+        torch._foreach_mul_(self.mu, b1)
+        torch._foreach_add_(self.mu, grads, alpha=1 - b1)
+        torch._foreach_mul_(self.nu, b2)
+        torch._foreach_addcmul_(self.nu, grads, grads, value=1 - b2)
+        denom = torch._foreach_div(self.nu, bc2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        d = torch._foreach_div(self.mu, bc1)
+        torch._foreach_div_(d, denom)
+        if self.decoupled and self.decayed:
+            torch._foreach_add_([d[i] for i in self.decayed],
+                                [self.params[i] for i in self.decayed],
+                                alpha=wd)
+        torch._foreach_add_(self.params, d, alpha=-lr)
+        return lr
+
+    def state_trees(self) -> dict[str, dict[str, torch.Tensor]]:
+        """{".mu": {path: mu}, ".nu": {path: nu}}: the fields of JAX's
+        ``AdamState``, as ``tree_flatten_with_path`` names them in a
+        checkpoint (``opt_state::.mu::<scope>::<name>``)."""
+        paths = [path for path, _ in self.named]
+        return {".mu": dict(zip(paths, self.mu)),
+                ".nu": dict(zip(paths, self.nu))}
+
+    @torch.no_grad()
+    def load_state_trees(self, trees: dict) -> None:
+        for field, bufs in ((".mu", self.mu), (".nu", self.nu)):
+            for (path, _), buf in zip(self.named, bufs):
+                if path in trees.get(field, {}):
+                    buf.copy_(trees[field][path])
+
+
+def make_optimizer(named_params, name: str, lr, **kwargs):
+    """Config-string optimizer factory (``sgd``, ``momentum``, ``adam``,
+    ``adamw``); ``clip_norm`` clips the gradients' global norm before the
+    update (``recipes/common.py:101-102``)."""
+    named_params = list(named_params)
+    if name in ("adam", "adamw"):
+        if name == "adamw":
+            kwargs.setdefault("weight_decay", 1e-4)
+            kwargs["decoupled"] = True
+        return Adam(named_params, lr, **kwargs)
     if name == "momentum":
         kwargs["momentum"] = kwargs.pop("momentum_coef", 0.9)
     elif name != "sgd":
-        raise ValueError(f"the port has optimizers ['momentum', 'sgd'], "
-                         f"not {name!r}")
-    return SGD(list(named_params), lr, **kwargs)
+        raise ValueError(f"the port has optimizers ['adam', 'adamw', "
+                         f"'momentum', 'sgd'], not {name!r}")
+    return SGD(named_params, lr, **kwargs)

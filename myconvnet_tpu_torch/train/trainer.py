@@ -1,10 +1,13 @@
 """Training driver: the train step, validation, logging and checkpoints.
 
 Port of ``myconvnet_tpu/train/trainer.py``: ``TrainState`` (``:43-62``),
-``train_step`` with one microbatch (``:211-274``), ``eval_step``
+``train_step`` (``:211-274``) with gradient accumulation (``accum_steps``,
+``:183-249``: the whole batch is augmented and mixed, then split into
+microbatches whose gradients are summed in float32 and divided by
+``accum_steps``; the loss is the microbatches' mean), ``eval_step``
 (``:276-282``), ``fit`` (``:361-501``) and ``evaluate``/``save``/
-``restore`` (``:550-621``).  Gradient accumulation, remat, SAM, ZeRO,
-dispatch chaining and the mesh come with later slices.
+``restore`` (``:550-621``).  Remat, SAM, ZeRO, dispatch chaining and the
+mesh come with later slices.
 
 Where JAX compiles one program per step, the port runs eagerly and keeps
 the step free of host syncs: the augmentation draws are made on the
@@ -16,7 +19,9 @@ device runs step k.
 Random numbers are a function of (seed, step), as JAX's
 ``fold_in(key, step)``: :meth:`Trainer.sample` reseeds its generators from
 both before each step, so a restored run draws what the original would
-have.
+have.  A model with random sites (the ViT's drop-path) has a
+``sample_masks(n, generator)``; the trainer draws one batch of masks per
+microbatch there and passes them to ``model(x, masks)``.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ from myconvnet_tpu_torch.data.augment import (AugmentConfig, augment_eval,
 from myconvnet_tpu_torch.data.mix import MixConfig, MixDraws, mixup_cutmix, \
     sample_mix
 from myconvnet_tpu_torch.eval.evaluators import Evaluator
-from myconvnet_tpu_torch.train.optim import SGD
+from myconvnet_tpu_torch.train.optim import SGD, Adam
 from myconvnet_tpu_torch.utils.logging import MetricLogger
 
 
@@ -46,23 +51,26 @@ class TrainState(NamedTuple):
     checkpoint unit."""
     params: dict
     model_state: dict       # BN moving statistics
-    opt_state: dict         # momentum buffers, laid out as params
+    opt_state: dict         # momentum buffers, or {".mu", ".nu"} for Adam,
+    #                         laid out as params
     step: np.ndarray        # int32 scalar
-    rng: np.ndarray         # [1] int64, the seed every draw derives from
+    rng: np.ndarray         # uint32 [2], the seed every draw derives from,
+    #                         laid out as JAX's key data of key(seed)
 
 
 class StepDraws(NamedTuple):
     """One train step's random numbers, on the device."""
-    boxes: torch.Tensor | None   # [N, 4] pad-crop boxes
+    boxes: torch.Tensor | None   # [N, 4] crop boxes (y0, x0, h, w)
     flip: torch.Tensor | None    # [N] bool
     mix: MixDraws | None
+    masks: list | None = None    # per microbatch, the model's keep masks
 
 
 class Trainer:
     """Drives training of ``model`` (``forward(x)`` on NHWC input in the
     policy's compute dtype; train mode by ``module.training``)."""
 
-    def __init__(self, model: nn.Module, optimizer: SGD,
+    def __init__(self, model: nn.Module, optimizer: SGD | Adam,
                  loss_fn: Callable[[torch.Tensor, torch.Tensor],
                                    torch.Tensor], *,
                  device: torch.device, policy: Policy, num_classes: int,
@@ -70,7 +78,8 @@ class Trainer:
                  mix: MixConfig | None = None,
                  evaluator: Evaluator | None = None, seed: int = 0,
                  ckpt_dir: str | None = None, keep_checkpoints: int = 3,
-                 log_every: int = 50, logger: MetricLogger | None = None):
+                 log_every: int = 50, logger: MetricLogger | None = None,
+                 accum_steps: int = 1, accum_dtype: str = "float32"):
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.optimizer = optimizer
@@ -85,6 +94,11 @@ class Trainer:
         self.keep_checkpoints = keep_checkpoints
         self.log_every = log_every
         self.logger = logger or MetricLogger()
+        self.accum_steps = max(int(accum_steps), 1)
+        if accum_dtype != "float32":
+            # gradients of float32 parameters sum in float32 in .grad
+            raise ValueError(f"the port accumulates in float32, not "
+                             f"{accum_dtype!r}")
         self.step = 0
         self._mean_std = stats(augment, self.device) if augment else None
         self._gen = torch.Generator(device=self.device)
@@ -93,20 +107,31 @@ class Trainer:
 
     def sample(self, n: int, hw: tuple[int, int]) -> StepDraws:
         """This step's draws, a function of (seed, step)."""
-        boxes = flip = mix = None
+        boxes = flip = mix = masks = None
+        self._gen.manual_seed((self.seed << 32) + self.step)
         if self.augment is not None:
-            self._gen.manual_seed((self.seed << 32) + self.step)
             boxes, flip = sample_geometry(self._gen, n, hw, self.augment)
         if self.mix is not None:
             rng = np.random.default_rng([self.seed, self.step])
             mix = sample_mix(rng, n, self.mix, self.device)
-        return StepDraws(boxes, flip, mix)
+        if hasattr(self.model, "sample_masks"):
+            micro = n // self.accum_steps
+            masks = [self.model.sample_masks(micro, self._gen)
+                     for _ in range(self.accum_steps)]
+        return StepDraws(boxes, flip, mix, masks)
+
+    def _forward(self, x, masks):
+        x = x.to(self.policy.compute_dtype)
+        if masks is None:
+            return self.model(x).float()
+        return self.model(x, masks).float()
 
     def loss_and_grads(self, x: torch.Tensor, y: torch.Tensor,
                        draws: StepDraws | None = None):
         """Augment, mix, forward in train mode (BN moving statistics
-        update) and backward: (loss, logits, labels after mixing), with
-        the gradients in each parameter's ``.grad``."""
+        update) and backward, one microbatch at a time: (loss, logits,
+        labels after mixing), with the gradients (the microbatches' mean)
+        in each parameter's ``.grad``."""
         if draws is None:
             draws = self.sample(x.shape[0], tuple(x.shape[1:3]))
         if self.augment is not None:
@@ -115,11 +140,25 @@ class Trainer:
         if self.mix is not None:
             x, y = mixup_cutmix(x, y, self.num_classes, self.mix, draws.mix)
         self.model.train()
-        logits = self.model(x.to(self.policy.compute_dtype)).float()
-        loss = self.loss_fn(logits, y)
         self.optimizer.zero_grad()
-        loss.backward()
-        return loss.detach(), logits.detach(), y
+        accum = self.accum_steps
+        if x.shape[0] % accum:
+            raise ValueError(f"batch {x.shape[0]} does not split into "
+                             f"{accum} microbatches")
+        losses, logits = [], []
+        for i, (xi, yi) in enumerate(zip(x.chunk(accum), y.chunk(accum))):
+            out = self._forward(xi, None if draws.masks is None
+                                else draws.masks[i])
+            loss = self.loss_fn(out, yi)
+            loss.backward()  # .grad sums the microbatches in float32
+            losses.append(loss.detach())
+            logits.append(out.detach())
+        if accum == 1:
+            return losses[0], logits[0], y
+        grads = [p.grad for p in self.model.parameters()
+                 if p.grad is not None]
+        torch._foreach_div_(grads, float(accum))
+        return torch.stack(losses).mean(), torch.cat(logits), y
 
     def train_step(self, x: torch.Tensor, y: torch.Tensor,
                    draws: StepDraws | None = None) -> dict:
@@ -145,7 +184,7 @@ class Trainer:
         if self.augment is not None:
             x = augment_eval(x, self.augment, self._mean_std)
         self.model.eval()
-        return self.model(x.to(self.policy.compute_dtype)).float()
+        return self._forward(x, None)
 
     # ----------------------------------------------------------- running
 
@@ -232,32 +271,42 @@ class Trainer:
 
     def state(self) -> TrainState:
         params, model_state = weights.to_jax(self.model)
-        buffers = self.optimizer.momentum_buffers()
         opt_state = {}
-        for path, _, view in weights.param_views(self.model):
-            if path in buffers:
-                scope, name = path.rsplit("/", 1)
-                opt_state.setdefault(scope, {})[name] = view(
-                    buffers[path]).detach().to(
-                        "cpu", torch.float32).numpy().copy()
+        views = list(weights.param_views(self.model))
+        for field, buffers in self.optimizer.state_trees().items():
+            tree = opt_state.setdefault(field, {}) if field else opt_state
+            for path, _, view in views:
+                if path in buffers:
+                    scope, name = path.rsplit("/", 1)
+                    tree.setdefault(scope, {})[name] = view(
+                        buffers[path]).detach().to(
+                            "cpu", torch.float32).numpy().copy()
         return TrainState(params, model_state, opt_state,
                           np.asarray(self.step, np.int32),
-                          np.asarray([self.seed], np.int64))
+                          np.asarray([self.seed >> 32, self.seed & 0xFFFFFFFF],
+                                     np.uint32))
 
     @torch.no_grad()
     def load_state(self, state: TrainState) -> None:
         weights.from_jax(self.model, state.params, state.model_state)
-        buffers = {}
-        for path, p, view in weights.param_views(self.model):
-            scope, name = path.rsplit("/", 1)
-            arr = state.opt_state.get(scope, {}).get(name)
-            if arr is not None:
-                buf = torch.empty_like(p)
-                view(buf).copy_(torch.from_numpy(np.array(arr, np.float32)))
-                buffers[path] = buf
-        self.optimizer.load_momentum_buffers(buffers)
+        trees = {}
+        for field in self.optimizer.state_trees():
+            tree = state.opt_state.get(field, {}) if field \
+                else state.opt_state
+            buffers = {}
+            for path, p, view in weights.param_views(self.model):
+                scope, name = path.rsplit("/", 1)
+                arr = tree.get(scope, {}).get(name)
+                if arr is not None:
+                    buf = torch.empty_like(p)
+                    view(buf).copy_(torch.from_numpy(
+                        np.array(arr, np.float32)))
+                    buffers[path] = buf
+            trees[field] = buffers
+        self.optimizer.load_state_trees(trees)
         self.step = int(state.step)
-        self.seed = int(np.asarray(state.rng).reshape(-1)[0])
+        rng = [int(v) for v in np.asarray(state.rng).reshape(-1)]
+        self.seed = rng[0] if len(rng) == 1 else (rng[0] << 32) | rng[1]
 
     def save(self, metric: float | None = None,
              is_best: bool = False) -> str:

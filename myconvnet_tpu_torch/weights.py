@@ -10,7 +10,11 @@ by name:
 * ``BatchNorm``: params ``gamma``, ``beta``; state ``moving_mean``,
   ``moving_var``.  A scope missing from the tree means the JAX fold removed
   it (``models/folding.py``), and the module is marked folded;
-* ``Dense``: ``w`` [in, out] <-> ``weight`` [out, in]; ``b``.
+* ``Dense``: ``w`` [in, out] <-> ``weight`` [out, in]; ``b``;
+* ``LayerNorm``: params ``gamma``, ``beta`` (no state);
+* parameters a module holds itself (the ViT's ``cls_token`` and
+  ``pos_embed``) sit in that module's scope, ``~`` for the root module as
+  in the JAX tree (``core/module.py:133-147``).
 
 :func:`load_jax_checkpoint` reads the ``.npz`` the JAX trainer writes
 (``ckpt/checkpoint.py``): keys ``params::<scope>::<name>`` and
@@ -26,15 +30,30 @@ import torch
 from torch import nn
 
 from myconvnet_tpu_torch.ckpt.checkpoint import SEP, latest_checkpoint
-from myconvnet_tpu_torch.nn import BatchNorm, Conv, Dense
+from myconvnet_tpu_torch.nn import BatchNorm, Conv, Dense, LayerNorm
 
 Tree = dict[str, dict[str, np.ndarray]]
+ROOT = "~"  # the JAX tree's scope of the root module's own parameters
+LAYERS = (Conv, BatchNorm, Dense, LayerNorm)
+
+
+def _scope(path: str) -> str:
+    return path.replace(".", "/") or ROOT
 
 
 def _layers(model: nn.Module):
     for path, m in model.named_modules():
-        if isinstance(m, (Conv, BatchNorm, Dense)):
-            yield path.replace(".", "/"), m
+        if isinstance(m, LAYERS):
+            yield _scope(path), m
+
+
+def _own_params(model: nn.Module):
+    """(scope, name, parameter) of parameters held by modules that are
+    not layers (the ViT's embedding tokens)."""
+    for path, m in model.named_modules():
+        if not isinstance(m, LAYERS):
+            for name, p in m.named_parameters(recurse=False):
+                yield _scope(path), name, p
 
 
 def _same(t: torch.Tensor) -> torch.Tensor:
@@ -54,9 +73,11 @@ def param_views(model: nn.Module):
     where ``view(t)`` shows a tensor of the parameter's shape in the JAX
     layout (HWIO for a conv weight, [in, out] for a dense weight).  The
     optimizer's state goes through the same views."""
+    for scope, name, p in _own_params(model):
+        yield f"{scope}/{name}", p, _same
     for scope, m in _layers(model):
-        if isinstance(m, BatchNorm):
-            if not m.folded:
+        if isinstance(m, (BatchNorm, LayerNorm)):
+            if not getattr(m, "folded", False):
                 yield f"{scope}/gamma", m.gamma, _same
                 yield f"{scope}/beta", m.beta, _same
             continue
@@ -74,7 +95,7 @@ def _set(param: torch.Tensor, value: np.ndarray, scope: str, name: str):
 
 
 def _new_param(value: np.ndarray, like: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(torch.as_tensor(np.asarray(value, np.float32)).to(
+    return nn.Parameter(torch.as_tensor(np.array(value, np.float32)).to(
         device=like.device, dtype=like.dtype))
 
 
@@ -83,8 +104,20 @@ def from_jax(model: nn.Module, params: Tree, state: Tree) -> nn.Module:
     """Load JAX-layout trees into ``model`` in place; every scope of the
     trees must land on a module and every module must be covered."""
     used = set()
+    for scope, name, param in _own_params(model):
+        if name not in params.get(scope, {}):
+            raise KeyError(f"no parameter {scope}/{name}")
+        _set(param, params[scope][name], scope, name)
+        used.add(scope)
     for scope, m in _layers(model):
         p = params.get(scope)
+        if p is None and not isinstance(m, BatchNorm):
+            raise KeyError(f"no parameters for {scope}")
+        if isinstance(m, LayerNorm):
+            _set(m.gamma, p["gamma"], scope, "gamma")
+            _set(m.beta, p["beta"], scope, "beta")
+            used.add(scope)
+            continue
         if isinstance(m, BatchNorm):
             if p is None:
                 m.mark_folded()
@@ -98,11 +131,14 @@ def from_jax(model: nn.Module, params: Tree, state: Tree) -> nn.Module:
             _set(m.moving_var, s["moving_var"], scope, "moving_var")
             used.add(scope)
             continue
-        if p is None:
-            raise KeyError(f"no parameters for {scope}")
         if isinstance(m, Conv):
             _set(m.w, p["w"], scope, "w")
-            m.bias = (_new_param(p["b"], m.weight) if "b" in p else None)
+            if "b" not in p:
+                m.bias = None
+            elif m.bias is None:  # a folded BN's bias
+                m.bias = _new_param(p["b"], m.weight)
+            else:  # in place: an optimizer may hold the parameter
+                _set(m.bias, p["b"], scope, "b")
         else:
             _set(m.weight, np.asarray(p["w"]).T, scope, "w")
             _set(m.bias, p["b"], scope, "b")
@@ -120,8 +156,12 @@ def _np(t: torch.Tensor) -> np.ndarray:
 def to_jax(model: nn.Module) -> tuple[Tree, Tree]:
     """The inverse of :func:`from_jax`: float32 numpy trees."""
     params, state = {}, {}
+    for scope, name, p in _own_params(model):
+        params.setdefault(scope, {})[name] = _np(p)
     for scope, m in _layers(model):
-        if isinstance(m, BatchNorm):
+        if isinstance(m, LayerNorm):
+            params[scope] = {"gamma": _np(m.gamma), "beta": _np(m.beta)}
+        elif isinstance(m, BatchNorm):
             if m.folded:
                 continue
             params[scope] = {"gamma": _np(m.gamma), "beta": _np(m.beta)}
@@ -159,16 +199,27 @@ def load_jax_checkpoint(path: str) -> tuple[Tree, Tree]:
 
 def random_jax_params(model: nn.Module, seed: int) -> tuple[Tree, Tree]:
     """JAX-layout trees of random weights for ``model``'s shapes, made
-    from ``seed`` with numpy: He-normal convs, Glorot-uniform dense, and
+    from ``seed`` with numpy: He-normal convs, Glorot-uniform dense,
     BN with random gamma, beta and moving statistics (a block's last BN,
     ``bn_c`` of a bottleneck or ``bn_b`` of a basic block, gets a small
     gamma, as the zero-init recipe intends, so the residual stream stays
-    in range through 16 blocks)."""
+    in range through 16 blocks), LN with gamma near 1 and a small beta,
+    and the ViT's tokens from normal(0.02)."""
     rng = np.random.RandomState(seed)
     params, state = to_jax(model)
+    layers = dict(_layers(model))
     for scope in sorted(params):
         p = params[scope]
-        if "gamma" in p:
+        m = layers.get(scope)
+        if m is None:  # a module's own parameters
+            for name in sorted(p):
+                p[name] = (0.02 * rng.randn(*p[name].shape)).astype(
+                    np.float32)
+        elif isinstance(m, LayerNorm):
+            c = p["gamma"].shape[0]
+            p["gamma"] = rng.uniform(0.8, 1.2, c).astype(np.float32)
+            p["beta"] = (0.05 * rng.randn(c)).astype(np.float32)
+        elif isinstance(m, BatchNorm):
             c = p["gamma"].shape[0]
             last = scope.endswith("bn_c") or (
                 scope.endswith("bn_b") and scope[:-1] + "c" not in params)

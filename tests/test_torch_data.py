@@ -134,20 +134,21 @@ def test_pad_crop_sampler_bounds():
     assert not no_flip.any()
 
 
-@pytest.mark.parametrize("kw", [dict(area_range=(0.08, 1.0)),
+@pytest.mark.parametrize("kw", [dict(contrast=0.4),
                                 dict(brightness=0.4),
                                 dict(randaugment=(2, 9.0)),
-                                dict(out_hw=(24, 24))])
+                                dict(autoaugment="imagenet")])
 def test_unported_augment_modes_raise(kw):
     g = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="ResNet-50 training"):
+    with pytest.raises(NotImplementedError, match="slice 4"):
         taug.sample_geometry(g, 2, (32, 32), _cfg(**kw))
 
 
 def test_eval_resize_raises():
+    """The eval crop-resize interpolates in float32 only."""
     x = torch.zeros(1, 40, 40, 3, dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="ResNet-50 training"):
-        taug.augment_eval(x, _cfg())
+    with pytest.raises(NotImplementedError, match="float32"):
+        taug.augment_eval(x, _cfg(interp_dtype="bfloat16"))
 
 
 def test_normalize_matches_jax():

@@ -19,8 +19,10 @@ from myconvnet_tpu_torch.core.precision import BF16
 from myconvnet_tpu_torch.data.mix import MixDraws
 from myconvnet_tpu_torch.models.resnet import Bottleneck
 from myconvnet_tpu_torch.ops import kernels
+from myconvnet_tpu_torch.ops import attention
 from myconvnet_tpu_torch.ops.kernels import (bn_act, conv_fused, conv_pair,
                                              normalize_u8, pad_crop_u8)
+from myconvnet_tpu_torch.ops.kernels import flash_attention as fa
 from myconvnet_tpu_torch.train.trainer import StepDraws
 from myconvnet_tpu_torch.weights import random_jax_params
 
@@ -169,7 +171,10 @@ def test_resnet50_forward_on_card_matches_host(cuda):
     assert kernels.launch_counts() == {"conv_pair": pairs,
                                        "bn_act": 7 + 2 * (13 - pairs),
                                        "normalize_u8": 0, "pad_crop_u8": 0,
-                                       "conv_fused": 0}
+                                       "conv_fused": 0,
+                                       "flash_attention_fwd": 0,
+                                       "flash_attention_dq": 0,
+                                       "flash_attention_dkv": 0}
     host = build("cpu")(x).numpy()
     assert np.isfinite(card).all()
     assert np.abs(card - host).max() / np.abs(host).max() < 0.05
@@ -354,6 +359,148 @@ def test_train_step_on_card_matches_host(cuda):
     assert pad_crop_u8.pad_crop_flip_normalize.launches == before + 1
     on_host = StepDraws(draws.boxes.cpu(), draws.flip.cpu(),
                         MixDraws(*(t.cpu() for t in draws.mix)))
+    loss_host = float(host.loss_and_grads(x, y, on_host)[0])
+    assert abs(loss_card - loss_host) <= 2e-2 * abs(loss_host)
+    norms = [(float(pc.grad.float().norm()), float(ph.grad.norm()))
+             for (_, pc, _), (_, ph, _) in zip(
+                 weights.param_views(card.model),
+                 weights.param_views(host.model))]
+    biggest = max(h for _, h in norms)
+    assert all(abs(c - h) <= 5e-2 * h + 1e-3 * biggest for c, h in norms)
+
+
+# ------------------------------------------------------- flash attention
+
+VIT_CONFIG = os.path.join(os.path.dirname(__file__), "..", "configs",
+                          "imagenet_vit_b16.py")
+# [B, H, L, D]: L % 64 != 0, ViT-B/16 at 224 and 384, every head-dim class
+FLASH_SHAPES = [(2, 3, 100, 16), (1, 2, 197, 64), (4, 12, 197, 64),
+                (2, 4, 577, 64), (1, 2, 64, 128), (3, 2, 33, 32),
+                (2, 2, 130, 48), (1, 2, 70, 80), (1, 2, 40, 96),
+                (1, 1, 65, 112), (1, 1, 1, 64)]
+# the kernels round P and dS to bf16 before the second product and sum in
+# another order: the output within 2 bf16 ulps of max |O|, gradients
+# within 2^-6 of their max, the float32 lse and D within 2^-16 of theirs
+FLASH_GRAD_TOL, FLASH_STAT_TOL = 2 ** -6, 2 ** -16
+
+
+def _flash_inputs(shape, dev, seed=0):
+    """q, k, v as views of a packed [B, L, 3, H, D] qkv, and dO."""
+    b, h, l, d = shape
+    rng = np.random.RandomState(seed)
+    qkv = _bf16_grid(rng.randn(b, l, 3, h, d)).to(dev, torch.bfloat16)
+    q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+    do = _bf16_grid(rng.randn(b, h, l, d)).to(dev, torch.bfloat16)
+    return q, k, v, do
+
+
+def _assert_within(out, ref, tol):
+    out, ref = out.detach().float(), ref.detach().float()
+    err = float((out - ref).abs().max())
+    assert bool(torch.isfinite(out).all())
+    assert err <= tol * float(ref.abs().max()), (err, tol)
+
+
+def _out_tol(ref):
+    top = float(ref.detach().float().abs().max())
+    return 2 * 2.0 ** (np.floor(np.log2(top)) - 7) / top
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_kernels_match_plain(cuda, shape):
+    """Each kernel against its plain version, from the plain version's
+    residuals (lse, D), so each is held on its own."""
+    q, k, v, do = _flash_inputs(shape, cuda)
+    before = [fn.launches for fn in (fa.flash_attention_fwd,
+                                     fa.flash_attention_dq,
+                                     fa.flash_attention_dkv)]
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v)
+    dq, dl = fa.flash_attention_dq(q, k, v, o_ref, do, lse_ref)
+    dq_ref, dl_ref = fa.flash_dq_reference(q, k, v, o_ref, do, lse_ref)
+    dk, dv = fa.flash_attention_dkv(q, k, v, do, lse_ref, dl_ref)
+    dk_ref, dv_ref = fa.flash_dkv_reference(q, k, v, do, lse_ref, dl_ref)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in (fa.flash_attention_fwd,
+                                   fa.flash_attention_dq,
+                                   fa.flash_attention_dkv)] == \
+        [n + 1 for n in before]
+    assert out.dtype == dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
+    _assert_within(out, o_ref, _out_tol(o_ref))
+    _assert_within(lse, lse_ref, FLASH_STAT_TOL)
+    _assert_within(dl, dl_ref, FLASH_STAT_TOL)
+    for got, ref in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
+        _assert_within(got, ref, FLASH_GRAD_TOL)
+
+
+@pytest.mark.parametrize("packed", [True, False])
+def test_flash_autograd_matches_plain_autograd(cuda, packed):
+    """The autograd Function (forward kernel, then dQ and dK/dV) against
+    torch's autograd through the plain version, with strided views of a
+    packed qkv or contiguous tensors."""
+    q, k, v, do = _flash_inputs((2, 12, 197, 64), cuda, seed=1)
+    if not packed:
+        q, k, v = (t.contiguous() for t in (q, k, v))
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention(*leaves)
+    got = torch.autograd.grad(out, leaves, do)
+    plain = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    ref = fa.flash_attention_reference(*plain)
+    want = torch.autograd.grad(ref, plain, do.float())
+    _assert_within(out, ref, _out_tol(ref))
+    for g, w in zip(got, want):
+        _assert_within(g, w, FLASH_GRAD_TOL)
+
+
+def test_flash_kernels_reject_what_they_do_not_take(cuda):
+    q, k, v, do = _flash_inputs((1, 2, 40, 64), cuda)
+    with pytest.raises(TypeError, match="bf16"):
+        fa.flash_attention_fwd(q.float(), k.float(), v.float())
+    x = torch.zeros(1, 2, 40, 40, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        fa.flash_attention_fwd(x, x, x)
+    with pytest.raises(ValueError, match="cross-length"):
+        fa.flash_attention(q, k[:, :, :20], v)
+
+
+def test_mha_dispatch_takes_the_kernel_for_bf16_cuda(cuda):
+    q, k, v, _ = _flash_inputs((1, 2, 50, 32), cuda)
+    before = fa.flash_attention_fwd.launches
+    out = attention.multi_head_attention(q, k, v)
+    assert fa.flash_attention_fwd.launches == before + 1
+    ref = attention.attention_reference(q, k, v)
+    _assert_within(out, ref, _out_tol(ref))
+    attention.multi_head_attention(q.float(), k.float(), v.float())
+    assert fa.flash_attention_fwd.launches == before + 1
+
+
+def test_vit_train_step_on_card_matches_host(cuda):
+    """Step 1 of the ViT recipe (RandAugment off) with ViT-Ti/16 at batch
+    4, the same weights, batch, draws and drop-path masks on the card and
+    on the host: loss within 2e-2, each gradient's norm within 5e-2 (plus
+    1e-3 of the largest), as chip_smoke.py holds ViT-B/16; 12 launches of
+    each flash kernel."""
+    cfg = recipes.apply_overrides(recipes.load_config(VIT_CONFIG), [
+        "augment.randaugment=None", "model=vit_ti16"])
+    card, train_set, _ = recipes.build_classifier(cfg, True, device=cuda)
+    host, _, _ = recipes.build_classifier(cfg, True,
+                                          device=torch.device("cpu"))
+    params, state = random_jax_params(card.model, 0)
+    for t in (card, host):
+        weights.from_jax(t.model, params, state)
+    xs, ys = train_set.source.get_batch(np.arange(4))
+    x, y = torch.from_numpy(xs), torch.from_numpy(ys)
+    draws = card.sample(4, tuple(xs.shape[1:3]))
+    kernels.reset_launch_counts()
+    loss_card = float(card.loss_and_grads(x.to(cuda), y.to(cuda), draws)[0])
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert [counts[k] for k in ("flash_attention_fwd", "flash_attention_dq",
+                                "flash_attention_dkv")] == [12, 12, 12]
+    on_host = StepDraws(draws.boxes.cpu(), draws.flip.cpu(),
+                        MixDraws(*(t.cpu() for t in draws.mix)),
+                        [{s: m.cpu() for s, m in d.items()}
+                         for d in draws.masks])
     loss_host = float(host.loss_and_grads(x, y, on_host)[0])
     assert abs(loss_card - loss_host) <= 2e-2 * abs(loss_host)
     norms = [(float(pc.grad.float().norm()), float(ph.grad.norm()))
