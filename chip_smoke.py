@@ -38,16 +38,32 @@
    versions at ViT-B/16's [128, 12, 197, 64] and [256, 12, 197, 64] and at
    [32, 12, 577, 64] (ViT-B/16 at 384), bf16, with the kernel, plain and
    ``scaled_dot_product_attention`` times (the last a yardstick only).
-8. ViT-B/16 (``configs/imagenet_vit_b16.py`` with RandAugment off): step 1
-   at batch 8 on the card against the host from seeded JAX-layout weights
-   with the same draws and drop-path masks; ``train.main`` for 20 steps at
-   batch 256 as 2 microbatches with a validation every 10 steps (12
-   forward, 12 dQ and 12 dK/dV launches a microbatch, 12 forward launches
-   an eval batch; every loss finite, every parameter moved); the recipe's
-   batch of 1024 as 4 microbatches of 256 (images/s, device busy time,
-   peak memory), and the same step with the attention on the einsum path
-   for comparison; ``test.main`` on the checkpoint (restored logits equal
-   the writer's and agree with the host's plain path).
+8. RandAugment kernels: ``shear_rows`` (row and column shears at slopes
+   over +-0.3, the three-shear rotate at angles over +-30 degrees) and
+   ``randaugment_ew`` (a random op per image, and each of its 8 ops forced
+   for the batch) against their plain versions at [1024, 224, 224, 3] and
+   [256, 224, 224, 3] float32, with ``F.grid_sample`` of the same shear as
+   the shear's yardstick.
+9. ViT-B/16 (``configs/imagenet_vit_b16.py`` as written, RandAugment
+   (2, 9) over the FAST pool): augment_train of 8 images on the card
+   against the host with the same draws, for the recipe and its three
+   settings that reach the RandAugment kernels (the pallas backend, the
+   canonical pool, AutoAugment "imagenet"); step 1 at batch 8 on the card
+   against the host from seeded JAX-layout weights with the same draws and
+   drop-path masks; ``train.main`` for 20 steps at batch 256 as 2
+   microbatches with a validation every 10 steps (12 forward, 12 dQ and 12
+   dK/dV launches a microbatch, 12 forward launches an eval batch, no
+   RandAugment kernel; every loss finite, every parameter moved); the
+   recipe's batch of 1024 as 4 microbatches of 256 (images/s, device busy
+   time, peak memory), and the same step with the attention on the einsum
+   path for comparison; ``test.main`` on the checkpoint (restored logits
+   equal the writer's and agree with the host's plain path).
+10. The three settings through ``train.main``, 4 steps of 256 as 2
+    microbatches and one validation each, with their exact launch counts
+    (randaugment_ew 2 a step under the pallas backend, shear_rows 10 a step
+    under the canonical pool and 7 under AutoAugment), and the
+    device-timed augmentation rate: ``augment_train`` of 1024 images under
+    CUDA events with RandAugment off, as written, and under each setting.
 
 Every kernel's record carries its bound: the larger of the bytes it must
 move over 3.35 TB/s and the operations it must do over the peak rate of
@@ -55,7 +71,7 @@ their type (989 TFLOP/s bf16 tensor-core products, 67 TFLOP/s float32
 elementwise), from this run's shapes.
 
 Exits non-zero on any failure.  The second-to-last line of stdout is the
-kernels' JSON record, the last ``{"ok": true, "device": {...}}``.  Details
+kernels' JSON record (ten entries), the last ``{"ok": true, "device": {...}}``.  Details
 go to ``chiprun_out/chip_smoke.json``.
 """
 
@@ -124,7 +140,10 @@ ULP32 = dict(rtol=2 ** -23, atol=2 ** -30)
 TOL = {"bn_act": dict(rtol=2 ** -8, atol=1e-6),
        "conv_pair": dict(rtol=2 ** -6, atol=2 ** -7),
        "normalize_u8": ULP32, "pad_crop_u8": ULP32,
-       "conv_fused": dict(rtol=2 ** -6, atol=2 ** -7)}
+       "conv_fused": dict(rtol=2 ** -6, atol=2 ** -7),
+       # each product, sum and quotient rounded as the plain version
+       # rounds it (no FMA): bit-exact expected, 1 float32 ulp allowed
+       "shear_rows": ULP32, "randaugment_ew": ULP32}
 # step 1 on the card vs the host, both bf16 (cuDNN vs the CPU's convs,
 # rounding at other points): the loss within 2e-2 and each gradient's
 # norm within 5e-2 relative, plus 1e-3 of the largest norm for the
@@ -135,9 +154,10 @@ STEP1_GRAD_RTOL = 5e-2
 # fraction of max |logit|: the CPU test of the same comparison against JAX
 # holds 0.05 (tests/test_torch_resnet.py)
 LOGIT_REL_TOL = 0.05
-# ViT-B/16 with RandAugment off (its kernels come with slice 4)
+# ViT-B/16 as written: RandAugment (2, 9) over the FAST pool (the XLA
+# where-fold, no kernel)
 VIT_CONFIG = os.path.join(ROOT, "configs", "imagenet_vit_b16.py")
-VIT_SET = ["augment.randaugment=None"]
+VIT_SET = []
 VIT_BATCH, VIT_ACCUM, VIT_STEPS, VIT_VAL_EVERY = 256, 2, 20, 10
 VIT_STEP1_BATCH = 8
 VIT_SPLIT = 256   # images in each synthetic split, as the JAX package
@@ -155,6 +175,31 @@ FLASH = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv")
 FLASH_OUT_ULPS = 2
 FLASH_GRAD_TOL = 2 ** -6
 FLASH_STAT_TOL = 2 ** -16
+# the recipe's documented settings that reach the RandAugment kernels:
+# overrides, then the launches a train step makes (B7 shear_rows: rotate
+# 3 + shear_x 1 + shear_y 1 a layer of the canonical pool, AutoAugment's
+# rotate + shear_x in step 0 and rotate in step 1; B8 randaugment_ew: one
+# a layer)
+POLICY_RUNS = {
+    "pallas": (["augment.randaugment_backend=pallas"], {"randaugment_ew": 2}),
+    "canonical": (["augment.randaugment_ops=canonical"], {"shear_rows": 10}),
+    "autoaugment": (["augment.randaugment=None",
+                     "augment.autoaugment=imagenet"], {"shear_rows": 7})}
+POLICY_STEPS = 4
+# augmentation alone at the recipe's batch, per policy
+AUG_POLICIES = {"off": ["augment.randaugment=None"], "fast": [],
+                **{k: v for k, (v, _) in POLICY_RUNS.items()}}
+# RandAugment kernels at the recipe's batch and train.main's; "sites" are
+# the launches of one recipe step of 1024 at that shape: the canonical
+# pool's 6 row and 4 column shears, the pallas backend's 2 layers
+RA_SHAPES = [(VIT_RECIPE_BATCH, 224, 224, 3), (VIT_BATCH, 224, 224, 3)]
+RA_SITES = {("shear_rows", 2): 6, ("shear_rows", 1): 4,
+            ("randaugment_ew", "random"): 2}
+# the policies on the card against the host at batch 8 of 224x224: the
+# crop matmuls differ by float32 round-off, which posterize, solarize and
+# equalize can turn into a whole level at a rare pixel: 1e-4 (normalized
+# units) on all but 0.1% of the elements
+POLICY_TOL, POLICY_FRAC = 1e-4, 1e-3
 # peak rates of the H100 SXM (NVIDIA's data sheet): HBM bytes/s, dense
 # bf16 tensor-core and float32 FLOP/s
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -176,7 +221,12 @@ SOURCES = {"conv_pair": ("myconvnet_tpu_torch/csrc/conv_pair.cu",
                "myconvnet_tpu/ops/pallas/flash_attention.py:153"),
            "flash_attention_dkv": (
                "myconvnet_tpu_torch/csrc/flash_attention.cu",
-               "myconvnet_tpu/ops/pallas/flash_attention.py:161")}
+               "myconvnet_tpu/ops/pallas/flash_attention.py:161"),
+           "shear_rows": ("myconvnet_tpu_torch/csrc/affine.cu",
+                          "myconvnet_tpu/ops/pallas/affine.py:92"),
+           "randaugment_ew": (
+               "myconvnet_tpu_torch/csrc/randaugment_ew.cu",
+               "myconvnet_tpu/ops/pallas/randaugment_ew.py:109")}
 
 
 def log(*a):
@@ -316,6 +366,7 @@ def check_kernels(dev):
             f"kernel={row['ms']:.4f}ms plain={row['plain_ms']:.4f}ms")
     details += check_cifar_kernels(dev, g)
     details += check_flash_kernels(dev, g)
+    details += check_randaugment_kernels(dev, g)
     for name in SOURCES:
         rows = [r for r in details if r["kernel"] == name]
         on_path = [r for r in rows if r["sites"]]
@@ -504,6 +555,123 @@ def check_flash_kernels(dev, g):
         log(f"scaled_dot_product_attention backward {[b, h, l, d]}: "
             f"{bwd:.4f}ms (dq + dk + dv in one call)")
         del o_lib
+    return rows
+
+
+def shear_grid(slope, offset, shape, axis):
+    """The sampling grid of a shear for ``F.grid_sample`` (align_corners,
+    coordinates in [-1, 1]): the library yardstick of shear_rows."""
+    import torch
+    n, h, w, _ = shape
+    ys = torch.arange(h, dtype=torch.float32, device=slope.device)
+    xs = torch.arange(w, dtype=torch.float32, device=slope.device)
+    ys, xs = ys[None, :, None].expand(n, h, w), xs[None, None, :].expand(
+        n, h, w)
+    s, t = slope[:, None, None], offset[:, None, None]
+    if axis == 2:
+        xs = xs + s * ys + t
+    else:
+        ys = ys + s * xs + t
+    return torch.stack([2 * xs / (w - 1) - 1, 2 * ys / (h - 1) - 1], -1)
+
+
+def check_randaugment_kernels(dev, g):
+    """shear_rows (B7: row and column shears at slopes over +-0.3, and
+    the three-shear rotate at angles over +-30 degrees) and
+    randaugment_ew (B8: a random op per image, and each op forced for the
+    batch) against their plain versions at RA_SHAPES; one row per kernel,
+    case and shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from myconvnet_tpu_torch.ops.kernels import affine, randaugment_ew
+
+    def row(kernel, case, shape, sites, out, ref, fn, plain_fn, nbytes,
+            ops, lib_fn=None, **extra):
+        torch.cuda.synchronize()
+        err, ok = compare(out, ref, **TOL[kernel])
+        b_ms, b_by = bound(nbytes, ops, F32_FLOPS)
+        r = dict(kernel=kernel, case=case, shape=list(shape), sites=sites,
+                 max_abs_err=err, ok=ok, bound_ms=b_ms, bound_by=b_by,
+                 ms=cuda_ms(fn, iters=10),
+                 plain_ms=cuda_ms(plain_fn, iters=3, warmup=1),
+                 library_ms=cuda_ms(lib_fn, iters=10) if lib_fn else None,
+                 **{k: cuda_ms(f, iters=10) for k, f in extra.items()})
+        log(f"{kernel} {case} {r['shape']} x{sites}: max_abs_err={err:.3g} "
+            f"ok={ok} kernel={r['ms']:.4f}ms plain={r['plain_ms']:.4f}ms "
+            f"bound={b_ms:.4f}ms ({b_by})"
+            + (f" grid_sample={r['library_ms']:.4f}ms" if lib_fn else "")
+            + "".join(f" {k}={r[k]:.4f}ms" for k in extra))
+        return r
+
+    rows = []
+    for shape in RA_SHAPES:
+        n, h, w, _ = shape
+        x = torch.rand(shape, generator=g, device=dev)
+        numel = x.numel()
+        slope = torch.linspace(-0.3, 0.3, n, device=dev)
+        for axis in (2, 1):
+            off = affine._centered(slope, shape[3 - axis])
+            args = (x, slope, off)
+            grid = shear_grid(slope, off, shape, axis)
+            xn = x.permute(0, 3, 1, 2)
+            rows.append(row(
+                "shear_rows", f"axis {axis}", shape,
+                RA_SITES[("shear_rows", axis)] if n == VIT_RECIPE_BATCH
+                else 0,
+                affine.shear_rows(*args, axis=axis),
+                affine.shear_reference(*args, axis=axis),
+                lambda: affine.shear_rows(*args, axis=axis),
+                lambda: affine.shear_reference(*args, axis=axis),
+                8 * numel + 8 * n, 6 * numel,
+                lambda: F.grid_sample(xn, grid, mode="bilinear",
+                                      padding_mode="zeros",
+                                      align_corners=True)))
+            del grid
+        angle = slope * (math.pi / 6 / 0.3)
+
+        def plain_rotate():
+            a, b = torch.tan(angle / 2.0), -torch.sin(angle)
+            y = x
+            for s_, ax in ((a, 2), (b, 1), (a, 2)):
+                y = affine.shear_reference(
+                    y, s_, affine._centered(s_, shape[3 - ax]), axis=ax)
+            return y
+
+        rows.append(row(
+            "shear_rows", "rotate (3 launches)", shape, 0,
+            affine.rotate(x, angle, max_abs_radians=math.pi / 6),
+            plain_rotate(),
+            lambda: affine.rotate(x, angle, max_abs_radians=math.pi / 6),
+            plain_rotate, 3 * (8 * numel + 8 * n), 18 * numel))
+        mag = torch.rand(n, generator=g, device=dev) * 2 - 1
+        for case in ("random", *randaugment_ew.PALLAS_POOL):
+            if case == "random":
+                idx = torch.randint(0, 8, (n,), generator=g, device=dev)
+            else:
+                idx = torch.full((n,), randaugment_ew.PALLAS_POOL.index(
+                    case), device=dev, dtype=torch.int64)
+            args = (x, idx, mag)
+            params = randaugment_ew.image_stats(x)
+            params[:, 0] = mag
+            idx32 = idx.int()
+            # the statistics read x once, the kernel reads and writes it;
+            # the wrapper's time split into the torch statistics and the
+            # kernel alone
+            rows.append(row(
+                "randaugment_ew", case, shape,
+                RA_SITES.get(("randaugment_ew", case), 0)
+                if n == VIT_RECIPE_BATCH else 0,
+                randaugment_ew.apply_layer(*args),
+                randaugment_ew.apply_layer_reference(*args),
+                lambda: randaugment_ew.apply_layer(*args),
+                lambda: randaugment_ew.apply_layer_reference(*args),
+                12 * numel + 12 * n, 8 * numel,
+                stats_ms=lambda: randaugment_ew.image_stats(x),
+                kernel_alone_ms=lambda: randaugment_ew.launch(
+                    x, idx32, params)))
+        del x
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -830,10 +998,71 @@ def train_and_check(dev):
     return train_counts, eval_counts, checks
 
 
-def vit_cfg():
+def vit_cfg(sets=()):
     from myconvnet_tpu_torch import recipes
     return recipes.apply_overrides(recipes.load_config(VIT_CONFIG),
-                                   list(VIT_SET))
+                                   [*VIT_SET, *sets])
+
+
+def policy_launches(name, steps=1):
+    """RandAugment kernel launches of ``steps`` train steps under a
+    policy of AUG_POLICIES."""
+    per_step = POLICY_RUNS[name][1] if name in POLICY_RUNS else {}
+    return {k: per_step.get(k, 0) * steps
+            for k in ("shear_rows", "randaugment_ew")}
+
+
+def on_cpu(draws):
+    """RandAugment or AutoAugment draws (a tuple of tensors) on the host."""
+    return None if draws is None else type(draws)(*(t.cpu() for t in draws))
+
+
+def check_policies_against_host(dev):
+    """augment_train of VIT_STEP1_BATCH synthetic images (256x256 -> 224
+    crops) with the same boxes, flips and policy draws on the card
+    (kernels) and on the host (plain versions), for the recipe as written
+    and each setting of POLICY_RUNS; launches counted on the card."""
+    import torch
+
+    from myconvnet_tpu_torch import recipes
+    from myconvnet_tpu_torch.data import augment
+    from myconvnet_tpu_torch.ops import kernels
+
+    xs = torch.from_numpy(recipes.make_sources(vit_cfg(), True, splits=(
+        "train",))[0].images[:VIT_STEP1_BATCH])
+    n = len(xs)
+    g = torch.Generator(device=dev)
+    out = {}
+    for name, sets in AUG_POLICIES.items():
+        if name == "off":
+            continue
+        cfg = recipes.make_augment(vit_cfg(sets)["augment"])
+        g.manual_seed(SEED)
+        boxes, flip = augment.sample_geometry(g, n, tuple(xs.shape[1:3]),
+                                              cfg)
+        draws = augment.sample_policy(g, n, cfg)
+        kernels.reset_launch_counts()
+        card = augment.augment_train(xs.to(dev), boxes, flip, cfg,
+                                     policy=draws)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        host = augment.augment_train(xs, boxes.cpu(), flip.cpu(), cfg,
+                                     policy=on_cpu(draws))
+        diff = (card.cpu() - host).abs()
+        frac = float((diff > POLICY_TOL).float().mean())
+        ok = bool(torch.isfinite(card).all()) and frac <= POLICY_FRAC \
+            and card.shape == host.shape == (n, 224, 224, 3)
+        out[name] = dict(max_abs_diff=float(diff.max()), frac_over_tol=frac,
+                         ok=ok)
+        log(f"{name} policy, augment_train of {n} on the card vs the host: "
+            f"max |diff| {float(diff.max()):.3g}, share of elements over "
+            f"{POLICY_TOL:g}: {frac:.3g} (tol {POLICY_FRAC:g}) ok={ok}")
+        check_counts(counts, policy_launches(name), f"{name} policy on the "
+                     "card (one batch)")
+        if not ok:
+            raise AssertionError(f"{name} policy: the card disagrees with "
+                                 "the host")
+    return out
 
 
 def vit_step_one(dev):
@@ -861,7 +1090,7 @@ def vit_step_one(dev):
     on_host = StepDraws(draws.boxes.cpu(), draws.flip.cpu(),
                         MixDraws(*(t.cpu() for t in draws.mix)),
                         [{k: m.cpu() for k, m in d.items()}
-                         for d in draws.masks])
+                         for d in draws.masks], on_cpu(draws.policy))
     t0 = time.perf_counter()
     loss_card = float(card.loss_and_grads(x.to(dev), y.to(dev), draws)[0])
     t1 = time.perf_counter()
@@ -892,8 +1121,9 @@ def vit_step_one(dev):
                 grad_worst_rel=worst, n_grads=len(norms))
 
 
-def timed_steps(trainer, x, y, iters):
-    """CUDA-event ms per train step, host enqueue ms per step."""
+def events_ms(fn, iters):
+    """CUDA-event ms per call of ``fn`` from an idle device (host gaps
+    included), host enqueue ms per call."""
     import torch
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -901,11 +1131,12 @@ def timed_steps(trainer, x, y, iters):
     start.record()
     t0 = time.perf_counter()
     for _ in range(iters):
-        trainer.train_step(x, y)
+        fn()
     host_ms = (time.perf_counter() - t0) * 1e3 / iters
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters, host_ms
+
 
 
 def vit_train_and_check(dev):
@@ -1007,7 +1238,8 @@ def vit_train_and_check(dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     iters = 5
-    step_ms, host_ms = timed_steps(trainer, xd, yd, iters)
+    step_ms, host_ms = events_ms(lambda: trainer.train_step(xd, yd),
+                                 iters)
     peak = torch.cuda.max_memory_allocated(dev)
     busy, span, n_kernels, top = device_busy(
         lambda: trainer.train_step(xd, yd), iters=2)
@@ -1040,7 +1272,7 @@ def vit_train_and_check(dev):
         trainer.train_step(xd, yd)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        einsum_ms, _ = timed_steps(trainer, xd, yd, 3)
+        einsum_ms, _ = events_ms(lambda: trainer.train_step(xd, yd), 3)
         einsum_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     finally:
         vit_mod.multi_head_attention = mha
@@ -1051,6 +1283,115 @@ def vit_train_and_check(dev):
         f"{einsum_ms:.1f} ms, {VIT_RECIPE_BATCH * 1e3 / einsum_ms:.1f} "
         f"images/s; max_memory_allocated {einsum_peak:.1f} GiB")
     return train_counts, eval_counts, checks
+
+
+def vit_policy_runs(dev):
+    """``train.main`` under each setting of POLICY_RUNS: POLICY_STEPS
+    steps of VIT_BATCH as VIT_ACCUM microbatches and the final validation;
+    returns ({setting: launch counts}, checks)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from myconvnet_tpu_torch import train
+    from myconvnet_tpu_torch.ops import kernels
+
+    micro = POLICY_STEPS * VIT_ACCUM
+    evals = -(-VIT_SPLIT // VIT_BATCH)
+    runs, checks = {}, {}
+    for name, (sets, _) in POLICY_RUNS.items():
+        run_dir = os.path.join(ROOT, "build", f"chip_smoke_vit_{name}")
+        shutil.rmtree(run_dir, ignore_errors=True)
+        t0 = time.perf_counter()
+        kernels.reset_launch_counts()
+        train.main([
+            "--config", VIT_CONFIG, "--synthetic", "--steps",
+            str(POLICY_STEPS), "--val_every", "0", "--batch", str(VIT_BATCH),
+            "--out", run_dir,
+            *[a for kv in (*VIT_SET, *sets) for a in ("--set", kv)],
+            "--set", f"accum_steps={VIT_ACCUM}", "--set", "log_every=1",
+            "--device", dev.type])
+        torch.cuda.synchronize()
+        runs[name] = kernels.launch_counts()
+        seconds = time.perf_counter() - t0
+        check_counts(runs[name], {
+            **{k: 0 for k in kernels.WRAPPERS},
+            "flash_attention_fwd": VIT_DEPTH * (micro + evals),
+            "flash_attention_dq": VIT_DEPTH * micro,
+            "flash_attention_dkv": VIT_DEPTH * micro,
+            **policy_launches(name, POLICY_STEPS)},
+            f"ViT train.main with {' '.join(sets)} ({POLICY_STEPS} steps, "
+            f"{micro} microbatches, {evals} eval batches)")
+        with open(os.path.join(run_dir, "train.jsonl")) as f:
+            losses = [r["loss"] for r in map(json.loads, f) if "loss" in r]
+        if len(losses) != POLICY_STEPS or not np.all(np.isfinite(losses)):
+            raise AssertionError(f"{name}: losses not all finite: {losses}")
+        log(f"{name}: losses {[round(v, 4) for v in losses]} in "
+            f"{seconds:.1f}s (checkpoint included)")
+        checks[name] = dict(losses=losses, seconds=seconds)
+        shutil.rmtree(run_dir)
+    return runs, checks
+
+
+def augment_rates(dev):
+    """``augment_train`` of VIT_RECIPE_BATCH images (the synthetic split
+    tiled), its draws made once, under each policy of AUG_POLICIES: ms by
+    CUDA events from an idle device (host gaps included) and the host's
+    enqueue ms per call, device busy ms per call (torch.profiler), and the
+    device-timed rate, images per second of device busy time.  One call
+    runs under ``torch.cuda.set_sync_debug_mode("warn")`` to count the
+    host syncs it makes."""
+    import warnings
+
+    import torch
+
+    from myconvnet_tpu_torch import recipes
+    from myconvnet_tpu_torch.data import augment
+
+    src = recipes.make_sources(vit_cfg(), True, splits=("train",))[0]
+    x = torch.from_numpy(src.images).to(dev).repeat(
+        VIT_RECIPE_BATCH // len(src), 1, 1, 1)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    rates = {}
+    for name, sets in AUG_POLICIES.items():
+        cfg = recipes.make_augment(vit_cfg(sets)["augment"])
+        mean_std = augment.stats(cfg, dev)
+        boxes, flip = augment.sample_geometry(g, len(x), tuple(x.shape[1:3]),
+                                              cfg)
+        draws = augment.sample_policy(g, len(x), cfg)
+
+        def fn():
+            return augment.augment_train(x, boxes, flip, cfg, mean_std,
+                                         draws)
+
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        syncs = [str(w.message)[:120] for w in caught
+                 if "synchroniz" in str(w.message)]
+        ms, host_ms = events_ms(fn, 5)
+        busy, _, n_kernels, top = device_busy(fn, iters=3)
+        rates[name] = dict(
+            ms=ms, host_enqueue_ms=host_ms, device_busy_ms=busy,
+            kernels=n_kernels, host_syncs=len(syncs), sync_examples=syncs[:3],
+            images_per_sec=None if busy is None else len(x) * 1e3 / busy,
+            top_kernels=top[:5])
+        log(f"augment_train of {len(x)} ({name}{': ' if sets else ''}"
+            f"{' '.join(sets)}): {ms:.3f} ms by events, host enqueue "
+            f"{host_ms:.3f} ms, device busy "
+            f"{busy if busy is None else round(busy, 3)} ms over "
+            f"{n_kernels:.0f} kernels -> {rates[name]['images_per_sec']} "
+            f"images/s of device time; host syncs in a call: {len(syncs)} "
+            f"{syncs[:1]}")
+    return rates
 
 
 def main() -> int:
@@ -1099,9 +1440,14 @@ def main() -> int:
     counts, calls, checks = serve_and_check(dev)
     train_counts, eval_counts, checks["cifar"] = train_and_check(dev)
     torch.cuda.empty_cache()
+    checks["policies_vs_host"] = check_policies_against_host(dev)
     vit_train, vit_test, checks["vit"] = vit_train_and_check(dev)
+    torch.cuda.empty_cache()
+    policy_runs, checks["vit_policies"] = vit_policy_runs(dev)
+    checks["augment_rate"] = augment_rates(dev)
     runs = {"serve": counts, "train": train_counts, "test": eval_counts,
-            "vit_train": vit_train, "vit_test": vit_test}
+            "vit_train": vit_train, "vit_test": vit_test,
+            **{f"vit_train_{k}": v for k, v in policy_runs.items()}}
     launches = {name: sum(c[name] for c in runs.values())
                 for name in SOURCES}
 

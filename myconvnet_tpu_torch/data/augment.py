@@ -6,11 +6,13 @@ ViT recipes use: ``AugmentConfig`` (``:36-73``), ``_axis_matrix`` and
 ``batched_crop_resize`` (``:78-145``), ``random_resized_crop_boxes``
 (``:148-188``), ``pad_crop_boxes`` (``:191-203``), ``center_crop_boxes``
 (``:205-212``), ``_sample_geometry`` (``:329-347``), ``augment_train``
-(``:350-388``), ``augment_eval`` (``:391-402``) and ``normalize``
-(``:320-324``).
+(``:350-388``, with RandAugment or AutoAugment from
+``data/randaugment.py``), ``augment_eval`` (``:391-402``) and
+``normalize`` (``:320-324``).
 
 Sampling is split from applying.  :func:`sample_geometry` draws the crop
-boxes and the flips from a ``torch.Generator`` on the device (threefry
+boxes and the flips, and :func:`sample_policy` the RandAugment or
+AutoAugment draws, from a ``torch.Generator`` on the device (threefry
 and torch's generators give different numbers, so tests inject JAX's
 draws into the application instead).  The random-resized boxes are
 clamped to the frame rather than rejected, as in JAX.  The application:
@@ -23,12 +25,13 @@ clamped to the frame rather than rejected, as in JAX.  The application:
   :func:`batched_crop_resize`: per-image bilinear sampling matrices and two
   float32 einsums, which cuBLAS runs in true float32 (PyTorch leaves
   ``torch.backends.cuda.matmul.allow_tf32`` off by default, the
-  counterpart of JAX's ``precision="highest"``), then x / 255 and the
-  mean/std normalize as plain ops.  Only the float32 interpolation
-  (``interp_dtype``) is ported.
+  counterpart of JAX's ``precision="highest"``), then x / 255, the policy
+  (RandAugment or AutoAugment, which a pad-crop batch also takes through
+  this path, as JAX does) and the mean/std normalize as plain ops.  Only
+  the float32 interpolation (``interp_dtype``) is ported.
 
-Colour jitter, RandAugment and AutoAugment raise ``NotImplementedError``:
-they come with slice 4 of the port (RandAugment's kernels).
+Colour jitter raises ``NotImplementedError``: it comes with slice 5 of the
+port (ResNet-50 training).
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from typing import NamedTuple
 
 import torch
 
+from myconvnet_tpu_torch.data import randaugment as ra
 from myconvnet_tpu_torch.ops.kernels import pad_crop_flip_normalize
 from myconvnet_tpu_torch.ops.kernels.normalize_u8 import normalize_u8
 
@@ -45,7 +49,7 @@ from myconvnet_tpu_torch.ops.kernels.normalize_u8 import normalize_u8
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
-_LATER = "comes with slice 4 of the port (RandAugment)"
+_LATER = "comes with slice 5 of the port (ResNet-50 training)"
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -81,8 +85,56 @@ def stats(cfg: AugmentConfig, device) -> tuple[torch.Tensor, torch.Tensor]:
 def _check_train_mode(cfg: AugmentConfig) -> None:
     if cfg.brightness or cfg.contrast or cfg.saturation or cfg.hue:
         raise NotImplementedError(f"colour jitter {_LATER}")
-    if cfg.randaugment is not None or cfg.autoaugment is not None:
-        raise NotImplementedError(f"RandAugment / AutoAugment {_LATER}")
+    if cfg.randaugment is not None and cfg.autoaugment is not None:
+        raise ValueError("set randaugment OR autoaugment, not both")
+
+
+def _randaugment_ops(cfg: AugmentConfig) -> tuple[str, ...]:
+    """The RandAugment pool: a named pool resolved, then the backend's
+    default or check (``augment.py:373-381``)."""
+    ops = cfg.randaugment_ops
+    if isinstance(ops, str):
+        named = {"canonical": ra.CANONICAL_OPS, "fast": ra.FAST_OPS}
+        if ops not in named:
+            raise ValueError(
+                f"randaugment_ops={ops!r}: named pools are "
+                f"{sorted(named)} (or pass a tuple of op names)")
+        ops = named[ops]
+    return ra.resolve_ops(ops, cfg.randaugment_backend)
+
+
+def sample_policy(generator: torch.Generator, n: int, cfg: AugmentConfig
+                  ) -> ra.RandAugmentDraws | ra.AutoAugmentDraws | None:
+    """The RandAugment or AutoAugment draws of a batch of ``n`` (None
+    when the config sets neither), on the generator's device."""
+    _check_train_mode(cfg)
+    if cfg.randaugment is not None:
+        return ra.sample_randaugment(
+            generator, n, num_layers=int(cfg.randaugment[0]),
+            num_ops=len(_randaugment_ops(cfg)))
+    if cfg.autoaugment is not None:
+        return ra.sample_autoaugment(generator, n, cfg.autoaugment)
+    return None
+
+
+def apply_policy(x: torch.Tensor, cfg: AugmentConfig, draws
+                 ) -> torch.Tensor:
+    """RandAugment or AutoAugment of [0, 1] floats with their draws."""
+    if cfg.randaugment is not None:
+        layers, mag = cfg.randaugment
+        if not isinstance(draws, ra.RandAugmentDraws) \
+                or draws.op.shape[0] != int(layers):
+            raise ValueError(f"randaugment={cfg.randaugment} needs the "
+                             "RandAugment draws of sample_policy")
+        return ra.rand_augment(x, draws, magnitude=float(mag),
+                               ops=_randaugment_ops(cfg),
+                               backend=cfg.randaugment_backend)
+    if cfg.autoaugment is not None:
+        if not isinstance(draws, ra.AutoAugmentDraws):
+            raise ValueError("autoaugment needs the AutoAugment draws of "
+                             "sample_policy")
+        return ra.auto_augment(x, draws, policy=cfg.autoaugment)
+    return x
 
 
 def _axis_matrix(start: torch.Tensor, extent: torch.Tensor, in_size: int,
@@ -188,31 +240,40 @@ def sample_geometry(generator: torch.Generator, n: int,
     return boxes, flip
 
 
-def _resized(images_u8, boxes, flip, cfg, mean_std, clamp):
+def _resized(images_u8, boxes, flip, cfg, mean_std, clamp, policy=None):
     if cfg.interp_dtype != "float32":
         raise NotImplementedError(f"interp_dtype {cfg.interp_dtype!r}: the "
                                   "port interpolates in float32")
     mean, std = mean_std or stats(cfg, images_u8.device)
     x = batched_crop_resize(images_u8, boxes, tuple(cfg.out_hw), flip,
-                            clamp=clamp)
-    return normalize(x * (1.0 / 255.0), mean, std).to(
-        _DTYPES[cfg.out_dtype])
+                            clamp=clamp) * (1.0 / 255.0)
+    if policy is not None:
+        x = apply_policy(x, cfg, policy)
+    return normalize(x, mean, std).to(_DTYPES[cfg.out_dtype])
 
 
 def augment_train(images_u8: torch.Tensor, boxes: torch.Tensor,
                   flip: torch.Tensor, cfg: AugmentConfig,
-                  mean_std=None) -> torch.Tensor:
-    """[N, H, W, C] uint8 + sampled (boxes, flip) -> [N, OH, OW, C] in
-    ``cfg.out_dtype``, normalized: one pass of the pad_crop_u8 kernel in
-    the pad-crop mode at the input's size, :func:`batched_crop_resize`
-    otherwise.  ``mean_std``: the (mean, std) of :func:`stats`, made
-    once."""
+                  mean_std=None, policy=None) -> torch.Tensor:
+    """[N, H, W, C] uint8 + sampled (boxes, flip) and, when the config
+    sets RandAugment or AutoAugment, the ``policy`` draws of
+    :func:`sample_policy` -> [N, OH, OW, C] in ``cfg.out_dtype``,
+    normalized: one pass of the pad_crop_u8 kernel in the pad-crop mode at
+    the input's size without a policy, :func:`batched_crop_resize`, the
+    policy and the normalize otherwise.  ``mean_std``: the (mean, std) of
+    :func:`stats`, made once."""
     n, h, w, _ = images_u8.shape
     _check_train_mode(cfg)
-    if cfg.area_range is not None or tuple(cfg.out_hw) != (h, w):
+    has_policy = cfg.randaugment is not None or cfg.autoaugment is not None
+    if has_policy and policy is None:
+        raise ValueError("RandAugment / AutoAugment need the policy draws "
+                         "of sample_policy")
+    if cfg.area_range is not None or tuple(cfg.out_hw) != (h, w) \
+            or has_policy:
         # zero padding outside the frame only in the pad-crop mode
         clamp = cfg.area_range is not None or cfg.pad == 0
-        return _resized(images_u8, boxes, flip, cfg, mean_std, clamp)
+        return _resized(images_u8, boxes, flip, cfg, mean_std, clamp,
+                        policy)
     mean, std = mean_std or stats(cfg, images_u8.device)
     offsets = boxes[:, :2].to(torch.int32)
     return pad_crop_flip_normalize(images_u8, offsets, flip, mean, std,

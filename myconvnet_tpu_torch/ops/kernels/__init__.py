@@ -6,9 +6,10 @@ version (which the wrapper runs for CPU tensors), and a note on the Pallas
 kernel it replaces.  ``_build`` compiles ``csrc/*.cu`` at first use.
 """
 
-from myconvnet_tpu_torch.ops.kernels import (bn_act, conv_fused, conv_pair,
-                                             flash_attention, normalize_u8,
-                                             pad_crop_u8)
+from myconvnet_tpu_torch.ops.kernels import (affine, bn_act, conv_fused,
+                                             conv_pair, flash_attention,
+                                             normalize_u8, pad_crop_u8,
+                                             randaugment_ew)
 from myconvnet_tpu_torch.ops.kernels.bn_act import (bn_inference_fused,
                                                     fused_scale_shift_act)
 from myconvnet_tpu_torch.ops.kernels.conv_fused import conv3x3_bn_relu
@@ -18,7 +19,8 @@ from myconvnet_tpu_torch.ops.kernels.pad_crop_u8 import \
     pad_crop_flip_normalize
 
 # kernel name -> wrapper; ``normalize_u8.normalize_u8`` keeps the module's
-# name for the module.  The flash-attention module has three kernels.
+# name for the module.  The flash-attention module has three kernels;
+# ``shear_rows`` (affine) shears rows or columns.
 WRAPPERS = {"bn_act": fused_scale_shift_act,
             "conv_pair": conv1x1_conv3x3_bn_relu,
             "normalize_u8": normalize_u8.normalize_u8,
@@ -26,7 +28,9 @@ WRAPPERS = {"bn_act": fused_scale_shift_act,
             "conv_fused": conv3x3_bn_relu,
             "flash_attention_fwd": flash_attention.flash_attention_fwd,
             "flash_attention_dq": flash_attention.flash_attention_dq,
-            "flash_attention_dkv": flash_attention.flash_attention_dkv}
+            "flash_attention_dkv": flash_attention.flash_attention_dkv,
+            "shear_rows": affine.shear_rows,
+            "randaugment_ew": randaugment_ew.apply_layer}
 
 
 def reset_launch_counts() -> None:
@@ -38,7 +42,8 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
-__all__ = ["WRAPPERS", "bn_act", "bn_inference_fused", "conv1x1_conv3x3_bn_relu",
-           "conv3x3_bn_relu", "conv_fused", "conv_pair", "flash_attention",
-           "fused_scale_shift_act", "launch_counts", "normalize_u8",
-           "pad_crop_flip_normalize", "pad_crop_u8", "reset_launch_counts"]
+__all__ = ["WRAPPERS", "affine", "bn_act", "bn_inference_fused",
+           "conv1x1_conv3x3_bn_relu", "conv3x3_bn_relu", "conv_fused",
+           "conv_pair", "flash_attention", "fused_scale_shift_act",
+           "launch_counts", "normalize_u8", "pad_crop_flip_normalize",
+           "pad_crop_u8", "randaugment_ew", "reset_launch_counts"]

@@ -75,6 +75,11 @@ SIGNATURES = {
     # stream
     "mcn_flash_bwd_dkv": (P, P, P, P, P, P, P, P, STRIDES, I32, I32, I32,
                           I32, F32, P),
+    # x, slope [N], offset [N], y, n, h, w, c, axis, fill, stream
+    "mcn_shear_f32": (P, P, P, P, I32, I32, I32, I32, I32, F32, P),
+    # x, op_idx [N] int32, params [N, 2 + 2C], y, n, elements per image,
+    # c, stream
+    "mcn_randaugment_ew_f32": (P, P, P, P, I32, I64, I32, P),
 }
 
 

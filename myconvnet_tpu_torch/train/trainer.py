@@ -11,7 +11,8 @@ mesh come with later slices.
 
 Where JAX compiles one program per step, the port runs eagerly and keeps
 the step free of host syncs: the augmentation draws are made on the
-device (``data.augment.sample_geometry``) or copied from pinned memory
+device (``data.augment.sample_geometry`` and ``sample_policy``, the
+RandAugment or AutoAugment draws) or copied from pinned memory
 (``data.mix.sample_mix``), and ``fit`` reads each step's metrics one step
 late, as the JAX loop does, so the host enqueues step k+1 while the
 device runs step k.
@@ -38,7 +39,7 @@ from myconvnet_tpu_torch.ckpt import checkpoint as ckpt_lib
 from myconvnet_tpu_torch.core.precision import Policy
 from myconvnet_tpu_torch.data.augment import (AugmentConfig, augment_eval,
                                               augment_train, sample_geometry,
-                                              stats)
+                                              sample_policy, stats)
 from myconvnet_tpu_torch.data.mix import MixConfig, MixDraws, mixup_cutmix, \
     sample_mix
 from myconvnet_tpu_torch.eval.evaluators import Evaluator
@@ -64,6 +65,7 @@ class StepDraws(NamedTuple):
     flip: torch.Tensor | None    # [N] bool
     mix: MixDraws | None
     masks: list | None = None    # per microbatch, the model's keep masks
+    policy: tuple | None = None  # RandAugment or AutoAugment draws
 
 
 class Trainer:
@@ -107,10 +109,11 @@ class Trainer:
 
     def sample(self, n: int, hw: tuple[int, int]) -> StepDraws:
         """This step's draws, a function of (seed, step)."""
-        boxes = flip = mix = masks = None
+        boxes = flip = mix = masks = policy = None
         self._gen.manual_seed((self.seed << 32) + self.step)
         if self.augment is not None:
             boxes, flip = sample_geometry(self._gen, n, hw, self.augment)
+            policy = sample_policy(self._gen, n, self.augment)
         if self.mix is not None:
             rng = np.random.default_rng([self.seed, self.step])
             mix = sample_mix(rng, n, self.mix, self.device)
@@ -118,7 +121,7 @@ class Trainer:
             micro = n // self.accum_steps
             masks = [self.model.sample_masks(micro, self._gen)
                      for _ in range(self.accum_steps)]
-        return StepDraws(boxes, flip, mix, masks)
+        return StepDraws(boxes, flip, mix, masks, policy)
 
     def _forward(self, x, masks):
         x = x.to(self.policy.compute_dtype)
@@ -136,7 +139,7 @@ class Trainer:
             draws = self.sample(x.shape[0], tuple(x.shape[1:3]))
         if self.augment is not None:
             x = augment_train(x, draws.boxes, draws.flip, self.augment,
-                              self._mean_std)
+                              self._mean_std, draws.policy)
         if self.mix is not None:
             x, y = mixup_cutmix(x, y, self.num_classes, self.mix, draws.mix)
         self.model.train()

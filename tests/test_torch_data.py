@@ -135,13 +135,30 @@ def test_pad_crop_sampler_bounds():
 
 
 @pytest.mark.parametrize("kw", [dict(contrast=0.4),
-                                dict(brightness=0.4),
-                                dict(randaugment=(2, 9.0)),
-                                dict(autoaugment="imagenet")])
+                                dict(brightness=0.4)])
 def test_unported_augment_modes_raise(kw):
     g = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(NotImplementedError, match="slice 5"):
         taug.sample_geometry(g, 2, (32, 32), _cfg(**kw))
+
+
+@pytest.mark.parametrize("kw", [dict(randaugment=(2, 9.0)),
+                                dict(autoaugment="imagenet")])
+def test_policy_modes_sample_and_apply(kw):
+    """RandAugment and AutoAugment on the CIFAR pad-crop chain: drawn by
+    sample_policy, applied between the crop and the normalize (through
+    the crop matmuls, where the pad_crop_u8 kernel would normalize)."""
+    g = torch.Generator().manual_seed(0)
+    cfg = _cfg(**kw)
+    boxes, flip = taug.sample_geometry(g, 4, (32, 32), cfg)
+    draws = taug.sample_policy(g, 4, cfg)
+    x = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 256, (4, 32, 32, 3), dtype=np.uint8))
+    out = taug.augment_train(x, boxes, flip, cfg, policy=draws)
+    plain = taug.augment_train(x, boxes, flip, _cfg())
+    assert out.shape == (4, 32, 32, 3) and torch.isfinite(out).all()
+    assert not torch.equal(out, plain)
+    assert taug.sample_policy(g, 4, _cfg()) is None
 
 
 def test_eval_resize_raises():

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
 from myconvnet_tpu.data import augment as jaug
+from myconvnet_tpu.ops.pallas import affine as jaffine
 from myconvnet_tpu.ops.pallas import bn_act as jbn_act
 from myconvnet_tpu.ops.pallas import conv_fused as jconv_fused
 from myconvnet_tpu.ops.pallas import conv_pair as jconv_pair
@@ -24,6 +25,7 @@ from myconvnet_tpu.ops.pallas.normalize_u8 import \
 from myconvnet_tpu.ops.pallas.pad_crop_u8 import (
     pad_crop_flip_normalize as jpad_crop,
     reference_pad_crop_flip_normalize as jpad_crop_numpy)
+from myconvnet_tpu.ops.pallas import randaugment_ew as jew
 from myconvnet_tpu_torch.data import augment as taug
 from myconvnet_tpu_torch.ops.kernels import (bn_inference_fused,
                                              conv1x1_conv3x3_bn_relu,
@@ -32,8 +34,9 @@ from myconvnet_tpu_torch.ops.kernels import (bn_inference_fused,
                                              pad_crop_flip_normalize,
                                              reset_launch_counts,
                                              launch_counts)
-from myconvnet_tpu_torch.ops.kernels import (bn_act, conv_fused, conv_pair,
-                                             normalize_u8)
+from myconvnet_tpu_torch.ops.kernels import (affine, bn_act, conv_fused,
+                                             conv_pair, normalize_u8,
+                                             randaugment_ew)
 
 torch.set_num_threads(1)
 
@@ -361,3 +364,121 @@ def test_conv_fused_wrapper_checks():
         conv3x3_bn_relu(*[a.to("meta") for a in (x, w3, s, b)])
     assert conv_fused.supports(8) and conv_fused.supports(512)
     assert not conv_fused.supports(12) and not conv_fused.supports(0)
+
+
+# ------------------------------------------------------ RandAugment (B7, B8)
+
+# XLA on the CPU fuses the Pallas shear's multiply-adds into FMAs (shift =
+# s * y + t and both taps; an exact emulation of that matches it bit for
+# bit), where the port rounds each product and sum as the Pallas source
+# writes them: measured up to 8.3e-7 on [0, 1] images, 2e-6 allowed
+SHEAR_TOL = dict(rtol=0, atol=2e-6)
+SLOPES = np.array([-0.3, -0.12, 0.0, 0.3], np.float32)
+
+
+def _img01(n, h, w, seed):
+    return np.random.RandomState(seed).rand(n, h, w, 3).astype(np.float32)
+
+
+@pytest.mark.parametrize("hw", [(20, 24), (33, 17)])
+def test_shear_rows_plain_matches_pallas(hw):
+    """Slopes up to +-max_abs_slope with offsets that push rows past both
+    edges; H = 33 spans two of the Pallas kernel's 32-row blocks."""
+    x = _img01(4, *hw, seed=0)
+    offset = np.array([2.5, -3.25, 0.0, -7.0], np.float32)
+    want = jaffine.shear_rows(jnp.asarray(x), jnp.asarray(SLOPES),
+                              jnp.asarray(offset), max_abs_slope=0.3,
+                              fill=0.25, interpret=True)
+    reset_launch_counts()
+    got = affine.shear_rows(torch.from_numpy(x), torch.from_numpy(SLOPES),
+                            torch.from_numpy(offset), max_abs_slope=0.3,
+                            fill=0.25)
+    assert launch_counts()["shear_rows"] == 0
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **SHEAR_TOL)
+
+
+@pytest.mark.parametrize("op", ["shear_x", "shear_y", "rotate"])
+def test_shear_and_rotate_plain_match_pallas(op):
+    """The centred shears at slopes up to +-0.3 and the three-shear
+    rotation at up to +-30 degrees; the column shear is the kernel along
+    the rows (no transpose)."""
+    x = _img01(4, 20, 24, seed=1)
+    if op == "rotate":
+        arg = SLOPES * np.float32(np.pi / 6 / 0.3)  # +-30 degrees
+        kw = dict(max_abs_radians=np.pi / 6)
+    else:
+        arg, kw = SLOPES, dict(max_abs_slope=0.3)
+    want = getattr(jaffine, op)(jnp.asarray(x), jnp.asarray(arg),
+                                interpret=True, **kw)
+    got = getattr(affine, op)(torch.from_numpy(x), torch.from_numpy(arg),
+                              **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **SHEAR_TOL)
+    np.testing.assert_array_equal(got[2].numpy(), x[2])  # angle 0
+    if op == "shear_y":  # the column shear is the row shear transposed
+        t = affine.shear_x(torch.from_numpy(x).transpose(1, 2).contiguous(),
+                           torch.from_numpy(arg))
+        torch.testing.assert_close(got, t.transpose(1, 2), rtol=0, atol=0)
+
+
+def test_affine_wrapper_checks():
+    x = torch.zeros(2, 6, 5, 3)
+    s = torch.zeros(2)
+    with pytest.raises(TypeError):
+        affine.shear_rows(x.double(), s, s)
+    with pytest.raises(ValueError):
+        affine.shear_rows(x, s[:1], s)
+    with pytest.raises(ValueError):
+        affine.shear_rows(x, s, s, axis=3)
+    with pytest.raises(ValueError):  # no kernel and no plain path there
+        affine.shear_rows(x.to("meta"), s.to("meta"), s.to("meta"))
+    with pytest.raises(ValueError, match="90 degrees"):
+        affine.rotate(x, s, max_abs_radians=np.pi / 2)
+    # a slope far outside the Pallas bound: every source out of the frame
+    out = affine.shear_rows(x + 1.0, torch.full((2,), 1e9), s, fill=0.5)
+    assert (out[:, 1:] == 0.5).all()
+
+
+# one image per magnitude: |m| = 0.3, 0.3, 1 and 0, and a signed one
+EW_MAGS = np.array([0.3, -0.3, 1.0, 0.0], np.float32)
+
+
+@pytest.mark.parametrize("op", list(jew.PALLAS_POOL))
+def test_apply_layer_plain_matches_pallas(op):
+    """Each op of PALLAS_POOL forced for a batch of 20x24 images, against
+    the Pallas kernel in interpret mode; the third image's channels are
+    flat (autocontrast leaves them)."""
+    x = _img01(4, 20, 24, seed=2)
+    x[2, ..., 1] = 0.4
+    idx = np.full(4, jew.PALLAS_POOL.index(op), np.int32)
+    want = np.asarray(jew.apply_layer(jnp.asarray(x), jnp.asarray(idx),
+                                      jnp.asarray(EW_MAGS), interpret=True))
+    reset_launch_counts()
+    got = randaugment_ew.apply_layer(torch.from_numpy(x),
+                                     torch.from_numpy(idx),
+                                     torch.from_numpy(EW_MAGS)).numpy()
+    assert launch_counts()["randaugment_ew"] == 0
+    # the gray mean is summed in another order; XLA rounds the Pallas
+    # posterize's last division by an ulp off its own op_posterize (which
+    # the port equals bit for bit, test_torch_randaugment.py): 1e-6
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+def test_apply_layer_plain_picks_each_images_op():
+    x = _img01(8, 9, 7, seed=3)
+    idx = np.arange(8, dtype=np.int32)
+    mag = np.linspace(-1, 1, 8).astype(np.float32)
+    want = np.asarray(jew.apply_layer(jnp.asarray(x), jnp.asarray(idx),
+                                      jnp.asarray(mag), interpret=True))
+    got = randaugment_ew.apply_layer(torch.from_numpy(x),
+                                     torch.from_numpy(idx),
+                                     torch.from_numpy(mag)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    assert randaugment_ew.PALLAS_POOL == jew.PALLAS_POOL
+    with pytest.raises(TypeError):
+        randaugment_ew.apply_layer(torch.from_numpy(x),
+                                   torch.from_numpy(mag),
+                                   torch.from_numpy(mag))
+    with pytest.raises(ValueError):
+        randaugment_ew.apply_layer(torch.from_numpy(x),
+                                   torch.from_numpy(idx[:2]),
+                                   torch.from_numpy(mag))

@@ -20,8 +20,10 @@ from myconvnet_tpu_torch.data.mix import MixDraws
 from myconvnet_tpu_torch.models.resnet import Bottleneck
 from myconvnet_tpu_torch.ops import kernels
 from myconvnet_tpu_torch.ops import attention
-from myconvnet_tpu_torch.ops.kernels import (bn_act, conv_fused, conv_pair,
-                                             normalize_u8, pad_crop_u8)
+from myconvnet_tpu_torch.data import augment as taug
+from myconvnet_tpu_torch.ops.kernels import (affine, bn_act, conv_fused,
+                                             conv_pair, normalize_u8,
+                                             pad_crop_u8, randaugment_ew)
 from myconvnet_tpu_torch.ops.kernels import flash_attention as fa
 from myconvnet_tpu_torch.train.trainer import StepDraws
 from myconvnet_tpu_torch.weights import random_jax_params
@@ -174,7 +176,8 @@ def test_resnet50_forward_on_card_matches_host(cuda):
                                        "conv_fused": 0,
                                        "flash_attention_fwd": 0,
                                        "flash_attention_dq": 0,
-                                       "flash_attention_dkv": 0}
+                                       "flash_attention_dkv": 0,
+                                       "shear_rows": 0, "randaugment_ew": 0}
     host = build("cpu")(x).numpy()
     assert np.isfinite(card).all()
     assert np.abs(card - host).max() / np.abs(host).max() < 0.05
@@ -509,3 +512,124 @@ def test_vit_train_step_on_card_matches_host(cuda):
                  weights.param_views(host.model))]
     biggest = max(h for _, h in norms)
     assert all(abs(c - h) <= 5e-2 * h + 1e-3 * biggest for c, h in norms)
+
+
+# ------------------------------------------------ RandAugment (B7, B8)
+
+# the ViT recipe's batch at 224x224, and an odd shape (a scalar tail in
+# randaugment_ew: 21 * 17 * 3 elements an image, not a multiple of 4)
+RA_SHAPES = [(1024, 224, 224, 3), (3, 21, 17, 3)]
+# both kernels round each product, sum and quotient as their plain
+# versions do: bit-exact expected, 1 float32 ulp allowed
+RA_TOL = dict(rtol=2 ** -23, atol=2 ** -30)
+
+
+def _rand01(shape, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.rand(shape, generator=g, device=dev)
+
+
+@pytest.mark.parametrize("shape", RA_SHAPES)
+@pytest.mark.parametrize("axis", [2, 1])
+def test_shear_kernel_matches_plain(cuda, shape, axis):
+    """Slopes spread over +-0.3 with the centring offset plus a shift of
+    up to 3 pixels, so rows leave the frame at both ends."""
+    x = _rand01(shape, cuda)
+    n = shape[0]
+    slope = torch.linspace(-0.3, 0.3, n, device=cuda)
+    offset = affine._centered(slope, shape[3 - axis]) \
+        + torch.linspace(3.0, -3.0, n, device=cuda)
+    before = affine.shear_rows.launches
+    out = affine.shear_rows(x, slope, offset, fill=0.5, axis=axis)
+    torch.cuda.synchronize()
+    assert affine.shear_rows.launches == before + 1
+    ref = affine.shear_reference(x, slope, offset, fill=0.5, axis=axis)
+    torch.testing.assert_close(out, ref, **RA_TOL)
+
+
+@pytest.mark.parametrize("shape", RA_SHAPES)
+def test_rotate_kernels_match_plain(cuda, shape):
+    x = _rand01(shape, cuda, seed=1)
+    angles = torch.linspace(-np.pi / 6, np.pi / 6, shape[0], device=cuda)
+    before = affine.shear_rows.launches
+    out = affine.rotate(x, angles, max_abs_radians=np.pi / 6)
+    torch.cuda.synchronize()
+    assert affine.shear_rows.launches == before + 3
+    a, b = torch.tan(angles / 2.0), -torch.sin(angles)
+    ref = x
+    for slope, axis in ((a, 2), (b, 1), (a, 2)):
+        offset = affine._centered(slope, ref.shape[3 - axis])
+        ref = affine.shear_reference(ref, slope, offset, axis=axis)
+    torch.testing.assert_close(out, ref, **RA_TOL)
+
+
+@pytest.mark.parametrize("shape", RA_SHAPES)
+@pytest.mark.parametrize("op", list(randaugment_ew.PALLAS_POOL) + ["random"])
+def test_randaugment_ew_kernel_matches_plain(cuda, shape, op):
+    """Each op of PALLAS_POOL forced for the whole batch, and a random op
+    per image; signed magnitudes spread over [-1, 1]."""
+    x = _rand01(shape, cuda, seed=2)
+    x[0, ..., 1] = 0.25  # a flat channel: autocontrast leaves it
+    n = shape[0]
+    g = torch.Generator(device=cuda).manual_seed(3)
+    if op == "random":
+        idx = torch.randint(0, 8, (n,), generator=g, device=cuda)
+    else:
+        idx = torch.full((n,), randaugment_ew.PALLAS_POOL.index(op),
+                         device=cuda, dtype=torch.int64)
+    mag = torch.rand(n, generator=g, device=cuda) * 2 - 1
+    before = randaugment_ew.apply_layer.launches
+    out = randaugment_ew.apply_layer(x, idx, mag)
+    torch.cuda.synchronize()
+    assert randaugment_ew.apply_layer.launches == before + 1
+    ref = randaugment_ew.apply_layer_reference(x, idx, mag)
+    torch.testing.assert_close(out, ref, **RA_TOL)
+
+
+def test_randaugment_kernels_reject_what_they_do_not_take(cuda):
+    x = torch.zeros(2, 8, 8, 3, device=cuda)
+    s = torch.zeros(2, device=cuda)
+    with pytest.raises(TypeError):
+        affine.shear_rows(x.half(), s, s)
+    with pytest.raises(ValueError):
+        affine.shear_rows(x.transpose(1, 2), s, s)
+    idx = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        randaugment_ew.apply_layer(x.double(), idx, s)
+    with pytest.raises(ValueError):
+        randaugment_ew.apply_layer(x.transpose(1, 2), idx, s)
+
+
+POLICIES = {"fast": dict(randaugment=(2, 9)),
+            "pallas": dict(randaugment=(2, 9), randaugment_backend="pallas"),
+            "canonical": dict(randaugment=(2, 9),
+                              randaugment_ops="canonical"),
+            "autoaugment": dict(autoaugment="imagenet")}
+# launches of (shear_rows, randaugment_ew) a batch
+POLICY_LAUNCHES = {"fast": (0, 0), "pallas": (0, 2), "canonical": (10, 0),
+                   "autoaugment": (7, 0)}
+
+
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_policy_on_card_matches_host(cuda, policy):
+    """augment_train of 4 images, 64x64 crops of 80x80, with the same
+    draws on the card (kernels) and on the host (plain versions): the
+    crop matmuls differ by float32 round-off, which posterize, solarize
+    and equalize can turn into a whole level at a rare pixel: 1e-4 on
+    all but 1% of the elements."""
+    cfg = taug.AugmentConfig(out_hw=(64, 64), **POLICIES[policy])
+    g = torch.Generator(device=cuda).manual_seed(4)
+    boxes, flip = taug.sample_geometry(g, 4, (80, 80), cfg)
+    draws = taug.sample_policy(g, 4, cfg)
+    x = _images((4, 80, 80, 3), cuda, seed=5)
+    kernels.reset_launch_counts()
+    card = taug.augment_train(x, boxes, flip, cfg, policy=draws)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert (counts["shear_rows"], counts["randaugment_ew"]) == \
+        POLICY_LAUNCHES[policy]
+    host = taug.augment_train(x.cpu(), boxes.cpu(), flip.cpu(), cfg,
+                              policy=type(draws)(*(t.cpu() for t in draws)))
+    diff = (card.cpu() - host).abs()
+    assert torch.isfinite(card).all()
+    assert float((diff > 1e-4).float().mean()) <= 0.01

@@ -7,6 +7,7 @@ numpy inputs (JAX's random draws are made from its keys and handed to the
 port).  The model is ``tinyvit`` (2 blocks, dim 32, 8x8 input, patch 4).
 """
 
+import json
 import os
 
 import numpy as np
@@ -29,6 +30,7 @@ from myconvnet_tpu_torch import test as test_entry
 from myconvnet_tpu_torch import train as train_entry
 from myconvnet_tpu_torch.core.precision import FULL
 from myconvnet_tpu_torch.data import augment as taug
+from myconvnet_tpu_torch.data.randaugment import RandAugmentDraws
 from myconvnet_tpu_torch.subsets import imagenet
 from myconvnet_tpu_torch.train import losses, optim
 from myconvnet_tpu_torch.train.trainer import Trainer, TrainState
@@ -386,3 +388,23 @@ def test_vit_entry_points_on_the_cpu(tmp_path):
     for field in (".mu", ".nu"):
         _assert_trees_close(b.opt_state[field], a.opt_state[field], 0.0,
                             field)
+
+
+def test_vit_entry_point_with_randaugment_on_the_cpu(tmp_path):
+    """The README's tiny ViT run with the recipe's RandAugment (2, 9), as
+    written: 3 steps of 16 as 2 microbatches, every loss finite, each
+    step's draws with two layers of op positions in the FAST pool."""
+    out = str(tmp_path / "run")
+    sets = [kv for kv in TINY if not kv.startswith("augment.randaugment")]
+    trainer = train_entry.main([
+        "--config", CONFIG, "--synthetic", "--device", "cpu",
+        *[a for kv in sets for a in ("--set", kv)], "--steps", "3",
+        "--batch", "16", "--set", "accum_steps=2", "--set", "log_every=1",
+        "--out", out])
+    assert trainer.step == 3 and trainer.augment.randaugment == (2, 9)
+    with open(os.path.join(out, "train.jsonl")) as f:
+        losses = [r["loss"] for r in map(json.loads, f) if "loss" in r]
+    assert len(losses) == 3 and np.isfinite(losses).all()
+    draws = trainer.sample(16, (40, 40))
+    assert isinstance(draws.policy, RandAugmentDraws)
+    assert draws.policy.op.shape == (2, 16) and draws.policy.op.max() < 12
