@@ -65,14 +65,37 @@
     device-timed augmentation rate: ``augment_train`` of 1024 images under
     CUDA events with RandAugment off, as written, and under each setting.
 
+11. Correlation kernels (``csrc/correlation.cu``): the forward and the
+    two backward kernels against the plain version and its autograd at
+    the six sites the flow recipes give them (PWC-Net's levels 2 to 6 and
+    FlowNetC's 1/8 map, batch 32 of 384x512, d = 4), bf16 and float32
+    inputs.
+12. PWC-Net (``configs/chairs_pwcnet.py`` as written, full width): step 1
+    at batch 2 of 384x512 on the card against the host from seeded
+    JAX-layout weights that are non-zero in the flow heads too (their zero
+    init would make every upstream gradient zero), with the same flips and
+    jitter factors, and the eval flows from those weights (whole pixels)
+    against the host's plain path; ``train.main`` for 20 steps at batch 32 with a
+    validation every 10 steps on 64 rendered scenes (5 forward launches a
+    train forward and an eval batch, 5 of each backward kernel a step, no
+    other kernel; every loss finite, every parameter moved); the step's
+    pairs/s, host enqueue ms, device busy ms, idle share, top kernels and
+    peak memory; ``test.main`` on the checkpoint (restored flows equal the
+    writer's and agree with the host's plain path).
+13. FlowNetC (``configs/chairs_flownet_s.py`` with ``model=flownet_c``):
+    4 steps at batch 32 and the final validation (1 forward launch a
+    forward, 1 of each backward kernel a step).
+
 Every kernel's record carries its bound: the larger of the bytes it must
 move over 3.35 TB/s and the operations it must do over the peak rate of
 their type (989 TFLOP/s bf16 tensor-core products, 67 TFLOP/s float32
 elementwise), from this run's shapes.
 
 Exits non-zero on any failure.  The second-to-last line of stdout is the
-kernels' JSON record (ten entries), the last ``{"ok": true, "device": {...}}``.  Details
-go to ``chiprun_out/chip_smoke.json``.
+kernels' JSON record (thirteen entries; a correlation entry's ``ms``,
+``plain_ms`` and ``bound_ms`` sum one PWC-Net and one FlowNetC train step,
+its ``launches`` both paths' runs, and ``by_path`` splits them), the last ``{"ok": true, "device":
+{...}}``.  Details go to ``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -200,6 +223,35 @@ RA_SITES = {("shear_rows", 2): 6, ("shear_rows", 1): 4,
 # equalize can turn into a whole level at a rare pixel: 1e-4 (normalized
 # units) on all but 0.1% of the elements
 POLICY_TOL, POLICY_FRAC = 1e-4, 1e-3
+# the flow recipes: PWC-Net as written (batch 32 of 384x512, bf16) on 64
+# rendered scenes per split, FlowNetC through the FlowNetS recipe
+PWC_CONFIG = os.path.join(ROOT, "configs", "chairs_pwcnet.py")
+FLOWNET_CONFIG = os.path.join(ROOT, "configs", "chairs_flownet_s.py")
+FLOW_BATCH, FLOW_SCENES = 32, 64
+PWC_STEPS, PWC_VAL_EVERY, PWC_STEP1_BATCH = 20, 10, 2
+PWC_LEVELS = 5          # cost volumes of one PWC-Net forward
+FLOWNETC_STEPS = 4
+CORR = ("correlation_fwd", "correlation_bwd_f1", "correlation_bwd_f2")
+CORR_D = 4
+# (site, f1/f2 shape, the path whose train step launches each kernel once
+# there)
+CORR_SITES = [("PWC-Net level 2", (FLOW_BATCH, 96, 128, 32), "pwcnet"),
+              ("PWC-Net level 3", (FLOW_BATCH, 48, 64, 64), "pwcnet"),
+              ("PWC-Net level 4", (FLOW_BATCH, 24, 32, 96), "pwcnet"),
+              ("PWC-Net level 5", (FLOW_BATCH, 12, 16, 128), "pwcnet"),
+              ("PWC-Net level 6", (FLOW_BATCH, 6, 8, 196), "pwcnet"),
+              ("FlowNetC 1/8", (FLOW_BATCH, 48, 64, 256), "flownet_c")]
+# the runs that count a path's launches
+CORR_PATH_RUNS = {"pwcnet": ("pwc_train", "pwc_test"),
+                  "flownet_c": ("flownetc_train",)}
+# kernel vs plain: float32 sums of exact products in another order, 2^-18
+# of max |volume| (and of the largest gradient for float32 inputs); bf16
+# gradients are rounded once from a float32 sum, 2 bf16 ulps of the largest
+CORR_TOL = 2 ** -18
+CORR_GRAD_ULPS = 2
+# eval flows (bf16 on the card) vs the plain path on the host, as a
+# fraction of max |flow|: the CPU test against JAX holds the same
+FLOW_REL_TOL = 0.05
 # peak rates of the H100 SXM (NVIDIA's data sheet): HBM bytes/s, dense
 # bf16 tensor-core and float32 FLOP/s
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -226,7 +278,12 @@ SOURCES = {"conv_pair": ("myconvnet_tpu_torch/csrc/conv_pair.cu",
                           "myconvnet_tpu/ops/pallas/affine.py:92"),
            "randaugment_ew": (
                "myconvnet_tpu_torch/csrc/randaugment_ew.cu",
-               "myconvnet_tpu/ops/pallas/randaugment_ew.py:109")}
+               "myconvnet_tpu/ops/pallas/randaugment_ew.py:109"),
+           # the Pallas kernel is forward-only; its XLA op's gradient is
+           # what the two backward kernels replace
+           **{name: ("myconvnet_tpu_torch/csrc/correlation.cu",
+                     "myconvnet_tpu/ops/pallas/correlation.py:67")
+              for name in CORR}}
 
 
 def log(*a):
@@ -261,6 +318,26 @@ def cuda_ms(fn, iters=20, warmup=3, sleep_cycles=20_000_000):
         return cuda_ms(fn, iters, 0, 4 * sleep_cycles)
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn):
+    """Device ms per call of ``fn`` for a plain version of hundreds of
+    small launches: more than CUDA's launch queue takes behind a held
+    stream, and the card runs them faster than the host enqueues them.  The
+    call is captured once as a CUDA graph and its replays are timed as
+    ``cuda_ms`` times a kernel (timing only; the port replays no graph)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        kept = fn()  # the capture's outputs live as long as the graph
+    ms = cuda_ms(graph.replay, iters=5, warmup=1)
+    del kept, graph
+    return ms
 
 
 def compare(out, ref, rtol, atol):
@@ -367,6 +444,7 @@ def check_kernels(dev):
     details += check_cifar_kernels(dev, g)
     details += check_flash_kernels(dev, g)
     details += check_randaugment_kernels(dev, g)
+    details += check_correlation_kernels(dev, g)
     for name in SOURCES:
         rows = [r for r in details if r["kernel"] == name]
         on_path = [r for r in rows if r["sites"]]
@@ -382,6 +460,22 @@ def check_kernels(dev):
             library_ms=(None if None in lib else
                         sum(t * r["sites"] for t, r in zip(lib, on_path))))
     return summary, details
+
+
+def correlation_by_path(name, details, runs):
+    """A correlation kernel's launches and times path by path: the launches
+    of the path's runs beside the kernel, plain and bound ms of one train
+    step of that path (its bf16 rows), so that both cover the same set."""
+    out = {}
+    for path, names in CORR_PATH_RUNS.items():
+        rows = [r for r in details if r["kernel"] == name
+                and r.get("path") == path and r["sites"]]
+        out[path] = dict(
+            launches=sum(runs[k][name] for k in names),
+            **{k: sum(r[k] for r in rows)
+               for k in ("ms", "plain_ms", "bound_ms")},
+            bound_by=max(rows, key=lambda r: r["bound_ms"])["bound_by"])
+    return out
 
 
 def check_cifar_kernels(dev, g):
@@ -675,6 +769,94 @@ def check_randaugment_kernels(dev, g):
     return rows
 
 
+def corr_taps(size, d):
+    """Taps of the (2d + 1) displacements along one axis of ``size`` that
+    fall inside the frame, summed over the axis (the others read zeros)."""
+    return sum(max(size - abs(e), 0) for e in range(-d, d + 1))
+
+
+def check_correlation_kernels(dev, g):
+    """The correlation forward and both backward kernels against the
+    plain version and its autograd at CORR_SITES, bf16 and float32 inputs,
+    d = CORR_D; one row per kernel, site and dtype.  ``sites`` counts the
+    launches of one train step of the row's ``path`` at the recipe's batch
+    (bf16 rows; the recipes never give the kernels float32).  The plain
+    backward is autograd of the plain version, its forward included, giving
+    both gradients at once: one time for both rows.  Kernel and plain
+    times are both ``cuda_ms`` (stream held), the plain version's through
+    ``graph_ms``.  The operations' bound takes
+    the rate of the inputs' type: a bf16 product summed in float32 is what
+    the tensor cores compute."""
+    import torch
+
+    from myconvnet_tpu_torch.ops.kernels import correlation as corr
+
+    d, k = CORR_D, (2 * CORR_D + 1) ** 2
+    rows = []
+    for site, shape, path in CORR_SITES:
+        n, h, w, c = shape
+        for dtype in (torch.bfloat16, torch.float32):
+            f1, f2 = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                      for _ in range(2))
+            grad = torch.randn((n, h, w, k), generator=g, device=dev)
+            out = corr.correlation_fwd(f1, f2, d)
+            ref = corr.correlation_reference(f1, f2, d)
+            d1 = corr.correlation_bwd_f1(grad, f1, f2, d)
+            d2 = corr.correlation_bwd_f2(grad, f1, f2, d)
+            r1, r2 = corr.correlation_bwd_reference(grad, f1, f2, d)
+            torch.cuda.synchronize()
+
+            def grad_tol(r):
+                top = float(r.float().abs().max())
+                if dtype == torch.float32:
+                    return CORR_TOL * top
+                return CORR_GRAD_ULPS * 2.0 ** (math.floor(math.log2(top))
+                                                - 7)
+
+            checks = {
+                "correlation_fwd": (out, ref,
+                                    CORR_TOL * float(ref.abs().max())),
+                "correlation_bwd_f1": (d1, r1, grad_tol(r1)),
+                "correlation_bwd_f2": (d2, r2, grad_tol(r2))}
+            elt = f1.element_size()
+            ops = 2 * n * corr_taps(h, d) * corr_taps(w, d) * c
+            vol = 4 * n * h * w * k
+            sizes = {"correlation_fwd": 2 * elt * f1.numel() + vol,
+                     "correlation_bwd_f1": vol + 2 * elt * f1.numel(),
+                     "correlation_bwd_f2": vol + 2 * elt * f1.numel()}
+            fns = {"correlation_fwd":
+                   lambda: corr.correlation_fwd(f1, f2, d),
+                   "correlation_bwd_f1":
+                   lambda: corr.correlation_bwd_f1(grad, f1, f2, d),
+                   "correlation_bwd_f2":
+                   lambda: corr.correlation_bwd_f2(grad, f1, f2, d)}
+            plain = {"correlation_fwd": graph_ms(
+                lambda: corr.correlation_reference(f1, f2, d))}
+            plain["correlation_bwd_f1"] = plain["correlation_bwd_f2"] = \
+                graph_ms(lambda: corr.correlation_bwd_reference(
+                    grad, f1, f2, d))
+            rate = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+            for name in CORR:
+                got, want, tol = checks[name]
+                err = float((got.float() - want.float()).abs().max())
+                ok = err <= tol and bool(torch.isfinite(got).all())
+                b_ms, b_by = bound(sizes[name], ops, rate)
+                r = dict(kernel=name, site=site, path=path,
+                         shape=list(shape), dtype=str(dtype).split(".")[-1],
+                         sites=int(dtype == torch.bfloat16),
+                         max_abs_err=err, tol=tol, ok=ok, bound_ms=b_ms,
+                         bound_by=b_by, ms=cuda_ms(fns[name]),
+                         plain_ms=plain[name], library_ms=None)
+                rows.append(r)
+                log(f"{name} {site} {r['shape']} {r['dtype']}: "
+                    f"max_abs_err={err:.3g} (tol {tol:.3g}) ok={ok} "
+                    f"kernel={r['ms']:.4f}ms plain={r['plain_ms']:.4f}ms "
+                    f"bound={b_ms:.4f}ms ({b_by})")
+            del f1, f2, grad, out, ref, d1, d2, r1, r2
+        torch.cuda.empty_cache()
+    return rows
+
+
 def post(url, body):
     req = urllib.request.Request(url, data=body,
                                  headers={"Content-Type":
@@ -828,12 +1010,52 @@ def device_busy(fn, iters=5):
     return busy / 1e3 / iters, span / 1e3 / iters, len(spans) / iters, top
 
 
+def read_losses(run_dir, steps, what):
+    import numpy as np
+    with open(os.path.join(run_dir, "train.jsonl")) as f:
+        losses = [r["loss"] for r in map(json.loads, f) if "loss" in r]
+    if len(losses) != steps or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"{what}: losses not all finite: {losses}")
+    return losses
+
+
 def check_counts(counts, expect, what):
     for name, want in expect.items():
         if counts[name] != want:
             raise AssertionError(f"{what}: {name} launched {counts[name]} "
                                  f"times, want {want}")
     log(f"{what}: launches {counts} ok")
+
+
+def step_one_verdict(what, card, host, loss_card, loss_host, note=""):
+    """Hold step 1 on the card against the host: the loss within
+    STEP1_LOSS_RTOL and every parameter's gradient norm within
+    STEP1_GRAD_RTOL (plus 1e-3 of the largest); returns the record."""
+    import numpy as np
+
+    from myconvnet_tpu_torch import weights
+
+    norms = [(path, float(pc.grad.float().norm()), float(ph.grad.norm()))
+             for (path, pc, _), (_, ph, _) in zip(
+                 weights.param_views(card.model),
+                 weights.param_views(host.model))]
+    biggest = max(h for _, _, h in norms)
+    bad = [(p, c, h) for p, c, h in norms
+           if abs(c - h) > STEP1_GRAD_RTOL * h + 1e-3 * biggest]
+    worst = max(abs(c - h) / max(h, 1e-30) for _, c, h in norms)
+    loss_rel = abs(loss_card - loss_host) / abs(loss_host)
+    log(f"{what}, card vs host: loss {loss_card:.6f} vs {loss_host:.6f} "
+        f"(rel {loss_rel:.3g}, tol {STEP1_LOSS_RTOL}); {len(norms)} "
+        f"gradient norms, worst rel diff {worst:.3g} (tol "
+        f"{STEP1_GRAD_RTOL} + 1e-3 of the largest), outside: {len(bad)}"
+        f"{note}")
+    if not (np.isfinite(loss_card) and loss_rel <= STEP1_LOSS_RTOL):
+        raise AssertionError(f"{what}: the loss disagrees with the host")
+    if bad:
+        raise AssertionError(f"{what}: gradient norms disagree: {bad[:5]}")
+    return dict(loss_card=loss_card, loss_host=loss_host, loss_rel=loss_rel,
+                grad_worst_rel=worst, n_grads=len(norms),
+                smallest_host_norm=min(h for _, _, h in norms))
 
 
 def step_one_against_host(dev):
@@ -864,26 +1086,9 @@ def step_one_against_host(dev):
     t1 = time.perf_counter()
     loss_host = float(host.loss_and_grads(x, y, on_host)[0])
     t2 = time.perf_counter()
-    norms = [(path, float(pc.grad.float().norm()), float(ph.grad.norm()))
-             for (path, pc, _), (_, ph, _) in zip(
-                 weights.param_views(card.model),
-                 weights.param_views(host.model))]
-    biggest = max(h for _, _, h in norms)
-    bad = [(p, c, h) for p, c, h in norms
-           if abs(c - h) > STEP1_GRAD_RTOL * h + 1e-3 * biggest]
-    worst = max(abs(c - h) / max(h, 1e-30) for _, c, h in norms)
-    loss_rel = abs(loss_card - loss_host) / abs(loss_host)
-    log(f"step 1, card vs host: loss {loss_card:.6f} vs {loss_host:.6f} "
-        f"(rel {loss_rel:.3g}, tol {STEP1_LOSS_RTOL}); {len(norms)} "
-        f"gradient norms, worst rel diff {worst:.3g} (tol "
-        f"{STEP1_GRAD_RTOL} + 1e-3 of the largest), outside: {len(bad)}; "
-        f"card {t1 - t0:.2f}s (first, cold), host {t2 - t1:.2f}s")
-    if not (np.isfinite(loss_card) and loss_rel <= STEP1_LOSS_RTOL):
-        raise AssertionError("step-1 loss disagrees with the host")
-    if bad:
-        raise AssertionError(f"step-1 gradient norms disagree: {bad[:5]}")
-    return dict(loss_card=loss_card, loss_host=loss_host, loss_rel=loss_rel,
-                grad_worst_rel=worst, n_grads=len(norms))
+    return step_one_verdict(
+        "step 1", card, host, loss_card, loss_host,
+        f"; card {t1 - t0:.2f}s (first, cold), host {t2 - t1:.2f}s")
 
 
 def train_and_check(dev):
@@ -918,10 +1123,7 @@ def train_and_check(dev):
         **{k: v * evals for k, v in PER_EVAL_BATCH.items()},
         "conv_pair": 0}, f"train.main ({TRAIN_STEPS} steps, {evals} eval "
                          "batches)")
-    with open(os.path.join(run_dir, "train.jsonl")) as f:
-        losses = [r["loss"] for r in map(json.loads, f) if "loss" in r]
-    if len(losses) != TRAIN_STEPS or not np.all(np.isfinite(losses)):
-        raise AssertionError(f"losses not all finite: {losses}")
+    losses = read_losses(run_dir, TRAIN_STEPS, "ResNet-18")
     bns = [m for m in trainer.model.modules() if isinstance(m, BatchNorm)]
     still = [m for m in bns if not bool(
         (m.moving_mean != 0).any() and (m.moving_var != 1).any())]
@@ -1096,29 +1298,11 @@ def vit_step_one(dev):
     t1 = time.perf_counter()
     loss_host = float(host.loss_and_grads(x, y, on_host)[0])
     t2 = time.perf_counter()
-    norms = [(path, float(pc.grad.float().norm()), float(ph.grad.norm()))
-             for (path, pc, _), (_, ph, _) in zip(
-                 weights.param_views(card.model),
-                 weights.param_views(host.model))]
-    biggest = max(h for _, _, h in norms)
-    bad = [(p, c, h) for p, c, h in norms
-           if abs(c - h) > STEP1_GRAD_RTOL * h + 1e-3 * biggest]
-    worst = max(abs(c - h) / max(h, 1e-30) for _, c, h in norms)
-    loss_rel = abs(loss_card - loss_host) / abs(loss_host)
     dropped = sum(int((~m).sum()) for m in draws.masks[0].values())
-    log(f"ViT-B/16 step 1 (batch {n}), card vs host: loss {loss_card:.6f} "
-        f"vs {loss_host:.6f} (rel {loss_rel:.3g}, tol {STEP1_LOSS_RTOL}); "
-        f"{len(norms)} gradient norms, worst rel diff {worst:.3g} (tol "
-        f"{STEP1_GRAD_RTOL} + 1e-3 of the largest), outside: {len(bad)}; "
-        f"{len(draws.masks[0])} drop-path masks, {dropped} paths dropped; "
+    return step_one_verdict(
+        f"ViT-B/16 step 1 (batch {n})", card, host, loss_card, loss_host,
+        f"; {len(draws.masks[0])} drop-path masks, {dropped} paths dropped; "
         f"card {t1 - t0:.2f}s (first, cold), host {t2 - t1:.2f}s")
-    if not (np.isfinite(loss_card) and loss_rel <= STEP1_LOSS_RTOL):
-        raise AssertionError("ViT step-1 loss disagrees with the host")
-    if bad:
-        raise AssertionError(f"ViT step-1 gradient norms disagree: "
-                             f"{bad[:5]}")
-    return dict(loss_card=loss_card, loss_host=loss_host, loss_rel=loss_rel,
-                grad_worst_rel=worst, n_grads=len(norms))
 
 
 def events_ms(fn, iters):
@@ -1175,10 +1359,7 @@ def vit_train_and_check(dev):
         "flash_attention_dq": VIT_DEPTH * micro,
         "flash_attention_dkv": VIT_DEPTH * micro, **none},
         f"ViT train.main ({micro} microbatches, {evals} eval batches)")
-    with open(os.path.join(run_dir, "train.jsonl")) as f:
-        losses = [r["loss"] for r in map(json.loads, f) if "loss" in r]
-    if len(losses) != VIT_STEPS or not np.all(np.isfinite(losses)):
-        raise AssertionError(f"ViT losses not all finite: {losses}")
+    losses = read_losses(run_dir, VIT_STEPS, "ViT")
     cfg = vit_cfg()
     start, _, val_set = recipes.build_classifier(
         cfg, True, device=torch.device("cpu"))
@@ -1291,7 +1472,6 @@ def vit_policy_runs(dev):
     returns ({setting: launch counts}, checks)."""
     import shutil
 
-    import numpy as np
     import torch
 
     from myconvnet_tpu_torch import train
@@ -1323,10 +1503,7 @@ def vit_policy_runs(dev):
             **policy_launches(name, POLICY_STEPS)},
             f"ViT train.main with {' '.join(sets)} ({POLICY_STEPS} steps, "
             f"{micro} microbatches, {evals} eval batches)")
-        with open(os.path.join(run_dir, "train.jsonl")) as f:
-            losses = [r["loss"] for r in map(json.loads, f) if "loss" in r]
-        if len(losses) != POLICY_STEPS or not np.all(np.isfinite(losses)):
-            raise AssertionError(f"{name}: losses not all finite: {losses}")
+        losses = read_losses(run_dir, POLICY_STEPS, name)
         log(f"{name}: losses {[round(v, 4) for v in losses]} in "
             f"{seconds:.1f}s (checkpoint included)")
         checks[name] = dict(losses=losses, seconds=seconds)
@@ -1394,6 +1571,246 @@ def augment_rates(dev):
     return rates
 
 
+def flow_cfg(path, sets=()):
+    from myconvnet_tpu_torch import recipes
+    return recipes.apply_overrides(
+        recipes.load_config(path),
+        [f"synthetic_n={FLOW_SCENES}", *sets])
+
+
+def pwc_step_one(dev):
+    """Step 1 of the PWC-Net recipe at batch PWC_STEP1_BATCH of 384x512
+    from seeded JAX-layout weights, random and non-zero in the flow heads
+    too, with the same pairs, flips and jitter factors on the card (the
+    correlation kernels, forward and backward) and on the host (the plain
+    version and its autograd)."""
+    import numpy as np
+    import torch
+
+    from myconvnet_tpu_torch import recipes, weights
+    from myconvnet_tpu_torch.data.augment import JitterDraws
+    from myconvnet_tpu_torch.ops import kernels
+    from myconvnet_tpu_torch.train.trainer import StepDraws
+
+    n = PWC_STEP1_BATCH
+    cfg = flow_cfg(PWC_CONFIG, [f"synthetic_n={n}"])
+    card, train_set, _ = recipes.build_flow(cfg, True, device=dev)
+    host, _, _ = recipes.build_flow(cfg, True, device=torch.device("cpu"))
+    params, state = weights.random_jax_params(card.model, SEED)
+    heads = [s for s in params if s.split("/")[-1] == "flow"]
+    if len(heads) != PWC_LEVELS + 1 or not all(
+            np.any(params[s]["w"]) for s in heads):
+        raise AssertionError(f"flow heads not random: {heads}")
+    for t in (card, host):
+        weights.from_jax(t.model, params, state)
+    xs, ys = train_set.source.get_batch(np.arange(n))
+    x, y = torch.from_numpy(xs), torch.from_numpy(ys)
+    draws = card.sample(n, tuple(xs.shape[1:3]))
+    flip, jitter = draws.recipe
+    on_host = StepDraws(None, None, None, recipe=type(draws.recipe)(
+        flip.cpu(), JitterDraws(*(None if t is None else t.cpu()
+                                  for t in jitter))))
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss_card = float(card.loss_and_grads(x.to(dev), y.to(dev), draws)[0])
+    t1 = time.perf_counter()
+    counts = kernels.launch_counts()
+    loss_host = float(host.loss_and_grads(x, y, on_host)[0])
+    t2 = time.perf_counter()
+    check_counts(counts, {**{k: 0 for k in kernels.WRAPPERS},
+                          **{k: PWC_LEVELS for k in CORR}},
+                 "PWC-Net step 1 on the card")
+    record = step_one_verdict(
+        f"PWC-Net step 1 (batch {n} of {xs.shape[1]}x{xs.shape[2]})", card,
+        host, loss_card, loss_host,
+        f"; card {t1 - t0:.2f}s (first, cold), host {t2 - t1:.2f}s")
+    if record["smallest_host_norm"] == 0.0:
+        raise AssertionError("PWC-Net step 1: a gradient vanishes; the "
+                             "flow heads must not be zero")
+    # the eval flows from the same random weights: flows of whole pixels
+    # (a trained-from-zero head's are hundredths of one), so a wrong volume
+    # or warp shows
+    flow_card = card.eval_step(x.to(dev)).float().cpu().numpy()
+    flow_host = host.eval_step(x).float().numpy()
+    top = float(np.abs(flow_host).max())
+    rel = float(np.abs(flow_card - flow_host).max() / top)
+    log(f"PWC-Net eval flows from random heads, card vs host plain path: "
+        f"max|diff|/max|flow| = {rel:.4g} (tol {FLOW_REL_TOL}); max|flow| "
+        f"{top:.3g} px")
+    if flow_card.shape != (n, *xs.shape[1:3], 2) \
+            or not np.isfinite(flow_card).all() or top < 1.0 \
+            or rel > FLOW_REL_TOL:
+        raise AssertionError("PWC-Net eval flows from random heads disagree "
+                             "with the plain path")
+    record.update(eval_flow_rel_err=rel, eval_flow_max_px=top)
+    return record
+
+
+def pwc_train_and_check(dev):
+    """PWC-Net at full width: step 1 against the host, ``train.main``,
+    the step's rate and ``test.main``; returns (train launches, test
+    launches, checks)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from myconvnet_tpu_torch import models, recipes, test, train, weights
+    from myconvnet_tpu_torch.core.init import init_model
+    from myconvnet_tpu_torch.ops import kernels
+
+    checks = {"step1": pwc_step_one(dev)}
+    torch.cuda.empty_cache()
+    run_dir = os.path.join(ROOT, "build", "chip_smoke_pwc")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    sets = ["--set", f"synthetic_n={FLOW_SCENES}"]
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    trainer = train.main([
+        "--config", PWC_CONFIG, "--synthetic", "--steps", str(PWC_STEPS),
+        "--val_every", str(PWC_VAL_EVERY), "--batch", str(FLOW_BATCH),
+        "--out", run_dir, *sets, "--set", "log_every=1",
+        "--device", dev.type])
+    torch.cuda.synchronize()
+    train_counts = kernels.launch_counts()
+    log(f"PWC-Net train.main: {PWC_STEPS} steps of {FLOW_BATCH} pairs in "
+        f"{time.perf_counter() - t0:.1f}s (rendering 2 x {FLOW_SCENES} "
+        "scenes and the checkpoints included)")
+    batches = -(-FLOW_SCENES // FLOW_BATCH)
+    evals = (PWC_STEPS // PWC_VAL_EVERY + 1) * batches
+    check_counts(train_counts, {
+        **{k: 0 for k in kernels.WRAPPERS},
+        "correlation_fwd": PWC_LEVELS * (PWC_STEPS + evals),
+        "correlation_bwd_f1": PWC_LEVELS * PWC_STEPS,
+        "correlation_bwd_f2": PWC_LEVELS * PWC_STEPS},
+        f"PWC-Net train.main ({PWC_STEPS} steps, {evals} eval batches)")
+    losses = read_losses(run_dir, PWC_STEPS, "PWC-Net")
+    cfg = flow_cfg(PWC_CONFIG)
+    start = init_model(models.pwcnet(0), torch.Generator().manual_seed(
+        cfg["seed"]))
+    p0, _ = weights.to_jax(start)
+    p1, _ = weights.to_jax(trainer.model)
+    still = [f"{s}/{k}" for s in p0 for k in p0[s]
+             if np.array_equal(p0[s][k], p1[s][k])]
+    if still:
+        raise AssertionError(f"parameters that did not move: {still[:5]}")
+    log(f"PWC-Net losses finite: first {losses[0]:.4f} last "
+        f"{losses[-1]:.4f}; all {sum(len(v) for v in p0.values())} "
+        "parameters moved (flow heads and pyramid among them)")
+    checks.update(losses=losses)
+
+    kernels.reset_launch_counts()
+    score, restored = test.main(["--config", PWC_CONFIG, "--synthetic",
+                                 "--ckpt", run_dir, *sets,
+                                 "--batch", str(FLOW_BATCH),
+                                 "--device", dev.type])
+    torch.cuda.synchronize()
+    eval_counts = kernels.launch_counts()
+    check_counts(eval_counts, {**{k: 0 for k in kernels.WRAPPERS},
+                               "correlation_fwd": PWC_LEVELS * batches},
+                 f"PWC-Net test.main ({batches} eval batches)")
+    small = flow_cfg(PWC_CONFIG, [f"synthetic_n={FLOW_BATCH}"])
+    host, _, val_set = recipes.build_flow(small, True,
+                                          device=torch.device("cpu"))
+    xs, ys = val_set.source.get_batch(np.arange(FLOW_BATCH))
+    x = torch.from_numpy(xs)
+    few = x[:PWC_STEP1_BATCH]
+    writer = trainer.eval_step(few.to(dev))
+    reread = restored.eval_step(few.to(dev))
+    host.load_state(trainer.state())
+    plain = host.eval_step(few).numpy()
+    card = writer.cpu().numpy()
+    rel = float(np.abs(card - plain).max() / np.abs(plain).max())
+    same = bool(torch.equal(writer, reread))
+    log(f"PWC-Net test.main AEPE {score:.4f} on {FLOW_SCENES} pairs; "
+        f"restored flows equal the writer's: {same}; card vs host plain "
+        f"path max|diff|/max|flow| = {rel:.4g} (tol {FLOW_REL_TOL}); "
+        f"max|flow| {np.abs(plain).max():.3g}; finite "
+        f"{bool(np.isfinite(card).all())}")
+    if not same:
+        raise AssertionError("restored PWC-Net's flows differ")
+    if card.shape != (PWC_STEP1_BATCH, *xs.shape[1:3], 2) \
+            or not np.isfinite(card).all() or not np.isfinite(score) \
+            or rel > FLOW_REL_TOL:
+        raise AssertionError("PWC-Net eval flows disagree with the plain "
+                             "path")
+    checks.update(aepe=score, eval_flow_rel_err=rel)
+    shutil.rmtree(run_dir)
+    del host, restored
+
+    # the recipe's step at batch 32, after the runs above (it moves the
+    # weights)
+    xd, yd = x.to(dev), torch.from_numpy(ys).to(dev)
+    for _ in range(2):
+        trainer.train_step(xd, yd)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    iters = 5
+    step_ms, host_ms = events_ms(lambda: trainer.train_step(xd, yd), iters)
+    peak = torch.cuda.max_memory_allocated(dev)
+    busy, span, n_kernels, top = device_busy(
+        lambda: trainer.train_step(xd, yd), iters=2)
+    rate = dict(batch=FLOW_BATCH, step_ms=step_ms,
+                pairs_per_sec=FLOW_BATCH * 1e3 / step_ms,
+                host_enqueue_ms=host_ms, device_busy_ms=busy,
+                device_span_ms=span,
+                idle_share=None if busy is None else 1 - busy / step_ms,
+                kernels_per_step=n_kernels, top_kernels=top,
+                max_memory_allocated_gb=peak / 2 ** 30)
+    idle = rate["idle_share"]
+    log(f"PWC-Net recipe step (batch {FLOW_BATCH} of {xs.shape[1]}x"
+        f"{xs.shape[2]}, CUDA events over {iters} steps after 2 warm-up): "
+        f"{step_ms:.1f} ms, {rate['pairs_per_sec']:.1f} pairs/s; host "
+        f"enqueue {host_ms:.1f} ms/step; torch.profiler: device busy "
+        f"{busy if busy is None else round(busy, 1)} ms/step over "
+        f"{n_kernels:.0f} kernels, idle share "
+        f"{idle if idle is None else round(idle, 3)}"
+        f"; max_memory_allocated {rate['max_memory_allocated_gb']:.1f} GiB")
+    for name, ms, per in top[:6]:
+        log(f"  {ms:8.3f} ms/step x{per:5.0f}  {name}")
+    checks["recipe_step"] = rate
+    return train_counts, eval_counts, checks
+
+
+def flownetc_run(dev):
+    """FlowNetC at width 64 through the FlowNetS recipe: FLOWNETC_STEPS
+    steps at batch 32 and the final validation of one batch; returns
+    (launches, checks)."""
+    import shutil
+
+    import torch
+
+    from myconvnet_tpu_torch import train
+    from myconvnet_tpu_torch.ops import kernels
+
+    run_dir = os.path.join(ROOT, "build", "chip_smoke_flownetc")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    trainer = train.main([
+        "--config", FLOWNET_CONFIG, "--synthetic", "--steps",
+        str(FLOWNETC_STEPS), "--val_every", "0", "--batch", str(FLOW_BATCH),
+        "--out", run_dir, "--set", "model=flownet_c", "--set",
+        f"synthetic_n={FLOW_BATCH}", "--set", "log_every=1",
+        "--device", dev.type])
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    seconds = time.perf_counter() - t0
+    check_counts(counts, {**{k: 0 for k in kernels.WRAPPERS},
+                          "correlation_fwd": FLOWNETC_STEPS + 1,
+                          "correlation_bwd_f1": FLOWNETC_STEPS,
+                          "correlation_bwd_f2": FLOWNETC_STEPS},
+                 f"FlowNetC train.main ({FLOWNETC_STEPS} steps, 1 eval "
+                 "batch)")
+    losses = read_losses(run_dir, FLOWNETC_STEPS, "FlowNetC")
+    if type(trainer.model).__name__ != "FlowNetC":
+        raise AssertionError("the run did not build FlowNetC")
+    log(f"FlowNetC: losses {[round(v, 4) for v in losses]} in "
+        f"{seconds:.1f}s (rendering and checkpoint included)")
+    shutil.rmtree(run_dir)
+    return counts, dict(losses=losses, seconds=seconds)
+
+
 def main() -> int:
     try:
         import torch
@@ -1413,7 +1830,8 @@ def main() -> int:
         print(f"chip_smoke: the port's package is not here ({e}); run from "
               "a checkout of the repo", file=sys.stderr)
         return 1
-    for path in (CONFIG, CIFAR_CONFIG, VIT_CONFIG):
+    for path in (CONFIG, CIFAR_CONFIG, VIT_CONFIG, PWC_CONFIG,
+                 FLOWNET_CONFIG):
         if not os.path.exists(path):
             print(f"chip_smoke: {path} is missing", file=sys.stderr)
             return 1
@@ -1445,9 +1863,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     policy_runs, checks["vit_policies"] = vit_policy_runs(dev)
     checks["augment_rate"] = augment_rates(dev)
+    torch.cuda.empty_cache()
+    pwc_train, pwc_test, checks["pwcnet"] = pwc_train_and_check(dev)
+    torch.cuda.empty_cache()
+    flownetc_counts, checks["flownetc"] = flownetc_run(dev)
     runs = {"serve": counts, "train": train_counts, "test": eval_counts,
             "vit_train": vit_train, "vit_test": vit_test,
-            **{f"vit_train_{k}": v for k, v in policy_runs.items()}}
+            **{f"vit_train_{k}": v for k, v in policy_runs.items()},
+            "pwc_train": pwc_train, "pwc_test": pwc_test,
+            "flownetc_train": flownetc_counts}
     launches = {name: sum(c[name] for c in runs.values())
                 for name in SOURCES}
 
@@ -1456,7 +1880,9 @@ def main() -> int:
          "replaces": SOURCES[name][1], "launches": launches[name],
          **{k: summary[name][k] for k in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms")}}
+             "library_ms")},
+         **({"by_path": correlation_by_path(name, details, runs)}
+            if name in CORR else {})}
         for name in SOURCES]}
     bad = [n for n, s in summary.items() if not s["ok"]]
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

@@ -8,7 +8,9 @@ This package imports ``torch`` and ``numpy``, never ``jax``.
 Slice 1 covers the eval/serving path of the ResNet-50 recipe
 (``configs/imagenet_resnet50.py``), slice 2 the training and evaluation
 path of the CIFAR-100 ResNet-18 recipe (``configs/cifar100_resnet18.py``,
-``python -m myconvnet_tpu_torch.train`` and ``.test``): NHWC activations,
+``python -m myconvnet_tpu_torch.train`` and ``.test``); later slices add
+the ViT-B/16 recipe with its RandAugment and AutoAugment policies and the
+optical-flow recipes (PWC-Net, FlowNetC, FlowNetS): NHWC activations,
 cuDNN convolutions, and hand-written CUDA kernels (``ops/kernels``) where
 the JAX package has Pallas kernels for the same math.
 """

@@ -8,7 +8,9 @@ generators differ), so parity tests carry weights across with
 ``weights.from_jax`` instead.
 
 :func:`init_model` initialises a fresh model in place: He-normal convs
-(truncated at 2 sigma), Glorot-uniform dense weights, zero biases.  BN
+(truncated at 2 sigma) unless the layer names another initialiser
+(``Conv(w_init=zeros)``, the flow heads of ``models/flow.py:55-58``),
+Glorot-uniform dense weights, zero biases.  BN
 gamma/beta and moving statistics and LN gamma/beta keep their constructor
 values (ones, or zeros for a zero-init gamma; zeros for beta).  A module
 with parameters of its own (the ViT's ``cls_token`` and ``pos_embed``)
@@ -86,7 +88,7 @@ def init_model(model: nn.Module, generator: torch.Generator) -> nn.Module:
     he, glorot = he_normal(), glorot_uniform()
     for m in model.modules():
         if isinstance(m, Conv):
-            m.w.copy_(he(tuple(m.w.shape), generator))
+            m.w.copy_((m.w_init or he)(tuple(m.w.shape), generator))
         elif isinstance(m, Dense):
             m.weight.copy_(glorot(tuple(m.weight.shape[::-1]),
                                   generator).T)

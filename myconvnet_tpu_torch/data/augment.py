@@ -8,11 +8,12 @@ ViT recipes use: ``AugmentConfig`` (``:36-73``), ``_axis_matrix`` and
 (``:205-212``), ``_sample_geometry`` (``:329-347``), ``augment_train``
 (``:350-388``, with RandAugment or AutoAugment from
 ``data/randaugment.py``), ``augment_eval`` (``:391-402``) and
-``normalize`` (``:320-324``).
+``normalize`` (``:320-324``), and ``color_jitter`` (``:272-317``).
 
 Sampling is split from applying.  :func:`sample_geometry` draws the crop
-boxes and the flips, and :func:`sample_policy` the RandAugment or
-AutoAugment draws, from a ``torch.Generator`` on the device (threefry
+boxes and the flips, :func:`sample_jitter` the colour-jitter factors and
+:func:`sample_policy` the RandAugment or AutoAugment draws, from a
+``torch.Generator`` on the device (threefry
 and torch's generators give different numbers, so tests inject JAX's
 draws into the application instead).  The random-resized boxes are
 clamped to the frame rather than rejected, as in JAX.  The application:
@@ -25,13 +26,11 @@ clamped to the frame rather than rejected, as in JAX.  The application:
   :func:`batched_crop_resize`: per-image bilinear sampling matrices and two
   float32 einsums, which cuBLAS runs in true float32 (PyTorch leaves
   ``torch.backends.cuda.matmul.allow_tf32`` off by default, the
-  counterpart of JAX's ``precision="highest"``), then x / 255, the policy
-  (RandAugment or AutoAugment, which a pad-crop batch also takes through
-  this path, as JAX does) and the mean/std normalize as plain ops.  Only
-  the float32 interpolation (``interp_dtype``) is ported.
-
-Colour jitter raises ``NotImplementedError``: it comes with slice 5 of the
-port (ResNet-50 training).
+  counterpart of JAX's ``precision="highest"``), then x / 255, the colour
+  jitter, the policy (RandAugment or AutoAugment; a pad-crop batch with
+  jitter or a policy also takes this path, as JAX does) and the mean/std
+  normalize as plain ops.  Only the float32 interpolation
+  (``interp_dtype``) is ported.
 """
 
 from __future__ import annotations
@@ -39,6 +38,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from myconvnet_tpu_torch.data import randaugment as ra
@@ -49,7 +49,6 @@ from myconvnet_tpu_torch.ops.kernels.normalize_u8 import normalize_u8
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
-_LATER = "comes with slice 5 of the port (ResNet-50 training)"
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -83,8 +82,6 @@ def stats(cfg: AugmentConfig, device) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def _check_train_mode(cfg: AugmentConfig) -> None:
-    if cfg.brightness or cfg.contrast or cfg.saturation or cfg.hue:
-        raise NotImplementedError(f"colour jitter {_LATER}")
     if cfg.randaugment is not None and cfg.autoaugment is not None:
         raise ValueError("set randaugment OR autoaugment, not both")
 
@@ -135,6 +132,91 @@ def apply_policy(x: torch.Tensor, cfg: AugmentConfig, draws
                              "sample_policy")
         return ra.auto_augment(x, draws, policy=cfg.autoaugment)
     return x
+
+
+class JitterDraws(NamedTuple):
+    """One batch's colour-jitter factors, each [N] float32 or None for a
+    term that is off."""
+    brightness: torch.Tensor | None = None   # added delta in [-b, b]
+    contrast: torch.Tensor | None = None     # factor in [1 - c, 1 + c]
+    saturation: torch.Tensor | None = None   # factor in [1 - s, 1 + s]
+    hue: torch.Tensor | None = None          # share of the wheel, [-h, h]
+
+
+def sample_jitter(generator: torch.Generator, n: int, *,
+                  brightness: float = 0.0, contrast: float = 0.0,
+                  saturation: float = 0.0, hue: float = 0.0
+                  ) -> JitterDraws | None:
+    """The factors of :func:`color_jitter` for a batch of ``n``, uniform
+    in each term's range, on the generator's device; None when every term
+    is off."""
+    def uniform(lo, hi):
+        u = torch.rand(n, generator=generator, device=generator.device)
+        return lo + (hi - lo) * u
+
+    if not (brightness or contrast or saturation or hue):
+        return None
+    return JitterDraws(
+        uniform(-brightness, brightness) if brightness > 0.0 else None,
+        uniform(1.0 - contrast, 1.0 + contrast) if contrast > 0.0 else None,
+        uniform(1.0 - saturation, 1.0 + saturation) if saturation > 0.0
+        else None,
+        uniform(-hue, hue) if hue > 0.0 else None)
+
+
+def config_jitter(generator: torch.Generator, n: int, cfg: AugmentConfig
+                  ) -> JitterDraws | None:
+    """:func:`sample_jitter` with the config's four ranges."""
+    return sample_jitter(generator, n, brightness=cfg.brightness,
+                         contrast=cfg.contrast, saturation=cfg.saturation,
+                         hue=cfg.hue)
+
+
+_TO_YIQ = ((0.299, 0.587, 0.114), (0.596, -0.274, -0.322),
+           (0.211, -0.523, 0.312))
+
+
+def _rgb_to_gray(x: torch.Tensor) -> torch.Tensor:
+    coef = torch.tensor(_TO_YIQ[0], dtype=x.dtype, device=x.device)
+    return (x * coef).sum(dim=-1, keepdim=True)
+
+
+def color_jitter(x: torch.Tensor, draws: JitterDraws | None
+                 ) -> torch.Tensor:
+    """Brightness, contrast, saturation and hue on [0, 1] float images
+    [N, H, W, 3] with the factors of :func:`sample_jitter`, in that
+    order, then a clip to [0, 1].  tf.image's conventions: brightness adds
+    a delta; contrast scales around the image's mean grey and saturation
+    around each pixel's grey; hue rotates the chroma as a rotation in YIQ
+    (a 3x3 matrix, its inverse computed in float64 so that a zero angle
+    is the identity)."""
+    if draws is None:
+        return x
+
+    def per_image(t):
+        return t.to(device=x.device, dtype=x.dtype).reshape(-1, 1, 1, 1)
+
+    if draws.brightness is not None:
+        x = x + per_image(draws.brightness)
+    if draws.contrast is not None:
+        mean = _rgb_to_gray(x).mean(dim=(1, 2), keepdim=True)
+        x = (x - mean) * per_image(draws.contrast) + mean
+    if draws.saturation is not None:
+        gray = _rgb_to_gray(x)
+        x = gray + (x - gray) * per_image(draws.saturation)
+    if draws.hue is not None:
+        to = np.array(_TO_YIQ, np.float64)
+        to_yiq = torch.tensor(to, dtype=x.dtype, device=x.device)
+        from_yiq = torch.tensor(np.linalg.inv(to), dtype=x.dtype,
+                                device=x.device)
+        theta = per_image(draws.hue)[..., 0] * (2.0 * math.pi)
+        yiq = torch.einsum("nhwc,dc->nhwd", x, to_yiq)
+        cos, sin = torch.cos(theta), torch.sin(theta)
+        i, q = yiq[..., 1], yiq[..., 2]
+        yiq = torch.stack([yiq[..., 0], cos * i - sin * q,
+                           sin * i + cos * q], dim=-1)
+        x = torch.einsum("nhwd,cd->nhwc", yiq, from_yiq)
+    return x.clamp(0.0, 1.0)
 
 
 def _axis_matrix(start: torch.Tensor, extent: torch.Tensor, in_size: int,
@@ -240,13 +322,15 @@ def sample_geometry(generator: torch.Generator, n: int,
     return boxes, flip
 
 
-def _resized(images_u8, boxes, flip, cfg, mean_std, clamp, policy=None):
+def _resized(images_u8, boxes, flip, cfg, mean_std, clamp, policy=None,
+             jitter=None):
     if cfg.interp_dtype != "float32":
         raise NotImplementedError(f"interp_dtype {cfg.interp_dtype!r}: the "
                                   "port interpolates in float32")
     mean, std = mean_std or stats(cfg, images_u8.device)
     x = batched_crop_resize(images_u8, boxes, tuple(cfg.out_hw), flip,
                             clamp=clamp) * (1.0 / 255.0)
+    x = color_jitter(x, jitter)
     if policy is not None:
         x = apply_policy(x, cfg, policy)
     return normalize(x, mean, std).to(_DTYPES[cfg.out_dtype])
@@ -254,12 +338,14 @@ def _resized(images_u8, boxes, flip, cfg, mean_std, clamp, policy=None):
 
 def augment_train(images_u8: torch.Tensor, boxes: torch.Tensor,
                   flip: torch.Tensor, cfg: AugmentConfig,
-                  mean_std=None, policy=None) -> torch.Tensor:
+                  mean_std=None, policy=None, jitter=None
+                  ) -> torch.Tensor:
     """[N, H, W, C] uint8 + sampled (boxes, flip) and, when the config
-    sets RandAugment or AutoAugment, the ``policy`` draws of
-    :func:`sample_policy` -> [N, OH, OW, C] in ``cfg.out_dtype``,
-    normalized: one pass of the pad_crop_u8 kernel in the pad-crop mode at
-    the input's size without a policy, :func:`batched_crop_resize`, the
+    sets them, the ``jitter`` factors of :func:`config_jitter` and the
+    RandAugment or AutoAugment ``policy`` draws of :func:`sample_policy`
+    -> [N, OH, OW, C] in ``cfg.out_dtype``, normalized: one pass of the
+    pad_crop_u8 kernel in the pad-crop mode at the input's size without
+    jitter or a policy; :func:`batched_crop_resize`, the jitter, the
     policy and the normalize otherwise.  ``mean_std``: the (mean, std) of
     :func:`stats`, made once."""
     n, h, w, _ = images_u8.shape
@@ -268,12 +354,16 @@ def augment_train(images_u8: torch.Tensor, boxes: torch.Tensor,
     if has_policy and policy is None:
         raise ValueError("RandAugment / AutoAugment need the policy draws "
                          "of sample_policy")
+    has_jitter = bool(cfg.brightness or cfg.contrast or cfg.saturation
+                      or cfg.hue)
+    if has_jitter and jitter is None:
+        raise ValueError("colour jitter needs the factors of config_jitter")
     if cfg.area_range is not None or tuple(cfg.out_hw) != (h, w) \
-            or has_policy:
+            or has_policy or has_jitter:
         # zero padding outside the frame only in the pad-crop mode
         clamp = cfg.area_range is not None or cfg.pad == 0
         return _resized(images_u8, boxes, flip, cfg, mean_std, clamp,
-                        policy)
+                        policy, jitter if has_jitter else None)
     mean, std = mean_std or stats(cfg, images_u8.device)
     offsets = boxes[:, :2].to(torch.int32)
     return pad_crop_flip_normalize(images_u8, offsets, flip, mean, std,

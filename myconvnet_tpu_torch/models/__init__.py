@@ -1,5 +1,8 @@
 from torch import nn
 
+from myconvnet_tpu_torch.models.flow import (FLOW_MODELS, flownet_c,
+                                             flownet_s, pwcnet, tinyflow,
+                                             tinypwc)
 from myconvnet_tpu_torch.models.resnet import (ResNet, resnet18, resnet34,
                                                resnet50)
 from myconvnet_tpu_torch.models.vit import (VARIANTS, ViT, tinyvit, vit,
@@ -9,7 +12,7 @@ from myconvnet_tpu_torch.models.vit import (VARIANTS, ViT, tinyvit, vit,
 VITS = {"vit_ti16": vit_ti16, "vit_s16": vit_s16, "vit_b16": vit_b16,
         "vit_b32": vit_b32, "vit_l16": vit_l16, "tinyvit": tinyvit}
 MODELS = {"resnet18": resnet18, "resnet34": resnet34, "resnet50": resnet50,
-          **VITS}
+          **VITS, **FLOW_MODELS}
 
 
 def get_model(name: str, num_classes: int,
@@ -26,6 +29,7 @@ def get_model(name: str, num_classes: int,
     return MODELS[name](num_classes, **kwargs)
 
 
-__all__ = ["MODELS", "ResNet", "VARIANTS", "VITS", "ViT", "get_model",
-           "resnet18", "resnet34", "resnet50", "tinyvit", "vit", "vit_b16",
-           "vit_b32", "vit_l16", "vit_s16", "vit_ti16"]
+__all__ = ["FLOW_MODELS", "MODELS", "ResNet", "VARIANTS", "VITS", "ViT",
+           "flownet_c", "flownet_s", "get_model", "pwcnet", "resnet18",
+           "resnet34", "resnet50", "tinyflow", "tinypwc", "tinyvit", "vit",
+           "vit_b16", "vit_b32", "vit_l16", "vit_s16", "vit_ti16"]

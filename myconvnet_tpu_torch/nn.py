@@ -1,8 +1,8 @@
 """Layers of the train and eval paths, as ``torch.nn`` modules on NHWC
 tensors.
 
-Port of the subset of ``myconvnet_tpu/nn.py`` that the ResNets and the
-ViTs use.
+Port of the subset of ``myconvnet_tpu/nn.py`` that the ResNets, the ViTs
+and the flow models use.
 Module names follow the JAX scope names, so ``weights.from_jax`` maps
 ``{"stage1/block1/conv_a": {"w": ...}}`` onto ``stage1.block1.conv_a``.
 
@@ -44,10 +44,12 @@ from myconvnet_tpu_torch.ops.pool import global_avg_pool
 class Conv(nn.Module):
     def __init__(self, cin: int, cout: int, kernel_size: int, *,
                  stride: int = 1, padding: Padding = "SAME",
-                 bias: bool = False):
+                 dilation: int = 1, bias: bool = False, w_init=None):
         super().__init__()
+        self.w_init = w_init    # core.init.init_model: None is He-normal
         self.stride = stride
         self.padding = padding
+        self.dilation = dilation
         w = torch.empty(cout, cin, kernel_size, kernel_size)
         self.weight = nn.Parameter(
             w.contiguous(memory_format=torch.channels_last))
@@ -64,7 +66,7 @@ class Conv(nn.Module):
         b = self.bias.to(x.dtype) if add_bias and self.bias is not None \
             else None
         return conv2d(x, self.w.to(x.dtype), b, stride=self.stride,
-                      padding=self.padding)
+                      padding=self.padding, dilation=self.dilation)
 
 
 class BatchNorm(nn.Module):
@@ -155,6 +157,10 @@ class LayerNorm(nn.Module):
 
 def relu(x: torch.Tensor) -> torch.Tensor:
     return torch.relu(x)
+
+
+def leaky_relu(x: torch.Tensor, alpha: float = 0.2) -> torch.Tensor:
+    return torch.nn.functional.leaky_relu(x, alpha)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

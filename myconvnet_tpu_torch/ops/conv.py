@@ -30,7 +30,8 @@ def _pair(v: _IntOrPair) -> tuple[int, int]:
 
 
 def same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
-    """(lo, hi) padding of TF/XLA "SAME" along one axis."""
+    """(lo, hi) padding of TF/XLA "SAME" along one axis; ``k`` is the
+    effective kernel size, (k - 1) * dilation + 1 for a dilated conv."""
     out = -(-size // stride)
     total = max((out - 1) * stride + k - size, 0)
     return total // 2, total - total // 2
@@ -56,18 +57,20 @@ def pad_nhwc(x: torch.Tensor, pads, value: float = 0.0) -> torch.Tensor:
 
 def conv2d(x: torch.Tensor, w: torch.Tensor,
            bias: torch.Tensor | None = None, *,
-           stride: _IntOrPair = 1, padding: Padding = "SAME"
-           ) -> torch.Tensor:
+           stride: _IntOrPair = 1, padding: Padding = "SAME",
+           dilation: _IntOrPair = 1) -> torch.Tensor:
     """NHWC conv. x: [N,H,W,Cin], w: [kh,kw,Cin,Cout] -> NHWC,
-    in x's dtype (bf16 inputs accumulate in float32 inside cuDNN)."""
-    s = _pair(stride)
-    (t, b), (l, r) = resolve_padding(padding, tuple(x.shape[1:3]),
-                                     tuple(w.shape[:2]), s)
+    in x's dtype (bf16 inputs accumulate in float32 inside cuDNN).
+    ``dilation`` is the atrous rate; "SAME" pads for the effective kernel
+    (k - 1) * rate + 1."""
+    s, rate = _pair(stride), _pair(dilation)
+    k_eff = tuple((w.shape[i] - 1) * rate[i] + 1 for i in range(2))
+    (t, b), (l, r) = resolve_padding(padding, tuple(x.shape[1:3]), k_eff, s)
     if t == b and l == r:
         sym = (t, l)
     else:
         x = pad_nhwc(x, ((t, b), (l, r)))
         sym = (0, 0)
     y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), bias,
-                 stride=s, padding=sym)
+                 stride=s, padding=sym, dilation=rate)
     return y.permute(0, 2, 3, 1)

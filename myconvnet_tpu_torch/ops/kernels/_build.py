@@ -80,6 +80,13 @@ SIGNATURES = {
     # x, op_idx [N] int32, params [N, 2 + 2C], y, n, elements per image,
     # c, stream
     "mcn_randaugment_ew_f32": (P, P, P, P, I32, I64, I32, P),
+    # f1, f2, out, n, h, w, c, max displacement, stream
+    "mcn_correlation_fwd_f32": (P, P, P, I32, I32, I32, I32, I32, P),
+    "mcn_correlation_fwd_bf16": (P, P, P, I32, I32, I32, I32, I32, P),
+    # g, the other feature map, its gradient (out), n, h, w, c, max
+    # displacement, 0 for d_f1 (given f2) or 1 for d_f2 (given f1), stream
+    "mcn_correlation_bwd_f32": (P, P, P, I32, I32, I32, I32, I32, I32, P),
+    "mcn_correlation_bwd_bf16": (P, P, P, I32, I32, I32, I32, I32, I32, P),
 }
 
 

@@ -7,7 +7,9 @@ Adam, AdamW, with ``clip_norm``), ``make_augment`` (``:124``),
 split at the recipe's ``raw_hw``) and, for classification,
 ``build_classifier`` (``vision.py:23-65``, with ``accum_steps`` and
 ``accum_dtype``), which here builds the trainer directly (the ``ConvNet``
-wrapper of ``models/base.py`` comes later).
+wrapper of ``models/base.py`` comes later), and for optical flow
+``build_flow`` (``perception.py:284-398``); :func:`build_trainer` picks by
+``cfg["task"]``.
 Also the mean/std resolution of ``serving_http.build_route``
 (``:134-145``): a recipe's ``augment`` block may set ``mean``/``std``, and
 otherwise the ImageNet statistics of ``AugmentConfig`` apply.
@@ -18,6 +20,7 @@ from __future__ import annotations
 import ast
 import importlib.util
 import json
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -27,14 +30,18 @@ from myconvnet_tpu_torch.core.init import init_model
 from myconvnet_tpu_torch.core.precision import apply_backend_flags, \
     get_policy
 from myconvnet_tpu_torch.data.augment import IMAGENET_MEAN, IMAGENET_STD, \
-    AugmentConfig
+    AugmentConfig, JitterDraws, color_jitter, sample_jitter
 from myconvnet_tpu_torch.data.mix import MixConfig
 from myconvnet_tpu_torch.data.pipeline import DataSet
-from myconvnet_tpu_torch.eval.evaluators import AccuracyEvaluator
+from myconvnet_tpu_torch.eval.evaluators import AccuracyEvaluator, Evaluator
+from myconvnet_tpu_torch.eval.flow import FlowEvaluator
 from myconvnet_tpu_torch.subsets import cifar100, imagenet
+from myconvnet_tpu_torch.subsets import flow as flow_mod
 from myconvnet_tpu_torch.train import optim
-from myconvnet_tpu_torch.train.losses import softmax_cross_entropy
-from myconvnet_tpu_torch.train.trainer import Trainer
+from myconvnet_tpu_torch.train.losses import (epe_loss, multiscale_epe_loss,
+                                              softmax_cross_entropy,
+                                              unsupervised_flow_loss)
+from myconvnet_tpu_torch.train.trainer import InputFns, Trainer
 from myconvnet_tpu_torch.utils.logging import MetricLogger
 from myconvnet_tpu_torch.weights import param_views
 
@@ -108,13 +115,21 @@ def make_optimizer(model: torch.nn.Module, opt_cfg: dict
 
 
 def make_sources(cfg: dict, synthetic: bool, splits=("train", "val")):
-    """One ``ArraySource`` per split; CIFAR's "val" split is "test"."""
-    table = {"cifar100": cifar100, "imagenet": imagenet}
+    """One source per split; CIFAR's "val" split is "test".  The flow
+    corpus at the recipe's ``input_hw`` (``synthetic_n`` scenes with
+    motions up to ``max_motion`` when it is rendered)."""
+    table = {"cifar100": cifar100, "imagenet": imagenet, "flow": flow_mod}
     name = cfg["dataset"]
     if name not in table:
         raise ValueError(f"the port has datasets {sorted(table)}, not "
                          f"{name!r}")
     data_dir = cfg.get("data_dir")
+    if name == "flow":
+        return [flow_mod.make_source(
+            data_dir, split, synthetic=synthetic or data_dir is None,
+            synthetic_n=cfg.get("synthetic_n", 256),
+            hw=tuple(cfg.get("input_hw", flow_mod.DEFAULT_HW)),
+            max_motion=cfg.get("max_motion", 8)) for split in splits]
     kw = {}
     if name == "imagenet" and cfg.get("raw_hw") is not None:
         kw["raw_hw"] = tuple(cfg["raw_hw"])
@@ -124,11 +139,14 @@ def make_sources(cfg: dict, synthetic: bool, splits=("train", "val")):
         for split in splits]
 
 
-def build_evaluator(cfg: dict) -> AccuracyEvaluator:
-    if cfg["task"] != "classification":
-        raise ValueError(f"the port has the classification task, not "
-                         f"{cfg['task']!r}")
-    return AccuracyEvaluator()
+def build_evaluator(cfg: dict) -> Evaluator:
+    task = cfg["task"]
+    if task == "classification":
+        return AccuracyEvaluator()
+    if task == "flow":
+        return FlowEvaluator(cfg.get("flow_metric", "epe"))
+    raise ValueError(f"the port has the classification and flow tasks, "
+                     f"not {task!r}")
 
 
 def build_classifier(cfg: dict, synthetic: bool = False, *,
@@ -167,3 +185,120 @@ def build_classifier(cfg: dict, synthetic: bool = False, *,
     train_src, val_src = make_sources(cfg, synthetic)
     # the batch order's seed is DataSet's default 0, as in the JAX recipe
     return trainer, DataSet(train_src, augment), DataSet(val_src, augment)
+
+
+class FlowDraws(NamedTuple):
+    """One flow train step's draws: the paired flip [N] bool and the
+    colour-jitter factors both frames share."""
+    flip: torch.Tensor
+    jitter: JitterDraws | None
+
+
+def flow_input_fns(brightness: float, contrast: float, *,
+                   unsupervised: bool = False, occlusion: bool = False
+                   ) -> InputFns:
+    """The flow recipes' input chain over ``[N, H, W, 6]`` uint8 frame
+    pairs and ``[N, H, W, 2]`` pixel flows (``perception.py:313-344``):
+    x / 255; a paired horizontal flip that mirrors both frames and the
+    flow and negates u; the SAME jitter factors on both frames (brightness
+    constancy is what the matching learns), then a clip to [0, 1].  The
+    unsupervised objective's target is the augmented pair itself; with
+    ``occlusion`` the swapped pairs are stacked below the forward pairs."""
+    def norm(x_u8):
+        return x_u8.float() / 255.0
+
+    def sample(generator, n):
+        flip = torch.rand(n, generator=generator,
+                          device=generator.device) < 0.5
+        return FlowDraws(flip, sample_jitter(generator, n,
+                                             brightness=brightness,
+                                             contrast=contrast))
+
+    def jitter(x, draws):
+        f1 = color_jitter(x[..., :3], draws)
+        f2 = color_jitter(x[..., 3:], draws)
+        return torch.cat([f1, f2], dim=-1).clamp(0.0, 1.0)
+
+    def train(x_u8, y, draws):
+        x = norm(x_u8)
+        flip = draws.flip.to(x.device).reshape(-1, 1, 1, 1)
+        x = torch.where(flip, x.flip(2), x)
+        xa = jitter(x, draws.jitter)
+        if unsupervised:
+            if occlusion:
+                swapped = torch.cat([xa[..., 3:], xa[..., :3]], dim=-1)
+                return torch.cat([xa, swapped], dim=0), xa
+            return xa, xa
+        y_f = torch.cat([-y[..., :1], y[..., 1:]], dim=-1)
+        return xa, torch.where(flip, y_f.flip(2), y)
+
+    return InputFns(sample, train, norm)
+
+
+def flow_loss_fn(cfg: dict, multiscale: bool):
+    """The recipe's loss: unsupervised photometric + smoothness, the
+    multi-scale EPE of a coarse-to-fine net, or the plain EPE."""
+    eps = cfg.get("epe_eps", 1e-3)
+    unsup = bool(cfg.get("unsupervised", False))
+    occ = bool(cfg.get("occlusion", False))
+    if occ and not unsup:
+        raise ValueError("occlusion=True is the bidirectional "
+                         "unsupervised objective; set unsupervised=True")
+    if unsup:
+        return lambda pred, y: unsupervised_flow_loss(
+            pred, y, smooth_weight=cfg.get("smooth_weight", 0.05),
+            edge_sharpness=cfg.get("edge_sharpness", 50.0), eps=eps,
+            occlusion=occ, occ_alpha1=cfg.get("occ_alpha1", 0.01),
+            occ_alpha2=cfg.get("occ_alpha2", 0.5))
+    if multiscale:
+        ms_w = cfg.get("flow_loss_weights")
+        return lambda pred, y: multiscale_epe_loss(pred, y, weights=ms_w,
+                                                   eps=eps)
+    return lambda pred, y: epe_loss(pred, y, eps=eps)
+
+
+def build_flow(cfg: dict, synthetic: bool = False, *,
+               device: torch.device, ckpt_dir: str | None = None,
+               log_dir: str | None = None
+               ) -> tuple[Trainer, DataSet, DataSet]:
+    """(trainer, train set, val set) for an optical-flow recipe: the model
+    initialised from ``cfg["seed"]`` (zero flow heads), the recipe's input
+    chain and loss, no accuracy metric, the AEPE (or Fl) evaluator, whose
+    lower score is the better one."""
+    name = cfg.get("model", "flownet_s")
+    fn = models.FLOW_MODELS.get(name)
+    if fn is None:
+        raise ValueError(f"unknown flow model {name!r}; valid: "
+                         f"{sorted(models.FLOW_MODELS)}")
+    seed = cfg.get("seed", 0)
+    model = fn(0, **dict(cfg.get("model_kwargs", {})))
+    init_model(model, torch.Generator().manual_seed(seed))
+    unsup = bool(cfg.get("unsupervised", False))
+    loss = flow_loss_fn(cfg, getattr(fn, "multiscale", False))
+    fns = flow_input_fns(float(cfg.get("aug_brightness", 0.2)),
+                         float(cfg.get("aug_contrast", 0.2)),
+                         unsupervised=unsup,
+                         occlusion=bool(cfg.get("occlusion", False)))
+    policy = get_policy(cfg.get("precision", "f32"))
+    apply_backend_flags(policy)
+    model.to(device)
+    trainer = Trainer(model, make_optimizer(model, cfg["optimizer"]), loss,
+                      device=device, policy=policy, num_classes=0,
+                      evaluator=build_evaluator(cfg), seed=seed,
+                      ckpt_dir=ckpt_dir, log_every=cfg.get("log_every", 50),
+                      logger=MetricLogger(log_dir),
+                      accum_steps=cfg.get("accum_steps", 1),
+                      input_fns=fns, accuracy_metric=False)
+    train_src, val_src = make_sources(cfg, synthetic)
+    return (trainer, DataSet(train_src, seed=seed), DataSet(val_src))
+
+
+def build_trainer(cfg: dict, synthetic: bool = False, **kwargs
+                  ) -> tuple[Trainer, DataSet, DataSet]:
+    """The recipe's (trainer, train set, val set), by ``cfg["task"]``."""
+    by_task = {"classification": build_classifier, "flow": build_flow}
+    task = cfg.get("task", "classification")
+    if task not in by_task:
+        raise ValueError(f"the port has tasks {sorted(by_task)}, not "
+                         f"{task!r}")
+    return by_task[task](cfg, synthetic, **kwargs)

@@ -1,4 +1,5 @@
-"""Evaluation entry point of the port (classification recipes).
+"""Evaluation entry point of the port (classification and optical-flow
+recipes).
 
     python -m myconvnet_tpu_torch.test --config configs/cifar100_resnet18.py \\
         --synthetic --ckpt DIR [--batch N] [--set KEY=VALUE ...] \\
@@ -36,7 +37,7 @@ def main(argv=None):
                                   args.overrides)
     if args.batch is not None:
         cfg["batch_size"] = args.batch
-    trainer, _, val_set = recipes.build_classifier(
+    trainer, _, val_set = recipes.build_trainer(
         cfg, synthetic=args.synthetic, device=device)
     trainer.restore(args.ckpt)
     score = trainer.evaluate(val_set.eval_iter(cfg["batch_size"], device))

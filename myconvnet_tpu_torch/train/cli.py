@@ -1,13 +1,14 @@
-"""Training entry point of the port (classification recipes).
+"""Training entry point of the port (classification and optical-flow
+recipes).
 
     python -m myconvnet_tpu_torch.train --config configs/cifar100_resnet18.py \\
         --synthetic --steps N --out DIR [--batch N] [--val_every N] \\
         [--set KEY=VALUE ...] [--device cuda]
 
 Port of ``train.py:22-213`` (``main`` and ``run_supervised``) for the
-classification task: config -> data sets -> model -> trainer, the step
-loop with periodic validation and checkpoints under ``--out``, then a final
-validation.  ``--device`` defaults to ``cuda``; without CUDA that is an
+classification and flow tasks: config -> data sets -> model -> trainer,
+the step loop with periodic validation and checkpoints under ``--out``,
+then a final validation.  ``--device`` defaults to ``cuda``; without CUDA that is an
 error (pass ``--device cpu`` to train on the host).  ``main(argv)``
 returns the trainer, so a script can drive a run in-process.
 """
@@ -63,7 +64,7 @@ def main(argv=None):
     with open(os.path.join(out, "config.json"), "w") as f:
         json.dump(cfg, f, indent=1, default=str)
 
-    trainer, train_set, val_set = recipes.build_classifier(
+    trainer, train_set, val_set = recipes.build_trainer(
         cfg, synthetic=args.synthetic, device=device, ckpt_dir=out,
         log_dir=out)
     batch = cfg["batch_size"]

@@ -6,8 +6,13 @@ Port of ``myconvnet_tpu/train/trainer.py``: ``TrainState`` (``:43-62``),
 microbatches whose gradients are summed in float32 and divided by
 ``accum_steps``; the loss is the microbatches' mean), ``eval_step``
 (``:276-282``), ``fit`` (``:361-501``) and ``evaluate``/``save``/
-``restore`` (``:550-621``).  Remat, SAM, ZeRO, dispatch chaining and the
-mesh come with later slices.
+``restore`` (``:550-621``), and what ``models/base.py:65-113`` hands it
+for a recipe with its own input chain: ``augment_fns`` (here
+:class:`InputFns`, the recipe's draws split from their application) and
+``accuracy_metric=False`` for dense float targets, where the model may
+return a list of outputs (the flow pyramid) and the best checkpoint is the
+evaluator's ``is_better``, lower or higher.  Remat, SAM, ZeRO, dispatch
+chaining and the mesh come with later slices.
 
 Where JAX compiles one program per step, the port runs eagerly and keeps
 the step free of host syncs: the augmentation draws are made on the
@@ -38,8 +43,9 @@ from myconvnet_tpu_torch import weights
 from myconvnet_tpu_torch.ckpt import checkpoint as ckpt_lib
 from myconvnet_tpu_torch.core.precision import Policy
 from myconvnet_tpu_torch.data.augment import (AugmentConfig, augment_eval,
-                                              augment_train, sample_geometry,
-                                              sample_policy, stats)
+                                              augment_train, config_jitter,
+                                              sample_geometry, sample_policy,
+                                              stats)
 from myconvnet_tpu_torch.data.mix import MixConfig, MixDraws, mixup_cutmix, \
     sample_mix
 from myconvnet_tpu_torch.eval.evaluators import Evaluator
@@ -66,6 +72,17 @@ class StepDraws(NamedTuple):
     mix: MixDraws | None
     masks: list | None = None    # per microbatch, the model's keep masks
     policy: tuple | None = None  # RandAugment or AutoAugment draws
+    jitter: tuple | None = None  # colour-jitter factors
+    recipe: tuple | None = None  # the draws of the recipe's InputFns
+
+
+class InputFns(NamedTuple):
+    """A recipe's own input chain, in place of the ``AugmentConfig`` one
+    (the JAX package's ``augment_fns``), with the random draws split from
+    their application so that a test can hand over another package's."""
+    sample: Callable    # (generator, n) -> draws, on the generator's device
+    train: Callable     # (x_u8, y, draws) -> (x, y)
+    eval: Callable      # (x_u8) -> x
 
 
 class Trainer:
@@ -81,7 +98,14 @@ class Trainer:
                  evaluator: Evaluator | None = None, seed: int = 0,
                  ckpt_dir: str | None = None, keep_checkpoints: int = 3,
                  log_every: int = 50, logger: MetricLogger | None = None,
-                 accum_steps: int = 1, accum_dtype: str = "float32"):
+                 accum_steps: int = 1, accum_dtype: str = "float32",
+                 input_fns: InputFns | None = None,
+                 accuracy_metric: bool = True):
+        if input_fns is not None and (augment is not None
+                                      or mix is not None):
+            raise ValueError("input_fns replaces augment and mix")
+        self.input_fns = input_fns
+        self.accuracy_metric = accuracy_metric
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.optimizer = optimizer
@@ -109,11 +133,14 @@ class Trainer:
 
     def sample(self, n: int, hw: tuple[int, int]) -> StepDraws:
         """This step's draws, a function of (seed, step)."""
-        boxes = flip = mix = masks = policy = None
+        boxes = flip = mix = masks = policy = jitter = recipe = None
         self._gen.manual_seed((self.seed << 32) + self.step)
+        if self.input_fns is not None:
+            recipe = self.input_fns.sample(self._gen, n)
         if self.augment is not None:
             boxes, flip = sample_geometry(self._gen, n, hw, self.augment)
             policy = sample_policy(self._gen, n, self.augment)
+            jitter = config_jitter(self._gen, n, self.augment)
         if self.mix is not None:
             rng = np.random.default_rng([self.seed, self.step])
             mix = sample_mix(rng, n, self.mix, self.device)
@@ -121,25 +148,29 @@ class Trainer:
             micro = n // self.accum_steps
             masks = [self.model.sample_masks(micro, self._gen)
                      for _ in range(self.accum_steps)]
-        return StepDraws(boxes, flip, mix, masks, policy)
+        return StepDraws(boxes, flip, mix, masks, policy, jitter, recipe)
 
     def _forward(self, x, masks):
         x = x.to(self.policy.compute_dtype)
-        if masks is None:
-            return self.model(x).float()
-        return self.model(x, masks).float()
+        out = self.model(x) if masks is None else self.model(x, masks)
+        if isinstance(out, (list, tuple)):   # a multi-scale pyramid
+            return [o.float() for o in out]
+        return out.float()
 
     def loss_and_grads(self, x: torch.Tensor, y: torch.Tensor,
                        draws: StepDraws | None = None):
         """Augment, mix, forward in train mode (BN moving statistics
         update) and backward, one microbatch at a time: (loss, logits,
         labels after mixing), with the gradients (the microbatches' mean)
-        in each parameter's ``.grad``."""
+        in each parameter's ``.grad``.  Without the accuracy metric the
+        outputs are not kept and ``logits`` is None."""
         if draws is None:
             draws = self.sample(x.shape[0], tuple(x.shape[1:3]))
+        if self.input_fns is not None:
+            x, y = self.input_fns.train(x, y, draws.recipe)
         if self.augment is not None:
             x = augment_train(x, draws.boxes, draws.flip, self.augment,
-                              self._mean_std, draws.policy)
+                              self._mean_std, draws.policy, draws.jitter)
         if self.mix is not None:
             x, y = mixup_cutmix(x, y, self.num_classes, self.mix, draws.mix)
         self.model.train()
@@ -155,13 +186,17 @@ class Trainer:
             loss = self.loss_fn(out, yi)
             loss.backward()  # .grad sums the microbatches in float32
             losses.append(loss.detach())
-            logits.append(out.detach())
+            if self.accuracy_metric:
+                logits.append(out.detach())
+        if not self.accuracy_metric:
+            logits = [None]
         if accum == 1:
             return losses[0], logits[0], y
         grads = [p.grad for p in self.model.parameters()
                  if p.grad is not None]
         torch._foreach_div_(grads, float(accum))
-        return torch.stack(losses).mean(), torch.cat(logits), y
+        return (torch.stack(losses).mean(),
+                torch.cat(logits) if self.accuracy_metric else None, y)
 
     def train_step(self, x: torch.Tensor, y: torch.Tensor,
                    draws: StepDraws | None = None) -> dict:
@@ -174,6 +209,8 @@ class Trainer:
         self.optimizer.step(self.step)
         self.step += 1
         metrics = {"loss": loss}
+        if not self.accuracy_metric:    # dense regression: the evaluator
+            return metrics
         pred = logits.argmax(-1)
         if y.dim() == 1:
             metrics["accuracy"] = (pred == y).float().mean()
@@ -183,7 +220,9 @@ class Trainer:
 
     @torch.no_grad()
     def eval_step(self, x: torch.Tensor) -> torch.Tensor:
-        """float32 logits of a uint8 batch, eval mode (kernels on)."""
+        """float32 outputs of a uint8 batch, eval mode (kernels on)."""
+        if self.input_fns is not None:
+            x = self.input_fns.eval(x)
         if self.augment is not None:
             x = augment_eval(x, self.augment, self._mean_std)
         self.model.eval()

@@ -137,9 +137,107 @@ def test_pad_crop_sampler_bounds():
 @pytest.mark.parametrize("kw", [dict(contrast=0.4),
                                 dict(brightness=0.4)])
 def test_unported_augment_modes_raise(kw):
+    """Colour jitter is ported: the samplers take such a config and
+    augment_train wants its factors.  What still raises is the bf16
+    interpolation."""
     g = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        taug.sample_geometry(g, 2, (32, 32), _cfg(**kw))
+    cfg = _cfg(**kw)
+    boxes, flip = taug.sample_geometry(g, 2, (32, 32), cfg)
+    factors = taug.config_jitter(g, 2, cfg)
+    x = torch.zeros(2, 32, 32, 3, dtype=torch.uint8)
+    with pytest.raises(ValueError, match="config_jitter"):
+        taug.augment_train(x, boxes, flip, cfg)
+    assert taug.augment_train(x, boxes, flip, cfg, jitter=factors).shape \
+        == (2, 32, 32, 3)
+    with pytest.raises(NotImplementedError, match="float32"):
+        taug.augment_train(x, boxes, flip,
+                           _cfg(interp_dtype="bfloat16", **kw),
+                           jitter=factors)
+
+
+def _jax_jitter_draws(key, n, brightness=0.0, contrast=0.0, saturation=0.0,
+                      hue=0.0):
+    """The factors ``jaug.color_jitter`` draws from ``key``
+    (``data/augment.py:284-302``), as the port's JitterDraws."""
+    k_b, k_c, k_s, k_h = jax.random.split(key, 4)
+
+    def uniform(k, lo, hi, on):
+        if not on:
+            return None
+        return torch.from_numpy(np.array(jax.random.uniform(
+            k, (n, 1, 1, 1), minval=lo, maxval=hi))).reshape(n)
+
+    hue_draw = None
+    if hue > 0.0:   # JAX draws the hue with shape (n, 1, 1)
+        hue_draw = torch.from_numpy(np.array(jax.random.uniform(
+            k_h, (n, 1, 1), minval=-hue, maxval=hue))).reshape(n)
+    return taug.JitterDraws(
+        uniform(k_b, -brightness, brightness, brightness > 0.0),
+        uniform(k_c, 1.0 - contrast, 1.0 + contrast, contrast > 0.0),
+        uniform(k_s, 1.0 - saturation, 1.0 + saturation, saturation > 0.0),
+        hue_draw)
+
+
+JITTER = dict(brightness=0.4, contrast=0.4, saturation=0.4, hue=0.1)
+
+
+@pytest.mark.parametrize("terms", [["brightness"], ["contrast"],
+                                   ["saturation"], ["hue"], list(JITTER)])
+def test_color_jitter_matches_jax_at_its_draws(terms):
+    """Each of the four terms and all together, at the factors JAX draws
+    from its key: within 1e-5."""
+    kw = {k: JITTER[k] for k in terms}
+    x = np.random.RandomState(0).rand(5, 8, 6, 3).astype(np.float32)
+    key = jax.random.PRNGKey(3)
+    want = jaug.color_jitter(key, jnp.asarray(x), **kw)
+    draws = _jax_jitter_draws(key, 5, **kw)
+    assert [f for f in draws._fields if getattr(draws, f) is not None] \
+        == terms
+    got = taug.color_jitter(torch.from_numpy(x), draws)
+    assert got.min() >= 0.0 and got.max() <= 1.0
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-5)
+    assert not np.allclose(got.numpy(), x, atol=1e-3)
+
+
+def test_jitter_sampler_ranges_and_identity():
+    g = torch.Generator().manual_seed(0)
+    d = taug.sample_jitter(g, 4096, **JITTER)
+    for name, lo, hi in (("brightness", -0.4, 0.4), ("contrast", 0.6, 1.4),
+                         ("saturation", 0.6, 1.4), ("hue", -0.1, 0.1)):
+        t = getattr(d, name)
+        assert t.shape == (4096,) and lo <= float(t.min()) < lo + 0.01
+        assert hi - 0.01 < float(t.max()) <= hi
+    assert taug.sample_jitter(g, 4) is None
+    assert taug.config_jitter(g, 4, _cfg()) is None
+    x = torch.rand(2, 4, 4, 3)
+    assert taug.color_jitter(x, None) is x
+    same = taug.color_jitter(x, taug.JitterDraws(
+        torch.zeros(2), torch.ones(2), torch.ones(2), torch.zeros(2)))
+    np.testing.assert_allclose(same.numpy(), x.numpy(), atol=1e-6)
+
+
+def test_augment_train_with_jitter_matches_jax():
+    """The ResNet-50 recipe's chain (random-resized crop, flip, colour
+    jitter, normalize) with the draws JAX's augment_train makes from its
+    key (``augment.py:358-366``): within 1e-5."""
+    cfg = dict(out_hw=(32, 32), area_range=(0.08, 1.0), flip=True,
+               brightness=0.4, contrast=0.4, saturation=0.4, hue=0.0)
+    jcfg, tcfg = jaug.AugmentConfig(**cfg), taug.AugmentConfig(**cfg)
+    x = np.random.RandomState(7).randint(0, 256, (6, 40, 40, 3),
+                                         dtype=np.uint8)
+    key = jax.random.PRNGKey(8)
+    want = jaug.augment_train(key, jnp.asarray(x), jcfg)
+    k_geom, k_color, _ = jax.random.split(key, 3)
+    boxes, flip, _ = jaug._sample_geometry(k_geom, 6, (40, 40), jcfg)
+    draws = _jax_jitter_draws(k_color, 6, brightness=0.4, contrast=0.4,
+                              saturation=0.4)
+    got = taug.augment_train(torch.from_numpy(x),
+                             torch.from_numpy(np.array(boxes)),
+                             torch.from_numpy(np.array(flip)), tcfg,
+                             jitter=draws)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
 
 
 @pytest.mark.parametrize("kw", [dict(randaugment=(2, 9.0)),

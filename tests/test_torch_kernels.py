@@ -482,3 +482,51 @@ def test_apply_layer_plain_picks_each_images_op():
         randaugment_ew.apply_layer(torch.from_numpy(x),
                                    torch.from_numpy(idx[:2]),
                                    torch.from_numpy(mag))
+
+
+# ------------------------------------------------------------ correlation
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,shape", [(0, (1, 3, 4, 5)), (1, (2, 4, 5, 3)),
+                                     (3, (1, 5, 4, 6))])
+def test_correlation_plain_version_is_the_definition(d, shape, dtype):
+    """The plain version against the definition written as loops:
+    out[n, y, x, dy * nd + dx] = mean_c f1[y, x, c] * f2[y+dy-d, x+dx-d, c]
+    with zeros outside the frame, float32 whatever the inputs' dtype; the
+    wrappers run it for CPU tensors and count no launch."""
+    from myconvnet_tpu_torch.ops.kernels import correlation as corr
+    rng = np.random.RandomState(d)
+    f1, f2 = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+              .to(dtype) for _ in range(2))
+    a, b = f1.float().numpy(), f2.float().numpy()
+    n, h, w, c = shape
+    nd = 2 * d + 1
+    want = np.zeros((n, h, w, nd * nd), np.float32)
+    for dy in range(nd):
+        for dx in range(nd):
+            for y in range(h):
+                for x in range(w):
+                    yy, xx = y + dy - d, x + dx - d
+                    if 0 <= yy < h and 0 <= xx < w:
+                        want[:, y, x, dy * nd + dx] = \
+                            (a[:, y, x] * b[:, yy, xx]).sum(-1) / c
+    reset_launch_counts()
+    got = corr.correlation_fwd(f1, f2, d)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+    g = torch.from_numpy(rng.randn(n, h, w, nd * nd).astype(np.float32))
+    d1 = corr.correlation_bwd_f1(g, f1, f2, d)
+    d2 = corr.correlation_bwd_f2(g, f1, f2, d)
+    assert d1.dtype == d2.dtype == dtype and d1.shape == d2.shape == shape
+    # the centre channel's share of d_f1 is g * f2 / C at the same pixel
+    k0 = d * nd + d
+    only = torch.zeros_like(g)
+    only[..., k0] = g[..., k0]
+    np.testing.assert_allclose(
+        corr.correlation_bwd_f1(only, f1, f2, d).float().numpy(),
+        (g[..., k0:k0 + 1] * f2.float() / c).to(dtype).float().numpy(),
+        rtol=1e-5, atol=1e-6)
+    counts = launch_counts()
+    assert counts["correlation_fwd"] == counts["correlation_bwd_f1"] \
+        == counts["correlation_bwd_f2"] == 0

@@ -22,8 +22,9 @@ from myconvnet_tpu_torch.ops import kernels
 from myconvnet_tpu_torch.ops import attention
 from myconvnet_tpu_torch.data import augment as taug
 from myconvnet_tpu_torch.ops.kernels import (affine, bn_act, conv_fused,
-                                             conv_pair, normalize_u8,
-                                             pad_crop_u8, randaugment_ew)
+                                             conv_pair, correlation,
+                                             normalize_u8, pad_crop_u8,
+                                             randaugment_ew)
 from myconvnet_tpu_torch.ops.kernels import flash_attention as fa
 from myconvnet_tpu_torch.train.trainer import StepDraws
 from myconvnet_tpu_torch.weights import random_jax_params
@@ -170,14 +171,9 @@ def test_resnet50_forward_on_card_matches_host(cuda):
     # the stride-1 blocks whose channels the kernel takes run the pair
     # (stages 2-4 at width 16); every other conv + ReLU is a bn_act
     # epilogue
-    assert kernels.launch_counts() == {"conv_pair": pairs,
-                                       "bn_act": 7 + 2 * (13 - pairs),
-                                       "normalize_u8": 0, "pad_crop_u8": 0,
-                                       "conv_fused": 0,
-                                       "flash_attention_fwd": 0,
-                                       "flash_attention_dq": 0,
-                                       "flash_attention_dkv": 0,
-                                       "shear_rows": 0, "randaugment_ew": 0}
+    assert kernels.launch_counts() == {
+        **{name: 0 for name in kernels.WRAPPERS},
+        "conv_pair": pairs, "bn_act": 7 + 2 * (13 - pairs)}
     host = build("cpu")(x).numpy()
     assert np.isfinite(card).all()
     assert np.abs(card - host).max() / np.abs(host).max() < 0.05
@@ -633,3 +629,87 @@ def test_policy_on_card_matches_host(cuda, policy):
     diff = (card.cpu() - host).abs()
     assert torch.isfinite(card).all()
     assert float((diff > 1e-4).float().mean()) <= 0.01
+
+
+# ------------------------------------------------------------ correlation
+
+# the recipes' sites at batch 2 (PWC-Net levels 2 to 6, FlowNetC at 1/8) and
+# odd shapes: ragged W, C not a multiple of 4 or 16, a window larger than
+# the frame, d from 0 to the kernel's limit; (shape, d)
+CORR_CASES = [((2, 96, 128, 32), 4), ((2, 48, 64, 64), 4),
+              ((2, 24, 32, 96), 4), ((2, 12, 16, 128), 4),
+              ((2, 6, 8, 196), 4), ((2, 48, 64, 256), 4),
+              ((3, 7, 37, 7), 1), ((2, 5, 9, 21), 3), ((1, 3, 3, 4), 4),
+              ((2, 9, 33, 16), 0), ((1, 10, 40, 5), 4), ((2, 16, 16, 16), 2)]
+# float32 sums in another order: 2^-18 of max |volume|; gradients rounded
+# to the inputs' dtype: the same for float32, 2 bf16 ulps of the largest
+# gradient for bf16 (``_out_tol``); both relative to the reference's max
+CORR_TOL = 2 ** -18
+
+
+def _corr_inputs(shape, d, dtype, dev, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    f1, f2 = (torch.randn(shape, generator=g).to(dtype).to(dev)
+              for _ in range(2))
+    grad = torch.randn((*shape[:3], (2 * d + 1) ** 2), generator=g).to(dev)
+    return f1, f2, grad
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,d", CORR_CASES)
+def test_correlation_kernels_match_plain(cuda, shape, d, dtype):
+    f1, f2, grad = _corr_inputs(shape, d, dtype, cuda)
+    out = correlation.correlation_fwd(f1, f2, d)
+    ref = correlation.correlation_reference(f1, f2, d)
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    _assert_within(out, ref, CORR_TOL)
+    d1 = correlation.correlation_bwd_f1(grad, f1, f2, d)
+    d2 = correlation.correlation_bwd_f2(grad, f1, f2, d)
+    r1, r2 = correlation.correlation_bwd_reference(grad, f1, f2, d)
+    torch.cuda.synchronize()
+    for got, want in ((d1, r1), (d2, r2)):
+        assert got.dtype == dtype and got.shape == want.shape
+        _assert_within(got, want, CORR_TOL if dtype == torch.float32
+                       else _out_tol(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_correlation_autograd_matches_plain_autograd(cuda, dtype):
+    """correlation_volume under autograd: three launches, the gradients of
+    a random cotangent as the plain version's; a feature map that needs no
+    gradient gets no backward launch."""
+    from myconvnet_tpu_torch.ops.correlation import correlation_volume
+    f1, f2, grad = _corr_inputs((2, 11, 19, 12), 3, dtype, cuda, seed=1)
+    a, b = f1.clone().requires_grad_(), f2.clone().requires_grad_()
+    kernels.reset_launch_counts()
+    out = correlation_volume(a, b, max_displacement=3)
+    (out * grad).sum().backward()
+    counts = kernels.launch_counts()
+    assert (counts["correlation_fwd"], counts["correlation_bwd_f1"],
+            counts["correlation_bwd_f2"]) == (1, 1, 1)
+    r1, r2 = correlation.correlation_bwd_reference(grad, f1, f2, 3)
+    for got, want in ((a.grad, r1), (b.grad, r2)):
+        _assert_within(got, want, CORR_TOL if dtype == torch.float32
+                       else _out_tol(want))
+    kernels.reset_launch_counts()
+    correlation_volume(a, f2, max_displacement=3).sum().backward()
+    assert kernels.launch_counts()["correlation_bwd_f2"] == 0
+    assert kernels.launch_counts()["correlation_bwd_f1"] == 1
+
+
+def test_correlation_kernel_reads_views_and_rejects_what_it_does_not_take(
+        cuda):
+    f1, f2, _ = _corr_inputs((2, 8, 8, 8), 2, torch.float32, cuda)
+    nchw = f2.permute(0, 3, 1, 2).contiguous()      # an NHWC view of NCHW
+    got = correlation.correlation_fwd(f1, nchw.permute(0, 2, 3, 1), 2)
+    assert torch.equal(got, correlation.correlation_fwd(f1, f2, 2))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        correlation.correlation_fwd(f1.half(), f2.half(), 2)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        correlation.correlation_fwd(f1, f2.bfloat16(), 2)
+    with pytest.raises(ValueError, match="one shape"):
+        correlation.correlation_fwd(f1, f2[:, :4], 2)
+    with pytest.raises(ValueError, match="<= 4"):
+        correlation.correlation_fwd(f1, f2, 5)
+    with pytest.raises(ValueError, match="does not fit"):
+        correlation.correlation_bwd_f1(f1, f1, f2, 2)

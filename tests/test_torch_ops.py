@@ -43,6 +43,23 @@ def test_conv2d_same_matches_jax(k, stride, hw):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **F32_TOL)
 
 
+@pytest.mark.parametrize("rate", [2, 4, 16])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_conv2d_dilated_same_matches_jax(rate, stride):
+    """PWC-Net's context net: SAME pads from the effective kernel
+    (k - 1) * rate + 1, also where that is wider than the frame."""
+    rng = np.random.RandomState(rate)
+    x = rng.randn(2, 9, 12, 4).astype(np.float32)
+    w = (rng.randn(3, 3, 4, 5) / 6.0).astype(np.float32)
+    ref = jconv.conv2d(jnp.asarray(x), jnp.asarray(w), stride=stride,
+                       padding="SAME", dilation=rate,
+                       precision=lax.Precision.HIGHEST)
+    out = conv2d(torch.from_numpy(x), torch.from_numpy(w), stride=stride,
+                 padding="SAME", dilation=rate)
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **F32_TOL)
+
+
 def test_conv2d_explicit_padding_and_bias():
     rng = np.random.RandomState(3)
     x = rng.randn(1, 11, 11, 4).astype(np.float32)

@@ -527,3 +527,37 @@ def test_cuda_device_without_cuda_is_an_error(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA is not available"):
         train_entry.main(["--config", CONFIG, "--synthetic", "--steps", "1"])
+
+
+def test_resnet50_recipe_trains_on_the_cpu_with_colour_jitter(tmp_path):
+    """``configs/imagenet_resnet50.py`` as written (random-resized crop,
+    flip, brightness/contrast/saturation jitter, label smoothing, nesterov
+    momentum, 2 microbatches a step) at width 8 and 32x32: two steps with
+    finite losses, each step's jitter factors drawn in the recipe's
+    ranges, and a checkpoint that test.main restores."""
+    out = str(tmp_path / "run")
+    common = ["--config", os.path.join(os.path.dirname(CONFIG),
+                                       "imagenet_resnet50.py"),
+              "--synthetic", "--device", "cpu",
+              "--set", "model_kwargs.width=8", "--set", "input_hw=[32,32]",
+              "--set", "augment.out_hw=[32,32]", "--set", "raw_hw=[40,40]"]
+    trainer = train_entry.main(common + [
+        "--steps", "2", "--batch", "8", "--val_every", "0", "--set",
+        "accum_steps=2", "--set", "log_every=1", "--out", out])
+    assert trainer.step == 2 and trainer.accum_steps == 2
+    assert trainer.augment.brightness == trainer.augment.contrast == 0.4
+    with open(os.path.join(out, "train.jsonl")) as f:
+        losses_ = [r["loss"] for r in map(json.loads, f) if "loss" in r]
+    assert len(losses_) == 2 and np.isfinite(losses_).all()
+    draws = trainer.sample(8, (40, 40))
+    assert draws.jitter.hue is None and draws.policy is None
+    for t, lo, hi in ((draws.jitter.brightness, -0.4, 0.4),
+                      (draws.jitter.contrast, 0.6, 1.4),
+                      (draws.jitter.saturation, 0.6, 1.4)):
+        assert t.shape == (8,) and lo <= float(t.min()) \
+            and float(t.max()) <= hi
+    again = trainer.sample(8, (40, 40))    # a function of (seed, step)
+    assert torch.equal(again.jitter.contrast, draws.jitter.contrast)
+    score, restored = test_entry.main(common + ["--ckpt", out,
+                                                "--batch", "64"])
+    assert 0.0 <= score <= 1.0 and restored.step == 2
