@@ -12,7 +12,11 @@
    CIFAR-100 ResNet-18 recipe (batch 128, 32x32).  Max error against the
    stated tolerance, and both device times from CUDA events with the
    stream held (plus cuDNN's unfused bf16 version of conv_pair and
-   conv_fused).
+   conv_fused, and the conv_pair wrapper's host time a launch).  For
+   conv_pair also a sweep of launch geometries at the served sites, batch
+   8 and 1: every tile TH x TW and cluster size CS the kernel takes from a
+   small set, each held against the plain version and timed beside the
+   planner's plan (the best of all, and the best with a block per SM).
 4. Serving: builds ResNet-50 at full width from ``configs/imagenet_resnet50.py``
    with random weights made from a seed in the JAX layout, loads them
    through ``weights.from_jax``, folds BN, and serves a classify route
@@ -20,7 +24,8 @@
    and 8 images), counts the kernel launches they cause (13 conv_pair and
    7 bn_act per device call), checks the logits against the plain path
    (the same module on the host CPU, where each wrapper runs its plain
-   version) and prints measure_latency p50 for request sizes 1 and 8.
+   version), prints measure_latency p50 for request sizes 1 and 8, and the
+   frozen forward's device busy time and top kernels at batch 8.
 5. Training: step 1 of ``configs/cifar100_resnet18.py`` at full width from
    seeded JAX-layout weights, with the same batch and draws, on the card
    and on the host (loss and every gradient's norm compared); then
@@ -340,6 +345,20 @@ def graph_ms(fn):
     return ms
 
 
+def host_us(fn, iters=50):
+    """Host microseconds per call of ``fn`` (a kernel's wrapper: checks,
+    tensor-map encoding, the launch), the device left to run behind."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / iters
+    torch.cuda.synchronize()
+    return us
+
+
 def compare(out, ref, rtol, atol):
     """(max |out - ref|, whether every element is within atol + rtol|ref|)."""
     import torch
@@ -359,6 +378,27 @@ def taps(size):
     """Input positions a 3x3 SAME conv reads inside the frame along one
     axis of ``size`` (the padding taps multiply zeros)."""
     return 3 * size - 2 if size > 1 else 1
+
+
+def pair_args(shape, g):
+    """conv_pair's inputs at (n, h, w, cin, cm, cout) on g's device: the
+    weights HWIO views of OIHW channels_last tensors, as ``nn.Conv`` holds
+    them (the wrapper then copies nothing)."""
+    import torch
+
+    n, h, w, cin, cm, co = shape
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=g.device) * scale
+
+    x = randn(n, h, w, cin).to(torch.bfloat16)
+    w1 = randn(cm, 1, 1, cin, scale=cin ** -0.5).to(
+        torch.bfloat16).permute(1, 2, 3, 0)
+    w3 = randn(co, 3, 3, cm, scale=(9 * cm) ** -0.5).to(
+        torch.bfloat16).permute(1, 2, 3, 0)
+    s1, s3 = randn(cm).abs() + 0.5, randn(co).abs() + 0.5
+    b1, b3 = randn(cm, scale=0.3), randn(co, scale=0.3)
+    return x, w1, s1, b1, w3, s3, b3
 
 
 def check_kernels(dev):
@@ -387,14 +427,7 @@ def check_kernels(dev):
 
     details, summary = [], {}
     for (n, h, w, cin, cm, co), count in PAIR_SITES:
-        x = randn(n, h, w, cin).to(torch.bfloat16)
-        w1 = randn(cm, 1, 1, cin, scale=cin ** -0.5).to(
-            torch.bfloat16).permute(1, 2, 3, 0)
-        w3 = randn(co, 3, 3, cm, scale=(9 * cm) ** -0.5).to(
-            torch.bfloat16).permute(1, 2, 3, 0)
-        s1, s3 = randn(cm).abs() + 0.5, randn(co).abs() + 0.5
-        b1, b3 = randn(cm, scale=0.3), randn(co, scale=0.3)
-        args = (x, w1, s1, b1, w3, s3, b3)
+        args = pair_args((n, h, w, cin, cm, co), g)
         out = conv_pair.conv1x1_conv3x3_bn_relu(*args)
         ref = conv_pair.conv_pair_reference(*args)
         torch.cuda.synchronize()
@@ -412,14 +445,18 @@ def check_kernels(dev):
                        *args)),
                    plain_ms=cuda_ms(lambda: conv_pair.conv_pair_reference(
                        *args)),
-                   cudnn_bf16_ms=cuda_ms(lambda: unfused_bf16(*args)))
+                   cudnn_bf16_ms=cuda_ms(lambda: unfused_bf16(*args)),
+                   host_us=host_us(lambda: conv_pair.conv1x1_conv3x3_bn_relu(
+                       *args)))
         details.append(row)
         log(f"conv_pair {row['shape']} x{count} plan {row['plan']}: "
             f"max_abs_err={err:.3g} "
             f"(tol rtol={TOL['conv_pair']['rtol']:.3g} "
             f"atol={TOL['conv_pair']['atol']:.3g}) ok={ok} "
             f"kernel={row['ms']:.4f}ms plain={row['plain_ms']:.4f}ms "
-            f"cudnn_bf16_unfused={row['cudnn_bf16_ms']:.4f}ms")
+            f"cudnn_bf16_unfused={row['cudnn_bf16_ms']:.4f}ms "
+            f"bound={b_ms:.4f}ms ({b_by}) "
+            f"wrapper host time={row['host_us']:.1f}us a launch")
     for site, shape in ACT_SITES + ACT_SITES_R18:
         x = randn(*shape).to(torch.bfloat16)
         c = shape[-1]
@@ -460,6 +497,67 @@ def check_kernels(dev):
             library_ms=(None if None in lib else
                         sum(t * r["sites"] for t, r in zip(lib, on_path))))
     return summary, details
+
+
+def sweep_conv_pair_plans(dev, g):
+    """conv_pair at the served sites, batch 8 and 1, under every launch
+    geometry from a small set (TH in 1-14, TW in 4, 7, 14, CS in 1-8) that
+    the kernel takes, each against the plain version, timed beside the
+    planner's plan.  Returns a row per shape and whether every launch
+    agreed."""
+    import torch
+
+    from myconvnet_tpu_torch.ops.kernels import conv_pair
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows, all_ok = [], True
+    for batch in (BATCH, 1):
+        for (_, h, w, cin, cm, co), _ in PAIR_SITES:
+            shape = (batch, h, w, cin, cm, co)
+            args = pair_args(shape, g)
+            ref = conv_pair.conv_pair_reference(*args)
+
+            def measure(tile):
+                p = conv_pair.plan(*shape, tile=tile)
+                out = conv_pair.conv1x1_conv3x3_bn_relu(*args, tile=tile)
+                torch.cuda.synchronize()
+                clusters = batch * -(-h // p["th"]) * -(-w // p["tw"])
+                return dict(
+                    tile=[p["th"], p["tw"], p["cs"]],
+                    blocks=clusters * p["cs"],
+                    clusters_at_once=p["clusters_at_once"],
+                    waves=-(-clusters // max(p["clusters_at_once"], 1)),
+                    ok=compare(out, ref, **TOL["conv_pair"])[1],
+                    ms=cuda_ms(lambda: conv_pair.conv1x1_conv3x3_bn_relu(
+                        *args, tile=tile)))
+
+            planned = measure(None)
+            tried = []
+            for th in (1, 2, 3, 4, 5, 7, 8, 14):
+                for tw in (4, 7, 14):
+                    for cs in (1, 2, 4, 8):
+                        if th > h or tw > w or cm % (16 * cs) \
+                                or co % (16 * cs):
+                            continue
+                        try:
+                            conv_pair.plan(*shape, tile=(th, tw, cs))
+                        except RuntimeError:  # no room in shared memory
+                            continue
+                        tried.append(measure((th, tw, cs)))
+            full = [t for t in tried if t["blocks"] >= sms]
+            row = dict(shape=list(shape), plan=planned,
+                       best=min(tried, key=lambda t: t["ms"]),
+                       best_a_block_per_sm=(min(full, key=lambda t: t["ms"])
+                                            if full else None),
+                       tried=len(tried),
+                       ok=planned["ok"] and all(t["ok"] for t in tried))
+            all_ok &= row["ok"]
+            rows.append(row)
+            log(f"conv_pair plans {shape}: plan {planned}; best of "
+                f"{len(tried)} {row['best']}; best with >= {sms} blocks "
+                f"{row['best_a_block_per_sm']}; all within tolerance "
+                f"{row['ok']}")
+    return rows, all_ok
 
 
 def correlation_by_path(name, details, runs):
@@ -946,6 +1044,17 @@ def serve_and_check(dev):
             f"p95={row['p95']:.3f}ms mean={row['mean']:.3f}ms "
             f"images/s={row['images_per_sec']:.1f}")
     checks["latency_ms"] = {n: row for n, row in lat.items()}
+
+    # the frozen forward at batch 8 on the device: busy time (union of the
+    # kernels' intervals) and the kernels that take it
+    x8 = (images[8] - route.mean) / route.std
+    busy, span, n_kernels, top = device_busy(lambda: route.fn(x8))
+    checks["forward_b8"] = dict(device_busy_ms=busy, device_span_ms=span,
+                                kernels=n_kernels, top_kernels=top)
+    log(f"served forward, batch 8 (torch.profiler, 5 calls): device busy "
+        f"{busy if busy is None else round(busy, 4)} ms over "
+        f"{n_kernels:.0f} kernels; top: " + "; ".join(
+            f"{name[:60]} {ms:.4f} ms x{k:g}" for name, ms, k in top[:5]))
 
     # logits on the card vs the plain path (same trees, host CPU)
     x = (images[8] - route.mean) / route.std
@@ -1853,6 +1962,9 @@ def main() -> int:
         f"{compile_s:.1f}s, build+load {time.perf_counter() - t0:.1f}s")
 
     summary, details = check_kernels(dev)
+    pair_plans, plans_ok = sweep_conv_pair_plans(
+        dev, torch.Generator(device=dev).manual_seed(SEED))
+    summary["conv_pair"]["ok"] &= plans_ok
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     counts, calls, checks = serve_and_check(dev)
@@ -1888,6 +2000,7 @@ def main() -> int:
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__,
                    "kernels": record["kernels"], "per_shape": details,
+                   "conv_pair_plans": pair_plans,
                    "device_calls": calls, "launches": runs,
                    "checks": checks, "failed": bad}, f, indent=1)
     if bad:

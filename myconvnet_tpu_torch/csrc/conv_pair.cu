@@ -11,154 +11,171 @@
 //
 // What bounds it on the H100: at ResNet-50's shapes the pair does
 // 2*Cm*(Cin + 9*Cout) flops per pixel against (Cin + Cout) * 2 bytes of
-// HBM traffic, some 200-400 flop/byte, near the ridge.  The unfused pair
-// also writes and re-reads the intermediate (Cm * 4 bytes a pixel); this
-// kernel never sends it to HBM, which is the point of the fusion.  The late
-// stages are small (a 7x7 map is one tile per image), so the other bound is
-// how many SMs get work: the design splits each tile's channels over a
-// thread-block cluster.
+// HBM traffic plus the weights once, some 200-400 flop/byte, near the
+// ridge: the tensor cores at three of the five sites, HBM at the other two.
+// The unfused pair also writes and re-reads the intermediate (Cm * 4 bytes
+// a pixel); this kernel never sends it to HBM.  What holds a fused kernel
+// back in practice is the rest: the late stages have few pixels and large
+// weights (w3 is 4.7 MB at 7x7), so filling 132 SMs means splitting each
+// tile's channels over a cluster, and each block streams its weight slice
+// from L2 at a rate the tensor cores could outrun.
 //
-// Design, kept simple before it is made fast:
+// Design, built from Hopper's parts:
 // * one cluster of CS blocks = one image x one TH x TW tile of output
-//   pixels; block rank r of the cluster owns intermediate channels
-//   [r*Cm/CS, (r+1)*Cm/CS) and output channels [r*Cout/CS, (r+1)*Cout/CS);
-//   8 warps per block; bf16 WMMA (16x16x16, float32 accumulators);
-// * phase 1: the block's slice of the 1x1 conv over the tile plus a
-//   one-pixel halo.  The halo grid is flattened row-major with width TW + 2.
-//   Cin is streamed through shared memory KC channels at a time, x rows and
-//   the matching w1 rows together, with cp.async into two buffers so the
-//   next chunk loads while the tensor cores work on this one (pixels outside
-//   the image are zero-filled).  Each accumulator tile gets s1, b1 and ReLU,
-//   then halo pixels outside the image are set to 0 (SAME padding applies
-//   to the intermediate after BN1 + ReLU, not to relu(b1)) and stored bf16;
-// * the blocks of the cluster copy each other's slices through distributed
-//   shared memory, so every block holds the whole intermediate;
-// * phase 2: the block's output channels of the 3x3 conv as nine shifted
-//   GEMMs over the flattened halo grid.  Output row r (a halo-grid index)
-//   reads intermediate rows r + dy*(TW+2) + dx, so every tap of 16
-//   consecutive rows is one WMMA load with a fixed stride.  Rows that fall
-//   on halo columns are computed and thrown away (a (TW+2)/TW overhead) in
-//   exchange for that regular access.  w3 streams through the same two
-//   buffers, KC2 intermediate channels x 9 taps at a time;
-// * work is cut into passes of at most 40 accumulator tiles (8 warps x 5):
-//   all row tiles times a group of at most 8 channel tiles, so a pass
-//   stages only its group's weight rows;
-// * the host-side planner picks the tile (TH x TW) and CS: one block per SM
-//   at least where the channel counts allow, then whatever makes the
-//   shared memory fit.
-// Later work: wgmma with TMA-fed stages (and TMA multicast of the x tile,
-// which every rank of a cluster reads today).
+//   pixels; rank r of the cluster owns intermediate channels
+//   [r*Cm/CS, (r+1)*Cm/CS) and output channels [r*Cout/CS, (r+1)*Cout/CS).
+//   The planner picks CS for at least 7/8 of a block per SM where the
+//   channel counts allow, then the smallest tile whose clusters the card
+//   runs all at once: one wave, even where that leaves SMs idle (at batch
+//   8, 128 blocks at 56x56 and 28x28, 96 at 14x14 and 64 at 7x7 on 132
+//   SMs), since a second wave costs more;
+// * a block is two consumer warpgroups and one producer warp.  The
+//   producer's lane 0 keeps a ring of 3-4 stages full by TMA
+//   (cp.async.bulk.tensor, completion on each stage's "full" mbarrier, the
+//   consumers release a stage on its "empty" mbarrier): in phase 1 a stage
+//   is 64 input channels of the x halo tile, through a 4-D tensor map over
+//   NHWC x whose box starts at (ty0 - 1, tx0 - 1), so TMA's zero fill gives
+//   the SAME halo, and the matching w1 rows; in phase 2 a stage is 64
+//   intermediate channels of one row of three taps of w3.  All tiles land
+//   128-byte swizzled.  Weight maps are encoded once per weight and shape and
+//   cached; x's is encoded per launch;
+// * every product is wgmma m64n64k16 (bf16 in, float32 accumulate), a
+//   warpgroup holding up to four 64x64 accumulator tiles; a pass covers up
+//   to eight tiles (all row tiles times a group of 64-channel column
+//   chunks).  When a pass has a single tile the two warpgroups split its K
+//   steps and add their sums through shared memory;
+// * phase 1: the 1x1 conv of the rank's channel slice over the tile plus a
+//   one-pixel halo, the halo grid flattened row-major with width TW + 2.
+//   The epilogue runs on the accumulator registers: s1, b1, ReLU, zero for
+//   halo pixels outside the image (SAME padding applies to the intermediate
+//   after BN1 + ReLU, not to relu(b1)), bf16, straight into shared memory;
+// * phase 2 reads the intermediate at shifted rows: output row q of the
+//   halo grid takes row q + ty*(TW+2) + tx for tap (ty, tx), and a shift of
+//   one pixel breaks the 8-row, 1024-byte atoms of a swizzled wgmma
+//   operand.  So the intermediate is stored in the no-swizzle core-matrix
+//   layout, channel-group-major: group g of eight channels is all rows x 16
+//   bytes, so any eight consecutive rows form a core matrix (SBO = 128 B,
+//   LBO = rows x 16 B) and a shifted operand is just a start address 16
+//   bytes times the shift further on.  A core matrix is 128 contiguous
+//   bytes, so by this reasoning (not measured: the card's profilers are
+//   out of reach) the tensor cores read it without bank conflicts, and the
+//   epilogue's stores (eight rows of 16 bytes a warp) meet none either.  Rows
+//   that fall on halo columns are computed and thrown away (a (TW+2)/TW
+//   overhead) in exchange for that regular access;
+// * between the phases the ranks pull each other's slices through
+//   distributed shared memory (a slice is one contiguous block in this
+//   layout), between two cluster barriers;
+// * phase 2: the rank's output channels as nine shifted GEMMs; its
+//   epilogue applies s3, b3 and ReLU on the registers, rounds to bf16,
+//   stages the tile in shared memory and writes it with 16-byte stores.
+//
+// Left for later: TMA multicast of the x tile, which every rank of a
+// cluster reads from L2 today, and a persistent grid.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
+#include <mutex>
+
+#include "hopper.cuh"
+
 namespace cg = cooperative_groups;
-using namespace nvcuda;
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kTilesPerWarp = 5;  // accumulator tiles a warp holds at once
-constexpr int kPassTiles = kWarps * kTilesPerWarp;
-constexpr int kKC = 64;            // input channels per phase-1 stage
-constexpr int kLdX = kKC + 8;      // staged x/w1 row stride (bf16), 144 B
-constexpr int kKC2 = 32;           // intermediate channels per phase-2 stage
-constexpr int kLdW = 9 * kKC2 + 8; // staged w3 row stride (bf16), 592 B
-constexpr int kPadI = 16;          // intermediate row padding (bf16): rows
-                                   // 32 B apart mod 128, so WMMA loads
-                                   // conflict 2-way, not 8-way, and every
-                                   // row stays 32-byte aligned
-constexpr int kMaxSmem = 232448;   // 227 KB opt-in limit of sm_90
-constexpr int kMaxCluster = 8;     // portable cluster size
+constexpr int kConsumers = 2;                     // warpgroups
+constexpr int kThreads = kConsumers * 128 + 32;   // + the producer warp
+constexpr int kKC = 64;          // channels of one K step (a 128-byte row)
+constexpr int kTaps2 = 3;        // taps of w3 a phase-2 stage brings (a row)
+constexpr int kHeld = 4;         // 64x64 accumulator tiles a warpgroup holds
+constexpr int kPassTiles = kConsumers * kHeld;
+constexpr int kTileBytes = 64 * 128;              // a [64 x 64] bf16 tile
+constexpr int kOutBytes = kConsumers * kTileBytes;  // output staging
+constexpr int kMaxSmem = 232448;                  // 227 KB opt-in limit
+constexpr int kMaxCluster = 8;                    // portable cluster size
 
-constexpr int kMaxPassN = 8;       // channel tiles per pass, at most
-// n-tiles (16 channels each) per pass when there are mt row tiles (the
-// planner keeps mt <= 10, so mt * n-tiles stays within kPassTiles)
-__host__ __device__ inline int pass_ntiles(int mt, int nt) {
-  int per = kPassTiles / mt > 0 ? kPassTiles / mt : 1;
-  if (per > kMaxPassN) per = kMaxPassN;
-  return per < nt ? per : nt;
+__host__ __device__ constexpr int round_up(int v, int m) {
+  return (v + m - 1) / m * m;
 }
+__host__ __device__ constexpr int imin(int a, int b) { return a < b ? a : b; }
+__host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
 
+// Everything the kernel and the planner derive from a tile and the
+// channel slices; computed on the host and passed to the kernel.
 struct Geometry {
-  int hw;        // halo-grid width, TW + 2
-  int halo;      // (TH + 2) * hw pixels of intermediate per tile
-  int rows1;     // halo rounded up to 16 (phase-1 GEMM rows)
-  int rows2;     // TH * hw rounded up to 16 (phase-2 GEMM rows)
-  int inter;     // intermediate rows held, one slack row before row 0
-  int nb1, nb2;  // n-tiles per pass in phase 1 and phase 2
-  int buf;       // elements of one staging buffer (two are held)
-  size_t smem;   // bytes of dynamic shared memory
+  int th, tw, cs;
+  int hw;          // halo-grid width, TW + 2
+  int halo;        // (TH + 2) * hw pixels of intermediate per tile
+  int mt1, mt2;    // 64-row tiles of phase 1 (halo) and phase 2 (outputs)
+  int cmr, cor;    // the block's intermediate and output channels
+  int nrow1, nrow2;  // weight rows a TMA box brings, min(64, slice)
+  int nc1, nc2;    // 64-column chunks of the slices
+  int nb1, nb2;    // chunks a pass covers
+  int cmp;         // Cm rounded up to 64
+  int rows;        // intermediate rows held: one slack row, then the halo
+  int xbytes;      // the x tile of a phase-1 stage
+  int w3bytes;     // one tap's w3 rows in a phase-2 stage
+  int stage;       // bytes of one ring stage
+  int stages;      // 3 or 4
+  int inter;       // bytes of the intermediate
+  int smem;        // dynamic shared memory, 1024 bytes of alignment slack
+                   // and the barriers included
 
-  __host__ __device__ Geometry(int th, int tw, int cm, int cmr, int cor) {
+  Geometry() = default;
+  Geometry(int th_, int tw_, int cs_, int cm, int cout, int pass_cap) {
+    th = th_; tw = tw_; cs = cs_;
     hw = tw + 2;
     halo = (th + 2) * hw;
-    rows1 = (halo + 15) / 16 * 16;
-    rows2 = (th * hw + 15) / 16 * 16;
-    const int need2 = 2 * hw + rows2 + 2;  // last phase-2 read + 1
-    inter = rows1 + 1 > need2 ? rows1 + 1 : need2;
-    nb1 = pass_ntiles(rows1 / 16, cmr / 16);
-    nb2 = pass_ntiles(rows2 / 16, cor / 16);
-    const int buf1 = (rows1 + nb1 * 16) * kLdX;
-    const int buf2 = nb2 * 16 * kLdW;
-    buf = buf1 > buf2 ? buf1 : buf2;
-    smem = (size_t)inter * (cm + kPadI) * 2 + (size_t)2 * buf * 2 +
-           (size_t)kWarps * 256 * 4;
+    mt1 = round_up(halo, 64) / 64;
+    mt2 = round_up(th * hw, 64) / 64;
+    cmr = cm / cs;
+    cor = cout / cs;
+    nrow1 = imin(64, cmr);
+    nrow2 = imin(64, cor);
+    nc1 = (cmr + 63) / 64;
+    nc2 = (cor + 63) / 64;
+    nb1 = imin(nc1, imax(1, imin(pass_cap, kPassTiles) / mt1));
+    nb2 = imin(nc2, imax(1, imin(pass_cap, kPassTiles) / mt2));
+    cmp = round_up(cm, 64);
+    // last phase-2 read: row mt2 * 64 - 1 + 2 * hw + 2 (stored index)
+    rows = imax(mt1 * 64 + 1, mt2 * 64 + 2 * hw + 2);
+    xbytes = mt1 * kTileBytes;
+    // a 64-row read of the last chunk stays inside the stage
+    const int w1b = ((nb1 - 1) * nrow1 + 64) * 128;
+    w3bytes = ((nb2 - 1) * nrow2 + 64) * 128;
+    stage = round_up(imax(xbytes + w1b, kTaps2 * w3bytes), 1024);
+    inter = round_up(rows * cmp * 2, 1024);
+    stages = 4;
+    smem = size(4);
+    if (smem > kMaxSmem) {
+      stages = 3;
+      smem = size(3);
+    }
   }
-};
-
-struct Plan {
-  int th, tw, cs;
-  size_t smem;
+  int size(int st) const {
+    return 1024 + inter + st * stage + kOutBytes + 16 * 8;
+  }
+  bool fits() const { return smem <= kMaxSmem && mt1 <= kPassTiles; }
 };
 
 bool channels_split(int cm, int cout, int cs) {
   return cm % (16 * cs) == 0 && cout % (16 * cs) == 0;
 }
 
-// Tile and cluster size for one launch; false if nothing fits.
-bool make_plan(int n, int h, int w, int cm, int cout, int sms, Plan* out) {
-  int tw = w < 14 ? w : 14;
-  int th = 1;
-  for (int d = 1; d <= 8; ++d)
-    if (h % d == 0) th = d;
-  if (th < 4) th = h < 8 ? h : 8;
-  for (;;) {
-    const long long tiles =
-        (long long)n * ((h + th - 1) / th) * ((w + tw - 1) / tw);
-    int cs = 1;
-    while (cs < kMaxCluster && tiles * cs < sms &&
-           channels_split(cm, cout, 2 * cs))
-      cs *= 2;
-    for (;;) {
-      const Geometry g(th, tw, cm, cm / cs, cout / cs);
-      if (g.smem <= (size_t)kMaxSmem) {
-        *out = Plan{th, tw, cs, g.smem};
-        return true;
-      }
-      if (cs >= kMaxCluster || !channels_split(cm, cout, 2 * cs)) break;
-      cs *= 2;
-    }
-    if (th == 1) return false;
-    th = (th + 1) / 2;
-  }
+long long tiles_of(int n, int h, int w, int th, int tw) {
+  return (long long)n * ((h + th - 1) / th) * ((w + tw - 1) / tw);
 }
 
 struct Args {
-  const __nv_bfloat16* x;
-  const __nv_bfloat16* w1;
   const float* s1;
   const float* b1;
-  const __nv_bfloat16* w3;
   const float* s3;
   const float* b3;
   __nv_bfloat16* y;
-  int n, h, w, cin, cm, cout, th, tw, cs, tiles_x, tiles_y;
+  int h, w, cin, cout, tiles_x, tiles_y;
+  Geometry g;
 };
 
 __device__ __forceinline__ float affine_relu(float v, float s, float b) {
@@ -166,241 +183,470 @@ __device__ __forceinline__ float affine_relu(float v, float s, float b) {
   return v < 0.f ? 0.f : v;
 }
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                             wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                             wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
 
-__global__ void __launch_bounds__(kThreads)
-    conv_pair_kernel(const Args p) {
+// What a consumer thread knows of its block: where things are in shared
+// memory, its warpgroup and lane, the block's tile and channel slices.
+struct Block {
+  unsigned char* inter;  // the intermediate (no swizzle, group-major)
+  unsigned char* out;    // output staging, and a split pass's scratch
+  uint32_t inter_addr, ring_addr;
+  uint64_t* full;
+  uint64_t* empty;
+  int wg, tid, warp, g8, t;
+  int img, ty0, tx0, c1, co0;
+  int steps1, nch2, steps2;
+  int rs;  // bytes of one 8-channel group of the intermediate
+};
+
+// After a split pass: warpgroup 1 hands its partial sums to warpgroup 0
+// through shared memory (each thread its own 32 floats, so both read and
+// write conflict-free).  The scratch is the output staging, which the
+// previous pass's epilogue may still be reading: hence the first barrier.
+__device__ __forceinline__ void join_split(float (&acc)[32], float* scratch,
+                                           int wg, int tid) {
+  hopper::named_barrier(3, kConsumers * 128);
+  if (wg == 1) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) scratch[e * 128 + tid] = acc[e];
+  }
+  hopper::named_barrier(3, kConsumers * 128);
+  if (wg == 0) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[e] += scratch[e * 128 + tid];
+  }
+  hopper::named_barrier(4, kConsumers * 128);
+}
+
+// Phase 1's epilogue for the 64x64 tile (row tile m, column chunk nl):
+// s1, b1, ReLU, zero outside the image, bf16, into the intermediate
+__device__ __forceinline__ void epilogue1(const Block& B, const Args& a,
+                                          const float (&acc)[32], int m,
+                                          int nl) {
+  const Geometry& g = a.g;
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const int r = m * 64 + B.warp * 16 + B.g8 + 8 * h2;  // halo-grid row
+    const int gy = B.ty0 - 1 + r / g.hw, gx = B.tx0 - 1 + r % g.hw;
+    const bool inside =
+        r < g.halo && gy >= 0 && gy < a.h && gx >= 0 && gx < a.w;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int col = nl * 64 + jj * 8 + 2 * B.t;
+      if (col >= g.cmr) continue;
+      const int ch = B.c1 + col;
+      const float v0 =
+          inside ? affine_relu(acc[4 * jj + 2 * h2], a.s1[ch], a.b1[ch])
+                 : 0.f;
+      const float v1 = inside ? affine_relu(acc[4 * jj + 2 * h2 + 1],
+                                            a.s1[ch + 1], a.b1[ch + 1])
+                              : 0.f;
+      *reinterpret_cast<uint32_t*>(B.inter + (ch / 8) * B.rs + (r + 1) * 16 +
+                                   (ch % 8) * 2) = hopper::pack_bf16x2(v0, v1);
+    }
+  }
+}
+
+// Phase 2's epilogue for the 64x64 tile (row tile m, column chunk nl): s3,
+// b3, ReLU and bf16 on the registers into the warpgroup's swizzled staging
+// tile, then 16-byte stores of the rows that are output pixels
+__device__ __forceinline__ void epilogue2(const Block& B, const Args& a,
+                                          const float (&acc)[32], int m,
+                                          int nl) {
+  const Geometry& g = a.g;
+  unsigned char* stage = B.out + B.wg * kTileBytes;
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const int r = B.warp * 16 + B.g8 + 8 * h2;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int col = nl * 64 + jj * 8 + 2 * B.t;
+      uint32_t v = 0;
+      if (col < g.cor) {
+        const int ch = B.co0 + col;
+        v = hopper::pack_bf16x2(
+            affine_relu(acc[4 * jj + 2 * h2], a.s3[ch], a.b3[ch]),
+            affine_relu(acc[4 * jj + 2 * h2 + 1], a.s3[ch + 1],
+                        a.b3[ch + 1]));
+      }
+      *reinterpret_cast<uint32_t*>(stage + r * 128 + ((jj ^ (r & 7)) * 16) +
+                                   B.t * 4) = v;
+    }
+  }
+  hopper::named_barrier(5 + B.wg, 128);
+  for (int idx = B.tid; idx < 64 * 8; idx += 128) {
+    const int r = idx / 8, chunk = idx % 8;
+    const int q = m * 64 + r;  // output index on the halo grid
+    const int oy = q / g.hw, ox = q % g.hw - 1;
+    const int col = nl * 64 + chunk * 8;
+    const int gy = B.ty0 + oy, gx = B.tx0 + ox;
+    if (oy < g.th && ox >= 0 && ox < g.tw && gy < a.h && gx < a.w &&
+        col < g.cor)
+      *reinterpret_cast<uint4*>(
+          a.y + (((size_t)B.img * a.h + gy) * a.w + gx) * a.cout + B.co0 +
+          col) = *reinterpret_cast<const uint4*>(stage + r * 128 +
+                                                 ((chunk ^ (r & 7)) * 16));
+  }
+  hopper::named_barrier(5 + B.wg, 128);
+}
+
+// One pass of a phase for one warpgroup: NT 64x64 accumulator tiles (tile u
+// = wg + 2 i of the pass; a warpgroup with fewer real tiles repeats the
+// last one and drops it), or with SPLIT the pass's single tile, whose four
+// k16 steps of each stage the two warpgroups share.  Every wgmma of a
+// stage is issued unconditionally; a stage is released once the wgmmas
+// that read it have completed (one group kept in flight).
+template <int PHASE, int NT, bool SPLIT>
+__device__ __forceinline__ void pass(const Block& B, const Args& a, int n0,
+                                     int units, int& j) {
+  using namespace hopper;
+  const Geometry& g = a.g;
+  const int mt = PHASE == 1 ? g.mt1 : g.mt2;
+  const int nrow = PHASE == 1 ? g.nrow1 : g.nrow2;
+  const int steps = PHASE == 1 ? B.steps1 : B.steps2;
+  constexpr int KK = SPLIT ? 2 : 4;
+  const int kk0 = SPLIT ? 2 * B.wg : 0;
+  uint32_t aoff[NT], boff[NT];
+#pragma unroll
+  for (int i = 0; i < NT; ++i) {
+    const int u = SPLIT ? 0 : imin(B.wg + kConsumers * i, units - 1);
+    aoff[i] = PHASE == 1 ? (u % mt) * kTileBytes : (u % mt) * 64 * 16;
+    boff[i] = (PHASE == 1 ? g.xbytes : 0) + (u / mt) * nrow * 128;
+  }
+  float acc[NT][32];
+#pragma unroll
+  for (int i = 0; i < NT; ++i)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[i][e] = 0.f;
+
+  int pending = -1;
+  for (int k = 0; k < steps; ++k, ++j) {
+    const int s = j % g.stages;
+    mbar_wait(&B.full[s], (j / g.stages) & 1);
+    const uint32_t st = B.ring_addr + s * g.stage;
+    wgmma_fence();
+    if constexpr (PHASE == 1) {
+#pragma unroll
+      for (int i = 0; i < NT; ++i)
+#pragma unroll
+        for (int q = 0; q < KK; ++q) {
+          const int kk = kk0 + q;
+          wgmma_ss(acc[i], desc_sw128(st + aoff[i] + kk * 32),
+                   desc_sw128(st + boff[i] + kk * 32), 1);
+        }
+    } else {
+      // taps (ty, 0..2) of intermediate channels [64 c, 64 c + 64): output
+      // row q reads stored row q + ty * hw + tx
+      const int ty = k / B.nch2, c = k % B.nch2;
+      const uint32_t abase =
+          B.inter_addr + c * 8 * B.rs + ty * g.hw * 16;
+#pragma unroll
+      for (int tx = 0; tx < kTaps2; ++tx)
+#pragma unroll
+        for (int i = 0; i < NT; ++i)
+#pragma unroll
+          for (int q = 0; q < KK; ++q) {
+            const int kk = kk0 + q;
+            wgmma_ss(acc[i],
+                     desc_plain(abase + aoff[i] + tx * 16 + kk * 2 * B.rs,
+                                B.rs, 128),
+                     desc_sw128(st + tx * g.w3bytes + boff[i] + kk * 32),
+                     1);
+          }
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (pending >= 0 && B.tid == 0) mbar_arrive(&B.empty[pending]);
+    pending = s;
+  }
+  wgmma_wait<0>();
+  if (pending >= 0 && B.tid == 0) mbar_arrive(&B.empty[pending]);
+
+  if constexpr (SPLIT) {
+    join_split(acc[0], reinterpret_cast<float*>(B.out), B.wg, B.tid);
+    if (B.wg == 0) {
+      if constexpr (PHASE == 1)
+        epilogue1(B, a, acc[0], 0, n0);
+      else
+        epilogue2(B, a, acc[0], 0, n0);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+      const int u = B.wg + kConsumers * i;
+      if (u >= units) continue;
+      if constexpr (PHASE == 1)
+        epilogue1(B, a, acc[i], u % mt, n0 + u / mt);
+      else
+        epilogue2(B, a, acc[i], u % mt, n0 + u / mt);
+    }
+  }
+}
+
+// A pass with its tile count made a compile-time shape
+template <int PHASE>
+__device__ __forceinline__ void run_pass(const Block& B, const Args& a,
+                                         int n0, int units, int& j) {
+  if (units == 1) {
+    pass<PHASE, 1, true>(B, a, n0, units, j);
+    return;
+  }
+  switch ((units + 1) / 2) {
+    case 1: pass<PHASE, 1, false>(B, a, n0, units, j); break;
+    case 2: pass<PHASE, 2, false>(B, a, n0, units, j); break;
+    case 3: pass<PHASE, 3, false>(B, a, n0, units, j); break;
+    default: pass<PHASE, 4, false>(B, a, n0, units, j); break;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    conv_pair_kernel(const __grid_constant__ CUtensorMap mx,
+                     const __grid_constant__ CUtensorMap mw1,
+                     const __grid_constant__ CUtensorMap mw3, const Args a) {
+  using namespace hopper;
+  const Geometry& g = a.g;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* inter = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* ring = inter + g.inter;
+  unsigned char* out = ring + g.stages * g.stage;
+  uint64_t* full = reinterpret_cast<uint64_t*>(out + kOutBytes);
+  uint64_t* empty = full + g.stages;
+
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
-  const int cmr = p.cm / p.cs;    // this block's intermediate channels
-  const int cor = p.cout / p.cs;  // this block's output channels
-  const int ldi = p.cm + kPadI;   // intermediate row stride (bf16)
-  const Geometry g(p.th, p.tw, p.cm, cmr, cor);
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* inter = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* stage = inter + (size_t)g.inter * ldi;  // 2 buffers
-  float* scratch = reinterpret_cast<float*>(stage + 2 * (size_t)g.buf);
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float* wscratch = scratch + warp * 256;
-
-  const int tiles = p.tiles_x * p.tiles_y;
-  const int item = blockIdx.x / p.cs;  // one cluster per (image, tile)
+  const int tiles = a.tiles_x * a.tiles_y;
+  const int item = blockIdx.x / g.cs;  // one cluster per (image, tile)
   const int img = item / tiles;
   const int tile = item % tiles;
-  const int ty0 = (tile / p.tiles_x) * p.th;  // first output row of the tile
-  const int tx0 = (tile % p.tiles_x) * p.tw;
-  const __nv_bfloat16* ximg = p.x + (size_t)img * p.h * p.w * p.cin;
-  const int c1 = rank * cmr;  // first intermediate channel of this block
+  const int ty0 = (tile / a.tiles_x) * g.th;  // first output row of the tile
+  const int tx0 = (tile % a.tiles_x) * g.tw;
+  const int c1 = rank * g.cmr;   // first intermediate channel of the block
+  const int co0 = rank * g.cor;  // first output channel of the block
 
-  // zero this block's slice of the intermediate: slack rows and rows past
-  // the halo must read as 0 (they feed only outputs that are thrown away,
-  // but stay finite)
-  for (int i = threadIdx.x; i < g.inter * (cmr / 8); i += kThreads) {
-    const int r = i / (cmr / 8), v = i % (cmr / 8);
-    *reinterpret_cast<uint4*>(inter + (size_t)r * ldi + c1 + v * 8) =
-        make_uint4(0, 0, 0, 0);
+  const int steps1 = a.cin / kKC, passes1 = (g.nc1 + g.nb1 - 1) / g.nb1;
+  const int nch2 = g.cmp / kKC, steps2 = 9 / kTaps2 * nch2;
+  const int passes2 = (g.nc2 + g.nb2 - 1) / g.nb2;
+  const int total1 = passes1 * steps1, total2 = passes2 * steps2;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < g.stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    fence_barrier_init();
   }
+  __syncthreads();
 
-  // ---------------- phase 1: 1x1 conv + s1/b1 + ReLU over tile + halo
-  const int mt1 = g.rows1 / 16;
-  const int nt1 = cmr / 16;
-  const int nchunk1 = p.cin / kKC;
-  for (int nb0 = 0; nb0 < nt1; nb0 += g.nb1) {
-    const int nb = nt1 - nb0 < g.nb1 ? nt1 - nb0 : g.nb1;
-    const int ptiles = mt1 * nb;  // tile u: row tile u % mt1, n-tile u / mt1
-    // x rows [0, rows1) then w1 rows of this pass's channels
-    auto load = [&](int c, int b) {
-      __nv_bfloat16* dst = stage + (size_t)b * g.buf;
-      const int k0 = c * kKC;
-      for (int i = threadIdx.x; i < (g.rows1 + nb * 16) * (kKC / 8);
-           i += kThreads) {
-        const int r = i / (kKC / 8), v = i % (kKC / 8);
-        const __nv_bfloat16* src = p.w1;  // any valid address for a fill
-        int fill = 16;
-        if (r < g.rows1) {
-          const int gy = ty0 - 1 + r / g.hw, gx = tx0 - 1 + r % g.hw;
-          if (r < g.halo && gy >= 0 && gy < p.h && gx >= 0 && gx < p.w) {
-            src = ximg + ((size_t)gy * p.w + gx) * p.cin + k0 + v * 8;
-            fill = 0;
-          }
-        } else {
-          src = p.w1 + (size_t)(c1 + nb0 * 16 + r - g.rows1) * p.cin + k0 +
-                v * 8;
-          fill = 0;
-        }
-        __pipeline_memcpy_async(dst + r * kLdX + v * 8, src, 16, fill);
-      }
-      __pipeline_commit();
-    };
-    FragC acc[kTilesPerWarp];
-#pragma unroll
-    for (int f = 0; f < kTilesPerWarp; ++f) wmma::fill_fragment(acc[f], 0.f);
-    __syncthreads();  // the staging buffers are free
-    load(0, 0);
-    for (int c = 0; c < nchunk1; ++c) {
-      if (c + 1 < nchunk1) {
-        load(c + 1, (c + 1) & 1);
-        __pipeline_wait_prior(1);
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    // ------------------------------------------------ the producer warp
+    const bool lead = threadIdx.x % 32 == 0;
+    auto issue = [&](int j) {
+      const int s = j % g.stages;
+      if (j >= g.stages) mbar_wait(&empty[s], (j / g.stages - 1) & 1);
+      unsigned char* st = ring + s * g.stage;
+      if (j < total1) {
+        const int c = j % steps1, n0 = (j / steps1) * g.nb1;
+        const int nb = imin(g.nb1, g.nc1 - n0);
+        mbar_expect_tx(&full[s], (g.halo + nb * g.nrow1) * 128);
+        tma_load_4d(st, &mx, &full[s], c * kKC, tx0 - 1, ty0 - 1, img);
+        for (int q = 0; q < nb; ++q)
+          tma_load_2d(st + g.xbytes + q * g.nrow1 * 128, &mw1, &full[s],
+                      c * kKC, c1 + (n0 + q) * 64);
       } else {
-        __pipeline_wait_prior(0);
+        // a row of three taps of 64 intermediate channels
+        const int k = j - total1, r = k % steps2;
+        const int n0 = (k / steps2) * g.nb2;
+        const int nb = imin(g.nb2, g.nc2 - n0);
+        mbar_expect_tx(&full[s], kTaps2 * nb * g.nrow2 * 128);
+        for (int tap = 0; tap < kTaps2; ++tap)
+          for (int q = 0; q < nb; ++q)
+            tma_load_3d(st + tap * g.w3bytes + q * g.nrow2 * 128, &mw3,
+                        &full[s], (r % nch2) * kKC, (r / nch2) * kTaps2 + tap,
+                        co0 + (n0 + q) * 64);
       }
-      __syncthreads();  // chunk c is in shared memory
-      const __nv_bfloat16* xb = stage + (size_t)(c & 1) * g.buf;
-      const __nv_bfloat16* wb = xb + g.rows1 * kLdX;
-#pragma unroll
-      for (int kk = 0; kk < kKC; kk += 16) {
-        FragA a[kTilesPerWarp];
-        FragB b[kTilesPerWarp];
-#pragma unroll
-        for (int f = 0; f < kTilesPerWarp; ++f) {
-          const int u = warp + kWarps * f;
-          if (u < ptiles) {
-            wmma::load_matrix_sync(a[f], xb + (u % mt1) * 16 * kLdX + kk,
-                                   kLdX);
-            wmma::load_matrix_sync(b[f], wb + (u / mt1) * 16 * kLdX + kk,
-                                   kLdX);
-          }
-        }
-#pragma unroll
-        for (int f = 0; f < kTilesPerWarp; ++f)
-          if (warp + kWarps * f < ptiles)
-            wmma::mma_sync(acc[f], a[f], b[f], acc[f]);
-      }
-      __syncthreads();  // done with buffer c & 1 before it is refilled
-    }
-#pragma unroll
-    for (int f = 0; f < kTilesPerWarp; ++f) {
-      const int u = warp + kWarps * f;
-      if (u < ptiles) {
-        const int m = u % mt1, nt = nb0 + u / mt1;
-        wmma::store_matrix_sync(wscratch, acc[f], 16, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32) {
-          const int r = m * 16 + e / 16;
-          const int ch = c1 + nt * 16 + e % 16;
-          const int gy = ty0 - 1 + r / g.hw;
-          const int gx = tx0 - 1 + r % g.hw;
-          const bool inside = r < g.halo && gy >= 0 && gy < p.h && gx >= 0 &&
-                              gx < p.w;
-          const float v = inside ? affine_relu(wscratch[e], p.s1[ch], p.b1[ch])
-                                 : 0.f;
-          inter[(size_t)(r + 1) * ldi + ch] = __float2bfloat16_rn(v);
-        }
-        __syncwarp();
-      }
-    }
+    };
+    // The cluster barriers count every thread.  This warp arrives at the
+    // first before it loads anything and at the second only once the
+    // first has completed, and it never waits on a stage that phase 2
+    // frees before it has arrived at the second.
+    cluster_arrive();
+    const int early = total1 + imin(g.stages, total2);
+    if (lead)
+      for (int j = 0; j < early; ++j) issue(j);
+    __syncwarp();
+    cluster_wait();
+    cluster_arrive();
+    if (lead)
+      for (int j = early; j < total1 + total2; ++j) issue(j);
+    __syncwarp();
+    cluster_wait();
+    return;
   }
 
-  // ---------------- gather the other ranks' slices (distributed smem)
-  cluster.sync();  // every slice of the cluster is complete
-  for (int q = 1; q < p.cs; ++q) {
-    const int src = (rank + q) % p.cs;
-    const __nv_bfloat16* remote = cluster.map_shared_rank(inter, src);
-    for (int i = threadIdx.x; i < g.inter * (cmr / 8); i += kThreads) {
-      const size_t off =
-          (size_t)(i / (cmr / 8)) * ldi + src * cmr + (i % (cmr / 8)) * 8;
-      *reinterpret_cast<uint4*>(inter + off) =
-          *reinterpret_cast<const uint4*>(remote + off);
+  // ---------------------------------------------------- the consumers
+  Block B;
+  B.inter = inter;
+  B.out = out;
+  B.inter_addr = smem_addr(inter);
+  B.ring_addr = smem_addr(ring);
+  B.full = full;
+  B.empty = empty;
+  B.wg = wg;
+  B.tid = threadIdx.x % 128;
+  B.warp = B.tid / 32;
+  B.g8 = (B.tid % 32) >> 2;
+  B.t = B.tid & 3;
+  B.img = img;
+  B.ty0 = ty0;
+  B.tx0 = tx0;
+  B.c1 = c1;
+  B.co0 = co0;
+  B.steps1 = steps1;
+  B.nch2 = nch2;
+  B.steps2 = steps2;
+  B.rs = g.rows * 16;
+
+  // zero the intermediate: the slack row, rows past the halo and the
+  // channels past Cm are read (as zeros) by outputs that are thrown away
+  for (int i = threadIdx.x; i < g.inter / 16; i += kConsumers * 128)
+    reinterpret_cast<uint4*>(inter)[i] = make_uint4(0, 0, 0, 0);
+  named_barrier(1, kConsumers * 128);
+
+  int j = 0;  // the ring's step count, as the producer's
+  // ---------------- phase 1: 1x1 conv + s1/b1 + ReLU over tile + halo
+  for (int p = 0; p < passes1; ++p) {
+    const int n0 = p * g.nb1;
+    run_pass<1>(B, a, n0, g.mt1 * imin(g.nb1, g.nc1 - n0), j);
+  }
+
+  // ---------------- the other ranks' slices, through distributed smem
+  cluster_arrive();
+  cluster_wait();  // every slice of the cluster is complete
+  {
+    const int slice = g.cmr / 8 * B.rs;  // bytes of one rank's groups
+    for (int q = 1; q < g.cs; ++q) {
+      const int src = (rank + q) % g.cs;
+      const uint4* remote = reinterpret_cast<const uint4*>(
+          cluster.map_shared_rank(inter + src * slice, src));
+      uint4* local = reinterpret_cast<uint4*>(inter + src * slice);
+      for (int i = threadIdx.x; i < slice / 16; i += kConsumers * 128)
+        local[i] = remote[i];
     }
   }
-  __syncthreads();  // the whole intermediate is local
+  fence_proxy_async();  // generic writes -> wgmma operands
+  cluster_arrive();
+  cluster_wait();  // the whole intermediate is local; no remote reads after
 
   // ---------------- phase 2: 3x3 conv as nine shifted GEMMs + s3/b3 + ReLU
-  const int mt2 = g.rows2 / 16;
-  const int nt2 = cor / 16;
-  const int nchunk2 = p.cm / kKC2;
-  const size_t ldw3 = (size_t)9 * p.cm;
-  for (int nb0 = 0; nb0 < nt2; nb0 += g.nb2) {
-    const int nb = nt2 - nb0 < g.nb2 ? nt2 - nb0 : g.nb2;
-    const int ptiles = mt2 * nb;
-    const __nv_bfloat16* w3p = p.w3 + (size_t)(rank * cor + nb0 * 16) * ldw3;
-    // w3 rows of this pass: [output channel][tap][KC2 channels]
-    auto load = [&](int c, int b) {
-      __nv_bfloat16* dst = stage + (size_t)b * g.buf;
-      const int k0 = c * kKC2;
-      constexpr int kVec = kKC2 / 8;
-      for (int i = threadIdx.x; i < nb * 16 * 9 * kVec; i += kThreads) {
-        const int row = i / (9 * kVec), rem = i % (9 * kVec);
-        const int tap = rem / kVec, v = rem % kVec;
-        __pipeline_memcpy_async(
-            dst + row * kLdW + tap * kKC2 + v * 8,
-            w3p + (size_t)row * ldw3 + tap * p.cm + k0 + v * 8, 16);
-      }
-      __pipeline_commit();
-    };
-    FragC acc[kTilesPerWarp];
-#pragma unroll
-    for (int f = 0; f < kTilesPerWarp; ++f) wmma::fill_fragment(acc[f], 0.f);
-    __syncthreads();  // the staging buffers are free
-    load(0, 0);
-    for (int c = 0; c < nchunk2; ++c) {
-      if (c + 1 < nchunk2) {
-        load(c + 1, (c + 1) & 1);
-        __pipeline_wait_prior(1);
-      } else {
-        __pipeline_wait_prior(0);
-      }
-      __syncthreads();  // chunk c is in shared memory
-      const __nv_bfloat16* wb = stage + (size_t)(c & 1) * g.buf;
-      for (int tap = 0; tap < 9; ++tap) {
-        // stored row of intermediate pixel r is r + 1; output rows start
-        // at halo-grid row hw (the first interior row)
-        const int shift = g.hw + 1 + (tap / 3 - 1) * g.hw + (tap % 3 - 1);
-#pragma unroll
-        for (int kk = 0; kk < kKC2; kk += 16) {
-          FragA a[kTilesPerWarp];
-          FragB b[kTilesPerWarp];
-#pragma unroll
-          for (int f = 0; f < kTilesPerWarp; ++f) {
-            const int u = warp + kWarps * f;
-            if (u < ptiles) {
-              wmma::load_matrix_sync(
-                  a[f],
-                  inter + (size_t)((u % mt2) * 16 + shift) * ldi +
-                      c * kKC2 + kk,
-                  ldi);
-              wmma::load_matrix_sync(
-                  b[f], wb + (u / mt2) * 16 * kLdW + tap * kKC2 + kk, kLdW);
-            }
-          }
-#pragma unroll
-          for (int f = 0; f < kTilesPerWarp; ++f)
-            if (warp + kWarps * f < ptiles)
-              wmma::mma_sync(acc[f], a[f], b[f], acc[f]);
-        }
-      }
-      __syncthreads();  // done with buffer c & 1 before it is refilled
-    }
-#pragma unroll
-    for (int f = 0; f < kTilesPerWarp; ++f) {
-      const int u = warp + kWarps * f;
-      if (u < ptiles) {
-        const int m = u % mt2, nt = nb0 + u / mt2;
-        wmma::store_matrix_sync(wscratch, acc[f], 16, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32) {
-          const int q = m * 16 + e / 16;  // output index on the halo grid
-          const int oy = q / g.hw;        // (row 0 = first interior row)
-          const int ox = q % g.hw - 1;
-          const int gy = ty0 + oy, gx = tx0 + ox;
-          if (oy < p.th && ox >= 0 && ox < p.tw && gy < p.h && gx < p.w) {
-            const int ch = rank * cor + nt * 16 + e % 16;
-            const float v = affine_relu(wscratch[e], p.s3[ch], p.b3[ch]);
-            p.y[(((size_t)img * p.h + gy) * p.w + gx) * p.cout + ch] =
-                __float2bfloat16_rn(v);
-          }
-        }
-        __syncwarp();
-      }
+  for (int p = 0; p < passes2; ++p) {
+    const int n0 = p * g.nb2;
+    run_pass<2>(B, a, n0, g.mt2 * imin(g.nb2, g.nc2 - n0), j);
+  }
+}
+
+// The first geometry of a tile and cluster size whose shared memory fits,
+// narrowing the pass until it does; false if none does.
+bool fitting(int th, int tw, int cs, int cm, int cout, Geometry* out) {
+  for (int cap = kPassTiles; cap >= 1; cap /= 2) {
+    const Geometry g(th, tw, cs, cm, cout, cap);
+    if (g.fits()) {
+      *out = g;
+      return true;
     }
   }
-  cluster.sync();  // no block leaves while another may read its slice
+  return false;
+}
+
+// Lets the kernel take the most shared memory a block can have, once; the
+// runtime's answer.
+cudaError_t opt_in() {
+  static const cudaError_t err = cudaFuncSetAttribute(
+      conv_pair_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kMaxSmem);
+  return err;
+}
+
+// How many clusters of cs blocks the card runs at once when each block
+// takes the most shared memory a block may have (0 if the runtime cannot
+// say): a floor for any plan, whose blocks take as much or less.  Asked
+// once per cluster size.
+int active_clusters(int cs) {
+  static std::mutex mu;
+  static int known[kMaxCluster + 1] = {};  // cs -> count + 1, 0 unknown
+  std::lock_guard<std::mutex> lock(mu);
+  if (known[cs] == 0) {
+    int n = 0;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)cs, 1, 1);
+    cfg.blockDim = dim3(kThreads, 1, 1);
+    cfg.dynamicSmemBytes = kMaxSmem;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)cs;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    if (opt_in() != cudaSuccess ||
+        cudaOccupancyMaxActiveClusters(&n, conv_pair_kernel, &cfg) !=
+            cudaSuccess) {
+      cudaGetLastError();  // the query's own error, not a launch's
+      n = 0;
+    }
+    known[cs] = n + 1;
+  }
+  return known[cs] - 1;
+}
+
+// Tile, cluster size and pass width for one launch; false if nothing fits.
+// The cluster first: grow it while the grid has fewer blocks than 7/8 of
+// the SMs and each rank keeps 64 channels of both slices (a wgmma is 64
+// columns wide, so a narrower slice saves no work).  Then the tile's
+// height: the most rows of tiles whose clusters the card runs all at once.
+// A block takes most of an SM's shared memory, so the card holds 132, 66,
+// 30 or 15 clusters of 1, 2, 4 or 8 blocks (H100), and a second wave of
+// clusters costs more than the SMs the first leaves idle: on the H100 the
+// grids of 132 blocks or more that the sites allow ran 1.4-1.8x slower
+// than this plan.  Then shared memory: a narrower pass, a larger cluster,
+// a smaller tile.
+bool make_plan(int n, int h, int w, int cm, int cout, int sms,
+               Geometry* out) {
+  int tw = w < 14 ? w : 14;
+  int th = 1;
+  for (int d = 1; d <= 8; ++d)
+    if (h % d == 0) th = d;
+  if (th < 4) th = h < 8 ? h : 8;
+  const long long want = (long long)sms * 7 / 8;
+  const long long tiles = tiles_of(n, h, w, th, tw);
+  int cs = 1;
+  while (cs < kMaxCluster && tiles * cs < want &&
+         channels_split(cm, cout, 2 * cs) && cm / (2 * cs) >= 64 &&
+         cout / (2 * cs) >= 64)
+    cs *= 2;
+  // a row of tiles is n * tiles_x clusters; where not even one row fits in
+  // a wave, th stays as it is
+  long long rows = active_clusters(cs) / ((long long)n * ((w + tw - 1) / tw));
+  if (rows > h) rows = h;
+  if (rows >= 1) th = (int)((h + rows - 1) / rows);
+  for (;;) {
+    if (fitting(th, tw, cs, cm, cout, out)) return true;
+    if (cs < kMaxCluster && channels_split(cm, cout, 2 * cs)) {
+      cs *= 2;
+    } else if (th > 1) {
+      th = (th + 1) / 2;
+    } else if (tw > 1) {
+      tw = (tw + 1) / 2;
+    } else {
+      return false;
+    }
+  }
 }
 
 int sm_count() {
@@ -417,66 +663,131 @@ int sm_count() {
 
 bool valid_shape(int n, int h, int w, int cin, int cm, int cout) {
   return n >= 1 && h >= 1 && w >= 1 && cin % kKC == 0 && cin > 0 &&
-         cm % kKC2 == 0 && cm > 0 && cout % 16 == 0 && cout > 0;
+         cm % 32 == 0 && cm > 0 && cm <= 512 && cout % 16 == 0 && cout > 0;
+}
+
+// The geometry of a launch: the planner's, or with th > 0 the caller's
+// tile TH x TW over clusters of CS blocks (to measure other plans); false
+// for a shape or a tile the kernel cannot run.
+bool geometry(int n, int h, int w, int cin, int cm, int cout, int th, int tw,
+              int cs, Geometry* g) {
+  if (!valid_shape(n, h, w, cin, cm, cout)) return false;
+  if (th <= 0) return make_plan(n, h, w, cm, cout, sm_count(), g);
+  return th <= h && tw >= 1 && tw <= w &&
+         (cs == 1 || cs == 2 || cs == 4 || cs == 8) &&
+         channels_split(cm, cout, cs) && fitting(th, tw, cs, cm, cout, g);
+}
+
+// The weights' tensor maps, encoded once per (pointer, shape, box) and
+// kept: the served forward hands the same weights to every call, and an
+// encode is host time on a path that is already host-bound at batch 1.
+struct WeightMaps {
+  const void* w1;
+  const void* w3;
+  int cin, cm, cout, nrow1, nrow2;
+  CUtensorMap m1, m3;
+};
+
+bool weight_maps(const void* w1, const void* w3, int cin, int cm, int cout,
+                 int nrow1, int nrow2, CUtensorMap* m1, CUtensorMap* m3) {
+  static std::mutex mu;
+  static WeightMaps cache[64];
+  static int used = 0, next = 0;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < used; ++i) {
+    const WeightMaps& e = cache[i];
+    if (e.w1 == w1 && e.w3 == w3 && e.cin == cin && e.cm == cm &&
+        e.cout == cout && e.nrow1 == nrow1 && e.nrow2 == nrow2) {
+      *m1 = e.m1;
+      *m3 = e.m3;
+      return true;
+    }
+  }
+  WeightMaps e{w1, w3, cin, cm, cout, nrow1, nrow2, {}, {}};
+  const uint64_t d1[2] = {(uint64_t)cin, (uint64_t)cm};
+  const uint64_t s1[1] = {(uint64_t)cin * 2};
+  const uint32_t b1[2] = {kKC, (uint32_t)nrow1};
+  const uint64_t d3[3] = {(uint64_t)cm, 9, (uint64_t)cout};
+  const uint64_t s3[2] = {(uint64_t)cm * 2, (uint64_t)cm * 18};
+  const uint32_t b3[3] = {kKC, 1, (uint32_t)nrow2};
+  if (!hopper::encode_bf16(&e.m1, w1, 2, d1, s1, b1) ||
+      !hopper::encode_bf16(&e.m3, w3, 3, d3, s3, b3))
+    return false;
+  cache[next] = e;
+  next = (next + 1) % 64;
+  if (used < 64) ++used;
+  *m1 = e.m1;
+  *m3 = e.m3;
+  return true;
 }
 
 }  // namespace
 
-// The launch plan for a shape: out = {TH, TW, CS, shared-memory bytes}.
+// The launch plan for a shape (th = 0) or the geometry of a given tile:
+// out = {TH, TW, CS, shared-memory bytes, ring stages, tiles a phase-1
+// pass covers, tiles a phase-2 pass covers, clusters of CS blocks the card
+// runs at once}.
 extern "C" int mcn_conv_pair_plan(int n, int h, int w, int cin, int cm,
-                                  int cout, int* out) {
-  Plan plan;
-  if (!valid_shape(n, h, w, cin, cm, cout) ||
-      !make_plan(n, h, w, cm, cout, sm_count(), &plan))
+                                  int cout, int th, int tw, int cs,
+                                  int* out) {
+  Geometry g;
+  if (!geometry(n, h, w, cin, cm, cout, th, tw, cs, &g))
     return (int)cudaErrorInvalidValue;
-  out[0] = plan.th;
-  out[1] = plan.tw;
-  out[2] = plan.cs;
-  out[3] = (int)plan.smem;
+  out[0] = g.th;
+  out[1] = g.tw;
+  out[2] = g.cs;
+  out[3] = g.smem;
+  out[4] = g.stages;
+  out[5] = g.mt1 * g.nb1;
+  out[6] = g.mt2 * g.nb2;
+  out[7] = active_clusters(g.cs);
   return 0;
 }
 
 extern "C" int mcn_conv_pair(const void* x, const void* w1, const void* s1,
                              const void* b1, const void* w3, const void* s3,
                              const void* b3, void* y, int n, int h, int w,
-                             int cin, int cm, int cout, void* stream) {
-  Plan plan;
-  if (!valid_shape(n, h, w, cin, cm, cout) ||
-      !make_plan(n, h, w, cm, cout, sm_count(), &plan))
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      conv_pair_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)plan.smem);
-  if (err != cudaSuccess) return (int)err;
+                             int cin, int cm, int cout, int th, int tw,
+                             int cs, void* stream) {
   Args a;
-  a.x = static_cast<const __nv_bfloat16*>(x);
-  a.w1 = static_cast<const __nv_bfloat16*>(w1);
+  if (!geometry(n, h, w, cin, cm, cout, th, tw, cs, &a.g))
+    return (int)cudaErrorInvalidValue;
+  const Geometry& g = a.g;
+  CUtensorMap mx, m1, m3;
+  const uint64_t dx[4] = {(uint64_t)cin, (uint64_t)w, (uint64_t)h,
+                          (uint64_t)n};
+  const uint64_t sx[3] = {(uint64_t)cin * 2, (uint64_t)w * cin * 2,
+                          (uint64_t)h * w * cin * 2};
+  const uint32_t bx[4] = {kKC, (uint32_t)g.hw, (uint32_t)(g.th + 2), 1};
+  if (!hopper::encode_bf16(&mx, x, 4, dx, sx, bx) ||
+      !weight_maps(w1, w3, cin, cm, cout, g.nrow1, g.nrow2, &m1, &m3))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t opted = opt_in();
+  if (opted != cudaSuccess) return (int)opted;
   a.s1 = static_cast<const float*>(s1);
   a.b1 = static_cast<const float*>(b1);
-  a.w3 = static_cast<const __nv_bfloat16*>(w3);
   a.s3 = static_cast<const float*>(s3);
   a.b3 = static_cast<const float*>(b3);
   a.y = static_cast<__nv_bfloat16*>(y);
-  a.n = n; a.h = h; a.w = w; a.cin = cin; a.cm = cm; a.cout = cout;
-  a.th = plan.th; a.tw = plan.tw; a.cs = plan.cs;
-  a.tiles_x = (w + plan.tw - 1) / plan.tw;
-  a.tiles_y = (h + plan.th - 1) / plan.th;
-  const long long blocks = (long long)n * a.tiles_x * a.tiles_y * plan.cs;
+  a.h = h; a.w = w; a.cin = cin; a.cout = cout;
+  a.tiles_x = (w + g.tw - 1) / g.tw;
+  a.tiles_y = (h + g.th - 1) / g.th;
+  const long long blocks = (long long)n * a.tiles_x * a.tiles_y * g.cs;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
 
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)blocks, 1, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = plan.smem;
+  cfg.dynamicSmemBytes = g.smem;
   cfg.stream = static_cast<cudaStream_t>(stream);
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)plan.cs;
+  attr[0].val.clusterDim.x = (unsigned)g.cs;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, conv_pair_kernel, a);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, conv_pair_kernel, mx, m1, m3, a);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -24,36 +24,47 @@
 // The Pallas kernel keeps all of K and V of one (batch, head) in VMEM and
 // takes the whole [block_q, L] score tile in one shot.  A Hopper block has
 // at most 227 KB of shared memory and the blocks run in parallel, so here
-// each block owns a 64-row tile and loops over the other side in 64-row
-// tiles brought in by cp.async (two buffers: the next tile loads while the
-// tensor cores work on this one), with an online softmax (running max and
-// sum in float32 per row) in the forward.  Four warps, each 16 rows of the
-// block's tile; every product is mma.sync m16n8k16 (bf16 in, float32
-// accumulate) from fragments loaded out of shared memory, and the score
+// each query tile loops over 64-row tiles of the other side with an online
+// softmax (running max and sum in float32 per row) in the forward.  Keys
+// past L in the last tile (197 = 3 * 64 + 5) are -inf before the max (P = 0
+// in the backward); query rows past L are zero-filled and never stored.
+//
+// The forward (design at flash_fwd_kernel) is built for Hopper: wgmma for
+// both products, q, k and v brought by TMA through tensor maps over the
+// strided views (rows past L zero-filled by the hardware), a producer warp
+// that keeps a ring of K/V stages full, and K and V of a head read once for
+// two query tiles.  The backward keeps its first design: one block per
+// 64-row tile, four warps of 16 rows, mma.sync m16n8k16 from fragments
+// loaded out of shared memory, cp.async into two buffers; the score
 // accumulators are re-packed in registers as the A operand of the next
-// product (P V, dS K, P^T dO, dS^T Q), so no score ever leaves the SM.
-// Keys past L in the last tile (197 = 3 * 64 + 5) are -inf before the max
-// (P = 0 in the backward); query rows past L are zero-filled and never
-// stored.  The backward needs no atomics: dQ is one pass over key tiles
-// per query tile, dK/dV one pass over query tiles per key tile, so both
-// are deterministic; each recomputes S, and dP.
+// product (dS K, P^T dO, dS^T Q), so no score leaves the SM.  It needs no
+// atomics: dQ is one pass over key tiles per query tile, dK/dV one pass
+// over query tiles per key tile, so both are deterministic; each recomputes
+// S and dP.
 //
 // What bounds it on the H100: at ViT-B/16's [B, 12, 197, 64] bf16, the
 // forward moves 8 B*H*L*D bytes (q, k, v, o) and does 4 B*H*L^2*D
 // operations: 31 operations a byte, under the card's ~295, so it is bound
 // by memory (at B = 256: 310 MB, 93 us at 3.35 TB/s; 30.5 GFLOP, 31 us at
-// 989 TFLOP/s).  The backward reads q, k, v, o, dO and writes dq, dk, dv
-// (620 MB, 185 us) for 14 B*H*L^2*D operations (107 GFLOP, 108 us): bound
-// by memory too.  The design reads each operand tile once per block pass
-// and never writes a score; what it leaves on the table is the Hopper
-// path (wgmma fed by TMA, warp specialisation, one fused backward), which
-// later work brings.  At L = 197 a 64-row tile wastes 59 of 256 rows.
+// 989 TFLOP/s).  The forward reads K and V of a head twice at L = 197 (two
+// blocks of two query tiles), once from HBM and once, mostly, from L2; its
+// tensor-core work is small, so what it is up against is latency: two
+// blocks a streaming multiprocessor, each with two warpgroups, overlap one
+// warpgroup's softmax with another's products, and the block scheduler
+// starts a new block as soon as one ends.  (A persistent grid that fetched
+// the next item's tiles during this one, and issuing the next key tile's
+// S behind P V, both ran slower on the H100; see PERF.md.)  The backward
+// reads q, k, v, o, dO and writes dq, dk, dv (620 MB, 185 us) for
+// 14 B*H*L^2*D operations (107 GFLOP, 108 us): bound by memory too; what it
+// leaves on the table is the same Hopper path and one fused backward.
 
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -176,80 +187,155 @@ __device__ __forceinline__ void acc_to_a(uint32_t* a, const float (*acc)[4],
   a[3] = pack_f32(acc[2 * kk + 1][2], acc[2 * kk + 1][3]);
 }
 
-template <int D>
-constexpr int fwd_smem() {
-  return 5 * kTile * (D + 8) * 2;  // Q, two K and two V tiles
+// ---------------------------------------------------------------- forward
+//
+// One block per (batch, head) and pair of 64-row query tiles: two consumer
+// warpgroups, one per query tile, and one producer warp.  The producer
+// brings each warpgroup's Q tile and then every 64-row K and V tile of the
+// head by TMA into a ring of stages; both warpgroups read each K/V stage,
+// which is released when both have arrived on its "empty" barrier.  Per
+// key tile a warpgroup runs S = Q K^T as wgmma with both operands in
+// shared memory (K-major SW128 tiles), the online softmax on the
+// accumulator registers, and O += P V as wgmma with P re-packed in
+// registers as the A operand and V read MN-major (the descriptor's
+// transpose bit).  The output is rescaled, written swizzled into the
+// warpgroup's (now free) Q tile and stored by one TMA store, which drops
+// rows past L and columns past D.  Tiles are [64 rows x 64 bf16] panels
+// (one panel for D <= 64, two for D <= 128); TMA zero-fills rows past L and
+// columns past D, and the products run only over the real head dim.
+
+constexpr int kFwdWarpgroups = 2;
+constexpr int kFwdThreads = kFwdWarpgroups * 128 + 32;
+constexpr int kPanel = 64 * 64 * 2;  // one SW128 [64 x 64] bf16 panel
+
+// each map's tensor-map dimension (1..3) of the row, the head and the batch
+enum { kMapQ, kMapK, kMapV, kMapO, kMaps };
+
+struct FwdArgs {
+  float* lse;
+  int heads, len, lpad, groups;
+  float scale;
+  int pos[kMaps][3];
+};
+
+__device__ __forceinline__ void map_coords(int (&c)[4], const int* pos,
+                                           int col, int row, int h, int b) {
+  c[0] = col;
+  c[pos[0]] = row;
+  c[pos[1]] = h;
+  c[pos[2]] = b;
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const Args p) {
-  constexpr int LD = D + 8;
-  constexpr int KS = D / 16;  // k-steps over the head dim
-  constexpr int NT = D / 8;   // n-tiles over the head dim
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sq = reinterpret_cast<bf16*>(smem);
-  bf16* sk = sq + kTile * LD;
-  bf16* sv = sk + 2 * kTile * LD;
+__host__ __device__ constexpr int fwd_stages() {
+  return D <= 64 ? 4 : 2;
+}
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+template <int D>
+__host__ __device__ constexpr int fwd_smem() {
+  constexpr int tile = (D + 63) / 64 * kPanel;
+  return 1024 + (kFwdWarpgroups + 2 * fwd_stages<D>()) * tile +
+         8 * (kFwdWarpgroups + 2 * fwd_stages<D>());
+}
+
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, D <= 64 ? 2 : 1)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap mq,
+                     const __grid_constant__ CUtensorMap mk,
+                     const __grid_constant__ CUtensorMap mv,
+                     const __grid_constant__ CUtensorMap mo,
+                     const FwdArgs p) {
+  using namespace hopper;
+  constexpr int NP = (D + 63) / 64;
+  constexpr int ST = fwd_stages<D>();
+  constexpr int kTileBytes = NP * kPanel;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sq = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* sk = sq + kFwdWarpgroups * kTileBytes;
+  unsigned char* sv = sk + ST * kTileBytes;
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(sv + ST * kTileBytes);
+  uint64_t* full = qbar + kFwdWarpgroups;
+  uint64_t* empty = full + ST;
+
+  const int wg = threadIdx.x / 128;
+  const int bh = blockIdx.x / p.groups, grp = blockIdx.x % p.groups;
+  const int b = bh / p.heads, h = bh % p.heads;
+  const int ntiles = (p.len + kTile - 1) / kTile;
+  const int qt0 = grp * kFwdWarpgroups;
+  const int active = min(kFwdWarpgroups, ntiles - qt0);
+
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < kFwdWarpgroups; ++w) mbar_init(&qbar[w], 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], active);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == kFwdWarpgroups) {  // the producer warp
+    if (threadIdx.x % 32 == 0) {
+      int c[4];
+      for (int w = 0; w < active; ++w) {
+        mbar_expect_tx(&qbar[w], kTileBytes);
+        for (int pn = 0; pn < NP; ++pn) {
+          map_coords(c, p.pos[kMapQ], pn * 64, (qt0 + w) * kTile, h, b);
+          tma_load_4d(sq + w * kTileBytes + pn * kPanel, &mq, &qbar[w], c[0],
+                      c[1], c[2], c[3]);
+        }
+      }
+      for (int j = 0; j < ntiles; ++j) {
+        const int s = j % ST;
+        if (j >= ST) mbar_wait(&empty[s], (j / ST - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * kTileBytes);
+        for (int pn = 0; pn < NP; ++pn) {
+          map_coords(c, p.pos[kMapK], pn * 64, j * kTile, h, b);
+          tma_load_4d(sk + s * kTileBytes + pn * kPanel, &mk, &full[s], c[0],
+                      c[1], c[2], c[3]);
+          map_coords(c, p.pos[kMapV], pn * 64, j * kTile, h, b);
+          tma_load_4d(sv + s * kTileBytes + pn * kPanel, &mv, &full[s], c[0],
+                      c[1], c[2], c[3]);
+        }
+      }
+    }
+    return;
+  }
+  if (wg >= active) return;  // past the last query tile
+
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
-  const int q0 = blockIdx.x * kTile;
-  const int len = p.len;
-  const View &vq = p.view[kQ], &vk = p.view[kK], &vv = p.view[kV];
-  const bf16* qb = p.q + base_offset(vq, b, h);
-  const bf16* kb = p.k + base_offset(vk, b, h);
-  const bf16* vb = p.v + base_offset(vv, b, h);
-  const int ntiles = (len + kTile - 1) / kTile;
+  unsigned char* myq = sq + wg * kTileBytes;
+  const uint32_t q_addr = smem_addr(myq);
   const float sl2 = p.scale * kLog2e;
 
-  load_tile<D>(sq, qb, vq.sl, q0, len);
-  load_tile<D>(sk, kb, vk.sl, 0, len);
-  load_tile<D>(sv, vb, vv.sl, 0, len);
-  __pipeline_commit();
-
-  float o[NT][4];
+  float o[NP][32];
 #pragma unroll
-  for (int n = 0; n < NT; ++n)
+  for (int pn = 0; pn < NP; ++pn)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+    for (int e = 0; e < 32; ++e) o[pn][e] = 0.f;
   // rows g and g + 8 of the warp: running max (log2 units) and sum
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  uint32_t qa[KS][4];
 
+  mbar_wait(&qbar[wg], 0);
   for (int j = 0; j < ntiles; ++j) {
-    if (j + 1 < ntiles) {
-      const int nb = (j + 1) & 1;
-      load_tile<D>(sk + nb * kTile * LD, kb, vk.sl, (j + 1) * kTile, len);
-      load_tile<D>(sv + nb * kTile * LD, vb, vv.sl, (j + 1) * kTile, len);
-      __pipeline_commit();
-      __pipeline_wait_prior(1);
-    } else {
-      __pipeline_wait_prior(0);
-    }
-    __syncthreads();
-    if (j == 0) {
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks)
-        load_a<LD>(qa[ks], sq + warp * 16 * LD, ks * 16, g, t);
-    }
-    const bf16* kt = sk + (j & 1) * kTile * LD;
-    const bf16* vt = sv + (j & 1) * kTile * LD;
+    const int s = j % ST;
+    mbar_wait(&full[s], (j / ST) & 1);
+    const uint32_t k_addr = smem_addr(sk + s * kTileBytes);
+    const uint32_t v_addr = smem_addr(sv + s * kTileBytes);
 
-    float s[8][4];
+    float sc[32];
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int e = 0; e < 32; ++e) sc[e] = 0.f;
+    wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        uint32_t b0, b1;
-        load_b_nk<LD>(b0, b1, kt, n * 8, ks * 16, g, t);
-        mma(s[n], qa[ks], b0, b1);
-      }
+    for (int ks = 0; ks < D / 16; ++ks) {
+      const uint32_t off = (ks / 4) * kPanel + (ks % 4) * 32;
+      wgmma_ss(sc, desc_sw128(q_addr + off), desc_sw128(k_addr + off), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
 
     float mx[2] = {m[0], m[1]};
 #pragma unroll
@@ -257,8 +343,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = j * kTile + n * 8 + 2 * t + (e & 1);
-        const float x = col < len ? s[n][e] * sl2 : -INFINITY;
-        s[n][e] = x;
+        const float x = col < p.len ? sc[4 * n + e] * sl2 : -INFINITY;
+        sc[4 * n + e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
     float alpha[2], rs[2] = {0.f, 0.f};
@@ -270,34 +356,35 @@ __global__ void __launch_bounds__(kThreads)
       m[i] = mx[i];
     }
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pv = exp2f(s[n][e] - m[e >> 1]);
-        s[n][e] = pv;
-        rs[e >> 1] += pv;
-      }
+    for (int e = 0; e < 32; ++e) {
+      const float pv = exp2f(sc[e] - m[(e >> 1) & 1]);
+      sc[e] = pv;
+      rs[(e >> 1) & 1] += pv;
+    }
 #pragma unroll
     for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
+    for (int pn = 0; pn < NP; ++pn)
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t a[4];
-      acc_to_a(a, s, kk);
+      for (int e = 0; e < 32; ++e) o[pn][e] *= alpha[(e >> 1) & 1];
+
+    // P as the A operand: keys 16 kk .. 16 kk + 15 are chunks 2 kk, 2 kk + 1
+    uint32_t a[4][4];
 #pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        uint32_t b0, b1;
-        load_b_kn<LD>(b0, b1, vt, kk * 16, n * 8, g, t);
-        mma(o[n], a, b0, b1);
-      }
-    }
-    __syncthreads();  // done with buffer j & 1 before it is refilled
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        a[kk][r] = pack_bf16x2(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int pn = 0; pn < NP; ++pn)
+        wgmma_rs_tb(o[pn], a[kk],
+                    desc_sw128(v_addr + pn * kPanel + kk * 16 * 128));
+    wgmma_commit();
+    wgmma_wait<0>();
+    if (tid == 0) mbar_arrive(&empty[s]);
   }
 
 #pragma unroll
@@ -305,23 +392,88 @@ __global__ void __launch_bounds__(kThreads)
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
   }
-  const View& vo = p.view[kO];
-  bf16* ob = p.out + base_offset(vo, b, h);
+  const int row0 = (qt0 + wg) * kTile;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int row = q0 + warp * 16 + g + 8 * i;
+    const int r = warp * 16 + g + 8 * i;
     if (t == 0)
-      p.lse[(long long)bh * p.lpad + row] =
+      p.lse[(long long)bh * p.lpad + row0 + r] =
           (m[i] + log2f(l[i])) * (1.0f / kLog2e);
-    if (row < len) {
-      const float inv = 1.0f / l[i];
+    const float inv = 1.0f / l[i];
 #pragma unroll
-      for (int n = 0; n < NT; ++n)
-        *reinterpret_cast<uint32_t*>(ob + (long long)row * vo.sl + n * 8 +
-                                     2 * t) =
-            pack_f32(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
-    }
+    for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        *reinterpret_cast<uint32_t*>(myq + pn * kPanel + r * 128 +
+                                     ((n ^ (r & 7)) * 16) + t * 4) =
+            pack_bf16x2(o[pn][4 * n + 2 * i] * inv,
+                        o[pn][4 * n + 2 * i + 1] * inv);
   }
+  fence_proxy_async();
+  named_barrier(1 + wg, 128);
+  if (tid == 0) {
+    int c[4];
+    for (int pn = 0; pn < NP; ++pn) {
+      map_coords(c, p.pos[kMapO], pn * 64, row0, h, b);
+      tma_store_4d(&mo, myq + pn * kPanel, c[0], c[1], c[2], c[3]);
+    }
+    tma_store_commit_and_wait();
+  }
+}
+
+// A tensor map over one strided [B, H, L, D] operand: the head dim first,
+// then row, head and batch ordered by their strides; a box of 64 rows x 64
+// columns.  pos gets the map dimension of the row, the head and the batch.
+bool encode_view(CUtensorMap* map, const void* base, const View& v,
+                 int batch, int heads, int len, int dim, int* pos) {
+  long long stride[3] = {v.sl, v.sh, v.sb};
+  const uint64_t extent[3] = {(uint64_t)len, (uint64_t)heads,
+                              (uint64_t)batch};
+  int order[3] = {0, 1, 2};
+  for (int i = 1; i < 3; ++i)
+    for (int j = i; j > 0 && stride[order[j]] < stride[order[j - 1]]; --j) {
+      const int tmp = order[j];
+      order[j] = order[j - 1];
+      order[j - 1] = tmp;
+    }
+  uint64_t dims[4] = {(uint64_t)dim, 0, 0, 0}, strides[3];
+  uint32_t box[4] = {64, 1, 1, 1};
+  for (int i = 0; i < 3; ++i) {
+    const int which = order[i];
+    dims[i + 1] = extent[which];
+    strides[i] = (uint64_t)stride[which] * 2;
+    if (which == 0) box[i + 1] = kTile;
+    pos[which] = i + 1;
+  }
+  return hopper::encode_bf16(map, base, 4, dims, strides, box);
+}
+
+template <int D>
+int launch_fwd(const Args& a, int batch, cudaStream_t stream) {
+  CUtensorMap maps[kMaps];
+  FwdArgs f;
+  const void* bases[kMaps] = {a.q, a.k, a.v, a.out};
+  const int views[kMaps] = {kQ, kK, kV, kO};
+  for (int i = 0; i < kMaps; ++i)
+    if (!encode_view(&maps[i], bases[i], a.view[views[i]], batch, a.heads,
+                     a.len, D, f.pos[i]))
+      return (int)cudaErrorInvalidValue;
+  f.lse = a.lse;
+  f.heads = a.heads;
+  f.len = a.len;
+  f.lpad = a.lpad;
+  f.scale = a.scale;
+  const int ntiles = (a.len + kTile - 1) / kTile;
+  f.groups = (ntiles + kFwdWarpgroups - 1) / kFwdWarpgroups;
+  const long long blocks = (long long)batch * a.heads * f.groups;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  constexpr int smem = fwd_smem<D>();
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  flash_fwd_kernel<D><<<(unsigned)blocks, kFwdThreads, smem, stream>>>(
+      maps[kMapQ], maps[kMapK], maps[kMapV], maps[kMapO], f);
+  return (int)cudaGetLastError();
 }
 
 template <int D>
@@ -626,14 +778,12 @@ enum Kind { kFwd, kDq, kDkv };
 
 template <int D>
 int launch(Kind kind, const Args& a, int batch, cudaStream_t stream) {
+  if (kind == kFwd) return launch_fwd<D>(a, batch, stream);
   const dim3 grid((unsigned)((a.len + kTile - 1) / kTile),
                   (unsigned)(batch * a.heads), 1);
-  void (*kernel)(const Args) = kind == kFwd  ? flash_fwd_kernel<D>
-                               : kind == kDq ? flash_dq_kernel<D>
-                                             : flash_dkv_kernel<D>;
-  const int smem = kind == kFwd ? fwd_smem<D>()
-                   : kind == kDq ? dq_smem<D>()
-                                 : dkv_smem<D>();
+  void (*kernel)(const Args) =
+      kind == kDq ? flash_dq_kernel<D> : flash_dkv_kernel<D>;
+  const int smem = kind == kDq ? dq_smem<D>() : dkv_smem<D>();
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;

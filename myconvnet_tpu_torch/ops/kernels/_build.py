@@ -8,8 +8,9 @@ shared library with a plain C interface, which ``ctypes`` loads:
          -Xcompiler -fPIC -c -o <name>.o csrc/<name>.cu      (each source)
     nvcc -shared -o build/kernels/<hash>/libmcn_kernels.so *.o
 
-``<hash>`` covers the sources, the flags and the compiler path, so an edit
-rebuilds and an unchanged tree reuses the library.  The compiler writes
+``<hash>`` covers the sources, the headers they share (``*.cuh``), the
+flags and the compiler path, so an edit rebuilds and an unchanged tree
+reuses the library.  The compiler writes
 into a temporary directory beside it and ``os.replace`` moves the library
 into place, so processes that build at the same time never load a
 half-written library.  ``build/`` sits at the root of the checkout and is
@@ -50,11 +51,14 @@ SIGNATURES = {
     # x, a, b, y, rows, channels, act, stream
     "mcn_scale_shift_act_f32": (P, P, P, P, I64, I32, I32, P),
     "mcn_scale_shift_act_bf16": (P, P, P, P, I64, I32, I32, P),
-    # x, w1, s1, b1, w3, s3, b3, y, n, h, w, cin, cm, cout, stream
+    # x, w1, s1, b1, w3, s3, b3, y, n, h, w, cin, cm, cout, TH, TW, CS (0,
+    # 0, 0: the planner's), stream
     "mcn_conv_pair": (P, P, P, P, P, P, P, P,
-                      I32, I32, I32, I32, I32, I32, P),
-    # n, h, w, cin, cm, cout, int[4] out: TH, TW, CS, shared-memory bytes
-    "mcn_conv_pair_plan": (I32, I32, I32, I32, I32, I32, P),
+                      I32, I32, I32, I32, I32, I32, I32, I32, I32, P),
+    # n, h, w, cin, cm, cout, TH, TW, CS (as above), int[8] out: TH, TW,
+    # CS, shared-memory bytes, ring stages, tiles of a phase-1 pass, tiles
+    # of a phase-2 pass, clusters the card runs at once
+    "mcn_conv_pair_plan": (I32, I32, I32, I32, I32, I32, I32, I32, I32, P),
     # x, w, scale, bias, y, n, h, w, c, cout, stream
     "mcn_conv3x3_bn_relu": (P, P, P, P, P, I32, I32, I32, I32, I32, P),
     # x, mean, std, y, total, c, stream
@@ -106,9 +110,13 @@ def sources() -> list[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
+def headers() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cuh"))
+
+
 def build_key(nvcc: str) -> str:
     h = hashlib.sha256()
-    for f in sources():
+    for f in sources() + headers():
         h.update(f.name.encode())
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

@@ -2,18 +2,17 @@
 
 Port of ``myconvnet_tpu/ops/pallas/conv_pair.py``
 (``conv1x1_conv3x3_bn_relu`` at ``:101``).  The CUDA kernel is
-``csrc/conv_pair.cu``: one thread-block cluster per image and TH x TW
-output tile; each block of the cluster computes a slice of the 1x1 result
-for the tile plus a one-pixel halo into shared memory as bf16, the blocks
-swap slices through distributed shared memory, and each runs the 3x3 for
-its slice of the output channels as nine shifted WMMA GEMMs.  The
+``csrc/conv_pair.cu`` (design and bound in its head comment): one
+thread-block cluster per image and TH x TW output tile; each block of the
+cluster computes a slice of the 1x1 result for the tile plus a one-pixel
+halo into shared memory as bf16, the blocks swap slices through
+distributed shared memory, and each runs the 3x3 for its slice of the
+output channels as nine shifted GEMMs.  Both GEMMs are wgmma (bf16 in,
+float32 accumulate) fed by TMA through a ring of stages: the x halo tile
+through a tensor map whose zero fill gives the SAME padding, and w1 and
+w3 tiles through maps the library encodes once per weight.  The
 [N, H, W, Cm] intermediate never goes to device memory; the unfused pair
-writes and re-reads it.  At ResNet-50's shapes the pair sits near the
-H100's flop/byte ridge, so both the tensor-core rate and that saved
-traffic matter, and at 14x14 and 7x7 there are few tiles, so the cluster
-split is what puts enough SMs to work.  This first version is simple
-(WMMA, w3 read through L2); the notes in the .cu file say what later work
-adds.
+writes and re-reads it.
 
 BN is the inference form: per-channel float32 scale and bias (a folded BN
 has scale 1 and the conv's bias).  The 3x3 uses SAME (zero) padding of
@@ -37,21 +36,32 @@ MAX_CM = 512  # keeps the intermediate's tile within shared memory
 
 
 def supports(cin: int, cm: int, cout: int) -> bool:
-    """Channel counts the kernel takes: Cin streamed 64 at a time, Cm 32
-    at a time, Cout in 16-wide WMMA tiles, Cm <= 512 so a tile of the
+    """Channel counts the kernel takes: Cin streamed 64 at a time, Cm a
+    multiple of 32 (padded to 64 in shared memory), Cout a multiple of 16
+    (16-byte stores of a cluster rank's slice), Cm <= 512 so a tile of the
     intermediate fits in shared memory (227 KB)."""
     return (cin > 0 and cin % 64 == 0 and 0 < cm <= MAX_CM and cm % 32 == 0
             and cout > 0 and cout % 16 == 0)
 
 
-def plan(n: int, h: int, w: int, cin: int, cm: int, cout: int) -> dict:
+def plan(n: int, h: int, w: int, cin: int, cm: int, cout: int,
+         tile: tuple[int, int, int] | None = None) -> dict:
     """The kernel's launch plan on the current card: output tile TH x TW,
-    CS blocks per tile (a thread-block cluster), shared memory per block.
-    The planner lives in csrc/conv_pair.cu, next to the layout it sizes."""
-    out = (ctypes.c_int * 4)()
+    CS blocks per tile (a thread-block cluster), shared memory per block,
+    the stages of its TMA ring, the 64x64 accumulator tiles a pass of each
+    phase covers, and how many clusters of CS blocks the card runs at once
+    (a grid of more runs in waves).  The planner lives in csrc/conv_pair.cu,
+    next to the layout it sizes.  ``tile`` = (TH, TW, CS) gives the same
+    for that geometry instead of the planner's; raises if the kernel
+    cannot run it."""
+    th, tw, cs = tile or (0, 0, 0)
+    out = (ctypes.c_int * 8)()
     _build.check("mcn_conv_pair_plan", _build.library().mcn_conv_pair_plan(
-        n, h, w, cin, cm, cout, ctypes.cast(out, ctypes.c_void_p)))
-    return dict(th=out[0], tw=out[1], cs=out[2], smem=out[3])
+        n, h, w, cin, cm, cout, th, tw, cs,
+        ctypes.cast(out, ctypes.c_void_p)))
+    return dict(th=out[0], tw=out[1], cs=out[2], smem=out[3],
+                stages=out[4], pass1_tiles=out[5], pass2_tiles=out[6],
+                clusters_at_once=out[7])
 
 
 def _check_shapes(x, w1, scale1, bias1, w3, scale3, bias3):
@@ -95,13 +105,18 @@ def conv_pair_reference(x, w1, scale1, bias1, w3, scale3, bias3):
 def conv1x1_conv3x3_bn_relu(x: torch.Tensor, w1: torch.Tensor,
                             scale1: torch.Tensor, bias1: torch.Tensor,
                             w3: torch.Tensor, scale3: torch.Tensor,
-                            bias3: torch.Tensor) -> torch.Tensor:
+                            bias3: torch.Tensor,
+                            tile: tuple[int, int, int] | None = None
+                            ) -> torch.Tensor:
     """y = relu(bn3(conv3x3(relu(bn1(conv1x1(x, w1))), w3))), NHWC bf16.
 
     x: [N, H, W, Cin] bf16; w1: [1, 1, Cin, Cm] and w3: [3, 3, Cm, Cout]
     (HWIO) bf16; scales and biases: per-channel float32.  The weights are
     handed to the kernel as OIHW channels_last ([Cm, Cin] and
     [Cout, 3, 3, Cm]), which costs no copy for ``nn.Conv`` weights.
+    ``tile`` = (TH, TW, CS) launches that geometry instead of the planner's
+    (to measure plans against each other); it changes no number, and the
+    plain version ignores it.
     """
     cin, cm, cout = _check_shapes(x, w1, scale1, bias1, w3, scale3, bias3)
     if x.device.type == "cpu":
@@ -130,7 +145,7 @@ def conv1x1_conv3x3_bn_relu(x: torch.Tensor, w1: torch.Tensor,
     if any(p % 32 for p in ptrs):
         raise ValueError("conv_pair kernel needs 32-byte aligned tensors")
     code = _build.library().mcn_conv_pair(
-        *ptrs, n, h, w, cin, cm, cout,
+        *ptrs, n, h, w, cin, cm, cout, *(tile or (0, 0, 0)),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check("mcn_conv_pair", code)
     conv1x1_conv3x3_bn_relu.launches += 1

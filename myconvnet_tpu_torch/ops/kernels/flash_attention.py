@@ -4,11 +4,13 @@ Port of ``myconvnet_tpu/ops/pallas/flash_attention.py`` (``flash_attention``
 at ``:193``; the forward kernel's ``pallas_call`` in ``_fwd`` at ``:108``,
 the dQ and dK/dV kernels' in ``_bwd`` at ``:153`` and ``:161``, the
 ``custom_vjp`` at ``:173-190``).  The CUDA kernels are
-``csrc/flash_attention.cu`` (design and bound in its header): one block per
-64-row tile of one (batch, head), four warps of 16 rows, ``mma.sync`` bf16
-products with float32 accumulators, an online softmax over 64-key tiles in
-the forward, and a backward without atomics (dQ loops over key tiles, dK/dV
-over query tiles).
+``csrc/flash_attention.cu`` (design and bound in its header).  The
+forward runs two 64-row query tiles of one (batch, head) per block, one
+warpgroup each, with wgmma products fed by TMA from tensor maps over the
+strided q, k and v, an online softmax over 64-key tiles, and a TMA store of
+the output.  The backward is one block per 64-row tile, four warps of 16
+rows, ``mma.sync`` bf16 products with float32 accumulators, without atomics
+(dQ loops over key tiles, dK/dV over query tiles).
 
 :func:`flash_attention` is differentiable through :class:`FlashAttention`
 (the ``custom_vjp``): the forward saves the float32 logsumexp, the backward

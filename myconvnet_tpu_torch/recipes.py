@@ -100,10 +100,27 @@ def make_augment(aug_cfg: dict | None) -> AugmentConfig | None:
                             for k, v in aug_cfg.items()})
 
 
+# Keys the JAX builders read that the port has not ported: each changes
+# what is trained, so a recipe that sets one to anything but its default
+# (0, None or False) is refused by name rather than trained differently
+UNPORTED_CLASSIFIER_KEYS = ("erase_prob", "sam_rho")
+UNPORTED_OPTIMIZER_KEYS = ("ema_decay", "plateau", "lookahead", "freeze")
+# The JAX ConvNet also reads remat, chain_steps and zero_sharding; they
+# change how its step runs (rematerialisation, steps chained in one jit
+# call, ZeRO sharding over a mesh), not one number it computes, so the
+# port accepts and ignores them.
+
+
 def make_optimizer(model: torch.nn.Module, opt_cfg: dict
                    ) -> optim.SGD | optim.Adam:
     """The recipe's optimizer over ``model``'s parameters (by JAX path)."""
     opt_cfg = dict(opt_cfg)
+    for key in UNPORTED_OPTIMIZER_KEYS:
+        value = opt_cfg.pop(key, None)
+        if value:
+            raise ValueError(f"optimizer key {key!r} = {value!r} is not "
+                             "ported (the JAX package wraps the optimizer "
+                             "with it, recipes/common.py:77-80)")
     name = opt_cfg.pop("name")
     lr = opt_cfg.pop("lr")
     if isinstance(lr, dict):
@@ -159,6 +176,11 @@ def build_classifier(cfg: dict, synthetic: bool = False, *,
     if cfg.get("cls_loss", "ce") != "ce":
         raise ValueError(f"the port has cls_loss 'ce', not "
                          f"{cfg['cls_loss']!r}")
+    for key in UNPORTED_CLASSIFIER_KEYS:
+        if cfg.get(key):
+            raise ValueError(f"recipe key {key!r} = {cfg[key]!r} is not "
+                             "ported (the JAX ConvNet reads it, "
+                             "recipes/vision.py:51-63)")
     seed = cfg.get("seed", 0)
     model = models.get_model(cfg["model"], cfg["num_classes"],
                              input_hw=cfg.get("input_hw"),

@@ -420,6 +420,58 @@ def test_shear_and_rotate_plain_match_pallas(op):
         torch.testing.assert_close(got, t.transpose(1, 2), rtol=0, atol=0)
 
 
+# Slopes and offsets at which slope * y + offset is an exact integer k for
+# one row y: an FMA (XLA's fused multiply-add on the CPU) gives k, the
+# port's separate roundings k - 1 ulp, so floor(shift) differs by a whole
+# pixel there (found by searching the two numpy roundings below)
+INTEGER_SHIFTS = [(0.09784692525863647, -0.07631617784500122, 11),
+                  (0.29273349046707153, -0.46366745233535767, 5),
+                  (0.25677502155303955, -2.621950387954712, 18),
+                  (-0.15562570095062256, 1.6456369161605835, 17)]
+
+
+def _shift_fma(s, y, t):
+    """One rounding of the exact s * y + t (s * y is exact in float64)."""
+    return np.float32(np.float64(s) * y + np.float64(t))
+
+
+def _shift_rounded_apart(s, y, t):
+    """The port's arithmetic: the product rounded, then the sum."""
+    return np.float32(np.float32(s) * np.float32(y)) + np.float32(t)
+
+
+def test_shear_rows_at_integer_shifts_matches_pallas():
+    """Where the two roundings put floor(shift) a pixel apart, the bilinear
+    weights move with it (frac = 1 - 1 ulp instead of 0), so the output
+    moves by about an ulp, not by a pixel: JAX's row is the image moved by
+    exactly k pixels, the port's differs from it by up to 2.4e-7 on [0, 1]
+    images, within SHEAR_TOL."""
+    slope = np.array([s for s, _, _ in INTEGER_SHIFTS], np.float32)
+    offset = np.array([t for _, t, _ in INTEGER_SHIFTS], np.float32)
+    for s, t, y in INTEGER_SHIFTS:
+        fused, apart = (_shift_fma(s, y, t),
+                        _shift_rounded_apart(np.float32(s), y,
+                                             np.float32(t)))
+        assert fused == np.floor(fused) and np.floor(apart) == fused - 1
+    x = _img01(4, 20, 24, seed=4)
+    want = np.asarray(jaffine.shear_rows(
+        jnp.asarray(x), jnp.asarray(slope), jnp.asarray(offset),
+        max_abs_slope=0.3, fill=0.25, interpret=True))
+    got = affine.shear_rows(torch.from_numpy(x), torch.from_numpy(slope),
+                            torch.from_numpy(offset), max_abs_slope=0.3,
+                            fill=0.25).numpy()
+    np.testing.assert_allclose(got, want, **SHEAR_TOL)
+    worst = 0.0
+    for i, (s, t, y) in enumerate(INTEGER_SHIFTS):
+        k = int(_shift_fma(s, y, t))
+        moved = np.full_like(x[i, y], 0.25)  # the fill outside the frame
+        lo, hi = max(0, -k), min(24, 24 - k)
+        moved[lo:hi] = x[i, y, lo + k:hi + k]
+        np.testing.assert_array_equal(want[i, y], moved)
+        worst = max(worst, float(np.abs(got[i, y] - want[i, y]).max()))
+    assert 0.0 < worst <= 2.5e-7
+
+
 def test_affine_wrapper_checks():
     x = torch.zeros(2, 6, 5, 3)
     s = torch.zeros(2)

@@ -95,16 +95,25 @@ def _pair_args(shape, dev, seed=0):
             vec[2].to(dev), vec[3].to(dev))
 
 
-@pytest.mark.parametrize("shape", [
-    (2, 7, 7, 64, 32, 32),       # one whole-image tile
+# the five conv_pair sites of the served ResNet-50 at batch 8 and at 1
+PAIR_SITES = [(8, 56, 56, 64, 64, 64), (8, 56, 56, 256, 64, 64),
+              (8, 28, 28, 512, 128, 128), (8, 14, 14, 1024, 256, 256),
+              (8, 7, 7, 2048, 512, 512)]
+
+
+@pytest.mark.parametrize("shape", PAIR_SITES + [
+    (1,) + s[1:] for s in PAIR_SITES] + [
+    (2, 7, 7, 64, 32, 32),       # one whole-image tile, Cm = 32
     (1, 9, 6, 64, 32, 48),       # partial tiles, Cout not a multiple of 32
     (2, 14, 14, 128, 64, 64),
     (1, 30, 17, 64, 32, 16),     # partial tiles in both directions
-    (1, 56, 56, 64, 64, 64),     # stage 1 geometry, 4 blocks per tile
+    (2, 20, 23, 128, 64, 64),    # W no multiple of the 14-pixel tile
+    (3, 11, 9, 64, 32, 32),
     (1, 9, 6, 64, 64, 64),       # partial tiles split over a cluster
     (2, 14, 14, 64, 128, 128),   # 8 blocks per tile, 16 channels each
     (1, 3, 40, 64, 512, 32),     # two phase-1 passes per block
-    (1, 7, 7, 128, 512, 512)])   # stage 4 Cm: > 48 KB of shared memory
+    (1, 7, 7, 128, 512, 512),    # stage 4 Cm: > 48 KB of shared memory
+    (1, 14, 14, 2048, 512, 1024)])  # the largest Cm supports() takes
 def test_conv_pair_kernel_matches_plain(cuda, shape):
     args = _pair_args(shape, cuda)
     before = conv_pair.conv1x1_conv3x3_bn_relu.launches
@@ -127,10 +136,23 @@ def test_conv_pair_kernel_zero_pads_the_intermediate(cuda):
     assert out[0, 0, 0, 0].item() == 4.0
 
 
+# ResNet-50 pair shapes (n, h, w, cin) whose plan has fewer blocks than the
+# H100's 132 SMs, and its blocks.  A block takes most of an SM's shared
+# memory, so the card runs 132, 66, 30 or 15 clusters of 1, 2, 4 or 8
+# blocks at once: at each of these shapes every grid of a block per SM
+# needs a second wave of clusters, and ran 1.4-1.8x slower than the plan
+# (chip_smoke.py's conv_pair plan sweep, NVIDIA H100 80GB HBM3, 700 W).
+ONE_WAVE_PLANS = {(8, 56, 56, 64): 128, (8, 56, 56, 256): 128,
+                  (8, 28, 28, 512): 128, (8, 14, 14, 1024): 96,
+                  (1, 56, 56, 64): 112, (1, 56, 56, 256): 112,
+                  (1, 28, 28, 512): 112, (1, 14, 14, 1024): 56}
+
+
 def test_conv_pair_plans_fit_resnet50(cuda):
     """Every ResNet-50 pair shape at batch 1 and 8 gets a plan that fits
-    the card's shared memory and gives at least one block per SM where the
-    channel counts allow."""
+    the card's shared memory and runs its clusters in one wave, with at
+    least one block per SM where the channel counts allow, or the blocks
+    recorded for it in ONE_WAVE_PLANS."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     for n in (1, 8):
         for hw, cin, cm in ((56, 64, 64), (56, 256, 64), (28, 512, 128),
@@ -138,8 +160,36 @@ def test_conv_pair_plans_fit_resnet50(cuda):
             p = conv_pair.plan(n, hw, hw, cin, cm, cm)
             assert 0 < p["smem"] <= 232448 and p["cs"] in (1, 2, 4, 8)
             tiles = n * -(-hw // p["th"]) * -(-hw // p["tw"])
-            assert tiles * p["cs"] >= sms or p["cs"] == 8 \
-                or cm % (32 * p["cs"]) != 0
+            assert tiles <= p["clusters_at_once"]
+            if (n, hw, hw, cin) in ONE_WAVE_PLANS:
+                assert tiles * p["cs"] == ONE_WAVE_PLANS[(n, hw, hw, cin)]
+            else:
+                assert tiles * p["cs"] >= sms or p["cs"] == 8 \
+                    or cm % (32 * p["cs"]) != 0
+
+
+@pytest.mark.parametrize("tile", [(14, 14, 1), (7, 14, 2), (5, 7, 4),
+                                  (3, 4, 8), (1, 14, 8)])
+def test_conv_pair_kernel_at_a_given_tile_matches_plain(cuda, tile):
+    """A launch geometry given by the caller (as the plan sweep gives it)
+    computes the same numbers as the planner's."""
+    args = _pair_args((2, 14, 14, 256, 128, 128), cuda)
+    assert [conv_pair.plan(2, 14, 14, 256, 128, 128, tile=tile)[k]
+            for k in ("th", "tw", "cs")] == list(tile)
+    out = conv_pair.conv1x1_conv3x3_bn_relu(*args, tile=tile)
+    ref = conv_pair.conv_pair_reference(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), **PAIR_TOL)
+
+
+@pytest.mark.parametrize("tile", [(15, 14, 1), (7, 15, 1), (7, 14, 3),
+                                  (7, 14, 16), (14, 14, 8)])
+def test_conv_pair_kernel_rejects_a_tile_it_cannot_run(cuda, tile):
+    """Larger than the map, a cluster size other than 1, 2, 4 or 8, or
+    fewer than 16 channels a cluster rank (Cm = 64 over 8)."""
+    args = _pair_args((1, 14, 14, 64, 64, 64), cuda)
+    with pytest.raises(RuntimeError):
+        conv_pair.conv1x1_conv3x3_bn_relu(*args, tile=tile)
 
 
 def test_conv_pair_kernel_rejects_what_it_does_not_take(cuda):
@@ -432,6 +482,39 @@ def test_flash_kernels_match_plain(cuda, shape):
         _assert_within(got, ref, FLASH_GRAD_TOL)
 
 
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("length", [1, 65, 197, 577])
+def test_flash_forward_matches_plain(cuda, d, length):
+    """The forward at every head-dim class and at L = 1, one past a tile,
+    ViT-B/16's 197 and 577: the output, lse, lse finite on the padded rows
+    up to Lpad, and the backward kernels fed from this forward's lse."""
+    q, k, v, do = _flash_inputs((2, 3, length, d), cuda, seed=2)
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v)
+    torch.cuda.synchronize()
+    _assert_within(out, o_ref, _out_tol(o_ref))
+    _assert_within(lse, lse_ref, FLASH_STAT_TOL)
+    lpad = -(-length // fa.TILE) * fa.TILE
+    padded = lse.as_strided((2, 3, lpad), lse.stride())
+    assert bool(torch.isfinite(padded).all())
+    dq, dl = fa.flash_attention_dq(q, k, v, out, do, lse)
+    dk, dv = fa.flash_attention_dkv(q, k, v, do, lse, dl)
+    dq_ref, dl_ref = fa.flash_dq_reference(q, k, v, out, do, lse_ref)
+    dk_ref, dv_ref = fa.flash_dkv_reference(q, k, v, do, lse_ref, dl_ref)
+    torch.cuda.synchronize()
+    _assert_within(dl, dl_ref, FLASH_STAT_TOL)
+    _assert_within(dv, dv_ref, FLASH_GRAD_TOL)
+    if length == 1:
+        # one key: P = 1 whatever the scores, so dS, dQ and dK are zero up
+        # to round-off (2^-16 of dV's scale)
+        for got in (dq, dk):
+            assert float(got.float().abs().max()) <= FLASH_STAT_TOL * float(
+                dv_ref.float().abs().max())
+    else:
+        for got, ref in ((dq, dq_ref), (dk, dk_ref)):
+            _assert_within(got, ref, FLASH_GRAD_TOL)
+
+
 @pytest.mark.parametrize("packed", [True, False])
 def test_flash_autograd_matches_plain_autograd(cuda, packed):
     """The autograd Function (forward kernel, then dQ and dK/dV) against
@@ -541,6 +624,25 @@ def test_shear_kernel_matches_plain(cuda, shape, axis):
     assert affine.shear_rows.launches == before + 1
     ref = affine.shear_reference(x, slope, offset, fill=0.5, axis=axis)
     torch.testing.assert_close(out, ref, **RA_TOL)
+
+
+def test_shear_kernel_at_integer_shifts_matches_plain(cuda):
+    """Slopes and offsets where slope * y + offset is an exact integer
+    under an FMA and one ulp under it as the kernel rounds (the CPU test's
+    inputs): kernel and plain version round alike, bit for bit."""
+    cases = [(0.09784692525863647, -0.07631617784500122),
+             (0.29273349046707153, -0.46366745233535767),
+             (0.25677502155303955, -2.621950387954712),
+             (-0.15562570095062256, 1.6456369161605835)]
+    x = _rand01((4, 20, 24, 3), cuda, seed=3)
+    slope = torch.tensor([c[0] for c in cases], device=cuda)
+    offset = torch.tensor([c[1] for c in cases], device=cuda)
+    for axis in (2, 1):
+        out = affine.shear_rows(x, slope, offset, fill=0.25, axis=axis)
+        ref = affine.shear_reference(x, slope, offset, fill=0.25,
+                                     axis=axis)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, ref, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("shape", RA_SHAPES)

@@ -561,3 +561,37 @@ def test_resnet50_recipe_trains_on_the_cpu_with_colour_jitter(tmp_path):
     score, restored = test_entry.main(common + ["--ckpt", out,
                                                 "--batch", "64"])
     assert 0.0 <= score <= 1.0 and restored.step == 2
+
+
+# recipe keys the JAX builders read (recipes/vision.py:51-63 and the
+# optimizer wrappers, recipes/common.py:77-80), at a value that is not the
+# default: the port refuses those it has not ported by name, and accepts
+# the three that change no number (how JAX runs its step, not what it
+# computes)
+RECIPE_KEYS = [("erase_prob", 0.25, True), ("sam_rho", 0.05, True),
+               ("optimizer.ema_decay", 0.9999, True),
+               ("optimizer.plateau", True, True),
+               ("optimizer.lookahead", 5, True),
+               ("optimizer.freeze", ["stem"], True),
+               ("remat", True, False), ("chain_steps", 2, False),
+               ("zero_sharding", True, False)]
+
+
+@pytest.mark.parametrize("key,value,refused", RECIPE_KEYS,
+                         ids=[k for k, _, _ in RECIPE_KEYS])
+def test_recipe_keys_are_refused_by_name_or_inert(key, value, refused):
+    cfg = recipes.load_config(CONFIG)
+    cfg["model_kwargs"] = {**cfg.get("model_kwargs", {}), "width": WIDTH}
+    *path, last = key.split(".")
+    target = cfg
+    for part in path:
+        target[part] = dict(target[part])
+        target = target[part]
+    target[last] = value
+    if refused:
+        with pytest.raises(ValueError, match=repr(last)):
+            recipes.build_classifier(cfg, True, device=torch.device("cpu"))
+    else:
+        trainer, _, _ = recipes.build_classifier(
+            cfg, True, device=torch.device("cpu"))
+        assert trainer.step == 0
