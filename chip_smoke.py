@@ -12,7 +12,9 @@
    CIFAR-100 ResNet-18 recipe (batch 128, 32x32).  Max error against the
    stated tolerance, and both device times from CUDA events with the
    stream held (plus cuDNN's unfused bf16 version of conv_pair and
-   conv_fused, and the conv_pair wrapper's host time a launch).  For
+   conv_fused, cuDNN's conv alone and the launch plan, blocks and split of
+   K, at each conv_fused site, and the conv_pair wrapper's host time a
+   launch).  For
    conv_pair also a sweep of launch geometries at the served sites, batch
    8 and 1: every tile TH x TW and cluster size CS the kernel takes from a
    small set, each held against the plain version and timed beside the
@@ -628,10 +630,14 @@ def check_cifar_kernels(dev, g):
         lambda: pad_crop_u8.pad_crop_reference(*args),
         5 * x.numel() + 9 * TRAIN_BATCH + 24, 2 * x.numel(), F32_FLOPS))
 
+    def cudnn_conv(x, w3):
+        """cuDNN's bf16 conv alone, for timing only."""
+        return F.conv2d(x.permute(0, 3, 1, 2), w3.permute(3, 2, 0, 1),
+                        padding=1)
+
     def cudnn_bf16(x, w3, s, b):
         """cuDNN's bf16 conv with an eager epilogue, for timing only."""
-        y = F.conv2d(x.permute(0, 3, 1, 2), w3.permute(3, 2, 0, 1),
-                     padding=1)
+        y = cudnn_conv(x, w3)
         return torch.relu(y * s[:, None, None] + b[:, None, None]
                           ).to(torch.bfloat16).permute(0, 2, 3, 1)
 
@@ -651,7 +657,10 @@ def check_cifar_kernels(dev, g):
             lambda: conv_fused.conv3x3_bn_relu_reference(*a),
             2 * n * h * w * (c + co) + 18 * c * co + 8 * co,
             2 * n * taps(h) * taps(w) * c * co, BF16_FLOPS,
+            cudnn_conv_ms=lambda: cudnn_conv(xb, w3),
             cudnn_bf16_ms=lambda: cudnn_bf16(*a)))
+        rows[-1]["plan"] = conv_fused.plan(n, h, w, c, co)
+        log(f"conv_fused {[n, h, w, c, co]} plan {rows[-1]['plan']}")
     return rows
 
 

@@ -183,13 +183,6 @@ __device__ __forceinline__ float affine_relu(float v, float s, float b) {
   return v < 0.f ? 0.f : v;
 }
 
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
-}
-
 // What a consumer thread knows of its block: where things are in shared
 // memory, its warpgroup and lane, the block's tile and channel slices.
 struct Block {
@@ -752,6 +745,8 @@ extern "C" int mcn_conv_pair(const void* x, const void* w1, const void* s1,
   Args a;
   if (!geometry(n, h, w, cin, cm, cout, th, tw, cs, &a.g))
     return (int)cudaErrorInvalidValue;
+  const hopper::DeviceOf dev(x);
+  if (dev.error() != cudaSuccess) return (int)dev.error();
   const Geometry& g = a.g;
   CUtensorMap mx, m1, m3;
   const uint64_t dx[4] = {(uint64_t)cin, (uint64_t)w, (uint64_t)h,

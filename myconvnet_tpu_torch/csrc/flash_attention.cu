@@ -24,23 +24,40 @@
 // The Pallas kernel keeps all of K and V of one (batch, head) in VMEM and
 // takes the whole [block_q, L] score tile in one shot.  A Hopper block has
 // at most 227 KB of shared memory and the blocks run in parallel, so here
-// each query tile loops over 64-row tiles of the other side with an online
-// softmax (running max and sum in float32 per row) in the forward.  Keys
-// past L in the last tile (197 = 3 * 64 + 5) are -inf before the max (P = 0
-// in the backward); query rows past L are zero-filled and never stored.
+// each 64-row tile loops over 64-row tiles of the other side, with an
+// online softmax (running max and sum in float32 per row) in the forward.
+// Keys past L in the last tile (197 = 3 * 64 + 5) are -inf before the max
+// (P = 0 in the backward); rows past L are zero-filled and never stored.
 //
-// The forward (design at flash_fwd_kernel) is built for Hopper: wgmma for
-// both products, q, k and v brought by TMA through tensor maps over the
-// strided views (rows past L zero-filled by the hardware), a producer warp
-// that keeps a ring of K/V stages full, and K and V of a head read once for
-// two query tiles.  The backward keeps its first design: one block per
-// 64-row tile, four warps of 16 rows, mma.sync m16n8k16 from fragments
-// loaded out of shared memory, cp.async into two buffers; the score
-// accumulators are re-packed in registers as the A operand of the next
-// product (dS K, P^T dO, dS^T Q), so no score leaves the SM.  It needs no
-// atomics: dQ is one pass over key tiles per query tile, dK/dV one pass
-// over query tiles per key tile, so both are deterministic; each recomputes
-// S and dP.
+// All three kernels share one shape, built for Hopper: every product is
+// wgmma (bf16 in, float32 accumulate); every operand tile comes by TMA
+// through tensor maps over the strided views (rows past L and columns past
+// D zero-filled by the hardware) into 128-byte swizzled panels of 64
+// columns; a producer keeps a ring of stages of the other side's tiles
+// full, and one or two consumer warpgroups, each owning a 64-row tile,
+// read every stage; results leave through a TMA store that drops rows past
+// L.  The score tiles never leave the registers: each is re-packed in
+// registers as the A operand of the next product, whose B operand (V, K,
+// dO or Q along its rows) is read MN-major through the descriptor's
+// transpose bit.
+//
+// * forward (flash_fwd_kernel): two query tiles a block, S = Q K^T, the
+//   online softmax on the accumulators, O += P V;
+// * dQ (flash_dq_kernel): two query tiles an item; each warpgroup's Q, dO
+//   and O tiles come first, D = rowsum(dO * O) is summed from the dO and
+//   O tiles in shared memory and written out; then per 128-key tile (64
+//   at D > 64) S = Q K^T and dP = dO V^T as m64n128 products, dS = P *
+//   (dP - D) in registers, dQ += dS K;
+// * dK/dV (flash_dkv_kernel): two key tiles an item; per 64-query tile
+//   S^T = K Q^T and dP^T = V dO^T with both operands K-major, P^T and dS^T
+//   in registers with the query's lse and D read per column from 256-byte
+//   rows that a bulk copy brings beside the Q and dO tiles, then dV +=
+//   P^T dO and dK += dS^T Q.
+// The backward kernels are persistent, with a producer warpgroup whose
+// registers setmaxnreg hands to the consumers (design at bwd_warpgroups).
+// Neither uses atomics: dQ is one pass over key tiles per query tile and
+// dK/dV one pass over query tiles per key tile, each sum in a fixed order,
+// so two runs are bit-equal; each recomputes S and dP.
 //
 // What bounds it on the H100: at ViT-B/16's [B, 12, 197, 64] bf16, the
 // forward moves 8 B*H*L*D bytes (q, k, v, o) and does 4 B*H*L^2*D
@@ -53,16 +70,26 @@
 // warpgroup's softmax with another's products, and the block scheduler
 // starts a new block as soon as one ends.  (A persistent grid that fetched
 // the next item's tiles during this one, and issuing the next key tile's
-// S behind P V, both ran slower on the H100; see PERF.md.)  The backward
-// reads q, k, v, o, dO and writes dq, dk, dv (620 MB, 185 us) for
-// 14 B*H*L^2*D operations (107 GFLOP, 108 us): bound by memory too; what it
-// leaves on the table is the same Hopper path and one fused backward.
+// S behind P V, both ran slower on the H100; see PERF.md.)  Each backward
+// kernel reads 6 and writes 1-2 tensors of B*H*L*D bf16 (dQ: q, k, v, o,
+// dO, dq; dK/dV: q, k, v, dO, dk, dv) plus the float32 rows, 470 MB or
+// 140 us at B = 256, against 6 (dQ) and 8 (dK/dV) B*H*L^2*D operations,
+// 46 and 61 us: bound by memory too.  Here too the serial chain of a tile
+// (two products, the exponentials, a third and fourth product) sets the
+// pace, with two consumer warpgroups an SM (their accumulators take the
+// registers).  Tried on the H100 and dropped, each slower: issuing the
+// next tile's scores before this tile's exponentials (two sets of score
+// registers; ptxas serialized the wgmmas), 128-query tiles in dK/dV, and
+// K and V as register A operands of dK/dV's score products.  What is left
+// is one fused backward that computes S and dP once (dQ summed across key
+// tiles by a TMA reduce-add) and FA3's ping-pong of two warpgroups.
 
 #include <cuda_bf16.h>
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <mutex>
 
 #include "hopper.cuh"
 
@@ -70,8 +97,7 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kThreads = 128;  // 4 warps x 16 rows
-constexpr int kTile = 64;      // rows of a tile (queries or keys)
+constexpr int kTile = 64;  // rows of a tile (queries or keys)
 constexpr float kLog2e = 1.4426950408889634f;
 
 // strides (elements) of one [B, H, L, D] operand
@@ -89,103 +115,6 @@ struct Args {
   int heads, len, lpad;
   float scale;
 };
-
-__device__ __forceinline__ long long base_offset(const View& v, int b,
-                                                 int h) {
-  return (long long)b * v.sb + (long long)h * v.sh;
-}
-
-// cp.async a [64, D] tile (rows r0.. of a strided operand) into shared
-// memory with row stride D + 8; rows at or past len are zero-filled
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* base,
-                                          long long sl, int r0, int len) {
-  constexpr int kVec = D / 8;
-  constexpr int kLd = D + 8;
-  for (int i = threadIdx.x; i < kTile * kVec; i += kThreads) {
-    const int r = i / kVec, c = (i % kVec) * 8;
-    const bf16* src = base;  // any valid address for a zero fill
-    int fill = 16;
-    if (r0 + r < len) {
-      src = base + (long long)(r0 + r) * sl + c;
-      fill = 0;
-    }
-    __pipeline_memcpy_async(dst + r * kLd + c, src, 16, fill);
-  }
-}
-
-// cp.async 64 floats (a tile's lse or D) into shared memory
-__device__ __forceinline__ void load_rows_f32(float* dst, const float* src,
-                                              int lane0) {
-  const int i = threadIdx.x - lane0;
-  if (i >= 0 && i < kTile / 4) __pipeline_memcpy_async(dst + 4 * i,
-                                                       src + 4 * i, 16);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// c += a * b for one m16n8k16 tile, bf16 in, float32 accumulate
-__device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A fragment (16 rows x 16 columns from column c0) of a row-major tile
-// whose first row is s; g = lane / 4, t = lane % 4
-template <int LD>
-__device__ __forceinline__ void load_a(uint32_t* a, const bf16* s, int c0,
-                                       int g, int t) {
-  a[0] = ld32(s + g * LD + c0 + 2 * t);
-  a[1] = ld32(s + (g + 8) * LD + c0 + 2 * t);
-  a[2] = ld32(s + g * LD + c0 + 8 + 2 * t);
-  a[3] = ld32(s + (g + 8) * LD + c0 + 8 + 2 * t);
-}
-
-// B fragment with B[k][n] = M[n0 + n][c0 + k] (M row-major: K in Q K^T)
-template <int LD>
-__device__ __forceinline__ void load_b_nk(uint32_t& b0, uint32_t& b1,
-                                          const bf16* m, int n0, int c0,
-                                          int g, int t) {
-  const bf16* row = m + (n0 + g) * LD + c0 + 2 * t;
-  b0 = ld32(row);
-  b1 = ld32(row + 8);
-}
-
-// B fragment with B[k][n] = M[k0 + k][n0 + n] (M row-major: V in P V)
-template <int LD>
-__device__ __forceinline__ void load_b_kn(uint32_t& b0, uint32_t& b1,
-                                          const bf16* m, int k0, int n0,
-                                          int g, int t) {
-  const bf16* col = m + (k0 + 2 * t) * LD + n0 + g;
-  b0 = pack_bf16(col[0], col[LD]);
-  b1 = pack_bf16(col[8 * LD], col[9 * LD]);
-}
-
-// the A fragment of keys (or queries) 16 kk .. 16 kk + 15 from a 16 x 64
-// accumulator tile acc[8][4], rounded to bf16
-__device__ __forceinline__ void acc_to_a(uint32_t* a, const float (*acc)[4],
-                                         int kk) {
-  a[0] = pack_f32(acc[2 * kk][0], acc[2 * kk][1]);
-  a[1] = pack_f32(acc[2 * kk][2], acc[2 * kk][3]);
-  a[2] = pack_f32(acc[2 * kk + 1][0], acc[2 * kk + 1][1]);
-  a[3] = pack_f32(acc[2 * kk + 1][2], acc[2 * kk + 1][3]);
-}
 
 // ---------------------------------------------------------------- forward
 //
@@ -476,319 +405,606 @@ int launch_fwd(const Args& a, int batch, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// --------------------------------------------------------------- backward
+//
+// Both backward kernels: a producer warp and W consumer warpgroups, each
+// owning a 64-row tile of one side (queries in dQ, keys in dK/dV), whose
+// tiles the producer brings first; then the producer streams every 64-row
+// tile of the other side through a ring of ST stages, which every active
+// warpgroup reads and releases on the stage's "empty" barrier.
+
+constexpr int kBwdThreadsPerWg = 128;
+
+struct BwdParams {
+  CUtensorMap map[kViews];
+  int pos[kViews][3];
+  float* lse;
+  float* dl;
+  int heads, len, lpad, groups;
+  int items;  // B * H * groups
+  float scale;
+};
+
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// the [R x 64 NP] tile of operand `view` at row `row` of head (b, h): NP
+// panels of R rows, each brought as R / 64 boxes of 64 rows
+template <int NP, int R = kTile>
+__device__ __forceinline__ void load_tile(unsigned char* dst,
+                                          const BwdParams& p, int view,
+                                          uint64_t* bar, int row, int h,
+                                          int b) {
+  int c[4];
+#pragma unroll
+  for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+    for (int r = 0; r < R; r += kTile) {
+      map_coords(c, p.pos[view], pn * 64, row + r, h, b);
+      hopper::tma_load_4d(dst + pn * R * 128 + r * 128, &p.map[view], bar,
+                          c[0], c[1], c[2], c[3]);
+    }
+}
+
+template <int NP>
+__device__ __forceinline__ void store_tile(const BwdParams& p, int view,
+                                           unsigned char* src, int row,
+                                           int h, int b) {
+  int c[4];
+#pragma unroll
+  for (int pn = 0; pn < NP; ++pn) {
+    map_coords(c, p.pos[view], pn * 64, row, h, b);
+    hopper::tma_store_4d(&p.map[view], src + pn * kPanel, c[0], c[1], c[2],
+                         c[3]);
+  }
+}
+
+// acc * mul rounded to bf16 into a swizzled [64 x 64 NP] tile (the m64n64
+// accumulator layout of hopper.cuh, one accumulator a panel)
+template <int NP>
+__device__ __forceinline__ void stage_acc(unsigned char* tile,
+                                          const float (&acc)[NP][32],
+                                          float mul, int warp, int g, int t) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * 16 + g + 8 * i;
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        *reinterpret_cast<uint32_t*>(tile + pn * kPanel + r * 128 +
+                                     ((n ^ (r & 7)) * 16) + t * 4) =
+            hopper::pack_bf16x2(acc[pn][4 * n + 2 * i] * mul,
+                                acc[pn][4 * n + 2 * i + 1] * mul);
+  }
+}
+
+// acc = A B^T over the head dim: A a [64 x D] and B an [N x D] K-major
+// tile (panels of 64 columns, 64 and N rows); the first k16 step
+// overwrites acc
+template <int D, int N>
+__device__ __forceinline__ void scores(float (&acc)[N / 2], uint32_t a_addr,
+                                       uint32_t b_addr) {
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    const uint32_t col = (ks % 4) * 32;
+    hopper::wgmma_ss(acc, hopper::desc_sw128(a_addr + (ks / 4) * kPanel + col),
+                     hopper::desc_sw128(b_addr + (ks / 4) * N * 128 + col),
+                     ks > 0);
+  }
+}
+
+// the A operand (64 rows x 16 KK columns as KK k16 slices) from an m64
+// accumulator of 16 KK columns, rounded to bf16
+template <int KK>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[KK][4],
+                                         const float (&acc)[KK * 8]) {
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = hopper::pack_bf16x2(acc[8 * kk + 2 * r],
+                                     acc[8 * kk + 2 * r + 1]);
+}
+
+// acc[pn] += A B with A from registers (64 rows x 16 KK of K) and B a
+// [16 KK x D] tile read MN-major (its rows are K; panels of 16 KK rows)
+template <int NP, int KK>
+__device__ __forceinline__ void acc_rows(float (&acc)[NP][32],
+                                         const uint32_t (&a)[KK][4],
+                                         uint32_t b_addr) {
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk)
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn)
+      hopper::wgmma_rs_tb(acc[pn], a[kk],
+                          hopper::desc_sw128(b_addr + pn * KK * 2048 +
+                                             kk * 16 * 128));
+}
+
+// Both backward kernels are persistent: a grid of as many blocks as the
+// card holds at once walks the items (one head's group of W 64-row tiles)
+// blockIdx.x, + gridDim.x, ...; each
+// warpgroup's own tiles are double buffered ("own" barriers per buffer and
+// warpgroup), so the producer brings the next item's own tiles and first
+// ring stages while the consumers work on this one (with one block an
+// SM, which is all the registers allow, a grid of a block per item left
+// each block's TMA prologue and store epilogue bare).  A tile's last
+// products (dQ, or dV and dK) run on the tensor cores behind the next
+// tile's score products; a ring stage is released once both have read it.
+// Every warpgroup takes part in every item, also where the item has fewer
+// tiles than warpgroups (odd tile counts): its tile lies past L, so it is
+// zero-filled, computed and not stored, and every barrier's count stays
+// the same from item to item.  W is 2 at D <= 64 and 1 above, where a
+// warpgroup's accumulators (dK and dV: 128 registers a thread at D = 128)
+// leave registers for one; the registers allow one block an SM.
 template <int D>
-constexpr int dq_smem() {
-  return 6 * kTile * (D + 8) * 2 + 2 * kTile * 4;  // Q, dO, 2 K, 2 V
+__host__ __device__ constexpr int bwd_warpgroups() {
+  return D <= 64 ? 2 : 1;
+}
+
+// the producer is a whole warpgroup, so that setmaxnreg can move its
+// registers to the consumers: with two consumer warpgroups the 12 warps
+// would get 168 registers each, too few for a consumer to keep its last
+// products in flight while it issues the next tile's (ptxas serialized
+// the wgmmas of dK/dV at 168); the producer keeps 40, the consumers get
+// 232.  With one consumer warpgroup every warp gets 255 as it is.
+template <int D>
+__host__ __device__ constexpr int bwd_threads() {
+  return (bwd_warpgroups<D>() + 1) * kBwdThreadsPerWg;
+}
+
+template <int W>
+__device__ __forceinline__ void producer_registers() {
+  if constexpr (W == 2) hopper::setmaxnreg_dec<40>();
+}
+
+template <int W>
+__device__ __forceinline__ void consumer_registers() {
+  if constexpr (W == 2) hopper::setmaxnreg_inc<232>();
+}
+
+// the dQ kernel's own tiles are Q, dO and O; its ring K and V tiles of
+// dq_keys rows: 128 at D <= 64 (one m64n128 product a k16 step, half the
+// barrier and wait round trips of 64-row tiles; S, dP, dS as A and dQ
+// take 192 of the 232 registers), 64 above, where S and dP of 128 keys
+// would not fit beside dQ's 64
+template <int D>
+__host__ __device__ constexpr int dq_keys() {
+  return D <= 64 ? 128 : 64;
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_dq_kernel(const Args p) {
-  constexpr int LD = D + 8;
-  constexpr int KS = D / 16;
-  constexpr int NT = D / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sq = reinterpret_cast<bf16*>(smem);
-  bf16* sdo = sq + kTile * LD;
-  bf16* sk = sdo + kTile * LD;
-  bf16* sv = sk + 2 * kTile * LD;
-  float* slse = reinterpret_cast<float*>(sv + 2 * kTile * LD);
-  float* sdl = slse + kTile;
+__host__ __device__ constexpr int dq_stages() {
+  return D <= 64 ? 3 : 2;
+}
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
-  const int q0 = blockIdx.x * kTile;
-  const int len = p.len;
-  const View &vq = p.view[kQ], &vk = p.view[kK], &vv = p.view[kV],
-             &vo = p.view[kO], &vdo = p.view[kDO];
-  const bf16* qb = p.q + base_offset(vq, b, h);
-  const bf16* kb = p.k + base_offset(vk, b, h);
-  const bf16* vb = p.v + base_offset(vv, b, h);
-  const bf16* dob = p.dout + base_offset(vdo, b, h);
-  const int ntiles = (len + kTile - 1) / kTile;
-  const float sl2 = p.scale * kLog2e;
-  const long long row0 = (long long)bh * p.lpad + q0;
+template <int D>
+__host__ __device__ constexpr int dq_smem() {
+  constexpr int tile = (D + 63) / 64 * kPanel;
+  constexpr int W = bwd_warpgroups<D>(), ST = dq_stages<D>();
+  return 1024 + 2 * 3 * W * tile + 2 * ST * tile * dq_keys<D>() / kTile +
+         8 * (4 * W + 2 * ST);
+}
 
-  load_tile<D>(sq, qb, vq.sl, q0, len);
-  load_tile<D>(sdo, dob, vdo.sl, q0, len);
-  load_tile<D>(sk, kb, vk.sl, 0, len);
-  load_tile<D>(sv, vb, vv.sl, 0, len);
-  load_rows_f32(slse, p.lse + row0, 0);
-  __pipeline_commit();
+template <int D>
+__global__ void __launch_bounds__(bwd_threads<D>(), 1)
+    flash_dq_kernel(const __grid_constant__ BwdParams p) {
+  using namespace hopper;
+  constexpr int NP = (D + 63) / 64;
+  constexpr int W = bwd_warpgroups<D>();
+  constexpr int ST = dq_stages<D>();
+  constexpr int KR = dq_keys<D>();
+  constexpr int T = NP * kPanel;         // a 64-row tile
+  constexpr int TK = NP * KR * 128;      // a KR-row tile of K or V
+  extern __shared__ unsigned char smem_raw[];
+  // buffer u of warpgroup w: Q at own + (u W + w) 3T, then dO, then O
+  unsigned char* own = align_1024(smem_raw);
+  unsigned char* sk = own + 2 * 3 * W * T;
+  unsigned char* sv = sk + ST * TK;
+  uint64_t* ofull = reinterpret_cast<uint64_t*>(sv + ST * TK);
+  uint64_t* oempty = ofull + 2 * W;
+  uint64_t* full = oempty + 2 * W;
+  uint64_t* empty = full + ST;
 
-  // D = rowsum(dO * O) in float32: two threads a row, D / 2 columns each
-  {
-    const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
-    const int row = q0 + r;
-    float acc = 0.f;
-    if (row < len) {
-      const bf16* orow = p.o + base_offset(vo, b, h) +
-                         (long long)row * vo.sl + half * (D / 2);
-      const bf16* drow = dob + (long long)row * vdo.sl + half * (D / 2);
-#pragma unroll
-      for (int c = 0; c < D / 2; c += 8) {
-        const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
-        const uint4 dv = *reinterpret_cast<const uint4*>(drow + c);
-        const __nv_bfloat162* o2 =
-            reinterpret_cast<const __nv_bfloat162*>(&ov);
-        const __nv_bfloat162* d2 =
-            reinterpret_cast<const __nv_bfloat162*>(&dv);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 of = __bfloat1622float2(o2[e]);
-          const float2 df = __bfloat1622float2(d2[e]);
-          acc += of.x * df.x + of.y * df.y;
+  const int wg = threadIdx.x / kBwdThreadsPerWg;
+  const int ntiles = (p.len + kTile - 1) / kTile;  // query tiles
+  const int nkeys = (p.len + KR - 1) / KR;          // key tiles
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2 * W; ++i) {
+      mbar_init(&ofull[i], 1);
+      mbar_init(&oempty[i], 1);
+    }
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], W);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == W) {  // the producer warpgroup; one thread issues
+    producer_registers<W>();
+    if (threadIdx.x % kBwdThreadsPerWg == 0) {
+      int jj = 0;  // ring steps so far
+      int n = 0;   // this block's items so far
+      for (int it = blockIdx.x; it < p.items; it += gridDim.x, ++n) {
+        const int bh = it / p.groups, qt0 = it % p.groups * W;
+        const int b = bh / p.heads, h = bh % p.heads;
+        const int u = n & 1;
+        for (int w = 0; w < W; ++w) {
+          uint64_t* bar = &ofull[u * W + w];
+          if (n >= 2) mbar_wait(&oempty[u * W + w], ((n >> 1) - 1) & 1);
+          mbar_expect_tx(bar, 3 * T);
+          unsigned char* t = own + (u * W + w) * 3 * T;
+          const int row = (qt0 + w) * kTile;
+          load_tile<NP>(t, p, kQ, bar, row, h, b);
+          load_tile<NP>(t + T, p, kDO, bar, row, h, b);
+          load_tile<NP>(t + 2 * T, p, kO, bar, row, h, b);
+        }
+        for (int j = 0; j < nkeys; ++j, ++jj) {
+          const int s = jj % ST;
+          if (jj >= ST) mbar_wait(&empty[s], (jj / ST - 1) & 1);
+          mbar_expect_tx(&full[s], 2 * TK);
+          load_tile<NP, KR>(sk + s * TK, p, kK, &full[s], j * KR, h, b);
+          load_tile<NP, KR>(sv + s * TK, p, kV, &full[s], j * KR, h, b);
         }
       }
     }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    if (half == 0) {
-      sdl[r] = acc;
-      p.dl[row0 + r] = acc;
-    }
-  }
+  } else {  // a consumer warpgroup
+    consumer_registers<W>();
+    const int tid = threadIdx.x % kBwdThreadsPerWg, warp = tid / 32;
+    const int g = (tid % 32) >> 2, t = tid & 3;
+    const float sl2 = p.scale * kLog2e;
+    int jj = 0, n = 0;
+    for (int it = blockIdx.x; it < p.items; it += gridDim.x, ++n) {
+      const int bh = it / p.groups, qt0 = it % p.groups * W;
+      const int b = bh / p.heads, h = bh % p.heads;
+      const int u = n & 1;
+      unsigned char* myq = own + (u * W + wg) * 3 * T;
+      const unsigned char* mydo = myq + T;
+      const unsigned char* myo = myq + 2 * T;
+      const uint32_t q_addr = smem_addr(myq), do_addr = smem_addr(mydo);
+      const int row0 = (qt0 + wg) * kTile;
+      const bool real = qt0 + wg < ntiles;  // else past Lpad: no lse, no D
+      const long long rows = (long long)bh * p.lpad + row0;
+      float lse2[2], dli[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        lse2[i] = real ? p.lse[rows + warp * 16 + g + 8 * i] * kLog2e : 0.f;
 
-  float dq[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
-  uint32_t qa[KS][4], da[KS][4];
-  float lse2[2], dli[2];
-
-  for (int j = 0; j < ntiles; ++j) {
-    if (j + 1 < ntiles) {
-      const int nb = (j + 1) & 1;
-      load_tile<D>(sk + nb * kTile * LD, kb, vk.sl, (j + 1) * kTile, len);
-      load_tile<D>(sv + nb * kTile * LD, vb, vv.sl, (j + 1) * kTile, len);
-      __pipeline_commit();
-      __pipeline_wait_prior(1);
-    } else {
-      __pipeline_wait_prior(0);
-    }
-    __syncthreads();
-    if (j == 0) {
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        load_a<LD>(qa[ks], sq + warp * 16 * LD, ks * 16, g, t);
-        load_a<LD>(da[ks], sdo + warp * 16 * LD, ks * 16, g, t);
-      }
+      mbar_wait(&ofull[u * W + wg], (n >> 1) & 1);
+      // D = rowsum(dO * O) in float32 for rows g and g + 8 of the warp: each
+      // thread of a quad sums 16-byte chunks 2t and 2t + 1 of every panel,
+      // then the quad adds its four sums; written for every row up to Lpad
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        lse2[i] = slse[warp * 16 + g + 8 * i] * kLog2e;
-        dli[i] = sdl[warp * 16 + g + 8 * i];
+        const int r = warp * 16 + g + 8 * i;
+        float acc = 0.f;
+#pragma unroll
+        for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+          for (int cc = 0; cc < 2; ++cc) {
+            const int off =
+                pn * kPanel + r * 128 + (((2 * t + cc) ^ (r & 7)) * 16);
+            const uint4 ov = *reinterpret_cast<const uint4*>(myo + off);
+            const uint4 dv = *reinterpret_cast<const uint4*>(mydo + off);
+            const __nv_bfloat162* o2 =
+                reinterpret_cast<const __nv_bfloat162*>(&ov);
+            const __nv_bfloat162* d2 =
+                reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float2 of = __bfloat1622float2(o2[e]);
+              const float2 df = __bfloat1622float2(d2[e]);
+              acc += of.x * df.x + of.y * df.y;
+            }
+          }
+        acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+        acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+        dli[i] = acc;
+        if (t == 0 && real) p.dl[rows + r] = acc;
       }
-    }
-    const bf16* kt = sk + (j & 1) * kTile * LD;
-    const bf16* vt = sv + (j & 1) * kTile * LD;
 
-    float s[8][4], dp[8][4];
+      float dq[NP][32];
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+      for (int pn = 0; pn < NP; ++pn)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        uint32_t b0, b1;
-        load_b_nk<LD>(b0, b1, kt, n * 8, ks * 16, g, t);
-        mma(s[n], qa[ks], b0, b1);
-        load_b_nk<LD>(b0, b1, vt, n * 8, ks * 16, g, t);
-        mma(dp[n], da[ks], b0, b1);
-      }
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j * kTile + n * 8 + 2 * t + (e & 1);
-        const float pv =
-            col < len ? exp2f(s[n][e] * sl2 - lse2[e >> 1]) : 0.f;
-        s[n][e] = pv * (dp[n][e] - dli[e >> 1]);  // dS
-      }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t a[4];
-      acc_to_a(a, s, kk);
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        uint32_t b0, b1;
-        load_b_kn<LD>(b0, b1, kt, kk * 16, n * 8, g, t);
-        mma(dq[n], a, b0, b1);
-      }
-    }
-    __syncthreads();
-  }
+        for (int e = 0; e < 32; ++e) dq[pn][e] = 0.f;
 
-  const View& vdq = p.view[kDQ];
-  bf16* dqb = p.dq + base_offset(vdq, b, h);
+      // Per key tile S and dP are two wgmma groups, so that P = exp(S -
+      // lse) is formed while dP is still on the tensor cores; the previous
+      // tile's dQ += dS K runs behind both, and its stage is released once
+      // that product is done.
+      int pending = -1;
+      for (int j = 0; j < nkeys; ++j, ++jj) {
+        const int s = jj % ST;
+        mbar_wait(&full[s], (jj / ST) & 1);
+        const uint32_t k_addr = smem_addr(sk + s * TK);
+        float sc[KR / 2], dp[KR / 2];
+        wgmma_fence();
+        scores<D, KR>(sc, q_addr, k_addr);
+        wgmma_commit();
+        scores<D, KR>(dp, do_addr, smem_addr(sv + s * TK));
+        wgmma_commit();
+        wgmma_wait<1>();
+        if (pending >= 0 && tid == 0) mbar_arrive(&empty[pending]);
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + warp * 16 + g + 8 * i;
-    if (row < len) {
+        for (int nn = 0; nn < KR / 8; ++nn)
 #pragma unroll
-      for (int n = 0; n < NT; ++n)
-        *reinterpret_cast<uint32_t*>(dqb + (long long)row * vdq.sl + n * 8 +
-                                     2 * t) =
-            pack_f32(dq[n][2 * i] * p.scale, dq[n][2 * i + 1] * p.scale);
+          for (int e = 0; e < 4; ++e) {
+            const int col = j * KR + nn * 8 + 2 * t + (e & 1);
+            sc[4 * nn + e] =
+                col < p.len ? exp2f(sc[4 * nn + e] * sl2 - lse2[e >> 1])
+                            : 0.f;  // P
+          }
+        wgmma_wait<0>();
+#pragma unroll
+        for (int e = 0; e < KR / 2; ++e)
+          sc[e] *= dp[e] - dli[(e >> 1) & 1];  // dS
+        uint32_t a[KR / 16][4];
+        acc_to_a(a, sc);
+        wgmma_fence();
+        acc_rows<NP>(dq, a, k_addr);
+        wgmma_commit();
+        pending = s;
+      }
+      wgmma_wait<0>();
+      if (tid == 0) mbar_arrive(&empty[pending]);
+
+      // dQ through the warpgroup's Q tile, which no product reads any more;
+      // the buffer goes back to the producer once the store has read it
+      stage_acc<NP>(myq, dq, p.scale, warp, g, t);
+      fence_proxy_async();
+      named_barrier(1 + wg, kBwdThreadsPerWg);
+      if (tid == 0) {
+        store_tile<NP>(p, kDQ, myq, row0, h, b);
+        tma_store_commit_and_wait();
+        mbar_arrive(&oempty[u * W + wg]);
+      }
     }
   }
 }
 
+// the dK/dV kernel's own tiles are K and V; its ring Q, dO and the
+// queries' lse and D rows (256 bytes each, by a bulk copy).  Query tiles
+// stay 64 rows: at 128 (as dQ's keys) S^T, dP^T, P^T and dS^T as A, dK and
+// dV took more registers than a consumer has, ptxas serialized the wgmmas
+// and the kernel ran 16% slower on the H100 (0.399 against 0.343 ms at
+// [256, 12, 197, 64]).
 template <int D>
-constexpr int dkv_smem() {
-  // K, V, two Q and two dO tiles; two lse and two D rows
-  return 6 * kTile * (D + 8) * 2 + 4 * kTile * 4;
+__host__ __device__ constexpr int dkv_stages() {
+  return D <= 64 ? 4 : 3;
+}
+
+constexpr int kRowBytes = 2 * kTile * 4;  // a stage's lse and D rows
+
+template <int D>
+__host__ __device__ constexpr int dkv_smem() {
+  constexpr int tile = (D + 63) / 64 * kPanel;
+  constexpr int W = bwd_warpgroups<D>(), ST = dkv_stages<D>();
+  return 1024 + (2 * 2 * W + 2 * ST) * tile + ST * kRowBytes +
+         8 * (4 * W + 2 * ST);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_dkv_kernel(const Args p) {
-  constexpr int LD = D + 8;
-  constexpr int KS = D / 16;
-  constexpr int NT = D / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sk = reinterpret_cast<bf16*>(smem);
-  bf16* sv = sk + kTile * LD;
-  bf16* sq = sv + kTile * LD;
-  bf16* sdo = sq + 2 * kTile * LD;
-  float* slse = reinterpret_cast<float*>(sdo + 2 * kTile * LD);
-  float* sdl = slse + 2 * kTile;
+__global__ void __launch_bounds__(bwd_threads<D>(), 1)
+    flash_dkv_kernel(const __grid_constant__ BwdParams p) {
+  using namespace hopper;
+  constexpr int NP = (D + 63) / 64;
+  constexpr int W = bwd_warpgroups<D>();
+  constexpr int ST = dkv_stages<D>();
+  constexpr int T = NP * kPanel;
+  extern __shared__ unsigned char smem_raw[];
+  // buffer u of warpgroup w: K at own + (u W + w) 2T, V behind it
+  unsigned char* own = align_1024(smem_raw);
+  unsigned char* sq = own + 2 * 2 * W * T;
+  unsigned char* sdo = sq + ST * T;
+  float* srows = reinterpret_cast<float*>(sdo + ST * T);  // lse | D
+  uint64_t* ofull = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<unsigned char*>(srows) + ST * kRowBytes);
+  uint64_t* oempty = ofull + 2 * W;
+  uint64_t* full = oempty + 2 * W;
+  uint64_t* empty = full + ST;
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
-  const int k0 = blockIdx.x * kTile;
-  const int len = p.len;
-  const View &vq = p.view[kQ], &vk = p.view[kK], &vv = p.view[kV],
-             &vdo = p.view[kDO];
-  const bf16* qb = p.q + base_offset(vq, b, h);
-  const bf16* dob = p.dout + base_offset(vdo, b, h);
-  const int ntiles = (len + kTile - 1) / kTile;
-  const float sl2 = p.scale * kLog2e;
-  const float* lse = p.lse + (long long)bh * p.lpad;
-  const float* dl = p.dl + (long long)bh * p.lpad;
+  const int wg = threadIdx.x / kBwdThreadsPerWg;
+  const int ntiles = (p.len + kTile - 1) / kTile;
 
-  load_tile<D>(sk, p.k + base_offset(vk, b, h), vk.sl, k0, len);
-  load_tile<D>(sv, p.v + base_offset(vv, b, h), vv.sl, k0, len);
-  load_tile<D>(sq, qb, vq.sl, 0, len);
-  load_tile<D>(sdo, dob, vdo.sl, 0, len);
-  load_rows_f32(slse, lse, 0);
-  load_rows_f32(sdl, dl, 32);
-  __pipeline_commit();
-
-  float dk[NT][4], dv[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-  uint32_t ka[KS][4], va[KS][4];
-
-  for (int j = 0; j < ntiles; ++j) {
-    if (j + 1 < ntiles) {
-      const int nb = (j + 1) & 1, r0 = (j + 1) * kTile;
-      load_tile<D>(sq + nb * kTile * LD, qb, vq.sl, r0, len);
-      load_tile<D>(sdo + nb * kTile * LD, dob, vdo.sl, r0, len);
-      load_rows_f32(slse + nb * kTile, lse + r0, 0);
-      load_rows_f32(sdl + nb * kTile, dl + r0, 32);
-      __pipeline_commit();
-      __pipeline_wait_prior(1);
-    } else {
-      __pipeline_wait_prior(0);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2 * W; ++i) {
+      mbar_init(&ofull[i], 1);
+      mbar_init(&oempty[i], 1);
     }
-    __syncthreads();
-    if (j == 0) {
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        load_a<LD>(ka[ks], sk + warp * 16 * LD, ks * 16, g, t);
-        load_a<LD>(va[ks], sv + warp * 16 * LD, ks * 16, g, t);
-      }
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], W);
     }
-    const int buf = j & 1;
-    const bf16* qt = sq + buf * kTile * LD;
-    const bf16* dot = sdo + buf * kTile * LD;
-    const float* lt = slse + buf * kTile;
-    const float* dt = sdl + buf * kTile;
-
-    // S^T and dP^T: 16 keys of this warp x 64 queries
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        uint32_t b0, b1;
-        load_b_nk<LD>(b0, b1, qt, n * 8, ks * 16, g, t);
-        mma(s[n], ka[ks], b0, b1);
-        load_b_nk<LD>(b0, b1, dot, n * 8, ks * 16, g, t);
-        mma(dp[n], va[ks], b0, b1);
-      }
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = n * 8 + 2 * t + (e & 1);
-        const float pv = j * kTile + c < len
-                             ? exp2f(s[n][e] * sl2 - lt[c] * kLog2e)
-                             : 0.f;
-        s[n][e] = pv;                      // P^T
-        dp[n][e] = pv * (dp[n][e] - dt[c]);  // dS^T
-      }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t a[4], ds[4];
-      acc_to_a(a, s, kk);
-      acc_to_a(ds, dp, kk);
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        uint32_t b0, b1;
-        load_b_kn<LD>(b0, b1, dot, kk * 16, n * 8, g, t);
-        mma(dv[n], a, b0, b1);
-        load_b_kn<LD>(b0, b1, qt, kk * 16, n * 8, g, t);
-        mma(dk[n], ds, b0, b1);
-      }
-    }
-    __syncthreads();
+    fence_barrier_init();
   }
+  __syncthreads();
 
-  const View &vdk = p.view[kDK], &vdv = p.view[kDV];
-  bf16* dkb = p.dk + base_offset(vdk, b, h);
-  bf16* dvb = p.dv + base_offset(vdv, b, h);
+  if (wg == W) {  // the producer warpgroup; one thread issues
+    producer_registers<W>();
+    if (threadIdx.x % kBwdThreadsPerWg == 0) {
+      int jj = 0;  // ring steps so far
+      int n = 0;   // this block's items so far
+      for (int it = blockIdx.x; it < p.items; it += gridDim.x, ++n) {
+        const int bh = it / p.groups, kt0 = it % p.groups * W;
+        const int b = bh / p.heads, h = bh % p.heads;
+        const long long rows = (long long)bh * p.lpad;
+        const int u = n & 1;
+        for (int w = 0; w < W; ++w) {
+          uint64_t* bar = &ofull[u * W + w];
+          if (n >= 2) mbar_wait(&oempty[u * W + w], ((n >> 1) - 1) & 1);
+          mbar_expect_tx(bar, 2 * T);
+          unsigned char* kv = own + (u * W + w) * 2 * T;
+          load_tile<NP>(kv, p, kK, bar, (kt0 + w) * kTile, h, b);
+          load_tile<NP>(kv + T, p, kV, bar, (kt0 + w) * kTile, h, b);
+        }
+        for (int j = 0; j < ntiles; ++j, ++jj) {
+          const int s = jj % ST;
+          if (jj >= ST) mbar_wait(&empty[s], (jj / ST - 1) & 1);
+          mbar_expect_tx(&full[s], 2 * T + kRowBytes);
+          load_tile<NP>(sq + s * T, p, kQ, &full[s], j * kTile, h, b);
+          load_tile<NP>(sdo + s * T, p, kDO, &full[s], j * kTile, h, b);
+          float* r = srows + s * 2 * kTile;
+          bulk_load(r, p.lse + rows + j * kTile, kTile * 4, &full[s]);
+          bulk_load(r + kTile, p.dl + rows + j * kTile, kTile * 4, &full[s]);
+        }
+      }
+    }
+  } else {  // a consumer warpgroup
+    consumer_registers<W>();
+    const int tid = threadIdx.x % kBwdThreadsPerWg, warp = tid / 32;
+    const int g = (tid % 32) >> 2, t = tid & 3;
+    const float sl2 = p.scale * kLog2e;
+    int jj = 0, n = 0;
+    for (int it = blockIdx.x; it < p.items; it += gridDim.x, ++n) {
+      const int bh = it / p.groups, kt0 = it % p.groups * W;
+      const int b = bh / p.heads, h = bh % p.heads;
+      const int u = n & 1;
+      unsigned char* myk = own + (u * W + wg) * 2 * T;
+      unsigned char* myv = myk + T;
+      const uint32_t k_addr = smem_addr(myk), v_addr = smem_addr(myv);
+
+      float dk[NP][32], dv[NP][32];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = k0 + warp * 16 + g + 8 * i;
-    if (row < len) {
+      for (int pn = 0; pn < NP; ++pn)
 #pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const int c = n * 8 + 2 * t;
-        *reinterpret_cast<uint32_t*>(dkb + (long long)row * vdk.sl + c) =
-            pack_f32(dk[n][2 * i] * p.scale, dk[n][2 * i + 1] * p.scale);
-        *reinterpret_cast<uint32_t*>(dvb + (long long)row * vdv.sl + c) =
-            pack_f32(dv[n][2 * i], dv[n][2 * i + 1]);
+        for (int e = 0; e < 32; ++e) dk[pn][e] = dv[pn][e] = 0.f;
+
+      mbar_wait(&ofull[u * W + wg], (n >> 1) & 1);
+      // Per query tile S^T and dP^T are one wgmma group (two, as in dQ,
+      // ran slower here); the previous tile's dV += P^T dO and dK += dS^T Q
+      // run behind it, and its stage is released once they are done.
+      int pending = -1;
+      for (int j = 0; j < ntiles; ++j, ++jj) {
+        const int s = jj % ST;
+        mbar_wait(&full[s], (jj / ST) & 1);
+        const uint32_t q_addr = smem_addr(sq + s * T);
+        const uint32_t do_addr = smem_addr(sdo + s * T);
+        const float* lt = srows + s * 2 * kTile;
+        const float* dt = lt + kTile;
+        // S^T and dP^T: 64 keys x 64 queries
+        float sc[32], dp[32];
+        wgmma_fence();
+        scores<D, 64>(sc, k_addr, q_addr);
+        scores<D, 64>(dp, v_addr, do_addr);
+        wgmma_commit();
+        wgmma_wait<0>();
+        if (pending >= 0 && tid == 0) mbar_arrive(&empty[pending]);
+#pragma unroll
+        for (int nn = 0; nn < 8; ++nn)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = nn * 8 + 2 * t + (e & 1);
+            const float pv =
+                j * kTile + c < p.len
+                    ? exp2f(sc[4 * nn + e] * sl2 - lt[c] * kLog2e)
+                    : 0.f;
+            sc[4 * nn + e] = pv;                             // P^T
+            dp[4 * nn + e] = pv * (dp[4 * nn + e] - dt[c]);  // dS^T
+          }
+        uint32_t a[4][4], ds[4][4];
+        acc_to_a(a, sc);
+        acc_to_a(ds, dp);
+        wgmma_fence();
+        acc_rows<NP>(dv, a, do_addr);
+        acc_rows<NP>(dk, ds, q_addr);
+        wgmma_commit();
+        pending = s;
+      }
+      wgmma_wait<0>();
+      if (tid == 0) mbar_arrive(&empty[pending]);
+
+      // dK and dV through the warpgroup's K and V tiles; the buffer goes
+      // back to the producer once the stores have read it
+      stage_acc<NP>(myk, dk, p.scale, warp, g, t);
+      stage_acc<NP>(myv, dv, 1.0f, warp, g, t);
+      fence_proxy_async();
+      named_barrier(1 + wg, kBwdThreadsPerWg);
+      if (tid == 0) {
+        const int row = (kt0 + wg) * kTile;
+        store_tile<NP>(p, kDK, myk, row, h, b);
+        store_tile<NP>(p, kDV, myv, row, h, b);
+        tma_store_commit_and_wait();
+        mbar_arrive(&oempty[u * W + wg]);
       }
     }
   }
+}
+
+// The blocks of a persistent grid: as many as the card holds at once,
+// asked once per kernel
+int resident_blocks(const void* kernel, int threads, int smem) {
+  static std::mutex mu;
+  static const void* kernels[32];
+  static int known[32];
+  static int used = 0;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < used; ++i)
+    if (kernels[i] == kernel) return known[i];
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                    smem) != cudaSuccess)
+    return 0;
+  if (used < 32) {
+    kernels[used] = kernel;
+    known[used++] = sms * per_sm;
+  }
+  return sms * per_sm;
 }
 
 enum Kind { kFwd, kDq, kDkv };
 
 template <int D>
-int launch(Kind kind, const Args& a, int batch, cudaStream_t stream) {
-  if (kind == kFwd) return launch_fwd<D>(a, batch, stream);
-  const dim3 grid((unsigned)((a.len + kTile - 1) / kTile),
-                  (unsigned)(batch * a.heads), 1);
-  void (*kernel)(const Args) =
+int launch_bwd(Kind kind, const Args& a, int batch, cudaStream_t stream) {
+  static const int dq_views[] = {kQ, kK, kV, kO, kDO, kDQ};
+  static const int dkv_views[] = {kQ, kK, kV, kDO, kDK, kDV};
+  const int* views = kind == kDq ? dq_views : dkv_views;
+  const void* bases[kViews] = {a.q, a.k, a.v, a.o, a.dout, a.dq, a.dk, a.dv};
+  BwdParams p = {};
+  for (int i = 0; i < 6; ++i) {
+    const int v = views[i];
+    if (!encode_view(&p.map[v], bases[v], a.view[v], batch, a.heads, a.len,
+                     D, p.pos[v]))
+      return (int)cudaErrorInvalidValue;
+  }
+  p.lse = a.lse;
+  p.dl = a.dl;
+  p.heads = a.heads;
+  p.len = a.len;
+  p.lpad = a.lpad;
+  p.scale = a.scale;
+  const int ntiles = (a.len + kTile - 1) / kTile;
+  p.groups = (ntiles + bwd_warpgroups<D>() - 1) / bwd_warpgroups<D>();
+  const long long items = (long long)batch * a.heads * p.groups;
+  if (items > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  p.items = (int)items;
+  void (*kernel)(const BwdParams) =
       kind == kDq ? flash_dq_kernel<D> : flash_dkv_kernel<D>;
   const int smem = kind == kDq ? dq_smem<D>() : dkv_smem<D>();
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<grid, kThreads, smem, stream>>>(a);
+  const int resident =
+      resident_blocks((const void*)kernel, bwd_threads<D>(), smem);
+  if (resident == 0) return (int)cudaErrorInvalidValue;
+  const long long grid = items < resident ? items : resident;
+  kernel<<<(unsigned)grid, bwd_threads<D>(), smem, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch(Kind kind, const Args& a, int batch, cudaStream_t stream) {
+  if (kind == kFwd) return launch_fwd<D>(a, batch, stream);
+  return launch_bwd<D>(kind, a, batch, stream);
 }
 
 int dispatch(Kind kind, Args& a, const long long* strides, int batch,
@@ -796,6 +1012,8 @@ int dispatch(Kind kind, Args& a, const long long* strides, int batch,
   if (batch <= 0 || heads <= 0 || len <= 0 || dim % 16 != 0 || dim <= 0 ||
       dim > 128 || (long long)batch * heads > 65535)
     return (int)cudaErrorInvalidValue;
+  const hopper::DeviceOf dev(a.q);
+  if (dev.error() != cudaSuccess) return (int)dev.error();
   for (int i = 0; i < kViews; ++i)
     a.view[i] = View{strides[3 * i], strides[3 * i + 1],
                      strides[3 * i + 2]};

@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the kernels that run on the
 // tensor cores through wgmma and are fed by TMA: mbarriers, tensor-map
-// loads and stores, shared-memory matrix descriptors, the one wgmma shape
-// the kernels use (m64n64k16, bf16 in, float32 accumulate) and a host-side
-// tensor-map encoder reached through the runtime's driver entry point (so
-// the library needs no -lcuda).
+// loads and stores, plain bulk copies, cluster barriers and reads of
+// another block's shared memory, shared-memory matrix descriptors, the
+// wgmma shapes the kernels use (m64n64k16 and m64n128k16, bf16 in, float32
+// accumulate), register moves between warpgroups (setmaxnreg) and
+// a host-side tensor-map encoder reached through the runtime's driver entry
+// point (so the library needs no -lcuda).
 //
 // Conventions:
 // * every SW128 tile is a [rows][64 bf16] block of 128-byte rows whose base
@@ -131,6 +133,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// `bytes` contiguous bytes global -> shared (both 16-byte aligned, bytes a
+// multiple of 16), completion counted on the barrier like a tensor load
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // shared -> global; elements outside the tensor are not written
 __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
                                              const void* src, int c0, int c1,
@@ -157,6 +170,47 @@ __device__ __forceinline__ void fence_proxy_async() {
 // a barrier among `threads` threads (a multiple of 32) under id `id` (1-15)
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Hands this warpgroup's registers back (dec) or takes more (inc), to
+// `regs` a thread; every warp of the warpgroup runs it.  The kernel must
+// split into one branch per role that never rejoins, or ptxas ignores it.
+template <int regs>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(regs));
+}
+template <int regs>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(regs));
+}
+
+// ------------------------------------------------------------- clusters
+
+// A barrier over every thread of every block of the cluster: arrive
+// releases this thread's writes (shared memory included), wait acquires
+// the others'.  Every thread of the cluster has to arrive, so a warp that
+// is done early arrives and waits all the same.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// 16 bytes of block `rank`'s shared memory at the offset of `p` in this
+// block's (distributed shared memory; the other block must still be
+// running, which a cluster barrier after the read guarantees)
+__device__ __forceinline__ float4 ld_cluster_f4(const void* p, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_addr(p)), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(remote)
+               : "memory");
+  return v;
 }
 
 // ------------------------------------------------------------ descriptors
@@ -221,6 +275,41 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// The m64n128 float32 accumulator: as m64n64 with 16 chunks of 8 columns.
+#define HOPPER_ACC64(d) \
+    "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+    "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), \
+    "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+    "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), \
+    "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), \
+    "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), \
+    "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+    "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), \
+    "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), \
+    "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), \
+    "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+    "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), \
+    "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define HOPPER_D64 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+  "%58, %59, %60, %61, %62, %63}"
+
+// d (+)= A B, A [64 x 16] and B [16 x 128] both from shared memory, both
+// K-major (B's 128 rows continue its 8-row groups 1024 bytes apart);
+// scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_D64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : HOPPER_ACC64(d)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // d += A B with A [64 x 16] from registers (the mma.sync A-fragment layout
 // per warp: a0 rows g / cols 2t, a1 rows g+8, a2 cols 8+2t, a3 both) and B
 // from shared memory MN-major (the transpose bit)
@@ -266,6 +355,34 @@ inline EncodeTiledFn encode_fn() {
   }
   return fn;
 }
+
+// For its lifetime, makes the device that holds `p` current on this
+// thread, and with it the device's primary context, which the tensor-map
+// encoder needs: a thread that has made no CUDA call yet (autograd's
+// worker thread, say) has none.  The caller's current device comes back
+// when the guard goes out of scope, so a launch on a tensor of another
+// card leaves the thread's device as it was.
+class DeviceOf {
+ public:
+  explicit DeviceOf(const void* p) {
+    cudaPointerAttributes attr;
+    err_ = cudaGetDevice(&prev_);
+    if (err_ == cudaSuccess) err_ = cudaPointerGetAttributes(&attr, p);
+    if (err_ == cudaSuccess) err_ = cudaSetDevice(attr.device);
+    restore_ = err_ == cudaSuccess && attr.device != prev_;
+  }
+  ~DeviceOf() {
+    if (restore_) cudaSetDevice(prev_);
+  }
+  DeviceOf(const DeviceOf&) = delete;
+  DeviceOf& operator=(const DeviceOf&) = delete;
+  cudaError_t error() const { return err_; }
+
+ private:
+  int prev_ = 0;
+  bool restore_ = false;
+  cudaError_t err_;
+};
 
 // A bf16 tensor map of `rank` dimensions (innermost first): dims, byte
 // strides of dims 1.., box; 128-byte swizzle, zero fill outside the

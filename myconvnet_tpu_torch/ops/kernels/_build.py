@@ -59,8 +59,12 @@ SIGNATURES = {
     # CS, shared-memory bytes, ring stages, tiles of a phase-1 pass, tiles
     # of a phase-2 pass, clusters the card runs at once
     "mcn_conv_pair_plan": (I32, I32, I32, I32, I32, I32, I32, I32, I32, P),
-    # x, w, scale, bias, y, n, h, w, c, cout, stream
-    "mcn_conv3x3_bn_relu": (P, P, P, P, P, I32, I32, I32, I32, I32, P),
+    # x, w, scale, bias, y, n, h, w, c, cout, G, TH, TW, split, stream
+    "mcn_conv3x3_bn_relu": (P, P, P, P, P, I32, I32, I32, I32, I32,
+                            I32, I32, I32, I32, P),
+    # int[7] out: shared-memory bytes a block, ring stages, blocks an SM
+    # holds, SMs, clusters of 2, 4 and 8 the card holds at once
+    "mcn_conv3x3_bn_relu_facts": (P,),
     # x, mean, std, y, total, c, stream
     "mcn_normalize_u8_f32": (P, P, P, P, I64, I32, P),
     "mcn_normalize_u8_bf16": (P, P, P, P, I64, I32, P),

@@ -4,13 +4,14 @@ Port of ``myconvnet_tpu/ops/pallas/flash_attention.py`` (``flash_attention``
 at ``:193``; the forward kernel's ``pallas_call`` in ``_fwd`` at ``:108``,
 the dQ and dK/dV kernels' in ``_bwd`` at ``:153`` and ``:161``, the
 ``custom_vjp`` at ``:173-190``).  The CUDA kernels are
-``csrc/flash_attention.cu`` (design and bound in its header).  The
-forward runs two 64-row query tiles of one (batch, head) per block, one
-warpgroup each, with wgmma products fed by TMA from tensor maps over the
-strided q, k and v, an online softmax over 64-key tiles, and a TMA store of
-the output.  The backward is one block per 64-row tile, four warps of 16
-rows, ``mma.sync`` bf16 products with float32 accumulators, without atomics
-(dQ loops over key tiles, dK/dV over query tiles).
+``csrc/flash_attention.cu`` (design and bound in its header).  All three
+run wgmma products (bf16 in, float32 accumulate) fed by TMA from tensor
+maps over the strided operands: a producer warp streams 64-row tiles of
+one side through a ring of stages for one or two consumer warpgroups,
+each owning a 64-row tile of the other side, and the results leave by a
+TMA store.  The forward keeps an online softmax over 64-key tiles; the
+backward has no atomics (dQ loops over key tiles, dK/dV over query
+tiles), so two runs give the same bits.
 
 :func:`flash_attention` is differentiable through :class:`FlashAttention`
 (the ``custom_vjp``): the forward saves the float32 logsumexp, the backward

@@ -366,6 +366,73 @@ def test_conv_fused_wrapper_checks():
     assert not conv_fused.supports(12) and not conv_fused.supports(0)
 
 
+# The planner of the conv_fused kernel: (n, h, w, c, cout) -> tile, split.
+# CIFAR-100 ResNet-18's four eval shapes (batch 128) with the blocks the
+# 64x64-tile grid alone gives (128, 64, 32, 16) lifted to 128 each;
+# ImageNet ResNet-18's stride-1 sites at batch 8 and 1; the card tests' odd
+# shapes.
+CIFAR_FUSED = [(128, 8, 8, 64, 64), (128, 4, 4, 128, 128),
+               (128, 2, 2, 256, 256), (128, 1, 1, 512, 512)]
+IMAGENET_FUSED = [(b, hw, hw, c, c) for b in (8, 1)
+                  for hw, c in ((56, 64), (28, 128), (14, 256), (7, 512))]
+ODD_FUSED = [(3, 1, 1, 8, 16), (3, 2, 2, 8, 24), (2, 5, 7, 40, 72),
+             (1, 9, 3, 16, 130), (3, 5, 7, 512, 72), (4, 1, 1, 8, 64),
+             (4, 1, 1, 512, 64), (2, 4, 4, 16, 16)]
+
+
+@pytest.mark.parametrize("shape", CIFAR_FUSED + IMAGENET_FUSED + ODD_FUSED)
+def test_conv_fused_plan_holds_its_rules(shape):
+    """Every plan: a box of at most 64 output pixels inside the map and the
+    batch, whole images where the map has 64 pixels or fewer; a split among
+    1, 2, 4, 8 that divides the stage count (taps that read only padding
+    skipped, 64 channels a stage); a grid within one wave of the card
+    (132 SMs x 3 blocks of 66,624 bytes of shared memory, 396 blocks); no
+    split larger than needed for 7/8 of the SMs."""
+    n, h, w, c, co = shape
+    p = conv_fused.plan(*shape)
+    g, th, tw = p["g"], p["th"], p["tw"]
+    assert 1 <= g <= n and 1 <= th <= h and 1 <= tw <= w
+    assert g * th * tw <= conv_fused.TILE_PIXELS
+    if h * w <= conv_fused.TILE_PIXELS:
+        assert (th, tw) == (h, w)
+    taps = (3 if h > 1 else 1) * (3 if w > 1 else 1)
+    assert p["stages"] == taps * -(-c // 64)
+    assert p["split"] in conv_fused.SPLITS
+    assert p["stages"] % p["split"] == 0
+    tiles = -(-n // g) * -(-h // th) * -(-w // tw) * -(-co // 64)
+    assert p["tiles"] == tiles and p["blocks"] == tiles * p["split"]
+    assert (conv_fused.SMS, conv_fused.BLOCKS_PER_SM,
+            conv_fused.ONE_WAVE) == (132, 3, 396)
+    assert p["split"] == 1 or p["blocks"] <= conv_fused.ONE_WAVE
+    if p["split"] > 1:  # half the split would not have been enough
+        assert tiles * p["split"] // 2 < conv_fused.WANT
+
+
+@pytest.mark.parametrize("shape", CIFAR_FUSED)
+def test_conv_fused_plan_fills_the_card_at_cifar_maps(shape):
+    """At CIFAR's four maps the split lifts each grid to 128 blocks (1, 2,
+    4 and 8 ranks over 128, 64, 32 and 16 tiles), a wave at most."""
+    p = conv_fused.plan(*shape)
+    assert p["blocks"] == 128
+    assert p["split"] == {8: 1, 4: 2, 2: 4, 1: 8}[shape[1]]
+
+
+def test_conv_fused_plan_takes_a_forced_split_and_rejects_others():
+    """``split`` forces a split that divides the stages (72 at 5x7x512) and
+    raises on one that does not (9 at 5x7x40) or is not a cluster size."""
+    for split in conv_fused.SPLITS:
+        assert conv_fused.plan(3, 5, 7, 512, 72, split)["split"] == split
+    with pytest.raises(ValueError):
+        conv_fused.plan(2, 5, 7, 40, 72, 2)
+    with pytest.raises(ValueError):
+        conv_fused.plan(3, 5, 7, 512, 72, 3)
+    x, w3, s, b = _torch_fused_args(_fused_inputs(1, 4, 16, 8))
+    with pytest.raises(ValueError):  # 9 stages: no split of 2
+        conv3x3_bn_relu(x, w3, s, b, split=2)
+    torch.testing.assert_close(conv3x3_bn_relu(x, w3, s, b, split=1),
+                               conv3x3_bn_relu(x, w3, s, b), rtol=0, atol=0)
+
+
 # ------------------------------------------------------ RandAugment (B7, B8)
 
 # XLA on the CPU fuses the Pallas shear's multiply-adds into FMAs (shift =

@@ -313,19 +313,58 @@ def _fused_args(shape, dev, seed=0):
             b.to(dev))
 
 
-@pytest.mark.parametrize("shape", [
+FUSED_SHAPES = [
     (128, 8, 8, 64, 64),      # ResNet-18 at 32x32: stage 1
     (128, 4, 4, 128, 128),    # stage 2
     (128, 2, 2, 256, 256),    # stage 3
     (128, 1, 1, 512, 512),    # stage 4: the centre tap alone
     (3, 1, 1, 8, 16),
     (3, 2, 2, 8, 24),         # Cout not a multiple of the 64-wide tile
-    (2, 5, 7, 40, 72),        # C not a multiple of the 32-wide stage
-    (1, 9, 3, 16, 130)])
+    (2, 5, 7, 40, 72),        # C not a multiple of the 64-wide stage
+    (1, 9, 3, 16, 130),
+    # ImageNet ResNet-18's stride-1 sites at batch 8 and 1: windows of
+    # one image, and maps whose tiles overhang the image
+    (8, 56, 56, 64, 64), (8, 28, 28, 128, 128), (8, 14, 14, 256, 256),
+    (8, 7, 7, 512, 512),
+    (1, 56, 56, 64, 64), (1, 28, 28, 128, 128), (1, 14, 14, 256, 256),
+    (1, 7, 7, 512, 512)]
+
+
+def test_conv_fused_planner_matches_the_built_kernel(cuda):
+    """The planner's copy of the kernel's launch facts (ring stages, shared
+    memory a block, blocks an SM holds, SMs) equals what the built kernel
+    and the card give, and every plan's clusters fit in one wave of the
+    clusters the card holds at once."""
+    facts = conv_fused.kernel_facts()
+    assert (facts["stages"], facts["smem"], facts["blocks_per_sm"],
+            facts["sms"]) == (conv_fused.STAGES, conv_fused.BLOCK_SMEM,
+                              conv_fused.BLOCKS_PER_SM, conv_fused.SMS)
+    for shape in FUSED_SHAPES + [(3, 5, 7, 512, 72)]:
+        p = conv_fused.plan(*shape)
+        if p["split"] > 1:
+            assert p["tiles"] <= facts["clusters_at_once"][p["split"]], shape
+
+
+@pytest.mark.parametrize("shape", FUSED_SHAPES)
 def test_conv_fused_kernel_matches_plain(cuda, shape):
     args = _fused_args(shape, cuda)
     before = conv_fused.conv3x3_bn_relu.launches
     out = conv_fused.conv3x3_bn_relu(*args)
+    torch.cuda.synchronize()
+    assert conv_fused.conv3x3_bn_relu.launches == before + 1
+    ref = conv_fused.conv3x3_bn_relu_reference(*args)
+    torch.testing.assert_close(out.float(), ref.float(), **FUSED_TOL)
+
+
+@pytest.mark.parametrize("split", conv_fused.SPLITS)
+def test_conv_fused_kernel_at_each_split_matches_plain(cuda, split):
+    """Every cluster size, forced through the planner's argument, at a
+    shape whose 72 stages (9 taps x 8 chunks of 64 channels) each divides:
+    the same output within the tolerance, and the same launch count."""
+    args = _fused_args((3, 5, 7, 512, 72), cuda, seed=4)
+    assert conv_fused.plan(3, 5, 7, 512, 72, split)["split"] == split
+    before = conv_fused.conv3x3_bn_relu.launches
+    out = conv_fused.conv3x3_bn_relu(*args, split=split)
     torch.cuda.synchronize()
     assert conv_fused.conv3x3_bn_relu.launches == before + 1
     ref = conv_fused.conv3x3_bn_relu_reference(*args)
@@ -482,7 +521,7 @@ def test_flash_kernels_match_plain(cuda, shape):
         _assert_within(got, ref, FLASH_GRAD_TOL)
 
 
-@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("d", [16, 64, 80, 128])
 @pytest.mark.parametrize("length", [1, 65, 197, 577])
 def test_flash_forward_matches_plain(cuda, d, length):
     """The forward at every head-dim class and at L = 1, one past a tile,
@@ -513,6 +552,60 @@ def test_flash_forward_matches_plain(cuda, d, length):
     else:
         for got, ref in ((dq, dq_ref), (dk, dk_ref)):
             _assert_within(got, ref, FLASH_GRAD_TOL)
+
+
+@pytest.mark.parametrize("shape", [(4, 12, 197, 64), (2, 3, 130, 128),
+                                   (1, 2, 70, 80)])
+def test_flash_backward_kernels_are_deterministic(cuda, shape):
+    """dQ (with D) and dK/dV twice on the same inputs: bit-equal, since
+    every sum runs in a fixed order (no atomics)."""
+    q, k, v, do = _flash_inputs(shape, cuda, seed=5)
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    first = fa.flash_attention_dq(q, k, v, out, do, lse)
+    first += fa.flash_attention_dkv(q, k, v, do, lse, first[1])
+    second = fa.flash_attention_dq(q, k, v, out, do, lse)
+    second += fa.flash_attention_dkv(q, k, v, do, lse, second[1])
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kernel", ["flash_fwd", "flash_dq", "flash_dkv",
+                                    "conv_fused", "conv_pair"])
+def test_kernels_launch_from_a_fresh_thread(cuda, kernel):
+    """The kernels that encode tensor maps, launched from a thread that has
+    made no CUDA call (as autograd's backward thread or a server's worker
+    may be), give what they give on the main thread."""
+    import threading
+
+    q, k, v, do = _flash_inputs((2, 3, 100, 64), cuda, seed=6)
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    dl = fa.flash_attention_dq(q, k, v, out, do, lse)[1]
+    fused = _fused_args((2, 4, 4, 64, 64), cuda, seed=6)
+    pair = _pair_args((2, 8, 8, 64, 64, 64), cuda, seed=6)
+    fn = {"flash_fwd": lambda: fa.flash_attention_fwd(q, k, v)[0],
+          "flash_dq": lambda: fa.flash_attention_dq(q, k, v, out, do,
+                                                    lse)[0],
+          "flash_dkv": lambda: fa.flash_attention_dkv(q, k, v, do, lse,
+                                                      dl)[0],
+          "conv_fused": lambda: conv_fused.conv3x3_bn_relu(*fused),
+          "conv_pair": lambda: conv_pair.conv1x1_conv3x3_bn_relu(*pair)
+          }[kernel]
+    want = fn()
+    got = {}
+
+    def run():
+        try:
+            got["out"] = fn()
+            torch.cuda.synchronize()
+        except Exception as e:  # the assertion below reports it
+            got["error"] = e
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join()
+    assert "error" not in got, got.get("error")
+    torch.testing.assert_close(got["out"], want, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("packed", [True, False])
