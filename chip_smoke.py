@@ -75,8 +75,9 @@
 11. Correlation kernels (``csrc/correlation.cu``): the forward and the
     two backward kernels against the plain version and its autograd at
     the six sites the flow recipes give them (PWC-Net's levels 2 to 6 and
-    FlowNetC's 1/8 map, batch 32 of 384x512, d = 4), bf16 and float32
-    inputs.
+    FlowNetC's 1/8 map, batch 32 of 384x512, d = 4), bf16 (the
+    tensor-core kernels; each row carries the planner's launch plan) and
+    float32 (the CUDA-core kernels) inputs.
 12. PWC-Net (``configs/chairs_pwcnet.py`` as written, full width): step 1
     at batch 2 of 384x512 on the card against the host from seeded
     JAX-layout weights that are non-zero in the flow heads too (their zero
@@ -97,6 +98,17 @@ Every kernel's record carries its bound: the larger of the bytes it must
 move over 3.35 TB/s and the operations it must do over the peak rate of
 their type (989 TFLOP/s bf16 tensor-core products, 67 TFLOP/s float32
 elementwise), from this run's shapes.
+
+``python3 chip_smoke.py --compare DIR`` (DIR: another checkout, e.g. the
+parent commit unpacked by ``git archive``) runs only the kernel timing of
+the shear and the correlation kernels (``time_tree_kernels``), once a
+process, for DIR, this checkout, this checkout, DIR in that order on the
+same card: each tree's kernels built from its own sources, shear_rows at
+[1024, 224, 224, 3] f32 on both axes with ``F.grid_sample`` beside it, the
+three bf16 correlation kernels at CORR_SITES, each held against its plain
+version.  It prints one line a kernel and shape with the four times and
+writes ``chiprun_out/compare.json``; it exits non-zero if a run fails or
+a kernel disagrees with its plain version.
 
 Exits non-zero on any failure.  The second-to-last line of stdout is the
 kernels' JSON record (thirteen entries; a correlation entry's ``ms``,
@@ -948,7 +960,10 @@ def check_correlation_kernels(dev, g):
                 err = float((got.float() - want.float()).abs().max())
                 ok = err <= tol and bool(torch.isfinite(got).all())
                 b_ms, b_by = bound(sizes[name], ops, rate)
+                mode = {"correlation_fwd": "fwd", "correlation_bwd_f1":
+                        "bwd_f1", "correlation_bwd_f2": "bwd_f2"}[name]
                 r = dict(kernel=name, site=site, path=path,
+                         plan=corr.plan(mode, shape, d, dtype),
                          shape=list(shape), dtype=str(dtype).split(".")[-1],
                          sites=int(dtype == torch.bfloat16),
                          max_abs_err=err, tol=tol, ok=ok, bound_ms=b_ms,
@@ -962,6 +977,119 @@ def check_correlation_kernels(dev, g):
             del f1, f2, grad, out, ref, d1, d2, r1, r2
         torch.cuda.empty_cache()
     return rows
+
+
+def time_tree_kernels(root):
+    """For ``--time-kernels ROOT`` (one process a tree): the kernels of the
+    checkout at ROOT built from its sources, timed at the shear's and the
+    correlation's recipe shapes, each checked against its plain version;
+    returns {"card", "build_s", "rows": [...]}."""
+    import torch
+    import torch.nn.functional as F
+    sys.path.insert(0, root)
+    from myconvnet_tpu_torch.core.precision import FULL, apply_backend_flags
+    from myconvnet_tpu_torch.ops.kernels import _build, affine
+    from myconvnet_tpu_torch.ops.kernels import correlation as corr
+    assert os.path.dirname(os.path.abspath(_build.__file__)).startswith(
+        os.path.abspath(root)), "kernels imported from another tree"
+    apply_backend_flags(FULL)
+    _, build_s = _build.build()
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    rows = []
+    shape = RA_SHAPES[0]
+    n = shape[0]
+    x = torch.rand(shape, generator=g, device=dev)
+    slope = torch.linspace(-0.3, 0.3, n, device=dev)
+    for axis in (2, 1):
+        off = affine._centered(slope, shape[3 - axis])
+        out = affine.shear_rows(x, slope, off, axis=axis)
+        err, ok = compare(out, affine.shear_reference(x, slope, off,
+                                                      axis=axis),
+                          **TOL["shear_rows"])
+        grid = shear_grid(slope, off, shape, axis)
+        xn = x.permute(0, 3, 1, 2)
+        rows.append(dict(
+            kernel="shear_rows", case=f"axis {axis}", shape=list(shape),
+            max_abs_err=err, ok=ok,
+            ms=cuda_ms(lambda: affine.shear_rows(x, slope, off, axis=axis),
+                       iters=10),
+            library_ms=cuda_ms(lambda: F.grid_sample(
+                xn, grid, mode="bilinear", padding_mode="zeros",
+                align_corners=True), iters=10)))
+        del grid, out
+    del x
+    torch.cuda.empty_cache()
+    d, k = CORR_D, (2 * CORR_D + 1) ** 2
+    for site, shp, _ in CORR_SITES:
+        f1, f2 = (torch.randn(shp, generator=g, device=dev).bfloat16()
+                  for _ in range(2))
+        grad = torch.randn((*shp[:3], k), generator=g, device=dev)
+        ref = corr.correlation_reference(f1, f2, d)
+        r1, r2 = corr.correlation_bwd_reference(grad, f1, f2, d)
+        fns = {"correlation_fwd": (lambda: corr.correlation_fwd(f1, f2, d),
+                                   ref, CORR_TOL * float(ref.abs().max())),
+               "correlation_bwd_f1": (
+                   lambda: corr.correlation_bwd_f1(grad, f1, f2, d), r1,
+                   CORR_GRAD_ULPS * 2.0 ** (math.floor(math.log2(float(
+                       r1.float().abs().max()))) - 7)),
+               "correlation_bwd_f2": (
+                   lambda: corr.correlation_bwd_f2(grad, f1, f2, d), r2,
+                   CORR_GRAD_ULPS * 2.0 ** (math.floor(math.log2(float(
+                       r2.float().abs().max()))) - 7))}
+        for name, (fn, want, tol) in fns.items():
+            got = fn()
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            rows.append(dict(kernel=name, case=site, shape=list(shp),
+                             max_abs_err=err, tol=tol, ok=err <= tol,
+                             ms=cuda_ms(fn), library_ms=None))
+        del f1, f2, grad, ref, r1, r2
+        torch.cuda.empty_cache()
+    card = run(["nvidia-smi", "--query-gpu=name,power.limit",
+                "--format=csv,noheader"])
+    return dict(card=card, build_s=build_s, rows=rows)
+
+
+def compare_trees(other):
+    """``--compare OTHER``: time_tree_kernels of OTHER and of this
+    checkout, one process each, in the order other, this, this, other;
+    prints a line a kernel and shape and returns 0 when every run finished
+    and every kernel agreed with its plain version."""
+    order = [("other", other), ("this", ROOT), ("this", ROOT),
+             ("other", other)]
+    runs = []
+    for label, root in order:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--time-kernels",
+             os.path.abspath(root)], capture_output=True, text=True,
+            timeout=900)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+        if proc.returncode != 0 or not lines:
+            log(f"chip_smoke --time-kernels {root} failed "
+                f"({proc.returncode}):\n{proc.stderr[-3000:]}")
+            return 1
+        runs.append(dict(label=label, root=root, **json.loads(lines[-1])))
+    log(runs[0]["card"])
+    log("kernel case: other, this, this, other ms (library ms); max abs "
+        "error this")
+    bad = []
+    for i, row in enumerate(runs[1]["rows"]):
+        times = ", ".join(f"{r['rows'][i]['ms']:.4f}" for r in runs)
+        lib = row["library_ms"]
+        log(f"{row['kernel']} {row['case']} {row['shape']}: {times}"
+            + (f" ({lib:.4f})" if lib is not None else "")
+            + f"; err {row['max_abs_err']:.3g}")
+        bad += [(r["label"], row["kernel"], row["case"]) for r in runs
+                if not r["rows"][i]["ok"]]
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "compare.json"), "w") as f:
+        json.dump(runs, f, indent=1)
+    if bad:
+        log(f"kernels outside tolerance: {bad}")
+        return 1
+    return 0
 
 
 def post(url, body):
@@ -2023,7 +2151,13 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        code = main()
+        if len(sys.argv) == 3 and sys.argv[1] == "--time-kernels":
+            print(json.dumps(time_tree_kernels(sys.argv[2])), flush=True)
+            code = 0
+        elif len(sys.argv) == 3 and sys.argv[1] == "--compare":
+            code = compare_trees(sys.argv[2])
+        else:
+            code = main()
     except Exception:
         traceback.print_exc()
         code = 1

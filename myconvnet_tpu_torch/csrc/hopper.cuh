@@ -1,10 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the kernels that run on the
 // tensor cores through wgmma and are fed by TMA: mbarriers, tensor-map
-// loads and stores, plain bulk copies, cluster barriers and reads of
-// another block's shared memory, shared-memory matrix descriptors, the
-// wgmma shapes the kernels use (m64n64k16 and m64n128k16, bf16 in, float32
-// accumulate), register moves between warpgroups (setmaxnreg) and
-// a host-side tensor-map encoder reached through the runtime's driver entry
+// loads and stores, plain bulk copies, 4- and 8-byte cp.async copies that
+// complete on an mbarrier, cluster barriers and reads of another block's
+// shared memory, shared-memory matrix descriptors, the wgmma shapes the
+// kernels use (m64n16k16, m64n40k16, m64n64k16, m64n72k16 and m64n128k16,
+// bf16 in, float32 accumulate; m64n32k16 and m64n64k16 also with A from
+// registers and B MN-major), register moves between warpgroups (setmaxnreg) and a
+// host-side tensor-map encoder reached through the runtime's driver entry
 // point (so the library needs no -lcuda).
 //
 // Conventions:
@@ -144,6 +146,38 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
+// 4 bytes global -> shared without registers; src_bytes 0 writes zeros
+// (src must still be a valid address)
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src,
+                                           uint32_t src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(reinterpret_cast<uint64_t>(src)), "r"(src_bytes)
+               : "memory");
+}
+
+// 8 bytes global -> shared (both 8-byte aligned); src_bytes 0 writes zeros
+__device__ __forceinline__ void cp_async_8(void* dst, const void* src,
+                                           uint32_t src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(reinterpret_cast<uint64_t>(src)), "r"(src_bytes)
+               : "memory");
+}
+
+// the barrier's current phase cannot complete before this thread's
+// earlier cp.async copies have landed (the pending count goes up now and
+// down when they complete)
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 // shared -> global; elements outside the tensor are not written
 __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
                                              const void* src, int c0, int c1,
@@ -227,6 +261,14 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
          (desc_encode(1024) << 32) | (1ull << 62);
 }
 
+// the same with the 64-byte swizzle ([rows][32 bf16] tiles, 8-row groups
+// 512 bytes apart, base 512-byte aligned; K-major steps through K by 32
+// bytes, an MN-major tile is exactly 32 columns)
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t addr) {
+  return desc_encode(addr) | (desc_encode(512) << 16) |
+         (desc_encode(512) << 32) | (2ull << 62);
+}
+
 // K-major, no swizzle: core matrices lbo bytes apart along K, sbo along M/N
 __device__ __forceinline__ uint64_t desc_plain(uint32_t addr, uint32_t lbo,
                                                uint32_t sbo) {
@@ -272,6 +314,54 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32
       ", %32, %33, p, 1, 1, 0, 0;\n}\n"
       : HOPPER_ACC32(d)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// The m64n16 and m64n40 float32 accumulators: as m64n64 with 2 and 5
+// chunks of 8 columns.
+__device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[20], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19}, %20, %21, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// The m64n72 float32 accumulator: as m64n64 with 9 chunks of 8 columns.
+#define HOPPER_ACC36(d)                                                      \
+  HOPPER_ACC32(d), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+#define HOPPER_D36                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
+  "%30, %31, %32, %33, %34, %35}"
+
+// d (+)= A B, A [64 x 16] and B [16 x 72] both from shared memory, both
+// K-major (B's 72 rows are nine 8-row groups 1024 bytes apart); scale_d =
+// 0 overwrites d
+__device__ __forceinline__ void wgmma_ss(float (&d)[36], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 " HOPPER_D36
+      ", %36, %37, p, 1, 1, 0, 0;\n}\n"
+      : HOPPER_ACC36(d)
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -321,6 +411,34 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[32], const uint32_t* a,
       ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : HOPPER_ACC32(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// as above, with scale_d = 0 overwriting d (no generic write of the
+// accumulators is needed to start a sum)
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[32], const uint32_t* a,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : HOPPER_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d (+)= A B as above with N = 32 (B one 32-column MN-major tile): the
+// m64n32 accumulator, 4 chunks of 8 columns
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[16], const uint32_t* a,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
@@ -384,12 +502,13 @@ class DeviceOf {
   cudaError_t err_;
 };
 
-// A bf16 tensor map of `rank` dimensions (innermost first): dims, byte
-// strides of dims 1.., box; 128-byte swizzle, zero fill outside the
-// tensor.  False if the driver refuses it.
-inline bool encode_bf16(CUtensorMap* map, const void* base, int rank,
-                        const uint64_t* dims, const uint64_t* strides,
-                        const uint32_t* box) {
+// A tensor map of `rank` dimensions (innermost first): dims, byte strides
+// of dims 1.., box; zero fill outside the tensor.  False if the driver
+// refuses it.
+inline bool encode_tiled(CUtensorMap* map, CUtensorMapDataType type,
+                         CUtensorMapSwizzle swizzle, const void* base,
+                         int rank, const uint64_t* dims,
+                         const uint64_t* strides, const uint32_t* box) {
   EncodeTiledFn fn = encode_fn();
   if (fn == nullptr) return false;
   cuuint64_t d[5], s[4];
@@ -400,11 +519,19 @@ inline bool encode_bf16(CUtensorMap* map, const void* base, int rank,
     e[i] = 1;
     if (i + 1 < rank) s[i] = strides[i];
   }
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
-            const_cast<void*>(base), d, s, b, e,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return fn(map, type, (cuuint32_t)rank, const_cast<void*>(base), d, s, b,
+            e, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A bf16 tensor map with the 128-byte swizzle (the SW128 tiles above).
+inline bool encode_bf16(CUtensorMap* map, const void* base, int rank,
+                        const uint64_t* dims, const uint64_t* strides,
+                        const uint32_t* box) {
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                      CU_TENSOR_MAP_SWIZZLE_128B, base, rank, dims, strides,
+                      box);
 }
 
 }  // namespace hopper

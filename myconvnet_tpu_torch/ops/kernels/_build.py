@@ -83,8 +83,12 @@ SIGNATURES = {
     # stream
     "mcn_flash_bwd_dkv": (P, P, P, P, P, P, P, P, STRIDES, I32, I32, I32,
                           I32, F32, P),
-    # x, slope [N], offset [N], y, n, h, w, c, axis, fill, stream
-    "mcn_shear_f32": (P, P, P, P, I32, I32, I32, I32, I32, F32, P),
+    # x, slope [N], offset [N], y, n, h, w, c, axis, fill, path, p0, p1
+    # (affine.plan's), stream
+    "mcn_shear_f32": (P, P, P, P, I32, I32, I32, I32, I32, F32, I32, I32,
+                      I32, P),
+    # int[5] out: affine.kernel_facts()
+    "mcn_shear_facts": (P,),
     # x, op_idx [N] int32, params [N, 2 + 2C], y, n, elements per image,
     # c, stream
     "mcn_randaugment_ew_f32": (P, P, P, P, I32, I64, I32, P),
@@ -95,6 +99,14 @@ SIGNATURES = {
     # displacement, 0 for d_f1 (given f2) or 1 for d_f2 (given f1), stream
     "mcn_correlation_bwd_f32": (P, P, P, I32, I32, I32, I32, I32, I32, P),
     "mcn_correlation_bwd_bf16": (P, P, P, I32, I32, I32, I32, I32, I32, P),
+    # mode (0 forward, 1 d_f1, 2 d_f2), f1 (forward), the segments' map,
+    # g, out, n, h, w, c, max displacement, segment rows, panel channels,
+    # ty, slots, aux slots, reuse, tma (the plan's), stream
+    "mcn_correlation_tc": (I32, P, P, P, P, I32, I32, I32, I32, I32, I32,
+                           I32, I32, I32, I32, I32, I32, P),
+    # mode, c, max displacement, segment rows, panel channels, slots, aux
+    # slots, int[6] out: correlation's kernel_facts()
+    "mcn_correlation_tc_facts": (I32, I32, I32, I32, I32, I32, I32, P),
 }
 
 

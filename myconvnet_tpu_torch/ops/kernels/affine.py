@@ -22,10 +22,24 @@ the rows (axis 1) is the same with the roles of y and x swapped, so
 
 The last term does not vanish exactly when both sources are in the frame.
 The Pallas body sweeps bounded lane rolls over 32-row blocks because
-Mosaic has no vector gather; the CUDA kernel reads the two source pixels
-directly, one thread per output pixel, so it needs no bound on the slope
+Mosaic has no vector gather; the CUDA kernel needs no bound on the slope
 (``max_abs_slope`` is accepted so that call sites read as JAX's).  It
-moves one read and one write of the batch: bound by HBM bytes.
+moves one read and one write of the batch: bound by HBM bytes.  Its three
+paths (``csrc/affine.cu``) are chosen by :func:`plan` here, which the CPU
+tests hold, and whose copies of the kernel's constants a card test holds
+against :func:`kernel_facts`:
+
+* rows (axis 2): a block owns a chunk of whole rows, brought into
+  shared memory by one bulk copy (``"fast"``) or by plain loads where a
+  row is not a multiple of 16 bytes or the base is not 16-byte aligned
+  (``"staged"``);
+* columns (axis 1): a block owns TX columns x 64 output rows and brings
+  the 96 source rows they need as one TMA box (``"fast"``) or by plain
+  loads (``"staged"``); a strip whose slope needs more rows reads from
+  device memory;
+* ``"direct"``: one block an output row, reading both taps from device
+  memory, for rows too long for shared memory and strips wider than a TMA
+  box allows.
 
 On a CPU tensor :func:`shear_rows` runs :func:`shear_reference` (a
 gather); on a CUDA tensor it launches the kernel or raises.
@@ -33,6 +47,8 @@ gather); on a CUDA tensor it launches the kernel or raises.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import torch
@@ -40,6 +56,76 @@ import torch
 from myconvnet_tpu_torch.ops.kernels import _build
 
 _ENTRY = "mcn_shear_f32"
+PATHS = {"direct": 0, "staged": 1, "fast": 2}
+
+# What the planner assumes of the card (an H100 SXM) and of the kernel;
+# the card tests hold the kernel's constants against kernel_facts()
+SMEM_MAX = 232_448        # shared memory a block may ask for (227 KB)
+CHUNK_BYTES = 22_528      # row path: bytes of a block's rows, about
+ROW_THREADS = 256         # row path: threads a block, at most
+TILE_ROWS = 64            # column path: output rows of a strip
+BOX_ROWS = 96             # column path: source rows of its box
+MAX_BOX = 256             # TMA: elements of a box along one dimension
+COL_THREADS = 256         # column path: threads a block, about
+
+
+def plan(shape, axis: int, aligned: bool = True) -> dict:
+    """The kernel's launch plan for float32 ``shape`` = [N, H, W, C]
+    sheared along ``axis``; ``aligned``: the input's base is 16-byte
+    aligned.  ``path`` is "fast" (bulk copy or TMA), "staged" (plain
+    loads into the same shared buffers) or "direct"; ``smem`` the bytes a
+    block asks for.  Axis 2: ``rows`` a block, the grid's ``blocks`` and
+    ``threads`` a block.  Axis 1: ``tx`` columns a strip and ``threads`` a
+    block."""
+    n, h, w, c = shape
+    wc = w * c
+    if axis == 2:
+        row_bytes = 4 * wc
+        rb = max(1, min(n * h, CHUNK_BYTES // row_bytes))
+        smem = rb * row_bytes + 16
+        if smem > SMEM_MAX:
+            return dict(path="direct", smem=0)
+        fast = wc % 4 == 0 and aligned
+        groups = wc // 4 if fast else wc   # float4 groups (or floats) a row
+        return dict(path="fast" if fast else "staged", rows=rb,
+                    blocks=-(-(n * h) // rb),
+                    threads=groups * (ROW_THREADS // groups)
+                    if groups <= ROW_THREADS else ROW_THREADS, smem=smem)
+    fast = wc % 4 == 0 and aligned and 4 * c <= MAX_BOX
+    if fast:
+        tx = min(32, MAX_BOX // c // 4 * 4)
+    elif c <= MAX_BOX:
+        tx = min(32, MAX_BOX // c)
+    else:
+        return dict(path="direct", smem=0)
+    txc = tx * c
+    groups = txc // 4 if fast else txc
+    return dict(path="fast" if fast else "staged", tx=tx,
+                threads=groups * max(1, COL_THREADS // groups),
+                smem=BOX_ROWS * txc * 4 + 16)
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_plan(shape, axis, aligned) -> tuple[int, int, int]:
+    """(path code, p0, p1) of :func:`plan` for the C entry point, cached:
+    the wrapper asks for it at every launch."""
+    p = plan(shape, axis, aligned)
+    if p["path"] == "direct":
+        return 0, 0, 0
+    if axis == 2:
+        return PATHS[p["path"]], p["rows"], 0
+    return PATHS[p["path"]], p["tx"], p["threads"]
+
+
+def kernel_facts() -> dict:
+    """The built kernel's constants that the planner copies (strip rows,
+    box rows, the box limit, the row path's chunk bytes and threads).
+    Needs the card (the library is built there)."""
+    out = (ctypes.c_int * 5)()
+    _build.check("mcn_shear_facts", _build.library().mcn_shear_facts(
+        ctypes.cast(out, ctypes.c_void_p)))
+    return dict(tile_rows=out[0], box_rows=out[1], max_box=out[2],
+                chunk_bytes=out[3], row_threads=out[4])
 
 
 def _check(x, slope, offset, axis):
@@ -91,7 +177,7 @@ def shear_rows(x: torch.Tensor, slope: torch.Tensor, offset: torch.Tensor,
     x + slope[n] * y + offset[n]]`` (axis 2), or ``in[n, y + slope[n] * x
     + offset[n], x]`` (axis 1), bilinear, ``fill`` outside the frame.
     slope/offset: [N] float32 (pixels), on the device (no host sync)."""
-    del max_abs_slope  # the gather needs no bound on the slope
+    del max_abs_slope  # every path takes any slope
     _check(x, slope, offset, axis)
     if x.device.type == "cpu":
         return shear_reference(x, slope, offset, fill=fill, axis=axis)
@@ -104,9 +190,11 @@ def shear_rows(x: torch.Tensor, slope: torch.Tensor, offset: torch.Tensor,
     slope = slope.to(device=dev, dtype=torch.float32).contiguous()
     offset = offset.to(device=dev, dtype=torch.float32).contiguous()
     y = torch.empty_like(x)
+    path, p0, p1 = _launch_plan((n, h, w, c), axis,
+                                x.data_ptr() % 16 == 0)
     code = _build.library().mcn_shear_f32(
         x.data_ptr(), slope.data_ptr(), offset.data_ptr(), y.data_ptr(),
-        n, h, w, c, axis, float(fill),
+        n, h, w, c, axis, float(fill), path, p0, p1,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(_ENTRY, code)
     shear_rows.launches += 1

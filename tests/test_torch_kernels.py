@@ -649,3 +649,168 @@ def test_correlation_plain_version_is_the_definition(d, shape, dtype):
     counts = launch_counts()
     assert counts["correlation_fwd"] == counts["correlation_bwd_f1"] \
         == counts["correlation_bwd_f2"] == 0
+
+
+# ------------------------------------------------------------- planners
+# The shear and correlation kernels' Python planners (pure Python: the
+# card tests hold their copies of the kernels' constants against
+# ``kernel_facts()``).
+
+SHEAR_PATHS = [
+    # (shape, axis, 16-byte aligned base) -> path
+    (((1024, 224, 224, 3), 2, True), "fast"),
+    (((3, 21, 17, 3), 2, True), "staged"),     # 51 floats a row
+    (((1024, 224, 224, 3), 2, False), "staged"),
+    (((2, 4, 40000, 3), 2, True), "direct"),   # a row of 480 KB
+    (((1024, 224, 224, 3), 1, True), "fast"),
+    (((3, 21, 17, 3), 1, True), "staged"),
+    (((1024, 224, 224, 3), 1, False), "staged"),
+    (((2, 8, 8, 100), 1, True), "staged"),     # 4 C over a TMA box
+    (((2, 8, 8, 300), 1, True), "direct"),     # C over a box
+]
+
+
+@pytest.mark.parametrize("case,path", SHEAR_PATHS)
+def test_shear_plan_picks_its_path(case, path):
+    assert affine.plan(*case)["path"] == path
+
+
+SHEAR_SHAPES = [(1024, 224, 224, 3), (256, 224, 224, 3), (3, 21, 17, 3),
+                (4, 20, 24, 3), (2, 8, 8, 1), (2, 5, 9, 64), (1, 3, 4000, 3),
+                (2, 7, 13, 200)]
+
+
+@pytest.mark.parametrize("axis", [2, 1])
+@pytest.mark.parametrize("shape", SHEAR_SHAPES)
+def test_shear_plan_holds_its_rules(shape, axis):
+    """Every plan fits a block's shared memory; a block's chunk is whole
+    rows of about CHUNK_BYTES (one row at least) and the grid covers the
+    rows; a column strip is at most a TMA box wide (4-float groups on the
+    fast path), with threads that split evenly into rows of groups."""
+    n, h, w, c = shape
+    p = affine.plan(shape, axis)
+    if p["path"] == "direct":
+        return
+    assert p["smem"] <= affine.SMEM_MAX
+    if axis == 2:
+        row_bytes = 4 * w * c
+        assert 1 <= p["rows"] <= n * h
+        assert p["rows"] == 1 or p["rows"] * row_bytes <= affine.CHUNK_BYTES
+        assert p["smem"] == p["rows"] * row_bytes + 16
+        assert p["blocks"] == -(-(n * h) // p["rows"])
+        groups = w * c // 4 if p["path"] == "fast" else w * c
+        assert p["threads"] <= affine.ROW_THREADS
+        assert p["threads"] % min(groups, affine.ROW_THREADS) == 0
+    else:
+        txc = p["tx"] * c
+        assert 1 <= p["tx"] <= 32 and txc <= affine.MAX_BOX
+        groups = txc // 4 if p["path"] == "fast" else txc
+        if p["path"] == "fast":
+            assert txc % 4 == 0 and (w * c) % 4 == 0
+        assert p["threads"] % groups == 0 and p["threads"] <= 1024
+        assert p["smem"] == affine.BOX_ROWS * txc * 4 + 16
+
+
+CORR_PATHS = [
+    # (shape, d, dtype, aligned) -> (path, the forward's segment pixels)
+    (((32, 96, 128, 32), 4, torch.bfloat16, True), ("tma", 72)),
+    (((32, 48, 64, 256), 4, torch.bfloat16, True), ("tma", 72)),
+    (((32, 24, 32, 96), 4, torch.bfloat16, True), ("tma", 40)),
+    (((32, 6, 8, 196), 4, torch.bfloat16, True), ("staged", 16)),
+    (((3, 7, 37, 7), 1, torch.bfloat16, True), ("staged", 40)),
+    (((32, 96, 128, 32), 4, torch.bfloat16, False), ("staged", 72)),
+    (((32, 96, 128, 32), 4, torch.float32, True), ("cuda_cores", None)),
+    (((2, 8, 8, 264), 2, torch.bfloat16, True), ("cuda_cores", None)),
+]
+
+
+@pytest.mark.parametrize("mode", ["fwd", "bwd_f1", "bwd_f2"])
+@pytest.mark.parametrize("case,want", CORR_PATHS)
+def test_correlation_plan_picks_its_path(case, want, mode):
+    """The path by dtype, C and alignment; the segment (the other map's
+    pixels a block stages for one displacement row) is the shortest of the
+    kernel's that holds the tile's min(64, W) pixels and 2d more; panels of
+    32 channels where C <= 32 comes by TMA."""
+    from myconvnet_tpu_torch.ops.kernels import correlation as corr
+    p = corr.plan(mode, *case)
+    assert p["path"] == want[0]
+    if want[1] is not None:
+        (_, _, w, _), d = case[0], case[1]
+        assert p["seg"] == corr.seg_rows(mode, w, d) >= min(64, w) + 2 * d
+        assert p["pw"] == (32 if want[0] == "tma" and case[0][3] <= 32
+                           else 64)
+        if mode == "fwd":
+            assert p["seg"] == want[1]
+
+
+# the flow recipes' sites at batch 32, d = 4: (shape, mode) -> (segment
+# pixels, panel channels, reuse, slots, aux slots, ty, blocks an SM)
+CORR_SITE_PLANS = {
+    (32, 96, 128, 32): {"fwd": (72, 32, False, 4, 2, 4, 3),
+                        "bwd_f1": (80, 32, False, 4, 2, 4, 3),
+                        "bwd_f2": (80, 32, True, 11, 4, 4, 3)},
+    (32, 48, 64, 64): {"fwd": (72, 64, False, 3, 2, 4, 3),
+                       "bwd_f1": (80, 64, False, 3, 2, 4, 3),
+                       "bwd_f2": (80, 64, False, 4, 4, 4, 3)},
+    (32, 24, 32, 96): {"fwd": (40, 64, False, 4, 2, 1, 2),
+                       "bwd_f1": (48, 64, False, 4, 2, 1, 2),
+                       "bwd_f2": (48, 64, False, 4, 4, 1, 2)},
+    (32, 12, 16, 128): {"fwd": (40, 64, False, 4, 2, 2, 2),
+                        "bwd_f1": (48, 64, False, 4, 2, 2, 2),
+                        "bwd_f2": (48, 64, False, 4, 4, 2, 2)},
+    (32, 6, 8, 196): {"fwd": (16, 64, False, 3, 2, 1, 2),
+                      "bwd_f1": (16, 64, True, 11, 2, 2, 1),
+                      "bwd_f2": (16, 64, True, 11, 4, 2, 1)},
+    (32, 48, 64, 256): {"fwd": (72, 64, False, 3, 2, 4, 1),
+                        "bwd_f1": (80, 64, False, 4, 2, 4, 1),
+                        "bwd_f2": (80, 64, False, 4, 4, 4, 1)}}
+
+
+@pytest.mark.parametrize("mode", ["fwd", "bwd_f1", "bwd_f2"])
+@pytest.mark.parametrize("shape", sorted(CORR_SITE_PLANS))
+def test_correlation_plan_at_the_recipe_sites(shape, mode):
+    from myconvnet_tpu_torch.ops.kernels import correlation as corr
+    p = corr.plan(mode, shape, 4)
+    assert (p["seg"], p["pw"], p["reuse"], p["slots"], p["aux_slots"],
+            p["ty"], p["blocks_per_sm"]) == CORR_SITE_PLANS[shape][mode]
+    assert p["smem"] <= corr.SMEM_MAX
+
+
+@pytest.mark.parametrize("mode", ["fwd", "bwd_f1", "bwd_f2"])
+@pytest.mark.parametrize("shape,d", [
+    ((2, 96, 128, 32), 4), ((3, 7, 37, 7), 1), ((2, 5, 9, 21), 3),
+    ((1, 3, 3, 4), 4), ((2, 9, 33, 16), 0), ((1, 10, 40, 5), 4),
+    ((2, 16, 16, 256), 2), ((1, 2, 130, 64), 4)])
+def test_correlation_plan_holds_its_rules(shape, d, mode):
+    """Every tensor-core plan fits a block's shared memory; its ring is one
+    of those that fit with the most blocks an SM (registers: max_blocks;
+    shared memory), reusing rows where that costs no block; a ring that
+    keeps rows has the window's nd rows and one more; ty is the most rows
+    a block whose grid fills its waves within 0.02 of the best of TY; the
+    blocks cover the map in 64-pixel tiles of ty rows."""
+    from myconvnet_tpu_torch.ops.kernels import correlation as corr
+    n, h, w, c = shape
+    nd = 2 * d + 1
+    p = corr.plan(mode, shape, d)
+    seg, pw = p["seg"], p["pw"]
+    assert seg in corr.SEG_ROWS[mode] and seg >= min(64, w) + 2 * d
+    assert pw == (32 if c <= 32 and p["path"] == "tma" else 64)
+    assert p["smem"] == corr.smem_bytes(mode, c, d, seg, p["slots"],
+                                        p["aux_slots"], pw) <= corr.SMEM_MAX
+    assert p["blocks_per_sm"] == corr.blocks_per_sm(mode, c, p["smem"])
+    a = p["aux_slots"]
+    assert a == corr.AUX_SLOTS[mode]
+    fits = [(corr.blocks_per_sm(mode, c, corr.smem_bytes(mode, c, d, seg, s,
+                                                         a, pw)), r)
+            for r, s in ((True, nd + 2), (True, nd + 1), (False, 4),
+                         (False, 3), (False, 2))
+            if corr.smem_bytes(mode, c, d, seg, s, a, pw) <= corr.SMEM_MAX]
+    assert (p["blocks_per_sm"], p["reuse"]) == max(fits)
+    assert p["slots"] >= nd + 1 if p["reuse"] else p["slots"] in (2, 3, 4)
+    assert p["blocks"] == n * -(-h // p["ty"]) * -(-w // corr.TILE)
+    wave = corr.SMS * p["blocks_per_sm"]
+    fill = {t: corr.wave_fill(n * -(-h // t) * -(-w // corr.TILE), wave)
+            for t in corr.TY}
+    best = max(fill.values())
+    assert fill[p["ty"]] >= best - 0.02
+    assert all(fill[t] < best - 0.02 for t in corr.TY if t > p["ty"])

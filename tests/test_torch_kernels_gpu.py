@@ -571,7 +571,8 @@ def test_flash_backward_kernels_are_deterministic(cuda, shape):
 
 
 @pytest.mark.parametrize("kernel", ["flash_fwd", "flash_dq", "flash_dkv",
-                                    "conv_fused", "conv_pair"])
+                                    "conv_fused", "conv_pair", "corr_fwd",
+                                    "corr_bwd_f1", "corr_bwd_f2"])
 def test_kernels_launch_from_a_fresh_thread(cuda, kernel):
     """The kernels that encode tensor maps, launched from a thread that has
     made no CUDA call (as autograd's backward thread or a server's worker
@@ -583,13 +584,19 @@ def test_kernels_launch_from_a_fresh_thread(cuda, kernel):
     dl = fa.flash_attention_dq(q, k, v, out, do, lse)[1]
     fused = _fused_args((2, 4, 4, 64, 64), cuda, seed=6)
     pair = _pair_args((2, 8, 8, 64, 64, 64), cuda, seed=6)
+    f1, f2, grad = _corr_inputs((2, 6, 40, 32), 4, torch.bfloat16, cuda, 6)
     fn = {"flash_fwd": lambda: fa.flash_attention_fwd(q, k, v)[0],
           "flash_dq": lambda: fa.flash_attention_dq(q, k, v, out, do,
                                                     lse)[0],
           "flash_dkv": lambda: fa.flash_attention_dkv(q, k, v, do, lse,
                                                       dl)[0],
           "conv_fused": lambda: conv_fused.conv3x3_bn_relu(*fused),
-          "conv_pair": lambda: conv_pair.conv1x1_conv3x3_bn_relu(*pair)
+          "conv_pair": lambda: conv_pair.conv1x1_conv3x3_bn_relu(*pair),
+          "corr_fwd": lambda: correlation.correlation_fwd(f1, f2, 4),
+          "corr_bwd_f1": lambda: correlation.correlation_bwd_f1(grad, f1,
+                                                                f2, 4),
+          "corr_bwd_f2": lambda: correlation.correlation_bwd_f2(grad, f1,
+                                                                f2, 4)
           }[kernel]
     want = fn()
     got = {}
@@ -738,6 +745,42 @@ def test_shear_kernel_at_integer_shifts_matches_plain(cuda):
         torch.testing.assert_close(out, ref, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("axis", [2, 1])
+def test_shear_kernel_at_steep_slopes_matches_plain(cuda, axis):
+    """|slope| = 3: a column strip's source rows overflow the 96-row box,
+    so it reads its taps from device memory; rows shear whole rows out of
+    the frame."""
+    x = _rand01((4, 40, 72, 3), cuda, seed=4)
+    slope = torch.tensor([3.0, -3.0, 2.5, -0.5], device=cuda)
+    offset = affine._centered(slope, x.shape[3 - axis])
+    out = affine.shear_rows(x, slope, offset, fill=0.5, axis=axis)
+    ref = affine.shear_reference(x, slope, offset, fill=0.5, axis=axis)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, **RA_TOL)
+
+
+@pytest.mark.parametrize("shape,axis,path", [
+    ((2, 12, 20, 3), 2, "staged"), ((2, 12, 20, 3), 1, "staged"),
+    ((1, 2, 20000, 3), 2, "direct"), ((2, 8, 8, 300), 1, "direct"),
+    ((2, 70, 9, 100), 1, "staged")])
+def test_shear_kernel_paths_match_plain(cuda, shape, axis, path):
+    """The paths the planner picks besides the recipe's: a base 4 bytes
+    past a 16-byte boundary (plain loads into the same buffers), rows too
+    long for shared memory and strips wider than a TMA box (reads from
+    device memory), 100 channels (a strip of two columns)."""
+    numel = int(np.prod(shape))
+    buf = _rand01((numel + 1,), cuda, seed=5)
+    x = buf[1:].view(shape) if path == "staged" and shape[3] == 3 \
+        else buf[:numel].view(shape)
+    assert affine.plan(shape, axis, x.data_ptr() % 16 == 0)["path"] == path
+    slope = torch.linspace(-0.3, 0.3, shape[0], device=cuda)
+    offset = affine._centered(slope, shape[3 - axis]) + 1.5
+    out = affine.shear_rows(x, slope, offset, fill=0.5, axis=axis)
+    ref = affine.shear_reference(x, slope, offset, fill=0.5, axis=axis)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, **RA_TOL)
+
+
 @pytest.mark.parametrize("shape", RA_SHAPES)
 def test_rotate_kernels_match_plain(cuda, shape):
     x = _rand01(shape, cuda, seed=1)
@@ -835,7 +878,19 @@ CORR_CASES = [((2, 96, 128, 32), 4), ((2, 48, 64, 64), 4),
               ((2, 24, 32, 96), 4), ((2, 12, 16, 128), 4),
               ((2, 6, 8, 196), 4), ((2, 48, 64, 256), 4),
               ((3, 7, 37, 7), 1), ((2, 5, 9, 21), 3), ((1, 3, 3, 4), 4),
-              ((2, 9, 33, 16), 0), ((1, 10, 40, 5), 4), ((2, 16, 16, 16), 2)]
+              ((2, 9, 33, 16), 0), ((1, 10, 40, 5), 4), ((2, 16, 16, 16), 2),
+              # the tensor-core kernels' paths and edges (bf16; float32
+              # takes the CUDA-core kernels): blocks of 4 output rows on a
+              # map of 3 (H < TY) with 8-pixel segments and rows kept in the
+              # ring; 4 rows a block with rows reloaded; 2 rows a block and
+              # 32-channel panels at W = 40; rows kept by TMA at C = 256 on
+              # 8 pixels; ragged tiles at W = 37 and 70; two 64-pixel tiles
+              # with 256 channels; 196 channels staged by 8-byte copies, 7
+              # by plain loads
+              ((396, 3, 8, 16), 4), ((132, 12, 64, 64), 4),
+              ((132, 16, 40, 32), 4), ((2, 6, 8, 256), 4),
+              ((2, 20, 37, 64), 2), ((2, 5, 128, 256), 1),
+              ((2, 5, 37, 196), 3), ((2, 9, 70, 7), 0)]
 # float32 sums in another order: 2^-18 of max |volume|; gradients rounded
 # to the inputs' dtype: the same for float32, 2 bf16 ulps of the largest
 # gradient for bf16 (``_out_tol``); both relative to the reference's max
@@ -890,6 +945,56 @@ def test_correlation_autograd_matches_plain_autograd(cuda, dtype):
     correlation_volume(a, f2, max_displacement=3).sum().backward()
     assert kernels.launch_counts()["correlation_bwd_f2"] == 0
     assert kernels.launch_counts()["correlation_bwd_f1"] == 1
+
+
+@pytest.mark.parametrize("shape,d", [((2, 9, 37, 32), 4), ((2, 6, 8, 196), 2)])
+def test_correlation_kernels_take_misaligned_bases(cuda, shape, d):
+    """bf16 maps whose base is 2 bytes past a 16-byte boundary: no TMA, no
+    8-byte copies; the tensor-core kernels stage them by plain loads."""
+    f1, f2, grad = _corr_inputs(shape, d, torch.bfloat16, cuda, seed=2)
+    n = f1.numel()
+    a = torch.empty(2 * n + 1, dtype=torch.bfloat16, device=cuda)
+    m1, m2 = a[1:n + 1].view(shape), a[n + 1:].view(shape)
+    m1.copy_(f1)
+    m2.copy_(f2)
+    assert m1.data_ptr() % 8 and m2.data_ptr() % 8
+    assert correlation.plan("fwd", shape, d, torch.bfloat16,
+                            aligned=False)["path"] == "staged"
+    _assert_within(correlation.correlation_fwd(m1, m2, d),
+                   correlation.correlation_reference(f1, f2, d), CORR_TOL)
+    r1, r2 = correlation.correlation_bwd_reference(grad, f1, f2, d)
+    _assert_within(correlation.correlation_bwd_f1(grad, m1, m2, d), r1,
+                   _out_tol(r1))
+    _assert_within(correlation.correlation_bwd_f2(grad, m1, m2, d), r2,
+                   _out_tol(r2))
+
+
+def test_shear_and_correlation_planners_match_the_built_kernels(cuda):
+    """The planners' copies of the kernels' constants and shared-memory
+    layouts equal what the built kernels give: the shear's strip, box and
+    chunk; for every correlation plan of the recipe sites and of
+    CORR_CASES, the bytes a block asks for (within what the card allows),
+    at least the planned blocks an SM, and the SMs."""
+    facts = affine.kernel_facts()
+    assert (facts["tile_rows"], facts["box_rows"], facts["max_box"],
+            facts["chunk_bytes"], facts["row_threads"]) == (
+        affine.TILE_ROWS, affine.BOX_ROWS, affine.MAX_BOX,
+        affine.CHUNK_BYTES, affine.ROW_THREADS)
+    sites = [((32, 96, 128, 32), 4), ((32, 48, 64, 64), 4),
+             ((32, 24, 32, 96), 4), ((32, 12, 16, 128), 4),
+             ((32, 6, 8, 196), 4), ((32, 48, 64, 256), 4)]
+    for shape, d in sites + CORR_CASES:
+        for mode in correlation.MODES:
+            p = correlation.plan(mode, shape, d)
+            if p["path"] == "cuda_cores":
+                continue
+            f = correlation.kernel_facts(mode, shape[3], d, p["seg"],
+                                         p["pw"], p["slots"],
+                                         p["aux_slots"])
+            assert f["smem"] == p["smem"] <= f["smem_max"], (shape, mode)
+            assert f["blocks_per_sm"] >= p["blocks_per_sm"], (shape, mode)
+            assert (f["sms"], f["max_channels"]) == (
+                correlation.SMS, correlation.MAX_TC_CHANNELS)
 
 
 def test_correlation_kernel_reads_views_and_rejects_what_it_does_not_take(
