@@ -26,8 +26,9 @@
    and 8 images), counts the kernel launches they cause (13 conv_pair and
    7 bn_act per device call), checks the logits against the plain path
    (the same module on the host CPU, where each wrapper runs its plain
-   version), prints measure_latency p50 for request sizes 1 and 8, and the
-   frozen forward's device busy time and top kernels at batch 8.
+   version), prints measure_latency p50 for request sizes 1 and 8, the
+   frozen forward's device busy time and top kernels at batch 8, and each
+   bn_act launch's device time inside that forward (torch.profiler).
 5. Training: step 1 of ``configs/cifar100_resnet18.py`` at full width from
    seeded JAX-layout weights, with the same batch and draws, on the card
    and on the host (loss and every gradient's norm compared); then
@@ -48,9 +49,10 @@
 8. RandAugment kernels: ``shear_rows`` (row and column shears at slopes
    over +-0.3, the three-shear rotate at angles over +-30 degrees) and
    ``randaugment_ew`` (a random op per image, and each of its 8 ops forced
-   for the batch) against their plain versions at [1024, 224, 224, 3] and
-   [256, 224, 224, 3] float32, with ``F.grid_sample`` of the same shear as
-   the shear's yardstick.
+   for the batch, on its one-pass path and its two-pass path forced, with
+   the CUDA kernels a layer) against their plain versions at [1024, 224,
+   224, 3] and [256, 224, 224, 3] float32, with ``F.grid_sample`` of the
+   same shear as the shear's yardstick.
 9. ViT-B/16 (``configs/imagenet_vit_b16.py`` as written, RandAugment
    (2, 9) over the FAST pool): augment_train of 8 images on the card
    against the host with the same draws, for the recipe and its three
@@ -101,14 +103,17 @@ elementwise), from this run's shapes.
 
 ``python3 chip_smoke.py --compare DIR`` (DIR: another checkout, e.g. the
 parent commit unpacked by ``git archive``) runs only the kernel timing of
-the shear and the correlation kernels (``time_tree_kernels``), once a
-process, for DIR, this checkout, this checkout, DIR in that order on the
-same card: each tree's kernels built from its own sources, shear_rows at
-[1024, 224, 224, 3] f32 on both axes with ``F.grid_sample`` beside it, the
-three bf16 correlation kernels at CORR_SITES, each held against its plain
-version.  It prints one line a kernel and shape with the four times and
-writes ``chiprun_out/compare.json``; it exits non-zero if a run fails or
-a kernel disagrees with its plain version.
+bn_act and randaugment_ew (``time_tree_kernels``), once a process, for
+DIR, this checkout, this checkout, DIR in that order on the same card:
+each tree's kernels built from its own sources, bn_act at the served and
+the ResNet-18 eval sites (back to back, and each launch inside one served
+forward by the profiler), randaugment_ew at [1024, 224, 224, 3] f32 with a random op an
+image and with contrast forced, on each path a tree has (a tree whose
+wrapper takes torch statistics also times them and its kernel alone),
+each held against its plain version.  It prints one line a kernel and
+case with the four times and writes ``chiprun_out/compare.json``; it
+exits non-zero if a run fails or a kernel disagrees with its plain
+version.
 
 Exits non-zero on any failure.  The second-to-last line of stdout is the
 kernels' JSON record (thirteen entries; a correlation entry's ``ms``,
@@ -151,6 +156,7 @@ ACT_SITES = [("stem.conv", (BATCH, 112, 112, 64)),
              ("stage4.block1.conv_a", (BATCH, 14, 14, 512)),
              ("stage4.block1.conv_b", (BATCH, 7, 7, 512))]
 PER_CALL = {"conv_pair": 13, "bn_act": 7}
+BN_ACT_KERNEL = "scale_shift_act"   # in the name of every bn_act kernel
 
 # CIFAR-100 ResNet-18 at 32x32, batch 128: the stem runs at 16x16, the
 # four stages at 8x8, 4x4, 2x2 and 1x1
@@ -237,6 +243,10 @@ AUG_POLICIES = {"off": ["augment.randaugment=None"], "fast": [],
 RA_SHAPES = [(VIT_RECIPE_BATCH, 224, 224, 3), (VIT_BATCH, 224, 224, 3)]
 RA_SITES = {("shear_rows", 2): 6, ("shear_rows", 1): 4,
             ("randaugment_ew", "random"): 2}
+# randaugment_ew's paths: one kernel a layer over a cluster's shared memory
+# (the planner's at 224 x 224 x 3), and the statistics and apply kernels
+# forced
+RA_PATHS = ("one_pass", "two_pass")
 # the policies on the card against the host at batch 8 of 224x224: the
 # crop matmuls differ by float32 round-off, which posterize, solarize and
 # equalize can turn into a whole level at a rare pixel: 1e-4 (normalized
@@ -792,8 +802,8 @@ def check_randaugment_kernels(dev, g):
     """shear_rows (B7: row and column shears at slopes over +-0.3, and
     the three-shear rotate at angles over +-30 degrees) and
     randaugment_ew (B8: a random op per image, and each op forced for the
-    batch) against their plain versions at RA_SHAPES; one row per kernel,
-    case and shape."""
+    batch, on each path of RA_PATHS) against their plain versions at
+    RA_SHAPES; one row per kernel, case, path and shape."""
     import torch
     import torch.nn.functional as F
 
@@ -858,6 +868,7 @@ def check_randaugment_kernels(dev, g):
             lambda: affine.rotate(x, angle, max_abs_radians=math.pi / 6),
             plain_rotate, 3 * (8 * numel + 8 * n), 18 * numel))
         mag = torch.rand(n, generator=g, device=dev) * 2 - 1
+        planned = randaugment_ew.plan(shape)
         for case in ("random", *randaugment_ew.PALLAS_POOL):
             if case == "random":
                 idx = torch.randint(0, 8, (n,), generator=g, device=dev)
@@ -865,24 +876,30 @@ def check_randaugment_kernels(dev, g):
                 idx = torch.full((n,), randaugment_ew.PALLAS_POOL.index(
                     case), device=dev, dtype=torch.int64)
             args = (x, idx, mag)
-            params = randaugment_ew.image_stats(x)
-            params[:, 0] = mag
-            idx32 = idx.int()
-            # the statistics read x once, the kernel reads and writes it;
-            # the wrapper's time split into the torch statistics and the
-            # kernel alone
-            rows.append(row(
-                "randaugment_ew", case, shape,
-                RA_SITES.get(("randaugment_ew", case), 0)
-                if n == VIT_RECIPE_BATCH else 0,
-                randaugment_ew.apply_layer(*args),
-                randaugment_ew.apply_layer_reference(*args),
-                lambda: randaugment_ew.apply_layer(*args),
-                lambda: randaugment_ew.apply_layer_reference(*args),
-                12 * numel + 12 * n, 8 * numel,
-                stats_ms=lambda: randaugment_ew.image_stats(x),
-                kernel_alone_ms=lambda: randaugment_ew.launch(
-                    x, idx32, params)))
+            ref = randaugment_ew.apply_layer_reference(*args)
+            # one read and one write of x, the op and magnitude an image;
+            # each path as planned and forced, the planner's path at the
+            # recipe's batch counted as the step's two layers
+            for path in RA_PATHS:
+                def fn(path=path):
+                    return randaugment_ew.apply_layer(*args, path=path)
+                on_path = n == VIT_RECIPE_BATCH and path == planned["path"]
+                r = row(
+                    "randaugment_ew", f"{case} {path}", shape,
+                    RA_SITES.get(("randaugment_ew", case), 0)
+                    if on_path else 0,
+                    fn(), ref, fn,
+                    lambda: randaugment_ew.apply_layer_reference(*args),
+                    8 * numel + 12 * n, 8 * numel)
+                r["path"] = path
+                r["plan"] = randaugment_ew.plan(shape, path=path)
+                if case == "random":
+                    r["kernels_per_layer"] = device_busy(fn, iters=3)[2]
+                    log(f"randaugment_ew random {path} {list(shape)}: "
+                        f"{r['kernels_per_layer']:g} CUDA kernels a layer "
+                        f"(torch.profiler), plan {r['plan']}")
+                rows.append(r)
+            del ref
         del x
         torch.cuda.empty_cache()
     return rows
@@ -981,15 +998,23 @@ def check_correlation_kernels(dev, g):
 
 def time_tree_kernels(root):
     """For ``--time-kernels ROOT`` (one process a tree): the kernels of the
-    checkout at ROOT built from its sources, timed at the shear's and the
-    correlation's recipe shapes, each checked against its plain version;
-    returns {"card", "build_s", "rows": [...]}."""
+    checkout at ROOT built from its sources, timed at the sites of
+    ``bn_act`` (B1: the served ResNet-50's, batch 8, and the CIFAR
+    ResNet-18's, batch 128, bf16, back to back by ``cuda_ms``, and each
+    launch inside one served forward by the profiler) and of ``randaugment_ew`` (B8: the ViT recipe's [1024, 224,
+    224, 3], a random op an image and contrast forced; the planner's path,
+    and the two-pass path forced where the tree has it; for a tree whose
+    wrapper still takes torch statistics, their time and its kernel's
+    alone), each checked against its plain version; returns {"card",
+    "build_s", "rows": [...]}."""
+    import numpy as np
     import torch
-    import torch.nn.functional as F
     sys.path.insert(0, root)
+    from myconvnet_tpu_torch import models, recipes, serving_http
     from myconvnet_tpu_torch.core.precision import FULL, apply_backend_flags
-    from myconvnet_tpu_torch.ops.kernels import _build, affine
-    from myconvnet_tpu_torch.ops.kernels import correlation as corr
+    from myconvnet_tpu_torch.ops.kernels import _build, bn_act
+    from myconvnet_tpu_torch.ops.kernels import randaugment_ew as ew
+    from myconvnet_tpu_torch.weights import random_jax_params
     assert os.path.dirname(os.path.abspath(_build.__file__)).startswith(
         os.path.abspath(root)), "kernels imported from another tree"
     apply_backend_flags(FULL)
@@ -997,55 +1022,69 @@ def time_tree_kernels(root):
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
+    for site, shape in ACT_SITES + ACT_SITES_R18:
+        c = shape[-1]
+        x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+        a = torch.rand(c, generator=g, device=dev) + 0.5
+        b = torch.randn(c, generator=g, device=dev)
+        err, ok = compare(bn_act.fused_scale_shift_act(x, a, b, "relu"),
+                          bn_act.scale_shift_act_reference(x, a, b, "relu"),
+                          **TOL["bn_act"])
+        rows.append(dict(
+            kernel="bn_act", case=site, shape=list(shape), max_abs_err=err,
+            ok=ok, ms=cuda_ms(lambda: bn_act.fused_scale_shift_act(
+                x, a, b, "relu"), iters=50)))
+    cfg = recipes.load_config(CONFIG)
+    template = models.get_model(cfg["model"], cfg["num_classes"],
+                                **cfg["model_kwargs"])
+    params, state = random_jax_params(template, SEED)
+    route = serving_http.build_route("resnet50", "classify", CONFIG,
+                                     params=params, state=state,
+                                     batch=BATCH, device=dev)
+    x8 = np.random.RandomState(SEED).randn(
+        BATCH, *route.input_shape[-3:]).astype(np.float32)
+    times = [ms for _, ms in kernel_times(lambda: route.fn(x8),
+                                          BN_ACT_KERNEL)]
+    rows.append(dict(kernel="bn_act", case="in the served forward",
+                     shape=[BATCH, 224, 224, 3], max_abs_err=0.0,
+                     ok=len(times) == PER_CALL["bn_act"], ms=sum(times),
+                     per_site_ms=times))
+    del route, params, state
     shape = RA_SHAPES[0]
     n = shape[0]
     x = torch.rand(shape, generator=g, device=dev)
-    slope = torch.linspace(-0.3, 0.3, n, device=dev)
-    for axis in (2, 1):
-        off = affine._centered(slope, shape[3 - axis])
-        out = affine.shear_rows(x, slope, off, axis=axis)
-        err, ok = compare(out, affine.shear_reference(x, slope, off,
-                                                      axis=axis),
-                          **TOL["shear_rows"])
-        grid = shear_grid(slope, off, shape, axis)
-        xn = x.permute(0, 3, 1, 2)
-        rows.append(dict(
-            kernel="shear_rows", case=f"axis {axis}", shape=list(shape),
-            max_abs_err=err, ok=ok,
-            ms=cuda_ms(lambda: affine.shear_rows(x, slope, off, axis=axis),
-                       iters=10),
-            library_ms=cuda_ms(lambda: F.grid_sample(
-                xn, grid, mode="bilinear", padding_mode="zeros",
-                align_corners=True), iters=10)))
-        del grid, out
-    del x
-    torch.cuda.empty_cache()
-    d, k = CORR_D, (2 * CORR_D + 1) ** 2
-    for site, shp, _ in CORR_SITES:
-        f1, f2 = (torch.randn(shp, generator=g, device=dev).bfloat16()
-                  for _ in range(2))
-        grad = torch.randn((*shp[:3], k), generator=g, device=dev)
-        ref = corr.correlation_reference(f1, f2, d)
-        r1, r2 = corr.correlation_bwd_reference(grad, f1, f2, d)
-        fns = {"correlation_fwd": (lambda: corr.correlation_fwd(f1, f2, d),
-                                   ref, CORR_TOL * float(ref.abs().max())),
-               "correlation_bwd_f1": (
-                   lambda: corr.correlation_bwd_f1(grad, f1, f2, d), r1,
-                   CORR_GRAD_ULPS * 2.0 ** (math.floor(math.log2(float(
-                       r1.float().abs().max()))) - 7)),
-               "correlation_bwd_f2": (
-                   lambda: corr.correlation_bwd_f2(grad, f1, f2, d), r2,
-                   CORR_GRAD_ULPS * 2.0 ** (math.floor(math.log2(float(
-                       r2.float().abs().max()))) - 7))}
-        for name, (fn, want, tol) in fns.items():
-            got = fn()
-            torch.cuda.synchronize()
-            err = float((got.float() - want.float()).abs().max())
-            rows.append(dict(kernel=name, case=site, shape=list(shp),
-                             max_abs_err=err, tol=tol, ok=err <= tol,
-                             ms=cuda_ms(fn), library_ms=None))
-        del f1, f2, grad, ref, r1, r2
-        torch.cuda.empty_cache()
+    mag = torch.rand(n, generator=g, device=dev) * 2 - 1
+    old = hasattr(ew, "launch")   # statistics in torch, then the kernel
+    for case in ("random", "contrast"):
+        idx = (torch.randint(0, 8, (n,), generator=g, device=dev)
+               if case == "random" else torch.full(
+                   (n,), ew.PALLAS_POOL.index(case), device=dev,
+                   dtype=torch.int64))
+        ref = ew.apply_layer_reference(x, idx, mag)
+        for path in (None,) if old else (None, "two_pass"):
+            kw = {} if path is None else {"path": path}
+            out = ew.apply_layer(x, idx, mag, **kw)
+            err, ok = compare(out, ref, **TOL["randaugment_ew"])
+            del out
+            row = dict(kernel="randaugment_ew",
+                       case=f"{case} {path or 'planned'}",
+                       shape=list(shape), max_abs_err=err, ok=ok,
+                       ms=cuda_ms(lambda: ew.apply_layer(x, idx, mag, **kw),
+                                  iters=10),
+                       kernels_per_layer=device_busy(
+                           lambda: ew.apply_layer(x, idx, mag, **kw),
+                           iters=3)[2])
+            if old:
+                params = ew.image_stats(x)
+                params[:, 0] = mag
+                idx32 = idx.int()
+                row.update(stats_ms=cuda_ms(lambda: ew.image_stats(x),
+                                            iters=10),
+                           kernel_alone_ms=cuda_ms(
+                               lambda: ew.launch(x, idx32, params),
+                               iters=10))
+            rows.append(row)
+        del ref
     card = run(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"])
     return dict(card=card, build_s=build_s, rows=rows)
@@ -1054,8 +1093,9 @@ def time_tree_kernels(root):
 def compare_trees(other):
     """``--compare OTHER``: time_tree_kernels of OTHER and of this
     checkout, one process each, in the order other, this, this, other;
-    prints a line a kernel and shape and returns 0 when every run finished
-    and every kernel agreed with its plain version."""
+    prints a line a kernel and case with the four times ("-" where a tree
+    has no such row) and returns 0 when every run finished and every
+    kernel agreed with its plain version."""
     order = [("other", other), ("this", ROOT), ("this", ROOT),
              ("other", other)]
     runs = []
@@ -1071,17 +1111,31 @@ def compare_trees(other):
             return 1
         runs.append(dict(label=label, root=root, **json.loads(lines[-1])))
     log(runs[0]["card"])
-    log("kernel case: other, this, this, other ms (library ms); max abs "
-        "error this")
+    log("kernel case [shape]: other, this, this, other ms; max abs error "
+        "this (other)")
+    keys = []
+    for r in (runs[1], runs[0]):
+        keys += [(row["kernel"], row["case"]) for row in r["rows"]
+                 if (row["kernel"], row["case"]) not in keys]
     bad = []
-    for i, row in enumerate(runs[1]["rows"]):
-        times = ", ".join(f"{r['rows'][i]['ms']:.4f}" for r in runs)
-        lib = row["library_ms"]
-        log(f"{row['kernel']} {row['case']} {row['shape']}: {times}"
-            + (f" ({lib:.4f})" if lib is not None else "")
-            + f"; err {row['max_abs_err']:.3g}")
-        bad += [(r["label"], row["kernel"], row["case"]) for r in runs
-                if not r["rows"][i]["ok"]]
+    for key in keys:
+        found = [next((row for row in r["rows"]
+                       if (row["kernel"], row["case"]) == key), None)
+                 for r in runs]
+        times = ", ".join("-" if row is None else f"{row['ms']:.4f}"
+                          for row in found)
+        errs = " ".join(f"{row['max_abs_err']:.3g}" for row in found[:2]
+                        if row is not None)
+        shape = next(row["shape"] for row in found if row is not None)
+        extra = "".join(
+            f"; {k} " + ", ".join("-" if row is None or k not in row else
+                                  json.dumps(row[k]) for row in found)
+            for k in ("kernels_per_layer", "stats_ms", "kernel_alone_ms",
+                      "per_site_ms")
+            if any(row is not None and k in row for row in found))
+        log(f"{key[0]} {key[1]} {shape}: {times}; err {errs}{extra}")
+        bad += [(r["label"], *key) for r, row in zip(runs, found)
+                if row is not None and not row["ok"]]
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "compare.json"), "w") as f:
@@ -1193,6 +1247,17 @@ def serve_and_check(dev):
         f"{n_kernels:.0f} kernels; top: " + "; ".join(
             f"{name[:60]} {ms:.4f} ms x{k:g}" for name, ms, k in top[:5]))
 
+    # bn_act's launches inside one forward, each as long as the profiler
+    # saw it there (not back to back, as cuda_ms times them)
+    checks["bn_act_in_forward_ms"] = [
+        ms for _, ms in kernel_times(lambda: route.fn(x8), BN_ACT_KERNEL)]
+    log(f"bn_act in the served forward (torch.profiler): "
+        f"{[round(t, 4) for t in checks['bn_act_in_forward_ms']]} ms, "
+        f"sum {sum(checks['bn_act_in_forward_ms']):.4f} ms")
+    if len(checks["bn_act_in_forward_ms"]) != PER_CALL["bn_act"]:
+        raise AssertionError("the profiler did not see bn_act's launches "
+                             "in the served forward")
+
     # logits on the card vs the plain path (same trees, host CPU)
     x = (images[8] - route.mean) / route.std
     card = route.fn(x).float().cpu().numpy()
@@ -1254,6 +1319,26 @@ def device_busy(fn, iters=5):
     busy += hi - lo
     span = max(b for _, b in spans) - spans[0][0]
     return busy / 1e3 / iters, span / 1e3 / iters, len(spans) / iters, top
+
+
+def kernel_times(fn, match):
+    """[name, device ms] of each kernel of one call of ``fn`` whose name
+    holds ``match``, in launch order (torch.profiler, after a warm-up
+    call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = sorted((e.time_range.start, e.time_range.end, e.name)
+                    for e in prof.events()
+                    if e.device_type == DeviceType.CUDA and match in e.name)
+    return [[name[:90], (b - a) / 1e3] for a, b, name in events]
 
 
 def read_losses(run_dir, steps, what):
@@ -2123,6 +2208,11 @@ def main() -> int:
             "flownetc_train": flownetc_counts}
     launches = {name: sum(c[name] for c in runs.values())
                 for name in SOURCES}
+    in_forward = checks["bn_act_in_forward_ms"]
+    for r, ms in zip([r for r in details if r["kernel"] == "bn_act"
+                      and r["site"] in dict(ACT_SITES)], in_forward):
+        r["in_forward_ms"] = ms
+    summary["bn_act"]["in_forward_ms"] = sum(in_forward)
 
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
@@ -2131,7 +2221,9 @@ def main() -> int:
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")},
          **({"by_path": correlation_by_path(name, details, runs)}
-            if name in CORR else {})}
+            if name in CORR else {}),
+         **({"in_forward_ms": summary[name]["in_forward_ms"]}
+            if name == "bn_act" else {})}
         for name in SOURCES]}
     bad = [n for n, s in summary.items() if not s["ok"]]
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

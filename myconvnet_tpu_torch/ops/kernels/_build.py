@@ -48,9 +48,14 @@ STRIDES = ctypes.POINTER(ctypes.c_longlong)
 
 # C entry points: name -> argtypes (restype is int, a cudaError_t)
 SIGNATURES = {
-    # x, a, b, y, rows, channels, act, stream
-    "mcn_scale_shift_act_f32": (P, P, P, P, I64, I32, I32, P),
-    "mcn_scale_shift_act_bf16": (P, P, P, P, I64, I32, I32, P),
+    # x, a, b, y, rows, channels, act, path (0 scalar, 1 vectors with a
+    # channel index each, 2 a fixed channel group a thread), threads,
+    # blocks (bn_act.plan's), stream
+    "mcn_scale_shift_act_f32": (P, P, P, P, I64, I32, I32, I32, I32, I32, P),
+    "mcn_scale_shift_act_bf16": (P, P, P, P, I64, I32, I32, I32, I32, I32,
+                                 P),
+    # int[4] out: bn_act.kernel_facts()
+    "mcn_scale_shift_act_facts": (P,),
     # x, w1, s1, b1, w3, s3, b3, y, n, h, w, cin, cm, cout, TH, TW, CS (0,
     # 0, 0: the planner's), stream
     "mcn_conv_pair": (P, P, P, P, P, P, P, P,
@@ -89,9 +94,13 @@ SIGNATURES = {
                       I32, P),
     # int[5] out: affine.kernel_facts()
     "mcn_shear_facts": (P,),
-    # x, op_idx [N] int32, params [N, 2 + 2C], y, n, elements per image,
-    # c, stream
-    "mcn_randaugment_ew_f32": (P, P, P, P, I32, I64, I32, P),
+    # x, op_idx [N] int64, signed_mag [N], y, n, H * W, c, path (0 one
+    # pass, 1 two passes), p0, p1, scratch (randaugment_ew.plan's), stream
+    "mcn_randaugment_ew_f32": (P, P, P, P, I32, I32, I32, I32, I64, I64, P,
+                               P),
+    # c, blocks a cluster, shared-memory bytes a block, int[7] out:
+    # randaugment_ew.kernel_facts()
+    "mcn_randaugment_ew_facts": (I32, I32, I32, P),
     # f1, f2, out, n, h, w, c, max displacement, stream
     "mcn_correlation_fwd_f32": (P, P, P, I32, I32, I32, I32, I32, P),
     "mcn_correlation_fwd_bf16": (P, P, P, I32, I32, I32, I32, I32, P),

@@ -2,19 +2,27 @@
 
 Port of ``myconvnet_tpu/ops/pallas/bn_act.py`` (``fused_scale_shift_act``
 at ``:48`` and ``bn_inference_fused`` at ``:84``).  The CUDA kernel is
-``csrc/bn_act.cu``: one read of x and one write of y, 16-byte vector
-accesses when C is a multiple of the vector width; it is bandwidth-bound
-on the H100, and that one pass is its floor.  In ResNet-50's eval forward
-it is the bias + ReLU epilogue of the seven convs that stay in cuDNN and
-are followed by a ReLU (the stem conv; conv_a and the stride-2 conv_b of
-the first block of stages 2-4), or the BN + ReLU there when BN is not
-folded.
+``csrc/bn_act.cu``: one read of x and one write of y, bound by HBM bytes.
+In ResNet-50's eval forward it is the bias + ReLU epilogue of the seven
+convs that stay in cuDNN and are followed by a ReLU (the stem conv; conv_a
+and the stride-2 conv_b of the first block of stages 2-4), or the BN + ReLU
+there when BN is not folded; most of those sites move a few microseconds
+of bytes, so a launch's fixed cost is most of their time.  :func:`plan`
+sizes the grid to at most one wave, with threads a block and blocks chosen
+so that the grid's stride in vectors is a multiple of C / VEC: each thread
+then keeps one group of VEC channels, loads its scale and shift once, and
+does no index arithmetic in its loop (four 16-byte loads in flight a
+thread).  A card test holds the planner's assumptions against
+:func:`kernel_facts`.
 
 On a CPU tensor the wrapper runs :func:`scale_shift_act_reference`; on a
 CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -24,6 +32,61 @@ from myconvnet_tpu_torch.ops.kernels import _build
 ACTS = {"none": 0, "relu": 1, "relu6": 2, "leaky_relu": 3}
 _ENTRY = {torch.float32: "mcn_scale_shift_act_f32",
           torch.bfloat16: "mcn_scale_shift_act_bf16"}
+PATHS = {"scalar": 0, "vector": 1, "group": 2}
+
+# What the planner assumes of the card (an H100 SXM) and of the kernel;
+# the card test holds them against kernel_facts()
+SMS = 132
+THREADS = 256        # threads a block, about
+MAX_THREADS = 1024   # the most a block may have
+THREADS_SM = 1024    # threads of the wave on an SM: its loads in flight
+                     # (4 x 16 bytes a thread), not more threads, keep HBM
+                     # busy, and the kernel holds at least this many
+
+
+def plan(rows: int, c: int, dtype: torch.dtype, aligned: bool = True
+         ) -> dict:
+    """The launch of [rows, c] ``dtype`` (float32 or bfloat16); ``aligned``:
+    x's base is 16-byte aligned.  ``path``: "group" (a fixed channel group
+    of ``vec`` channels a thread, the rule), "vector" (a channel index a
+    16-byte vector: C / vec is above the most threads a block may have,
+    so no grid's stride is a multiple of it) or "scalar" (C not a multiple
+    of vec, or a misaligned base); ``threads`` a block and ``blocks``, at
+    most one wave and no more than the work."""
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    total = rows * c
+    if c % vec or not aligned:
+        path, threads, work, group = "scalar", THREADS, total, None
+    else:
+        group, work = c // vec, total // vec
+        if group <= MAX_THREADS:
+            path, threads = "group", group * max(1, THREADS // group)
+        else:
+            path, threads, group = "vector", THREADS, None
+    blocks = max(1, min(SMS * max(1, THREADS_SM // threads),
+                        -(-work // threads)))
+    return dict(path=path, threads=threads, blocks=blocks, vec=vec,
+                group=group)
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_plan(rows, c, dtype, aligned) -> tuple[int, int, int]:
+    """(path code, threads, blocks) of :func:`plan`, cached: the wrapper
+    asks for it at every launch."""
+    p = plan(rows, c, dtype, aligned)
+    return PATHS[p["path"]], p["threads"], p["blocks"]
+
+
+def kernel_facts() -> dict:
+    """SMs of the card, blocks of 256 threads an SM holds of the channel
+    group kernel (f32 and bf16), and the loads in flight a thread.  Needs
+    the card (the library is built there)."""
+    out = (ctypes.c_int * 4)()
+    _build.check("mcn_scale_shift_act_facts",
+                 _build.library().mcn_scale_shift_act_facts(
+                     ctypes.cast(out, ctypes.c_void_p)))
+    return dict(sms=out[0], blocks_per_sm_f32=out[1],
+                blocks_per_sm_bf16=out[2], unroll=out[3])
 
 
 def scale_shift_act_reference(x: torch.Tensor, a: torch.Tensor,
@@ -66,9 +129,12 @@ def fused_scale_shift_act(x: torch.Tensor, a: torch.Tensor,
     b = b.to(device=x.device, dtype=torch.float32).contiguous()
     y = torch.empty_like(x)
     entry = _ENTRY[x.dtype]
+    rows = x.numel() // c if c else 0
+    path, threads, blocks = _launch_plan(rows, c, x.dtype,
+                                         x.data_ptr() % 16 == 0)
     code = getattr(_build.library(), entry)(
-        x.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(),
-        x.numel() // c if c else 0, c, ACTS[act],
+        x.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(), rows, c,
+        ACTS[act], path, threads, blocks,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(entry, code)
     fused_scale_shift_act.launches += 1

@@ -814,3 +814,170 @@ def test_correlation_plan_holds_its_rules(shape, d, mode):
     best = max(fill.values())
     assert fill[p["ty"]] >= best - 0.02
     assert all(fill[t] < best - 0.02 for t in corr.TY if t > p["ty"])
+
+
+# The RandAugment layer's planner (B8): one pass over a cluster's shared
+# memory where an image fits, else two passes.
+RA_PATHS = [
+    # (shape, 16-byte aligned base, forced path) -> (path, blocks a cluster)
+    (((1024, 224, 224, 3), True, None), ("one_pass", 8)),
+    (((256, 224, 224, 3), True, None), ("one_pass", 8)),
+    (((2, 128, 128, 3), True, None), ("one_pass", 2)),
+    (((2, 160, 200, 3), True, None), ("one_pass", 4)),
+    (((3, 21, 17, 4), True, None), ("one_pass", 1)),
+    (((2, 512, 512, 3), True, None), ("two_pass", None)),   # > 8 blocks
+    (((3, 21, 17, 3), True, None), ("two_pass", None)),     # 4071 bytes
+    (((3, 21, 17, 1), True, None), ("two_pass", None)),
+    (((1024, 224, 224, 3), False, None), ("two_pass", None)),
+    (((1024, 224, 224, 3), True, "two_pass"), ("two_pass", None)),
+    (((3, 21, 17, 4), True, "one_pass"), ("one_pass", 1)),
+]
+
+
+@pytest.mark.parametrize("case,want", RA_PATHS)
+def test_randaugment_plan_picks_its_path(case, want):
+    p = randaugment_ew.plan(*case)
+    assert (p["path"], p.get("k")) == want
+
+
+@pytest.mark.parametrize("case", [((2, 512, 512, 3), True),
+                                  ((3, 21, 17, 3), True),
+                                  ((1024, 224, 224, 3), False)])
+def test_randaugment_plan_refuses_an_impossible_one_pass(case):
+    with pytest.raises(ValueError, match="no one-pass plan"):
+        randaugment_ew.plan(*case, path="one_pass")
+    with pytest.raises(ValueError, match="path is one of"):
+        randaugment_ew.plan(*case, path="three_pass")
+    with pytest.raises(ValueError, match="channels"):
+        randaugment_ew.plan(case[0][:3] + (2,))
+
+
+RA_PLAN_SHAPES = [(1024, 224, 224, 3), (2, 128, 128, 3), (2, 130, 130, 3),
+                  (2, 160, 200, 3), (3, 21, 17, 4), (3, 20, 17, 3),
+                  (3, 24, 17, 1), (1, 3, 5, 4), (2, 250, 250, 3),
+                  (2, 512, 512, 3), (3, 21, 17, 3), (5, 33, 31, 1)]
+
+
+@pytest.mark.parametrize("shape", RA_PLAN_SHAPES)
+def test_randaugment_plan_holds_its_rules(shape):
+    """One pass: k is the smallest cluster whose slices fit the shared
+    memory that leaves MIN_BLOCKS_SM blocks an SM; every slice starts at a
+    pixel and a 16-byte boundary, none is empty, and the k slices cover
+    the image exactly once.  Two passes: a partial for every
+    STATS_PIXELS pixels, at most MAX_APPLY_BLOCKS apply blocks, float4
+    loads exactly when every image starts 16-byte aligned."""
+    n, h, w, c = shape
+    e = h * w * c
+    room = (randaugment_ew.SMEM_SM // randaugment_ew.MIN_BLOCKS_SM
+            - randaugment_ew.SMEM_RESERVED)
+    p = randaugment_ew.plan(shape)
+    if p["path"] == "one_pass":
+        k, s = p["k"], p["slice"]
+        assert p["smem"] == randaugment_ew.HEADER_BYTES + 4 * s <= room
+        covered = np.zeros(e, np.int32)
+        for r in range(k):
+            lo, hi = r * s, min((r + 1) * s, e)
+            assert hi > lo and lo % c == 0 and (4 * lo) % 16 == 0
+            assert (hi - lo) % 4 == 0
+            covered[lo:hi] += 1
+        assert (covered == 1).all()
+        unit = np.lcm(4, c)
+        for q in [q for q in randaugment_ew.CLUSTERS if q < k]:
+            assert randaugment_ew.HEADER_BYTES + 4 * (
+                -(-e // (unit * q)) * unit) > room
+    else:
+        unit = np.lcm(4, c)   # no cluster of 8 has whole-pixel slices
+        assert e % 4 or randaugment_ew.HEADER_BYTES + 4 * (
+            -(-e // (unit * 8)) * unit) > room
+        assert p["vec"] == (e % 4 == 0)
+        assert p["stats_blocks"] == -(-(h * w) // randaugment_ew.STATS_PIXELS)
+        assert 1 <= p["apply_blocks"] <= randaugment_ew.MAX_APPLY_BLOCKS
+        assert p["scratch_bytes"] == n * p["stats_blocks"] * 48
+
+
+@pytest.mark.parametrize("c", [1, 3, 4])
+@pytest.mark.parametrize("hw", [(20, 24), (21, 17), (64, 48)])
+def test_image_stats_gray_mean_is_the_float64_mean_of_lumas(c, hw):
+    """A numpy model of the gray mean (each luma rounded to float32 as
+    gray() rounds it, summed in float64, divided by H * W in float64,
+    rounded once) equals image_stats bit for bit, and for the channel
+    counts JAX takes (1, 3) JAX's _image_stats within 1e-6; min and max
+    exactly."""
+    x = np.random.RandomState(c).rand(4, *hw, c).astype(np.float32)
+    r, g, b = (x[..., 0],) * 3 if c == 1 else (x[..., 0], x[..., 1],
+                                                 x[..., 2])
+    f32 = np.float32
+    luma = (r * f32(0.299) + g * f32(0.587)) + b * f32(0.114)
+    assert luma.dtype == np.float32
+    want = (luma.astype(np.float64).sum(axis=(1, 2))
+            / np.float64(hw[0] * hw[1])).astype(np.float32)
+    got = randaugment_ew.image_stats(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got[:, 1], want)
+    np.testing.assert_array_equal(got[:, 2:2 + c], x.min(axis=(1, 2)))
+    np.testing.assert_array_equal(got[:, 2 + c:], x.max(axis=(1, 2)))
+    if c in (1, 3):
+        jax_stats = np.asarray(jew._image_stats(jnp.asarray(x)))
+        np.testing.assert_allclose(got[:, 1], jax_stats[:, 1], rtol=0,
+                                   atol=1e-6)
+        np.testing.assert_array_equal(got[:, 2:], jax_stats[:, 2:])
+
+
+# bn_act (B1) at the served ResNet-50's sites (batch 8) and the CIFAR
+# ResNet-18's (batch 128), and channel counts off the rule
+BN_ACT_SITES = [(8, 112, 112, 64), (8, 56, 56, 128), (8, 28, 28, 128),
+                (8, 28, 28, 256), (8, 14, 14, 256), (8, 14, 14, 512),
+                (8, 7, 7, 512), (128, 16, 16, 64), (128, 4, 4, 128),
+                (128, 2, 2, 256), (128, 1, 1, 512)]
+
+
+def _bn_act_visits(p, nvec, unroll=4):
+    """The vectors each thread of plan p visits, as the channel-group
+    kernel's loops walk them: [threads of the grid, visits], -1 past
+    the work."""
+    gid = np.arange(p["threads"] * p["blocks"], dtype=np.int64)
+    stride = len(gid)
+    steps = -(-nvec // stride)
+    v = gid[:, None] + stride * np.arange(max(steps, unroll))[None, :]
+    return np.where(v < nvec, v, -1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BN_ACT_SITES + [(2, 5, 3, 24),
+                                                 (3, 7, 7, 2048)])
+def test_bn_act_plan_gives_each_thread_one_channel_group(shape, dtype):
+    """At every site a numpy model of the launch touches every 16-byte
+    vector exactly once, each thread's vectors start at one channel, the
+    grid is at most one wave and no more blocks than the work needs."""
+    rows, c = int(np.prod(shape[:-1])), shape[-1]
+    p = bn_act.plan(rows, c, dtype)
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    assert p["path"] == "group" and p["vec"] == vec
+    group, nvec = c // vec, rows * c // vec
+    assert p["group"] == group and p["threads"] <= bn_act.MAX_THREADS
+    assert (p["threads"] * p["blocks"]) % group == 0
+    assert p["blocks"] <= bn_act.SMS * max(1, bn_act.THREADS_SM
+                                           // p["threads"])
+    assert (p["blocks"] - 1) * p["threads"] < nvec
+    visits = _bn_act_visits(p, nvec)
+    seen = visits[visits >= 0]
+    assert len(seen) == nvec and (np.sort(seen) == np.arange(nvec)).all()
+    gid = np.arange(len(visits))[:, None]
+    assert ((visits % group == gid % group) | (visits < 0)).all()
+
+
+@pytest.mark.parametrize("case,path", [
+    ((100, 7, torch.bfloat16, True), "scalar"),       # C % 8 != 0
+    ((100, 24, torch.float32, False), "scalar"),      # misaligned base
+    ((10, 8200, torch.float32, True), "vector"),      # 2050 groups
+    ((10, 16384, torch.bfloat16, True), "vector"),    # 2048 groups
+    ((10, 8192, torch.bfloat16, True), "group"),      # 1024 groups
+    ((10, 24, torch.bfloat16, True), "group")])       # 3 groups
+def test_bn_act_plan_falls_back_where_no_group_fits(case, path):
+    """A channel group a thread needs C % vec == 0, an aligned base and a
+    block of a multiple of C / vec threads (at most 1024); else a channel
+    index a vector, or an element a step."""
+    p = bn_act.plan(*case)
+    assert p["path"] == path
+    if path == "group":
+        assert p["threads"] % p["group"] == 0
+        assert p["threads"] <= bn_act.MAX_THREADS

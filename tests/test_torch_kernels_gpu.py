@@ -69,6 +69,56 @@ def test_bn_act_kernel_matches_plain(cuda, dtype, act, c):
     torch.testing.assert_close(out, ref, **BN_ACT_TOL)
 
 
+# every bn_act site of the served ResNet-50 (batch 8) and of the CIFAR
+# ResNet-18's eval forward (batch 128)
+BN_ACT_SITES = [(8, 112, 112, 64), (8, 56, 56, 128), (8, 28, 28, 128),
+                (8, 28, 28, 256), (8, 14, 14, 256), (8, 14, 14, 512),
+                (8, 7, 7, 512), (128, 16, 16, 64), (128, 4, 4, 128),
+                (128, 2, 2, 256), (128, 1, 1, 512)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BN_ACT_SITES + [
+    (3, 2, 16384),    # bf16: 2048 channel groups, no grid holds them
+    (3, 2, 8200)])    # f32: 2050; bf16: C % 8 != 0
+def test_bn_act_kernel_at_the_sites_matches_plain(cuda, shape, dtype):
+    """Each planned path at each site, all four activations, bit for bit;
+    one launch a call."""
+    rng = np.random.RandomState(len(shape) + shape[-1])
+    c = shape[-1]
+    x = torch.from_numpy((rng.randn(*shape) * 4).astype(np.float32))
+    x = x.to(cuda, dtype)
+    a = torch.from_numpy((rng.rand(c) + 0.5).astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.randn(c).astype(np.float32)).to(cuda)
+    for act in ACTS:
+        before = bn_act.fused_scale_shift_act.launches
+        out = bn_act.fused_scale_shift_act(x, a, b, act)
+        torch.cuda.synchronize()
+        assert bn_act.fused_scale_shift_act.launches == before + 1
+        ref = bn_act.scale_shift_act_reference(x, a, b, act)
+        torch.testing.assert_close(out, ref, **BN_ACT_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_act_kernel_takes_a_misaligned_view(cuda, dtype):
+    """A contiguous view 2 or 4 bytes past a 16-byte boundary takes the
+    element-a-step path, and a and b as views of a larger tensor."""
+    rng = np.random.RandomState(9)
+    shape, c = (8, 14, 14, 256), 256
+    n = int(np.prod(shape))
+    buf = torch.from_numpy(rng.randn(n + 1).astype(np.float32)).to(cuda,
+                                                                   dtype)
+    x = buf[1:].view(shape)
+    assert x.data_ptr() % 16
+    ab = torch.from_numpy((rng.rand(2 * c + 1) + 0.5).astype(np.float32))
+    a, b = ab[1:c + 1].to(cuda), ab[c + 1:].to(cuda)
+    assert bn_act.plan(n // c, c, dtype, aligned=False)["path"] == "scalar"
+    out = bn_act.fused_scale_shift_act(x, a, b, "relu")
+    ref = bn_act.scale_shift_act_reference(x, a, b, "relu")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, **BN_ACT_TOL)
+
+
 def test_bn_act_kernel_rejects_what_it_does_not_take(cuda):
     x = torch.zeros(4, 8, device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
@@ -572,11 +622,13 @@ def test_flash_backward_kernels_are_deterministic(cuda, shape):
 
 @pytest.mark.parametrize("kernel", ["flash_fwd", "flash_dq", "flash_dkv",
                                     "conv_fused", "conv_pair", "corr_fwd",
-                                    "corr_bwd_f1", "corr_bwd_f2"])
+                                    "corr_bwd_f1", "corr_bwd_f2",
+                                    "randaugment_ew"])
 def test_kernels_launch_from_a_fresh_thread(cuda, kernel):
-    """The kernels that encode tensor maps, launched from a thread that has
-    made no CUDA call (as autograd's backward thread or a server's worker
-    may be), give what they give on the main thread."""
+    """The kernels that encode tensor maps or launch clusters, launched
+    from a thread that has made no CUDA call (as autograd's backward
+    thread or a server's worker may be), give what they give on the main
+    thread."""
     import threading
 
     q, k, v, do = _flash_inputs((2, 3, 100, 64), cuda, seed=6)
@@ -585,6 +637,7 @@ def test_kernels_launch_from_a_fresh_thread(cuda, kernel):
     fused = _fused_args((2, 4, 4, 64, 64), cuda, seed=6)
     pair = _pair_args((2, 8, 8, 64, 64, 64), cuda, seed=6)
     f1, f2, grad = _corr_inputs((2, 6, 40, 32), 4, torch.bfloat16, cuda, 6)
+    ew = _ew_inputs((4, 128, 128, 3), "random", cuda, seed=6)
     fn = {"flash_fwd": lambda: fa.flash_attention_fwd(q, k, v)[0],
           "flash_dq": lambda: fa.flash_attention_dq(q, k, v, out, do,
                                                     lse)[0],
@@ -596,7 +649,8 @@ def test_kernels_launch_from_a_fresh_thread(cuda, kernel):
           "corr_bwd_f1": lambda: correlation.correlation_bwd_f1(grad, f1,
                                                                 f2, 4),
           "corr_bwd_f2": lambda: correlation.correlation_bwd_f2(grad, f1,
-                                                                f2, 4)
+                                                                f2, 4),
+          "randaugment_ew": lambda: randaugment_ew.apply_layer(*ew)
           }[kernel]
     want = fn()
     got = {}
@@ -797,27 +851,77 @@ def test_rotate_kernels_match_plain(cuda, shape):
     torch.testing.assert_close(out, ref, **RA_TOL)
 
 
-@pytest.mark.parametrize("shape", RA_SHAPES)
-@pytest.mark.parametrize("op", list(randaugment_ew.PALLAS_POOL) + ["random"])
-def test_randaugment_ew_kernel_matches_plain(cuda, shape, op):
-    """Each op of PALLAS_POOL forced for the whole batch, and a random op
-    per image; signed magnitudes spread over [-1, 1]."""
-    x = _rand01(shape, cuda, seed=2)
-    x[0, ..., 1] = 0.25  # a flat channel: autocontrast leaves it
+# randaugment_ew at the recipe's batch and at odd shapes, with each path
+# its planner can give them: 1071, 357 and 1428 floats an image (only the
+# last a whole number of float4s), clusters of 2 with a shorter last slice
+# and of 4
+RA_EW_CASES = [((1024, 224, 224, 3), "one_pass"),
+               ((1024, 224, 224, 3), "two_pass"),
+               ((3, 21, 17, 3), "two_pass"), ((3, 21, 17, 1), "two_pass"),
+               ((3, 21, 17, 4), "one_pass"), ((3, 21, 17, 4), "two_pass"),
+               ((2, 130, 130, 3), "one_pass"), ((2, 160, 200, 3), "one_pass")]
+
+
+def _ew_inputs(shape, op, dev, seed=2):
+    """[0, 1] images with a flat channel in image 0, the op forced for the
+    batch (or random per image) as int64, magnitudes over [-1, 1]."""
+    x = _rand01(shape, dev, seed=seed)
+    x[0, ..., shape[3] // 2] = 0.25  # a flat channel: autocontrast leaves it
     n = shape[0]
-    g = torch.Generator(device=cuda).manual_seed(3)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
     if op == "random":
-        idx = torch.randint(0, 8, (n,), generator=g, device=cuda)
+        idx = torch.randint(0, 8, (n,), generator=g, device=dev)
     else:
         idx = torch.full((n,), randaugment_ew.PALLAS_POOL.index(op),
-                         device=cuda, dtype=torch.int64)
-    mag = torch.rand(n, generator=g, device=cuda) * 2 - 1
+                         device=dev, dtype=torch.int64)
+    mag = torch.rand(n, generator=g, device=dev) * 2 - 1
+    return x, idx, mag
+
+
+@pytest.mark.parametrize("shape,path", RA_EW_CASES)
+@pytest.mark.parametrize("op", list(randaugment_ew.PALLAS_POOL) + ["random"])
+def test_randaugment_ew_kernel_matches_plain(cuda, shape, path, op):
+    """Each op of PALLAS_POOL forced for the whole batch, and a random op
+    per image, on each path; one counted launch a layer."""
+    x, idx, mag = _ew_inputs(shape, op, cuda)
     before = randaugment_ew.apply_layer.launches
-    out = randaugment_ew.apply_layer(x, idx, mag)
+    out = randaugment_ew.apply_layer(x, idx, mag, path=path)
     torch.cuda.synchronize()
     assert randaugment_ew.apply_layer.launches == before + 1
     ref = randaugment_ew.apply_layer_reference(x, idx, mag)
     torch.testing.assert_close(out, ref, **RA_TOL)
+
+
+@pytest.mark.parametrize("shape,path", RA_EW_CASES[:3])
+def test_randaugment_ew_kernel_is_deterministic(cuda, shape, path):
+    """Two runs bit-equal: the statistics combine in fixed orders."""
+    x, idx, mag = _ew_inputs(shape, "random", cuda, seed=7)
+    first = randaugment_ew.apply_layer(x, idx, mag, path=path)
+    second = randaugment_ew.apply_layer(x, idx, mag, path=path)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("path,kernels", [("one_pass", 1), ("two_pass", 2)])
+def test_randaugment_ew_launches_one_kernel_a_layer(cuda, path, kernels):
+    """torch.profiler sees one CUDA kernel for a layer on the one-pass path
+    (the int64 op index and float32 magnitudes are read as they come, no
+    conversion, no statistics pass) and two on the two-pass path."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x, idx, mag = _ew_inputs((64, 224, 224, 3), "random", cuda, seed=8)
+    randaugment_ew.apply_layer(x, idx, mag, path=path)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        randaugment_ew.apply_layer(x, idx, mag, path=path)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False)]
+    assert len(names) == kernels, names
+    assert all("ra_" in name for name in names), names
 
 
 def test_randaugment_kernels_reject_what_they_do_not_take(cuda):
@@ -832,6 +936,11 @@ def test_randaugment_kernels_reject_what_they_do_not_take(cuda):
         randaugment_ew.apply_layer(x.double(), idx, s)
     with pytest.raises(ValueError):
         randaugment_ew.apply_layer(x.transpose(1, 2), idx, s)
+    with pytest.raises(ValueError, match="channels"):
+        randaugment_ew.apply_layer(x[..., :2].contiguous(), idx, s)
+    odd = torch.zeros(2, 21, 17, 3, device=cuda)
+    with pytest.raises(ValueError, match="no one-pass plan"):
+        randaugment_ew.apply_layer(odd, idx, s, path="one_pass")
 
 
 POLICIES = {"fast": dict(randaugment=(2, 9)),
@@ -995,6 +1104,32 @@ def test_shear_and_correlation_planners_match_the_built_kernels(cuda):
             assert f["blocks_per_sm"] >= p["blocks_per_sm"], (shape, mode)
             assert (f["sms"], f["max_channels"]) == (
                 correlation.SMS, correlation.MAX_TC_CHANNELS)
+
+
+def test_randaugment_and_bn_act_planners_match_the_built_kernels(cuda):
+    """randaugment_ew's planner copies of the kernel's constants equal the
+    built kernel's, and every one-pass plan of the recipe's and the tests'
+    shapes gets at least MIN_BLOCKS_SM blocks an SM and clusters on the
+    card; bn_act's planner assumes the card's SMs and no more threads an
+    SM than its kernel holds, and the kernel's four loads a thread."""
+    shapes = [s for s, _ in RA_EW_CASES] + [(256, 224, 224, 3),
+                                            (2, 128, 128, 3)]
+    for shape in shapes:
+        p = randaugment_ew.plan(shape)
+        if p["path"] != "one_pass":
+            continue
+        f = randaugment_ew.kernel_facts(shape[3], p["k"], p["smem"])
+        assert (f["threads"], f["header_bytes"], f["stats_pixels"],
+                f["record_bytes"], f["max_apply_blocks"]) == (
+            randaugment_ew.THREADS, randaugment_ew.HEADER_BYTES,
+            randaugment_ew.STATS_PIXELS, randaugment_ew.RECORD_BYTES,
+            randaugment_ew.MAX_APPLY_BLOCKS), shape
+        assert f["blocks_per_sm"] >= randaugment_ew.MIN_BLOCKS_SM, shape
+        assert f["clusters"] >= 1, shape
+    f = bn_act.kernel_facts()
+    assert f["sms"] == bn_act.SMS and f["unroll"] == 4
+    for key in ("blocks_per_sm_f32", "blocks_per_sm_bf16"):
+        assert f[key] * 256 >= bn_act.THREADS_SM, f
 
 
 def test_correlation_kernel_reads_views_and_rejects_what_it_does_not_take(
