@@ -9,7 +9,12 @@
    nvcc per source, all at once) and prints the build time.
 3. Holds each kernel against its plain PyTorch version at every shape the
    main paths give it: the served ResNet-50 (batch 8, 224x224) and the
-   CIFAR-100 ResNet-18 recipe (batch 128, 32x32).  Max error against the
+   CIFAR-100 ResNet-18 recipe (batch 128, 32x32); the input kernels
+   (normalize_u8, pad_crop_u8) also at fashion_mnist_smallnet's [128, 28,
+   28, 1], with bf16 output, and at [256, 224, 224, 3], each row with its
+   plan and the wrapper's host time (normalize_u8's with one
+   ``torch.addcmul`` as its library time; pad_crop_u8 at the recipe's
+   shape with each staging mode forced).  Max error against the
    stated tolerance, and both device times from CUDA events with the
    stream held (plus cuDNN's unfused bf16 version of conv_pair and
    conv_fused, cuDNN's conv alone and the launch plan, blocks and split of
@@ -103,17 +108,20 @@ elementwise), from this run's shapes.
 
 ``python3 chip_smoke.py --compare DIR`` (DIR: another checkout, e.g. the
 parent commit unpacked by ``git archive``) runs only the kernel timing of
-bn_act and randaugment_ew (``time_tree_kernels``), once a process, for
+normalize_u8 and pad_crop_u8 (``time_tree_kernels``), once a process, for
 DIR, this checkout, this checkout, DIR in that order on the same card:
-each tree's kernels built from its own sources, bn_act at the served and
-the ResNet-18 eval sites (back to back, and each launch inside one served
-forward by the profiler), randaugment_ew at [1024, 224, 224, 3] f32 with a random op an
-image and with contrast forced, on each path a tree has (a tree whose
-wrapper takes torch statistics also times them and its kernel alone),
-each held against its plain version.  It prints one line a kernel and
-case with the four times and writes ``chiprun_out/compare.json``; it
-exits non-zero if a run fails or a kernel disagrees with its plain
-version.
+each tree's kernels built from its own sources, timed back to back at
+the shapes of the input rows above (pad_crop_u8 also with each staging
+mode forced where a tree has them), each held against its plain version,
+with its wrapper's host time.  It prints one line a kernel and case with
+the four times and writes ``chiprun_out/compare.json``; it exits non-zero
+if a run fails or a kernel disagrees with its plain version.
+
+``python3 chip_smoke.py --sweep-inputs`` times normalize_u8 and
+pad_crop_u8 at those shapes under other launch geometries than their
+planners' (``sweep_input_plans``: each planner run with one of its
+constants changed), each held against its plain version, and writes
+``chiprun_out/input_sweep.json``.
 
 Exits non-zero on any failure.  The second-to-last line of stdout is the
 kernels' JSON record (thirteen entries; a correlation entry's ``ms``,
@@ -124,6 +132,8 @@ its ``launches`` both paths' runs, and ``by_path`` splits them), the last ``{"ok
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import importlib
 import json
 import math
@@ -177,6 +187,17 @@ ACT_SITES_R18 = [("r18 stem.conv", (TRAIN_BATCH, 16, 16, 64)),
                  ("r18 stage3.block1.conv_a", (TRAIN_BATCH, 2, 2, 256)),
                  ("r18 stage4.block1.conv_a", (TRAIN_BATCH, 1, 1, 512))]
 INPUT_SHAPE = (TRAIN_BATCH, 32, 32, 3)
+# the input kernels (B2 normalize_u8, B3 pad_crop_u8) at the recipe's
+# batch and at the design checks of their redesign: (case, [N, H, W, C],
+# out dtype, B3's pad and flip, per-channel mean and std (None: the CIFAR
+# recipe's), whether it is the CIFAR recipe's main path)
+INPUT_CASES = [
+    ("cifar", INPUT_SHAPE, "float32", 4, True, None, True),
+    ("fashion_mnist_smallnet", (TRAIN_BATCH, 28, 28, 1), "float32", 2,
+     False, ((0.2860,), (0.3530,)), False),
+    ("cifar bf16", INPUT_SHAPE, "bfloat16", 4, True, None, False),
+    ("imagenet 224", (256, 224, 224, 3), "float32", 4, True,
+     ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225)), False)]
 PER_TRAIN_STEP = {"pad_crop_u8": 1}
 PER_EVAL_BATCH = {"normalize_u8": 1, "conv_fused": 5, "bn_act": 4}
 
@@ -369,18 +390,40 @@ def graph_ms(fn):
     return ms
 
 
-def host_us(fn, iters=50):
+def host_samples(fn, iters, samples):
     """Host microseconds per call of ``fn`` (a kernel's wrapper: checks,
-    tensor-map encoding, the launch), the device left to run behind."""
+    tensor-map encoding, the launch), the device left to run behind: one
+    reading a run of ``iters`` calls, each run started on an idle device,
+    ``samples`` runs, sorted."""
     import torch
     fn()
+    out = []
+    for _ in range(samples):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        out.append((time.perf_counter() - t0) * 1e6 / iters)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    us = (time.perf_counter() - t0) * 1e6 / iters
-    torch.cuda.synchronize()
-    return us
+    return sorted(out)
+
+
+def host_us(fn, iters=50):
+    """Host microseconds per call of ``fn``: one run of ``host_samples``."""
+    return host_samples(fn, iters, 1)[0]
+
+
+@contextlib.contextmanager
+def staged(pc, mode):
+    """pad_crop_u8 (the module ``pc``) launched with its planner's plan at
+    staging ``mode`` ("copy" or "direct") in place of its own pick."""
+    planned = pc._launch_plan
+    pc._launch_plan = functools.lru_cache()(
+        lambda *a: pc.launch_args(pc.plan(*a, mode=mode)))
+    try:
+        yield
+    finally:
+        pc._launch_plan = planned
 
 
 def compare(out, ref, rtol, atol):
@@ -600,57 +643,133 @@ def correlation_by_path(name, details, runs):
     return out
 
 
-def check_cifar_kernels(dev, g):
-    """normalize_u8, pad_crop_u8 and conv_fused against their plain
-    versions at the CIFAR recipe's shapes; one row per shape."""
+def input_kernel_inputs(case, dev, g):
+    """(images, offsets, flip, mean, std, out dtype, pad) of an INPUT_CASES
+    row on ``dev``: seeded images, offsets in [-pad, pad], flips on half the
+    images (none where the case has no flip)."""
     import torch
-    import torch.nn.functional as F
 
     from myconvnet_tpu_torch import recipes
     from myconvnet_tpu_torch.data.augment import stats
+    _, shape, dtype, pad, flips, mean_std, _ = case
+    n = shape[0]
+    x = torch.randint(0, 256, shape, generator=g, device=dev,
+                      dtype=torch.uint8)
+    off = torch.randint(-pad, pad + 1, (n, 2), generator=g, device=dev,
+                        dtype=torch.int32)
+    flip = (torch.rand(n, generator=g, device=dev) < 0.5) & flips
+    if mean_std is None:
+        mean, std = stats(recipes.make_augment(
+            recipes.load_config(CIFAR_CONFIG)["augment"]), dev)
+    else:
+        mean, std = (torch.tensor(v, device=dev) for v in mean_std)
+    return x, off, flip, mean, std, getattr(torch, dtype), pad
+
+
+def input_bytes(kernel, x, out_dtype):
+    """Bytes an input kernel must move: x read once, y written once, mean
+    and std (and pad_crop_u8's offsets and flips) read once."""
+    import torch
+    n, c = x.shape[0], x.shape[-1]
+    out = torch.empty((), dtype=out_dtype).element_size()
+    extra = 8 * c + (9 * n if kernel == "pad_crop_u8" else 0)
+    return x.numel() * (1 + out) + extra
+
+
+def check_cifar_kernels(dev, g):
+    """normalize_u8 and pad_crop_u8 against their plain versions at every
+    INPUT_CASES row (the CIFAR recipe's shape on the main path; the rest
+    design checks, sites 0), each with its bound, plan, wrapper host time,
+    and for normalize_u8 at float32 one ``torch.addcmul`` as the library
+    time and two yardsticks of PyTorch's own streams over the output
+    (``torch_fill_ms``: a write of it; ``torch_copy_ms``: the uint8 images
+    cast into it, the kernel's bytes less mean and std); pad_crop_u8 at the recipe's
+    shape also with each staging mode forced; then conv_fused at the
+    recipe's sites.  One row per shape."""
+    import torch
+    import torch.nn.functional as F
+
     from myconvnet_tpu_torch.ops.kernels import conv_fused, normalize_u8, \
         pad_crop_u8
 
     def row(kernel, shape, sites, out, ref, fn, plain_fn, nbytes, ops,
-            rate, **extra):
+            rate, iters=20, library=None, **extra):
         torch.cuda.synchronize()
         err, ok = compare(out, ref, **TOL[kernel])
         b_ms, b_by = bound(nbytes, ops, rate)
         r = dict(kernel=kernel, shape=list(shape), sites=sites,
                  max_abs_err=err, ok=ok, bound_ms=b_ms, bound_by=b_by,
-                 library_ms=None, ms=cuda_ms(fn),
-                 plain_ms=cuda_ms(plain_fn),
-                 **{k: cuda_ms(f) for k, f in extra.items()})
+                 library_ms=library and cuda_ms(library, iters),
+                 ms=cuda_ms(fn, iters), plain_ms=cuda_ms(plain_fn),
+                 **{k: cuda_ms(f, iters) for k, f in extra.items()})
         log(f"{kernel} {r['shape']} x{sites}: max_abs_err={err:.3g} "
             f"(tol rtol={TOL[kernel]['rtol']:.3g} "
             f"atol={TOL[kernel]['atol']:.3g}) ok={ok} "
-            + " ".join(f"{k}={r[k]:.4f}ms" for k in
-                       ("ms", "plain_ms", *extra)))
+            + " ".join(f"{k}={r[k]:.5f}ms" for k in
+                       ("ms", "plain_ms", "bound_ms", *extra))
+            + ("" if library is None else
+               f" library_ms={r['library_ms']:.5f}ms"))
         return r
 
-    mean, std = stats(recipes.make_augment(
-        recipes.load_config(CIFAR_CONFIG)["augment"]), dev)
     rows = []
-    x = torch.randint(0, 256, INPUT_SHAPE, generator=g, device=dev,
-                      dtype=torch.uint8)
-    rows.append(row(
-        "normalize_u8", INPUT_SHAPE, 1,
-        normalize_u8.normalize_u8(x, mean, std),
-        normalize_u8.normalize_u8_reference(x, mean, std),
-        lambda: normalize_u8.normalize_u8(x, mean, std),
-        lambda: normalize_u8.normalize_u8_reference(x, mean, std),
-        5 * x.numel() + 24, 2 * x.numel(), F32_FLOPS))
-    off = torch.randint(-4, 5, (TRAIN_BATCH, 2), generator=g, device=dev,
-                        dtype=torch.int32)
-    flip = torch.rand(TRAIN_BATCH, generator=g, device=dev) < 0.5
-    args = (x, off, flip, mean, std)
-    rows.append(row(
-        "pad_crop_u8", INPUT_SHAPE, 1,
-        pad_crop_u8.pad_crop_flip_normalize(*args),
-        pad_crop_u8.pad_crop_reference(*args),
-        lambda: pad_crop_u8.pad_crop_flip_normalize(*args),
-        lambda: pad_crop_u8.pad_crop_reference(*args),
-        5 * x.numel() + 9 * TRAIN_BATCH + 24, 2 * x.numel(), F32_FLOPS))
+    for case in INPUT_CASES:
+        name, shape, _, _, _, _, main = case
+        x, off, flip, mean, std, dt, pad = input_kernel_inputs(case, dev, g)
+        sites = 1 if main else 0
+        scale, shift = normalize_u8.scale_shift(mean, std, dev)
+        y = torch.empty(shape, dtype=dt, device=dev)
+        rows.append(row(
+            "normalize_u8", shape, sites,
+            normalize_u8.normalize_u8(x, mean, std, dt),
+            normalize_u8.normalize_u8_reference(x, mean, std, dt),
+            lambda: normalize_u8.normalize_u8(x, mean, std, dt),
+            lambda: normalize_u8.normalize_u8_reference(x, mean, std, dt),
+            input_bytes("normalize_u8", x, dt), 2 * x.numel(), F32_FLOPS,
+            iters=100, library=(lambda: torch.addcmul(shift, x, scale))
+            if dt == torch.float32 else None,
+            **({} if dt != torch.float32 else dict(
+                torch_fill_ms=lambda: y.fill_(0.5),
+                torch_copy_ms=lambda: y.copy_(x)))))
+        del y
+        rows[-1].update(
+            case=name, out_dtype=str(dt).split(".")[-1],
+            plan=normalize_u8.plan(x.numel(), shape[-1], dt),
+            host_us=host_us(lambda: normalize_u8.normalize_u8(
+                x, mean, std, dt)))
+        args = (x, off, flip, mean, std)
+        kw = dict(pad=pad, out_dtype=dt)
+        rows.append(row(
+            "pad_crop_u8", shape, sites,
+            pad_crop_u8.pad_crop_flip_normalize(*args, **kw),
+            pad_crop_u8.pad_crop_reference(*args, **kw),
+            lambda: pad_crop_u8.pad_crop_flip_normalize(*args, **kw),
+            lambda: pad_crop_u8.pad_crop_reference(*args, **kw),
+            input_bytes("pad_crop_u8", x, dt), 2 * x.numel(), F32_FLOPS,
+            iters=100))
+        rows[-1].update(
+            case=name, out_dtype=str(dt).split(".")[-1],
+            plan=pad_crop_u8.plan(*shape, dt),
+            host_us=host_us(lambda: pad_crop_u8.pad_crop_flip_normalize(
+                *args, **kw)))
+        if main:   # each staging mode forced, timed and held like the plan
+            ref = pad_crop_u8.pad_crop_reference(*args, **kw)
+            for mode in ("copy", "direct"):
+                with staged(pad_crop_u8, mode):
+                    err, ok = compare(pad_crop_u8.pad_crop_flip_normalize(
+                        *args, **kw), ref, **TOL["pad_crop_u8"])
+                    rows[-1][f"{mode}_ms"] = cuda_ms(
+                        lambda: pad_crop_u8.pad_crop_flip_normalize(
+                            *args, **kw), iters=100)
+                rows[-1]["ok"] &= ok
+                rows[-1]["max_abs_err"] = max(rows[-1]["max_abs_err"], err)
+                log(f"  pad_crop_u8 {name} {mode} staging forced: "
+                    f"{rows[-1][f'{mode}_ms']:.5f}ms ok={ok}")
+            del ref
+        for r in rows[-2:]:
+            log(f"  {r['kernel']} {name} plan {r['plan']} wrapper host "
+                f"time {r['host_us']:.1f}us a launch")
+        del x, off, flip, args
+        torch.cuda.empty_cache()
 
     def cudnn_conv(x, w3):
         """cuDNN's bf16 conv alone, for timing only."""
@@ -684,6 +803,93 @@ def check_cifar_kernels(dev, g):
         rows[-1]["plan"] = conv_fused.plan(n, h, w, c, co)
         log(f"conv_fused {[n, h, w, c, co]} plan {rows[-1]['plan']}")
     return rows
+
+
+def sweep_input_plans():
+    """``--sweep-inputs``: normalize_u8 and pad_crop_u8 at every
+    INPUT_CASES row under other launch geometries than their planners':
+    each planner run with one of its constants changed (its cached
+    ``_launch_plan`` cleared, and restored after): normalize_u8's
+    BYTES_THREAD at 4-64 and BLOCKS_SM at 1-16 (a geometry tried once);
+    pad_crop_u8's THREADS at 96-512 and, where an image is cut into bands,
+    BAND_BYTES at 4-48 rows of source (MIN_FILL 0, so the bands are those
+    rows).  Each launch is held against the plain
+    version and timed back to back (100 launches).  Prints a row a
+    launch, writes ``chiprun_out/input_sweep.json`` and returns whether
+    every launch agreed."""
+    import torch
+
+    from myconvnet_tpu_torch.ops.kernels import normalize_u8 as nu
+    from myconvnet_tpu_torch.ops.kernels import pad_crop_u8 as pc
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    rows = []
+
+    @contextlib.contextmanager
+    def planned_with(module, **constants):
+        kept = {k: getattr(module, k) for k in constants}
+        vars(module).update(constants)
+        module._launch_plan.cache_clear()
+        try:
+            yield
+        finally:
+            vars(module).update(kept)
+            module._launch_plan.cache_clear()
+
+    def measure(kernel, case, geometry, fn, ref, is_plan):
+        ok = bool(torch.equal(fn(), ref))
+        rows.append(dict(kernel=kernel, case=case, planned=is_plan, ok=ok,
+                         ms=cuda_ms(fn, iters=100), **geometry))
+        log(json.dumps(rows[-1]))
+
+    for case in INPUT_CASES:
+        name, shape = case[0], case[1]
+        x, off, flip, mean, std, dt, pad = input_kernel_inputs(case, dev, g)
+        ref = nu.normalize_u8_reference(x, mean, std, dt)
+        own = nu.plan(x.numel(), shape[-1], dt)["blocks"]
+        seen = []
+        for over in ([dict(BYTES_THREAD=b) for b in (4, 8, 16, 32, 64)]
+                     + [dict(BLOCKS_SM=k) for k in (1, 2, 8, 16)]):
+            with planned_with(nu, **over):
+                blocks = nu.plan(x.numel(), shape[-1], dt)["blocks"]
+                if blocks in seen:
+                    continue
+                seen.append(blocks)
+                measure("normalize_u8", name, dict(
+                    blocks=blocks, **{k.lower(): v for k, v in over.items()}),
+                    lambda: nu.normalize_u8(x, mean, std, dt), ref,
+                    blocks == own)
+        ref = pc.pad_crop_reference(x, off, flip, mean, std, pad=pad,
+                                    out_dtype=dt)
+        _, h, w, c = shape
+        keys = ("threads", "rows", "blocks", "smem")
+        own = {k: v for k, v in pc.plan(*shape, dt).items() if k in keys}
+        bands = [{}] if own["rows"] == h else [
+            dict(BAND_BYTES=r * w * c, MIN_FILL=0.0)
+            for r in (4, 8, 12, 16, 23, 32, 48)]
+        seen = []
+        for over in [{}] + [dict(THREADS=t, **b) for b in bands
+                            for t in (96, 192, 256, 384, 512)]:
+            with planned_with(pc, **over):
+                p = {k: v for k, v in pc.plan(*shape, dt).items()
+                     if k in keys}
+                if p in seen:
+                    continue
+                seen.append(p)
+                measure("pad_crop_u8", name, p,
+                        lambda: pc.pad_crop_flip_normalize(
+                            x, off, flip, mean, std, pad=pad, out_dtype=dt),
+                        ref, p == own)
+        del x, off, flip, ref
+        torch.cuda.empty_cache()
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "input_sweep.json"), "w") as f:
+        json.dump(dict(card=run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                 "--format=csv,noheader"]), rows=rows), f,
+                  indent=1)
+    return all(r["ok"] for r in rows)
 
 
 def check_flash_kernels(dev, g):
@@ -998,23 +1204,18 @@ def check_correlation_kernels(dev, g):
 
 def time_tree_kernels(root):
     """For ``--time-kernels ROOT`` (one process a tree): the kernels of the
-    checkout at ROOT built from its sources, timed at the sites of
-    ``bn_act`` (B1: the served ResNet-50's, batch 8, and the CIFAR
-    ResNet-18's, batch 128, bf16, back to back by ``cuda_ms``, and each
-    launch inside one served forward by the profiler) and of ``randaugment_ew`` (B8: the ViT recipe's [1024, 224,
-    224, 3], a random op an image and contrast forced; the planner's path,
-    and the two-pass path forced where the tree has it; for a tree whose
-    wrapper still takes torch statistics, their time and its kernel's
-    alone), each checked against its plain version; returns {"card",
-    "build_s", "rows": [...]}."""
-    import numpy as np
+    checkout at ROOT built from its sources, and normalize_u8 (B2) and
+    pad_crop_u8 (B3) timed by ``cuda_ms`` (100 launches back to back) at
+    every INPUT_CASES row, each held against its plain version, with the
+    wrapper's host time a launch (``host_us``, the median of 21 runs of
+    200 calls, and ``host_us_q``, their quartiles); for a tree whose
+    pad_crop_u8 has staging modes, also each mode forced at the recipe's
+    shape.  Returns {"card", "build_s", "rows": [...]}."""
     import torch
     sys.path.insert(0, root)
-    from myconvnet_tpu_torch import models, recipes, serving_http
     from myconvnet_tpu_torch.core.precision import FULL, apply_backend_flags
-    from myconvnet_tpu_torch.ops.kernels import _build, bn_act
-    from myconvnet_tpu_torch.ops.kernels import randaugment_ew as ew
-    from myconvnet_tpu_torch.weights import random_jax_params
+    from myconvnet_tpu_torch.ops.kernels import _build, normalize_u8, \
+        pad_crop_u8
     assert os.path.dirname(os.path.abspath(_build.__file__)).startswith(
         os.path.abspath(root)), "kernels imported from another tree"
     apply_backend_flags(FULL)
@@ -1022,69 +1223,36 @@ def time_tree_kernels(root):
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
-    for site, shape in ACT_SITES + ACT_SITES_R18:
-        c = shape[-1]
-        x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
-        a = torch.rand(c, generator=g, device=dev) + 0.5
-        b = torch.randn(c, generator=g, device=dev)
-        err, ok = compare(bn_act.fused_scale_shift_act(x, a, b, "relu"),
-                          bn_act.scale_shift_act_reference(x, a, b, "relu"),
-                          **TOL["bn_act"])
-        rows.append(dict(
-            kernel="bn_act", case=site, shape=list(shape), max_abs_err=err,
-            ok=ok, ms=cuda_ms(lambda: bn_act.fused_scale_shift_act(
-                x, a, b, "relu"), iters=50)))
-    cfg = recipes.load_config(CONFIG)
-    template = models.get_model(cfg["model"], cfg["num_classes"],
-                                **cfg["model_kwargs"])
-    params, state = random_jax_params(template, SEED)
-    route = serving_http.build_route("resnet50", "classify", CONFIG,
-                                     params=params, state=state,
-                                     batch=BATCH, device=dev)
-    x8 = np.random.RandomState(SEED).randn(
-        BATCH, *route.input_shape[-3:]).astype(np.float32)
-    times = [ms for _, ms in kernel_times(lambda: route.fn(x8),
-                                          BN_ACT_KERNEL)]
-    rows.append(dict(kernel="bn_act", case="in the served forward",
-                     shape=[BATCH, 224, 224, 3], max_abs_err=0.0,
-                     ok=len(times) == PER_CALL["bn_act"], ms=sum(times),
-                     per_site_ms=times))
-    del route, params, state
-    shape = RA_SHAPES[0]
-    n = shape[0]
-    x = torch.rand(shape, generator=g, device=dev)
-    mag = torch.rand(n, generator=g, device=dev) * 2 - 1
-    old = hasattr(ew, "launch")   # statistics in torch, then the kernel
-    for case in ("random", "contrast"):
-        idx = (torch.randint(0, 8, (n,), generator=g, device=dev)
-               if case == "random" else torch.full(
-                   (n,), ew.PALLAS_POOL.index(case), device=dev,
-                   dtype=torch.int64))
-        ref = ew.apply_layer_reference(x, idx, mag)
-        for path in (None,) if old else (None, "two_pass"):
-            kw = {} if path is None else {"path": path}
-            out = ew.apply_layer(x, idx, mag, **kw)
-            err, ok = compare(out, ref, **TOL["randaugment_ew"])
-            del out
-            row = dict(kernel="randaugment_ew",
-                       case=f"{case} {path or 'planned'}",
-                       shape=list(shape), max_abs_err=err, ok=ok,
-                       ms=cuda_ms(lambda: ew.apply_layer(x, idx, mag, **kw),
-                                  iters=10),
-                       kernels_per_layer=device_busy(
-                           lambda: ew.apply_layer(x, idx, mag, **kw),
-                           iters=3)[2])
-            if old:
-                params = ew.image_stats(x)
-                params[:, 0] = mag
-                idx32 = idx.int()
-                row.update(stats_ms=cuda_ms(lambda: ew.image_stats(x),
-                                            iters=10),
-                           kernel_alone_ms=cuda_ms(
-                               lambda: ew.launch(x, idx32, params),
-                               iters=10))
-            rows.append(row)
-        del ref
+
+    def add(kernel, case, x, out, ref, fn, tol):
+        err, ok = compare(out, ref, **tol)
+        host = host_samples(fn, 200, 21)
+        rows.append(dict(kernel=kernel, case=case, shape=list(x.shape),
+                         max_abs_err=err, ok=ok, ms=cuda_ms(fn, iters=100),
+                         host_us=host[10], host_us_q=[host[5], host[15]]))
+
+    for case in INPUT_CASES:
+        name, dtype, main = case[0], case[2], case[6]
+        x, off, flip, mean, std, dt, pad = input_kernel_inputs(case, dev, g)
+        label = f"{name} {dtype}"
+        add("normalize_u8", label, x, normalize_u8.normalize_u8(
+                x, mean, std, dt),
+            normalize_u8.normalize_u8_reference(x, mean, std, dt),
+            lambda: normalize_u8.normalize_u8(x, mean, std, dt),
+            TOL["normalize_u8"])
+        args, kw = (x, off, flip, mean, std), dict(pad=pad, out_dtype=dt)
+        ref = pad_crop_u8.pad_crop_reference(*args, **kw)
+        modes = [None]
+        if main and hasattr(pad_crop_u8, "launch_args"):
+            modes += ["copy", "direct"]
+        for m in modes:
+            with (staged(pad_crop_u8, m) if m else contextlib.nullcontext()):
+                add("pad_crop_u8", label + (f" {m} forced" if m else ""),
+                    x, pad_crop_u8.pad_crop_flip_normalize(*args, **kw),
+                    ref, lambda: pad_crop_u8.pad_crop_flip_normalize(
+                        *args, **kw), TOL["pad_crop_u8"])
+        del x, off, flip, args, ref
+        torch.cuda.empty_cache()
     card = run(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"])
     return dict(card=card, build_s=build_s, rows=rows)
@@ -1122,17 +1290,16 @@ def compare_trees(other):
         found = [next((row for row in r["rows"]
                        if (row["kernel"], row["case"]) == key), None)
                  for r in runs]
-        times = ", ".join("-" if row is None else f"{row['ms']:.4f}"
+        times = ", ".join("-" if row is None else f"{row['ms']:.5f}"
                           for row in found)
         errs = " ".join(f"{row['max_abs_err']:.3g}" for row in found[:2]
                         if row is not None)
         shape = next(row["shape"] for row in found if row is not None)
-        extra = "".join(
-            f"; {k} " + ", ".join("-" if row is None or k not in row else
-                                  json.dumps(row[k]) for row in found)
-            for k in ("kernels_per_layer", "stats_ms", "kernel_alone_ms",
-                      "per_site_ms")
-            if any(row is not None and k in row for row in found))
+        extra = "; host_us " + ", ".join(
+            "-" if row is None else f"{row['host_us']:.1f}"
+            + ("" if "host_us_q" not in row else
+               " [{:.1f}-{:.1f}]".format(*row["host_us_q"]))
+            for row in found)
         log(f"{key[0]} {key[1]} {shape}: {times}; err {errs}{extra}")
         bad += [(r["label"], *key) for r, row in zip(runs, found)
                 if row is not None and not row["ok"]]
@@ -2248,6 +2415,9 @@ if __name__ == "__main__":
             code = 0
         elif len(sys.argv) == 3 and sys.argv[1] == "--compare":
             code = compare_trees(sys.argv[2])
+        elif len(sys.argv) == 2 and sys.argv[1] == "--sweep-inputs":
+            sys.path.insert(0, ROOT)
+            code = 0 if sweep_input_plans() else 1
         else:
             code = main()
     except Exception:

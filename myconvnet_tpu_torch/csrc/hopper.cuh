@@ -1,13 +1,14 @@
 // Hopper (sm_90a) building blocks shared by the kernels that run on the
 // tensor cores through wgmma and are fed by TMA: mbarriers, tensor-map
-// loads and stores, plain bulk copies, 4- and 8-byte cp.async copies that
-// complete on an mbarrier, cluster barriers and reads of another block's
-// shared memory, shared-memory matrix descriptors, the wgmma shapes the
-// kernels use (m64n16k16, m64n40k16, m64n64k16, m64n72k16 and m64n128k16,
-// bf16 in, float32 accumulate; m64n32k16 and m64n64k16 also with A from
-// registers and B MN-major), register moves between warpgroups (setmaxnreg) and a
-// host-side tensor-map encoder reached through the runtime's driver entry
-// point (so the library needs no -lcuda).
+// loads and stores, plain bulk copies, 4-, 8- and 16-byte cp.async copies
+// (completing on an mbarrier or in groups), cluster barriers and reads of
+// another block's shared memory, shared-memory matrix descriptors, the
+// wgmma shapes the kernels use (m64n16k16, m64n40k16, m64n64k16, m64n72k16
+// and m64n128k16, bf16 in, float32 accumulate; m64n32k16 and m64n64k16
+// also with A from registers and B MN-major), register moves between
+// warpgroups (setmaxnreg), division by a divisor fixed at launch
+// (FastDiv) and a host-side tensor-map encoder reached through the
+// runtime's driver entry point (so the library needs no -lcuda).
 //
 // Conventions:
 // * every SW128 tile is a [rows][64 bf16] block of 128-byte rows whose base
@@ -165,6 +166,14 @@ __device__ __forceinline__ void cp_async_8(void* dst, const void* src,
                : "memory");
 }
 
+// 16 bytes global -> shared (both 16-byte aligned), bypassing L1
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(reinterpret_cast<uint64_t>(src))
+               : "memory");
+}
+
 // the barrier's current phase cannot complete before this thread's
 // earlier cp.async copies have landed (the pending count goes up now and
 // down when they complete)
@@ -176,6 +185,17 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// closes this thread's group of cp.async copies issued since the last one
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// waits until at most N of this thread's groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // shared -> global; elements outside the tensor are not written
@@ -524,6 +544,28 @@ inline bool encode_tiled(CUtensorMap* map, CUtensorMapDataType type,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
+
+// Division by a divisor fixed at launch, set up on the host: n / d as a
+// high multiply and a shift (exact for 0 <= n < 2^31, 1 <= d < 2^31), so a
+// kernel's index set-up costs no integer division.
+struct FastDiv {
+  int d;
+  uint32_t mul, shr;
+  FastDiv() = default;
+  explicit FastDiv(int divisor) : d(divisor), mul(0), shr(0) {
+    if (d > 1) {
+      uint32_t log2 = 0;
+      while ((1u << log2) < (uint32_t)d) ++log2;
+      const uint32_t p = 31 + log2;
+      mul = (uint32_t)(((1ull << p) + (uint32_t)d - 1) / (uint32_t)d);
+      shr = p - 32;
+    }
+  }
+  __device__ __forceinline__ int div(int n) const {
+    return d == 1 ? n : (int)(__umulhi((uint32_t)n, mul) >> shr);
+  }
+  __device__ __forceinline__ int mod(int n) const { return n - div(n) * d; }
+};
 
 // A bf16 tensor map with the 128-byte swizzle (the SW128 tiles above).
 inline bool encode_bf16(CUtensorMap* map, const void* base, int rank,

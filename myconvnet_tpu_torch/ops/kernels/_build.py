@@ -70,13 +70,22 @@ SIGNATURES = {
     # int[7] out: shared-memory bytes a block, ring stages, blocks an SM
     # holds, SMs, clusters of 2, 4 and 8 the card holds at once
     "mcn_conv3x3_bn_relu_facts": (P,),
-    # x, mean, std, y, total, c, stream
-    "mcn_normalize_u8_f32": (P, P, P, P, I64, I32, P),
-    "mcn_normalize_u8_bf16": (P, P, P, P, I64, I32, P),
+    # x, mean, std, y, total, c, path (0 an element a step, 1 16-byte
+    # vectors), threads, blocks (normalize_u8.plan's), stream
+    "mcn_normalize_u8_f32": (P, P, P, P, I64, I32, I32, I32, I32, P),
+    "mcn_normalize_u8_bf16": (P, P, P, P, I64, I32, I32, I32, I32, P),
+    # int[5] out: normalize_u8.kernel_facts()
+    "mcn_normalize_u8_facts": (P,),
     # x, offsets [N, 2] int32, flip [N] bool, mean, std, y, n, h, w, c,
-    # stream
-    "mcn_pad_crop_u8_f32": (P, P, P, P, P, P, I32, I32, I32, I32, P),
-    "mcn_pad_crop_u8_bf16": (P, P, P, P, P, P, I32, I32, I32, I32, P),
+    # rows a band, direct (1: no staging), threads, blocks, shared-memory
+    # bytes (pad_crop_u8.plan's), stream
+    "mcn_pad_crop_u8_f32": (P, P, P, P, P, P, I32, I32, I32, I32, I32, I32,
+                            I32, I32, I32, P),
+    "mcn_pad_crop_u8_bf16": (P, P, P, P, P, P, I32, I32, I32, I32, I32, I32,
+                             I32, I32, I32, P),
+    # direct, threads, shared-memory bytes, int[4] out:
+    # pad_crop_u8.kernel_facts(...)
+    "mcn_pad_crop_u8_facts": (I32, I32, I32, P),
     # q, k, v, out, lse, strides [8 x 3], batch, heads, len, dim, scale,
     # stream
     "mcn_flash_fwd": (P, P, P, P, P, STRIDES, I32, I32, I32, I32, F32, P),

@@ -36,7 +36,7 @@ from myconvnet_tpu_torch.ops.kernels import (bn_inference_fused,
                                              launch_counts)
 from myconvnet_tpu_torch.ops.kernels import (affine, bn_act, conv_fused,
                                              conv_pair, normalize_u8,
-                                             randaugment_ew)
+                                             pad_crop_u8, randaugment_ew)
 
 torch.set_num_threads(1)
 
@@ -206,23 +206,36 @@ def _cifar_cfg(**kw):
     return jaug.AugmentConfig(**kw), taug.AugmentConfig(**kw)
 
 
-@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
-def test_normalize_u8_plain_matches_pallas_and_augment_eval(out_dtype):
-    imgs = np.random.RandomState(0).randint(0, 256, (3, 32, 32, 3),
-                                            dtype=np.uint8)
+# per-channel statistics for C = 1 (Fashion-MNIST's) and C = 4
+STATS = {1: ((0.2860,), (0.3530,)), 3: (CIFAR_MEAN, CIFAR_STD),
+         4: ((0.5071, 0.4866, 0.4409, 0.5), (0.2673, 0.2564, 0.2762, 0.3))}
+
+
+@pytest.mark.parametrize("out_dtype,shape", [
+    pytest.param("float32", (3, 32, 32, 3), id="float32"),
+    pytest.param("bfloat16", (3, 32, 32, 3), id="bfloat16"),
+    # fashion_mnist_smallnet's input, four channels, an ImageNet eval batch
+    *(pytest.param(d, s, id=f"{d}-{'x'.join(map(str, s))}")
+      for s in [(4, 28, 28, 1), (2, 32, 32, 4), (2, 224, 224, 3)]
+      for d in ("float32", "bfloat16"))])
+def test_normalize_u8_plain_matches_pallas_and_augment_eval(out_dtype,
+                                                            shape):
+    imgs = np.random.RandomState(0).randint(0, 256, shape, dtype=np.uint8)
+    mean, std = STATS[shape[-1]]
     reset_launch_counts()
-    out = normalize_u8.normalize_u8(torch.from_numpy(imgs), CIFAR_MEAN,
-                                    CIFAR_STD, getattr(torch, out_dtype))
+    out = normalize_u8.normalize_u8(torch.from_numpy(imgs), mean, std,
+                                    getattr(torch, out_dtype))
     assert launch_counts()["normalize_u8"] == 0
     assert out.dtype == getattr(torch, out_dtype)
     got = out.float().numpy()
     pallas = jnormalize_u8(
-        jnp.asarray(imgs), CIFAR_MEAN, CIFAR_STD,
-        out_dtype=jnp.dtype(out_dtype), interpret=True)
+        jnp.asarray(imgs), mean, std, out_dtype=jnp.dtype(out_dtype),
+        interpret=True)
     tol = INPUT_TOL if out_dtype == "float32" else INPUT_TOL_BF16
     np.testing.assert_allclose(got, np.asarray(pallas, np.float32), **tol)
     # augment_eval at the model's size is this kernel, in both packages
-    jcfg, tcfg = _cifar_cfg(out_dtype=out_dtype)
+    jcfg, tcfg = _cifar_cfg(out_dtype=out_dtype, out_hw=shape[1:3],
+                            mean=mean, std=std)
     np.testing.assert_allclose(
         got, np.asarray(jaug.augment_eval(jnp.asarray(imgs), jcfg),
                         np.float32), **tol)
@@ -230,17 +243,22 @@ def test_normalize_u8_plain_matches_pallas_and_augment_eval(out_dtype):
         taug.augment_eval(torch.from_numpy(imgs), tcfg).float().numpy(), got)
 
 
-@pytest.mark.parametrize("shape,pad", [((8, 32, 32, 3), 4),
-                                       ((5, 9, 7, 2), 3)])
-def test_pad_crop_plain_matches_pallas_and_numpy(shape, pad):
+@pytest.mark.parametrize("shape,pad,flips", [
+    pytest.param((8, 32, 32, 3), 4, True, id="shape0-4"),
+    pytest.param((5, 9, 7, 2), 3, True, id="shape1-3"),
+    # fashion_mnist_smallnet's (pad 2, no flip), four channels, ImageNet's
+    pytest.param((4, 28, 28, 1), 2, False, id="4x28x28x1-2-noflip"),
+    pytest.param((2, 32, 32, 4), 4, True, id="2x32x32x4-4"),
+    pytest.param((2, 224, 224, 3), 4, True, id="2x224x224x3-4")])
+def test_pad_crop_plain_matches_pallas_and_numpy(shape, pad, flips):
     rng = np.random.RandomState(1)
     imgs = rng.randint(0, 256, shape, dtype=np.uint8)
     n, c = shape[0], shape[-1]
     offsets = rng.randint(-pad, pad + 1, (n, 2)).astype(np.int32)
     offsets[0] = (-pad, pad)  # the corners of the offset range
     offsets[1] = (pad, -pad)
-    flip = (np.arange(n) % 2).astype(np.int32)
-    mean, std = CIFAR_MEAN[:c], CIFAR_STD[:c]
+    flip = (np.arange(n) % 2 * flips).astype(np.int32)
+    mean, std = STATS[c] if c != 2 else (CIFAR_MEAN[:c], CIFAR_STD[:c])
     reset_launch_counts()
     got = pad_crop_flip_normalize(
         torch.from_numpy(imgs), torch.from_numpy(offsets),
@@ -289,6 +307,175 @@ def test_input_wrapper_checks():
     with pytest.raises(TypeError):
         pad_crop_flip_normalize(x, off, flip, CIFAR_MEAN, CIFAR_STD,
                                 out_dtype=torch.float16)
+
+
+# the redesigned input kernels' planners: the aims of the redesign
+# (CIFAR's batch, fashion_mnist_smallnet's, an ImageNet batch), then the
+# card tests' odd shapes
+INPUT_PLAN_SHAPES = [(128, 32, 32, 3), (128, 28, 28, 1), (256, 224, 224, 3),
+                     (3, 5, 7, 3), (2, 4, 4, 8), (8, 224, 224, 3),
+                     (2, 32, 32, 4), (3, 17, 13, 4), (5, 11, 3, 1),
+                     (1, 1, 1, 1), (4, 1, 1, 4096)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("shape", INPUT_PLAN_SHAPES)
+def test_normalize_u8_plan_gives_each_thread_one_channel_phase(shape,
+                                                               aligned,
+                                                               dtype):
+    """A numpy model of the launch (thread g at position g mod period,
+    steps g // period + i qstep) touches every step exactly once, each
+    thread's steps start at one channel, the grid is at most one wave, no
+    larger than the work needs, and its indices fit 32 bits."""
+    total, c = int(np.prod(shape)), shape[-1]
+    p = normalize_u8.plan(total, c, dtype, aligned)
+    step = 16 // torch.empty((), dtype=dtype).element_size() \
+        if aligned else 1
+    assert p["path"] == ("vector" if aligned else "scalar")
+    assert p["step"] == step and p["nvec"] == total // step
+    assert p["period"] * np.gcd(c, step) == c
+    g = np.arange(p["threads"] * p["blocks"], dtype=np.int64)
+    assert len(g) < 2 ** 31 and len(g) >= p["period"]
+    assert p["threads"] == normalize_u8.THREADS
+    assert p["blocks"] <= normalize_u8.SMS * normalize_u8.BLOCKS_SM
+    assert (p["blocks"] - 1) * p["threads"] < max(p["nvec"], p["period"])
+    qstep = len(g) // p["period"]
+    pos, q0 = g % p["period"], g // p["period"]
+    live = q0 < qstep
+    visits = ((q0[live, None] + qstep * np.arange(
+        -(-p["nvec"] // (qstep * p["period"])) + 1)[None, :])
+        * p["period"] + pos[live, None])
+    seen = visits[visits < p["nvec"]]
+    assert len(seen) == p["nvec"]
+    assert (np.sort(seen) == np.arange(p["nvec"])).all()
+    phase = (visits * step) % c
+    assert ((phase == (pos[live, None] * step) % c)
+            | (visits >= p["nvec"])).all()
+    assert total - p["nvec"] * step < step   # the tail, a thread each
+
+
+def _band_cover(p, h, wc, e0):
+    """Output elements of one band of p's plan that starts at element e0
+    of y, as the kernel's threads write them: aligned vectors k = q period
+    + pos, thread t at positions t mod period (threads >= period: q = t //
+    period + i qstep) or t + i threads (q = 0, 1, ...), each lane of a
+    vector at its q = 0 column and rpp rows further a step of q; then the
+    ragged elements, a thread each.  One band of ``rows`` rows."""
+    vec, period, rpp, threads = p["vec"], p["period"], p["rpp"], \
+        p["threads"]
+    length = min(p["rows"], h) * wc
+    a0 = min(length, (vec - e0 % vec) % vec)
+    nv = (length - a0) // vec
+    t = np.arange(threads)
+    if threads >= period:
+        qstep = threads // period
+        live = t < qstep * period
+        pos, q = t[live] % period, t[live] // period
+        q = (q[:, None] + qstep * np.arange(-(-nv // period) // qstep + 2)
+             [None, :])
+        pos = np.broadcast_to(pos[:, None], q.shape)
+    else:
+        pos = np.arange(period)         # thread pos % threads takes it
+        q = np.arange(-(-nv // period) + 1)
+        pos, q = np.broadcast_arrays(pos[:, None], q[None, :])
+    k = q * period + pos
+    keep = k < nv
+    lanes = a0 + k[keep][:, None] * vec + np.arange(vec)[None, :]
+    first = a0 + pos[keep][:, None] * vec + np.arange(vec)[None, :]
+    qk = q[keep][:, None]
+    assert (lanes // wc == first // wc + qk * rpp).all()
+    assert (lanes % wc == first % wc).all()
+    rest = np.r_[np.arange(a0), np.arange(a0 + nv * vec, length)]
+    assert len(rest) <= threads
+    return np.r_[lanes.ravel(), rest], length
+
+
+# shapes at which blocks walk several bands, in each staging mode (the
+# card tests force both there)
+BAND_WALK_SHAPES = [(64, 224, 224, 3), (1024, 28, 28, 1), (600, 32, 32, 3)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", INPUT_PLAN_SHAPES + BAND_WALK_SHAPES
+                         + [(1, 3, 80000, 3)])
+def test_pad_crop_plan_covers_every_element_once(shape, dtype):
+    """The bands of a plan cover each image's rows once, its items are at
+    most one wave of blocks (which walk them, item b, b + blocks, ...),
+    its shared memory is within a block's 227 KB and holds the band's
+    rows, its indices fit 32 bits, and a numpy model of the kernel's
+    threads writes every element of a band exactly once at each 16-byte
+    alignment the band can start at."""
+    n, h, w, c = shape
+    p = pad_crop_u8.plan(n, h, w, c, dtype)
+    wc = w * c
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    assert p["vec"] == vec and p["period"] * np.gcd(wc, vec) == wc
+    assert p["rpp"] * np.gcd(wc, vec) == vec
+    assert p["threads"] <= pad_crop_u8.MAX_THREADS and p["threads"] >= 32
+    if p["period"] <= pad_crop_u8.MAX_THREADS:
+        assert p["threads"] % p["period"] == 0   # every thread has work
+    assert p["bands"] * p["rows"] >= h > (p["bands"] - 1) * p["rows"]
+    assert p["items"] == n * p["bands"]
+    assert 1 <= p["blocks"] <= max(1, p["items"])
+    assert p["blocks"] <= pad_crop_u8.SMS * pad_crop_u8._blocks_sm(
+        p["threads"], p["smem"])
+    assert p["smem"] <= pad_crop_u8.SMEM_BLOCK
+    table = -(-8 * c // 16) * 16
+    buffers = 2 if p["items"] > p["blocks"] else 1   # blocks walk bands
+    if p["mode"] == "direct":
+        assert table + 2 * (wc + 16) > pad_crop_u8.SMEM_BLOCK
+    else:
+        assert p["smem"] >= table + buffers * (p["rows"] * wc + 16)
+    assert 3 * h * wc < 2 ** 30 and p["rows"] * wc < 2 ** 31
+    items = np.concatenate([np.arange(b, p["items"], p["blocks"])
+                            for b in range(p["blocks"])])
+    assert (np.sort(items) == np.arange(p["items"])).all()
+    if n * h * wc > 2 ** 22:
+        return  # the model at the card tests' sizes only
+    for e0 in range(vec):
+        cover, length = _band_cover(p, h, wc, e0)
+        assert (np.sort(cover) == np.arange(length)).all(), e0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["copy", "direct"])
+@pytest.mark.parametrize("shape", BAND_WALK_SHAPES)
+def test_pad_crop_plan_makes_blocks_walk_bands(shape, mode, dtype):
+    """A forced staging mode keeps its mode and a one-wave grid of blocks
+    that each walk several bands, covering every band once; the copy mode
+    gives such a block two band buffers."""
+    n, h, w, c = shape
+    p = pad_crop_u8.plan(n, h, w, c, dtype, mode=mode)
+    assert p["mode"] == mode and p["items"] > p["blocks"], p
+    assert p["blocks"] <= pad_crop_u8.SMS * pad_crop_u8._blocks_sm(
+        p["threads"], p["smem"])
+    assert p["bands"] * p["rows"] >= h > (p["bands"] - 1) * p["rows"]
+    items = np.concatenate([np.arange(b, p["items"], p["blocks"])
+                            for b in range(p["blocks"])])
+    assert (np.sort(items) == np.arange(p["items"])).all()
+    table = -(-8 * c // 16) * 16
+    assert p["smem"] == (table if mode == "direct"
+                         else table + 2 * (-(-(p["rows"] * w * c + 16)
+                                             // 16) * 16))
+    assert pad_crop_u8.launch_args(p)[1] == pad_crop_u8.MODES[mode]
+
+
+@pytest.mark.parametrize("case,want", [
+    (((128, 32, 32, 3), torch.float32), dict(rows=32, blocks=128)),
+    (((128, 28, 28, 1), torch.bfloat16), dict(rows=28, blocks=128)),
+    (((8, 224, 224, 3), torch.float32), dict(rows=14, blocks=128)),
+    (((256, 224, 224, 3), torch.float32), dict(rows=16, items=3584)),
+    (((1, 3, 80000, 3), torch.float32), dict(mode="direct"))])
+def test_pad_crop_plan_picks_bands(case, want):
+    """A block an image where it is small (the recipes' inputs), bands of
+    about 11 KB of source rows at ImageNet's size, at least a wave of them
+    for a small batch, and no staging for a row wider than shared memory."""
+    shape, dtype = case
+    p = pad_crop_u8.plan(*shape, dtype)
+    assert {k: p[k] for k in want} == want, p
+    if "mode" not in want:
+        assert p["mode"] == "copy"
 
 
 # ------------------------------------------------------------ conv_fused

@@ -293,7 +293,9 @@ INPUT_TOL = dict(rtol=0, atol=0)
 FUSED_TOL = PAIR_TOL
 INPUT_SHAPES = [(128, 32, 32, 3),   # the recipe's batch
                 (3, 5, 7, 3),       # 315 elements: vector body + tail
-                (2, 4, 4, 8)]
+                (2, 4, 4, 8),
+                (128, 28, 28, 1),   # fashion_mnist_smallnet's input
+                (8, 224, 224, 3)]   # bands of rows (pad_crop_u8)
 
 
 def _stats(dev, c):
@@ -348,6 +350,147 @@ def test_pad_crop_kernel_matches_plain(cuda, dtype, shape):
     ref = pad_crop_u8.pad_crop_reference(x, off, flip, mean, std, pad=pad,
                                          out_dtype=dtype)
     torch.testing.assert_close(out, ref, **INPUT_TOL)
+
+
+def _pad_crop_case(shape, dev, off, flip, offset=0, dtype=torch.float32):
+    """pad_crop_u8's kernel (one launch) against its plain version, bit for
+    bit; ``off`` [N, 2] and ``flip`` [N] numpy arrays, the plain version
+    padded by the largest shift; the images start ``offset`` bytes into a
+    buffer."""
+    size = int(np.prod(shape))
+    buf = torch.from_numpy(np.random.RandomState(3).randint(
+        0, 256, size + offset, dtype=np.uint8)).to(dev)
+    x = buf[offset:].view(shape)
+    mean, std = _stats(dev, shape[-1])
+    pad = int(np.abs(off).max())
+    off = torch.from_numpy(off.astype(np.int32)).to(dev)
+    flip = torch.from_numpy(np.asarray(flip, bool)).to(dev)
+    before = pad_crop_u8.pad_crop_flip_normalize.launches
+    out = pad_crop_u8.pad_crop_flip_normalize(x, off, flip, mean, std,
+                                              pad=pad, out_dtype=dtype)
+    torch.cuda.synchronize()
+    assert pad_crop_u8.pad_crop_flip_normalize.launches == before + 1
+    ref = pad_crop_u8.pad_crop_reference(x, off, flip, mean, std, pad=pad,
+                                         out_dtype=dtype)
+    torch.testing.assert_close(out, ref, **INPUT_TOL)
+
+
+def _shifts(n, pad, seed=4):
+    return np.random.RandomState(seed).randint(-pad, pad + 1, (n, 2))
+
+
+def _force_mode(monkeypatch, mode):
+    """pad_crop_u8 launched with its planner's plan at staging ``mode``
+    ("copy" or "direct") in place of its own pick."""
+    monkeypatch.setattr(pad_crop_u8, "_launch_plan", lambda *a: (
+        pad_crop_u8.launch_args(pad_crop_u8.plan(*a, mode=mode))))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 32, 32, 3), (8, 9, 7, 1),
+                                   (8, 224, 224, 3)])
+def test_pad_crop_kernel_moves_images_out_of_the_frame(cuda, dtype, shape):
+    """Shifts of |s| >= H or W (and far beyond) write shift[c] over the
+    whole image, or over every row or column they move out."""
+    _, h, w, _ = shape
+    off = np.array([(h, 0), (-h, 0), (0, w), (0, -w), (h + 5, -w - 9),
+                    (h - 1, 1 - w), (-2 * h - 1, 7), (3, 2 * w + 1)])
+    _pad_crop_case(shape, cuda, off, np.arange(8) % 3 == 0, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("flipped", [False, True])
+@pytest.mark.parametrize("shape", INPUT_SHAPES)
+def test_pad_crop_kernel_flips_all_or_none(cuda, dtype, flipped, shape):
+    n = shape[0]
+    _pad_crop_case(shape, cuda, _shifts(n, 4), np.full(n, flipped),
+                   dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", INPUT_SHAPES + [(2, 32, 32, 4)])
+def test_pad_crop_kernel_takes_a_misaligned_view(cuda, dtype, shape):
+    """Images that start a byte into a buffer: no band's span starts on a
+    16-byte boundary unless its row offset makes up for it."""
+    n = shape[0]
+    _pad_crop_case(shape, cuda, _shifts(n, 2), np.arange(n) % 2 == 1,
+                   offset=1, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,pad", [((128, 28, 28, 1), 2),
+                                       ((4, 28, 28, 1), 2),
+                                       ((2, 32, 32, 4), 4),
+                                       ((3, 17, 13, 4), 3),
+                                       ((5, 11, 3, 1), 1)])
+def test_pad_crop_kernel_at_one_and_four_channels(cuda, dtype, shape, pad):
+    n = shape[0]
+    _pad_crop_case(shape, cuda, _shifts(n, pad), np.arange(n) % 2 == 0,
+                   dtype=dtype)
+
+
+# plans in which blocks walk several bands (items > blocks): bands of
+# ImageNet-sized rows, and whole small images beyond a wave of blocks
+BAND_WALK_SHAPES = [(64, 224, 224, 3), (1024, 28, 28, 1), (600, 32, 32, 3)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["copy", "direct"])
+@pytest.mark.parametrize("shape", [(128, 32, 32, 3), (4, 28, 28, 1),
+                                   (8, 224, 224, 3), (3, 5, 7, 3)]
+                         + BAND_WALK_SHAPES)
+def test_pad_crop_kernel_stages_each_way(cuda, monkeypatch, dtype, mode,
+                                        shape):
+    """Each staging mode forced (cp.async copies, or none), on aligned and
+    misaligned bases, with shifts in range and images moved wholly or
+    partly out of the frame; at BAND_WALK_SHAPES each block walks several
+    bands (two staging buffers in turn, the next band's offsets loaded a
+    band ahead)."""
+    if shape in BAND_WALK_SHAPES:
+        p = pad_crop_u8.plan(*shape, dtype, mode=mode)
+        assert p["items"] > p["blocks"], p
+    _force_mode(monkeypatch, mode)
+    n, h, w, _ = shape
+    off = _shifts(n, 4)
+    off[::7] = (h, 0)
+    off[3::7] = (0, -w)
+    off[5::11] = (-h - 3, w + 2)
+    off[6::13] = (h - 1, 1 - w)
+    for offset in (0, 1):
+        _pad_crop_case(shape, cuda, off, np.arange(n) % 3 == 0,
+                       offset=offset, dtype=dtype)
+
+
+def test_pad_crop_kernel_reads_rows_wider_than_shared_memory(cuda):
+    """A row of 240 KB does not fit a block: the planner reads x directly."""
+    shape = (1, 3, 80000, 3)
+    assert pad_crop_u8.plan(*shape, torch.float32)["mode"] == "direct"
+    _pad_crop_case(shape, cuda, np.array([(1, -3)]), [True])
+
+
+# (the planner's shapes: the aims of the redesign and the tests' odd ones)
+INPUT_PLAN_SHAPES = INPUT_SHAPES + BAND_WALK_SHAPES + [
+    (256, 224, 224, 3), (2, 32, 32, 4), (3, 17, 13, 4)]
+
+
+def test_input_planners_match_the_built_kernels(cuda):
+    """normalize_u8's and pad_crop_u8's planners count on the card's SMs
+    and on no more blocks an SM than the built kernels hold, so every plan
+    is at most one wave."""
+    f = normalize_u8.kernel_facts()
+    assert (f["sms"], f["threads"], f["unroll"]) == (
+        normalize_u8.SMS, normalize_u8.THREADS, normalize_u8.UNROLL)
+    assert min(f["blocks_per_sm_f32"], f["blocks_per_sm_bf16"]) >= \
+        normalize_u8.BLOCKS_SM, f
+    for shape in INPUT_PLAN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            p = pad_crop_u8.plan(*shape, dtype)
+            f = pad_crop_u8.kernel_facts(p["mode"], p["threads"], p["smem"])
+            assert f["sms"] == pad_crop_u8.SMS
+            assert f["max_threads"] == pad_crop_u8.MAX_THREADS
+            held = min(f["blocks_per_sm_f32"], f["blocks_per_sm_bf16"])
+            assert p["blocks"] <= f["sms"] * held, (shape, p, f)
+            assert held >= pad_crop_u8._blocks_sm(p["threads"], p["smem"])
 
 
 def _fused_args(shape, dev, seed=0):
