@@ -100,6 +100,33 @@
 13. FlowNetC (``configs/chairs_flownet_s.py`` with ``model=flownet_c``):
     4 steps at batch 32 and the final validation (1 forward launch a
     forward, 1 of each backward kernel a step).
+14. ResNet-50 training (``configs/imagenet_resnet50.py`` as written):
+    step 1 at batch 8 on the card against the host (float32 policy), from
+    seeded JAX-layout weights with the same crop boxes, flips and jitter
+    factors; ``train.main`` for 20 steps at the recipe's 1024 as 2
+    microbatches of 512 on a rendered split of 1024 images, its
+    validation and ``test.main`` on the checkpoint (13 conv_pair and 7
+    bn_act launches an eval batch, none in a train step; restored logits
+    equal the writer's and agree with the host's plain path); the step's
+    images/s, host enqueue ms, device busy ms, idle share and peak memory;
+    the step again under ``augment.interp_dtype`` bfloat16, and
+    ``augment_train`` alone at 1024 x 256² -> 224² under each
+    interpolation dtype.
+15. SmallNet (``configs/{cifar10,svhn,fashion_mnist}_smallnet.py``):
+    CIFAR-10 as written (float32) and under ``precision=bf16``, 20 steps
+    of 128 with a validation every 10; SVHN and Fashion-MNIST 5 steps
+    each; ``test.main`` on each checkpoint (pad_crop_u8 once a step;
+    normalize_u8 once and bn_act 6, or under bf16 conv_fused 5 and bn_act
+    1, an eval batch), and each step's rate.
+16. VGG-16 (``configs/imagenet_vgg16.py``, batch 512) and DenseNet-121
+    (``configs/imagenet_densenet121.py``, batch 1024), each in one pass as
+    written (the microbatch count on a line with the peak memory): step 1 at
+    batch 4 against the host, ``train.main`` for 4 steps and
+    ``test.main`` (conv_fused 12 and bn_act 1, or bn_act 121, an eval
+    forward), and the step's rate and peak memory. conv_fused is held at
+    VGG-16's eight eval shapes (batch 512, 224² down to 14²) beside
+    cuDNN, and bn_act at DenseNet-121's largest and smallest sites (step
+    3's rows).
 
 Every kernel's record carries its bound: the larger of the bytes it must
 move over 3.35 TB/s and the operations it must do over the peak rate of
@@ -204,7 +231,9 @@ PER_EVAL_BATCH = {"normalize_u8": 1, "conv_fused": 5, "bn_act": 4}
 # kernel vs plain: bn_act, normalize_u8 and pad_crop_u8 round like their
 # plain versions (bit-exact expected; 1 bf16 or 1 float32 ulp allowed);
 # conv_pair and conv_fused sum in another order, which can move the bf16
-# output (or conv_pair's intermediate) by an ulp (2 bf16 ulps allowed)
+# output (or conv_pair's intermediate) by an ulp (2 bf16 ulps allowed; a
+# conv_pair element past them must be explained by its intermediate's
+# rounding, PAIR_OUTLIERS)
 ULP32 = dict(rtol=2 ** -23, atol=2 ** -30)
 TOL = {"bn_act": dict(rtol=2 ** -8, atol=1e-6),
        "conv_pair": dict(rtol=2 ** -6, atol=2 ** -7),
@@ -213,16 +242,47 @@ TOL = {"bn_act": dict(rtol=2 ** -8, atol=1e-6),
        # each product, sum and quotient rounded as the plain version
        # rounds it (no FMA): bit-exact expected, 1 float32 ulp allowed
        "shear_rows": ULP32, "randaugment_ew": ULP32}
+# conv_pair: at most this many elements outside TOL, each explained by
+# intermediate elements that may round either way (pair_flip_slack); at
+# ResNet-50's eval batch of 1024 (1e8-2e8 outputs a shape) 0-2 a shape lie
+# outside, each by one intermediate element at a midpoint
+PAIR_OUTLIERS = 1024
 # step 1 on the card vs the host, both bf16 (cuDNN vs the CPU's convs,
 # rounding at other points): the loss within 2e-2 and each gradient's
 # norm within 5e-2 relative, plus 1e-3 of the largest norm for the
 # small ones
 STEP1_LOSS_RTOL = 2e-2
 STEP1_GRAD_RTOL = 5e-2
+STEP1_GRAD_ATOL = 1e-3
+# step 1 of ResNet-50, VGG-16 and DenseNet-121 under the float32 policy
+# (TF32 off), card vs host, on an H100 80GB HBM3: each side's augmented
+# batch differs by up to 6.7e-5 of max |x| (STEP1_INPUTS_RTOL); from
+# those, the loss read up to 1.4e-6 apart and the gradient norms up to
+# 1.37% apart, on BN gammas and betas whose norms are 0.7-1.7% of the
+# largest (their sums cancel: a BN's backward leaves each channel's
+# gradient summing to zero); the host given the card's augmented batch
+# read up to 6.6e-8 and 0.21% (the _MODEL bounds), as far as float32
+# rounding alone moves them (the weights one ulp over on the host: 0.34%;
+# the card without cuDNN: 0.27%).  Each bound about twice its reading.
+STEP1_INPUTS_RTOL = 2e-4
+STEP1_F32_LOSS_RTOL = 1e-5
+STEP1_F32_GRAD_RTOL = 2e-2
+STEP1_F32_GRAD_ATOL = 1e-4
+STEP1_F32_MODEL_LOSS_RTOL = 1e-6
+STEP1_F32_MODEL_GRAD_RTOL = 5e-3
+# under bf16 the host's own bf16 step moves those norms 15-17% from its
+# float32 one (W, bf16's reach; the card's bf16 step sits 13-15% from the
+# host's, at 8 and at 32 images alike): held at 2W, and only while W stays
+# under STEP1_BF16_MAX_REACH
+STEP1_BF16_MAX_REACH = 0.25
 # served logits (bf16 on the card) vs the plain path on the host, as a
 # fraction of max |logit|: the CPU test of the same comparison against JAX
 # holds 0.05 (tests/test_torch_resnet.py)
 LOGIT_REL_TOL = 0.05
+# the same under the float32 policy (TF32 off): the SmallNet runs read
+# 6.7e-7 to 1.1e-6 of max |logit| on an H100 80GB HBM3; 1e-5 is the CPU
+# tests' float32 bound against JAX
+LOGIT_REL_TOL_F32 = 1e-5
 # ViT-B/16 as written: RandAugment (2, 9) over the FAST pool (the XLA
 # where-fold, no kernel)
 VIT_CONFIG = os.path.join(ROOT, "configs", "imagenet_vit_b16.py")
@@ -302,6 +362,83 @@ CORR_GRAD_ULPS = 2
 # eval flows (bf16 on the card) vs the plain path on the host, as a
 # fraction of max |flow|: the CPU test against JAX holds the same
 FLOW_REL_TOL = 0.05
+# BASELINE configs #1-#3 (and ResNet-50 training, config #2): the recipes as
+# written, full width, on synthetic splits of one recipe batch
+R50_BATCH, R50_ACCUM, R50_STEPS = 1024, 2, 20
+STEP1_BATCH = {"resnet50": 8, "vgg16": 4, "densenet121": 4}
+# eval forward launches: ResNet-50 unfolded (validation and test.main),
+# SmallNet under each policy, VGG-16 and DenseNet-121 under bf16
+FORWARD = {"resnet50": {"conv_pair": 13, "bn_act": 7},
+           "smallnet f32": {"bn_act": 6},
+           "smallnet bf16": {"conv_fused": 5, "bn_act": 1},
+           "vgg16": {"conv_fused": 12, "bn_act": 1},
+           "densenet121": {"bn_act": 121}}
+SMALLNET_CONFIGS = {name: os.path.join(ROOT, "configs", f"{name}_smallnet.py")
+                    for name in ("cifar10", "svhn", "fashion_mnist")}
+# (run, recipe, overrides, steps, val_every); the rendered splits hold 512
+# images, 4 eval batches of 128
+SMALLNET_RUNS = [("cifar10 f32", "cifar10", [], 20, 10),
+                 ("cifar10 bf16", "cifar10", ["precision=bf16"], 20, 10),
+                 ("svhn f32", "svhn", [], 5, 0),
+                 ("fashion_mnist f32", "fashion_mnist", [], 5, 0)]
+SMALLNET_BATCH, SMALLNET_SPLIT = 128, 512
+VGG_CONFIG = os.path.join(ROOT, "configs", "imagenet_vgg16.py")
+DENSENET_CONFIG = os.path.join(ROOT, "configs", "imagenet_densenet121.py")
+# the recipes' global batches, the microbatches a step splits them into
+# (1: as written; on an H100 80GB HBM3 VGG-16 at 512 peaked at 43.6 GiB
+# and DenseNet-121 at 1024 at 67.7 of 79.2, so neither needs a reduction)
+# and the train.main steps
+BIG_RUNS = {"vgg16": (VGG_CONFIG, 512, 1, 4),
+            "densenet121": (DENSENET_CONFIG, 1024, 1, 4)}
+# VGG-16's conv_fused shapes (n, h, w, c, cout) at its eval batch of 512
+# and how many of its 12 sites run at each
+VGG_FUSED_SITES = [((512, 224, 224, 64, 64), 1), ((512, 112, 112, 64, 128), 1),
+                   ((512, 112, 112, 128, 128), 1),
+                   ((512, 56, 56, 128, 256), 1), ((512, 56, 56, 256, 256), 2),
+                   ((512, 28, 28, 256, 512), 1), ((512, 28, 28, 512, 512), 2),
+                   ((512, 14, 14, 512, 512), 3)]
+# ResNet-50's eval batch on its training path (validation and test.main,
+# one batch of R50_BATCH): the served conv_pair and bn_act sites at 1024
+R50_PAIR_SITES = [((R50_BATCH, *shape[1:]), count)
+                  for shape, count in PAIR_SITES]
+R50_ACT_SITES = [(f"r50 eval {site}", (R50_BATCH, *shape[1:]), 1)
+                 for site, shape in ACT_SITES]
+# VGG-16's bn_act site: the first conv (C = 3, cuDNN) at its eval batch
+VGG_ACT_SITES = [("vgg16 conv", (512, 224, 224, 64), 1)]
+# SmallNet (width 32) at its eval batch of 128 on CIFAR's 32x32: the six
+# conv outputs that take bn_act under float32 (block 1 at 32², 2 at 16²,
+# 3 at 8²); under bf16 the first (C = 3) and conv_fused's five sites
+# (n, h, w, c, cout)
+SMALLNET_ACT_SITES = [
+    ("smallnet f32 conv", (128, 32, 32, 32), 2, "float32"),
+    ("smallnet f32 conv_2", (128, 16, 16, 64), 2, "float32"),
+    ("smallnet f32 conv_4", (128, 8, 8, 128), 2, "float32"),
+    ("smallnet bf16 conv", (128, 32, 32, 32), 1, "bfloat16")]
+SMALLNET_FUSED_SITES = [((128, 32, 32, 32, 32), 1),
+                        ((128, 16, 16, 32, 64), 1),
+                        ((128, 16, 16, 64, 64), 1),
+                        ((128, 8, 8, 64, 128), 1),
+                        ((128, 8, 8, 128, 128), 1)]
+# DenseNet-121's largest bn_act sites (the stem's conv output and the first
+# transition's BN, 822M elements each) and its smallest (the bottleneck
+# epilogue of block 4's 16 layers) at the eval batch of 1024
+DENSENET_ACT_SITES = [("densenet stem.conv", (1024, 112, 112, 64), 1),
+                      ("densenet transition1.bn", (1024, 56, 56, 256), 1),
+                      ("densenet block4 bn_1", (1024, 7, 7, 128), 16)]
+# the paths of conv_pair, bn_act and conv_fused: the runs whose launches
+# each path counts and the ``path`` of the rows that hold its shapes
+KERNEL_PATH_RUNS = {
+    "resnet50_serve": ("serve",),
+    "resnet18_cifar": ("train", "test"),
+    "resnet50_train": ("resnet50_train", "resnet50_test"),
+    "smallnet_f32": tuple(f"smallnet_{run.replace(' ', '_')}_{part}"
+                          for run, _, sets, _, _ in SMALLNET_RUNS
+                          if "precision=bf16" not in sets
+                          for part in ("train", "test")),
+    "smallnet_bf16": ("smallnet_cifar10_bf16_train",
+                      "smallnet_cifar10_bf16_test"),
+    "vgg16": ("vgg16_train", "vgg16_test"),
+    "densenet121": ("densenet121_train", "densenet121_test")}
 # peak rates of the H100 SXM (NVIDIA's data sheet): HBM bytes/s, dense
 # bf16 tensor-core and float32 FLOP/s
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -468,84 +605,173 @@ def pair_args(shape, g):
     return x, w1, s1, b1, w3, s3, b3
 
 
-def check_kernels(dev):
-    """Kernel vs plain at every slice shape; returns the per-kernel
-    summary (times summed over one batch-8 forward) and the details."""
+def cudnn_pair_bf16(x, w1, s1, b1, w3, s3, b3):
+    """The cuDNN bf16 pair with eager epilogues, for timing only."""
     import torch
     import torch.nn.functional as F
 
-    from myconvnet_tpu_torch.ops.kernels import bn_act, conv_pair
+    def conv(v, w, pad):
+        return F.conv2d(v.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                        padding=pad)
+    y = torch.relu(conv(x, w1, 0) * s1[:, None, None]
+                   + b1[:, None, None]).to(torch.bfloat16)
+    z = torch.relu(conv(y.permute(0, 2, 3, 1), w3, 1)
+                   * s3[:, None, None] + b3[:, None, None])
+    return z.to(torch.bfloat16).permute(0, 2, 3, 1)
+
+
+def pair_flip_slack(args, idx):
+    """How far conv_pair's output may move at the elements ``idx`` ([k, 4]
+    of n, h, w, c) when intermediate elements round to the other bf16
+    neighbour: a float32 sum of Cin products lands within delta = (Cin + 2)
+    2^-24 (|s1| sum |x w1| + |b1|) of its float64 value, so an element
+    within delta of a rounding midpoint may take either neighbour, which
+    moves the output by |s3 w3| times the step.  Float64 on the card."""
+    import torch
+
+    x, w1, s1, b1, w3, s3, _ = args
+    n, h, w, c = idx.t()
+    H, W, cin = x.shape[1:]
+    taps = torch.arange(-1, 2, device=x.device)
+    ys = (h[:, None] + taps.repeat_interleave(3)[None])          # [k, 9]
+    xs = (w[:, None] + taps.repeat(3)[None])
+    inside = (ys >= 0) & (ys < H) & (xs >= 0) & (xs < W)
+    xv = x[n[:, None], ys.clamp(0, H - 1), xs.clamp(0, W - 1)].double()
+    w1d, s1d, b1d = w1[0, 0].double(), s1.double(), b1.double()
+    mid = (xv @ w1d) * s1d + b1d                                  # [k, 9, cm]
+    delta = (cin + 2) * 2.0 ** -24 * ((xv.abs() @ w1d.abs()) * s1d.abs()
+                                      + b1d.abs())
+
+    def bf16(v):
+        return torch.relu(v).to(torch.bfloat16).double()
+
+    centre = bf16(mid)
+    step = torch.maximum((bf16(mid + delta) - centre).abs(),
+                         (centre - bf16(mid - delta)).abs())
+    w3k = w3.double().permute(3, 0, 1, 2)[c].reshape(len(c), 9, -1)
+    return ((step * w3k.abs()).sum(2) * inside).sum(1) \
+        * s3.double()[c].abs()
+
+
+def conv_pair_row(shape, count, path, g):
+    """conv_pair at (n, h, w, cin, cm, cout) against its plain version,
+    with its bound and plan, beside cuDNN's unfused bf16 pair: one row
+    (``count`` sites of one forward of ``path``)."""
+    import torch
+
+    from myconvnet_tpu_torch.ops.kernels import conv_pair
+
+    n, h, w, cin, cm, co = shape
+    args = pair_args(shape, g)
+    out = conv_pair.conv1x1_conv3x3_bn_relu(*args)
+    ref = conv_pair.conv_pair_reference(*args)
+    torch.cuda.synchronize()
+    err, ok = compare(out, ref, **TOL["conv_pair"])
+    # an element outside the 2 ulps passes only where intermediate
+    # elements near a rounding midpoint explain it (at most PAIR_OUTLIERS)
+    d = (out.float() - ref.float()).abs()
+    lim = TOL["conv_pair"]["atol"] + TOL["conv_pair"]["rtol"] * ref.float().abs()
+    idx = (d > lim).nonzero()
+    explained = 0
+    if 0 < len(idx) <= PAIR_OUTLIERS:
+        at = tuple(idx.t())
+        explained = int((d[at].double() <= lim[at].double()
+                         + pair_flip_slack(args, idx)).sum())
+        ok = explained == len(idx)
+    # images at the end of a large batch give the bits they give alone
+    alone = n <= 8 or torch.equal(conv_pair.conv1x1_conv3x3_bn_relu(
+        args[0][-8:].contiguous(), *args[1:]), out[-8:])
+    ok &= alone
+    del out, ref, d, lim
+    b_ms, b_by = bound(
+        2 * n * h * w * (cin + co) + 2 * (cin * cm + 9 * cm * co)
+        + 8 * (cm + co),
+        2 * n * h * w * cin * cm + 2 * n * taps(h) * taps(w) * cm * co,
+        BF16_FLOPS)
+    iters = 5 if n * h * w > 10 ** 6 else 20
+    row = dict(kernel="conv_pair", path=path, shape=list(shape),
+               sites=count, max_abs_err=err, ok=ok, outside_2_ulps=len(idx),
+               explained_by_rounding=explained, last_images_alone=alone,
+               bound_ms=b_ms,
+               bound_by=b_by, library_ms=None,
+               plan=conv_pair.plan(n, h, w, cin, cm, co),
+               ms=cuda_ms(lambda: conv_pair.conv1x1_conv3x3_bn_relu(*args),
+                          iters),
+               plain_ms=cuda_ms(lambda: conv_pair.conv_pair_reference(
+                   *args), iters),
+               cudnn_bf16_ms=cuda_ms(lambda: cudnn_pair_bf16(*args), iters),
+               host_us=host_us(lambda: conv_pair.conv1x1_conv3x3_bn_relu(
+                   *args)))
+    log(f"conv_pair {path} {row['shape']} x{count} plan {row['plan']}: "
+        f"max_abs_err={err:.3g} "
+        f"(tol rtol={TOL['conv_pair']['rtol']:.3g} "
+        f"atol={TOL['conv_pair']['atol']:.3g}; {len(idx)} of {n * h * w * co}"
+        f" outside, {explained} of them within an intermediate's rounding"
+        f"{'' if n <= 8 else f'; last 8 images alone bit-exact {alone}'})"
+        f" ok={ok} "
+        f"kernel={row['ms']:.4f}ms plain={row['plain_ms']:.4f}ms "
+        f"cudnn_bf16_unfused={row['cudnn_bf16_ms']:.4f}ms "
+        f"bound={b_ms:.4f}ms ({b_by}) "
+        f"wrapper host time={row['host_us']:.1f}us a launch")
+    return row
+
+
+def bn_act_row(site, x, a, b, count, path, **extra):
+    """bn_act (ReLU) on ``x`` against its plain version, with its bound
+    and any ``extra`` yardsticks timed: one row (``count`` sites of one
+    forward of ``path``)."""
+    import torch
+
+    from myconvnet_tpu_torch.ops.kernels import bn_act
+
+    out = bn_act.fused_scale_shift_act(x, a, b, "relu")
+    ref = bn_act.scale_shift_act_reference(x, a, b, "relu")
+    torch.cuda.synchronize()
+    err, ok = compare(out, ref, **TOL["bn_act"])
+    del out, ref
+    b_ms, b_by = bound(2 * x.element_size() * x.numel() + 8 * x.shape[-1],
+                       3 * x.numel(), F32_FLOPS)
+    iters = 5 if x.numel() > 10 ** 9 else 20
+    r = dict(kernel="bn_act", path=path, site=site, shape=list(x.shape),
+             dtype=str(x.dtype).split(".")[-1], sites=count,
+             max_abs_err=err, ok=ok, bound_ms=b_ms, bound_by=b_by,
+             library_ms=None,
+             ms=cuda_ms(lambda: bn_act.fused_scale_shift_act(
+                 x, a, b, "relu"), iters),
+             plain_ms=cuda_ms(lambda: bn_act.scale_shift_act_reference(
+                 x, a, b, "relu"), iters),
+             **{k: cuda_ms(f, iters) for k, f in extra.items()})
+    log(f"bn_act {site} {r['shape']} {r['dtype']} x{count}: "
+        f"max_abs_err={err:.3g} (tol rtol={TOL['bn_act']['rtol']:.3g} "
+        f"atol={TOL['bn_act']['atol']:.3g}) ok={ok} "
+        + " ".join(f"{k}={r[k]:.4f}ms" for k in ("ms", "plain_ms", *extra))
+        + f" bound={b_ms:.4f}ms ({b_by})")
+    return r
+
+
+def check_kernels(dev):
+    """Kernel vs plain at every slice shape; returns the per-kernel
+    summary (times summed over every row's sites: one forward of each
+    path) and the details."""
+    import torch
 
     g = torch.Generator(device=dev).manual_seed(SEED)
 
     def randn(*shape, scale=1.0):
         return torch.randn(*shape, generator=g, device=dev) * scale
 
-    def unfused_bf16(x, w1, s1, b1, w3, s3, b3):
-        """The cuDNN bf16 pair with eager epilogues, for timing only."""
-        def conv(v, w, pad):
-            return F.conv2d(v.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
-                            padding=pad)
-        y = torch.relu(conv(x, w1, 0) * s1[:, None, None]
-                       + b1[:, None, None]).to(torch.bfloat16)
-        z = torch.relu(conv(y.permute(0, 2, 3, 1), w3, 1)
-                       * s3[:, None, None] + b3[:, None, None])
-        return z.to(torch.bfloat16).permute(0, 2, 3, 1)
-
     details, summary = [], {}
-    for (n, h, w, cin, cm, co), count in PAIR_SITES:
-        args = pair_args((n, h, w, cin, cm, co), g)
-        out = conv_pair.conv1x1_conv3x3_bn_relu(*args)
-        ref = conv_pair.conv_pair_reference(*args)
-        torch.cuda.synchronize()
-        err, ok = compare(out, ref, **TOL["conv_pair"])
-        b_ms, b_by = bound(
-            2 * n * h * w * (cin + co) + 2 * (cin * cm + 9 * cm * co)
-            + 8 * (cm + co),
-            2 * n * h * w * cin * cm + 2 * n * taps(h) * taps(w) * cm * co,
-            BF16_FLOPS)
-        row = dict(kernel="conv_pair", shape=[n, h, w, cin, cm, co],
-                   sites=count, max_abs_err=err, ok=ok, bound_ms=b_ms,
-                   bound_by=b_by, library_ms=None,
-                   plan=conv_pair.plan(n, h, w, cin, cm, co),
-                   ms=cuda_ms(lambda: conv_pair.conv1x1_conv3x3_bn_relu(
-                       *args)),
-                   plain_ms=cuda_ms(lambda: conv_pair.conv_pair_reference(
-                       *args)),
-                   cudnn_bf16_ms=cuda_ms(lambda: unfused_bf16(*args)),
-                   host_us=host_us(lambda: conv_pair.conv1x1_conv3x3_bn_relu(
-                       *args)))
-        details.append(row)
-        log(f"conv_pair {row['shape']} x{count} plan {row['plan']}: "
-            f"max_abs_err={err:.3g} "
-            f"(tol rtol={TOL['conv_pair']['rtol']:.3g} "
-            f"atol={TOL['conv_pair']['atol']:.3g}) ok={ok} "
-            f"kernel={row['ms']:.4f}ms plain={row['plain_ms']:.4f}ms "
-            f"cudnn_bf16_unfused={row['cudnn_bf16_ms']:.4f}ms "
-            f"bound={b_ms:.4f}ms ({b_by}) "
-            f"wrapper host time={row['host_us']:.1f}us a launch")
-    for site, shape in ACT_SITES + ACT_SITES_R18:
-        x = randn(*shape).to(torch.bfloat16)
-        c = shape[-1]
-        a, b = torch.ones(c, device=dev), randn(c, scale=0.5)
-        out = bn_act.fused_scale_shift_act(x, a, b, "relu")
-        ref = bn_act.scale_shift_act_reference(x, a, b, "relu")
-        torch.cuda.synchronize()
-        err, ok = compare(out, ref, **TOL["bn_act"])
-        b_ms, b_by = bound(4 * x.numel() + 8 * c, 3 * x.numel(), F32_FLOPS)
-        row = dict(kernel="bn_act", site=site, shape=list(shape), sites=1,
-                   max_abs_err=err, ok=ok, bound_ms=b_ms, bound_by=b_by,
-                   library_ms=None,
-                   ms=cuda_ms(lambda: bn_act.fused_scale_shift_act(
-                       x, a, b, "relu")),
-                   plain_ms=cuda_ms(lambda: bn_act.scale_shift_act_reference(
-                       x, a, b, "relu")))
-        details.append(row)
-        log(f"bn_act {site} {list(shape)}: max_abs_err={err:.3g} "
-            f"(tol rtol={TOL['bn_act']['rtol']:.3g} "
-            f"atol={TOL['bn_act']['atol']:.3g}) ok={ok} "
-            f"kernel={row['ms']:.4f}ms plain={row['plain_ms']:.4f}ms")
+    for shape, count in PAIR_SITES:
+        details.append(conv_pair_row(shape, count, "resnet50_serve", g))
+    for path, sites in (("resnet50_serve", ACT_SITES),
+                        ("resnet18_cifar", ACT_SITES_R18)):
+        for site, shape in sites:
+            x = randn(*shape).to(torch.bfloat16)
+            c = shape[-1]
+            details.append(bn_act_row(site, x, torch.ones(c, device=dev),
+                                      randn(c, scale=0.5), 1, path))
     details += check_cifar_kernels(dev, g)
+    details += check_classifier_kernels(dev, g)
     details += check_flash_kernels(dev, g)
     details += check_randaugment_kernels(dev, g)
     details += check_correlation_kernels(dev, g)
@@ -687,10 +913,8 @@ def check_cifar_kernels(dev, g):
     shape also with each staging mode forced; then conv_fused at the
     recipe's sites.  One row per shape."""
     import torch
-    import torch.nn.functional as F
 
-    from myconvnet_tpu_torch.ops.kernels import conv_fused, normalize_u8, \
-        pad_crop_u8
+    from myconvnet_tpu_torch.ops.kernels import normalize_u8, pad_crop_u8
 
     def row(kernel, shape, sites, out, ref, fn, plain_fn, nbytes, ops,
             rate, iters=20, library=None, **extra):
@@ -771,38 +995,136 @@ def check_cifar_kernels(dev, g):
         del x, off, flip, args
         torch.cuda.empty_cache()
 
+    for shape, count in FUSED_SITES:
+        rows.append(conv_fused_row(shape, count, "resnet18_cifar", g))
+    return rows
+
+
+def conv_fused_row(shape, count, path, g):
+    """conv_fused at (n, h, w, c, cout) against its plain version, with its
+    bound and plan, beside cuDNN's bf16 conv with an eager epilogue and
+    cuDNN's conv alone: one row (``count`` sites of one forward of
+    ``path``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from myconvnet_tpu_torch.ops.kernels import conv_fused
+
     def cudnn_conv(x, w3):
-        """cuDNN's bf16 conv alone, for timing only."""
         return F.conv2d(x.permute(0, 3, 1, 2), w3.permute(3, 2, 0, 1),
                         padding=1)
 
     def cudnn_bf16(x, w3, s, b):
-        """cuDNN's bf16 conv with an eager epilogue, for timing only."""
         y = cudnn_conv(x, w3)
         return torch.relu(y * s[:, None, None] + b[:, None, None]
                           ).to(torch.bfloat16).permute(0, 2, 3, 1)
 
-    for (n, h, w, c, co), count in FUSED_SITES:
-        xb = (torch.randn(n, h, w, c, generator=g, device=dev)
-              .to(torch.bfloat16))
-        w3 = (torch.randn(co, 3, 3, c, generator=g, device=dev)
-              * (9 * c) ** -0.5).to(torch.bfloat16).permute(1, 2, 3, 0)
-        s = torch.rand(co, generator=g, device=dev) + 0.5
-        b = torch.randn(co, generator=g, device=dev) * 0.3
-        a = (xb, w3, s, b)
-        rows.append(row(
-            "conv_fused", (n, h, w, c, co), count,
-            conv_fused.conv3x3_bn_relu(*a),
-            conv_fused.conv3x3_bn_relu_reference(*a),
-            lambda: conv_fused.conv3x3_bn_relu(*a),
-            lambda: conv_fused.conv3x3_bn_relu_reference(*a),
-            2 * n * h * w * (c + co) + 18 * c * co + 8 * co,
-            2 * n * taps(h) * taps(w) * c * co, BF16_FLOPS,
-            cudnn_conv_ms=lambda: cudnn_conv(xb, w3),
-            cudnn_bf16_ms=lambda: cudnn_bf16(*a)))
-        rows[-1]["plan"] = conv_fused.plan(n, h, w, c, co)
-        log(f"conv_fused {[n, h, w, c, co]} plan {rows[-1]['plan']}")
+    n, h, w, c, co = shape
+    dev = g.device
+    x = torch.randn(n, h, w, c, generator=g, device=dev).to(torch.bfloat16)
+    w3 = (torch.randn(co, 3, 3, c, generator=g, device=dev)
+          * (9 * c) ** -0.5).to(torch.bfloat16).permute(1, 2, 3, 0)
+    s = torch.rand(co, generator=g, device=dev) + 0.5
+    b = torch.randn(co, generator=g, device=dev) * 0.3
+    a = (x, w3, s, b)
+    out = conv_fused.conv3x3_bn_relu(*a)
+    ref = conv_fused.conv3x3_bn_relu_reference(*a)
+    torch.cuda.synchronize()
+    err, ok = compare(out, ref, **TOL["conv_fused"])
+    del out, ref
+    b_ms, b_by = bound(2 * n * h * w * (c + co) + 18 * c * co + 8 * co,
+                       2 * n * taps(h) * taps(w) * c * co, BF16_FLOPS)
+    iters = 5 if h * w * n > 10 ** 6 else 20
+    r = dict(kernel="conv_fused", path=path, shape=list(shape),
+             sites=count, max_abs_err=err, ok=ok, bound_ms=b_ms,
+             bound_by=b_by, plan=conv_fused.plan(n, h, w, c, co),
+             library_ms=None,
+             ms=cuda_ms(lambda: conv_fused.conv3x3_bn_relu(*a), iters),
+             plain_ms=cuda_ms(
+                 lambda: conv_fused.conv3x3_bn_relu_reference(*a), iters),
+             cudnn_bf16_ms=cuda_ms(lambda: cudnn_bf16(*a), iters),
+             cudnn_conv_ms=cuda_ms(lambda: cudnn_conv(x, w3), iters))
+    log(f"conv_fused {path} {r['shape']} x{count} plan {r['plan']}: "
+        f"max_abs_err={err:.3g} (tol rtol={TOL['conv_fused']['rtol']:.3g}"
+        f" atol={TOL['conv_fused']['atol']:.3g}) ok={ok} "
+        + " ".join(f"{k}={r[k]:.4f}ms" for k in (
+            "ms", "plain_ms", "cudnn_bf16_ms", "cudnn_conv_ms",
+            "bound_ms")) + f" ({b_by})")
+    return r
+
+
+def check_classifier_kernels(dev, g):
+    """The kernels at the classifier paths' eval shapes against their plain
+    versions, with their bounds, one row per shape: conv_pair and bn_act at
+    ResNet-50's eval batch of 1024 (its training path's validation and
+    test.main); conv_fused at VGG-16's sites (batch 512) and bn_act at its
+    first conv; bn_act at DenseNet-121's largest and smallest sites (batch
+    1024), beside a ``torch.addcmul``, a ReLU and the cast (a yardstick of
+    three calls, so not its library time); bn_act and conv_fused at
+    SmallNet's sites (batch 128) under float32 and bf16.  conv_pair stands
+    beside cuDNN's unfused bf16 pair, conv_fused beside cuDNN's bf16 conv
+    with an eager epilogue and cuDNN's conv alone."""
+    import torch
+
+    def act_inputs(shape, dtype=torch.bfloat16):
+        x = torch.randn(*shape, generator=g, device=dev).to(dtype)
+        c = shape[-1]
+        return (x, torch.rand(c, generator=g, device=dev) + 0.5,
+                torch.randn(c, generator=g, device=dev) * 0.5)
+
+    rows = []
+    for shape, count in R50_PAIR_SITES:
+        rows.append(conv_pair_row(shape, count, "resnet50_train", g))
+        torch.cuda.empty_cache()
+    for site, shape, count in R50_ACT_SITES:
+        rows.append(bn_act_row(site, *act_inputs(shape), count,
+                               "resnet50_train"))
+        torch.cuda.empty_cache()
+    for shape, count in VGG_FUSED_SITES:
+        rows.append(conv_fused_row(shape, count, "vgg16", g))
+        torch.cuda.empty_cache()
+    for site, shape, count in VGG_ACT_SITES:
+        rows.append(bn_act_row(site, *act_inputs(shape), count, "vgg16"))
+        torch.cuda.empty_cache()
+    for site, shape, count in DENSENET_ACT_SITES:
+        x, a, b = act_inputs(shape)
+        rows.append(bn_act_row(
+            site, x, a, b, count, "densenet121",
+            torch_addcmul_relu_ms=lambda: torch.relu(
+                torch.addcmul(b, x, a)).to(torch.bfloat16)))
+        del x
+        torch.cuda.empty_cache()
+    for site, shape, count, dtype in SMALLNET_ACT_SITES:
+        path = "smallnet_" + ("f32" if dtype == "float32" else "bf16")
+        rows.append(bn_act_row(site, *act_inputs(
+            shape, getattr(torch, dtype)), count, path))
+    for shape, count in SMALLNET_FUSED_SITES:
+        rows.append(conv_fused_row(shape, count, "smallnet_bf16", g))
     return rows
+
+
+def kernel_by_path(name, details, runs):
+    """conv_pair's, bn_act's or conv_fused's launches and times path by
+    path: the launches of the path's runs beside the kernel, plain and
+    bound ms summed over the rows held at the path's shapes (``sites``:
+    how many of one forward's launches those rows cover)."""
+    out = {}
+    for path, names in KERNEL_PATH_RUNS.items():
+        rows = [r for r in details if r["kernel"] == name
+                and r.get("path") == path and r["sites"]]
+        launches = sum(runs[k][name] for k in names)
+        if not launches and not rows:
+            continue
+        if not rows:
+            raise AssertionError(f"{name} launched on {path} but held at "
+                                 "none of its shapes")
+        out[path] = dict(
+            launches=launches, sites=sum(r["sites"] for r in rows),
+            **{k: sum(r[k] * r["sites"] for r in rows)
+               for k in ("ms", "plain_ms", "bound_ms")},
+            bound_by=max(rows, key=lambda r: r["bound_ms"] * r["sites"]
+                         )["bound_by"])
+    return out
 
 
 def sweep_input_plans():
@@ -1525,29 +1847,29 @@ def check_counts(counts, expect, what):
     log(f"{what}: launches {counts} ok")
 
 
-def step_one_verdict(what, card, host, loss_card, loss_host, note=""):
+def step_one_verdict(what, card, host, loss_card, loss_host, note="", *,
+                     loss_rtol=STEP1_LOSS_RTOL, grad_rtol=STEP1_GRAD_RTOL,
+                     grad_atol=STEP1_GRAD_ATOL):
     """Hold step 1 on the card against the host: the loss within
-    STEP1_LOSS_RTOL and every parameter's gradient norm within
-    STEP1_GRAD_RTOL (plus 1e-3 of the largest); returns the record."""
+    ``loss_rtol`` and every parameter's gradient norm within ``grad_rtol``
+    (plus ``grad_atol`` of the largest); ``card`` and ``host`` the
+    trainers or their :func:`grad_norms`; returns the record."""
     import numpy as np
 
-    from myconvnet_tpu_torch import weights
-
-    norms = [(path, float(pc.grad.float().norm()), float(ph.grad.norm()))
-             for (path, pc, _), (_, ph, _) in zip(
-                 weights.param_views(card.model),
-                 weights.param_views(host.model))]
+    if not isinstance(card, dict):
+        card, host = grad_norms(card), grad_norms(host)
+    norms = [(path, card[path], h) for path, h in host.items()]
     biggest = max(h for _, _, h in norms)
     bad = [(p, c, h) for p, c, h in norms
-           if abs(c - h) > STEP1_GRAD_RTOL * h + 1e-3 * biggest]
+           if abs(c - h) > grad_rtol * h + grad_atol * biggest]
     worst = max(abs(c - h) / max(h, 1e-30) for _, c, h in norms)
     loss_rel = abs(loss_card - loss_host) / abs(loss_host)
     log(f"{what}, card vs host: loss {loss_card:.6f} vs {loss_host:.6f} "
-        f"(rel {loss_rel:.3g}, tol {STEP1_LOSS_RTOL}); {len(norms)} "
+        f"(rel {loss_rel:.3g}, tol {loss_rtol:.3g}); {len(norms)} "
         f"gradient norms, worst rel diff {worst:.3g} (tol "
-        f"{STEP1_GRAD_RTOL} + 1e-3 of the largest), outside: {len(bad)}"
-        f"{note}")
-    if not (np.isfinite(loss_card) and loss_rel <= STEP1_LOSS_RTOL):
+        f"{grad_rtol:.3g} + {grad_atol:.3g} of the largest), outside: "
+        f"{len(bad)}{note}")
+    if not (np.isfinite(loss_card) and loss_rel <= loss_rtol):
         raise AssertionError(f"{what}: the loss disagrees with the host")
     if bad:
         raise AssertionError(f"{what}: gradient norms disagree: {bad[:5]}")
@@ -2309,6 +2631,466 @@ def flownetc_run(dev):
     return counts, dict(losses=losses, seconds=seconds)
 
 
+def classifier_cfg(path, sets=()):
+    from myconvnet_tpu_torch import recipes
+    return recipes.apply_overrides(recipes.load_config(path), list(sets))
+
+
+def grad_norms(trainer):
+    """{JAX path: the norm of the parameter's gradient}."""
+    from myconvnet_tpu_torch import weights
+    return {path: float(p.grad.float().norm())
+            for path, p, _ in weights.param_views(trainer.model)}
+
+
+def norm_gaps(got, want):
+    """[(|got - want| / want, path, want / the largest want)], worst
+    first."""
+    biggest = max(want.values())
+    return sorted(((abs(got[k] - v) / max(v, 1e-30), k, v / biggest)
+                   for k, v in want.items()), reverse=True)
+
+
+def nudged(params, seed):
+    """The parameter tree with every non-zero value moved one float32 ulp
+    up or down (seeded signs): a float32 rounding of the weights."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+
+    def move(v):
+        to = np.where(rng.rand(*v.shape) < 0.5, np.inf, -np.inf)
+        return np.where(v == 0, v, np.nextafter(v, to.astype(np.float32)))
+
+    return {s: {k: move(v) for k, v in d.items()}
+            for s, d in params.items()}
+
+
+def step_one_classifier(dev, what, cfg, n):
+    """Step 1 of a classification recipe at batch ``n`` from seeded
+    JAX-layout weights, with the same batch and draws (crop boxes, flips,
+    colour-jitter factors, dropout masks) on the card and on the host,
+    under the float32 policy (TF32 off) and under the recipe's bf16, with
+    witnesses of how far rounding alone moves each gradient norm: the
+    host's float32 step with the weights moved one float32 ulp, the
+    card's float32 step without cuDNN (another summation order), and the
+    host's bf16 step against its float32 one.  Float32: the two sides'
+    augmented batches within STEP1_INPUTS_RTOL, the steps within
+    STEP1_F32_*, and the host's step on the card's augmented batch within
+    STEP1_F32_MODEL_*; bf16 at STEP1_GRAD_RTOL or twice bf16's own reach
+    on the host (W), whichever is larger."""
+    import numpy as np
+    import torch
+
+    from myconvnet_tpu_torch import recipes, weights
+    from myconvnet_tpu_torch.data.augment import JitterDraws, augment_train
+    from myconvnet_tpu_torch.train.trainer import StepDraws
+
+    def cpu(t):
+        return None if t is None else t.cpu()
+
+    def on_host(d):
+        return StepDraws(
+            cpu(d.boxes), cpu(d.flip), None,
+            None if d.masks is None else
+            [{k: m.cpu() for k, m in m_.items()} for m_ in d.masks], None,
+            None if d.jitter is None else JitterDraws(*map(cpu, d.jitter)))
+
+    params = state = draws = None
+    runs, seconds = {}, {}
+    for prec in ("f32", "bf16"):
+        c = dict(cfg, synthetic_n=n, precision=prec)
+        card, train_set, _ = recipes.build_classifier(c, True, device=dev)
+        host, _, _ = recipes.build_classifier(c, True,
+                                              device=torch.device("cpu"))
+        if params is None:
+            params, state = weights.random_jax_params(card.model, SEED)
+            xs, ys = train_set.source.get_batch(np.arange(n))
+            x, y = torch.from_numpy(xs), torch.from_numpy(ys)
+            draws = card.sample(n, tuple(xs.shape[1:3]))
+            if draws.mix is not None or draws.policy is not None:
+                raise AssertionError(f"{what}: draws this check does not "
+                                     "carry")
+        todo = [("card", card, params, x.to(dev), y.to(dev), draws),
+                ("host", host, params, x, y, on_host(draws))]
+        if prec == "f32":
+            # the augmented batch on each side (crop-resize, jitter,
+            # normalize), and the host's step on the card's
+            sides = ((card, x.to(dev), draws), (host, x, on_host(draws)))
+            aug = [augment_train(xi, d.boxes, d.flip, t.augment,
+                                 t._mean_std, None, d.jitter)
+                   for t, xi, d in sides]
+            inputs_rel = float((aug[0].cpu() - aug[1]).abs().max()
+                               / aug[1].abs().max())
+            # the same without the colour jitter: crop-resize and normalize
+            plain = [augment_train(xi, d.boxes, d.flip, t.augment._replace(
+                brightness=0.0, contrast=0.0, saturation=0.0, hue=0.0),
+                t._mean_std) for t, xi, d in sides]
+            crop_rel = float((plain[0].cpu() - plain[1]).abs().max()
+                             / plain[1].abs().max())
+            del plain
+            todo += [("host nudged", host, nudged(params, SEED + 1), x, y,
+                      on_host(draws)),
+                     ("card without cuDNN", card, params, x.to(dev),
+                      y.to(dev), draws),
+                     ("host on the card's inputs", host, params,
+                      aug[0].cpu(), y, on_host(draws))]
+        for where, t, p, xi, yi, d in todo:
+            weights.from_jax(t.model, p, state)
+            t0 = time.perf_counter()
+            # only this flag: cudnn.flags() would set the others, TF32 on
+            torch.backends.cudnn.enabled = "without cuDNN" not in where
+            augment = t.augment
+            if "inputs" in where:
+                t.augment = None
+            try:
+                loss = float(t.loss_and_grads(xi, yi, d)[0])
+            finally:
+                torch.backends.cudnn.enabled = True
+                t.augment = augment
+            seconds[where, prec] = time.perf_counter() - t0
+            runs[where, prec] = (loss, grad_norms(t))
+        del card, host
+    masks = sum(len(d) for d in draws.masks or [])
+    out = {}
+    for key, (a, b) in {
+            "card vs host, float32": (("card", "f32"), ("host", "f32")),
+            "host nudged vs host, float32": (("host nudged", "f32"),
+                                             ("host", "f32")),
+            "card without cuDNN vs card, float32": (
+                ("card without cuDNN", "f32"), ("card", "f32")),
+            "card vs host on the card's inputs, float32": (
+                ("card", "f32"), ("host on the card's inputs", "f32")),
+            "card vs host, bf16": (("card", "bf16"), ("host", "bf16")),
+            "host bf16 vs host float32": (("host", "bf16"), ("host", "f32")),
+            "card bf16 vs card float32": (("card", "bf16"), ("card", "f32"))
+            }.items():
+        gaps = norm_gaps(runs[a][1], runs[b][1])
+        loss_rel = abs(runs[a][0] - runs[b][0]) / abs(runs[b][0])
+        out[key] = dict(loss_rel=loss_rel, worst=gaps[:5],
+                        over_1e_3=sum(g > 1e-3 for g, _, _ in gaps))
+        log(f"{what} step 1 (batch {n}) {key}: loss rel {loss_rel:.3g}; "
+            f"{len(gaps)} gradient norms, {out[key]['over_1e_3']} over "
+            f"1e-3 rel; worst: " + "; ".join(
+                f"{k} {g:.3g} (norm {r:.3g} of the largest)"
+                for g, k, r in gaps[:3]))
+    log(f"{what} step 1 (batch {n}): augmented inputs, card vs host, max "
+        f"|diff| / max |x| {inputs_rel:.3g} ({crop_rel:.3g} without the "
+        "colour jitter)")
+    log(f"{what} step 1 (batch {n}): {masks} dropout masks; seconds "
+        + ", ".join(f"{w} {p} {t:.2f}" for (w, p), t in seconds.items()))
+    if not inputs_rel <= STEP1_INPUTS_RTOL:
+        raise AssertionError(f"{what}: the augmented batches differ by "
+                             f"{inputs_rel:.3g} of max |x|")
+    (lc, nc), (lh, nh) = runs["card", "f32"], runs["host", "f32"]
+    f32 = step_one_verdict(
+        f"{what} step 1 (batch {n}, float32)", nc, nh, lc, lh,
+        loss_rtol=STEP1_F32_LOSS_RTOL, grad_rtol=STEP1_F32_GRAD_RTOL,
+        grad_atol=STEP1_F32_GRAD_ATOL)
+    lm, nm = runs["host on the card's inputs", "f32"]
+    model = step_one_verdict(
+        f"{what} step 1 (batch {n}, float32, the card's augmented batch on "
+        "both)", nc, nm, lc, lm, loss_rtol=STEP1_F32_MODEL_LOSS_RTOL,
+        grad_rtol=STEP1_F32_MODEL_GRAD_RTOL, grad_atol=STEP1_F32_GRAD_ATOL)
+    # bf16: W, the furthest the host's bf16 step moves a gradient norm
+    # from its float32 one (leaves above STEP1_GRAD_ATOL of the largest),
+    # is how far bf16 rounding reaches here; two bf16 roundings of one
+    # float32 step may sit 2W apart
+    hb, hf = runs["host", "bf16"][1], runs["host", "f32"][1]
+    big = max(hf.values())
+    reach = max(abs(hb[k] - v) / v for k, v in hf.items()
+                if v >= STEP1_GRAD_ATOL * big)
+    if reach > STEP1_BF16_MAX_REACH:
+        raise AssertionError(f"{what}: bf16 moves the host's gradient norms "
+                             f"by {reach:.3g}; a bound of twice that holds "
+                             "nothing")
+    (lcb, ncb), (lhb, nhb) = runs["card", "bf16"], runs["host", "bf16"]
+    bf16 = step_one_verdict(
+        f"{what} step 1 (batch {n}, bf16)", ncb, nhb, lcb, lhb,
+        f"; bf16's own reach on the host W = {reach:.3g}",
+        grad_rtol=max(STEP1_GRAD_RTOL, 2 * reach))
+    return dict(f32, on_the_cards_inputs=model, bf16=dict(bf16, reach=reach),
+                comparisons=out, inputs_rel=inputs_rel,
+                inputs_rel_without_jitter=crop_rel,
+                seconds={f"{w} {p}": t for (w, p), t in seconds.items()})
+
+
+def step_rate(dev, trainer, batch, raw_hw, iters):
+    """The train step at ``batch`` seeded uint8 images of ``raw_hw``:
+    CUDA-event ms from an idle device (host gaps included), host enqueue
+    ms, device busy ms and top kernels (torch.profiler), the idle share
+    and the peak of allocated memory."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    xd = torch.randint(0, 256, (batch, *raw_hw, 3), generator=g,
+                       device=dev, dtype=torch.uint8)
+    yd = torch.randint(0, trainer.num_classes, (batch,), generator=g,
+                       device=dev)
+    for _ in range(2):
+        trainer.train_step(xd, yd)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_ms, host_ms = events_ms(lambda: trainer.train_step(xd, yd), iters)
+    peak = torch.cuda.max_memory_allocated(dev)
+    busy, span, n_kernels, top = device_busy(
+        lambda: trainer.train_step(xd, yd), iters=2)
+    return dict(batch=batch, accum_steps=trainer.accum_steps,
+                step_ms=step_ms, images_per_sec=batch * 1e3 / step_ms,
+                host_enqueue_ms=host_ms, device_busy_ms=busy,
+                device_span_ms=span,
+                idle_share=None if busy is None else 1 - busy / step_ms,
+                kernels_per_step=n_kernels, top_kernels=top,
+                max_memory_allocated_gb=peak / 2 ** 30), (xd, yd)
+
+
+def log_rate(what, r):
+    log(f"{what} train step (batch {r['batch']} as {r['accum_steps']} x "
+        f"{r['batch'] // r['accum_steps']}): {r['step_ms']:.2f} ms, "
+        f"{r['images_per_sec']:.1f} images/s; host enqueue "
+        f"{r['host_enqueue_ms']:.2f} ms/step; device busy "
+        f"{r['device_busy_ms']} ms/step over {r['kernels_per_step']:.0f} "
+        f"kernels, idle share {r['idle_share']}; max_memory_allocated "
+        f"{r['max_memory_allocated_gb']:.2f} GiB; top: "
+        + "; ".join(f"{n[:50]} {ms:.2f} ms x{k:g}"
+                    for n, ms, k in r["top_kernels"][:3]))
+
+
+def classifier_run(dev, what, config, sets, *, steps, batch, val_every,
+                   forward, split, check_n, per_step=None, eval_input=None,
+                   rate_iters=5, raw_hw=None):
+    """``train.main`` for ``steps`` steps at ``batch`` (``sets``: the
+    overrides) validating every ``val_every`` steps and at the end, then
+    ``test.main`` on its checkpoint: each run's launches against
+    ``forward`` (an eval forward's) times the eval batches of the
+    ``split``-image split plus ``eval_input`` (an eval batch's input
+    kernels) and ``per_step`` (a train step's); every loss finite; the
+    restored logits equal the writer's and agree with the host's plain
+    path on ``check_n`` images; then the step's rate (:func:`step_rate`).
+    Returns (train launches, test launches, checks, trainer)."""
+    import shutil
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from myconvnet_tpu_torch import recipes, test, train
+    from myconvnet_tpu_torch.ops import kernels
+
+    run_dir = os.path.join(ROOT, "build", "chip_smoke_" + "".join(
+        c if c.isalnum() else "_" for c in what.lower()))
+    shutil.rmtree(run_dir, ignore_errors=True)
+    args = ["--config", config, "--synthetic", "--batch", str(batch),
+            *[a for kv in sets for a in ("--set", kv)], "--device", dev.type]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer = train.main(args + ["--steps", str(steps), "--val_every",
+                                 str(val_every), "--out", run_dir, "--set",
+                                 "log_every=1"])
+    torch.cuda.synchronize()
+    train_counts = kernels.launch_counts()
+    seconds = time.perf_counter() - t0
+    batches = -(-split // batch)
+    evals = ((steps // val_every if val_every else 0) + 1) * batches
+
+    def expect(n_steps, n_batches):
+        want = Counter({k: 0 for k in kernels.WRAPPERS})
+        for k, v in (per_step or {}).items():
+            want[k] += v * n_steps
+        for k, v in {**forward, **(eval_input or {})}.items():
+            want[k] += v * n_batches
+        return dict(want)
+
+    check_counts(train_counts, expect(steps, evals),
+                 f"{what} train.main ({steps} steps, {evals} eval batches)")
+    losses = read_losses(run_dir, steps, what)
+    log(f"{what}: train.main {steps} steps of {batch} in {seconds:.1f}s "
+        f"(data, cuDNN plans and checkpoint included); losses finite, "
+        f"first {losses[0]:.4f} last {losses[-1]:.4f}")
+
+    kernels.reset_launch_counts()
+    score, restored = test.main(args + ["--ckpt", run_dir])
+    torch.cuda.synchronize()
+    eval_counts = kernels.launch_counts()
+    check_counts(eval_counts, expect(0, batches),
+                 f"{what} test.main ({batches} eval batches)")
+    cfg = classifier_cfg(config, sets)
+    val = recipes.make_sources(dict(cfg, synthetic_n=check_n), True,
+                               splits=("val",))[0]
+    x = torch.from_numpy(val.images)
+    writer = trainer.eval_step(x.to(dev))
+    reread = restored.eval_step(x.to(dev))
+    host, _, _ = recipes.build_classifier(dict(cfg, synthetic_n=check_n),
+                                          True, device=torch.device("cpu"))
+    host.load_state(trainer.state())
+    plain = host.eval_step(x).numpy()
+    card = writer.cpu().numpy()
+    rel = float(np.abs(card - plain).max() / np.abs(plain).max())
+    tol = LOGIT_REL_TOL if cfg.get("precision") == "bf16" \
+        else LOGIT_REL_TOL_F32
+    same = bool(torch.equal(writer, reread))
+    log(f"{what} test.main top-1 {score:.4f}; restored logits equal the "
+        f"writer's: {same}; card vs host plain path on {check_n} images "
+        f"max|diff|/max|logit| = {rel:.4g} (tol {tol}); finite "
+        f"{bool(np.isfinite(card).all())}")
+    if not same:
+        raise AssertionError(f"{what}: restored logits differ")
+    if card.shape != (check_n, cfg["num_classes"]) \
+            or not np.isfinite(card).all() or rel > tol:
+        raise AssertionError(f"{what}: eval logits disagree with the "
+                             "plain path")
+    shutil.rmtree(run_dir)
+    del restored, host
+    rate, batch_xy = step_rate(dev, trainer, batch,
+                               raw_hw or tuple(x.shape[1:3]), rate_iters)
+    log_rate(what, rate)
+    checks = dict(losses=losses, train_seconds=seconds, top1=score,
+                  eval_logit_rel_err=rel, step=rate)
+    return train_counts, eval_counts, checks, trainer, batch_xy
+
+
+def resnet50_train_and_check(dev):
+    """ResNet-50 training, the recipe as written: step 1 on the card
+    against the host; ``train.main`` for R50_STEPS steps of R50_BATCH as
+    R50_ACCUM microbatches and ``test.main`` (13 conv_pair and 7 bn_act
+    launches an eval batch, none in a train step); the step's rate, then
+    again with ``augment.interp_dtype`` bfloat16, and the augmentation
+    alone under each interpolation dtype."""
+    import torch
+
+    from myconvnet_tpu_torch.data import augment
+
+    cfg = classifier_cfg(CONFIG)
+    checks = {"step1": step_one_classifier(dev, "ResNet-50", cfg,
+                                           STEP1_BATCH["resnet50"])}
+    train_counts, eval_counts, run, trainer, (xd, yd) = classifier_run(
+        dev, "ResNet-50", CONFIG,
+        [f"accum_steps={R50_ACCUM}", f"synthetic_n={R50_BATCH}"],
+        steps=R50_STEPS, batch=R50_BATCH, val_every=0,
+        forward=FORWARD["resnet50"], split=R50_BATCH,
+        check_n=STEP1_BATCH["resnet50"], raw_hw=tuple(cfg["raw_hw"]))
+    checks.update(run)
+    f32_cfg = trainer.augment
+    bf16_cfg = f32_cfg._replace(interp_dtype="bfloat16")
+    trainer.augment = bf16_cfg
+    try:
+        trainer.train_step(xd, yd)
+        torch.cuda.synchronize()
+        ms, host_ms = events_ms(lambda: trainer.train_step(xd, yd), 5)
+    finally:
+        trainer.augment = f32_cfg
+    checks["step_bf16_interp"] = dict(
+        step_ms=ms, images_per_sec=R50_BATCH * 1e3 / ms,
+        host_enqueue_ms=host_ms)
+    log(f"ResNet-50 train step under augment.interp_dtype=bfloat16: "
+        f"{ms:.2f} ms, {R50_BATCH * 1e3 / ms:.1f} images/s (float32: "
+        f"{run['step']['step_ms']:.2f} ms)")
+    # the augmentation alone; its colour jitter makes host syncs (a
+    # constant copied to the device each call), so the stream cannot be
+    # held: CUDA events from an idle device and the device busy time, as
+    # augment_rates times the ViT's
+    draws = trainer.sample(R50_BATCH, tuple(xd.shape[1:3]))
+    crop = {}
+    for cfg_dt in (f32_cfg, bf16_cfg):
+        def fn():
+            return augment.augment_train(xd, draws.boxes, draws.flip,
+                                         cfg_dt, trainer._mean_std, None,
+                                         draws.jitter)
+        fn()
+        ms, host_ms = events_ms(fn, 5)
+        busy, _, n_kernels, _ = device_busy(fn, iters=3)
+        crop[cfg_dt.interp_dtype] = dict(ms=ms, host_enqueue_ms=host_ms,
+                                         device_busy_ms=busy,
+                                         kernels=n_kernels)
+    checks["augment_train"] = crop
+    log(f"augment_train of {R50_BATCH} x {list(xd.shape[1:3])} -> "
+        f"{list(f32_cfg.out_hw)} (crop-resize, jitter, normalize): "
+        + ", ".join(
+            f"{k} {v['ms']:.3f} ms by events, device busy "
+            f"{v['device_busy_ms']} ms over {v['kernels']:.0f} kernels"
+            for k, v in crop.items()))
+    return train_counts, eval_counts, checks
+
+
+def smallnet_runs(dev):
+    """SmallNet through train.main and test.main on CIFAR-10 as written
+    (float32) and under precision=bf16, then short runs on SVHN and
+    Fashion-MNIST: pad_crop_u8 once a train step; normalize_u8 once and the
+    forward's launches an eval batch.  Returns ({run: (train, test)
+    launches}, checks)."""
+    counts, checks = {}, {}
+    for run, recipe, sets, steps, val_every in SMALLNET_RUNS:
+        policy = "bf16" if "precision=bf16" in sets else "f32"
+        train_c, test_c, checks[run], trainer, _ = classifier_run(
+            dev, f"SmallNet {run}", SMALLNET_CONFIGS[recipe], sets,
+            steps=steps, batch=SMALLNET_BATCH, val_every=val_every,
+            forward=FORWARD[f"smallnet {policy}"], split=SMALLNET_SPLIT,
+            check_n=SMALLNET_BATCH, per_step={"pad_crop_u8": 1},
+            eval_input={"normalize_u8": 1}, rate_iters=20)
+        counts[run] = (train_c, test_c)
+        del trainer
+    return counts, checks
+
+
+def big_classifier_run(dev, name):
+    """VGG-16 or DenseNet-121 (BIG_RUNS): step 1 on the card against the
+    host; ``train.main`` for a few steps at the recipe's global batch in
+    its microbatches and ``test.main``; the step's rate and peak memory.
+    Returns (train launches, test launches, checks)."""
+    import torch
+
+    config, batch, accum, steps = BIG_RUNS[name]
+    what = {"vgg16": "VGG-16", "densenet121": "DenseNet-121"}[name]
+    cfg = classifier_cfg(config)
+    checks = {"step1": step_one_classifier(dev, what, cfg,
+                                           STEP1_BATCH[name])}
+    train_counts, eval_counts, run, trainer, _ = classifier_run(
+        dev, what, config, [f"accum_steps={accum}", f"synthetic_n={batch}"],
+        steps=steps, batch=batch, val_every=0, forward=FORWARD[name],
+        split=batch, check_n=STEP1_BATCH[name], rate_iters=3,
+        raw_hw=tuple(cfg["raw_hw"]))
+    checks.update(run)
+    peak = run["step"]["max_memory_allocated_gb"]
+    log(f"{what}: the recipe's batch of {batch} ran as {accum} "
+        f"microbatch{'es' if accum > 1 else ''} of {batch // accum}; peak "
+        f"memory {peak:.2f} GiB of "
+        f"{torch.cuda.get_device_properties(dev).total_memory / 2 ** 30:.1f}")
+    del trainer
+    return train_counts, eval_counts, checks
+
+
+def step_one_only(specs):
+    """Step 1 of ResNet-50, VGG-16 and DenseNet-121 against the host alone
+    (``name:batch`` specs, default each at STEP1_BATCH), records in
+    chiprun_out/step_one.json."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from myconvnet_tpu_torch.core.precision import FULL, apply_backend_flags
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    apply_backend_flags(FULL)
+    configs = {"resnet50": CONFIG, **{k: v[0] for k, v in BIG_RUNS.items()}}
+    out = {}
+    for spec in specs or [f"{k}:{v}" for k, v in STEP1_BATCH.items()]:
+        name, n = spec.split(":")
+        out[spec] = step_one_classifier(
+            torch.device("cuda", 0), name, classifier_cfg(configs[name]),
+            int(n))
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "step_one.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    return 0
+
+
+def phase(name, fn, *args):
+    """Run one phase and print its seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"phase {name}: {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2329,7 +3111,8 @@ def main() -> int:
               "a checkout of the repo", file=sys.stderr)
         return 1
     for path in (CONFIG, CIFAR_CONFIG, VIT_CONFIG, PWC_CONFIG,
-                 FLOWNET_CONFIG):
+                 FLOWNET_CONFIG, VGG_CONFIG, DENSENET_CONFIG,
+                 *SMALLNET_CONFIGS.values()):
         if not os.path.exists(path):
             print(f"chip_smoke: {path} is missing", file=sys.stderr)
             return 1
@@ -2368,11 +3151,28 @@ def main() -> int:
     pwc_train, pwc_test, checks["pwcnet"] = pwc_train_and_check(dev)
     torch.cuda.empty_cache()
     flownetc_counts, checks["flownetc"] = flownetc_run(dev)
+    torch.cuda.empty_cache()
+    r50_train, r50_test, checks["resnet50"] = phase(
+        "ResNet-50 training", resnet50_train_and_check, dev)
+    torch.cuda.empty_cache()
+    smallnet_counts, checks["smallnet"] = phase("SmallNet", smallnet_runs,
+                                                dev)
+    big = {}
+    for name in BIG_RUNS:
+        torch.cuda.empty_cache()
+        *big[name], checks[name] = phase(name, big_classifier_run, dev,
+                                         name)
     runs = {"serve": counts, "train": train_counts, "test": eval_counts,
             "vit_train": vit_train, "vit_test": vit_test,
             **{f"vit_train_{k}": v for k, v in policy_runs.items()},
             "pwc_train": pwc_train, "pwc_test": pwc_test,
-            "flownetc_train": flownetc_counts}
+            "flownetc_train": flownetc_counts,
+            "resnet50_train": r50_train, "resnet50_test": r50_test,
+            **{f"smallnet_{k.replace(' ', '_')}_{part}": c
+               for k, pair in smallnet_counts.items()
+               for part, c in zip(("train", "test"), pair)},
+            **{f"{k}_{part}": c for k, pair in big.items()
+               for part, c in zip(("train", "test"), pair)}}
     launches = {name: sum(c[name] for c in runs.values())
                 for name in SOURCES}
     in_forward = checks["bn_act_in_forward_ms"]
@@ -2389,6 +3189,8 @@ def main() -> int:
              "library_ms")},
          **({"by_path": correlation_by_path(name, details, runs)}
             if name in CORR else {}),
+         **({"by_path": kernel_by_path(name, details, runs)}
+            if name in ("conv_pair", "bn_act", "conv_fused") else {}),
          **({"in_forward_ms": summary[name]["in_forward_ms"]}
             if name == "bn_act" else {})}
         for name in SOURCES]}
@@ -2415,6 +3217,8 @@ if __name__ == "__main__":
             code = 0
         elif len(sys.argv) == 3 and sys.argv[1] == "--compare":
             code = compare_trees(sys.argv[2])
+        elif len(sys.argv) >= 2 and sys.argv[1] == "--step-one":
+            code = step_one_only(sys.argv[2:])
         elif len(sys.argv) == 2 and sys.argv[1] == "--sweep-inputs":
             sys.path.insert(0, ROOT)
             code = 0 if sweep_input_plans() else 1

@@ -29,8 +29,13 @@ clamped to the frame rather than rejected, as in JAX.  The application:
   counterpart of JAX's ``precision="highest"``), then x / 255, the colour
   jitter, the policy (RandAugment or AutoAugment; a pad-crop batch with
   jitter or a policy also takes this path, as JAX does) and the mean/std
-  normalize as plain ops.  Only the float32 interpolation
-  (``interp_dtype``) is ported.
+  normalize as plain ops.  ``interp_dtype="bfloat16"`` reproduces JAX's
+  bf16 interpolation (``augment.py:141-152``): the sampling matrices and
+  the pixels rounded to bf16, each product summed in float32 (JAX's
+  ``preferred_element_type``), the intermediate rounded to bf16 between
+  the two.  A bf16 ``torch.matmul`` would round the second product's
+  output too, so both products run as float32 matmuls of the rounded
+  operands (exact products, TF32 off).
 """
 
 from __future__ import annotations
@@ -242,18 +247,29 @@ def _axis_matrix(start: torch.Tensor, extent: torch.Tensor, in_size: int,
 def batched_crop_resize(images: torch.Tensor, boxes: torch.Tensor,
                         out_hw: tuple[int, int],
                         flip: torch.Tensor | None = None,
-                        clamp: bool = True) -> torch.Tensor:
+                        clamp: bool = True,
+                        interp_dtype: str = "float32") -> torch.Tensor:
     """Crop + bilinear resize (+ horizontal flip) of every image with its
     own box.  images [N, H, W, C] (any dtype), boxes [N, 4] float32
     (y0, x0, h, w) in pixels, flip [N] bool or None -> [N, OH, OW, C]
-    float32, by two float32 einsums."""
+    float32, by two float32 einsums; under ``interp_dtype="bfloat16"`` the
+    matrices, the pixels and the intermediate are rounded to bf16 first."""
+    if interp_dtype not in _DTYPES:
+        raise ValueError(f"interp_dtype {interp_dtype!r}: one of "
+                         f"{sorted(_DTYPES)}")
     _, h, w, _ = images.shape
     oh, ow = out_hw
     boxes = boxes.float()
     mh = _axis_matrix(boxes[:, 0], boxes[:, 2], h, oh, clamp=clamp)
     mw = _axis_matrix(boxes[:, 1], boxes[:, 3], w, ow, flip, clamp=clamp)
-    y = torch.einsum("nih,nhwc->niwc", mh, images.float())
-    return torch.einsum("njw,niwc->nijc", mw, y).contiguous()
+    bf16 = interp_dtype == "bfloat16"
+
+    def rounded(t):
+        return t.to(torch.bfloat16).float() if bf16 else t
+
+    y = torch.einsum("nih,nhwc->niwc", rounded(mh), rounded(images.float()))
+    return torch.einsum("njw,niwc->nijc", rounded(mw),
+                        rounded(y)).contiguous()
 
 
 def random_resized_crop_boxes(generator: torch.Generator, n: int,
@@ -324,12 +340,10 @@ def sample_geometry(generator: torch.Generator, n: int,
 
 def _resized(images_u8, boxes, flip, cfg, mean_std, clamp, policy=None,
              jitter=None):
-    if cfg.interp_dtype != "float32":
-        raise NotImplementedError(f"interp_dtype {cfg.interp_dtype!r}: the "
-                                  "port interpolates in float32")
     mean, std = mean_std or stats(cfg, images_u8.device)
     x = batched_crop_resize(images_u8, boxes, tuple(cfg.out_hw), flip,
-                            clamp=clamp) * (1.0 / 255.0)
+                            clamp=clamp, interp_dtype=cfg.interp_dtype
+                            ) * (1.0 / 255.0)
     x = color_jitter(x, jitter)
     if policy is not None:
         x = apply_policy(x, cfg, policy)

@@ -25,6 +25,9 @@ only in eval mode:
 * every other conv -> BN -> ReLU (the stem; the remaining conv_a and the
   stride-2 conv_b of a bottleneck) is a cuDNN conv without bias followed
   by ``fused_scale_shift_act`` with the bias and BN folded into (a, b).
+
+The last two are ``models/blocks.conv_bn_relu``, the routing the other
+classifiers share.
 """
 
 from __future__ import annotations
@@ -32,12 +35,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from myconvnet_tpu_torch.models.blocks import conv_bn_relu, fuses
 from myconvnet_tpu_torch.nn import (BatchNorm, Conv, Dense, conv_epilogue,
                                     gap, relu)
-from myconvnet_tpu_torch.ops.kernels import (conv1x1_conv3x3_bn_relu,
-                                             conv3x3_bn_relu,
-                                             fused_scale_shift_act)
-from myconvnet_tpu_torch.ops.kernels import conv_fused as conv_fused_lib
+from myconvnet_tpu_torch.ops.kernels import conv1x1_conv3x3_bn_relu
 from myconvnet_tpu_torch.ops.kernels import conv_pair as conv_pair_lib
 from myconvnet_tpu_torch.ops.pool import max_pool2d
 
@@ -48,17 +49,6 @@ BN_MOMENTUM = 0.9
 
 def _bn(c: int, zero_init: bool = False) -> BatchNorm:
     return BatchNorm(c, BN_EPS, BN_MOMENTUM, zero_init=zero_init)
-
-
-def conv_bn_relu(conv: Conv, bn: BatchNorm, x: torch.Tensor
-                 ) -> torch.Tensor:
-    """Train mode: conv -> BN -> ReLU as plain ops.  Eval mode: cuDNN
-    conv, then bias/BN + ReLU in one pass of the bn_act kernel."""
-    if bn.training:
-        return relu(bn(conv(x)))
-    a, b = conv_epilogue(conv, bn)
-    return fused_scale_shift_act(conv(x, add_bias=False).contiguous(),
-                                 a, b, "relu")
 
 
 def _pad3(torch_padding: bool):
@@ -85,14 +75,10 @@ class BasicBlock(nn.Module):
         self.projection = projection
         # static routing: a stride-1 conv_a (SAME and torch padding agree
         # there) goes through the fused conv3x3 kernel in eval mode
-        self.fused = stride == 1 and conv_fused_lib.supports(cin)
+        self.fused = fuses(self.conv_a)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.fused and not self.training and x.dtype == torch.bfloat16:
-            a, b = conv_epilogue(self.conv_a, self.bn_a)
-            y = conv3x3_bn_relu(x, self.conv_a.w.to(x.dtype), a, b)
-        else:
-            y = conv_bn_relu(self.conv_a, self.bn_a, x)
+        y = conv_bn_relu(self.conv_a, self.bn_a, x, self.fused)
         y = self.bn_b(self.conv_b(y))
         shortcut = x
         if self.projection:

@@ -1,8 +1,9 @@
 """Layers of the train and eval paths, as ``torch.nn`` modules on NHWC
 tensors.
 
-Port of the subset of ``myconvnet_tpu/nn.py`` that the ResNets, the ViTs
-and the flow models use.
+Port of the subset of ``myconvnet_tpu/nn.py`` that the ResNets, the ViTs,
+the flow models, SmallNet, VGG and DenseNet use (``max_pool``, ``avg_pool``
+and ``gap`` are the pooling ops of ``ops/pool.py``).
 Module names follow the JAX scope names, so ``weights.from_jax`` maps
 ``{"stage1/block1/conv_a": {"w": ...}}`` onto ``stage1.block1.conv_a``.
 
@@ -38,7 +39,8 @@ from myconvnet_tpu_torch.ops.batch_norm import (batch_norm_inference,
                                                 batch_norm_train,
                                                 bn_scale_shift)
 from myconvnet_tpu_torch.ops.conv import Padding, conv2d
-from myconvnet_tpu_torch.ops.pool import global_avg_pool
+from myconvnet_tpu_torch.ops.pool import avg_pool2d, global_avg_pool, \
+    max_pool2d
 
 
 class Conv(nn.Module):
@@ -113,13 +115,14 @@ class BatchNorm(nn.Module):
                                     self.eps)
 
 
-def conv_epilogue(conv: Conv, bn: BatchNorm
+def conv_epilogue(conv: Conv, bn: BatchNorm | None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-channel float32 (a, b) with bn(conv(x)) == conv_nobias(x)*a + b:
-    (1, bias) once the BN is folded, the BN's scale and shift otherwise."""
+    (1, bias) once the BN is folded or where there is none, the BN's scale
+    and shift otherwise."""
     b = (conv.bias.float() if conv.bias is not None
          else torch.zeros(conv.weight.shape[0], device=conv.weight.device))
-    if bn.folded:
+    if bn is None or bn.folded:
         return torch.ones_like(b), b
     a, shift = bn.scale_shift()
     return a, b * a + shift
@@ -206,3 +209,5 @@ def drop_path(x: torch.Tensor, rate: float, *, train: bool,
 
 
 gap = global_avg_pool
+max_pool = max_pool2d
+avg_pool = avg_pool2d

@@ -3,8 +3,9 @@
 Port of ``myconvnet_tpu/recipes``: ``load_config`` and ``apply_overrides``
 (``common.py``), ``make_optimizer`` (``common.py:68-103``: SGD, momentum,
 Adam, AdamW, with ``clip_norm``), ``make_augment`` (``:124``),
-``make_sources`` (``:131-163``: CIFAR-100 and the synthetic ImageNet
-split at the recipe's ``raw_hw``) and, for classification,
+``make_sources`` (``:131-163``: CIFAR-10 and CIFAR-100, SVHN, MNIST and
+Fashion-MNIST, the synthetic ImageNet split at the recipe's ``raw_hw``,
+and the flow corpus) and, for classification,
 ``build_classifier`` (``vision.py:23-65``, with ``accum_steps`` and
 ``accum_dtype``), which here builds the trainer directly (the ``ConvNet``
 wrapper of ``models/base.py`` comes later), and for optical flow
@@ -35,7 +36,8 @@ from myconvnet_tpu_torch.data.mix import MixConfig
 from myconvnet_tpu_torch.data.pipeline import DataSet
 from myconvnet_tpu_torch.eval.evaluators import AccuracyEvaluator, Evaluator
 from myconvnet_tpu_torch.eval.flow import FlowEvaluator
-from myconvnet_tpu_torch.subsets import cifar100, imagenet
+from myconvnet_tpu_torch.subsets import cifar10, cifar100, imagenet, mnist, \
+    svhn
 from myconvnet_tpu_torch.subsets import flow as flow_mod
 from myconvnet_tpu_torch.train import optim
 from myconvnet_tpu_torch.train.losses import (epe_loss, multiscale_epe_loss,
@@ -131,11 +133,26 @@ def make_optimizer(model: torch.nn.Module, opt_cfg: dict
     return optim.make_optimizer(named, name, lr, **opt_cfg)
 
 
+def split_name(dataset: str, split: str) -> str:
+    """The split a source reads: "val" is "test" for CIFAR, (Fashion-)MNIST
+    and SVHN, whose corpora have no other held-out split
+    (``common.py:143-146``)."""
+    if split == "val" and (dataset.startswith("cifar")
+                           or dataset.endswith("mnist")
+                           or dataset == "svhn"):
+        return "test"
+    return split
+
+
 def make_sources(cfg: dict, synthetic: bool, splits=("train", "val")):
-    """One source per split; CIFAR's "val" split is "test".  The flow
-    corpus at the recipe's ``input_hw`` (``synthetic_n`` scenes with
-    motions up to ``max_motion`` when it is rendered)."""
-    table = {"cifar100": cifar100, "imagenet": imagenet, "flow": flow_mod}
+    """One source per split (see :func:`split_name`); a Fashion-MNIST
+    source carries its ``class_names``; ``synthetic_n`` sizes a rendered
+    split (each subset's default otherwise).  The flow corpus at the recipe's
+    ``input_hw`` (``synthetic_n`` scenes with motions up to
+    ``max_motion`` when it is rendered)."""
+    table = {"cifar10": cifar10, "cifar100": cifar100, "svhn": svhn,
+             "mnist": mnist, "fashion_mnist": mnist, "imagenet": imagenet,
+             "flow": flow_mod}
     name = cfg["dataset"]
     if name not in table:
         raise ValueError(f"the port has datasets {sorted(table)}, not "
@@ -150,10 +167,19 @@ def make_sources(cfg: dict, synthetic: bool, splits=("train", "val")):
     kw = {}
     if name == "imagenet" and cfg.get("raw_hw") is not None:
         kw["raw_hw"] = tuple(cfg["raw_hw"])
-    return [table[name].make_source(
-        data_dir, "test" if split == "val" and name.startswith("cifar")
-        else split, synthetic=synthetic or data_dir is None, **kw)
-        for split in splits]
+    if cfg.get("synthetic_n") is not None:
+        # the rendered split's size (the JAX recipes keep each module's
+        # default): a batch larger than the default split needs it
+        kw["synthetic_n"] = int(cfg["synthetic_n"])
+    out = []
+    for split in splits:
+        src = table[name].make_source(
+            data_dir, split_name(name, split),
+            synthetic=synthetic or data_dir is None, **kw)
+        if name == "fashion_mnist":
+            src.class_names = mnist.FASHION_CLASS_NAMES
+        out.append(src)
+    return out
 
 
 def build_evaluator(cfg: dict) -> Evaluator:
@@ -317,7 +343,14 @@ def build_flow(cfg: dict, synthetic: bool = False, *,
 
 def build_trainer(cfg: dict, synthetic: bool = False, **kwargs
                   ) -> tuple[Trainer, DataSet, DataSet]:
-    """The recipe's (trainer, train set, val set), by ``cfg["task"]``."""
+    """The recipe's (trainer, train set, val set), by ``cfg["task"]``.
+    A ``pretrained`` block is refused: the JAX package warm-starts from it
+    (``train.py:170-175``), and training from seed weights instead would
+    be another run."""
+    if cfg.get("pretrained") is not None:
+        raise ValueError(f"recipe key 'pretrained' = {cfg['pretrained']!r} "
+                         "is not ported (the JAX trainer warm-starts from "
+                         "it, recipes/common.py:247-275)")
     by_task = {"classification": build_classifier, "flow": build_flow}
     task = cfg.get("task", "classification")
     if task not in by_task:

@@ -138,8 +138,10 @@ def test_pad_crop_sampler_bounds():
                                 dict(brightness=0.4)])
 def test_unported_augment_modes_raise(kw):
     """Colour jitter is ported: the samplers take such a config and
-    augment_train wants its factors.  What still raises is the bf16
-    interpolation."""
+    augment_train wants its factors.  The bf16 interpolation is ported
+    too: on whole-pixel pad-crop boxes its weights (0 or 1) and sums
+    (uint8 pixels) are exact in bf16, so it equals the float32 one; an
+    interpolation dtype that JAX does not take raises."""
     g = torch.Generator().manual_seed(0)
     cfg = _cfg(**kw)
     boxes, flip = taug.sample_geometry(g, 2, (32, 32), cfg)
@@ -149,9 +151,16 @@ def test_unported_augment_modes_raise(kw):
         taug.augment_train(x, boxes, flip, cfg)
     assert taug.augment_train(x, boxes, flip, cfg, jitter=factors).shape \
         == (2, 32, 32, 3)
-    with pytest.raises(NotImplementedError, match="float32"):
+    xr = torch.from_numpy(np.random.RandomState(1).randint(
+        0, 256, (2, 32, 32, 3), dtype=np.uint8))
+    f32 = taug.augment_train(xr, boxes, flip, cfg, jitter=factors)
+    bf16 = taug.augment_train(xr, boxes, flip,
+                              _cfg(interp_dtype="bfloat16", **kw),
+                              jitter=factors)
+    assert bf16.dtype == torch.float32 and torch.equal(bf16, f32)
+    with pytest.raises(ValueError, match="interp_dtype"):
         taug.augment_train(x, boxes, flip,
-                           _cfg(interp_dtype="bfloat16", **kw),
+                           _cfg(interp_dtype="float16", **kw),
                            jitter=factors)
 
 
@@ -260,10 +269,20 @@ def test_policy_modes_sample_and_apply(kw):
 
 
 def test_eval_resize_raises():
-    """The eval crop-resize interpolates in float32 only."""
-    x = torch.zeros(1, 40, 40, 3, dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="float32"):
-        taug.augment_eval(x, _cfg(interp_dtype="bfloat16"))
+    """The eval crop-resize interpolates in float32 or bf16, as JAX's
+    (bf16: within one bf16 rounding of the intermediate, 2^-7 relative,
+    in normalized units about 2^-7 * 255 / 255 / std); another dtype
+    raises."""
+    x = np.random.RandomState(2).randint(0, 256, (2, 40, 40, 3),
+                                         dtype=np.uint8)
+    cfg = _cfg(interp_dtype="bfloat16")
+    got = taug.augment_eval(torch.from_numpy(x), cfg).numpy()
+    want = np.asarray(jaug.augment_eval(
+        jnp.asarray(x), jaug.AugmentConfig(**cfg._asdict())))
+    assert got.shape == want.shape == (2, 32, 32, 3)
+    np.testing.assert_allclose(got, want, rtol=0, atol=2 ** -7 / 0.2)
+    with pytest.raises(ValueError, match="interp_dtype"):
+        taug.augment_eval(torch.from_numpy(x), _cfg(interp_dtype="int8"))
 
 
 def test_normalize_matches_jax():

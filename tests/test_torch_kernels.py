@@ -565,9 +565,16 @@ IMAGENET_FUSED = [(b, hw, hw, c, c) for b in (8, 1)
 ODD_FUSED = [(3, 1, 1, 8, 16), (3, 2, 2, 8, 24), (2, 5, 7, 40, 72),
              (1, 9, 3, 16, 130), (3, 5, 7, 512, 72), (4, 1, 1, 8, 64),
              (4, 1, 1, 512, 64), (2, 4, 4, 16, 16)]
+# VGG-16's 12 conv_fused sites at its eval batch of 512: eight shapes over
+# its five maps (224 down to 14)
+VGG_FUSED = [(512, 224, 224, 64, 64), (512, 112, 112, 64, 128),
+             (512, 112, 112, 128, 128), (512, 56, 56, 128, 256),
+             (512, 56, 56, 256, 256), (512, 28, 28, 256, 512),
+             (512, 28, 28, 512, 512), (512, 14, 14, 512, 512)]
 
 
-@pytest.mark.parametrize("shape", CIFAR_FUSED + IMAGENET_FUSED + ODD_FUSED)
+@pytest.mark.parametrize("shape", CIFAR_FUSED + IMAGENET_FUSED + ODD_FUSED
+                         + VGG_FUSED)
 def test_conv_fused_plan_holds_its_rules(shape):
     """Every plan: a box of at most 64 output pixels inside the map and the
     batch, whole images where the map has 64 pixels or fewer; a split among
@@ -602,6 +609,28 @@ def test_conv_fused_plan_fills_the_card_at_cifar_maps(shape):
     p = conv_fused.plan(*shape)
     assert p["blocks"] == 128
     assert p["split"] == {8: 1, 4: 2, 2: 4, 1: 8}[shape[1]]
+
+
+@pytest.mark.parametrize("shape", VGG_FUSED)
+def test_conv_fused_plan_at_vgg_maps_stays_in_32_bit_launch_ranges(shape):
+    """At VGG's maps the grid alone is many waves (split 1; 401,408 blocks
+    of 32x2-pixel windows at 224x224x64), and every quantity the kernel
+    keeps in a 32-bit int stays in range: the block index, the tile's
+    image, row and column (its TMA box coordinates) and the channel
+    offsets.  At the first map the output has 1.64e9 elements, below
+    2^31, in 3.3 GB of bf16, above it: the store's offset is computed in
+    size_t (``csrc/conv_fused.cu:235``) and the tensor maps take 64-bit
+    byte strides."""
+    n, h, w, c, co = shape
+    p = conv_fused.plan(*shape)
+    assert p["split"] == 1 and p["g"] == 1
+    assert p["blocks"] == n * -(-h // p["th"]) * -(-w // p["tw"]) \
+        * -(-co // 64) < 2 ** 31 - 1
+    if h == 224:
+        assert (p["th"], p["tw"], p["blocks"]) == (2, 32, 401_408)
+        assert n * h * w * co < 2 ** 31 < 2 * n * h * w * co
+    assert max(n, h, w, c, co) < 2 ** 15     # TMA coordinates and offsets
+    assert h * w * c * 2 < 2 ** 31           # an image's bytes (a stride)
 
 
 def test_conv_fused_plan_takes_a_forced_split_and_rejects_others():

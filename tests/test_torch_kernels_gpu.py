@@ -151,8 +151,12 @@ PAIR_SITES = [(8, 56, 56, 64, 64, 64), (8, 56, 56, 256, 64, 64),
               (8, 7, 7, 2048, 512, 512)]
 
 
+# ... and at ResNet-50's eval batch of 1024 on its training path
+# (validation and test.main): many waves of blocks, 1.64 GB of input at
+# [1024, 56, 56, 256]
 @pytest.mark.parametrize("shape", PAIR_SITES + [
     (1,) + s[1:] for s in PAIR_SITES] + [
+    (1024,) + s[1:] for s in PAIR_SITES] + [
     (2, 7, 7, 64, 32, 32),       # one whole-image tile, Cm = 32
     (1, 9, 6, 64, 32, 48),       # partial tiles, Cout not a multiple of 32
     (2, 14, 14, 128, 64, 64),
@@ -520,7 +524,13 @@ FUSED_SHAPES = [
     (8, 56, 56, 64, 64), (8, 28, 28, 128, 128), (8, 14, 14, 256, 256),
     (8, 7, 7, 512, 512),
     (1, 56, 56, 64, 64), (1, 28, 28, 128, 128), (1, 14, 14, 256, 256),
-    (1, 7, 7, 512, 512)]
+    (1, 7, 7, 512, 512),
+    # VGG-16's eight site shapes over its five maps, at batch 2; and the
+    # first at its eval batch of 512, whose output (1.64e9 elements) needs
+    # 64-bit offsets
+    (2, 224, 224, 64, 64), (2, 112, 112, 64, 128), (2, 112, 112, 128, 128),
+    (2, 56, 56, 128, 256), (2, 56, 56, 256, 256), (2, 28, 28, 256, 512),
+    (2, 28, 28, 512, 512), (2, 14, 14, 512, 512), (512, 224, 224, 64, 64)]
 
 
 def test_conv_fused_planner_matches_the_built_kernel(cuda):

@@ -575,13 +575,31 @@ RECIPE_KEYS = [("erase_prob", 0.25, True), ("sam_rho", 0.05, True),
                ("optimizer.freeze", ["stem"], True),
                ("remat", True, False), ("chain_steps", 2, False),
                ("zero_sharding", True, False)]
+RECIPE_IDS = [k for k, _, _ in RECIPE_KEYS]
+# a ``pretrained`` block (the JAX trainer's warm start,
+# recipes/common.py:247-275) is refused for every task, as a dict or as a
+# path, by build_trainer: the classification and the flow recipes
+FLOW_CONFIG = os.path.join(os.path.dirname(CONFIG), "chairs_pwcnet.py")
+for _task, _config in (("classification", None), ("flow", FLOW_CONFIG)):
+    for _form, _value in (("dict", dict(path="r50.pth", depth=50,
+                                        load_head=False)),
+                          ("path", "encoder.npz")):
+        RECIPE_KEYS.append(("pretrained", _value, True, _config))
+        RECIPE_IDS.append(f"pretrained-{_form}-{_task}")
 
 
-@pytest.mark.parametrize("key,value,refused", RECIPE_KEYS,
-                         ids=[k for k, _, _ in RECIPE_KEYS])
-def test_recipe_keys_are_refused_by_name_or_inert(key, value, refused):
-    cfg = recipes.load_config(CONFIG)
-    cfg["model_kwargs"] = {**cfg.get("model_kwargs", {}), "width": WIDTH}
+@pytest.mark.parametrize("key,value,refused,config",
+                         [(*k, None)[:4] for k in RECIPE_KEYS],
+                         ids=RECIPE_IDS)
+def test_recipe_keys_are_refused_by_name_or_inert(key, value, refused,
+                                                  config):
+    cfg = recipes.load_config(config or CONFIG)
+    if config:   # the flow recipe at a tiny size
+        cfg.update(model="tinypwc", model_kwargs={}, synthetic_n=4,
+                   input_hw=(32, 32))
+    else:
+        cfg["model_kwargs"] = {**cfg.get("model_kwargs", {}),
+                               "width": WIDTH}
     *path, last = key.split(".")
     target = cfg
     for part in path:
@@ -590,8 +608,8 @@ def test_recipe_keys_are_refused_by_name_or_inert(key, value, refused):
     target[last] = value
     if refused:
         with pytest.raises(ValueError, match=repr(last)):
-            recipes.build_classifier(cfg, True, device=torch.device("cpu"))
+            recipes.build_trainer(cfg, True, device=torch.device("cpu"))
     else:
-        trainer, _, _ = recipes.build_classifier(
+        trainer, _, _ = recipes.build_trainer(
             cfg, True, device=torch.device("cpu"))
         assert trainer.step == 0
