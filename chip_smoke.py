@@ -22,8 +22,11 @@
    launch).  For
    conv_pair also a sweep of launch geometries at the served sites, batch
    8 and 1: every tile TH x TW and cluster size CS the kernel takes from a
-   small set, each held against the plain version and timed beside the
-   planner's plan (the best of all, and the best with a block per SM).
+   small set, each held against the plain version and bit-exact against
+   the planner's plan (each output is summed in one order whatever the
+   geometry), and timed beside it (the best of all, and the best with a
+   block per SM); a row past batch 8 also holds its last 8 images
+   bit-exact against the same images launched alone.
 4. Serving: builds ResNet-50 at full width from ``configs/imagenet_resnet50.py``
    with random weights made from a seed in the JAX layout, loads them
    through ``weights.from_jax``, folds BN, and serves a classify route
@@ -128,6 +131,31 @@
     cuDNN, and bn_act at DenseNet-121's largest and smallest sites (step
     3's rows).
 
+17. DeepLabv3+ (``configs/voc_deeplabv3plus.py``, BASELINE config #4,
+    ResNet-50 at output_stride 16, bf16): conv_pair, conv_fused and
+    bn_act at every site of its eval forward at the recipe's batch of 16,
+    on 513 x 513 crops (129², 65² and 33² maps; conv_fused with 304 input
+    channels), on the 96 x 96 crops of its synthetic run and at the 72 x 72
+    and 120 x 120 inputs of its multi-scale eval (step 3's rows, path
+    ``deeplab_513``, ``deeplab_96``, ``deeplab_72`` and ``deeplab_120``;
+    every launch of the runs below is recorded with its shape, and each
+    shape must be one a row holds); step 1 at batch 4 of
+    513 x 513 on the card against the host (float32 and bf16, the same
+    pairs, boxes, flips and ASPP dropout mask, the rounding witnesses and
+    bounds of step 16's); ``train.main`` on the recipe as written (its
+    synthetic run at 96 x 96) for 20 steps of 16 with a validation every
+    10, ``test.main`` on its checkpoint with and without ``--scales
+    0.75,1.0,1.25`` (mIoU; conv_pair 11, conv_fused 2 and bn_act 18
+    launches an eval forward, none in a train step; restored outputs equal
+    the writer's and agree with the host's plain path, under ``--scales``
+    each forward's logits and the averaged probabilities); then the
+    recipe's 513 x 513 crops of 512 x 512 frames at batch 16 from
+    ``recipes.segmenter_trainer``:
+    20 steps through ``Trainer.fit``, a validation that launches one eval
+    forward's kernels, the logits against the host's, and the step's
+    images/s, host enqueue ms, device busy ms, idle share, top kernels and
+    peak memory.
+
 Every kernel's record carries its bound: the larger of the bytes it must
 move over 3.35 TB/s and the operations it must do over the peak rate of
 their type (989 TFLOP/s bf16 tensor-core products, 67 TFLOP/s float32
@@ -135,11 +163,13 @@ elementwise), from this run's shapes.
 
 ``python3 chip_smoke.py --compare DIR`` (DIR: another checkout, e.g. the
 parent commit unpacked by ``git archive``) runs only the kernel timing of
-normalize_u8 and pad_crop_u8 (``time_tree_kernels``), once a process, for
+normalize_u8, pad_crop_u8 and conv_pair (``time_tree_kernels``; conv_pair
+at shapes with and without single-tile passes), once a process, for
 DIR, this checkout, this checkout, DIR in that order on the same card:
 each tree's kernels built from its own sources, timed back to back at
 the shapes of the input rows above (pad_crop_u8 also with each staging
-mode forced where a tree has them), each held against its plain version,
+mode forced where a tree has them) and conv_pair at COMPARE_PAIR_SHAPES,
+each held against its plain version,
 with its wrapper's host time.  It prints one line a kernel and case with
 the four times and writes ``chiprun_out/compare.json``; it exits non-zero
 if a run fails or a kernel disagrees with its plain version.
@@ -372,7 +402,10 @@ FORWARD = {"resnet50": {"conv_pair": 13, "bn_act": 7},
            "smallnet f32": {"bn_act": 6},
            "smallnet bf16": {"conv_fused": 5, "bn_act": 1},
            "vgg16": {"conv_fused": 12, "bn_act": 1},
-           "densenet121": {"bn_act": 121}}
+           "densenet121": {"bn_act": 121},
+           # DeepLabv3+ (bf16, output_stride 16): the 11 undilated
+           # stride-1 bottlenecks, refine1 and refine2, the 18 other sites
+           "deeplab": {"conv_pair": 11, "conv_fused": 2, "bn_act": 18}}
 SMALLNET_CONFIGS = {name: os.path.join(ROOT, "configs", f"{name}_smallnet.py")
                     for name in ("cifar10", "svhn", "fashion_mnist")}
 # (run, recipe, overrides, steps, val_every); the rendered splits hold 512
@@ -425,6 +458,52 @@ SMALLNET_FUSED_SITES = [((128, 32, 32, 32, 32), 1),
 DENSENET_ACT_SITES = [("densenet stem.conv", (1024, 112, 112, 64), 1),
                       ("densenet transition1.bn", (1024, 56, 56, 256), 1),
                       ("densenet block4 bn_1", (1024, 7, 7, 128), 16)]
+# BASELINE config #4, DeepLabv3+ on ResNet-50 at output_stride 16
+# (configs/voc_deeplabv3plus.py): the recipe as written through train.main
+# and test.main, which a synthetic run shrinks to 96 x 96 crops (64 rendered
+# pairs a split, 4 eval batches of 16), and the recipe's own 513 x 513
+# crops of 512 x 512 frames at its batch of 16, built from its parts
+VOC_CONFIG = os.path.join(ROOT, "configs", "voc_deeplabv3plus.py")
+SEG_BATCH, SEG_HW, SEG_RAW = 16, (513, 513), (512, 512)
+SEG_STEPS, SEG_VAL_EVERY, SEG_SPLIT = 20, 10, 64
+SEG_SCALES = (0.75, 1.0, 1.25)
+# the sides test.main --scales feeds the model: SEG_SCALES of the 96 x 96
+# frames (72, 96, 120)
+SEG_SCALE_HW = tuple(int(round(96 * s)) for s in SEG_SCALES)
+# step 1 on the card against the host: at 2 images the pooling branch's BN
+# normalizes each channel over two values (a sign; tests/test_torch_deeplab
+# .py), so step 1 takes 4
+SEG_STEP1_BATCH = 4
+# eval images held card against host: at 96 x 96 (test.main's) and 513
+SEG_CHECK_N, SEG_CHECK_N_513 = 4, 1
+
+
+def deeplab_sites(n, hw):
+    """The kernels' sites in one bf16 eval forward of DeepLabv3+ on an
+    hw x hw input at batch n (SAME: each stride 2 halves a side, rounding
+    up): conv_pair (n, h, w, cin, cm, cout) and conv_fused (n, h, w, c,
+    cout) shapes with their counts, bn_act (site, [n, h, w, c], count)."""
+    def half(v):
+        return -(-v // 2)
+    s = half(hw)     # the stem conv's output
+    q = half(s)      # stage 1 (after the max-pool), the low-level map
+    r = half(q)      # stage 2
+    t = half(r)      # stages 3 and 4 and the ASPP (output_stride 16)
+    pair = [((n, q, q, 64, 64, 64), 1), ((n, q, q, 256, 64, 64), 2),
+            ((n, r, r, 512, 128, 128), 3), ((n, t, t, 1024, 256, 256), 5)]
+    fused = [((n, q, q, 304, 256), 1), ((n, q, q, 256, 256), 1)]
+    act = [("stem.conv", (n, s, s, 64), 1),
+           ("stage2.block1.conv_a", (n, q, q, 128), 1),
+           ("stage2.block1.conv_b", (n, r, r, 128), 1),
+           ("stage3.block1.conv_a", (n, r, r, 256), 1),
+           ("stage3.block1.conv_b", (n, t, t, 256), 1),
+           ("stage4 conv_a, conv_b", (n, t, t, 512), 6),
+           ("aspp_1x1, aspp_rate*, aspp_project", (n, t, t, 256), 5),
+           ("aspp_pool", (n, 1, 1, 256), 1),
+           ("decoder.low_level_project", (n, q, q, 48), 1)]
+    return pair, fused, act
+
+
 # the paths of conv_pair, bn_act and conv_fused: the runs whose launches
 # each path counts and the ``path`` of the rows that hold its shapes
 KERNEL_PATH_RUNS = {
@@ -438,7 +517,20 @@ KERNEL_PATH_RUNS = {
     "smallnet_bf16": ("smallnet_cifar10_bf16_train",
                       "smallnet_cifar10_bf16_test"),
     "vgg16": ("vgg16_train", "vgg16_test"),
-    "densenet121": ("densenet121_train", "densenet121_test")}
+    "densenet121": ("densenet121_train", "densenet121_test"),
+    "deeplab_96": ("deeplab_train", "deeplab_test"),
+    "deeplab_scales": ("deeplab_test_scales",),
+    "deeplab_513": ("deeplab_513_train", "deeplab_513_eval")}
+# a path whose forwards run at several sizes: the ``path`` of the rows
+# that hold its shapes (one row set a size)
+PATH_ROWS = {"deeplab_scales": tuple(f"deeplab_{hw}" for hw in SEG_SCALE_HW)}
+# conv_pair in ``--compare``: shapes whose plans have a pass of a single
+# 64x64 tile (the served 7x7 at batch 8 and 1, DeepLab's 12², 9², 6² and
+# 5² at batch 16) and two whose plans have none
+COMPARE_PAIR_SHAPES = [(8, 7, 7, 2048, 512, 512), (1, 7, 7, 2048, 512, 512),
+                       (16, 12, 12, 512, 128, 128), (16, 9, 9, 512, 128, 128),
+                       (16, 6, 6, 1024, 256, 256), (16, 5, 5, 1024, 256, 256),
+                       (8, 56, 56, 64, 64, 64), (16, 33, 33, 1024, 256, 256)]
 # peak rates of the H100 SXM (NVIDIA's data sheet): HBM bytes/s, dense
 # bf16 tensor-core and float32 FLOP/s
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -679,6 +771,9 @@ def conv_pair_row(shape, count, path, g):
                          + pair_flip_slack(args, idx)).sum())
         ok = explained == len(idx)
     # images at the end of a large batch give the bits they give alone
+    # (under the planner's geometry for 8 images: every geometry sums in
+    # one order)
+    plan = conv_pair.plan(n, h, w, cin, cm, co)
     alone = n <= 8 or torch.equal(conv_pair.conv1x1_conv3x3_bn_relu(
         args[0][-8:].contiguous(), *args[1:]), out[-8:])
     ok &= alone
@@ -693,8 +788,7 @@ def conv_pair_row(shape, count, path, g):
                sites=count, max_abs_err=err, ok=ok, outside_2_ulps=len(idx),
                explained_by_rounding=explained, last_images_alone=alone,
                bound_ms=b_ms,
-               bound_by=b_by, library_ms=None,
-               plan=conv_pair.plan(n, h, w, cin, cm, co),
+               bound_by=b_by, library_ms=None, plan=plan,
                ms=cuda_ms(lambda: conv_pair.conv1x1_conv3x3_bn_relu(*args),
                           iters),
                plain_ms=cuda_ms(lambda: conv_pair.conv_pair_reference(
@@ -775,6 +869,7 @@ def check_kernels(dev):
     details += check_flash_kernels(dev, g)
     details += check_randaugment_kernels(dev, g)
     details += check_correlation_kernels(dev, g)
+    details += check_deeplab_kernels(dev, g)
     for name in SOURCES:
         rows = [r for r in details if r["kernel"] == name]
         on_path = [r for r in rows if r["sites"]]
@@ -795,8 +890,9 @@ def check_kernels(dev):
 def sweep_conv_pair_plans(dev, g):
     """conv_pair at the served sites, batch 8 and 1, under every launch
     geometry from a small set (TH in 1-14, TW in 4, 7, 14, CS in 1-8) that
-    the kernel takes, each against the plain version, timed beside the
-    planner's plan.  Returns a row per shape and whether every launch
+    the kernel takes, each against the plain version and bit-exact
+    against the planner's plan (every geometry sums in one order), timed
+    beside it.  Returns a row per shape and whether every launch
     agreed."""
     import torch
 
@@ -809,6 +905,7 @@ def sweep_conv_pair_plans(dev, g):
             shape = (batch, h, w, cin, cm, co)
             args = pair_args(shape, g)
             ref = conv_pair.conv_pair_reference(*args)
+            base = conv_pair.conv1x1_conv3x3_bn_relu(*args)
 
             def measure(tile):
                 p = conv_pair.plan(*shape, tile=tile)
@@ -821,6 +918,7 @@ def sweep_conv_pair_plans(dev, g):
                     clusters_at_once=p["clusters_at_once"],
                     waves=-(-clusters // max(p["clusters_at_once"], 1)),
                     ok=compare(out, ref, **TOL["conv_pair"])[1],
+                    same_bits=bool(torch.equal(out, base)),
                     ms=cuda_ms(lambda: conv_pair.conv1x1_conv3x3_bn_relu(
                         *args, tile=tile)))
 
@@ -843,13 +941,16 @@ def sweep_conv_pair_plans(dev, g):
                        best_a_block_per_sm=(min(full, key=lambda t: t["ms"])
                                             if full else None),
                        tried=len(tried),
-                       ok=planned["ok"] and all(t["ok"] for t in tried))
+                       same_bits=sum(t["same_bits"] for t in tried),
+                       ok=all(t["ok"] and t["same_bits"]
+                              for t in [planned, *tried]))
             all_ok &= row["ok"]
             rows.append(row)
             log(f"conv_pair plans {shape}: plan {planned}; best of "
                 f"{len(tried)} {row['best']}; best with >= {sms} blocks "
-                f"{row['best_a_block_per_sm']}; all within tolerance "
-                f"{row['ok']}")
+                f"{row['best_a_block_per_sm']}; {row['same_bits']} of "
+                f"{len(tried)} bit-exact against the plan; all within "
+                f"tolerance and bit-exact {row['ok']}")
     return rows, all_ok
 
 
@@ -1103,15 +1204,91 @@ def check_classifier_kernels(dev, g):
     return rows
 
 
-def kernel_by_path(name, details, runs):
+def check_deeplab_kernels(dev, g):
+    """conv_pair, conv_fused and bn_act at every site of DeepLabv3+'s bf16
+    eval forward, at the recipe's batch of 16 on its 513 x 513 crops
+    (129², 65² and 33² maps: odd sides, partial tiles; conv_fused with 304
+    input channels) and on the 96 x 96 crops of the recipe's synthetic run,
+    each against its plain version with its bound, beside cuDNN's unfused
+    pair or conv (rows as check_classifier_kernels makes them); and at the
+    72 x 72 and 120 x 120 inputs of the multi-scale eval (path
+    ``deeplab_{hw}``)."""
+    import torch
+
+    rows = []
+    for path, hw in (("deeplab_513", SEG_HW[0]),
+                     *((f"deeplab_{hw}", hw) for hw in SEG_SCALE_HW)):
+        pair, fused, act = deeplab_sites(SEG_BATCH, hw)
+        for shape, count in pair:
+            rows.append(conv_pair_row(shape, count, path, g))
+            torch.cuda.empty_cache()
+        for shape, count in fused:
+            rows.append(conv_fused_row(shape, count, path, g))
+            torch.cuda.empty_cache()
+        for site, shape, count in act:
+            x = torch.randn(*shape, generator=g, device=dev).to(
+                torch.bfloat16)
+            c = shape[-1]
+            rows.append(bn_act_row(
+                f"deeplab {site}", x,
+                torch.rand(c, generator=g, device=dev) + 0.5,
+                torch.randn(c, generator=g, device=dev) * 0.5, count, path))
+    return rows
+
+
+def shape_key(kernel, shape, dtype=None):
+    """What a launch of conv_pair, conv_fused or bn_act is held by: its
+    shape (n, h, w, cin, cm, cout), (n, h, w, c, cout) or bn_act's
+    [n, h, w, c] and dtype."""
+    return (kernel, *shape, *([dtype] if kernel == "bn_act" else []))
+
+
+@contextlib.contextmanager
+def launch_shapes(counter):
+    """Count into ``counter`` the shape of every launch of conv_pair,
+    conv_fused and bn_act from the models (their only call sites:
+    ``models.resnet`` and ``models.blocks``) while the block runs; a
+    wrapper called on a CPU tensor launches nothing and is not counted."""
+    from myconvnet_tpu_torch.models import blocks, resnet
+
+    sites = [(resnet, "conv1x1_conv3x3_bn_relu", "conv_pair",
+              lambda x, a: (*x.shape, a[0].shape[-1], a[3].shape[-1])),
+             (blocks, "conv3x3_bn_relu", "conv_fused",
+              lambda x, a: (*x.shape, a[0].shape[-1])),
+             (blocks, "fused_scale_shift_act", "bn_act",
+              lambda x, a: tuple(x.shape))]
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _, _ in sites]
+
+    def recording(fn, kernel, shape):
+        def call(x, *args, **kw):
+            if x.device.type == "cuda":
+                counter[shape_key(kernel, shape(x, args),
+                                  str(x.dtype).split(".")[-1])] += 1
+            return fn(x, *args, **kw)
+        return call
+
+    for (mod, attr, fn), (_, _, kernel, shape) in zip(saved, sites):
+        setattr(mod, attr, recording(fn, kernel, shape))
+    try:
+        yield counter
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def kernel_by_path(name, details, runs, shapes):
     """conv_pair's, bn_act's or conv_fused's launches and times path by
     path: the launches of the path's runs beside the kernel, plain and
     bound ms summed over the rows held at the path's shapes (``sites``:
-    how many of one forward's launches those rows cover)."""
+    how many of one forward's launches those rows cover, one forward at
+    each size of a PATH_ROWS path).  Where the path's runs recorded their
+    launches shape by shape (``shapes``: run -> Counter of
+    :func:`shape_key`), every launch must be at a shape a row holds."""
     out = {}
     for path, names in KERNEL_PATH_RUNS.items():
         rows = [r for r in details if r["kernel"] == name
-                and r.get("path") == path and r["sites"]]
+                and r.get("path") in PATH_ROWS.get(path, (path,))
+                and r["sites"]]
         launches = sum(runs[k][name] for k in names)
         if not launches and not rows:
             continue
@@ -1124,6 +1301,21 @@ def kernel_by_path(name, details, runs):
                for k in ("ms", "plain_ms", "bound_ms")},
             bound_by=max(rows, key=lambda r: r["bound_ms"] * r["sites"]
                          )["bound_by"])
+        if not all(k in shapes for k in names):
+            continue
+        seen = {}
+        for k in names:
+            for key, calls in shapes[k].items():
+                if key[0] == name:
+                    seen[key] = seen.get(key, 0) + calls
+        held = {shape_key(name, r["shape"], r.get("dtype")) for r in rows}
+        unheld = sorted(map(str, set(seen) - held))
+        if sum(seen.values()) != launches or unheld:
+            raise AssertionError(
+                f"{name} on {path}: {sum(seen.values())} launches recorded "
+                f"by shape of {launches}; at shapes no row holds: {unheld}")
+        out[path]["shapes"] = {" ".join(map(str, k[1:])): c
+                               for k, c in sorted(seen.items())}
     return out
 
 
@@ -1528,16 +1720,17 @@ def time_tree_kernels(root):
     """For ``--time-kernels ROOT`` (one process a tree): the kernels of the
     checkout at ROOT built from its sources, and normalize_u8 (B2) and
     pad_crop_u8 (B3) timed by ``cuda_ms`` (100 launches back to back) at
-    every INPUT_CASES row, each held against its plain version, with the
-    wrapper's host time a launch (``host_us``, the median of 21 runs of
-    200 calls, and ``host_us_q``, their quartiles); for a tree whose
-    pad_crop_u8 has staging modes, also each mode forced at the recipe's
-    shape.  Returns {"card", "build_s", "rows": [...]}."""
+    every INPUT_CASES row, and conv_pair (B5) at COMPARE_PAIR_SHAPES, each
+    held against its plain version, with the wrapper's host time a launch
+    (``host_us``, the median of 21 runs of 200 calls, and ``host_us_q``,
+    their quartiles); for a tree whose pad_crop_u8 has staging modes, also
+    each mode forced at the recipe's shape.  Returns {"card", "build_s",
+    "rows": [...]}."""
     import torch
     sys.path.insert(0, root)
     from myconvnet_tpu_torch.core.precision import FULL, apply_backend_flags
-    from myconvnet_tpu_torch.ops.kernels import _build, normalize_u8, \
-        pad_crop_u8
+    from myconvnet_tpu_torch.ops.kernels import _build, conv_pair, \
+        normalize_u8, pad_crop_u8
     assert os.path.dirname(os.path.abspath(_build.__file__)).startswith(
         os.path.abspath(root)), "kernels imported from another tree"
     apply_backend_flags(FULL)
@@ -1575,6 +1768,13 @@ def time_tree_kernels(root):
                         *args, **kw), TOL["pad_crop_u8"])
         del x, off, flip, args, ref
         torch.cuda.empty_cache()
+    for shape in COMPARE_PAIR_SHAPES:
+        args = pair_args(shape, g)
+        add("conv_pair", str(shape), args[0],
+            conv_pair.conv1x1_conv3x3_bn_relu(*args),
+            conv_pair.conv_pair_reference(*args),
+            lambda: conv_pair.conv1x1_conv3x3_bn_relu(*args),
+            TOL["conv_pair"])
     card = run(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"])
     return dict(card=card, build_s=build_s, rows=rows)
@@ -2814,8 +3014,9 @@ def step_one_classifier(dev, what, cfg, n):
                 seconds={f"{w} {p}": t for (w, p), t in seconds.items()})
 
 
-def step_rate(dev, trainer, batch, raw_hw, iters):
-    """The train step at ``batch`` seeded uint8 images of ``raw_hw``:
+def step_rate(dev, trainer, batch, raw_hw, iters, masks=False):
+    """The train step at ``batch`` seeded uint8 images of ``raw_hw`` (and
+    class masks of that size when ``masks``, else a label an image):
     CUDA-event ms from an idle device (host gaps included), host enqueue
     ms, device busy ms and top kernels (torch.profiler), the idle share
     and the peak of allocated memory."""
@@ -2824,8 +3025,10 @@ def step_rate(dev, trainer, batch, raw_hw, iters):
     g = torch.Generator(device=dev).manual_seed(SEED)
     xd = torch.randint(0, 256, (batch, *raw_hw, 3), generator=g,
                        device=dev, dtype=torch.uint8)
-    yd = torch.randint(0, trainer.num_classes, (batch,), generator=g,
-                       device=dev)
+    yd = torch.randint(0, trainer.num_classes,
+                       (batch, *raw_hw) if masks else (batch,), generator=g,
+                       device=dev, dtype=torch.int32 if masks
+                       else torch.int64)
     for _ in range(2):
         trainer.train_step(xd, yd)
     torch.cuda.synchronize()
@@ -3058,6 +3261,345 @@ def big_classifier_run(dev, name):
     return train_counts, eval_counts, checks
 
 
+def deeplab_trainer(cfg, device, *, run_dir=None):
+    """The DeepLabv3+ recipe's trainer at its own SEG_HW crops
+    (``recipes.build_segmenter`` shrinks a synthetic run to 96 x 96):
+    ``recipes.segmenter_trainer`` of its ``augment`` block at SEG_HW,
+    metrics logged every step to ``run_dir``."""
+    from myconvnet_tpu_torch import recipes
+
+    aug = recipes.make_augment(cfg["augment"])._replace(out_hw=SEG_HW)
+    return recipes.segmenter_trainer(dict(cfg, log_every=1), aug, device,
+                                     log_dir=run_dir)
+
+
+def step_one_segmenter(dev, cfg, n):
+    """Step 1 of the DeepLabv3+ recipe at its 513 x 513 crops, batch ``n``,
+    from seeded JAX-layout weights with the same pairs and draws (crop
+    boxes, flips, the ASPP dropout mask) on the card and on the host, under
+    the float32 policy (TF32 off) and the recipe's bf16, with the rounding
+    witnesses of :func:`step_one_classifier` and its bounds: the augmented
+    images within STEP1_INPUTS_RTOL and the masks equal, float32 at
+    STEP1_F32_*, the host on the card's augmented pairs at
+    STEP1_F32_MODEL_*, bf16 at STEP1_GRAD_RTOL or twice bf16's reach on
+    the host."""
+    import torch
+
+    from myconvnet_tpu_torch import weights
+    from myconvnet_tpu_torch.subsets import voc
+    from myconvnet_tpu_torch.train.trainer import StepDraws
+
+    def on_host(d):
+        rec = d.recipe
+        return StepDraws(None, None, None,
+                         [{k: m.cpu() for k, m in m_.items()}
+                          for m_ in d.masks],
+                         recipe=type(rec)(rec.boxes.cpu(), rec.flip.cpu(),
+                                          None))
+
+    xs, ys = voc.synthetic_subset(n, SEG_RAW, SEED)
+    x, y = torch.from_numpy(xs), torch.from_numpy(ys)
+    params = state = draws = None
+    runs, seconds = {}, {}
+    cpu = torch.device("cpu")
+    for prec in ("f32", "bf16"):
+        c = dict(cfg, precision=prec)
+        card, host = deeplab_trainer(c, dev), deeplab_trainer(c, cpu)
+        if params is None:
+            params, state = weights.random_jax_params(card.model, SEED)
+            draws = card.sample(n, SEG_RAW)
+            if draws.recipe.jitter is not None:
+                raise AssertionError("DeepLab step 1: jitter draws this "
+                                     "check does not carry")
+        todo = [("card", card, params, x.to(dev), y.to(dev), draws),
+                ("host", host, params, x, y, on_host(draws))]
+        if prec == "f32":
+            aug = [t.input_fns.train(xi, yi, d.recipe) for t, xi, yi, d in (
+                (card, x.to(dev), y.to(dev), draws),
+                (host, x, y, on_host(draws)))]
+            inputs_rel = float((aug[0][0].cpu() - aug[1][0]).abs().max()
+                               / aug[1][0].abs().max())
+            masks_equal = bool(torch.equal(aug[0][1].cpu(), aug[1][1]))
+            todo += [("host nudged", host, nudged(params, SEED + 1), x, y,
+                      on_host(draws)),
+                     ("card without cuDNN", card, params, x.to(dev),
+                      y.to(dev), draws),
+                     ("host on the card's inputs", host, params,
+                      aug[0][0].cpu(), aug[0][1].cpu(), on_host(draws))]
+        for where, t, p, xi, yi, d in todo:
+            weights.from_jax(t.model, p, state)
+            t0 = time.perf_counter()
+            torch.backends.cudnn.enabled = "without cuDNN" not in where
+            fns = t.input_fns
+            if "inputs" in where:
+                t.input_fns = None
+            try:
+                loss = float(t.loss_and_grads(xi, yi, d)[0])
+            finally:
+                torch.backends.cudnn.enabled = True
+                t.input_fns = fns
+            seconds[where, prec] = time.perf_counter() - t0
+            runs[where, prec] = (loss, grad_norms(t))
+        del card, host
+    out = {}
+    for key, (a, b) in {
+            "card vs host, float32": (("card", "f32"), ("host", "f32")),
+            "host nudged vs host, float32": (("host nudged", "f32"),
+                                             ("host", "f32")),
+            "card without cuDNN vs card, float32": (
+                ("card without cuDNN", "f32"), ("card", "f32")),
+            "card vs host on the card's inputs, float32": (
+                ("card", "f32"), ("host on the card's inputs", "f32")),
+            "card vs host, bf16": (("card", "bf16"), ("host", "bf16")),
+            "host bf16 vs host float32": (("host", "bf16"), ("host", "f32"))
+            }.items():
+        gaps = norm_gaps(runs[a][1], runs[b][1])
+        loss_rel = abs(runs[a][0] - runs[b][0]) / abs(runs[b][0])
+        out[key] = dict(loss_rel=loss_rel, worst=gaps[:5],
+                        over_1e_3=sum(g > 1e-3 for g, _, _ in gaps))
+        log(f"DeepLabv3+ step 1 (batch {n}) {key}: loss rel {loss_rel:.3g}; "
+            f"{len(gaps)} gradient norms, {out[key]['over_1e_3']} over "
+            f"1e-3 rel; worst: " + "; ".join(
+                f"{k} {g:.3g} (norm {r:.3g} of the largest)"
+                for g, k, r in gaps[:3]))
+    log(f"DeepLabv3+ step 1 (batch {n}): augmented images, card vs host, "
+        f"max |diff| / max |x| {inputs_rel:.3g}; masks equal {masks_equal};"
+        " seconds " + ", ".join(f"{w} {p} {t:.2f}"
+                                for (w, p), t in seconds.items()))
+    if not (inputs_rel <= STEP1_INPUTS_RTOL and masks_equal):
+        raise AssertionError(f"DeepLab: the augmented pairs differ "
+                             f"({inputs_rel:.3g}, masks {masks_equal})")
+    (lc, nc), (lh, nh) = runs["card", "f32"], runs["host", "f32"]
+    f32 = step_one_verdict(
+        f"DeepLabv3+ step 1 (batch {n}, float32)", nc, nh, lc, lh,
+        loss_rtol=STEP1_F32_LOSS_RTOL, grad_rtol=STEP1_F32_GRAD_RTOL,
+        grad_atol=STEP1_F32_GRAD_ATOL)
+    lm, nm = runs["host on the card's inputs", "f32"]
+    model = step_one_verdict(
+        f"DeepLabv3+ step 1 (batch {n}, float32, the card's augmented pairs "
+        "on both)", nc, nm, lc, lm, loss_rtol=STEP1_F32_MODEL_LOSS_RTOL,
+        grad_rtol=STEP1_F32_MODEL_GRAD_RTOL, grad_atol=STEP1_F32_GRAD_ATOL)
+    hb, hf = runs["host", "bf16"][1], runs["host", "f32"][1]
+    big = max(hf.values())
+    reach = max(abs(hb[k] - v) / v for k, v in hf.items()
+                if v >= STEP1_GRAD_ATOL * big)
+    if reach > STEP1_BF16_MAX_REACH:
+        raise AssertionError(f"DeepLab: bf16 moves the host's gradient norms"
+                             f" by {reach:.3g}; a bound of twice that holds "
+                             "nothing")
+    (lcb, ncb), (lhb, nhb) = runs["card", "bf16"], runs["host", "bf16"]
+    bf16 = step_one_verdict(
+        f"DeepLabv3+ step 1 (batch {n}, bf16)", ncb, nhb, lcb, lhb,
+        f"; bf16's own reach on the host W = {reach:.3g}",
+        grad_rtol=max(STEP1_GRAD_RTOL, 2 * reach))
+    return dict(f32, on_the_cards_inputs=model, bf16=dict(bf16, reach=reach),
+                comparisons=out, inputs_rel=inputs_rel,
+                masks_equal=masks_equal,
+                seconds={f"{w} {p}": t for (w, p), t in seconds.items()})
+
+
+def seg_expect(forwards, what, counts):
+    """Hold ``counts`` to ``forwards`` DeepLab eval forwards' launches and
+    no other kernel launch."""
+    from myconvnet_tpu_torch.ops import kernels
+    want = {k: FORWARD["deeplab"].get(k, 0) * forwards
+            for k in kernels.WRAPPERS}
+    check_counts(counts, want, what)
+
+
+def seg_logits_vs_host(what, trainer, host, x, dev):
+    """The card's eval logits of uint8 frames ``x`` against the host's
+    plain path from the same state (bf16 both): max |diff| over max
+    |logit|, held at LOGIT_REL_TOL."""
+    import numpy as np
+
+    host.load_state(trainer.state())
+    card = trainer.eval_step(x.to(dev)).cpu().numpy()
+    plain = host.eval_step(x).numpy()
+    rel = float(np.abs(card - plain).max() / np.abs(plain).max())
+    agree = float((card.argmax(-1) == plain.argmax(-1)).mean())
+    log(f"{what}: card vs host plain path on {len(x)} frames "
+        f"max|diff|/max|logit| = {rel:.4g} (tol {LOGIT_REL_TOL}); argmax "
+        f"agreement {agree:.5f}; finite {bool(np.isfinite(card).all())}")
+    if not np.isfinite(card).all() or rel > LOGIT_REL_TOL:
+        raise AssertionError(f"{what}: eval logits disagree with the host")
+    return dict(rel=rel, argmax_agreement=agree)
+
+
+def seg_scales_vs_host(trainer, restored, host, x, dev, mean, std):
+    """``test.main --scales``'s protocol (the softmax averaged over
+    SEG_SCALES and mirrors) on uint8 frames ``x``: the restored trainer's
+    output equal to the writer's on the card, and the card's against the
+    host's plain path from the same state: each of the six forwards'
+    logits at LOGIT_REL_TOL of max |logit|, and the averaged probabilities
+    within half the largest logit gap (a softmax moves no probability by
+    more than half the largest change of its logits, and the resize back
+    and the average move none further)."""
+    import torch
+
+    from myconvnet_tpu_torch.eval.seg_inference import multiscale_logits, \
+        normalize_frames
+
+    def protocol(t, frames):
+        logits = []
+
+        def forward(v):
+            z = t.forward_eval(v)
+            logits.append(z.float().cpu())
+            return z
+        out = multiscale_logits(forward, normalize_frames(frames, mean, std),
+                                scales=SEG_SCALES, flip=True)
+        return out.cpu(), logits
+
+    host.load_state(trainer.state())
+    card, card_z = protocol(trainer, x.to(dev))
+    same = bool(torch.equal(card, protocol(restored, x.to(dev))[0]))
+    plain, plain_z = protocol(host, x)
+    rels = [float((a - b).abs().max() / b.abs().max())
+            for a, b in zip(card_z, plain_z)]
+    gap = max(float((a - b).abs().max()) for a, b in zip(card_z, plain_z))
+    dp = float((card.exp() - plain.exp()).abs().max())
+    agree = float((card.argmax(-1) == plain.argmax(-1)).float().mean())
+    finite = bool(torch.isfinite(card).all())
+    log(f"DeepLabv3+ --scales {','.join(map(str, SEG_SCALES))} + flip on "
+        f"{len(x)} frames: restored equal to the writer's {same}; card vs "
+        f"host plain path, {len(rels)} forwards' max|diff|/max|logit| "
+        + ", ".join(f"{r:.4g}" for r in rels) + f" (tol {LOGIT_REL_TOL}); "
+        f"averaged probabilities max|diff| {dp:.4g} (bound {gap / 2:.4g}, "
+        f"half the largest logit gap); argmax agreement {agree:.5f}; "
+        f"finite {finite}")
+    if not same:
+        raise AssertionError("DeepLab --scales: restored output differs")
+    if not finite or max(rels) > LOGIT_REL_TOL or dp > 0.5 * gap + 1e-6:
+        raise AssertionError("DeepLab --scales: card and host disagree")
+    return dict(restored_equal=same, forward_rel=rels, prob_diff=dp,
+                logit_gap=gap, argmax_agreement=agree)
+
+
+def deeplab_run(dev):
+    """BASELINE config #4, DeepLabv3+ (``configs/voc_deeplabv3plus.py``):
+    step 1 at 513 x 513 on the card against the host; ``train.main`` on the
+    recipe as written (its synthetic 96 x 96 run) for SEG_STEPS steps of 16
+    with a validation every SEG_VAL_EVERY, ``test.main`` on its checkpoint
+    with and without ``--scales`` (mIoU; restored outputs equal the
+    writer's; card against host); then the recipe's 513 x 513 crops of
+    512 x 512 frames at batch 16 from its parts: SEG_STEPS steps through
+    ``Trainer.fit``, a validation whose launches are one eval forward's,
+    card against host, and the step's rate.  Every run's launches are
+    counted and recorded shape by shape.  Returns ({run: launches},
+    {run: Counter of launch shapes}, checks)."""
+    import collections
+    import shutil
+
+    import torch
+
+    from myconvnet_tpu_torch import recipes, test, train
+    from myconvnet_tpu_torch.data.pipeline import DataSet
+    from myconvnet_tpu_torch.ops import kernels
+    from myconvnet_tpu_torch.subsets import voc
+
+    cfg = recipes.load_config(VOC_CONFIG)
+    cpu = torch.device("cpu")
+    checks = {"step1": step_one_segmenter(dev, cfg, SEG_STEP1_BATCH)}
+    runs, shapes = {}, {}
+    torch.cuda.empty_cache()
+
+    def counted(run, fn, *args, **kwargs):
+        """fn(...), the launch counts set to 0 just before it and read,
+        with the launches' shapes, just after it."""
+        shapes[run] = collections.Counter()
+        with launch_shapes(shapes[run]):
+            kernels.reset_launch_counts()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            runs[run] = kernels.launch_counts()
+        return out
+
+    # the recipe as written: train.main and test.main (96 x 96 crops)
+    run_dir = os.path.join(ROOT, "build", "chip_smoke_deeplab")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    args = ["--config", VOC_CONFIG, "--synthetic", "--batch", str(SEG_BATCH),
+            "--device", dev.type]
+    batches = -(-SEG_SPLIT // SEG_BATCH)
+    t0 = time.perf_counter()
+    trainer = counted("deeplab_train", train.main, args + [
+        "--steps", str(SEG_STEPS), "--val_every", str(SEG_VAL_EVERY),
+        "--out", run_dir, "--set", "log_every=1"])
+    seconds = time.perf_counter() - t0
+    seg_expect((SEG_STEPS // SEG_VAL_EVERY + 1) * batches,
+               f"DeepLabv3+ train.main ({SEG_STEPS} steps of {SEG_BATCH})",
+               runs["deeplab_train"])
+    losses = read_losses(run_dir, SEG_STEPS, "DeepLabv3+")
+    log(f"DeepLabv3+ train.main {SEG_STEPS} steps of {SEG_BATCH} at 96x96 "
+        f"in {seconds:.1f}s; losses finite, first {losses[0]:.4f} last "
+        f"{losses[-1]:.4f}")
+    score, restored = counted("deeplab_test", test.main,
+                              args + ["--ckpt", run_dir])
+    seg_expect(batches, "DeepLabv3+ test.main", runs["deeplab_test"])
+    ms_score, ms_restored = counted(
+        "deeplab_test_scales", test.main, args + [
+            "--ckpt", run_dir, "--scales", ",".join(map(str, SEG_SCALES))])
+    seg_expect(batches * 2 * len(SEG_SCALES),
+               "DeepLabv3+ test.main --scales", runs["deeplab_test_scales"])
+    val = recipes.make_sources(cfg, True, splits=("val",))[0]
+    x = torch.from_numpy(val.images[:SEG_CHECK_N])
+    same = bool(torch.equal(trainer.eval_step(x.to(dev)),
+                            restored.eval_step(x.to(dev))))
+    log(f"DeepLabv3+ test.main mIoU {score:.4f}, with --scales "
+        f"{','.join(map(str, SEG_SCALES))} {ms_score:.4f}; restored logits "
+        f"equal the writer's: {same}")
+    if not same:
+        raise AssertionError("DeepLab: restored logits differ")
+    host = recipes.build_trainer(cfg, True, device=cpu)[0]
+    checks["recipe"] = dict(
+        losses=losses, train_seconds=seconds, miou=score,
+        miou_scales=ms_score,
+        host=seg_logits_vs_host("DeepLabv3+ 96x96", trainer, host, x, dev),
+        scales=seg_scales_vs_host(trainer, ms_restored, host, x, dev,
+                                  *recipes.normalization(cfg)))
+    shutil.rmtree(run_dir)
+    del trainer, restored, ms_restored, host
+    torch.cuda.empty_cache()
+
+    # the recipe's 513 x 513 crops of 512 x 512 frames, batch 16
+    run_dir = os.path.join(ROOT, "build", "chip_smoke_deeplab_513")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    trainer = deeplab_trainer(cfg, dev, run_dir=run_dir)
+    train_set = DataSet(voc.PairArraySource(*voc.synthetic_subset(
+        SEG_BATCH, SEG_RAW, 0)))
+    val_set = DataSet(voc.PairArraySource(*voc.synthetic_subset(
+        SEG_BATCH, SEG_RAW, 1)))
+    t0 = time.perf_counter()
+    counted("deeplab_513_train", trainer.fit,
+            train_set.train_iter(SEG_BATCH, dev), total_steps=SEG_STEPS)
+    seconds = time.perf_counter() - t0
+    seg_expect(0, f"DeepLabv3+ 513x513 fit ({SEG_STEPS} steps)",
+               runs["deeplab_513_train"])
+    losses = read_losses(run_dir, SEG_STEPS, "DeepLabv3+ 513x513")
+    trainer.logger.close()
+    score = counted("deeplab_513_eval", trainer.evaluate,
+                    val_set.eval_iter(SEG_BATCH, dev))
+    seg_expect(1, "DeepLabv3+ 513x513 validation (one eval forward)",
+               runs["deeplab_513_eval"])
+    log(f"DeepLabv3+ 513x513: {SEG_STEPS} steps of {SEG_BATCH} in "
+        f"{seconds:.1f}s; losses finite, first {losses[0]:.4f} last "
+        f"{losses[-1]:.4f}; validation mIoU {score:.4f} "
+        f"(pixel accuracy {trainer.evaluator.pixel_accuracy():.4f})")
+    xv = torch.from_numpy(val_set.source.images[:SEG_CHECK_N_513])
+    host = deeplab_trainer(cfg, cpu)
+    vs_host = seg_logits_vs_host("DeepLabv3+ 513x513", trainer, host, xv,
+                                 dev)
+    del host
+    shutil.rmtree(run_dir)
+    rate, _ = step_rate(dev, trainer, SEG_BATCH, SEG_RAW, 5, masks=True)
+    log_rate("DeepLabv3+ 513x513", rate)
+    checks["513"] = dict(losses=losses, train_seconds=seconds, miou=score,
+                         pixel_accuracy=trainer.evaluator.pixel_accuracy(),
+                         host=vs_host, step=rate)
+    del trainer
+    return runs, shapes, checks
+
+
 def step_one_only(specs):
     """Step 1 of ResNet-50, VGG-16 and DenseNet-121 against the host alone
     (``name:batch`` specs, default each at STEP1_BATCH), records in
@@ -3111,7 +3653,7 @@ def main() -> int:
               "a checkout of the repo", file=sys.stderr)
         return 1
     for path in (CONFIG, CIFAR_CONFIG, VIT_CONFIG, PWC_CONFIG,
-                 FLOWNET_CONFIG, VGG_CONFIG, DENSENET_CONFIG,
+                 FLOWNET_CONFIG, VGG_CONFIG, DENSENET_CONFIG, VOC_CONFIG,
                  *SMALLNET_CONFIGS.values()):
         if not os.path.exists(path):
             print(f"chip_smoke: {path} is missing", file=sys.stderr)
@@ -3162,6 +3704,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         *big[name], checks[name] = phase(name, big_classifier_run, dev,
                                          name)
+    torch.cuda.empty_cache()
+    seg_runs, seg_shapes, checks["deeplab"] = phase("DeepLabv3+",
+                                                    deeplab_run, dev)
     runs = {"serve": counts, "train": train_counts, "test": eval_counts,
             "vit_train": vit_train, "vit_test": vit_test,
             **{f"vit_train_{k}": v for k, v in policy_runs.items()},
@@ -3172,7 +3717,8 @@ def main() -> int:
                for k, pair in smallnet_counts.items()
                for part, c in zip(("train", "test"), pair)},
             **{f"{k}_{part}": c for k, pair in big.items()
-               for part, c in zip(("train", "test"), pair)}}
+               for part, c in zip(("train", "test"), pair)},
+            **seg_runs}
     launches = {name: sum(c[name] for c in runs.values())
                 for name in SOURCES}
     in_forward = checks["bn_act_in_forward_ms"]
@@ -3189,7 +3735,8 @@ def main() -> int:
              "library_ms")},
          **({"by_path": correlation_by_path(name, details, runs)}
             if name in CORR else {}),
-         **({"by_path": kernel_by_path(name, details, runs)}
+         **({"by_path": kernel_by_path(name, details, runs,
+                                       seg_shapes)}
             if name in ("conv_pair", "bn_act", "conv_fused") else {}),
          **({"in_forward_ms": summary[name]["in_forward_ms"]}
             if name == "bn_act" else {})}

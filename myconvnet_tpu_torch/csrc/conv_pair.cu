@@ -42,8 +42,12 @@
 // * every product is wgmma m64n64k16 (bf16 in, float32 accumulate), a
 //   warpgroup holding up to four 64x64 accumulator tiles; a pass covers up
 //   to eight tiles (all row tiles times a group of 64-channel column
-//   chunks).  When a pass has a single tile the two warpgroups split its K
-//   steps and add their sums through shared memory;
+//   chunks).  Every tile sums its K steps in one order, whatever the
+//   launch geometry, so an image's output does not depend on the tile, the
+//   cluster or the batch it was launched with: a pass of a single tile
+//   runs on one warpgroup while the other only releases the stages
+//   (sharing its K steps between the two, and adding the two sums, would
+//   round another way);
 // * phase 1: the 1x1 conv of the rank's channel slice over the tile plus a
 //   one-pixel halo, the halo grid flattened row-major with width TW + 2.
 //   The epilogue runs on the accumulator registers: s1, b1, ReLU, zero for
@@ -187,7 +191,7 @@ __device__ __forceinline__ float affine_relu(float v, float s, float b) {
 // memory, its warpgroup and lane, the block's tile and channel slices.
 struct Block {
   unsigned char* inter;  // the intermediate (no swizzle, group-major)
-  unsigned char* out;    // output staging, and a split pass's scratch
+  unsigned char* out;    // output staging
   uint32_t inter_addr, ring_addr;
   uint64_t* full;
   uint64_t* empty;
@@ -196,25 +200,6 @@ struct Block {
   int steps1, nch2, steps2;
   int rs;  // bytes of one 8-channel group of the intermediate
 };
-
-// After a split pass: warpgroup 1 hands its partial sums to warpgroup 0
-// through shared memory (each thread its own 32 floats, so both read and
-// write conflict-free).  The scratch is the output staging, which the
-// previous pass's epilogue may still be reading: hence the first barrier.
-__device__ __forceinline__ void join_split(float (&acc)[32], float* scratch,
-                                           int wg, int tid) {
-  hopper::named_barrier(3, kConsumers * 128);
-  if (wg == 1) {
-#pragma unroll
-    for (int e = 0; e < 32; ++e) scratch[e * 128 + tid] = acc[e];
-  }
-  hopper::named_barrier(3, kConsumers * 128);
-  if (wg == 0) {
-#pragma unroll
-    for (int e = 0; e < 32; ++e) acc[e] += scratch[e * 128 + tid];
-  }
-  hopper::named_barrier(4, kConsumers * 128);
-}
 
 // Phase 1's epilogue for the 64x64 tile (row tile m, column chunk nl):
 // s1, b1, ReLU, zero outside the image, bf16, into the intermediate
@@ -290,11 +275,10 @@ __device__ __forceinline__ void epilogue2(const Block& B, const Args& a,
 
 // One pass of a phase for one warpgroup: NT 64x64 accumulator tiles (tile u
 // = wg + 2 i of the pass; a warpgroup with fewer real tiles repeats the
-// last one and drops it), or with SPLIT the pass's single tile, whose four
-// k16 steps of each stage the two warpgroups share.  Every wgmma of a
-// stage is issued unconditionally; a stage is released once the wgmmas
-// that read it have completed (one group kept in flight).
-template <int PHASE, int NT, bool SPLIT>
+// last one and drops it, and one with none only releases the stages).
+// Every wgmma of a stage is issued unconditionally; a stage is released
+// once the wgmmas that read it have completed (one group kept in flight).
+template <int PHASE, int NT>
 __device__ __forceinline__ void pass(const Block& B, const Args& a, int n0,
                                      int units, int& j) {
   using namespace hopper;
@@ -302,12 +286,23 @@ __device__ __forceinline__ void pass(const Block& B, const Args& a, int n0,
   const int mt = PHASE == 1 ? g.mt1 : g.mt2;
   const int nrow = PHASE == 1 ? g.nrow1 : g.nrow2;
   const int steps = PHASE == 1 ? B.steps1 : B.steps2;
-  constexpr int KK = SPLIT ? 2 : 4;
-  const int kk0 = SPLIT ? 2 * B.wg : 0;
+  if (B.wg >= units) {
+    // no tile (only warpgroup 1, in a pass of one tile): release each
+    // stage once it has filled, after the warpgroup has met, so that no
+    // warp still waits for a fill that the release lets the producer
+    // overwrite
+    for (int k = 0; k < steps; ++k, ++j) {
+      const int s = j % g.stages;
+      mbar_wait(&B.full[s], (j / g.stages) & 1);
+      named_barrier(3, 128);
+      if (B.tid == 0) mbar_arrive(&B.empty[s]);
+    }
+    return;
+  }
   uint32_t aoff[NT], boff[NT];
 #pragma unroll
   for (int i = 0; i < NT; ++i) {
-    const int u = SPLIT ? 0 : imin(B.wg + kConsumers * i, units - 1);
+    const int u = imin(B.wg + kConsumers * i, units - 1);
     aoff[i] = PHASE == 1 ? (u % mt) * kTileBytes : (u % mt) * 64 * 16;
     boff[i] = (PHASE == 1 ? g.xbytes : 0) + (u / mt) * nrow * 128;
   }
@@ -327,11 +322,9 @@ __device__ __forceinline__ void pass(const Block& B, const Args& a, int n0,
 #pragma unroll
       for (int i = 0; i < NT; ++i)
 #pragma unroll
-        for (int q = 0; q < KK; ++q) {
-          const int kk = kk0 + q;
+        for (int kk = 0; kk < 4; ++kk)
           wgmma_ss(acc[i], desc_sw128(st + aoff[i] + kk * 32),
                    desc_sw128(st + boff[i] + kk * 32), 1);
-        }
     } else {
       // taps (ty, 0..2) of intermediate channels [64 c, 64 c + 64): output
       // row q reads stored row q + ty * hw + tx
@@ -343,14 +336,12 @@ __device__ __forceinline__ void pass(const Block& B, const Args& a, int n0,
 #pragma unroll
         for (int i = 0; i < NT; ++i)
 #pragma unroll
-          for (int q = 0; q < KK; ++q) {
-            const int kk = kk0 + q;
+          for (int kk = 0; kk < 4; ++kk)
             wgmma_ss(acc[i],
                      desc_plain(abase + aoff[i] + tx * 16 + kk * 2 * B.rs,
                                 B.rs, 128),
                      desc_sw128(st + tx * g.w3bytes + boff[i] + kk * 32),
                      1);
-          }
     }
     wgmma_commit();
     wgmma_wait<1>();
@@ -360,24 +351,14 @@ __device__ __forceinline__ void pass(const Block& B, const Args& a, int n0,
   wgmma_wait<0>();
   if (pending >= 0 && B.tid == 0) mbar_arrive(&B.empty[pending]);
 
-  if constexpr (SPLIT) {
-    join_split(acc[0], reinterpret_cast<float*>(B.out), B.wg, B.tid);
-    if (B.wg == 0) {
-      if constexpr (PHASE == 1)
-        epilogue1(B, a, acc[0], 0, n0);
-      else
-        epilogue2(B, a, acc[0], 0, n0);
-    }
-  } else {
 #pragma unroll
-    for (int i = 0; i < NT; ++i) {
-      const int u = B.wg + kConsumers * i;
-      if (u >= units) continue;
-      if constexpr (PHASE == 1)
-        epilogue1(B, a, acc[i], u % mt, n0 + u / mt);
-      else
-        epilogue2(B, a, acc[i], u % mt, n0 + u / mt);
-    }
+  for (int i = 0; i < NT; ++i) {
+    const int u = B.wg + kConsumers * i;
+    if (u >= units) continue;
+    if constexpr (PHASE == 1)
+      epilogue1(B, a, acc[i], u % mt, n0 + u / mt);
+    else
+      epilogue2(B, a, acc[i], u % mt, n0 + u / mt);
   }
 }
 
@@ -385,15 +366,11 @@ __device__ __forceinline__ void pass(const Block& B, const Args& a, int n0,
 template <int PHASE>
 __device__ __forceinline__ void run_pass(const Block& B, const Args& a,
                                          int n0, int units, int& j) {
-  if (units == 1) {
-    pass<PHASE, 1, true>(B, a, n0, units, j);
-    return;
-  }
   switch ((units + 1) / 2) {
-    case 1: pass<PHASE, 1, false>(B, a, n0, units, j); break;
-    case 2: pass<PHASE, 2, false>(B, a, n0, units, j); break;
-    case 3: pass<PHASE, 3, false>(B, a, n0, units, j); break;
-    default: pass<PHASE, 4, false>(B, a, n0, units, j); break;
+    case 1: pass<PHASE, 1>(B, a, n0, units, j); break;
+    case 2: pass<PHASE, 2>(B, a, n0, units, j); break;
+    case 3: pass<PHASE, 3>(B, a, n0, units, j); break;
+    default: pass<PHASE, 4>(B, a, n0, units, j); break;
   }
 }
 

@@ -8,7 +8,9 @@ ViT recipes use: ``AugmentConfig`` (``:36-73``), ``_axis_matrix`` and
 (``:205-212``), ``_sample_geometry`` (``:329-347``), ``augment_train``
 (``:350-388``, with RandAugment or AutoAugment from
 ``data/randaugment.py``), ``augment_eval`` (``:391-402``) and
-``normalize`` (``:320-324``), and ``color_jitter`` (``:272-317``).
+``normalize`` (``:320-324``), and ``color_jitter`` (``:272-317``); for
+segmentation ``batched_crop_nearest`` (``:215-264``), ``augment_train_pair``
+(``:407-427``) and ``augment_eval_pair`` (``:430-441``).
 
 Sampling is split from applying.  :func:`sample_geometry` draws the crop
 boxes and the flips, :func:`sample_jitter` the colour-jitter factors and
@@ -398,6 +400,91 @@ def augment_eval(images_u8: torch.Tensor, cfg: AugmentConfig,
         return _resized(images_u8, boxes, None, cfg, mean_std, True)
     mean, std = mean_std or stats(cfg, images_u8.device)
     return normalize_u8(images_u8, mean, std, _DTYPES[cfg.out_dtype])
+
+
+def _nearest_index(start: torch.Tensor, extent: torch.Tensor,
+                   in_size: int, out_size: int,
+                   flip: torch.Tensor | None = None, clamp: bool = True
+                   ) -> torch.Tensor:
+    """[N, out_size] int64 source index of each output index (nearest,
+    half-pixel, reversed where ``flip``), as the one-hot rows of JAX's
+    ``_nearest_axis_matrix``: the coordinate rounded half to even
+    (``jnp.round`` and ``torch.round`` both do), clamped to the frame, or
+    -1 outside it when not ``clamp``."""
+    n, dev = start.shape[0], start.device
+    i = torch.arange(out_size, dtype=torch.float32, device=dev)
+    frac = ((i + 0.5) / out_size)[None, :].expand(n, out_size)
+    if flip is not None:
+        frac = torch.where(flip[:, None], 1.0 - frac, frac)
+    src = torch.round(start[:, None] + frac * extent[:, None] - 0.5)
+    if clamp:
+        src = torch.clamp(src, 0.0, in_size - 1.0)
+    inside = (src >= 0) & (src <= in_size - 1)
+    return torch.where(inside, src, torch.full_like(src, -1.0)).long()
+
+
+def batched_crop_nearest(masks: torch.Tensor, boxes: torch.Tensor,
+                         out_hw: tuple[int, int],
+                         flip: torch.Tensor | None = None,
+                         clamp: bool = True) -> torch.Tensor:
+    """Nearest crop + resize (+ flip) of int label masks [N, H, W] with the
+    boxes of the paired image transform; labels are gathered, so every
+    value (the ignore label too) survives exactly.  With ``clamp=False``
+    (the pad-crop geometry) a pixel outside the frame is the ignore label,
+    255: the padding carries no ground truth."""
+    n, h, w = masks.shape
+    oh, ow = out_hw
+    boxes = boxes.float()
+    rows = _nearest_index(boxes[:, 0], boxes[:, 2], h, oh, clamp=clamp)
+    cols = _nearest_index(boxes[:, 1], boxes[:, 3], w, ow, flip,
+                          clamp=clamp)
+    img = torch.arange(n, device=masks.device)[:, None, None]
+    out = masks[img, rows.clamp(min=0)[:, :, None],
+                cols.clamp(min=0)[:, None, :]]
+    if not clamp:
+        inside = (rows[:, :, None] >= 0) & (cols[:, None, :] >= 0)
+        out = torch.where(inside, out, torch.full_like(out, 255))
+    return out
+
+
+def augment_train_pair(images_u8: torch.Tensor, masks: torch.Tensor,
+                       boxes: torch.Tensor, flip: torch.Tensor,
+                       cfg: AugmentConfig, mean_std=None, jitter=None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Segmentation's train chain: the geometry of :func:`sample_geometry`
+    applied to the image (bilinear, then x / 255, the colour ``jitter`` of
+    :func:`config_jitter` and the normalize) and to the mask (nearest, the
+    labels kept).  ``cfg.area_range`` is the crop's area relative to the
+    frame (DeepLab's 0.5-2 scaling), the box clamped to the frame."""
+    # zero padding (and the ignore label) outside the frame only in the
+    # pad-crop mode
+    clamp = cfg.area_range is not None or cfg.pad == 0
+    has_jitter = bool(cfg.brightness or cfg.contrast or cfg.saturation
+                      or cfg.hue)
+    if has_jitter and jitter is None:
+        raise ValueError("colour jitter needs the factors of config_jitter")
+    x = _resized(images_u8, boxes, flip, cfg, mean_std, clamp,
+                 jitter=jitter if has_jitter else None)
+    y = batched_crop_nearest(masks, boxes, tuple(cfg.out_hw), flip,
+                             clamp=clamp)
+    return x, y
+
+
+def augment_eval_pair(images_u8: torch.Tensor, masks: torch.Tensor | None,
+                      cfg: AugmentConfig, mean_std=None
+                      ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Segmentation's eval chain: the whole frame resized to ``cfg.out_hw``
+    (no crop: mIoU is scored against the whole mask), the image bilinear
+    and the mask nearest.  The resize runs even at the frame's own size,
+    as in JAX; ``masks`` None transforms the image alone."""
+    n, h, w, _ = images_u8.shape
+    boxes = torch.zeros((n, 4), device=images_u8.device)
+    boxes[:, 2] = float(h)
+    boxes[:, 3] = float(w)
+    x = _resized(images_u8, boxes, None, cfg, mean_std, True)
+    if masks is None:
+        return x, None
+    return x, batched_crop_nearest(masks, boxes, tuple(cfg.out_hw))
 
 
 def normalize(x: torch.Tensor, mean=IMAGENET_MEAN, std=IMAGENET_STD

@@ -21,11 +21,18 @@ by the layer's shape and the activations' dtype:
 
 A site the kernels do not take goes to cuDNN + B1 by this routing, not by
 a fallback: a kernel launch that fails raises.
+
+:class:`ConvBNReLU` is ``nn.conv_bn_relu`` (``myconvnet_tpu/nn.py:408-419``),
+the segmentation heads' block: children ``conv`` (no bias) and ``bn``
+(momentum 0.9, eps 1e-5), so the scopes read ``<name>/conv`` and
+``<name>/bn``, and the forward is :func:`conv_bn_relu` with the routing
+decided when it is built.
 """
 
 from __future__ import annotations
 
 import torch
+from torch import nn
 
 from myconvnet_tpu_torch.nn import BatchNorm, Conv, conv_epilogue, relu
 from myconvnet_tpu_torch.ops.kernels import conv3x3_bn_relu, \
@@ -64,3 +71,18 @@ def bn_relu(bn: BatchNorm, x: torch.Tensor) -> torch.Tensor:
         return relu(bn(x))
     a, b = bn.scale_shift()
     return fused_scale_shift_act(x.contiguous(), a, b, "relu")
+
+
+class ConvBNReLU(nn.Module):
+    """relu(bn(conv(x))): a stride-1 ``kernel_size`` conv without bias at
+    ``dilation`` (SAME padding), then BN and ReLU."""
+
+    def __init__(self, cin: int, features: int, kernel_size: int, *,
+                 dilation: int = 1):
+        super().__init__()
+        self.conv = Conv(cin, features, kernel_size, dilation=dilation)
+        self.bn = BatchNorm(features, eps=1e-5, momentum=0.9)
+        self.fused = fuses(self.conv)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv_bn_relu(self.conv, self.bn, x, self.fused)

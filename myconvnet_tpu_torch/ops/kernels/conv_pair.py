@@ -115,8 +115,9 @@ def conv1x1_conv3x3_bn_relu(x: torch.Tensor, w1: torch.Tensor,
     handed to the kernel as OIHW channels_last ([Cm, Cin] and
     [Cout, 3, 3, Cm]), which costs no copy for ``nn.Conv`` weights.
     ``tile`` = (TH, TW, CS) launches that geometry instead of the planner's
-    (to measure plans against each other); it changes no number, and the
-    plain version ignores it.
+    (to measure plans against each other); the plain version ignores it.
+    Every geometry sums each output in the same order, so an image gives
+    the same bits whatever tile, cluster or batch it is launched with.
     """
     cin, cm, cout = _check_shapes(x, w1, scale1, bias1, w3, scale3, bias3)
     if x.device.type == "cpu":

@@ -8,7 +8,9 @@ Fashion-MNIST, the synthetic ImageNet split at the recipe's ``raw_hw``,
 and the flow corpus) and, for classification,
 ``build_classifier`` (``vision.py:23-65``, with ``accum_steps`` and
 ``accum_dtype``), which here builds the trainer directly (the ``ConvNet``
-wrapper of ``models/base.py`` comes later), and for optical flow
+wrapper of ``models/base.py`` comes later), for segmentation
+``build_segmenter`` (``vision.py:68-106``, with the VOC source and the
+mIoU evaluator of ``common.py:200-202``) and for optical flow
 ``build_flow`` (``perception.py:284-398``); :func:`build_trainer` picks by
 ``cfg["task"]``.
 Also the mean/std resolution of ``serving_http.build_route``
@@ -30,17 +32,24 @@ from myconvnet_tpu_torch import models
 from myconvnet_tpu_torch.core.init import init_model
 from myconvnet_tpu_torch.core.precision import apply_backend_flags, \
     get_policy
-from myconvnet_tpu_torch.data.augment import IMAGENET_MEAN, IMAGENET_STD, \
-    AugmentConfig, JitterDraws, color_jitter, sample_jitter
+from myconvnet_tpu_torch.data.augment import (IMAGENET_MEAN, IMAGENET_STD,
+                                              AugmentConfig, JitterDraws,
+                                              augment_eval_pair,
+                                              augment_train_pair,
+                                              color_jitter, config_jitter,
+                                              sample_geometry, sample_jitter,
+                                              stats)
 from myconvnet_tpu_torch.data.mix import MixConfig
 from myconvnet_tpu_torch.data.pipeline import DataSet
-from myconvnet_tpu_torch.eval.evaluators import AccuracyEvaluator, Evaluator
+from myconvnet_tpu_torch.eval.evaluators import (AccuracyEvaluator,
+                                                 Evaluator, MeanIoUEvaluator)
 from myconvnet_tpu_torch.eval.flow import FlowEvaluator
-from myconvnet_tpu_torch.subsets import cifar10, cifar100, imagenet, mnist, \
-    svhn
+from myconvnet_tpu_torch.subsets import (cifar10, cifar100, imagenet, mnist,
+                                         svhn, voc)
 from myconvnet_tpu_torch.subsets import flow as flow_mod
 from myconvnet_tpu_torch.train import optim
 from myconvnet_tpu_torch.train.losses import (epe_loss, multiscale_epe_loss,
+                                              pixel_cross_entropy,
                                               softmax_cross_entropy,
                                               unsupervised_flow_loss)
 from myconvnet_tpu_torch.train.trainer import InputFns, Trainer
@@ -152,7 +161,7 @@ def make_sources(cfg: dict, synthetic: bool, splits=("train", "val")):
     ``max_motion`` when it is rendered)."""
     table = {"cifar10": cifar10, "cifar100": cifar100, "svhn": svhn,
              "mnist": mnist, "fashion_mnist": mnist, "imagenet": imagenet,
-             "flow": flow_mod}
+             "voc": voc, "flow": flow_mod}
     name = cfg["dataset"]
     if name not in table:
         raise ValueError(f"the port has datasets {sorted(table)}, not "
@@ -188,8 +197,11 @@ def build_evaluator(cfg: dict) -> Evaluator:
         return AccuracyEvaluator()
     if task == "flow":
         return FlowEvaluator(cfg.get("flow_metric", "epe"))
-    raise ValueError(f"the port has the classification and flow tasks, "
-                     f"not {task!r}")
+    if task == "segmentation":
+        return MeanIoUEvaluator(cfg["num_classes"],
+                                cfg.get("ignore_label", 255))
+    raise ValueError(f"the port has the classification, segmentation and "
+                     f"flow tasks, not {task!r}")
 
 
 def build_classifier(cfg: dict, synthetic: bool = False, *,
@@ -235,6 +247,106 @@ def build_classifier(cfg: dict, synthetic: bool = False, *,
     return trainer, DataSet(train_src, augment), DataSet(val_src, augment)
 
 
+class PairDraws(NamedTuple):
+    """One segmentation train step's draws: the crop boxes [N, 4], the
+    flips [N] bool and the colour-jitter factors (None when off)."""
+    boxes: torch.Tensor
+    flip: torch.Tensor
+    jitter: JitterDraws | None
+
+
+def segmentation_input_fns(cfg: AugmentConfig, device) -> InputFns:
+    """The segmentation recipes' input chain over uint8 images and int
+    masks (``models/base.py:171-178``): one geometry for image and mask
+    (``augment_train_pair``), jitter on the image alone; in validation
+    the whole frame resized, mask with image (``augment_eval_pair``); the
+    image alone for prediction."""
+    mean_std = stats(cfg, device)
+
+    def sample(generator, n, hw):
+        boxes, flip = sample_geometry(generator, n, hw, cfg)
+        return PairDraws(boxes, flip, config_jitter(generator, n, cfg))
+
+    def train(x_u8, y, draws):
+        return augment_train_pair(x_u8, y, draws.boxes, draws.flip, cfg,
+                                  mean_std, draws.jitter)
+
+    def eval_pair(x_u8, y):
+        return augment_eval_pair(x_u8, y, cfg, mean_std)
+
+    def eval_image(x_u8):
+        return augment_eval_pair(x_u8, None, cfg, mean_std)[0]
+
+    return InputFns(sample, train, eval_image, eval_pair)
+
+
+# segmentation losses of the JAX recipe that the port has not ported
+UNPORTED_SEG_LOSSES = ("dice", "ce_dice", "focal")
+# ``spatial`` (image rows sharded over the mesh's model axis,
+# vision.py:103) changes how the step runs, not what it computes, as
+# remat, chain_steps and zero_sharding do: accepted and ignored
+
+
+def build_segmenter(cfg: dict, synthetic: bool = False, *,
+                    device: torch.device, ckpt_dir: str | None = None,
+                    log_dir: str | None = None
+                    ) -> tuple[Trainer, DataSet, DataSet]:
+    """(trainer, train set, val set) for a segmentation recipe: the
+    :func:`segmenter_trainer` of its ``augment`` block, at 96 x 96 for a
+    synthetic run (as JAX shrinks it), and its VOC splits."""
+    aug = make_augment(cfg.get("augment"))
+    if aug is None:
+        raise ValueError(
+            "segmentation configs need an 'augment' entry (out_hw sets "
+            "the training crop/input resolution)")
+    if synthetic or cfg.get("data_dir") is None:
+        # the synthetic masks are small: the JAX recipe shrinks the
+        # resolution (vision.py:89-92)
+        aug = aug._replace(out_hw=(96, 96))
+    trainer = segmenter_trainer(cfg, aug, device, ckpt_dir=ckpt_dir,
+                                log_dir=log_dir)
+    train_src, val_src = make_sources(cfg, synthetic)
+    return trainer, DataSet(train_src), DataSet(val_src)
+
+
+def segmenter_trainer(cfg: dict, aug: AugmentConfig, device: torch.device,
+                      *, ckpt_dir: str | None = None,
+                      log_dir: str | None = None) -> Trainer:
+    """A segmentation recipe's trainer for the paired input chain ``aug``
+    (its ``out_hw`` the crop the model is built for): the model
+    initialised from ``cfg["seed"]``, per-pixel CE with the recipe's
+    ignore label, the recipe's optimizer and the mIoU evaluator."""
+    kind = cfg.get("seg_loss", "ce")
+    if kind in UNPORTED_SEG_LOSSES:
+        raise ValueError(f"recipe key 'seg_loss' = {kind!r} is not ported "
+                         "(the JAX segmenter reads it, "
+                         "recipes/vision.py:73-84)")
+    if kind != "ce":
+        raise ValueError(f"unknown seg_loss {kind!r}; the port has 'ce'")
+    seed = cfg.get("seed", 0)
+    model = models.get_model(cfg["model"], cfg["num_classes"],
+                             input_hw=aug.out_hw,
+                             **cfg.get("model_kwargs", {}))
+    init_model(model, torch.Generator().manual_seed(seed))
+    ignore = cfg.get("ignore_label", 255)
+
+    def loss(logits, y):
+        return pixel_cross_entropy(logits, y, ignore_label=ignore)
+
+    policy = get_policy(cfg.get("precision", "f32"))
+    apply_backend_flags(policy)
+    model.to(device)
+    return Trainer(model, make_optimizer(model, cfg["optimizer"]), loss,
+                   device=device, policy=policy,
+                   num_classes=cfg["num_classes"],
+                   evaluator=build_evaluator(cfg), seed=seed,
+                   ckpt_dir=ckpt_dir, log_every=cfg.get("log_every", 50),
+                   logger=MetricLogger(log_dir),
+                   accum_steps=cfg.get("accum_steps", 1),
+                   accum_dtype=cfg.get("accum_dtype", "float32"),
+                   input_fns=segmentation_input_fns(aug, device))
+
+
 class FlowDraws(NamedTuple):
     """One flow train step's draws: the paired flip [N] bool and the
     colour-jitter factors both frames share."""
@@ -255,7 +367,7 @@ def flow_input_fns(brightness: float, contrast: float, *,
     def norm(x_u8):
         return x_u8.float() / 255.0
 
-    def sample(generator, n):
+    def sample(generator, n, hw=None):
         flip = torch.rand(n, generator=generator,
                           device=generator.device) < 0.5
         return FlowDraws(flip, sample_jitter(generator, n,
@@ -351,7 +463,8 @@ def build_trainer(cfg: dict, synthetic: bool = False, **kwargs
         raise ValueError(f"recipe key 'pretrained' = {cfg['pretrained']!r} "
                          "is not ported (the JAX trainer warm-starts from "
                          "it, recipes/common.py:247-275)")
-    by_task = {"classification": build_classifier, "flow": build_flow}
+    by_task = {"classification": build_classifier,
+               "segmentation": build_segmenter, "flow": build_flow}
     task = cfg.get("task", "classification")
     if task not in by_task:
         raise ValueError(f"the port has tasks {sorted(by_task)}, not "

@@ -26,6 +26,9 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--set", action="append", default=None,
                     metavar="KEY=VALUE", dest="overrides")
+    ap.add_argument("--scales", default=None,
+                    help="segmentation: comma-separated input scales of the "
+                         "multi-scale + flip eval")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -40,7 +43,21 @@ def main(argv=None):
     trainer, _, val_set = recipes.build_trainer(
         cfg, synthetic=args.synthetic, device=device)
     trainer.restore(args.ckpt)
-    score = trainer.evaluate(val_set.eval_iter(cfg["batch_size"], device))
+    batches = val_set.eval_iter(cfg["batch_size"], device)
+    if args.scales and cfg["task"] == "segmentation":
+        from myconvnet_tpu_torch.eval.seg_inference import \
+            predict_segmentation
+        scales = tuple(float(s) for s in args.scales.split(","))
+        mean, std = recipes.normalization(cfg)
+        evaluator = trainer.evaluator
+        evaluator.reset()
+        for x, y in batches:
+            evaluator.update(predict_segmentation(
+                trainer.forward_eval, x, mean, std, scales=scales,
+                flip=True), y)
+        score = evaluator.score()
+    else:
+        score = trainer.evaluate(batches)
     print(f"{trainer.evaluator.name}: {score:.4f}", flush=True)
     return score, trainer
 

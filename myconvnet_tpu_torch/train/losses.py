@@ -1,10 +1,11 @@
 """Losses, reduced in float32 under any compute dtype.
 
 Port of ``myconvnet_tpu/train/losses.py``: softmax cross-entropy
-(``:15-28``) and the optical-flow objectives (``:159-334``): the
-Charbonnier end-point error with NaN-masked targets, its multi-scale form
-for the coarse-to-fine nets, and the unsupervised photometric + smoothness
-objective with its forward-backward occlusion gate.
+(``:15-28``), its per-pixel form with the ignore label (``:31-44``) and the
+optical-flow objectives (``:159-334``): the Charbonnier end-point error
+with NaN-masked targets, its multi-scale form for the coarse-to-fine nets,
+and the unsupervised photometric + smoothness objective with its forward-
+backward occlusion gate.
 """
 
 from __future__ import annotations
@@ -26,6 +27,26 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
         onehot = onehot * (1.0 - label_smoothing) + label_smoothing / nc
     logp = torch.log_softmax(logits, dim=-1)
     return -(onehot * logp).sum(dim=-1).mean()
+
+
+def pixel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
+                        ignore_label: int | None = 255,
+                        label_smoothing: float = 0.0) -> torch.Tensor:
+    """Per-pixel CE over [N, H, W, C] logits and [N, H, W] int labels, in
+    float32: pixels at ``ignore_label`` are left out and the sum is divided
+    by the valid pixels' count (at least 1)."""
+    logits = logits.float()
+    nc = logits.shape[-1]
+    valid = (torch.ones_like(labels, dtype=torch.bool) if ignore_label is None
+             else labels != ignore_label)
+    safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    logp = torch.log_softmax(logits, dim=-1)
+    ce = -logp.gather(-1, safe.unsqueeze(-1)).squeeze(-1)
+    if label_smoothing > 0.0:
+        ce = (1.0 - label_smoothing) * ce \
+            - (label_smoothing / nc) * logp.sum(dim=-1)
+    vf = valid.float()
+    return (ce * vf).sum() / vf.sum().clamp(min=1.0)
 
 
 def epe_loss(pred: torch.Tensor, target: torch.Tensor, *,

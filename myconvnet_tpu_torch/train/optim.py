@@ -3,6 +3,7 @@ weight-decay mask, LR schedules.
 
 Port of the parts of ``myconvnet_tpu/train/optim.py`` the CIFAR and ViT
 recipes use: ``cosine_decay``/``cosine_restarts`` (``:62-101``),
+``polynomial_decay`` (``:70-77``, DeepLab's "poly"),
 ``warmup`` (``:104-112``), ``norm_and_bias_exclusion`` and the decay mask
 (``:131-157``), ``sgd``/``momentum`` (``:159-199``), ``adam``/``adamw``
 (``:202-249``), ``make_schedule`` / ``make_optimizer`` (``:374-415``) and
@@ -63,6 +64,17 @@ def cosine_decay(lr: float, total_steps: int, alpha: float = 0.0
     return fn
 
 
+def polynomial_decay(lr: float, total_steps: int, end_lr: float = 0.0,
+                     power: float = 0.9) -> Schedule:
+    """DeepLab's poly schedule: (lr - end_lr) (1 - t)^power + end_lr at
+    t = step / total_steps clipped to [0, 1]."""
+    def fn(step):
+        t = np.clip(F32(step) / F32(total_steps), F32(0), F32(1))
+        return float((F32(lr) - F32(end_lr)) * (F32(1) - t) ** F32(power)
+                     + F32(end_lr))
+    return fn
+
+
 def cosine_restarts(lr: float, first_decay_steps: int, t_mul: float = 2.0,
                     m_mul: float = 1.0, alpha: float = 0.0) -> Schedule:
     """SGDR: cosine cycles of geometrically growing length (t_mul) and
@@ -103,7 +115,8 @@ def make_schedule(cfg: dict) -> Schedule:
     kind = cfg.pop("kind", "constant")
     warmup_steps = cfg.pop("warmup_steps", 0)
     table = {"constant": constant, "cosine": cosine_decay,
-             "cosine_restarts": cosine_restarts}
+             "cosine_restarts": cosine_restarts, "poly": polynomial_decay,
+             "polynomial": polynomial_decay}
     if kind not in table:
         raise ValueError(f"the port has schedules {sorted(table)}, not "
                          f"{kind!r}")

@@ -11,7 +11,10 @@ for a recipe with its own input chain: ``augment_fns`` (here
 :class:`InputFns`, the recipe's draws split from their application) and
 ``accuracy_metric=False`` for dense float targets, where the model may
 return a list of outputs (the flow pyramid) and the best checkpoint is the
-evaluator's ``is_better``, lower or higher.  Remat, SAM, ZeRO, dispatch
+evaluator's ``is_better``, lower or higher.  A recipe whose targets are
+masks (segmentation, ``paired_targets`` in JAX) gives :class:`InputFns`
+an ``eval_pair`` that transforms the mask with the image in validation,
+as JAX's ``eval_step`` does (``:276-282``).  Remat, SAM, ZeRO, dispatch
 chaining and the mesh come with later slices.
 
 Where JAX compiles one program per step, the port runs eagerly and keeps
@@ -22,10 +25,10 @@ RandAugment or AutoAugment draws) or copied from pinned memory
 late, as the JAX loop does, so the host enqueues step k+1 while the
 device runs step k.
 
-Random numbers are a function of (seed, step), as JAX's
-``fold_in(key, step)``: :meth:`Trainer.sample` reseeds its generators from
-both before each step, so a restored run draws what the original would
-have.  A model with random sites (the ViT's drop-path) has a
+Random numbers are a function of (seed, step), as JAX's ``fold_in(key,
+step)``: :meth:`Trainer.sample` reseeds its generators from both before
+each step, so a restored run draws what the original would have. A model
+with random sites (the ViT's drop-path, DeepLab's ASPP dropout) has a
 ``sample_masks(n, generator)``; the trainer draws one batch of masks per
 microbatch there and passes them to ``model(x, masks)``.
 """
@@ -80,9 +83,12 @@ class InputFns(NamedTuple):
     """A recipe's own input chain, in place of the ``AugmentConfig`` one
     (the JAX package's ``augment_fns``), with the random draws split from
     their application so that a test can hand over another package's."""
-    sample: Callable    # (generator, n) -> draws, on the generator's device
+    sample: Callable    # (generator, n, hw) -> draws, on the generator's
+    #                     device (hw: the uint8 batch's size)
     train: Callable     # (x_u8, y, draws) -> (x, y)
     eval: Callable      # (x_u8) -> x
+    eval_pair: Callable | None = None   # (x_u8, y) -> (x, y): targets
+    #                                     that move with the image
 
 
 class Trainer:
@@ -136,7 +142,7 @@ class Trainer:
         boxes = flip = mix = masks = policy = jitter = recipe = None
         self._gen.manual_seed((self.seed << 32) + self.step)
         if self.input_fns is not None:
-            recipe = self.input_fns.sample(self._gen, n)
+            recipe = self.input_fns.sample(self._gen, n, hw)
         if self.augment is not None:
             boxes, flip = sample_geometry(self._gen, n, hw, self.augment)
             policy = sample_policy(self._gen, n, self.augment)
@@ -212,7 +218,9 @@ class Trainer:
         if not self.accuracy_metric:    # dense regression: the evaluator
             return metrics
         pred = logits.argmax(-1)
-        if y.dim() == 1:
+        if logits.dim() == y.dim() + 1:
+            # a class per example or per pixel (JAX counts the ignore
+            # label's pixels too, trainer.py:262-264)
             metrics["accuracy"] = (pred == y).float().mean()
         else:  # soft labels (MixUp/CutMix): the dominant mix component
             metrics["accuracy"] = (pred == y.argmax(-1)).float().mean()
@@ -225,8 +233,26 @@ class Trainer:
             x = self.input_fns.eval(x)
         if self.augment is not None:
             x = augment_eval(x, self.augment, self._mean_std)
+        return self.forward_eval(x)
+
+    @torch.no_grad()
+    def forward_eval(self, x: torch.Tensor) -> torch.Tensor:
+        """float32 outputs of an input batch already transformed, eval
+        mode (kernels on)."""
         self.model.eval()
         return self._forward(x, None)
+
+    @torch.no_grad()
+    def eval_batch(self, x: torch.Tensor, y: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(float32 outputs, targets) of a uint8 batch and its targets,
+        the targets transformed with the image where the recipe's chain
+        pairs them (``InputFns.eval_pair``)."""
+        fns = self.input_fns
+        if fns is not None and fns.eval_pair is not None:
+            x, y = fns.eval_pair(x, y)
+            return self.forward_eval(x), y
+        return self.eval_step(x), y
 
     # ----------------------------------------------------------- running
 
@@ -303,7 +329,7 @@ class Trainer:
         self.evaluator.reset()
         try:
             for x, y in data_iter:
-                self.evaluator.update(self.eval_step(x), y)
+                self.evaluator.update(*self.eval_batch(x, y))
         finally:
             if hasattr(data_iter, "close"):
                 data_iter.close()

@@ -167,7 +167,14 @@ PAIR_SITES = [(8, 56, 56, 64, 64, 64), (8, 56, 56, 256, 64, 64),
     (2, 14, 14, 64, 128, 128),   # 8 blocks per tile, 16 channels each
     (1, 3, 40, 64, 512, 32),     # two phase-1 passes per block
     (1, 7, 7, 128, 512, 512),    # stage 4 Cm: > 48 KB of shared memory
-    (1, 14, 14, 2048, 512, 1024)])  # the largest Cm supports() takes
+    (1, 14, 14, 2048, 512, 1024),   # the largest Cm supports() takes
+    # DeepLabv3+'s undilated bottlenecks at 513 x 513 (odd maps, partial
+    # tiles) at batch 2 and its recipe batch of 16, and at the 0.75 scale
+    # of a 512 frame (even maps)
+    (2, 129, 129, 64, 64, 64), (2, 129, 129, 256, 64, 64),
+    (2, 65, 65, 512, 128, 128), (2, 33, 33, 1024, 256, 256),
+    (16, 129, 129, 256, 64, 64), (16, 33, 33, 1024, 256, 256),
+    (1, 96, 96, 256, 64, 64), (1, 24, 24, 1024, 256, 256)])
 def test_conv_pair_kernel_matches_plain(cuda, shape):
     args = _pair_args(shape, cuda)
     before = conv_pair.conv1x1_conv3x3_bn_relu.launches
@@ -234,6 +241,34 @@ def test_conv_pair_kernel_at_a_given_tile_matches_plain(cuda, tile):
     ref = conv_pair.conv_pair_reference(*args)
     torch.cuda.synchronize()
     torch.testing.assert_close(out.float(), ref.float(), **PAIR_TOL)
+
+
+# launch geometries of one shape, some with passes of a single 64x64 tile
+# (where two warpgroups sharing the K steps would add their sums in
+# another order): every geometry gives the planner's bits
+GEOMETRY_CASES = [
+    ((8, 24, 24, 64, 64, 64), [(3, 12, 1), (4, 12, 1), (6, 12, 1),
+                               (12, 12, 1), (6, 8, 1)]),
+    ((16, 12, 12, 512, 128, 128), [(3, 12, 1), (6, 12, 2), (3, 12, 2)]),
+    ((16, 6, 6, 1024, 256, 256), [(3, 6, 4), (6, 6, 1), (6, 6, 2)]),
+    ((8, 7, 7, 2048, 512, 512), [(7, 7, 1), (7, 7, 8)])]
+
+
+@pytest.mark.parametrize("shape,tiles", GEOMETRY_CASES, ids=str)
+def test_conv_pair_bits_do_not_depend_on_the_launch_geometry(cuda, shape,
+                                                             tiles):
+    """Each output is summed in one order whatever the tile, the cluster
+    or the batch: a given geometry, and an image launched alone, give the
+    bits of the planner's launch over the batch."""
+    args = _pair_args(shape, cuda)
+    want = conv_pair.conv1x1_conv3x3_bn_relu(*args)
+    for tile in tiles:
+        got = conv_pair.conv1x1_conv3x3_bn_relu(*args, tile=tile)
+        assert torch.equal(got, want), tile
+    for i in (0, shape[0] - 1):
+        alone = conv_pair.conv1x1_conv3x3_bn_relu(
+            args[0][i:i + 1].contiguous(), *args[1:])
+        assert torch.equal(alone, want[i:i + 1]), i
 
 
 @pytest.mark.parametrize("tile", [(15, 14, 1), (7, 15, 1), (7, 14, 3),
@@ -530,7 +565,11 @@ FUSED_SHAPES = [
     # 64-bit offsets
     (2, 224, 224, 64, 64), (2, 112, 112, 64, 128), (2, 112, 112, 128, 128),
     (2, 56, 56, 128, 256), (2, 56, 56, 256, 256), (2, 28, 28, 256, 512),
-    (2, 28, 28, 512, 512), (2, 14, 14, 512, 512), (512, 224, 224, 64, 64)]
+    (2, 28, 28, 512, 512), (2, 14, 14, 512, 512), (512, 224, 224, 64, 64),
+    # DeepLabv3+'s decoder/refine1 (304 input channels: 5 chunks of 64 a
+    # tap, the last partial) and refine2 at 513 x 513, batch 2 and 16
+    (2, 129, 129, 304, 256), (2, 129, 129, 256, 256),
+    (16, 129, 129, 304, 256)]
 
 
 def test_conv_fused_planner_matches_the_built_kernel(cuda):
