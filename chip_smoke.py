@@ -155,6 +155,27 @@
     forward's kernels, the logits against the host's, and the step's
     images/s, host enqueue ms, device busy ms, idle share, top kernels and
     peak memory.
+18. The GAN recipes (BASELINE config #5): bn_act at every site of the
+    generators' eval forwards, DCGAN's three (float32, ReLU) at 16 and 64
+    samples and the U-Net's 13 (bf16; six leaky ReLU, seven ReLU) at batch
+    16, and normalize_u8 at both recipes' train batches ([128, 32, 32, 3]
+    and [16, 256, 256, 3], mean = std = 0.5, float32 out), each against
+    its plain version with its bound (step 3's rows, paths ``dcgan_16``,
+    ``dcgan_64`` and ``pix2pix``); DCGAN step 1 at batch 128 on the card
+    against the host (float32: d_loss, g_loss and every gradient norm of
+    both nets, step 16's bounds); ``train.main`` on
+    ``configs/dcgan_cifar10.py`` as written for 20 steps of 128 with a log
+    line, a checkpoint and a 16-sample grid every 10 (normalize_u8 once a
+    step, bn_act 3 a grid; every metric finite; both nets' BN statistics
+    moved) and ``generate.main``'s grid of 64 from the checkpoint (bn_act
+    3; equal to the writer's samples); ``train.main`` on
+    ``configs/pix2pix.py`` as written (bf16, 256x256) for 20 steps of 16
+    (normalize_u8 twice a step, no bn_act) and ``test.main`` on its
+    checkpoint (PSNR and SSIM over 64 rendered val pairs; normalize_u8
+    once and bn_act 13 a batch; the restored output equal to the writer's
+    and within 0.05 of max |output| of the host's plain path); every
+    launch recorded with its shape and held by a row; each recipe's train
+    step rate.
 
 Every kernel's record carries its bound: the larger of the bytes it must
 move over 3.35 TB/s and the operations it must do over the peak rate of
@@ -181,7 +202,8 @@ constants changed), each held against its plain version, and writes
 ``chiprun_out/input_sweep.json``.
 
 Exits non-zero on any failure.  The second-to-last line of stdout is the
-kernels' JSON record (thirteen entries; a correlation entry's ``ms``,
+kernels' JSON record (thirteen entries; bn_act's ``by_path`` has the GAN
+paths ``dcgan`` and ``pix2pix``; a correlation entry's ``ms``,
 ``plain_ms`` and ``bound_ms`` sum one PWC-Net and one FlowNetC train step,
 its ``launches`` both paths' runs, and ``by_path`` splits them), the last ``{"ok": true, "device":
 {...}}``.  Details go to ``chiprun_out/chip_smoke.json``.
@@ -405,7 +427,10 @@ FORWARD = {"resnet50": {"conv_pair": 13, "bn_act": 7},
            "densenet121": {"bn_act": 121},
            # DeepLabv3+ (bf16, output_stride 16): the 11 undilated
            # stride-1 bottlenecks, refine1 and refine2, the 18 other sites
-           "deeplab": {"conv_pair": 11, "conv_fused": 2, "bn_act": 18}}
+           "deeplab": {"conv_pair": 11, "conv_fused": 2, "bn_act": 18},
+           # the GAN generators' eval forwards (the discriminators and
+           # every train step are plain)
+           "dcgan": {"bn_act": 3}, "pix2pix": {"bn_act": 13}}
 SMALLNET_CONFIGS = {name: os.path.join(ROOT, "configs", f"{name}_smallnet.py")
                     for name in ("cifar10", "svhn", "fashion_mnist")}
 # (run, recipe, overrides, steps, val_every); the rendered splits hold 512
@@ -478,6 +503,45 @@ SEG_STEP1_BATCH = 4
 SEG_CHECK_N, SEG_CHECK_N_513 = 4, 1
 
 
+# BASELINE config #5, the GAN recipes as written through train.main:
+# DCGAN (configs/dcgan_cifar10.py: float32, batch 128, 32x32, G base 256,
+# D base 64) with a 16-sample grid every 10 steps, then generate.main's
+# grid of 64; pix2pix (configs/pix2pix.py: bf16, batch 16, 256x256, U-Net
+# of 8 levels, 70x70 PatchGAN) on 64 rendered pairs a split, then
+# test.main (4 val batches of 16); GAN_STEPS steps each, a log line and a
+# checkpoint every GAN_LOG_EVERY
+DCGAN_CONFIG = os.path.join(ROOT, "configs", "dcgan_cifar10.py")
+PIX2PIX_CONFIG = os.path.join(ROOT, "configs", "pix2pix.py")
+GAN_STEPS, GAN_LOG_EVERY = 20, 10
+DCGAN_BATCH, DCGAN_SAMPLES, DCGAN_GRID = 128, 16, 64
+PIX2PIX_BATCH, PIX2PIX_SPLIT = 16, 64
+# pix2pix eval images held card against host (the host's bf16 U-Net at
+# 256x256 is the slow side)
+PIX2PIX_CHECK_N = 2
+# B2's launches a train step (the rescale of each uint8 batch)
+GAN_B2_PER_STEP = {"dcgan": 1, "pix2pix": 2}
+GAN_INPUT_SHAPES = {"dcgan": (DCGAN_BATCH, 32, 32, 3),
+                    "pix2pix": (PIX2PIX_BATCH, 256, 256, 3)}
+
+
+def dcgan_sites(n):
+    """B1's sites in one DCGAN eval forward of n samples (ReLU, float32):
+    bn_project and the two deconv BNs."""
+    return [("bn_project", (n, 4, 4, 256)), ("bn", (n, 8, 8, 128)),
+            ("bn_1", (n, 16, 16, 64))]
+
+
+def unet_sites(n):
+    """B1's sites in one pix2pix U-Net eval forward of n images (bf16):
+    the six encoder BNs (leaky ReLU), the seven decoder BNs (ReLU)."""
+    def feats(i):
+        return min(64 << (i - 1), 512)
+    return ([(f"enc{i}/bn", (n, 256 >> i, 256 >> i, feats(i)), "leaky_relu")
+             for i in range(2, 8)]
+            + [(f"dec{i + 1}/bn", (n, 256 >> i, 256 >> i, feats(i)), "relu")
+               for i in range(7, 0, -1)])
+
+
 def deeplab_sites(n, hw):
     """The kernels' sites in one bf16 eval forward of DeepLabv3+ on an
     hw x hw input at batch n (SAME: each stride 2 halves a side, rounding
@@ -520,10 +584,13 @@ KERNEL_PATH_RUNS = {
     "densenet121": ("densenet121_train", "densenet121_test"),
     "deeplab_96": ("deeplab_train", "deeplab_test"),
     "deeplab_scales": ("deeplab_test_scales",),
-    "deeplab_513": ("deeplab_513_train", "deeplab_513_eval")}
+    "deeplab_513": ("deeplab_513_train", "deeplab_513_eval"),
+    "dcgan": ("dcgan_train", "dcgan_generate"),
+    "pix2pix": ("pix2pix_train", "pix2pix_test")}
 # a path whose forwards run at several sizes: the ``path`` of the rows
 # that hold its shapes (one row set a size)
-PATH_ROWS = {"deeplab_scales": tuple(f"deeplab_{hw}" for hw in SEG_SCALE_HW)}
+PATH_ROWS = {"deeplab_scales": tuple(f"deeplab_{hw}" for hw in SEG_SCALE_HW),
+             "dcgan": (f"dcgan_{DCGAN_SAMPLES}", f"dcgan_{DCGAN_GRID}")}
 # conv_pair in ``--compare``: shapes whose plans have a pass of a single
 # 64x64 tile (the served 7x7 at batch 8 and 1, DeepLab's 12², 9², 6² and
 # 5² at batch 16) and two whose plans have none
@@ -810,16 +877,16 @@ def conv_pair_row(shape, count, path, g):
     return row
 
 
-def bn_act_row(site, x, a, b, count, path, **extra):
-    """bn_act (ReLU) on ``x`` against its plain version, with its bound
-    and any ``extra`` yardsticks timed: one row (``count`` sites of one
-    forward of ``path``)."""
+def bn_act_row(site, x, a, b, count, path, act="relu", **extra):
+    """bn_act (``act``, ReLU by default) on ``x`` against its plain
+    version, with its bound and any ``extra`` yardsticks timed: one row
+    (``count`` sites of one forward of ``path``)."""
     import torch
 
     from myconvnet_tpu_torch.ops.kernels import bn_act
 
-    out = bn_act.fused_scale_shift_act(x, a, b, "relu")
-    ref = bn_act.scale_shift_act_reference(x, a, b, "relu")
+    out = bn_act.fused_scale_shift_act(x, a, b, act)
+    ref = bn_act.scale_shift_act_reference(x, a, b, act)
     torch.cuda.synchronize()
     err, ok = compare(out, ref, **TOL["bn_act"])
     del out, ref
@@ -827,15 +894,15 @@ def bn_act_row(site, x, a, b, count, path, **extra):
                        3 * x.numel(), F32_FLOPS)
     iters = 5 if x.numel() > 10 ** 9 else 20
     r = dict(kernel="bn_act", path=path, site=site, shape=list(x.shape),
-             dtype=str(x.dtype).split(".")[-1], sites=count,
+             dtype=str(x.dtype).split(".")[-1], act=act, sites=count,
              max_abs_err=err, ok=ok, bound_ms=b_ms, bound_by=b_by,
              library_ms=None,
              ms=cuda_ms(lambda: bn_act.fused_scale_shift_act(
-                 x, a, b, "relu"), iters),
+                 x, a, b, act), iters),
              plain_ms=cuda_ms(lambda: bn_act.scale_shift_act_reference(
-                 x, a, b, "relu"), iters),
+                 x, a, b, act), iters),
              **{k: cuda_ms(f, iters) for k, f in extra.items()})
-    log(f"bn_act {site} {r['shape']} {r['dtype']} x{count}: "
+    log(f"bn_act {site} {r['shape']} {r['dtype']} {act} x{count}: "
         f"max_abs_err={err:.3g} (tol rtol={TOL['bn_act']['rtol']:.3g} "
         f"atol={TOL['bn_act']['atol']:.3g}) ok={ok} "
         + " ".join(f"{k}={r[k]:.4f}ms" for k in ("ms", "plain_ms", *extra))
@@ -870,6 +937,7 @@ def check_kernels(dev):
     details += check_randaugment_kernels(dev, g)
     details += check_correlation_kernels(dev, g)
     details += check_deeplab_kernels(dev, g)
+    details += check_gan_kernels(dev, g)
     for name in SOURCES:
         rows = [r for r in details if r["kernel"] == name]
         on_path = [r for r in rows if r["sites"]]
@@ -1236,39 +1304,121 @@ def check_deeplab_kernels(dev, g):
     return rows
 
 
-def shape_key(kernel, shape, dtype=None):
-    """What a launch of conv_pair, conv_fused or bn_act is held by: its
-    shape (n, h, w, cin, cm, cout), (n, h, w, c, cout) or bn_act's
-    [n, h, w, c] and dtype."""
-    return (kernel, *shape, *([dtype] if kernel == "bn_act" else []))
+def gan_input_row(case, shape, g):
+    """normalize_u8 at a GAN recipe's train batch, mean = std = 0.5,
+    float32 out, against its plain version: its bound, plan, wrapper host
+    time and one ``torch.addcmul`` as its library time (one row, one site
+    a step of that path)."""
+    import torch
+
+    from myconvnet_tpu_torch.ops.kernels import normalize_u8
+
+    dev = g.device
+    x = torch.randint(0, 256, shape, generator=g, device=dev,
+                      dtype=torch.uint8)
+    half = torch.full((shape[-1],), 0.5, device=dev)
+    f32 = torch.float32
+    scale, shift = normalize_u8.scale_shift(half, half, dev)
+    err, ok = compare(normalize_u8.normalize_u8(x, half, half, f32),
+                      normalize_u8.normalize_u8_reference(x, half, half,
+                                                          f32),
+                      **TOL["normalize_u8"])
+    b_ms, b_by = bound(input_bytes("normalize_u8", x, f32), 2 * x.numel(),
+                       F32_FLOPS)
+    r = dict(kernel="normalize_u8", path=case, case=case, shape=list(shape),
+             dtype="float32", out_dtype="float32", sites=1,
+             max_abs_err=err, ok=ok, bound_ms=b_ms, bound_by=b_by,
+             ms=cuda_ms(lambda: normalize_u8.normalize_u8(x, half, half,
+                                                          f32), 100),
+             plain_ms=cuda_ms(lambda: normalize_u8.normalize_u8_reference(
+                 x, half, half, f32)),
+             library_ms=cuda_ms(lambda: torch.addcmul(shift, x, scale), 100),
+             plan=normalize_u8.plan(x.numel(), shape[-1], f32),
+             host_us=host_us(lambda: normalize_u8.normalize_u8(
+                 x, half, half, f32)))
+    log(f"normalize_u8 {case} {r['shape']} -> float32 (mean = std = 0.5): "
+        f"max_abs_err={err:.3g} ok={ok} "
+        + " ".join(f"{k}={r[k]:.5f}ms" for k in
+                   ("ms", "plain_ms", "bound_ms", "library_ms"))
+        + f" plan {r['plan']} wrapper host time {r['host_us']:.1f}us")
+    return r
+
+
+def check_gan_kernels(dev, g):
+    """bn_act at every site of the GAN generators' eval forwards, each
+    against its plain version with its bound: DCGAN's three (float32,
+    ReLU) at the 16 samples of train.main's grids and the 64 of
+    generate.main's (paths ``dcgan_16``, ``dcgan_64``), the U-Net's 13
+    (bf16; six leaky ReLU, seven ReLU) at test.main's batch of 16 (path
+    ``pix2pix``); normalize_u8 at both recipes' train batches."""
+    import torch
+
+    def act_inputs(shape, dtype):
+        c = shape[-1]
+        return (torch.randn(*shape, generator=g, device=dev).to(dtype),
+                torch.rand(c, generator=g, device=dev) + 0.5,
+                torch.randn(c, generator=g, device=dev) * 0.5)
+
+    rows = []
+    for n in (DCGAN_SAMPLES, DCGAN_GRID):
+        for site, shape in dcgan_sites(n):
+            rows.append(bn_act_row(f"dcgan {site}", *act_inputs(
+                shape, torch.float32), 1, f"dcgan_{n}"))
+    for site, shape, act in unet_sites(PIX2PIX_BATCH):
+        rows.append(bn_act_row(f"pix2pix {site}", *act_inputs(
+            shape, torch.bfloat16), 1, "pix2pix", act=act))
+    for case, shape in GAN_INPUT_SHAPES.items():
+        rows.append(gan_input_row(case, shape, g))
+    return rows
+
+
+def shape_key(kernel, shape, dtype=None, act="relu"):
+    """What a launch of conv_pair, conv_fused, bn_act or normalize_u8 is
+    held by: its shape (n, h, w, cin, cm, cout), (n, h, w, c, cout),
+    bn_act's [n, h, w, c], dtype and activation, or normalize_u8's
+    [n, h, w, c] and output dtype."""
+    tail = {"bn_act": [dtype, act], "normalize_u8": [dtype]}.get(kernel, [])
+    return (kernel, *shape, *tail)
+
+
+def _name(dtype):
+    return str(dtype).split(".")[-1]
 
 
 @contextlib.contextmanager
 def launch_shapes(counter):
-    """Count into ``counter`` the shape of every launch of conv_pair,
-    conv_fused and bn_act from the models (their only call sites:
-    ``models.resnet`` and ``models.blocks``) while the block runs; a
-    wrapper called on a CPU tensor launches nothing and is not counted."""
+    """Count into ``counter`` the :func:`shape_key` of every launch of
+    conv_pair, conv_fused and bn_act from the models (their only call
+    sites: ``models.resnet`` and ``models.blocks``) and of normalize_u8
+    from the GAN trainer (``train.gan``) while the block runs; a wrapper
+    called on a CPU tensor launches nothing and is not counted."""
     from myconvnet_tpu_torch.models import blocks, resnet
+    from myconvnet_tpu_torch.train import gan
 
-    sites = [(resnet, "conv1x1_conv3x3_bn_relu", "conv_pair",
-              lambda x, a: (*x.shape, a[0].shape[-1], a[3].shape[-1])),
-             (blocks, "conv3x3_bn_relu", "conv_fused",
-              lambda x, a: (*x.shape, a[0].shape[-1])),
-             (blocks, "fused_scale_shift_act", "bn_act",
-              lambda x, a: tuple(x.shape))]
-    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _, _ in sites]
+    def arg(args, kw, i, name, default):
+        return args[i] if len(args) > i else kw.get(name, default)
 
-    def recording(fn, kernel, shape):
+    sites = [(resnet, "conv1x1_conv3x3_bn_relu", lambda x, a, kw: shape_key(
+                 "conv_pair", (*x.shape, a[0].shape[-1], a[3].shape[-1]))),
+             (blocks, "conv3x3_bn_relu", lambda x, a, kw: shape_key(
+                 "conv_fused", (*x.shape, a[0].shape[-1]))),
+             (blocks, "fused_scale_shift_act", lambda x, a, kw: shape_key(
+                 "bn_act", tuple(x.shape), _name(x.dtype),
+                 arg(a, kw, 2, "act", "relu"))),
+             (gan, "normalize_u8", lambda x, a, kw: shape_key(
+                 "normalize_u8", tuple(x.shape),
+                 _name(arg(a, kw, 2, "out_dtype", "float32"))))]
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in sites]
+
+    def recording(fn, key):
         def call(x, *args, **kw):
             if x.device.type == "cuda":
-                counter[shape_key(kernel, shape(x, args),
-                                  str(x.dtype).split(".")[-1])] += 1
+                counter[key(x, args, kw)] += 1
             return fn(x, *args, **kw)
         return call
 
-    for (mod, attr, fn), (_, _, kernel, shape) in zip(saved, sites):
-        setattr(mod, attr, recording(fn, kernel, shape))
+    for (mod, attr, fn), (_, _, key) in zip(saved, sites):
+        setattr(mod, attr, recording(fn, key))
     try:
         yield counter
     finally:
@@ -1308,7 +1458,8 @@ def kernel_by_path(name, details, runs, shapes):
             for key, calls in shapes[k].items():
                 if key[0] == name:
                     seen[key] = seen.get(key, 0) + calls
-        held = {shape_key(name, r["shape"], r.get("dtype")) for r in rows}
+        held = {shape_key(name, r["shape"], r.get("dtype"),
+                          r.get("act", "relu")) for r in rows}
         unheld = sorted(map(str, set(seen) - held))
         if sum(seen.values()) != launches or unheld:
             raise AssertionError(
@@ -3600,6 +3751,258 @@ def deeplab_run(dev):
     return runs, shapes, checks
 
 
+def gan_grad_norms(trainer):
+    """{"G/" or "D/" + JAX path: the norm of the parameter's gradient}."""
+    from myconvnet_tpu_torch import weights
+    return {f"{tag}/{path}": float(p.grad.float().norm())
+            for tag, model in (("G", trainer.generator),
+                               ("D", trainer.discriminator))
+            for path, p, _ in weights.param_views(model)}
+
+
+def dcgan_step_one(dev, cfg):
+    """DCGAN step 1 at the recipe's batch on the card against the host
+    (float32, TF32 off): the same initial state, uint8 batch (B2 on the
+    card, its plain version on the host) and z; d_loss and g_loss within
+    STEP1_F32_LOSS_RTOL, every gradient norm of G (its loss) and D (its
+    loss) within STEP1_F32_GRAD_RTOL plus STEP1_F32_GRAD_ATOL of the
+    largest, the classifiers' float32 bounds."""
+    import numpy as np
+    import torch
+
+    from myconvnet_tpu_torch import recipes_gan
+    from myconvnet_tpu_torch.train.gan import GANDraws
+
+    cpu = torch.device("cpu")
+    host, train_set = recipes_gan.build_gan(cfg, True, device=cpu)
+    card, _ = recipes_gan.build_gan(cfg, True, device=dev)
+    card.load_state(host.state())
+    x = torch.from_numpy(train_set.source.get_batch(
+        np.arange(DCGAN_BATCH))[0])
+    draws = host.sample(DCGAN_BATCH)
+    t0 = time.perf_counter()
+    m_card = card.train_step(card.prepare((x.to(dev), None)),
+                             GANDraws(z=draws.z.to(dev)))
+    m_card = {k: float(v) for k, v in m_card.items()}
+    t1 = time.perf_counter()
+    m_host = {k: float(v) for k, v in host.train_step(
+        host.prepare((x, None)), draws).items()}
+    t2 = time.perf_counter()
+    out = step_one_verdict(
+        "DCGAN step 1 (d_loss; G and D gradients)", gan_grad_norms(card),
+        gan_grad_norms(host), m_card["d_loss"], m_host["d_loss"],
+        f"; card {t1 - t0:.2f}s (first, cold), host {t2 - t1:.2f}s",
+        loss_rtol=STEP1_F32_LOSS_RTOL, grad_rtol=STEP1_F32_GRAD_RTOL,
+        grad_atol=STEP1_F32_GRAD_ATOL)
+    g_rel = abs(m_card["g_loss"] - m_host["g_loss"]) / abs(m_host["g_loss"])
+    log(f"DCGAN step 1 g_loss card {m_card['g_loss']:.6f} host "
+        f"{m_host['g_loss']:.6f} (rel {g_rel:.3g}, tol "
+        f"{STEP1_F32_LOSS_RTOL:.3g})")
+    if not g_rel <= STEP1_F32_LOSS_RTOL:
+        raise AssertionError("DCGAN step 1: g_loss disagrees with the host")
+    return dict(out, g_loss_rel=g_rel, card=m_card, host=m_host)
+
+
+def gan_step_rate(dev, trainer, iters=10):
+    """A GAN train step on seeded uint8 batches at the recipe's shape (B2
+    included): CUDA-event ms from an idle device, host enqueue ms, device
+    busy ms, kernels and top kernels (torch.profiler), the idle share and
+    the peak of allocated memory."""
+    import torch
+
+    shape = GAN_INPUT_SHAPES[trainer.kind]
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    batch = tuple(torch.randint(0, 256, shape, generator=g, device=dev,
+                                dtype=torch.uint8) for _ in range(2))
+
+    def step():
+        trainer.train_step(trainer.prepare(batch))
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_ms, host_ms = events_ms(step, iters)
+    peak = torch.cuda.max_memory_allocated(dev)
+    busy, span, n_kernels, top = device_busy(step, iters=2)
+    r = dict(batch=shape[0], accum_steps=1, step_ms=step_ms,
+             images_per_sec=shape[0] * 1e3 / step_ms,
+             host_enqueue_ms=host_ms, device_busy_ms=busy,
+             device_span_ms=span,
+             idle_share=None if busy is None else 1 - busy / step_ms,
+             kernels_per_step=n_kernels, top_kernels=top,
+             max_memory_allocated_gb=peak / 2 ** 30)
+    log_rate(f"{trainer.kind}", r)
+    return r
+
+
+def gan_losses(run_dir, kind, keys):
+    """The logged metrics of ``keys`` at every GAN_LOG_EVERY step; fails
+    unless each is finite."""
+    import numpy as np
+    with open(os.path.join(run_dir, f"gan_{kind}.jsonl")) as f:
+        rows = [r for r in map(json.loads, f) if "d_loss" in r]
+    if [r["step"] for r in rows] != list(range(
+            GAN_LOG_EVERY, GAN_STEPS + 1, GAN_LOG_EVERY)) or not all(
+                np.isfinite(r[k]) for r in rows for k in keys):
+        raise AssertionError(f"{kind}: metrics not all finite: {rows}")
+    return rows
+
+
+def gan_expect(counts, want, what):
+    """Hold ``counts`` to ``want`` and no other kernel launch."""
+    from myconvnet_tpu_torch.ops import kernels
+    check_counts(counts, {k: want.get(k, 0) for k in kernels.WRAPPERS},
+                 what)
+
+
+def gan_b2_shapes(shapes, kind, want):
+    """Every normalize_u8 launch of a run at the recipe's batch, float32
+    out: ``want`` of them."""
+    held = shape_key("normalize_u8", GAN_INPUT_SHAPES[kind], "float32")
+    seen = {k: c for k, c in shapes.items() if k[0] == "normalize_u8"}
+    if seen != ({held: want} if want else {}):
+        raise AssertionError(f"{kind}: normalize_u8 launches by shape "
+                             f"{seen}, want {want} at {held}")
+
+
+def gan_run(dev):
+    """BASELINE config #5 through the entry points: DCGAN step 1 on the
+    card against the host; ``train.main`` on each recipe as written for
+    GAN_STEPS steps, ``generate.main`` on DCGAN's checkpoint (its samples
+    equal the writer's), ``test.main`` on pix2pix's (PSNR, SSIM; restored
+    output equal to the writer's and within LOGIT_REL_TOL of max |output|
+    of the host's plain path); every run's launches counted and recorded
+    shape by shape; each recipe's step rate.  Returns ({run: launches},
+    {run: Counter of launch shapes}, checks)."""
+    import collections
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from myconvnet_tpu_torch import (generate, recipes, recipes_gan, test,
+                                     train)
+    from myconvnet_tpu_torch.ops import kernels
+    from myconvnet_tpu_torch.utils.images import make_grid
+
+    runs, shapes, checks = {}, {}, {}
+    cpu = torch.device("cpu")
+
+    def counted(run, fn, *args, **kwargs):
+        """fn(...), the launch counts set to 0 just before it and read,
+        with the launches' shapes, just after it."""
+        shapes[run] = collections.Counter()
+        with launch_shapes(shapes[run]):
+            kernels.reset_launch_counts()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            runs[run] = kernels.launch_counts()
+        return out
+
+    # DCGAN (float32)
+    cfg = recipes.load_config(DCGAN_CONFIG)
+    checks["dcgan_step1"] = dcgan_step_one(dev, cfg)
+    run_dir = os.path.join(ROOT, "build", "chip_smoke_dcgan")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    args = ["--config", DCGAN_CONFIG, "--device", dev.type]
+    t0 = time.perf_counter()
+    trainer = counted("dcgan_train", train.main, args + [
+        "--synthetic", "--steps", str(GAN_STEPS), "--out", run_dir,
+        "--set", f"log_every={GAN_LOG_EVERY}",
+        "--set", f"sample_every={GAN_LOG_EVERY}"])
+    seconds = time.perf_counter() - t0
+    grids = GAN_STEPS // GAN_LOG_EVERY
+    gan_expect(runs["dcgan_train"], {"normalize_u8": GAN_STEPS,
+                                     "bn_act": 3 * grids},
+               f"DCGAN train.main ({GAN_STEPS} steps, {grids} grids)")
+    gan_b2_shapes(shapes["dcgan_train"], "dcgan", GAN_STEPS)
+    rows = gan_losses(run_dir, "dcgan", ("d_loss", "g_loss", "d_real_acc",
+                                         "d_fake_acc"))
+    init = recipes_gan.build_gan(cfg, True, device=cpu)[0].state()
+    end = trainer.state()
+    still = [(tree, scope, k) for tree in ("g_state", "d_state")
+             for scope, d in getattr(init, tree).items() for k, v in d.items()
+             if np.array_equal(v, getattr(end, tree)[scope][k])]
+    if still:
+        raise AssertionError(f"DCGAN: BN statistics did not move: {still}")
+    images = sorted(os.listdir(os.path.join(run_dir, "images")))
+    png = os.path.join(run_dir, "samples.png")
+    grid = counted("dcgan_generate", generate.main, args + [
+        "--ckpt", run_dir, "--n", str(DCGAN_GRID), "--out", png])
+    gan_expect(runs["dcgan_generate"], {"bn_act": 3},
+               f"DCGAN generate.main ({DCGAN_GRID} samples)")
+    sampler = recipes_gan.make_gan_sampler(cfg)
+    same = bool(np.array_equal(grid, make_grid(
+        sampler(trainer, DCGAN_GRID, seed=0).cpu().numpy(), pad=0)))
+    log(f"DCGAN train.main {GAN_STEPS} steps of {DCGAN_BATCH} in "
+        f"{seconds:.1f}s; metrics finite (d_loss {rows[0]['d_loss']:.4f} -> "
+        f"{rows[-1]['d_loss']:.4f}, g_loss {rows[0]['g_loss']:.4f} -> "
+        f"{rows[-1]['g_loss']:.4f}); G's and D's BN statistics moved; "
+        f"sample grids {images}; generate.main's {DCGAN_GRID} samples "
+        f"equal the writer's: {same}")
+    if not same or len(images) != grids:
+        raise AssertionError("DCGAN: restored samples differ or grids "
+                             "missing")
+    shutil.rmtree(run_dir)
+    checks["dcgan"] = dict(metrics=rows, train_seconds=seconds,
+                           grids=images, step=gan_step_rate(dev, trainer))
+    del trainer
+    torch.cuda.empty_cache()
+
+    # pix2pix (bf16)
+    cfg = recipes.load_config(PIX2PIX_CONFIG)
+    run_dir = os.path.join(ROOT, "build", "chip_smoke_pix2pix")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    args = ["--config", PIX2PIX_CONFIG, "--device", dev.type, "--synthetic"]
+    t0 = time.perf_counter()
+    trainer = counted("pix2pix_train", train.main, args + [
+        "--steps", str(GAN_STEPS), "--out", run_dir,
+        "--set", f"log_every={GAN_LOG_EVERY}"])
+    seconds = time.perf_counter() - t0
+    gan_expect(runs["pix2pix_train"], {"normalize_u8": 2 * GAN_STEPS},
+               f"pix2pix train.main ({GAN_STEPS} steps)")
+    gan_b2_shapes(shapes["pix2pix_train"], "pix2pix", 2 * GAN_STEPS)
+    rows = gan_losses(run_dir, "pix2pix", ("d_loss", "g_loss", "g_adv",
+                                           "g_l1"))
+    (psnr, ssim), restored = counted("pix2pix_test", test.main, args + [
+        "--ckpt", run_dir])
+    batches = PIX2PIX_SPLIT // PIX2PIX_BATCH
+    gan_expect(runs["pix2pix_test"], {"normalize_u8": batches,
+                                      "bn_act": 13 * batches},
+               f"pix2pix test.main ({batches} batches)")
+    gan_b2_shapes(shapes["pix2pix_test"], "pix2pix", batches)
+    val = recipes_gan.gan_source(cfg, True, "val")
+    x = torch.from_numpy(val.get_batch(np.arange(PIX2PIX_CHECK_N))[0])
+    xd = trainer.to_unit_range(x.to(dev))
+    out = trainer.generate(xd)
+    same = bool(torch.equal(out, restored.generate(xd)))
+    host = recipes_gan.build_gan(cfg, True, device=cpu)[0]
+    host.load_state(trainer.state())
+    t1 = time.perf_counter()
+    want = host.generate(host.to_unit_range(x)).float()
+    err = float((out.float().cpu() - want).abs().max())
+    rel = err / float(want.abs().max())
+    log(f"pix2pix train.main {GAN_STEPS} steps of {PIX2PIX_BATCH} at "
+        f"256x256 in {seconds:.1f}s; metrics finite (g_l1 "
+        f"{rows[0]['g_l1']:.4f} -> {rows[-1]['g_l1']:.4f}); test.main "
+        f"psnr {psnr:.2f} dB, ssim {ssim:.4f}; restored output equal to the "
+        f"writer's: {same}; card vs host on {PIX2PIX_CHECK_N} images: max "
+        f"|diff| {err:.4g} = {rel:.4g} of max |output| (tol "
+        f"{LOGIT_REL_TOL}; host {time.perf_counter() - t1:.1f}s)")
+    if not same or not rel <= LOGIT_REL_TOL:
+        raise AssertionError("pix2pix: restored output differs or the card "
+                             "disagrees with the host")
+    shutil.rmtree(run_dir)
+    del restored, host
+    checks["pix2pix"] = dict(metrics=rows, train_seconds=seconds, psnr=psnr,
+                             ssim=ssim, host_rel=rel,
+                             step=gan_step_rate(dev, trainer))
+    del trainer
+    torch.cuda.empty_cache()
+    return runs, shapes, checks
+
+
 def step_one_only(specs):
     """Step 1 of ResNet-50, VGG-16 and DenseNet-121 against the host alone
     (``name:batch`` specs, default each at STEP1_BATCH), records in
@@ -3654,7 +4057,7 @@ def main() -> int:
         return 1
     for path in (CONFIG, CIFAR_CONFIG, VIT_CONFIG, PWC_CONFIG,
                  FLOWNET_CONFIG, VGG_CONFIG, DENSENET_CONFIG, VOC_CONFIG,
-                 *SMALLNET_CONFIGS.values()):
+                 DCGAN_CONFIG, PIX2PIX_CONFIG, *SMALLNET_CONFIGS.values()):
         if not os.path.exists(path):
             print(f"chip_smoke: {path} is missing", file=sys.stderr)
             return 1
@@ -3707,6 +4110,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     seg_runs, seg_shapes, checks["deeplab"] = phase("DeepLabv3+",
                                                     deeplab_run, dev)
+    torch.cuda.empty_cache()
+    gan_runs, gan_shapes, checks["gan"] = phase("GAN", gan_run, dev)
     runs = {"serve": counts, "train": train_counts, "test": eval_counts,
             "vit_train": vit_train, "vit_test": vit_test,
             **{f"vit_train_{k}": v for k, v in policy_runs.items()},
@@ -3718,7 +4123,7 @@ def main() -> int:
                for part, c in zip(("train", "test"), pair)},
             **{f"{k}_{part}": c for k, pair in big.items()
                for part, c in zip(("train", "test"), pair)},
-            **seg_runs}
+            **seg_runs, **gan_runs}
     launches = {name: sum(c[name] for c in runs.values())
                 for name in SOURCES}
     in_forward = checks["bn_act_in_forward_ms"]
@@ -3736,7 +4141,7 @@ def main() -> int:
          **({"by_path": correlation_by_path(name, details, runs)}
             if name in CORR else {}),
          **({"by_path": kernel_by_path(name, details, runs,
-                                       seg_shapes)}
+                                       {**seg_shapes, **gan_shapes})}
             if name in ("conv_pair", "bn_act", "conv_fused") else {}),
          **({"in_forward_ms": summary[name]["in_forward_ms"]}
             if name == "bn_act" else {})}

@@ -9,8 +9,10 @@ Slice 1 covers the eval/serving path of the ResNet-50 recipe
 (``configs/imagenet_resnet50.py``), slice 2 the training and evaluation
 path of the CIFAR-100 ResNet-18 recipe (``configs/cifar100_resnet18.py``,
 ``python -m myconvnet_tpu_torch.train`` and ``.test``); later slices add
-the ViT-B/16 recipe with its RandAugment and AutoAugment policies and the
-optical-flow recipes (PWC-Net, FlowNetC, FlowNetS): NHWC activations,
+the ViT-B/16 recipe with its RandAugment and AutoAugment policies, the
+optical-flow recipes (PWC-Net, FlowNetC, FlowNetS) and the BASELINE
+configs, the GANs last (``python -m myconvnet_tpu_torch.generate`` writes
+their samples): NHWC activations,
 cuDNN convolutions, and hand-written CUDA kernels (``ops/kernels``) where
 the JAX package has Pallas kernels for the same math.
 """

@@ -9,8 +9,9 @@ generators differ), so parity tests carry weights across with
 
 :func:`init_model` initialises a fresh model in place: He-normal convs
 (truncated at 2 sigma) unless the layer names another initialiser
-(``Conv(w_init=zeros)``, the flow heads of ``models/flow.py:55-58``),
-Glorot-uniform dense weights, zero biases.  BN
+(``Conv(w_init=zeros)``, the flow heads of ``models/flow.py:55-58``;
+N(0, 0.02) everywhere in the GANs), N(0, 0.02) transposed convs
+(``nn.py:169``), Glorot-uniform dense weights unless named, zero biases.  BN
 gamma/beta and moving statistics and LN gamma/beta keep their constructor
 values (ones, or zeros for a zero-init gamma; zeros for beta).  A module
 with parameters of its own (the ViT's ``cls_token`` and ``pos_embed``)
@@ -84,14 +85,15 @@ def zeros(shape, generator=None) -> torch.Tensor:
 def init_model(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Draw every conv and dense weight of ``model`` from ``generator``
     (in module order) and zero their biases."""
-    from myconvnet_tpu_torch.nn import Conv, Dense
-    he, glorot = he_normal(), glorot_uniform()
+    from myconvnet_tpu_torch.nn import Conv, ConvTranspose, Dense
+    he, glorot, n002 = he_normal(), glorot_uniform(), normal(0.02)
     for m in model.modules():
-        if isinstance(m, Conv):
-            m.w.copy_((m.w_init or he)(tuple(m.w.shape), generator))
+        if isinstance(m, (Conv, ConvTranspose)):
+            default = he if isinstance(m, Conv) else n002
+            m.w.copy_((m.w_init or default)(tuple(m.w.shape), generator))
         elif isinstance(m, Dense):
-            m.weight.copy_(glorot(tuple(m.weight.shape[::-1]),
-                                  generator).T)
+            m.weight.copy_((m.w_init or glorot)(
+                tuple(m.weight.shape[::-1]), generator).T)
         else:
             continue
         if m.bias is not None:

@@ -4,6 +4,10 @@ from myconvnet_tpu_torch.models.deeplab import (DeepLabV3Plus,
                                                 deeplab_v3_plus)
 from myconvnet_tpu_torch.models.densenet import (DenseNet, densenet121,
                                                  densenet169, densenet201)
+from myconvnet_tpu_torch.models.gan import (DCGANDiscriminator,
+                                           DCGANGenerator,
+                                           PatchGANDiscriminator,
+                                           UNetGenerator)
 from myconvnet_tpu_torch.models.flow import (FLOW_MODELS, flownet_c,
                                              flownet_s, pwcnet, tinyflow,
                                              tinypwc)
@@ -45,7 +49,9 @@ def get_model(name: str, num_classes: int,
     return MODELS[name](num_classes, **kwargs)
 
 
-__all__ = ["DeepLabV3Plus", "DenseNet", "FLOW_MODELS", "MODELS", "ResNet",
+__all__ = ["DCGANDiscriminator", "DCGANGenerator", "DeepLabV3Plus",
+           "DenseNet", "FLOW_MODELS", "PatchGANDiscriminator",
+           "UNetGenerator", "MODELS", "ResNet",
            "ResNetBackbone", "SIZED", "SmallNet", "VARIANTS", "VGG", "VGGS",
            "VITS", "ViT", "deeplab_v3_plus", "densenet121", "densenet169",
            "densenet201", "flownet_c", "flownet_s", "get_model", "pwcnet",

@@ -17,7 +17,8 @@ by the layer's shape and the activations' dtype:
   cuDNN conv without bias, then ``fused_scale_shift_act`` (B1) with the
   bias and BN folded into (a, b);
 * a pre-activation BN -> ReLU (DenseNet's, on the concatenation) is B1
-  with the BN's (scale, shift).
+  with the BN's (scale, shift); :func:`bn_act` takes the activation by
+  name (the GAN generators' BN -> ReLU and BN -> leaky ReLU(0.2)).
 
 A site the kernels do not take goes to cuDNN + B1 by this routing, not by
 a fallback: a kernel launch that fails raises.
@@ -34,7 +35,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from myconvnet_tpu_torch.nn import BatchNorm, Conv, conv_epilogue, relu
+from myconvnet_tpu_torch.nn import BatchNorm, Conv, conv_epilogue, \
+    leaky_relu, relu
 from myconvnet_tpu_torch.ops.kernels import conv3x3_bn_relu, \
     fused_scale_shift_act
 from myconvnet_tpu_torch.ops.kernels import conv_fused as conv_fused_lib
@@ -65,12 +67,22 @@ def conv_bn_relu(conv: Conv, bn: BatchNorm | None, x: torch.Tensor,
                                  "relu")
 
 
+ACTS = {"relu": relu, "leaky_relu": leaky_relu}   # leaky: slope 0.2
+
+
+def bn_act(bn: BatchNorm, x: torch.Tensor, act: str = "relu"
+           ) -> torch.Tensor:
+    """act(bn(x)), ``act`` "relu" or "leaky_relu" (slope 0.2): plain in
+    train mode, one pass of B1 in eval mode."""
+    if bn.training:
+        return ACTS[act](bn(x))
+    a, b = bn.scale_shift()
+    return fused_scale_shift_act(x.contiguous(), a, b, act)
+
+
 def bn_relu(bn: BatchNorm, x: torch.Tensor) -> torch.Tensor:
     """relu(bn(x)): plain in train mode, one pass of B1 in eval mode."""
-    if bn.training:
-        return relu(bn(x))
-    a, b = bn.scale_shift()
-    return fused_scale_shift_act(x.contiguous(), a, b, "relu")
+    return bn_act(bn, x, "relu")
 
 
 class ConvBNReLU(nn.Module):

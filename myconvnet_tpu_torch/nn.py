@@ -2,8 +2,8 @@
 tensors.
 
 Port of the subset of ``myconvnet_tpu/nn.py`` that the ResNets, the ViTs,
-the flow models, SmallNet, VGG and DenseNet use (``max_pool``, ``avg_pool``
-and ``gap`` are the pooling ops of ``ops/pool.py``).
+the flow models, SmallNet, VGG, DenseNet and the GANs use (``max_pool``,
+``avg_pool`` and ``gap`` are the pooling ops of ``ops/pool.py``).
 Module names follow the JAX scope names, so ``weights.from_jax`` maps
 ``{"stage1/block1/conv_a": {"w": ...}}`` onto ``stage1.block1.conv_a``.
 
@@ -14,12 +14,22 @@ Module names follow the JAX scope names, so ``weights.from_jax`` maps
   Parameters stay float32 under the bf16 policy and are cast to the
   activations' dtype at use, as ``pol.cast_to_compute(w)`` does
   (``nn.py:97``); a served model casts them once instead.
+* :class:`ConvTranspose` (``nn.py:159``) keeps its weight as torch's
+  [Cin, Cout, kh, kw] in channels_last memory and exposes it as JAX's
+  HWIO through :attr:`ConvTranspose.w`; ``ops.conv.conv2d_transpose``
+  flips it in space at use (JAX's kernel is not flipped).
 * :class:`BatchNorm` (``nn.py:254-282``) normalizes with batch statistics
   when the module is training and updates its moving statistics in place,
   ``moving = m * moving + (1 - m) * batch`` on the biased variance; torch's
   ``BatchNorm2d`` keeps an unbiased running variance and the inverse
   momentum, so it is not used.  In eval mode it normalizes with the moving
-  statistics, and it becomes the identity once folded.
+  statistics, and it becomes the identity once folded.  With
+  ``update_stats`` False a training BN leaves its moving statistics as
+  they are (the GAN step's passes whose state JAX discards).
+* :class:`Dense` (``nn.py:200``): ``bias=False`` is ``use_bias=False``
+  (DCGAN's ``project``).
+* :class:`InstanceNorm` (``nn.py:299``): eps 1e-5, float32 statistics over
+  H and W per image and channel, float32 gamma/beta, no state.
 * :class:`LayerNorm` (``nn.py:285-296``): eps 1e-6 (torch's default is
   1e-5), float32 statistics and float32 gamma/beta, output in the input's
   dtype (the compute dtype).
@@ -38,7 +48,7 @@ from torch import nn
 from myconvnet_tpu_torch.ops.batch_norm import (batch_norm_inference,
                                                 batch_norm_train,
                                                 bn_scale_shift)
-from myconvnet_tpu_torch.ops.conv import Padding, conv2d
+from myconvnet_tpu_torch.ops.conv import Padding, conv2d, conv2d_transpose
 from myconvnet_tpu_torch.ops.pool import avg_pool2d, global_avg_pool, \
     max_pool2d
 
@@ -71,6 +81,35 @@ class Conv(nn.Module):
                       padding=self.padding, dilation=self.dilation)
 
 
+class ConvTranspose(nn.Module):
+    """``nn.conv_transpose``: a fractionally-strided conv, "SAME" or
+    "VALID", optional bias; N(0, 0.02) init unless ``w_init`` names
+    another."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int, *,
+                 stride: int = 2, padding: str = "SAME", bias: bool = True,
+                 w_init=None):
+        super().__init__()
+        self.w_init = w_init    # core.init.init_model: None is N(0, 0.02)
+        self.stride = stride
+        self.padding = padding
+        w = torch.empty(cin, cout, kernel_size, kernel_size)
+        self.weight = nn.Parameter(
+            w.contiguous(memory_format=torch.channels_last))
+        self.register_parameter(
+            "bias", nn.Parameter(torch.zeros(cout)) if bias else None)
+
+    @property
+    def w(self) -> torch.Tensor:
+        """The weight in HWIO, a view of the [Cin, Cout, kh, kw] storage."""
+        return self.weight.permute(2, 3, 0, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return conv2d_transpose(x, self.w.to(x.dtype), b,
+                                stride=self.stride, padding=self.padding)
+
+
 class BatchNorm(nn.Module):
     """BN over the last axis: float32 gamma/beta and moving stats.
     ``zero_init`` starts gamma at 0 (a residual branch's last BN)."""
@@ -81,6 +120,7 @@ class BatchNorm(nn.Module):
         self.eps = eps
         self.momentum = momentum
         self.folded = False
+        self.update_stats = True
         self.gamma = nn.Parameter(torch.zeros(c) if zero_init
                                   else torch.ones(c))
         self.beta = nn.Parameter(torch.zeros(c))
@@ -103,6 +143,8 @@ class BatchNorm(nn.Module):
                 raise RuntimeError("a folded BN cannot train")
             y, mean, var = batch_norm_train(x, self.gamma, self.beta,
                                             self.eps)
+            if not self.update_stats:
+                return y
             m = self.momentum
             with torch.no_grad():
                 self.moving_mean.copy_(m * self.moving_mean + (1.0 - m) * mean)
@@ -129,14 +171,17 @@ def conv_epilogue(conv: Conv, bn: BatchNorm | None
 
 
 class Dense(nn.Module):
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, *, bias: bool = True,
+                 w_init=None):
         super().__init__()
+        self.w_init = w_init    # core.init.init_model: None is Glorot
         self.weight = nn.Parameter(torch.empty(cout, cin))
-        self.bias = nn.Parameter(torch.zeros(cout))
+        self.register_parameter(
+            "bias", nn.Parameter(torch.zeros(cout)) if bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.nn.functional.linear(x, self.weight.to(x.dtype),
-                                          self.bias.to(x.dtype))
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return torch.nn.functional.linear(x, self.weight.to(x.dtype), b)
 
 
 class LayerNorm(nn.Module):
@@ -158,12 +203,35 @@ class LayerNorm(nn.Module):
         return y.to(x.dtype)
 
 
+class InstanceNorm(nn.Module):
+    """Instance norm over H and W of NHWC: float32 math and parameters,
+    output in x's dtype."""
+
+    def __init__(self, c: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.gamma = nn.Parameter(torch.ones(c))
+        self.beta = nn.Parameter(torch.zeros(c))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean((1, 2), keepdim=True)
+        var = (xf - mean).square().mean((1, 2), keepdim=True)
+        y = (xf - mean) * torch.rsqrt(var + self.eps) * self.gamma \
+            + self.beta
+        return y.to(x.dtype)
+
+
 def relu(x: torch.Tensor) -> torch.Tensor:
     return torch.relu(x)
 
 
 def leaky_relu(x: torch.Tensor, alpha: float = 0.2) -> torch.Tensor:
     return torch.nn.functional.leaky_relu(x, alpha)
+
+
+def tanh(x: torch.Tensor) -> torch.Tensor:
+    return torch.tanh(x)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

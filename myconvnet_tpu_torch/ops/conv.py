@@ -9,6 +9,18 @@ when the weight is stored OIHW channels_last, as ``nn.Conv`` keeps it.
 TF "SAME" padding is asymmetric when the total is odd (a 7x7/2 at 224 pads
 (2, 3); a 3x3/2 at 56 pads (0, 1)).  ``F.conv2d``'s ``padding=`` is
 symmetric, so such pads go through an explicit ``F.pad``.
+
+:func:`conv2d_transpose` is ``conv2d_transpose`` (``:61``), which calls
+``lax.conv_transpose`` with ``transpose_kernel=False``: a correlation of
+the stride-dilated input with the HWIO kernel as it is, over the padding
+of ``_conv_transpose_padding`` (:func:`transpose_pads`).
+``F.conv_transpose2d`` is the gradient of a convolution, a correlation
+with the kernel flipped in space and read [Cin, Cout, kh, kw], so the
+kernel goes in flipped and permuted.  Its ``padding=p`` pads the dilated
+input by k - 1 - p on both sides (plus ``output_padding`` at the end);
+JAX's pads are (k - 1 - p, k - 1 - p) for a 4x4/2 under SAME (p = 1), and
+an asymmetric pair with the shorter end cut off the output (a 3x3/2 under
+SAME pads (2, 1)).
 """
 
 from __future__ import annotations
@@ -74,3 +86,41 @@ def conv2d(x: torch.Tensor, w: torch.Tensor,
     y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), bias,
                  stride=s, padding=sym, dilation=rate)
     return y.permute(0, 2, 3, 1)
+
+
+def transpose_pads(k: int, s: int, padding: str) -> tuple[int, int]:
+    """(before, after) padding of the stride-dilated input along one axis,
+    as ``lax.conv_transpose`` pads it for a "SAME" or "VALID" forward
+    convolution (``jax._src.lax.convolution._conv_transpose_padding``)."""
+    if padding == "SAME":
+        pad_len = k + s - 2
+        before = k - 1 if s > k - 1 else -(-pad_len // 2)
+    elif padding == "VALID":
+        pad_len = k + s - 2 + max(k - s, 0)
+        before = k - 1
+    else:
+        raise ValueError(f"conv2d_transpose pads 'SAME' or 'VALID', not "
+                         f"{padding!r}")
+    return before, pad_len - before
+
+
+def conv2d_transpose(x: torch.Tensor, w: torch.Tensor,
+                     bias: torch.Tensor | None = None, *,
+                     stride: _IntOrPair = 2,
+                     padding: str = "SAME") -> torch.Tensor:
+    """Fractionally-strided conv (the GAN generators'). x: [N,H,W,Cin],
+    w: [kh,kw,Cin,Cout] HWIO as JAX holds it -> NHWC in x's dtype."""
+    s = _pair(stride)
+    k = tuple(w.shape[:2])
+    pads = [transpose_pads(k[i], s[i], padding) for i in range(2)]
+    # torch pads k - 1 - p before and k - 1 - p + output_padding after;
+    # an after-pad shorter than the before-pad is cut off the output
+    p = tuple(k[i] - 1 - pads[i][0] for i in range(2))
+    extra = tuple(pads[i][1] - pads[i][0] for i in range(2))
+    out_pad = tuple(max(e, 0) for e in extra)
+    y = F.conv_transpose2d(x.permute(0, 3, 1, 2),
+                           w.flip((0, 1)).permute(2, 3, 0, 1), bias,
+                           stride=s, padding=p, output_padding=out_pad)
+    y = y.permute(0, 2, 3, 1)
+    cut_h, cut_w = (min(e, 0) for e in extra)
+    return y[:, :y.shape[1] + cut_h, :y.shape[2] + cut_w]

@@ -5,7 +5,9 @@ Port of ``myconvnet_tpu/train/losses.py``: softmax cross-entropy
 optical-flow objectives (``:159-334``): the Charbonnier end-point error
 with NaN-masked targets, its multi-scale form for the coarse-to-fine nets,
 and the unsupervised photometric + smoothness objective with its forward-
-backward occlusion gate.
+backward occlusion gate; and the GAN objectives (``:376-443``):
+``sigmoid_bce``, ``l1_loss`` and the (D loss, G loss) pairs of
+``GAN_LOSSES`` (non-saturating, least-squares, hinge).
 """
 
 from __future__ import annotations
@@ -194,3 +196,62 @@ def unsupervised_flow_loss(pred, frames: torch.Tensor, *,
     p_f, s_f = _photo_smooth(f_fwd, f1, f2, mask=m_fwd, **kw)
     p_b, s_b = _photo_smooth(f_bwd, f2, f1, mask=m_bwd, **kw)
     return 0.5 * (p_f + p_b) + smooth_weight * 0.5 * (s_f + s_b)
+
+
+def sigmoid_bce(logits: torch.Tensor, target: float) -> torch.Tensor:
+    """Mean sigmoid binary CE against a constant target, in float32, in
+    the stable form max(x, 0) - x t + log(1 + exp(-|x|))."""
+    x = logits.float()
+    return (torch.clamp(x, min=0.0) - x * target
+            + torch.log1p(torch.exp(-x.abs()))).mean()
+
+
+def l1_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return (a.float() - b.float()).abs().mean()
+
+
+def gan_discriminator_loss(real: torch.Tensor, fake: torch.Tensor
+                           ) -> torch.Tensor:
+    """Non-saturating D loss: real -> 1, fake -> 0."""
+    return sigmoid_bce(real, 1.0) + sigmoid_bce(fake, 0.0)
+
+
+def gan_generator_loss(fake: torch.Tensor) -> torch.Tensor:
+    """Non-saturating G loss: fake -> 1."""
+    return sigmoid_bce(fake, 1.0)
+
+
+def lsgan_discriminator_loss(real: torch.Tensor, fake: torch.Tensor
+                             ) -> torch.Tensor:
+    return 0.5 * ((real.float() - 1.0).square().mean()
+                  + fake.float().square().mean())
+
+
+def lsgan_generator_loss(fake: torch.Tensor) -> torch.Tensor:
+    return 0.5 * (fake.float() - 1.0).square().mean()
+
+
+def hinge_discriminator_loss(real: torch.Tensor, fake: torch.Tensor
+                             ) -> torch.Tensor:
+    return (torch.relu(1.0 - real.float()).mean()
+            + torch.relu(1.0 + fake.float()).mean())
+
+
+def hinge_generator_loss(fake: torch.Tensor) -> torch.Tensor:
+    return -fake.float().mean()
+
+
+GAN_LOSSES = {
+    "nonsaturating": (gan_discriminator_loss, gan_generator_loss),
+    "lsgan": (lsgan_discriminator_loss, lsgan_generator_loss),
+    "hinge": (hinge_discriminator_loss, hinge_generator_loss),
+}
+
+
+def get_gan_losses(name: str):
+    """(d_loss(real, fake), g_loss(fake)) of the objective ``name``."""
+    try:
+        return GAN_LOSSES[name]
+    except KeyError as e:
+        raise ValueError(f"unknown GAN loss {name!r}; valid: "
+                         f"{sorted(GAN_LOSSES)}") from e

@@ -68,6 +68,18 @@ class TrainState(NamedTuple):
     #                         laid out as JAX's key data of key(seed)
 
 
+def rng_data(seed: int) -> np.ndarray:
+    """uint32 [2]: JAX's key data of ``key(seed)`` (the checkpoint's
+    ``rng``)."""
+    return np.asarray([seed >> 32, seed & 0xFFFFFFFF], np.uint32)
+
+
+def seed_of(rng) -> int:
+    """The seed a checkpoint's ``rng`` holds (:func:`rng_data`)."""
+    v = [int(x) for x in np.asarray(rng).reshape(-1)]
+    return v[0] if len(v) == 1 else (v[0] << 32) | v[1]
+
+
 class StepDraws(NamedTuple):
     """One train step's random numbers, on the device."""
     boxes: torch.Tensor | None   # [N, 4] crop boxes (y0, x0, h, w)
@@ -339,42 +351,18 @@ class Trainer:
 
     def state(self) -> TrainState:
         params, model_state = weights.to_jax(self.model)
-        opt_state = {}
-        views = list(weights.param_views(self.model))
-        for field, buffers in self.optimizer.state_trees().items():
-            tree = opt_state.setdefault(field, {}) if field else opt_state
-            for path, _, view in views:
-                if path in buffers:
-                    scope, name = path.rsplit("/", 1)
-                    tree.setdefault(scope, {})[name] = view(
-                        buffers[path]).detach().to(
-                            "cpu", torch.float32).numpy().copy()
-        return TrainState(params, model_state, opt_state,
-                          np.asarray(self.step, np.int32),
-                          np.asarray([self.seed >> 32, self.seed & 0xFFFFFFFF],
-                                     np.uint32))
+        return TrainState(params, model_state,
+                          weights.optimizer_to_jax(self.model,
+                                                   self.optimizer),
+                          np.asarray(self.step, np.int32), rng_data(self.seed))
 
     @torch.no_grad()
     def load_state(self, state: TrainState) -> None:
         weights.from_jax(self.model, state.params, state.model_state)
-        trees = {}
-        for field in self.optimizer.state_trees():
-            tree = state.opt_state.get(field, {}) if field \
-                else state.opt_state
-            buffers = {}
-            for path, p, view in weights.param_views(self.model):
-                scope, name = path.rsplit("/", 1)
-                arr = tree.get(scope, {}).get(name)
-                if arr is not None:
-                    buf = torch.empty_like(p)
-                    view(buf).copy_(torch.from_numpy(
-                        np.array(arr, np.float32)))
-                    buffers[path] = buf
-            trees[field] = buffers
-        self.optimizer.load_state_trees(trees)
+        weights.optimizer_from_jax(self.model, self.optimizer,
+                                   state.opt_state)
         self.step = int(state.step)
-        rng = [int(v) for v in np.asarray(state.rng).reshape(-1)]
-        self.seed = rng[0] if len(rng) == 1 else (rng[0] << 32) | rng[1]
+        self.seed = seed_of(state.rng)
 
     def save(self, metric: float | None = None,
              is_best: bool = False) -> str:

@@ -1,8 +1,9 @@
 """Metric logging: console lines plus a JSONL stream.
 
 Port of ``myconvnet_tpu/utils/logging.MetricLogger`` without the optional
-TensorBoard writer: one ``[step N] key=value ...`` line per call, and one
-JSON record per call in ``<log_dir>/<name>.jsonl``.
+TensorBoard writer: one ``[step N] key=value ...`` line per call, one
+JSON record per call in ``<log_dir>/<name>.jsonl``, and image artifacts
+(``log_image``) under ``<log_dir>/images/``.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ class MetricLogger:
     def __init__(self, log_dir: str | None = None, name: str = "train",
                  stdout: bool = True):
         self.stdout = stdout
+        self._dir = log_dir
         self._jsonl = None
         if log_dir:
             os.makedirs(log_dir, exist_ok=True)
@@ -33,6 +35,16 @@ class MetricLogger:
             rec = {"step": step, "time": time.time(), **clean}
             self._jsonl.write(json.dumps(rec) + "\n")
             self._jsonl.flush()
+
+    def log_image(self, step: int, tag: str, image) -> str | None:
+        """Write ``image`` (uint8 HWC or HW) as
+        ``<log_dir>/images/<tag>_<step>.png``; nothing without a log
+        dir."""
+        if not self._dir:
+            return None
+        from myconvnet_tpu_torch.utils.images import save_png
+        return save_png(os.path.join(self._dir, "images",
+                                     f"{tag}_{step:08d}.png"), image)
 
     def close(self) -> None:
         if self._jsonl:

@@ -7,11 +7,14 @@ scopes with "/" read as "." (``stage1.block1.conv_a``), so the mapping is
 by name:
 
 * ``Conv``: ``w`` HWIO <-> ``weight`` OIHW (channels_last); optional ``b``;
+* ``ConvTranspose``: ``w`` HWIO <-> ``weight`` [Cin, Cout, kh, kw]
+  (channels_last), a permutation: the op flips the kernel in space at use,
+  so the stored kernel is JAX's; optional ``b``;
 * ``BatchNorm``: params ``gamma``, ``beta``; state ``moving_mean``,
   ``moving_var``.  A scope missing from the tree means the JAX fold removed
   it (``models/folding.py``), and the module is marked folded;
-* ``Dense``: ``w`` [in, out] <-> ``weight`` [out, in]; ``b``;
-* ``LayerNorm``: params ``gamma``, ``beta`` (no state);
+* ``Dense``: ``w`` [in, out] <-> ``weight`` [out, in]; optional ``b``;
+* ``LayerNorm``, ``InstanceNorm``: params ``gamma``, ``beta`` (no state);
 * parameters a module holds itself (the ViT's ``cls_token`` and
   ``pos_embed``) sit in that module's scope, ``~`` for the root module as
   in the JAX tree (``core/module.py:133-147``).
@@ -30,11 +33,13 @@ import torch
 from torch import nn
 
 from myconvnet_tpu_torch.ckpt.checkpoint import SEP, latest_checkpoint
-from myconvnet_tpu_torch.nn import BatchNorm, Conv, Dense, LayerNorm
+from myconvnet_tpu_torch.nn import (BatchNorm, Conv, ConvTranspose, Dense,
+                                   InstanceNorm, LayerNorm)
 
 Tree = dict[str, dict[str, np.ndarray]]
 ROOT = "~"  # the JAX tree's scope of the root module's own parameters
-LAYERS = (Conv, BatchNorm, Dense, LayerNorm)
+LAYERS = (Conv, ConvTranspose, BatchNorm, Dense, LayerNorm, InstanceNorm)
+NORMS = (LayerNorm, InstanceNorm)   # gamma and beta, no state
 
 
 def _scope(path: str) -> str:
@@ -68,21 +73,31 @@ def _transpose(t: torch.Tensor) -> torch.Tensor:
     return t.t()
 
 
+def _iohw(t: torch.Tensor) -> torch.Tensor:
+    return t.permute(2, 3, 0, 1)
+
+
+def _weight_view(m: nn.Module):
+    """The view of a layer's weight in the JAX layout."""
+    if isinstance(m, Conv):
+        return _hwio
+    return _iohw if isinstance(m, ConvTranspose) else _transpose
+
+
 def param_views(model: nn.Module):
     """(JAX path ``scope/name``, parameter, view) for every parameter,
     where ``view(t)`` shows a tensor of the parameter's shape in the JAX
-    layout (HWIO for a conv weight, [in, out] for a dense weight).  The
-    optimizer's state goes through the same views."""
+    layout (HWIO for a conv weight, plain or transposed, [in, out] for a
+    dense weight).  The optimizer's state goes through the same views."""
     for scope, name, p in _own_params(model):
         yield f"{scope}/{name}", p, _same
     for scope, m in _layers(model):
-        if isinstance(m, (BatchNorm, LayerNorm)):
+        if isinstance(m, (BatchNorm, *NORMS)):
             if not getattr(m, "folded", False):
                 yield f"{scope}/gamma", m.gamma, _same
                 yield f"{scope}/beta", m.beta, _same
             continue
-        yield f"{scope}/w", m.weight, _hwio if isinstance(m, Conv) \
-            else _transpose
+        yield f"{scope}/w", m.weight, _weight_view(m)
         if m.bias is not None:
             yield f"{scope}/b", m.bias, _same
 
@@ -113,7 +128,7 @@ def from_jax(model: nn.Module, params: Tree, state: Tree) -> nn.Module:
         p = params.get(scope)
         if p is None and not isinstance(m, BatchNorm):
             raise KeyError(f"no parameters for {scope}")
-        if isinstance(m, LayerNorm):
+        if isinstance(m, NORMS):
             _set(m.gamma, p["gamma"], scope, "gamma")
             _set(m.beta, p["beta"], scope, "beta")
             used.add(scope)
@@ -140,8 +155,14 @@ def from_jax(model: nn.Module, params: Tree, state: Tree) -> nn.Module:
             else:  # in place: an optimizer may hold the parameter
                 _set(m.bias, p["b"], scope, "b")
         else:
-            _set(m.weight, np.asarray(p["w"]).T, scope, "w")
-            _set(m.bias, p["b"], scope, "b")
+            _set(m.w if isinstance(m, ConvTranspose) else m.weight,
+                 np.asarray(p["w"]) if isinstance(m, ConvTranspose)
+                 else np.asarray(p["w"]).T, scope, "w")
+            if (m.bias is None) != ("b" not in p):
+                raise KeyError(f"{scope}: the tree's bias does not fit the "
+                               f"layer's (use_bias={m.bias is not None})")
+            if m.bias is not None:
+                _set(m.bias, p["b"], scope, "b")
         used.add(scope)
     extra = (set(params) | set(state)) - used
     if extra:
@@ -159,7 +180,7 @@ def to_jax(model: nn.Module) -> tuple[Tree, Tree]:
     for scope, name, p in _own_params(model):
         params.setdefault(scope, {})[name] = _np(p)
     for scope, m in _layers(model):
-        if isinstance(m, LayerNorm):
+        if isinstance(m, NORMS):
             params[scope] = {"gamma": _np(m.gamma), "beta": _np(m.beta)}
         elif isinstance(m, BatchNorm):
             if m.folded:
@@ -167,14 +188,47 @@ def to_jax(model: nn.Module) -> tuple[Tree, Tree]:
             params[scope] = {"gamma": _np(m.gamma), "beta": _np(m.beta)}
             state[scope] = {"moving_mean": _np(m.moving_mean),
                             "moving_var": _np(m.moving_var)}
-        elif isinstance(m, Conv):
-            params[scope] = {"w": _np(m.w)}
+        else:
+            params[scope] = {"w": _np(m.w) if isinstance(
+                m, (Conv, ConvTranspose)) else _np(m.weight).T.copy()}
             if m.bias is not None:
                 params[scope]["b"] = _np(m.bias)
-        else:
-            params[scope] = {"w": _np(m.weight).T.copy(),
-                             "b": _np(m.bias)}
     return params, state
+
+
+def optimizer_to_jax(model: nn.Module, optimizer) -> dict:
+    """``optimizer``'s state over ``model``'s parameters as the JAX
+    optimizer state tree: the momentum tree, or {".mu": tree, ".nu":
+    tree} for Adam (``state_trees`` fields; "" is the tree itself)."""
+    out = {}
+    views = list(param_views(model))
+    for field, buffers in optimizer.state_trees().items():
+        tree = out.setdefault(field, {}) if field else out
+        for path, _, view in views:
+            if path in buffers:
+                scope, name = path.rsplit("/", 1)
+                tree.setdefault(scope, {})[name] = _np(view(buffers[path]))
+    return out
+
+
+@torch.no_grad()
+def optimizer_from_jax(model: nn.Module, optimizer, opt_state: dict
+                       ) -> None:
+    """Load a JAX optimizer state tree (:func:`optimizer_to_jax`'s
+    layout) into ``optimizer``."""
+    trees = {}
+    for field in optimizer.state_trees():
+        tree = opt_state.get(field, {}) if field else opt_state
+        buffers = {}
+        for path, p, view in param_views(model):
+            scope, name = path.rsplit("/", 1)
+            arr = tree.get(scope, {}).get(name)
+            if arr is not None:
+                buf = torch.empty_like(p)
+                view(buf).copy_(torch.from_numpy(np.array(arr, np.float32)))
+                buffers[path] = buf
+        trees[field] = buffers
+    optimizer.load_state_trees(trees)
 
 
 def load_jax_checkpoint(path: str) -> tuple[Tree, Tree]:
@@ -215,7 +269,7 @@ def random_jax_params(model: nn.Module, seed: int) -> tuple[Tree, Tree]:
             for name in sorted(p):
                 p[name] = (0.02 * rng.randn(*p[name].shape)).astype(
                     np.float32)
-        elif isinstance(m, LayerNorm):
+        elif isinstance(m, NORMS):
             c = p["gamma"].shape[0]
             p["gamma"] = rng.uniform(0.8, 1.2, c).astype(np.float32)
             p["beta"] = (0.05 * rng.randn(c)).astype(np.float32)
@@ -237,5 +291,6 @@ def random_jax_params(model: nn.Module, seed: int) -> tuple[Tree, Tree]:
             cin, cout = p["w"].shape
             lim = np.sqrt(6.0 / (cin + cout))
             p["w"] = rng.uniform(-lim, lim, (cin, cout)).astype(np.float32)
-            p["b"] = np.zeros(cout, np.float32)
+            if "b" in p:
+                p["b"] = np.zeros(cout, np.float32)
     return params, state

@@ -1340,3 +1340,64 @@ def test_correlation_kernel_reads_views_and_rejects_what_it_does_not_take(
         correlation.correlation_fwd(f1, f2, 5)
     with pytest.raises(ValueError, match="does not fit"):
         correlation.correlation_bwd_f1(f1, f1, f2, 2)
+
+
+# the GAN generators' eval sites of B1: DCGAN at 32x32 (base 256, batch
+# 128; ReLU) and the pix2pix U-Net at 256x256 with 8 levels (batch 16; six
+# leaky ReLU encoder sites, seven ReLU decoder sites)
+GAN_ACT_SITES = [(128, 4, 4, 256), (128, 8, 8, 128), (128, 16, 16, 64),
+                 (16, 64, 64, 128), (16, 32, 32, 256), (16, 16, 16, 512),
+                 (16, 8, 8, 512), (16, 4, 4, 512), (16, 2, 2, 512),
+                 (16, 128, 128, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", GAN_ACT_SITES)
+def test_bn_act_kernel_at_the_gan_sites_matches_plain(cuda, shape, dtype):
+    """Each of the 16 GAN sites' shapes (10 distinct; the U-Net's
+    decoder repeats the encoder's but for 128²x64), ReLU and leaky ReLU,
+    bit for bit; one launch a call."""
+    rng = np.random.RandomState(shape[1] + shape[-1])
+    c = shape[-1]
+    x = torch.from_numpy((rng.randn(*shape) * 4).astype(np.float32))
+    x = x.to(cuda, dtype)
+    a = torch.from_numpy((rng.rand(c) + 0.5).astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.randn(c).astype(np.float32)).to(cuda)
+    for act in ("relu", "leaky_relu"):
+        before = bn_act.fused_scale_shift_act.launches
+        out = bn_act.fused_scale_shift_act(x, a, b, act)
+        torch.cuda.synchronize()
+        assert bn_act.fused_scale_shift_act.launches == before + 1
+        ref = bn_act.scale_shift_act_reference(x, a, b, act)
+        torch.testing.assert_close(out, ref, **BN_ACT_TOL)
+
+
+@pytest.mark.parametrize("shape", [(128, 32, 32, 3), (16, 256, 256, 3)])
+def test_normalize_u8_kernel_at_the_gan_inputs_matches_plain(cuda, shape):
+    """The GAN recipes' rescale to [-1, 1] (mean = std = 0.5, float32 out)
+    at DCGAN's and pix2pix's train batches, bit for bit."""
+    x = _images(shape, cuda, seed=5)
+    half = torch.full((3,), 0.5, device=cuda)
+    out = normalize_u8.normalize_u8(x, half, half, torch.float32)
+    ref = normalize_u8.normalize_u8_reference(x, half, half, torch.float32)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, **INPUT_TOL)
+    assert float(out.min()) >= -1.0 and float(out.max()) <= 1.0
+
+
+def test_unet_eval_on_card_matches_host(cuda):
+    """The U-Net at 256x256 with 8 levels (base 8, bf16, batch 2) on the
+    card, B1 at its 13 sites, against the same module on the host: within
+    0.05 of max |output|."""
+    from myconvnet_tpu_torch.models.gan import UNetGenerator
+    model = UNetGenerator(image_size=256, base_features=8)
+    weights.from_jax(model, *random_jax_params(model, 1)).eval()
+    x = torch.from_numpy(np.tanh(np.random.RandomState(2).randn(
+        2, 256, 256, 3)).astype(np.float32)).bfloat16()
+    with torch.no_grad():
+        host = model(x).float()
+        kernels.reset_launch_counts()
+        got = model.to(cuda)(x.to(cuda)).float().cpu()
+    assert kernels.launch_counts()["bn_act"] == 13
+    err = float((got - host).abs().max())
+    assert err <= 0.05 * float(host.abs().max()), err
