@@ -176,6 +176,28 @@
     and within 0.05 of max |output| of the host's plain path); every
     launch recorded with its shape and held by a row; each recipe's train
     step rate.
+16. The ConvNet API (``models/base.py``) through the entry points
+    (``convnet_api_run``).  (a) ResNet-50 at full width: ``train.main`` on
+    ``configs/imagenet_resnet50.py`` at 1024 as 2 x 512 (bf16) for 20
+    steps, validating every 10, with EMA 0.9999, lookahead and random
+    erasing 0.25 (conv_pair 13 and bn_act 7 an eval batch, none in a
+    step), ``test.main --best --ema --tta ten_crop --topk 5 --report``
+    (130 and 70: ten views of one batch; the report goes to
+    ``chiprun_out/api_r50_report.txt``) and ``test.main --average 2``;
+    losses finite, ``best.npz``'s step, the reader's EMA equal to the
+    writer's, the ten-crop log-probabilities of 8 images on the card
+    against the host's plain path, and the step's rate and peak memory
+    with the wrappers on beside step 9's plain step.  (b) The CIFAR-100
+    ResNet-18: ``train.main`` for 20 steps validating every 5 with SAM
+    (rho 0.05), reduce-on-plateau (factor 0.5, patience 1) and the stem
+    frozen (pad_crop_u8 once a step; normalize_u8 1, conv_fused 5 and
+    bn_act 4 an eval batch); the stem's weights bit-identical to the
+    seeded ones, the logged LR scale against the validation record, SAM's
+    step against the plain step's device time, a padded tail batch of
+    ``predict`` against the same images inside a full batch (bit for
+    bit); ``test.main --tta flip --average 3`` (normalize_u8 1,
+    conv_fused 10 and bn_act 8 a batch); a focal-loss run of 4 steps.
+    Every launch recorded with its shape and held by a row.
 
 Every kernel's record carries its bound: the larger of the bytes it must
 move over 3.35 TB/s and the operations it must do over the peak rate of
@@ -568,6 +590,25 @@ def deeplab_sites(n, hw):
     return pair, fused, act
 
 
+# the ConvNet API phase: (a) the ResNet-50 recipe at full width with the
+# EMA of configs/imagenet_mobilenet_v3.py:26, lookahead (its defaults) and
+# the random erasing of configs/imagenet_resnext50.py:35; (b) the CIFAR-100
+# ResNet-18 with SAM, reduce-on-plateau and the stem frozen, then the
+# focal loss
+API_R50_SETS = [f"accum_steps={R50_ACCUM}", f"synthetic_n={R50_BATCH}",
+                "optimizer.ema_decay=0.9999", "optimizer.lookahead=True",
+                "erase_prob=0.25"]
+API_R50_STEPS, API_R50_VAL_EVERY, TEN_CROP_VIEWS, API_TTA_CHECK_N = \
+    20, 10, 10, 8
+API_R18_SETS = ["sam_rho=0.05", "optimizer.plateau=True",
+                "plateau_factor=0.5", "plateau_patience=1",
+                "optimizer.freeze=['stem']"]
+API_R18_STEPS, API_R18_VAL_EVERY, API_FOCAL_STEPS = 20, 5, 4
+# a flip-TTA batch of the CIFAR-100 ResNet-18: one normalize, two forwards
+FLIP_EVAL_BATCH = {"normalize_u8": 1, "conv_fused": 10, "bn_act": 8}
+# SAM's step does a second forward and backward: its device time over the
+# plain step's is at least this
+SAM_MIN_RATIO = 1.3
 # the paths of conv_pair, bn_act and conv_fused: the runs whose launches
 # each path counts and the ``path`` of the rows that hold its shapes
 KERNEL_PATH_RUNS = {
@@ -586,10 +627,15 @@ KERNEL_PATH_RUNS = {
     "deeplab_scales": ("deeplab_test_scales",),
     "deeplab_513": ("deeplab_513_train", "deeplab_513_eval"),
     "dcgan": ("dcgan_train", "dcgan_generate"),
-    "pix2pix": ("pix2pix_train", "pix2pix_test")}
+    "pix2pix": ("pix2pix_train", "pix2pix_test"),
+    "resnet50_api": ("api_r50_train", "api_r50_ten_crop", "api_r50_average"),
+    "resnet18_api": ("api_r18_train", "api_r18_flip", "api_r18_focal")}
 # a path whose forwards run at several sizes: the ``path`` of the rows
 # that hold its shapes (one row set a size)
 PATH_ROWS = {"deeplab_scales": tuple(f"deeplab_{hw}" for hw in SEG_SCALE_HW),
+             # the API runs' forwards are at the rows of these paths
+             "resnet50_api": ("resnet50_train",),
+             "resnet18_api": ("resnet18_cifar",),
              "dcgan": (f"dcgan_{DCGAN_SAMPLES}", f"dcgan_{DCGAN_GRID}")}
 # conv_pair in ``--compare``: shapes whose plans have a pass of a single
 # 64x64 tile (the served 7x7 at batch 8 and 1, DeepLab's 12², 9², 6² and
@@ -2241,9 +2287,9 @@ def step_one_against_host(dev):
     from myconvnet_tpu_torch.train.trainer import StepDraws
 
     cfg = recipes.load_config(CIFAR_CONFIG)
-    card, train_set, _ = recipes.build_classifier(cfg, True, device=dev)
-    host, _, _ = recipes.build_classifier(cfg, True,
-                                          device=torch.device("cpu"))
+    card, train_set, _ = recipes.build_trainer(cfg, True, device=dev)
+    host, _, _ = recipes.build_trainer(cfg, True,
+                                       device=torch.device("cpu"))
     params, state = weights.random_jax_params(card.model, SEED)
     for t in (card, host):
         weights.from_jax(t.model, params, state)
@@ -2280,10 +2326,11 @@ def train_and_check(dev):
     shutil.rmtree(run_dir, ignore_errors=True)
     t0 = time.perf_counter()
     kernels.reset_launch_counts()
-    trainer = train.main([
+    net = train.main([
         "--config", CIFAR_CONFIG, "--synthetic", "--steps", str(TRAIN_STEPS),
         "--val_every", str(VAL_EVERY), "--batch", str(TRAIN_BATCH),
         "--out", run_dir, "--set", "log_every=1", "--device", "cuda"])
+    trainer = net.trainer
     torch.cuda.synchronize()
     train_counts = kernels.launch_counts()
     log(f"train.main: {TRAIN_STEPS} steps in "
@@ -2306,20 +2353,21 @@ def train_and_check(dev):
     checks.update(losses=losses)
 
     kernels.reset_launch_counts()
-    score, restored = test.main(["--config", CIFAR_CONFIG, "--synthetic",
-                                 "--ckpt", run_dir, "--device", "cuda"])
+    score, restored_net = test.main(["--config", CIFAR_CONFIG, "--synthetic",
+                                     "--ckpt", run_dir, "--device", "cuda"])
+    restored = restored_net.trainer
     torch.cuda.synchronize()
     eval_counts = kernels.launch_counts()
     check_counts(eval_counts, {
         **{k: v * EVAL_BATCHES for k, v in PER_EVAL_BATCH.items()},
         "pad_crop_u8": 0, "conv_pair": 0}, "test.main")
-    _, _, val_set = recipes.build_classifier(
+    _, _, val_set = recipes.build_trainer(
         recipes.load_config(CIFAR_CONFIG), True, device=torch.device("cpu"))
     xs, _ = val_set.source.get_batch(np.arange(TRAIN_BATCH))
     x = torch.from_numpy(xs)
     writer = trainer.eval_step(x.to(dev))
     reread = restored.eval_step(x.to(dev))
-    host, _, _ = recipes.build_classifier(
+    host, _, _ = recipes.build_trainer(
         recipes.load_config(CIFAR_CONFIG), True, device=torch.device("cpu"))
     host.load_state(trainer.state())
     plain = host.eval_step(x).numpy()
@@ -2450,9 +2498,9 @@ def vit_step_one(dev):
     from myconvnet_tpu_torch.train.trainer import StepDraws
 
     cfg = vit_cfg()
-    card, train_set, _ = recipes.build_classifier(cfg, True, device=dev)
-    host, _, _ = recipes.build_classifier(cfg, True,
-                                          device=torch.device("cpu"))
+    card, train_set, _ = recipes.build_trainer(cfg, True, device=dev)
+    host, _, _ = recipes.build_trainer(cfg, True,
+                                       device=torch.device("cpu"))
     params, state = weights.random_jax_params(card.model, SEED)
     for t in (card, host):
         weights.from_jax(t.model, params, state)
@@ -2512,11 +2560,12 @@ def vit_train_and_check(dev):
     sets = [a for kv in VIT_SET for a in ("--set", kv)]
     t0 = time.perf_counter()
     kernels.reset_launch_counts()
-    trainer = train.main([
+    net = train.main([
         "--config", VIT_CONFIG, "--synthetic", "--steps", str(VIT_STEPS),
         "--val_every", str(VIT_VAL_EVERY), "--batch", str(VIT_BATCH),
         "--out", run_dir, *sets, "--set", f"accum_steps={VIT_ACCUM}",
         "--set", "log_every=1", "--device", dev.type])
+    trainer = net.trainer
     torch.cuda.synchronize()
     train_counts = kernels.launch_counts()
     log(f"ViT train.main: {VIT_STEPS} steps of {VIT_BATCH} as {VIT_ACCUM} "
@@ -2532,7 +2581,7 @@ def vit_train_and_check(dev):
         f"ViT train.main ({micro} microbatches, {evals} eval batches)")
     losses = read_losses(run_dir, VIT_STEPS, "ViT")
     cfg = vit_cfg()
-    start, _, val_set = recipes.build_classifier(
+    start, _, val_set = recipes.build_trainer(
         cfg, True, device=torch.device("cpu"))
     p0, _ = weights.to_jax(start.model)
     p1, _ = weights.to_jax(trainer.model)
@@ -2545,10 +2594,11 @@ def vit_train_and_check(dev):
     checks.update(losses=losses)
 
     kernels.reset_launch_counts()
-    score, restored = test.main(["--config", VIT_CONFIG, "--synthetic",
-                                 "--ckpt", run_dir, *sets,
-                                 "--batch", str(VIT_BATCH),
-                                 "--device", dev.type])
+    score, restored_net = test.main(["--config", VIT_CONFIG, "--synthetic",
+                                     "--ckpt", run_dir, *sets,
+                                     "--batch", str(VIT_BATCH),
+                                     "--device", dev.type])
+    restored = restored_net.trainer
     torch.cuda.synchronize()
     eval_counts = kernels.launch_counts()
     batches = -(-VIT_SPLIT // VIT_BATCH)
@@ -2765,8 +2815,8 @@ def pwc_step_one(dev):
 
     n = PWC_STEP1_BATCH
     cfg = flow_cfg(PWC_CONFIG, [f"synthetic_n={n}"])
-    card, train_set, _ = recipes.build_flow(cfg, True, device=dev)
-    host, _, _ = recipes.build_flow(cfg, True, device=torch.device("cpu"))
+    card, train_set, _ = recipes.build_trainer(cfg, True, device=dev)
+    host, _, _ = recipes.build_trainer(cfg, True, device=torch.device("cpu"))
     params, state = weights.random_jax_params(card.model, SEED)
     heads = [s for s in params if s.split("/")[-1] == "flow"]
     if len(heads) != PWC_LEVELS + 1 or not all(
@@ -2837,11 +2887,12 @@ def pwc_train_and_check(dev):
     sets = ["--set", f"synthetic_n={FLOW_SCENES}"]
     t0 = time.perf_counter()
     kernels.reset_launch_counts()
-    trainer = train.main([
+    net = train.main([
         "--config", PWC_CONFIG, "--synthetic", "--steps", str(PWC_STEPS),
         "--val_every", str(PWC_VAL_EVERY), "--batch", str(FLOW_BATCH),
         "--out", run_dir, *sets, "--set", "log_every=1",
         "--device", dev.type])
+    trainer = net.trainer
     torch.cuda.synchronize()
     train_counts = kernels.launch_counts()
     log(f"PWC-Net train.main: {PWC_STEPS} steps of {FLOW_BATCH} pairs in "
@@ -2871,18 +2922,19 @@ def pwc_train_and_check(dev):
     checks.update(losses=losses)
 
     kernels.reset_launch_counts()
-    score, restored = test.main(["--config", PWC_CONFIG, "--synthetic",
-                                 "--ckpt", run_dir, *sets,
-                                 "--batch", str(FLOW_BATCH),
-                                 "--device", dev.type])
+    score, restored_net = test.main(["--config", PWC_CONFIG, "--synthetic",
+                                     "--ckpt", run_dir, *sets,
+                                     "--batch", str(FLOW_BATCH),
+                                     "--device", dev.type])
+    restored = restored_net.trainer
     torch.cuda.synchronize()
     eval_counts = kernels.launch_counts()
     check_counts(eval_counts, {**{k: 0 for k in kernels.WRAPPERS},
                                "correlation_fwd": PWC_LEVELS * batches},
                  f"PWC-Net test.main ({batches} eval batches)")
     small = flow_cfg(PWC_CONFIG, [f"synthetic_n={FLOW_BATCH}"])
-    host, _, val_set = recipes.build_flow(small, True,
-                                          device=torch.device("cpu"))
+    host, _, val_set = recipes.build_trainer(small, True,
+                                             device=torch.device("cpu"))
     xs, ys = val_set.source.get_batch(np.arange(FLOW_BATCH))
     x = torch.from_numpy(xs)
     few = x[:PWC_STEP1_BATCH]
@@ -2907,7 +2959,7 @@ def pwc_train_and_check(dev):
                              "path")
     checks.update(aepe=score, eval_flow_rel_err=rel)
     shutil.rmtree(run_dir)
-    del host, restored
+    del host, restored, restored_net
 
     # the recipe's step at batch 32, after the runs above (it moves the
     # weights)
@@ -2958,12 +3010,13 @@ def flownetc_run(dev):
     shutil.rmtree(run_dir, ignore_errors=True)
     t0 = time.perf_counter()
     kernels.reset_launch_counts()
-    trainer = train.main([
+    net = train.main([
         "--config", FLOWNET_CONFIG, "--synthetic", "--steps",
         str(FLOWNETC_STEPS), "--val_every", "0", "--batch", str(FLOW_BATCH),
         "--out", run_dir, "--set", "model=flownet_c", "--set",
         f"synthetic_n={FLOW_BATCH}", "--set", "log_every=1",
         "--device", dev.type])
+    trainer = net.trainer
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     seconds = time.perf_counter() - t0
@@ -3050,9 +3103,9 @@ def step_one_classifier(dev, what, cfg, n):
     runs, seconds = {}, {}
     for prec in ("f32", "bf16"):
         c = dict(cfg, synthetic_n=n, precision=prec)
-        card, train_set, _ = recipes.build_classifier(c, True, device=dev)
-        host, _, _ = recipes.build_classifier(c, True,
-                                              device=torch.device("cpu"))
+        card, train_set, _ = recipes.build_trainer(c, True, device=dev)
+        host, _, _ = recipes.build_trainer(c, True,
+                                           device=torch.device("cpu"))
         if params is None:
             params, state = weights.random_jax_params(card.model, SEED)
             xs, ys = train_set.source.get_batch(np.arange(n))
@@ -3237,9 +3290,10 @@ def classifier_run(dev, what, config, sets, *, steps, batch, val_every,
             *[a for kv in sets for a in ("--set", kv)], "--device", dev.type]
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    trainer = train.main(args + ["--steps", str(steps), "--val_every",
+    net = train.main(args + ["--steps", str(steps), "--val_every",
                                  str(val_every), "--out", run_dir, "--set",
                                  "log_every=1"])
+    trainer = net.trainer
     torch.cuda.synchronize()
     train_counts = kernels.launch_counts()
     seconds = time.perf_counter() - t0
@@ -3262,7 +3316,8 @@ def classifier_run(dev, what, config, sets, *, steps, batch, val_every,
         f"first {losses[0]:.4f} last {losses[-1]:.4f}")
 
     kernels.reset_launch_counts()
-    score, restored = test.main(args + ["--ckpt", run_dir])
+    score, restored_net = test.main(args + ["--ckpt", run_dir])
+    restored = restored_net.trainer
     torch.cuda.synchronize()
     eval_counts = kernels.launch_counts()
     check_counts(eval_counts, expect(0, batches),
@@ -3273,8 +3328,8 @@ def classifier_run(dev, what, config, sets, *, steps, batch, val_every,
     x = torch.from_numpy(val.images)
     writer = trainer.eval_step(x.to(dev))
     reread = restored.eval_step(x.to(dev))
-    host, _, _ = recipes.build_classifier(dict(cfg, synthetic_n=check_n),
-                                          True, device=torch.device("cpu"))
+    host, _, _ = recipes.build_trainer(dict(cfg, synthetic_n=check_n),
+                                       True, device=torch.device("cpu"))
     host.load_state(trainer.state())
     plain = host.eval_step(x).numpy()
     card = writer.cpu().numpy()
@@ -3293,7 +3348,7 @@ def classifier_run(dev, what, config, sets, *, steps, batch, val_every,
         raise AssertionError(f"{what}: eval logits disagree with the "
                              "plain path")
     shutil.rmtree(run_dir)
-    del restored, host
+    del restored, host, restored_net
     rate, batch_xy = step_rate(dev, trainer, batch,
                                raw_hw or tuple(x.shape[1:3]), rate_iters)
     log_rate(what, rate)
@@ -3673,9 +3728,10 @@ def deeplab_run(dev):
             "--device", dev.type]
     batches = -(-SEG_SPLIT // SEG_BATCH)
     t0 = time.perf_counter()
-    trainer = counted("deeplab_train", train.main, args + [
+    net = counted("deeplab_train", train.main, args + [
         "--steps", str(SEG_STEPS), "--val_every", str(SEG_VAL_EVERY),
         "--out", run_dir, "--set", "log_every=1"])
+    trainer = net.trainer
     seconds = time.perf_counter() - t0
     seg_expect((SEG_STEPS // SEG_VAL_EVERY + 1) * batches,
                f"DeepLabv3+ train.main ({SEG_STEPS} steps of {SEG_BATCH})",
@@ -3684,12 +3740,14 @@ def deeplab_run(dev):
     log(f"DeepLabv3+ train.main {SEG_STEPS} steps of {SEG_BATCH} at 96x96 "
         f"in {seconds:.1f}s; losses finite, first {losses[0]:.4f} last "
         f"{losses[-1]:.4f}")
-    score, restored = counted("deeplab_test", test.main,
-                              args + ["--ckpt", run_dir])
+    score, restored_net = counted("deeplab_test", test.main,
+                                  args + ["--ckpt", run_dir])
+    restored = restored_net.trainer
     seg_expect(batches, "DeepLabv3+ test.main", runs["deeplab_test"])
-    ms_score, ms_restored = counted(
+    ms_score, ms_net = counted(
         "deeplab_test_scales", test.main, args + [
             "--ckpt", run_dir, "--scales", ",".join(map(str, SEG_SCALES))])
+    ms_restored = ms_net.trainer
     seg_expect(batches * 2 * len(SEG_SCALES),
                "DeepLabv3+ test.main --scales", runs["deeplab_test_scales"])
     val = recipes.make_sources(cfg, True, splits=("val",))[0]
@@ -3709,7 +3767,7 @@ def deeplab_run(dev):
         scales=seg_scales_vs_host(trainer, ms_restored, host, x, dev,
                                   *recipes.normalization(cfg)))
     shutil.rmtree(run_dir)
-    del trainer, restored, ms_restored, host
+    del trainer, restored, ms_restored, host, net, restored_net, ms_net
     torch.cuda.empty_cache()
 
     # the recipe's 513 x 513 crops of 512 x 512 frames, batch 16
@@ -4003,6 +4061,249 @@ def gan_run(dev):
     return runs, shapes, checks
 
 
+def convnet_api_run(dev, plain_step):
+    """The ConvNet API through ``train.main`` and ``test.main`` (step 16
+    of the module docstring); ``plain_step`` is the ResNet-50 phase's
+    plain step rate (:func:`step_rate`).  Returns (runs, shapes, checks):
+    each run's launch counts and shapes for the kernels' record."""
+    import collections
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from myconvnet_tpu_torch import recipes, test, train, weights
+    from myconvnet_tpu_torch.ckpt import checkpoint as ckpt_lib
+    from myconvnet_tpu_torch.ops import kernels
+    from myconvnet_tpu_torch.train import optim
+
+    runs, shapes, checks = {}, {}, {}
+    cpu = torch.device("cpu")
+
+    def counted(run, fn, *args, report=None):
+        """fn(*args), the launch counts set to 0 just before it and read,
+        with the launches' shapes, just after it; with ``report`` its
+        printout goes to that file, and its last lines to the log."""
+        shapes[run] = collections.Counter()
+        out = io.StringIO()
+        with launch_shapes(shapes[run]):
+            kernels.reset_launch_counts()
+            if report:
+                with contextlib.redirect_stdout(out):
+                    result = fn(*args)
+            else:
+                result = fn(*args)
+            torch.cuda.synchronize()
+            runs[run] = kernels.launch_counts()
+        if report:
+            with open(report, "w") as f:
+                f.write(out.getvalue())
+            for line in out.getvalue().splitlines()[-3:]:
+                log(f"  {line}")
+        return result
+
+    def expect(run, what, *, steps=0, forwards=0, forward=None):
+        want = {k: 0 for k in kernels.WRAPPERS}
+        for k, v in PER_TRAIN_STEP.items():
+            want[k] += v * steps
+        for k, v in (forward or {}).items():
+            want[k] += v * forwards
+        check_counts(runs[run], want, what)
+
+    def flags(sets):
+        return [a for kv in sets for a in ("--set", kv)]
+
+    # (a) ResNet-50 at full width, 1024 as 2 x 512, bf16
+    cfg = classifier_cfg(CONFIG, API_R50_SETS)
+    run_dir = os.path.join(ROOT, "build", "chip_smoke_api_r50")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    args = ["--config", CONFIG, "--synthetic", "--batch", str(R50_BATCH),
+            *flags(API_R50_SETS), "--device", dev.type]
+    t0 = time.perf_counter()
+    net = counted("api_r50_train", train.main, args + [
+        "--steps", str(API_R50_STEPS), "--val_every",
+        str(API_R50_VAL_EVERY), "--out", run_dir, "--set", "log_every=1"])
+    seconds = time.perf_counter() - t0
+    evals = API_R50_STEPS // API_R50_VAL_EVERY + 1
+    # the ResNet-50 train step launches none of the kernels
+    expect("api_r50_train", f"ResNet-50 API train.main ({API_R50_STEPS} "
+           f"steps, {evals} eval batches)", forwards=evals,
+           forward=FORWARD["resnet50"])
+    losses = read_losses(run_dir, API_R50_STEPS, "ResNet-50 API")
+    log(f"ResNet-50 API train.main with {' '.join(API_R50_SETS[2:])}: "
+        f"{API_R50_STEPS} steps of {R50_BATCH} in {seconds:.1f}s; losses "
+        f"finite, first {losses[0]:.4f} last {losses[-1]:.4f}")
+    writer_ema = {k: v.clone()
+                  for k, v in optim.extract_ema(net.optimizer).items()}
+    report = os.path.join(ROOT, "chiprun_out", "api_r50_report.txt")
+    top5, tta_net = counted(
+        "api_r50_ten_crop", test.main,
+        args + ["--ckpt", run_dir, "--best", "--ema", "--tta", "ten_crop",
+                "--topk", "5", "--report"], report=report)
+    expect("api_r50_ten_crop", "ResNet-50 test.main --best --ema --tta "
+           f"ten_crop (one batch of {TEN_CROP_VIEWS} views)",
+           forwards=TEN_CROP_VIEWS, forward=FORWARD["resnet50"])
+    best_step = ckpt_lib.checkpoint_step(ckpt_lib.best_checkpoint(run_dir))
+    if best_step not in (10, 20) or tta_net.trainer.step != best_step:
+        raise AssertionError(f"best.npz: step {best_step}, restored "
+                             f"{tta_net.trainer.step}")
+    top1_avg, avg_net = counted("api_r50_average", test.main,
+                                args + ["--ckpt", run_dir, "--average", "2"])
+    expect("api_r50_average", "ResNet-50 test.main --average 2",
+           forwards=1, forward=FORWARD["resnet50"])
+    reader_ema = optim.extract_ema(avg_net.optimizer)
+    same_ema = all(torch.equal(v, reader_ema[k])
+                   for k, v in writer_ema.items())
+    del writer_ema, reader_ema, avg_net
+    if not same_ema:
+        raise AssertionError("ResNet-50: the checkpoint's EMA differs from "
+                             "the writer's")
+    val = recipes.make_sources(dict(cfg, synthetic_n=API_TTA_CHECK_N), True,
+                               splits=("val",))[0]
+    x = val.images
+    card = tta_net.predict(x, batch_size=len(x), tta="ten_crop")
+    host, _, _ = recipes.build_classifier(cfg, True, device=cpu)
+    host.build(recipes.optimizer_factory(cfg["optimizer"]))
+    host.trainer.load_state(tta_net.trainer.state())
+    t0 = time.perf_counter()
+    plain = host.predict(x, batch_size=len(x), tta="ten_crop")
+    host_s = time.perf_counter() - t0
+    rel = float(np.abs(card - plain).max() / np.abs(plain).max())
+    agree = float((card.argmax(-1) == plain.argmax(-1)).mean())
+    log(f"ResNet-50 ten-crop TTA (EMA weights of best.npz, step "
+        f"{best_step}): top-5 {top5:.4f}; --average 2 top-1 "
+        f"{top1_avg:.4f}; the reader's EMA equals the writer's; card vs "
+        f"host plain path on {len(x)} images: max|diff|/max|log p| = "
+        f"{rel:.4g} (tol {LOGIT_REL_TOL}), top-1 agreement {agree:.3f} "
+        f"(host {host_s:.1f}s)")
+    if card.shape != (len(x), cfg["num_classes"]) \
+            or not np.isfinite(card).all() or rel > LOGIT_REL_TOL:
+        raise AssertionError("ResNet-50: ten-crop log-probabilities "
+                             "disagree with the plain path")
+    del tta_net, host
+    rate, _ = step_rate(dev, net.trainer, R50_BATCH, tuple(cfg["raw_hw"]),
+                        5)
+    log_rate("ResNet-50 API (EMA, lookahead, erasing)", rate)
+    cost = rate["step_ms"] / plain_step["step_ms"] - 1.0
+    log(f"ResNet-50 step with the wrappers on: {rate['step_ms']:.2f} ms, "
+        f"{rate['images_per_sec']:.1f} images/s, max_memory_allocated "
+        f"{rate['max_memory_allocated_gb']:.2f} GiB; the plain step in "
+        f"this call {plain_step['step_ms']:.2f} ms, "
+        f"{plain_step['images_per_sec']:.1f} images/s, "
+        f"{plain_step['max_memory_allocated_gb']:.2f} GiB: the wrappers "
+        f"cost {100 * cost:.1f}% of the step")
+    checks["resnet50"] = dict(
+        losses=losses, train_seconds=seconds, top5_ten_crop=top5,
+        top1_average=top1_avg, best_step=best_step,
+        ten_crop_rel_err=rel, ten_crop_top1_agreement=agree,
+        host_ten_crop_seconds=host_s, step=rate,
+        plain_step_ms=plain_step["step_ms"], wrapper_cost=cost)
+    del net
+    shutil.rmtree(run_dir)
+    torch.cuda.empty_cache()
+
+    # (b) the CIFAR-100 ResNet-18: SAM, reduce-on-plateau, the stem frozen
+    cfg = classifier_cfg(CIFAR_CONFIG, API_R18_SETS)
+    run_dir = os.path.join(ROOT, "build", "chip_smoke_api_r18")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    args = ["--config", CIFAR_CONFIG, "--synthetic", "--batch",
+            str(TRAIN_BATCH), *flags(API_R18_SETS), "--device", dev.type]
+    t0 = time.perf_counter()
+    net = counted("api_r18_train", train.main, args + [
+        "--steps", str(API_R18_STEPS), "--val_every",
+        str(API_R18_VAL_EVERY), "--out", run_dir, "--set", "log_every=1"])
+    seconds = time.perf_counter() - t0
+    evals = (API_R18_STEPS // API_R18_VAL_EVERY + 1) * EVAL_BATCHES
+    expect("api_r18_train", f"ResNet-18 API train.main ({API_R18_STEPS} "
+           f"steps, {evals} eval batches)", steps=API_R18_STEPS,
+           forwards=evals, forward=PER_EVAL_BATCH)
+    losses = read_losses(run_dir, API_R18_STEPS, "ResNet-18 API")
+    seeded, _, _ = recipes.build_trainer(cfg, True, device=cpu)
+    p0 = weights.to_jax(seeded.model)[0]
+    p1 = weights.to_jax(net.trainer.model)[0]
+    del seeded
+    stem = [(s, n) for s in p0 if s.startswith("stem") for n in p0[s]]
+    stem_kept = all(np.array_equal(p0[s][n], p1[s][n]) for s, n in stem)
+    others_moved = any(not np.array_equal(p0[s][n], p1[s][n])
+                       for s in p0 if not s.startswith("stem")
+                       for n in p0[s])
+    with open(os.path.join(run_dir, "train.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    vals = [(r["step"], r["val_accuracy"]) for r in records
+            if "val_accuracy" in r]
+    logged = [(r["step"], r["lr_scale"]) for r in records
+              if "lr_scale" in r]
+    want, best, scale = [], -math.inf, 1.0
+    for step, acc in vals:
+        if acc > best:
+            best = acc
+        else:
+            scale = max(scale * 0.5, 1e-4)
+            want.append((step, scale))
+    log(f"ResNet-18 API train.main with {' '.join(API_R18_SETS)}: "
+        f"{API_R18_STEPS} steps in {seconds:.1f}s; losses finite, first "
+        f"{losses[0]:.4f} last {losses[-1]:.4f}; the stem's {len(stem)} "
+        f"leaves bit-identical to the seeded ones: {stem_kept} (the rest "
+        f"moved: {others_moved}); validations {vals}; lr_scale logged "
+        f"{logged}, by the rule {want}")
+    if not (stem_kept and others_moved):
+        raise AssertionError("ResNet-18: freeze did not keep the stem")
+    if logged != want or optim.plateau_scale(net.optimizer) != scale:
+        raise AssertionError("ResNet-18: the plateau scale does not follow "
+                             "the validations")
+    val = recipes.make_sources(cfg, True, splits=("val",))[0]
+    x = val.images[:TRAIN_BATCH + TRAIN_BATCH // 2]
+    tail = net.predict(x, batch_size=TRAIN_BATCH)[TRAIN_BATCH:]
+    inside = net.predict(x[TRAIN_BATCH // 2:],
+                         batch_size=TRAIN_BATCH)[TRAIN_BATCH // 2:]
+    tail_same = bool(np.array_equal(tail, inside))
+    log(f"ResNet-18 predict: a padded tail batch of {len(tail)} gives the "
+        f"bits of the same images inside a full batch: {tail_same}")
+    if not tail_same:
+        raise AssertionError("ResNet-18: predict's tail batch differs")
+    trainer = net.trainer
+    sam = step_rate(dev, trainer, TRAIN_BATCH, (32, 32), 5)[0]
+    trainer.sam_rho = 0.0
+    plain = step_rate(dev, trainer, TRAIN_BATCH, (32, 32), 5)[0]
+    trainer.sam_rho = 0.05
+    key = "device_busy_ms" if sam["device_busy_ms"] and \
+        plain["device_busy_ms"] else "step_ms"
+    ratio = sam[key] / plain[key]
+    log(f"ResNet-18 SAM step {sam['step_ms']:.2f} ms (device busy "
+        f"{sam['device_busy_ms']} ms) vs the plain step "
+        f"{plain['step_ms']:.2f} ms ({plain['device_busy_ms']} ms): "
+        f"{key} x{ratio:.2f}")
+    if ratio < SAM_MIN_RATIO:
+        raise AssertionError(f"ResNet-18: the SAM step is x{ratio:.2f} "
+                             "the plain step's")
+    flip_score, _ = counted("api_r18_flip", test.main, args + [
+        "--ckpt", run_dir, "--tta", "flip", "--average", "3"])
+    expect("api_r18_flip", "ResNet-18 test.main --tta flip --average 3",
+           forwards=EVAL_BATCHES, forward=FLIP_EVAL_BATCH)
+    shutil.rmtree(run_dir)
+    focal_dir = os.path.join(ROOT, "build", "chip_smoke_api_focal")
+    shutil.rmtree(focal_dir, ignore_errors=True)
+    counted("api_r18_focal", train.main, [
+        "--config", CIFAR_CONFIG, "--synthetic", "--batch",
+        str(TRAIN_BATCH), "--set", "cls_loss=focal", "--set", "mix=None",
+        "--device", dev.type, "--steps", str(API_FOCAL_STEPS),
+        "--val_every", "0", "--out", focal_dir, "--set", "log_every=1"])
+    expect("api_r18_focal", f"ResNet-18 focal train.main ({API_FOCAL_STEPS}"
+           " steps)", steps=API_FOCAL_STEPS, forwards=EVAL_BATCHES,
+           forward=PER_EVAL_BATCH)
+    focal = read_losses(focal_dir, API_FOCAL_STEPS, "ResNet-18 focal")
+    shutil.rmtree(focal_dir)
+    log(f"ResNet-18 test.main --tta flip --average 3: top-1 "
+        f"{flip_score:.4f}; focal loss run: {[round(v, 4) for v in focal]}")
+    checks["resnet18"] = dict(
+        losses=losses, train_seconds=seconds, validations=vals,
+        lr_scales=logged, stem_kept=stem_kept, tail_batch_bits=tail_same,
+        sam_step=sam, plain_step=plain, sam_ratio=ratio, sam_ratio_of=key,
+        top1_flip_average=flip_score, focal_losses=focal)
+    return runs, shapes, checks
+
+
 def step_one_only(specs):
     """Step 1 of ResNet-50, VGG-16 and DenseNet-121 against the host alone
     (``name:batch`` specs, default each at STEP1_BATCH), records in
@@ -4112,6 +4413,9 @@ def main() -> int:
                                                     deeplab_run, dev)
     torch.cuda.empty_cache()
     gan_runs, gan_shapes, checks["gan"] = phase("GAN", gan_run, dev)
+    torch.cuda.empty_cache()
+    api_runs, api_shapes, checks["convnet_api"] = phase(
+        "ConvNet API", convnet_api_run, dev, checks["resnet50"]["step"])
     runs = {"serve": counts, "train": train_counts, "test": eval_counts,
             "vit_train": vit_train, "vit_test": vit_test,
             **{f"vit_train_{k}": v for k, v in policy_runs.items()},
@@ -4123,7 +4427,7 @@ def main() -> int:
                for part, c in zip(("train", "test"), pair)},
             **{f"{k}_{part}": c for k, pair in big.items()
                for part, c in zip(("train", "test"), pair)},
-            **seg_runs, **gan_runs}
+            **seg_runs, **gan_runs, **api_runs}
     launches = {name: sum(c[name] for c in runs.values())
                 for name in SOURCES}
     in_forward = checks["bn_act_in_forward_ms"]
@@ -4141,7 +4445,8 @@ def main() -> int:
          **({"by_path": correlation_by_path(name, details, runs)}
             if name in CORR else {}),
          **({"by_path": kernel_by_path(name, details, runs,
-                                       {**seg_shapes, **gan_shapes})}
+                                       {**seg_shapes, **gan_shapes,
+                                        **api_shapes})}
             if name in ("conv_pair", "bn_act", "conv_fused") else {}),
          **({"in_forward_ms": summary[name]["in_forward_ms"]}
             if name == "bn_act" else {})}

@@ -11,8 +11,19 @@ path of the CIFAR-100 ResNet-18 recipe (``configs/cifar100_resnet18.py``,
 ``python -m myconvnet_tpu_torch.train`` and ``.test``); later slices add
 the ViT-B/16 recipe with its RandAugment and AutoAugment policies, the
 optical-flow recipes (PWC-Net, FlowNetC, FlowNetS) and the BASELINE
-configs, the GANs last (``python -m myconvnet_tpu_torch.generate`` writes
-their samples): NHWC activations,
+configs, the GANs (``python -m myconvnet_tpu_torch.generate`` writes
+their samples), then the JAX package's public model API,
+``from myconvnet_tpu_torch import ConvNet`` (``models/base.py``), which
+the train and test entry points drive: NHWC activations,
 cuDNN convolutions, and hand-written CUDA kernels (``ops/kernels``) where
 the JAX package has Pallas kernels for the same math.
 """
+
+
+def __getattr__(name):
+    # the public model API, imported on first use as the JAX package's
+    # lazy ``myconvnet_tpu.ConvNet``
+    if name == "ConvNet":
+        from myconvnet_tpu_torch.models.base import ConvNet
+        return ConvNet
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

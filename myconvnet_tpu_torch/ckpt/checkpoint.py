@@ -1,6 +1,7 @@
 """Checkpoints of the full training state in the JAX package's npz format.
 
-Port of ``myconvnet_tpu/ckpt/checkpoint.py:39-147``.  A checkpoint is one
+Port of ``myconvnet_tpu/ckpt/checkpoint.py:39-194``, with
+``best_checkpoint``, ``average_checkpoints`` and ``checkpoint_step``.  A checkpoint is one
 ``ckpt-<step>.npz`` with flattened ``path::name`` keys plus a JSON sidecar,
 written to a temporary file and renamed into place.  The state is a dict
 of numpy trees in the JAX layout (``TrainState._asdict()`` of the trainer):
@@ -93,6 +94,22 @@ def latest_checkpoint(directory: str) -> str | None:
     return os.path.join(directory, f"ckpt-{steps[-1]}.npz")
 
 
+def best_checkpoint(directory: str) -> str | None:
+    """``best.npz`` of a run directory, or None."""
+    p = os.path.join(directory, "best.npz")
+    return p if os.path.exists(p) else None
+
+
+def checkpoint_step(path: str) -> int:
+    """The step of ``ckpt-<step>.npz``, or of ``best.npz`` (its
+    sidecar)."""
+    base = os.path.basename(path)
+    if base == "best.npz":
+        with open(os.path.join(os.path.dirname(path), "best.json")) as f:
+            return int(json.load(f)["step"])
+    return int(base[len("ckpt-"):-len(".npz")])
+
+
 def restore_checkpoint(path: str, target: dict[str, Any]) -> dict[str, Any]:
     """Restore into the structure of ``target`` (nested dicts of arrays,
     e.g. the freshly built state).  Shapes are validated; a mismatch names
@@ -131,3 +148,37 @@ def restore_checkpoint(path: str, target: dict[str, Any]) -> dict[str, Any]:
             out[key] = arr.astype(np.asarray(value).dtype)
         return out
     return fill(target)
+
+
+def _unflatten_like(tree: dict, flat: dict, prefix: str = "") -> dict:
+    return {key: (_unflatten_like(value, flat, f"{prefix}{key}{SEP}")
+                  if isinstance(value, dict) else flat[prefix + key])
+            for key, value in tree.items()}
+
+
+def average_checkpoints(directory: str, target: dict[str, Any], *,
+                        n_last: int = 0,
+                        subtree: str = "params") -> dict[str, Any]:
+    """The newest checkpoint of ``directory`` with its ``subtree`` leaves
+    replaced by their float64 mean over the last ``n_last`` checkpoints
+    (0: all of them; 1: the newest as it is), cast to each leaf's dtype;
+    everything else (optimizer state, step, rng) is the newest's."""
+    steps = all_steps(directory)
+    if not steps:
+        raise FileNotFoundError(f"no checkpoints in {directory!r}")
+    use = steps[-n_last:] if n_last and n_last >= 1 else steps
+    newest = restore_checkpoint(
+        os.path.join(directory, f"ckpt-{use[-1]}.npz"), target)
+    if len(use) == 1:
+        return newest
+    prefix = subtree + SEP
+    acc: dict[str, np.ndarray] = {}
+    for s in use:
+        with np.load(os.path.join(directory, f"ckpt-{s}.npz")) as data:
+            for k in data.files:
+                if k.startswith(prefix):
+                    acc[k] = acc.get(k, 0.0) + data[k].astype(np.float64)
+    flat = flatten(newest)
+    for k, v in acc.items():
+        flat[k] = (v / len(use)).astype(flat[k].dtype)
+    return _unflatten_like(newest, flat)

@@ -1,7 +1,7 @@
 """Batch mixing (MixUp, CutMix) with sampling split from applying.
 
-Port of ``myconvnet_tpu/data/mix.py:34-126``: ``MixConfig``,
-``mixup_cutmix`` and the rectangle masks.  One per-pixel weight map
+Port of ``myconvnet_tpu/data/mix.py:34-156``: ``MixConfig``,
+``mixup_cutmix``, the rectangle masks and ``random_erasing``.  One per-pixel weight map
 expresses both mixes:
 
     out[n] = w[n] * x[n] + (1 - w[n]) * x[perm[n]]
@@ -20,6 +20,7 @@ them; tests hand it JAX's draws (``mix.py:93-116``) instead.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -130,3 +131,46 @@ def mixup_cutmix(x: torch.Tensor, labels: torch.Tensor, num_classes: int,
     lam_eff = w_map.mean(dim=(1, 2, 3))
     soft = lam_eff[:, None] * y + (1.0 - lam_eff[:, None]) * y[draws.perm]
     return mixed.to(x.dtype), soft
+
+
+class EraseDraws(NamedTuple):
+    """One batch's random-erasing numbers, on the device (``mix.py:139-
+    154``: the area fraction, log aspect, rectangle centre, apply switch
+    and the noise fill)."""
+    area: torch.Tensor      # [N] float32 in area_range
+    log_ar: torch.Tensor    # [N] float32 in log(aspect_range)
+    centre: torch.Tensor    # [N, 2] float32 uniforms: centre / (H, W)
+    apply: torch.Tensor     # [N] bool
+    noise: torch.Tensor | None   # [N, H, W, C] float32 normal, or None
+
+
+def sample_erasing(generator: torch.Generator, shape, *, prob: float = 0.25,
+                   area_range=(0.02, 1.0 / 3.0), aspect_range=(0.3, 3.3),
+                   fill: str = "noise") -> EraseDraws:
+    """Draw one batch's erasing for images of ``shape`` [N, H, W, C] on
+    the generator's device (no host sync)."""
+    n = shape[0]
+    dev = generator.device
+    u = torch.rand((5, n), generator=generator, device=dev)
+    lo, hi = math.log(aspect_range[0]), math.log(aspect_range[1])
+    noise = (torch.randn(tuple(shape), generator=generator, device=dev)
+             if fill == "noise" else None)
+    return EraseDraws(area=area_range[0] + (area_range[1] - area_range[0])
+                      * u[0], log_ar=lo + (hi - lo) * u[1],
+                      centre=u[2:4].t().contiguous(), apply=u[4] < prob,
+                      noise=noise)
+
+
+def random_erasing(x: torch.Tensor, draws: EraseDraws) -> torch.Tensor:
+    """Random Erasing: per image, a rectangle of ``area`` x H x W pixels
+    and aspect exp(``log_ar``) centred at ``centre`` x (H, W), clamped to
+    the frame, filled with the noise (or zeros) where ``apply``."""
+    n, h, w, _ = x.shape
+    aspect = torch.exp(draws.log_ar)
+    cut_h = torch.sqrt(draws.area * h * w * aspect)
+    cut_w = torch.sqrt(draws.area * h * w / aspect)
+    mask = _rect_mask_sized(draws.centre, (h, w), cut_h, cut_w) > 0.0
+    mask = mask & draws.apply[:, None, None, None]
+    filler = (torch.zeros_like(x) if draws.noise is None
+              else draws.noise.to(x.dtype))
+    return torch.where(mask, filler, x)

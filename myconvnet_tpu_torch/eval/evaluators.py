@@ -1,8 +1,10 @@
 """Evaluators and ``decode_predictions``.
 
 Port of ``myconvnet_tpu/eval/evaluators.py``: the ``Evaluator`` interface
-(``score``/``is_better``/``worst_score``), ``AccuracyEvaluator``
-(``:86-109``, top-k over the last axis, counted on the logits' device),
+(``score``/``is_better``/``worst_score``), ``top_k_correct`` (``:21``) and
+``AccuracyEvaluator`` (``:86-109``, top-k over the last axis, counted on
+the logits' device), ``ConfusionMatrixEvaluator`` (``:151``, with its
+report) and ``JointEvaluator`` (``:243``),
 segmentation's ``confusion_matrix``, ``miou_from_confusion`` and
 ``pixel_accuracy_from_confusion`` (``:36-60``) with ``MeanIoUEvaluator``
 (``:118-146``), and ``decode_predictions``.
@@ -56,19 +58,26 @@ class AccuracyEvaluator(Evaluator):
 
     def update(self, logits, labels):
         logits = torch.as_tensor(logits)
-        labels = torch.as_tensor(labels, device=logits.device).long()
-        flat = logits.reshape(-1, logits.shape[-1])
-        labels = labels.reshape(-1, 1)
-        if self.k == 1:  # argmax takes the first of tied maxima, as JAX
-            hit = flat.argmax(dim=-1, keepdim=True) == labels
-        else:
-            hit = (flat.topk(self.k, dim=-1).indices == labels).any(dim=-1)
-        self._correct += int(hit.sum())
+        self._correct += int(top_k_correct(logits, labels, self.k))
         # element count, not batch size: spatial labels score per pixel
-        self._total += labels.numel()
+        self._total += int(np.prod(np.shape(labels)))
 
     def score(self) -> float:
         return self._correct / max(self._total, 1)
+
+
+def top_k_correct(logits: torch.Tensor, labels, k: int = 1) -> torch.Tensor:
+    """The number of top-k-correct predictions (an int64 scalar on the
+    logits' device); spatial logits count per element."""
+    logits = torch.as_tensor(logits)
+    labels = torch.as_tensor(labels, device=logits.device).long()
+    flat = logits.reshape(-1, logits.shape[-1])
+    labels = labels.reshape(-1, 1)
+    if k == 1:  # argmax takes the first of tied maxima, as JAX
+        hit = flat.argmax(dim=-1, keepdim=True) == labels
+    else:
+        hit = (flat.topk(k, dim=-1).indices == labels).any(dim=-1)
+    return hit.sum()
 
 
 def confusion_matrix(pred: torch.Tensor, labels: torch.Tensor,
@@ -134,6 +143,104 @@ class MeanIoUEvaluator(Evaluator):
         present = cm.sum(1) > 0
         iou = np.where(union > 0, inter / np.maximum(union, 1e-12), 0.0)
         return np.where(present, iou, np.nan)
+
+
+class ConfusionMatrixEvaluator(Evaluator):
+    """Classification accuracy over the full confusion matrix, with the
+    per-class precision/recall/F1 report (``evaluators.py:151-240``)."""
+
+    name = "accuracy"
+
+    def __init__(self, num_classes: int):
+        self.num_classes = num_classes
+        self.reset()
+
+    def reset(self):
+        self._cm = np.zeros((self.num_classes, self.num_classes), np.int64)
+
+    def update(self, logits, labels):
+        arr = torch.as_tensor(logits)
+        labels = torch.as_tensor(labels, device=arr.device)
+        pred = arr.argmax(dim=-1) if arr.dim() > labels.dim() else arr
+        self._cm += confusion_matrix(pred, labels,
+                                     self.num_classes).cpu().numpy()
+
+    def score(self) -> float:
+        return float(self._cm.trace() / max(self._cm.sum(), 1.0))
+
+    @property
+    def matrix(self) -> np.ndarray:
+        """[C, C] counts, rows = truth, columns = prediction."""
+        return self._cm.astype(np.float64)
+
+    def per_class(self) -> dict[str, np.ndarray]:
+        """precision/recall/f1/support [C]; zero where a class has no
+        predictions or no truth."""
+        cm = self._cm.astype(np.float64)
+        tp = np.diag(cm)
+        pred_tot, true_tot = cm.sum(0), cm.sum(1)
+        precision = np.where(pred_tot > 0, tp / np.maximum(pred_tot, 1e-12),
+                             0.0)
+        recall = np.where(true_tot > 0, tp / np.maximum(true_tot, 1e-12),
+                          0.0)
+        f1 = np.where(precision + recall > 0,
+                      2 * precision * recall
+                      / np.maximum(precision + recall, 1e-12), 0.0)
+        return {"precision": precision, "recall": recall, "f1": f1,
+                "support": true_tot}
+
+    def macro_f1(self) -> float:
+        pc = self.per_class()
+        present = pc["support"] > 0
+        return float(pc["f1"][present].mean()) if present.any() else 0.0
+
+    def report(self, class_names: list[str] | None = None) -> str:
+        """sklearn-style per-class text report."""
+        pc = self.per_class()
+        names = class_names or [str(i) for i in range(self.num_classes)]
+        width = max(12, max(len(n) for n in names) + 2)
+        lines = [f"{'':<{width}}{'precision':>10}{'recall':>10}"
+                 f"{'f1':>10}{'support':>10}"]
+        for i, n in enumerate(names):
+            lines.append(
+                f"{n:<{width}}{pc['precision'][i]:>10.4f}"
+                f"{pc['recall'][i]:>10.4f}{pc['f1'][i]:>10.4f}"
+                f"{int(pc['support'][i]):>10d}")
+        lines.append(f"{'accuracy':<{width}}{'':>10}{'':>10}"
+                     f"{self.score():>10.4f}{int(self._cm.sum()):>10d}")
+        lines.append(f"{'macro f1':<{width}}{'':>10}{'':>10}"
+                     f"{self.macro_f1():>10.4f}{'':>10}")
+        return "\n".join(lines)
+
+
+class JointEvaluator(Evaluator):
+    """One stream of updates into several evaluators: the first is primary
+    (its score and direction), ``report()`` comes from the first member
+    after it that has one, then from the first."""
+
+    def __init__(self, *members: Evaluator):
+        if not members:
+            raise ValueError("JointEvaluator needs at least one member")
+        self.members = members
+        self.name = members[0].name
+        self.higher_is_better = members[0].higher_is_better
+
+    def reset(self):
+        for m in self.members:
+            m.reset()
+
+    def update(self, outputs, labels):
+        for m in self.members:
+            m.update(outputs, labels)
+
+    def score(self) -> float:
+        return self.members[0].score()
+
+    def report(self, class_names=None) -> str:
+        for m in self.members[1:] + self.members[:1]:
+            if hasattr(m, "report"):
+                return m.report(class_names)
+        raise AttributeError("no member evaluator exposes report()")
 
 
 def softmax(logits: np.ndarray) -> np.ndarray:

@@ -244,8 +244,13 @@ class ResNet(ResNetBackbone):
                          in_channels=in_channels)
         self.logits = Dense(self.out_channels, num_classes)
 
+    def features(self, x: torch.Tensor) -> torch.Tensor:
+        """The last stage's map, before the pooling (the map the JAX
+        model tags ``"features"``, ``resnet.py:227``)."""
+        return self.stages(x)[-1]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.logits(gap(self.stages(x)[-1]))
+        return self.logits(gap(self.features(x)))
 
 
 def resnet18(num_classes: int = 1000, **kwargs) -> ResNet:

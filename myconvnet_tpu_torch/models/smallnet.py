@@ -8,8 +8,8 @@ widths ``width`` x (1, 2, 4); then global average pool -> dropout ->
 JAX defaults, momentum 0.99 and eps 1e-3 (``nn.py:254-255``).  The JAX
 layers are auto-named at the root, so the modules are ``conv``,
 ``conv_1`` ... ``conv_5`` and ``bn`` ... ``bn_5``, then ``fc1`` and
-``logits``.  The ``features`` tap of the JAX model feeds no number here
-and is left out.
+``logits``.  :meth:`SmallNet.features` is the map the JAX model tags
+``"features"`` (``smallnet.py:24``), the third block's pooled map.
 
 Eval mode routes each conv -> BN -> ReLU through ``models/blocks.py``:
 under bf16, 5 of the 6 convs (all but the C = 3 first) go through
@@ -77,15 +77,20 @@ class SmallNet(nn.Module):
         return {"gap": keep_mask((n, 4 * self.width), r, generator),
                 "fc1": keep_mask((n, 8 * self.width), r, generator)}
 
-    def forward(self, x: torch.Tensor, masks=None,
-                generator: torch.Generator | None = None) -> torch.Tensor:
-        masks = masks or {}
+    def features(self, x: torch.Tensor) -> torch.Tensor:
+        """The three conv blocks' output, before the pooling."""
         layers = list(zip(self.convs(), self.bns(), self.fused))
         for block in range(3):
             for conv, bn, fused in layers[2 * block:2 * block + 2]:
                 x = conv_bn_relu(conv, bn, x, fused)
             x = max_pool(x, 2, 2)
-        x = dropout(gap(x), self.dropout_rate, train=self.training,
+        return x
+
+    def forward(self, x: torch.Tensor, masks=None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        masks = masks or {}
+        x = dropout(gap(self.features(x)), self.dropout_rate,
+                    train=self.training,
                     generator=generator, mask=masks.get("gap"))
         x = dropout(relu(self.fc1(x)), self.dropout_rate,
                     train=self.training, generator=generator,

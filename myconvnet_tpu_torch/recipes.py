@@ -1,19 +1,19 @@
 """Recipe configs (``configs/*.py``) read and wired without the JAX package.
 
 Port of ``myconvnet_tpu/recipes``: ``load_config`` and ``apply_overrides``
-(``common.py``), ``make_optimizer`` (``common.py:68-103``: SGD, momentum,
-Adam, AdamW, with ``clip_norm``), ``make_augment`` (``:124``),
+(``common.py``), ``make_optimizer`` (``common.py:68-121``: SGD, momentum,
+Adam, AdamW with ``clip_norm``, wrapped by ``plateau``, ``freeze``,
+``lookahead`` and ``ema_decay``), ``make_augment`` (``:124``),
 ``make_sources`` (``:131-163``: CIFAR-10 and CIFAR-100, SVHN, MNIST and
 Fashion-MNIST, the synthetic ImageNet split at the recipe's ``raw_hw``,
-and the flow corpus) and, for classification,
-``build_classifier`` (``vision.py:23-65``, with ``accum_steps`` and
-``accum_dtype``), which here builds the trainer directly (the ``ConvNet``
-wrapper of ``models/base.py`` comes later), for segmentation
-``build_segmenter`` (``vision.py:68-106``, with the VOC source and the
-mIoU evaluator of ``common.py:200-202``) and for optical flow
-``build_flow`` (``perception.py:284-398``); :func:`build_trainer` picks by
-``cfg["task"]``.
-Also the mean/std resolution of ``serving_http.build_route``
+and the flow corpus), ``apply_pretrained`` (``:247-275``, the ``.npz``
+form), and the ``ConvNet`` builders of ``registry.convnet_builder``
+(``registry.py:21``): ``build_classifier`` (``vision.py:23-65``, with the
+focal loss, random erasing and SAM), ``build_segmenter``
+(``vision.py:68-106``, with the VOC source and the mIoU evaluator of
+``common.py:200-202``) and ``build_flow`` (``perception.py:284-398``).
+:func:`build_trainer` is the built net's trainer, as a fresh run starts
+it.  Also the mean/std resolution of ``serving_http.build_route``
 (``:134-145``): a recipe's ``augment`` block may set ``mean``/``std``, and
 otherwise the ImageNet statistics of ``AugmentConfig`` apply.
 """
@@ -21,6 +21,7 @@ otherwise the ImageNet statistics of ``AugmentConfig`` apply.
 from __future__ import annotations
 
 import ast
+import functools
 import importlib.util
 import json
 from typing import NamedTuple
@@ -29,16 +30,9 @@ import numpy as np
 import torch
 
 from myconvnet_tpu_torch import models
-from myconvnet_tpu_torch.core.init import init_model
-from myconvnet_tpu_torch.core.precision import apply_backend_flags, \
-    get_policy
 from myconvnet_tpu_torch.data.augment import (IMAGENET_MEAN, IMAGENET_STD,
                                               AugmentConfig, JitterDraws,
-                                              augment_eval_pair,
-                                              augment_train_pair,
-                                              color_jitter, config_jitter,
-                                              sample_geometry, sample_jitter,
-                                              stats)
+                                              color_jitter, sample_jitter)
 from myconvnet_tpu_torch.data.mix import MixConfig
 from myconvnet_tpu_torch.data.pipeline import DataSet
 from myconvnet_tpu_torch.eval.evaluators import (AccuracyEvaluator,
@@ -48,12 +42,13 @@ from myconvnet_tpu_torch.subsets import (cifar10, cifar100, imagenet, mnist,
                                          svhn, voc)
 from myconvnet_tpu_torch.subsets import flow as flow_mod
 from myconvnet_tpu_torch.train import optim
-from myconvnet_tpu_torch.train.losses import (epe_loss, multiscale_epe_loss,
+from myconvnet_tpu_torch.models.base import ConvNet
+from myconvnet_tpu_torch.train.losses import (epe_loss, focal_loss,
+                                              multiscale_epe_loss,
                                               pixel_cross_entropy,
                                               softmax_cross_entropy,
                                               unsupervised_flow_loss)
 from myconvnet_tpu_torch.train.trainer import InputFns, Trainer
-from myconvnet_tpu_torch.utils.logging import MetricLogger
 from myconvnet_tpu_torch.weights import param_views
 
 
@@ -111,35 +106,60 @@ def make_augment(aug_cfg: dict | None) -> AugmentConfig | None:
                             for k, v in aug_cfg.items()})
 
 
-# Keys the JAX builders read that the port has not ported: each changes
-# what is trained, so a recipe that sets one to anything but its default
-# (0, None or False) is refused by name rather than trained differently
-UNPORTED_CLASSIFIER_KEYS = ("erase_prob", "sam_rho")
-UNPORTED_OPTIMIZER_KEYS = ("ema_decay", "plateau", "lookahead", "freeze")
 # The JAX ConvNet also reads remat, chain_steps and zero_sharding; they
 # change how its step runs (rematerialisation, steps chained in one jit
 # call, ZeRO sharding over a mesh), not one number it computes, so the
 # port accepts and ignores them.
 
 
-def make_optimizer(model: torch.nn.Module, opt_cfg: dict
-                   ) -> optim.SGD | optim.Adam:
-    """The recipe's optimizer over ``model``'s parameters (by JAX path)."""
+def make_optimizer(model: torch.nn.Module, opt_cfg: dict):
+    """The recipe's optimizer over ``model``'s parameters (by JAX path),
+    composed as ``recipes/common.py:68-121``: the base optimizer (its
+    clip inside its step), then ``plateau``, ``freeze``, ``lookahead``
+    and ``ema_decay`` outward; ``freeze`` also joins the base's
+    weight-decay exclusion, so frozen leaves feed no decay into the
+    moments."""
     opt_cfg = dict(opt_cfg)
-    for key in UNPORTED_OPTIMIZER_KEYS:
-        value = opt_cfg.pop(key, None)
-        if value:
-            raise ValueError(f"optimizer key {key!r} = {value!r} is not "
-                             "ported (the JAX package wraps the optimizer "
-                             "with it, recipes/common.py:77-80)")
     name = opt_cfg.pop("name")
     lr = opt_cfg.pop("lr")
     if isinstance(lr, dict):
         lr = optim.make_schedule(lr)
     if opt_cfg.pop("wd_exclude_norms", False):
         opt_cfg["weight_decay_exclude"] = optim.norm_and_bias_exclusion
+    ema_decay = opt_cfg.pop("ema_decay", None)
+    plateau = opt_cfg.pop("plateau", False)
+    lookahead = opt_cfg.pop("lookahead", None)
+    freeze = opt_cfg.pop("freeze", None)
+    if freeze is not None:
+        frozen = optim.as_frozen_predicate(freeze)
+        prev = opt_cfg.get("weight_decay_exclude")
+
+        def exclude(path, p, _prev=prev, _frozen=frozen):
+            return _frozen(path, p) or (_prev is not None
+                                        and _prev(path, p))
+
+        opt_cfg["weight_decay_exclude"] = exclude
     named = [(path, p) for path, p, _ in param_views(model)]
-    return optim.make_optimizer(named, name, lr, **opt_cfg)
+    opt = optim.make_optimizer(named, name, lr, **opt_cfg)
+    if plateau:
+        opt = optim.Plateau(opt)
+    if freeze:
+        opt = optim.Frozen(opt, freeze)
+    if lookahead:
+        # True: the paper's defaults; an int: the sync period; a dict:
+        # the keyword arguments
+        kw = (dict(lookahead) if isinstance(lookahead, dict) else {}
+              if lookahead is True else dict(sync_period=int(lookahead)))
+        opt = optim.Lookahead(opt, **kw)
+    if ema_decay:
+        opt = optim.Ema(opt, float(ema_decay))
+    return opt
+
+
+def optimizer_factory(opt_cfg: dict):
+    """``model -> optimizer`` for :class:`ConvNet.build`: the recipe's
+    optimizer, made over whatever model the net builds."""
+    return functools.partial(make_optimizer, opt_cfg=opt_cfg)
 
 
 def split_name(dataset: str, split: str) -> str:
@@ -207,77 +227,49 @@ def build_evaluator(cfg: dict) -> Evaluator:
 def build_classifier(cfg: dict, synthetic: bool = False, *,
                      device: torch.device, ckpt_dir: str | None = None,
                      log_dir: str | None = None
-                     ) -> tuple[Trainer, DataSet, DataSet]:
-    """(trainer, train set, val set) for a classification recipe: the
-    model initialised from ``cfg["seed"]``, softmax CE with the recipe's
-    label smoothing, its augmentation, MixUp/CutMix and optimizer."""
-    if cfg.get("cls_loss", "ce") != "ce":
-        raise ValueError(f"the port has cls_loss 'ce', not "
-                         f"{cfg['cls_loss']!r}")
-    for key in UNPORTED_CLASSIFIER_KEYS:
-        if cfg.get(key):
-            raise ValueError(f"recipe key {key!r} = {cfg[key]!r} is not "
-                             "ported (the JAX ConvNet reads it, "
-                             "recipes/vision.py:51-63)")
-    seed = cfg.get("seed", 0)
-    model = models.get_model(cfg["model"], cfg["num_classes"],
-                             input_hw=cfg.get("input_hw"),
-                             **cfg.get("model_kwargs", {}))
-    init_model(model, torch.Generator().manual_seed(seed))
+                     ) -> tuple[ConvNet, DataSet, DataSet]:
+    """(net, train set, val set) for a classification recipe
+    (``vision.py:23-65``): the model from ``cfg["seed"]``, softmax CE
+    with the recipe's label smoothing or the focal loss, its
+    augmentation, MixUp/CutMix, random erasing and SAM."""
     smoothing = cfg.get("label_smoothing", 0.0)
+    kind = cfg.get("cls_loss", "ce")
+    if kind == "focal":
+        if cfg.get("mix") is not None:
+            raise ValueError("cls_loss='focal' needs integer labels; "
+                             "remove the 'mix' (MixUp/CutMix) entry")
+        if smoothing:
+            raise ValueError("cls_loss='focal' does not support "
+                             "label_smoothing; remove one of the two")
+        gamma = cfg.get("focal_gamma", 2.0)
 
-    def loss(logits, y):
-        return softmax_cross_entropy(logits, y, label_smoothing=smoothing)
-
+        def loss(logits, y):
+            return focal_loss(logits, y, gamma=gamma)
+    elif kind == "ce":
+        def loss(logits, y):
+            return softmax_cross_entropy(logits, y,
+                                         label_smoothing=smoothing)
+    else:
+        raise ValueError(f"unknown cls_loss {kind!r}; valid: ['ce', "
+                         "'focal']")
     augment = make_augment(cfg.get("augment"))
     mix = MixConfig(**cfg["mix"]) if cfg.get("mix") is not None else None
-    policy = get_policy(cfg.get("precision", "f32"))
-    apply_backend_flags(policy)
-    model.to(device)
-    trainer = Trainer(model, make_optimizer(model, cfg["optimizer"]), loss,
-                      device=device, policy=policy,
-                      num_classes=cfg["num_classes"], augment=augment,
-                      mix=mix, evaluator=build_evaluator(cfg), seed=seed,
-                      ckpt_dir=ckpt_dir, log_every=cfg.get("log_every", 50),
-                      logger=MetricLogger(log_dir),
-                      accum_steps=cfg.get("accum_steps", 1),
-                      accum_dtype=cfg.get("accum_dtype", "float32"))
+    net = ConvNet(functools.partial(models.get_model, cfg["model"],
+                                    input_hw=cfg.get("input_hw")),
+                  input_shape=(*cfg["input_hw"], 3),
+                  num_classes=cfg["num_classes"],
+                  precision=cfg.get("precision", "f32"), loss_fn=loss,
+                  augment=augment, mix=mix,
+                  erase_prob=cfg.get("erase_prob", 0.0),
+                  sam_rho=cfg.get("sam_rho", 0.0), seed=cfg.get("seed", 0),
+                  accum_steps=cfg.get("accum_steps", 1),
+                  accum_dtype=cfg.get("accum_dtype", "float32"),
+                  ckpt_dir=ckpt_dir, log_dir=log_dir,
+                  log_every=cfg.get("log_every", 50), device=device,
+                  **cfg.get("model_kwargs", {}))
     train_src, val_src = make_sources(cfg, synthetic)
     # the batch order's seed is DataSet's default 0, as in the JAX recipe
-    return trainer, DataSet(train_src, augment), DataSet(val_src, augment)
-
-
-class PairDraws(NamedTuple):
-    """One segmentation train step's draws: the crop boxes [N, 4], the
-    flips [N] bool and the colour-jitter factors (None when off)."""
-    boxes: torch.Tensor
-    flip: torch.Tensor
-    jitter: JitterDraws | None
-
-
-def segmentation_input_fns(cfg: AugmentConfig, device) -> InputFns:
-    """The segmentation recipes' input chain over uint8 images and int
-    masks (``models/base.py:171-178``): one geometry for image and mask
-    (``augment_train_pair``), jitter on the image alone; in validation
-    the whole frame resized, mask with image (``augment_eval_pair``); the
-    image alone for prediction."""
-    mean_std = stats(cfg, device)
-
-    def sample(generator, n, hw):
-        boxes, flip = sample_geometry(generator, n, hw, cfg)
-        return PairDraws(boxes, flip, config_jitter(generator, n, cfg))
-
-    def train(x_u8, y, draws):
-        return augment_train_pair(x_u8, y, draws.boxes, draws.flip, cfg,
-                                  mean_std, draws.jitter)
-
-    def eval_pair(x_u8, y):
-        return augment_eval_pair(x_u8, y, cfg, mean_std)
-
-    def eval_image(x_u8):
-        return augment_eval_pair(x_u8, None, cfg, mean_std)[0]
-
-    return InputFns(sample, train, eval_image, eval_pair)
+    return net, DataSet(train_src, augment), DataSet(val_src, augment)
 
 
 # segmentation losses of the JAX recipe that the port has not ported
@@ -290,9 +282,9 @@ UNPORTED_SEG_LOSSES = ("dice", "ce_dice", "focal")
 def build_segmenter(cfg: dict, synthetic: bool = False, *,
                     device: torch.device, ckpt_dir: str | None = None,
                     log_dir: str | None = None
-                    ) -> tuple[Trainer, DataSet, DataSet]:
-    """(trainer, train set, val set) for a segmentation recipe: the
-    :func:`segmenter_trainer` of its ``augment`` block, at 96 x 96 for a
+                    ) -> tuple[ConvNet, DataSet, DataSet]:
+    """(net, train set, val set) for a segmentation recipe: the
+    :func:`segmenter_net` of its ``augment`` block, at 96 x 96 for a
     synthetic run (as JAX shrinks it), and its VOC splits."""
     aug = make_augment(cfg.get("augment"))
     if aug is None:
@@ -303,19 +295,18 @@ def build_segmenter(cfg: dict, synthetic: bool = False, *,
         # the synthetic masks are small: the JAX recipe shrinks the
         # resolution (vision.py:89-92)
         aug = aug._replace(out_hw=(96, 96))
-    trainer = segmenter_trainer(cfg, aug, device, ckpt_dir=ckpt_dir,
-                                log_dir=log_dir)
+    net = segmenter_net(cfg, aug, device, ckpt_dir=ckpt_dir,
+                        log_dir=log_dir)
     train_src, val_src = make_sources(cfg, synthetic)
-    return trainer, DataSet(train_src), DataSet(val_src)
+    return net, DataSet(train_src), DataSet(val_src)
 
 
-def segmenter_trainer(cfg: dict, aug: AugmentConfig, device: torch.device,
-                      *, ckpt_dir: str | None = None,
-                      log_dir: str | None = None) -> Trainer:
-    """A segmentation recipe's trainer for the paired input chain ``aug``
-    (its ``out_hw`` the crop the model is built for): the model
-    initialised from ``cfg["seed"]``, per-pixel CE with the recipe's
-    ignore label, the recipe's optimizer and the mIoU evaluator."""
+def segmenter_net(cfg: dict, aug: AugmentConfig, device: torch.device,
+                  *, ckpt_dir: str | None = None,
+                  log_dir: str | None = None) -> ConvNet:
+    """A segmentation recipe's net for the paired input chain ``aug``
+    (its ``out_hw`` the crop the model is built for): per-pixel CE with
+    the recipe's ignore label."""
     kind = cfg.get("seg_loss", "ce")
     if kind in UNPORTED_SEG_LOSSES:
         raise ValueError(f"recipe key 'seg_loss' = {kind!r} is not ported "
@@ -323,28 +314,35 @@ def segmenter_trainer(cfg: dict, aug: AugmentConfig, device: torch.device,
                          "recipes/vision.py:73-84)")
     if kind != "ce":
         raise ValueError(f"unknown seg_loss {kind!r}; the port has 'ce'")
-    seed = cfg.get("seed", 0)
-    model = models.get_model(cfg["model"], cfg["num_classes"],
-                             input_hw=aug.out_hw,
-                             **cfg.get("model_kwargs", {}))
-    init_model(model, torch.Generator().manual_seed(seed))
     ignore = cfg.get("ignore_label", 255)
 
     def loss(logits, y):
         return pixel_cross_entropy(logits, y, ignore_label=ignore)
 
-    policy = get_policy(cfg.get("precision", "f32"))
-    apply_backend_flags(policy)
-    model.to(device)
-    return Trainer(model, make_optimizer(model, cfg["optimizer"]), loss,
-                   device=device, policy=policy,
+    return ConvNet(functools.partial(models.get_model, cfg["model"],
+                                     input_hw=aug.out_hw),
+                   input_shape=(*aug.out_hw, 3),
                    num_classes=cfg["num_classes"],
-                   evaluator=build_evaluator(cfg), seed=seed,
-                   ckpt_dir=ckpt_dir, log_every=cfg.get("log_every", 50),
-                   logger=MetricLogger(log_dir),
+                   precision=cfg.get("precision", "f32"), loss_fn=loss,
+                   augment=aug, paired_targets=True,
+                   seed=cfg.get("seed", 0),
                    accum_steps=cfg.get("accum_steps", 1),
                    accum_dtype=cfg.get("accum_dtype", "float32"),
-                   input_fns=segmentation_input_fns(aug, device))
+                   ckpt_dir=ckpt_dir, log_dir=log_dir,
+                   log_every=cfg.get("log_every", 50), device=device,
+                   **cfg.get("model_kwargs", {}))
+
+
+def segmenter_trainer(cfg: dict, aug: AugmentConfig, device: torch.device,
+                      *, ckpt_dir: str | None = None,
+                      log_dir: str | None = None) -> Trainer:
+    """The trainer of :func:`segmenter_net`, built with the recipe's
+    optimizer and the mIoU evaluator (a run at a crop of its own)."""
+    net = segmenter_net(cfg, aug, device, ckpt_dir=ckpt_dir,
+                        log_dir=log_dir)
+    net.build(optimizer_factory(cfg["optimizer"]))
+    net.trainer.evaluator = build_evaluator(cfg)
+    return net.trainer
 
 
 class FlowDraws(NamedTuple):
@@ -420,53 +418,88 @@ def flow_loss_fn(cfg: dict, multiscale: bool):
 def build_flow(cfg: dict, synthetic: bool = False, *,
                device: torch.device, ckpt_dir: str | None = None,
                log_dir: str | None = None
-               ) -> tuple[Trainer, DataSet, DataSet]:
-    """(trainer, train set, val set) for an optical-flow recipe: the model
-    initialised from ``cfg["seed"]`` (zero flow heads), the recipe's input
-    chain and loss, no accuracy metric, the AEPE (or Fl) evaluator, whose
-    lower score is the better one."""
+               ) -> tuple[ConvNet, DataSet, DataSet]:
+    """(net, train set, val set) for an optical-flow recipe
+    (``perception.py:284-398``): the model from ``cfg["seed"]`` (zero
+    flow heads), the recipe's input chain and loss, no accuracy
+    metric."""
     name = cfg.get("model", "flownet_s")
     fn = models.FLOW_MODELS.get(name)
     if fn is None:
         raise ValueError(f"unknown flow model {name!r}; valid: "
                          f"{sorted(models.FLOW_MODELS)}")
-    seed = cfg.get("seed", 0)
-    model = fn(0, **dict(cfg.get("model_kwargs", {})))
-    init_model(model, torch.Generator().manual_seed(seed))
+    hw = tuple(cfg.get("input_hw", flow_mod.DEFAULT_HW))
     unsup = bool(cfg.get("unsupervised", False))
     loss = flow_loss_fn(cfg, getattr(fn, "multiscale", False))
     fns = flow_input_fns(float(cfg.get("aug_brightness", 0.2)),
                          float(cfg.get("aug_contrast", 0.2)),
                          unsupervised=unsup,
                          occlusion=bool(cfg.get("occlusion", False)))
-    policy = get_policy(cfg.get("precision", "f32"))
-    apply_backend_flags(policy)
-    model.to(device)
-    trainer = Trainer(model, make_optimizer(model, cfg["optimizer"]), loss,
-                      device=device, policy=policy, num_classes=0,
-                      evaluator=build_evaluator(cfg), seed=seed,
-                      ckpt_dir=ckpt_dir, log_every=cfg.get("log_every", 50),
-                      logger=MetricLogger(log_dir),
-                      accum_steps=cfg.get("accum_steps", 1),
-                      input_fns=fns, accuracy_metric=False)
+    net = ConvNet(fn, input_shape=(*hw, 6), num_classes=0,
+                  precision=cfg.get("precision", "f32"), loss_fn=loss,
+                  input_fns=fns, accuracy_metric=False,
+                  accum_steps=cfg.get("accum_steps", 1),
+                  seed=cfg.get("seed", 0), ckpt_dir=ckpt_dir,
+                  log_dir=log_dir, log_every=cfg.get("log_every", 50),
+                  device=device, **dict(cfg.get("model_kwargs", {})))
     train_src, val_src = make_sources(cfg, synthetic)
-    return (trainer, DataSet(train_src, seed=seed), DataSet(val_src))
+    return (net, DataSet(train_src, seed=cfg.get("seed", 0)),
+            DataSet(val_src))
+
+
+TASKS = ("classification", "segmentation", "flow", "gan")
+
+
+def convnet_builder(task: str):
+    """The ``ConvNet`` builder of a task (``recipes/registry.py:21``):
+    segmentation and flow have their own, every other task the
+    classifier's."""
+    return {"segmentation": build_segmenter,
+            "flow": build_flow}.get(task, build_classifier)
+
+
+def check_task(cfg: dict) -> str:
+    task = cfg.get("task", "classification")
+    if task not in TASKS:
+        raise ValueError(f"the port has tasks {list(TASKS)}, not {task!r}")
+    return task
+
+
+def apply_pretrained(net: ConvNet, cfg: dict) -> None:
+    """Warm-start the built ``net`` from the recipe's ``pretrained``
+    block (``common.py:247-275``) in its ``.npz`` form: ``dict(path=
+    "x.npz")``, a flat ``scope::name`` file read by
+    ``models.pretrained.load_npz_weights`` into the parameters (a subset
+    restore).  The torch-file form (a downloaded ``.pth``) is refused."""
+    from myconvnet_tpu_torch.models.pretrained import load_npz_weights
+    from myconvnet_tpu_torch.weights import from_jax, to_jax
+    pcfg = cfg["pretrained"]
+    if not isinstance(pcfg, dict) or "path" not in pcfg:
+        raise ValueError(f"recipe key 'pretrained' = {pcfg!r}: it wants "
+                         "dict(path=...), as recipes/common.py:247-261")
+    path = str(pcfg["path"])
+    if not path.endswith(".npz"):
+        raise ValueError(f"recipe key 'pretrained' path {path!r}: the "
+                         "torch-file form is not ported "
+                         "(models/pretrained.py import_torch_resnet_file, "
+                         "ROADMAP A8); an .npz of scope::name arrays is")
+    params, state = to_jax(net.trainer.model)
+    from_jax(net.trainer.model, load_npz_weights(path, params), state)
+    print(f"warm-started from {path}", flush=True)
 
 
 def build_trainer(cfg: dict, synthetic: bool = False, **kwargs
                   ) -> tuple[Trainer, DataSet, DataSet]:
-    """The recipe's (trainer, train set, val set), by ``cfg["task"]``.
-    A ``pretrained`` block is refused: the JAX package warm-starts from it
-    (``train.py:170-175``), and training from seed weights instead would
-    be another run."""
+    """The recipe's (trainer, train set, val set) as a fresh run starts
+    it: :func:`convnet_builder`'s net built with the recipe's optimizer,
+    warm-started from ``pretrained``, with the recipe's evaluator."""
+    task = check_task(cfg)
+    if task == "gan":
+        raise ValueError("GAN recipes build through recipes_gan.build_gan")
+    net, train_set, val_set = convnet_builder(task)(cfg, synthetic,
+                                                    **kwargs)
+    net.build(optimizer_factory(cfg["optimizer"]))
     if cfg.get("pretrained") is not None:
-        raise ValueError(f"recipe key 'pretrained' = {cfg['pretrained']!r} "
-                         "is not ported (the JAX trainer warm-starts from "
-                         "it, recipes/common.py:247-275)")
-    by_task = {"classification": build_classifier,
-               "segmentation": build_segmenter, "flow": build_flow}
-    task = cfg.get("task", "classification")
-    if task not in by_task:
-        raise ValueError(f"the port has tasks {sorted(by_task)}, not "
-                         f"{task!r}")
-    return by_task[task](cfg, synthetic, **kwargs)
+        apply_pretrained(net, cfg)
+    net.trainer.evaluator = build_evaluator(cfg)
+    return net.trainer, train_set, val_set

@@ -3,17 +3,26 @@ optical-flow and GAN recipes).
 
     python -m myconvnet_tpu_torch.train --config configs/cifar100_resnet18.py \\
         --synthetic --steps N --out DIR [--batch N] [--val_every N] \\
-        [--set KEY=VALUE ...] [--device cuda]
+        [--epochs N] [--accum_steps N] [--resume] [--max_restarts N] \\
+        [--summary] [--trace] [--set KEY=VALUE ...] [--device cuda]
 
-Port of ``train.py:22-213`` (``main`` and ``run_supervised``) for the
-classification and flow tasks: config -> data sets -> model -> trainer,
-the step loop with periodic validation and checkpoints under ``--out``,
-then a final validation.  A GAN recipe (``task="gan"``) goes to
+Port of ``train.py:22-213``: config -> the task's ``ConvNet`` builder ->
+:func:`run_supervised` (``train.py:141-206``): ``--epochs`` resolved into
+``total_steps`` (and the schedule's) before the optimizer is built, a
+``pretrained`` warm start unless resuming, ``--resume`` from the newest
+checkpoint under ``--out``, ``ConvNet.train`` under a
+:class:`PreemptionGuard` (and a ``torch.profiler`` trace under
+``--out/trace`` with ``--trace``), the final validation and save.  A
+crash restarts from the newest checkpoint up to ``--max_restarts`` times
+(``train.py:124-138``); ``MYCONVNET_FAULT_ONCE`` injects one crash after
+training, to test that path.  A GAN recipe (``task="gan"``) goes to
 :func:`run_gan`, the port of ``run_steploop`` with ``adapt_gan``
-(``train.py:216``, ``:450``).  ``--device`` defaults to ``cuda``; without
-CUDA that is an error (pass ``--device cpu`` to train on the host).
-``main(argv)`` returns the trainer, so a script can drive a run
-in-process.
+(``train.py:216``, ``:450``).  ``--tensorboard`` and ``--mesh`` are
+refused by name (the card's machine has no ``tensorboard``; the mesh is
+ROADMAP A16).  ``--device`` defaults to ``cuda``; without CUDA that is
+an error (pass ``--device cpu`` to train on the host).  ``main(argv)``
+returns the ``ConvNet`` (its ``trainer`` holds the step, the model and
+the optimizer), or the GAN trainer.
 """
 
 from __future__ import annotations
@@ -40,23 +49,52 @@ def main(argv=None):
     ap.add_argument("--synthetic", action="store_true",
                     help="use generated data (no corpus required)")
     ap.add_argument("--steps", type=int, default=None)
+    ap.add_argument("--epochs", type=int, default=None,
+                    help="train for N epochs of the train split "
+                         "(overrides total_steps)")
     ap.add_argument("--batch", type=int, default=None)
+    ap.add_argument("--data_dir", default=None)
     ap.add_argument("--out", default=None, help="run dir (ckpts + logs)")
     ap.add_argument("--val_every", type=int, default=None)
+    ap.add_argument("--accum_steps", type=int, default=None,
+                    help="gradient-accumulation microbatches per step")
+    ap.add_argument("--mesh", default=None,
+                    help="not ported (ROADMAP A16)")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the latest checkpoint in --out")
+    ap.add_argument("--max_restarts", type=int, default=0,
+                    help="on a crash, restart from the latest checkpoint "
+                         "up to N times")
+    ap.add_argument("--tensorboard", action="store_true",
+                    help="not ported (no tensorboard on the card's "
+                         "machine)")
+    ap.add_argument("--trace", action="store_true",
+                    help="write a torch.profiler Chrome trace of the run "
+                         "under --out/trace")
+    ap.add_argument("--summary", action="store_true",
+                    help="print the model's per-scope parameter table "
+                         "(+ forward GFLOPs) before training")
     ap.add_argument("--set", action="append", default=None,
                     metavar="KEY=VALUE", dest="overrides",
                     help="override a config entry (repeatable; dotted "
                          "keys reach nested dicts)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    if args.mesh:
+        raise SystemExit("train --mesh is not ported (ROADMAP A16)")
+    if args.tensorboard:
+        raise SystemExit("train --tensorboard is not ported (ROADMAP A8)")
 
     from myconvnet_tpu_torch import recipes
 
     device = resolve_device(args.device)
     cfg = recipes.load_config(args.config)
     for key, value in (("total_steps", args.steps),
+                       ("epochs", args.epochs),
                        ("batch_size", args.batch),
-                       ("val_every", args.val_every)):
+                       ("data_dir", args.data_dir),
+                       ("val_every", args.val_every),
+                       ("accum_steps", args.accum_steps)):
         if value is not None:
             cfg[key] = value
     cfg = recipes.apply_overrides(cfg, args.overrides)
@@ -64,24 +102,94 @@ def main(argv=None):
         "runs", os.path.splitext(os.path.basename(args.config))[0])
     os.makedirs(out, exist_ok=True)
     # reproducibility: the resolved config (file + command-line overrides)
+    write_config(cfg, out)
+
+    if recipes.check_task(cfg) == "gan":
+        return run_gan(cfg, args.synthetic, out, device)
+    attempts = 0
+    while True:
+        try:
+            return run_supervised(cfg, args, out, device,
+                                  resume=args.resume or attempts > 0)
+        except (KeyboardInterrupt, SystemExit):
+            raise
+        except Exception as e:  # a crash: resume from the newest ckpt
+            attempts += 1
+            if attempts > args.max_restarts:
+                raise
+            print(f"[restart {attempts}/{args.max_restarts}] after "
+                  f"{type(e).__name__}: {e}; resuming from latest "
+                  f"checkpoint in {out}", flush=True)
+
+
+def write_config(cfg: dict, out: str) -> None:
     with open(os.path.join(out, "config.json"), "w") as f:
         json.dump(cfg, f, indent=1, default=str)
 
-    if cfg.get("task") == "gan":
-        return run_gan(cfg, args.synthetic, out, device)
-    trainer, train_set, val_set = recipes.build_trainer(
-        cfg, synthetic=args.synthetic, device=device, ckpt_dir=out,
-        log_dir=out)
-    batch = cfg["batch_size"]
-    trainer.fit(train_set.train_iter(batch, device),
-                total_steps=cfg["total_steps"],
-                val_iter_fn=lambda: val_set.eval_iter(batch, device),
-                val_every=cfg.get("val_every", 0),
-                early_stop_patience=cfg.get("early_stop_patience", 0))
-    score = trainer.evaluate(val_set.eval_iter(batch, device))
-    print(f"final val {trainer.evaluator.name}: {score:.4f}", flush=True)
-    trainer.logger.close()
-    return trainer
+
+def run_supervised(cfg: dict, args, out: str, device: torch.device,
+                   resume: bool):
+    """One attempt of a ConvNet-API run (``train.py:141-206``); returns
+    the net."""
+    from myconvnet_tpu_torch import recipes
+    from myconvnet_tpu_torch.ckpt import checkpoint as ckpt_lib
+    from myconvnet_tpu_torch.utils.preemption import PreemptionGuard
+
+    builder = recipes.convnet_builder(cfg["task"])
+    net, train_set, val_set = builder(cfg, args.synthetic, device=device,
+                                      ckpt_dir=out, log_dir=out)
+    with PreemptionGuard() as guard:
+        net.preemption_guard = guard
+        if cfg.get("epochs"):
+            # before the optimizer is built, so that a schedule's horizon
+            # is the run's
+            spe = max(len(train_set) // cfg["batch_size"], 1)
+            cfg["total_steps"] = int(cfg["epochs"]) * spe
+            lr = cfg.get("optimizer", {}).get("lr")
+            if isinstance(lr, dict) and "total_steps" in lr:
+                lr["total_steps"] = cfg["total_steps"]
+            write_config(cfg, out)
+        evaluator = recipes.build_evaluator(cfg)
+        optimizer = recipes.optimizer_factory(cfg["optimizer"])
+        if args.summary:
+            net.build(optimizer)
+            net.summary()
+        if cfg.get("pretrained") and not resume:
+            # the checkpoint of a resumed run holds the trained weights
+            net.build(optimizer)
+            recipes.apply_pretrained(net, cfg)
+        if resume and ckpt_lib.latest_checkpoint(out):
+            net.build(optimizer)
+            net.restore(out)
+            print(f"resumed from step {net.trainer.step}", flush=True)
+        train_kw = dict(batch_size=cfg["batch_size"],
+                        total_steps=cfg["total_steps"],
+                        optimizer=optimizer, evaluator=evaluator,
+                        val_every=cfg.get("val_every", 0),
+                        early_stop_patience=cfg.get("early_stop_patience",
+                                                    0),
+                        plateau_factor=cfg.get("plateau_factor", 0.0),
+                        plateau_patience=cfg.get("plateau_patience", 0))
+        if args.trace:
+            from myconvnet_tpu_torch.utils.profiling import trace
+            with trace(os.path.join(out, "trace")):
+                net.train(train_set, val_set, **train_kw)
+            print(f"trace: {os.path.join(out, 'trace')}", flush=True)
+        else:
+            net.train(train_set, val_set, **train_kw)
+        # a crash exactly once, after training (a checkpoint exists) and
+        # before the evaluation: the restart path's test
+        if os.environ.get("MYCONVNET_FAULT_ONCE"):
+            marker = os.path.join(out, ".fault_injected")
+            if not os.path.exists(marker):
+                open(marker, "w").close()
+                raise RuntimeError("injected fault (MYCONVNET_FAULT_ONCE)")
+        score = net.evaluate(val_set, evaluator,
+                             batch_size=cfg["batch_size"])
+        print(f"final val {evaluator.name}: {score:.4f}", flush=True)
+        net.save()
+    net.logger.close()
+    return net
 
 
 def run_gan(cfg: dict, synthetic: bool, out: str, device: torch.device):

@@ -39,7 +39,6 @@ data), so either package restores the other's.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Callable, Iterable, NamedTuple
 
 import numpy as np
@@ -49,11 +48,11 @@ from torch import nn
 from myconvnet_tpu_torch import weights
 from myconvnet_tpu_torch.ckpt import checkpoint as ckpt_lib
 from myconvnet_tpu_torch.core.precision import Policy
-from myconvnet_tpu_torch.nn import BatchNorm
 from myconvnet_tpu_torch.ops.kernels.normalize_u8 import normalize_u8
 from myconvnet_tpu_torch.train.losses import get_gan_losses, l1_loss
 from myconvnet_tpu_torch.train.optim import Adam, SGD
-from myconvnet_tpu_torch.train.trainer import rng_data, seed_of
+from myconvnet_tpu_torch.train.trainer import frozen_stats, rng_data, \
+    seed_of
 from myconvnet_tpu_torch.utils.logging import MetricLogger
 
 KINDS = ("dcgan", "pix2pix")
@@ -79,20 +78,6 @@ class GANDraws(NamedTuple):
     z: torch.Tensor | None = None
     d_masks: dict | None = None
     g_masks: dict | None = None
-
-
-@contextlib.contextmanager
-def frozen_stats(model: nn.Module):
-    """Train-mode BNs of ``model`` normalize with batch statistics but
-    leave their moving statistics as they are."""
-    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
-    for m in bns:
-        m.update_stats = False
-    try:
-        yield
-    finally:
-        for m in bns:
-            m.update_stats = True
 
 
 class GANTrainer:

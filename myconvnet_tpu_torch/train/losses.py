@@ -1,7 +1,8 @@
 """Losses, reduced in float32 under any compute dtype.
 
 Port of ``myconvnet_tpu/train/losses.py``: softmax cross-entropy
-(``:15-28``), its per-pixel form with the ignore label (``:31-44``) and the
+(``:15-28``), its per-pixel form with the ignore label (``:31-44``), the
+focal loss (``:71-110``) and the
 optical-flow objectives (``:159-334``): the Charbonnier end-point error
 with NaN-masked targets, its multi-scale form for the coarse-to-fine nets,
 and the unsupervised photometric + smoothness objective with its forward-
@@ -49,6 +50,42 @@ def pixel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
             - (label_smoothing / nc) * logp.sum(dim=-1)
     vf = valid.float()
     return (ce * vf).sum() / vf.sum().clamp(min=1.0)
+
+
+def focal_loss(logits: torch.Tensor, labels: torch.Tensor, *,
+               gamma: float = 2.0, alpha=None,
+               ignore_label: int | None = None) -> torch.Tensor:
+    """Focal loss, CE scaled by (1 - p_t)^gamma, over [N, C] or
+    [N, H, W, C] logits and int labels of one rank less; the sum over
+    valid elements divided by their count (at least 1).  ``alpha``: a
+    length-C sequence weights each target class (alpha_t), a scalar
+    rescales uniformly.  Soft labels are refused, as JAX refuses them."""
+    logits = logits.float()
+    if labels.dim() != logits.dim() - 1:
+        raise ValueError(
+            "focal_loss needs integer class labels; soft labels "
+            "(MixUp/CutMix) have no standard focal form — use "
+            "softmax_cross_entropy for mixed batches")
+    nc = logits.shape[-1]
+    valid = (torch.ones(labels.shape, device=logits.device)
+             if ignore_label is None else (labels != ignore_label).float())
+    safe = torch.where(valid > 0, labels, torch.zeros_like(labels)).long()
+    onehot = torch.nn.functional.one_hot(safe, nc).float()
+    logp = torch.log_softmax(logits, dim=-1)
+    logp_t = (onehot * logp).sum(dim=-1)
+    p_t = torch.exp(logp_t)
+    w = (1.0 - p_t) ** gamma
+    if alpha is not None:
+        a = torch.as_tensor(alpha, dtype=torch.float32, device=logits.device)
+        if a.dim() == 1:
+            if a.shape[0] != nc:
+                raise ValueError(f"per-class alpha needs length {nc}, got "
+                                 f"{a.shape[0]}")
+            w = w * (onehot * a).sum(dim=-1)   # alpha_t by target
+        else:
+            w = w * a                          # uniform rescale
+    loss = -w * logp_t * valid
+    return loss.sum() / valid.sum().clamp(min=1.0)
 
 
 def epe_loss(pred: torch.Tensor, target: torch.Tensor, *,

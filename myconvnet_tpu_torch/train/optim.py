@@ -6,9 +6,10 @@ recipes use: ``cosine_decay``/``cosine_restarts`` (``:62-101``),
 ``polynomial_decay`` (``:70-77``, DeepLab's "poly"),
 ``warmup`` (``:104-112``), ``norm_and_bias_exclusion`` and the decay mask
 (``:131-157``), ``sgd``/``momentum`` (``:159-199``), ``adam``/``adamw``
-(``:202-249``), ``make_schedule`` / ``make_optimizer`` (``:374-415``) and
+(``:202-249``), ``make_schedule`` / ``make_optimizer`` (``:374-415``),
 ``global_norm``/``clip_by_global_norm``/``with_gradient_clipping``
-(``:416-437``).
+(``:416-437``) and the wrappers of ``:440-644`` (freeze, lookahead,
+reduce-on-plateau and EMA; see :class:`Frozen` and below).
 
 A schedule is a function of the step counter evaluated in float32, as the
 JAX schedules are inside the jitted step.  The update is the JAX one:
@@ -150,6 +151,7 @@ class SGD:
                  clip_norm: float | None = None):
         self.schedule = lr if callable(lr) else constant(float(lr))
         self.clip_norm = clip_norm
+        self.named = list(named_params)
         self.paths = {p: path for path, p in named_params}
         mask = decay_mask(named_params, weight_decay_exclude)
         groups = [
@@ -312,3 +314,227 @@ def make_optimizer(named_params, name: str, lr, **kwargs):
         raise ValueError(f"the port has optimizers ['adam', 'adamw', "
                          f"'momentum', 'sgd'], not {name!r}")
     return SGD(named_params, lr, **kwargs)
+
+
+# ------------------------------------------------------------ wrappers
+#
+# Port of ``optim.py:440-644``.  Each wrapper holds an inner optimizer
+# (``SGD``, ``Adam`` or another wrapper) over the same (JAX path,
+# parameter) pairs and exposes the same ``step(i)``, ``zero_grad`` and
+# ``state_trees``/``load_state_trees``.  ``state_trees`` names a field by
+# its JAX path, the NamedTuple fields joined by ``SEP`` (``.inner::.mu``
+# is ``EmaOptState.inner.mu``), as the checkpoint flattens them; a field
+# holds {path: tensor} laid out as the parameters, or one scalar tensor.
+
+SEP = "::"
+
+
+def _nested(prefix: str, trees: dict) -> dict:
+    """``trees``' fields under ``prefix`` (``""``, the tree itself, maps
+    to ``prefix``)."""
+    return {(f"{prefix}{SEP}{f}" if f else prefix): v
+            for f, v in trees.items()}
+
+
+def _inner_of(prefix: str, trees: dict) -> dict:
+    """The fields of ``trees`` under ``prefix``, without it."""
+    out = {}
+    for f, v in trees.items():
+        if f == prefix:
+            out[""] = v
+        elif f.startswith(prefix + SEP):
+            out[f[len(prefix) + len(SEP):]] = v
+    return out
+
+
+class _Wrapper:
+    def __init__(self, inner):
+        self.inner = inner
+        self.named = list(inner.named)
+        self.params = [p for _, p in self.named]
+
+    def zero_grad(self) -> None:
+        self.inner.zero_grad()
+
+    def _fields(self) -> dict:
+        return {}
+
+    def _load_fields(self, trees: dict) -> None:
+        pass
+
+    def state_trees(self) -> dict:
+        return {**_nested(".inner", self.inner.state_trees()),
+                **self._fields()}
+
+    @torch.no_grad()
+    def load_state_trees(self, trees: dict) -> None:
+        self.inner.load_state_trees(_inner_of(".inner", trees))
+        self._load_fields(trees)
+
+
+def as_frozen_predicate(frozen):
+    """``with_frozen``'s ``frozen`` argument, a ``(path, param) -> bool``
+    predicate or an iterable of scope-path prefixes, as a predicate (a
+    bare string is one prefix)."""
+    if callable(frozen):
+        return frozen
+    if isinstance(frozen, str):
+        frozen = (frozen,)
+    prefixes = tuple(str(p) for p in frozen)
+    return lambda path, p, _pre=prefixes: path.startswith(_pre)
+
+
+class Frozen(_Wrapper):
+    """``with_frozen``: the frozen parameters' gradients are zeroed before
+    the inner step (so before the clip inside ``SGD``/``Adam`` takes its
+    global norm) and their exact values are put back after it.  It adds no
+    state: its checkpoint fields are the inner optimizer's."""
+
+    def __init__(self, inner, frozen):
+        super().__init__(inner)
+        pred = as_frozen_predicate(frozen)
+        self.frozen = [p for path, p in self.named if pred(path, p)]
+
+    def state_trees(self) -> dict:
+        return self.inner.state_trees()
+
+    def load_state_trees(self, trees: dict) -> None:
+        self.inner.load_state_trees(trees)
+
+    @torch.no_grad()
+    def step(self, step: int) -> float:
+        kept = [p.detach().clone() for p in self.frozen]
+        for p in self.frozen:
+            if p.grad is not None:
+                p.grad.zero_()
+        lr = self.inner.step(step)
+        if kept:
+            torch._foreach_copy_(self.frozen, kept)
+        return lr
+
+
+class Lookahead(_Wrapper):
+    """``with_lookahead``: float32 slow weights; after every
+    ``sync_period`` inner steps they move ``slow_step`` of the way to the
+    fast weights, ``s + slow_step (f - s)``, and the fast weights are set
+    to them.  The step count since the last sync is a host integer (a
+    checkpoint holds it as JAX's int32 ``count``), so no step syncs."""
+
+    def __init__(self, inner, sync_period: int = 5, slow_step: float = 0.5):
+        super().__init__(inner)
+        self.sync_period, self.slow_step = int(sync_period), slow_step
+        self.slow = [p.detach().float().clone() for p in self.params]
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self, step: int) -> float:
+        lr = self.inner.step(step)
+        self.count += 1
+        if self.count >= self.sync_period:
+            d = torch._foreach_sub([p.float() for p in self.params],
+                                   self.slow)
+            torch._foreach_mul_(d, self.slow_step)
+            torch._foreach_add_(self.slow, d)
+            torch._foreach_copy_(self.params, self.slow)
+            self.count = 0
+        return lr
+
+    def _fields(self) -> dict:
+        return {".slow": {path: s for (path, _), s
+                          in zip(self.named, self.slow)},
+                ".count": torch.tensor(self.count, dtype=torch.int32)}
+
+    def _load_fields(self, trees: dict) -> None:
+        slow = trees.get(".slow", {})
+        for (path, _), s in zip(self.named, self.slow):
+            if path in slow:
+                s.copy_(slow[path])
+        if ".count" in trees:
+            self.count = int(trees[".count"])
+
+
+class Plateau(_Wrapper):
+    """``with_plateau``: a host-set LR multiplier ``lr_scale`` applied to
+    the step's delta in float32, ``p + s (p' - p)`` (every step, also at
+    s = 1, as JAX does)."""
+
+    def __init__(self, inner):
+        super().__init__(inner)
+        self.lr_scale = 1.0
+
+    @torch.no_grad()
+    def step(self, step: int) -> float:
+        before = [p.detach().float().clone() for p in self.params]
+        lr = self.inner.step(step)
+        d = torch._foreach_sub([p.float() for p in self.params], before)
+        torch._foreach_mul_(d, float(F32(self.lr_scale)))
+        torch._foreach_add_(before, d)
+        torch._foreach_copy_(self.params, before)
+        return lr
+
+    def _fields(self) -> dict:
+        return {".lr_scale": torch.tensor(self.lr_scale,
+                                          dtype=torch.float32)}
+
+    def _load_fields(self, trees: dict) -> None:
+        if ".lr_scale" in trees:
+            self.lr_scale = float(trees[".lr_scale"])
+
+
+class Ema(_Wrapper):
+    """``with_ema``: a float32 Polyak average of the parameters after each
+    step, ``decay e + (1 - decay) p``, started from the parameters the
+    optimizer was made over."""
+
+    def __init__(self, inner, decay: float = 0.999):
+        super().__init__(inner)
+        self.decay = float(decay)
+        self.ema = [p.detach().float().clone() for p in self.params]
+
+    @torch.no_grad()
+    def step(self, step: int) -> float:
+        lr = self.inner.step(step)
+        torch._foreach_mul_(self.ema, self.decay)
+        torch._foreach_add_(self.ema, torch._foreach_mul(
+            [p.float() for p in self.params], 1.0 - self.decay))
+        return lr
+
+    def _fields(self) -> dict:
+        return {".ema": {path: e for (path, _), e
+                         in zip(self.named, self.ema)}}
+
+    def _load_fields(self, trees: dict) -> None:
+        ema = trees.get(".ema", {})
+        for (path, _), e in zip(self.named, self.ema):
+            if path in ema:
+                e.copy_(ema[path])
+
+
+def _find_plateau(opt) -> Plateau:
+    # JAX searches through EmaOptState only (optim.py:573-597); Frozen
+    # holds no state of its own, so its state is the inner one's
+    if isinstance(opt, Plateau):
+        return opt
+    if isinstance(opt, (Ema, Frozen)):
+        return _find_plateau(opt.inner)
+    raise ValueError("optimizer state has no plateau scale (wrap the "
+                     "optimizer with optim.with_plateau, inside with_ema)")
+
+
+def plateau_scale(opt) -> float:
+    """The LR multiplier of a :class:`Plateau` in ``opt``."""
+    return _find_plateau(opt).lr_scale
+
+
+def set_plateau_scale(opt, scale: float) -> None:
+    """Set the LR multiplier of the :class:`Plateau` in ``opt``."""
+    _find_plateau(opt).lr_scale = float(F32(scale))
+
+
+def extract_ema(opt) -> dict[str, torch.Tensor]:
+    """{path: float32 EMA} of an :class:`Ema` optimizer (the caller casts
+    to the parameters' dtype)."""
+    if not isinstance(opt, Ema):
+        raise ValueError("optimizer state has no EMA (wrap the optimizer "
+                         "with optim.with_ema)")
+    return {path: e for (path, _), e in zip(opt.named, opt.ema)}

@@ -14,8 +14,14 @@ return a list of outputs (the flow pyramid) and the best checkpoint is the
 evaluator's ``is_better``, lower or higher.  A recipe whose targets are
 masks (segmentation, ``paired_targets`` in JAX) gives :class:`InputFns`
 an ``eval_pair`` that transforms the mask with the image in validation,
-as JAX's ``eval_step`` does (``:276-282``).  Remat, SAM, ZeRO, dispatch
-chaining and the mesh come with later slices.
+as JAX's ``eval_step`` does (``:276-282``).  Also random erasing after
+MixUp/CutMix (``models/base.py:185-199``), sharpness-aware minimization
+(``sam_rho``, ``:187-210``: per microbatch, the ascent pass under
+:func:`frozen_stats`, the descent gradient and the BN statistics from
+the perturbed pass), reduce-on-plateau in ``fit`` (``:370-377``,
+``:463-492``, over ``optim.Plateau``) and the preemption guard
+(``:406-420``).  Remat, ZeRO, dispatch chaining and the mesh are not
+ported.
 
 Where JAX compiles one program per step, the port runs eagerly and keeps
 the step free of host syncs: the augmentation draws are made on the
@@ -35,6 +41,7 @@ microbatch there and passes them to ``model(x, masks)``.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Callable, Iterable, NamedTuple
 
@@ -49,10 +56,12 @@ from myconvnet_tpu_torch.data.augment import (AugmentConfig, augment_eval,
                                               augment_train, config_jitter,
                                               sample_geometry, sample_policy,
                                               stats)
-from myconvnet_tpu_torch.data.mix import MixConfig, MixDraws, mixup_cutmix, \
-    sample_mix
+from myconvnet_tpu_torch.data.mix import (EraseDraws, MixConfig, MixDraws,
+                                          mixup_cutmix, random_erasing,
+                                          sample_erasing, sample_mix)
 from myconvnet_tpu_torch.eval.evaluators import Evaluator
-from myconvnet_tpu_torch.train.optim import SGD, Adam
+from myconvnet_tpu_torch.nn import BatchNorm
+from myconvnet_tpu_torch.train import optim
 from myconvnet_tpu_torch.utils.logging import MetricLogger
 
 
@@ -62,7 +71,8 @@ class TrainState(NamedTuple):
     params: dict
     model_state: dict       # BN moving statistics
     opt_state: dict         # momentum buffers, or {".mu", ".nu"} for Adam,
-    #                         laid out as params
+    #                         laid out as params; a wrapper's under
+    #                         ".inner" beside its own fields
     step: np.ndarray        # int32 scalar
     rng: np.ndarray         # uint32 [2], the seed every draw derives from,
     #                         laid out as JAX's key data of key(seed)
@@ -80,6 +90,20 @@ def seed_of(rng) -> int:
     return v[0] if len(v) == 1 else (v[0] << 32) | v[1]
 
 
+@contextlib.contextmanager
+def frozen_stats(model: nn.Module):
+    """Train-mode BNs of ``model`` normalize with batch statistics but
+    leave their moving statistics as they are."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in bns:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.update_stats = True
+
+
 class StepDraws(NamedTuple):
     """One train step's random numbers, on the device."""
     boxes: torch.Tensor | None   # [N, 4] crop boxes (y0, x0, h, w)
@@ -89,6 +113,7 @@ class StepDraws(NamedTuple):
     policy: tuple | None = None  # RandAugment or AutoAugment draws
     jitter: tuple | None = None  # colour-jitter factors
     recipe: tuple | None = None  # the draws of the recipe's InputFns
+    erase: EraseDraws | None = None  # random erasing's
 
 
 class InputFns(NamedTuple):
@@ -107,7 +132,7 @@ class Trainer:
     """Drives training of ``model`` (``forward(x)`` on NHWC input in the
     policy's compute dtype; train mode by ``module.training``)."""
 
-    def __init__(self, model: nn.Module, optimizer: SGD | Adam,
+    def __init__(self, model: nn.Module, optimizer,
                  loss_fn: Callable[[torch.Tensor, torch.Tensor],
                                    torch.Tensor], *,
                  device: torch.device, policy: Policy, num_classes: int,
@@ -118,7 +143,10 @@ class Trainer:
                  log_every: int = 50, logger: MetricLogger | None = None,
                  accum_steps: int = 1, accum_dtype: str = "float32",
                  input_fns: InputFns | None = None,
-                 accuracy_metric: bool = True):
+                 accuracy_metric: bool = True, erase_prob: float = 0.0,
+                 channels: int = 3, sam_rho: float = 0.0,
+                 preemption_guard=None, plateau_factor: float = 0.0,
+                 plateau_patience: int = 0, min_lr_scale: float = 1e-4):
         if input_fns is not None and (augment is not None
                                       or mix is not None):
             raise ValueError("input_fns replaces augment and mix")
@@ -143,6 +171,17 @@ class Trainer:
             # gradients of float32 parameters sum in float32 in .grad
             raise ValueError(f"the port accumulates in float32, not "
                              f"{accum_dtype!r}")
+        # random erasing of the augmented batch (images of ``channels``)
+        self.erase_prob = float(erase_prob)
+        self.channels = channels
+        self.sam_rho = float(sam_rho)
+        # utils.preemption.PreemptionGuard: fit stops, saves and returns
+        # when it trips
+        self.preemption_guard = preemption_guard
+        # reduce-on-plateau (factor 0 disables); needs optim.Plateau
+        self.plateau_factor = plateau_factor
+        self.plateau_patience = plateau_patience
+        self.min_lr_scale = min_lr_scale
         self.step = 0
         self._mean_std = stats(augment, self.device) if augment else None
         self._gen = torch.Generator(device=self.device)
@@ -152,6 +191,7 @@ class Trainer:
     def sample(self, n: int, hw: tuple[int, int]) -> StepDraws:
         """This step's draws, a function of (seed, step)."""
         boxes = flip = mix = masks = policy = jitter = recipe = None
+        erase = None
         self._gen.manual_seed((self.seed << 32) + self.step)
         if self.input_fns is not None:
             recipe = self.input_fns.sample(self._gen, n, hw)
@@ -166,7 +206,12 @@ class Trainer:
             micro = n // self.accum_steps
             masks = [self.model.sample_masks(micro, self._gen)
                      for _ in range(self.accum_steps)]
-        return StepDraws(boxes, flip, mix, masks, policy, jitter, recipe)
+        if self.erase_prob > 0.0:
+            out_hw = tuple(self.augment.out_hw) if self.augment else hw
+            erase = sample_erasing(self._gen, (n, *out_hw, self.channels),
+                                   prob=self.erase_prob)
+        return StepDraws(boxes, flip, mix, masks, policy, jitter, recipe,
+                         erase)
 
     def _forward(self, x, masks):
         x = x.to(self.policy.compute_dtype)
@@ -191,6 +236,8 @@ class Trainer:
                               self._mean_std, draws.policy, draws.jitter)
         if self.mix is not None:
             x, y = mixup_cutmix(x, y, self.num_classes, self.mix, draws.mix)
+        if self.erase_prob > 0.0:
+            x = random_erasing(x, draws.erase)
         self.model.train()
         self.optimizer.zero_grad()
         accum = self.accum_steps
@@ -199,10 +246,15 @@ class Trainer:
                              f"{accum} microbatches")
         losses, logits = [], []
         for i, (xi, yi) in enumerate(zip(x.chunk(accum), y.chunk(accum))):
-            out = self._forward(xi, None if draws.masks is None
-                                else draws.masks[i])
+            masks = None if draws.masks is None else draws.masks[i]
+            kept = (self._sam_ascend(xi, yi, masks) if self.sam_rho > 0.0
+                    else None)
+            out = self._forward(xi, masks)
             loss = self.loss_fn(out, yi)
             loss.backward()  # .grad sums the microbatches in float32
+            if kept is not None:   # back from the perturbed point
+                with torch.no_grad():
+                    torch._foreach_copy_(kept[0], kept[1])
             losses.append(loss.detach())
             if self.accuracy_metric:
                 logits.append(out.detach())
@@ -215,6 +267,24 @@ class Trainer:
         torch._foreach_div_(grads, float(accum))
         return (torch.stack(losses).mean(),
                 torch.cat(logits) if self.accuracy_metric else None, y)
+
+    def _sam_ascend(self, x, y, masks):
+        """SAM's first pass on one microbatch: its gradient g at the
+        current weights (BN moving statistics untouched), then the weights
+        moved to p + rho g / max(||g||, 1e-12).  Returns (parameters,
+        their values before the move)."""
+        params = [p for p in self.model.parameters() if p.requires_grad]
+        with frozen_stats(self.model):
+            loss = self.loss_fn(self._forward(x, masks), y)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(params, grads)]
+        with torch.no_grad():
+            scale = self.sam_rho / torch.clamp(optim.global_norm(grads),
+                                               min=1e-12)
+            kept = [p.detach().clone() for p in params]
+            torch._foreach_add_(params, torch._foreach_mul(grads, scale))
+        return params, kept
 
     def train_step(self, x: torch.Tensor, y: torch.Tensor,
                    draws: StepDraws | None = None) -> dict:
@@ -275,20 +345,34 @@ class Trainer:
         ``val_every`` steps (saving a checkpoint each time, ``best.npz``
         when the score improves) and save the final state."""
         best = self.evaluator.worst_score() if self.evaluator else None
-        bad_rounds = 0
+        bad_rounds = plateau_bad = 0
+        plateau = bool(self.plateau_factor and self.plateau_patience)
+        guard = self.preemption_guard
         # (end step, start step, metrics), read one step late so that the
         # host's read does not wait on the step it just enqueued
         pending = None
         t0, window, input_wait = time.perf_counter(), 0, 0.0
         it = iter(train_iter)
         try:
+            if plateau:
+                # fail fast: without optim.Plateau the first plateau would
+                # raise only then
+                optim.plateau_scale(self.optimizer)
             while self.step < total_steps:
+                if guard is not None and guard.preempted:
+                    self.logger.log(self.step, {"preempted": 1.0})
+                    break
                 t_in = time.perf_counter()
                 try:
                     x, y = next(it)
                 except StopIteration:
                     break
                 input_wait += time.perf_counter() - t_in
+                if guard is not None and guard.preempted:
+                    # the signal came while waiting on input: enqueue
+                    # nothing more, save what is done
+                    self.logger.log(self.step, {"preempted": 1.0})
+                    break
                 prev = self.step
                 metrics = self.train_step(x, y)
                 window += int(x.shape[0])
@@ -305,9 +389,17 @@ class Trainer:
                                     {f"val_{self.evaluator.name}": score})
                     improved = self.evaluator.is_better(score, best)
                     if improved:
-                        best, bad_rounds = score, 0
+                        best, bad_rounds, plateau_bad = score, 0, 0
                     else:
                         bad_rounds += 1
+                        plateau_bad += 1
+                    if plateau and plateau_bad >= self.plateau_patience:
+                        scale = max(optim.plateau_scale(self.optimizer)
+                                    * self.plateau_factor,
+                                    self.min_lr_scale)
+                        optim.set_plateau_scale(self.optimizer, scale)
+                        self.logger.log(self.step, {"lr_scale": scale})
+                        plateau_bad = 0
                     if self.ckpt_dir:
                         self.save(metric=score, is_best=improved)
                     if early_stop_patience \

@@ -196,18 +196,39 @@ def to_jax(model: nn.Module) -> tuple[Tree, Tree]:
     return params, state
 
 
+def _field_tree(root: dict, field: str, create: bool):
+    """The dict at ``field`` (``::``-joined JAX field names; "" is
+    ``root``) and the last field name, or (None, name) when absent."""
+    parts = field.split(SEP) if field else []
+    tree = root
+    for part in parts[:-1]:
+        if part not in tree:
+            if not create:
+                return None, parts[-1]
+            tree[part] = {}
+        tree = tree[part]
+    return tree, (parts[-1] if parts else "")
+
+
 def optimizer_to_jax(model: nn.Module, optimizer) -> dict:
     """``optimizer``'s state over ``model``'s parameters as the JAX
-    optimizer state tree: the momentum tree, or {".mu": tree, ".nu":
-    tree} for Adam (``state_trees`` fields; "" is the tree itself)."""
+    optimizer state tree: the ``state_trees`` fields nested by their
+    ``::``-joined JAX names (the momentum tree at the root, Adam's
+    ``.mu``/``.nu``, a wrapper's ``.inner``, ``.ema``, ``.slow``), each a
+    tree laid out as the parameters or a scalar (``.count``,
+    ``.lr_scale``)."""
     out = {}
     views = list(param_views(model))
-    for field, buffers in optimizer.state_trees().items():
-        tree = out.setdefault(field, {}) if field else out
+    for field, value in optimizer.state_trees().items():
+        parent, name = _field_tree(out, field, create=True)
+        if isinstance(value, torch.Tensor):   # a scalar in its own dtype
+            parent[name] = value.detach().cpu().numpy().copy()
+            continue
+        tree = parent.setdefault(name, {}) if name else parent
         for path, _, view in views:
-            if path in buffers:
-                scope, name = path.rsplit("/", 1)
-                tree.setdefault(scope, {})[name] = _np(view(buffers[path]))
+            if path in value:
+                scope, pname = path.rsplit("/", 1)
+                tree.setdefault(scope, {})[pname] = _np(view(value[path]))
     return out
 
 
@@ -217,12 +238,19 @@ def optimizer_from_jax(model: nn.Module, optimizer, opt_state: dict
     """Load a JAX optimizer state tree (:func:`optimizer_to_jax`'s
     layout) into ``optimizer``."""
     trees = {}
-    for field in optimizer.state_trees():
-        tree = opt_state.get(field, {}) if field else opt_state
+    for field, value in optimizer.state_trees().items():
+        parent, name = _field_tree(opt_state, field, create=False)
+        if parent is None:
+            continue
+        if isinstance(value, torch.Tensor):
+            if name in parent:
+                trees[field] = torch.from_numpy(np.array(parent[name]))
+            continue
+        tree = parent.get(name, {}) if name else parent
         buffers = {}
         for path, p, view in param_views(model):
-            scope, name = path.rsplit("/", 1)
-            arr = tree.get(scope, {}).get(name)
+            scope, pname = path.rsplit("/", 1)
+            arr = tree.get(scope, {}).get(pname)
             if arr is not None:
                 buf = torch.empty_like(p)
                 view(buf).copy_(torch.from_numpy(np.array(arr, np.float32)))

@@ -53,9 +53,10 @@ def test_recipe_trains_and_tests_on_the_cpu(recipe, tmp_path):
     out = str(tmp_path / "run")
     common = ["--config", config, "--synthetic", "--device", "cpu",
               *[a for kv in sets for a in ("--set", kv)]]
-    trainer = train_entry.main(common + [
+    net = train_entry.main(common + [
         "--steps", str(steps), "--batch", str(batch), "--val_every", "0",
         "--set", "log_every=1", "--out", out])
+    trainer = net.trainer
     assert trainer.step == steps
     with open(os.path.join(out, "train.jsonl")) as f:
         losses = [r["loss"] for r in map(json.loads, f) if "loss" in r]
@@ -66,8 +67,9 @@ def test_recipe_trains_and_tests_on_the_cpu(recipe, tmp_path):
                      "imagenet_densenet121": "densenet121"}.get(
         config_name(recipe), "resnet50" if "resnet" in recipe
         else "smallnet")
-    score, restored = test_entry.main(common + ["--ckpt", out, "--batch",
-                                                "64"])
+    score, restored_net = test_entry.main(common + ["--ckpt", out, "--batch",
+                                                    "64"])
+    restored = restored_net.trainer
     assert 0.0 <= score <= 1.0 and restored.step == steps
     a, b = trainer.state(), restored.state()
     for field in ("params", "model_state"):

@@ -470,10 +470,12 @@ def test_recipe_trains_and_tests_on_the_cpu(tmp_path):
     args = ["--config", CONFIG, "--synthetic", "--device", "cpu",
             "--set", "model_kwargs.backbone_depth=18",
             "--set", "synthetic_n=8", "--batch", "4"]
-    trainer = train.main(args + ["--steps", "3", "--val_every", "2",
+    net = train.main(args + ["--steps", "3", "--val_every", "2",
                                  "--out", out, "--set", "log_every=1"])
+    trainer = net.trainer
     assert trainer.step == 3
-    score, restored = test.main(args + ["--ckpt", out])
+    score, restored_net = test.main(args + ["--ckpt", out])
+    restored = restored_net.trainer
     ms_score, _ = test.main(args + ["--ckpt", out, "--scales",
                                     "0.75,1.0,1.25"])
     assert 0.0 <= score <= 1.0 and 0.0 <= ms_score <= 1.0

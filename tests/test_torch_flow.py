@@ -693,7 +693,8 @@ def test_three_adamw_steps_of_the_recipe_match_jax(case_params):
     jstate = net.state._replace(params=jax.tree.map(
         jnp.asarray, case_params("tinypwc")))
     jstep = net._make_trainer(None)._train_step     # donates its state
-    port, _, _ = recipes.build_flow(cfg, True, device=torch.device("cpu"))
+    port, _, _ = recipes.build_trainer(cfg, True,
+                                       device=torch.device("cpu"))
     assert port.input_fns is not None and not port.accuracy_metric
     n = 4
     for i in range(3):
@@ -727,9 +728,10 @@ def test_flow_entry_points_and_checkpoints_cross_the_packages(tmp_path):
     out = str(tmp_path / "run")
     common = ["--config", PWC_CONFIG, "--synthetic", "--device", "cpu",
               *[a for kv in TINY for a in ("--set", kv)]]
-    trainer = train_entry.main(common + [
+    net = train_entry.main(common + [
         "--steps", "4", "--batch", "4", "--val_every", "2", "--set",
         "log_every=1", "--out", out])
+    trainer = net.trainer
     assert trainer.step == 4 and type(trainer.model).__name__ == "TinyPWC"
     assert trainer.policy.compute_dtype == torch.bfloat16
     with open(os.path.join(out, "train.jsonl")) as f:
@@ -741,8 +743,9 @@ def test_flow_entry_points_and_checkpoints_cross_the_packages(tmp_path):
     assert os.path.exists(os.path.join(out, "best.npz"))
     with open(os.path.join(out, "best.json")) as f:
         assert json.load(f)["metric"] == pytest.approx(min(vals))
-    score, restored = test_entry.main(common + ["--ckpt", out,
-                                                "--batch", "8"])
+    score, restored_net = test_entry.main(common + ["--ckpt", out,
+                                                    "--batch", "8"])
+    restored = restored_net.trainer
     assert restored.step == 4 and np.isfinite(score)
     assert score == pytest.approx(
         trainer.evaluate(recipes.build_flow(
@@ -782,12 +785,13 @@ def test_flownet_recipe_runs_on_the_cpu(tmp_path, model, sets):
     """``configs/chairs_flownet_s.py`` with another model and objective:
     two steps and the final validation, every loss finite."""
     out = str(tmp_path / "run")
-    trainer = train_entry.main([
+    net = train_entry.main([
         "--config", os.path.join(CONFIGS, "chairs_flownet_s.py"),
         "--synthetic", "--device", "cpu", "--steps", "2", "--batch", "2",
         "--out", out, "--set", f"model={model}", "--set", "synthetic_n=4",
         "--set", "input_hw=[32,32]", "--set", "log_every=1",
         *[a for kv in sets for a in ("--set", kv)]])
+    trainer = net.trainer
     with open(os.path.join(out, "train.jsonl")) as f:
         rows = [json.loads(line) for line in f]
     assert trainer.step == 2

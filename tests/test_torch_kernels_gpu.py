@@ -646,6 +646,87 @@ def test_cifar_kernels_reject_what_they_do_not_take(cuda):
                                             mean, std)
 
 
+# B4's order of a sum over K: each block of a cluster sums its stages (tap,
+# 64-channel chunk) in order, then the ranks' partials are added in rank
+# order, so an output's bits are a function of the split alone.  The
+# planner picks the split by the grid's output tiles, that is by the
+# batch: a short batch may take another split than a full one.  The
+# CIFAR-100 ResNet-18's sites at its batch, and VGG-16's map sizes at 8.
+BITS_SHAPES = [(128, 8, 8, 64, 64), (128, 4, 4, 128, 128),
+               (128, 2, 2, 256, 256), (128, 1, 1, 512, 512),
+               (8, 112, 112, 128, 128), (8, 56, 56, 256, 256),
+               (8, 28, 28, 512, 512), (8, 14, 14, 512, 512)]
+# the largest difference between two splits' outputs, as a fraction of
+# the output's largest: measured 2.56e-3 at VGG-16's 14² x 512 (255 of
+# 301,056 outputs differ), 3.6e-6 at CIFAR's 4² (1 of 6,144), 0 at 1²
+# (NVIDIA H100 80GB HBM3, 700 W; ROADMAP C)
+SPLIT_REL = 2 ** -8
+
+
+def _gap(a, b):
+    """(outputs that differ, max |a - b| / max |b|)."""
+    d = (a.float() - b.float()).abs()
+    return int((d > 0).sum()), float(d.max() / b.float().abs().max())
+
+
+@pytest.mark.parametrize("shape", BITS_SHAPES, ids=str)
+def test_conv_fused_bits_depend_only_on_the_split(cuda, shape):
+    """A batch's last 3 images launched alone against the same images
+    inside the batch: at every split the planner may take, bit for bit;
+    between splits within SPLIT_REL of the largest output; under the
+    planner's own choice, the bits of the split it takes at each batch."""
+    n, h, w, c, co = shape
+    args = _fused_args(shape, cuda, seed=5)
+    tail = (args[0][-3:].contiguous(), *args[1:])
+    p = conv_fused.plan(*shape)
+    p_alone = conv_fused.plan(3, h, w, c, co)
+    splits = [s for s in conv_fused.SPLITS if p["stages"] % s == 0
+              and (s == 1 or p_alone["tiles"] * s <= conv_fused.ONE_WAVE)]
+    full, alone = {}, {}
+    for s in splits:
+        alone[s] = conv_fused.conv3x3_bn_relu(*tail, split=s)
+        if s == 1 or p["tiles"] * s <= conv_fused.ONE_WAVE:
+            full[s] = conv_fused.conv3x3_bn_relu(*args, split=s)
+            assert torch.equal(alone[s], full[s][-3:]), s
+    gaps = {s: _gap(alone[s], alone[1]) for s in splits}
+    own = conv_fused.conv3x3_bn_relu(*args)
+    own_alone = conv_fused.conv3x3_bn_relu(*tail)
+    tail_gap = _gap(own_alone, own[-3:])
+    print(f"conv_fused {shape}: stages {p['stages']}, splits {splits}, "
+          f"planner {p['split']} at {n}, {p_alone['split']} at 3; "
+          f"(outputs that differ, max gap / max output) from split 1: "
+          f"{gaps}; the tail alone against inside the batch: {tail_gap} "
+          f"of {own_alone.numel()}")
+    assert torch.equal(own, full[p["split"]])
+    assert torch.equal(own_alone, alone[p_alone["split"]])
+    assert max(g for _, g in gaps.values()) <= SPLIT_REL, gaps
+    assert tail_gap[1] <= SPLIT_REL, tail_gap
+
+
+def test_convnet_predict_tail_batch_has_the_full_batchs_bits(cuda):
+    """``ConvNet.predict`` pads a short tail batch to the full one, so the
+    CIFAR-100 ResNet-18 (bf16: B2, five B4 and four B1 launches a forward)
+    gives a tail image the bits it gets inside a full batch; the tail run
+    unpadded takes other B4 splits."""
+    cfg = recipes.load_config(CIFAR_CONFIG)
+    net, _, val_set = recipes.build_classifier(cfg, True, device=cuda)
+    params, state = random_jax_params(net.trainer.model, 0)
+    weights.from_jax(net.trainer.model, params, state)
+    x = val_set.source.images[:192]
+    kernels.reset_launch_counts()
+    tail = net.predict(x, batch_size=128)[128:]
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert (counts["normalize_u8"], counts["conv_fused"],
+            counts["bn_act"]) == (2, 10, 8)
+    inside = net.predict(x[64:], batch_size=128)[64:]
+    np.testing.assert_array_equal(tail, inside)
+    alone = net.predict(x[128:], batch_size=64)
+    rel = np.abs(alone - inside).max() / np.abs(inside).max()
+    print(f"ResNet-18 tail run unpadded: max|diff|/max|logit| {rel:.3g}")
+    assert rel < 0.05
+
+
 def test_resnet18_eval_on_card_matches_host(cuda):
     """Full-width ResNet-18 at 32x32 through both kernels on the card
     against the same module on the host (plain versions): 5 conv_fused
@@ -675,9 +756,9 @@ def test_train_step_on_card_matches_host(cuda):
     chip_smoke.py; one pad_crop_u8 launch a step."""
     cfg = recipes.load_config(CIFAR_CONFIG)
     cfg["model_kwargs"] = {"width": 16}
-    card, train_set, _ = recipes.build_classifier(cfg, True, device=cuda)
-    host, _, _ = recipes.build_classifier(cfg, True,
-                                          device=torch.device("cpu"))
+    card, train_set, _ = recipes.build_trainer(cfg, True, device=cuda)
+    host, _, _ = recipes.build_trainer(cfg, True,
+                                       device=torch.device("cpu"))
     params, state = random_jax_params(card.model, 0)
     for t in (card, host):
         weights.from_jax(t.model, params, state)
@@ -910,9 +991,9 @@ def test_vit_train_step_on_card_matches_host(cuda):
     each flash kernel."""
     cfg = recipes.apply_overrides(recipes.load_config(VIT_CONFIG), [
         "augment.randaugment=None", "model=vit_ti16"])
-    card, train_set, _ = recipes.build_classifier(cfg, True, device=cuda)
-    host, _, _ = recipes.build_classifier(cfg, True,
-                                          device=torch.device("cpu"))
+    card, train_set, _ = recipes.build_trainer(cfg, True, device=cuda)
+    host, _, _ = recipes.build_trainer(cfg, True,
+                                       device=torch.device("cpu"))
     params, state = random_jax_params(card.model, 0)
     for t in (card, host):
         weights.from_jax(t.model, params, state)

@@ -374,14 +374,16 @@ def test_vit_entry_points_on_the_cpu(tmp_path):
     out = str(tmp_path / "run")
     common = ["--config", CONFIG, "--synthetic", "--device", "cpu",
               *[a for kv in TINY for a in ("--set", kv)]]
-    trainer = train_entry.main(common + ["--steps", "2", "--batch", "16",
+    net = train_entry.main(common + ["--steps", "2", "--batch", "16",
                                          "--set", "accum_steps=2",
                                          "--out", out])
+    trainer = net.trainer
     assert trainer.step == 2 and trainer.accum_steps == 2
     assert isinstance(trainer.optimizer, optim.Adam)
     assert trainer.model.block2.drop_path_rate == pytest.approx(0.1)
-    score, restored = test_entry.main(common + ["--ckpt", out,
-                                                "--batch", "64"])
+    score, restored_net = test_entry.main(common + ["--ckpt", out,
+                                                    "--batch", "64"])
+    restored = restored_net.trainer
     assert 0.0 <= score <= 1.0 and restored.step == 2
     a, b = trainer.state(), restored.state()
     _assert_trees_close(b.params, a.params, 0.0, "params")
@@ -396,11 +398,12 @@ def test_vit_entry_point_with_randaugment_on_the_cpu(tmp_path):
     step's draws with two layers of op positions in the FAST pool."""
     out = str(tmp_path / "run")
     sets = [kv for kv in TINY if not kv.startswith("augment.randaugment")]
-    trainer = train_entry.main([
+    net = train_entry.main([
         "--config", CONFIG, "--synthetic", "--device", "cpu",
         *[a for kv in sets for a in ("--set", kv)], "--steps", "3",
         "--batch", "16", "--set", "accum_steps=2", "--set", "log_every=1",
         "--out", out])
+    trainer = net.trainer
     assert trainer.step == 3 and trainer.augment.randaugment == (2, 9)
     with open(os.path.join(out, "train.jsonl")) as f:
         losses = [r["loss"] for r in map(json.loads, f) if "loss" in r]
