@@ -3,7 +3,7 @@
 
 PY ?= python
 
-.PHONY: test test-fast tour bench bench-detection native smoke clean
+.PHONY: test test-fast tour bench bench-detection native smoke smoke-torch clean
 
 test:
 	$(PY) -m pytest tests/ -q
@@ -28,6 +28,12 @@ smoke:  ## 50-step CIFAR e2e on synthetic data (CPU-ok)
 	    --steps 50 --batch 32 --platform cpu --out /tmp/mcn_smoke
 	$(PY) test.py --config configs/cifar10_smallnet.py \
 	    --ckpt /tmp/mcn_smoke --synthetic --batch 32 --platform cpu
+
+smoke-torch:  ## the same 50-step CIFAR run through the PyTorch port (CPU)
+	$(PY) -m myconvnet_tpu_torch.train --config configs/cifar10_smallnet.py \
+	    --synthetic --steps 50 --batch 32 --device cpu --out build/smoke_torch
+	$(PY) -m myconvnet_tpu_torch.test --config configs/cifar10_smallnet.py \
+	    --ckpt build/smoke_torch --synthetic --batch 32 --device cpu
 
 clean:
 	rm -rf .pytest_cache

@@ -198,6 +198,38 @@
     bit); ``test.main --tta flip --average 3`` (normalize_u8 1,
     conv_fused 10 and bn_act 8 a batch); a focal-loss run of 4 steps.
     Every launch recorded with its shape and held by a row.
+20. Image files (``files_run``).  First, before any phase, what the
+    machine has: the C++ compiler's ``jpeglib.h`` and ``png.h``, Pillow,
+    the CPU count and affinity (one line); the port's host library
+    (``csrc/host/dataloader.cc``) is built with g++ into
+    ``build/host/<hash>/`` then, with libjpeg and libpng where their
+    headers are, and the phases below that the machine can run are fixed.
+    C6: ``Trainer.evaluate`` of the CIFAR-100 ResNet-18 over 192 images at
+    batch 128 pads its tail, whose logits equal the same images' inside a
+    full batch, bit for bit.  ResNet-50 as written through ``train.main
+    --data_dir`` on an ImageNet layout of 1000 class directories (2048
+    train and 512 val files linked from ``tests/fixtures/torch_io``) at
+    1024 as 2 x 512, 20 steps validating once, then ``test.main``: the
+    step's ms, images/s and input_wait_frac from the run's log beside the
+    synthetic run of step 14, peak memory, B5 13 and B1 7 an eval batch of
+    512 held by shape (step 3's rows at batch 512), the restored logits
+    against the writer's and the host's; then the trained step fed by the
+    files and by an in-memory source, each plain and under torch.profiler
+    (step ms, input wait, host enqueue, device busy, idle share); the
+    JPEGs decode natively where the machine has ``jpeglib.h``, else
+    through FileSource's Pillow path.  With Pillow: DeepLabv3+ through
+    ``train.main --data_dir`` on a VOCdevkit layout at its 513 x 513 crop,
+    batch 16, 10 steps and ``test.main`` (B5 11, B4 2, B1 18 an eval
+    forward); pix2pix on a combined layout, 10 steps with the generator's
+    EMA (B2 2 a step), ``generate.main --input`` over 16 images with and
+    without ``--ema`` (B2 1, B1 13 each); 3 image bodies through
+    ``ModelServer.predict`` on the served ResNet-50 (B2 1 at [1, 224, 224,
+    3], B5 13, B1 7 a request; logits against the host's).  Then the host
+    decode rate of 512 fixture JPEGs at 256 x 256 over 1, 2, 4, 8 and all
+    threads (the native path, or Pillow's), a core's rate and the cores
+    that feed the ResNet-50 steps of this call.  A line before the kernels'
+    record names what the machine lacked and what ran instead or was
+    skipped.
 
 Every kernel's record carries its bound: the larger of the bytes it must
 move over 3.35 TB/s and the operations it must do over the peak rate of
@@ -609,6 +641,38 @@ FLIP_EVAL_BATCH = {"normalize_u8": 1, "conv_fused": 10, "bn_act": 8}
 # SAM's step does a second forward and backward: its device time over the
 # plain step's is at least this
 SAM_MIN_RATIO = 1.3
+# Image files: corpora built by copying (hard-linking) the committed
+# fixtures of tests/fixtures/torch_io (eight ImageNet-like JPEGs, four VOC
+# image/palette-mask pairs, two combined pix2pix pairs).  ResNet-50 trains
+# on an ImageNet layout of FILES_CLASSES class directories, FILES_TRAIN
+# train and FILES_VAL val files, at the recipe's 1024 as 2 x 512 (its
+# validation and test.main: one eval batch of FILES_VAL); DeepLabv3+ on a
+# VOCdevkit layout (VOC_FILES_TRAIN and VOC_FILES_VAL ids, the fixtures in
+# turn) at its 513 x 513 crop, batch 16; pix2pix on a combined layout of
+# PAIRS_FILES_TRAIN images with the generator's EMA, then generate.main
+# --input over GENERATE_INPUTS images, with and without --ema.
+FIXTURES = os.path.join(ROOT, "tests", "fixtures", "torch_io")
+FILES_CLASSES, FILES_TRAIN, FILES_VAL, FILES_STEPS = 1000, 2048, 512, 20
+# steps of a file run left out of its rate (the first cuDNN plans, the
+# prefetcher filling)
+FILES_WARMUP = 3
+# the file-fed loop (and its in-memory control): warm-up steps, then steps
+# once plain and once under torch.profiler
+FED_WARMUP, FED_STEPS = 2, 3
+R50_FILES_PAIR_SITES = [((FILES_VAL, *shape[1:]), count)
+                        for shape, count in PAIR_SITES]
+R50_FILES_ACT_SITES = [(f"r50 files eval {site}", (FILES_VAL, *shape[1:]), 1)
+                       for site, shape in ACT_SITES]
+VOC_FILES_TRAIN, VOC_FILES_VAL, VOC_FILES_BATCH, VOC_FILES_STEPS = \
+    160, 32, 16, 10
+PAIRS_FILES_TRAIN, PAIRS_FILES_STEPS, GENERATE_INPUTS = 32, 10, 16
+# the host decode budget: this many fixture JPEGs at the ImageNet recipe's
+# raw 256 x 256, over 1, 2, 4, 8 and all threads
+BUDGET_IMAGES, BUDGET_HW, BUDGET_THREADS = 512, (256, 256), (1, 2, 4, 8)
+IMAGE_ROUTE_REQUESTS = 3
+# C6: Trainer.evaluate over EVAL_TAIL_SPLIT images at the CIFAR-100
+# ResNet-18's batch of 128 (a tail of 64)
+EVAL_TAIL_SPLIT = 192
 # the paths of conv_pair, bn_act and conv_fused: the runs whose launches
 # each path counts and the ``path`` of the rows that hold its shapes
 KERNEL_PATH_RUNS = {
@@ -629,13 +693,26 @@ KERNEL_PATH_RUNS = {
     "dcgan": ("dcgan_train", "dcgan_generate"),
     "pix2pix": ("pix2pix_train", "pix2pix_test"),
     "resnet50_api": ("api_r50_train", "api_r50_ten_crop", "api_r50_average"),
-    "resnet18_api": ("api_r18_train", "api_r18_flip", "api_r18_focal")}
+    "resnet18_api": ("api_r18_train", "api_r18_flip", "api_r18_focal"),
+    "resnet18_eval_tail": ("c6_evaluate",),
+    "resnet50_files": ("files_r50_train", "files_r50_test"),
+    "deeplab_files": ("files_deeplab_train", "files_deeplab_test"),
+    "pix2pix_files": ("files_pix2pix_train", "files_pix2pix_generate"),
+    "image_route": ("image_route",)}
+# the file phases' runs (a run of a phase the machine cannot run counts 0)
+FILE_RUNS = ("c6_evaluate", "files_r50_train", "files_r50_test",
+             "files_deeplab_train", "files_deeplab_test",
+             "files_pix2pix_train", "files_pix2pix_generate", "image_route")
 # a path whose forwards run at several sizes: the ``path`` of the rows
 # that hold its shapes (one row set a size)
 PATH_ROWS = {"deeplab_scales": tuple(f"deeplab_{hw}" for hw in SEG_SCALE_HW),
              # the API runs' forwards are at the rows of these paths
              "resnet50_api": ("resnet50_train",),
              "resnet18_api": ("resnet18_cifar",),
+             "resnet18_eval_tail": ("resnet18_cifar",),
+             "deeplab_files": ("deeplab_513",),
+             "pix2pix_files": ("pix2pix",),
+             "image_route": ("resnet50_serve",),
              "dcgan": (f"dcgan_{DCGAN_SAMPLES}", f"dcgan_{DCGAN_GRID}")}
 # conv_pair in ``--compare``: shapes whose plans have a pass of a single
 # 64x64 tile (the served 7x7 at batch 8 and 1, DeepLab's 12², 9², 6² and
@@ -956,10 +1033,10 @@ def bn_act_row(site, x, a, b, count, path, act="relu", **extra):
     return r
 
 
-def check_kernels(dev):
-    """Kernel vs plain at every slice shape; returns the per-kernel
-    summary (times summed over every row's sites: one forward of each
-    path) and the details."""
+def check_kernels(dev, plan=None):
+    """Kernel vs plain at every slice shape (those of the file phases that
+    ``plan`` runs too); returns the per-kernel summary (times summed over
+    every row's sites: one forward of each path) and the details."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -984,6 +1061,7 @@ def check_kernels(dev):
     details += check_correlation_kernels(dev, g)
     details += check_deeplab_kernels(dev, g)
     details += check_gan_kernels(dev, g)
+    details += check_io_kernels(dev, g, plan or {})
     for name in SOURCES:
         rows = [r for r in details if r["kernel"] == name]
         on_path = [r for r in rows if r["sites"]]
@@ -1350,11 +1428,12 @@ def check_deeplab_kernels(dev, g):
     return rows
 
 
-def gan_input_row(case, shape, g):
-    """normalize_u8 at a GAN recipe's train batch, mean = std = 0.5,
-    float32 out, against its plain version: its bound, plan, wrapper host
-    time and one ``torch.addcmul`` as its library time (one row, one site
-    a step of that path)."""
+def gan_input_row(case, shape, g, mean=None, std=None):
+    """normalize_u8 at a GAN recipe's train batch, mean = std = 0.5 (or
+    at another input with its ``mean`` and ``std``), float32 out, against
+    its plain version: its bound, plan, wrapper host time and one
+    ``torch.addcmul`` as its library time (one row, one site a step or a
+    request of that path)."""
     import torch
 
     from myconvnet_tpu_torch.ops.kernels import normalize_u8
@@ -1363,10 +1442,12 @@ def gan_input_row(case, shape, g):
     x = torch.randint(0, 256, shape, generator=g, device=dev,
                       dtype=torch.uint8)
     half = torch.full((shape[-1],), 0.5, device=dev)
+    mean, std = normalize_u8.device_stats(
+        half if mean is None else mean, half if std is None else std, dev)
     f32 = torch.float32
-    scale, shift = normalize_u8.scale_shift(half, half, dev)
-    err, ok = compare(normalize_u8.normalize_u8(x, half, half, f32),
-                      normalize_u8.normalize_u8_reference(x, half, half,
+    scale, shift = normalize_u8.scale_shift(mean, std, dev)
+    err, ok = compare(normalize_u8.normalize_u8(x, mean, std, f32),
+                      normalize_u8.normalize_u8_reference(x, mean, std,
                                                           f32),
                       **TOL["normalize_u8"])
     b_ms, b_by = bound(input_bytes("normalize_u8", x, f32), 2 * x.numel(),
@@ -1374,15 +1455,16 @@ def gan_input_row(case, shape, g):
     r = dict(kernel="normalize_u8", path=case, case=case, shape=list(shape),
              dtype="float32", out_dtype="float32", sites=1,
              max_abs_err=err, ok=ok, bound_ms=b_ms, bound_by=b_by,
-             ms=cuda_ms(lambda: normalize_u8.normalize_u8(x, half, half,
+             ms=cuda_ms(lambda: normalize_u8.normalize_u8(x, mean, std,
                                                           f32), 100),
              plain_ms=cuda_ms(lambda: normalize_u8.normalize_u8_reference(
-                 x, half, half, f32)),
+                 x, mean, std, f32)),
              library_ms=cuda_ms(lambda: torch.addcmul(shift, x, scale), 100),
              plan=normalize_u8.plan(x.numel(), shape[-1], f32),
              host_us=host_us(lambda: normalize_u8.normalize_u8(
-                 x, half, half, f32)))
-    log(f"normalize_u8 {case} {r['shape']} -> float32 (mean = std = 0.5): "
+                 x, mean, std, f32)))
+    log(f"normalize_u8 {case} {r['shape']} -> float32 (mean "
+        f"{mean.tolist()}, std {std.tolist()}): "
         f"max_abs_err={err:.3g} ok={ok} "
         + " ".join(f"{k}={r[k]:.5f}ms" for k in
                    ("ms", "plain_ms", "bound_ms", "library_ms"))
@@ -1436,8 +1518,10 @@ def launch_shapes(counter):
     """Count into ``counter`` the :func:`shape_key` of every launch of
     conv_pair, conv_fused and bn_act from the models (their only call
     sites: ``models.resnet`` and ``models.blocks``) and of normalize_u8
-    from the GAN trainer (``train.gan``) while the block runs; a wrapper
+    from the GAN trainer (``train.gan``) and the image route
+    (``serving_http``) while the block runs; a wrapper
     called on a CPU tensor launches nothing and is not counted."""
+    from myconvnet_tpu_torch import serving_http
     from myconvnet_tpu_torch.models import blocks, resnet
     from myconvnet_tpu_torch.train import gan
 
@@ -1451,9 +1535,10 @@ def launch_shapes(counter):
              (blocks, "fused_scale_shift_act", lambda x, a, kw: shape_key(
                  "bn_act", tuple(x.shape), _name(x.dtype),
                  arg(a, kw, 2, "act", "relu"))),
-             (gan, "normalize_u8", lambda x, a, kw: shape_key(
+             *[(mod, "normalize_u8", lambda x, a, kw: shape_key(
                  "normalize_u8", tuple(x.shape),
-                 _name(arg(a, kw, 2, "out_dtype", "float32"))))]
+                 _name(arg(a, kw, 2, "out_dtype", "float32"))))
+               for mod in (gan, serving_http)]]
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in sites]
 
     def recording(fn, key):
@@ -2172,7 +2257,6 @@ def device_busy(fn, iters=5):
     kernels with the most device time as [name, ms per call, launches per
     call]); busy is None when the trace shows no device activity."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2182,12 +2266,8 @@ def device_busy(fn, iters=5):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    # device kernels, copies and fills; not the record_function ranges
-    # (Optimizer.step, ...) that the profiler mirrors onto the device
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False)]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    if not spans:
+    events = device_events(prof)
+    if not events:
         return None, None, 0, []
     by_name = {}
     for e in events:
@@ -2196,6 +2276,23 @@ def device_busy(fn, iters=5):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     top = [[name[:90], t / 1e3 / iters, k / iters]
            for name, (t, k) in top]
+    busy, span = busy_us(events)
+    return busy / 1e3 / iters, span / 1e3 / iters, len(events) / iters, top
+
+
+def device_events(prof):
+    """The device kernels, copies and fills of a torch.profiler run; not
+    the record_function ranges (Optimizer.step, ...) that the profiler
+    mirrors onto the device."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def busy_us(events):
+    """(the union of the events' intervals, first start to last end), in
+    microseconds."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     busy, (lo, hi) = 0.0, spans[0]
     for a, b in spans[1:]:
         if a > hi:
@@ -2203,8 +2300,7 @@ def device_busy(fn, iters=5):
         else:
             hi = max(hi, b)
     busy += hi - lo
-    span = max(b for _, b in spans) - spans[0][0]
-    return busy / 1e3 / iters, span / 1e3 / iters, len(spans) / iters, top
+    return busy, max(b for _, b in spans) - spans[0][0]
 
 
 def kernel_times(fn, match):
@@ -3311,6 +3407,7 @@ def classifier_run(dev, what, config, sets, *, steps, batch, val_every,
     check_counts(train_counts, expect(steps, evals),
                  f"{what} train.main ({steps} steps, {evals} eval batches)")
     losses = read_losses(run_dir, steps, what)
+    logged = logged_rate(run_dir, batch)
     log(f"{what}: train.main {steps} steps of {batch} in {seconds:.1f}s "
         f"(data, cuDNN plans and checkpoint included); losses finite, "
         f"first {losses[0]:.4f} last {losses[-1]:.4f}")
@@ -3353,7 +3450,7 @@ def classifier_run(dev, what, config, sets, *, steps, batch, val_every,
                                raw_hw or tuple(x.shape[1:3]), rate_iters)
     log_rate(what, rate)
     checks = dict(losses=losses, train_seconds=seconds, top1=score,
-                  eval_logit_rel_err=rel, step=rate)
+                  eval_logit_rel_err=rel, step=rate, logged_rate=logged)
     return train_counts, eval_counts, checks, trainer, batch_xy
 
 
@@ -3694,32 +3791,20 @@ def deeplab_run(dev):
     card against host, and the step's rate.  Every run's launches are
     counted and recorded shape by shape.  Returns ({run: launches},
     {run: Counter of launch shapes}, checks)."""
-    import collections
     import shutil
 
     import torch
 
     from myconvnet_tpu_torch import recipes, test, train
     from myconvnet_tpu_torch.data.pipeline import DataSet
-    from myconvnet_tpu_torch.ops import kernels
     from myconvnet_tpu_torch.subsets import voc
 
     cfg = recipes.load_config(VOC_CONFIG)
     cpu = torch.device("cpu")
     checks = {"step1": step_one_segmenter(dev, cfg, SEG_STEP1_BATCH)}
-    runs, shapes = {}, {}
+    counted = Counted()
+    runs, shapes = counted.runs, counted.shapes
     torch.cuda.empty_cache()
-
-    def counted(run, fn, *args, **kwargs):
-        """fn(...), the launch counts set to 0 just before it and read,
-        with the launches' shapes, just after it."""
-        shapes[run] = collections.Counter()
-        with launch_shapes(shapes[run]):
-            kernels.reset_launch_counts()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            runs[run] = kernels.launch_counts()
-        return out
 
     # the recipe as written: train.main and test.main (96 x 96 crops)
     run_dir = os.path.join(ROOT, "build", "chip_smoke_deeplab")
@@ -3907,20 +3992,14 @@ def gan_losses(run_dir, kind, keys):
     return rows
 
 
-def gan_expect(counts, want, what):
-    """Hold ``counts`` to ``want`` and no other kernel launch."""
-    from myconvnet_tpu_torch.ops import kernels
-    check_counts(counts, {k: want.get(k, 0) for k in kernels.WRAPPERS},
-                 what)
-
-
-def gan_b2_shapes(shapes, kind, want):
-    """Every normalize_u8 launch of a run at the recipe's batch, float32
-    out: ``want`` of them."""
-    held = shape_key("normalize_u8", GAN_INPUT_SHAPES[kind], "float32")
+def b2_shapes(shapes, shape, want, what):
+    """Every normalize_u8 launch of a run at ``shape`` (a GAN recipe's
+    batch, the image route's one image), float32 out: ``want`` of
+    them."""
+    held = shape_key("normalize_u8", shape, "float32")
     seen = {k: c for k, c in shapes.items() if k[0] == "normalize_u8"}
     if seen != ({held: want} if want else {}):
-        raise AssertionError(f"{kind}: normalize_u8 launches by shape "
+        raise AssertionError(f"{what}: normalize_u8 launches by shape "
                              f"{seen}, want {want} at {held}")
 
 
@@ -3933,7 +4012,6 @@ def gan_run(dev):
     of the host's plain path); every run's launches counted and recorded
     shape by shape; each recipe's step rate.  Returns ({run: launches},
     {run: Counter of launch shapes}, checks)."""
-    import collections
     import shutil
 
     import numpy as np
@@ -3941,22 +4019,11 @@ def gan_run(dev):
 
     from myconvnet_tpu_torch import (generate, recipes, recipes_gan, test,
                                      train)
-    from myconvnet_tpu_torch.ops import kernels
     from myconvnet_tpu_torch.utils.images import make_grid
 
-    runs, shapes, checks = {}, {}, {}
+    counted = Counted()
+    runs, shapes, checks = counted.runs, counted.shapes, {}
     cpu = torch.device("cpu")
-
-    def counted(run, fn, *args, **kwargs):
-        """fn(...), the launch counts set to 0 just before it and read,
-        with the launches' shapes, just after it."""
-        shapes[run] = collections.Counter()
-        with launch_shapes(shapes[run]):
-            kernels.reset_launch_counts()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            runs[run] = kernels.launch_counts()
-        return out
 
     # DCGAN (float32)
     cfg = recipes.load_config(DCGAN_CONFIG)
@@ -3971,10 +4038,11 @@ def gan_run(dev):
         "--set", f"sample_every={GAN_LOG_EVERY}"])
     seconds = time.perf_counter() - t0
     grids = GAN_STEPS // GAN_LOG_EVERY
-    gan_expect(runs["dcgan_train"], {"normalize_u8": GAN_STEPS,
+    expect_only(runs["dcgan_train"], {"normalize_u8": GAN_STEPS,
                                      "bn_act": 3 * grids},
                f"DCGAN train.main ({GAN_STEPS} steps, {grids} grids)")
-    gan_b2_shapes(shapes["dcgan_train"], "dcgan", GAN_STEPS)
+    b2_shapes(shapes["dcgan_train"], GAN_INPUT_SHAPES["dcgan"], GAN_STEPS,
+              "dcgan")
     rows = gan_losses(run_dir, "dcgan", ("d_loss", "g_loss", "d_real_acc",
                                          "d_fake_acc"))
     init = recipes_gan.build_gan(cfg, True, device=cpu)[0].state()
@@ -3988,7 +4056,7 @@ def gan_run(dev):
     png = os.path.join(run_dir, "samples.png")
     grid = counted("dcgan_generate", generate.main, args + [
         "--ckpt", run_dir, "--n", str(DCGAN_GRID), "--out", png])
-    gan_expect(runs["dcgan_generate"], {"bn_act": 3},
+    expect_only(runs["dcgan_generate"], {"bn_act": 3},
                f"DCGAN generate.main ({DCGAN_GRID} samples)")
     sampler = recipes_gan.make_gan_sampler(cfg)
     same = bool(np.array_equal(grid, make_grid(
@@ -4018,18 +4086,20 @@ def gan_run(dev):
         "--steps", str(GAN_STEPS), "--out", run_dir,
         "--set", f"log_every={GAN_LOG_EVERY}"])
     seconds = time.perf_counter() - t0
-    gan_expect(runs["pix2pix_train"], {"normalize_u8": 2 * GAN_STEPS},
+    expect_only(runs["pix2pix_train"], {"normalize_u8": 2 * GAN_STEPS},
                f"pix2pix train.main ({GAN_STEPS} steps)")
-    gan_b2_shapes(shapes["pix2pix_train"], "pix2pix", 2 * GAN_STEPS)
+    b2_shapes(shapes["pix2pix_train"], GAN_INPUT_SHAPES["pix2pix"],
+              2 * GAN_STEPS, "pix2pix")
     rows = gan_losses(run_dir, "pix2pix", ("d_loss", "g_loss", "g_adv",
                                            "g_l1"))
     (psnr, ssim), restored = counted("pix2pix_test", test.main, args + [
         "--ckpt", run_dir])
     batches = PIX2PIX_SPLIT // PIX2PIX_BATCH
-    gan_expect(runs["pix2pix_test"], {"normalize_u8": batches,
+    expect_only(runs["pix2pix_test"], {"normalize_u8": batches,
                                       "bn_act": 13 * batches},
                f"pix2pix test.main ({batches} batches)")
-    gan_b2_shapes(shapes["pix2pix_test"], "pix2pix", batches)
+    b2_shapes(shapes["pix2pix_test"], GAN_INPUT_SHAPES["pix2pix"], batches,
+              "pix2pix")
     val = recipes_gan.gan_source(cfg, True, "val")
     x = torch.from_numpy(val.get_batch(np.arange(PIX2PIX_CHECK_N))[0])
     xd = trainer.to_unit_range(x.to(dev))
@@ -4304,6 +4374,713 @@ def convnet_api_run(dev, plain_step):
     return runs, shapes, checks
 
 
+def io_environment():
+    """What the machine has for the file phases: the C++ compiler's
+    ``jpeglib.h`` and ``png.h``, Pillow, the CPU count and this process's
+    CPU affinity; and the plan of file phases that decides which run."""
+    from myconvnet_tpu_torch.data import native_loader
+
+    try:
+        import PIL
+        pillow = PIL.__version__
+    except ImportError:
+        pillow = None
+    env = {"jpeglib.h": native_loader.has_header("jpeglib.h"),
+           "png.h": native_loader.has_header("png.h"), "Pillow": pillow,
+           "cpu_count": os.cpu_count(),
+           "sched_getaffinity": len(os.sched_getaffinity(0))}
+    log("host I/O: " + ", ".join(f"{k} {v}" for k, v in env.items()))
+    # a JPEG corpus decodes natively (jpeglib.h) or through FileSource's
+    # Pillow path; VOC masks, pix2pix pairs, generate --input and the image
+    # route need Pillow
+    jpeg = env["jpeglib.h"] or bool(pillow)
+    plan = {"budget": jpeg, "resnet50_files": jpeg,
+            "deeplab_files": bool(pillow), "pix2pix_files": bool(pillow),
+            "image_route": bool(pillow)}
+    notes = []
+    if not env["jpeglib.h"]:
+        notes.append("jpeglib.h missing: no native JPEG decode; "
+                     + ("the decode budget and ResNet-50 from files run "
+                        "through FileSource's Pillow path" if pillow else
+                        "skipped the decode budget and ResNet-50 from "
+                        "files"))
+    if not env["png.h"]:
+        notes.append("png.h missing: VOC masks decode through Pillow")
+    if not pillow:
+        notes.append("Pillow missing: skipped DeepLabv3+ from files, "
+                     "pix2pix from files, generate --input/--ema and the "
+                     "image route")
+    return env, plan, "; ".join(notes)
+
+
+def check_io_kernels(dev, g, plan):
+    """The kernels at the file phases' shapes that no other row holds:
+    conv_pair and bn_act at ResNet-50's eval batch of FILES_VAL (path
+    ``resnet50_files``), normalize_u8 at the image route's one image of
+    224 x 224 with the ImageNet mean and std (path ``image_route``)."""
+    import torch
+
+    rows = []
+    if plan.get("resnet50_files"):
+        for shape, count in R50_FILES_PAIR_SITES:
+            rows.append(conv_pair_row(shape, count, "resnet50_files", g))
+            torch.cuda.empty_cache()
+        for site, shape, count in R50_FILES_ACT_SITES:
+            x = torch.randn(*shape, generator=g, device=dev).bfloat16()
+            c = shape[-1]
+            rows.append(bn_act_row(site, x, torch.rand(
+                c, generator=g, device=dev) + 0.5, torch.randn(
+                c, generator=g, device=dev) * 0.5, count, "resnet50_files"))
+            del x
+        torch.cuda.empty_cache()
+    if plan.get("image_route"):
+        from myconvnet_tpu_torch import recipes
+        mean, std = recipes.normalization(recipes.load_config(CONFIG), 3)
+        rows.append(gan_input_row("image_route", (1, 224, 224, 3), g,
+                                  mean, std))
+    return rows
+
+
+def _link(src, dst):
+    """Hard-link ``src`` to ``dst`` (copy across file systems)."""
+    os.makedirs(os.path.dirname(dst), exist_ok=True)
+    try:
+        os.link(src, dst)
+    except OSError:
+        import shutil
+        shutil.copyfile(src, dst)
+
+
+def _fixture_jpegs():
+    d = os.path.join(FIXTURES, "imagenet")
+    return [os.path.join(d, f) for f in sorted(os.listdir(d))]
+
+
+def imagenet_files_corpus(root):
+    """FILES_CLASSES class directories under train/ and val/ (every class
+    in both, as ImageNet's, so the labels agree), FILES_TRAIN and
+    FILES_VAL files spread over the classes, the fixture JPEGs in turn."""
+    jpegs = _fixture_jpegs()
+    for split, n in (("train", FILES_TRAIN), ("val", FILES_VAL)):
+        for c in range(FILES_CLASSES):
+            os.makedirs(os.path.join(root, split, f"n{c:08d}"),
+                        exist_ok=True)
+        for i in range(n):
+            _link(jpegs[i % len(jpegs)], os.path.join(
+                root, split, f"n{i % FILES_CLASSES:08d}",
+                f"{split}_{i:05d}.JPEG"))
+    return root
+
+
+def voc_files_corpus(root):
+    """A VOCdevkit/VOC2012 layout whose split lists name the fixture pairs
+    in turn."""
+    base = os.path.join(root, "VOCdevkit", "VOC2012")
+    stems = sorted(f[:-4] for f in os.listdir(os.path.join(
+        FIXTURES, "voc", "JPEGImages")))
+    for stem in stems:
+        for sub, ext in (("JPEGImages", ".jpg"),
+                         ("SegmentationClass", ".png")):
+            _link(os.path.join(FIXTURES, "voc", sub, stem + ext),
+                  os.path.join(base, sub, stem + ext))
+    lists = os.path.join(base, "ImageSets", "Segmentation")
+    os.makedirs(lists, exist_ok=True)
+    for split, n in (("train", VOC_FILES_TRAIN), ("val", VOC_FILES_VAL)):
+        with open(os.path.join(lists, f"{split}.txt"), "w") as f:
+            f.write("".join(stems[i % len(stems)] + "\n" for i in range(n)))
+    return root
+
+
+def pairs_files_corpus(root):
+    """The combined pix2pix layout: PAIRS_FILES_TRAIN images under train/
+    and PIX2PIX_BATCH under val/, the fixture pairs in turn."""
+    d = os.path.join(FIXTURES, "pairs")
+    pairs_ = [os.path.join(d, f) for f in sorted(os.listdir(d))]
+    for split, n in (("train", PAIRS_FILES_TRAIN), ("val", PIX2PIX_BATCH)):
+        for i in range(n):
+            _link(pairs_[i % len(pairs_)],
+                  os.path.join(root, split, f"{i:04d}.jpg"))
+    return root
+
+
+def logged_rate(run_dir, batch):
+    """A train.main run's own record (train.jsonl, a line a step): the
+    median step ms and images/s and the mean input_wait_frac over its
+    steps after the first FILES_WARMUP (fewer in a shorter run)."""
+    import numpy as np
+    with open(os.path.join(run_dir, "train.jsonl")) as f:
+        rows = [r for r in map(json.loads, f) if "images_per_sec" in r]
+    skip = min(FILES_WARMUP, len(rows) - 1)
+    rows = rows[skip:]
+    if not rows:
+        raise AssertionError(f"{run_dir}: no rate logged past step {skip}")
+    ips = float(np.median([r["images_per_sec"] for r in rows]))
+    return dict(steps=len(rows), images_per_sec=ips,
+                step_ms=batch * 1e3 / ips,
+                input_wait_frac=float(np.mean([r["input_wait_frac"]
+                                               for r in rows])))
+
+
+def fed_rate(dev, trainer, data_set, batch, steps):
+    """The train step fed by ``data_set.train_iter`` as ``Trainer.fit``
+    feeds it (each step's metrics read after the next step is enqueued):
+    FED_WARMUP steps, then ``steps`` plain and ``steps`` under
+    torch.profiler (device activity only).  For each of the two: step ms
+    (wall clock, the device drained at both ends), images/s,
+    input_wait_frac (the loop's wait for a batch) and host enqueue ms a
+    step (the ``train_step`` call); for the profiled one, device busy ms a
+    step (the union of its kernels' intervals) and the idle share
+    1 - busy / step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    it = data_set.train_iter(batch, dev)
+
+    def run(n):
+        wait = enqueue = 0.0
+        pending = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            t1 = time.perf_counter()
+            x, y = next(it)
+            t2 = time.perf_counter()
+            metrics = trainer.train_step(x, y)
+            enqueue += time.perf_counter() - t2
+            wait += t2 - t1
+            if pending is not None:
+                [float(v) for v in pending.values()]
+            pending = metrics
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return dict(step_ms=wall * 1e3 / n, images_per_sec=n * batch / wall,
+                    input_wait_frac=wait / wall,
+                    host_enqueue_ms=enqueue * 1e3 / n)
+
+    try:
+        run(FED_WARMUP)
+        plain = run(steps)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            profiled = run(steps)
+    finally:
+        it.close()
+    events = device_events(prof)
+    if not events:
+        raise AssertionError("the fed train step's profile shows no device "
+                             "activity")
+    busy = busy_us(events)[0] / 1e3 / steps
+    profiled.update(device_busy_ms=busy,
+                    kernels_per_step=len(events) / steps,
+                    idle_share=1 - busy / profiled["step_ms"])
+    return dict(steps=steps, plain=plain, profiled=profiled)
+
+
+def gather_ms(images, batch):
+    """Best of 3 host ms of one shuffled batch's gather from ``images``:
+    the host library's threaded copy (``ArraySource.get_batch``) and
+    numpy's indexing."""
+    import numpy as np
+
+    from myconvnet_tpu_torch.data import native_loader
+
+    idx = np.random.RandomState(SEED).permutation(len(images))[:batch]
+    out = {}
+    for name, fn in (("native", native_loader.gather_batch),
+                     ("numpy", lambda a, i: np.ascontiguousarray(a[i]))):
+        best = None
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn(images, idx)
+            dt = (time.perf_counter() - t0) * 1e3
+            best = dt if best is None else min(best, dt)
+        out[name] = best
+    return out
+
+
+def decode_budget(images_per_sec, card):
+    """The host decode rate of BUDGET_IMAGES fixture JPEGs at BUDGET_HW:
+    the host library's libjpeg batch (``decode_jpeg_batch``) where it has
+    JPEG, else FileSource's Pillow path (Pillow's decode and
+    ``cover_resize_center_crop`` over a pool of threads); images/s at each
+    thread count, a
+    core's rate (one thread) and the cores that feed each of
+    ``images_per_sec`` (a step's measured rate)."""
+    import io
+    from concurrent.futures import ThreadPoolExecutor
+
+    from myconvnet_tpu_torch.data import native_loader
+    from myconvnet_tpu_torch.data.pipeline import cover_resize_center_crop
+
+    blobs = []
+    for path in _fixture_jpegs():
+        with open(path, "rb") as f:
+            blobs.append(f.read())
+    blobs = [blobs[i % len(blobs)] for i in range(BUDGET_IMAGES)]
+    native = native_loader.backend()["jpeg"]
+
+    def decode(k):
+        if native:
+            return native_loader.decode_jpeg_batch(blobs, BUDGET_HW,
+                                                   n_threads=k)
+        from PIL import Image
+        with ThreadPoolExecutor(max_workers=k) as pool:
+            return list(pool.map(lambda b: cover_resize_center_crop(
+                Image.open(io.BytesIO(b)).convert("RGB"), BUDGET_HW), blobs))
+
+    decode(2)   # warm: page cache, the library, Pillow's plugins
+    rates = {}
+    for k in sorted({*BUDGET_THREADS, os.cpu_count() or 1}):
+        best = None
+        for _ in range(2):
+            t0 = time.perf_counter()
+            decode(k)
+            dt = time.perf_counter() - t0
+            best = dt if best is None else min(best, dt)
+        rates[k] = BUDGET_IMAGES / best
+    per_core = rates[1]
+    out = dict(path="native libjpeg" if native else "Pillow",
+               raw_hw=list(BUDGET_HW), images=BUDGET_IMAGES,
+               images_per_sec=rates, per_core=per_core,
+               cores_needed={k: v / per_core
+                             for k, v in images_per_sec.items()})
+    log(f"{card}: host decode budget ({out['path']}, {BUDGET_IMAGES} "
+        f"fixture JPEGs "
+        f"-> {list(BUDGET_HW)}): " + ", ".join(
+            f"{k} threads {v:.1f} images/s" for k, v in rates.items())
+        + f"; {per_core:.1f} images/s a core; cores to feed "
+        + ", ".join(f"{k} ({v:.1f} images/s): {out['cores_needed'][k]:.2f}"
+                    for k, v in images_per_sec.items()))
+    return out
+
+
+def eval_tail_check(dev, counted):
+    """C6: ``Trainer.evaluate`` over EVAL_TAIL_SPLIT images of the CIFAR-100
+    ResNet-18 at its batch of 128 (bf16; B2 1, B4 5, B1 4 an eval batch)
+    pads the tail to 128: the tail's logits equal the same images' logits
+    inside a full batch, bit for bit."""
+    import numpy as np
+    import torch
+
+    from myconvnet_tpu_torch import recipes
+    from myconvnet_tpu_torch.data.pipeline import ArraySource, DataSet
+    from myconvnet_tpu_torch.eval.evaluators import AccuracyEvaluator
+    from myconvnet_tpu_torch.weights import from_jax, random_jax_params
+
+    cfg = recipes.load_config(CIFAR_CONFIG)
+    net, _, val_set = recipes.build_classifier(cfg, True, device=dev)
+    trainer = net.trainer
+    from_jax(trainer.model, *random_jax_params(trainer.model, SEED))
+    x = val_set.source.images[:EVAL_TAIL_SPLIT]
+    y = val_set.source.labels[:EVAL_TAIL_SPLIT]
+    evaluator = trainer.evaluator = AccuracyEvaluator()
+    seen, update = [], evaluator.update
+    evaluator.update = lambda out, t: (seen.append(out.clone()),
+                                       update(out, t))
+    score = counted("c6_evaluate", trainer.evaluate,
+                    DataSet(ArraySource(x, y)).eval_iter(TRAIN_BATCH, dev))
+    batches = -(-EVAL_TAIL_SPLIT // TRAIN_BATCH)
+    check_counts(counted.runs["c6_evaluate"],
+                 {k: v * batches for k, v in PER_EVAL_BATCH.items()},
+                 f"Trainer.evaluate ({batches} batches)")
+    inside = trainer.eval_batch(
+        torch.from_numpy(x[-TRAIN_BATCH:]).to(dev),
+        torch.from_numpy(y[-TRAIN_BATCH:]).to(dev))[0]
+    tail = EVAL_TAIL_SPLIT - (batches - 1) * TRAIN_BATCH
+    same = bool(torch.equal(seen[-1], inside[-tail:]))
+    log(f"C6: Trainer.evaluate over {EVAL_TAIL_SPLIT} images at batch "
+        f"{TRAIN_BATCH} ran batches of {[len(o) for o in seen]} outputs "
+        f"(the tail padded to {TRAIN_BATCH}); the tail's logits equal the "
+        f"same images inside a full batch: {same}; top-1 {score:.4f}")
+    if not same:
+        raise AssertionError("C6: evaluate's tail logits differ from the "
+                             "full batch's")
+    return dict(tail_bits_equal=same, top1=score,
+                batch_sizes=[len(o) for o in seen],
+                finite=bool(np.isfinite(seen[-1].cpu().numpy()).all()))
+
+
+class Counted:
+    """``counted(run, fn, ...)``: fn(...) with the launch counts set to 0
+    just before it and read, with the launches' shapes, just after it,
+    into ``runs[run]`` and ``shapes[run]``."""
+
+    def __init__(self):
+        self.runs, self.shapes = {}, {}
+
+    def __call__(self, run, fn, *args, **kwargs):
+        import collections
+
+        import torch
+
+        from myconvnet_tpu_torch.ops import kernels
+        self.shapes[run] = collections.Counter()
+        with launch_shapes(self.shapes[run]):
+            kernels.reset_launch_counts()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.runs[run] = kernels.launch_counts()
+        return out
+
+
+def expect_only(counts, want, what):
+    """Hold ``counts`` to ``want`` and no other kernel launch."""
+    from myconvnet_tpu_torch.ops import kernels
+    check_counts(counts, {k: want.get(k, 0) for k in kernels.WRAPPERS}, what)
+
+
+def resnet50_files_run(dev, counted, corpus, synthetic, card):
+    """The ResNet-50 recipe as written (bf16, 1024 as 2 x 512) on the
+    ImageNet-layout file corpus: ``train.main --data_dir`` for FILES_STEPS
+    steps validating once, then ``test.main``; no kernel in a step, B5 13
+    and B1 7 an eval batch of FILES_VAL; every loss finite; the restored
+    logits equal the writer's and agree with the host's plain path on the
+    first val files.  The step's ms, images/s and input_wait_frac from the
+    run's own log, beside those of the synthetic ArraySource run of the
+    same recipe in this call (``synthetic``: its checks); peak memory;
+    then ``fed_runs``: the step's idle share, host enqueue and input wait
+    when the files feed it, beside an in-memory source."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from myconvnet_tpu_torch import recipes, test, train
+    from myconvnet_tpu_torch.data import native_loader
+
+    run_dir = os.path.join(ROOT, "build", "chip_smoke_r50_files")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    args = ["--config", CONFIG, "--data_dir", corpus, "--batch",
+            str(R50_BATCH), "--set", f"accum_steps={R50_ACCUM}",
+            "--device", dev.type]
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    net = counted("files_r50_train", train.main, args + [
+        "--steps", str(FILES_STEPS), "--val_every", str(FILES_STEPS),
+        "--out", run_dir, "--set", "log_every=1"])
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    trainer = net.trainer
+    expect_only(counted.runs["files_r50_train"],
+                {k: 2 * v for k, v in FORWARD["resnet50"].items()},
+                f"ResNet-50 from files train.main ({FILES_STEPS} steps, 2 "
+                f"eval batches of {FILES_VAL})")
+    losses = read_losses(run_dir, FILES_STEPS, "ResNet-50 from files")
+    rate = logged_rate(run_dir, R50_BATCH)
+    rate["max_memory_allocated_gb"] = peak
+    backend = native_loader.backend()
+    (score, restored_net) = counted("files_r50_test", test.main, args + [
+        "--ckpt", run_dir])
+    expect_only(counted.runs["files_r50_test"], FORWARD["resnet50"],
+                "ResNet-50 from files test.main (1 eval batch)")
+    restored = restored_net.trainer
+    (val_src,) = recipes.make_sources(dict(
+        classifier_cfg(CONFIG), data_dir=corpus), False, ("val",))
+    x = torch.from_numpy(val_src.get_batch(np.arange(
+        STEP1_BATCH["resnet50"]))[0])
+    val_src.close()
+    writer = trainer.eval_step(x.to(dev))
+    same = bool(torch.equal(writer, restored.eval_step(x.to(dev))))
+    host, _, _ = recipes.build_trainer(classifier_cfg(CONFIG), True,
+                                       device=torch.device("cpu"))
+    host.load_state(trainer.state())
+    plain = host.eval_step(x).numpy()
+    logits = writer.float().cpu().numpy()
+    rel = float(np.abs(logits - plain).max() / np.abs(plain).max())
+    syn = synthetic["logged_rate"]
+    log(f"{card}: ResNet-50 from files ({FILES_TRAIN} train / {FILES_VAL} "
+        f"val JPEGs in {FILES_CLASSES} classes; host decode: "
+        f"{'native libjpeg' if backend['jpeg'] else 'Pillow'}): train.main "
+        f"{FILES_STEPS} steps in {seconds:.1f}s, losses finite "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; step {rate['step_ms']:.2f} ms"
+        f", {rate['images_per_sec']:.1f} images/s, input_wait_frac "
+        f"{rate['input_wait_frac']:.4f}, max_memory_allocated {peak:.2f} GiB "
+        f"(steps {FILES_WARMUP + 1}-{FILES_STEPS}); the synthetic "
+        f"ArraySource run of this call: step {syn['step_ms']:.2f} ms, "
+        f"{syn['images_per_sec']:.1f} images/s, input_wait_frac "
+        f"{syn['input_wait_frac']:.4f}, "
+        f"{synthetic['step']['max_memory_allocated_gb']:.2f} GiB; test.main "
+        f"top-1 {score:.4f}; restored logits equal the writer's: {same}; "
+        f"card vs host plain path on {len(x)} files {rel:.4g} (tol "
+        f"{LOGIT_REL_TOL})")
+    if not same or not np.isfinite(logits).all() or rel > LOGIT_REL_TOL:
+        raise AssertionError("ResNet-50 from files: restored logits differ "
+                             "or the card disagrees with the host")
+    shutil.rmtree(run_dir)
+    fed = fed_runs(dev, trainer, corpus, card)
+    return dict(losses=losses, train_seconds=seconds, rate=rate,
+                synthetic_rate=syn, top1=score, backend=backend,
+                eval_logit_rel_err=rel, **fed)
+
+
+def fed_runs(dev, trainer, corpus, card):
+    """The file run's own device profile: the trained ResNet-50 step fed
+    by the corpus's train FileSource (``fed_rate``), and as its control
+    the same step fed by an in-memory ArraySource of as many seeded images
+    at the recipe's raw size (no decoding); the two sources' gather of a
+    batch on the host (``gather_ms``)."""
+    import numpy as np
+
+    from myconvnet_tpu_torch import recipes
+    from myconvnet_tpu_torch.data.pipeline import ArraySource, DataSet
+
+    cfg = dict(classifier_cfg(CONFIG), data_dir=corpus)
+    (train_src,) = recipes.make_sources(cfg, False, ("train",))
+    try:
+        files = fed_rate(dev, trainer, DataSet(train_src), R50_BATCH,
+                         FED_STEPS)
+    finally:
+        train_src.close()
+    rs = np.random.RandomState(SEED)
+    images = rs.randint(0, 256, (FILES_TRAIN, *cfg["raw_hw"], 3),
+                        dtype=np.uint8)
+    labels = rs.randint(0, FILES_CLASSES, FILES_TRAIN).astype(np.int32)
+    memory = fed_rate(dev, trainer, DataSet(ArraySource(images, labels)),
+                      R50_BATCH, FED_STEPS)
+    gather = gather_ms(images, R50_BATCH)
+    for what, r in (("files", files), ("in-memory ArraySource", memory)):
+        p, q = r["plain"], r["profiled"]
+        log(f"{card}: ResNet-50 step fed by {what} ({FED_STEPS} steps "
+            f"after {FED_WARMUP}): {p['step_ms']:.2f} ms, "
+            f"{p['images_per_sec']:.1f} images/s, input_wait_frac "
+            f"{p['input_wait_frac']:.4f}, host enqueue "
+            f"{p['host_enqueue_ms']:.2f} ms a step; under torch.profiler "
+            f"{q['step_ms']:.2f} ms, host enqueue "
+            f"{q['host_enqueue_ms']:.2f} ms, device busy "
+            f"{q['device_busy_ms']:.2f} ms over {q['kernels_per_step']:.0f} "
+            f"kernels, idle share {q['idle_share']:.4f}")
+    log(f"{card}: host gather of {R50_BATCH} of {FILES_TRAIN} images "
+        f"{list(images.shape[1:])}: the host library "
+        f"{gather['native']:.2f} ms, numpy {gather['numpy']:.2f} ms")
+    return dict(fed_files=files, fed_memory=memory, gather_ms=gather)
+
+
+def deeplab_files_run(dev, counted, corpus):
+    """DeepLabv3+ as written (bf16, output_stride 16) on the VOCdevkit
+    corpus at its 513 x 513 crop: ``train.main --data_dir`` for
+    VOC_FILES_STEPS steps of VOC_FILES_BATCH validating once, then
+    ``test.main`` (mIoU); no kernel in a step, B5 11, B4 2 and B1 18 an
+    eval forward; every loss finite."""
+    import shutil
+
+    import numpy as np
+
+    from myconvnet_tpu_torch import test, train
+
+    run_dir = os.path.join(ROOT, "build", "chip_smoke_deeplab_files")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    args = ["--config", VOC_CONFIG, "--data_dir", corpus, "--batch",
+            str(VOC_FILES_BATCH), "--device", dev.type]
+    t0 = time.perf_counter()
+    counted("files_deeplab_train", train.main, args + [
+        "--steps", str(VOC_FILES_STEPS), "--val_every",
+        str(VOC_FILES_STEPS), "--out", run_dir, "--set", "log_every=1"])
+    seconds = time.perf_counter() - t0
+    batches = VOC_FILES_VAL // VOC_FILES_BATCH
+    expect_only(counted.runs["files_deeplab_train"],
+                {k: 2 * batches * v for k, v in FORWARD["deeplab"].items()},
+                f"DeepLabv3+ from files train.main ({VOC_FILES_STEPS} "
+                f"steps, {2 * batches} eval batches)")
+    losses = read_losses(run_dir, VOC_FILES_STEPS, "DeepLabv3+ from files")
+    rate = logged_rate(run_dir, VOC_FILES_BATCH)
+    miou, _ = counted("files_deeplab_test", test.main, args + [
+        "--ckpt", run_dir])
+    expect_only(counted.runs["files_deeplab_test"],
+                {k: batches * v for k, v in FORWARD["deeplab"].items()},
+                f"DeepLabv3+ from files test.main ({batches} eval batches)")
+    log(f"DeepLabv3+ from files ({VOC_FILES_TRAIN} train / {VOC_FILES_VAL} "
+        f"val VOC pairs at 513x513): train.main {VOC_FILES_STEPS} steps in "
+        f"{seconds:.1f}s, losses finite {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; step {rate['step_ms']:.2f} ms, "
+        f"{rate['images_per_sec']:.1f} images/s, input_wait_frac "
+        f"{rate['input_wait_frac']:.4f}; test.main mIoU {miou:.4f}")
+    if not 0.0 <= miou <= 1.0 or not np.isfinite(miou):
+        raise AssertionError(f"DeepLabv3+ from files: mIoU {miou}")
+    shutil.rmtree(run_dir)
+    return dict(losses=losses, train_seconds=seconds, rate=rate, miou=miou)
+
+
+def pix2pix_files_run(dev, counted, corpus, inputs):
+    """pix2pix as written (bf16, 256 x 256, batch 16) on the combined
+    corpus with the generator's EMA (``g_optimizer.ema_decay``):
+    ``train.main --data_dir`` for PAIRS_FILES_STEPS steps (B2 2 a step),
+    then ``generate.main --input`` over GENERATE_INPUTS images, with and
+    without ``--ema`` (B2 1 and B1 13 each); every metric finite; the
+    grids' inputs equal the directory's images resized as JAX's generate
+    resizes them; the EMA translates otherwise."""
+    import shutil
+
+    import numpy as np
+
+    from myconvnet_tpu_torch import generate, recipes, train
+    from myconvnet_tpu_torch.utils import images
+
+    run_dir = os.path.join(ROOT, "build", "chip_smoke_pix2pix_files")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    args = ["--config", PIX2PIX_CONFIG, "--device", dev.type, "--set",
+            "g_optimizer.ema_decay=0.999"]
+    t0 = time.perf_counter()
+    counted("files_pix2pix_train", train.main, args + [
+        "--data_dir", corpus, "--steps", str(PAIRS_FILES_STEPS), "--out",
+        run_dir, "--set", f"log_every={PAIRS_FILES_STEPS}"])
+    seconds = time.perf_counter() - t0
+    expect_only(counted.runs["files_pix2pix_train"],
+                {"normalize_u8": 2 * PAIRS_FILES_STEPS},
+                f"pix2pix from files train.main ({PAIRS_FILES_STEPS} steps)")
+    b2_shapes(counted.shapes["files_pix2pix_train"],
+              GAN_INPUT_SHAPES["pix2pix"], 2 * PAIRS_FILES_STEPS,
+              "pix2pix from files")
+    with open(os.path.join(run_dir, "gan_pix2pix.jsonl")) as f:
+        rows = [r for r in map(json.loads, f) if "d_loss" in r]
+    if not rows or not all(np.isfinite(r[k]) for r in rows
+                           for k in ("d_loss", "g_loss", "g_l1")):
+        raise AssertionError(f"pix2pix from files: metrics {rows}")
+    grids = []
+    make_grid = images.make_grid
+
+    def record(a, **kw):
+        grids.append(a)
+        return make_grid(a, **kw)
+
+    images.make_grid = record
+    try:
+        def both():
+            for ema in ([], ["--ema"]):
+                generate.main(args + [
+                    "--ckpt", run_dir, "--input", inputs, "--n",
+                    str(GENERATE_INPUTS), "--out",
+                    os.path.join(run_dir, f"gen{len(ema)}.png"), *ema])
+        counted("files_pix2pix_generate", both)
+    finally:
+        images.make_grid = make_grid
+    expect_only(counted.runs["files_pix2pix_generate"],
+                {"normalize_u8": 2, "bn_act": 2 * FORWARD["pix2pix"][
+                    "bn_act"]}, "generate.main --input, --input --ema")
+    b2_shapes(counted.shapes["files_pix2pix_generate"],
+              GAN_INPUT_SHAPES["pix2pix"], 2, "generate --input")
+    size = recipes.load_config(PIX2PIX_CONFIG)["image_size"]
+    raw = generate.load_inputs(inputs, GENERATE_INPUTS, size)
+    plain, ema = grids
+    same_inputs = all(np.array_equal(g[:, :, :size], raw) for g in grids)
+    differ = not np.array_equal(plain[:, :, size:], ema[:, :, size:])
+    log(f"pix2pix from files ({PAIRS_FILES_TRAIN} combined pairs): "
+        f"train.main {PAIRS_FILES_STEPS} steps in {seconds:.1f}s, metrics "
+        f"finite (g_l1 {rows[-1]['g_l1']:.4f}); generate.main --input over "
+        f"{GENERATE_INPUTS} images: inputs as read {same_inputs}, --ema "
+        f"translates otherwise {differ}")
+    if not same_inputs or not differ:
+        raise AssertionError("generate --input/--ema: inputs differ or the "
+                             "EMA changed nothing")
+    shutil.rmtree(run_dir)
+    return dict(metrics=rows, train_seconds=seconds)
+
+
+def image_route_run(dev, counted):
+    """One image body (a fixture JPEG) a request, IMAGE_ROUTE_REQUESTS
+    requests, through ``ModelServer.predict`` on the served ResNet-50
+    (bf16, batch 8): decoded to uint8 on the host, normalized on the card
+    by B2 (1 a request, [1, 224, 224, 3]), B5 13 and B1 7 a request; the
+    logits within LOGIT_REL_TOL of max |logit| of the same route on the
+    host (plain versions)."""
+    import numpy as np
+
+    from myconvnet_tpu_torch import models, recipes, serving_http
+    from myconvnet_tpu_torch.weights import random_jax_params
+
+    cfg = recipes.load_config(CONFIG)
+    params, state = random_jax_params(models.get_model(
+        cfg["model"], cfg["num_classes"], **cfg["model_kwargs"]), SEED)
+
+    def server(device):
+        return serving_http.ModelServer([serving_http.build_route(
+            "resnet50", "classify", CONFIG, params=params, state=state,
+            batch=BATCH, device=device)])
+
+    with open(_fixture_jpegs()[0], "rb") as f:
+        body = f.read()
+    card = server(dev)
+    card.predict("resnet50", body, "image/jpeg")   # warm-up
+    t0 = time.perf_counter()
+    replies = counted("image_route", lambda: [
+        card.predict("resnet50", body, "image/jpeg")
+        for _ in range(IMAGE_ROUTE_REQUESTS)])
+    ms = (time.perf_counter() - t0) * 1e3 / IMAGE_ROUTE_REQUESTS
+    expect_only(counted.runs["image_route"],
+                {k: IMAGE_ROUTE_REQUESTS * v for k, v in
+                 {"normalize_u8": 1, **PER_CALL}.items()},
+                f"image route ({IMAGE_ROUTE_REQUESTS} requests)")
+    route = card.routes["resnet50"]
+    b2_shapes(counted.shapes["image_route"], (1, *route.input_shape[1:]),
+              IMAGE_ROUTE_REQUESTS, "image route")
+    x = card._decode_body(route, body, "image/jpeg")
+    logits = card._execute(route, x)
+    host = server("cpu")
+    want = host._execute(host.routes["resnet50"], x)
+    rel = float(np.abs(logits - want).max() / np.abs(want).max())
+    log(f"image route: {IMAGE_ROUTE_REQUESTS} JPEG requests, "
+        f"{ms:.2f} ms a request (decode, B2, forward, top-5); uint8 "
+        f"{list(x.shape)} to the card; top-1 "
+        f"{replies[-1]['predictions'][0][0]}; logits card vs host plain "
+        f"path {rel:.4g} (tol {LOGIT_REL_TOL})")
+    if not np.isfinite(logits).all() or rel > LOGIT_REL_TOL:
+        raise AssertionError("image route: the card disagrees with the host")
+    return dict(ms_per_request=ms, logit_rel_err=rel)
+
+
+def files_run(dev, plan, synthetic, card):
+    """The file phases that ``plan`` runs (corpora under build/, removed
+    after), then the host decode budget against this call's ResNet-50 step
+    rates (``card``: the card's name and power limit, printed beside the
+    rates).  Returns ({run: launches}, {run: Counter of launch shapes},
+    checks)."""
+    import shutil
+
+    import torch
+
+    from myconvnet_tpu_torch.ops import kernels
+
+    counted = Counted()
+    checks = {"c6": eval_tail_check(dev, counted)}
+    torch.cuda.empty_cache()
+    root = os.path.join(ROOT, "build", "chip_smoke_corpora")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        if plan["resnet50_files"]:
+            checks["resnet50_files"] = phase(
+                "ResNet-50 from files", resnet50_files_run, dev, counted,
+                imagenet_files_corpus(os.path.join(root, "imagenet")),
+                synthetic, card)
+            torch.cuda.empty_cache()
+        if plan["deeplab_files"]:
+            checks["deeplab_files"] = phase(
+                "DeepLabv3+ from files", deeplab_files_run, dev, counted,
+                voc_files_corpus(os.path.join(root, "voc")))
+            torch.cuda.empty_cache()
+        if plan["pix2pix_files"]:
+            inputs = os.path.join(root, "generate_inputs")
+            jpegs = _fixture_jpegs()
+            for i in range(GENERATE_INPUTS):
+                _link(jpegs[i % len(jpegs)],
+                      os.path.join(inputs, f"{i:03d}.jpg"))
+            checks["pix2pix_files"] = phase(
+                "pix2pix from files", pix2pix_files_run, dev, counted,
+                pairs_files_corpus(os.path.join(root, "pairs")), inputs)
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if plan["image_route"]:
+        checks["image_route"] = image_route_run(dev, counted)
+    if plan["budget"]:
+        rates = {"resnet50 synthetic step": synthetic["step"][
+            "images_per_sec"]}
+        if "resnet50_files" in checks:
+            rates["resnet50 file run"] = checks["resnet50_files"]["rate"][
+                "images_per_sec"]
+        checks["decode_budget"] = decode_budget(rates, card)
+    zero = {k: 0 for k in kernels.WRAPPERS}
+    runs = {k: counted.runs.get(k, zero) for k in FILE_RUNS}
+    return runs, counted.shapes, checks
+
+
 def step_one_only(specs):
     """Step 1 of ResNet-50, VGG-16 and DenseNet-121 against the host alone
     (``name:batch`` specs, default each at STEP1_BATCH), records in
@@ -4358,7 +5135,8 @@ def main() -> int:
         return 1
     for path in (CONFIG, CIFAR_CONFIG, VIT_CONFIG, PWC_CONFIG,
                  FLOWNET_CONFIG, VGG_CONFIG, DENSENET_CONFIG, VOC_CONFIG,
-                 DCGAN_CONFIG, PIX2PIX_CONFIG, *SMALLNET_CONFIGS.values()):
+                 DCGAN_CONFIG, PIX2PIX_CONFIG, *SMALLNET_CONFIGS.values(),
+                 FIXTURES):
         if not os.path.exists(path):
             print(f"chip_smoke: {path} is missing", file=sys.stderr)
             return 1
@@ -4373,13 +5151,25 @@ def main() -> int:
     # plain versions are the float32 references: true float32 on the card
     apply_backend_flags(FULL)
 
+    # the host library (g++) and the file phases this machine can run,
+    # decided before any phase
+    from myconvnet_tpu_torch.data import native_loader
+    env, plan, io_note = io_environment()
+    t0 = time.perf_counter()
+    host_lib = native_loader.backend()
+    log(f"host library built: {host_lib} in "
+        f"{time.perf_counter() - t0:.1f}s")
+    if host_lib["built"] is None or host_lib["jpeg"] != env["jpeglib.h"] \
+            or host_lib["png"] != env["png.h"]:
+        raise AssertionError(f"host library {host_lib} for {env}")
+
     t0 = time.perf_counter()
     lib_path, compile_s = _build.build()
     _build.library()
     log(f"kernels built: {lib_path.relative_to(ROOT)} compile "
         f"{compile_s:.1f}s, build+load {time.perf_counter() - t0:.1f}s")
 
-    summary, details = check_kernels(dev)
+    summary, details = check_kernels(dev, plan)
     pair_plans, plans_ok = sweep_conv_pair_plans(
         dev, torch.Generator(device=dev).manual_seed(SEED))
     summary["conv_pair"]["ok"] &= plans_ok
@@ -4416,6 +5206,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     api_runs, api_shapes, checks["convnet_api"] = phase(
         "ConvNet API", convnet_api_run, dev, checks["resnet50"]["step"])
+    torch.cuda.empty_cache()
+    file_runs, file_shapes, checks["files"] = phase(
+        "image files", files_run, dev, plan, checks["resnet50"], card)
+    checks["io_environment"] = dict(env, plan=plan, host_library=host_lib)
     runs = {"serve": counts, "train": train_counts, "test": eval_counts,
             "vit_train": vit_train, "vit_test": vit_test,
             **{f"vit_train_{k}": v for k, v in policy_runs.items()},
@@ -4427,7 +5221,7 @@ def main() -> int:
                for part, c in zip(("train", "test"), pair)},
             **{f"{k}_{part}": c for k, pair in big.items()
                for part, c in zip(("train", "test"), pair)},
-            **seg_runs, **gan_runs, **api_runs}
+            **seg_runs, **gan_runs, **api_runs, **file_runs}
     launches = {name: sum(c[name] for c in runs.values())
                 for name in SOURCES}
     in_forward = checks["bn_act_in_forward_ms"]
@@ -4446,7 +5240,7 @@ def main() -> int:
             if name in CORR else {}),
          **({"by_path": kernel_by_path(name, details, runs,
                                        {**seg_shapes, **gan_shapes,
-                                        **api_shapes})}
+                                        **api_shapes, **file_shapes})}
             if name in ("conv_pair", "bn_act", "conv_fused") else {}),
          **({"in_forward_ms": summary[name]["in_forward_ms"]}
             if name == "bn_act" else {})}
@@ -4460,6 +5254,7 @@ def main() -> int:
                    "checks": checks, "failed": bad}, f, indent=1)
     if bad:
         raise AssertionError(f"kernels outside tolerance: {bad}")
+    log(f"file phases: {io_note or 'all ran, the JPEG decode native'}")
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

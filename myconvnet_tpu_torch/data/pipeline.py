@@ -1,11 +1,16 @@
 """Input pipeline: host batching + prefetched host-to-device copies.
 
-Port of the parts of ``myconvnet_tpu/data/pipeline.py`` the CIFAR recipe
-uses: ``ArraySource`` (``:101-122``), ``batch_indices`` (``:251-267``, the
-same numpy RNG and order), the ``Prefetcher`` (``:318-388``) and
-``DataSet.train_iter``/``eval_iter`` (``:390-474``).  Batches leave the
-host as uint8 (4x fewer bytes than float32); augmentation runs on the
-device, in the train step.
+Port of ``myconvnet_tpu/data/pipeline.py``: the host decode geometry
+(``cover_resize_center_crop``, ``decode_image``, ``decode_image_native``,
+``decode_image_warp``, ``:34-99``), ``ArraySource`` (``:101-121``, batches
+assembled by the host library's threaded gather), ``FileSource``
+(``:124-216``: image files decoded by a worker pool, JPEG batches by the
+host library's threaded libjpeg path, masks by libpng's raw palette
+indices), ``batch_indices`` (``:251-267``, the same numpy RNG and order),
+the ``Prefetcher`` (``:318-388``) and ``DataSet.train_iter``/``eval_iter``
+(``:390-474``).  Batches leave the host as uint8 (4x fewer bytes than
+float32); augmentation runs on the device, in the train step.  Pillow is
+imported where an image is decoded, never at import.
 
 Where the JAX prefetcher calls ``jax.device_put`` on a background thread,
 this one gathers the batch into pinned host memory and copies it with
@@ -19,7 +24,8 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterable, Iterator
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterable, Iterator, Sequence
 
 import numpy as np
 import torch
@@ -27,8 +33,69 @@ import torch
 from myconvnet_tpu_torch.data.augment import AugmentConfig
 
 
+def pil_image(what: str, path):
+    """``PIL.Image``, or an ImportError that names ``path`` and what
+    needed to decode it (nothing substitutes another resampler)."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(f"{what} needs Pillow to decode {path!s}") from e
+    return Image
+
+
+def cover_resize_center_crop(img, raw_hw: tuple[int, int]) -> np.ndarray:
+    """Scale a PIL image so it covers ``raw_hw``, center-crop the overhang
+    -> [raw_h, raw_w, 3] uint8: the geometry of the host decode stage (the
+    host library's libjpeg path does the same in C)."""
+    from PIL import Image   # ``img`` is a PIL image: Pillow is here
+    w, h = img.size
+    th, tw = raw_hw
+    scale = max(th / h, tw / w)
+    img = img.resize((max(tw, int(round(w * scale))),
+                      max(th, int(round(h * scale)))), Image.BILINEAR)
+    arr = np.asarray(img, np.uint8)
+    y0 = (arr.shape[0] - th) // 2
+    x0 = (arr.shape[1] - tw) // 2
+    return arr[y0:y0 + th, x0:x0 + tw]
+
+
+def decode_image(path: str, raw_hw: tuple[int, int]) -> np.ndarray:
+    """Decode + cover-resize one image file to [raw_h, raw_w, 3] uint8."""
+    image = pil_image("decode_image", path)
+    return cover_resize_center_crop(image.open(path).convert("RGB"), raw_hw)
+
+
+def decode_image_native(path: str, raw_hw: tuple[int, int],
+                        frac_yx: tuple[float, float] = (0.5, 0.5)
+                        ) -> np.ndarray:
+    """Decode + crop ``raw_hw`` at the file's own resolution (no
+    resampling), the window at ``frac_yx`` of the slack ((0.5, 0.5): the
+    center); an image smaller than ``raw_hw`` on an axis is cover-resized
+    instead (upscaled; nothing is cut)."""
+    image = pil_image("decode_image_native", path)
+    img = image.open(path).convert("RGB")
+    w, h = img.size
+    th, tw = raw_hw
+    if h < th or w < tw:
+        return cover_resize_center_crop(img, raw_hw)
+    y0 = int(round(frac_yx[0] * (h - th)))
+    x0 = int(round(frac_yx[1] * (w - tw)))
+    return np.asarray(img.crop((x0, y0, x0 + tw, y0 + th)), np.uint8)
+
+
+def decode_image_warp(path: str, raw_hw: tuple[int, int]) -> np.ndarray:
+    """Decode + plain (aspect-warping) bilinear resize to [raw_h, raw_w, 3]
+    uint8: normalized box coordinates survive it unchanged."""
+    image = pil_image("decode_image_warp", path)
+    th, tw = raw_hw
+    img = image.open(path).convert("RGB").resize((tw, th), image.BILINEAR)
+    return np.asarray(img, np.uint8)
+
+
 class ArraySource:
-    """In-memory images + labels (CIFAR-scale corpora)."""
+    """In-memory images + labels (CIFAR-scale corpora); a uint8 pool's
+    batches are gathered by the host library's threaded memcpy (the same
+    bytes as numpy's indexing)."""
 
     def __init__(self, images: np.ndarray, labels: np.ndarray):
         if len(images) != len(labels):
@@ -41,8 +108,115 @@ class ArraySource:
         return len(self.images)
 
     def get_batch(self, idx: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        from myconvnet_tpu_torch.data import native_loader
         idx = np.asarray(idx, np.int64)
-        return np.ascontiguousarray(self.images[idx]), self.labels[idx]
+        return native_loader.gather_batch(self.images, idx), self.labels[idx]
+
+
+class FileSource:
+    """Image files decoded by a pool of ``workers`` threads to uint8 at
+    ``raw_hw``.  ``labels``: int class ids, or paths of segmentation masks
+    (decoded at ``mask_hw`` with the image's geometry).  ``decode_mode``
+    "cover" (cover-resize + center crop) or "native_crop" (a crop at the
+    file's own resolution: the center, or with ``rand_crop`` a window drawn
+    from ``RandomState(seed)`` on the calling thread).  A batch of JPEGs
+    without masks in "cover" mode decodes in the host library (threaded
+    libjpeg) where it has JPEG; everything else goes through Pillow."""
+
+    def __init__(self, paths: Sequence[str], labels: Sequence,
+                 raw_hw: tuple[int, int], workers: int = 8,
+                 mask_hw: tuple[int, int] | None = None,
+                 decode_mode: str = "cover",
+                 rand_crop: bool = False, seed: int = 0):
+        if decode_mode not in ("cover", "native_crop"):
+            raise ValueError(f"decode_mode {decode_mode!r}; valid: "
+                             "['cover', 'native_crop']")
+        if len(paths) != len(labels):
+            raise ValueError(f"{len(paths)} images but {len(labels)} "
+                             "labels")
+        self.paths = list(paths)
+        self.labels = list(labels)
+        self.raw_hw = tuple(raw_hw)
+        self.mask_hw = tuple(mask_hw) if mask_hw is not None else None
+        self.decode_mode = decode_mode
+        self.rand_crop = rand_crop
+        # the crop fractions are drawn on the calling thread: the pool's
+        # workers would share this state, and RandomState is not
+        # thread-safe
+        self._crop_rng = np.random.RandomState(seed)
+        self._pool = ThreadPoolExecutor(max_workers=workers)
+
+    def __len__(self):
+        return len(self.paths)
+
+    def close(self) -> None:
+        """Stop the decode pool's threads."""
+        self._pool.shutdown(wait=True)
+
+    def _decode_mask(self, path: str) -> np.ndarray:
+        """A label mask at ``mask_hw`` with the image's cover-resize +
+        center-crop geometry, nearest sampling (labels stay exact).  A PNG
+        decodes to its raw palette indices in the host library where it
+        has PNG; the resize is Pillow's NEAREST either way."""
+        image = pil_image("FileSource's mask decode", path)
+        img = None
+        if path.lower().endswith(".png"):
+            from myconvnet_tpu_torch.data import native_loader
+            if native_loader.native_png_available():
+                with open(path, "rb") as f:
+                    raw = native_loader.decode_png(f.read(), "raw")
+                if raw is not None:
+                    img = image.fromarray(raw)   # 2-D uint8: mode "L"
+        if img is None:
+            img = image.open(path)
+        w, h = img.size
+        th, tw = self.mask_hw
+        scale = max(th / h, tw / w)
+        img = img.resize((max(tw, int(round(w * scale))),
+                          max(th, int(round(h * scale)))), image.NEAREST)
+        arr = np.asarray(img, np.int32)
+        y0 = (arr.shape[0] - th) // 2
+        x0 = (arr.shape[1] - tw) // 2
+        return arr[y0:y0 + th, x0:x0 + tw]
+
+    def _int_labels(self, idx) -> np.ndarray:
+        return np.asarray([self.labels[i] for i in idx], np.int32)
+
+    def get_batch(self, idx: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """(images uint8 [B, *raw_hw, 3], labels int32 [B] or masks int32
+        [B, *mask_hw])."""
+        paths = [self.paths[i] for i in idx]
+        if self.decode_mode == "native_crop":
+            if self.rand_crop:
+                fracs = self._crop_rng.uniform(size=(len(paths), 2))
+            else:
+                fracs = np.full((len(paths), 2), 0.5)
+            imgs = list(self._pool.map(
+                lambda pf: decode_image_native(pf[0], self.raw_hw,
+                                               tuple(pf[1])),
+                zip(paths, fracs)))
+            return np.stack(imgs), self._int_labels(idx)
+        if self.mask_hw is None and paths and all(
+                p.lower().endswith((".jpg", ".jpeg")) for p in paths):
+            from myconvnet_tpu_torch.data import native_loader
+            if native_loader.native_jpeg_available():
+                # the files are read on the pool, decoded in the host
+                # library's threads
+                blobs = list(self._pool.map(_read_bytes, paths))
+                return (native_loader.decode_jpeg_batch(blobs, self.raw_hw),
+                        self._int_labels(idx))
+        imgs = list(self._pool.map(
+            lambda p: decode_image(p, self.raw_hw), paths))
+        if self.mask_hw is not None:
+            masks = list(self._pool.map(
+                lambda i: self._decode_mask(self.labels[i]), idx))
+            return np.stack(imgs), np.stack(masks)
+        return np.stack(imgs), self._int_labels(idx)
+
+
+def _read_bytes(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
 
 
 def batch_indices(n: int, batch_size: int, *, shuffle: bool, seed: int,

@@ -10,12 +10,13 @@ the train split) and ``make_gan_sampler`` (``:269``).  pix2pix runs bf16
 under its policy; its losses and L1 target stay float32.
 
 Refused by name: ``gan_kind`` cyclegan and srgan (``resnet_generator``,
-``make_cyclegan_step``, the SR discriminator), ``spectral_norm`` in the
-discriminator's kwargs, and a pix2pix ``data_dir`` (its reader decodes
-JPEGs with Pillow, ``subsets/pairs.py:31``).  DCGAN reads a CIFAR-10
-``data_dir`` with the port's pickle reader, as JAX does.  ``synthetic_n``
-sizes a rendered split (the port's own key; the JAX recipes keep each
-module's default, 512 CIFAR-10 images and 64 pairs).
+``make_cyclegan_step``, the SR discriminator) and ``spectral_norm`` in the
+discriminator's kwargs.  DCGAN reads a CIFAR-10 ``data_dir`` with the
+port's pickle reader, pix2pix a combined or two-directory pairs
+``data_dir`` with ``subsets.pairs.PairFileSource`` (``gan_style.py:119-
+125``), as JAX does.  ``synthetic_n`` sizes a rendered split (the port's
+own key; the JAX recipes keep each module's default, 512 CIFAR-10 images
+and 64 pairs).
 """
 
 from __future__ import annotations
@@ -79,12 +80,9 @@ def gan_source(cfg: dict, synthetic: bool, split: str = "train"):
                                    else "test",
                                    synthetic=synthetic or data_dir is None,
                                    **kw)
-    if data_dir is not None:
-        raise ValueError(f"recipe key 'data_dir' = {data_dir!r} is not "
-                         "ported for pix2pix (its reader decodes JPEGs with "
-                         "Pillow, subsets/pairs.py:31); pass --synthetic")
     size = cfg.get("image_size", 256)
-    return pairs.make_source(None, split, synthetic=True,
+    return pairs.make_source(data_dir, split,
+                             synthetic=synthetic or data_dir is None,
                              raw_hw=(size, size), **kw)
 
 

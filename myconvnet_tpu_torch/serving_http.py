@@ -9,11 +9,16 @@ Port of the classify path of ``myconvnet_tpu/serving_http.py``:
          {"instances": [[H,W,C float rows], ...]} in [0, 1]
          -> {"predictions": [[{"label", "prob"} x topk], ...]}
 
-``ModelServer.predict`` decodes the body, normalizes on the host with the
-recipe's mean/std, runs the route's fixed-batch program through
-:func:`_run_chunked` under one device lock, and decodes the top-k.  A
-route is built from a recipe config plus a JAX checkpoint, or plus
-parameter trees in memory.  The other route kinds, the micro-batcher and
+``ModelServer.predict`` decodes the body and normalizes it with the
+recipe's mean/std: an image body is decoded on the host with JAX's
+geometry (Pillow ``convert``, then a BILINEAR ``resize`` to the route's
+size), kept as uint8 and normalized on the route's device by the
+``normalize_u8`` kernel, one launch a request (a quarter of float32's bytes
+cross to the device); a JSON body is normalized on the host in float32, as
+JAX does (``serving_http.py:373-374``).  It then runs the route's
+fixed-batch program through :func:`_run_chunked` under one device lock and
+decodes the top-k.  A route is built from a recipe config plus a JAX
+checkpoint, or plus parameter trees in memory.  The other route kinds, the micro-batcher and
 loading an exported artifact come with later slices.
 """
 
@@ -27,6 +32,9 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
+
+from myconvnet_tpu_torch.ops.kernels.normalize_u8 import (device_stats,
+                                                          normalize_u8)
 
 KINDS = ("classify",)
 
@@ -42,6 +50,7 @@ class Route:
     mean: np.ndarray = None
     std: np.ndarray = None
     topk: int = 5
+    device: str | torch.device = "cpu"   # where an image body is normalized
 
     def describe(self) -> dict:
         return {"name": self.name, "kind": self.kind,
@@ -76,18 +85,20 @@ def build_route(name: str, kind: str, config: str | dict, *,
         policy=get_policy(cfg.get("precision", "f32")))
     mean, std = recipes.normalization(cfg, 3)
     return Route(name=name, kind=kind, fn=fn, input_shape=(batch, h, w, 3),
-                 mean=mean, std=std, topk=topk)
+                 mean=mean, std=std, topk=topk, device=device)
 
 
-def _run_chunked(fn, x: np.ndarray, batch: int) -> np.ndarray:
-    """Pad/chunk a request of any size through the route's fixed batch."""
+def _run_chunked(fn, x, batch: int) -> np.ndarray:
+    """Pad/chunk a request of any size (a numpy array or a tensor) through
+    the route's fixed batch."""
+    x = torch.as_tensor(x)
     outs = []
     for i in range(0, len(x), batch):
         chunk = x[i:i + batch]
         n = len(chunk)
         if n < batch:
-            chunk = np.concatenate(
-                [chunk, np.zeros((batch - n, *x.shape[1:]), x.dtype)])
+            chunk = torch.cat([chunk,
+                               chunk.new_zeros((batch - n, *x.shape[1:]))])
         out = fn(chunk)
         outs.append(out[:n].float().cpu().numpy())
     return np.concatenate(outs)
@@ -103,22 +114,36 @@ class ModelServer:
         if len(self.routes) != len(routes):
             raise ValueError("duplicate route names")
         self._lock = threading.Lock()
+        # each route's (mean, std) as float32 tensors on its device
+        self._stats = {}
 
     def _execute(self, route: Route, x: np.ndarray) -> np.ndarray:
+        """The route's outputs of a float32 request, or of a uint8 one
+        normalized on the route's device first (one normalize_u8 launch)."""
         with self._lock:
+            if x.dtype == np.uint8:
+                if route.name not in self._stats:
+                    self._stats[route.name] = device_stats(
+                        route.mean, route.std, route.device)
+                x = normalize_u8(torch.from_numpy(x).to(route.device),
+                                 *self._stats[route.name])
             return _run_chunked(route.fn, x, route.input_shape[0])
 
     def _decode_body(self, route: Route, body: bytes,
                      content_type: str) -> np.ndarray:
+        """An image body -> uint8 [1, h, w, C] (``serving_http.py:300-
+        329``'s geometry, before its normalize); a JSON body -> float32
+        [N, h, w, C] in [0, 1]."""
         h, w, nch = route.input_shape[1:]
         if content_type.startswith("image/"):
             import io
 
-            from PIL import Image
-            img = Image.open(io.BytesIO(body)).convert(
+            from myconvnet_tpu_torch.data.pipeline import pil_image
+            image = pil_image("the image route", "the request body")
+            img = image.open(io.BytesIO(body)).convert(
                 "L" if nch == 1 else "RGB")
-            img = img.resize((w, h), Image.BILINEAR)
-            x = np.asarray(img, np.float32)[None] / 255.0
+            img = img.resize((w, h), image.BILINEAR)
+            x = np.array(img, np.uint8)[None]   # a writable copy
             return x[..., None] if nch == 1 else x
         payload = json.loads(body.decode("utf-8"))
         if not isinstance(payload, dict) or "instances" not in payload:
@@ -139,7 +164,8 @@ class ModelServer:
         if route is None:
             raise KeyError(name)
         x = self._decode_body(route, body, content_type)
-        x = (x - route.mean) / route.std
+        if x.dtype != np.uint8:
+            x = (x - route.mean) / route.std
         logits = self._execute(route, x)
         names = [str(i) for i in range(logits.shape[-1])]
         rows = decode_predictions(logits, names, route.topk)

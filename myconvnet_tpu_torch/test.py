@@ -3,8 +3,8 @@ optical-flow and pix2pix recipes).
 
     python -m myconvnet_tpu_torch.test --config configs/cifar100_resnet18.py \\
         --synthetic --ckpt DIR [--batch N] [--best | --average N] [--ema] \\
-        [--tta flip|ten_crop] [--topk K] [--report] [--scales S,S,...] \\
-        [--set KEY=VALUE ...] [--device cuda]
+        [--tta flip|ten_crop] [--topk K] [--report] [--calibrate] \\
+        [--scales S,S,...] [--set KEY=VALUE ...] [--device cuda]
 
 Port of ``test.py:148-240`` (``eval_convnet``): build the recipe's
 ``ConvNet`` with its optimizer, restore ``--ckpt`` (a ``.npz`` or the
@@ -14,10 +14,12 @@ checkpoints' parameters), put the EMA in place of the parameters with
 ``--ema``, and score the validation split: top-k accuracy with
 ``--topk``, a per-class report with ``--report`` (both in one pass
 together), the flip or ten-crop TTA with ``--tta``, or segmentation's
-multi-scale + flip protocol with ``--scales``.  ``--tta x8`` (the
-super-resolution self-ensemble, ROADMAP A17), ``--calibrate``,
-``--fid`` (ROADMAP A8) and ``--export`` (ROADMAP A15) are refused by
-name.  A GAN recipe goes to :func:`eval_gan` (``test.py:120``): pix2pix
+multi-scale + flip protocol with ``--scales``.  ``--calibrate`` (a
+classifier) fits a softmax temperature on the validation logits, prints
+the ECE before and after, and writes ``calibration.json`` beside the
+checkpoint (``test.py:242-267``).  ``--tta x8`` (the super-resolution
+self-ensemble, ROADMAP A17), ``--fid`` (ROADMAP A8) and ``--export``
+(ROADMAP A15) are refused by name.  A GAN recipe goes to :func:`eval_gan` (``test.py:120``): pix2pix
 is scored on the val pairs with PSNR and SSIM (``eval_pix2pix``,
 ``test.py:646``), each batch rescaled by B2 and translated by G's eval
 forward; an unconditional DCGAN checkpoint is not scored here.
@@ -63,15 +65,15 @@ def main(argv=None):
                     help="segmentation: comma-separated input scales of the "
                          "multi-scale + flip eval")
     ap.add_argument("--calibrate", action="store_true",
-                    help="not ported (ROADMAP A8)")
+                    help="fit a softmax temperature on the val split and "
+                         "report ECE before/after (classification)")
     ap.add_argument("--fid", action="store_true",
                     help="not ported (FID needs eval/gan_metrics.py)")
     ap.add_argument("--export", default=None,
                     help="not ported (the exporters are ROADMAP A15)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    for flag, where in (("calibrate", "eval/calibration.py, ROADMAP A8"),
-                        ("fid", "eval/gan_metrics.py, ROADMAP A8"),
+    for flag, where in (("fid", "eval/gan_metrics.py, ROADMAP A8"),
                         ("export", "export_cli.py, ROADMAP A15")):
         if getattr(args, flag):
             raise SystemExit(f"test --{flag} is not ported ({where})")
@@ -153,10 +155,42 @@ def eval_convnet(cfg: dict, args, device):
     else:
         score = net.evaluate(val_set, evaluator, batch_size=batch)
     print(f"{evaluator.name}: {score:.4f}", flush=True)
+    if args.calibrate and task == "classification":
+        calibrate(net, val_set, batch, args.ckpt)
     if args.report and hasattr(evaluator, "report"):
         print(evaluator.report(getattr(val_set.source, "class_names",
                                        None)), flush=True)
     return score, net
+
+
+def calibrate(net, val_set, batch: int, ckpt: str) -> dict:
+    """Fit a temperature on the validation logits, print the ECE before
+    and after and write ``calibration.json`` beside the checkpoint."""
+    import json
+
+    import numpy as np
+
+    from myconvnet_tpu_torch.eval.calibration import (
+        expected_calibration_error, fit_temperature)
+    logits, labels = [], []
+    for x, y in val_set.eval_iter(batch, net.device):
+        logits.append(net.predict(x, batch_size=len(x)))
+        labels.append(y.cpu().numpy())
+    logits, labels = np.concatenate(logits), np.concatenate(labels)
+    temp = fit_temperature(logits, labels)
+    ece_raw = expected_calibration_error(logits, labels)
+    ece_cal = expected_calibration_error(logits, labels, temperature=temp)
+    print(f"temperature: {temp:.3f}  ece: {ece_raw:.4f} -> {ece_cal:.4f}",
+          flush=True)
+    out_dir = (ckpt if os.path.isdir(ckpt)
+               else os.path.dirname(ckpt) or ".")
+    record = {"temperature": temp, "ece_raw": ece_raw,
+              "ece_calibrated": ece_cal}
+    path = os.path.join(out_dir, "calibration.json")
+    with open(path, "w") as f:
+        json.dump(record, f)
+    print(f"wrote {path}", flush=True)
+    return record
 
 
 def eval_gan(cfg: dict, args, device):

@@ -426,14 +426,24 @@ class Trainer:
 
     def evaluate(self, data_iter: Iterable) -> float:
         """Score every example of ``data_iter`` (uint8 batches and labels
-        on the device) with the evaluator.  Eager PyTorch needs no fixed
-        batch shape, so the short tail batch runs as it is."""
+        on the device) with the evaluator.  A short tail batch is padded
+        with zeros to the first batch's size and its outputs sliced back
+        (``trainer.py:550-573``): a kernel's launch plan (conv_fused's
+        split of K) follows the batch, so the tail's outputs then have the
+        bits its images would have inside a full batch."""
         if self.evaluator is None:
             raise ValueError("no evaluator configured")
         self.evaluator.reset()
+        full = None
         try:
             for x, y in data_iter:
-                self.evaluator.update(*self.eval_batch(x, y))
+                n = x.shape[0]
+                full = n if full is None else full
+                if n < full:
+                    x = torch.cat([x, x.new_zeros((full - n, *x.shape[1:]))])
+                    y = torch.cat([y, y.new_zeros((full - n, *y.shape[1:]))])
+                out, target = self.eval_batch(x, y)
+                self.evaluator.update(out[:n], target[:n])
         finally:
             if hasattr(data_iter, "close"):
                 data_iter.close()

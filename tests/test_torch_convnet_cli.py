@@ -324,11 +324,10 @@ def test_recipe_values_are_refused_by_name(sets, match):
 @pytest.mark.parametrize("entry,flags,match", [
     ("train", ["--tensorboard"], "--tensorboard"),
     ("train", ["--mesh", "4x2"], "--mesh"),
-    ("test", ["--calibrate"], "--calibrate"),
     ("test", ["--fid"], "--fid"),
     ("test", ["--export", "x"], "--export"),
     ("test", ["--tta", "x8"], "x8")],
-    ids=["tensorboard", "mesh", "calibrate", "fid", "export", "tta_x8"])
+    ids=["tensorboard", "mesh", "fid", "export", "tta_x8"])
 def test_flags_the_port_does_not_take_are_refused_by_name(tmp_path, entry,
                                                           flags, match):
     if entry == "train":

@@ -417,7 +417,9 @@ def test_recipe_refuses_unported_keys_by_name(key, value):
 
 
 def test_recipe_reads_the_corpus_only_through_the_native_loader():
-    with pytest.raises(NotImplementedError, match="A8"):
+    """A data_dir goes to the VOCdevkit reader (``subsets.voc``), which
+    finds no split list under a missing directory."""
+    with pytest.raises(FileNotFoundError, match="ImageSets/Segmentation"):
         recipes.build_trainer(_cfg(data_dir="/nonexistent"), False,
                               device=torch.device("cpu"))
 

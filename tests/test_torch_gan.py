@@ -306,7 +306,7 @@ def test_synthetic_pairs_are_bit_equal(split):
     for a, b in zip(got.get_batch(idx), want.get_batch(idx)):
         assert a.dtype == np.uint8 and np.array_equal(a, b)
     assert np.array_equal(got.a, want.a) and np.array_equal(got.b, want.b)
-    with pytest.raises(NotImplementedError, match="Pillow"):
+    with pytest.raises(FileNotFoundError, match="no pix2pix layout"):
         pairs.make_source("/nonexistent", split)
 
 

@@ -727,6 +727,104 @@ def test_convnet_predict_tail_batch_has_the_full_batchs_bits(cuda):
     assert rel < 0.05
 
 
+def test_evaluate_tail_batch_has_the_full_batchs_bits(cuda):
+    """``Trainer.evaluate`` pads a short tail batch to the first batch's
+    size (as JAX does), so over 192 images at batch 128 the CIFAR-100
+    ResNet-18 (bf16: B2, five B4 and four B1 launches a forward) gives the
+    64-image tail the logits its images get inside a full batch, bit for
+    bit."""
+    from myconvnet_tpu_torch.data.pipeline import ArraySource, DataSet
+    from myconvnet_tpu_torch.eval.evaluators import AccuracyEvaluator
+    cfg = recipes.load_config(CIFAR_CONFIG)
+    net, _, val_set = recipes.build_classifier(cfg, True, device=cuda)
+    params, state = random_jax_params(net.trainer.model, 0)
+    weights.from_jax(net.trainer.model, params, state)
+    x = val_set.source.images[:192]
+    y = val_set.source.labels[:192]
+    trainer = net.trainer
+    trainer.evaluator = AccuracyEvaluator()
+    seen = []
+    update = trainer.evaluator.update
+    trainer.evaluator.update = lambda out, t: (seen.append(out.clone()),
+                                               update(out, t))
+    kernels.reset_launch_counts()
+    trainer.evaluate(DataSet(ArraySource(x, y)).eval_iter(128, cuda))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert (counts["normalize_u8"], counts["conv_fused"],
+            counts["bn_act"]) == (2, 10, 8)
+    assert [len(o) for o in seen] == [128, 64]
+    inside = trainer.eval_batch(torch.from_numpy(x[64:]).to(cuda),
+                                torch.from_numpy(y[64:]).to(cuda))[0][64:]
+    assert torch.equal(seen[1], inside)
+
+
+def test_image_route_normalizes_on_the_card_once_a_request(cuda):
+    """An image body on the served ResNet-50 (bf16, batch 8): decoded to
+    uint8 on the host, one normalize_u8 launch a request on the card, the
+    logits within 0.05 of max |logit| of the same route on the host (plain
+    versions)."""
+    import io
+
+    from PIL import Image
+
+    from myconvnet_tpu_torch import serving_http
+    config = os.path.join(os.path.dirname(__file__), "..", "configs",
+                          "imagenet_resnet50.py")
+    model = models.get_model("resnet50", 1000)
+    params, state = random_jax_params(model, 0)
+
+    def server(device):
+        return serving_http.ModelServer([serving_http.build_route(
+            "cls", "classify", config, params=params, state=state, batch=8,
+            device=device)])
+
+    rng = np.random.RandomState(0)
+    buf = io.BytesIO()
+    Image.fromarray(rng.randint(0, 256, (300, 400, 3), np.uint8)).save(
+        buf, "JPEG")
+    card, host = server(cuda), server("cpu")
+    route = card.routes["cls"]
+    x = card._decode_body(route, buf.getvalue(), "image/jpeg")
+    assert x.dtype == np.uint8 and x.shape == (1, 224, 224, 3)
+    kernels.reset_launch_counts()
+    for _ in range(3):
+        out = card.predict("cls", buf.getvalue(), "image/jpeg")
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["normalize_u8"] == 3, counts
+    assert (counts["conv_pair"], counts["bn_act"]) == (39, 21)
+    assert len(out["predictions"][0]) == 5
+    logits = card._execute(route, x)
+    want = host._execute(host.routes["cls"], x)
+    rel = np.abs(logits - want).max() / np.abs(want).max()
+    assert rel < 0.05, rel
+
+
+def test_host_library_builds_from_a_fresh_directory(cuda, tmp_path):
+    """The port's host library builds with g++ into an empty
+    ``build/host/``-like directory in a subprocess and gathers a batch."""
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = (
+        "import sys, numpy as np\n"
+        "from pathlib import Path\n"
+        "from myconvnet_tpu_torch.data import native_loader as nl\n"
+        "nl.BUILD_DIR = Path(sys.argv[1])\n"
+        "info = nl.backend()\n"
+        "assert info['built'].startswith(sys.argv[1]), info\n"
+        "pool = np.arange(60, dtype=np.uint8).reshape(10, 2, 3)\n"
+        "idx = np.array([9, 0, 4])\n"
+        "assert (nl.gather_batch(pool, idx) == pool[idx]).all()\n"
+        "print(info)\n")
+    proc = subprocess.run([sys.executable, "-c", script, str(tmp_path)],
+                          cwd=root, env=dict(os.environ, PYTHONPATH=root),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    print(proc.stdout.strip())
+
+
 def test_resnet18_eval_on_card_matches_host(cuda):
     """Full-width ResNet-18 at 32x32 through both kernels on the card
     against the same module on the host (plain versions): 5 conv_fused

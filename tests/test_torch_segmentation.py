@@ -186,7 +186,8 @@ def test_voc_synthetic_pairs_equal_jax(split):
 
 
 def test_voc_corpus_reader_is_refused():
-    with pytest.raises(NotImplementedError, match="A8"):
+    """A directory without the VOCdevkit layout is refused by name."""
+    with pytest.raises(FileNotFoundError, match="ImageSets/Segmentation"):
         tvoc.make_source("/nonexistent", "train")
 
 

@@ -320,7 +320,7 @@ def test_synthetic_imagenet_matches_jax_bit_for_bit():
         assert t.images.shape == (256, 16, 16, 3)
         np.testing.assert_array_equal(t.images, j.images)
         np.testing.assert_array_equal(t.labels, j.labels)
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(FileNotFoundError, match="no 'train' directory"):
         imagenet.make_source("/nonexistent", "train")
 
 
