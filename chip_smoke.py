@@ -230,6 +230,36 @@
     that feed the ResNet-50 steps of this call.  A line before the kernels'
     record names what the machine lacked and what ran instead or was
     skipped.
+21. Routes (``routes_run``): one HTTP server on localhost with four
+    routes at full width from seeded JAX-layout weights, each behind the
+    micro-batcher (``batch_window_ms`` 100): segment (DeepLabv3+ of
+    ``configs/voc_deeplabv3plus.py`` at 513 x 513, bf16, BN folded), translate
+    (``configs/pix2pix.py``'s U-Net at 256 x 256, bf16), flow
+    (``configs/chairs_pwcnet.py`` at 384 x 512, bf16), each at a route batch
+    of 4, and the served ResNet-50 (classify, batch 8).  JSON bodies of 1
+    and 3 images (pairs for flow) and a fixture JPEG body to each image
+    route, every request one device call, its launches held exactly
+    (segment conv_pair 11, conv_fused 2, bn_act 18; translate bn_act 13;
+    flow the correlation forward 5; an image body normalize_u8 1 at [1, h,
+    w, 3]) and every launch by shape; the responses' form; each route's
+    device busy time a call (torch.profiler) and one request on the card
+    against the same route on the host (plain versions).  Classify: a lone
+    request's p50 with and without the window, and 8 concurrent one-image
+    JPEG requests that become one device call (normalize_u8 8, conv_pair
+    13, bn_act 7).  Paths ``routes_segment``, ``routes_translate``,
+    ``routes_flow`` and ``routes_classify``, held at step 3's rows at the
+    routes' shapes.
+22. SN-GAN and FID (``sngan_fid_run``): ``train.main`` on
+    ``configs/sngan_cifar10.py`` as written (spectral-normalized D, hinge
+    loss, batch 64) for 20 steps (normalize_u8 once a step, nothing else),
+    every loss finite, every ``sn_u`` moved, each SN layer's
+    ``matrix_norm(w / sigma, 2)`` in SN_BAND, the step's rate and idle
+    share; then ``test.main --fid --fid_extractor
+    configs/cifar100_resnet18.py:<the CIFAR phase's checkpoint>
+    --fid_samples 256`` (bn_act 3 a sampler chunk of 64; conv_fused 5 and
+    bn_act 4 a feature batch of 256, real and fake), the FID finite and,
+    over the same features, within FID_RTOL of the host's (path
+    ``sngan_fid``).
 
 Every kernel's record carries its bound: the larger of the bytes it must
 move over 3.35 TB/s and the operations it must do over the peak rate of
@@ -257,10 +287,11 @@ constants changed), each held against its plain version, and writes
 
 Exits non-zero on any failure.  The second-to-last line of stdout is the
 kernels' JSON record (thirteen entries; bn_act's ``by_path`` has the GAN
-paths ``dcgan`` and ``pix2pix``; a correlation entry's ``ms``,
-``plain_ms`` and ``bound_ms`` sum one PWC-Net and one FlowNetC train step,
-its ``launches`` both paths' runs, and ``by_path`` splits them), the last ``{"ok": true, "device":
-{...}}``.  Details go to ``chiprun_out/chip_smoke.json``.
+paths ``dcgan`` and ``pix2pix``, and the routes' and ``sngan_fid``; a
+correlation entry's ``ms``, ``plain_ms`` and ``bound_ms`` sum one PWC-Net
+and one FlowNetC train step, and the forward's one flow-route forward too,
+its ``launches`` the paths' runs, and ``by_path`` splits them), the last
+``{"ok": true, "device": {...}}``.  Details go to ``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -459,7 +490,8 @@ CORR_SITES = [("PWC-Net level 2", (FLOW_BATCH, 96, 128, 32), "pwcnet"),
               ("FlowNetC 1/8", (FLOW_BATCH, 48, 64, 256), "flownet_c")]
 # the runs that count a path's launches
 CORR_PATH_RUNS = {"pwcnet": ("pwc_train", "pwc_test"),
-                  "flownet_c": ("flownetc_train",)}
+                  "flownet_c": ("flownetc_train",),
+                  "routes_flow": ("routes_flow_json1", "routes_flow_json3")}
 # kernel vs plain: float32 sums of exact products in another order, 2^-18
 # of max |volume| (and of the largest gradient for float32 inputs); bf16
 # gradients are rounded once from a float32 sum, 2 bf16 ulps of the largest
@@ -698,7 +730,12 @@ KERNEL_PATH_RUNS = {
     "resnet50_files": ("files_r50_train", "files_r50_test"),
     "deeplab_files": ("files_deeplab_train", "files_deeplab_test"),
     "pix2pix_files": ("files_pix2pix_train", "files_pix2pix_generate"),
-    "image_route": ("image_route",)}
+    "image_route": ("image_route",),
+    **{f"routes_{kind}": tuple(f"routes_{kind}_{body}" for body in
+                               ("json1", "json3", "image"))
+       for kind in ("segment", "translate")},
+    "routes_classify": ("routes_classify_lone", "routes_classify_concurrent"),
+    "sngan_fid": ("sngan_train", "sngan_fid")}
 # the file phases' runs (a run of a phase the machine cannot run counts 0)
 FILE_RUNS = ("c6_evaluate", "files_r50_train", "files_r50_test",
              "files_deeplab_train", "files_deeplab_test",
@@ -713,7 +750,49 @@ PATH_ROWS = {"deeplab_scales": tuple(f"deeplab_{hw}" for hw in SEG_SCALE_HW),
              "deeplab_files": ("deeplab_513",),
              "pix2pix_files": ("pix2pix",),
              "image_route": ("resnet50_serve",),
+             "routes_classify": ("resnet50_serve",),
+             # the FID run: the SN-GAN sampler's chunks of 64 (DCGAN's
+             # generator widths) and the extractor's ResNet-18 features
+             "sngan_fid": (f"dcgan_{DCGAN_GRID}", "sngan_fid"),
              "dcgan": (f"dcgan_{DCGAN_SAMPLES}", f"dcgan_{DCGAN_GRID}")}
+# The routes phase: one HTTP server on localhost with a route of each kind
+# at full width from seeded JAX-layout weights, every route behind the
+# micro-batcher (ROUTE_WINDOW_MS): segment (configs/voc_deeplabv3plus.py at
+# 513 x 513, bf16), translate (configs/pix2pix.py's U-Net at 256 x 256,
+# bf16) and flow (configs/chairs_pwcnet.py at 384 x 512, bf16) at a route
+# batch of ROUTE_BATCH, and the served ResNet-50 (classify, batch 8).  The
+# image routes take JSON bodies of 1 and 3 images and an image body (a
+# fixture JPEG, B2 once on the card), flow JSON bodies of 1 and 3 pairs;
+# each request is one device call with these launches:
+ROUTE_BATCH, ROUTE_WINDOW_MS = 4, 250.0
+ROUTE_CONFIGS = {"segment": VOC_CONFIG, "translate": PIX2PIX_CONFIG,
+                 "flow": PWC_CONFIG, "classify": CONFIG}
+ROUTE_PER_CALL = {"segment": {"conv_pair": 11, "conv_fused": 2,
+                              "bn_act": 18},
+                  "translate": {"bn_act": 13},
+                  "flow": {"correlation_fwd": PWC_LEVELS},
+                  "classify": PER_CALL}
+# ROUTE_CONCURRENT one-image classify requests (image bodies) at once
+# become one device call; a lone request's p50 over ROUTE_LATENCY_ITERS
+# with and without the window
+ROUTE_CONCURRENT, ROUTE_LATENCY_ITERS = 8, 20
+# each route on the card against the same route on the host (plain
+# versions, one request of 1 image at a route batch of 1): segment
+# confidences within SEG_CONF_TOL and at most SEG_CLASS_FRAC of the pixels'
+# classes differing; translate outputs (in [0, 1]) within LOGIT_REL_TOL,
+# flows within FLOW_REL_TOL of their largest
+SEG_CONF_TOL, SEG_CLASS_FRAC = 0.05, 0.05
+# The sngan_fid phase: configs/sngan_cifar10.py as written (D with spectral
+# norm, hinge loss, Adam b1 = 0) through train.main for SNGAN_STEPS steps
+# of SNGAN_BATCH; after them every SN layer's normalized weight has its
+# spectral norm in SN_BAND (the vector has had two power iterations a
+# step: 1.0-1.03 after 40 at fixed weights on the host); then test.main
+# --fid over FID_SAMPLES a side through the CIFAR-100 ResNet-18 of the
+# CIFAR phase, the card's FID within FID_RTOL of the host's over the same
+# features (the CPU parity test's bound at N < D against JAX)
+SNGAN_CONFIG = os.path.join(ROOT, "configs", "sngan_cifar10.py")
+SNGAN_BATCH, SNGAN_STEPS, FID_SAMPLES = 64, 20, 256
+SN_BAND, FID_RTOL = (0.999, 1.10), 2e-4
 # conv_pair in ``--compare``: shapes whose plans have a pass of a single
 # 64x64 tile (the served 7x7 at batch 8 and 1, DeepLab's 12², 9², 6² and
 # 5² at batch 16) and two whose plans have none
@@ -1062,6 +1141,7 @@ def check_kernels(dev, plan=None):
     details += check_deeplab_kernels(dev, g)
     details += check_gan_kernels(dev, g)
     details += check_io_kernels(dev, g, plan or {})
+    details += check_route_kernels(dev, g)
     for name in SOURCES:
         rows = [r for r in details if r["kernel"] == name]
         on_path = [r for r in rows if r["sites"]]
@@ -1154,8 +1234,14 @@ def correlation_by_path(name, details, runs):
     for path, names in CORR_PATH_RUNS.items():
         rows = [r for r in details if r["kernel"] == name
                 and r.get("path") == path and r["sites"]]
+        launches = sum(runs[k][name] for k in names)
+        if not rows and not launches:
+            continue     # the flow route runs the forward only
+        if not rows:
+            raise AssertionError(f"{name} launched on {path} but held at "
+                                 "none of its shapes")
         out[path] = dict(
-            launches=sum(runs[k][name] for k in names),
+            launches=launches,
             **{k: sum(r[k] for r in rows)
                for k in ("ms", "plain_ms", "bound_ms")},
             bound_by=max(rows, key=lambda r: r["bound_ms"])["bound_by"])
@@ -2117,10 +2203,9 @@ def compare_trees(other):
     return 0
 
 
-def post(url, body):
+def post(url, body, content_type="application/json"):
     req = urllib.request.Request(url, data=body,
-                                 headers={"Content-Type":
-                                          "application/json"})
+                                 headers={"Content-Type": content_type})
     # no proxy from the environment: the server is on this host
     opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
     with opener.open(req, timeout=300) as r:
@@ -2479,8 +2564,9 @@ def train_and_check(dev):
     if card.shape != (TRAIN_BATCH, 100) or not np.isfinite(card).all() \
             or rel > LOGIT_REL_TOL:
         raise AssertionError("eval logits disagree with the plain path")
-    checks.update(top1=score, eval_logit_rel_err=rel)
-    shutil.rmtree(run_dir)
+    # the checkpoint stays for the sngan_fid phase's extractor, which
+    # removes it
+    checks.update(top1=score, eval_logit_rel_err=rel, ckpt_dir=run_dir)
 
     # the train step's rate, after the runs above (it moves the weights)
     xd = x.to(dev)
@@ -3946,14 +4032,14 @@ def dcgan_step_one(dev, cfg):
     return dict(out, g_loss_rel=g_rel, card=m_card, host=m_host)
 
 
-def gan_step_rate(dev, trainer, iters=10):
+def gan_step_rate(dev, trainer, iters=10, shape=None):
     """A GAN train step on seeded uint8 batches at the recipe's shape (B2
-    included): CUDA-event ms from an idle device, host enqueue ms, device
-    busy ms, kernels and top kernels (torch.profiler), the idle share and
-    the peak of allocated memory."""
+    included; ``shape``, else GAN_INPUT_SHAPES's): CUDA-event ms from an
+    idle device, host enqueue ms, device busy ms, kernels and top kernels
+    (torch.profiler), the idle share and the peak of allocated memory."""
     import torch
 
-    shape = GAN_INPUT_SHAPES[trainer.kind]
+    shape = shape or GAN_INPUT_SHAPES[trainer.kind]
     g = torch.Generator(device=dev).manual_seed(SEED)
     batch = tuple(torch.randint(0, 256, shape, generator=g, device=dev,
                                 dtype=torch.uint8) for _ in range(2))
@@ -5081,6 +5167,485 @@ def files_run(dev, plan, synthetic, card):
     return runs, counted.shapes, checks
 
 
+def _act_inputs(shape, dtype, g):
+    """bn_act's inputs at ``shape``: x in ``dtype``, per-channel float32
+    scale and shift."""
+    import torch
+    c = shape[-1]
+    return (torch.randn(*shape, generator=g, device=g.device).to(dtype),
+            torch.rand(c, generator=g, device=g.device) + 0.5,
+            torch.randn(c, generator=g, device=g.device) * 0.5)
+
+
+def corr_fwd_row(site, shape, path, g):
+    """The correlation forward at ``shape`` (bf16, d = CORR_D) against its
+    plain version, with its bound: one row, one launch of a forward of
+    ``path``."""
+    import torch
+
+    from myconvnet_tpu_torch.ops.kernels import correlation as corr
+
+    d, k = CORR_D, (2 * CORR_D + 1) ** 2
+    n, h, w, c = shape
+    f1, f2 = (torch.randn(shape, generator=g, device=g.device).bfloat16()
+              for _ in range(2))
+    out = corr.correlation_fwd(f1, f2, d)
+    ref = corr.correlation_reference(f1, f2, d)
+    torch.cuda.synchronize()
+    tol = CORR_TOL * float(ref.abs().max())
+    err = float((out - ref).abs().max())
+    ok = err <= tol and bool(torch.isfinite(out).all())
+    b_ms, b_by = bound(2 * f1.element_size() * f1.numel() + 4 * n * h * w * k,
+                       2 * n * corr_taps(h, d) * corr_taps(w, d) * c,
+                       BF16_FLOPS)
+    r = dict(kernel="correlation_fwd", site=site, path=path,
+             plan=corr.plan("fwd", shape, d, torch.bfloat16),
+             shape=list(shape), dtype="bfloat16", sites=1, max_abs_err=err,
+             tol=tol, ok=ok, bound_ms=b_ms, bound_by=b_by,
+             ms=cuda_ms(lambda: corr.correlation_fwd(f1, f2, d)),
+             plain_ms=graph_ms(lambda: corr.correlation_reference(f1, f2, d)),
+             library_ms=None)
+    log(f"correlation_fwd {path} {site} {r['shape']} bfloat16: "
+        f"max_abs_err={err:.3g} (tol {tol:.3g}) ok={ok} "
+        f"kernel={r['ms']:.4f}ms plain={r['plain_ms']:.4f}ms "
+        f"bound={b_ms:.4f}ms ({b_by})")
+    return r
+
+
+def check_route_kernels(dev, g):
+    """The kernels at the shapes of the routes and sngan_fid phases that no
+    other row holds: conv_pair, conv_fused and bn_act at DeepLabv3+'s eval
+    forward at the route batch on 513 x 513 (path ``routes_segment``),
+    bn_act at the U-Net's 13 sites at the route batch
+    (``routes_translate``), the correlation forward at PWC-Net's five
+    levels at the route batch (``routes_flow``), conv_fused and bn_act at
+    the CIFAR-100 ResNet-18's sites at FID_SAMPLES (the FID extractor's
+    features, ``sngan_fid``), normalize_u8 at each image route's one image
+    and at the SN-GAN train batch."""
+    import torch
+
+    from myconvnet_tpu_torch import recipes
+
+    bf16 = torch.bfloat16
+    rows = []
+    pair, fused, act = deeplab_sites(ROUTE_BATCH, SEG_HW[0])
+    for shape, count in pair:
+        rows.append(conv_pair_row(shape, count, "routes_segment", g))
+        torch.cuda.empty_cache()
+    for shape, count in fused:
+        rows.append(conv_fused_row(shape, count, "routes_segment", g))
+    for site, shape, count in act:
+        rows.append(bn_act_row(f"route deeplab {site}",
+                               *_act_inputs(shape, bf16, g), count,
+                               "routes_segment"))
+    for site, shape, act in unet_sites(ROUTE_BATCH):
+        rows.append(bn_act_row(f"route pix2pix {site}",
+                               *_act_inputs(shape, bf16, g), 1,
+                               "routes_translate", act=act))
+    for site, shape, _ in CORR_SITES[:PWC_LEVELS]:
+        rows.append(corr_fwd_row(site, (ROUTE_BATCH, *shape[1:]),
+                                 "routes_flow", g))
+    torch.cuda.empty_cache()
+    for shape, count in FUSED_SITES:
+        rows.append(conv_fused_row((FID_SAMPLES, *shape[1:]), count,
+                                   "sngan_fid", g))
+    for site, shape in ACT_SITES_R18:
+        rows.append(bn_act_row(f"fid {site}", *_act_inputs(
+            (FID_SAMPLES, *shape[1:]), bf16, g), 1, "sngan_fid"))
+    for kind, config, hw in (("segment", VOC_CONFIG, SEG_HW),
+                             ("classify", CONFIG, (224, 224))):
+        mean, std = recipes.normalization(recipes.load_config(config), 3)
+        rows.append(gan_input_row(f"routes_{kind}_image", (1, *hw, 3), g,
+                                  mean, std))
+    rows.append(gan_input_row("routes_translate_image", (1, 256, 256, 3), g))
+    rows.append(gan_input_row("sngan", (SNGAN_BATCH, 32, 32, 3), g))
+    return rows
+
+
+def top_convs(fn, n=4):
+    """The ``n`` convolutions of one call of ``fn`` with the most device
+    time, by input shapes (torch.profiler, shapes recorded): [shapes, ms,
+    calls]."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, "device_time_total",
+                       getattr(e, "cuda_time_total", 0.0))
+    convs = [e for e in prof.key_averages(group_by_input_shape=True)
+             if e.key == "aten::cudnn_convolution"]
+    top = [[str(e.input_shapes), dev_us(e) / 1e3, e.count] for e in sorted(
+        convs, key=dev_us, reverse=True)[:n]]
+    log("  convolutions by device time: " + "; ".join(
+        f"{sh} {ms:.3f} ms x{k}" for sh, ms, k in top))
+    return top
+
+
+def route_trees(kind):
+    """(config, params, state) of a route's model at full width, random
+    JAX-layout weights from SEED."""
+    from myconvnet_tpu_torch import models, recipes, recipes_gan
+    from myconvnet_tpu_torch.weights import random_jax_params
+
+    cfg = recipes.load_config(ROUTE_CONFIGS[kind])
+    kw = cfg.get("model_kwargs", {})
+    if kind == "segment":
+        model = models.get_model(cfg["model"], cfg["num_classes"],
+                                 input_hw=SEG_HW, **kw)
+    elif kind == "translate":
+        model = recipes_gan.gan_generator(cfg)
+    elif kind == "flow":
+        model = models.FLOW_MODELS[cfg["model"]](0, **kw)
+    else:
+        model = models.get_model(cfg["model"], cfg["num_classes"], **kw)
+    return (cfg, *random_jax_params(model, SEED))
+
+
+def route_vs_host(kind, card_server, card_route, host_route, x):
+    """One request of the route on the card against the same route on the
+    host (plain versions, a route batch of 1)."""
+    import numpy as np
+
+    from myconvnet_tpu_torch import serving_http
+
+    card = card_server._execute(card_route, x)
+    host = serving_http.ModelServer([host_route])._execute(host_route, x)
+    if kind == "segment":
+        (cls_c, conf_c), (cls_h, conf_h) = card, host
+        out = dict(conf_max_abs_diff=float(np.abs(conf_c - conf_h).max()),
+                   class_mismatch_frac=float((cls_c != cls_h).mean()))
+        ok = (out["conf_max_abs_diff"] <= SEG_CONF_TOL
+              and out["class_mismatch_frac"] <= SEG_CLASS_FRAC
+              and bool(np.isfinite(conf_c).all()))
+        tol = f"conf {SEG_CONF_TOL}, classes {SEG_CLASS_FRAC}"
+    else:
+        rel = float(np.abs(card - host).max() / np.abs(host).max())
+        out = dict(rel_err=rel)
+        tol = LOGIT_REL_TOL if kind == "translate" else FLOW_REL_TOL
+        ok = rel <= tol and bool(np.isfinite(card).all())
+    log(f"{kind} route: card vs host plain path {out} (tol {tol}) ok={ok}")
+    if not ok:
+        raise AssertionError(f"{kind} route: the card disagrees with the "
+                             "host")
+    return out
+
+
+def _reply_ok(kind, reply, n, hw):
+    """A route's response: n entries of the route's size, finite."""
+    import base64
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    key = {"segment": "segmentations", "translate": "images",
+           "flow": "flows"}[kind]
+    rows = reply[key]
+    if len(rows) != n:
+        raise AssertionError(f"{kind}: {len(rows)} entries for {n} inputs")
+    for r in rows:
+        if kind == "segment":
+            rle = np.asarray(r["rle"])
+            good = (r["size"] == list(hw) and int(rle[1::2].sum())
+                    == hw[0] * hw[1] and 0.0 < r["mean_conf"] <= 1.0)
+        elif kind == "translate":
+            good = Image.open(io.BytesIO(base64.b64decode(r))).size == \
+                (hw[1], hw[0])
+        else:
+            good = (r["size"] == list(hw) and 0.0 <= r["mean_mag"]
+                    <= r["max_mag"] and np.isfinite(r["max_mag"]))
+        if not good:
+            raise AssertionError(f"{kind}: a malformed entry {str(r)[:200]}")
+
+
+def routes_run(dev):
+    """The routes phase (step 21 of the module docstring).  Returns ({run:
+    launches}, {run: Counter of launch shapes}, checks)."""
+    import collections
+
+    import numpy as np
+    import torch
+
+    from myconvnet_tpu_torch import serving_http
+
+    counted = Counted()
+    trees = {kind: route_trees(kind) for kind in ROUTE_CONFIGS}
+
+    def build(kind, device, batch):
+        cfg, params, state = trees[kind]
+        return serving_http.build_route(kind, kind, cfg, params=params,
+                                        state=state, batch=batch,
+                                        device=device)
+
+    t0 = time.perf_counter()
+    routes = {k: build(k, dev, BATCH if k == "classify" else ROUTE_BATCH)
+              for k in ROUTE_CONFIGS}
+    log(f"routes built: {[r.describe() for r in routes.values()]} in "
+        f"{time.perf_counter() - t0:.1f}s")
+    calls = collections.Counter()
+
+    def calling(kind, fn):
+        def call(x):
+            calls[kind] += 1
+            return fn(x)
+        return call
+
+    for kind, r in routes.items():
+        r.fn = calling(kind, r.fn)
+    server = serving_http.ModelServer(list(routes.values()),
+                                      batch_window_ms=ROUTE_WINDOW_MS)
+    httpd = serving_http.make_http_server(server, "127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}/v1/models/"
+    with open(_fixture_jpegs()[0], "rb") as f:
+        jpeg = f.read()
+    rs = np.random.RandomState(SEED)
+    checks = {}
+    try:
+        for kind in ("segment", "translate", "flow"):
+            route = routes[kind]
+            h, w, c = route.input_shape[1:]
+            xs = {n: rs.rand(n, h, w, c).astype(np.float32) for n in (1, 3)}
+            bodies = {f"json{n}": (json.dumps({"instances": x.tolist()})
+                                   .encode(), "application/json", n)
+                      for n, x in xs.items()}
+            if kind != "flow":
+                bodies["image"] = (jpeg, "image/jpeg", 1)
+            post(base + f"{kind}:predict", *bodies["json1"][:2])  # warm-up
+            torch.cuda.synchronize()
+            out = {}
+            for name, (body, ctype, n) in bodies.items():
+                run = f"routes_{kind}_{name}"
+                calls.clear()
+                t0 = time.perf_counter()
+                reply = counted(run, post, base + f"{kind}:predict", body,
+                                ctype)
+                ms = (time.perf_counter() - t0) * 1e3
+                want = dict(ROUTE_PER_CALL[kind])
+                if name == "image":
+                    want["normalize_u8"] = 1
+                    b2_shapes(counted.shapes[run], (1, h, w, 3), 1,
+                              f"{kind} route, image body")
+                expect_only(counted.runs[run], want,
+                            f"{kind} route, {name} body")
+                if calls[kind] != 1:
+                    raise AssertionError(f"{kind} route, {name} body: "
+                                         f"{calls[kind]} device calls")
+                _reply_ok(kind, reply, n, (h, w))
+                out[name] = dict(ms=ms, bytes=len(body))
+                log(f"{kind} route, {name} body ({len(body)} bytes): "
+                    f"{ms:.1f} ms over HTTP (decode, normalize, window "
+                    f"{ROUTE_WINDOW_MS:g} ms, forward, encode); 1 device "
+                    f"call, launches {want}")
+            x = server._prepare(route, rs.rand(ROUTE_BATCH, h, w, c).astype(
+                np.float32))
+            x = torch.as_tensor(x).to(dev)
+            busy, span, n_kernels, top = device_busy(lambda: route.fn(x))
+            out["device_call"] = dict(device_busy_ms=busy,
+                                      device_span_ms=span,
+                                      kernels=n_kernels, top_kernels=top)
+            log(f"{kind} route device call (batch {ROUTE_BATCH}, "
+                f"torch.profiler): busy "
+                f"{busy if busy is None else round(busy, 3)} ms over "
+                f"{n_kernels:.0f} kernels; top: " + "; ".join(
+                    f"{nm[:50]} {t:.3f} ms" for nm, t, _ in top[:3]))
+            if kind == "segment":
+                out["top_convs"] = top_convs(lambda: route.fn(x))
+            del x
+            out["vs_host"] = route_vs_host(kind, server, route,
+                                           build(kind, "cpu", 1), xs[1])
+            checks[kind] = out
+            torch.cuda.empty_cache()
+
+        route = routes["classify"]
+        h, w, _ = route.input_shape[1:]
+        one = json.dumps({"instances": rs.rand(1, h, w, 3).astype(
+            np.float32).tolist()}).encode()
+        plain = serving_http.ModelServer([route])
+        lone = {}
+        for what, srv in (("without window", plain), ("with window",
+                                                       server)):
+            srv.predict("classify", one)
+            times = []
+            for _ in range(ROUTE_LATENCY_ITERS):
+                t0 = time.perf_counter()
+                srv.predict("classify", one)
+                times.append((time.perf_counter() - t0) * 1e3)
+            lone[what] = float(np.percentile(times, 50))
+        log(f"classify route, a lone 1-image request (ModelServer.predict, "
+            f"{ROUTE_LATENCY_ITERS} after a warm-up): p50 "
+            f"{lone['without window']:.2f} ms without the window, "
+            f"{lone['with window']:.2f} ms with {ROUTE_WINDOW_MS:g} ms")
+        calls.clear()
+        reply = counted("routes_classify_lone", post, base
+                        + "classify:predict", one)
+        expect_only(counted.runs["routes_classify_lone"], PER_CALL,
+                    "classify route, a lone request")
+        if calls["classify"] != 1:
+            raise AssertionError("classify route: a lone request made "
+                                 f"{calls['classify']} device calls")
+
+        def concurrent():
+            out = [None] * ROUTE_CONCURRENT
+            barrier = threading.Barrier(ROUTE_CONCURRENT)
+
+            def work(i):
+                barrier.wait()
+                out[i] = post(base + "classify:predict", jpeg, "image/jpeg")
+            threads = [threading.Thread(target=work, args=(i,))
+                       for i in range(ROUTE_CONCURRENT)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            return out
+
+        calls.clear()
+        t0 = time.perf_counter()
+        replies = counted("routes_classify_concurrent", concurrent)
+        ms = (time.perf_counter() - t0) * 1e3
+        n_calls = calls["classify"]
+        run = "routes_classify_concurrent"
+        expect_only(counted.runs[run], {
+            "normalize_u8": ROUTE_CONCURRENT, **PER_CALL},
+            f"classify route, {ROUTE_CONCURRENT} concurrent requests")
+        b2_shapes(counted.shapes[run], (1, h, w, 3), ROUTE_CONCURRENT,
+                  "classify route, concurrent image bodies")
+        alone = server.predict("classify", jpeg, "image/jpeg")
+        if n_calls != 1 or None in replies or any(
+                r["predictions"][0][0]["label"]
+                != alone["predictions"][0][0]["label"] for r in replies):
+            raise AssertionError(
+                f"classify route: {ROUTE_CONCURRENT} concurrent requests "
+                f"made {n_calls} device calls (want 1), or a reply differs "
+                "from a lone request's")
+        log(f"classify route: {ROUTE_CONCURRENT} concurrent one-image "
+            f"requests in {ms:.1f} ms, {n_calls} device call "
+            f"(B2 {ROUTE_CONCURRENT}, then B5 13, B1 7 once); top-1 as a "
+            "lone request's")
+        x = torch.as_tensor(server._prepare(route, rs.rand(
+            BATCH, h, w, 3).astype(np.float32))).to(dev)
+        busy, span, n_kernels, _ = device_busy(lambda: route.fn(x))
+        checks["classify"] = dict(
+            lone_p50_ms=lone, concurrent_ms=ms,
+            device_call=dict(device_busy_ms=busy, device_span_ms=span,
+                             kernels=n_kernels))
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    if thread.is_alive():
+        raise RuntimeError("HTTP server thread did not stop")
+    return counted.runs, counted.shapes, checks
+
+
+def sngan_fid_run(dev, cifar_dir, card):
+    """The sngan_fid phase (step 22 of the module docstring); removes the
+    CIFAR phase's checkpoint ``cifar_dir`` after.  Returns ({run:
+    launches}, {run: Counter of launch shapes}, checks)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from myconvnet_tpu_torch import nn as tnn
+    from myconvnet_tpu_torch import recipes, recipes_gan, test, train
+    from myconvnet_tpu_torch.eval.gan_metrics import fid_from_features
+
+    counted = Counted()
+    run_dir = os.path.join(ROOT, "build", "chip_smoke_sngan")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    trainer = counted("sngan_train", train.main, [
+        "--config", SNGAN_CONFIG, "--synthetic", "--steps",
+        str(SNGAN_STEPS), "--batch", str(SNGAN_BATCH), "--set",
+        "log_every=1", "--set", "sample_every=0", "--out", run_dir,
+        "--device", str(dev)])
+    train_s = time.perf_counter() - t0
+    expect_only(counted.runs["sngan_train"], {"normalize_u8": SNGAN_STEPS},
+                f"SN-GAN train.main ({SNGAN_STEPS} steps)")
+    b2_shapes(counted.shapes["sngan_train"], (SNGAN_BATCH, 32, 32, 3),
+              SNGAN_STEPS, "SN-GAN train.main")
+    with open(os.path.join(run_dir, "gan_dcgan.jsonl")) as f:
+        rows = [r for r in map(json.loads, f) if "d_loss" in r]
+    if [r["step"] for r in rows] != list(range(1, SNGAN_STEPS + 1)) \
+            or not all(np.isfinite(r[k]) for r in rows
+                       for k in ("d_loss", "g_loss")):
+        raise AssertionError(f"SN-GAN losses not all finite: {rows}")
+    cfg = recipes.load_config(SNGAN_CONFIG)
+    fresh = [m for m in recipes_gan.gan_discriminator(cfg).modules()
+             if getattr(m, "spectral_norm", False)]
+    sn = [m for m in trainer.discriminator.modules()
+          if getattr(m, "spectral_norm", False)]
+    moved = [not torch.equal(m.sn_u.cpu(), f.sn_u)
+             for m, f in zip(sn, fresh) if m.sn_u.numel() > 1]
+    norms = []
+    with torch.no_grad():
+        for m in sn:
+            was = m.training
+            w = m.w if isinstance(m, tnn.Conv) else m.weight.t()
+            w_sn = tnn.spectral_normalize(m.eval(), w).double()
+            m.train(was)
+            norms.append(float(torch.linalg.matrix_norm(
+                w_sn.reshape(-1, w_sn.shape[-1]), ord=2)))
+    log(f"SN-GAN train.main: {SNGAN_STEPS} steps of {SNGAN_BATCH} in "
+        f"{train_s:.1f}s; d_loss {rows[0]['d_loss']:.4f} -> "
+        f"{rows[-1]['d_loss']:.4f}, g_loss {rows[0]['g_loss']:.4f} -> "
+        f"{rows[-1]['g_loss']:.4f}; sn_u moved in {sum(moved)} of "
+        f"{len(moved)} layers (the head's [1] is always 1); "
+        f"||w / sigma||_2 per SN layer {[round(v, 4) for v in norms]} "
+        f"(band {SN_BAND})")
+    if not all(moved) or len(sn) != len(fresh) or not all(
+            SN_BAND[0] <= v <= SN_BAND[1] for v in norms):
+        raise AssertionError("SN-GAN: sn_u did not move, or a layer's "
+                             "spectral norm is outside the band")
+    rate = gan_step_rate(dev, trainer, shape=(SNGAN_BATCH, 32, 32, 3))
+    del trainer
+    torch.cuda.empty_cache()
+
+    spec = f"{CIFAR_CONFIG}:{cifar_dir}"
+    t0 = time.perf_counter()
+    fid, fid_trainer = counted("sngan_fid", test.main, [
+        "--config", SNGAN_CONFIG, "--synthetic", "--ckpt", run_dir, "--fid",
+        "--fid_extractor", spec, "--fid_samples", str(FID_SAMPLES),
+        "--device", str(dev)])
+    fid_s = time.perf_counter() - t0
+    chunks = -(-FID_SAMPLES // SNGAN_BATCH)
+    expect_only(counted.runs["sngan_fid"], {
+        "bn_act": 3 * chunks + 2 * PER_EVAL_BATCH["bn_act"],
+        "conv_fused": 2 * PER_EVAL_BATCH["conv_fused"]},
+        f"test.main --fid ({chunks} sample chunks, 2 feature batches)")
+    feature_fn = test._fid_extractor(spec, dev)
+    reals, fakes = test.fid_image_sets(cfg, fid_trainer, FID_SAMPLES, True,
+                                       dev)
+    fr, ff = feature_fn(reals), feature_fn(fakes)
+    fid_card = fid_from_features(fr, ff)
+    fid_host = fid_from_features(fr.cpu(), ff.cpu())
+    rel = abs(fid_card - fid_host) / abs(fid_host)
+    log(f"FID {fid:.4f} (test.main, {FID_SAMPLES} a side, {fr.shape[-1]}-d "
+        f"features, {fid_s:.1f}s); over the same features card "
+        f"{fid_card:.6f} vs host {fid_host:.6f}, {rel:.3g} apart (tol "
+        f"{FID_RTOL}); SN-GAN step {rate['step_ms']:.2f} ms, idle share "
+        f"{rate['idle_share']}; {card}")
+    if not (np.isfinite(fid) and np.isfinite(fid_card)) or rel > FID_RTOL \
+            or abs(fid - fid_card) > FID_RTOL * abs(fid_host):
+        raise AssertionError("FID: not finite, or the card's disagrees "
+                             "with the host's")
+    shutil.rmtree(run_dir)
+    shutil.rmtree(cifar_dir)
+    return counted.runs, counted.shapes, dict(
+        losses=rows, sn_norms=norms, step=rate, fid=fid, fid_card=fid_card,
+        fid_host=fid_host, fid_rel=rel, train_s=train_s, fid_s=fid_s)
+
+
 def step_one_only(specs):
     """Step 1 of ResNet-50, VGG-16 and DenseNet-121 against the host alone
     (``name:batch`` specs, default each at STEP1_BATCH), records in
@@ -5136,7 +5701,7 @@ def main() -> int:
     for path in (CONFIG, CIFAR_CONFIG, VIT_CONFIG, PWC_CONFIG,
                  FLOWNET_CONFIG, VGG_CONFIG, DENSENET_CONFIG, VOC_CONFIG,
                  DCGAN_CONFIG, PIX2PIX_CONFIG, *SMALLNET_CONFIGS.values(),
-                 FIXTURES):
+                 SNGAN_CONFIG, FIXTURES):
         if not os.path.exists(path):
             print(f"chip_smoke: {path} is missing", file=sys.stderr)
             return 1
@@ -5210,6 +5775,12 @@ def main() -> int:
     file_runs, file_shapes, checks["files"] = phase(
         "image files", files_run, dev, plan, checks["resnet50"], card)
     checks["io_environment"] = dict(env, plan=plan, host_library=host_lib)
+    torch.cuda.empty_cache()
+    route_runs, route_shapes, checks["routes"] = phase("routes", routes_run,
+                                                       dev)
+    torch.cuda.empty_cache()
+    sngan_runs, sngan_shapes, checks["sngan_fid"] = phase(
+        "sngan_fid", sngan_fid_run, dev, checks["cifar"]["ckpt_dir"], card)
     runs = {"serve": counts, "train": train_counts, "test": eval_counts,
             "vit_train": vit_train, "vit_test": vit_test,
             **{f"vit_train_{k}": v for k, v in policy_runs.items()},
@@ -5221,7 +5792,8 @@ def main() -> int:
                for part, c in zip(("train", "test"), pair)},
             **{f"{k}_{part}": c for k, pair in big.items()
                for part, c in zip(("train", "test"), pair)},
-            **seg_runs, **gan_runs, **api_runs, **file_runs}
+            **seg_runs, **gan_runs, **api_runs, **file_runs,
+            **route_runs, **sngan_runs}
     launches = {name: sum(c[name] for c in runs.values())
                 for name in SOURCES}
     in_forward = checks["bn_act_in_forward_ms"]
@@ -5240,7 +5812,8 @@ def main() -> int:
             if name in CORR else {}),
          **({"by_path": kernel_by_path(name, details, runs,
                                        {**seg_shapes, **gan_shapes,
-                                        **api_shapes, **file_shapes})}
+                                        **api_shapes, **file_shapes,
+                                        **route_shapes, **sngan_shapes})}
             if name in ("conv_pair", "bn_act", "conv_fused") else {}),
          **({"in_forward_ms": summary[name]["in_forward_ms"]}
             if name == "bn_act" else {})}

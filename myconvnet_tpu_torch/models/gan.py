@@ -15,8 +15,11 @@ port's modules take it when they are built (``image_size``): it sets the
 DCGAN discriminator's ``logits`` width and clamps the U-Net's levels
 (``:94``).
 
-``spectral_norm=True`` (SNGAN's discriminators) keeps a power-iteration
-vector in layer state (``nn.py:229``) and is refused by name.
+``spectral_norm=True`` gives the discriminators' SN-GAN form
+(``:56-82``, ``:123-158``): every conv and the head spectral-normalized
+(``nn.Conv``/``nn.Dense`` with ``spectral_norm``, each with its ``sn_u``
+buffer), no BN or instance norm, and a bias on every conv (none of them
+has a norm to absorb its shift).
 
 Eval mode routes each generator BN -> activation through B1
 (``models/blocks.bn_act``): DCGAN's three BN -> ReLU sites (``bn_project``
@@ -55,13 +58,6 @@ MOMENTUM = 0.9
 
 def _bn(c: int) -> BatchNorm:
     return BatchNorm(c, momentum=MOMENTUM)
-
-
-def refuse_spectral_norm(spectral_norm: bool) -> None:
-    if spectral_norm:
-        raise ValueError("spectral_norm=True is not ported (its power "
-                         "iteration keeps layer state, "
-                         "myconvnet_tpu/nn.py:229)")
 
 
 def _doublings(size: int) -> int:
@@ -112,13 +108,14 @@ def _plain_bn_act(bn, x, act):
 
 class DCGANDiscriminator(nn.Module):
     """``forward(x)``: images [N, S, S, C] -> logits [N, 1]: strided 4x4
-    convs down to 4x4 (no BN on the first), leaky ReLU(0.2), then the
-    NHWC-flattened map through ``logits``."""
+    convs down to 4x4 (no BN on the first; none at all under
+    ``spectral_norm``), leaky ReLU(0.2), then the NHWC-flattened map
+    through ``logits``."""
 
     def __init__(self, *, in_channels: int = 3, base_features: int = 64,
                  image_size: int = 64, spectral_norm: bool = False):
         super().__init__()
-        refuse_spectral_norm(spectral_norm)
+        self.sn = sn = spectral_norm
         size, self.n_down = image_size, 0
         while size > 4:
             size //= 2
@@ -126,16 +123,18 @@ class DCGANDiscriminator(nn.Module):
         cin, feats = in_channels, base_features
         for i in range(self.n_down):
             self.add_module(auto_name("conv", i), Conv(
-                cin, feats, 4, stride=2, bias=i == 0, w_init=W_INIT))
-            if i > 0:
+                cin, feats, 4, stride=2, bias=i == 0 or sn, w_init=W_INIT,
+                spectral_norm=sn))
+            if i > 0 and not sn:
                 self.add_module(auto_name("bn", i - 1), _bn(feats))
             cin, feats = feats, min(feats * 2, 512)
-        self.logits = Dense(size * size * cin, 1, w_init=W_INIT)
+        self.logits = Dense(size * size * cin, 1, w_init=W_INIT,
+                            spectral_norm=sn)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.n_down):
             x = getattr(self, auto_name("conv", i))(x)
-            if i > 0:
+            if i > 0 and not self.sn:
                 x = getattr(self, auto_name("bn", i - 1))(x)
             x = leaky_relu(x, 0.2)
         return self.logits(x.reshape(x.shape[0], -1))
@@ -255,27 +254,30 @@ class UNetGenerator(nn.Module):
 
 class PatchGANDiscriminator(nn.Module):
     """70x70 PatchGAN: ``forward(x, y=None)`` on the channel concatenation
-    of (x, y) -> patch logits [N, S/2^n_layers, S/2^n_layers, 1]."""
+    of (x, y) -> patch logits [N, S/2^n_layers, S/2^n_layers, 1].  Under
+    ``spectral_norm`` no norm layer, and every conv biased."""
 
     def __init__(self, *, in_channels: int = 6, base_features: int = 64,
                  n_layers: int = 3, norm: str = "batch",
                  spectral_norm: bool = False):
         super().__init__()
-        refuse_spectral_norm(spectral_norm)
+        self.sn = sn = spectral_norm
         self.n_layers = n_layers
         self.conv = Conv(in_channels, base_features, 4, stride=2, bias=True,
-                         w_init=W_INIT)
+                         w_init=W_INIT, spectral_norm=sn)
         name = _norm_name(norm)
         cin = base_features
         for i in range(1, n_layers + 1):
             feats = min(cin * 2, 512)
             self.add_module(auto_name("conv", i), Conv(
-                cin, feats, 4, stride=2 if i < n_layers else 1, bias=False,
-                w_init=W_INIT))
-            self.add_module(auto_name(name, i - 1), _norm(feats, norm))
+                cin, feats, 4, stride=2 if i < n_layers else 1, bias=sn,
+                w_init=W_INIT, spectral_norm=sn))
+            if not sn:
+                self.add_module(auto_name(name, i - 1), _norm(feats, norm))
             cin = feats
         self.norm_name = name
-        self.logits = Conv(cin, 1, 4, bias=True, w_init=W_INIT)
+        self.logits = Conv(cin, 1, 4, bias=True, w_init=W_INIT,
+                           spectral_norm=sn)
 
     def forward(self, x: torch.Tensor, y: torch.Tensor | None = None
                 ) -> torch.Tensor:
@@ -283,6 +285,7 @@ class PatchGANDiscriminator(nn.Module):
         h = leaky_relu(self.conv(h), 0.2)
         for i in range(1, self.n_layers + 1):
             h = getattr(self, auto_name("conv", i))(h)
-            h = getattr(self, auto_name(self.norm_name, i - 1))(h)
+            if not self.sn:
+                h = getattr(self, auto_name(self.norm_name, i - 1))(h)
             h = leaky_relu(h, 0.2)
         return self.logits(h)

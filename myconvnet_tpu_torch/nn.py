@@ -28,6 +28,15 @@ Module names follow the JAX scope names, so ``weights.from_jax`` maps
   they are (the GAN step's passes whose state JAX discards).
 * :class:`Dense` (``nn.py:200``): ``bias=False`` is ``use_bias=False``
   (DCGAN's ``project``).
+* ``spectral_norm=True`` on :class:`Conv` and :class:`Dense`
+  (``nn.py:61``, ``:209``; SN-GAN's discriminators) divides the weight by
+  its leading singular value, estimated by one power iteration an apply
+  (:func:`spectral_normalize`, ``nn.py:229-248``) from the persistent
+  buffer ``sn_u`` [out] (``ones / sqrt(out)`` at first; the JAX state
+  ``<scope>/sn_u``).  A training forward writes the new vector back unless
+  ``update_stats`` is off (the GAN step's G pass, whose D state JAX
+  discards); an eval forward leaves it, as every JAX caller of an eval
+  apply drops the state.
 * :class:`InstanceNorm` (``nn.py:299``): eps 1e-5, float32 statistics over
   H and W per image and channel, float32 gamma/beta, no state.
 * :class:`LayerNorm` (``nn.py:285-296``): eps 1e-6 (torch's default is
@@ -53,10 +62,39 @@ from myconvnet_tpu_torch.ops.pool import avg_pool2d, global_avg_pool, \
     max_pool2d
 
 
+def _l2(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.rsqrt(x.square().sum() + 1e-12)
+
+
+def spectral_normalize(layer: nn.Module, w: torch.Tensor) -> torch.Tensor:
+    """``w`` (the JAX layout: HWIO or [in, out]) over its leading singular
+    value from one power iteration on ``layer.sn_u``; u and v are
+    constants for the gradient, which flows through sigma and the
+    divide."""
+    out = w.shape[-1]
+    w_mat = w.float().reshape(-1, out)                      # [in, out]
+    with torch.no_grad():
+        v = _l2(w_mat @ layer.sn_u.float())
+        u_new = _l2(w_mat.T @ v)
+        if layer.training and layer.update_stats:
+            layer.sn_u.copy_(u_new)
+    sigma = v @ w_mat @ u_new
+    return (w_mat / sigma.clamp_min(1e-12)).reshape(w.shape).to(w.dtype)
+
+
+def _add_spectral_norm(layer: nn.Module, out: int, on: bool) -> None:
+    layer.spectral_norm = on
+    if on:
+        layer.update_stats = True
+        layer.register_buffer(
+            "sn_u", torch.ones(out) / torch.tensor(float(out)).sqrt())
+
+
 class Conv(nn.Module):
     def __init__(self, cin: int, cout: int, kernel_size: int, *,
                  stride: int = 1, padding: Padding = "SAME",
-                 dilation: int = 1, bias: bool = False, w_init=None):
+                 dilation: int = 1, bias: bool = False, w_init=None,
+                 spectral_norm: bool = False):
         super().__init__()
         self.w_init = w_init    # core.init.init_model: None is He-normal
         self.stride = stride
@@ -67,6 +105,7 @@ class Conv(nn.Module):
             w.contiguous(memory_format=torch.channels_last))
         self.register_parameter(
             "bias", nn.Parameter(torch.zeros(cout)) if bias else None)
+        _add_spectral_norm(self, cout, spectral_norm)
 
     @property
     def w(self) -> torch.Tensor:
@@ -77,7 +116,9 @@ class Conv(nn.Module):
                 ) -> torch.Tensor:
         b = self.bias.to(x.dtype) if add_bias and self.bias is not None \
             else None
-        return conv2d(x, self.w.to(x.dtype), b, stride=self.stride,
+        w = spectral_normalize(self, self.w) if self.spectral_norm \
+            else self.w
+        return conv2d(x, w.to(x.dtype), b, stride=self.stride,
                       padding=self.padding, dilation=self.dilation)
 
 
@@ -172,16 +213,20 @@ def conv_epilogue(conv: Conv, bn: BatchNorm | None
 
 class Dense(nn.Module):
     def __init__(self, cin: int, cout: int, *, bias: bool = True,
-                 w_init=None):
+                 w_init=None, spectral_norm: bool = False):
         super().__init__()
         self.w_init = w_init    # core.init.init_model: None is Glorot
         self.weight = nn.Parameter(torch.empty(cout, cin))
         self.register_parameter(
             "bias", nn.Parameter(torch.zeros(cout)) if bias else None)
+        _add_spectral_norm(self, cout, spectral_norm)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = None if self.bias is None else self.bias.to(x.dtype)
-        return torch.nn.functional.linear(x, self.weight.to(x.dtype), b)
+        w = self.weight
+        if self.spectral_norm:
+            w = spectral_normalize(self, w.t()).t()
+        return torch.nn.functional.linear(x, w.to(x.dtype), b)
 
 
 class LayerNorm(nn.Module):

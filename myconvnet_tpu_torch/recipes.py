@@ -7,7 +7,7 @@ Adam, AdamW with ``clip_norm``, wrapped by ``plateau``, ``freeze``,
 ``make_sources`` (``:131-163``: CIFAR-10 and CIFAR-100, SVHN, MNIST and
 Fashion-MNIST, the synthetic ImageNet split at the recipe's ``raw_hw``,
 and the flow corpus), ``apply_pretrained`` (``:247-275``, the ``.npz``
-form), and the ``ConvNet`` builders of ``registry.convnet_builder``
+and torchvision ``.pth`` forms), and the ``ConvNet`` builders of ``registry.convnet_builder``
 (``registry.py:21``): ``build_classifier`` (``vision.py:23-65``, with the
 focal loss, random erasing and SAM), ``build_segmenter``
 (``vision.py:68-106``, with the VOC source and the mIoU evaluator of
@@ -467,24 +467,35 @@ def check_task(cfg: dict) -> str:
 
 def apply_pretrained(net: ConvNet, cfg: dict) -> None:
     """Warm-start the built ``net`` from the recipe's ``pretrained``
-    block (``common.py:247-275``) in its ``.npz`` form: ``dict(path=
-    "x.npz")``, a flat ``scope::name`` file read by
-    ``models.pretrained.load_npz_weights`` into the parameters (a subset
-    restore).  The torch-file form (a downloaded ``.pth``) is refused."""
-    from myconvnet_tpu_torch.models.pretrained import load_npz_weights
+    block (``common.py:247-275``): ``dict(path="x.npz")``, a flat
+    ``scope::name`` file read by ``models.pretrained.load_npz_weights``
+    into the parameters (a subset restore), or ``dict(path="r50.pth",
+    depth=50, prefix="", load_head=True)``, a torchvision ResNet
+    ``state_dict`` mapped by ``import_torch_resnet_file`` onto the
+    parameters and BN statistics.  A bare path, and the torch-file form
+    on a model with no ResNet stem at ``prefix``, are refused by name."""
+    from myconvnet_tpu_torch.models.pretrained import (
+        import_torch_resnet_file, load_npz_weights)
     from myconvnet_tpu_torch.weights import from_jax, to_jax
     pcfg = cfg["pretrained"]
     if not isinstance(pcfg, dict) or "path" not in pcfg:
         raise ValueError(f"recipe key 'pretrained' = {pcfg!r}: it wants "
                          "dict(path=...), as recipes/common.py:247-261")
     path = str(pcfg["path"])
-    if not path.endswith(".npz"):
-        raise ValueError(f"recipe key 'pretrained' path {path!r}: the "
-                         "torch-file form is not ported "
-                         "(models/pretrained.py import_torch_resnet_file, "
-                         "ROADMAP A8); an .npz of scope::name arrays is")
-    params, state = to_jax(net.trainer.model)
-    from_jax(net.trainer.model, load_npz_weights(path, params), state)
+    model = net.trainer.model
+    params, state = to_jax(model)
+    if path.endswith(".npz"):
+        from_jax(model, load_npz_weights(path, params), state)
+    else:
+        prefix = pcfg.get("prefix", "")
+        if f"{prefix}stem/conv" not in params:
+            raise ValueError(
+                f"recipe key 'pretrained' path {path!r}: the torch-file "
+                "form maps a torchvision ResNet onto a ResNet, and "
+                f"{type(model).__name__} has no scope {prefix}stem/conv")
+        from_jax(model, *import_torch_resnet_file(
+            path, params, state, depth=int(pcfg.get("depth", 50)),
+            load_head=bool(pcfg.get("load_head", True)), prefix=prefix))
     print(f"warm-started from {path}", flush=True)
 
 

@@ -10,8 +10,9 @@ the train split) and ``make_gan_sampler`` (``:269``).  pix2pix runs bf16
 under its policy; its losses and L1 target stay float32.
 
 Refused by name: ``gan_kind`` cyclegan and srgan (``resnet_generator``,
-``make_cyclegan_step``, the SR discriminator) and ``spectral_norm`` in the
-discriminator's kwargs.  DCGAN reads a CIFAR-10 ``data_dir`` with the
+``make_cyclegan_step``, the SR discriminator).  ``spectral_norm`` in the
+discriminator's kwargs builds its SN-GAN form (``configs/sngan_cifar10.py``:
+the dcgan kind, hinge loss, Adam at b1 = 0).  DCGAN reads a CIFAR-10 ``data_dir`` with the
 port's pickle reader, pix2pix a combined or two-directory pairs
 ``data_dir`` with ``subsets.pairs.PairFileSource`` (``gan_style.py:119-
 125``), as JAX does.  ``synthetic_n`` sizes a rendered split (the port's

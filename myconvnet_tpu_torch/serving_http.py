@@ -1,31 +1,49 @@
-"""HTTP model server on the Python stdlib, classify routes.
+"""HTTP model server on the Python stdlib: classify, segment, translate
+and flow routes, with cross-request micro-batching.
 
-Port of the classify path of ``myconvnet_tpu/serving_http.py``:
+Port of ``myconvnet_tpu/serving_http.py`` for the route kinds whose models
+the port has:
 
     GET  /healthz                    -> {"status": "ok"}
     GET  /v1/models                  -> {"models": [{name, kind, ...}]}
     POST /v1/models/<name>:predict
          body: a JPEG/PNG (Content-Type image/*; needs Pillow), or JSON
          {"instances": [[H,W,C float rows], ...]} in [0, 1]
-         -> {"predictions": [[{"label", "prob"} x topk], ...]}
+         classify  -> {"predictions": [[{"label", "prob"} x topk], ...]}
+         segment   -> {"segmentations": [{"size": [H, W], "rle": [class,
+                      run, ...], "coverage": {label: fraction},
+                      "mean_conf"}, ...]}   (DeepLabv3+)
+         translate -> {"images": [base64 PNG, ...]}   (pix2pix's U-Net;
+                      [0, 1] in, [0, 1] out)
+         flow      -> {"flows": [{"size", "mean_mag", "max_mag", "png"},
+                      ...]}   (JSON [H, W, 6] frame pairs only)
 
-``ModelServer.predict`` decodes the body and normalizes it with the
-recipe's mean/std: an image body is decoded on the host with JAX's
-geometry (Pillow ``convert``, then a BILINEAR ``resize`` to the route's
-size), kept as uint8 and normalized on the route's device by the
-``normalize_u8`` kernel, one launch a request (a quarter of float32's bytes
-cross to the device); a JSON body is normalized on the host in float32, as
-JAX does (``serving_http.py:373-374``).  It then runs the route's
-fixed-batch program through :func:`_run_chunked` under one device lock and
-decodes the top-k.  A route is built from a recipe config plus a JAX
-checkpoint, or plus parameter trees in memory.  The other route kinds, the micro-batcher and
-loading an exported artifact come with later slices.
+A route is built from a recipe config plus a checkpoint of either package
+(or parameter trees in memory) by :func:`build_route`; its program is the
+chain JAX's exported artifact computes (``serving.py:220-277`` for
+segment, ``:377-427`` with ``export_cli.py:226-240`` for translate,
+``export_cli.py:355-427`` for flow), run eagerly on the route's device.
+Each request is first brought to the program's input space: an image body
+is decoded on the host with JAX's geometry (Pillow ``convert``, then a
+BILINEAR ``resize`` to the route's size), kept as uint8 and normalized on
+the route's device by the ``normalize_u8`` kernel (B2), one launch a
+request, with the recipe's mean and std (classify, segment) or mean = std
+= 0.5 (translate: exactly ``x * 2 - 1``); a JSON body of raw [0, 1] rows is
+normalized on the host for classify (``serving_http.py:373-374``) and
+inside the program on the device for segment and translate, as JAX's
+artifacts do; flow takes its rows raw.  The rows then run through the
+route's fixed batch (:func:`_run_chunked`, tuple outputs sliced member by
+member) under one device lock, or, with ``ModelServer(batch_window_ms >
+0)``, through the route's :class:`_Batcher`, which runs the normalized
+rows of concurrent requests as one device call.
 """
 
 from __future__ import annotations
 
+import base64
 import json
 import threading
+import time
 from dataclasses import dataclass
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Optional, Sequence
@@ -36,7 +54,10 @@ import torch
 from myconvnet_tpu_torch.ops.kernels.normalize_u8 import (device_stats,
                                                           normalize_u8)
 
-KINDS = ("classify",)
+KINDS = ("classify", "segment", "translate", "flow")
+# the recipe task each kind serves
+TASK_OF = {"classify": "classification", "segment": "segmentation",
+           "translate": "gan", "flow": "flow"}
 
 
 @dataclass
@@ -45,52 +66,154 @@ class Route:
 
     name: str
     kind: str
-    fn: Callable                   # [B, H, W, C] -> [B, classes] tensor
+    fn: Callable                   # [B, H, W, C] input space -> outputs
     input_shape: tuple             # (B, H, W, C)
-    mean: np.ndarray = None
-    std: np.ndarray = None
+    mean: np.ndarray = None        # an image body's B2 statistics (and
+    std: np.ndarray = None         # classify's host normalization)
     topk: int = 5
-    device: str | torch.device = "cpu"   # where an image body is normalized
+    device: str | torch.device = "cpu"   # where the program runs
+    class_names: Optional[Sequence[str]] = None
+    # raw [0, 1] float rows (a tensor on the device) -> the program's
+    # input space; None: the identity (flow) or classify's host step
+    pre: Optional[Callable] = None
 
     def describe(self) -> dict:
         return {"name": self.name, "kind": self.kind,
-                "input": list(self.input_shape)}
+                "input": list(self.input_shape),
+                "classes": len(self.class_names)
+                if self.class_names else None}
+
+
+def parse_route_spec(spec: str) -> tuple[str, str, str, str]:
+    """``NAME=KIND:CONFIG:CKPT`` -> (name, kind, config, ckpt)."""
+    name, eq, rest = spec.partition("=")
+    parts = rest.split(":", 2)
+    if not eq or not name or len(parts) != 3 or not all(parts):
+        raise ValueError(f"route spec {spec!r}: want NAME=KIND:CONFIG:CKPT "
+                         "(the exported-artifact form comes with the "
+                         "exporters, ROADMAP A15)")
+    return (name, *parts)
+
+
+def _trees(cfg, kind, ckpt, params, state):
+    from myconvnet_tpu_torch.weights import load_jax_checkpoint
+    if (ckpt is None) == (params is None):
+        raise ValueError("pass exactly one of ckpt or params")
+    if ckpt is not None:
+        fields = (("g_params", "g_state") if kind == "translate"
+                  else ("params", "model_state"))
+        params, state = load_jax_checkpoint(ckpt, fields)
+    return params, state or {}
+
+
+def _segment_program(fn, hw):
+    """normalized frames -> (classes int32 [N, H, W], max softmax float32
+    [N, H, W]), the logits upsampled to the input size where they are not
+    at it (``serving.py:262-270``)."""
+    from myconvnet_tpu_torch.ops.resize import resize_bilinear
+
+    def segment(x):
+        logits = fn(x)
+        if tuple(logits.shape[1:3]) != hw:
+            logits = resize_bilinear(logits, hw, align_corners=False)
+        probs = torch.softmax(logits, -1)
+        return logits.argmax(-1).to(torch.int32), probs.amax(-1)
+    return segment
+
+
+def _translate_program(fn):
+    """x * 2 - 1 (done before) -> U-Net -> (y + 1) / 2 clipped to [0,
+    1]."""
+    def translate(x):
+        return ((fn(x) + 1.0) / 2.0).clamp(0.0, 1.0)
+    return translate
 
 
 def build_route(name: str, kind: str, config: str | dict, *,
                 ckpt: Optional[str] = None, params=None, state=None,
                 batch: int = 8, device: str | torch.device = "cuda",
                 topk: int = 5) -> Route:
-    """Build the recipe's model, load a JAX checkpoint (``ckpt``) or
-    parameter trees (``params``, ``state``) into it, and wrap its
-    inference function as a route with a fixed batch of ``batch``."""
+    """Build the recipe's model, load a checkpoint of either package
+    (``ckpt``; a GAN checkpoint's generator for translate) or parameter
+    trees (``params``, ``state``) into it, and wrap its program as a route
+    of kind ``kind`` with a fixed batch of ``batch``."""
     from myconvnet_tpu_torch import models, recipes, serving
     from myconvnet_tpu_torch.core.precision import get_policy
-    from myconvnet_tpu_torch.weights import load_jax_checkpoint
 
     if kind not in KINDS:
         raise ValueError(f"route {name!r}: the port serves {KINDS}, not "
                          f"{kind!r}")
     cfg = recipes.load_config(config) if isinstance(config, str) \
         else dict(config)
-    if (ckpt is None) == (params is None):
-        raise ValueError("pass exactly one of ckpt or params")
-    if ckpt is not None:
-        params, state = load_jax_checkpoint(ckpt)
-    h, w = cfg.get("input_hw", (224, 224))
-    model = models.get_model(cfg["model"], cfg["num_classes"],
-                             **cfg.get("model_kwargs", {}))
-    fn = serving.make_inference_fn(
-        model, params, state or {}, device=device,
-        policy=get_policy(cfg.get("precision", "f32")))
-    mean, std = recipes.normalization(cfg, 3)
-    return Route(name=name, kind=kind, fn=fn, input_shape=(batch, h, w, 3),
-                 mean=mean, std=std, topk=topk, device=device)
+    task = cfg.get("task", "classification")
+    if kind == "translate" and task == "gan" \
+            and cfg.get("gan_kind", "dcgan") != "pix2pix":
+        # a latent-input generator is a sampler, not a route
+        # (serving_http.py:106-120)
+        raise ValueError(
+            f"route {name!r}: a {cfg.get('gan_kind', 'dcgan')} generator "
+            "takes [N, latent] latents, not [N, H, W, C] images — "
+            "'translate' routes serve image-to-image generators only")
+    if task != TASK_OF[kind]:
+        raise ValueError(f"route {name!r}: a {kind} route serves a "
+                         f"{TASK_OF[kind]} recipe, not {task!r}")
+    params, state = _trees(cfg, kind, ckpt, params, state)
+    policy = get_policy(cfg.get("precision", "f32"))
+    device = torch.device(device)
+    names = mean = std = pre = None
+    if kind == "classify":
+        h, w = cfg.get("input_hw", (224, 224))
+        model = models.get_model(cfg["model"], cfg["num_classes"],
+                                 **cfg.get("model_kwargs", {}))
+        fn = serving.make_inference_fn(model, params, state, device=device,
+                                       policy=policy)
+        mean, std = recipes.normalization(cfg, 3)
+        nch = 3
+    elif kind == "segment":
+        aug = recipes.make_augment(cfg.get("augment"))
+        h, w = aug.out_hw if aug is not None else cfg["input_hw"]
+        model = models.get_model(cfg["model"], cfg["num_classes"],
+                                 input_hw=(h, w),
+                                 **cfg.get("model_kwargs", {}))
+        fn = _segment_program(serving.make_inference_fn(
+            model, params, state, device=device, policy=policy), (h, w))
+        mean, std = recipes.normalization(cfg, 3)
+        if cfg.get("dataset") == "voc":
+            from myconvnet_tpu_torch.subsets.voc import SEG_CLASS_NAMES
+            names = SEG_CLASS_NAMES
+        nch = 3
+    elif kind == "translate":
+        from myconvnet_tpu_torch import recipes_gan
+        h = w = int(cfg.get("image_size", 256))
+        fn = _translate_program(serving.make_inference_fn(
+            recipes_gan.gan_generator(cfg), params, state, fold_bn=False,
+            device=device, policy=policy))
+        mean = std = np.full(3, 0.5, np.float32)
+        nch = 3
+    else:
+        h, w = cfg.get("input_hw", (384, 512))
+        model = models.FLOW_MODELS[cfg["model"]](
+            0, **cfg.get("model_kwargs", {}))
+        fn = serving.make_inference_fn(model, params, state, fold_bn=False,
+                                       device=device, policy=policy)
+        nch = 6
+    if kind in ("segment", "translate"):
+        stats = device_stats(mean, std, device)
+        pre = (lambda x: (x - stats[0]) / stats[1])
+    return Route(name=name, kind=kind, fn=fn, input_shape=(batch, h, w, nch),
+                 mean=mean, std=std, topk=topk, device=device,
+                 class_names=names, pre=pre)
 
 
-def _run_chunked(fn, x, batch: int) -> np.ndarray:
+def _host(t: torch.Tensor, n: int) -> np.ndarray:
+    t = t[:n]
+    return (t.float() if t.is_floating_point() else t).cpu().numpy()
+
+
+def _run_chunked(fn, x, batch: int):
     """Pad/chunk a request of any size (a numpy array or a tensor) through
-    the route's fixed batch."""
+    the route's fixed batch; a tuple output comes back as a tuple of
+    numpy arrays, each member sliced to the request's rows."""
     x = torch.as_tensor(x)
     outs = []
     for i in range(0, len(x), batch):
@@ -100,14 +223,97 @@ def _run_chunked(fn, x, batch: int) -> np.ndarray:
             chunk = torch.cat([chunk,
                                chunk.new_zeros((batch - n, *x.shape[1:]))])
         out = fn(chunk)
-        outs.append(out[:n].float().cpu().numpy())
+        outs.append(tuple(_host(t, n) for t in out)
+                    if isinstance(out, tuple) else _host(out, n))
+    if isinstance(outs[0], tuple):
+        return tuple(np.concatenate(ts) for ts in zip(*outs))
     return np.concatenate(outs)
 
 
-class ModelServer:
-    """The route table + device lock; http handlers delegate here."""
+def _rle_encode(flat: np.ndarray) -> list:
+    """Row-major run-length encoding: [class, run, class, run, ...];
+    ``np.repeat(rle[0::2], rle[1::2]).reshape(size)`` decodes it."""
+    if flat.size == 0:
+        return []
+    starts = np.concatenate([[0], np.flatnonzero(np.diff(flat)) + 1])
+    runs = np.diff(np.concatenate([starts, [flat.size]]))
+    out = np.empty(2 * len(starts), np.int64)
+    out[0::2] = flat[starts]
+    out[1::2] = runs
+    return out.tolist()
 
-    def __init__(self, routes: Sequence[Route]):
+
+def _class_coverage(cls: np.ndarray, names=None, top: int = 5) -> dict:
+    """The ``top`` most frequent classes' shares of the map."""
+    ids, counts = np.unique(cls, return_counts=True)
+    cov = {}
+    for j in np.argsort(-counts)[:top]:
+        cid = int(ids[j])
+        label = names[cid] if names and cid < len(names) else str(cid)
+        cov[label] = round(float(counts[j]) / cls.size, 4)
+    return cov
+
+
+class _Batcher:
+    """Cross-request micro-batching: requests to one route within a
+    window run as ONE device call.
+
+    Leader-collects (``serving_http.py:207-258``): the first request into
+    an empty epoch leads, sleeps the window while followers append their
+    rows, closes the epoch under the mutex, runs the concatenated rows
+    once and wakes the followers, each slicing its own rows out of every
+    member of the output.  The leader's failure reaches each follower as
+    ``RuntimeError("batched device call failed: ...")``.
+    """
+
+    def __init__(self, run, window_s: float):
+        self.run = run          # fn(rows) -> outputs (an array or a tuple)
+        self.window = window_s
+        self._mu = threading.Lock()
+        self._epoch = None
+
+    def submit(self, x):
+        with self._mu:
+            epoch = self._epoch
+            lead = epoch is None
+            if lead:
+                epoch = {"xs": [], "done": threading.Event(),
+                         "outs": None, "err": None}
+                self._epoch = epoch
+            idx = len(epoch["xs"])
+            epoch["xs"].append(x)
+        if lead:
+            time.sleep(self.window)
+            with self._mu:
+                self._epoch = None      # the epoch is closed; a new opens
+            try:
+                epoch["outs"] = self.run(epoch["xs"])
+            except BaseException as e:  # wake the followers with it
+                epoch["err"] = e
+                raise
+            finally:
+                epoch["done"].set()
+        else:
+            epoch["done"].wait()
+            if epoch["err"] is not None:
+                raise RuntimeError(
+                    f"batched device call failed: {epoch['err']}")
+        rows = slice(sum(len(a) for a in epoch["xs"][:idx]),
+                     sum(len(a) for a in epoch["xs"][:idx + 1]))
+        out = epoch["outs"]
+        return (tuple(t[rows] for t in out) if isinstance(out, tuple)
+                else out[rows])
+
+
+class ModelServer:
+    """The route table + device lock; http handlers delegate here.
+
+    ``batch_window_ms > 0`` gives every route a :class:`_Batcher`:
+    concurrent requests within the window run as one device call instead
+    of one each through the lock."""
+
+    def __init__(self, routes: Sequence[Route],
+                 batch_window_ms: float = 0.0):
         if not routes:
             raise ValueError("no routes")
         self.routes = {r.name: r for r in routes}
@@ -116,18 +322,44 @@ class ModelServer:
         self._lock = threading.Lock()
         # each route's (mean, std) as float32 tensors on its device
         self._stats = {}
+        self._batchers = {}
+        if batch_window_ms > 0:
+            for r in self.routes.values():
+                self._batchers[r.name] = _Batcher(self._runner(r),
+                                                  batch_window_ms / 1e3)
 
-    def _execute(self, route: Route, x: np.ndarray) -> np.ndarray:
-        """The route's outputs of a float32 request, or of a uint8 one
-        normalized on the route's device first (one normalize_u8 launch)."""
+    def _runner(self, route: Route):
+        def run(xs):
+            with self._lock:
+                x = xs[0] if len(xs) == 1 else torch.cat(
+                    [torch.as_tensor(a).to(route.device) for a in xs])
+                return _run_chunked(route.fn, x, route.input_shape[0])
+        return run
+
+    def _prepare(self, route: Route, x: np.ndarray):
+        """A decoded request -> the program's input rows: uint8 through B2
+        on the route's device (one launch), float rows through the route's
+        ``pre`` on the device (classify's were normalized on the host)."""
+        if x.dtype == np.uint8:
+            if route.name not in self._stats:
+                self._stats[route.name] = device_stats(
+                    route.mean, route.std, route.device)
+            return normalize_u8(torch.from_numpy(x).to(route.device),
+                                *self._stats[route.name])
+        if route.pre is None:
+            return x
+        return route.pre(torch.from_numpy(x).to(route.device))
+
+    def _execute(self, route: Route, x: np.ndarray):
+        """The route's outputs of a decoded request: prepared under the
+        device lock, then one device call of its own or a share of the
+        micro-batcher's."""
+        b = self._batchers.get(route.name)
         with self._lock:
-            if x.dtype == np.uint8:
-                if route.name not in self._stats:
-                    self._stats[route.name] = device_stats(
-                        route.mean, route.std, route.device)
-                x = normalize_u8(torch.from_numpy(x).to(route.device),
-                                 *self._stats[route.name])
-            return _run_chunked(route.fn, x, route.input_shape[0])
+            x = self._prepare(route, x)
+            if b is None:
+                return _run_chunked(route.fn, x, route.input_shape[0])
+        return b.submit(x)
 
     def _decode_body(self, route: Route, body: bytes,
                      content_type: str) -> np.ndarray:
@@ -136,6 +368,10 @@ class ModelServer:
         [N, h, w, C] in [0, 1]."""
         h, w, nch = route.input_shape[1:]
         if content_type.startswith("image/"):
+            if route.kind == "flow":
+                raise ValueError(
+                    f"flow routes take JSON instances of [H, W, {nch}] "
+                    "blobs (two stacked frames), not a single image")
             import io
 
             from myconvnet_tpu_torch.data.pipeline import pil_image
@@ -158,20 +394,48 @@ class ModelServer:
 
     def predict(self, name: str, body: bytes,
                 content_type: str = "application/json") -> dict:
-        from myconvnet_tpu_torch.eval.evaluators import decode_predictions
-
         route = self.routes.get(name)
         if route is None:
             raise KeyError(name)
         x = self._decode_body(route, body, content_type)
-        if x.dtype != np.uint8:
-            x = (x - route.mean) / route.std
-        logits = self._execute(route, x)
-        names = [str(i) for i in range(logits.shape[-1])]
-        rows = decode_predictions(logits, names, route.topk)
-        return {"predictions": [
-            [{"label": n, "prob": round(float(p), 6)} for n, p in row]
-            for row in rows]}
+        if route.kind == "classify":
+            from myconvnet_tpu_torch.eval.evaluators import \
+                decode_predictions
+            if x.dtype != np.uint8:
+                x = (x - route.mean) / route.std
+            logits = self._execute(route, x)
+            names = route.class_names or [
+                str(i) for i in range(logits.shape[-1])]
+            rows = decode_predictions(logits, names, route.topk)
+            return {"predictions": [
+                [{"label": n, "prob": round(float(p), 6)} for n, p in row]
+                for row in rows]}
+        if route.kind == "segment":
+            classes, conf = self._execute(route, x)
+            return {"segmentations": [{
+                "size": list(c.shape),
+                "rle": _rle_encode(c.reshape(-1)),
+                "coverage": _class_coverage(c, route.class_names),
+                "mean_conf": round(float(np.mean(p)), 4)}
+                for c, p in zip(classes, conf)]}
+        from myconvnet_tpu_torch.utils.images import png_bytes
+        if route.kind == "translate":
+            out = self._execute(route, x)
+            return {"images": [base64.b64encode(png_bytes(
+                (np.clip(y, 0.0, 1.0) * 255).astype(np.uint8))).decode(
+                    "ascii") for y in out]}
+        from myconvnet_tpu_torch.utils.images import flow_to_color
+        f = np.asarray(self._execute(route, x), np.float32)
+        out = []
+        for fi in f:
+            mag = np.sqrt((fi ** 2).sum(-1))
+            out.append({
+                "size": list(fi.shape[:2]),
+                "mean_mag": round(float(mag.mean()), 4),
+                "max_mag": round(float(mag.max()), 4),
+                "png": base64.b64encode(png_bytes(flow_to_color(
+                    fi))).decode("ascii")})
+        return {"flows": out}
 
     def models(self) -> dict:
         return {"models": [r.describe() for r in self.routes.values()]}

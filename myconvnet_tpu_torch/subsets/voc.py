@@ -27,6 +27,13 @@ from myconvnet_tpu_torch.data.pipeline import ArraySource, FileSource
 
 NUM_CLASSES = 21
 IGNORE_LABEL = 255
+# the 20 foreground classes (``voc.py:90-97``); segmentation ids are
+# 0-based with 0 = background
+DET_CLASS_NAMES = (
+    "aeroplane", "bicycle", "bird", "boat", "bottle", "bus", "car",
+    "cat", "chair", "cow", "diningtable", "dog", "horse", "motorbike",
+    "person", "pottedplant", "sheep", "sofa", "train", "tvmonitor")
+SEG_CLASS_NAMES = ("background", *DET_CLASS_NAMES)
 RAW_HW = (512, 512)
 IMAGE_HW = (513, 513)  # the canonical DeepLab crop
 

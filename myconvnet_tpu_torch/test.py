@@ -5,6 +5,9 @@ optical-flow and pix2pix recipes).
         --synthetic --ckpt DIR [--batch N] [--best | --average N] [--ema] \\
         [--tta flip|ten_crop] [--topk K] [--report] [--calibrate] \\
         [--scales S,S,...] [--set KEY=VALUE ...] [--device cuda]
+    python -m myconvnet_tpu_torch.test --config configs/sngan_cifar10.py \\
+        --synthetic --ckpt DIR --fid \\
+        --fid_extractor configs/cifar100_resnet18.py:CLS_DIR [--fid_samples 256]
 
 Port of ``test.py:148-240`` (``eval_convnet``): build the recipe's
 ``ConvNet`` with its optimizer, restore ``--ckpt`` (a ``.npz`` or the
@@ -18,13 +21,19 @@ multi-scale + flip protocol with ``--scales``.  ``--calibrate`` (a
 classifier) fits a softmax temperature on the validation logits, prints
 the ECE before and after, and writes ``calibration.json`` beside the
 checkpoint (``test.py:242-267``).  ``--tta x8`` (the super-resolution
-self-ensemble, ROADMAP A17), ``--fid`` (ROADMAP A8) and ``--export``
-(ROADMAP A15) are refused by name.  A GAN recipe goes to :func:`eval_gan` (``test.py:120``): pix2pix
+self-ensemble, ROADMAP A17) and ``--export`` (ROADMAP A15) are refused by
+name.  A GAN recipe goes to :func:`eval_gan` (``test.py:120``): with
+``--fid``, :func:`eval_gan_fid` (``test.py:565-642``) scores
+``--fid_samples`` generated images against as many of the recipe's real
+ones through ``--fid_extractor CONFIG:CKPT_DIR`` (:func:`_fid_extractor`,
+``test.py:455-498``: any trained classifier's ``features``); else pix2pix
 is scored on the val pairs with PSNR and SSIM (``eval_pix2pix``,
 ``test.py:646``), each batch rescaled by B2 and translated by G's eval
-forward; an unconditional DCGAN checkpoint is not scored here.
-``main(argv)`` returns (score, net); for pix2pix (psnr, ssim) and the
-GAN trainer.
+forward, and an unconditional DCGAN checkpoint is not scored.  The
+``inception:WEIGHTS.npz`` extractor (``models/inception_v3`` and weights
+the repo does not hold, ROADMAP A17) and ``task="diffusion"`` stay refused
+by name.  ``main(argv)`` returns (score, net); for pix2pix (psnr, ssim)
+and the GAN trainer, for ``--fid`` (fid, trainer).
 """
 
 from __future__ import annotations
@@ -68,15 +77,21 @@ def main(argv=None):
                     help="fit a softmax temperature on the val split and "
                          "report ECE before/after (classification)")
     ap.add_argument("--fid", action="store_true",
-                    help="not ported (FID needs eval/gan_metrics.py)")
+                    help="GAN configs: FID between generated samples and "
+                         "the real split through --fid_extractor")
+    ap.add_argument("--fid_extractor", default=None, metavar="SPEC",
+                    help="feature extractor for --fid: 'CONFIG:CKPT_DIR' "
+                         "of any trained classifier (its 'features' are "
+                         "the embedding)")
+    ap.add_argument("--fid_samples", type=int, default=256,
+                    help="sample count per side for --fid")
     ap.add_argument("--export", default=None,
                     help="not ported (the exporters are ROADMAP A15)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    for flag, where in (("fid", "eval/gan_metrics.py, ROADMAP A8"),
-                        ("export", "export_cli.py, ROADMAP A15")):
-        if getattr(args, flag):
-            raise SystemExit(f"test --{flag} is not ported ({where})")
+    if args.export:
+        raise SystemExit("test --export is not ported (export_cli.py, "
+                         "ROADMAP A15)")
     if args.tta == "x8":
         raise SystemExit("test --tta x8 is not ported (the "
                          "super-resolution self-ensemble, ROADMAP A17)")
@@ -91,8 +106,14 @@ def main(argv=None):
                        ("data_dir", args.data_dir)):
         if value is not None:
             cfg[key] = value
+    if cfg.get("task") == "diffusion" and args.fid:
+        raise SystemExit("test --fid of a diffusion recipe is not ported "
+                         "(the diffusion family, ROADMAP A17)")
     if recipes.check_task(cfg) == "gan":
         return eval_gan(cfg, args, device)
+    if args.fid:
+        raise SystemExit("test --fid scores GAN checkpoints (dcgan, "
+                         f"pix2pix), not a {cfg['task']} recipe")
     return eval_convnet(cfg, args, device)
 
 
@@ -193,17 +214,119 @@ def calibrate(net, val_set, batch: int, ckpt: str) -> dict:
     return record
 
 
+def _fid_extractor(spec: str, device):
+    """``feature_fn(images) -> [N, D]`` float32 tensor on ``device``, from
+    ``CONFIG:CKPT_DIR``: the classifier
+    recipe built with its own optimizer (the checkpoint's optimizer state
+    must fit) and restored; images (uint8 [N, H, W, C]) go to ``x / 255``,
+    a bilinear resize to the recipe's ``input_hw``, ``ConvNet.features``
+    and a global average pool of a spatial map."""
+    from myconvnet_tpu_torch import recipes
+    from myconvnet_tpu_torch.ops.resize import resize_bilinear
+
+    kind, _, rest = spec.partition(":")
+    if kind == "inception":
+        raise SystemExit("--fid_extractor inception:WEIGHTS.npz is not "
+                         "ported: it needs models/inception_v3 (ROADMAP "
+                         "A17) and Inception-v3 weights the repo does not "
+                         "hold; pass CONFIG:CKPT_DIR of a trained "
+                         "classifier")
+    if not rest:
+        raise SystemExit(f"--fid_extractor {spec!r}: want CONFIG:CKPT_DIR")
+    ecfg = recipes.load_config(kind)
+    net, _, _ = recipes.build_classifier(ecfg, True, device=device,
+                                         ckpt_dir=rest)
+    net.build(recipes.optimizer_factory(ecfg["optimizer"]))
+    net.restore(rest)
+    hw = tuple(ecfg["input_hw"])
+
+    def feature_fn(images_u8) -> torch.Tensor:
+        x = torch.as_tensor(images_u8).to(device).float() / 255.0
+        if tuple(x.shape[1:3]) != hw:
+            x = resize_bilinear(x, hw)
+        feats = torch.from_numpy(net.features(x, tag="features"))
+        if feats.ndim == 4:
+            feats = feats.mean((1, 2))
+        return feats.to(device)
+
+    return feature_fn
+
+
+def _first(batches, n: int) -> torch.Tensor:
+    """The first ``n`` rows of a stream of batches, concatenated."""
+    out, have = [], 0
+    for x in batches:
+        out.append(x)
+        have += len(x)
+        if have >= n:
+            break
+    return torch.cat(out)[:n]
+
+
+def fid_image_sets(cfg: dict, trainer, n: int, synthetic: bool, device
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(reals, fakes), uint8 [n, H, W, C] on ``device``, as
+    ``test.py:593-639`` makes them: dcgan fakes from the sampler with
+    seed i for the chunk starting at i and the reals from the recipe's
+    val split; pix2pix fakes translated from the val pairs' inputs, the
+    reals their targets."""
+    from myconvnet_tpu_torch import recipes, recipes_gan
+    from myconvnet_tpu_torch.data.pipeline import DataSet
+
+    sampler = recipes_gan.make_gan_sampler(cfg)
+    batch = cfg["batch_size"]
+    if trainer.kind == "dcgan":
+        chunk = min(batch, n)
+        fakes = torch.cat([sampler(trainer, min(chunk, n - i), seed=i)
+                           for i in range(0, n, chunk)])[:n]
+        _, val_src = recipes.make_sources(
+            dict(cfg, dataset=cfg.get("dataset", "cifar10")), synthetic)
+        reals = _first((x for x, _ in DataSet(val_src).eval_iter(
+            batch, device)), n)
+        return reals, fakes
+    val = DataSet(recipes_gan.gan_source(cfg, synthetic, "val"))
+    fakes = _first((sampler(trainer, trainer.to_unit_range(a))
+                    for a, _ in val.eval_iter(batch, device)), n)
+    reals = _first((b for _, b in val.eval_iter(batch, device)), n)
+    return reals, fakes
+
+
+def eval_gan_fid(cfg: dict, args, device):
+    """FID between ``--fid_samples`` generated images and as many real
+    ones (``test.py:565-642``; :func:`fid_image_sets`).  Returns (fid,
+    trainer)."""
+    from myconvnet_tpu_torch import recipes_gan
+    from myconvnet_tpu_torch.eval.gan_metrics import fid_from_features
+
+    if not args.fid_extractor:
+        raise SystemExit("--fid needs --fid_extractor CONFIG:CKPT_DIR (any "
+                         "trained classifier)")
+    feature_fn = _fid_extractor(args.fid_extractor, device)
+    trainer, _ = recipes_gan.build_gan(cfg, args.synthetic, device=device)
+    trainer.restore(args.ckpt)
+    n = args.fid_samples
+    reals, fakes = fid_image_sets(cfg, trainer, n, args.synthetic, device)
+    fid = fid_from_features(feature_fn(reals), feature_fn(fakes))
+    print(f"fid: {fid:.3f} (n={n}, extractor={args.fid_extractor})",
+          flush=True)
+    return fid, trainer
+
+
 def eval_gan(cfg: dict, args, device):
-    """pix2pix: restore ``--ckpt`` and print the val pairs' mean PSNR and
-    SSIM of G's translations against the targets, both in [0, 1]."""
+    """``--fid``: :func:`eval_gan_fid`.  pix2pix: restore ``--ckpt`` and
+    print the val pairs' mean PSNR and SSIM of G's translations against
+    the targets, both in [0, 1]."""
     from myconvnet_tpu_torch import recipes_gan
     from myconvnet_tpu_torch.data.pipeline import DataSet
     from myconvnet_tpu_torch.eval.image_metrics import PairedImageEvaluator
 
+    if args.fid:
+        return eval_gan_fid(cfg, args, device)
     if recipes_gan.gan_kind(cfg) != "pix2pix":
         raise SystemExit("unconditional GAN checkpoints: use python -m "
-                         "myconvnet_tpu_torch.generate (sample grids); "
-                         "paired translation (pix2pix) is scored here with "
+                         "myconvnet_tpu_torch.generate (sample grids) or "
+                         "test --fid --fid_extractor CONFIG:CKPT; paired "
+                         "translation (pix2pix) is scored here with "
                          "PSNR/SSIM")
     trainer, _ = recipes_gan.build_gan(cfg, args.synthetic, device=device)
     trainer.restore(args.ckpt)

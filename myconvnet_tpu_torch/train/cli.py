@@ -17,10 +17,12 @@ crash restarts from the newest checkpoint up to ``--max_restarts`` times
 (``train.py:124-138``); ``MYCONVNET_FAULT_ONCE`` injects one crash after
 training, to test that path.  A GAN recipe (``task="gan"``) goes to
 :func:`run_gan`, the port of ``run_steploop`` with ``adapt_gan``
-(``train.py:216``, ``:450``).  ``--tensorboard`` and ``--mesh`` are
-refused by name (the card's machine has no ``tensorboard``; the mesh is
-ROADMAP A16).  ``--device`` defaults to ``cuda``; without CUDA that is
-an error (pass ``--device cpu`` to train on the host).  ``main(argv)``
+(``train.py:216``, ``:450``).  ``--tensorboard`` logs to a
+``SummaryWriter`` under ``--out/tb`` where the ``tensorboard`` package
+imports, and says so and trains without one where it does not (the card's
+machine); ``--mesh`` is refused by name (ROADMAP A16).  ``--device``
+defaults to ``cuda``; without CUDA that is an error (pass ``--device
+cpu`` to train on the host).  ``main(argv)``
 returns the ``ConvNet`` (its ``trainer`` holds the step, the model and
 the optimizer), or the GAN trainer.
 """
@@ -66,8 +68,9 @@ def main(argv=None):
                     help="on a crash, restart from the latest checkpoint "
                          "up to N times")
     ap.add_argument("--tensorboard", action="store_true",
-                    help="not ported (no tensorboard on the card's "
-                         "machine)")
+                    help="also log scalars and images to TensorBoard "
+                         "under --out/tb (where the tensorboard package "
+                         "imports)")
     ap.add_argument("--trace", action="store_true",
                     help="write a torch.profiler Chrome trace of the run "
                          "under --out/trace")
@@ -82,8 +85,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.mesh:
         raise SystemExit("train --mesh is not ported (ROADMAP A16)")
-    if args.tensorboard:
-        raise SystemExit("train --tensorboard is not ported (ROADMAP A8)")
 
     from myconvnet_tpu_torch import recipes
 
@@ -140,6 +141,10 @@ def run_supervised(cfg: dict, args, out: str, device: torch.device,
                                       ckpt_dir=out, log_dir=out)
     with PreemptionGuard() as guard:
         net.preemption_guard = guard
+        if args.tensorboard:
+            from myconvnet_tpu_torch.utils.logging import MetricLogger
+            net.logger.close()
+            net.logger = MetricLogger(out, tensorboard=True)
         if cfg.get("epochs"):
             # before the optimizer is built, so that a schedule's horizon
             # is the run's

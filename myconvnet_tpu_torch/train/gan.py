@@ -8,10 +8,12 @@ and of the GAN part of ``train.py`` (``run_steploop:216`` with
 
 1. D is updated first, against the current G: D runs in train mode on the
    real batch, then on the fake batch (G's output, no gradient into G),
-   and its BN moving statistics take both updates, real then fake.
+   and its BN moving statistics take both updates, real then fake; so do a
+   spectral-normalized D's ``sn_u`` vectors (two power iterations a step,
+   the fake pass starting from the real pass's vector).
 2. G is then updated against the updated D: D runs in train mode on batch
-   statistics, but the moving statistics it would write are dropped (its
-   BNs' ``update_stats`` off), and G's loss reaches G's parameters only
+   statistics, but the moving statistics and ``sn_u`` it would write are
+   dropped (``frozen_stats``), and G's loss reaches G's parameters only
    (``backward(inputs=...)``; D's optimizer sees no gradient of it).
 3. G's moving statistics are those of the G-loss pass.  DCGAN's two G
    passes share parameters, z and key, so one train forward serves both

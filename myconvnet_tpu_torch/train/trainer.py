@@ -93,14 +93,16 @@ def seed_of(rng) -> int:
 @contextlib.contextmanager
 def frozen_stats(model: nn.Module):
     """Train-mode BNs of ``model`` normalize with batch statistics but
-    leave their moving statistics as they are."""
-    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
-    for m in bns:
+    leave their moving statistics as they are, and spectral-normalized
+    layers leave their power-iteration vector."""
+    held = [m for m in model.modules() if isinstance(m, BatchNorm)
+            or getattr(m, "spectral_norm", False)]
+    for m in held:
         m.update_stats = False
     try:
         yield
     finally:
-        for m in bns:
+        for m in held:
             m.update_stats = True
 
 

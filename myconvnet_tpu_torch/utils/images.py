@@ -1,7 +1,7 @@
 """Image artifacts: sample grids, uint8 conversion and PNG files.
 
 Port of ``myconvnet_tpu/utils/images.py`` (``make_grid:17``,
-``to_uint8:36``, ``save_png:84``).  ``to_uint8`` takes a tensor and keeps
+``to_uint8:36``, ``save_png:84``, ``flow_to_color:94``).  ``to_uint8`` takes a tensor and keeps
 it on its device, with the JAX function's float32 steps.  ``save_png``
 writes the PNG itself with ``zlib`` and ``struct`` (8-bit grayscale or
 RGB, no filter), so no image library is needed.
@@ -52,8 +52,8 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
 
-def save_png(path: str, image: np.ndarray) -> str:
-    """Write [H, W], [H, W, 1] or [H, W, 3] uint8 as a PNG."""
+def png_bytes(image: np.ndarray) -> bytes:
+    """[H, W], [H, W, 1] or [H, W, 3] uint8 as the bytes of a PNG."""
     arr = np.asarray(image)
     if arr.ndim == 3 and arr.shape[-1] == 1:
         arr = arr[..., 0]
@@ -70,7 +70,41 @@ def save_png(path: str, image: np.ndarray) -> str:
                                          0))
            + _chunk(b"IDAT", zlib.compress(raw, 6))
            + _chunk(b"IEND", b""))
+    return png
+
+
+def save_png(path: str, image: np.ndarray) -> str:
+    """Write [H, W], [H, W, 1] or [H, W, 3] uint8 as a PNG."""
+    png = png_bytes(image)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "wb") as f:
         f.write(png)
     return path
+
+
+def flow_to_color(flow: np.ndarray, max_mag: float | None = None
+                  ) -> np.ndarray:
+    """``[H, W, 2]`` flow -> ``[H, W, 3]`` uint8, Middlebury-style: hue =
+    direction, saturation = magnitude (white = static), normalized by
+    ``max_mag`` or this map's 99th-percentile magnitude; NaN pixels
+    black."""
+    f = np.asarray(flow, np.float64)
+    u, v = f[..., 0], f[..., 1]
+    bad = ~np.isfinite(u) | ~np.isfinite(v)
+    u = np.where(bad, 0.0, u)
+    v = np.where(bad, 0.0, v)
+    mag = np.sqrt(u * u + v * v)
+    if max_mag is None:
+        max_mag = max(float(np.percentile(mag, 99)), 1e-6)
+    s = np.clip(mag / max_mag, 0.0, 1.0)
+    h6 = (np.arctan2(-v, -u) / np.pi + 1.0) * 3.0   # [0, 6) hue sector
+    i = np.floor(h6).astype(int) % 6
+    frac = h6 - np.floor(h6)
+    # around the RGB hue hexagon at full value
+    wheel = np.array([[1, 0, 0], [1, 1, 0], [0, 1, 0],
+                      [0, 1, 1], [0, 0, 1], [1, 0, 1]], np.float64)
+    chroma = wheel[i] * (1.0 - frac[..., None]) \
+        + wheel[(i + 1) % 6] * frac[..., None]
+    rgb = 1.0 - s[..., None] * (1.0 - chroma)       # desaturate to white
+    rgb = np.where(bad[..., None], 0.0, rgb)
+    return (rgb * 255.0 + 0.5).astype(np.uint8)

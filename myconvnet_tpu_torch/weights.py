@@ -14,6 +14,8 @@ by name:
   ``moving_var``.  A scope missing from the tree means the JAX fold removed
   it (``models/folding.py``), and the module is marked folded;
 * ``Dense``: ``w`` [in, out] <-> ``weight`` [out, in]; optional ``b``;
+* a spectral-normalized ``Conv`` or ``Dense``: state ``sn_u`` (its power
+  iteration's vector, ``nn.py:236``);
 * ``LayerNorm``, ``InstanceNorm``: params ``gamma``, ``beta`` (no state);
 * parameters a module holds itself (the ViT's ``cls_token`` and
   ``pos_embed``) sit in that module's scope, ``~`` for the root module as
@@ -146,6 +148,10 @@ def from_jax(model: nn.Module, params: Tree, state: Tree) -> nn.Module:
             _set(m.moving_var, s["moving_var"], scope, "moving_var")
             used.add(scope)
             continue
+        if getattr(m, "spectral_norm", False):
+            if "sn_u" not in state.get(scope, {}):
+                raise KeyError(f"no state {scope}/sn_u")
+            _set(m.sn_u, state[scope]["sn_u"], scope, "sn_u")
         if isinstance(m, Conv):
             _set(m.w, p["w"], scope, "w")
             if "b" not in p:
@@ -193,6 +199,8 @@ def to_jax(model: nn.Module) -> tuple[Tree, Tree]:
                 m, (Conv, ConvTranspose)) else _np(m.weight).T.copy()}
             if m.bias is not None:
                 params[scope]["b"] = _np(m.bias)
+            if getattr(m, "spectral_norm", False):
+                state[scope] = {"sn_u": _np(m.sn_u)}
     return params, state
 
 
@@ -259,24 +267,28 @@ def optimizer_from_jax(model: nn.Module, optimizer, opt_state: dict
     optimizer.load_state_trees(trees)
 
 
-def load_jax_checkpoint(path: str) -> tuple[Tree, Tree]:
+def load_jax_checkpoint(path: str, fields=("params", "model_state")
+                        ) -> tuple[Tree, Tree]:
     """(params, model_state) from a JAX ``.npz`` checkpoint, or from the
-    newest ``ckpt-<step>.npz`` when ``path`` is a directory."""
+    newest ``ckpt-<step>.npz`` when ``path`` is a directory; ``fields``
+    names the two trees (a GAN checkpoint's generator: ``("g_params",
+    "g_state")``)."""
     if os.path.isdir(path):
         found = latest_checkpoint(path)
         if found is None:
             raise FileNotFoundError(f"no ckpt-<step>.npz in {path!r}")
         path = found
-    trees = {"params": {}, "model_state": {}}
+    trees = {f: {} for f in fields}
     with np.load(path) as data:
         for key in data.files:
             parts = key.split(SEP)
             if len(parts) == 3 and parts[0] in trees:
                 trees[parts[0]].setdefault(parts[1], {})[parts[2]] = \
                     data[key]
-    if not trees["params"]:
-        raise ValueError(f"{path!r} holds no params::<scope>::<name> keys")
-    return trees["params"], trees["model_state"]
+    if not trees[fields[0]]:
+        raise ValueError(f"{path!r} holds no {fields[0]}::<scope>::<name> "
+                         "keys")
+    return trees[fields[0]], trees[fields[1]]
 
 
 def random_jax_params(model: nn.Module, seed: int) -> tuple[Tree, Tree]:

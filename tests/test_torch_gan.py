@@ -38,6 +38,7 @@ from myconvnet_tpu.train import losses as jlosses
 from myconvnet_tpu_torch import models, weights
 from myconvnet_tpu_torch.eval import image_metrics
 from myconvnet_tpu_torch.models import blocks
+from myconvnet_tpu_torch.nn import BatchNorm, Conv, Dense, InstanceNorm
 from myconvnet_tpu_torch.ops.conv import conv2d_transpose, transpose_pads
 from myconvnet_tpu_torch.ops.kernels import normalize_u8
 from myconvnet_tpu_torch.subsets import pairs
@@ -262,11 +263,17 @@ def test_weights_round_trip_exactly(name, norm):
             assert m.weight.is_contiguous(memory_format=torch.channels_last)
 
 
-def test_gan_models_refuse_spectral_norm():
-    with pytest.raises(ValueError, match="spectral_norm"):
-        models.DCGANDiscriminator(image_size=32, spectral_norm=True)
-    with pytest.raises(ValueError, match="spectral_norm"):
-        models.PatchGANDiscriminator(spectral_norm=True)
+def test_gan_models_build_their_spectral_norm_forms():
+    """``spectral_norm=True`` (SN-GAN's discriminators, no longer refused):
+    every conv and the head spectral-normalized and biased, no norm layer;
+    their numbers against JAX are in test_torch_sngan.py."""
+    for d in (models.DCGANDiscriminator(image_size=32, spectral_norm=True),
+              models.PatchGANDiscriminator(spectral_norm=True)):
+        layers = [m for m in d.modules() if isinstance(m, (Conv, Dense))]
+        assert layers and all(m.spectral_norm and m.bias is not None
+                              for m in layers)
+        assert not any(isinstance(m, (BatchNorm, InstanceNorm))
+                       for m in d.modules())
 
 
 # --------------------------------------------------------------- losses

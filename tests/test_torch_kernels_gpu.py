@@ -801,6 +801,68 @@ def test_image_route_normalizes_on_the_card_once_a_request(cuda):
     assert rel < 0.05, rel
 
 
+# the routes at their shapes (chip_smoke.py's routes phase): the recipe,
+# the model builder, the kernel launches of one device call and the card's
+# agreement with the same route on the host (plain versions)
+CONFIGS = os.path.join(os.path.dirname(__file__), "..", "configs")
+ROUTE_CASES = {
+    "segment": ("voc_deeplabv3plus.py",
+                {"conv_pair": 11, "conv_fused": 2, "bn_act": 18}),
+    "translate": ("pix2pix.py", {"bn_act": 13}),
+    "flow": ("chairs_pwcnet.py", {"correlation_fwd": 5})}
+
+
+def _route_model(kind, cfg):
+    from myconvnet_tpu_torch import recipes_gan
+    kw = cfg.get("model_kwargs", {})
+    if kind == "segment":
+        return models.get_model(cfg["model"], cfg["num_classes"],
+                                input_hw=(513, 513), **kw)
+    if kind == "translate":
+        return recipes_gan.gan_generator(cfg)
+    return models.FLOW_MODELS[cfg["model"]](0, **kw)
+
+
+@pytest.mark.parametrize("kind", sorted(ROUTE_CASES))
+def test_route_kernel_path_matches_plain_at_the_route_shapes(cuda, kind):
+    """A route at full width (bf16, route batch 4): one JSON request of one
+    image is one device call with exactly its kernels' launches, and its
+    outputs agree with the same route on the host (route batch 1, every
+    wrapper's plain version): segment confidences within 0.05 and at most
+    5% of the classes differing, translate outputs and flows within 0.05
+    of their largest."""
+    import json
+
+    from myconvnet_tpu_torch import serving_http
+    config, per_call = ROUTE_CASES[kind]
+    cfg = recipes.load_config(os.path.join(CONFIGS, config))
+    params, state = random_jax_params(_route_model(kind, cfg), 0)
+
+    def route(device, batch):
+        return serving_http.build_route(kind, kind, cfg, params=params,
+                                        state=state, batch=batch,
+                                        device=device)
+    card = serving_http.ModelServer([route(cuda, 4)])
+    host = serving_http.ModelServer([route("cpu", 1)])
+    h, w, c = card.routes[kind].input_shape[1:]
+    x = np.random.RandomState(1).rand(1, h, w, c).astype(np.float32)
+    card.predict(kind, json.dumps({"instances": x.tolist()}).encode())
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    got = card._execute(card.routes[kind], x)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts == {k: per_call.get(k, 0) for k in kernels.WRAPPERS}
+    want = host._execute(host.routes[kind], x)
+    if kind == "segment":
+        assert np.abs(got[1] - want[1]).max() <= 0.05
+        assert (got[0] != want[0]).mean() <= 0.05
+        assert got[0].dtype == np.int32 and got[0].shape == (1, h, w)
+    else:
+        assert np.isfinite(got).all()
+        assert np.abs(got - want).max() <= 0.05 * np.abs(want).max()
+
+
 def test_host_library_builds_from_a_fresh_directory(cuda, tmp_path):
     """The port's host library builds with g++ into an empty
     ``build/host/``-like directory in a subprocess and gathers a batch."""

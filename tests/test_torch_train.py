@@ -576,23 +576,59 @@ RECIPE_KEYS = [("remat", True, False), ("chain_steps", 2, False),
                ("zero_sharding", True, False)]
 RECIPE_IDS = [k for k, _, _ in RECIPE_KEYS]
 # a ``pretrained`` block (the JAX trainer's warm start,
-# recipes/common.py:247-275) in its torch-file form, or as a bare path
-# (JAX wants dict(path=...)), is refused for every task by build_trainer:
-# the classification and the flow recipes
+# recipes/common.py:247-275): its torch-file form warm-starts the
+# classification recipe's ResNet-18 from a torchvision-layout ``.pth`` the
+# test writes, and is refused by name for the flow recipe (no ResNet stem
+# to map it onto); a bare path (JAX wants dict(path=...)) is refused for
+# both
 FLOW_CONFIG = os.path.join(os.path.dirname(CONFIG), "chairs_pwcnet.py")
 for _task, _config in (("classification", None), ("flow", FLOW_CONFIG)):
-    for _form, _value in (("dict", dict(path="r50.pth", depth=50,
+    for _form, _value in (("dict", dict(path="r18.pth", depth=18,
                                         load_head=False)),
                           ("path", "encoder.npz")):
-        RECIPE_KEYS.append(("pretrained", _value, True, _config))
+        RECIPE_KEYS.append(("pretrained", _value,
+                            _form == "path" or _task == "flow", _config))
         RECIPE_IDS.append(f"pretrained-{_form}-{_task}")
+
+
+def _torchvision_file(path, model):
+    """A seeded torchvision-layout state dict of ``model``'s ResNet
+    shapes (OIHW convs, running statistics), saved at ``path``."""
+    from myconvnet_tpu_torch.models.resnet import STAGE_BLOCKS
+    params, state = weights.to_jax(model)
+    g = torch.Generator().manual_seed(0)
+    sd = {}
+
+    def conv(key, scope):
+        kh, kw, cin, cout = params[scope]["w"].shape
+        sd[key] = torch.randn(cout, cin, kh, kw, generator=g)
+
+    def bn(key, scope):
+        c = params[scope]["gamma"].shape[0]
+        for name in ("weight", "bias", "running_mean"):
+            sd[f"{key}.{name}"] = torch.randn(c, generator=g)
+        sd[f"{key}.running_var"] = torch.rand(c, generator=g) + 0.5
+
+    conv("conv1.weight", "stem/conv")
+    bn("bn1", "stem/bn")
+    for s, n in enumerate(STAGE_BLOCKS[18]):
+        for b in range(n):
+            scope, key = f"stage{s + 1}/block{b + 1}", f"layer{s + 1}.{b}"
+            for j, letter in enumerate("ab"):
+                conv(f"{key}.conv{j + 1}.weight", f"{scope}/conv_{letter}")
+                bn(f"{key}.bn{j + 1}", f"{scope}/bn_{letter}")
+            if f"{scope}/conv_proj" in params:
+                conv(f"{key}.downsample.0.weight", f"{scope}/conv_proj")
+                bn(f"{key}.downsample.1", f"{scope}/bn_proj")
+    torch.save(sd, path)
+    return sd
 
 
 @pytest.mark.parametrize("key,value,refused,config",
                          [(*k, None)[:4] for k in RECIPE_KEYS],
                          ids=RECIPE_IDS)
 def test_recipe_keys_are_refused_by_name_or_inert(key, value, refused,
-                                                  config):
+                                                  config, tmp_path):
     cfg = recipes.load_config(config or CONFIG)
     if config:   # the flow recipe at a tiny size
         cfg.update(model="tinypwc", model_kwargs={}, synthetic_n=4,
@@ -609,6 +645,20 @@ def test_recipe_keys_are_refused_by_name_or_inert(key, value, refused,
     if refused:
         with pytest.raises(ValueError, match=repr(last)):
             recipes.build_trainer(cfg, True, device=torch.device("cpu"))
+    elif key == "pretrained":
+        probe = recipes.build_trainer(dict(cfg, pretrained=None), True,
+                                      device=torch.device("cpu"))[0]
+        path = str(tmp_path / value["path"])
+        sd = _torchvision_file(path, probe.model)
+        target[last] = dict(value, path=path)
+        trainer, _, _ = recipes.build_trainer(
+            cfg, True, device=torch.device("cpu"))
+        got_p, got_s = weights.to_jax(trainer.model)
+        np.testing.assert_array_equal(
+            got_p["stage1/block1/conv_a"]["w"],
+            sd["layer1.0.conv1.weight"].permute(2, 3, 1, 0).numpy())
+        np.testing.assert_array_equal(got_s["stem/bn"]["moving_var"],
+                                      sd["bn1.running_var"].numpy())
     else:
         trainer, _, _ = recipes.build_trainer(
             cfg, True, device=torch.device("cpu"))
