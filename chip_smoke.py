@@ -209,7 +209,7 @@
     full batch, bit for bit.  ResNet-50 as written through ``train.main
     --data_dir`` on an ImageNet layout of 1000 class directories (2048
     train and 512 val files linked from ``tests/fixtures/torch_io``) at
-    1024 as 2 x 512, 20 steps validating once, then ``test.main``: the
+    1024 as 2 x 512, 10 steps validating once, then ``test.main``: the
     step's ms, images/s and input_wait_frac from the run's log beside the
     synthetic run of step 14, peak memory, B5 13 and B1 7 an eval batch of
     512 held by shape (step 3's rows at batch 512), the restored logits
@@ -260,6 +260,23 @@
     bn_act 4 a feature batch of 256, real and fake), the FID finite and,
     over the same features, within FID_RTOL of the host's (path
     ``sngan_fid``).
+23. Export (``export_run``): each task kind the port exports, at full
+    width from the recipe as written (weights from its seed, synthetic
+    splits cut to a few items): ResNet-50 and ViT-B/16 (classify, batch
+    8), DeepLabv3+ at 513 x 513 (segment, from a VOCdevkit corpus of the
+    fixtures, batch 4), pix2pix (translate, 4), DCGAN (sample, 4) and
+    PWC-Net (flow, 4).  Each: a checkpoint, ``test.main --export`` (no
+    launch: traced with fake tensors; the seconds and MB; the graph's
+    mcn:: nodes), ``serve.main --artifact`` in the kind's mode over the
+    fixtures (one device call), the artifact against the route program
+    built in memory from the same checkpoint on one batch of wire rows
+    (the same launches by shape, recorded inside the ops, and the same
+    bits, DCGAN within EXPORT_TOL), and ``serve.main --artifact
+    --latency`` (p50, p95 at sizes 1 and 8) beside the in-memory
+    program's at the artifact's batch.  Then the DeepLab artifact behind
+    the ``NAME=KIND:ARTIFACT:CONFIG`` route spec over HTTP: a fixture JPEG
+    (B2 1 at [1, 513, 513, 3], then B5 11, B4 2, B1 18).  Paths
+    ``export_*``.
 
 Every kernel's record carries its bound: the larger of the bytes it must
 move over 3.35 TB/s and the operations it must do over the peak rate of
@@ -268,8 +285,9 @@ elementwise), from this run's shapes.
 
 ``python3 chip_smoke.py --compare DIR`` (DIR: another checkout, e.g. the
 parent commit unpacked by ``git archive``) runs only the kernel timing of
-normalize_u8, pad_crop_u8 and conv_pair (``time_tree_kernels``; conv_pair
-at shapes with and without single-tile passes), once a process, for
+normalize_u8, pad_crop_u8, conv_pair and bn_act (``time_tree_kernels``;
+conv_pair at shapes with and without single-tile passes) and the served
+ResNet-50's p50 at sizes 1 and 8, once a process, for
 DIR, this checkout, this checkout, DIR in that order on the same card:
 each tree's kernels built from its own sources, timed back to back at
 the shapes of the input rows above (pad_crop_u8 also with each staging
@@ -430,9 +448,10 @@ VIT_SPLIT = 256   # images in each synthetic split, as the JAX package
 VIT_RECIPE_BATCH, VIT_RECIPE_ACCUM = 1024, 4
 VIT_DEPTH = 12
 # flash shapes [B, H, L, D] and how many launches of each kernel one
-# forward (and backward) of the recipe's microbatch of 256 makes there
+# forward (and backward) of the recipe's microbatch of 256 makes there;
+# (BATCH, ...) is the ViT-B/16 artifact's call in the export phase
 FLASH_SITES = [((128, 12, 197, 64), 0), ((256, 12, 197, 64), VIT_DEPTH),
-               ((32, 12, 577, 64), 0)]
+               ((32, 12, 577, 64), 0), ((BATCH, 12, 197, 64), 0)]
 FLASH = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv")
 # kernel vs plain: the kernel rounds P (and dS) to bf16 before the second
 # product and sums in another order: the output within 2 bf16 ulps of
@@ -491,7 +510,9 @@ CORR_SITES = [("PWC-Net level 2", (FLOW_BATCH, 96, 128, 32), "pwcnet"),
 # the runs that count a path's launches
 CORR_PATH_RUNS = {"pwcnet": ("pwc_train", "pwc_test"),
                   "flownet_c": ("flownetc_train",),
-                  "routes_flow": ("routes_flow_json1", "routes_flow_json3")}
+                  "routes_flow": ("routes_flow_json1", "routes_flow_json3"),
+                  "export_pwcnet": tuple(f"export_pwcnet_{part}" for part in (
+                      "export", "serve", "artifact", "memory"))}
 # kernel vs plain: float32 sums of exact products in another order, 2^-18
 # of max |volume| (and of the largest gradient for float32 inputs); bf16
 # gradients are rounded once from a float32 sum, 2 bf16 ulps of the largest
@@ -600,6 +621,9 @@ DCGAN_CONFIG = os.path.join(ROOT, "configs", "dcgan_cifar10.py")
 PIX2PIX_CONFIG = os.path.join(ROOT, "configs", "pix2pix.py")
 GAN_STEPS, GAN_LOG_EVERY = 20, 10
 DCGAN_BATCH, DCGAN_SAMPLES, DCGAN_GRID = 128, 16, 64
+# the DCGAN sampler artifact's batch (the export phase; export_batch's
+# default)
+EXPORT_GAN_BATCH = 4
 PIX2PIX_BATCH, PIX2PIX_SPLIT = 16, 64
 # pix2pix eval images held card against host (the host's bf16 U-Net at
 # 256x256 is the slow side)
@@ -684,7 +708,9 @@ SAM_MIN_RATIO = 1.3
 # PAIRS_FILES_TRAIN images with the generator's EMA, then generate.main
 # --input over GENERATE_INPUTS images, with and without --ema.
 FIXTURES = os.path.join(ROOT, "tests", "fixtures", "torch_io")
-FILES_CLASSES, FILES_TRAIN, FILES_VAL, FILES_STEPS = 1000, 2048, 512, 20
+# (FILES_STEPS is 10, not the 20 of the other runs, to keep the script
+# inside its time with the export phase)
+FILES_CLASSES, FILES_TRAIN, FILES_VAL, FILES_STEPS = 1000, 2048, 512, 10
 # steps of a file run left out of its rate (the first cuDNN plans, the
 # prefetcher filling)
 FILES_WARMUP = 3
@@ -735,7 +761,14 @@ KERNEL_PATH_RUNS = {
                                ("json1", "json3", "image"))
        for kind in ("segment", "translate")},
     "routes_classify": ("routes_classify_lone", "routes_classify_concurrent"),
-    "sngan_fid": ("sngan_train", "sngan_fid")}
+    "sngan_fid": ("sngan_train", "sngan_fid"),
+    # the export phase: test --export, serve --artifact, the artifact and
+    # the in-memory program on one batch of wire rows (the route process's
+    # request is on export_route)
+    **{f"export_{name}": tuple(f"export_{name}_{part}" for part in (
+        "export", "serve", "artifact", "memory"))
+       for name in ("resnet50", "deeplab", "pix2pix", "dcgan")},
+    "export_route": ("export_route",)}
 # the file phases' runs (a run of a phase the machine cannot run counts 0)
 FILE_RUNS = ("c6_evaluate", "files_r50_train", "files_r50_test",
              "files_deeplab_train", "files_deeplab_test",
@@ -754,7 +787,14 @@ PATH_ROWS = {"deeplab_scales": tuple(f"deeplab_{hw}" for hw in SEG_SCALE_HW),
              # the FID run: the SN-GAN sampler's chunks of 64 (DCGAN's
              # generator widths) and the extractor's ResNet-18 features
              "sngan_fid": (f"dcgan_{DCGAN_GRID}", "sngan_fid"),
-             "dcgan": (f"dcgan_{DCGAN_SAMPLES}", f"dcgan_{DCGAN_GRID}")}
+             "dcgan": (f"dcgan_{DCGAN_SAMPLES}", f"dcgan_{DCGAN_GRID}"),
+             # the artifacts' batches are the served and the routes' ones
+             "export_resnet50": ("resnet50_serve",),
+             "export_deeplab": ("routes_segment",),
+             "export_route": ("routes_segment",),
+             "export_pix2pix": ("routes_translate",),
+             "export_dcgan": (f"dcgan_{EXPORT_GAN_BATCH}",),
+             "export_pwcnet": ("routes_flow",)}
 # The routes phase: one HTTP server on localhost with a route of each kind
 # at full width from seeded JAX-layout weights, every route behind the
 # micro-batcher (ROUTE_WINDOW_MS): segment (configs/voc_deeplabv3plus.py at
@@ -793,6 +833,36 @@ SEG_CONF_TOL, SEG_CLASS_FRAC = 0.05, 0.05
 SNGAN_CONFIG = os.path.join(ROOT, "configs", "sngan_cifar10.py")
 SNGAN_BATCH, SNGAN_STEPS, FID_SAMPLES = 64, 20, 256
 SN_BAND, FID_RTOL = (0.999, 1.10), 2e-4
+# The export phase: each task kind the port exports, at full width from
+# the recipe as written (weights from its seed), through the entry points
+# as users run them: a checkpoint, ``test --export`` (traced with fake
+# tensors: no launch), one ``serve --artifact`` run in the kind's mode (one
+# device call of EXPORT_CASES' launches; the artifact's batch), the
+# artifact against the route program built in memory from the same
+# checkpoint on the same wire rows (the same launches by shape, the same
+# bits), and ``serve --artifact --latency --sizes 1,8`` beside the
+# in-memory program's latency at the artifact's one batch.  name ->
+# (config, kind, launches a call, the artifact's batch, the recipe's
+# synthetic splits cut to a few items: test --export builds them beside
+# the net and reads none)
+EXPORT_CASES = {
+    "resnet50": (CONFIG, "classify", PER_CALL, BATCH, ["synthetic_n=8"]),
+    "vit_b16": (VIT_CONFIG, "classify", {"flash_attention_fwd": VIT_DEPTH},
+                BATCH, ["synthetic_n=8"]),
+    "deeplab": (VOC_CONFIG, "segment", ROUTE_PER_CALL["segment"],
+                ROUTE_BATCH, []),
+    "pix2pix": (PIX2PIX_CONFIG, "translate", ROUTE_PER_CALL["translate"],
+                ROUTE_BATCH, ["synthetic_n=4"]),
+    "dcgan": (DCGAN_CONFIG, "sample", {"bn_act": 3}, EXPORT_GAN_BATCH, []),
+    "pwcnet": (PWC_CONFIG, "flow", ROUTE_PER_CALL["flow"], ROUTE_BATCH,
+               ["synthetic_n=4"])}
+EXPORT_SIZES = (1, 8)
+# the artifact against the in-memory program: bit for bit, but DCGAN's
+# float32 [0, 1] images within 4 ulps of 1.0 (its transposed convs go
+# through cuDNN's backward-data algorithms, whose choice and order the
+# exported graph and the eager module need not share; 1 ulp apart on an
+# H100)
+EXPORT_TOL = {"dcgan": 2 ** -22}
 # conv_pair in ``--compare``: shapes whose plans have a pass of a single
 # 64x64 tile (the served 7x7 at batch 8 and 1, DeepLab's 12², 9², 6² and
 # 5² at batch 16) and two whose plans have none
@@ -1233,7 +1303,8 @@ def correlation_by_path(name, details, runs):
     out = {}
     for path, names in CORR_PATH_RUNS.items():
         rows = [r for r in details if r["kernel"] == name
-                and r.get("path") == path and r["sites"]]
+                and r.get("path") in PATH_ROWS.get(path, (path,))
+                and r["sites"]]
         launches = sum(runs[k][name] for k in names)
         if not rows and not launches:
             continue     # the flow route runs the forward only
@@ -1561,8 +1632,9 @@ def gan_input_row(case, shape, g, mean=None, std=None):
 def check_gan_kernels(dev, g):
     """bn_act at every site of the GAN generators' eval forwards, each
     against its plain version with its bound: DCGAN's three (float32,
-    ReLU) at the 16 samples of train.main's grids and the 64 of
-    generate.main's (paths ``dcgan_16``, ``dcgan_64``), the U-Net's 13
+    ReLU) at the 16 samples of train.main's grids, the 64 of
+    generate.main's and the 4 of the export phase's sampler artifact
+    (paths ``dcgan_16``, ``dcgan_64``, ``dcgan_4``), the U-Net's 13
     (bf16; six leaky ReLU, seven ReLU) at test.main's batch of 16 (path
     ``pix2pix``); normalize_u8 at both recipes' train batches."""
     import torch
@@ -1574,7 +1646,7 @@ def check_gan_kernels(dev, g):
                 torch.randn(c, generator=g, device=dev) * 0.5)
 
     rows = []
-    for n in (DCGAN_SAMPLES, DCGAN_GRID):
+    for n in (DCGAN_SAMPLES, DCGAN_GRID, EXPORT_GAN_BATCH):
         for site, shape in dcgan_sites(n):
             rows.append(bn_act_row(f"dcgan {site}", *act_inputs(
                 shape, torch.float32), 1, f"dcgan_{n}"))
@@ -1599,32 +1671,15 @@ def _name(dtype):
     return str(dtype).split(".")[-1]
 
 
+def _arg(args, kw, i, name, default):
+    return args[i] if len(args) > i else kw.get(name, default)
+
+
 @contextlib.contextmanager
-def launch_shapes(counter):
-    """Count into ``counter`` the :func:`shape_key` of every launch of
-    conv_pair, conv_fused and bn_act from the models (their only call
-    sites: ``models.resnet`` and ``models.blocks``) and of normalize_u8
-    from the GAN trainer (``train.gan``) and the image route
-    (``serving_http``) while the block runs; a wrapper
-    called on a CPU tensor launches nothing and is not counted."""
-    from myconvnet_tpu_torch import serving_http
-    from myconvnet_tpu_torch.models import blocks, resnet
-    from myconvnet_tpu_torch.train import gan
-
-    def arg(args, kw, i, name, default):
-        return args[i] if len(args) > i else kw.get(name, default)
-
-    sites = [(resnet, "conv1x1_conv3x3_bn_relu", lambda x, a, kw: shape_key(
-                 "conv_pair", (*x.shape, a[0].shape[-1], a[3].shape[-1]))),
-             (blocks, "conv3x3_bn_relu", lambda x, a, kw: shape_key(
-                 "conv_fused", (*x.shape, a[0].shape[-1]))),
-             (blocks, "fused_scale_shift_act", lambda x, a, kw: shape_key(
-                 "bn_act", tuple(x.shape), _name(x.dtype),
-                 arg(a, kw, 2, "act", "relu"))),
-             *[(mod, "normalize_u8", lambda x, a, kw: shape_key(
-                 "normalize_u8", tuple(x.shape),
-                 _name(arg(a, kw, 2, "out_dtype", "float32"))))
-               for mod in (gan, serving_http)]]
+def _recording(counter, sites):
+    """While the block runs, each ``(module, attribute, key)`` of ``sites``
+    counts ``key(x, args, kwargs)`` into ``counter`` when it is called on a
+    CUDA tensor x (a wrapper called on a CPU tensor launches nothing)."""
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in sites]
 
     def recording(fn, key):
@@ -1641,6 +1696,41 @@ def launch_shapes(counter):
     finally:
         for mod, attr, fn in saved:
             setattr(mod, attr, fn)
+
+
+def _b2_site(mod):
+    return (mod, "normalize_u8", lambda x, a, kw: shape_key(
+        "normalize_u8", tuple(x.shape),
+        _name(_arg(a, kw, 2, "out_dtype", "float32"))))
+
+
+def launch_shapes(counter):
+    """Count into ``counter`` the :func:`shape_key` of every launch of
+    conv_pair, conv_fused and bn_act, and the input shape of every launch
+    of the flash and correlation forwards, while the block runs: inside
+    the kernel modules' ``launch_cuda`` / ``launch_fwd_cuda``, which the
+    wrappers call on CUDA tensors and the mcn:: ops' CUDA implementations
+    call from an exported program's graph; with normalize_u8 from the GAN
+    trainer (``train.gan``) and the image route (``serving_http``)."""
+    from myconvnet_tpu_torch import serving_http
+    from myconvnet_tpu_torch.ops.kernels import (bn_act, conv_fused,
+                                                 conv_pair, correlation)
+    from myconvnet_tpu_torch.ops.kernels import flash_attention as fa
+    from myconvnet_tpu_torch.train import gan
+
+    return _recording(counter, [
+        (conv_pair, "launch_cuda", lambda x, a, kw: shape_key(
+            "conv_pair", (*x.shape, a[0].shape[-1], a[3].shape[-1]))),
+        (conv_fused, "launch_cuda", lambda x, a, kw: shape_key(
+            "conv_fused", (*x.shape, a[0].shape[-1]))),
+        (bn_act, "launch_cuda", lambda x, a, kw: shape_key(
+            "bn_act", tuple(x.shape), _name(x.dtype),
+            _arg(a, kw, 2, "act", "relu"))),
+        (fa, "launch_fwd_cuda", lambda x, a, kw: (
+            "flash_attention_fwd", *x.shape)),
+        (correlation, "launch_fwd_cuda", lambda x, a, kw: (
+            "correlation_fwd", *x.shape)),
+        _b2_site(gan), _b2_site(serving_http)])
 
 
 def kernel_by_path(name, details, runs, shapes):
@@ -1667,7 +1757,12 @@ def kernel_by_path(name, details, runs, shapes):
             **{k: sum(r[k] * r["sites"] for r in rows)
                for k in ("ms", "plain_ms", "bound_ms")},
             bound_by=max(rows, key=lambda r: r["bound_ms"] * r["sites"]
-                         )["bound_by"])
+                         )["bound_by"],
+            # cuDNN's unfused bf16 pair (conv_pair) or its conv with an
+            # eager epilogue (conv_fused) at the same rows
+            library_ms=(sum(r["cudnn_bf16_ms"] * r["sites"] for r in rows)
+                        if all("cudnn_bf16_ms" in r for r in rows)
+                        else None))
         if not all(k in shapes for k in names):
             continue
         seen = {}
@@ -2088,8 +2183,13 @@ def time_tree_kernels(root):
     """For ``--time-kernels ROOT`` (one process a tree): the kernels of the
     checkout at ROOT built from its sources, and normalize_u8 (B2) and
     pad_crop_u8 (B3) timed by ``cuda_ms`` (100 launches back to back) at
-    every INPUT_CASES row, and conv_pair (B5) at COMPARE_PAIR_SHAPES, each
-    held against its plain version, with the wrapper's host time a launch
+    every INPUT_CASES row, conv_pair (B5) at COMPARE_PAIR_SHAPES and bn_act
+    (B1) at the served ResNet-50's smallest site, each held against its
+    plain version, and on a tree with the mcn:: ops B1 and B5 (at the
+    first two shapes) through the op too (rows "bn_act op", "conv_pair
+    op"), then that ResNet-50 served in memory (rows "served resnet50":
+    ``ms`` the p50 of a request of 1 and of 8 images, with its p95), with
+    the wrapper's host time a launch
     (``host_us``, the median of 21 runs of 200 calls, and ``host_us_q``,
     their quartiles); for a tree whose pad_crop_u8 has staging modes, also
     each mode forced at the recipe's shape.  Returns {"card", "build_s",
@@ -2143,6 +2243,39 @@ def time_tree_kernels(root):
             conv_pair.conv_pair_reference(*args),
             lambda: conv_pair.conv1x1_conv3x3_bn_relu(*args),
             TOL["conv_pair"])
+    # bn_act at the served ResNet-50's smallest site (its launch cost is
+    # most of its time), then that ResNet-50 served in memory (random
+    # weights from SEED, bf16, BN folded) through serve --latency's
+    # measure: p50 and p95 at sizes 1 and 8, buckets 1, 8, 32, 128
+    from myconvnet_tpu_torch import models, serving
+    from myconvnet_tpu_torch.core.precision import BF16
+    from myconvnet_tpu_torch.ops.kernels import bn_act
+    from myconvnet_tpu_torch.weights import random_jax_params
+    site = ACT_SITES[-1][1]
+    x, a, b = _act_inputs(site, torch.bfloat16, g)
+    add("bn_act", str(site), x, bn_act.fused_scale_shift_act(x, a, b),
+        bn_act.scale_shift_act_reference(x, a, b),
+        lambda: bn_act.fused_scale_shift_act(x, a, b), TOL["bn_act"])
+    # on a tree with the mcn:: ops, the same launches through the op's
+    # dispatcher, which an artifact's graph calls (rows "... op")
+    if hasattr(bn_act, "_OP"):
+        add("bn_act op", str(site), x, bn_act._OP(x, a, b, "relu"),
+            bn_act.scale_shift_act_reference(x, a, b),
+            lambda: bn_act._OP(x, a, b, "relu"), TOL["bn_act"])
+        for shape in COMPARE_PAIR_SHAPES[:2]:
+            args = pair_args(shape, g)
+            add("conv_pair op", str(shape), args[0], conv_pair._OP(*args),
+                conv_pair.conv_pair_reference(*args),
+                lambda: conv_pair._OP(*args), TOL["conv_pair"])
+    model = models.resnet50(1000)
+    fn = serving.make_inference_fn(model, *random_jax_params(model, SEED),
+                                   device=dev, policy=BF16)
+    stats = serving.measure_latency(serving.make_batched_server(fn),
+                                    (224, 224, 3), request_sizes=(1, BATCH))
+    for n, row in stats.items():
+        rows.append(dict(kernel="served resnet50", case=f"n={n} p50",
+                         shape=[n, 224, 224, 3], max_abs_err=0.0, ok=True,
+                         ms=row["p50"], p95_ms=row["p95"]))
     card = run(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"])
     return dict(card=card, build_s=build_s, rows=rows)
@@ -2186,7 +2319,8 @@ def compare_trees(other):
                         if row is not None)
         shape = next(row["shape"] for row in found if row is not None)
         extra = "; host_us " + ", ".join(
-            "-" if row is None else f"{row['host_us']:.1f}"
+            "-" if row is None or "host_us" not in row
+            else f"{row['host_us']:.1f}"
             + ("" if "host_us_q" not in row else
                " [{:.1f}-{:.1f}]".format(*row["host_us_q"]))
             for row in found)
@@ -4787,8 +4921,9 @@ def eval_tail_check(dev, counted):
 
 class Counted:
     """``counted(run, fn, ...)``: fn(...) with the launch counts set to 0
-    just before it and read, with the launches' shapes, just after it,
-    into ``runs[run]`` and ``shapes[run]``."""
+    just before it and read, with the launches' shapes
+    (:func:`launch_shapes`), just after it, into ``runs[run]`` and
+    ``shapes[run]``."""
 
     def __init__(self):
         self.runs, self.shapes = {}, {}
@@ -5646,6 +5781,255 @@ def sngan_fid_run(dev, cifar_dir, card):
         fid_host=fid_host, fid_rel=rel, train_s=train_s, fid_s=fid_s)
 
 
+def export_inputs(root):
+    """``serve --artifact``'s inputs, linked from the fixtures: the eight
+    ImageNet-like JPEGs (classify), four of them (translate), the four VOC
+    JPEGs (segment) and four frame pairs ``pair<i>_a/_b`` (flow)."""
+    jpegs = _fixture_jpegs()
+    voc_dir = os.path.join(FIXTURES, "voc", "JPEGImages")
+    voc = [os.path.join(voc_dir, f) for f in sorted(os.listdir(voc_dir))]
+    dirs = {}
+    for kind, files in (("classify", jpegs[:BATCH]),
+                        ("translate", jpegs[:ROUTE_BATCH]),
+                        ("segment", voc[:ROUTE_BATCH])):
+        dirs[kind] = os.path.join(root, "inputs", kind)
+        for f in files:
+            _link(f, os.path.join(dirs[kind], os.path.basename(f)))
+    dirs["flow"] = os.path.join(root, "inputs", "flow")
+    for i in range(ROUTE_BATCH):
+        _link(jpegs[i], os.path.join(dirs["flow"], f"pair{i}_a.jpg"))
+        _link(jpegs[i + 1], os.path.join(dirs["flow"], f"pair{i}_b.jpg"))
+    return dirs
+
+
+def _outputs(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def export_case(dev, name, counted, root, inputs, voc_root):
+    """One artifact of the export phase (EXPORT_CASES[name]): the recipe's
+    net (or G and D) from its seed saved as a checkpoint, ``test.main
+    --export``, ``serve.main --artifact`` in the kind's mode, the artifact
+    and the in-memory route program on the same wire rows, and both
+    programs' latency.  Raises on a failed check; returns the record."""
+    import numpy as np
+    import torch
+
+    from myconvnet_tpu_torch import (recipes, recipes_gan, serve, serving,
+                                     serving_http, test)
+    from myconvnet_tpu_torch.core.precision import get_policy
+    from myconvnet_tpu_torch.weights import load_jax_checkpoint
+
+    config, kind, per_call, batch, sets = EXPORT_CASES[name]
+    cfg = recipes.apply_overrides(recipes.load_config(config), sets)
+    d = os.path.join(root, name)
+    ckpt, path = os.path.join(d, "ckpt"), os.path.join(d, f"{name}.pt2")
+    data = ["--synthetic"]
+    if name == "deeplab":
+        # the recipe's 513 x 513 crop: a synthetic segmenter is built at 96
+        cfg["data_dir"] = voc_root
+        data = ["--data_dir", voc_root]
+    t0 = time.perf_counter()
+    if kind in ("translate", "sample"):
+        trainer, _ = recipes_gan.build_gan(cfg, True, device=dev)
+        trainer.save(ckpt)
+        del trainer
+    else:
+        net, _, _ = recipes.convnet_builder(cfg["task"])(
+            cfg, name != "deeplab", device=dev)
+        net.build(recipes.optimizer_factory(cfg["optimizer"]))
+        net.save(ckpt)
+        del net
+    torch.cuda.empty_cache()
+    out = dict(ckpt_s=time.perf_counter() - t0)
+    argv = ["--config", config, "--ckpt", ckpt, "--device", dev.type,
+            *data, *[a for kv in sets for a in ("--set", kv)]]
+    t0 = time.perf_counter()
+    counted(f"export_{name}_export", test.main, [*argv, "--export", path])
+    out["export_s"] = time.perf_counter() - t0
+    out["mb"] = os.path.getsize(path) / 1e6
+    expect_only(counted.runs[f"export_{name}_export"], {},
+                f"{name}: test --export (traced with fake tensors)")
+    meta = serving.artifact_meta(path)
+    out["meta"] = meta
+    if (meta["device"] != dev.type or meta["ops"] != per_call
+            or meta["input_shape"][0] != batch):
+        raise AssertionError(f"{name}: artifact {meta}; want cuda, mcn:: "
+                             f"nodes {per_call}, batch {batch}")
+
+    # serve --artifact in the kind's mode, as users run it: one call
+    mode = {"classify": ["--images", inputs["classify"], "--config",
+                         config],
+            "segment": ["--segment", "--images", inputs["segment"],
+                        "--config", config],
+            "translate": ["--translate", "--images", inputs["translate"]],
+            "flow": ["--flow", "--images", inputs["flow"]],
+            "sample": ["--sample", str(batch)]}[kind]
+    if kind != "classify":
+        mode += ["--out", os.path.join(d, "samples.png" if kind == "sample"
+                                       else "out")]
+    t0 = time.perf_counter()
+    served = counted(f"export_{name}_serve", serve.main,
+                     ["--artifact", path, "--device", dev.type, *mode])
+    out["serve_s"] = time.perf_counter() - t0
+    expect_only(counted.runs[f"export_{name}_serve"], per_call,
+                f"{name}: serve --artifact, one device call")
+    if len(served) != batch:
+        raise AssertionError(f"{name}: serve --artifact gave {len(served)} "
+                             f"results for {batch} inputs")
+
+    # the artifact against the route program built in memory from the
+    # same checkpoint, on one batch of wire rows
+    fn = serving.load_inference(path)
+    shape = fn.input_shapes[0]
+    rs = np.random.RandomState(SEED)
+    x = (rs.standard_normal(shape) if kind in ("classify", "sample")
+         else rs.rand(*shape)).astype(np.float32)
+    xd = torch.from_numpy(x).to(dev)
+    if kind == "sample":
+        prog = serving.make_inference_fn(
+            recipes_gan.gan_generator(cfg),
+            *load_jax_checkpoint(ckpt, ("g_params", "g_state")),
+            fold_bn=False, device=dev,
+            policy=get_policy(cfg.get("precision", "f32")))
+        mem = serving.image_to_image_program(prog, post=serving.from_tanh)
+    else:
+        route = serving_http.build_route(name, kind, cfg, ckpt=ckpt,
+                                         batch=batch, device=dev)
+        mem = route.fn if route.pre is None else (
+            lambda v: route.fn(route.pre(v)))
+    got = _outputs(counted(f"export_{name}_artifact", fn, xd))
+    want = _outputs(counted(f"export_{name}_memory", mem, xd))
+    for part in ("artifact", "memory"):
+        expect_only(counted.runs[f"export_{name}_{part}"], per_call,
+                    f"{name}: the {part} program, one call")
+    by_shape = [dict(counted.shapes[f"export_{name}_{part}"])
+                for part in ("artifact", "memory")]
+    if by_shape[0] != by_shape[1]:
+        raise AssertionError(f"{name}: launches by shape, artifact "
+                             f"{by_shape[0]} vs in memory {by_shape[1]}")
+    out["launches_by_shape"] = {" ".join(map(str, k)): c
+                                for k, c in sorted(by_shape[0].items())}
+    # the flash forward has no by_path: hold its shapes to FLASH_SITES
+    held = {("flash_attention_fwd", *s) for s, _ in FLASH_SITES}
+    unheld = [k for k in by_shape[0]
+              if k[0] == "flash_attention_fwd" and k not in held]
+    if unheld:
+        raise AssertionError(f"{name}: flash forward launched at shapes no "
+                             f"FLASH_SITES row holds: {unheld}")
+    diffs = [float((g.float() - w.float()).abs().max()) for g, w in
+             zip(got, want)]
+    out["artifact_vs_memory_max_abs_diff"] = diffs
+    out["bit_exact"] = all(torch.equal(g, w) for g, w in zip(got, want))
+    # the in-memory program against itself: a nondeterministic op shows
+    # here
+    again = _outputs(mem(xd))
+    out["memory_vs_itself_max_abs_diff"] = [
+        float((g.float() - w.float()).abs().max())
+        for g, w in zip(again, want)]
+    del again
+    tol = EXPORT_TOL.get(name, 0.0)
+    finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
+    log(f"export {name}: checkpoint {out['ckpt_s']:.1f}s, test --export "
+        f"{out['export_s']:.1f}s, {out['mb']:.1f} MB, mcn:: nodes "
+        f"{meta['ops']}; serve --artifact {out['serve_s']:.1f}s; artifact "
+        f"vs in-memory program at {list(shape)}: bit-exact "
+        f"{out['bit_exact']} (max abs diff {diffs}, tol {tol:.3g}; the "
+        f"in-memory program against itself "
+        f"{out['memory_vs_itself_max_abs_diff']}), launches by shape "
+        f"equal: {out['launches_by_shape']}")
+    if max(diffs) > tol or not finite:
+        raise AssertionError(f"{name}: the artifact's outputs differ from "
+                             f"the in-memory program's by {diffs} (tol "
+                             f"{tol:.3g}; finite {finite})")
+    del got, want, xd
+
+    # latency: the artifact through serve --latency, the in-memory program
+    # at the artifact's one batch through the same measure
+    sizes = ",".join(map(str, EXPORT_SIZES))
+    lat = serve.main(["--artifact", path, "--latency", "--sizes", sizes,
+                      "--device", dev.type])
+    mem_lat = serving.measure_latency(
+        serving.make_batched_server(
+            lambda v: mem(torch.as_tensor(v).to(dev)), batch_sizes=(batch,)),
+        shape[1:], request_sizes=EXPORT_SIZES)
+    out["latency_ms"] = {
+        n: {"artifact": {k: lat[n][k] for k in ("p50", "p95")},
+            "memory": {k: mem_lat[n][k] for k in ("p50", "p95")}}
+        for n in EXPORT_SIZES}
+    log(f"export {name} latency (p50/p95 ms, artifact | in memory): "
+        + "; ".join(f"n={n} {r['artifact']['p50']:.2f}/"
+                    f"{r['artifact']['p95']:.2f} | {r['memory']['p50']:.2f}/"
+                    f"{r['memory']['p95']:.2f}"
+                    for n, r in out["latency_ms"].items()))
+    del fn, mem
+    torch.cuda.empty_cache()
+    return out
+
+
+def export_route_run(dev, counted, path):
+    """The segment artifact behind ``serve --serve``'s route spec
+    ``NAME=KIND:ARTIFACT:CONFIG`` (parse_route_spec, route_from_spec,
+    ModelServer, the HTTP server on localhost), sent one fixture JPEG:
+    B2 once at [1, 513, 513, 3], then one device call."""
+    from myconvnet_tpu_torch import serving_http
+
+    spec = serving_http.parse_route_spec(f"seg=segment:{path}:{VOC_CONFIG}")
+    route = serving_http.route_from_spec(spec, device=dev)
+    httpd = serving_http.make_http_server(
+        serving_http.ModelServer([route]), "127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = (f"http://127.0.0.1:{httpd.server_address[1]}/v1/models/"
+           "seg:predict")
+    voc = os.path.join(FIXTURES, "voc", "JPEGImages")
+    with open(os.path.join(voc, sorted(os.listdir(voc))[0]), "rb") as f:
+        jpeg = f.read()
+    try:
+        post(url, jpeg, "image/jpeg")     # the route's first call
+        t0 = time.perf_counter()
+        reply = counted("export_route", post, url, jpeg, "image/jpeg")
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    if thread.is_alive():
+        raise RuntimeError("HTTP server thread did not stop")
+    expect_only(counted.runs["export_route"], {
+        "normalize_u8": 1, **ROUTE_PER_CALL["segment"]},
+        "the artifact route, a JPEG body")
+    b2_shapes(counted.shapes["export_route"], (1, *SEG_HW, 3), 1,
+              "the artifact route, a JPEG body")
+    _reply_ok("segment", reply, 1, SEG_HW)
+    log(f"artifact route seg=segment:ARTIFACT:CONFIG: a JPEG body in "
+        f"{ms:.1f} ms over HTTP; B2 1, then B5 11, B4 2, B1 18")
+    return dict(ms=ms, bytes=len(jpeg), describe=route.describe())
+
+
+def export_run(dev):
+    """The export phase (step 23 of the module docstring): every
+    EXPORT_CASES artifact, then the artifact route.  Returns ({run:
+    launches}, {run: Counter of launch shapes}, checks)."""
+    import shutil
+
+    root = os.path.join(ROOT, "build", "chip_smoke_export")
+    shutil.rmtree(root, ignore_errors=True)
+    counted = Counted()
+    inputs = export_inputs(root)
+    voc_root = voc_files_corpus(os.path.join(root, "voc"))
+    checks = {}
+    try:
+        for name in EXPORT_CASES:
+            checks[name] = export_case(dev, name, counted, root, inputs,
+                                       voc_root)
+        checks["route"] = export_route_run(
+            dev, counted, os.path.join(root, "deeplab", "deeplab.pt2"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return counted.runs, counted.shapes, checks
+
+
 def step_one_only(specs):
     """Step 1 of ResNet-50, VGG-16 and DenseNet-121 against the host alone
     (``name:batch`` specs, default each at STEP1_BATCH), records in
@@ -5781,6 +6165,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     sngan_runs, sngan_shapes, checks["sngan_fid"] = phase(
         "sngan_fid", sngan_fid_run, dev, checks["cifar"]["ckpt_dir"], card)
+    torch.cuda.empty_cache()
+    export_runs, export_shapes, checks["export"] = phase("export",
+                                                         export_run, dev)
     runs = {"serve": counts, "train": train_counts, "test": eval_counts,
             "vit_train": vit_train, "vit_test": vit_test,
             **{f"vit_train_{k}": v for k, v in policy_runs.items()},
@@ -5793,7 +6180,7 @@ def main() -> int:
             **{f"{k}_{part}": c for k, pair in big.items()
                for part, c in zip(("train", "test"), pair)},
             **seg_runs, **gan_runs, **api_runs, **file_runs,
-            **route_runs, **sngan_runs}
+            **route_runs, **sngan_runs, **export_runs}
     launches = {name: sum(c[name] for c in runs.values())
                 for name in SOURCES}
     in_forward = checks["bn_act_in_forward_ms"]
@@ -5813,7 +6200,8 @@ def main() -> int:
          **({"by_path": kernel_by_path(name, details, runs,
                                        {**seg_shapes, **gan_shapes,
                                         **api_shapes, **file_shapes,
-                                        **route_shapes, **sngan_shapes})}
+                                        **route_shapes, **sngan_shapes,
+                                        **export_shapes})}
             if name in ("conv_pair", "bn_act", "conv_fused") else {}),
          **({"in_forward_ms": summary[name]["in_forward_ms"]}
             if name == "bn_act" else {})}

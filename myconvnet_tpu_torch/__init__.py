@@ -14,7 +14,9 @@ optical-flow recipes (PWC-Net, FlowNetC, FlowNetS) and the BASELINE
 configs, the GANs (``python -m myconvnet_tpu_torch.generate`` writes
 their samples), then the JAX package's public model API,
 ``from myconvnet_tpu_torch import ConvNet`` (``models/base.py``), which
-the train and test entry points drive: NHWC activations,
+the train and test entry points drive, and the ``torch.export`` artifacts
+that ``test --export`` writes and ``serve --artifact`` serves: NHWC
+activations,
 cuDNN convolutions, and hand-written CUDA kernels (``ops/kernels``) where
 the JAX package has Pallas kernels for the same math.
 """

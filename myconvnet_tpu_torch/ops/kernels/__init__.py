@@ -4,6 +4,10 @@ Each module holds the wrapper (which launches the kernel for CUDA tensors
 and counts its launches in ``<wrapper>.launches``), its plain PyTorch
 version (which the wrapper runs for CPU tensors), and a note on the Pallas
 kernel it replaces.  ``_build`` compiles ``csrc/*.cu`` at first use.
+The kernels of the served paths (B1, B4, B5, B6's forward and B9's
+forward) are also torch custom ops in the ``mcn`` namespace (``_ops``), so
+that ``torch.export`` keeps them in an exported program; importing this
+package registers them.
 """
 
 from myconvnet_tpu_torch.ops.kernels import (affine, bn_act, conv_fused,

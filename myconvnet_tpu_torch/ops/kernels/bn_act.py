@@ -15,8 +15,11 @@ does no index arithmetic in its loop (four 16-byte loads in flight a
 thread).  A card test holds the planner's assumptions against
 :func:`kernel_facts`.
 
-On a CPU tensor the wrapper runs :func:`scale_shift_act_reference`; on a
-CUDA tensor it launches the kernel or raises.
+The kernel is the custom op ``mcn::bn_act`` (``_ops``): its CUDA
+implementation is :func:`launch_cuda`, its CPU implementation
+:func:`scale_shift_act_reference`.  On a CPU tensor the wrapper runs the
+plain version through the op; on a CUDA tensor it launches the kernel
+directly (through the op only while ``torch.export`` traces) or raises.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import functools
 import torch
 
 from myconvnet_tpu_torch.ops.batch_norm import bn_scale_shift
-from myconvnet_tpu_torch.ops.kernels import _build
+from myconvnet_tpu_torch.ops.kernels import _build, _ops
 
 ACTS = {"none": 0, "relu": 1, "relu6": 2, "leaky_relu": 3}
 _ENTRY = {torch.float32: "mcn_scale_shift_act_f32",
@@ -105,19 +108,20 @@ def scale_shift_act_reference(x: torch.Tensor, a: torch.Tensor,
     return y.to(x.dtype)
 
 
-def fused_scale_shift_act(x: torch.Tensor, a: torch.Tensor,
-                          b: torch.Tensor, act: str = "relu"
-                          ) -> torch.Tensor:
-    """y = act(x * a + b) over the last axis.  x: [..., C] float32 or
-    bfloat16; a, b: [C] (used as float32)."""
+def _check(x, a, b, act):
     if act not in ACTS:
         raise ValueError(f"unknown activation {act!r}")
     c = x.shape[-1]
     if a.shape != (c,) or b.shape != (c,):
         raise ValueError(f"a {tuple(a.shape)} / b {tuple(b.shape)} do not "
                          f"match {c} channels")
-    if x.device.type == "cpu":
-        return scale_shift_act_reference(x, a, b, act)
+
+
+def launch_cuda(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                act: str = "relu") -> torch.Tensor:
+    """One launch of the kernel on CUDA tensors (the op's CUDA
+    implementation); counts it in ``fused_scale_shift_act.launches``."""
+    _check(x, a, b, act)
     if x.device.type != "cuda":
         raise ValueError(f"no bn_act kernel for device {x.device}")
     if x.dtype not in _ENTRY:
@@ -125,6 +129,7 @@ def fused_scale_shift_act(x: torch.Tensor, a: torch.Tensor,
                         f"{x.dtype}")
     if not x.is_contiguous():
         raise ValueError("bn_act kernel needs a contiguous [..., C] tensor")
+    c = x.shape[-1]
     a = a.to(device=x.device, dtype=torch.float32).contiguous()
     b = b.to(device=x.device, dtype=torch.float32).contiguous()
     y = torch.empty_like(x)
@@ -139,6 +144,40 @@ def fused_scale_shift_act(x: torch.Tensor, a: torch.Tensor,
     _build.check(entry, code)
     fused_scale_shift_act.launches += 1
     return y
+
+
+@torch.library.custom_op("mcn::bn_act", mutates_args=(), device_types="cpu")
+def _op(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+        act: str) -> torch.Tensor:
+    return scale_shift_act_reference(x, a, b, act)
+
+
+@_op.register_kernel("cuda")
+def _op_cuda(x, a, b, act):
+    return launch_cuda(x, a, b, act)
+
+
+@_op.register_fake
+def _op_fake(x, a, b, act):
+    return torch.empty_like(x)
+
+
+_OP = torch.ops.mcn.bn_act.default
+
+
+def fused_scale_shift_act(x: torch.Tensor, a: torch.Tensor,
+                          b: torch.Tensor, act: str = "relu"
+                          ) -> torch.Tensor:
+    """y = act(x * a + b) over the last axis.  x: [..., C] float32 or
+    bfloat16; a, b: [C] (used as float32)."""
+    _check(x, a, b, act)
+    if _ops.direct(x):
+        return launch_cuda(x, a, b, act)
+    if x.device.type == "cpu" and _ops.autograd_on_cpu(x, a, b):
+        return scale_shift_act_reference(x, a, b, act)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no bn_act kernel for device {x.device}")
+    return _OP(x, a, b, act)
 
 
 fused_scale_shift_act.launches = 0

@@ -20,8 +20,11 @@ stride-1 basic block, with the BN's (scale, shift) or a folded bias as the
 epilogue.  The Pallas function's ``images_per_block`` (a TPU tiling knob)
 is dropped: the CUDA kernel tiles by pixels over the whole batch.
 
-On a CPU tensor the wrapper runs :func:`conv3x3_bn_relu_reference`; on a
-CUDA tensor it launches the kernel or raises.
+The kernel is the custom op ``mcn::conv_fused`` (``_ops``): its CUDA
+implementation is :func:`launch_cuda`, its CPU implementation
+:func:`conv3x3_bn_relu_reference`.  On a CPU tensor the wrapper runs the
+plain version through the op; on a CUDA tensor it launches the kernel
+directly (through the op only while ``torch.export`` traces) or raises.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from myconvnet_tpu_torch.ops.kernels import _build
+from myconvnet_tpu_torch.ops.kernels import _build, _ops
 
 
 # What the planner assumes of the card (an H100 SXM) and of the kernel;
@@ -151,21 +154,14 @@ def conv3x3_bn_relu_reference(x, w3, scale, bias):
     return y.to(torch.bfloat16).permute(0, 2, 3, 1).contiguous()
 
 
-def conv3x3_bn_relu(x: torch.Tensor, w3: torch.Tensor, scale: torch.Tensor,
-                    bias: torch.Tensor, *,
-                    split: int | None = None) -> torch.Tensor:
-    """y = relu(conv3x3_same(x, w3) * scale + bias), NHWC bf16.
-
-    x: [N, H, W, C] bf16; w3: [3, 3, C, Cout] (HWIO) bf16; scale, bias:
-    [Cout] float32.  The weight goes to the kernel as OIHW channels_last
-    ([Cout, 3, 3, C]), which costs no copy for an ``nn.Conv`` weight.
-    ``split`` forces the planner's split of K (see :func:`plan`).
-    """
+def launch_cuda(x: torch.Tensor, w3: torch.Tensor, scale: torch.Tensor,
+                bias: torch.Tensor, split: int | None = None
+                ) -> torch.Tensor:
+    """One launch of the kernel on CUDA tensors (the op's CUDA
+    implementation); counts it in ``conv3x3_bn_relu.launches``."""
     c, cout = _check_shapes(x, w3, scale, bias)
     n, h, w, _ = x.shape
     g, th, tw, split = _launch_plan(n, h, w, c, cout, split)
-    if x.device.type == "cpu":
-        return conv3x3_bn_relu_reference(x, w3, scale, bias)
     if x.device.type != "cuda":
         raise ValueError(f"no conv_fused kernel for device {x.device}")
     for name, t in (("x", x), ("w3", w3)):
@@ -190,6 +186,48 @@ def conv3x3_bn_relu(x: torch.Tensor, w3: torch.Tensor, scale: torch.Tensor,
     _build.check("mcn_conv3x3_bn_relu", code)
     conv3x3_bn_relu.launches += 1
     return y
+
+
+@torch.library.custom_op("mcn::conv_fused", mutates_args=(),
+                         device_types="cpu")
+def _op(x: torch.Tensor, w3: torch.Tensor, scale: torch.Tensor,
+        bias: torch.Tensor, split: int | None) -> torch.Tensor:
+    return conv3x3_bn_relu_reference(x, w3, scale, bias)
+
+
+@_op.register_kernel("cuda")
+def _op_cuda(x, w3, scale, bias, split):
+    return launch_cuda(x, w3, scale, bias, split)
+
+
+@_op.register_fake
+def _op_fake(x, w3, scale, bias, split):
+    return x.new_empty((*x.shape[:3], w3.shape[-1]), dtype=torch.bfloat16)
+
+
+_OP = torch.ops.mcn.conv_fused.default
+
+
+def conv3x3_bn_relu(x: torch.Tensor, w3: torch.Tensor, scale: torch.Tensor,
+                    bias: torch.Tensor, *,
+                    split: int | None = None) -> torch.Tensor:
+    """y = relu(conv3x3_same(x, w3) * scale + bias), NHWC bf16.
+
+    x: [N, H, W, C] bf16; w3: [3, 3, C, Cout] (HWIO) bf16; scale, bias:
+    [Cout] float32.  The weight goes to the kernel as OIHW channels_last
+    ([Cout, 3, 3, C]), which costs no copy for an ``nn.Conv`` weight.
+    ``split`` forces the planner's split of K (see :func:`plan`).
+    """
+    c, cout = _check_shapes(x, w3, scale, bias)
+    n, h, w, _ = x.shape
+    _launch_plan(n, h, w, c, cout, split)   # a bad split raises here
+    if _ops.direct(x):
+        return launch_cuda(x, w3, scale, bias, split)
+    if x.device.type == "cpu" and _ops.autograd_on_cpu(x, w3, scale, bias):
+        return conv3x3_bn_relu_reference(x, w3, scale, bias)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no conv_fused kernel for device {x.device}")
+    return _OP(x, w3, scale, bias, split)
 
 
 conv3x3_bn_relu.launches = 0

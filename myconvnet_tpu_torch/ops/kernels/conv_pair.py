@@ -19,8 +19,12 @@ has scale 1 and the conv's bias).  The 3x3 uses SAME (zero) padding of
 the intermediate after BN1 + ReLU, and the intermediate is rounded to
 bf16, as in the Pallas kernel (``conv_pair.py:73-74, :85-93, :149``).
 
-On a CPU tensor the wrapper runs :func:`conv_pair_reference`; on a CUDA
-tensor it launches the kernel or raises.
+The kernel is the custom op ``mcn::conv_pair`` (``_ops``): its CUDA
+implementation is :func:`launch_cuda` at the planner's geometry, its CPU
+implementation :func:`conv_pair_reference`.  On a CPU tensor the wrapper
+runs the plain version through the op; on a CUDA tensor it launches the
+kernel directly (through the op only while ``torch.export`` traces, and
+never with a ``tile`` override, the plan sweep's) or raises.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from myconvnet_tpu_torch.ops.kernels import _build
+from myconvnet_tpu_torch.ops.kernels import _build, _ops
 
 MAX_CM = 512  # keeps the intermediate's tile within shared memory
 
@@ -102,26 +106,14 @@ def conv_pair_reference(x, w1, scale1, bias1, w3, scale3, bias3):
     return out.permute(0, 2, 3, 1).contiguous()
 
 
-def conv1x1_conv3x3_bn_relu(x: torch.Tensor, w1: torch.Tensor,
-                            scale1: torch.Tensor, bias1: torch.Tensor,
-                            w3: torch.Tensor, scale3: torch.Tensor,
-                            bias3: torch.Tensor,
-                            tile: tuple[int, int, int] | None = None
-                            ) -> torch.Tensor:
-    """y = relu(bn3(conv3x3(relu(bn1(conv1x1(x, w1))), w3))), NHWC bf16.
-
-    x: [N, H, W, Cin] bf16; w1: [1, 1, Cin, Cm] and w3: [3, 3, Cm, Cout]
-    (HWIO) bf16; scales and biases: per-channel float32.  The weights are
-    handed to the kernel as OIHW channels_last ([Cm, Cin] and
-    [Cout, 3, 3, Cm]), which costs no copy for ``nn.Conv`` weights.
-    ``tile`` = (TH, TW, CS) launches that geometry instead of the planner's
-    (to measure plans against each other); the plain version ignores it.
-    Every geometry sums each output in the same order, so an image gives
-    the same bits whatever tile, cluster or batch it is launched with.
-    """
+def launch_cuda(x: torch.Tensor, w1: torch.Tensor, scale1: torch.Tensor,
+                bias1: torch.Tensor, w3: torch.Tensor, scale3: torch.Tensor,
+                bias3: torch.Tensor,
+                tile: tuple[int, int, int] | None = None) -> torch.Tensor:
+    """One launch of the kernel on CUDA tensors (the op's CUDA
+    implementation, and the ``tile`` override's path); counts it in
+    ``conv1x1_conv3x3_bn_relu.launches``."""
     cin, cm, cout = _check_shapes(x, w1, scale1, bias1, w3, scale3, bias3)
-    if x.device.type == "cpu":
-        return conv_pair_reference(x, w1, scale1, bias1, w3, scale3, bias3)
     if x.device.type != "cuda":
         raise ValueError(f"no conv_pair kernel for device {x.device}")
     for name, t in (("x", x), ("w1", w1), ("w3", w3)):
@@ -151,6 +143,55 @@ def conv1x1_conv3x3_bn_relu(x: torch.Tensor, w1: torch.Tensor,
     _build.check("mcn_conv_pair", code)
     conv1x1_conv3x3_bn_relu.launches += 1
     return y
+
+
+@torch.library.custom_op("mcn::conv_pair", mutates_args=(),
+                         device_types="cpu")
+def _op(x: torch.Tensor, w1: torch.Tensor, scale1: torch.Tensor,
+        bias1: torch.Tensor, w3: torch.Tensor, scale3: torch.Tensor,
+        bias3: torch.Tensor) -> torch.Tensor:
+    return conv_pair_reference(x, w1, scale1, bias1, w3, scale3, bias3)
+
+
+@_op.register_kernel("cuda")
+def _op_cuda(x, w1, scale1, bias1, w3, scale3, bias3):
+    return launch_cuda(x, w1, scale1, bias1, w3, scale3, bias3)
+
+
+@_op.register_fake
+def _op_fake(x, w1, scale1, bias1, w3, scale3, bias3):
+    return x.new_empty((*x.shape[:3], w3.shape[-1]), dtype=torch.bfloat16)
+
+
+_OP = torch.ops.mcn.conv_pair.default
+
+
+def conv1x1_conv3x3_bn_relu(x: torch.Tensor, w1: torch.Tensor,
+                            scale1: torch.Tensor, bias1: torch.Tensor,
+                            w3: torch.Tensor, scale3: torch.Tensor,
+                            bias3: torch.Tensor,
+                            tile: tuple[int, int, int] | None = None
+                            ) -> torch.Tensor:
+    """y = relu(bn3(conv3x3(relu(bn1(conv1x1(x, w1))), w3))), NHWC bf16.
+
+    x: [N, H, W, Cin] bf16; w1: [1, 1, Cin, Cm] and w3: [3, 3, Cm, Cout]
+    (HWIO) bf16; scales and biases: per-channel float32.  The weights are
+    handed to the kernel as OIHW channels_last ([Cm, Cin] and
+    [Cout, 3, 3, Cm]), which costs no copy for ``nn.Conv`` weights.
+    ``tile`` = (TH, TW, CS) launches that geometry instead of the planner's
+    (to measure plans against each other); the plain version ignores it.
+    Every geometry sums each output in the same order, so an image gives
+    the same bits whatever tile, cluster or batch it is launched with.
+    """
+    args = (x, w1, scale1, bias1, w3, scale3, bias3)
+    _check_shapes(*args)
+    if x.device.type == "cpu" and _ops.autograd_on_cpu(*args):
+        return conv_pair_reference(*args)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no conv_pair kernel for device {x.device}")
+    if _ops.direct(x) or (tile is not None and x.device.type == "cuda"):
+        return launch_cuda(*args, tile=tile)
+    return _OP(*args)
 
 
 conv1x1_conv3x3_bn_relu.launches = 0

@@ -41,6 +41,14 @@ The channel mean divides the sum by C, as ``jnp.mean`` in the XLA op
 reciprocal (``:59``), one float32 ulp away.  :func:`correlation_reference`
 and the kernels both divide.
 
+The forward kernel is the custom op ``mcn::correlation_fwd`` (``_ops``):
+its CUDA implementation is :func:`launch_fwd_cuda`, its CPU implementation
+:func:`correlation_reference`.  :func:`correlation_fwd` calls it on CPU
+tensors and while ``torch.export`` traces, and launches directly on CUDA
+tensors otherwise (``_ops.direct``); without autograd :func:`correlation`
+calls :func:`correlation_fwd` alone, and ``_Correlation``'s forward calls
+it too.  The backward kernels stay direct launches.
+
 On a CPU tensor the wrappers run the plain version (and its autograd); on a
 CUDA tensor they launch the kernel or raise.
 """
@@ -53,7 +61,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from myconvnet_tpu_torch.ops.kernels import _build
+from myconvnet_tpu_torch.ops.kernels import _build, _ops
 
 MAX_DISPLACEMENT = 4    # the recipes' window; the kernels' D_MAX
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -267,14 +275,12 @@ def _on_card(t: torch.Tensor, d: int) -> None:
                          f"{tuple(t.shape)}")
 
 
-def correlation_fwd(f1: torch.Tensor, f2: torch.Tensor,
+def launch_fwd_cuda(f1: torch.Tensor, f2: torch.Tensor,
                     max_displacement: int = 4) -> torch.Tensor:
-    """[N, H, W, C] x [N, H, W, C] -> float32 [N, H, W, (2d + 1)^2]; no
-    autograd (see :func:`correlation`)."""
+    """One launch of the forward kernel on CUDA tensors (the op's CUDA
+    implementation); counts it in ``correlation_fwd.launches``."""
     d = int(max_displacement)
     _check(f1, f2, d)
-    if f1.device.type == "cpu":
-        return correlation_reference(f1, f2, d)
     _on_card(f1, d)
     f1, f2 = f1.contiguous(), f2.contiguous()
     n, h, w, c = f1.shape
@@ -290,6 +296,41 @@ def correlation_fwd(f1: torch.Tensor, f2: torch.Tensor,
         _build.check(entry, code)
     correlation_fwd.launches += 1
     return out
+
+
+@torch.library.custom_op("mcn::correlation_fwd", mutates_args=(),
+                         device_types="cpu")
+def _fwd_op(f1: torch.Tensor, f2: torch.Tensor, d: int) -> torch.Tensor:
+    return correlation_reference(f1, f2, d)
+
+
+@_fwd_op.register_kernel("cuda")
+def _fwd_op_cuda(f1, f2, d):
+    return launch_fwd_cuda(f1, f2, d)
+
+
+@_fwd_op.register_fake
+def _fwd_op_fake(f1, f2, d):
+    return f1.new_empty((*f1.shape[:3], (2 * d + 1) ** 2),
+                        dtype=torch.float32)
+
+
+_FWD_OP = torch.ops.mcn.correlation_fwd.default
+
+
+def correlation_fwd(f1: torch.Tensor, f2: torch.Tensor,
+                    max_displacement: int = 4) -> torch.Tensor:
+    """[N, H, W, C] x [N, H, W, C] -> float32 [N, H, W, (2d + 1)^2]; no
+    autograd (see :func:`correlation`)."""
+    d = int(max_displacement)
+    _check(f1, f2, d)
+    if _ops.direct(f1):
+        return launch_fwd_cuda(f1, f2, d)
+    if f1.device.type == "cpu" and _ops.autograd_on_cpu(f1, f2):
+        return correlation_reference(f1, f2, d)
+    if f1.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no correlation kernel for device {f1.device}")
+    return _FWD_OP(f1, f2, d)
 
 
 correlation_fwd.launches = 0
@@ -366,9 +407,13 @@ class _Correlation(torch.autograd.Function):
 def correlation(f1: torch.Tensor, f2: torch.Tensor,
                 max_displacement: int = 4) -> torch.Tensor:
     """The differentiable volume: the plain version under autograd for CPU
-    tensors, the three kernels for CUDA tensors."""
+    tensors, the three kernels for CUDA tensors; without autograd (no grad
+    mode, or no input that requires grad) the forward op alone."""
     d = int(max_displacement)
     _check(f1, f2, d)
+    if not (torch.is_grad_enabled()
+            and (f1.requires_grad or f2.requires_grad)):
+        return correlation_fwd(f1, f2, d)
     if f1.device.type == "cpu":
         return correlation_reference(f1, f2, d)
     return _Correlation.apply(f1, f2, d)

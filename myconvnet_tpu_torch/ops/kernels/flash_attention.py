@@ -24,6 +24,17 @@ kernels take bf16 q, k and v of one shape [B, H, L, D] with D a multiple of
 contiguous), so views of a packed qkv projection cost no copy.  The
 forward's output is a [B, H, L, D] view of a [B, L, H, D] buffer, the
 layout the output projection reads.
+
+The forward kernel is the custom op ``mcn::flash_attention_fwd``
+(``_ops``): its CUDA implementation is :func:`launch_fwd_cuda`, its CPU
+implementation :func:`flash_fwd_reference` copied into the kernel's output
+layouts (``o`` that view, ``lse`` rows of a [B, H, Lpad] buffer), which its
+fake implementation gives too.  :func:`flash_attention_fwd` calls it on
+CPU tensors and while ``torch.export`` traces, and launches directly on
+CUDA tensors otherwise (``_ops.direct``).  Without autograd,
+:func:`flash_attention` calls :func:`flash_attention_fwd` alone;
+:class:`FlashAttention`'s forward calls it too.  The backward kernels stay
+direct launches.
 """
 
 from __future__ import annotations
@@ -32,7 +43,7 @@ import ctypes
 
 import torch
 
-from myconvnet_tpu_torch.ops.kernels import _build
+from myconvnet_tpu_torch.ops.kernels import _build, _ops
 
 TILE = 64  # rows of a kernel tile; lse and D are padded to a multiple
 # operand order of the strides array the C entry points read
@@ -132,11 +143,10 @@ def _operand(t: torch.Tensor) -> torch.Tensor:
     return t if ok else t.contiguous()
 
 
-def _bhld_buffer(like: torch.Tensor) -> torch.Tensor:
-    """A [B, H, L, D] view of a new [B, L, H, D] bf16 buffer."""
+def _bhld_buffer(like: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """A [B, H, L, D] view of a new [B, L, H, D] buffer."""
     b, h, l, d = like.shape
-    return torch.empty((b, l, h, d), dtype=torch.bfloat16,
-                       device=like.device).permute(0, 2, 1, 3)
+    return like.new_empty((b, l, h, d), dtype=dtype).permute(0, 2, 1, 3)
 
 
 def _rows(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -159,8 +169,7 @@ def _rows(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 def _new_rows(like: torch.Tensor) -> torch.Tensor:
     b, h, l, _ = like.shape
     lpad = -(-l // TILE) * TILE
-    return torch.empty((b, h, lpad), dtype=torch.float32,
-                       device=like.device)[..., :l]
+    return like.new_empty((b, h, lpad), dtype=torch.float32)[..., :l]
 
 
 def _strides(**views) -> ctypes.Array:
@@ -176,12 +185,10 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def flash_attention_fwd(q, k, v, scale=None):
-    """(out [B, H, L, D] in q's dtype, lse float32 [B, H, L]): the forward
-    kernel on CUDA tensors, :func:`flash_fwd_reference` on CPU ones."""
+def launch_fwd_cuda(q, k, v, scale=None):
+    """One launch of the forward kernel on CUDA tensors (the op's CUDA
+    implementation); counts it in ``flash_attention_fwd.launches``."""
     _check(q, k, v)
-    if q.device.type == "cpu":
-        return flash_fwd_reference(q, k, v, scale)
     _cuda_checks("flash_attention forward", (q, k, v))
     q, k, v = map(_operand, (q, k, v))
     b, h, l, d = q.shape
@@ -193,6 +200,44 @@ def flash_attention_fwd(q, k, v, scale=None):
     _build.check("mcn_flash_fwd", code)
     flash_attention_fwd.launches += 1
     return out, lse
+
+
+@torch.library.custom_op("mcn::flash_attention_fwd", mutates_args=(),
+                         device_types="cpu")
+def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    o, lse = flash_fwd_reference(q, k, v, scale)
+    out, rows = _bhld_buffer(q, q.dtype), _new_rows(q)
+    out.copy_(o)
+    rows.copy_(lse)
+    return out, rows
+
+
+@_fwd_op.register_kernel("cuda")
+def _fwd_op_cuda(q, k, v, scale):
+    return launch_fwd_cuda(q, k, v, scale)
+
+
+@_fwd_op.register_fake
+def _fwd_op_fake(q, k, v, scale):
+    return _bhld_buffer(q, q.dtype), _new_rows(q)
+
+
+_FWD_OP = torch.ops.mcn.flash_attention_fwd.default
+
+
+def flash_attention_fwd(q, k, v, scale=None):
+    """(out [B, H, L, D] in q's dtype, lse float32 [B, H, L]): the forward
+    kernel on CUDA tensors, :func:`flash_fwd_reference` on CPU ones."""
+    _check(q, k, v)
+    if _ops.direct(q):
+        return launch_fwd_cuda(q, k, v, scale)
+    if q.device.type == "cpu" and _ops.autograd_on_cpu(q, k, v):
+        return flash_fwd_reference(q, k, v, scale)
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no flash_attention forward kernel for device "
+                         f"{q.device}")
+    return _FWD_OP(q, k, v, _scale(q, scale))
 
 
 def flash_attention_dq(q, k, v, o, do, lse, scale=None):
@@ -265,6 +310,10 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float | None = None) -> torch.Tensor:
     """Exact fused attention.  q, k, v: [B, H, L, D] -> [B, H, L, D] in
-    q's dtype; ``scale`` defaults to 1/sqrt(D).  Differentiable."""
+    q's dtype; ``scale`` defaults to 1/sqrt(D).  Differentiable; without
+    autograd (no grad mode, or no input that requires grad) the forward
+    op alone, which an exported program keeps as one node."""
     _check(q, k, v)
-    return FlashAttention.apply(q, k, v, _scale(q, scale))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, _scale(q, scale))
+    return flash_attention_fwd(q, k, v, scale)[0]

@@ -51,11 +51,26 @@ def _interp_matrix(in_size: int, out_size: int, align_corners: bool,
 
 
 @lru_cache(maxsize=64)
+def _cached_matrix(in_size: int, out_size: int, align_corners: bool,
+                   half_pixel: bool, device: torch.device) -> torch.Tensor:
+    # made outside inference mode whoever asks first: an inference tensor
+    # in the cache would break a later forward that autograd records
+    with torch.inference_mode(False):
+        return torch.from_numpy(_interp_matrix(
+            in_size, out_size, align_corners, half_pixel)).to(device)
+
+
 def _matrix_on(in_size: int, out_size: int, align_corners: bool,
                half_pixel: bool, device: torch.device) -> torch.Tensor:
-    """The interpolation matrix on ``device``, copied there once."""
-    return torch.from_numpy(_interp_matrix(
-        in_size, out_size, align_corners, half_pixel)).to(device)
+    """The interpolation matrix on ``device``, copied there once.  While
+    ``torch.export`` traces, a new one: the tracer's tensors must not stay
+    in the cache for the eager calls after it (the export keeps the matrix
+    as a constant of the program)."""
+    if torch.compiler.is_exporting():
+        return torch.from_numpy(_interp_matrix(
+            in_size, out_size, align_corners, half_pixel)).to(device)
+    return _cached_matrix(in_size, out_size, align_corners, half_pixel,
+                          device)
 
 
 def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int], *,

@@ -19,19 +19,26 @@ the port has:
                       ...]}   (JSON [H, W, 6] frame pairs only)
 
 A route is built from a recipe config plus a checkpoint of either package
-(or parameter trees in memory) by :func:`build_route`; its program is the
-chain JAX's exported artifact computes (``serving.py:220-277`` for
-segment, ``:377-427`` with ``export_cli.py:226-240`` for translate,
-``export_cli.py:355-427`` for flow), run eagerly on the route's device.
-Each request is first brought to the program's input space: an image body
-is decoded on the host with JAX's geometry (Pillow ``convert``, then a
+(or parameter trees in memory) by :func:`build_route`, or from an artifact
+of ``test --export`` by :func:`artifact_route` (``--route
+NAME=KIND:ARTIFACT[:CONFIG]``; :func:`parse_route_spec` tells the two
+forms apart).  A route's program is the chain JAX's exported artifact
+computes (``serving.py:220-277`` for segment, ``:377-427`` with
+``export_cli.py:226-240`` for translate, ``export_cli.py:355-427`` for
+flow): in memory it runs eagerly on the route's device, and the port's
+artifact of the same kind holds the same program (``serving``'s
+``segment_program``, ``image_to_image_program``, ``normalizer``).  Each
+request is first brought to the program's input space: an image body is
+decoded on the host with JAX's geometry (Pillow ``convert``, then a
 BILINEAR ``resize`` to the route's size), kept as uint8 and normalized on
 the route's device by the ``normalize_u8`` kernel (B2), one launch a
-request, with the recipe's mean and std (classify, segment) or mean = std
-= 0.5 (translate: exactly ``x * 2 - 1``); a JSON body of raw [0, 1] rows is
-normalized on the host for classify (``serving_http.py:373-374``) and
-inside the program on the device for segment and translate, as JAX's
-artifacts do; flow takes its rows raw.  The rows then run through the
+request, with the recipe's mean and std (classify, in-memory segment) or
+mean = std = 0.5 (in-memory translate: exactly ``x * 2 - 1``), or mean 0
+and std 1 (segment and translate artifacts, which take [0, 1] and
+normalize inside); a JSON body of raw [0, 1] rows is normalized on the
+host for classify (``serving_http.py:373-374``) and inside the program on
+the device for segment and translate, as JAX's artifacts do; flow takes
+its rows raw.  The rows then run through the
 route's fixed batch (:func:`_run_chunked`, tuple outputs sliced member by
 member) under one device lock, or, with ``ModelServer(batch_window_ms >
 0)``, through the route's :class:`_Batcher`, which runs the normalized
@@ -46,7 +53,7 @@ import threading
 import time
 from dataclasses import dataclass
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Callable, Optional, Sequence
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -74,25 +81,72 @@ class Route:
     device: str | torch.device = "cpu"   # where the program runs
     class_names: Optional[Sequence[str]] = None
     # raw [0, 1] float rows (a tensor on the device) -> the program's
-    # input space; None: the identity (flow) or classify's host step
+    # input space; None: the identity (flow, artifacts) or classify's host
+    # step
     pre: Optional[Callable] = None
+    artifact: Optional[str] = None   # the file an artifact route serves
 
     def describe(self) -> dict:
         return {"name": self.name, "kind": self.kind,
                 "input": list(self.input_shape),
                 "classes": len(self.class_names)
-                if self.class_names else None}
+                if self.class_names else None,
+                **({"artifact": self.artifact} if self.artifact else {})}
 
 
-def parse_route_spec(spec: str) -> tuple[str, str, str, str]:
-    """``NAME=KIND:CONFIG:CKPT`` -> (name, kind, config, ckpt)."""
+class RouteSpec(NamedTuple):
+    """A parsed ``--route``: a recipe ``config`` and a checkpoint
+    ``ckpt``, or an ``artifact`` with an optional ``config``."""
+
+    name: str
+    kind: str
+    config: Optional[str]
+    ckpt: Optional[str]
+    artifact: Optional[str] = None
+
+
+_SPEC_FORMS = "NAME=KIND:CONFIG:CKPT or NAME=KIND:ARTIFACT[:CONFIG]"
+
+
+def parse_route_spec(spec: str) -> RouteSpec:
+    """``NAME=KIND:CONFIG:CKPT`` (a route built in memory from a recipe
+    and a checkpoint) or ``NAME=KIND:ARTIFACT[:CONFIG]`` (an artifact of
+    ``test --export``, ``serving_http.py:581-594``): the second field is
+    an artifact when it is an artifact file.  A spec whose second field is
+    an artifact and whose third is not a config file (``.py`` or
+    ``.json``) is ambiguous and refused."""
+    from myconvnet_tpu_torch.serving import is_artifact
+
     name, eq, rest = spec.partition("=")
-    parts = rest.split(":", 2)
-    if not eq or not name or len(parts) != 3 or not all(parts):
-        raise ValueError(f"route spec {spec!r}: want NAME=KIND:CONFIG:CKPT "
-                         "(the exported-artifact form comes with the "
-                         "exporters, ROADMAP A15)")
-    return (name, *parts)
+    parts = rest.split(":")
+    if not eq or not name or not 2 <= len(parts) <= 3 or not all(parts):
+        raise ValueError(f"route spec {spec!r}: want {_SPEC_FORMS}")
+    kind, first, *more = parts
+    if is_artifact(first):
+        if more and not more[0].endswith((".py", ".json")):
+            raise ValueError(
+                f"route spec {spec!r} is ambiguous: {first!r} is an "
+                f"artifact, so {more[0]!r} should be its CONFIG (a .py or "
+                f".json recipe), not a checkpoint; want {_SPEC_FORMS}")
+        return RouteSpec(name, kind, more[0] if more else None, None, first)
+    if not more:
+        raise ValueError(f"route spec {spec!r}: {first!r} is not an "
+                         f"artifact file and no CKPT follows; want "
+                         f"{_SPEC_FORMS}")
+    return RouteSpec(name, kind, first, more[0])
+
+
+def route_from_spec(spec: RouteSpec, *, batch: int = 8,
+                    device: str | torch.device | None = None,
+                    topk: int = 5) -> "Route":
+    """The route of a parsed spec: :func:`artifact_route` (on the
+    artifact's device unless ``device`` is given; its batch is the
+    artifact's) or :func:`build_route`."""
+    if spec.artifact is not None:
+        return artifact_route(spec.name, spec.kind, spec.artifact,
+                              spec.config, device=device, topk=topk)
+    return build_route(spec.name, spec.kind, spec.config, ckpt=spec.ckpt,
+                       batch=batch, device=device or "cuda", topk=topk)
 
 
 def _trees(cfg, kind, ckpt, params, state):
@@ -106,27 +160,18 @@ def _trees(cfg, kind, ckpt, params, state):
     return params, state or {}
 
 
-def _segment_program(fn, hw):
-    """normalized frames -> (classes int32 [N, H, W], max softmax float32
-    [N, H, W]), the logits upsampled to the input size where they are not
-    at it (``serving.py:262-270``)."""
-    from myconvnet_tpu_torch.ops.resize import resize_bilinear
-
-    def segment(x):
-        logits = fn(x)
-        if tuple(logits.shape[1:3]) != hw:
-            logits = resize_bilinear(logits, hw, align_corners=False)
-        probs = torch.softmax(logits, -1)
-        return logits.argmax(-1).to(torch.int32), probs.amax(-1)
-    return segment
-
-
-def _translate_program(fn):
-    """x * 2 - 1 (done before) -> U-Net -> (y + 1) / 2 clipped to [0,
-    1]."""
-    def translate(x):
-        return ((fn(x) + 1.0) / 2.0).clamp(0.0, 1.0)
-    return translate
+def _class_names(cfg, kind):
+    """The recipe's class names where the port knows them
+    (``serving_http.py:152-161``: Fashion-MNIST, VOC's segmentation
+    classes)."""
+    ds = (cfg or {}).get("dataset")
+    if ds == "fashion_mnist":
+        from myconvnet_tpu_torch.subsets.mnist import FASHION_CLASS_NAMES
+        return FASHION_CLASS_NAMES
+    if ds == "voc" and kind == "segment":
+        from myconvnet_tpu_torch.subsets.voc import SEG_CLASS_NAMES
+        return SEG_CLASS_NAMES
+    return None
 
 
 def build_route(name: str, kind: str, config: str | dict, *,
@@ -160,10 +205,11 @@ def build_route(name: str, kind: str, config: str | dict, *,
     params, state = _trees(cfg, kind, ckpt, params, state)
     policy = get_policy(cfg.get("precision", "f32"))
     device = torch.device(device)
-    names = mean = std = pre = None
+    mean = std = pre = None
     if kind == "classify":
         h, w = cfg.get("input_hw", (224, 224))
         model = models.get_model(cfg["model"], cfg["num_classes"],
+                                 input_hw=(h, w),
                                  **cfg.get("model_kwargs", {}))
         fn = serving.make_inference_fn(model, params, state, device=device,
                                        policy=policy)
@@ -175,19 +221,16 @@ def build_route(name: str, kind: str, config: str | dict, *,
         model = models.get_model(cfg["model"], cfg["num_classes"],
                                  input_hw=(h, w),
                                  **cfg.get("model_kwargs", {}))
-        fn = _segment_program(serving.make_inference_fn(
+        fn = serving.segment_program(serving.make_inference_fn(
             model, params, state, device=device, policy=policy), (h, w))
         mean, std = recipes.normalization(cfg, 3)
-        if cfg.get("dataset") == "voc":
-            from myconvnet_tpu_torch.subsets.voc import SEG_CLASS_NAMES
-            names = SEG_CLASS_NAMES
         nch = 3
     elif kind == "translate":
         from myconvnet_tpu_torch import recipes_gan
         h = w = int(cfg.get("image_size", 256))
-        fn = _translate_program(serving.make_inference_fn(
+        fn = serving.image_to_image_program(serving.make_inference_fn(
             recipes_gan.gan_generator(cfg), params, state, fold_bn=False,
-            device=device, policy=policy))
+            device=device, policy=policy), post=serving.from_tanh)
         mean = std = np.full(3, 0.5, np.float32)
         nch = 3
     else:
@@ -198,11 +241,50 @@ def build_route(name: str, kind: str, config: str | dict, *,
                                        device=device, policy=policy)
         nch = 6
     if kind in ("segment", "translate"):
-        stats = device_stats(mean, std, device)
-        pre = (lambda x: (x - stats[0]) / stats[1])
+        pre = serving.normalizer(mean, std, device)
     return Route(name=name, kind=kind, fn=fn, input_shape=(batch, h, w, nch),
                  mean=mean, std=std, topk=topk, device=device,
-                 class_names=names, pre=pre)
+                 class_names=_class_names(cfg, kind), pre=pre)
+
+
+def artifact_route(name: str, kind: str, artifact: str,
+                   config: Optional[str | dict] = None, *,
+                   device: str | torch.device | None = None,
+                   topk: int = 5) -> Route:
+    """A route of kind ``kind`` over an artifact of ``test --export``
+    (``serving_http.py:95-150``): its program and fixed batch are the
+    artifact's, and no model code is loaded.  ``config`` (optional) gives
+    the class names and, for classify, the normalization (the ImageNet
+    statistics without it, as JAX's ``AugmentConfig`` defaults).  Segment
+    and translate artifacts take raw [0, 1] rows, so an image body goes
+    through B2 with mean 0 and std 1 (``x / 255``); a JSON body reaches
+    the artifact as it came."""
+    from myconvnet_tpu_torch import recipes, serving
+
+    if kind not in KINDS:
+        raise ValueError(f"route {name!r}: the port serves {KINDS}, not "
+                         f"{kind!r}")
+    art = serving.artifact_meta(artifact)["kind"]
+    if art == "sample":
+        raise ValueError(
+            f"route {name!r}: {artifact} is a latent-input generator "
+            "(dcgan) — a sampler for serve --sample, not a route")
+    if art != kind:
+        raise ValueError(f"route {name!r}: {artifact} is a {art!r} "
+                         f"artifact, not {kind!r}")
+    fn = serving.load_inference(artifact, device)
+    shape = fn.input_shapes[0]
+    cfg = recipes.load_config(config) if isinstance(config, str) \
+        else config
+    mean = std = None
+    if kind == "classify":
+        mean, std = recipes.normalization(cfg, shape[3])
+    elif kind in ("segment", "translate"):
+        mean = np.zeros(shape[3], np.float32)
+        std = np.ones(shape[3], np.float32)
+    return Route(name=name, kind=kind, fn=fn, input_shape=tuple(shape),
+                 mean=mean, std=std, topk=topk, device=fn.device,
+                 class_names=_class_names(cfg, kind), artifact=artifact)
 
 
 def _host(t: torch.Tensor, n: int) -> np.ndarray:

@@ -8,6 +8,8 @@ optical-flow and pix2pix recipes).
     python -m myconvnet_tpu_torch.test --config configs/sngan_cifar10.py \\
         --synthetic --ckpt DIR --fid \\
         --fid_extractor configs/cifar100_resnet18.py:CLS_DIR [--fid_samples 256]
+    python -m myconvnet_tpu_torch.test --config configs/imagenet_resnet50.py \
+        --ckpt DIR --export model.pt2 [--ema] [--device cuda]
 
 Port of ``test.py:148-240`` (``eval_convnet``): build the recipe's
 ``ConvNet`` with its optimizer, restore ``--ckpt`` (a ``.npz`` or the
@@ -20,9 +22,14 @@ together), the flip or ten-crop TTA with ``--tta``, or segmentation's
 multi-scale + flip protocol with ``--scales``.  ``--calibrate`` (a
 classifier) fits a softmax temperature on the validation logits, prints
 the ECE before and after, and writes ``calibration.json`` beside the
-checkpoint (``test.py:242-267``).  ``--tta x8`` (the super-resolution
-self-ensemble, ROADMAP A17) and ``--export`` (ROADMAP A15) are refused by
-name.  A GAN recipe goes to :func:`eval_gan` (``test.py:120``): with
+checkpoint (``test.py:242-267``).  ``--export PATH`` writes the restored
+model (after ``--best``, ``--average`` or ``--ema``) as a ``torch.export``
+artifact for ``serve --artifact`` instead of scoring it
+(``test.py:108-123``, ``:197-203``; ``export_cli``): classification,
+segmentation and flow recipes, DCGAN and pix2pix checkpoints; ``--int8``
+and the exporters of unported tasks are refused by name
+(``export_cli.refuse_unported``).  ``--tta x8`` (the super-resolution
+self-ensemble, ROADMAP A17) is refused by name.  A GAN recipe goes to :func:`eval_gan` (``test.py:120``): with
 ``--fid``, :func:`eval_gan_fid` (``test.py:565-642``) scores
 ``--fid_samples`` generated images against as many of the recipe's real
 ones through ``--fid_extractor CONFIG:CKPT_DIR`` (:func:`_fid_extractor`,
@@ -33,7 +40,8 @@ forward, and an unconditional DCGAN checkpoint is not scored.  The
 ``inception:WEIGHTS.npz`` extractor (``models/inception_v3`` and weights
 the repo does not hold, ROADMAP A17) and ``task="diffusion"`` stay refused
 by name.  ``main(argv)`` returns (score, net); for pix2pix (psnr, ssim)
-and the GAN trainer, for ``--fid`` (fid, trainer).
+and the GAN trainer, for ``--fid`` (fid, trainer), for ``--export`` the
+artifact's path.
 """
 
 from __future__ import annotations
@@ -85,13 +93,13 @@ def main(argv=None):
                          "the embedding)")
     ap.add_argument("--fid_samples", type=int, default=256,
                     help="sample count per side for --fid")
-    ap.add_argument("--export", default=None,
-                    help="not ported (the exporters are ROADMAP A15)")
+    ap.add_argument("--export", default=None, metavar="PATH",
+                    help="write the restored model as a torch.export "
+                         "artifact (serve --artifact) instead of scoring")
+    ap.add_argument("--int8", action="store_true",
+                    help="not ported (quantization is ROADMAP A17)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.export:
-        raise SystemExit("test --export is not ported (export_cli.py, "
-                         "ROADMAP A15)")
     if args.tta == "x8":
         raise SystemExit("test --tta x8 is not ported (the "
                          "super-resolution self-ensemble, ROADMAP A17)")
@@ -106,6 +114,9 @@ def main(argv=None):
                        ("data_dir", args.data_dir)):
         if value is not None:
             cfg[key] = value
+    if args.export or args.int8:
+        from myconvnet_tpu_torch import export_cli
+        export_cli.refuse_unported(cfg, args)
     if cfg.get("task") == "diffusion" and args.fid:
         raise SystemExit("test --fid of a diffusion recipe is not ported "
                          "(the diffusion family, ROADMAP A17)")
@@ -159,6 +170,10 @@ def eval_convnet(cfg: dict, args, device):
             for path_, p in net.optimizer.named:
                 p.copy_(ema[path_].to(p.dtype))
         print("evaluating EMA parameters", flush=True)
+    if args.export:
+        from myconvnet_tpu_torch import export_cli
+        export_cli.CONVNET_EXPORTERS[task](cfg, args, net, val_set)
+        return args.export
     batch = cfg["batch_size"]
     if args.tta and task == "classification":
         evaluator.reset()
@@ -313,13 +328,18 @@ def eval_gan_fid(cfg: dict, args, device):
 
 
 def eval_gan(cfg: dict, args, device):
-    """``--fid``: :func:`eval_gan_fid`.  pix2pix: restore ``--ckpt`` and
+    """``--export``: ``export_cli.export_gan``.  ``--fid``:
+    :func:`eval_gan_fid`.  pix2pix: restore ``--ckpt`` and
     print the val pairs' mean PSNR and SSIM of G's translations against
     the targets, both in [0, 1]."""
     from myconvnet_tpu_torch import recipes_gan
     from myconvnet_tpu_torch.data.pipeline import DataSet
     from myconvnet_tpu_torch.eval.image_metrics import PairedImageEvaluator
 
+    if args.export:
+        from myconvnet_tpu_torch import export_cli
+        export_cli.export_gan(cfg, args, device)
+        return args.export
     if args.fid:
         return eval_gan_fid(cfg, args, device)
     if recipes_gan.gan_kind(cfg) != "pix2pix":

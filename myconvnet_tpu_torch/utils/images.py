@@ -1,7 +1,8 @@
 """Image artifacts: sample grids, uint8 conversion and PNG files.
 
 Port of ``myconvnet_tpu/utils/images.py`` (``make_grid:17``,
-``to_uint8:36``, ``save_png:84``, ``flow_to_color:94``).  ``to_uint8`` takes a tensor and keeps
+``to_uint8:36``, ``voc_palette:44``, ``colorize_mask:60``, ``save_png:84``,
+``flow_to_color:94``).  ``to_uint8`` takes a tensor and keeps
 it on its device, with the JAX function's float32 steps.  ``save_png``
 writes the PNG itself with ``zlib`` and ``struct`` (8-bit grayscale or
 RGB, no filter), so no image library is needed.
@@ -71,6 +72,32 @@ def png_bytes(image: np.ndarray) -> bytes:
            + _chunk(b"IDAT", zlib.compress(raw, 6))
            + _chunk(b"IEND", b""))
     return png
+
+
+def voc_palette(num_classes: int = 256) -> np.ndarray:
+    """The VOC label palette ([num_classes, 3] uint8): the class index's
+    bits spread over the RGB bit-planes."""
+    pal = np.zeros((num_classes, 3), np.uint8)
+    for i in range(num_classes):
+        c, r, g, b = i, 0, 0, 0
+        for j in range(8):
+            r |= ((c >> 0) & 1) << (7 - j)
+            g |= ((c >> 1) & 1) << (7 - j)
+            b |= ((c >> 2) & 1) << (7 - j)
+            c >>= 3
+        pal[i] = (r, g, b)
+    return pal
+
+
+def colorize_mask(mask: np.ndarray, ignore_label: int | None = 255
+                  ) -> np.ndarray:
+    """Int mask [H, W] or [N, H, W] -> RGB uint8 through the VOC palette;
+    ``ignore_label`` pixels white."""
+    mask = np.asarray(mask)
+    rgb = voc_palette(256)[np.where((mask >= 0) & (mask < 256), mask, 0)]
+    if ignore_label is not None:
+        rgb = np.where((mask == ignore_label)[..., None], np.uint8(255), rgb)
+    return rgb
 
 
 def save_png(path: str, image: np.ndarray) -> str:

@@ -324,7 +324,7 @@ def test_recipe_values_are_refused_by_name(sets, match):
 @pytest.mark.parametrize("entry,flags,match", [
     ("train", ["--mesh", "4x2"], "--mesh"),
     ("test", ["--fid"], "--fid"),
-    ("test", ["--export", "x"], "--export"),
+    ("test", ["--export", "x", "--int8"], "--int8"),
     ("test", ["--tta", "x8"], "x8")],
     ids=["mesh", "fid", "export", "tta_x8"])
 def test_flags_the_port_does_not_take_are_refused_by_name(tmp_path, entry,

@@ -252,7 +252,7 @@ def _args(kind):
 
 @pytest.mark.parametrize("entry,extra,match", [
     (test, ["--ckpt", "x", "--fid"], "--fid"),
-    (test, ["--ckpt", "x", "--export", "out"], "--export")])
+    (test, ["--ckpt", "x", "--export", "out", "--int8"], "--int8")])
 def test_entry_points_refuse_unported_flags(entry, extra, match):
     with pytest.raises(SystemExit, match=match):
         entry.main(_args("pix2pix") + ["--device", "cpu", *extra])

@@ -1642,3 +1642,119 @@ def test_unet_eval_on_card_matches_host(cuda):
     assert kernels.launch_counts()["bn_act"] == 13
     err = float((got - host).abs().max())
     assert err <= 0.05 * float(host.abs().max()), err
+
+
+# ------------------------------------------------ the kernels as custom ops
+
+def _op_cases(cuda):
+    """(op, its module's direct launch, args) of the five ops at a served
+    shape each."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=g, device=cuda).to(dtype)
+
+    def vec(c):
+        return torch.rand(c, generator=g, device=cuda) + 0.5
+    return {
+        "bn_act": (torch.ops.mcn.bn_act.default, bn_act.launch_cuda,
+                   (rnd(8, 14, 14, 256), vec(256), vec(256) - 1.0,
+                    "relu")),
+        "conv_pair": (torch.ops.mcn.conv_pair.default, conv_pair.launch_cuda,
+                      (rnd(8, 14, 14, 1024), rnd(1, 1, 1024, 256) * 0.03,
+                       vec(256), vec(256) - 1.0, rnd(3, 3, 256, 256) * 0.02,
+                       vec(256), vec(256) - 1.0)),
+        "conv_fused": (torch.ops.mcn.conv_fused.default,
+                       conv_fused.launch_cuda,
+                       (rnd(4, 33, 33, 304), rnd(3, 3, 304, 256) * 0.02,
+                        vec(256), vec(256) - 1.0, None)),
+        "flash_attention_fwd": (
+            torch.ops.mcn.flash_attention_fwd.default, fa.launch_fwd_cuda,
+            (rnd(8, 12, 197, 64), rnd(8, 12, 197, 64),
+             rnd(8, 12, 197, 64), 0.125)),
+        "correlation_fwd": (
+            torch.ops.mcn.correlation_fwd.default, correlation.launch_fwd_cuda,
+            (rnd(4, 96, 128, 32), rnd(4, 96, 128, 32), 4))}
+
+
+# each op's name is its wrapper's in kernels.WRAPPERS
+@pytest.mark.parametrize("name", ["bn_act", "conv_fused", "conv_pair",
+                                  "correlation_fwd", "flash_attention_fwd"])
+def test_op_cuda_implementation_gives_the_direct_launchs_bits(cuda, name):
+    """Each op's CUDA implementation is the kernel's launch: the same bits
+    as the direct launch, one counted launch each, and no plain version."""
+    op, direct, args = _op_cases(cuda)[name]
+    kernels.reset_launch_counts()
+    got = op(*args)
+    want = direct(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(*((got, want) if isinstance(got, tuple)
+                      else ((got,), (want,)))):
+        assert g.device.type == "cuda" and g.dtype == w.dtype
+        assert g.stride() == w.stride() and torch.equal(g, w)
+    assert kernels.launch_counts() == {
+        **{n: 0 for n in kernels.WRAPPERS}, name: 2}
+
+
+# the public wrapper of each op: (module, op attribute, call)
+_WRAPPER_CALLS = {
+    "bn_act": (bn_act, "_OP", bn_act.fused_scale_shift_act),
+    "conv_pair": (conv_pair, "_OP", conv_pair.conv1x1_conv3x3_bn_relu),
+    "conv_fused": (conv_fused, "_OP", lambda x, w3, s, b, split:
+                   conv_fused.conv3x3_bn_relu(x, w3, s, b, split=split)),
+    "flash_attention_fwd": (fa, "_FWD_OP", fa.flash_attention_fwd),
+    "correlation_fwd": (correlation, "_FWD_OP", correlation.correlation_fwd)}
+
+
+@pytest.mark.parametrize("name", sorted(_WRAPPER_CALLS))
+def test_wrapper_launches_without_the_op_on_the_card(cuda, monkeypatch,
+                                                     name):
+    """Outside a torch.export trace a wrapper launches its kernel directly
+    on CUDA tensors: the op (the dispatcher's host time a launch) is not
+    called, and the bits are the op's."""
+    op, _, args = _op_cases(cuda)[name]
+    want = op(*args)
+    module, attr, call = _WRAPPER_CALLS[name]
+
+    def no_op(*a):
+        raise AssertionError(f"{name}: the eager path called the op")
+    monkeypatch.setattr(module, attr, no_op)
+    kernels.reset_launch_counts()
+    got = call(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {
+        **{n: 0 for n in kernels.WRAPPERS}, name: 1}
+    for g, w in zip(*((got, want) if isinstance(got, tuple)
+                      else ((got,), (want,)))):
+        assert torch.equal(g, w)
+
+
+def test_resnet_exported_on_the_card_runs_the_kernels(cuda, tmp_path):
+    """A width-16 bf16 ResNet-50 exported on cuda, loaded and run: the
+    eager program's bits, and the same launches (10 conv_pair, 13 bn_act,
+    the graph's mcn:: nodes)."""
+    x = np.random.RandomState(3).randn(2, 32, 32, 3).astype(np.float32)
+
+    def trees():
+        model = models.resnet50(10, width=16)
+        return model, *random_jax_params(model, seed=0)
+    path = str(tmp_path / "r50.pt2")
+    serving.export_inference(*trees(), x, path, device=cuda, policy=BF16)
+    meta = serving.artifact_meta(path)
+    assert meta["device"] == "cuda" and meta["ops"] == {
+        "bn_act": 13, "conv_pair": 10}
+    with pytest.raises(ValueError, match="exported for cuda, not cpu"):
+        serving.load_inference(path, "cpu")
+    fn = serving.load_inference(path)
+    eager = serving.make_inference_fn(*trees(), device=cuda, policy=BF16)
+    want_counts = {**{n: 0 for n in kernels.WRAPPERS}, "conv_pair": 10,
+                   "bn_act": 13}
+    kernels.reset_launch_counts()
+    want = eager(x)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == want_counts
+    kernels.reset_launch_counts()
+    got = fn(x)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == want_counts
+    assert got.device.type == "cuda" and torch.equal(got, want)

@@ -275,7 +275,7 @@ def test_build_route_needs_one_weight_source():
 
 def test_parse_route_spec():
     assert serving_http.parse_route_spec("s=segment:c.py:runs/x") == (
-        "s", "segment", "c.py", "runs/x")
+        "s", "segment", "c.py", "runs/x", None)
     for bad in ("noequals", "name=onlykind", "n=segment:c.py", "=a:b:c"):
         with pytest.raises(ValueError, match="NAME=KIND:CONFIG:CKPT"):
             serving_http.parse_route_spec(bad)
