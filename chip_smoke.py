@@ -67,8 +67,8 @@
    settings that reach the RandAugment kernels (the pallas backend, the
    canonical pool, AutoAugment "imagenet"); step 1 at batch 8 on the card
    against the host from seeded JAX-layout weights with the same draws and
-   drop-path masks; ``train.main`` for 20 steps at batch 256 as 2
-   microbatches with a validation every 10 steps (12 forward, 12 dQ and 12
+   drop-path masks; ``train.main`` for 10 steps at batch 256 as 2
+   microbatches with a validation every 5 steps (12 forward, 12 dQ and 12
    dK/dV launches a microbatch, 12 forward launches an eval batch, no
    RandAugment kernel; every loss finite, every parameter moved); the
    recipe's batch of 1024 as 4 microbatches of 256 (images/s, device busy
@@ -93,8 +93,8 @@
     JAX-layout weights that are non-zero in the flow heads too (their zero
     init would make every upstream gradient zero), with the same flips and
     jitter factors, and the eval flows from those weights (whole pixels)
-    against the host's plain path; ``train.main`` for 20 steps at batch 32 with a
-    validation every 10 steps on 64 rendered scenes (5 forward launches a
+    against the host's plain path; ``train.main`` for 10 steps at batch 32
+    with a validation every 5 steps on 64 rendered scenes (5 forward launches a
     train forward and an eval batch, 5 of each backward kernel a step, no
     other kernel; every loss finite, every parameter moved); the step's
     pairs/s, host enqueue ms, device busy ms, idle share, top kernels and
@@ -106,7 +106,7 @@
 14. ResNet-50 training (``configs/imagenet_resnet50.py`` as written):
     step 1 at batch 8 on the card against the host (float32 policy), from
     seeded JAX-layout weights with the same crop boxes, flips and jitter
-    factors; ``train.main`` for 20 steps at the recipe's 1024 as 2
+    factors; ``train.main`` for 10 steps at the recipe's 1024 as 2
     microbatches of 512 on a rendered split of 1024 images, its
     validation and ``test.main`` on the checkpoint (13 conv_pair and 7
     bn_act launches an eval batch, none in a train step; restored logits
@@ -143,15 +143,15 @@
     513 x 513 on the card against the host (float32 and bf16, the same
     pairs, boxes, flips and ASPP dropout mask, the rounding witnesses and
     bounds of step 16's); ``train.main`` on the recipe as written (its
-    synthetic run at 96 x 96) for 20 steps of 16 with a validation every
-    10, ``test.main`` on its checkpoint with and without ``--scales
+    synthetic run at 96 x 96) for 10 steps of 16 with a validation every
+    5, ``test.main`` on its checkpoint with and without ``--scales
     0.75,1.0,1.25`` (mIoU; conv_pair 11, conv_fused 2 and bn_act 18
     launches an eval forward, none in a train step; restored outputs equal
     the writer's and agree with the host's plain path, under ``--scales``
     each forward's logits and the averaged probabilities); then the
     recipe's 513 x 513 crops of 512 x 512 frames at batch 16 from
     ``recipes.segmenter_trainer``:
-    20 steps through ``Trainer.fit``, a validation that launches one eval
+    10 steps through ``Trainer.fit``, a validation that launches one eval
     forward's kernels, the logits against the host's, and the step's
     images/s, host enqueue ms, device busy ms, idle share, top kernels and
     peak memory.
@@ -178,8 +178,8 @@
     step rate.
 16. The ConvNet API (``models/base.py``) through the entry points
     (``convnet_api_run``).  (a) ResNet-50 at full width: ``train.main`` on
-    ``configs/imagenet_resnet50.py`` at 1024 as 2 x 512 (bf16) for 20
-    steps, validating every 10, with EMA 0.9999, lookahead and random
+    ``configs/imagenet_resnet50.py`` at 1024 as 2 x 512 (bf16) for 10
+    steps, validating every 5, with EMA 0.9999, lookahead and random
     erasing 0.25 (conv_pair 13 and bn_act 7 an eval batch, none in a
     step), ``test.main --best --ema --tta ten_crop --topk 5 --report``
     (130 and 70: ten views of one batch; the report goes to
@@ -209,7 +209,7 @@
     full batch, bit for bit.  ResNet-50 as written through ``train.main
     --data_dir`` on an ImageNet layout of 1000 class directories (2048
     train and 512 val files linked from ``tests/fixtures/torch_io``) at
-    1024 as 2 x 512, 10 steps validating once, then ``test.main``: the
+    1024 as 2 x 512, 6 steps validating once, then ``test.main``: the
     step's ms, images/s and input_wait_frac from the run's log beside the
     synthetic run of step 14, peak memory, B5 13 and B1 7 an eval batch of
     512 held by shape (step 3's rows at batch 512), the restored logits
@@ -262,9 +262,9 @@
     ``sngan_fid``).
 23. Export (``export_run``): each task kind the port exports, at full
     width from the recipe as written (weights from its seed, synthetic
-    splits cut to a few items): ResNet-50 and ViT-B/16 (classify, batch
-    8), DeepLabv3+ at 513 x 513 (segment, from a VOCdevkit corpus of the
-    fixtures, batch 4), pix2pix (translate, 4), DCGAN (sample, 4) and
+    splits cut to a few items): ResNet-50, ViT-B/16 and Swin-T (classify,
+    batch 8; Swin-T's graph holds no mcn:: op), DeepLabv3+ at 513 x 513
+    (segment, from a VOCdevkit corpus of the fixtures, batch 4), pix2pix (translate, 4), DCGAN (sample, 4) and
     PWC-Net (flow, 4).  Each: a checkpoint, ``test.main --export`` (no
     launch: traced with fake tensors; the seconds and MB; the graph's
     mcn:: nodes), ``serve.main --artifact`` in the kind's mode over the
@@ -272,11 +272,51 @@
     built in memory from the same checkpoint on one batch of wire rows
     (the same launches by shape, recorded inside the ops, and the same
     bits, DCGAN within EXPORT_TOL), and ``serve.main --artifact
-    --latency`` (p50, p95 at sizes 1 and 8) beside the in-memory
-    program's at the artifact's batch.  Then the DeepLab artifact behind
-    the ``NAME=KIND:ARTIFACT:CONFIG`` route spec over HTTP: a fixture JPEG
+    --latency`` (p50, p95 at sizes 1 and 8; DeepLab's at 1) beside the
+    in-memory program's at the artifact's batch.  Then the DeepLab artifact
+    behind the ``NAME=KIND:ARTIFACT:CONFIG`` route spec over HTTP: a
+    fixture JPEG
     (B2 1 at [1, 513, 513, 3], then B5 11, B4 2, B1 18).  Paths
     ``export_*``.
+
+24. Swin-T (``swin_run``): ``configs/imagenet_swin_t.py`` as written
+    (bf16, RandAugment (2, 9) over the FAST pool, MixUp/CutMix, drop-path
+    0.2, AdamW with clipping): step 1 at batch 4 on the card against the
+    host (the same draws and drop-path masks); ``train.main`` for 3 steps
+    of 1024 as 4 microbatches and ``test.main`` on its checkpoint, no
+    kernel launched in either (the window attention is plain ops: the
+    flash kernels take no additive bias); restored logits equal the
+    writer's and agree with the host's plain path; the step's images/s,
+    host enqueue, device busy, idle share, peak memory, and the window
+    attention modules' forward and backward alone at the step's shapes
+    beside the busy time.
+25. MAE ViT-B/16 (``mae_run``): ``configs/imagenet_mae_vit_b16.py`` at
+    MAE_BATCH, the largest batch that fits (its ``mesh=dict(data=None)``
+    is the one card): step 1 at batch 4 against the host with the same
+    views and masking draw; ``train.main`` for 3 steps with the kNN probe
+    at the end and ``test.main`` (the probe, the encoder re-exported):
+    each flash kernel 12 times at the encoder's [B, 12, 50, 64] and 8 at
+    the decoder's [B, 16, 197, 32] a step, the forward 12 at [B, 12, 197,
+    64] a probe batch, every launch held by shape (the backward's inside
+    the autograd Function); losses finite; the restored probe features
+    equal the writer's and agree with the host's; ``encoder.npz``
+    warm-starts ``vit_b16`` bit for bit; the step's rate; a step at twice
+    the batch, which should not fit.  Step 3's flash rows hold MAE's three
+    shapes (path ``mae``).  Then ``configs/cifar10_mae.py`` as written
+    (``tinymae``, float32, batch 128; ``mae_cifar_run``): step 1 against
+    the host, train.main and test.main (no kernel in a step: float32
+    attention is the einsum path; normalize_u8 once a probe batch).
+26. SimCLR (``simclr_run``): ``configs/cifar10_simclr.py`` as written
+    (SmallNet, float32, batch 128) and ``configs/imagenet_simclr_resnet50.py``
+    (ResNet-50, bf16, LARS) at SIMCLR_R50_BATCH, the largest batch that
+    fits: step 1 of each at batch 4 against the host (both views' draws),
+    ``train.main`` for 3 steps with the probe and ``test.main``: no kernel
+    in a train step; a probe batch SmallNet's 6 bn_act and 1
+    normalize_u8, or ResNet-50's 13 conv_pair and 7 bn_act, held by shape
+    at step 3's rows (paths ``simclr_smallnet``, ``simclr_resnet50``);
+    loss and contrast_acc finite; the probe features against the host's;
+    each step's rate; a ResNet-50 step at twice the batch, which should
+    not fit.
 
 Every kernel's record carries its bound: the larger of the bytes it must
 move over 3.35 TB/s and the operations it must do over the peak rate of
@@ -305,7 +345,9 @@ constants changed), each held against its plain version, and writes
 
 Exits non-zero on any failure.  The second-to-last line of stdout is the
 kernels' JSON record (thirteen entries; bn_act's ``by_path`` has the GAN
-paths ``dcgan`` and ``pix2pix``, and the routes' and ``sngan_fid``; a
+paths ``dcgan`` and ``pix2pix``, and the routes' and ``sngan_fid``, and
+with conv_pair's the SimCLR probes'; each flash kernel's ``vit`` and
+``mae``; a
 correlation entry's ``ms``, ``plain_ms`` and ``bound_ms`` sum one PWC-Net
 and one FlowNetC train step, and the forward's one flow-route forward too,
 its ``launches`` the paths' runs, and ``by_path`` splits them), the last
@@ -442,16 +484,47 @@ LOGIT_REL_TOL_F32 = 1e-5
 # where-fold, no kernel)
 VIT_CONFIG = os.path.join(ROOT, "configs", "imagenet_vit_b16.py")
 VIT_SET = []
-VIT_BATCH, VIT_ACCUM, VIT_STEPS, VIT_VAL_EVERY = 256, 2, 20, 10
+VIT_BATCH, VIT_ACCUM, VIT_STEPS, VIT_VAL_EVERY = 256, 2, 10, 5
 VIT_STEP1_BATCH = 8
 VIT_SPLIT = 256   # images in each synthetic split, as the JAX package
 VIT_RECIPE_BATCH, VIT_RECIPE_ACCUM = 1024, 4
 VIT_DEPTH = 12
-# flash shapes [B, H, L, D] and how many launches of each kernel one
-# forward (and backward) of the recipe's microbatch of 256 makes there;
-# (BATCH, ...) is the ViT-B/16 artifact's call in the export phase
-FLASH_SITES = [((128, 12, 197, 64), 0), ((256, 12, 197, 64), VIT_DEPTH),
-               ((32, 12, 577, 64), 0), ((BATCH, 12, 197, 64), 0)]
+# The self-supervised recipes (task "ssl") and Swin-T: MAE ViT-B/16 and the
+# ImageNet SimCLR ResNet-50 at the largest batch that fits the card (a cut
+# in batch only), a few steps each; step 1 of each at SSL_STEP1_BATCH on
+# the card against the host.  MAE's flash sites a step: the encoder's 12
+# blocks on the kept quarter of the 196 patches and the class token (L =
+# 50, 12 heads of 64), the decoder's 8 blocks on all 197 tokens (16 heads
+# of 32); a probe batch runs the encoder on all 197.
+MAE_CONFIG = os.path.join(ROOT, "configs", "imagenet_mae_vit_b16.py")
+MAE_BATCH, MAE_DEPTH, MAE_DEC_DEPTH = 1024, 12, 8
+MAE_SITES = [((MAE_BATCH, 12, 50, 64), MAE_DEPTH),
+             ((MAE_BATCH, 16, 197, 32), MAE_DEC_DEPTH)]
+MAE_PROBE_SHAPE = (MAE_BATCH, 12, 197, 64)
+# the CPU-size MAE recipe as written (tinymae, float32: its attention is
+# the einsum path; B2 once a probe batch of 128 at 32 x 32)
+MAE_CIFAR_CONFIG = os.path.join(ROOT, "configs", "cifar10_mae.py")
+SIMCLR_CIFAR_CONFIG = os.path.join(ROOT, "configs", "cifar10_simclr.py")
+SIMCLR_R50_CONFIG = os.path.join(ROOT, "configs",
+                                 "imagenet_simclr_resnet50.py")
+SIMCLR_R50_BATCH = 512
+SSL_STEPS, SSL_STEP1_BATCH = 3, 4
+# Swin-T as written at its batch of 1024 as SWIN_ACCUM microbatches, on a
+# rendered split of one batch (on an H100 80GB HBM3 the step at 4 x 256
+# peaked at 26.2 GiB, at 8 x 128 at 13.8; MAE-B16 at 1024 at 70.3 GiB,
+# 2048 did not fit; SimCLR ResNet-50 at 512 at 47.1 GiB, 1024 did not)
+SWIN_CONFIG = os.path.join(ROOT, "configs", "imagenet_swin_t.py")
+SWIN_BATCH, SWIN_ACCUM, SWIN_STEPS, SWIN_SPLIT = 1024, 4, 3, 1024
+SWIN_STEP1_BATCH = 4
+# flash shapes [B, H, L, D], how many launches of each kernel one forward
+# (and backward) of the path's train step (ViT: its recipe's microbatch of
+# 256) makes there, and the path; (BATCH, ...) is the ViT-B/16 artifact's
+# call in the export phase, MAE_PROBE_SHAPE a MAE probe batch's forward
+FLASH_SITES = [((128, 12, 197, 64), 0, "vit"),
+               ((256, 12, 197, 64), VIT_DEPTH, "vit"),
+               ((32, 12, 577, 64), 0, "vit"), ((BATCH, 12, 197, 64), 0, "vit"),
+               *((shape, sites, "mae") for shape, sites in MAE_SITES),
+               (MAE_PROBE_SHAPE, 0, "mae")]
 FLASH = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv")
 # kernel vs plain: the kernel rounds P (and dS) to bf16 before the second
 # product and sums in another order: the output within 2 bf16 ulps of
@@ -494,7 +567,7 @@ POLICY_TOL, POLICY_FRAC = 1e-4, 1e-3
 PWC_CONFIG = os.path.join(ROOT, "configs", "chairs_pwcnet.py")
 FLOWNET_CONFIG = os.path.join(ROOT, "configs", "chairs_flownet_s.py")
 FLOW_BATCH, FLOW_SCENES = 32, 64
-PWC_STEPS, PWC_VAL_EVERY, PWC_STEP1_BATCH = 20, 10, 2
+PWC_STEPS, PWC_VAL_EVERY, PWC_STEP1_BATCH = 10, 5, 2
 PWC_LEVELS = 5          # cost volumes of one PWC-Net forward
 FLOWNETC_STEPS = 4
 CORR = ("correlation_fwd", "correlation_bwd_f1", "correlation_bwd_f2")
@@ -523,7 +596,7 @@ CORR_GRAD_ULPS = 2
 FLOW_REL_TOL = 0.05
 # BASELINE configs #1-#3 (and ResNet-50 training, config #2): the recipes as
 # written, full width, on synthetic splits of one recipe batch
-R50_BATCH, R50_ACCUM, R50_STEPS = 1024, 2, 20
+R50_BATCH, R50_ACCUM, R50_STEPS = 1024, 2, 10
 STEP1_BATCH = {"resnet50": 8, "vgg16": 4, "densenet121": 4}
 # eval forward launches: ResNet-50 unfolded (validation and test.main),
 # SmallNet under each policy, VGG-16 and DenseNet-121 under bf16
@@ -597,7 +670,7 @@ DENSENET_ACT_SITES = [("densenet stem.conv", (1024, 112, 112, 64), 1),
 # crops of 512 x 512 frames at its batch of 16, built from its parts
 VOC_CONFIG = os.path.join(ROOT, "configs", "voc_deeplabv3plus.py")
 SEG_BATCH, SEG_HW, SEG_RAW = 16, (513, 513), (512, 512)
-SEG_STEPS, SEG_VAL_EVERY, SEG_SPLIT = 20, 10, 64
+SEG_STEPS, SEG_VAL_EVERY, SEG_SPLIT = 10, 5, 64
 SEG_SCALES = (0.75, 1.0, 1.25)
 # the sides test.main --scales feeds the model: SEG_SCALES of the 96 x 96
 # frames (72, 96, 120)
@@ -687,7 +760,7 @@ API_R50_SETS = [f"accum_steps={R50_ACCUM}", f"synthetic_n={R50_BATCH}",
                 "optimizer.ema_decay=0.9999", "optimizer.lookahead=True",
                 "erase_prob=0.25"]
 API_R50_STEPS, API_R50_VAL_EVERY, TEN_CROP_VIEWS, API_TTA_CHECK_N = \
-    20, 10, 10, 8
+    10, 5, 10, 8
 API_R18_SETS = ["sam_rho=0.05", "optimizer.plateau=True",
                 "plateau_factor=0.5", "plateau_patience=1",
                 "optimizer.freeze=['stem']"]
@@ -708,9 +781,9 @@ SAM_MIN_RATIO = 1.3
 # PAIRS_FILES_TRAIN images with the generator's EMA, then generate.main
 # --input over GENERATE_INPUTS images, with and without --ema.
 FIXTURES = os.path.join(ROOT, "tests", "fixtures", "torch_io")
-# (FILES_STEPS is 10, not the 20 of the other runs, to keep the script
-# inside its time with the export phase)
-FILES_CLASSES, FILES_TRAIN, FILES_VAL, FILES_STEPS = 1000, 2048, 512, 10
+# (FILES_STEPS is 6, to keep the script inside its time with the export,
+# Swin and self-supervised phases)
+FILES_CLASSES, FILES_TRAIN, FILES_VAL, FILES_STEPS = 1000, 2048, 512, 6
 # steps of a file run left out of its rate (the first cuDNN plans, the
 # prefetcher filling)
 FILES_WARMUP = 3
@@ -768,7 +841,11 @@ KERNEL_PATH_RUNS = {
     **{f"export_{name}": tuple(f"export_{name}_{part}" for part in (
         "export", "serve", "artifact", "memory"))
        for name in ("resnet50", "deeplab", "pix2pix", "dcgan")},
-    "export_route": ("export_route",)}
+    "export_route": ("export_route",),
+    # the SimCLR probes: SmallNet's eval forward at 128, ResNet-50's at
+    # SIMCLR_R50_BATCH
+    "simclr_smallnet": ("simclr_cifar_train", "simclr_cifar_test"),
+    "simclr_resnet50": ("simclr_r50_train", "simclr_r50_test")}
 # the file phases' runs (a run of a phase the machine cannot run counts 0)
 FILE_RUNS = ("c6_evaluate", "files_r50_train", "files_r50_test",
              "files_deeplab_train", "files_deeplab_test",
@@ -794,7 +871,8 @@ PATH_ROWS = {"deeplab_scales": tuple(f"deeplab_{hw}" for hw in SEG_SCALE_HW),
              "export_route": ("routes_segment",),
              "export_pix2pix": ("routes_translate",),
              "export_dcgan": (f"dcgan_{EXPORT_GAN_BATCH}",),
-             "export_pwcnet": ("routes_flow",)}
+             "export_pwcnet": ("routes_flow",),
+             "simclr_smallnet": ("smallnet_f32",)}
 # The routes phase: one HTTP server on localhost with a route of each kind
 # at full width from seeded JAX-layout weights, every route behind the
 # micro-batcher (ROUTE_WINDOW_MS): segment (configs/voc_deeplabv3plus.py at
@@ -849,6 +927,8 @@ EXPORT_CASES = {
     "resnet50": (CONFIG, "classify", PER_CALL, BATCH, ["synthetic_n=8"]),
     "vit_b16": (VIT_CONFIG, "classify", {"flash_attention_fwd": VIT_DEPTH},
                 BATCH, ["synthetic_n=8"]),
+    # Swin-T: plain ops only (its window attention takes no flash kernel)
+    "swin_t": (SWIN_CONFIG, "classify", {}, BATCH, ["synthetic_n=8"]),
     "deeplab": (VOC_CONFIG, "segment", ROUTE_PER_CALL["segment"],
                 ROUTE_BATCH, []),
     "pix2pix": (PIX2PIX_CONFIG, "translate", ROUTE_PER_CALL["translate"],
@@ -857,6 +937,9 @@ EXPORT_CASES = {
     "pwcnet": (PWC_CONFIG, "flow", ROUTE_PER_CALL["flow"], ROUTE_BATCH,
                ["synthetic_n=4"])}
 EXPORT_SIZES = (1, 8)
+# DeepLab's artifact at size 1 only (its size-8 requests, two device calls
+# of 4 at 513 x 513, took ~45 s of the phase's latency runs)
+EXPORT_LATENCY_SIZES = {"deeplab": (1,)}
 # the artifact against the in-memory program: bit for bit, but DCGAN's
 # float32 [0, 1] images within 4 ulps of 1.0 (its transposed convs go
 # through cuDNN's backward-data algorithms, whose choice and order the
@@ -1212,6 +1295,7 @@ def check_kernels(dev, plan=None):
     details += check_gan_kernels(dev, g)
     details += check_io_kernels(dev, g, plan or {})
     details += check_route_kernels(dev, g)
+    details += check_ssl_kernels(dev, g)
     for name in SOURCES:
         rows = [r for r in details if r["kernel"] == name]
         on_path = [r for r in rows if r["sites"]]
@@ -1887,7 +1971,7 @@ def check_flash_kernels(dev, g):
         return d, d <= tol and bool(torch.isfinite(out).all())
 
     rows = []
-    for (b, h, l, d), sites in FLASH_SITES:
+    for (b, h, l, d), sites, path in FLASH_SITES:
         # q, k and v as the ViT hands them over: views of a packed qkv
         q, k, v = (t.transpose(1, 2) for t in rnd(b, l, 3, h, d).unbind(2))
         do = rnd(b, h, l, d)
@@ -1939,6 +2023,7 @@ def check_flash_kernels(dev, g):
             fn, plain_fn, lib_fn = fns[name]
             b_ms, b_by = bound(*sizes[name], BF16_FLOPS)
             r = dict(kernel=name, shape=[b, h, l, d], sites=sites,
+                     path=path,
                      max_abs_err=max(e for e, _, _ in errs.values()),
                      errors={w: [e, t] for w, (e, _, t) in errs.items()},
                      ok=all(ok for _, ok, _ in errs.values()),
@@ -2802,10 +2887,11 @@ def check_policies_against_host(dev):
     return out
 
 
-def vit_step_one(dev):
-    """Step 1 of the ViT-B/16 recipe at batch 8 from seeded JAX-layout
-    weights, with the same batch, crop boxes, flips, MixUp/CutMix draws
-    and drop-path masks on the card and on the host."""
+def vit_step_one(dev, cfg=None, n=VIT_STEP1_BATCH, what="ViT-B/16"):
+    """Step 1 of the ViT-B/16 recipe (or another attention classifier's,
+    ``cfg``) at batch ``n`` from seeded JAX-layout weights, with the same
+    batch, crop boxes, flips, MixUp/CutMix draws and drop-path masks on
+    the card and on the host."""
     import numpy as np
     import torch
 
@@ -2813,14 +2899,13 @@ def vit_step_one(dev):
     from myconvnet_tpu_torch.data.mix import MixDraws
     from myconvnet_tpu_torch.train.trainer import StepDraws
 
-    cfg = vit_cfg()
+    cfg = cfg or vit_cfg()
     card, train_set, _ = recipes.build_trainer(cfg, True, device=dev)
     host, _, _ = recipes.build_trainer(cfg, True,
                                        device=torch.device("cpu"))
     params, state = weights.random_jax_params(card.model, SEED)
     for t in (card, host):
         weights.from_jax(t.model, params, state)
-    n = VIT_STEP1_BATCH
     xs, ys = train_set.source.get_batch(np.arange(n))
     x, y = torch.from_numpy(xs), torch.from_numpy(ys)
     draws = card.sample(n, tuple(xs.shape[1:3]))
@@ -2835,7 +2920,7 @@ def vit_step_one(dev):
     t2 = time.perf_counter()
     dropped = sum(int((~m).sum()) for m in draws.masks[0].values())
     return step_one_verdict(
-        f"ViT-B/16 step 1 (batch {n})", card, host, loss_card, loss_host,
+        f"{what} step 1 (batch {n})", card, host, loss_card, loss_host,
         f"; {len(draws.masks[0])} drop-path masks, {dropped} paths dropped; "
         f"card {t1 - t0:.2f}s (first, cold), host {t2 - t1:.2f}s")
 
@@ -3359,7 +3444,7 @@ def classifier_cfg(path, sets=()):
 def grad_norms(trainer):
     """{JAX path: the norm of the parameter's gradient}."""
     from myconvnet_tpu_torch import weights
-    return {path: float(p.grad.float().norm())
+    return {path: 0.0 if p.grad is None else float(p.grad.float().norm())
             for path, p, _ in weights.param_views(trainer.model)}
 
 
@@ -4435,7 +4520,8 @@ def convnet_api_run(dev, plain_step):
            f"ten_crop (one batch of {TEN_CROP_VIEWS} views)",
            forwards=TEN_CROP_VIEWS, forward=FORWARD["resnet50"])
     best_step = ckpt_lib.checkpoint_step(ckpt_lib.best_checkpoint(run_dir))
-    if best_step not in (10, 20) or tta_net.trainer.step != best_step:
+    if best_step not in (API_R50_VAL_EVERY, API_R50_STEPS) \
+            or tta_net.trainer.step != best_step:
         raise AssertionError(f"best.npz: step {best_step}, restored "
                              f"{tta_net.trainer.step}")
     top1_avg, avg_net = counted("api_r50_average", test.main,
@@ -5911,7 +5997,7 @@ def export_case(dev, name, counted, root, inputs, voc_root):
     out["launches_by_shape"] = {" ".join(map(str, k)): c
                                 for k, c in sorted(by_shape[0].items())}
     # the flash forward has no by_path: hold its shapes to FLASH_SITES
-    held = {("flash_attention_fwd", *s) for s, _ in FLASH_SITES}
+    held = {("flash_attention_fwd", *s) for s, *_ in FLASH_SITES}
     unheld = [k for k in by_shape[0]
               if k[0] == "flash_attention_fwd" and k not in held]
     if unheld:
@@ -5946,17 +6032,18 @@ def export_case(dev, name, counted, root, inputs, voc_root):
 
     # latency: the artifact through serve --latency, the in-memory program
     # at the artifact's one batch through the same measure
-    sizes = ",".join(map(str, EXPORT_SIZES))
+    request_sizes = EXPORT_LATENCY_SIZES.get(name, EXPORT_SIZES)
+    sizes = ",".join(map(str, request_sizes))
     lat = serve.main(["--artifact", path, "--latency", "--sizes", sizes,
                       "--device", dev.type])
     mem_lat = serving.measure_latency(
         serving.make_batched_server(
             lambda v: mem(torch.as_tensor(v).to(dev)), batch_sizes=(batch,)),
-        shape[1:], request_sizes=EXPORT_SIZES)
+        shape[1:], request_sizes=request_sizes)
     out["latency_ms"] = {
         n: {"artifact": {k: lat[n][k] for k in ("p50", "p95")},
             "memory": {k: mem_lat[n][k] for k in ("p50", "p95")}}
-        for n in EXPORT_SIZES}
+        for n in request_sizes}
     log(f"export {name} latency (p50/p95 ms, artifact | in memory): "
         + "; ".join(f"n={n} {r['artifact']['p50']:.2f}/"
                     f"{r['artifact']['p95']:.2f} | {r['memory']['p50']:.2f}/"
@@ -6030,6 +6117,458 @@ def export_run(dev):
     return counted.runs, counted.shapes, checks
 
 
+def swin_attention_ms(trainer, micro):
+    """CUDA-event ms of the window-attention modules (qkv, the float32
+    score chain with the bias and the mask, proj) forward and backward
+    alone, summed over the blocks of one train step of ``micro`` x the
+    step's microbatches, each at its block's [B * nW, 49, C] bf16 input."""
+    import torch
+
+    total = 0.0
+    for block in trainer.model.blocks():
+        h, w = block.hw
+        c = block.ln1.gamma.shape[0]
+        rows = micro * (h // block.ws) * (w // block.ws)
+        x = torch.randn(rows, block.ws ** 2, c, device=block.ln1.gamma.device,
+                        dtype=torch.bfloat16, requires_grad=True)
+
+        def fwd_bwd():
+            out = block.attn(x)
+            torch.autograd.grad(out, [x, *block.attn.parameters()],
+                                torch.ones_like(out))
+
+        total += cuda_ms(fwd_bwd, iters=3, warmup=1)
+        del x
+    trainer.model.zero_grad(set_to_none=True)
+    return total * trainer.accum_steps
+
+
+def swin_run(dev):
+    """Swin-T (``configs/imagenet_swin_t.py`` as written: bf16, RandAugment
+    (2, 9) over the FAST pool, MixUp/CutMix, drop-path 0.2, AdamW with
+    clipping): step 1 at SWIN_STEP1_BATCH on the card against the host
+    with the same draws and drop-path masks; ``train.main`` for SWIN_STEPS
+    steps of SWIN_BATCH as SWIN_ACCUM microbatches and ``test.main`` (no
+    kernel launched: the window attention is plain ops and takes no flash
+    kernel); the step's rate, idle share and peak memory, and the window
+    attention modules' share of its device busy time.  Returns
+    (train launches, test launches, checks)."""
+    checks = {"step1": vit_step_one(dev, classifier_cfg(SWIN_CONFIG),
+                                    SWIN_STEP1_BATCH, "Swin-T")}
+    train_counts, eval_counts, run, trainer, _ = classifier_run(
+        dev, "Swin-T", SWIN_CONFIG,
+        [f"accum_steps={SWIN_ACCUM}", f"synthetic_n={SWIN_SPLIT}"],
+        steps=SWIN_STEPS, batch=SWIN_BATCH, val_every=0, forward={},
+        split=SWIN_SPLIT, check_n=SWIN_STEP1_BATCH, rate_iters=2,
+        raw_hw=(256, 256))
+    checks.update(run)
+    attn = swin_attention_ms(trainer, SWIN_BATCH // SWIN_ACCUM)
+    busy = run["step"]["device_busy_ms"]
+    checks["window_attention_ms"] = attn
+    checks["window_attention_share"] = None if busy is None else attn / busy
+    log(f"Swin-T window attention (qkv, float32 scores, proj; forward and "
+        f"backward alone at the step's shapes): {attn:.1f} ms a step of "
+        f"{SWIN_BATCH}, share of device busy "
+        f"{checks['window_attention_share']}")
+    return train_counts, eval_counts, checks
+
+
+def flash_backward_shapes(counter):
+    """Count ("flash_attention_dq", b, h, l, d) and its dK/dV twin a
+    backward of the flash autograd Function on CUDA tensors (each launches
+    one dQ and one dK/dV kernel) into ``counter`` while the block runs."""
+    from myconvnet_tpu_torch.ops.kernels import flash_attention as fa
+
+    @contextlib.contextmanager
+    def patched():
+        orig = fa.FlashAttention.backward
+
+        def backward(ctx, do):
+            if do.device.type == "cuda":
+                for name in FLASH[1:]:
+                    counter[(name, *do.shape)] += 1
+            return orig(ctx, do)
+
+        fa.FlashAttention.backward = staticmethod(backward)
+        try:
+            yield counter
+        finally:
+            fa.FlashAttention.backward = staticmethod(orig)
+    return patched()
+
+
+def to_cpu(obj):
+    """Tensors of a draw (tuples, NamedTuples, dicts) on the host."""
+    import torch
+    if isinstance(obj, torch.Tensor):
+        return obj.cpu()
+    if isinstance(obj, dict):
+        return {k: to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, tuple):
+        items = [to_cpu(v) for v in obj]
+        return type(obj)(*items) if hasattr(obj, "_fields") \
+            else tuple(items)
+    return obj
+
+
+def ssl_step_one(dev, what, cfg, n):
+    """Step 1 of a self-supervised recipe at batch ``n`` from seeded
+    JAX-layout weights, with the same batch and draws (the views' boxes,
+    flips, jitter factors and grayscale choices, MAE's masking draw) on
+    the card and on the host."""
+    import numpy as np
+    import torch
+
+    from myconvnet_tpu_torch import recipes_ssl, weights
+
+    card, train_set, _ = recipes_ssl.build_ssl(cfg, True, device=dev)
+    host, _, _ = recipes_ssl.build_ssl(cfg, True, device=torch.device("cpu"))
+    params, state = weights.random_jax_params(card.model, SEED)
+    for t in (card, host):
+        weights.from_jax(t.model, params, state)
+    x = torch.from_numpy(train_set.source.get_batch(np.arange(n))[0])
+    draws = card.sample(n, tuple(x.shape[1:3]))
+    t0 = time.perf_counter()
+    loss_card = card.loss(x.to(dev), draws)["loss"]
+    loss_card.backward()
+    loss_card = float(loss_card.detach())
+    t1 = time.perf_counter()
+    loss_host = host.loss(x, to_cpu(draws))["loss"]
+    loss_host.backward()
+    t2 = time.perf_counter()
+    return step_one_verdict(
+        f"{what} step 1 (batch {n})", card, host, loss_card,
+        float(loss_host.detach()),
+        f"; card {t1 - t0:.2f}s (first, cold), host {t2 - t1:.2f}s")
+
+
+def ssl_run(dev, what, config, sets, *, steps, batch, split, per_step,
+            per_probe_batch, check_n, b2_per_probe=0):
+    """``train.main`` on a self-supervised recipe for ``steps`` steps of
+    ``batch`` (a log line and a checkpoint a step; the kNN probe at the
+    end over the train and val splits of ``split`` images), then
+    ``test.main`` (the probe again, the encoder re-exported): each run's
+    launches held by shape against ``per_step`` (a train step's) and
+    ``per_probe_batch`` (a probe batch's), each a {key: count} of
+    :func:`shape_key`-style keys, and normalize_u8's total against
+    ``b2_per_probe`` a probe batch; the losses (and SimCLR's contrast_acc)
+    finite, ``encoder.npz`` written; the restored trainer's probe
+    features equal the writer's and agree with the host's plain path on
+    ``check_n`` images; the step's rate.  Returns (train launches, test
+    launches, {run: launches by shape}, checks, trainer)."""
+    import shutil
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from myconvnet_tpu_torch import recipes_ssl, test, train
+    from myconvnet_tpu_torch.ops import kernels
+
+    tag = "".join(c if c.isalnum() else "_" for c in what.lower())
+    run_dir = os.path.join(ROOT, "build", f"chip_smoke_{tag}")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    args = ["--config", config, "--synthetic", "--batch", str(batch),
+            *[a for kv in [*sets, f"synthetic_n={split}"]
+              for a in ("--set", kv)], "--device", dev.type]
+    probes = 2 * -(-split // batch)    # the bank's and the query's batches
+
+    def run(fn, argv, n_steps, n_probe):
+        kernels.reset_launch_counts()
+        shapes = Counter()
+        with launch_shapes(shapes), flash_backward_shapes(shapes):
+            out = fn(argv)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        want = Counter()
+        for key, k in per_step.items():
+            want[key] += k * n_steps
+        for key, k in per_probe_batch.items():
+            want[key] += k * n_probe
+        want = {k: v for k, v in want.items() if v}
+        by_shape = {k: v for k, v in shapes.items()
+                    if k[0] != "normalize_u8"}
+        if by_shape != want:
+            raise AssertionError(f"{what}: launches by shape {by_shape}, "
+                                 f"want {dict(want)}")
+        totals = {name: sum(v for k, v in want.items() if k[0] == name)
+                  for name in kernels.WRAPPERS}
+        totals["normalize_u8"] = b2_per_probe * n_probe
+        check_counts(counts, totals, f"{what} ({n_steps} steps, {n_probe} "
+                     "probe batches)")
+        return out, counts, shapes
+
+    t0 = time.perf_counter()
+    trainer, train_counts, train_shapes = run(
+        train.main, args + ["--steps", str(steps), "--out", run_dir,
+                            "--set", "log_every=1", "--set", "val_every=0"],
+        steps, probes)
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(run_dir, f"ssl_{trainer.kind}.jsonl")) as f:
+        rows = [r for r in map(json.loads, f) if "loss" in r]
+    keys = ("loss", "contrast_acc") if trainer.kind == "simclr" \
+        else ("loss",)
+    if len(rows) != steps or not all(np.isfinite(r[k]) for r in rows
+                                     for k in keys):
+        raise AssertionError(f"{what}: metrics not all finite: {rows}")
+    enc = os.path.join(run_dir, "encoder.npz")
+    with np.load(enc) as f:
+        n_keys = len(f.files)
+    log(f"{what}: train.main {steps} steps of {batch} in {seconds:.1f}s "
+        f"(probe and checkpoints included); " + ", ".join(
+            f"{k} first {rows[0][k]:.4f} last {rows[-1][k]:.4f}"
+            for k in keys) + f"; encoder.npz {n_keys} arrays")
+    (knn, restored), test_counts, test_shapes = run(
+        test.main, args + ["--ckpt", run_dir], 0, probes)
+    cfg = classifier_cfg(config, sets)
+    x = torch.from_numpy(recipes_ssl.make_sources(
+        dict(cfg, synthetic_n=check_n), True, splits=("val",))[0].images)
+    writer = trainer.embed(x.to(dev))
+    reread = restored.embed(x.to(dev))
+    host, _, _ = recipes_ssl.build_ssl(dict(cfg, synthetic_n=check_n), True,
+                                       device=torch.device("cpu"))
+    host.load_state(trainer.state())
+    plain = host.embed(x).numpy()
+    card = writer.cpu().numpy()
+    rel = float(np.abs(card - plain).max() / np.abs(plain).max())
+    tol = LOGIT_REL_TOL if cfg.get("precision") == "bf16" \
+        else LOGIT_REL_TOL_F32
+    same = bool(torch.equal(writer, reread))
+    log(f"{what} test.main kNN top-1 {knn:.4f}; restored features equal "
+        f"the writer's: {same}; card vs host plain path on {check_n} "
+        f"images max|diff|/max|feature| = {rel:.4g} (tol {tol})")
+    if not same or not np.isfinite(card).all() or rel > tol:
+        raise AssertionError(f"{what}: probe features disagree")
+    shutil.rmtree(run_dir)
+    del restored, host
+    # the step's rate on the split's first batch
+    xd = torch.from_numpy(recipes_ssl.make_sources(
+        dict(cfg, synthetic_n=batch), True, splits=("train",))[0].images
+        ).to(dev)
+    for _ in range(2):
+        trainer.train_step(xd)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_ms, host_ms = events_ms(lambda: trainer.train_step(xd), 3)
+    peak = torch.cuda.max_memory_allocated(dev)
+    busy, span, n_kernels, top = device_busy(
+        lambda: trainer.train_step(xd), iters=1)
+    rate = dict(batch=batch, accum_steps=1, step_ms=step_ms,
+                images_per_sec=batch * 1e3 / step_ms,
+                host_enqueue_ms=host_ms, device_busy_ms=busy,
+                device_span_ms=span,
+                idle_share=None if busy is None else 1 - busy / step_ms,
+                kernels_per_step=n_kernels, top_kernels=top,
+                max_memory_allocated_gb=peak / 2 ** 30)
+    log_rate(what, rate)
+    checks = dict(metrics=rows, train_seconds=seconds, knn_top1=knn,
+                  probe_feature_rel_err=rel, step=rate,
+                  encoder_arrays=n_keys)
+    shapes = {f"{tag}_train": train_shapes, f"{tag}_test": test_shapes}
+    return train_counts, test_counts, shapes, checks, trainer
+
+
+def next_batch_fits(dev, trainer, cfg, batch):
+    """One train step of ``trainer`` at ``batch`` images of the recipe's
+    synthetic split (twice the phase's: whether the phase's batch is the
+    largest that fits the card): {"fits": True, "peak_gib"} or {"fits":
+    False, "error"} on ``torch.cuda.OutOfMemoryError``."""
+    import torch
+
+    from myconvnet_tpu_torch import recipes_ssl
+
+    x = torch.from_numpy(recipes_ssl.make_sources(
+        dict(cfg, synthetic_n=batch), True, splits=("train",))[0].images)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        trainer.train_step(x.to(dev))
+        torch.cuda.synchronize()
+        out = dict(batch=batch, fits=True,
+                   peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+    except torch.cuda.OutOfMemoryError as e:
+        out = dict(batch=batch, fits=False, error=str(e).split(". ")[0])
+    trainer.optimizer.zero_grad()
+    torch.cuda.empty_cache()
+    log(f"{batch} images a step: {out}")
+    return out
+
+
+def flash_keys(shape, count, kernels=FLASH):
+    return {(name, *shape): count for name in kernels}
+
+
+def mae_run(dev):
+    """MAE ViT-B/16 (``configs/imagenet_mae_vit_b16.py``, bf16, its
+    ``mesh=dict(data=None)``) at MAE_BATCH, the largest batch that fits
+    the card (a cut in batch only): step 1 against the host; train.main
+    and test.main through :func:`ssl_run` (each flash kernel 12 times at
+    the encoder's [B, 12, 50, 64] and 8 at the decoder's [B, 16, 197, 32]
+    a step, the forward 12 at [B, 12, 197, 64] a probe batch); the
+    encoder file warm-starts ``vit_b16``; a step at 2 x MAE_BATCH, which
+    should not fit.  Returns (train launches, test launches, shapes,
+    checks)."""
+    import numpy as np
+    import torch
+
+    from myconvnet_tpu_torch import recipes, weights
+
+    checks = {"step1": ssl_step_one(dev, "MAE-B16",
+                                    classifier_cfg(MAE_CONFIG),
+                                    SSL_STEP1_BATCH)}
+    per_step = {**flash_keys(MAE_SITES[0][0], MAE_DEPTH),
+                **flash_keys(MAE_SITES[1][0], MAE_DEC_DEPTH)}
+    per_probe = flash_keys(MAE_PROBE_SHAPE, MAE_DEPTH, FLASH[:1])
+    train_counts, test_counts, shapes, run, trainer = ssl_run(
+        dev, "MAE-B16", MAE_CONFIG, [], steps=SSL_STEPS, batch=MAE_BATCH,
+        split=MAE_BATCH, per_step=per_step, per_probe_batch=per_probe,
+        check_n=SSL_STEP1_BATCH)
+    checks.update(run)
+    # the encoder file warm-starts the ViT-B/16 classifier
+    path = os.path.join(ROOT, "build", "chip_smoke_mae_encoder.npz")
+    trainer.export_encoder(path)
+    cfg = classifier_cfg(VIT_CONFIG, ["synthetic_n=8"])
+    cfg["pretrained"] = dict(path=path)
+    vit, _, _ = recipes.build_trainer(cfg, True, device=torch.device("cpu"))
+    got, _ = weights.to_jax(vit.model)
+    want, _ = weights.to_jax(trainer.model)
+    loaded = [f"{s}/{k}" for s in want if not s.startswith("decoder")
+              for k in want[s] if np.array_equal(got[s][k], want[s][k])]
+    total = sum(len(d) for s, d in want.items()
+                if not s.startswith("decoder"))
+    os.remove(path)
+    log(f"MAE-B16 encoder.npz -> vit_b16: {len(loaded)} of {total} encoder "
+        "arrays loaded bit for bit")
+    if len(loaded) != total:
+        raise AssertionError("the MAE encoder did not warm-start vit_b16")
+    checks["warm_start_arrays"] = len(loaded)
+    checks["next_batch"] = next_batch_fits(dev, trainer,
+                                           classifier_cfg(MAE_CONFIG),
+                                           2 * MAE_BATCH)
+    return train_counts, test_counts, shapes, checks
+
+
+def mae_cifar_run(dev):
+    """``configs/cifar10_mae.py`` as written (``tinymae``, float32, batch
+    128): step 1 against the host; train.main and test.main through
+    :func:`ssl_run` (no kernel in a step; normalize_u8 once a probe batch
+    of the 512-image splits).  Returns (train launches, test launches,
+    checks)."""
+    checks = {"step1": ssl_step_one(dev, "MAE CIFAR-10",
+                                    classifier_cfg(MAE_CIFAR_CONFIG),
+                                    SSL_STEP1_BATCH)}
+    train_counts, test_counts, _, run, _ = ssl_run(
+        dev, "MAE CIFAR", MAE_CIFAR_CONFIG, [], steps=SSL_STEPS,
+        batch=SMALLNET_BATCH, split=SMALLNET_SPLIT, per_step={},
+        per_probe_batch={}, check_n=SSL_STEP1_BATCH, b2_per_probe=1)
+    checks.update(run)
+    return train_counts, test_counts, checks
+
+
+def simclr_run(dev):
+    """SimCLR: ``configs/cifar10_simclr.py`` as written (SmallNet, float32,
+    batch 128) and ``configs/imagenet_simclr_resnet50.py`` (ResNet-50,
+    bf16, LARS, its ``mesh=dict(data=None)``) at SIMCLR_R50_BATCH, the
+    largest batch that fits the card: step 1 of each against the host;
+    train.main and test.main through :func:`ssl_run` (no kernel in a
+    train step; a probe batch SmallNet's 6 bn_act and normalize_u8 once, or
+    ResNet-50's 13 conv_pair and 7 bn_act, held by shape); a ResNet-50
+    step at 2 x SIMCLR_R50_BATCH, which should not fit.  Returns
+    (train and test launches by run, shapes, checks)."""
+    checks, runs, shapes = {}, {}, {}
+    for tag, config, batch, split, forward, b2 in (
+            ("simclr_cifar", SIMCLR_CIFAR_CONFIG, SMALLNET_BATCH,
+             SMALLNET_SPLIT, smallnet_probe_keys(), 1),
+            ("simclr_r50", SIMCLR_R50_CONFIG, SIMCLR_R50_BATCH,
+             SIMCLR_R50_BATCH, r50_probe_keys(SIMCLR_R50_BATCH), 0)):
+        cfg = classifier_cfg(config)
+        checks[f"{tag}_step1"] = ssl_step_one(dev, tag, cfg,
+                                              SSL_STEP1_BATCH)
+        tr, te, sh, checks[tag], trainer = ssl_run(
+            dev, tag, config, [], steps=SSL_STEPS, batch=batch,
+            split=split, per_step={}, per_probe_batch=forward,
+            check_n=SSL_STEP1_BATCH, b2_per_probe=b2)
+        if tag == "simclr_r50":
+            checks[tag]["next_batch"] = next_batch_fits(dev, trainer, cfg,
+                                                        2 * batch)
+        del trainer
+        runs[f"{tag}_train"], runs[f"{tag}_test"] = tr, te
+        shapes.update(sh)
+    return runs, shapes, checks
+
+
+def smallnet_probe_keys():
+    """SmallNet's (width 32, float32) bn_act launches by shape a probe
+    batch of 128."""
+    return {shape_key("bn_act", shape, dtype): count
+            for _, shape, count, dtype in SMALLNET_ACT_SITES
+            if dtype == "float32"}
+
+
+def r50_probe_keys(batch):
+    """ResNet-50's conv_pair and bn_act launches by shape an eval batch."""
+    keys = {}
+    for shape, count in PAIR_SITES:
+        key = shape_key("conv_pair", (batch, *shape[1:]))
+        keys[key] = keys.get(key, 0) + count
+    for _, shape in ACT_SITES:
+        key = shape_key("bn_act", (batch, *shape[1:]), "bfloat16")
+        keys[key] = keys.get(key, 0) + 1
+    return keys
+
+
+def check_ssl_kernels(dev, g):
+    """conv_pair and bn_act at the ResNet-50 SimCLR probe's eval batch
+    (path ``simclr_resnet50``) against their plain versions, one row per
+    shape."""
+    import torch
+
+    rows = []
+    for shape, count in PAIR_SITES:
+        rows.append(conv_pair_row((SIMCLR_R50_BATCH, *shape[1:]), count,
+                                  "simclr_resnet50", g))
+        torch.cuda.empty_cache()
+    for site, shape in ACT_SITES:
+        x = torch.randn(SIMCLR_R50_BATCH, *shape[1:], generator=g,
+                        device=dev).bfloat16()
+        c = shape[-1]
+        rows.append(bn_act_row(f"simclr r50 {site}", x, torch.rand(
+            c, generator=g, device=dev) + 0.5, torch.randn(
+            c, generator=g, device=dev) * 0.5, 1, "simclr_resnet50"))
+        del x
+    torch.cuda.empty_cache()
+    return rows
+
+
+def flash_by_path(name, details, runs):
+    """A flash kernel's launches and times path by path: ViT's (its
+    train, test, policy and artifact runs) and MAE's (``mae_b16_*``),
+    beside the kernel, plain and bound ms of the rows of one train step
+    (one microbatch for ViT) at the path's shapes."""
+    out = {}
+    for path in ("vit", "mae"):
+        names = [k for k in runs if (k.startswith("mae_b16") if path == "mae"
+                                     else not k.startswith("mae_b16"))]
+        rows = [r for r in details if r["kernel"] == name
+                and r.get("path") == path and r["sites"]]
+        launches = sum(runs[k][name] for k in names)
+        if not launches:
+            continue
+        if not rows:
+            raise AssertionError(f"{name} launched on {path} but held at "
+                                 "none of its shapes")
+        out[path] = dict(
+            launches=launches,
+            **{k: sum(r[k] * r["sites"] for r in rows)
+               for k in ("ms", "plain_ms", "bound_ms")},
+            bound_by=max(rows, key=lambda r: r["bound_ms"] * r["sites"]
+                         )["bound_by"],
+            library_ms=(sum(r["library_ms"] * r["sites"] for r in rows)
+                        if all(r["library_ms"] is not None for r in rows)
+                        else None))
+    return out
+
+
 def step_one_only(specs):
     """Step 1 of ResNet-50, VGG-16 and DenseNet-121 against the host alone
     (``name:batch`` specs, default each at STEP1_BATCH), records in
@@ -6085,7 +6624,8 @@ def main() -> int:
     for path in (CONFIG, CIFAR_CONFIG, VIT_CONFIG, PWC_CONFIG,
                  FLOWNET_CONFIG, VGG_CONFIG, DENSENET_CONFIG, VOC_CONFIG,
                  DCGAN_CONFIG, PIX2PIX_CONFIG, *SMALLNET_CONFIGS.values(),
-                 SNGAN_CONFIG, FIXTURES):
+                 SNGAN_CONFIG, FIXTURES, SWIN_CONFIG, MAE_CONFIG,
+                 SIMCLR_CIFAR_CONFIG, SIMCLR_R50_CONFIG, MAE_CIFAR_CONFIG):
         if not os.path.exists(path):
             print(f"chip_smoke: {path} is missing", file=sys.stderr)
             return 1
@@ -6118,24 +6658,31 @@ def main() -> int:
     log(f"kernels built: {lib_path.relative_to(ROOT)} compile "
         f"{compile_s:.1f}s, build+load {time.perf_counter() - t0:.1f}s")
 
-    summary, details = check_kernels(dev, plan)
-    pair_plans, plans_ok = sweep_conv_pair_plans(
-        dev, torch.Generator(device=dev).manual_seed(SEED))
+    summary, details = phase("kernel rows", check_kernels, dev, plan)
+    pair_plans, plans_ok = phase(
+        "conv_pair plans", sweep_conv_pair_plans, dev,
+        torch.Generator(device=dev).manual_seed(SEED))
     summary["conv_pair"]["ok"] &= plans_ok
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    counts, calls, checks = serve_and_check(dev)
-    train_counts, eval_counts, checks["cifar"] = train_and_check(dev)
+    counts, calls, checks = phase("serving", serve_and_check, dev)
+    train_counts, eval_counts, checks["cifar"] = phase(
+        "CIFAR-100 ResNet-18", train_and_check, dev)
     torch.cuda.empty_cache()
-    checks["policies_vs_host"] = check_policies_against_host(dev)
-    vit_train, vit_test, checks["vit"] = vit_train_and_check(dev)
+    checks["policies_vs_host"] = phase("policies vs host",
+                                       check_policies_against_host, dev)
+    vit_train, vit_test, checks["vit"] = phase("ViT-B/16",
+                                               vit_train_and_check, dev)
     torch.cuda.empty_cache()
-    policy_runs, checks["vit_policies"] = vit_policy_runs(dev)
-    checks["augment_rate"] = augment_rates(dev)
+    policy_runs, checks["vit_policies"] = phase("ViT policies",
+                                                vit_policy_runs, dev)
+    checks["augment_rate"] = phase("augment rates", augment_rates, dev)
     torch.cuda.empty_cache()
-    pwc_train, pwc_test, checks["pwcnet"] = pwc_train_and_check(dev)
+    pwc_train, pwc_test, checks["pwcnet"] = phase(
+        "PWC-Net", pwc_train_and_check, dev)
     torch.cuda.empty_cache()
-    flownetc_counts, checks["flownetc"] = flownetc_run(dev)
+    flownetc_counts, checks["flownetc"] = phase("FlowNetC", flownetc_run,
+                                                dev)
     torch.cuda.empty_cache()
     r50_train, r50_test, checks["resnet50"] = phase(
         "ResNet-50 training", resnet50_train_and_check, dev)
@@ -6168,6 +6715,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     export_runs, export_shapes, checks["export"] = phase("export",
                                                          export_run, dev)
+    torch.cuda.empty_cache()
+    swin_train, swin_test, checks["swin_t"] = phase("swin_t", swin_run, dev)
+    torch.cuda.empty_cache()
+    mae_train, mae_test, mae_shapes, checks["mae_b16"] = phase(
+        "mae_b16", mae_run, dev)
+    checks["mae_b16"]["launches_by_shape"] = {
+        run: {" ".join(map(str, k)): v for k, v in sorted(counter.items())}
+        for run, counter in mae_shapes.items()}
+    torch.cuda.empty_cache()
+    mae_cifar_train, mae_cifar_test, checks["mae_cifar"] = phase(
+        "mae_cifar", mae_cifar_run, dev)
+    torch.cuda.empty_cache()
+    simclr_runs, simclr_shapes, checks["simclr"] = phase("simclr",
+                                                         simclr_run, dev)
     runs = {"serve": counts, "train": train_counts, "test": eval_counts,
             "vit_train": vit_train, "vit_test": vit_test,
             **{f"vit_train_{k}": v for k, v in policy_runs.items()},
@@ -6180,7 +6741,11 @@ def main() -> int:
             **{f"{k}_{part}": c for k, pair in big.items()
                for part, c in zip(("train", "test"), pair)},
             **seg_runs, **gan_runs, **api_runs, **file_runs,
-            **route_runs, **sngan_runs, **export_runs}
+            **route_runs, **sngan_runs, **export_runs,
+            "swin_t_train": swin_train, "swin_t_test": swin_test,
+            "mae_b16_train": mae_train, "mae_b16_test": mae_test,
+            "mae_cifar_train": mae_cifar_train,
+            "mae_cifar_test": mae_cifar_test, **simclr_runs}
     launches = {name: sum(c[name] for c in runs.values())
                 for name in SOURCES}
     in_forward = checks["bn_act_in_forward_ms"]
@@ -6197,11 +6762,13 @@ def main() -> int:
              "library_ms")},
          **({"by_path": correlation_by_path(name, details, runs)}
             if name in CORR else {}),
+         **({"by_path": flash_by_path(name, details, runs)}
+            if name in FLASH else {}),
          **({"by_path": kernel_by_path(name, details, runs,
                                        {**seg_shapes, **gan_shapes,
                                         **api_shapes, **file_shapes,
                                         **route_shapes, **sngan_shapes,
-                                        **export_shapes})}
+                                        **export_shapes, **simclr_shapes})}
             if name in ("conv_pair", "bn_act", "conv_fused") else {}),
          **({"in_forward_ms": summary[name]["in_forward_ms"]}
             if name == "bn_act" else {})}

@@ -447,7 +447,7 @@ def build_flow(cfg: dict, synthetic: bool = False, *,
             DataSet(val_src))
 
 
-TASKS = ("classification", "segmentation", "flow", "gan")
+TASKS = ("classification", "segmentation", "flow", "gan", "ssl")
 
 
 def convnet_builder(task: str):
@@ -505,8 +505,9 @@ def build_trainer(cfg: dict, synthetic: bool = False, **kwargs
     it: :func:`convnet_builder`'s net built with the recipe's optimizer,
     warm-started from ``pretrained``, with the recipe's evaluator."""
     task = check_task(cfg)
-    if task == "gan":
-        raise ValueError("GAN recipes build through recipes_gan.build_gan")
+    if task in ("gan", "ssl"):
+        raise ValueError(f"{task} recipes build through "
+                         f"recipes_{task}.build_{task}")
     net, train_set, val_set = convnet_builder(task)(cfg, synthetic,
                                                     **kwargs)
     net.build(optimizer_factory(cfg["optimizer"]))

@@ -1,5 +1,5 @@
 """Evaluation entry point of the port (classification, segmentation,
-optical-flow and pix2pix recipes).
+optical-flow, pix2pix and self-supervised recipes).
 
     python -m myconvnet_tpu_torch.test --config configs/cifar100_resnet18.py \\
         --synthetic --ckpt DIR [--batch N] [--best | --average N] [--ema] \\
@@ -39,9 +39,12 @@ is scored on the val pairs with PSNR and SSIM (``eval_pix2pix``,
 forward, and an unconditional DCGAN checkpoint is not scored.  The
 ``inception:WEIGHTS.npz`` extractor (``models/inception_v3`` and weights
 the repo does not hold, ROADMAP A17) and ``task="diffusion"`` stay refused
-by name.  ``main(argv)`` returns (score, net); for pix2pix (psnr, ssim)
-and the GAN trainer, for ``--fid`` (fid, trainer), for ``--export`` the
-artifact's path.
+by name.  A self-supervised recipe (``task="ssl"``) goes to
+:func:`eval_ssl` (``test.py:350-377``): the kNN probe, then the encoder
+re-exported beside the checkpoint (``--export`` adds nothing there, as in
+JAX).  ``main(argv)`` returns (score, net); for pix2pix (psnr, ssim)
+and the GAN trainer, for ``--fid`` (fid, trainer), for an SSL recipe
+(kNN top-1, trainer), for ``--export`` the artifact's path.
 """
 
 from __future__ import annotations
@@ -120,8 +123,11 @@ def main(argv=None):
     if cfg.get("task") == "diffusion" and args.fid:
         raise SystemExit("test --fid of a diffusion recipe is not ported "
                          "(the diffusion family, ROADMAP A17)")
-    if recipes.check_task(cfg) == "gan":
+    task = recipes.check_task(cfg)
+    if task == "gan":
         return eval_gan(cfg, args, device)
+    if task == "ssl":
+        return eval_ssl(cfg, args, device)
     if args.fid:
         raise SystemExit("test --fid scores GAN checkpoints (dcgan, "
                          f"pix2pix), not a {cfg['task']} recipe")
@@ -325,6 +331,28 @@ def eval_gan_fid(cfg: dict, args, device):
     print(f"fid: {fid:.3f} (n={n}, extractor={args.fid_extractor})",
           flush=True)
     return fid, trainer
+
+
+def eval_ssl(cfg: dict, args, device):
+    """Score a self-supervised checkpoint with the kNN probe (frozen
+    features, the labelled bank from the train split) and re-export
+    ``encoder.npz`` beside the checkpoint (``test.py:350-377``).  Returns
+    (kNN top-1, trainer)."""
+    from myconvnet_tpu_torch import recipes_ssl
+    from myconvnet_tpu_torch.train.cli import knn_kwargs
+
+    trainer, train_set, val_set = recipes_ssl.build_ssl(
+        cfg, args.synthetic, device=device)
+    trainer.restore(args.ckpt)
+    batch = cfg["batch_size"]
+    knn = trainer.knn(train_set.eval_iter(batch, device),
+                      val_set.eval_iter(batch, device), **knn_kwargs(cfg))
+    print(f"{trainer.kind} kNN top-1: {knn:.4f}", flush=True)
+    out_dir = (args.ckpt if os.path.isdir(args.ckpt)
+               else os.path.dirname(args.ckpt))
+    enc = trainer.export_encoder(os.path.join(out_dir, "encoder.npz"))
+    print(f"encoder exported: {enc}", flush=True)
+    return knn, trainer
 
 
 def eval_gan(cfg: dict, args, device):

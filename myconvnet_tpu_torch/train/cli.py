@@ -1,5 +1,5 @@
 """Training entry point of the port (classification, segmentation,
-optical-flow and GAN recipes).
+optical-flow, GAN and self-supervised recipes).
 
     python -m myconvnet_tpu_torch.train --config configs/cifar100_resnet18.py \\
         --synthetic --steps N --out DIR [--batch N] [--val_every N] \\
@@ -17,14 +17,15 @@ crash restarts from the newest checkpoint up to ``--max_restarts`` times
 (``train.py:124-138``); ``MYCONVNET_FAULT_ONCE`` injects one crash after
 training, to test that path.  A GAN recipe (``task="gan"``) goes to
 :func:`run_gan`, the port of ``run_steploop`` with ``adapt_gan``
-(``train.py:216``, ``:450``).  ``--tensorboard`` logs to a
-``SummaryWriter`` under ``--out/tb`` where the ``tensorboard`` package
-imports, and says so and trains without one where it does not (the card's
-machine); ``--mesh`` is refused by name (ROADMAP A16).  ``--device``
-defaults to ``cuda``; without CUDA that is an error (pass ``--device
-cpu`` to train on the host).  ``main(argv)``
-returns the ``ConvNet`` (its ``trainer`` holds the step, the model and
-the optimizer), or the GAN trainer.
+(``train.py:216``, ``:450``), a self-supervised one (``task="ssl"``) to
+:func:`run_ssl` (``adapt_ssl``, ``train.py:358-383``).  ``--tensorboard``
+logs to a ``SummaryWriter`` under ``--out/tb`` where the ``tensorboard``
+package imports, and says so and trains without one where it does not
+(the card's machine); ``--mesh`` is refused by name (ROADMAP A16).
+``--device`` defaults to ``cuda``; without CUDA that is an error (pass
+``--device cpu`` to train on the host).  ``main(argv)`` returns the
+``ConvNet`` (its ``trainer`` holds the step, the model and the
+optimizer), or the GAN or SSL trainer.
 """
 
 from __future__ import annotations
@@ -105,8 +106,11 @@ def main(argv=None):
     # reproducibility: the resolved config (file + command-line overrides)
     write_config(cfg, out)
 
-    if recipes.check_task(cfg) == "gan":
+    task = recipes.check_task(cfg)
+    if task == "gan":
         return run_gan(cfg, args.synthetic, out, device)
+    if task == "ssl":
+        return run_ssl(cfg, args, out, device)
     attempts = 0
     while True:
         try:
@@ -223,6 +227,57 @@ def run_gan(cfg: dict, synthetic: bool, out: str, device: torch.device):
                 log_every=cfg.get("log_every", 100), logger=logger,
                 ckpt_dir=out, sample_every=sample_every,
                 sample=sample if sampler else None)
+    logger.close()
+    print(f"{name} training done at step {trainer.step}", flush=True)
+    return trainer
+
+
+def knn_kwargs(cfg: dict) -> dict:
+    """The probe's settings of a recipe (``train.py:364-367``)."""
+    return dict(k=cfg.get("knn_k", 20), num_classes=cfg["num_classes"],
+                max_bank=cfg.get("knn_bank", 4096),
+                max_query=cfg.get("knn_query", 2048))
+
+
+def run_ssl(cfg: dict, args, out: str, device: torch.device):
+    """A self-supervised recipe's step loop (``adapt_ssl`` under
+    ``run_steploop``): ``--resume`` from the newest checkpoint, a log line
+    and a checkpoint every ``log_every`` steps, the kNN probe every
+    ``val_every`` steps (``best.npz`` when it improves), the final
+    checkpoint and probe, then ``<out>/encoder.npz``.  Returns the
+    trainer."""
+    from myconvnet_tpu_torch import recipes_ssl
+    from myconvnet_tpu_torch.ckpt import checkpoint as ckpt_lib
+    from myconvnet_tpu_torch.utils.logging import MetricLogger
+    from myconvnet_tpu_torch.utils.preemption import PreemptionGuard
+
+    trainer, train_set, val_set = recipes_ssl.build_ssl(
+        cfg, args.synthetic, device=device)
+    name = f"ssl_{trainer.kind}"
+    if args.resume and ckpt_lib.latest_checkpoint(out):
+        trainer.restore(out)
+        print(f"resumed {name} from step {trainer.step}", flush=True)
+    batch = cfg["batch_size"]
+
+    def validate():
+        return trainer.knn(train_set.eval_iter(batch, device),
+                           val_set.eval_iter(batch, device),
+                           **knn_kwargs(cfg))
+
+    logger = MetricLogger(out, name=name)
+    with PreemptionGuard() as guard:
+        best = trainer.fit(train_set.train_iter(batch, device),
+                           total_steps=cfg["total_steps"],
+                           log_every=cfg.get("log_every", 100),
+                           logger=logger, ckpt_dir=out,
+                           val_every=cfg.get("val_every", 0),
+                           validate=validate, guard=guard)
+        score = validate()
+        top = best if best is not None and best > score else score
+        extra = f" (best {top:.4f})" if best is not None else ""
+        print(f"final kNN top-1: {score:.4f}{extra}", flush=True)
+        enc = trainer.export_encoder(os.path.join(out, "encoder.npz"))
+        print(f"encoder exported: {enc}", flush=True)
     logger.close()
     print(f"{name} training done at step {trainer.step}", flush=True)
     return trainer

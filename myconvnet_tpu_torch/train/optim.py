@@ -6,7 +6,8 @@ recipes use: ``cosine_decay``/``cosine_restarts`` (``:62-101``),
 ``polynomial_decay`` (``:70-77``, DeepLab's "poly"),
 ``warmup`` (``:104-112``), ``norm_and_bias_exclusion`` and the decay mask
 (``:131-157``), ``sgd``/``momentum`` (``:159-199``), ``adam``/``adamw``
-(``:202-249``), ``make_schedule`` / ``make_optimizer`` (``:374-415``),
+(``:202-249``), ``lars`` (``:252-293``, :class:`LARS`),
+``make_schedule`` / ``make_optimizer`` (``:374-415``),
 ``global_norm``/``clip_by_global_norm``/``with_gradient_clipping``
 (``:416-437``) and the wrappers of ``:440-644`` (freeze, lookahead,
 reduce-on-plateau and EMA; see :class:`Frozen` and below).
@@ -298,11 +299,89 @@ class Adam:
                     buf.copy_(trees[field][path])
 
 
+class LARS:
+    """``optim.lars`` (``:252-293``): layer-wise trust-ratio momentum over
+    (JAX path, parameter) pairs, with the optional global-norm clipping of
+    ``with_gradient_clipping``; ``step(i)`` applies the update with
+    ``lr(i)``.  Per leaf, in float32:
+
+        gd    = g + wd p
+        ratio = eta ||p|| / (||gd|| + eps) where both norms are > 0, else 1
+        m     = momentum m + lr(step) ratio gd
+        p     = p - m
+
+    A leaf that ``weight_decay_exclude`` matches gets neither decay nor
+    the ratio (plain momentum).  The state is the momentum tree, laid out
+    as the parameters (the JAX state itself)."""
+
+    def __init__(self, named_params: list[tuple[str, torch.Tensor]], lr, *,
+                 momentum_coef: float = 0.9, eta: float = 0.001,
+                 weight_decay: float = 0.0, eps: float = 1e-9,
+                 weight_decay_exclude=None, clip_norm: float | None = None):
+        self.schedule = lr if callable(lr) else constant(float(lr))
+        self.named = list(named_params)
+        self.params = [p for _, p in self.named]
+        mask = decay_mask(self.named, weight_decay_exclude)
+        self.adaptive = [i for i, (path, _) in enumerate(self.named)
+                         if mask[path]]
+        self.plain = [i for i, (path, _) in enumerate(self.named)
+                      if not mask[path]]
+        self.momentum, self.eta = momentum_coef, eta
+        self.weight_decay, self.eps = weight_decay, eps
+        self.clip_norm = clip_norm
+        self.m = [torch.zeros_like(p, dtype=torch.float32)
+                  for p in self.params]
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self, step: int) -> float:
+        lr = self.schedule(step)
+        grads = [torch.zeros_like(p, dtype=torch.float32) if p.grad is None
+                 else p.grad.float() for p in self.params]
+        if self.clip_norm:
+            clip_by_global_norm(grads, float(self.clip_norm))
+        scaled = [None] * len(grads)
+        if self.adaptive:
+            ps = [self.params[i].float() for i in self.adaptive]
+            gd = [grads[i] for i in self.adaptive]
+            if self.weight_decay:
+                gd = torch._foreach_add(gd, ps, alpha=self.weight_decay)
+            w_norm = torch.stack(torch._foreach_norm(ps))
+            g_norm = torch.stack(torch._foreach_norm(gd))
+            ratio = torch.where((w_norm > 0.0) & (g_norm > 0.0),
+                                self.eta * w_norm / (g_norm + self.eps),
+                                torch.ones_like(w_norm))
+            coef = (lr * ratio).unbind()
+            for j, i in enumerate(self.adaptive):
+                scaled[i] = gd[j] * coef[j]
+        for i in self.plain:
+            scaled[i] = grads[i] * lr
+        torch._foreach_mul_(self.m, self.momentum)
+        torch._foreach_add_(self.m, scaled)
+        torch._foreach_sub_(self.params, self.m)
+        return lr
+
+    def state_trees(self) -> dict[str, dict[str, torch.Tensor]]:
+        """{"": {path: momentum}}: the JAX state is the momentum tree."""
+        return {"": {path: m for (path, _), m in zip(self.named, self.m)}}
+
+    @torch.no_grad()
+    def load_state_trees(self, trees: dict) -> None:
+        for (path, _), m in zip(self.named, self.m):
+            if path in trees.get("", {}):
+                m.copy_(trees[""][path])
+
+
 def make_optimizer(named_params, name: str, lr, **kwargs):
     """Config-string optimizer factory (``sgd``, ``momentum``, ``adam``,
-    ``adamw``); ``clip_norm`` clips the gradients' global norm before the
-    update (``recipes/common.py:101-102``)."""
+    ``adamw``, ``lars``); ``clip_norm`` clips the gradients' global norm
+    before the update (``recipes/common.py:101-102``)."""
     named_params = list(named_params)
+    if name == "lars":
+        return LARS(named_params, lr, **kwargs)
     if name in ("adam", "adamw"):
         if name == "adamw":
             kwargs.setdefault("weight_decay", 1e-4)
@@ -312,7 +391,7 @@ def make_optimizer(named_params, name: str, lr, **kwargs):
         kwargs["momentum"] = kwargs.pop("momentum_coef", 0.9)
     elif name != "sgd":
         raise ValueError(f"the port has optimizers ['adam', 'adamw', "
-                         f"'momentum', 'sgd'], not {name!r}")
+                         f"'lars', 'momentum', 'sgd'], not {name!r}")
     return SGD(named_params, lr, **kwargs)
 
 

@@ -17,9 +17,11 @@ by name:
 * a spectral-normalized ``Conv`` or ``Dense``: state ``sn_u`` (its power
   iteration's vector, ``nn.py:236``);
 * ``LayerNorm``, ``InstanceNorm``: params ``gamma``, ``beta`` (no state);
-* parameters a module holds itself (the ViT's ``cls_token`` and
-  ``pos_embed``) sit in that module's scope, ``~`` for the root module as
-  in the JAX tree (``core/module.py:133-147``).
+* parameters a module holds itself (the ViT's and MAE's ``cls_token``
+  and ``pos_embed``, MAE's ``decoder/mask_token`` and
+  ``decoder/pos_embed``, a Swin block's ``attn/rel_bias`` table) sit in
+  that module's scope, ``~`` for the root module as in the JAX tree
+  (``core/module.py:133-147``).
 
 :func:`load_jax_checkpoint` reads the ``.npz`` the JAX trainer writes
 (``ckpt/checkpoint.py``): keys ``params::<scope>::<name>`` and

@@ -1180,6 +1180,67 @@ def test_vit_train_step_on_card_matches_host(cuda):
     assert all(abs(c - h) <= 5e-2 * h + 1e-3 * biggest for c, h in norms)
 
 
+# MAE-B16's two flash sites at a batch of 4: the encoder on the kept
+# quarter of the tokens (1 + 49), the decoder's 16 heads of 32 on all 197
+MAE_FLASH_SHAPES = [(4, 12, 50, 64), (4, 16, 197, 32)]
+
+
+@pytest.mark.parametrize("shape", MAE_FLASH_SHAPES)
+def test_flash_kernels_at_maes_shapes(cuda, shape):
+    """The forward, dQ and dK/dV at MAE's encoder and decoder shapes
+    against their plain versions, at the tolerances above."""
+    test_flash_kernels_match_plain(cuda, shape)
+
+
+MAE_CONFIG = os.path.join(os.path.dirname(__file__), "..", "configs",
+                          "cifar10_mae.py")
+
+
+def test_tinymae_bf16_step_on_card_matches_plain_attention(cuda,
+                                                           monkeypatch):
+    """A bf16 ``tinymae`` step (configs/cifar10_mae.py under bf16) on the
+    card through the flash kernels (one launch of each kernel a block: 2
+    encoder blocks, 1 decoder block), against the same step with the
+    attention on its plain path: the loss within 2e-2, each gradient's
+    norm within 5e-2 (plus 1e-3 of the largest)."""
+    import importlib
+
+    from myconvnet_tpu_torch import recipes_ssl
+    vit = importlib.import_module("myconvnet_tpu_torch.models.vit")
+    cfg = recipes.apply_overrides(recipes.load_config(MAE_CONFIG), [
+        "precision=bf16", "augment.out_hw=[8,8]", "synthetic_n=8"])
+    trainer, train_set, _ = recipes_ssl.build_ssl(cfg, True, device=cuda)
+    params, _ = random_jax_params(trainer.model, 0)
+    weights.from_jax(trainer.model, params, {})
+    x = torch.from_numpy(train_set.source.get_batch(np.arange(4))[0])
+    draws = trainer.sample(4, (32, 32))
+
+    def step():
+        trainer.optimizer.zero_grad()
+        loss = trainer.loss(x.to(cuda), draws)["loss"]
+        loss.backward()
+        return float(loss.detach()), [float(p.grad.float().norm())
+                             for _, p, _ in weights.param_views(
+                                 trainer.model)]
+
+    kernels.reset_launch_counts()
+    loss_card, norms_card = step()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert [counts[k] for k in ("flash_attention_fwd", "flash_attention_dq",
+                                "flash_attention_dkv")] == [3, 3, 3]
+    plain = attention.multi_head_attention
+    monkeypatch.setattr(vit, "multi_head_attention",
+                        lambda *a, **kw: plain(*a, **dict(kw,
+                                                          use_flash=False)))
+    loss_plain, norms_plain = step()
+    assert kernels.launch_counts()["flash_attention_fwd"] == 3
+    assert abs(loss_card - loss_plain) <= 2e-2 * abs(loss_plain)
+    biggest = max(norms_plain)
+    assert all(abs(c - h) <= 5e-2 * h + 1e-3 * biggest
+               for c, h in zip(norms_card, norms_plain))
+
+
 # ------------------------------------------------ RandAugment (B7, B8)
 
 # the ViT recipe's batch at 224x224, and an odd shape (a scalar tail in
