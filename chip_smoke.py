@@ -232,7 +232,7 @@
     skipped.
 21. Routes (``routes_run``): one HTTP server on localhost with four
     routes at full width from seeded JAX-layout weights, each behind the
-    micro-batcher (``batch_window_ms`` 100): segment (DeepLabv3+ of
+    micro-batcher (``batch_window_ms`` 250): segment (DeepLabv3+ of
     ``configs/voc_deeplabv3plus.py`` at 513 x 513, bf16, BN folded), translate
     (``configs/pix2pix.py``'s U-Net at 256 x 256, bf16), flow
     (``configs/chairs_pwcnet.py`` at 384 x 512, bf16), each at a route batch
@@ -246,7 +246,8 @@
     against the same route on the host (plain versions).  Classify: a lone
     request's p50 with and without the window, and 8 concurrent one-image
     JPEG requests that become one device call (normalize_u8 8, conv_pair
-    13, bn_act 7).  Paths ``routes_segment``, ``routes_translate``,
+    13, bn_act 7) under a window of 2 s, with the spread of their arrivals
+    at the batcher.  Paths ``routes_segment``, ``routes_translate``,
     ``routes_flow`` and ``routes_classify``, held at step 3's rows at the
     routes' shapes.
 22. SN-GAN and FID (``sngan_fid_run``): ``train.main`` on
@@ -271,8 +272,8 @@
     fixtures (one device call), the artifact against the route program
     built in memory from the same checkpoint on one batch of wire rows
     (the same launches by shape, recorded inside the ops, and the same
-    bits, DCGAN within EXPORT_TOL), and ``serve.main --artifact
-    --latency`` (p50, p95 at sizes 1 and 8; DeepLab's at 1) beside the
+    bits, DCGAN within EXPORT_TOL), and for ResNet-50 ``serve.main
+    --artifact --latency`` (p50, p95 at sizes 1 and 8) beside the
     in-memory program's at the artifact's batch.  Then the DeepLab artifact
     behind the ``NAME=KIND:ARTIFACT:CONFIG`` route spec over HTTP: a
     fixture JPEG
@@ -317,6 +318,25 @@
     loss and contrast_acc finite; the probe features against the host's;
     each step's rate; a ResNet-50 step at twice the batch, which should
     not fit.
+27. The grouped and depthwise families (``zoo_run``): ZOO_RECIPES, the
+    recipes as written (ResNeXt-50 32x4d at 1024 as 2 x 512, WRN-28-10 at
+    128, MobileNetV2, MobileNetV3-Large and EfficientNet-B0 at 1024 in one
+    pass, RepVGG-A0 at 256), each through ``train.main`` and ``test.main``
+    from synthetic data (``classifier_run``: launches, finite losses,
+    restored logits, card against host); every launch of an eval forward
+    held by shape to the model's own sites (``zoo_sites``: the modules run
+    on the meta device with the kernel wrappers recording, so the host
+    derives what the card must launch: B1 35 ReLU6 a MobileNetV2 batch, 33
+    a ResNeXt-50's, 11 a MobileNetV3's, B1 15 and B4 10 a WRN-28-10's);
+    the step's ms, images/s, idle share and peak memory.  ResNet-101,
+    ResNet-152 and SE-ResNet-50 served at batch 8 (B5 30, 47 and 13, B1 7
+    each, by shape; logits against the host).  RepVGG-A0's
+    ``test --export`` writes its reparameterized deploy stack (mcn::
+    nodes B4 17 and B1 5); ``serve --artifact`` serves it, and it gives
+    the bits of the in-memory deploy program (``deploy_params`` of the
+    same checkpoint), launch by launch and shape by shape.  Step 3's rows
+    hold every one of these shapes (``check_zoo_kernels``; paths
+    ``zoo_*`` and ``export_repvgg_a0``).
 
 Every kernel's record carries its bound: the larger of the bytes it must
 move over 3.35 TB/s and the operations it must do over the peak rate of
@@ -543,7 +563,7 @@ POLICY_RUNS = {
     "canonical": (["augment.randaugment_ops=canonical"], {"shear_rows": 10}),
     "autoaugment": (["augment.randaugment=None",
                      "augment.autoaugment=imagenet"], {"shear_rows": 7})}
-POLICY_STEPS = 4
+POLICY_STEPS = 2
 # augmentation alone at the recipe's batch, per policy
 AUG_POLICIES = {"off": ["augment.randaugment=None"], "fast": [],
                 **{k: v for k, (v, _) in POLICY_RUNS.items()}}
@@ -596,7 +616,7 @@ CORR_GRAD_ULPS = 2
 FLOW_REL_TOL = 0.05
 # BASELINE configs #1-#3 (and ResNet-50 training, config #2): the recipes as
 # written, full width, on synthetic splits of one recipe batch
-R50_BATCH, R50_ACCUM, R50_STEPS = 1024, 2, 10
+R50_BATCH, R50_ACCUM, R50_STEPS = 1024, 2, 4
 STEP1_BATCH = {"resnet50": 8, "vgg16": 4, "densenet121": 4}
 # eval forward launches: ResNet-50 unfolded (validation and test.main),
 # SmallNet under each policy, VGG-16 and DenseNet-121 under bf16
@@ -760,7 +780,7 @@ API_R50_SETS = [f"accum_steps={R50_ACCUM}", f"synthetic_n={R50_BATCH}",
                 "optimizer.ema_decay=0.9999", "optimizer.lookahead=True",
                 "erase_prob=0.25"]
 API_R50_STEPS, API_R50_VAL_EVERY, TEN_CROP_VIEWS, API_TTA_CHECK_N = \
-    10, 5, 10, 8
+    4, 2, 10, 8
 API_R18_SETS = ["sam_rho=0.05", "optimizer.plateau=True",
                 "plateau_factor=0.5", "plateau_patience=1",
                 "optimizer.freeze=['stem']"]
@@ -781,15 +801,15 @@ SAM_MIN_RATIO = 1.3
 # PAIRS_FILES_TRAIN images with the generator's EMA, then generate.main
 # --input over GENERATE_INPUTS images, with and without --ema.
 FIXTURES = os.path.join(ROOT, "tests", "fixtures", "torch_io")
-# (FILES_STEPS is 6, to keep the script inside its time with the export,
-# Swin and self-supervised phases)
-FILES_CLASSES, FILES_TRAIN, FILES_VAL, FILES_STEPS = 1000, 2048, 512, 6
+# (FILES_STEPS is 3, to keep the script inside its time with the export,
+# Swin, self-supervised and zoo phases)
+FILES_CLASSES, FILES_TRAIN, FILES_VAL, FILES_STEPS = 1000, 2048, 512, 3
 # steps of a file run left out of its rate (the first cuDNN plans, the
 # prefetcher filling)
 FILES_WARMUP = 3
 # the file-fed loop (and its in-memory control): warm-up steps, then steps
 # once plain and once under torch.profiler
-FED_WARMUP, FED_STEPS = 2, 3
+FED_WARMUP, FED_STEPS = 1, 2
 R50_FILES_PAIR_SITES = [((FILES_VAL, *shape[1:]), count)
                         for shape, count in PAIR_SITES]
 R50_FILES_ACT_SITES = [(f"r50 files eval {site}", (FILES_VAL, *shape[1:]), 1)
@@ -804,6 +824,41 @@ IMAGE_ROUTE_REQUESTS = 3
 # C6: Trainer.evaluate over EVAL_TAIL_SPLIT images at the CIFAR-100
 # ResNet-18's batch of 128 (a tail of 64)
 EVAL_TAIL_SPLIT = 192
+# The zoo phase (step 27): the grouped and depthwise families' recipes as
+# written, at full width from their seeds, on synthetic splits: name (the
+# registry's) -> (config, batch, microbatches, train steps, the val
+# split's images).  A batch the card does not hold in one pass runs as
+# microbatches (``accum_steps``, the ResNet-50 recipe's cut: ResNeXt-50's
+# 512 images a microbatch peaked at 32.0 GiB on an H100 80GB).  The val
+# split is one eval batch (two of WRN-28-10's 128).
+ZOO_RECIPES = {
+    "resnext50_32x4d": ("imagenet_resnext50.py", 1024, 2, 2, 1024),
+    "wrn_28_10": ("cifar10_wrn28_10.py", 128, 1, 4, 256),
+    "mobilenet_v2": ("imagenet_mobilenet_v2.py", 1024, 1, 2, 1024),
+    "mobilenet_v3_large": ("imagenet_mobilenet_v3.py", 1024, 1, 2, 1024),
+    "efficientnet_b0": ("imagenet_efficientnet_b0.py", 1024, 1, 2, 1024),
+    "repvgg_a0": ("imagenet_repvgg_a0.py", 256, 1, 3, 256),
+}
+# the CIFAR recipe's input kernels: (a train step's, an eval batch's)
+ZOO_INPUT = {"wrn_28_10": ({"pad_crop_u8": 1}, {"normalize_u8": 1})}
+# each zoo path's launches of one bf16 eval forward, as ROADMAP B lists
+# them; the shapes come from the models themselves (``zoo_sites``)
+ZOO_FORWARD = {"resnext50_32x4d": {"bn_act": 33},
+               "wrn_28_10": {"conv_fused": 10, "bn_act": 15},
+               "mobilenet_v2": {"bn_act": 35},
+               "mobilenet_v3_large": {"bn_act": 11},
+               "efficientnet_b0": {}, "repvgg_a0": {},
+               "resnet101": {"conv_pair": 30, "bn_act": 7},
+               "resnet152": {"conv_pair": 47, "bn_act": 7},
+               "se_resnet50": {"conv_pair": 13, "bn_act": 7},
+               "repvgg_a0_deploy": {"conv_fused": 17, "bn_act": 5}}
+# the deep ResNets' served forwards (seeded JAX-layout weights, BN folded,
+# bf16) at the served batch
+ZOO_SERVED = ("resnet101", "resnet152", "se_resnet50")
+# RepVGG-A0's reparameterized artifact, as the export phase's cases
+ZOO_EXPORT = {"repvgg_a0": (
+    os.path.join(ROOT, "configs", "imagenet_repvgg_a0.py"), "classify",
+    ZOO_FORWARD["repvgg_a0_deploy"], BATCH, ["synthetic_n=8"])}
 # the paths of conv_pair, bn_act and conv_fused: the runs whose launches
 # each path counts and the ``path`` of the rows that hold its shapes
 KERNEL_PATH_RUNS = {
@@ -845,7 +900,14 @@ KERNEL_PATH_RUNS = {
     # the SimCLR probes: SmallNet's eval forward at 128, ResNet-50's at
     # SIMCLR_R50_BATCH
     "simclr_smallnet": ("simclr_cifar_train", "simclr_cifar_test"),
-    "simclr_resnet50": ("simclr_r50_train", "simclr_r50_test")}
+    "simclr_resnet50": ("simclr_r50_train", "simclr_r50_test"),
+    # the zoo phase: each recipe's train.main and test.main, the deep
+    # ResNets' served forwards and RepVGG-A0's artifact runs
+    **{f"zoo_{name}": (f"zoo_{name}_train", f"zoo_{name}_test")
+       for name in ZOO_RECIPES},
+    **{f"zoo_{name}": (f"zoo_{name}_serve",) for name in ZOO_SERVED},
+    "export_repvgg_a0": tuple(f"export_repvgg_a0_{part}" for part in (
+        "export", "serve", "artifact", "memory"))}
 # the file phases' runs (a run of a phase the machine cannot run counts 0)
 FILE_RUNS = ("c6_evaluate", "files_r50_train", "files_r50_test",
              "files_deeplab_train", "files_deeplab_test",
@@ -872,7 +934,9 @@ PATH_ROWS = {"deeplab_scales": tuple(f"deeplab_{hw}" for hw in SEG_SCALE_HW),
              "export_pix2pix": ("routes_translate",),
              "export_dcgan": (f"dcgan_{EXPORT_GAN_BATCH}",),
              "export_pwcnet": ("routes_flow",),
-             "simclr_smallnet": ("smallnet_f32",)}
+             "simclr_smallnet": ("smallnet_f32",),
+             # the artifact's batch is the served one
+             "export_repvgg_a0": ("zoo_repvgg_a0_deploy",)}
 # The routes phase: one HTTP server on localhost with a route of each kind
 # at full width from seeded JAX-layout weights, every route behind the
 # micro-batcher (ROUTE_WINDOW_MS): segment (configs/voc_deeplabv3plus.py at
@@ -892,8 +956,12 @@ ROUTE_PER_CALL = {"segment": {"conv_pair": 11, "conv_fused": 2,
                   "classify": PER_CALL}
 # ROUTE_CONCURRENT one-image classify requests (image bodies) at once
 # become one device call; a lone request's p50 over ROUTE_LATENCY_ITERS
-# with and without the window
+# with and without the window.  The burst runs under ROUTE_BURST_WINDOW_MS:
+# its requests reach the batcher over a few hundred ms of a shared host's
+# time, and at the served 250 ms a slow host split them into two device
+# calls, which tests the host's scheduling rather than the batching.
 ROUTE_CONCURRENT, ROUTE_LATENCY_ITERS = 8, 20
+ROUTE_BURST_WINDOW_MS = 2000.0
 # each route on the card against the same route on the host (plain
 # versions, one request of 1 image at a route batch of 1): segment
 # confidences within SEG_CONF_TOL and at most SEG_CLASS_FRAC of the pixels'
@@ -918,8 +986,9 @@ SN_BAND, FID_RTOL = (0.999, 1.10), 2e-4
 # device call of EXPORT_CASES' launches; the artifact's batch), the
 # artifact against the route program built in memory from the same
 # checkpoint on the same wire rows (the same launches by shape, the same
-# bits), and ``serve --artifact --latency --sizes 1,8`` beside the
-# in-memory program's latency at the artifact's one batch.  name ->
+# bits), and (EXPORT_LATENCY_SIZES) ``serve --artifact --latency --sizes
+# 1,8`` beside the in-memory program's latency at the artifact's one
+# batch.  name ->
 # (config, kind, launches a call, the artifact's batch, the recipe's
 # synthetic splits cut to a few items: test --export builds them beside
 # the net and reads none)
@@ -937,9 +1006,10 @@ EXPORT_CASES = {
     "pwcnet": (PWC_CONFIG, "flow", ROUTE_PER_CALL["flow"], ROUTE_BATCH,
                ["synthetic_n=4"])}
 EXPORT_SIZES = (1, 8)
-# DeepLab's artifact at size 1 only (its size-8 requests, two device calls
-# of 4 at 513 x 513, took ~45 s of the phase's latency runs)
-EXPORT_LATENCY_SIZES = {"deeplab": (1,)}
+# the artifacts whose latency the phase measures: the served ResNet-50's
+# and RepVGG-A0's deploy stack (the other kinds' latency runs, ~25 s, are
+# left out to keep the script inside its time with the zoo phase)
+EXPORT_LATENCY_SIZES = {"resnet50": EXPORT_SIZES, "repvgg_a0": EXPORT_SIZES}
 # the artifact against the in-memory program: bit for bit, but DCGAN's
 # float32 [0, 1] images within 4 ulps of 1.0 (its transposed convs go
 # through cuDNN's backward-data algorithms, whose choice and order the
@@ -1296,6 +1366,7 @@ def check_kernels(dev, plan=None):
     details += check_io_kernels(dev, g, plan or {})
     details += check_route_kernels(dev, g)
     details += check_ssl_kernels(dev, g)
+    details += check_zoo_kernels(dev, g)
     for name in SOURCES:
         rows = [r for r in details if r["kernel"] == name]
         on_path = [r for r in rows if r["sites"]]
@@ -2554,19 +2625,20 @@ def serve_and_check(dev):
     return counts, calls, checks
 
 
-def device_busy(fn, iters=5):
-    """torch.profiler over ``iters`` calls of ``fn``: (device busy ms per
-    call = the union of the kernels' intervals, span ms per call from the
-    first kernel's start to the last one's end, kernels per call, the ten
-    kernels with the most device time as [name, ms per call, launches per
-    call]); busy is None when the trace shows no device activity."""
+def device_busy(fn, iters=5, warm=True):
+    """torch.profiler (device activity only) over ``iters`` calls of
+    ``fn``, after a warm-up call unless ``warm`` is false: (device busy ms
+    per call = the union of the kernels' intervals, span ms per call from
+    the first kernel's start to the last one's end, kernels per call, the
+    ten kernels with the most device time as [name, ms per call, launches
+    per call]); busy is None when the trace shows no device activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
@@ -2617,8 +2689,7 @@ def kernel_times(fn, match):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     events = sorted((e.time_range.start, e.time_range.end, e.name)
@@ -3040,12 +3111,12 @@ def vit_train_and_check(dev):
         trainer.train_step(xd, yd)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    iters = 5
+    iters = 3
     step_ms, host_ms = events_ms(lambda: trainer.train_step(xd, yd),
                                  iters)
     peak = torch.cuda.max_memory_allocated(dev)
     busy, span, n_kernels, top = device_busy(
-        lambda: trainer.train_step(xd, yd), iters=2)
+        lambda: trainer.train_step(xd, yd), iters=1, warm=False)
     rate = dict(batch=VIT_RECIPE_BATCH, accum_steps=VIT_RECIPE_ACCUM,
                 step_ms=step_ms,
                 images_per_sec=VIT_RECIPE_BATCH * 1e3 / step_ms,
@@ -3641,7 +3712,7 @@ def step_rate(dev, trainer, batch, raw_hw, iters, masks=False):
     step_ms, host_ms = events_ms(lambda: trainer.train_step(xd, yd), iters)
     peak = torch.cuda.max_memory_allocated(dev)
     busy, span, n_kernels, top = device_busy(
-        lambda: trainer.train_step(xd, yd), iters=2)
+        lambda: trainer.train_step(xd, yd), iters=1, warm=False)
     return dict(batch=batch, accum_steps=trainer.accum_steps,
                 step_ms=step_ms, images_per_sec=batch * 1e3 / step_ms,
                 host_enqueue_ms=host_ms, device_busy_ms=busy,
@@ -3665,7 +3736,7 @@ def log_rate(what, r):
 
 def classifier_run(dev, what, config, sets, *, steps, batch, val_every,
                    forward, split, check_n, per_step=None, eval_input=None,
-                   rate_iters=5, raw_hw=None):
+                   rate_iters=3, raw_hw=None, shapes=None):
     """``train.main`` for ``steps`` steps at ``batch`` (``sets``: the
     overrides) validating every ``val_every`` steps and at the end, then
     ``test.main`` on its checkpoint: each run's launches against
@@ -3674,7 +3745,10 @@ def classifier_run(dev, what, config, sets, *, steps, batch, val_every,
     kernels) and ``per_step`` (a train step's); every loss finite; the
     restored logits equal the writer's and agree with the host's plain
     path on ``check_n`` images; then the step's rate (:func:`step_rate`).
-    Returns (train launches, test launches, checks, trainer)."""
+    With ``shapes`` (a dict) each run's launches are also recorded by
+    shape (:func:`launch_shapes`) into ``shapes["train"]`` and
+    ``shapes["test"]``.  Returns (train launches, test launches, checks,
+    trainer)."""
     import shutil
     from collections import Counter
 
@@ -3689,13 +3763,19 @@ def classifier_run(dev, what, config, sets, *, steps, batch, val_every,
     shutil.rmtree(run_dir, ignore_errors=True)
     args = ["--config", config, "--synthetic", "--batch", str(batch),
             *[a for kv in sets for a in ("--set", kv)], "--device", dev.type]
+    def recorded(run):
+        if shapes is None:
+            return contextlib.nullcontext()
+        return launch_shapes(shapes.setdefault(run, Counter()))
+
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    net = train.main(args + ["--steps", str(steps), "--val_every",
+    with recorded("train"):
+        net = train.main(args + ["--steps", str(steps), "--val_every",
                                  str(val_every), "--out", run_dir, "--set",
                                  "log_every=1"])
+        torch.cuda.synchronize()
     trainer = net.trainer
-    torch.cuda.synchronize()
     train_counts = kernels.launch_counts()
     seconds = time.perf_counter() - t0
     batches = -(-split // batch)
@@ -3718,9 +3798,10 @@ def classifier_run(dev, what, config, sets, *, steps, batch, val_every,
         f"first {losses[0]:.4f} last {losses[-1]:.4f}")
 
     kernels.reset_launch_counts()
-    score, restored_net = test.main(args + ["--ckpt", run_dir])
+    with recorded("test"):
+        score, restored_net = test.main(args + ["--ckpt", run_dir])
+        torch.cuda.synchronize()
     restored = restored_net.trainer
-    torch.cuda.synchronize()
     eval_counts = kernels.launch_counts()
     check_counts(eval_counts, expect(0, batches),
                  f"{what} test.main ({batches} eval batches)")
@@ -5729,11 +5810,28 @@ def routes_run(dev):
                 t.join(timeout=300)
             return out
 
+        batcher = server._batchers["classify"]
+        arrivals = []
+
+        def submit(x, submit=batcher.submit):
+            arrivals.append(time.perf_counter())
+            return submit(x)
+        batcher.submit, batcher.window = submit, ROUTE_BURST_WINDOW_MS / 1e3
         calls.clear()
         t0 = time.perf_counter()
-        replies = counted("routes_classify_concurrent", concurrent)
+        try:
+            replies = counted("routes_classify_concurrent", concurrent)
+        finally:
+            del batcher.submit
+            batcher.window = ROUTE_WINDOW_MS / 1e3
         ms = (time.perf_counter() - t0) * 1e3
+        spread = ((max(arrivals) - min(arrivals)) * 1e3 if arrivals
+                  else float("nan"))
         n_calls = calls["classify"]
+        log(f"classify route: {ROUTE_CONCURRENT} concurrent one-image "
+            f"requests in {ms:.1f} ms under a {ROUTE_BURST_WINDOW_MS:g} ms "
+            f"window, their arrivals at the batcher spread over "
+            f"{spread:.1f} ms, {n_calls} device call(s)")
         run = "routes_classify_concurrent"
         expect_only(counted.runs[run], {
             "normalize_u8": ROUTE_CONCURRENT, **PER_CALL},
@@ -5748,15 +5846,15 @@ def routes_run(dev):
                 f"classify route: {ROUTE_CONCURRENT} concurrent requests "
                 f"made {n_calls} device calls (want 1), or a reply differs "
                 "from a lone request's")
-        log(f"classify route: {ROUTE_CONCURRENT} concurrent one-image "
-            f"requests in {ms:.1f} ms, {n_calls} device call "
-            f"(B2 {ROUTE_CONCURRENT}, then B5 13, B1 7 once); top-1 as a "
-            "lone request's")
+        log(f"classify route: the burst's launches B2 {ROUTE_CONCURRENT}, "
+            "then B5 13, B1 7 once; top-1 as a lone request's")
         x = torch.as_tensor(server._prepare(route, rs.rand(
             BATCH, h, w, 3).astype(np.float32))).to(dev)
         busy, span, n_kernels, _ = device_busy(lambda: route.fn(x))
         checks["classify"] = dict(
             lone_p50_ms=lone, concurrent_ms=ms,
+            concurrent_window_ms=ROUTE_BURST_WINDOW_MS,
+            arrival_spread_ms=spread,
             device_call=dict(device_busy_ms=busy, device_span_ms=span,
                              kernels=n_kernels))
     finally:
@@ -5892,12 +5990,14 @@ def _outputs(out):
     return out if isinstance(out, tuple) else (out,)
 
 
-def export_case(dev, name, counted, root, inputs, voc_root):
-    """One artifact of the export phase (EXPORT_CASES[name]): the recipe's
-    net (or G and D) from its seed saved as a checkpoint, ``test.main
-    --export``, ``serve.main --artifact`` in the kind's mode, the artifact
-    and the in-memory route program on the same wire rows, and both
-    programs' latency.  Raises on a failed check; returns the record."""
+def export_case(dev, name, counted, root, inputs, voc_root, case=None):
+    """One artifact of the export phase (``case``, else EXPORT_CASES[name]):
+    the recipe's net (or G and D) from its seed saved as a checkpoint,
+    ``test.main --export``, ``serve.main --artifact`` in the kind's mode,
+    the artifact and the in-memory route program on the same wire rows (a
+    RepVGG's: its reparameterized deploy program, built from the same
+    checkpoint), and both programs' latency.  Raises on a failed check;
+    returns the record."""
     import numpy as np
     import torch
 
@@ -5906,7 +6006,7 @@ def export_case(dev, name, counted, root, inputs, voc_root):
     from myconvnet_tpu_torch.core.precision import get_policy
     from myconvnet_tpu_torch.weights import load_jax_checkpoint
 
-    config, kind, per_call, batch, sets = EXPORT_CASES[name]
+    config, kind, per_call, batch, sets = case or EXPORT_CASES[name]
     cfg = recipes.apply_overrides(recipes.load_config(config), sets)
     d = os.path.join(root, name)
     ckpt, path = os.path.join(d, "ckpt"), os.path.join(d, f"{name}.pt2")
@@ -5979,6 +6079,18 @@ def export_case(dev, name, counted, root, inputs, voc_root):
             fold_bn=False, device=dev,
             policy=get_policy(cfg.get("precision", "f32")))
         mem = serving.image_to_image_program(prog, post=serving.from_tanh)
+    elif name.startswith("repvgg"):
+        from myconvnet_tpu_torch import models
+        from myconvnet_tpu_torch.models.repvgg import deploy_model
+        from myconvnet_tpu_torch.weights import from_jax
+        train_form = from_jax(models.get_model(cfg["model"],
+                                               cfg["num_classes"]),
+                              *load_jax_checkpoint(ckpt)).to(dev).eval()
+        prog = serving.make_inference_fn(
+            deploy_model(train_form, cfg["model"], cfg["num_classes"]),
+            None, None, fold_bn=False, device=dev,
+            policy=get_policy(cfg.get("precision", "f32")))
+        mem = torch.no_grad()(prog.program)
     else:
         route = serving_http.build_route(name, kind, cfg, ckpt=ckpt,
                                          batch=batch, device=dev)
@@ -6032,7 +6144,11 @@ def export_case(dev, name, counted, root, inputs, voc_root):
 
     # latency: the artifact through serve --latency, the in-memory program
     # at the artifact's one batch through the same measure
-    request_sizes = EXPORT_LATENCY_SIZES.get(name, EXPORT_SIZES)
+    request_sizes = EXPORT_LATENCY_SIZES.get(name)
+    if not request_sizes:
+        del fn, mem
+        torch.cuda.empty_cache()
+        return out
     sizes = ",".join(map(str, request_sizes))
     lat = serve.main(["--artifact", path, "--latency", "--sizes", sizes,
                       "--device", dev.type])
@@ -6594,6 +6710,233 @@ def step_one_only(specs):
     return 0
 
 
+def zoo_sites(name, n, hw):
+    """The :func:`shape_key` Counter of one bf16 eval forward of the
+    registry model ``name`` (``repvgg_a0_deploy``: RepVGG-A0's deploy
+    form) on ``n`` images of ``hw``, derived on the host from the model
+    itself: its modules run on the meta device (no data, no launch) with
+    the kernel wrappers the models call replaced by recorders, so each
+    site is counted where the model's static routing sends it."""
+    import collections
+
+    import torch
+
+    from myconvnet_tpu_torch import models
+    from myconvnet_tpu_torch.models import blocks, repvgg, resnet
+
+    sites = collections.Counter()
+
+    def b1(x, a, b, act="relu"):
+        sites[shape_key("bn_act", tuple(x.shape), _name(x.dtype), act)] += 1
+        return torch.empty_like(x)
+
+    def b4(x, w, a, b, **kw):
+        sites[shape_key("conv_fused", (*x.shape, w.shape[-1]))] += 1
+        return x.new_empty(*x.shape[:3], w.shape[-1])
+
+    def b5(x, w1, a1, b1_, w3, a3, b3, **kw):
+        sites[shape_key("conv_pair", (*x.shape, w1.shape[-1],
+                                      w3.shape[-1]))] += 1
+        return x.new_empty(*x.shape[:3], w3.shape[-1])
+
+    fakes = [(blocks, "fused_scale_shift_act", b1),
+             (blocks, "conv3x3_bn_relu", b4),
+             (resnet, "conv1x1_conv3x3_bn_relu", b5)]
+    saved = [(m, a, getattr(m, a)) for m, a, _ in fakes]
+    try:
+        for m, a, f in fakes:
+            setattr(m, a, f)
+        with torch.device("meta"), torch.no_grad():
+            if name == "repvgg_a0_deploy":
+                model = repvgg.DEPLOY_FORWARDS["repvgg_a0"](1000)
+            else:
+                model = models.get_model(name, 1000, input_hw=tuple(hw))
+            model.to(torch.bfloat16).eval()(
+                torch.empty(n, *hw, 3, dtype=torch.bfloat16))
+    finally:
+        for m, a, f in saved:
+            setattr(m, a, f)
+    return sites
+
+
+def zoo_totals(sites):
+    """{kernel: launches} of a :func:`zoo_sites` Counter."""
+    out = {}
+    for key, count in sites.items():
+        out[key[0]] = out.get(key[0], 0) + count
+    return out
+
+
+def zoo_paths():
+    """(path, model, batch, hw) of each zoo path's eval forward: the six
+    recipes at their eval batch and size, the deep ResNets and RepVGG-A0's
+    deploy form at the served batch."""
+    out = []
+    for name, (config, batch, *_) in ZOO_RECIPES.items():
+        hw = tuple(classifier_cfg(os.path.join(ROOT, "configs", config))[
+            "input_hw"])
+        out.append((f"zoo_{name}", name, batch, hw))
+    out += [(f"zoo_{name}", name, BATCH, (224, 224)) for name in ZOO_SERVED]
+    out.append(("zoo_repvgg_a0_deploy", "repvgg_a0_deploy", BATCH,
+                (224, 224)))
+    return out
+
+
+def check_zoo_kernels(dev, g):
+    """B1, B4 and B5 at every site of the zoo paths' eval forwards
+    (:func:`zoo_sites`: MobileNetV2's ReLU6 sites, RepVGG-A0's deploy
+    sites, ResNet-101's pairs, ...) against their plain versions, one row
+    a shape with its count in one forward; each path's totals held to
+    ZOO_FORWARD first."""
+    import torch
+
+    rows = []
+    for path, model, n, hw in zoo_paths():
+        sites = zoo_sites(model, n, hw)
+        want = {k: v for k, v in ZOO_FORWARD[path[len("zoo_"):]].items()
+                if v}
+        if zoo_totals(sites) != want:
+            raise AssertionError(f"{path}: one eval forward's sites "
+                                 f"{zoo_totals(sites)}, want {want}")
+        for key, count in sorted(sites.items(), key=str):
+            kernel, *rest = key
+            if kernel == "bn_act":
+                shape, act = tuple(rest[:4]), rest[5]
+                x = torch.randn(*shape, generator=g, device=dev).to(
+                    torch.bfloat16)
+                c = shape[-1]
+                rows.append(bn_act_row(
+                    f"{model} {act}", x,
+                    torch.rand(c, generator=g, device=dev) + 0.5,
+                    torch.randn(c, generator=g, device=dev) * 0.5, count,
+                    path, act=act))
+                del x
+            elif kernel == "conv_fused":
+                rows.append(conv_fused_row(tuple(rest), count, path, g))
+            else:
+                rows.append(conv_pair_row(tuple(rest), count, path, g))
+            torch.cuda.empty_cache()
+    return rows
+
+
+def zoo_served(dev, counted, name):
+    """The deep ResNet ``name`` served: seeded JAX-layout weights through
+    ``weights.from_jax``, BN folded, bf16, one batch of BATCH rows through
+    ``serving.make_inference_fn``; its launches by shape against
+    :func:`zoo_sites`, its logits against the host's plain path."""
+    import numpy as np
+    import torch
+
+    from myconvnet_tpu_torch import models, serving
+    from myconvnet_tpu_torch.core.precision import BF16
+    from myconvnet_tpu_torch.weights import random_jax_params
+
+    model = models.get_model(name, 1000)
+    params, state = random_jax_params(model, SEED)
+    fn = serving.make_inference_fn(model, params, state, device=dev,
+                                   policy=BF16)
+    x = np.random.RandomState(SEED).standard_normal(
+        (BATCH, 224, 224, 3)).astype(np.float32)
+    fn(x)
+    run = f"zoo_{name}_serve"
+    card = counted(run, fn, x).cpu().numpy()
+    want = zoo_sites(name, BATCH, (224, 224))
+    if dict(counted.shapes[run]) != dict(want):
+        raise AssertionError(f"{name}: launches by shape "
+                             f"{dict(counted.shapes[run])}, want {want}")
+    expect_only(counted.runs[run], zoo_totals(want), f"{name} served")
+    host = serving.make_inference_fn(models.get_model(name, 1000), params,
+                                     state, device="cpu", policy=BF16)
+    plain = host(x[:1]).numpy()
+    rel = float(np.abs(card[:1] - plain).max() / np.abs(plain).max())
+    # a call from the host's rows: CUDA events from an idle device
+    ms, _ = events_ms(lambda: fn(x), 5)
+    log(f"{name} served (batch {BATCH}, BN folded, bf16): {ms:.2f} ms a "
+        f"call; launches by shape as the model's sites "
+        f"{zoo_totals(want)}; card vs host plain path max|diff|/max|logit| "
+        f"= {rel:.4g} (tol {LOGIT_REL_TOL})")
+    if not np.isfinite(card).all() or rel > LOGIT_REL_TOL:
+        raise AssertionError(f"{name}: served logits disagree with the "
+                             "plain path")
+    return dict(ms=ms, logit_rel_err=rel)
+
+
+def zoo_run(dev):
+    """The zoo phase (step 27): each ZOO_RECIPES recipe as written through
+    ``train.main`` and ``test.main`` (:func:`classifier_run`), its eval
+    forwards' launches held by shape to the model's sites; the deep
+    ResNets served; RepVGG-A0's reparameterized artifact exported, served
+    and held bit for bit to its in-memory deploy program.  Returns ({run:
+    launches}, {run: Counter of launch shapes}, checks)."""
+    import shutil
+
+    import torch
+
+    runs, shapes, checks = {}, {}, {}
+    for name, (config, batch, accum, steps, split) in ZOO_RECIPES.items():
+        path = os.path.join(ROOT, "configs", config)
+        cfg = classifier_cfg(path)
+        per_step, eval_input = ZOO_INPUT.get(name, ({}, {}))
+        hw = tuple(cfg["input_hw"])
+        sites = zoo_sites(name, batch, hw)
+        recorded = {}
+        t0 = time.perf_counter()
+        train_c, test_c, run, trainer, _ = classifier_run(
+            dev, f"zoo {name}", path,
+            [f"accum_steps={accum}", f"synthetic_n={split}"], steps=steps,
+            batch=batch, val_every=0, forward=zoo_totals(sites),
+            split=split, check_n=4, per_step=per_step,
+            eval_input=eval_input, rate_iters=2,
+            raw_hw=tuple(cfg.get("raw_hw") or hw), shapes=recorded)
+        del trainer
+        torch.cuda.empty_cache()
+        evals = -(-split // batch)
+        for part in ("train", "test"):
+            got = {k: v for k, v in recorded[part].items()
+                   if k[0] in ("bn_act", "conv_fused", "conv_pair")}
+            want = {k: v * evals for k, v in sites.items()}
+            if got != want:
+                raise AssertionError(f"zoo {name} {part}: launches by shape "
+                                     f"{got}, want {want}")
+            runs[f"zoo_{name}_{part}"] = (train_c if part == "train"
+                                          else test_c)
+            shapes[f"zoo_{name}_{part}"] = recorded[part]
+        step = run["step"]
+        run["seconds"] = time.perf_counter() - t0
+        run["batch_as"] = f"{batch} as {accum} x {batch // accum}"
+        checks[name] = run
+        log(f"zoo {name}: {batch} as {accum} x {batch // accum}, step "
+            f"{step['step_ms']:.1f} ms, {step['images_per_sec']:.1f} "
+            f"images/s, idle share {step['idle_share']}, peak "
+            f"{step['max_memory_allocated_gb']:.2f} GiB; eval launches by "
+            f"shape as the model's sites {zoo_totals(sites)} a batch; "
+            f"{run['seconds']:.1f}s")
+    counted = Counted()
+    for name in ZOO_SERVED:
+        checks[name] = zoo_served(dev, counted, name)
+        torch.cuda.empty_cache()
+    root = os.path.join(ROOT, "build", "chip_smoke_zoo_export")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        inputs = export_inputs(root)
+        for name, case in ZOO_EXPORT.items():
+            checks[f"export_{name}"] = export_case(dev, name, counted, root,
+                                                   inputs, None, case)
+            if not checks[f"export_{name}"]["bit_exact"]:
+                raise AssertionError(f"{name}: the artifact's bits differ "
+                                     "from the in-memory deploy program's")
+            got = dict(counted.shapes[f"export_{name}_artifact"])
+            want = dict(zoo_sites("repvgg_a0_deploy", BATCH, (224, 224)))
+            if got != want:
+                raise AssertionError(f"{name} artifact: launches by shape "
+                                     f"{got}, want {want}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    runs.update(counted.runs)
+    shapes.update(counted.shapes)
+    return runs, shapes, checks
+
+
 def phase(name, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -6625,7 +6968,9 @@ def main() -> int:
                  FLOWNET_CONFIG, VGG_CONFIG, DENSENET_CONFIG, VOC_CONFIG,
                  DCGAN_CONFIG, PIX2PIX_CONFIG, *SMALLNET_CONFIGS.values(),
                  SNGAN_CONFIG, FIXTURES, SWIN_CONFIG, MAE_CONFIG,
-                 SIMCLR_CIFAR_CONFIG, SIMCLR_R50_CONFIG, MAE_CIFAR_CONFIG):
+                 SIMCLR_CIFAR_CONFIG, SIMCLR_R50_CONFIG, MAE_CIFAR_CONFIG,
+                 *(os.path.join(ROOT, "configs", c)
+                   for c, *_ in ZOO_RECIPES.values())):
         if not os.path.exists(path):
             print(f"chip_smoke: {path} is missing", file=sys.stderr)
             return 1
@@ -6729,6 +7074,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     simclr_runs, simclr_shapes, checks["simclr"] = phase("simclr",
                                                          simclr_run, dev)
+    torch.cuda.empty_cache()
+    zoo_runs, zoo_shapes, checks["zoo"] = phase("zoo", zoo_run, dev)
     runs = {"serve": counts, "train": train_counts, "test": eval_counts,
             "vit_train": vit_train, "vit_test": vit_test,
             **{f"vit_train_{k}": v for k, v in policy_runs.items()},
@@ -6745,7 +7092,7 @@ def main() -> int:
             "swin_t_train": swin_train, "swin_t_test": swin_test,
             "mae_b16_train": mae_train, "mae_b16_test": mae_test,
             "mae_cifar_train": mae_cifar_train,
-            "mae_cifar_test": mae_cifar_test, **simclr_runs}
+            "mae_cifar_test": mae_cifar_test, **simclr_runs, **zoo_runs}
     launches = {name: sum(c[name] for c in runs.values())
                 for name in SOURCES}
     in_forward = checks["bn_act_in_forward_ms"]
@@ -6768,7 +7115,8 @@ def main() -> int:
                                        {**seg_shapes, **gan_shapes,
                                         **api_shapes, **file_shapes,
                                         **route_shapes, **sngan_shapes,
-                                        **export_shapes, **simclr_shapes})}
+                                        **export_shapes, **simclr_shapes,
+                                        **zoo_shapes})}
             if name in ("conv_pair", "bn_act", "conv_fused") else {}),
          **({"in_forward_ms": summary[name]["in_forward_ms"]}
             if name == "bn_act" else {})}

@@ -9,10 +9,18 @@ port has: ``export_classification`` (``:14``), ``export_segmentation``
 wire format of JAX's artifact of the same kind, and prints JAX's artifact
 line and then the artifact's ``mcn::`` kernel nodes.
 
+A RepVGG recipe (a name of ``models.DEPLOY_FORWARDS``) exports its
+reparameterized deploy form (``export_cli.py:34-60``): the restored train
+form's branches folded by ``models.repvgg.deploy_params`` into the plain
+3x3 stack, whose graph holds ``mcn::conv_fused`` at the stride-1 blocks
+on the card and no BN; ``model_kwargs`` other than ``a``, ``b`` and
+``stages`` (and the train-only ``dropout_rate``) have no deploy
+equivalent and are refused, as in JAX.
+
 Refused by name: ``--int8`` (the quantized programs, ROADMAP A17's
-quantization), RepVGG's reparameterized deploy export (an unported model),
-the GAN kinds the port does not have (srgan, cyclegan) and the other nine
-exporters (:data:`UNPORTED_EXPORTERS`), each with its A17 family.
+quantization), the GAN kinds the port does not have (srgan, cyclegan) and
+the other nine exporters (:data:`UNPORTED_EXPORTERS`), each with its A17
+family.
 """
 
 from __future__ import annotations
@@ -34,8 +42,9 @@ UNPORTED_EXPORTERS = {
 
 def refuse_unported(cfg, args) -> None:
     """SystemExit for what this port does not export (before any model is
-    built): ``--int8``, the unported tasks, RepVGG's deploy branch and the
-    GAN kinds the port does not train."""
+    built): ``--int8``, the unported tasks, a RepVGG whose
+    ``model_kwargs`` have no deploy equivalent and the GAN kinds the port
+    does not train."""
     if args.int8:
         raise SystemExit("test --export --int8 is not ported: the int8 "
                          "programs (core/quantize.py, ops/quantized.py) "
@@ -46,12 +55,8 @@ def refuse_unported(cfg, args) -> None:
         fn, family = UNPORTED_EXPORTERS[task]
         raise SystemExit(f"test --export of a {task} recipe is not ported "
                          f"({fn}, ROADMAP A17's {family} family)")
-    if task == "classification" and str(cfg.get("model", "")).startswith(
-            "repvgg"):
-        raise SystemExit("test --export of RepVGG is not ported: its "
-                         "reparameterized deploy branch (models/repvgg.py "
-                         "DEPLOY_FORWARDS) belongs to an unported model "
-                         "(ROADMAP A17's mobile nets)")
+    if task == "classification":
+        _deploy_kwargs(cfg)
     if task == "gan":
         from myconvnet_tpu_torch.recipes_gan import UNPORTED_KINDS
         kind = cfg.get("gan_kind", "dcgan")
@@ -60,6 +65,25 @@ def refuse_unported(cfg, args) -> None:
                              f"ported (its generator, "
                              f"{UNPORTED_KINDS[kind]}, is ROADMAP A17's "
                              "other GAN kinds)")
+
+
+def _deploy_kwargs(cfg) -> dict | None:
+    """A RepVGG recipe's deploy-form keywords (``model_kwargs`` without
+    the train-only ``dropout_rate``), None for another model; SystemExit
+    for keywords the deploy form does not take (``export_cli.py:44-
+    53``)."""
+    from myconvnet_tpu_torch.models import DEPLOY_FORWARDS
+
+    if cfg.get("model") not in DEPLOY_FORWARDS:
+        return None
+    mk = {k: v for k, v in (cfg.get("model_kwargs") or {}).items()
+          if k != "dropout_rate"}
+    unknown = set(mk) - {"a", "b", "stages"}
+    if unknown:
+        raise SystemExit(f"model_kwargs {sorted(unknown)} have no deploy-"
+                         "forward equivalent; cannot export a matching "
+                         "reparameterized artifact")
+    return mk
 
 
 def _report(what, path, size, shape, tail=""):
@@ -83,6 +107,18 @@ def export_classification(cfg, args, net, val_set):
     hw = tuple((cfg.get("augment") or {}).get(
         "out_hw", cfg.get("input_hw", (224, 224))))
     sample = np.zeros((cfg.get("export_batch", 8), *hw, 3), np.float32)
+    mk = _deploy_kwargs(cfg)
+    if mk is not None:
+        # structural re-parameterization: the folded plain 3x3 stack
+        from myconvnet_tpu_torch.models.repvgg import deploy_model
+        dep = deploy_model(net.model, cfg["model"], cfg["num_classes"],
+                           **mk)
+        size = serving.export_inference(dep, None, None, sample,
+                                        args.export, fold_bn=False,
+                                        device=net.device, policy=net.policy)
+        _report("classification", args.export, size,
+                f"input {sample.shape}", ", reparameterized")
+        return
     size = serving.export_inference(net.model, None, None, sample,
                                     args.export, device=net.device,
                                     policy=net.policy)

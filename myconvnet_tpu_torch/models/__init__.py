@@ -11,8 +11,27 @@ from myconvnet_tpu_torch.models.gan import (DCGANDiscriminator,
 from myconvnet_tpu_torch.models.flow import (FLOW_MODELS, flownet_c,
                                              flownet_s, pwcnet, tinyflow,
                                              tinypwc)
+from myconvnet_tpu_torch.models import efficientnet as _effnet
+from myconvnet_tpu_torch.models import efficientnetv2 as _effnetv2
+from myconvnet_tpu_torch.models import regnet as _regnet
+from myconvnet_tpu_torch.models.mobilenet import MobileNetV2, mobilenet_v2
+from myconvnet_tpu_torch.models.mobilenetv3 import (MobileNetV3,
+                                                    mobilenet_v3_large,
+                                                    mobilenet_v3_small)
+from myconvnet_tpu_torch.models.repvgg import (DEPLOY_FORWARDS, RepVGG,
+                                               RepVGGDeploy, repvgg_a0,
+                                               repvgg_a1, tinyrepvgg)
 from myconvnet_tpu_torch.models.resnet import (ResNet, ResNetBackbone,
-                                               resnet18, resnet34, resnet50)
+                                               resnet18, resnet34, resnet50,
+                                               resnet101, resnet152,
+                                               resnext50_32x4d,
+                                               resnext101_32x8d,
+                                               se_resnet50, se_resnet101,
+                                               se_resnext50_32x4d)
+from myconvnet_tpu_torch.models.shufflenet import ShuffleNetV2, \
+    shufflenet_v2
+from myconvnet_tpu_torch.models.wideresnet import (WideResNet, wide_resnet,
+                                                   wrn_16_8, wrn_28_10)
 from myconvnet_tpu_torch.models.mae import (MAE, mae_b16, mae_l16, patchify,
                                             tinymae, unpatchify)
 from myconvnet_tpu_torch.models.smallnet import SmallNet, smallnet
@@ -28,15 +47,31 @@ VITS = {"vit_ti16": vit_ti16, "vit_s16": vit_s16, "vit_b16": vit_b16,
 VGGS = {"vgg11": vgg11, "vgg16": vgg16, "vgg19": vgg19}
 SWINS = {"swin_t": swin_t, "swin_s": swin_s, "swin_b": swin_b,
          "tinyswin": tinyswin}
+WRNS = {"wrn_28_10": wrn_28_10, "wrn_16_8": wrn_16_8,
+        "wide_resnet": wide_resnet}
+# the grouped and depthwise families (models/__init__.py:92-121)
+ZOO = {"resnet101": resnet101, "resnet152": resnet152,
+       "se_resnet50": se_resnet50, "se_resnet101": se_resnet101,
+       "resnext50_32x4d": resnext50_32x4d,
+       "resnext101_32x8d": resnext101_32x8d,
+       "se_resnext50_32x4d": se_resnext50_32x4d,
+       "mobilenet_v2": mobilenet_v2,
+       "mobilenet_v3_large": mobilenet_v3_large,
+       "mobilenet_v3_small": mobilenet_v3_small,
+       **_effnet.VARIANTS, **_effnetv2.VARIANTS, **WRNS,
+       "shufflenet_v2": shufflenet_v2, "repvgg_a0": repvgg_a0,
+       "repvgg_a1": repvgg_a1, "tinyrepvgg": tinyrepvgg,
+       **_regnet.VARIANTS}
 # the names of myconvnet_tpu/models/__init__.py:89-129
 MODELS = {"smallnet": smallnet,
           "resnet18": resnet18, "resnet34": resnet34, "resnet50": resnet50,
           **VGGS, "densenet121": densenet121, "densenet169": densenet169,
-          "densenet201": densenet201, **VITS, **SWINS, **FLOW_MODELS,
-          "deeplab_v3_plus": deeplab_v3_plus}
+          "densenet201": densenet201, **ZOO, **VITS, **SWINS,
+          **FLOW_MODELS, "deeplab_v3_plus": deeplab_v3_plus}
 # models made for one input size: a ViT's position embedding, a VGG's
-# classic head, DeepLab's dropout mask, a Swin's window masks
-SIZED = {*VITS, *VGGS, *SWINS, "deeplab_v3_plus"}
+# classic head, DeepLab's dropout mask, a Swin's window masks, a WRN's
+# dropout masks
+SIZED = {*VITS, *VGGS, *SWINS, *WRNS, "deeplab_v3_plus"}
 # the self-supervised forwards (models/__init__.py:245-249): not
 # classifiers; SimCLR takes any MODELS entry with a ``features`` method
 SSL_MODELS = {"mae_b16": mae_b16, "mae_l16": mae_l16, "tinymae": tinymae}
@@ -59,7 +94,9 @@ def get_model(name: str, num_classes: int,
     return MODELS[name](num_classes, **kwargs)
 
 
-__all__ = ["DCGANDiscriminator", "DCGANGenerator", "DeepLabV3Plus",
+__all__ = ["DEPLOY_FORWARDS", "MobileNetV2", "MobileNetV3", "RepVGG",
+           "RepVGGDeploy", "ShuffleNetV2", "WideResNet", "WRNS", "ZOO",
+           "DCGANDiscriminator", "DCGANGenerator", "DeepLabV3Plus",
            "DenseNet", "FLOW_MODELS", "MAE", "PatchGANDiscriminator",
            "UNetGenerator", "MODELS", "ResNet",
            "ResNetBackbone", "SIZED", "SSL_MODELS", "SWINS", "SmallNet",

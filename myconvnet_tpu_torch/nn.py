@@ -2,8 +2,10 @@
 tensors.
 
 Port of the subset of ``myconvnet_tpu/nn.py`` that the ResNets, the ViTs,
-the flow models, SmallNet, VGG, DenseNet and the GANs use (``max_pool``,
-``avg_pool`` and ``gap`` are the pooling ops of ``ops/pool.py``).
+the flow models, SmallNet, VGG, DenseNet, the GANs and the grouped and
+depthwise classifiers use (``max_pool``, ``avg_pool`` and ``gap`` are the
+pooling ops of ``ops/pool.py``; ``gap(x, keepdims=True)`` keeps the
+[N, 1, 1, C] shape, in x's dtype as JAX's).
 Module names follow the JAX scope names, so ``weights.from_jax`` maps
 ``{"stage1/block1/conv_a": {"w": ...}}`` onto ``stage1.block1.conv_a``.
 
@@ -93,14 +95,18 @@ def _add_spectral_norm(layer: nn.Module, out: int, on: bool) -> None:
 class Conv(nn.Module):
     def __init__(self, cin: int, cout: int, kernel_size: int, *,
                  stride: int = 1, padding: Padding = "SAME",
-                 dilation: int = 1, bias: bool = False, w_init=None,
-                 spectral_norm: bool = False):
+                 dilation: int = 1, groups: int = 1, bias: bool = False,
+                 w_init=None, spectral_norm: bool = False):
         super().__init__()
+        if cin % groups or cout % groups:
+            raise ValueError(f"channels {cin} -> {cout} do not split into "
+                             f"{groups} groups")
         self.w_init = w_init    # core.init.init_model: None is He-normal
         self.stride = stride
         self.padding = padding
         self.dilation = dilation
-        w = torch.empty(cout, cin, kernel_size, kernel_size)
+        self.groups = groups
+        w = torch.empty(cout, cin // groups, kernel_size, kernel_size)
         self.weight = nn.Parameter(
             w.contiguous(memory_format=torch.channels_last))
         self.register_parameter(
@@ -108,18 +114,46 @@ class Conv(nn.Module):
         _add_spectral_norm(self, cout, spectral_norm)
 
     @property
-    def w(self) -> torch.Tensor:
-        """The weight in HWIO, a view of the OIHW channels_last storage."""
+    def kernel(self) -> torch.Tensor:
+        """The weight as ``conv2d`` takes it, [kh, kw, cin / groups,
+        cout], a view of the OIHW channels_last storage."""
         return self.weight.permute(2, 3, 1, 0)
+
+    @property
+    def w(self) -> torch.Tensor:
+        """The weight in the JAX layout (HWIO), a view of the storage."""
+        return self.kernel
 
     def forward(self, x: torch.Tensor, add_bias: bool = True
                 ) -> torch.Tensor:
         b = self.bias.to(x.dtype) if add_bias and self.bias is not None \
             else None
         w = spectral_normalize(self, self.w) if self.spectral_norm \
-            else self.w
+            else self.kernel
         return conv2d(x, w.to(x.dtype), b, stride=self.stride,
-                      padding=self.padding, dilation=self.dilation)
+                      padding=self.padding, dilation=self.dilation,
+                      groups=self.groups)
+
+
+class DepthwiseConv(Conv):
+    """``nn.depthwise_conv``: a ``kernel_size`` conv of each channel
+    alone, ``multiplier`` outputs a channel, SAME by default, no bias
+    unless asked."""
+
+    def __init__(self, c: int, kernel_size: int = 3, *, stride: int = 1,
+                 padding: Padding = "SAME", dilation: int = 1,
+                 multiplier: int = 1, bias: bool = False, w_init=None):
+        super().__init__(c, c * multiplier, kernel_size, stride=stride,
+                         padding=padding, dilation=dilation, groups=c,
+                         bias=bias, w_init=w_init)
+        self.multiplier = multiplier
+
+    @property
+    def w(self) -> torch.Tensor:
+        """The weight as JAX holds it, [kh, kw, C, multiplier], a view of
+        the storage."""
+        kh, kw, _, cm = self.kernel.shape
+        return self.kernel.view(kh, kw, self.groups, cm // self.groups)
 
 
 class ConvTranspose(nn.Module):
@@ -269,6 +303,20 @@ class InstanceNorm(nn.Module):
 
 def relu(x: torch.Tensor) -> torch.Tensor:
     return torch.relu(x)
+
+
+def relu6(x: torch.Tensor) -> torch.Tensor:
+    """min(relu(x), 6)."""
+    return torch.clamp(x, 0.0, 6.0)
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return torch.sigmoid(x)
+
+
+def swish(x: torch.Tensor) -> torch.Tensor:
+    """x * sigmoid(x) (``jax.nn.silu``)."""
+    return torch.nn.functional.silu(x)
 
 
 def leaky_relu(x: torch.Tensor, alpha: float = 0.2) -> torch.Tensor:

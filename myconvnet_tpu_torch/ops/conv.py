@@ -8,7 +8,15 @@ when the weight is stored OIHW channels_last, as ``nn.Conv`` keeps it.
 
 TF "SAME" padding is asymmetric when the total is odd (a 7x7/2 at 224 pads
 (2, 3); a 3x3/2 at 56 pads (0, 1)).  ``F.conv2d``'s ``padding=`` is
-symmetric, so such pads go through an explicit ``F.pad``.
+symmetric, so such pads go through an explicit ``F.pad``; so do the
+stride-2 depthwise convs of MobileNet and EfficientNet at even sizes.
+
+``groups`` is ``feature_group_count`` (``conv.py:41-58``): the weight is
+[kh, kw, Cin / groups, Cout] and cuDNN's grouped conv takes it as
+[Cout, Cin / groups, kh, kw].  :func:`depthwise_conv2d` (``:76-83``)
+reshapes its [kh, kw, C, m] weight to [kh, kw, 1, C * m] and runs the
+grouped conv with groups = C, so output channel c * m + k reads input
+channel c through ``w[..., c, k]``, as in JAX.
 
 :func:`conv2d_transpose` is ``conv2d_transpose`` (``:61``), which calls
 ``lax.conv_transpose`` with ``transpose_kernel=False``: a correlation of
@@ -70,8 +78,8 @@ def pad_nhwc(x: torch.Tensor, pads, value: float = 0.0) -> torch.Tensor:
 def conv2d(x: torch.Tensor, w: torch.Tensor,
            bias: torch.Tensor | None = None, *,
            stride: _IntOrPair = 1, padding: Padding = "SAME",
-           dilation: _IntOrPair = 1) -> torch.Tensor:
-    """NHWC conv. x: [N,H,W,Cin], w: [kh,kw,Cin,Cout] -> NHWC,
+           dilation: _IntOrPair = 1, groups: int = 1) -> torch.Tensor:
+    """NHWC conv. x: [N,H,W,Cin], w: [kh,kw,Cin/groups,Cout] -> NHWC,
     in x's dtype (bf16 inputs accumulate in float32 inside cuDNN).
     ``dilation`` is the atrous rate; "SAME" pads for the effective kernel
     (k - 1) * rate + 1."""
@@ -84,8 +92,19 @@ def conv2d(x: torch.Tensor, w: torch.Tensor,
         x = pad_nhwc(x, ((t, b), (l, r)))
         sym = (0, 0)
     y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), bias,
-                 stride=s, padding=sym, dilation=rate)
+                 stride=s, padding=sym, dilation=rate, groups=groups)
     return y.permute(0, 2, 3, 1)
+
+
+def depthwise_conv2d(x: torch.Tensor, w: torch.Tensor,
+                     bias: torch.Tensor | None = None, *,
+                     stride: _IntOrPair = 1, padding: Padding = "SAME",
+                     dilation: _IntOrPair = 1) -> torch.Tensor:
+    """Depthwise conv. x: [N,H,W,C], w: [kh,kw,C,multiplier] -> NHWC
+    with C * multiplier channels."""
+    kh, kw, c, m = w.shape
+    return conv2d(x, w.reshape(kh, kw, 1, c * m), bias, stride=stride,
+                  padding=padding, dilation=dilation, groups=c)
 
 
 def transpose_pads(k: int, s: int, padding: str) -> tuple[int, int]:

@@ -54,6 +54,8 @@ def avg_pool2d(x: torch.Tensor, window: _IntOrPair = 2,
     return out.permute(0, 2, 3, 1).to(x.dtype)
 
 
-def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
-    """[N,H,W,C] -> [N,C], mean taken in float32."""
-    return x.float().mean(dim=(1, 2)).to(x.dtype)
+def global_avg_pool(x: torch.Tensor, keepdims: bool = False
+                    ) -> torch.Tensor:
+    """[N,H,W,C] -> [N,C] ([N,1,1,C] with ``keepdims``), mean taken in
+    float32, in x's dtype."""
+    return x.float().mean(dim=(1, 2), keepdim=keepdims).to(x.dtype)

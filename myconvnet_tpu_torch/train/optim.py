@@ -1,12 +1,14 @@
-"""SGD with (nesterov) momentum, Adam/AdamW, gradient clipping, the
-weight-decay mask, LR schedules.
+"""SGD with (nesterov) momentum, Adam/AdamW, RMSprop, LARS, gradient
+clipping, the weight-decay mask, LR schedules.
 
-Port of the parts of ``myconvnet_tpu/train/optim.py`` the CIFAR and ViT
-recipes use: ``cosine_decay``/``cosine_restarts`` (``:62-101``),
+Port of the parts of ``myconvnet_tpu/train/optim.py`` the recipes use:
+``step_decay`` and ``exponential_decay`` (``:40-59``),
+``cosine_decay``/``cosine_restarts`` (``:62-101``),
 ``polynomial_decay`` (``:70-77``, DeepLab's "poly"),
 ``warmup`` (``:104-112``), ``norm_and_bias_exclusion`` and the decay mask
 (``:131-157``), ``sgd``/``momentum`` (``:159-199``), ``adam``/``adamw``
-(``:202-249``), ``lars`` (``:252-293``, :class:`LARS`),
+(``:202-249``), ``lars`` (``:252-293``, :class:`LARS`), ``rmsprop``
+(``:304-334``, :class:`RMSprop`),
 ``make_schedule`` / ``make_optimizer`` (``:374-415``),
 ``global_norm``/``clip_by_global_norm``/``with_gradient_clipping``
 (``:416-437``) and the wrappers of ``:440-644`` (freeze, lookahead,
@@ -55,6 +57,29 @@ F32 = np.float32
 
 def constant(lr: float) -> Schedule:
     return lambda step: float(F32(lr))
+
+
+def step_decay(lr: float, boundaries, rates) -> Schedule:
+    """Piecewise constant: lr * rates[i] once ``boundaries[i]`` steps are
+    done (lr before the first)."""
+    bounds = [int(b) for b in boundaries]
+    scale = [F32(1.0)] + [F32(r) for r in rates]
+
+    def fn(step):
+        return float(F32(lr) * scale[sum(step >= b for b in bounds)])
+    return fn
+
+
+def exponential_decay(lr: float, decay_steps: int, decay_rate: float,
+                      staircase: bool = False) -> Schedule:
+    """lr * decay_rate ** (step / decay_steps), the exponent floored with
+    ``staircase``."""
+    def fn(step):
+        p = F32(step) / F32(decay_steps)
+        if staircase:
+            p = np.floor(p)
+        return float(F32(lr) * F32(decay_rate) ** p)
+    return fn
 
 
 def cosine_decay(lr: float, total_steps: int, alpha: float = 0.0
@@ -116,7 +141,8 @@ def make_schedule(cfg: dict) -> Schedule:
     cfg = dict(cfg)
     kind = cfg.pop("kind", "constant")
     warmup_steps = cfg.pop("warmup_steps", 0)
-    table = {"constant": constant, "cosine": cosine_decay,
+    table = {"constant": constant, "step": step_decay,
+             "exponential": exponential_decay, "cosine": cosine_decay,
              "cosine_restarts": cosine_restarts, "poly": polynomial_decay,
              "polynomial": polynomial_decay}
     if kind not in table:
@@ -375,13 +401,90 @@ class LARS:
                 m.copy_(trees[""][path])
 
 
+class RMSprop:
+    """``optim.rmsprop`` (``:304-334``) over (JAX path, parameter) pairs,
+    with the optional global-norm clipping of ``with_gradient_clipping``;
+    ``step(i)`` applies the update with ``lr(i)``.  Per leaf, in float32,
+    with ``nu`` and ``mom`` starting at 0 (``torch.optim.RMSprop`` starts
+    nothing else, but folds eps and the momentum otherwise, so it is not
+    used):
+
+        gd  = g + wd p          (coupled; 0 for excluded parameters)
+        nu  = decay nu + (1 - decay) gd^2
+        d   = gd / (sqrt(nu) + eps)
+        mom = momentum mom + d  (d = mom where momentum > 0)
+        p   = p - lr(step) d
+
+    The state is JAX's ``RMSPropState``: the fields ``.nu`` and ``.mom``,
+    laid out as the parameters."""
+
+    def __init__(self, named_params: list[tuple[str, torch.Tensor]], lr, *,
+                 decay: float = 0.9, eps: float = 1e-8,
+                 momentum_coef: float = 0.0, weight_decay: float = 0.0,
+                 weight_decay_exclude=None, clip_norm: float | None = None):
+        self.schedule = lr if callable(lr) else constant(float(lr))
+        self.named = list(named_params)
+        self.params = [p for _, p in self.named]
+        mask = decay_mask(self.named, weight_decay_exclude)
+        self.decayed = [i for i, (path, _) in enumerate(self.named)
+                        if mask[path] and weight_decay > 0.0]
+        self.decay, self.eps = decay, eps
+        self.momentum, self.weight_decay = momentum_coef, weight_decay
+        self.clip_norm = clip_norm
+        self.nu = [torch.zeros_like(p, dtype=torch.float32)
+                   for p in self.params]
+        self.mom = [torch.zeros_like(p, dtype=torch.float32)
+                    for p in self.params]
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self, step: int) -> float:
+        lr = self.schedule(step)
+        grads = [torch.zeros_like(p, dtype=torch.float32) if p.grad is None
+                 else p.grad.float() for p in self.params]
+        if self.clip_norm:
+            clip_by_global_norm(grads, float(self.clip_norm))
+        for i in self.decayed:
+            grads[i] = grads[i] + self.weight_decay * self.params[i].float()
+        torch._foreach_mul_(self.nu, self.decay)
+        torch._foreach_addcmul_(self.nu, grads, grads, value=1 - self.decay)
+        denom = torch._foreach_sqrt(self.nu)
+        torch._foreach_add_(denom, self.eps)
+        d = torch._foreach_div(grads, denom)
+        torch._foreach_mul_(self.mom, self.momentum)
+        torch._foreach_add_(self.mom, d)
+        torch._foreach_add_(self.params,
+                            self.mom if self.momentum > 0.0 else d,
+                            alpha=-lr)
+        return lr
+
+    def state_trees(self) -> dict[str, dict[str, torch.Tensor]]:
+        """{".nu": {path: nu}, ".mom": {path: mom}}: the fields of JAX's
+        ``RMSPropState``."""
+        paths = [path for path, _ in self.named]
+        return {".nu": dict(zip(paths, self.nu)),
+                ".mom": dict(zip(paths, self.mom))}
+
+    @torch.no_grad()
+    def load_state_trees(self, trees: dict) -> None:
+        for field, bufs in ((".nu", self.nu), (".mom", self.mom)):
+            for (path, _), buf in zip(self.named, bufs):
+                if path in trees.get(field, {}):
+                    buf.copy_(trees[field][path])
+
+
 def make_optimizer(named_params, name: str, lr, **kwargs):
     """Config-string optimizer factory (``sgd``, ``momentum``, ``adam``,
-    ``adamw``, ``lars``); ``clip_norm`` clips the gradients' global norm
-    before the update (``recipes/common.py:101-102``)."""
+    ``adamw``, ``rmsprop``, ``lars``); ``clip_norm`` clips the gradients'
+    global norm before the update (``recipes/common.py:101-102``)."""
     named_params = list(named_params)
     if name == "lars":
         return LARS(named_params, lr, **kwargs)
+    if name == "rmsprop":
+        return RMSprop(named_params, lr, **kwargs)
     if name in ("adam", "adamw"):
         if name == "adamw":
             kwargs.setdefault("weight_decay", 1e-4)
@@ -391,7 +494,8 @@ def make_optimizer(named_params, name: str, lr, **kwargs):
         kwargs["momentum"] = kwargs.pop("momentum_coef", 0.9)
     elif name != "sgd":
         raise ValueError(f"the port has optimizers ['adam', 'adamw', "
-                         f"'lars', 'momentum', 'sgd'], not {name!r}")
+                         f"'lars', 'momentum', 'rmsprop', 'sgd'], not "
+                         f"{name!r}")
     return SGD(named_params, lr, **kwargs)
 
 

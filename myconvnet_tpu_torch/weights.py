@@ -7,6 +7,10 @@ scopes with "/" read as "." (``stage1.block1.conv_a``), so the mapping is
 by name:
 
 * ``Conv``: ``w`` HWIO <-> ``weight`` OIHW (channels_last); optional ``b``;
+  a grouped conv's ``w`` [kh, kw, cin / g, cout] <-> ``weight``
+  [cout, cin / g, kh, kw];
+* ``DepthwiseConv``: ``w`` [kh, kw, C, m] <-> ``weight`` [C * m, 1, kh,
+  kw] (channels_last), output channel c * m + k from ``w[..., c, k]``;
 * ``ConvTranspose``: ``w`` HWIO <-> ``weight`` [Cin, Cout, kh, kw]
   (channels_last), a permutation: the op flips the kernel in space at use,
   so the stored kernel is JAX's; optional ``b``;
@@ -38,7 +42,7 @@ from torch import nn
 
 from myconvnet_tpu_torch.ckpt.checkpoint import SEP, latest_checkpoint
 from myconvnet_tpu_torch.nn import (BatchNorm, Conv, ConvTranspose, Dense,
-                                   InstanceNorm, LayerNorm)
+                                   DepthwiseConv, InstanceNorm, LayerNorm)
 
 Tree = dict[str, dict[str, np.ndarray]]
 ROOT = "~"  # the JAX tree's scope of the root module's own parameters
@@ -81,8 +85,17 @@ def _iohw(t: torch.Tensor) -> torch.Tensor:
     return t.permute(2, 3, 0, 1)
 
 
+def _depthwise(groups: int):
+    def view(t: torch.Tensor) -> torch.Tensor:
+        kh, kw = t.shape[2:]
+        return _hwio(t).view(kh, kw, groups, t.shape[0] // groups)
+    return view
+
+
 def _weight_view(m: nn.Module):
     """The view of a layer's weight in the JAX layout."""
+    if isinstance(m, DepthwiseConv):
+        return _depthwise(m.groups)
     if isinstance(m, Conv):
         return _hwio
     return _iohw if isinstance(m, ConvTranspose) else _transpose
@@ -297,10 +310,12 @@ def random_jax_params(model: nn.Module, seed: int) -> tuple[Tree, Tree]:
     """JAX-layout trees of random weights for ``model``'s shapes, made
     from ``seed`` with numpy: He-normal convs, Glorot-uniform dense,
     BN with random gamma, beta and moving statistics (a block's last BN,
-    ``bn_c`` of a bottleneck or ``bn_b`` of a basic block, gets a small
-    gamma, as the zero-init recipe intends, so the residual stream stays
-    in range through 16 blocks), LN with gamma near 1 and a small beta,
-    and the ViT's tokens from normal(0.02)."""
+    ``bn_c`` of a bottleneck, ``bn_b`` of a basic block or ``bn_project``
+    of an inverted residual, gets a small gamma, as the zero-init recipe
+    intends, so the residual stream stays in range through 16 blocks), LN
+    with gamma near 1 and a small beta, and the ViT's tokens from
+    normal(0.02).  A depthwise conv's He scale counts its window only
+    (one input channel an output)."""
     rng = np.random.RandomState(seed)
     params, state = to_jax(model)
     layers = dict(_layers(model))
@@ -317,7 +332,7 @@ def random_jax_params(model: nn.Module, seed: int) -> tuple[Tree, Tree]:
             p["beta"] = (0.05 * rng.randn(c)).astype(np.float32)
         elif isinstance(m, BatchNorm):
             c = p["gamma"].shape[0]
-            last = scope.endswith("bn_c") or (
+            last = scope.endswith(("bn_c", "bn_project")) or (
                 scope.endswith("bn_b") and scope[:-1] + "c" not in params)
             lo, hi = (0.1, 0.3) if last else (0.5, 1.0)
             p["gamma"] = rng.uniform(lo, hi, c).astype(np.float32)
@@ -327,6 +342,8 @@ def random_jax_params(model: nn.Module, seed: int) -> tuple[Tree, Tree]:
                 "moving_var": rng.uniform(0.5, 1.5, c).astype(np.float32)}
         elif p["w"].ndim == 4:
             kh, kw, cin, _ = p["w"].shape
+            if isinstance(m, DepthwiseConv):
+                cin = 1
             std = np.sqrt(2.0 / (kh * kw * cin))
             p["w"] = (std * rng.randn(*p["w"].shape)).astype(np.float32)
         else:

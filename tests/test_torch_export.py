@@ -815,7 +815,8 @@ def test_export_cli_tasks(task_ckpts, tmp_path, capsys, name, extra, line,
     ("kinetics_r3d18.py", [], "video family"),
     ("srgan.py", [], "other GAN kinds"),
     ("cyclegan.py", [], "other GAN kinds"),
-    ("imagenet_repvgg_a0.py", [], "RepVGG")],
+    ("imagenet_repvgg_a0.py", ["--set", "model_kwargs.width=8"],
+     "no deploy-forward equivalent")],
     ids=["int8", "tracking", "video", "srgan", "cyclegan", "repvgg"])
 def test_export_refusals(tmp_path, config, extra, match):
     with pytest.raises(SystemExit, match=match):

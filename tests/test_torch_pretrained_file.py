@@ -2,7 +2,7 @@
 ``import_torch_resnet_file``, ``recipes.apply_pretrained``) and ``train
 --tensorboard`` of the port, on the CPU.
 
-A torchvision-layout ResNet-50 and ResNet-18 built in torch (the exact
+A torchvision-layout ResNet-18, -50 and -101 built in torch (the exact
 ``state_dict`` keys, BN running buffers pushed off their init, seeded) is
 saved with ``torch.save``; JAX's ``import_torch_resnet_file`` and the
 port's map it onto the same trees bit for bit, and the port's ResNet with
@@ -30,7 +30,8 @@ from test_pretrained_torch_file import _Basic, _Bottleneck, \
 torch.set_num_threads(2)
 
 CONFIGS = os.path.join(os.path.dirname(__file__), "..", "configs")
-NETS = {18: (_Basic, [2, 2, 2, 2]), 50: (_Bottleneck, [3, 4, 6, 3])}
+NETS = {18: (_Basic, [2, 2, 2, 2]), 50: (_Bottleneck, [3, 4, 6, 3]),
+        101: (_Bottleneck, [3, 4, 23, 3])}
 
 
 def _tree_equal(a, b):
@@ -43,7 +44,7 @@ def _tree_equal(a, b):
                                           err_msg=f"{scope}/{name}")
 
 
-@pytest.mark.parametrize("depth", [18, 50])
+@pytest.mark.parametrize("depth", [18, 50, 101])
 def test_torch_file_maps_as_jax_maps_and_gives_torch_logits(tmp_path,
                                                             depth):
     path = str(tmp_path / f"r{depth}.pth")

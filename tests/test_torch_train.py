@@ -259,8 +259,8 @@ def test_schedule_matches_jax_at_the_recipes_boundaries():
         for step in (0, 5, 50, 99, 150):
             np.testing.assert_allclose(
                 t(step), float(j(jnp.asarray(step, jnp.int32))), rtol=1e-6)
-    with pytest.raises(ValueError):   # a kind the port has not ported
-        optim.make_schedule(dict(kind="exponential", lr=0.1))
+    with pytest.raises(ValueError):   # a kind neither package has
+        optim.make_schedule(dict(kind="linear", lr=0.1))
 
 
 def test_decay_mask_matches_jax(trees):
