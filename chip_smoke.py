@@ -94,7 +94,7 @@
     init would make every upstream gradient zero), with the same flips and
     jitter factors, and the eval flows from those weights (whole pixels)
     against the host's plain path; ``train.main`` for 10 steps at batch 32
-    with a validation every 5 steps on 64 rendered scenes (5 forward launches a
+    with a validation every 5 steps on 32 rendered scenes (5 forward launches a
     train forward and an eval batch, 5 of each backward kernel a step, no
     other kernel; every loss finite, every parameter moved); the step's
     pairs/s, host enqueue ms, device busy ms, idle share, top kernels and
@@ -139,17 +139,17 @@
     and 120 x 120 inputs of its multi-scale eval (step 3's rows, path
     ``deeplab_513``, ``deeplab_96``, ``deeplab_72`` and ``deeplab_120``;
     every launch of the runs below is recorded with its shape, and each
-    shape must be one a row holds); step 1 at batch 4 of
-    513 x 513 on the card against the host (float32 and bf16, the same
-    pairs, boxes, flips and ASPP dropout mask, the rounding witnesses and
-    bounds of step 16's); ``train.main`` on the recipe as written (its
-    synthetic run at 96 x 96) for 10 steps of 16 with a validation every
-    5, ``test.main`` on its checkpoint with and without ``--scales
-    0.75,1.0,1.25`` (mIoU; conv_pair 11, conv_fused 2 and bn_act 18
-    launches an eval forward, none in a train step; restored outputs equal
-    the writer's and agree with the host's plain path, under ``--scales``
-    each forward's logits and the averaged probabilities); then the
-    recipe's 513 x 513 crops of 512 x 512 frames at batch 16 from
+    shape must be one a row holds); step 1 at batch 4 of 257 x 257 crops
+    on the card against the host (float32 and bf16, the same pairs,
+    boxes, flips and ASPP dropout mask, the rounding witnesses and bounds
+    of step 16's but the host's step one ulp over); ``train.main`` on the
+    recipe as written (its synthetic run at 96 x 96) for 10 steps of 16
+    with a validation every 5, ``test.main`` on its checkpoint with and
+    without ``--scales 0.75,1.0,1.25`` (mIoU; conv_pair 11, conv_fused 2
+    and bn_act 18 launches an eval forward, none in a train step; restored
+    outputs equal the writer's and agree with the host's plain path, under
+    ``--scales`` each forward's logits and the averaged probabilities);
+    then the recipe's 513 x 513 crops of 512 x 512 frames at batch 16 from
     ``recipes.segmenter_trainer``:
     10 steps through ``Trainer.fit``, a validation that launches one eval
     forward's kernels, the logits against the host's, and the step's
@@ -337,6 +337,26 @@
     same checkpoint), launch by launch and shape by shape.  Step 3's rows
     hold every one of these shapes (``check_zoo_kernels``; paths
     ``zoo_*`` and ``export_repvgg_a0``).
+28. The segmenters beside DeepLab (``seg_family_run``):
+    ``configs/voc_unet.py`` and ``configs/voc_pspnet.py`` as written (full
+    width, bf16): step 1 on the card against the host at SEG_FAMILY_STEP1,
+    the step at 16 on their 512² and 473² crops (ms, images/s, idle
+    share, peak memory), an eval forward of 4 and a ``segment`` route's
+    image request (B4 17 and B1 1 a U-Net forward; B5 6, B4 1, B1 25 a
+    PSPNet one; + B2 1 the image), each held by shape to the model's
+    sites, the eval logits against the host; DeepLabv3+ on Xception-65's
+    eval forward of 4 at 513² (B4 3, B1 74) held the same way.
+29. The rest of the zoo (``zoo_rest_run``): Inception-v3 (299²),
+    Xception-65, ConvNeXt-T/S, SqueezeNet and AlexNet (224²) through the
+    ImageNet recipe, the step at 128 and a served call of 8 held by shape
+    (B4 10 / B1 84, 1 / 67, none, none, 8 / 18, 3 / 2), its logits against
+    the host; one Adagrad and three Shampoo steps of the CIFAR-100
+    ResNet-18 recipe, each from the card's state: its gradients against
+    the host's, then each parameter's update against the host's from the
+    card's gradients (Shampoo's control: without its preconditioner the
+    host's update misses the bound).
+    ``check_seg_family_kernels`` adds the rows of paths ``seg_*`` and
+    ``zoo_rest_*`` to step 3's.
 
 Every kernel's record carries its bound: the larger of the bytes it must
 move over 3.35 TB/s and the operations it must do over the peak rate of
@@ -582,11 +602,11 @@ RA_PATHS = ("one_pass", "two_pass")
 # equalize can turn into a whole level at a rare pixel: 1e-4 (normalized
 # units) on all but 0.1% of the elements
 POLICY_TOL, POLICY_FRAC = 1e-4, 1e-3
-# the flow recipes: PWC-Net as written (batch 32 of 384x512, bf16) on 64
+# the flow recipes: PWC-Net as written (batch 32 of 384x512, bf16) on 32
 # rendered scenes per split, FlowNetC through the FlowNetS recipe
 PWC_CONFIG = os.path.join(ROOT, "configs", "chairs_pwcnet.py")
 FLOWNET_CONFIG = os.path.join(ROOT, "configs", "chairs_flownet_s.py")
-FLOW_BATCH, FLOW_SCENES = 32, 64
+FLOW_BATCH, FLOW_SCENES = 32, 32
 PWC_STEPS, PWC_VAL_EVERY, PWC_STEP1_BATCH = 10, 5, 2
 PWC_LEVELS = 5          # cost volumes of one PWC-Net forward
 FLOWNETC_STEPS = 4
@@ -699,6 +719,9 @@ SEG_SCALE_HW = tuple(int(round(96 * s)) for s in SEG_SCALES)
 # normalizes each channel over two values (a sign; tests/test_torch_deeplab
 # .py), so step 1 takes 4
 SEG_STEP1_BATCH = 4
+# ... at crops of SEG_STEP1_HW, the host's float32 and bf16 passes a
+# quarter of the minutes of its CPU they took at 513 x 513
+SEG_STEP1_HW = (257, 257)
 # eval images held card against host: at 96 x 96 (test.main's) and 513
 SEG_CHECK_N, SEG_CHECK_N_513 = 4, 1
 
@@ -808,8 +831,9 @@ FILES_CLASSES, FILES_TRAIN, FILES_VAL, FILES_STEPS = 1000, 2048, 512, 3
 # prefetcher filling)
 FILES_WARMUP = 3
 # the file-fed loop (and its in-memory control): warm-up steps, then steps
-# once plain and once under torch.profiler
-FED_WARMUP, FED_STEPS = 1, 2
+# once plain and once under torch.profiler (one step of each keeps the
+# script inside its time)
+FED_WARMUP, FED_STEPS = 1, 1
 R50_FILES_PAIR_SITES = [((FILES_VAL, *shape[1:]), count)
                         for shape, count in PAIR_SITES]
 R50_FILES_ACT_SITES = [(f"r50 files eval {site}", (FILES_VAL, *shape[1:]), 1)
@@ -859,6 +883,54 @@ ZOO_SERVED = ("resnet101", "resnet152", "se_resnet50")
 ZOO_EXPORT = {"repvgg_a0": (
     os.path.join(ROOT, "configs", "imagenet_repvgg_a0.py"), "classify",
     ZOO_FORWARD["repvgg_a0_deploy"], BATCH, ["synthetic_n=8"])}
+# The seg_family phase: configs/voc_unet.py and configs/voc_pspnet.py as
+# written (full width, bf16, their crops of SEG_RAW frames, batch 16 in
+# one pass): step 1 on the card against the host (at SEG_FAMILY_STEP1's
+# crop and batch: the host's float32 and bf16 passes at the full crops
+# would take minutes of its CPU), the step's rate, an eval forward of
+# SEG_FAMILY_EVAL frames and a segment route's image request at that
+# route batch (launches held by shape to the model's own sites, logits
+# card against host); then DeepLabv3+ on Xception-65 at 513 x 513, one
+# eval forward of SEG_FAMILY_EVAL.  name -> (config, crop)
+SEG_FAMILY = {
+    "unet": ("voc_unet.py", (512, 512)),
+    "pspnet": ("voc_pspnet.py", (473, 473)),
+}
+SEG_FAMILY_BATCH, SEG_FAMILY_EVAL = 16, 4
+# step 1's (crop, batch): U-Net's BN in train mode over 2 x 192 x 192
+# pixels, PSPNet's pyramid BN at one bin over 4 values (DeepLab's reason
+# for 4, SEG_STEP1_BATCH)
+SEG_FAMILY_STEP1 = {"unet": ((192, 192), 2), "pspnet": ((193, 193), 4)}
+DEEPLAB_X_KW = dict(backbone="xception")
+# The zoo_rest phase: the six classifiers through the ImageNet recipe
+# (configs/imagenet_resnet50.py, bf16) with --set model=<name>: the train
+# step's rate at ZOO_REST_BATCH, a served call of BATCH (seeded
+# JAX-layout weights, BN folded) held by shape, its logits against the
+# host's; then the optimizers: one Adagrad step and three Shampoo steps
+# (the preconditioner refreshed and applied on steps 2 and 3) of the
+# CIFAR-100 ResNet-18 recipe (configs/cifar100_resnet18.py) with the
+# optimizer replaced, each step card against host (optimizer_steps).
+# name -> input size
+ZOO_REST = {"inception_v3": (299, 299), "xception65": (224, 224),
+            "convnext_tiny": (224, 224), "convnext_small": (224, 224),
+            "squeezenet": (224, 224), "alexnet": (224, 224)}
+ZOO_REST_BATCH = 128
+ZOO_REST_OPTIMIZERS = {
+    "adagrad": (dict(name="adagrad", lr=0.1, weight_decay=5e-4,
+                     wd_exclude_norms=True), 1),
+    "shampoo": (dict(name="shampoo", lr=0.1, momentum_coef=0.9,
+                     precond_every=1, start_step=1, weight_decay=5e-4,
+                     wd_exclude_norms=True), 3)}
+# each parameter's update on the card against the host's from the same
+# state and gradients, ||diff|| / ||host||: float32 on both (the card's
+# matmuls without TF32), so only the summation orders and the two eigh
+# routines differ: 3.2e-8 for Adagrad, up to 6.8e-3 for Shampoo on an
+# NVIDIA H100 (logits/w: after two steps its R [100, 100] has ten
+# eigenvalues below 1e-5 of a largest 1.13, within float32 eigh's reach
+# of eps, where (lambda + eps)^(-1/4) weighs most); Shampoo's update
+# without its preconditioner misses by 0.52-0.63 (optimizer_steps'
+# control)
+OPT_UPDATE_RTOL = 5e-2
 # the paths of conv_pair, bn_act and conv_fused: the runs whose launches
 # each path counts and the ``path`` of the rows that hold its shapes
 KERNEL_PATH_RUNS = {
@@ -907,7 +979,14 @@ KERNEL_PATH_RUNS = {
        for name in ZOO_RECIPES},
     **{f"zoo_{name}": (f"zoo_{name}_serve",) for name in ZOO_SERVED},
     "export_repvgg_a0": tuple(f"export_repvgg_a0_{part}" for part in (
-        "export", "serve", "artifact", "memory"))}
+        "export", "serve", "artifact", "memory")),
+    # the seg_family phase: each segmenter's eval forward and route call,
+    # DeepLab-Xception's eval forward; the zoo_rest phase's served calls
+    **{f"seg_{name}": (f"seg_{name}_eval", f"seg_{name}_route")
+       for name in SEG_FAMILY},
+    "seg_deeplab_xception": ("seg_deeplab_xception_eval",),
+    **{f"zoo_rest_{name}": (f"zoo_rest_{name}_serve",)
+       for name in ZOO_REST}}
 # the file phases' runs (a run of a phase the machine cannot run counts 0)
 FILE_RUNS = ("c6_evaluate", "files_r50_train", "files_r50_test",
              "files_deeplab_train", "files_deeplab_test",
@@ -1066,7 +1145,7 @@ def run(cmd):
                           timeout=60).stdout.strip()
 
 
-def cuda_ms(fn, iters=20, warmup=3, sleep_cycles=20_000_000):
+def cuda_ms(fn, iters=10, warmup=2, sleep_cycles=5_000_000):
     """Device ms per call of ``fn``.  A sleep kernel holds the stream while
     the host enqueues every call, so the events time the launches back to
     back on the device, not the host's launch rate (a small kernel takes
@@ -1275,7 +1354,7 @@ def conv_pair_row(shape, count, path, g):
         + 8 * (cm + co),
         2 * n * h * w * cin * cm + 2 * n * taps(h) * taps(w) * cm * co,
         BF16_FLOPS)
-    iters = 5 if n * h * w > 10 ** 6 else 20
+    iters = 3 if n * h * w > 10 ** 6 else 10
     row = dict(kernel="conv_pair", path=path, shape=list(shape),
                sites=count, max_abs_err=err, ok=ok, outside_2_ulps=len(idx),
                explained_by_rounding=explained, last_images_alone=alone,
@@ -1317,7 +1396,7 @@ def bn_act_row(site, x, a, b, count, path, act="relu", **extra):
     del out, ref
     b_ms, b_by = bound(2 * x.element_size() * x.numel() + 8 * x.shape[-1],
                        3 * x.numel(), F32_FLOPS)
-    iters = 5 if x.numel() > 10 ** 9 else 20
+    iters = 3 if x.numel() > 10 ** 9 else 10
     r = dict(kernel="bn_act", path=path, site=site, shape=list(x.shape),
              dtype=str(x.dtype).split(".")[-1], act=act, sites=count,
              max_abs_err=err, ok=ok, bound_ms=b_ms, bound_by=b_by,
@@ -1367,6 +1446,7 @@ def check_kernels(dev, plan=None):
     details += check_route_kernels(dev, g)
     details += check_ssl_kernels(dev, g)
     details += check_zoo_kernels(dev, g)
+    details += check_seg_family_kernels(dev, g)
     for name in SOURCES:
         rows = [r for r in details if r["kernel"] == name]
         on_path = [r for r in rows if r["sites"]]
@@ -1639,7 +1719,7 @@ def conv_fused_row(shape, count, path, g):
     del out, ref
     b_ms, b_by = bound(2 * n * h * w * (c + co) + 18 * c * co + 8 * co,
                        2 * n * taps(h) * taps(w) * c * co, BF16_FLOPS)
-    iters = 5 if h * w * n > 10 ** 6 else 20
+    iters = 3 if h * w * n > 10 ** 6 else 10
     r = dict(kernel="conv_fused", path=path, shape=list(shape),
              sites=count, max_abs_err=err, ok=ok, bound_ms=b_ms,
              bound_by=b_by, plan=conv_fused.plan(n, h, w, c, co),
@@ -3950,28 +4030,30 @@ def big_classifier_run(dev, name):
     return train_counts, eval_counts, checks
 
 
-def deeplab_trainer(cfg, device, *, run_dir=None):
-    """The DeepLabv3+ recipe's trainer at its own SEG_HW crops
-    (``recipes.build_segmenter`` shrinks a synthetic run to 96 x 96):
-    ``recipes.segmenter_trainer`` of its ``augment`` block at SEG_HW,
-    metrics logged every step to ``run_dir``."""
+def deeplab_trainer(cfg, device, *, run_dir=None, hw=SEG_HW):
+    """A segmentation recipe's trainer at crops of ``hw`` (DeepLabv3+'s
+    own SEG_HW by default; ``recipes.build_segmenter`` shrinks a
+    synthetic run to 96 x 96): ``recipes.segmenter_trainer`` of its
+    ``augment`` block at ``hw``, metrics logged every step to
+    ``run_dir``."""
     from myconvnet_tpu_torch import recipes
 
-    aug = recipes.make_augment(cfg["augment"])._replace(out_hw=SEG_HW)
+    aug = recipes.make_augment(cfg["augment"])._replace(out_hw=tuple(hw))
     return recipes.segmenter_trainer(dict(cfg, log_every=1), aug, device,
                                      log_dir=run_dir)
 
 
-def step_one_segmenter(dev, cfg, n):
-    """Step 1 of the DeepLabv3+ recipe at its 513 x 513 crops, batch ``n``,
+def step_one_segmenter(dev, cfg, n, *, hw=SEG_HW, what="DeepLabv3+"):
+    """Step 1 of the DeepLabv3+ recipe (or the segmentation recipe ``cfg``
+    names, ``what``) at crops of ``hw`` (its 513 x 513), batch ``n``,
     from seeded JAX-layout weights with the same pairs and draws (crop
     boxes, flips, the ASPP dropout mask) on the card and on the host, under
     the float32 policy (TF32 off) and the recipe's bf16, with the rounding
-    witnesses of :func:`step_one_classifier` and its bounds: the augmented
-    images within STEP1_INPUTS_RTOL and the masks equal, float32 at
-    STEP1_F32_*, the host on the card's augmented pairs at
-    STEP1_F32_MODEL_*, bf16 at STEP1_GRAD_RTOL or twice bf16's reach on
-    the host."""
+    witnesses of :func:`step_one_classifier` but the host's step from
+    weights one ulp over, and its bounds: the augmented images within
+    STEP1_INPUTS_RTOL and the masks equal, float32 at STEP1_F32_*, the host
+    on the card's augmented pairs at STEP1_F32_MODEL_*, bf16 at
+    STEP1_GRAD_RTOL or twice bf16's reach on the host."""
     import torch
 
     from myconvnet_tpu_torch import weights
@@ -3981,6 +4063,7 @@ def step_one_segmenter(dev, cfg, n):
     def on_host(d):
         rec = d.recipe
         return StepDraws(None, None, None,
+                         None if d.masks is None else
                          [{k: m.cpu() for k, m in m_.items()}
                           for m_ in d.masks],
                          recipe=type(rec)(rec.boxes.cpu(), rec.flip.cpu(),
@@ -3993,12 +4076,13 @@ def step_one_segmenter(dev, cfg, n):
     cpu = torch.device("cpu")
     for prec in ("f32", "bf16"):
         c = dict(cfg, precision=prec)
-        card, host = deeplab_trainer(c, dev), deeplab_trainer(c, cpu)
+        card, host = (deeplab_trainer(c, dev, hw=hw),
+                      deeplab_trainer(c, cpu, hw=hw))
         if params is None:
             params, state = weights.random_jax_params(card.model, SEED)
             draws = card.sample(n, SEG_RAW)
             if draws.recipe.jitter is not None:
-                raise AssertionError("DeepLab step 1: jitter draws this "
+                raise AssertionError(f"{what} step 1: jitter draws this "
                                      "check does not carry")
         todo = [("card", card, params, x.to(dev), y.to(dev), draws),
                 ("host", host, params, x, y, on_host(draws))]
@@ -4009,9 +4093,7 @@ def step_one_segmenter(dev, cfg, n):
             inputs_rel = float((aug[0][0].cpu() - aug[1][0]).abs().max()
                                / aug[1][0].abs().max())
             masks_equal = bool(torch.equal(aug[0][1].cpu(), aug[1][1]))
-            todo += [("host nudged", host, nudged(params, SEED + 1), x, y,
-                      on_host(draws)),
-                     ("card without cuDNN", card, params, x.to(dev),
+            todo += [("card without cuDNN", card, params, x.to(dev),
                       y.to(dev), draws),
                      ("host on the card's inputs", host, params,
                       aug[0][0].cpu(), aug[0][1].cpu(), on_host(draws))]
@@ -4033,8 +4115,6 @@ def step_one_segmenter(dev, cfg, n):
     out = {}
     for key, (a, b) in {
             "card vs host, float32": (("card", "f32"), ("host", "f32")),
-            "host nudged vs host, float32": (("host nudged", "f32"),
-                                             ("host", "f32")),
             "card without cuDNN vs card, float32": (
                 ("card without cuDNN", "f32"), ("card", "f32")),
             "card vs host on the card's inputs, float32": (
@@ -4046,26 +4126,26 @@ def step_one_segmenter(dev, cfg, n):
         loss_rel = abs(runs[a][0] - runs[b][0]) / abs(runs[b][0])
         out[key] = dict(loss_rel=loss_rel, worst=gaps[:5],
                         over_1e_3=sum(g > 1e-3 for g, _, _ in gaps))
-        log(f"DeepLabv3+ step 1 (batch {n}) {key}: loss rel {loss_rel:.3g}; "
+        log(f"{what} step 1 (batch {n}) {key}: loss rel {loss_rel:.3g}; "
             f"{len(gaps)} gradient norms, {out[key]['over_1e_3']} over "
             f"1e-3 rel; worst: " + "; ".join(
                 f"{k} {g:.3g} (norm {r:.3g} of the largest)"
                 for g, k, r in gaps[:3]))
-    log(f"DeepLabv3+ step 1 (batch {n}): augmented images, card vs host, "
+    log(f"{what} step 1 (batch {n}): augmented images, card vs host, "
         f"max |diff| / max |x| {inputs_rel:.3g}; masks equal {masks_equal};"
         " seconds " + ", ".join(f"{w} {p} {t:.2f}"
                                 for (w, p), t in seconds.items()))
     if not (inputs_rel <= STEP1_INPUTS_RTOL and masks_equal):
-        raise AssertionError(f"DeepLab: the augmented pairs differ "
+        raise AssertionError(f"{what}: the augmented pairs differ "
                              f"({inputs_rel:.3g}, masks {masks_equal})")
     (lc, nc), (lh, nh) = runs["card", "f32"], runs["host", "f32"]
     f32 = step_one_verdict(
-        f"DeepLabv3+ step 1 (batch {n}, float32)", nc, nh, lc, lh,
+        f"{what} step 1 (batch {n}, float32)", nc, nh, lc, lh,
         loss_rtol=STEP1_F32_LOSS_RTOL, grad_rtol=STEP1_F32_GRAD_RTOL,
         grad_atol=STEP1_F32_GRAD_ATOL)
     lm, nm = runs["host on the card's inputs", "f32"]
     model = step_one_verdict(
-        f"DeepLabv3+ step 1 (batch {n}, float32, the card's augmented pairs "
+        f"{what} step 1 (batch {n}, float32, the card's augmented pairs "
         "on both)", nc, nm, lc, lm, loss_rtol=STEP1_F32_MODEL_LOSS_RTOL,
         grad_rtol=STEP1_F32_MODEL_GRAD_RTOL, grad_atol=STEP1_F32_GRAD_ATOL)
     hb, hf = runs["host", "bf16"][1], runs["host", "f32"][1]
@@ -4073,12 +4153,12 @@ def step_one_segmenter(dev, cfg, n):
     reach = max(abs(hb[k] - v) / v for k, v in hf.items()
                 if v >= STEP1_GRAD_ATOL * big)
     if reach > STEP1_BF16_MAX_REACH:
-        raise AssertionError(f"DeepLab: bf16 moves the host's gradient norms"
+        raise AssertionError(f"{what}: bf16 moves the host's gradient norms"
                              f" by {reach:.3g}; a bound of twice that holds "
                              "nothing")
     (lcb, ncb), (lhb, nhb) = runs["card", "bf16"], runs["host", "bf16"]
     bf16 = step_one_verdict(
-        f"DeepLabv3+ step 1 (batch {n}, bf16)", ncb, nhb, lcb, lhb,
+        f"{what} step 1 (batch {n}, bf16)", ncb, nhb, lcb, lhb,
         f"; bf16's own reach on the host W = {reach:.3g}",
         grad_rtol=max(STEP1_GRAD_RTOL, 2 * reach))
     return dict(f32, on_the_cards_inputs=model, bf16=dict(bf16, reach=reach),
@@ -4167,7 +4247,7 @@ def seg_scales_vs_host(trainer, restored, host, x, dev, mean, std):
 
 def deeplab_run(dev):
     """BASELINE config #4, DeepLabv3+ (``configs/voc_deeplabv3plus.py``):
-    step 1 at 513 x 513 on the card against the host; ``train.main`` on the
+    step 1 at SEG_STEP1_HW on the card against the host; ``train.main`` on the
     recipe as written (its synthetic 96 x 96 run) for SEG_STEPS steps of 16
     with a validation every SEG_VAL_EVERY, ``test.main`` on its checkpoint
     with and without ``--scales`` (mIoU; restored outputs equal the
@@ -4187,7 +4267,8 @@ def deeplab_run(dev):
 
     cfg = recipes.load_config(VOC_CONFIG)
     cpu = torch.device("cpu")
-    checks = {"step1": step_one_segmenter(dev, cfg, SEG_STEP1_BATCH)}
+    checks = {"step1": step_one_segmenter(dev, cfg, SEG_STEP1_BATCH,
+                                          hw=SEG_STEP1_HW)}
     counted = Counted()
     runs, shapes = counted.runs, counted.shapes
     torch.cuda.empty_cache()
@@ -6710,13 +6791,14 @@ def step_one_only(specs):
     return 0
 
 
-def zoo_sites(name, n, hw):
+def zoo_sites(name, n, hw, classes=1000, **kw):
     """The :func:`shape_key` Counter of one bf16 eval forward of the
     registry model ``name`` (``repvgg_a0_deploy``: RepVGG-A0's deploy
-    form) on ``n`` images of ``hw``, derived on the host from the model
-    itself: its modules run on the meta device (no data, no launch) with
-    the kernel wrappers the models call replaced by recorders, so each
-    site is counted where the model's static routing sends it."""
+    form; ``kw`` its keyword arguments) on ``n`` images of ``hw``, derived
+    on the host from the model itself: its modules run on the meta device
+    (no data, no launch) with the kernel wrappers the models call replaced
+    by recorders, so each site is counted where the model's static routing
+    sends it."""
     import collections
 
     import torch
@@ -6750,7 +6832,8 @@ def zoo_sites(name, n, hw):
             if name == "repvgg_a0_deploy":
                 model = repvgg.DEPLOY_FORWARDS["repvgg_a0"](1000)
             else:
-                model = models.get_model(name, 1000, input_hw=tuple(hw))
+                model = models.get_model(name, classes, input_hw=tuple(hw),
+                                         **kw)
             model.to(torch.bfloat16).eval()(
                 torch.empty(n, *hw, 3, dtype=torch.bfloat16))
     finally:
@@ -6782,48 +6865,104 @@ def zoo_paths():
     return out
 
 
-def check_zoo_kernels(dev, g):
-    """B1, B4 and B5 at every site of the zoo paths' eval forwards
-    (:func:`zoo_sites`: MobileNetV2's ReLU6 sites, RepVGG-A0's deploy
-    sites, ResNet-101's pairs, ...) against their plain versions, one row
-    a shape with its count in one forward; each path's totals held to
-    ZOO_FORWARD first."""
+def site_rows(dev, g, path, sites, want):
+    """B1, B4 and B5 rows (path ``path``) at every site of a
+    :func:`zoo_sites` Counter, each against its plain version, one row a
+    shape with its count in one forward; the totals held to ``want``
+    ({kernel: launches}) first."""
     import torch
 
+    want = {k: v for k, v in want.items() if v}
+    if zoo_totals(sites) != want:
+        raise AssertionError(f"{path}: one eval forward's sites "
+                             f"{zoo_totals(sites)}, want {want}")
     rows = []
-    for path, model, n, hw in zoo_paths():
-        sites = zoo_sites(model, n, hw)
-        want = {k: v for k, v in ZOO_FORWARD[path[len("zoo_"):]].items()
-                if v}
-        if zoo_totals(sites) != want:
-            raise AssertionError(f"{path}: one eval forward's sites "
-                                 f"{zoo_totals(sites)}, want {want}")
-        for key, count in sorted(sites.items(), key=str):
-            kernel, *rest = key
-            if kernel == "bn_act":
-                shape, act = tuple(rest[:4]), rest[5]
-                x = torch.randn(*shape, generator=g, device=dev).to(
-                    torch.bfloat16)
-                c = shape[-1]
-                rows.append(bn_act_row(
-                    f"{model} {act}", x,
-                    torch.rand(c, generator=g, device=dev) + 0.5,
-                    torch.randn(c, generator=g, device=dev) * 0.5, count,
-                    path, act=act))
-                del x
-            elif kernel == "conv_fused":
-                rows.append(conv_fused_row(tuple(rest), count, path, g))
-            else:
-                rows.append(conv_pair_row(tuple(rest), count, path, g))
-            torch.cuda.empty_cache()
+    for key, count in sorted(sites.items(), key=str):
+        kernel, *rest = key
+        if kernel == "bn_act":
+            shape, act = tuple(rest[:4]), rest[5]
+            x = torch.randn(*shape, generator=g, device=dev).to(
+                torch.bfloat16)
+            c = shape[-1]
+            rows.append(bn_act_row(
+                f"{path} {act}", x,
+                torch.rand(c, generator=g, device=dev) + 0.5,
+                torch.randn(c, generator=g, device=dev) * 0.5, count,
+                path, act=act))
+            del x
+        elif kernel == "conv_fused":
+            rows.append(conv_fused_row(tuple(rest), count, path, g))
+        else:
+            rows.append(conv_pair_row(tuple(rest), count, path, g))
+        torch.cuda.empty_cache()
     return rows
 
 
-def zoo_served(dev, counted, name):
-    """The deep ResNet ``name`` served: seeded JAX-layout weights through
-    ``weights.from_jax``, BN folded, bf16, one batch of BATCH rows through
-    ``serving.make_inference_fn``; its launches by shape against
-    :func:`zoo_sites`, its logits against the host's plain path."""
+def check_zoo_kernels(dev, g):
+    """B1, B4 and B5 at every site of the zoo paths' eval forwards
+    (:func:`zoo_sites`: MobileNetV2's ReLU6 sites, RepVGG-A0's deploy
+    sites, ResNet-101's pairs, ...) against their plain versions
+    (:func:`site_rows`); each path's totals held to ZOO_FORWARD first."""
+    rows = []
+    for path, model, n, hw in zoo_paths():
+        rows += site_rows(dev, g, path, zoo_sites(model, n, hw),
+                          ZOO_FORWARD[path[len("zoo_"):]])
+    return rows
+
+
+def seg_family_paths():
+    """(path, registry model, its kwargs, batch, hw, classes) of each
+    seg_family path's eval forward: the two recipes' at SEG_FAMILY_EVAL
+    on their crops, DeepLab-Xception's at 513 x 513."""
+    from myconvnet_tpu_torch import recipes
+
+    out = []
+    for name, (config, hw) in SEG_FAMILY.items():
+        cfg = recipes.load_config(os.path.join(ROOT, "configs", config))
+        out.append((f"seg_{name}", cfg["model"], cfg["model_kwargs"],
+                    SEG_FAMILY_EVAL, hw, cfg["num_classes"]))
+    out.append(("seg_deeplab_xception", "deeplab_v3_plus", DEEPLAB_X_KW,
+                SEG_FAMILY_EVAL, SEG_HW, 21))
+    return out
+
+
+# each new path's launches of one bf16 eval forward (ROADMAP B); the
+# shapes come from the models (``zoo_sites``)
+SEG_FAMILY_FORWARD = {"seg_unet": {"conv_fused": 17, "bn_act": 1},
+                      "seg_pspnet": {"conv_pair": 6, "conv_fused": 1,
+                                     "bn_act": 25},
+                      "seg_deeplab_xception": {"conv_fused": 3,
+                                               "bn_act": 74}}
+ZOO_REST_FORWARD = {"inception_v3": {"conv_fused": 10, "bn_act": 84},
+                    "xception65": {"conv_fused": 1, "bn_act": 67},
+                    "convnext_tiny": {}, "convnext_small": {},
+                    "squeezenet": {"conv_fused": 8, "bn_act": 18},
+                    "alexnet": {"conv_fused": 3, "bn_act": 2}}
+
+
+def check_seg_family_kernels(dev, g):
+    """B1, B4 and B5 at every site of the seg_family and zoo_rest paths'
+    eval forwards (:func:`site_rows`): U-Net's 512² double convs, PSPNet's
+    pairs, pyramid and head, DeepLab-Xception's depthwise BN -> ReLUs, the
+    six classifiers' served forwards."""
+    rows = []
+    for path, model, kw, n, hw, classes in seg_family_paths():
+        rows += site_rows(dev, g, path,
+                          zoo_sites(model, n, hw, classes, **kw),
+                          SEG_FAMILY_FORWARD[path])
+    for name, hw in ZOO_REST.items():
+        rows += site_rows(dev, g, f"zoo_rest_{name}",
+                          zoo_sites(name, BATCH, hw),
+                          ZOO_REST_FORWARD[name])
+    return rows
+
+
+def zoo_served(dev, counted, name, hw=(224, 224), run=None):
+    """The classifier ``name`` served: seeded JAX-layout weights through
+    ``weights.from_jax``, BN folded, bf16, one batch of BATCH rows of
+    ``hw`` through ``serving.make_inference_fn`` (the run ``run``); its
+    launches by shape against :func:`zoo_sites`, its logits against the
+    host's plain path."""
     import numpy as np
     import torch
 
@@ -6831,22 +6970,23 @@ def zoo_served(dev, counted, name):
     from myconvnet_tpu_torch.core.precision import BF16
     from myconvnet_tpu_torch.weights import random_jax_params
 
-    model = models.get_model(name, 1000)
+    hw = tuple(hw)
+    run = run or f"zoo_{name}_serve"
+    model = models.get_model(name, 1000, input_hw=hw)
     params, state = random_jax_params(model, SEED)
     fn = serving.make_inference_fn(model, params, state, device=dev,
                                    policy=BF16)
     x = np.random.RandomState(SEED).standard_normal(
-        (BATCH, 224, 224, 3)).astype(np.float32)
+        (BATCH, *hw, 3)).astype(np.float32)
     fn(x)
-    run = f"zoo_{name}_serve"
     card = counted(run, fn, x).cpu().numpy()
-    want = zoo_sites(name, BATCH, (224, 224))
+    want = zoo_sites(name, BATCH, hw)
     if dict(counted.shapes[run]) != dict(want):
         raise AssertionError(f"{name}: launches by shape "
                              f"{dict(counted.shapes[run])}, want {want}")
     expect_only(counted.runs[run], zoo_totals(want), f"{name} served")
-    host = serving.make_inference_fn(models.get_model(name, 1000), params,
-                                     state, device="cpu", policy=BF16)
+    host = serving.make_inference_fn(models.get_model(
+        name, 1000, input_hw=hw), params, state, device="cpu", policy=BF16)
     plain = host(x[:1]).numpy()
     rel = float(np.abs(card[:1] - plain).max() / np.abs(plain).max())
     # a call from the host's rows: CUDA events from an idle device
@@ -6937,6 +7077,244 @@ def zoo_run(dev):
     return runs, shapes, checks
 
 
+def seg_family_run(dev):
+    """The seg_family phase: for U-Net and PSPNet (SEG_FAMILY) step 1 on
+    the card against the host (:func:`step_one_segmenter` at
+    SEG_FAMILY_STEP1), the recipe's train step at SEG_FAMILY_BATCH on its
+    crops of SEG_RAW frames (:func:`step_rate`), an eval forward of
+    SEG_FAMILY_EVAL frames and a segment route's image request at that
+    route batch, each held by shape to the model's sites
+    (:func:`zoo_sites`), the eval logits against the host's plain path;
+    then DeepLabv3+ on Xception-65 at 513 x 513, one eval forward of
+    SEG_FAMILY_EVAL held the same way.  Returns ({run: launches}, {run:
+    Counter of launch shapes}, checks)."""
+    import torch
+
+    from myconvnet_tpu_torch import recipes, serving_http, weights
+    from myconvnet_tpu_torch.subsets import voc
+
+    counted = Counted()
+    checks = {}
+    cpu = torch.device("cpu")
+    frames = torch.from_numpy(voc.synthetic_subset(SEG_FAMILY_EVAL, SEG_RAW,
+                                                   1)[0])
+    with open(_fixture_jpegs()[0], "rb") as f:
+        jpeg = f.read()
+    for path, model, kw, n, hw, classes in seg_family_paths():
+        t0 = time.perf_counter()
+        name = path[len("seg_"):]
+        what = f"{name} {hw[0]}x{hw[1]}"
+        config = SEG_FAMILY.get(name, (VOC_CONFIG,))[0]
+        cfg = recipes.load_config(os.path.join(ROOT, "configs", config))
+        cfg["model_kwargs"] = dict(cfg["model_kwargs"], **kw)
+        sites = zoo_sites(model, n, hw, classes, **kw)
+        check = {}
+        if name in SEG_FAMILY:
+            crop, n1 = SEG_FAMILY_STEP1[name]
+            check["step1"] = step_one_segmenter(dev, cfg, n1, hw=crop,
+                                                what=name)
+            torch.cuda.empty_cache()
+        trainer = deeplab_trainer(cfg, dev, hw=hw)
+        params, state = weights.random_jax_params(trainer.model, SEED)
+        weights.from_jax(trainer.model, params, state)
+        if name in SEG_FAMILY:
+            check["step"], _ = step_rate(dev, trainer, SEG_FAMILY_BATCH,
+                                         SEG_RAW, 3, masks=True)
+            log_rate(what, check["step"])
+        x = frames.to(dev)
+        trainer.eval_step(x)
+        run = f"{path}_eval"
+        out = counted(run, trainer.eval_step, x)
+        if dict(counted.shapes[run]) != dict(sites) \
+                or tuple(out.shape) != (n, *hw, classes):
+            raise AssertionError(f"{what} eval: launches by shape "
+                                 f"{dict(counted.shapes[run])}, want "
+                                 f"{dict(sites)}; output {out.shape}")
+        expect_only(counted.runs[run], zoo_totals(sites), f"{what} eval")
+        check["eval_ms"], _ = events_ms(lambda: trainer.eval_step(x), 3)
+        host = deeplab_trainer(cfg, cpu, hw=hw)
+        check["host"] = seg_logits_vs_host(what, trainer, host,
+                                           frames[:1], dev)
+        del host
+        if name in SEG_FAMILY:
+            p2, s2 = weights.to_jax(trainer.model)
+            route = serving_http.build_route(name, "segment", cfg,
+                                             params=p2, state=s2, batch=n,
+                                             device=dev)
+            server = serving_http.ModelServer([route])
+            server.predict(name, jpeg, "image/jpeg")
+            run = f"{path}_route"
+            t1 = time.perf_counter()
+            reply = counted(run, server.predict, name, jpeg, "image/jpeg")
+            check["route_ms"] = (time.perf_counter() - t1) * 1e3
+            _reply_ok("segment", reply, 1, hw)
+            got = dict(counted.shapes[run])
+            b2 = got.pop(shape_key("normalize_u8", (1, *hw, 3), "float32"),
+                         0)
+            if got != dict(sites) or b2 != 1:
+                raise AssertionError(f"{what} route: launches by shape "
+                                     f"{dict(counted.shapes[run])}, want "
+                                     f"{dict(sites)} and one normalize_u8")
+            expect_only(counted.runs[run],
+                        dict(zoo_totals(sites), normalize_u8=1),
+                        f"{what} route")
+            del route, server
+        del trainer
+        torch.cuda.empty_cache()
+        check["seconds"] = time.perf_counter() - t0
+        checks[name] = check
+        log(f"{what}: eval forward of {n} {check['eval_ms']:.2f} ms, "
+            f"launches by shape as the model's sites {zoo_totals(sites)}"
+            + (f"; route request {check['route_ms']:.1f} ms (one image at "
+               f"a route batch of {n})" if "route_ms" in check else "")
+            + f"; {check['seconds']:.1f}s")
+    return counted.runs, counted.shapes, checks
+
+
+def update_gaps(got, want):
+    """[(||got - want|| / ||want||, path)] over the parameters' updates,
+    worst first."""
+    return sorted((float((got[k] - v).norm() / v.norm().clamp_min(1e-30)),
+                   k) for k, v in want.items())[::-1]
+
+
+def optimizer_steps(dev, name, opt_cfg, steps):
+    """``steps`` steps of the CIFAR-100 ResNet-18 recipe with the
+    optimizer ``opt_cfg`` from seeded JAX-layout weights on the card;
+    before each the host takes the card's whole state (weights, BN
+    statistics, the optimizer's state through its JAX layout) and the
+    same batch and draws.  Each step is held alone: the loss and every
+    parameter's gradient norm (:func:`step_one_verdict`); then the host
+    takes the card's gradients as well, and each parameter's update (its
+    change in the step) on the card is held to the host's within
+    OPT_UPDATE_RTOL of the host's update's norm.  Shampoo's control: on
+    each step from its ``start_step`` on, the host's step with the
+    preconditioner skipped (its start put past the run) must miss the
+    host's update by more than OPT_UPDATE_RTOL, so that the check tells a
+    card step without its preconditioner from a sound one."""
+    import numpy as np
+    import torch
+
+    from myconvnet_tpu_torch import recipes, weights
+    from myconvnet_tpu_torch.data.mix import MixDraws
+    from myconvnet_tpu_torch.train.trainer import StepDraws
+
+    cfg = dict(recipes.load_config(CIFAR_CONFIG), optimizer=opt_cfg)
+    card, train_set, _ = recipes.build_trainer(cfg, True, device=dev)
+    host, _, _ = recipes.build_trainer(cfg, True, device=torch.device("cpu"))
+    params, state = weights.random_jax_params(card.model, SEED)
+    for t in (card, host):
+        weights.from_jax(t.model, params, state)
+    xs, ys = train_set.source.get_batch(np.arange(TRAIN_BATCH))
+    x, y = torch.from_numpy(xs), torch.from_numpy(ys)
+    out = []
+
+    def leaves(t):
+        return {path: p for path, p, _ in weights.param_views(t.model)}
+
+    def moved(t, before):
+        return {k: p.detach().float().cpu() - before[k]
+                for k, p in leaves(t).items()}
+
+    for step in range(steps):
+        snapshot = card.state()
+        host.load_state(snapshot)
+        draws = card.sample(TRAIN_BATCH, INPUT_SHAPE[1:3])
+        on_host = StepDraws(draws.boxes.cpu(), draws.flip.cpu(),
+                            MixDraws(*(t.cpu() for t in draws.mix)))
+        before = {k: p.detach().float().cpu().clone()
+                  for k, p in leaves(card).items()}
+        loss_card = float(card.loss_and_grads(x.to(dev), y.to(dev),
+                                              draws)[0])
+        loss_host = float(host.loss_and_grads(x, y, on_host)[0])
+        grads = step_one_verdict(f"{name} step {step + 1} gradients", card,
+                                 host, loss_card, loss_host)
+        mine = leaves(host)
+        for k, p in leaves(card).items():
+            mine[k].grad = p.grad.detach().cpu().clone()
+        skipped = None
+        if card.step >= opt_cfg.get("start_step", float("inf")):
+            opt = host.optimizer
+            start, opt.start_step = opt.start_step, 1 << 30
+            try:
+                opt.step(host.step)
+            finally:
+                opt.start_step = start
+            skipped = moved(host, before)
+            host.load_state(snapshot)     # the gradients stay
+        for t in (card, host):
+            t.optimizer.step(t.step)
+            t.step += 1
+        want = moved(host, before)
+        gaps = update_gaps(moved(card, before), want)
+        record = dict(grads=grads, update_worst=gaps[:5])
+        log(f"{name} step {step + 1} updates from the same state and "
+            f"gradients, card vs host: {len(gaps)} parameters, worst "
+            f"||diff|| / ||host||: " + "; ".join(
+                f"{k} {g:.3g}" for g, k in gaps[:3])
+            + f" (tol {OPT_UPDATE_RTOL:.3g})")
+        if gaps[0][0] > OPT_UPDATE_RTOL:
+            raise AssertionError(f"{name} step {step + 1}: the card's "
+                                 f"updates disagree: {gaps[:5]}")
+        if skipped is not None:
+            control = update_gaps(skipped, want)
+            record["control_worst"] = control[:5]
+            log(f"{name} step {step + 1} control, the host's update "
+                "without the preconditioner vs with it: worst " + "; ".join(
+                    f"{k} {g:.3g}" for g, k in control[:3]))
+            if not control[0][0] > OPT_UPDATE_RTOL:
+                raise AssertionError(f"{name} step {step + 1}: skipping the "
+                                     "preconditioner moves no update past "
+                                     f"{OPT_UPDATE_RTOL}")
+        out.append(record)
+    del card, host
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_rest_run(dev):
+    """The zoo_rest phase: each ZOO_REST classifier through the ImageNet
+    recipe (``--set model=<name>``, bf16, at its input size in one pass)
+    built by ``recipes.build_trainer``: the train step's rate at
+    ZOO_REST_BATCH, and a served call of BATCH held by shape with its
+    logits against the host's (:func:`zoo_served`); then
+    ZOO_REST_OPTIMIZERS' steps of the CIFAR-100 ResNet-18 recipe, card
+    against host (:func:`optimizer_steps`).  Returns ({run: launches},
+    {run: Counter of launch shapes}, checks)."""
+    import torch
+
+    from myconvnet_tpu_torch import recipes
+
+    counted = Counted()
+    checks = {}
+    for name, hw in ZOO_REST.items():
+        t0 = time.perf_counter()
+        raw = tuple(v * 8 // 7 for v in hw)    # 256 for 224, as the recipe
+        cfg = classifier_cfg(CONFIG, [
+            f"model={name}", "model_kwargs={}", f"input_hw={list(hw)}",
+            f"augment.out_hw={list(hw)}", f"raw_hw={list(raw)}",
+            "accum_steps=1", "synthetic_n=8"])
+        trainer = recipes.build_trainer(cfg, True, device=dev)[0]
+        step, _ = step_rate(dev, trainer, ZOO_REST_BATCH, raw, 3)
+        log_rate(f"{name} {hw[0]}x{hw[1]}", step)
+        del trainer
+        torch.cuda.empty_cache()
+        served = zoo_served(dev, counted, name, hw,
+                            run=f"zoo_rest_{name}_serve")
+        checks[name] = dict(step=step, served=served,
+                            seconds=time.perf_counter() - t0)
+        log(f"zoo_rest {name}: {checks[name]['seconds']:.1f}s")
+        torch.cuda.empty_cache()
+    for name, (opt_cfg, steps) in ZOO_REST_OPTIMIZERS.items():
+        t0 = time.perf_counter()
+        checks[name] = dict(steps=optimizer_steps(dev, name, opt_cfg,
+                                                  steps),
+                            seconds=time.perf_counter() - t0)
+        log(f"zoo_rest {name}: {steps} steps, card against host, "
+            f"{checks[name]['seconds']:.1f}s")
+    return counted.runs, counted.shapes, checks
+
+
 def phase(name, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -6970,7 +7348,8 @@ def main() -> int:
                  SNGAN_CONFIG, FIXTURES, SWIN_CONFIG, MAE_CONFIG,
                  SIMCLR_CIFAR_CONFIG, SIMCLR_R50_CONFIG, MAE_CIFAR_CONFIG,
                  *(os.path.join(ROOT, "configs", c)
-                   for c, *_ in ZOO_RECIPES.values())):
+                   for c, *_ in (*ZOO_RECIPES.values(),
+                                 *SEG_FAMILY.values()))):
         if not os.path.exists(path):
             print(f"chip_smoke: {path} is missing", file=sys.stderr)
             return 1
@@ -7076,6 +7455,12 @@ def main() -> int:
                                                          simclr_run, dev)
     torch.cuda.empty_cache()
     zoo_runs, zoo_shapes, checks["zoo"] = phase("zoo", zoo_run, dev)
+    torch.cuda.empty_cache()
+    seg_runs2, seg_shapes2, checks["seg_family"] = phase(
+        "seg_family", seg_family_run, dev)
+    torch.cuda.empty_cache()
+    rest_runs, rest_shapes, checks["zoo_rest"] = phase(
+        "zoo_rest", zoo_rest_run, dev)
     runs = {"serve": counts, "train": train_counts, "test": eval_counts,
             "vit_train": vit_train, "vit_test": vit_test,
             **{f"vit_train_{k}": v for k, v in policy_runs.items()},
@@ -7092,7 +7477,8 @@ def main() -> int:
             "swin_t_train": swin_train, "swin_t_test": swin_test,
             "mae_b16_train": mae_train, "mae_b16_test": mae_test,
             "mae_cifar_train": mae_cifar_train,
-            "mae_cifar_test": mae_cifar_test, **simclr_runs, **zoo_runs}
+            "mae_cifar_test": mae_cifar_test, **simclr_runs, **zoo_runs,
+            **seg_runs2, **rest_runs}
     launches = {name: sum(c[name] for c in runs.values())
                 for name in SOURCES}
     in_forward = checks["bn_act_in_forward_ms"]
@@ -7116,7 +7502,8 @@ def main() -> int:
                                         **api_shapes, **file_shapes,
                                         **route_shapes, **sngan_shapes,
                                         **export_shapes, **simclr_shapes,
-                                        **zoo_shapes})}
+                                        **zoo_shapes, **seg_shapes2,
+                                        **rest_shapes})}
             if name in ("conv_pair", "bn_act", "conv_fused") else {}),
          **({"in_forward_ms": summary[name]["in_forward_ms"]}
             if name == "bn_act" else {})}

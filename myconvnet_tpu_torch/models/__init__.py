@@ -1,7 +1,17 @@
 from torch import nn
 
+from myconvnet_tpu_torch.models.convnext import (ConvNeXt, convnext_small,
+                                                 convnext_tiny)
 from myconvnet_tpu_torch.models.deeplab import (DeepLabV3Plus,
                                                 deeplab_v3_plus)
+from myconvnet_tpu_torch.models.inception import InceptionV3, inception_v3
+from myconvnet_tpu_torch.models.pspnet import FCN, PSPNet, fcn, pspnet
+from myconvnet_tpu_torch.models.squeezenet import (AlexNet, SqueezeNet,
+                                                   alexnet, squeezenet)
+from myconvnet_tpu_torch.models.unet import UNet, unet
+from myconvnet_tpu_torch.models.xception import (Xception65,
+                                                 XceptionBackbone,
+                                                 xception65)
 from myconvnet_tpu_torch.models.densenet import (DenseNet, densenet121,
                                                  densenet169, densenet201)
 from myconvnet_tpu_torch.models.gan import (DCGANDiscriminator,
@@ -62,16 +72,25 @@ ZOO = {"resnet101": resnet101, "resnet152": resnet152,
        "shufflenet_v2": shufflenet_v2, "repvgg_a0": repvgg_a0,
        "repvgg_a1": repvgg_a1, "tinyrepvgg": tinyrepvgg,
        **_regnet.VARIANTS}
-# the names of myconvnet_tpu/models/__init__.py:89-129
+# the rest of the classifier zoo (models/__init__.py:89-127)
+ZOO_REST = {"alexnet": alexnet, "inception_v3": inception_v3,
+            "squeezenet": squeezenet, "xception65": xception65,
+            "convnext_tiny": convnext_tiny,
+            "convnext_small": convnext_small}
+# the segmenters (models/__init__.py:128-133)
+SEGMENTERS = {"deeplab_v3_plus": deeplab_v3_plus, "unet": unet,
+              "fcn": fcn, "pspnet": pspnet}
+# the names of myconvnet_tpu/models/__init__.py:89-133
 MODELS = {"smallnet": smallnet,
           "resnet18": resnet18, "resnet34": resnet34, "resnet50": resnet50,
           **VGGS, "densenet121": densenet121, "densenet169": densenet169,
-          "densenet201": densenet201, **ZOO, **VITS, **SWINS,
-          **FLOW_MODELS, "deeplab_v3_plus": deeplab_v3_plus}
-# models made for one input size: a ViT's position embedding, a VGG's
-# classic head, DeepLab's dropout mask, a Swin's window masks, a WRN's
-# dropout masks
-SIZED = {*VITS, *VGGS, *SWINS, *WRNS, "deeplab_v3_plus"}
+          "densenet201": densenet201, **ZOO, **ZOO_REST, **VITS, **SWINS,
+          **FLOW_MODELS, **SEGMENTERS}
+# models made for one input size: a ViT's position embedding, a VGG's or
+# AlexNet's classic head, the dropout masks of DeepLab, PSPNet, FCN,
+# SqueezeNet and a WRN, a Swin's window masks
+SIZED = {*VITS, *VGGS, *SWINS, *WRNS, "deeplab_v3_plus", "pspnet", "fcn",
+         "alexnet", "squeezenet"}
 # the self-supervised forwards (models/__init__.py:245-249): not
 # classifiers; SimCLR takes any MODELS entry with a ``features`` method
 SSL_MODELS = {"mae_b16": mae_b16, "mae_l16": mae_l16, "tinymae": tinymae}
@@ -81,11 +100,11 @@ def get_model(name: str, num_classes: int,
               input_hw: tuple[int, int] | None = None, **kwargs
               ) -> nn.Module:
     """The recipe's model; a ViT also takes the input size its position
-    embedding is made for, a VGG the one its classic head's ``fc1`` is
-    made for, DeepLab the one its train-mode dropout mask is drawn for and
-    a Swin the one its window masks are made for (``input_hw``, as the JAX
-    model reads it from the sample input at
-    init)."""
+    embedding is made for, a VGG or AlexNet the one its classic head's
+    ``fc1`` is made for, DeepLab, PSPNet, FCN and SqueezeNet the one their
+    train-mode dropout masks are drawn for and a Swin the one its window
+    masks are made for (``input_hw``, as the JAX model reads it from the
+    sample input at init)."""
     if name not in MODELS:
         raise ValueError(f"the port has models {sorted(MODELS)}, not "
                          f"{name!r}")
@@ -94,7 +113,11 @@ def get_model(name: str, num_classes: int,
     return MODELS[name](num_classes, **kwargs)
 
 
-__all__ = ["DEPLOY_FORWARDS", "MobileNetV2", "MobileNetV3", "RepVGG",
+__all__ = ["AlexNet", "ConvNeXt", "FCN", "InceptionV3", "PSPNet",
+           "SEGMENTERS", "SqueezeNet", "UNet", "Xception65",
+           "XceptionBackbone", "ZOO_REST", "alexnet", "convnext_small",
+           "convnext_tiny", "fcn", "inception_v3", "pspnet", "squeezenet",
+           "unet", "xception65", "DEPLOY_FORWARDS", "MobileNetV2", "MobileNetV3", "RepVGG",
            "RepVGGDeploy", "ShuffleNetV2", "WideResNet", "WRNS", "ZOO",
            "DCGANDiscriminator", "DCGANGenerator", "DeepLabV3Plus",
            "DenseNet", "FLOW_MODELS", "MAE", "PatchGANDiscriminator",

@@ -1,7 +1,10 @@
 """DeepLabv3+ semantic segmentation, NHWC (BASELINE config #4).
 
 Port of ``myconvnet_tpu/models/deeplab.py``: a dilated ResNet backbone
-(``models/resnet.ResNetBackbone``) at ``output_stride`` 16 or 8, ASPP
+(``models/resnet.ResNetBackbone``) or, with ``backbone="xception"``, the
+aligned Xception-65 (``models/xception.XceptionBackbone``, its entry1
+map at stride 4 with 128 channels the low-level tap) at
+``output_stride`` 16 or 8, ASPP
 (``:33-53``: a 1x1 branch, three atrous 3x3 branches at rates (6, 12, 18),
 or (12, 24, 36) at any other stride, and the image-level pooling branch),
 dropout 0.1, and the decoder (``:56-98``): the low-level features of
@@ -25,7 +28,8 @@ channels) and ``refine2`` through ``conv3x3_bn_relu``; the 18 other conv
 -> BN -> ReLU sites (the stem, the stride-2 and dilated convs, the ASPP
 branches and projection, ``low_level_project``) through cuDNN +
 ``fused_scale_shift_act``.  The dilated 3x3s take neither fused kernel
-(neither takes a dilation).
+(neither takes a dilation).  On the Xception backbone the backbone's
+sites are its own (``models/xception.py``).
 
 The dropout site is ``dropout``: :meth:`DeepLabV3Plus.sample_masks` draws
 its keep mask [N, h, w, aspp_features] for the model's ``input_hw``
@@ -40,6 +44,7 @@ from torch import nn
 
 from myconvnet_tpu_torch.models.blocks import ConvBNReLU
 from myconvnet_tpu_torch.models.resnet import ResNetBackbone
+from myconvnet_tpu_torch.models.xception import XceptionBackbone
 from myconvnet_tpu_torch.nn import Conv, dropout, keep_mask
 from myconvnet_tpu_torch.ops.resize import resize_bilinear
 
@@ -55,18 +60,20 @@ class DeepLabV3Plus(nn.Module):
                  aspp_features: int = 256, decoder_low_features: int = 48,
                  input_hw: tuple[int, int] = (513, 513)):
         super().__init__()
-        if backbone != "resnet":
-            raise ValueError(f"the port has the resnet backbone, not "
-                             f"{backbone!r} (the aligned Xception is "
-                             "ROADMAP A17)")
         self.input_hw = tuple(input_hw)
         self.output_stride = output_stride
         self.aspp_features = aspp_features
         self.rates = (6, 12, 18) if output_stride == 16 else (12, 24, 36)
-        self.backbone = ResNetBackbone(backbone_depth,
-                                       output_stride=output_stride)
+        if backbone == "resnet":
+            self.backbone = ResNetBackbone(backbone_depth,
+                                           output_stride=output_stride)
+            low_cin = self.backbone.stage_channels[0]
+        elif backbone == "xception":
+            self.backbone = XceptionBackbone(output_stride=output_stride)
+            low_cin = self.backbone.low_level_channels
+        else:
+            raise ValueError(f"unknown backbone {backbone!r}")
         cin = self.backbone.out_channels
-        low_cin = self.backbone.stage_channels[0]
         self.aspp_1x1 = ConvBNReLU(cin, aspp_features, 1)
         for r in self.rates:
             self.add_module(f"aspp_rate{r}",

@@ -2,14 +2,17 @@
 tensors.
 
 Port of the subset of ``myconvnet_tpu/nn.py`` that the ResNets, the ViTs,
-the flow models, SmallNet, VGG, DenseNet, the GANs and the grouped and
-depthwise classifiers use (``max_pool``, ``avg_pool`` and ``gap`` are the
-pooling ops of ``ops/pool.py``; ``gap(x, keepdims=True)`` keeps the
-[N, 1, 1, C] shape, in x's dtype as JAX's).
+the flow models, SmallNet, VGG, DenseNet, the GANs, the grouped and
+depthwise classifiers, the segmenters and the rest of the classifier zoo
+use (``max_pool``, ``avg_pool`` and ``gap`` are the
+pooling ops of ``ops/pool.py``, ``adaptive_avg_pool`` PSPNet's;
+``gap(x, keepdims=True)`` keeps the [N, 1, 1, C] shape, in x's dtype as
+JAX's).
 Module names follow the JAX scope names, so ``weights.from_jax`` maps
 ``{"stage1/block1/conv_a": {"w": ...}}`` onto ``stage1.block1.conv_a``.
 
-* :class:`Conv` keeps its weight OIHW in channels_last memory (the layout
+* :class:`Conv` (a square ``kernel_size`` or a (kh, kw) pair, as
+  ``nn.conv`` takes) keeps its weight OIHW in channels_last memory (the layout
   cuDNN and the CUDA kernels read without a copy) and exposes it in the
   JAX package's HWIO layout through :attr:`Conv.w`.  Its bias is optional
   and is filled in when a following BN is folded into it (``nn.py:100-105``).
@@ -60,8 +63,8 @@ from myconvnet_tpu_torch.ops.batch_norm import (batch_norm_inference,
                                                 batch_norm_train,
                                                 bn_scale_shift)
 from myconvnet_tpu_torch.ops.conv import Padding, conv2d, conv2d_transpose
-from myconvnet_tpu_torch.ops.pool import avg_pool2d, global_avg_pool, \
-    max_pool2d
+from myconvnet_tpu_torch.ops.pool import adaptive_avg_pool2d, avg_pool2d, \
+    global_avg_pool, max_pool2d
 
 
 def _l2(x: torch.Tensor) -> torch.Tensor:
@@ -92,8 +95,16 @@ def _add_spectral_norm(layer: nn.Module, out: int, on: bool) -> None:
             "sn_u", torch.ones(out) / torch.tensor(float(out)).sqrt())
 
 
+def _kernel_hw(kernel_size) -> tuple[int, int]:
+    """(kh, kw) of an int or a pair (Inception's (1, 7) and (7, 1))."""
+    if isinstance(kernel_size, int):
+        return kernel_size, kernel_size
+    kh, kw = kernel_size
+    return int(kh), int(kw)
+
+
 class Conv(nn.Module):
-    def __init__(self, cin: int, cout: int, kernel_size: int, *,
+    def __init__(self, cin: int, cout: int, kernel_size, *,
                  stride: int = 1, padding: Padding = "SAME",
                  dilation: int = 1, groups: int = 1, bias: bool = False,
                  w_init=None, spectral_norm: bool = False):
@@ -106,7 +117,7 @@ class Conv(nn.Module):
         self.padding = padding
         self.dilation = dilation
         self.groups = groups
-        w = torch.empty(cout, cin // groups, kernel_size, kernel_size)
+        w = torch.empty(cout, cin // groups, *_kernel_hw(kernel_size))
         self.weight = nn.Parameter(
             w.contiguous(memory_format=torch.channels_last))
         self.register_parameter(
@@ -140,7 +151,7 @@ class DepthwiseConv(Conv):
     alone, ``multiplier`` outputs a channel, SAME by default, no bias
     unless asked."""
 
-    def __init__(self, c: int, kernel_size: int = 3, *, stride: int = 1,
+    def __init__(self, c: int, kernel_size=3, *, stride: int = 1,
                  padding: Padding = "SAME", dilation: int = 1,
                  multiplier: int = 1, bias: bool = False, w_init=None):
         super().__init__(c, c * multiplier, kernel_size, stride=stride,
@@ -372,3 +383,4 @@ def drop_path(x: torch.Tensor, rate: float, *, train: bool,
 gap = global_avg_pool
 max_pool = max_pool2d
 avg_pool = avg_pool2d
+adaptive_avg_pool = adaptive_avg_pool2d

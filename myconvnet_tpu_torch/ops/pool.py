@@ -5,11 +5,16 @@ SAME max-pool pads with -inf (``pool.py:25-36``); average pool
 (``pool.py:38-57``) sums in float32 and divides by the window, or under
 SAME by the count of the window's elements inside the frame (TF's
 ``count_include_pad=False``), and casts back; global average pool sums in
-float32 and casts back (``pool.py:60-62``).
+float32 and casts back (``pool.py:60-62``); the adaptive average pool
+(``pool.py:65-94``, PSPNet's pyramid) is two float32 products with
+per-axis bin matrices and casts back.
 """
 
 from __future__ import annotations
 
+from functools import lru_cache
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -59,3 +64,26 @@ def global_avg_pool(x: torch.Tensor, keepdims: bool = False
     """[N,H,W,C] -> [N,C] ([N,1,1,C] with ``keepdims``), mean taken in
     float32, in x's dtype."""
     return x.float().mean(dim=(1, 2), keepdim=keepdims).to(x.dtype)
+
+
+@lru_cache(maxsize=64)
+def _bin_matrix(size: int, bins: int) -> np.ndarray:
+    """[bins, size]: row i averages [floor(i S / B), ceil((i + 1) S / B))."""
+    m = np.zeros((bins, size), np.float32)
+    for i in range(bins):
+        lo = (i * size) // bins
+        hi = -(-(i + 1) * size // bins)
+        m[i, lo:hi] = 1.0 / (hi - lo)
+    return m
+
+
+def adaptive_avg_pool2d(x: torch.Tensor, output_hw: _IntOrPair
+                        ) -> torch.Tensor:
+    """[N,H,W,C] -> [N,bh,bw,C], torch ``AdaptiveAvgPool2d``'s bins, the
+    means taken in float32, in x's dtype."""
+    bh, bw = _pair(output_hw)
+    _, h, w, _ = x.shape
+    mh = torch.from_numpy(_bin_matrix(h, bh)).to(x.device)
+    mw = torch.from_numpy(_bin_matrix(w, bw)).to(x.device)
+    y = torch.einsum("bh,nhwc->nbwc", mh, x.float())
+    return torch.einsum("vw,nbwc->nbvc", mw, y).to(x.dtype)

@@ -43,7 +43,8 @@ from myconvnet_tpu_torch.subsets import (cifar10, cifar100, imagenet, mnist,
 from myconvnet_tpu_torch.subsets import flow as flow_mod
 from myconvnet_tpu_torch.train import optim
 from myconvnet_tpu_torch.models.base import ConvNet
-from myconvnet_tpu_torch.train.losses import (epe_loss, focal_loss,
+from myconvnet_tpu_torch.train.losses import (ce_dice_loss, dice_loss,
+                                              epe_loss, focal_loss,
                                               multiscale_epe_loss,
                                               pixel_cross_entropy,
                                               softmax_cross_entropy,
@@ -139,8 +140,7 @@ def make_optimizer(model: torch.nn.Module, opt_cfg: dict):
                                         and _prev(path, p))
 
         opt_cfg["weight_decay_exclude"] = exclude
-    named = [(path, p) for path, p, _ in param_views(model)]
-    opt = optim.make_optimizer(named, name, lr, **opt_cfg)
+    opt = optim.make_optimizer(param_views(model), name, lr, **opt_cfg)
     if plateau:
         opt = optim.Plateau(opt)
     if freeze:
@@ -272,8 +272,9 @@ def build_classifier(cfg: dict, synthetic: bool = False, *,
     return net, DataSet(train_src, augment), DataSet(val_src, augment)
 
 
-# segmentation losses of the JAX recipe that the port has not ported
-UNPORTED_SEG_LOSSES = ("dice", "ce_dice", "focal")
+# the recipe key ``seg_loss`` (vision.py:73-84)
+SEG_LOSSES = {"ce": pixel_cross_entropy, "dice": dice_loss,
+              "ce_dice": ce_dice_loss, "focal": focal_loss}
 # ``spatial`` (image rows sharded over the mesh's model axis,
 # vision.py:103) changes how the step runs, not what it computes, as
 # remat, chain_steps and zero_sharding do: accepted and ignored
@@ -305,19 +306,19 @@ def segmenter_net(cfg: dict, aug: AugmentConfig, device: torch.device,
                   *, ckpt_dir: str | None = None,
                   log_dir: str | None = None) -> ConvNet:
     """A segmentation recipe's net for the paired input chain ``aug``
-    (its ``out_hw`` the crop the model is built for): per-pixel CE with
-    the recipe's ignore label."""
+    (its ``out_hw`` the crop the model is built for): the recipe's
+    ``seg_loss`` (per-pixel CE, Dice, CE + Dice or focal with
+    ``focal_gamma``) with its ignore label."""
     kind = cfg.get("seg_loss", "ce")
-    if kind in UNPORTED_SEG_LOSSES:
-        raise ValueError(f"recipe key 'seg_loss' = {kind!r} is not ported "
-                         "(the JAX segmenter reads it, "
-                         "recipes/vision.py:73-84)")
-    if kind != "ce":
-        raise ValueError(f"unknown seg_loss {kind!r}; the port has 'ce'")
+    if kind not in SEG_LOSSES:
+        raise ValueError(f"unknown seg_loss {kind!r}; valid: "
+                         f"{sorted(SEG_LOSSES)}")
     ignore = cfg.get("ignore_label", 255)
+    extra = ({"gamma": cfg.get("focal_gamma", 2.0)} if kind == "focal"
+             else {})
 
-    def loss(logits, y):
-        return pixel_cross_entropy(logits, y, ignore_label=ignore)
+    def loss(logits, y, _fn=SEG_LOSSES[kind]):
+        return _fn(logits, y, ignore_label=ignore, **extra)
 
     return ConvNet(functools.partial(models.get_model, cfg["model"],
                                      input_hw=aug.out_hw),

@@ -37,9 +37,9 @@ ones through ``--fid_extractor CONFIG:CKPT_DIR`` (:func:`_fid_extractor`,
 is scored on the val pairs with PSNR and SSIM (``eval_pix2pix``,
 ``test.py:646``), each batch rescaled by B2 and translated by G's eval
 forward, and an unconditional DCGAN checkpoint is not scored.  The
-``inception:WEIGHTS.npz`` extractor (``models/inception_v3`` and weights
-the repo does not hold, ROADMAP A17) and ``task="diffusion"`` stay refused
-by name.  A self-supervised recipe (``task="ssl"``) goes to
+``inception:WEIGHTS.npz`` extractor (weights the repo does not hold; the
+JAX ``inception_v3`` tags no ``features`` map) and ``task="diffusion"``
+stay refused by name.  A self-supervised recipe (``task="ssl"``) goes to
 :func:`eval_ssl` (``test.py:350-377``): the kNN probe, then the encoder
 re-exported beside the checkpoint (``--export`` adds nothing there, as in
 JAX).  ``main(argv)`` returns (score, net); for pix2pix (psnr, ssim)
@@ -248,10 +248,10 @@ def _fid_extractor(spec: str, device):
     kind, _, rest = spec.partition(":")
     if kind == "inception":
         raise SystemExit("--fid_extractor inception:WEIGHTS.npz is not "
-                         "ported: it needs models/inception_v3 (ROADMAP "
-                         "A17) and Inception-v3 weights the repo does not "
-                         "hold; pass CONFIG:CKPT_DIR of a trained "
-                         "classifier")
+                         "ported: it needs Inception-v3 weights the repo "
+                         "does not hold, and the JAX inception_v3 tags no "
+                         "'features' map to extract; pass CONFIG:CKPT_DIR "
+                         "of a trained classifier")
     if not rest:
         raise SystemExit(f"--fid_extractor {spec!r}: want CONFIG:CKPT_DIR")
     ecfg = recipes.load_config(kind)

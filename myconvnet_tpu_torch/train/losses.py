@@ -2,7 +2,8 @@
 
 Port of ``myconvnet_tpu/train/losses.py``: softmax cross-entropy
 (``:15-28``), its per-pixel form with the ignore label (``:31-44``), the
-focal loss (``:71-110``) and the
+soft Dice loss (``:49-68``) and the fused CE + Dice (``:113-139``), the
+focal loss (``:71-110``, over [N, C] or [N, H, W, C]) and the
 optical-flow objectives (``:159-334``): the Charbonnier end-point error
 with NaN-masked targets, its multi-scale form for the coarse-to-fine nets,
 and the unsupervised photometric + smoothness objective with its forward-
@@ -50,6 +51,57 @@ def pixel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
             - (label_smoothing / nc) * logp.sum(dim=-1)
     vf = valid.float()
     return (ce * vf).sum() / vf.sum().clamp(min=1.0)
+
+
+def _valid_onehot(logits: torch.Tensor, labels: torch.Tensor,
+                  ignore_label: int | None):
+    """(valid float mask, one-hot float32 targets) of int labels, the
+    ignored pixels' class read as 0."""
+    valid = (torch.ones(labels.shape, device=logits.device)
+             if ignore_label is None else (labels != ignore_label).float())
+    safe = torch.where(valid > 0, labels, torch.zeros_like(labels)).long()
+    return valid, torch.nn.functional.one_hot(safe,
+                                              logits.shape[-1]).float()
+
+
+def _dice(probs: torch.Tensor, onehot: torch.Tensor, eps: float
+          ) -> torch.Tensor:
+    """1 - mean over images and classes of (2 |P∩Y| + eps) / (|P| + |Y| +
+    eps), the sums over H and W of masked probabilities and targets."""
+    inter = (probs * onehot).sum(dim=(1, 2))
+    denom = (probs + onehot).sum(dim=(1, 2))
+    return 1.0 - ((2.0 * inter + eps) / (denom + eps)).mean()
+
+
+def dice_loss(logits: torch.Tensor, labels: torch.Tensor, *,
+              ignore_label: int | None = 255, eps: float = 1.0
+              ) -> torch.Tensor:
+    """Soft Dice over [N, H, W, C] logits and [N, H, W] int labels, in
+    float32; ignored pixels leave both the overlap and the sizes."""
+    logits = logits.float()
+    valid, onehot = _valid_onehot(logits, labels, ignore_label)
+    v = valid[..., None]
+    return _dice(torch.softmax(logits, dim=-1) * v, onehot * v, eps)
+
+
+def ce_dice_loss(logits: torch.Tensor, labels: torch.Tensor, *,
+                 ignore_label: int | None = 255, dice_weight: float = 1.0,
+                 label_smoothing: float = 0.0, eps: float = 1.0
+                 ) -> torch.Tensor:
+    """Per-pixel CE (valid pixels' mean) + ``dice_weight`` x soft Dice,
+    sharing the mask, the one-hot and the log-softmax as JAX's fused form
+    does (the Dice's probabilities are exp(log-softmax))."""
+    logits = logits.float()
+    nc = logits.shape[-1]
+    valid, onehot = _valid_onehot(logits, labels, ignore_label)
+    logp = torch.log_softmax(logits, dim=-1)
+    target = onehot
+    if label_smoothing > 0.0:
+        target = onehot * (1.0 - label_smoothing) + label_smoothing / nc
+    ce = -(target * logp).sum(dim=-1) * valid
+    ce = ce.sum() / valid.sum().clamp(min=1.0)
+    v = valid[..., None]
+    return ce + dice_weight * _dice(torch.exp(logp) * v, onehot * v, eps)
 
 
 def focal_loss(logits: torch.Tensor, labels: torch.Tensor, *,

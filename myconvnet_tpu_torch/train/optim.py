@@ -4,7 +4,8 @@ clipping, the weight-decay mask, LR schedules.
 Port of the parts of ``myconvnet_tpu/train/optim.py`` the recipes use:
 ``step_decay`` and ``exponential_decay`` (``:40-59``),
 ``cosine_decay``/``cosine_restarts`` (``:62-101``),
-``polynomial_decay`` (``:70-77``, DeepLab's "poly"),
+``polynomial_decay`` (``:70-77``, DeepLab's "poly"), ``adagrad``
+(``:337-370``, :class:`Adagrad`; Shampoo is ``train/shampoo.py``),
 ``warmup`` (``:104-112``), ``norm_and_bias_exclusion`` and the decay mask
 (``:131-157``), ``sgd``/``momentum`` (``:159-199``), ``adam``/``adamw``
 (``:202-249``), ``lars`` (``:252-293``, :class:`LARS`), ``rmsprop``
@@ -476,11 +477,84 @@ class RMSprop:
                     buf.copy_(trees[field][path])
 
 
+class Adagrad:
+    """``optim.adagrad`` (``:337-370``) over (JAX path, parameter) pairs,
+    with the optional global-norm clipping of ``with_gradient_clipping``;
+    ``step(i)`` applies the update with ``lr(i)``.  Per leaf, in float32,
+    the accumulator starting at ``initial_accumulator`` (TF1's 0.1):
+
+        gd  = g + wd p          (coupled; 0 for excluded parameters)
+        acc = acc + gd^2
+        p   = p - lr(step) gd / (sqrt(acc) + eps)
+
+    The state is JAX's: the accumulator tree, laid out as the
+    parameters."""
+
+    def __init__(self, named_params: list[tuple[str, torch.Tensor]], lr,
+                 eps: float = 1e-10, *, initial_accumulator: float = 0.1,
+                 weight_decay: float = 0.0, weight_decay_exclude=None,
+                 clip_norm: float | None = None):
+        self.schedule = lr if callable(lr) else constant(float(lr))
+        self.named = list(named_params)
+        self.params = [p for _, p in self.named]
+        mask = decay_mask(self.named, weight_decay_exclude)
+        self.decayed = [i for i, (path, _) in enumerate(self.named)
+                        if mask[path] and weight_decay > 0.0]
+        self.eps, self.weight_decay = eps, weight_decay
+        self.clip_norm = clip_norm
+        self.acc = [torch.full_like(p, initial_accumulator,
+                                    dtype=torch.float32)
+                    for p in self.params]
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self, step: int) -> float:
+        lr = self.schedule(step)
+        grads = [torch.zeros_like(p, dtype=torch.float32) if p.grad is None
+                 else p.grad.float() for p in self.params]
+        if self.clip_norm:
+            clip_by_global_norm(grads, float(self.clip_norm))
+        for i in self.decayed:
+            grads[i] = grads[i] + self.weight_decay * self.params[i].float()
+        torch._foreach_addcmul_(self.acc, grads, grads)
+        denom = torch._foreach_sqrt(self.acc)
+        torch._foreach_add_(denom, self.eps)
+        torch._foreach_add_(self.params, torch._foreach_div(grads, denom),
+                            alpha=-lr)
+        return lr
+
+    def state_trees(self) -> dict[str, dict[str, torch.Tensor]]:
+        """{"": {path: accumulator}}: the JAX state is the tree."""
+        return {"": {path: a for (path, _), a in zip(self.named,
+                                                     self.acc)}}
+
+    @torch.no_grad()
+    def load_state_trees(self, trees: dict) -> None:
+        for (path, _), a in zip(self.named, self.acc):
+            if path in trees.get("", {}):
+                a.copy_(trees[""][path])
+
+
 def make_optimizer(named_params, name: str, lr, **kwargs):
     """Config-string optimizer factory (``sgd``, ``momentum``, ``adam``,
-    ``adamw``, ``rmsprop``, ``lars``); ``clip_norm`` clips the gradients'
-    global norm before the update (``recipes/common.py:101-102``)."""
-    named_params = list(named_params)
+    ``adamw``, ``rmsprop``, ``lars``, ``adagrad``, ``shampoo``,
+    ``blocked_shampoo``) over (JAX path, parameter) pairs or
+    ``weights.param_views``' (path, parameter, view in the JAX layout)
+    triples; ``clip_norm`` clips the gradients' global norm before the
+    update (``recipes/common.py:101-102``).  The Shampoo variants take
+    their statistics over the views' matrices."""
+    entries = list(named_params)
+    named_params = [(path, p) for path, p, *_ in entries]
+    if name in ("shampoo", "blocked_shampoo"):
+        from myconvnet_tpu_torch.train import shampoo
+        views = {e[0]: e[2] for e in entries if len(e) == 3}
+        return getattr(shampoo, name)(named_params, lr, views=views,
+                                      **kwargs)
+    if name == "adagrad":
+        return Adagrad(named_params, lr, **kwargs)
     if name == "lars":
         return LARS(named_params, lr, **kwargs)
     if name == "rmsprop":
@@ -493,9 +567,9 @@ def make_optimizer(named_params, name: str, lr, **kwargs):
     if name == "momentum":
         kwargs["momentum"] = kwargs.pop("momentum_coef", 0.9)
     elif name != "sgd":
-        raise ValueError(f"the port has optimizers ['adam', 'adamw', "
-                         f"'lars', 'momentum', 'rmsprop', 'sgd'], not "
-                         f"{name!r}")
+        raise ValueError(f"the port has optimizers ['adagrad', 'adam', "
+                         f"'adamw', 'blocked_shampoo', 'lars', 'momentum', "
+                         f"'rmsprop', 'sgd', 'shampoo'], not {name!r}")
     return SGD(named_params, lr, **kwargs)
 
 

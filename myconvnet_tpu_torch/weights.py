@@ -238,14 +238,21 @@ def optimizer_to_jax(model: nn.Module, optimizer) -> dict:
     optimizer state tree: the ``state_trees`` fields nested by their
     ``::``-joined JAX names (the momentum tree at the root, Adam's
     ``.mu``/``.nu``, a wrapper's ``.inner``, ``.ema``, ``.slow``), each a
-    tree laid out as the parameters or a scalar (``.count``,
-    ``.lr_scale``)."""
+    tree laid out as the parameters, a tensor in its own dtype (the
+    scalars ``.count`` and ``.lr_scale``, blocked Shampoo's stacked
+    tiles) or a list of per-leaf arrays in JAX's leaf order (Shampoo's
+    statistics and momentum), keyed by position as JAX's checkpoints key
+    a tuple's entries, a ``None`` entry left out."""
     out = {}
     views = list(param_views(model))
     for field, value in optimizer.state_trees().items():
         parent, name = _field_tree(out, field, create=True)
-        if isinstance(value, torch.Tensor):   # a scalar in its own dtype
+        if isinstance(value, torch.Tensor):
             parent[name] = value.detach().cpu().numpy().copy()
+            continue
+        if isinstance(value, list):
+            parent[name] = {str(i): _np(t) for i, t in enumerate(value)
+                            if t is not None}
             continue
         tree = parent.setdefault(name, {}) if name else parent
         for path, _, view in views:
@@ -268,6 +275,12 @@ def optimizer_from_jax(model: nn.Module, optimizer, opt_state: dict
         if isinstance(value, torch.Tensor):
             if name in parent:
                 trees[field] = torch.from_numpy(np.array(parent[name]))
+            continue
+        if isinstance(value, list):
+            sub = parent.get(name, {})
+            trees[field] = [
+                torch.from_numpy(np.array(sub[str(i)], np.float32))
+                if str(i) in sub else None for i in range(len(value))]
             continue
         tree = parent.get(name, {}) if name else parent
         buffers = {}
@@ -312,7 +325,9 @@ def random_jax_params(model: nn.Module, seed: int) -> tuple[Tree, Tree]:
     BN with random gamma, beta and moving statistics (a block's last BN,
     ``bn_c`` of a bottleneck, ``bn_b`` of a basic block or ``bn_project``
     of an inverted residual, gets a small gamma, as the zero-init recipe
-    intends, so the residual stream stays in range through 16 blocks), LN
+    intends, so the residual stream stays in range through 16 blocks; the
+last BN of each of Xception's residual blocks, ``sep3/bn_pw``, one in
+[0.01, 0.03], so it does through 20, train-mode BN included), LN
     with gamma near 1 and a small beta, and the ViT's tokens from
     normal(0.02).  A depthwise conv's He scale counts its window only
     (one input channel an output)."""
@@ -335,6 +350,8 @@ def random_jax_params(model: nn.Module, seed: int) -> tuple[Tree, Tree]:
             last = scope.endswith(("bn_c", "bn_project")) or (
                 scope.endswith("bn_b") and scope[:-1] + "c" not in params)
             lo, hi = (0.1, 0.3) if last else (0.5, 1.0)
+            if scope.endswith("sep3/bn_pw") and "exit2/" not in scope:
+                lo, hi = 0.01, 0.03    # Xception's 20 residual branches
             p["gamma"] = rng.uniform(lo, hi, c).astype(np.float32)
             p["beta"] = (0.1 * rng.randn(c)).astype(np.float32)
             state[scope] = {

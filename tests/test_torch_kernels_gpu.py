@@ -1819,3 +1819,103 @@ def test_resnet_exported_on_the_card_runs_the_kernels(cuda, tmp_path):
     torch.cuda.synchronize()
     assert kernels.launch_counts() == want_counts
     assert got.device.type == "cuda" and torch.equal(got, want)
+
+
+# ------------------------------------ the segmenters and the rest of the zoo
+
+def _sites_on_card(model, x, cuda):
+    """The bf16 eval forward of ``model`` on ``x`` on the host (plain
+    versions) and on the card: (host output, card output, the card's
+    launches by wrapper)."""
+    model = model.eval()
+    with torch.no_grad():
+        host = model(x).float()
+        kernels.reset_launch_counts()
+        got = model.to(cuda)(x.to(cuda)).float().cpu()
+    return host, got, kernels.launch_counts()
+
+
+def test_unet_b4_sites_on_card_match_host(cuda):
+    """U-Net at full width (base 64, depth 4; 64 x 64, batch 2, bf16,
+    eval): its 17 B4 sites and the C = 3 first conv's B1 on the card, the
+    logits within 0.05 of the host's plain path's largest; each B4 site
+    alone against ``conv3x3_bn_relu``'s plain version at FUSED_TOL."""
+    from myconvnet_tpu_torch.models.unet import UNet
+    model = UNet(21)
+    weights.from_jax(model, *random_jax_params(model, 3))
+    x = torch.from_numpy(np.random.RandomState(4).randn(
+        2, 64, 64, 3).astype(np.float32)).bfloat16()
+    host, got, counts = _sites_on_card(model, x, cuda)
+    assert counts["conv_fused"] == 17 and counts["bn_act"] == 1
+    err = float((got - host).abs().max())
+    assert err <= 0.05 * float(host.abs().max()), err
+    convs = [m for m in model.modules() if hasattr(m, "conv1")]
+    for dc in convs:
+        for i, fused in zip((1, 2), dc.fused):
+            if not fused:
+                continue
+            conv, bn = getattr(dc, f"conv{i}"), getattr(dc, f"bn{i}")
+            c = conv.weight.shape[1]
+            xi = _bf16_grid(np.random.RandomState(c).randn(
+                2, 16, 16, c)).to(cuda, torch.bfloat16)
+            a, b = bn.scale_shift()
+            w = conv.w.to(torch.bfloat16)
+            out = conv_fused.conv3x3_bn_relu(xi, w, a, b)
+            ref = conv_fused.conv3x3_bn_relu_reference(xi, w, a, b)
+            torch.testing.assert_close(out.float(), ref.float(), **FUSED_TOL)
+
+
+@pytest.mark.parametrize("shape", [(8, 56, 56, 16, 64), (8, 13, 13, 64, 256)])
+def test_squeezenet_expand3x3_matches_plain(cuda, shape):
+    """SqueezeNet's expand3x3 (fire2's 16 -> 64 at 56 x 56, fire9's 64 ->
+    256 at 13 x 13): B4 with the conv's bias as the epilogue at scale 1
+    (``conv_epilogue(conv, None)``), against the plain version at
+    FUSED_TOL and against relu(conv + bias) through cuDNN in float32 at
+    2 bf16 ulps."""
+    from myconvnet_tpu_torch.nn import Conv, conv_epilogue
+    n, h, w, c, co = shape
+    conv = Conv(c, co, 3, bias=True)
+    rng = np.random.RandomState(c)
+    with torch.no_grad():
+        conv.w.copy_(_bf16_grid(rng.randn(3, 3, c, co) / np.sqrt(9 * c)))
+        conv.bias.copy_(torch.from_numpy(
+            (0.3 * rng.randn(co)).astype(np.float32)))
+    conv = conv.to(cuda)
+    a, b = conv_epilogue(conv, None)
+    assert bool((a == 1).all())
+    x = _bf16_grid(rng.randn(n, h, w, c)).to(cuda, torch.bfloat16)
+    wb = conv.w.to(torch.bfloat16)
+    before = conv_fused.conv3x3_bn_relu.launches
+    out = conv_fused.conv3x3_bn_relu(x, wb, a, b)
+    torch.cuda.synchronize()
+    assert conv_fused.conv3x3_bn_relu.launches == before + 1
+    ref = conv_fused.conv3x3_bn_relu_reference(x, wb, a, b)
+    torch.testing.assert_close(out.float(), ref.float(), **FUSED_TOL)
+    with torch.no_grad():
+        plain = torch.relu(conv(x.float()))
+    torch.testing.assert_close(out.float(), plain, **PAIR_TOL)
+
+
+@pytest.mark.parametrize("shape", [(4, 129, 129, 128), (4, 33, 33, 728)])
+def test_xception_depthwise_bn_relu_goes_through_b1(cuda, shape):
+    """Xception's depthwise -> BN -> ReLU in eval under bf16 (entry2's
+    first at 129 x 129, a middle block's at 33 x 33): a cuDNN depthwise
+    conv and one B1 launch, bit for bit the plain scale-shift-ReLU of
+    the same conv output."""
+    from myconvnet_tpu_torch.models import blocks
+    from myconvnet_tpu_torch.models.xception import SepConv
+    n, h, w, c = shape
+    sep = SepConv(c, c, relu_first=True, relu_after=False)
+    weights.from_jax(sep, *random_jax_params(sep, c))
+    sep = sep.to(cuda).eval()
+    x = torch.from_numpy(np.random.RandomState(1).randn(*shape).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    before = bn_act.fused_scale_shift_act.launches
+    with torch.no_grad():
+        y = blocks.conv_bn_relu(sep.dw, sep.bn_dw, x)
+        torch.cuda.synchronize()
+        assert bn_act.fused_scale_shift_act.launches == before + 1
+        a, b = sep.bn_dw.scale_shift()
+        ref = bn_act.scale_shift_act_reference(
+            sep.dw(x, add_bias=False).contiguous(), a, b, "relu")
+    torch.testing.assert_close(y, ref, **BN_ACT_TOL)
