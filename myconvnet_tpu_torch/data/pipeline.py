@@ -7,10 +7,13 @@ assembled by the host library's threaded gather), ``FileSource``
 (``:124-216``: image files decoded by a worker pool, JPEG batches by the
 host library's threaded libjpeg path, masks by libpng's raw palette
 indices), ``batch_indices`` (``:251-267``, the same numpy RNG and order),
-the ``Prefetcher`` (``:318-388``) and ``DataSet.train_iter``/``eval_iter``
-(``:390-474``).  Batches leave the host as uint8 (4x fewer bytes than
-float32); augmentation runs on the device, in the train step.  Pillow is
-imported where an image is decoded, never at import.
+``pk_batch_indices`` (``:269-298``, the metric recipes' identity-balanced
+batches, the same numpy RNG and draws), the ``Prefetcher``
+(``:318-388``) and ``DataSet.train_iter``/``eval_iter`` (``:390-474``,
+with ``pk=(P, K)`` and its checks, ``:440-452``).  Batches leave the
+host as uint8 (4x fewer bytes than float32); augmentation runs on the
+device, in the train step.  Pillow is imported where an image is decoded,
+never at import.
 
 Where the JAX prefetcher calls ``jax.device_put`` on a background thread,
 this one gathers the batch into pinned host memory and copies it with
@@ -237,6 +240,31 @@ def batch_indices(n: int, batch_size: int, *, shuffle: bool, seed: int,
         epoch += 1
 
 
+def pk_batch_indices(labels: np.ndarray, p: int, k: int, *, seed: int,
+                     epochs: int | None = None) -> Iterator[np.ndarray]:
+    """P x K identity-balanced batches: each batch is ``p`` distinct
+    classes x ``k`` examples a class, so every anchor of batch-hard
+    triplet mining has k - 1 positives and (p - 1) k negatives.  An epoch
+    is one shuffled pass over the class list; a class with fewer than
+    ``k`` examples is drawn with replacement."""
+    labels = np.asarray(labels).reshape(-1)
+    classes = np.unique(labels)
+    if len(classes) < p:
+        raise ValueError(f"pk sampler needs >= {p} classes, corpus has "
+                         f"{len(classes)}")
+    by_class = {c: np.flatnonzero(labels == c) for c in classes}
+    rng = np.random.RandomState(seed)
+    epoch = 0
+    while epochs is None or epoch < epochs:
+        order = rng.permutation(classes)
+        for i in range(0, len(order) - p + 1, p):
+            picks = [rng.choice(by_class[c], k,
+                                replace=len(by_class[c]) < k)
+                     for c in order[i:i + p]]
+            yield np.concatenate(picks)
+        epoch += 1
+
+
 class Prefetcher:
     """Stages up to ``depth`` batches on ``device`` ahead of consumption,
     from a background thread; yields (images, labels) device tensors."""
@@ -323,13 +351,15 @@ class Prefetcher:
 
 
 class DataSet:
-    """Source + augmentation config + batch iterators."""
+    """Source + augmentation config + batch iterators; ``pk=(P, K)``
+    makes the train batches identity-balanced (:func:`pk_batch_indices`)."""
 
     def __init__(self, source, augment: AugmentConfig | None = None,
-                 seed: int = 0):
+                 seed: int = 0, pk: tuple[int, int] | None = None):
         self.source = source
         self.augment = augment or AugmentConfig()
         self.seed = seed
+        self.pk = tuple(pk) if pk is not None else None
 
     def __len__(self):
         return len(self.source)
@@ -346,8 +376,21 @@ class DataSet:
                    prefetch: int = 2) -> Iterator:
         """Infinite (or epochs-bounded) shuffled uint8 batches on
         ``device``.  Augmentation happens in the train step, not here."""
-        host = self._host_batches(batch_size, shuffle=True, epochs=epochs,
-                                  drop_remainder=True)
+        if self.pk is not None:
+            p, k = self.pk
+            if p * k != batch_size:
+                raise ValueError(f"pk={self.pk} batches are {p * k} "
+                                 f"examples but batch_size={batch_size}")
+            labels = getattr(self.source, "labels", None)
+            if labels is None:
+                raise ValueError("pk sampling needs a source with "
+                                 ".labels (ArraySource/FileSource)")
+            host = (self.source.get_batch(idx) for idx in
+                    pk_batch_indices(np.asarray(labels), p, k,
+                                     seed=self.seed, epochs=epochs))
+        else:
+            host = self._host_batches(batch_size, shuffle=True,
+                                      epochs=epochs, drop_remainder=True)
         return Prefetcher(host, device, depth=prefetch)
 
     def eval_iter(self, batch_size: int, device: torch.device, *,

@@ -3,11 +3,12 @@
 Port of ``myconvnet_tpu/export_cli.py`` for the tasks whose models the
 port has: ``export_classification`` (``:14``), ``export_segmentation``
 (``:99``), ``export_gan`` (``:161``; DCGAN and pix2pix), ``_dense_chain``
-(``:355``) and ``export_flow`` (``:408``), and ``CONVNET_EXPORTERS``
-(``:525``) restricted to them.  Each writes one ``torch.export`` artifact
-(``serving.export_*``) on the device the entry point runs on, with the
-wire format of JAX's artifact of the same kind, and prints JAX's artifact
-line and then the artifact's ``mcn::`` kernel nodes.
+(``:355``), ``export_flow`` (``:408``) and ``export_metric`` (``:429``),
+and ``CONVNET_EXPORTERS`` (``:525``) restricted to them.  Each writes one
+``torch.export`` artifact (``serving.export_*``) on the device the entry
+point runs on, with the wire format of JAX's artifact of the same kind,
+and prints JAX's artifact line and then the artifact's ``mcn::`` kernel
+nodes.
 
 A RepVGG recipe (a name of ``models.DEPLOY_FORWARDS``) exports its
 reparameterized deploy form (``export_cli.py:34-60``): the restored train
@@ -19,7 +20,7 @@ equivalent and are refused, as in JAX.
 
 Refused by name: ``--int8`` (the quantized programs, ROADMAP A17's
 quantization), the GAN kinds the port does not have (srgan, cyclegan) and
-the other nine exporters (:data:`UNPORTED_EXPORTERS`), each with its A17
+the other eight exporters (:data:`UNPORTED_EXPORTERS`), each with its A17
 family.
 """
 
@@ -34,7 +35,6 @@ UNPORTED_EXPORTERS = {
               "style and super-resolution"),
     "audio": ("export_audio (export_cli.py:328)", "audio"),
     "depth": ("export_depth (export_cli.py:386)", "depth"),
-    "metric": ("export_metric (export_cli.py:429)", "metric"),
     "ocr": ("export_ocr (export_cli.py:466)", "OCR"),
     "video": ("export_video (export_cli.py:493)", "video"),
 }
@@ -207,10 +207,34 @@ def export_flow(cfg, args, net, val_set):
             ", px flow out")
 
 
+def export_metric(cfg, args, net, val_set):
+    """Normalized rows [export_batch (8), H, W, 3] at the eval crop
+    (``augment.out_hw``, else ``input_hw``) in, the eval forward's
+    unit-norm embeddings [N, D] out (the margin head is train-only); the
+    ``embed`` route's producer."""
+    import numpy as np
+
+    from myconvnet_tpu_torch import serving
+
+    hw = tuple((cfg.get("augment") or {}).get(
+        "out_hw", cfg.get("input_hw", (112, 112))))
+    sample = np.zeros((cfg.get("export_batch", 8), *hw, 3), np.float32)
+    fn = serving.make_inference_fn(net.model, None, None, device=net.device,
+                                   policy=net.policy)
+    size = serving.export_fn(fn.program, fn.model, sample, args.export,
+                             kind="embed", policy=net.policy,
+                             device=net.device)
+    dim = cfg.get("model_kwargs", {}).get("embed_dim", 512)
+    _report("metric", args.export, size, f"input {sample.shape}",
+            f", {dim}-d embeddings")
+
+
 # ConvNet-family exporters keyed by task (GAN checkpoints go to
-# export_gan from test.eval_gan)
+# export_gan from test.eval_gan, a distilled student to
+# export_classification from test.eval_distill)
 CONVNET_EXPORTERS = {
     "classification": export_classification,
     "segmentation": export_segmentation,
     "flow": export_flow,
+    "metric": export_metric,
 }

@@ -12,6 +12,8 @@ from myconvnet_tpu_torch.models.unet import UNet, unet
 from myconvnet_tpu_torch.models.xception import (Xception65,
                                                  XceptionBackbone,
                                                  xception65)
+from myconvnet_tpu_torch.models.embedding import (EmbeddingNet,
+                                                  embedding_net, tinyembed)
 from myconvnet_tpu_torch.models.densenet import (DenseNet, densenet121,
                                                  densenet169, densenet201)
 from myconvnet_tpu_torch.models.gan import (DCGANDiscriminator,
@@ -94,6 +96,9 @@ SIZED = {*VITS, *VGGS, *SWINS, *WRNS, "deeplab_v3_plus", "pspnet", "fcn",
 # the self-supervised forwards (models/__init__.py:245-249): not
 # classifiers; SimCLR takes any MODELS entry with a ``features`` method
 SSL_MODELS = {"mae_b16": mae_b16, "mae_l16": mae_l16, "tinymae": tinymae}
+# the metric-learning embedders (models/__init__.py:181-184): any
+# classifier above as the backbone, re-headed to a unit-norm embedding
+EMBEDDING_MODELS = {"embedding_net": embedding_net, "tinyembed": tinyembed}
 
 
 def get_model(name: str, num_classes: int,
@@ -113,7 +118,8 @@ def get_model(name: str, num_classes: int,
     return MODELS[name](num_classes, **kwargs)
 
 
-__all__ = ["AlexNet", "ConvNeXt", "FCN", "InceptionV3", "PSPNet",
+__all__ = ["AlexNet", "ConvNeXt", "EMBEDDING_MODELS", "EmbeddingNet",
+           "embedding_net", "tinyembed", "FCN", "InceptionV3", "PSPNet",
            "SEGMENTERS", "SqueezeNet", "UNet", "Xception65",
            "XceptionBackbone", "ZOO_REST", "alexnet", "convnext_small",
            "convnext_tiny", "fcn", "inception_v3", "pspnet", "squeezenet",

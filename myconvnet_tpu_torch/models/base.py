@@ -452,18 +452,21 @@ class ConvNet:
     def features(self, images, batch_size: int = 256,
                  tag: str = "features") -> np.ndarray:
         """The backbone map the JAX zoo tags ``"features"`` (before the
-        pooling), by the module's ``features`` method, of input batches in
-        the net's input layout (no input chain, as JAX applies none)."""
+        pooling), by the module's ``features`` method, or an embedding
+        net's unit-norm ``"embedding"`` (its ``embedding`` method), of
+        input batches in the net's input layout (no input chain, as JAX
+        applies none)."""
         model = self.trainer.model
-        if tag != "features" or not hasattr(model, "features"):
+        if tag not in ("features", "embedding") \
+                or not hasattr(model, tag):
             raise ValueError(f"no intermediate tagged {tag!r} in "
                              f"{type(model).__name__} (the port tags "
                              "'features' on models with a features "
-                             "method)")
+                             "method, 'embedding' on embedding nets)")
         model.eval()
         outs = []
         for x, k in self._batches(images, batch_size):
-            f = model.features(x.to(self.policy.compute_dtype))
+            f = getattr(model, tag)(x.to(self.policy.compute_dtype))
             outs.append(f[:k].float().cpu().numpy())
         return np.concatenate(outs)
 

@@ -11,7 +11,13 @@ and torchvision ``.pth`` forms), and the ``ConvNet`` builders of ``registry.conv
 (``registry.py:21``): ``build_classifier`` (``vision.py:23-65``, with the
 focal loss, random erasing and SAM), ``build_segmenter``
 (``vision.py:68-106``, with the VOC source and the mIoU evaluator of
-``common.py:200-202``) and ``build_flow`` (``perception.py:284-398``).
+``common.py:200-202``), ``build_flow`` (``perception.py:284-398``) and
+``build_metric`` (``vision.py:109-172``: an ``EMBEDDING_MODELS`` net with
+the ArcFace, CosFace or batch-hard triplet loss, PK batches, and the
+retrieval evaluator of ``common.py:194-196``).  A recipe with a
+``pipeline`` block (GPipe, ``train.py:112-122``) is refused by name
+(ROADMAP A16), since the port has no staged model to train it as JAX
+does.
 :func:`build_trainer` is the built net's trainer, as a fresh run starts
 it.  Also the mean/std resolution of ``serving_http.build_route``
 (``:134-145``): a recipe's ``augment`` block may set ``mean``/``std``, and
@@ -38,11 +44,15 @@ from myconvnet_tpu_torch.data.pipeline import DataSet
 from myconvnet_tpu_torch.eval.evaluators import (AccuracyEvaluator,
                                                  Evaluator, MeanIoUEvaluator)
 from myconvnet_tpu_torch.eval.flow import FlowEvaluator
+from myconvnet_tpu_torch.eval.retrieval import RetrievalEvaluator
 from myconvnet_tpu_torch.subsets import (cifar10, cifar100, imagenet, mnist,
                                          svhn, voc)
 from myconvnet_tpu_torch.subsets import flow as flow_mod
 from myconvnet_tpu_torch.train import optim
 from myconvnet_tpu_torch.models.base import ConvNet
+from myconvnet_tpu_torch.train.metric_losses import (arcface_loss,
+                                                     batch_hard_triplet_loss,
+                                                     cosface_loss)
 from myconvnet_tpu_torch.train.losses import (ce_dice_loss, dice_loss,
                                               epe_loss, focal_loss,
                                               multiscale_epe_loss,
@@ -220,8 +230,10 @@ def build_evaluator(cfg: dict) -> Evaluator:
     if task == "segmentation":
         return MeanIoUEvaluator(cfg["num_classes"],
                                 cfg.get("ignore_label", 255))
-    raise ValueError(f"the port has the classification, segmentation and "
-                     f"flow tasks, not {task!r}")
+    if task == "metric":
+        return RetrievalEvaluator(cfg.get("recall_k", 1))
+    raise ValueError(f"the port has the classification, segmentation, "
+                     f"flow and metric tasks' evaluators, not {task!r}'s")
 
 
 def build_classifier(cfg: dict, synthetic: bool = False, *,
@@ -448,15 +460,88 @@ def build_flow(cfg: dict, synthetic: bool = False, *,
             DataSet(val_src))
 
 
-TASKS = ("classification", "segmentation", "flow", "gan", "ssl")
+def metric_loss(cfg: dict, head: str):
+    """The metric recipe's loss of its model's ``head``."""
+    if head == "arcface":
+        s, m = cfg.get("margin_s", 64.0), cfg.get("margin_m", 0.5)
+        return lambda cos, y: arcface_loss(cos, y, s=s, m=m)
+    if head == "cosface":
+        s, m = cfg.get("margin_s", 30.0), cfg.get("margin_m", 0.35)
+        return lambda cos, y: cosface_loss(cos, y, s=s, m=m)
+    if head == "triplet":
+        margin = cfg.get("triplet_margin", 0.3)
+        soft = cfg.get("triplet_soft", False)
+        return lambda emb, y: batch_hard_triplet_loss(emb, y, margin=margin,
+                                                      soft=soft)
+    raise ValueError(f"unknown metric_head {head!r}; valid: "
+                     "['arcface', 'cosface', 'triplet']")
+
+
+def build_metric(cfg: dict, synthetic: bool = False, *,
+                 device: torch.device, ckpt_dir: str | None = None,
+                 log_dir: str | None = None
+                 ) -> tuple[ConvNet, DataSet, DataSet]:
+    """(net, train set, val set) of a metric-learning recipe
+    (``vision.py:109-172``): an ``EMBEDDING_MODELS`` net over a classifier
+    backbone, the loss of its head, identity-balanced ``pk`` batches (the
+    triplet head needs them, P and K at least 2), the accuracy metric
+    unless the head is "triplet"; the labels are identity ids, so any
+    classification corpus serves."""
+    name = cfg.get("model", "embedding_net")
+    if name not in models.EMBEDDING_MODELS:
+        raise ValueError(f"unknown metric model {name!r}; valid: "
+                         f"{sorted(models.EMBEDDING_MODELS)}")
+    kwargs = dict(cfg.get("model_kwargs", {}))
+    head = kwargs.get("head", "arcface")
+    loss = metric_loss(cfg, head)
+    pk = tuple(cfg["pk"]) if cfg.get("pk") else None
+    if pk is not None and pk[0] * pk[1] != cfg["batch_size"]:
+        raise ValueError(f"pk={pk} must multiply to batch_size="
+                         f"{cfg['batch_size']}")
+    if head == "triplet" and pk is None:
+        raise ValueError(
+            "triplet training needs identity-balanced batches: set "
+            "pk=(P, K) with P*K == batch_size (batch-hard mining has "
+            "no positives under uniform sampling of a large identity "
+            "set)")
+    if head == "triplet" and (pk[0] < 2 or pk[1] < 2):
+        raise ValueError(
+            f"pk={pk}: batch-hard triplet mining needs P >= 2 "
+            "identities (else no negatives) and K >= 2 examples per "
+            "identity (else no positives) — with either at 1 the "
+            "loss is identically zero and training silently no-ops")
+    augment = make_augment(cfg.get("augment"))
+    net = ConvNet(functools.partial(models.EMBEDDING_MODELS[name],
+                                    input_hw=tuple(cfg["input_hw"])),
+                  input_shape=(*cfg["input_hw"], 3),
+                  num_classes=cfg["num_classes"],
+                  precision=cfg.get("precision", "f32"), loss_fn=loss,
+                  augment=augment, sam_rho=cfg.get("sam_rho", 0.0),
+                  accuracy_metric=head != "triplet",
+                  seed=cfg.get("seed", 0),
+                  accum_steps=cfg.get("accum_steps", 1),
+                  accum_dtype=cfg.get("accum_dtype", "float32"),
+                  ckpt_dir=ckpt_dir, log_dir=log_dir,
+                  log_every=cfg.get("log_every", 50), device=device,
+                  **kwargs)
+    train_src, val_src = make_sources(cfg, synthetic)
+    return (net, DataSet(train_src, augment, pk=pk),
+            DataSet(val_src, augment))
+
+
+TASKS = ("classification", "segmentation", "flow", "metric", "gan", "ssl",
+         "semisup", "distill")
+# the tasks that build a ConvNet (``recipes/registry.py:38-56``: the
+# "convnet" rows); the others have step loops of their own
+CONVNET_TASKS = ("classification", "segmentation", "flow", "metric")
 
 
 def convnet_builder(task: str):
     """The ``ConvNet`` builder of a task (``recipes/registry.py:21``):
-    segmentation and flow have their own, every other task the
+    segmentation, flow and metric have their own, every other task the
     classifier's."""
-    return {"segmentation": build_segmenter,
-            "flow": build_flow}.get(task, build_classifier)
+    return {"segmentation": build_segmenter, "flow": build_flow,
+            "metric": build_metric}.get(task, build_classifier)
 
 
 def check_task(cfg: dict) -> str:
@@ -464,6 +549,16 @@ def check_task(cfg: dict) -> str:
     if task not in TASKS:
         raise ValueError(f"the port has tasks {list(TASKS)}, not {task!r}")
     return task
+
+
+def refuse_pipeline(cfg: dict) -> None:
+    """ValueError for a recipe with a ``pipeline`` block: JAX trains it
+    as a staged model over a GPipe mesh (``train.py:112-122``,
+    ``train/pipeline_driver.py``), which the port does not have."""
+    if cfg.get("pipeline"):
+        raise ValueError(f"recipe key 'pipeline' = {cfg['pipeline']!r} is "
+                         "not ported (ROADMAP A16: GPipe over a staged "
+                         "model; the port trains on one device)")
 
 
 def apply_pretrained(net: ConvNet, cfg: dict) -> None:
@@ -506,9 +601,10 @@ def build_trainer(cfg: dict, synthetic: bool = False, **kwargs
     it: :func:`convnet_builder`'s net built with the recipe's optimizer,
     warm-started from ``pretrained``, with the recipe's evaluator."""
     task = check_task(cfg)
-    if task in ("gan", "ssl"):
+    if task not in CONVNET_TASKS:
         raise ValueError(f"{task} recipes build through "
                          f"recipes_{task}.build_{task}")
+    refuse_pipeline(cfg)
     net, train_set, val_set = convnet_builder(task)(cfg, synthetic,
                                                     **kwargs)
     net.build(optimizer_factory(cfg["optimizer"]))

@@ -3,6 +3,8 @@
     # an artifact of test --export (no model code or weights needed):
     python -m myconvnet_tpu_torch.serve --artifact model.pt2 --images d/ \\
         [--config C --topk 5 --calibration calibration.json]
+    python -m myconvnet_tpu_torch.serve --artifact embed.pt2 --images d/ \\
+        [--config C]
     python -m myconvnet_tpu_torch.serve --artifact model.pt2 --latency \\
         [--sizes 1,8,32] [--hw 224,224]
     python -m myconvnet_tpu_torch.serve --artifact seg.pt2 --segment \\
@@ -26,7 +28,9 @@
 Port of ``serve.py``: the one-shot modes of an artifact (``serving.
 load_inference``; its fixed batch is the only bucket) for the kinds the
 port exports: classify ``--images`` (host normalization with the recipe's
-statistics, ``--calibration``'s temperature, ``--topk``), ``--latency``
+statistics, ``--calibration``'s temperature, ``--topk``), the same for an
+``embed`` artifact (a metric recipe's, which JAX serves only as a route:
+each image's unit-norm embedding), ``--latency``
 (``:152-202``), ``--segment`` (``:392``, VOC-palette ``<name>_mask.png``),
 ``--flow`` (``:466``, ``<name>_a.*``/``<name>_b.*`` pairs to
 ``<name>_flow.png``), ``--translate`` (``:646``, ``<name>_out.png``) and
@@ -34,7 +38,8 @@ statistics, ``--calibration``'s temperature, ``--topk``), ``--latency``
 ``--seed`` with numpy, as JAX draws them); image directories are read by
 :func:`_iter_image_chunks` (``:302``).  ``--serve`` starts the HTTP server
 (``serving_http``): ``--config``/``--ckpt`` or ``--artifact`` make the
-route named ``default``, each ``--route`` adds one, in either form of
+route named ``default`` (an ``embed`` artifact's route is an embed
+route), each ``--route`` adds one, in either form of
 ``serving_http.parse_route_spec``; ``--batch_window_ms`` > 0 coalesces
 concurrent requests to a route into one device call.  ``--device``
 (default cuda) is where the program runs: an artifact exported for
@@ -142,9 +147,7 @@ def main(argv=None):
     from myconvnet_tpu_torch import serving
 
     kind = serving.artifact_meta(args.artifact)["kind"]
-    mode = ("segment" if args.segment else "translate" if args.translate
-            else "flow" if args.flow else "sample" if args.sample
-            else "classify")
+    mode = _mode(args, kind)
     if kind != mode and not args.latency:
         raise SystemExit(f"{args.artifact} is a {kind!r} artifact; this "
                          f"mode serves {mode!r} ones")
@@ -154,8 +157,16 @@ def main(argv=None):
         return run_latency(fn, art_shape, args)
     run = {"segment": run_segment, "translate": run_translate,
            "flow": run_flow, "sample": run_sample,
-           "classify": run_classify}[mode]
+           "classify": run_classify, "embed": run_embed}[mode]
     return run(fn, art_shape, args)
+
+
+def _mode(args, kind: str) -> str:
+    """The mode the flags name; with none, classify, or embed for an
+    embed artifact (no flag names it)."""
+    return ("segment" if args.segment else "translate" if args.translate
+            else "flow" if args.flow else "sample" if args.sample
+            else "embed" if kind == "embed" else "classify")
 
 
 def _print_latency(stats):
@@ -283,6 +294,27 @@ def run_classify(fn, art_shape, args):
     return out
 
 
+def run_embed(fn, art_shape, args):
+    """Embed the images of ``--images``, normalized on the host as for
+    classify: each file's dimension and norm printed.  Returns [(file
+    name, unit-norm float32 embedding), ...]."""
+    from myconvnet_tpu_torch import recipes, serving
+
+    batch, h, w, nch = art_shape
+    mean, std = recipes.normalization(_config(args), nch)
+    paths = _image_paths(args.images)
+    x = (np.stack([_load(p, h, w, nch) for p in paths]) - mean) / std
+    serve = serving.make_batched_server(fn, batch_sizes=(batch,))
+    emb = np.asarray(_host(serve(x)), np.float32)
+    emb /= np.maximum(np.linalg.norm(emb, axis=-1, keepdims=True), 1e-12)
+    out = []
+    for path, e in zip(paths, emb):
+        print(f"{os.path.basename(path)}: {e.shape[0]}-d embedding, "
+              f"|e| {np.linalg.norm(e):.4f}", flush=True)
+        out.append((os.path.basename(path), e))
+    return out
+
+
 def run_segment(fn, art_shape, args):
     """Segment the images of ``--images`` (raw [0, 1]; the artifact
     normalizes): the five largest classes' coverage and the mean
@@ -405,8 +437,8 @@ def run_server(args, device):
 
     routes = []
     if args.artifact:
-        kind = ("segment" if args.segment else "translate"
-                if args.translate else "flow" if args.flow else "classify")
+        from myconvnet_tpu_torch import serving
+        kind = _mode(args, serving.artifact_meta(args.artifact)["kind"])
         routes.append(serving_http.artifact_route(
             "default", kind, args.artifact, args.config, device=device,
             topk=args.topk))

@@ -29,7 +29,8 @@ mean and std applied inside) and returns (classes int32, max softmax
 float32); translate takes [0, 1] images and returns [0, 1] images,
 clipped; sample takes [N, latent] latents and returns [0, 1] images; flow
 takes raw [0, 1] frame pairs [N, H, W, 6] and returns float32 [N, H, W,
-2].  The in-memory routes (``serving_http``) run the same programs:
+2]; embed (a metric recipe's eval forward) takes normalized rows and
+returns the unit-norm float32 embeddings.  The in-memory routes (``serving_http``) run the same programs:
 :func:`segment_program`, :func:`image_to_image_program` and
 :func:`normalizer` are theirs too.
 
@@ -66,7 +67,9 @@ WIRE = {"classify": "normalized float32 [N, H, W, C] -> float32 logits",
         "sample": "float32 latents [N, D] -> [0, 1] float32 images, "
                   "clipped",
         "flow": "raw [0, 1] float32 frame pairs [N, H, W, 6] -> float32 "
-                "flow [N, H, W, 2]"}
+                "flow [N, H, W, 2]",
+        "embed": "normalized float32 [N, H, W, C] -> unit-norm float32 "
+                 "embeddings [N, D]"}
 
 
 def _prepare(model: nn.Module, params, state, fold_bn: bool,

@@ -1,5 +1,5 @@
-"""HTTP model server on the Python stdlib: classify, segment, translate
-and flow routes, with cross-request micro-batching.
+"""HTTP model server on the Python stdlib: classify, embed, segment,
+translate and flow routes, with cross-request micro-batching.
 
 Port of ``myconvnet_tpu/serving_http.py`` for the route kinds whose models
 the port has:
@@ -10,6 +10,8 @@ the port has:
          body: a JPEG/PNG (Content-Type image/*; needs Pillow), or JSON
          {"instances": [[H,W,C float rows], ...]} in [0, 1]
          classify  -> {"predictions": [[{"label", "prob"} x topk], ...]}
+         embed     -> {"embeddings": [[D floats], ...]}   (unit-norm; a
+                      metric recipe's eval forward, compared by cosine)
          segment   -> {"segmentations": [{"size": [H, W], "rle": [class,
                       run, ...], "coverage": {label: fraction},
                       "mean_conf"}, ...]}   (DeepLabv3+)
@@ -32,11 +34,13 @@ request is first brought to the program's input space: an image body is
 decoded on the host with JAX's geometry (Pillow ``convert``, then a
 BILINEAR ``resize`` to the route's size), kept as uint8 and normalized on
 the route's device by the ``normalize_u8`` kernel (B2), one launch a
-request, with the recipe's mean and std (classify, in-memory segment) or
+request, with the recipe's mean and std (classify, embed, in-memory
+segment) or
 mean = std = 0.5 (in-memory translate: exactly ``x * 2 - 1``), or mean 0
 and std 1 (segment and translate artifacts, which take [0, 1] and
 normalize inside); a JSON body of raw [0, 1] rows is normalized on the
-host for classify (``serving_http.py:373-374``) and inside the program on
+host for classify and embed (``serving_http.py:373-374``, ``:383-392``)
+and inside the program on
 the device for segment and translate, as JAX's artifacts do; flow takes
 its rows raw.  The rows then run through the
 route's fixed batch (:func:`_run_chunked`, tuple outputs sliced member by
@@ -61,10 +65,12 @@ import torch
 from myconvnet_tpu_torch.ops.kernels.normalize_u8 import (device_stats,
                                                           normalize_u8)
 
-KINDS = ("classify", "segment", "translate", "flow")
+KINDS = ("classify", "embed", "segment", "translate", "flow")
 # the recipe task each kind serves
-TASK_OF = {"classify": "classification", "segment": "segmentation",
-           "translate": "gan", "flow": "flow"}
+TASK_OF = {"classify": "classification", "embed": "metric",
+           "segment": "segmentation", "translate": "gan", "flow": "flow"}
+# the kinds whose JSON rows are normalized on the host, as classify's
+HOST_NORMALIZED = ("classify", "embed")
 
 
 @dataclass
@@ -215,6 +221,16 @@ def build_route(name: str, kind: str, config: str | dict, *,
                                        policy=policy)
         mean, std = recipes.normalization(cfg, 3)
         nch = 3
+    elif kind == "embed":
+        # the embedding at the eval crop, as export_metric traces it
+        h, w = (cfg.get("augment") or {}).get("out_hw", cfg["input_hw"])
+        model = models.EMBEDDING_MODELS[cfg["model"]](
+            cfg["num_classes"], input_hw=tuple(cfg["input_hw"]),
+            **cfg.get("model_kwargs", {}))
+        fn = serving.make_inference_fn(model, params, state, device=device,
+                                       policy=policy)
+        mean, std = recipes.normalization(cfg, 3)
+        nch = 3
     elif kind == "segment":
         aug = recipes.make_augment(cfg.get("augment"))
         h, w = aug.out_hw if aug is not None else cfg["input_hw"]
@@ -254,11 +270,11 @@ def artifact_route(name: str, kind: str, artifact: str,
     """A route of kind ``kind`` over an artifact of ``test --export``
     (``serving_http.py:95-150``): its program and fixed batch are the
     artifact's, and no model code is loaded.  ``config`` (optional) gives
-    the class names and, for classify, the normalization (the ImageNet
-    statistics without it, as JAX's ``AugmentConfig`` defaults).  Segment
-    and translate artifacts take raw [0, 1] rows, so an image body goes
-    through B2 with mean 0 and std 1 (``x / 255``); a JSON body reaches
-    the artifact as it came."""
+    the class names and, for classify and embed, the normalization (the
+    ImageNet statistics without it, as JAX's ``AugmentConfig``
+    defaults).  Segment and translate artifacts take raw [0, 1] rows, so
+    an image body goes through B2 with mean 0 and std 1 (``x / 255``); a
+    JSON body reaches the artifact as it came."""
     from myconvnet_tpu_torch import recipes, serving
 
     if kind not in KINDS:
@@ -277,7 +293,7 @@ def artifact_route(name: str, kind: str, artifact: str,
     cfg = recipes.load_config(config) if isinstance(config, str) \
         else config
     mean = std = None
-    if kind == "classify":
+    if kind in HOST_NORMALIZED:
         mean, std = recipes.normalization(cfg, shape[3])
     elif kind in ("segment", "translate"):
         mean = np.zeros(shape[3], np.float32)
@@ -480,11 +496,11 @@ class ModelServer:
         if route is None:
             raise KeyError(name)
         x = self._decode_body(route, body, content_type)
+        if route.kind in HOST_NORMALIZED and x.dtype != np.uint8:
+            x = (x - route.mean) / route.std
         if route.kind == "classify":
             from myconvnet_tpu_torch.eval.evaluators import \
                 decode_predictions
-            if x.dtype != np.uint8:
-                x = (x - route.mean) / route.std
             logits = self._execute(route, x)
             names = route.class_names or [
                 str(i) for i in range(logits.shape[-1])]
@@ -492,6 +508,15 @@ class ModelServer:
             return {"predictions": [
                 [{"label": n, "prob": round(float(p), 6)} for n, p in row]
                 for row in rows]}
+        if route.kind == "embed":
+            # the program's embeddings are unit-norm in its compute dtype;
+            # renormalized in float32 so that a bf16 program's stay
+            # cosine-comparable
+            emb = np.asarray(self._execute(route, x), np.float32)
+            emb /= np.maximum(np.linalg.norm(emb, axis=-1, keepdims=True),
+                              1e-12)
+            return {"embeddings": [[round(float(v), 6) for v in row]
+                                   for row in emb]}
         if route.kind == "segment":
             classes, conf = self._execute(route, x)
             return {"segmentations": [{

@@ -1,5 +1,6 @@
 """Evaluation entry point of the port (classification, segmentation,
-optical-flow, pix2pix and self-supervised recipes).
+optical-flow, metric-learning, pix2pix, self-supervised, semi-supervised
+and distillation recipes).
 
     python -m myconvnet_tpu_torch.test --config configs/cifar100_resnet18.py \\
         --synthetic --ckpt DIR [--batch N] [--best | --average N] [--ema] \\
@@ -42,9 +43,17 @@ JAX ``inception_v3`` tags no ``features`` map) and ``task="diffusion"``
 stay refused by name.  A self-supervised recipe (``task="ssl"``) goes to
 :func:`eval_ssl` (``test.py:350-377``): the kNN probe, then the encoder
 re-exported beside the checkpoint (``--export`` adds nothing there, as in
-JAX).  ``main(argv)`` returns (score, net); for pix2pix (psnr, ssim)
-and the GAN trainer, for ``--fid`` (fid, trainer), for an SSL recipe
-(kNN top-1, trainer), for ``--export`` the artifact's path.
+JAX).  A metric recipe is a ConvNet scored by retrieval Recall@K
+(``recall_k``; ``--report`` adds Recall@1-8 and mAP@R), and ``--export``
+writes its ``embed`` artifact (``export_cli.export_metric``).  A FixMatch
+checkpoint goes to :func:`eval_semisup` (``test.py:507-519``: the EMA
+model's top-1), a distillation checkpoint to :func:`eval_distill`
+(``:522-560``: the student's top-1 from the self-contained checkpoint,
+whatever teacher source the recipe names; ``--export`` then freezes the
+student as a classify artifact).  ``main(argv)`` returns (score, net);
+for pix2pix (psnr, ssim) and the GAN trainer, for ``--fid`` (fid,
+trainer), for an SSL, FixMatch or distillation recipe (its score, the
+trainer), for ``--export`` the artifact's path.
 """
 
 from __future__ import annotations
@@ -124,10 +133,8 @@ def main(argv=None):
         raise SystemExit("test --fid of a diffusion recipe is not ported "
                          "(the diffusion family, ROADMAP A17)")
     task = recipes.check_task(cfg)
-    if task == "gan":
-        return eval_gan(cfg, args, device)
-    if task == "ssl":
-        return eval_ssl(cfg, args, device)
+    if task in TASK_EVAL:
+        return TASK_EVAL[task](cfg, args, device)
     if args.fid:
         raise SystemExit("test --fid scores GAN checkpoints (dcgan, "
                          f"pix2pix), not a {cfg['task']} recipe")
@@ -355,6 +362,48 @@ def eval_ssl(cfg: dict, args, device):
     return knn, trainer
 
 
+def eval_semisup(cfg: dict, args, device):
+    """Score a FixMatch checkpoint: the EMA model's top-1 on the val
+    split (the paper's protocol).  Returns (accuracy, trainer)."""
+    from myconvnet_tpu_torch import recipes_semisup
+
+    trainer, _, val_set = recipes_semisup.build_semisup(
+        cfg, args.synthetic, device=device)
+    trainer.restore(args.ckpt)
+    acc = trainer.evaluate(val_set.eval_iter(cfg["batch_size"], device))
+    print(f"val accuracy (EMA): {acc:.4f}", flush=True)
+    return acc, trainer
+
+
+def eval_distill(cfg: dict, args, device):
+    """Score a distillation checkpoint's student (top-1 on the val
+    split).  The checkpoint holds the teacher, so the recipe's teacher
+    source is neither needed nor read.  ``--export`` then writes the
+    student as a classify artifact at the eval crop.  Returns (accuracy,
+    trainer)."""
+    import numpy as np
+
+    from myconvnet_tpu_torch import recipes, recipes_distill, serving
+
+    dcfg = {k: v for k, v in dict(cfg.get("distill") or {}).items()
+            if k not in recipes_distill.TEACHER_SOURCES}
+    cfg = dict(cfg, distill=dict(dcfg, allow_random=True))
+    trainer, _, val_set = recipes_distill.build_distill(
+        cfg, args.synthetic, device=device)
+    trainer.restore(args.ckpt)
+    acc = trainer.evaluate(val_set.eval_iter(cfg["batch_size"], device))
+    print(f"student val accuracy: {acc:.4f}", flush=True)
+    if args.export:
+        from myconvnet_tpu_torch.export_cli import _report
+        hw = tuple(recipes.make_augment(cfg["augment"]).out_hw)
+        sample = np.zeros((cfg.get("export_batch", 8), *hw, 3), np.float32)
+        size = serving.export_inference(trainer.model, None, None, sample,
+                                        args.export, device=device,
+                                        policy=trainer.policy)
+        _report("student", args.export, size, f"input {sample.shape}")
+    return acc, trainer
+
+
 def eval_gan(cfg: dict, args, device):
     """``--export``: ``export_cli.export_gan``.  ``--fid``:
     :func:`eval_gan_fid`.  pix2pix: restore ``--ckpt`` and
@@ -391,6 +440,12 @@ def eval_gan(cfg: dict, args, device):
     print(f"psnr: {psnr:.2f} dB", flush=True)
     print(f"ssim: {ssim:.4f}", flush=True)
     return (psnr, ssim), trainer
+
+
+# task -> its eval function (``test.py:729-737``, the tasks the port has);
+# the ConvNet tasks go to eval_convnet
+TASK_EVAL = {"gan": eval_gan, "ssl": eval_ssl, "semisup": eval_semisup,
+             "distill": eval_distill}
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
 """Training entry point of the port (classification, segmentation,
-optical-flow, GAN and self-supervised recipes).
+optical-flow, metric-learning, GAN, self-supervised, semi-supervised and
+distillation recipes).
 
     python -m myconvnet_tpu_torch.train --config configs/cifar100_resnet18.py \\
         --synthetic --steps N --out DIR [--batch N] [--val_every N] \\
@@ -17,15 +18,20 @@ crash restarts from the newest checkpoint up to ``--max_restarts`` times
 (``train.py:124-138``); ``MYCONVNET_FAULT_ONCE`` injects one crash after
 training, to test that path.  A GAN recipe (``task="gan"``) goes to
 :func:`run_gan`, the port of ``run_steploop`` with ``adapt_gan``
-(``train.py:216``, ``:450``), a self-supervised one (``task="ssl"``) to
-:func:`run_ssl` (``adapt_ssl``, ``train.py:358-383``).  ``--tensorboard``
+(``train.py:216``, ``:450``); a self-supervised (``task="ssl"``), FixMatch
+(``task="semisup"``) or distillation (``task="distill"``) one to
+:func:`run_steploop` (``train.py:216-327``) through :func:`adapt_ssl`,
+:func:`adapt_semisup` or :func:`adapt_distill` (``:358-404``); a
+metric-learning recipe (``task="metric"``) is a ConvNet run.  A recipe
+with a ``pipeline`` block (GPipe, ``train.py:112-122``) is refused by
+name (ROADMAP A16).  ``--tensorboard``
 logs to a ``SummaryWriter`` under ``--out/tb`` where the ``tensorboard``
 package imports, and says so and trains without one where it does not
 (the card's machine); ``--mesh`` is refused by name (ROADMAP A16).
 ``--device`` defaults to ``cuda``; without CUDA that is an error (pass
 ``--device cpu`` to train on the host).  ``main(argv)`` returns the
 ``ConvNet`` (its ``trainer`` holds the step, the model and the
-optimizer), or the GAN or SSL trainer.
+optimizer), or the GAN, SSL, FixMatch or distillation trainer.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import time
 
 import torch
 
@@ -109,8 +116,12 @@ def main(argv=None):
     task = recipes.check_task(cfg)
     if task == "gan":
         return run_gan(cfg, args.synthetic, out, device)
-    if task == "ssl":
-        return run_ssl(cfg, args, out, device)
+    if task in STEPLOOP_ADAPTERS:
+        return run_steploop(cfg, args, out, device, STEPLOOP_ADAPTERS[task])
+    try:
+        recipes.refuse_pipeline(cfg)
+    except ValueError as e:
+        raise SystemExit(f"train: {e}") from e
     attempts = 0
     while True:
         try:
@@ -239,48 +250,145 @@ def knn_kwargs(cfg: dict) -> dict:
                 max_query=cfg.get("knn_query", 2048))
 
 
-def run_ssl(cfg: dict, args, out: str, device: torch.device):
-    """A self-supervised recipe's step loop (``adapt_ssl`` under
-    ``run_steploop``): ``--resume`` from the newest checkpoint, a log line
-    and a checkpoint every ``log_every`` steps, the kNN probe every
-    ``val_every`` steps (``best.npz`` when it improves), the final
-    checkpoint and probe, then ``<out>/encoder.npz``.  Returns the
+def run_steploop(cfg: dict, args, out: str, device: torch.device,
+                 adapter):
+    """The step loop of a fused-step family (``train.py:216-327``):
+    ``adapter(cfg, args, out, device)`` gives the spec (``name``, ``trainer``
+    with ``step``, ``train_step(*batch)``, ``save`` and ``restore``,
+    ``make_iter`` of batches of device tensors, optional ``validate``
+    returning (metric name, score), ``display`` names for the printed
+    metric and ``finalize`` run after the final validation); ``--resume``
+    from the newest checkpoint, the metrics (with the uint8 images a
+    second) and a checkpoint every ``log_every`` steps (the newest two
+    kept), the validation every ``val_every`` steps (``best.npz`` when it
+    improves), the final checkpoint and validation.  Returns the
     trainer."""
-    from myconvnet_tpu_torch import recipes_ssl
     from myconvnet_tpu_torch.ckpt import checkpoint as ckpt_lib
     from myconvnet_tpu_torch.utils.logging import MetricLogger
     from myconvnet_tpu_torch.utils.preemption import PreemptionGuard
 
-    trainer, train_set, val_set = recipes_ssl.build_ssl(
-        cfg, args.synthetic, device=device)
-    name = f"ssl_{trainer.kind}"
+    spec = adapter(cfg, args, out, device)
+    trainer, name = spec["trainer"], spec["name"]
     if args.resume and ckpt_lib.latest_checkpoint(out):
         trainer.restore(out)
         print(f"resumed {name} from step {trainer.step}", flush=True)
-    batch = cfg["batch_size"]
-
-    def validate():
-        return trainer.knn(train_set.eval_iter(batch, device),
-                           val_set.eval_iter(batch, device),
-                           **knn_kwargs(cfg))
-
+    log_every = cfg.get("log_every", 100)
+    val_every = cfg.get("val_every", 0)
+    validate = spec.get("validate")
+    display = spec.get("display", {})
+    best = None
     logger = MetricLogger(out, name=name)
     with PreemptionGuard() as guard:
-        best = trainer.fit(train_set.train_iter(batch, device),
-                           total_steps=cfg["total_steps"],
-                           log_every=cfg.get("log_every", 100),
-                           logger=logger, ckpt_dir=out,
-                           val_every=cfg.get("val_every", 0),
-                           validate=validate, guard=guard)
-        score = validate()
-        top = best if best is not None and best > score else score
-        extra = f" (best {top:.4f})" if best is not None else ""
-        print(f"final kNN top-1: {score:.4f}{extra}", flush=True)
-        enc = trainer.export_encoder(os.path.join(out, "encoder.npz"))
-        print(f"encoder exported: {enc}", flush=True)
+        it = spec["make_iter"]()
+        t0, window = time.perf_counter(), 0
+        try:
+            while trainer.step < cfg["total_steps"]:
+                if guard.preempted:
+                    logger.log(trainer.step, {"preempted": 1.0})
+                    break
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    break
+                metrics = trainer.train_step(*batch)
+                window += sum(len(b) for b in batch
+                              if b.dtype == torch.uint8)
+                if trainer.step % log_every == 0:
+                    host = {k: float(v) for k, v in metrics.items()}
+                    host["images_per_sec"] = window / (time.perf_counter()
+                                                       - t0)
+                    logger.log(trainer.step, host)
+                    trainer.save(out)
+                    t0, window = time.perf_counter(), 0
+                if validate is not None and val_every \
+                        and trainer.step % val_every == 0:
+                    key, score = validate()
+                    logger.log(trainer.step, {key: score})
+                    print(f"step {trainer.step}: {display.get(key, key)} "
+                          f"{score:.4f}", flush=True)
+                    if best is None or score > best:
+                        best = score
+                        trainer.save(out, metric=score, is_best=True)
+        finally:
+            if hasattr(it, "close"):
+                it.close()
+        trainer.save(out)
+        if validate is not None:
+            key, score = validate()
+            top = best if best is not None and best > score else score
+            extra = f" (best {top:.4f})" if best is not None else ""
+            print(f"final {display.get(key, key)}: {score:.4f}{extra}",
+                  flush=True)
+        if spec.get("finalize") is not None:
+            spec["finalize"]()
     logger.close()
     print(f"{name} training done at step {trainer.step}", flush=True)
     return trainer
+
+
+def adapt_ssl(cfg: dict, args, out: str, device: torch.device) -> dict:
+    """A self-supervised recipe's spec (``train.py:358-383``): the train
+    split's images (the labels reach only the probe), the kNN probe as
+    ``knn_top1``, then ``<out>/encoder.npz``."""
+    from myconvnet_tpu_torch import recipes_ssl
+
+    trainer, train_set, val_set = recipes_ssl.build_ssl(
+        cfg, args.synthetic, device=device)
+    batch = cfg["batch_size"]
+
+    def images():
+        it = train_set.train_iter(batch, device)
+        try:
+            for x, _ in it:
+                yield (x,)
+        finally:
+            it.close()
+
+    def finalize():
+        enc = trainer.export_encoder(os.path.join(out, "encoder.npz"))
+        print(f"encoder exported: {enc}", flush=True)
+
+    return dict(name=f"ssl_{trainer.kind}", trainer=trainer,
+                make_iter=images, display={"knn_top1": "kNN top-1"},
+                validate=lambda: ("knn_top1", trainer.knn(
+                    train_set.eval_iter(batch, device),
+                    val_set.eval_iter(batch, device), **knn_kwargs(cfg))),
+                finalize=finalize)
+
+
+def adapt_semisup(cfg: dict, args, out: str, device: torch.device) -> dict:
+    """FixMatch's spec (``train.py:386-393``): the zipped labeled and
+    unlabeled batches, the EMA top-1 as ``val_acc``."""
+    from myconvnet_tpu_torch import recipes_semisup
+
+    trainer, batches, val_set = recipes_semisup.build_semisup(
+        cfg, args.synthetic, device=device)
+    eval_batch = cfg.get("eval_batch", cfg["batch_size"])
+    return dict(name="semisup_fixmatch", trainer=trainer,
+                make_iter=batches,
+                validate=lambda: ("val_acc", trainer.evaluate(
+                    val_set.eval_iter(eval_batch, device))))
+
+
+def adapt_distill(cfg: dict, args, out: str, device: torch.device) -> dict:
+    """Distillation's spec (``train.py:396-404``): the train split's
+    batches, the student's top-1 as ``val_acc``."""
+    from myconvnet_tpu_torch import recipes_distill
+
+    trainer, train_set, val_set = recipes_distill.build_distill(
+        cfg, args.synthetic, device=device)
+    eval_batch = cfg.get("eval_batch", cfg["batch_size"])
+    return dict(name="distill", trainer=trainer,
+                make_iter=lambda: train_set.train_iter(cfg["batch_size"],
+                                                       device),
+                validate=lambda: ("val_acc", trainer.evaluate(
+                    val_set.eval_iter(eval_batch, device))))
+
+
+# task -> its run_steploop adapter (``train.py:476-484``, the tasks the
+# port has)
+STEPLOOP_ADAPTERS = {"ssl": adapt_ssl, "semisup": adapt_semisup,
+                     "distill": adapt_distill}
 
 
 if __name__ == "__main__":

@@ -9,9 +9,9 @@ Port of ``myconvnet_tpu/train/ssl.py`` and of ``adapt_ssl`` under
 * :class:`SSLTrainer`: the MAE step (``:54-85``: one view, forward,
   backward, update) and the SimCLR step (``:113-145``: two views of the
   batch concatenated into one [2N] batch, so that train-mode BN sees
-  both), the step loop with its logs, probes and checkpoints, and the
-  checkpoint in JAX's ``TrainState`` layout (either package restores the
-  other's);
+  both), and the checkpoint in JAX's ``TrainState`` layout (either
+  package restores the other's); ``train/cli.run_steploop`` drives it,
+  as JAX's ``run_steploop`` drives ``adapt_ssl``;
 * :func:`export_encoder_npz` (``:151-173``): the flat ``scope::name``
   file of the encoder, with JAX's exclusions, that ``pretrained=dict(
   path=...)`` warm-starts a ViT (or any classifier) from;
@@ -28,7 +28,6 @@ over JAX's.
 
 from __future__ import annotations
 
-import time
 from typing import Callable, Iterable, NamedTuple
 
 import numpy as np
@@ -39,11 +38,10 @@ from torch import nn
 from myconvnet_tpu_torch import weights
 from myconvnet_tpu_torch.ckpt import checkpoint as ckpt_lib
 from myconvnet_tpu_torch.core.precision import Policy
-from myconvnet_tpu_torch.train.trainer import TrainState, rng_data, seed_of
-from myconvnet_tpu_torch.utils.logging import MetricLogger
+from myconvnet_tpu_torch.train.trainer import (KEEP, TrainState, rng_data,
+                                              seed_of)
 
 KINDS = ("mae", "simclr")
-KEEP = 2    # checkpoints kept, as the JAX step loop keeps them
 # the encoder export's excluded top-level scopes (``ssl.py:151-153``)
 ENCODER_EXCLUDE = ("decoder", "projector", "logits", "head", "fc1", "fc2")
 
@@ -254,59 +252,6 @@ class SSLTrainer:
     def knn(self, bank_iter: Iterable, query_iter: Iterable, **kw) -> float:
         """:func:`knn_eval` of :meth:`embed`."""
         return knn_eval(self.embed, bank_iter, query_iter, **kw)
-
-    # ----------------------------------------------------------- running
-
-    def fit(self, batches: Iterable, *, total_steps: int, log_every: int,
-            logger: MetricLogger, ckpt_dir: str | None = None,
-            val_every: int = 0,
-            validate: Callable[[], float] | None = None,
-            guard=None) -> float | None:
-        """The step loop of ``run_steploop``: a step a batch (labels
-        dropped) until ``total_steps``; every ``log_every`` steps the
-        metrics and a checkpoint (the newest KEEP kept); every
-        ``val_every`` steps ``validate()`` (the kNN top-1), logged and
-        printed, ``best.npz`` when it improves; then the final checkpoint.
-        Returns the best score."""
-        best = None
-        it = iter(batches)
-        t0, window = time.perf_counter(), 0
-        try:
-            while self.step < total_steps:
-                if guard is not None and guard.preempted:
-                    logger.log(self.step, {"preempted": 1.0})
-                    break
-                try:
-                    x = next(it)
-                except StopIteration:
-                    break
-                x = x[0] if isinstance(x, (tuple, list)) else x
-                metrics = self.train_step(x)
-                window += int(x.shape[0])
-                if self.step % log_every == 0:
-                    host = {k: float(v) for k, v in metrics.items()}
-                    host["images_per_sec"] = window / (time.perf_counter()
-                                                       - t0)
-                    logger.log(self.step, host)
-                    if ckpt_dir:
-                        self.save(ckpt_dir)
-                    t0, window = time.perf_counter(), 0
-                if validate is not None and val_every \
-                        and self.step % val_every == 0:
-                    score = validate()
-                    logger.log(self.step, {"knn_top1": score})
-                    print(f"step {self.step}: kNN top-1 {score:.4f}",
-                          flush=True)
-                    if best is None or score > best:
-                        best = score
-                        if ckpt_dir:
-                            self.save(ckpt_dir, metric=score, is_best=True)
-        finally:
-            if hasattr(it, "close"):
-                it.close()
-        if ckpt_dir:
-            self.save(ckpt_dir)
-        return best
 
     # ------------------------------------------------------ checkpoints
 

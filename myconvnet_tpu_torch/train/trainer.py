@@ -65,6 +65,11 @@ from myconvnet_tpu_torch.train import optim
 from myconvnet_tpu_torch.utils.logging import MetricLogger
 
 
+# checkpoints the task trainers (self-supervised, distillation, FixMatch)
+# keep, as the JAX step loop keeps them
+KEEP = 2
+
+
 class TrainState(NamedTuple):
     """The full training state as numpy trees in the JAX layout: the
     checkpoint unit."""
@@ -88,6 +93,22 @@ def seed_of(rng) -> int:
     """The seed a checkpoint's ``rng`` holds (:func:`rng_data`)."""
     v = [int(x) for x in np.asarray(rng).reshape(-1)]
     return v[0] if len(v) == 1 else (v[0] << 32) | v[1]
+
+
+def top1(predict, batches: Iterable) -> float:
+    """The share of labels ``predict`` (uint8 batch -> classes) gets right
+    over (uint8, labels) batches, a short tail included as it comes."""
+    correct = total = 0
+    try:
+        for x, y in batches:
+            pred = predict(x).cpu().numpy()
+            y = y.cpu().numpy()
+            correct += int((pred[:len(y)] == y).sum())
+            total += len(y)
+    finally:
+        if hasattr(batches, "close"):
+            batches.close()
+    return correct / max(total, 1)
 
 
 @contextlib.contextmanager

@@ -29,7 +29,11 @@ by name:
 
 :func:`load_jax_checkpoint` reads the ``.npz`` the JAX trainer writes
 (``ckpt/checkpoint.py``): keys ``params::<scope>::<name>`` and
-``model_state::<scope>::<name>``.
+``model_state::<scope>::<name>``, or any other pair of trees (a
+distillation checkpoint's teacher and student, a FixMatch checkpoint's
+EMA).  An ``embedding_net`` carries JAX's scopes: the backbone's under
+``backbone/``, the margin head's class weights as ``margin_head/w``
+(``[D, C]``, a parameter of its own).
 """
 
 from __future__ import annotations
@@ -300,7 +304,10 @@ def load_jax_checkpoint(path: str, fields=("params", "model_state")
     """(params, model_state) from a JAX ``.npz`` checkpoint, or from the
     newest ``ckpt-<step>.npz`` when ``path`` is a directory; ``fields``
     names the two trees (a GAN checkpoint's generator: ``("g_params",
-    "g_state")``)."""
+    "g_state")``; a distillation checkpoint's teacher ``("teacher_params",
+    "teacher_state")`` or student ``("student::.params",
+    "student::.model_state")``, a NamedTuple field in JAX's key path; a
+    FixMatch checkpoint's EMA ``("ema_params", "ema_model_state")``)."""
     if os.path.isdir(path):
         found = latest_checkpoint(path)
         if found is None:
@@ -309,10 +316,10 @@ def load_jax_checkpoint(path: str, fields=("params", "model_state")
     trees = {f: {} for f in fields}
     with np.load(path) as data:
         for key in data.files:
-            parts = key.split(SEP)
-            if len(parts) == 3 and parts[0] in trees:
-                trees[parts[0]].setdefault(parts[1], {})[parts[2]] = \
-                    data[key]
+            field, _, rest = key.rpartition(SEP)
+            field, _, scope = field.rpartition(SEP)
+            if field in trees and scope:
+                trees[field].setdefault(scope, {})[rest] = data[key]
     if not trees[fields[0]]:
         raise ValueError(f"{path!r} holds no {fields[0]}::<scope>::<name> "
                          "keys")

@@ -26,6 +26,14 @@ from myconvnet_tpu_torch.ops.kernels import flash_attention as tfa
 jfa = importlib.import_module("myconvnet_tpu.ops.pallas.flash_attention")
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    """Each test runs at this module's thread count (1), whatever module
+    was imported last: a float32 reduction's order follows the threads."""
+    torch.set_num_threads(1)
+
+
 # L % block != 0 (block_q 32 on the JAX side, 64-row tiles on the card)
 # and ViT-B/16's length at 224
 CASES = [(2, 3, 64, 32), (1, 2, 100, 16), (1, 2, 197, 64)]

@@ -36,6 +36,14 @@ from myconvnet_tpu_torch.subsets import cifar10, mnist, svhn
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    """Each test runs at this module's thread count (1), whatever module
+    was imported last: a float32 reduction's order follows the threads."""
+    torch.set_num_threads(1)
+
+
 CONFIGS = os.path.join(os.path.dirname(__file__), "..", "configs")
 SUBSETS = {"cifar10": (cifar10, jcifar10), "svhn": (svhn, jsvhn),
            "mnist": (mnist, jmnist)}

@@ -22,6 +22,14 @@ from myconvnet_tpu_torch import train as train_entry
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    """Each test runs at this module's thread count (1), whatever module
+    was imported last: a float32 reduction's order follows the threads."""
+    torch.set_num_threads(1)
+
+
 CONFIGS = os.path.join(os.path.dirname(__file__), "..", "configs")
 IMAGENET_32 = ["input_hw=[32,32]", "augment.out_hw=[32,32]",
                "raw_hw=[40,40]"]

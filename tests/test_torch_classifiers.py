@@ -39,6 +39,14 @@ from myconvnet_tpu_torch.train import losses
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    """Each test runs at this module's thread count (1), whatever module
+    was imported last: a float32 reduction's order follows the threads."""
+    torch.set_num_threads(1)
+
+
 HW, BATCH, CLASSES = 32, 2, 10
 # name: (JAX function, port name, kwargs of both)
 MODELS = {

@@ -36,6 +36,14 @@ from test_torch_train import (CLASSES, HW, WIDTH, _net, _np_tree,
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    """Each test runs at this module's thread count (1), whatever module
+    was imported last: a float32 reduction's order follows the threads."""
+    torch.set_num_threads(1)
+
+
 AUG = dict(out_hw=(16, 16), area_range=None, flip=False)
 
 

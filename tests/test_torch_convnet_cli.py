@@ -32,6 +32,14 @@ from myconvnet_tpu_torch.utils.preemption import PreemptionGuard
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    """Each test runs at this module's thread count (1), whatever module
+    was imported last: a float32 reduction's order follows the threads."""
+    torch.set_num_threads(1)
+
+
 CONFIG = os.path.join(os.path.dirname(__file__), "..", "configs",
                       "cifar10_smallnet.py")
 TINY = ["--set", "model_kwargs.width=4", "--set", "synthetic_n=64",

@@ -27,6 +27,13 @@ from myconvnet_tpu_torch.subsets import cifar100 as tcifar100
 torch.set_num_threads(1)
 
 
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    """Each test runs at this module's thread count (1), whatever module
+    was imported last: a float32 reduction's order follows the threads."""
+    torch.set_num_threads(1)
+
+
 @pytest.mark.parametrize("split", ["train", "test"])
 def test_synthetic_subset_equals_jax(split):
     port = tcifar100.make_source(None, split, synthetic=True, synthetic_n=96)

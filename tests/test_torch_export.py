@@ -68,6 +68,14 @@ from myconvnet_tpu_torch.weights import random_jax_params
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 torch.set_num_threads(2)
 
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    """Each test runs at this module's thread count (2), whatever module
+    was imported last: a float32 reduction's order follows the threads."""
+    torch.set_num_threads(2)
+
+
 CLASSES, BATCH = 10, 2
 # (hw of the wire rows) and the configs the routes read
 R50_KW, R50_HW = dict(width=16), 32

@@ -45,6 +45,14 @@ from myconvnet_tpu_torch.train.trainer import StepDraws, TrainState
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    """Each test runs at this module's thread count (1), whatever module
+    was imported last: a float32 reduction's order follows the threads."""
+    torch.set_num_threads(1)
+
+
 CONFIGS = os.path.join(os.path.dirname(__file__), "..", "configs")
 PWC_CONFIG = os.path.join(CONFIGS, "chairs_pwcnet.py")
 TINY = ["model=tinypwc", "input_hw=[32,32]", "synthetic_n=16"]

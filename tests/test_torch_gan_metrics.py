@@ -34,6 +34,14 @@ from myconvnet_tpu_torch.utils.images import to_uint8
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    """Each test runs at this module's thread count (1), whatever module
+    was imported last: a float32 reduction's order follows the threads."""
+    torch.set_num_threads(1)
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # relative FID gap, port against JAX, at N < D and at N > D
 FID_RTOL = {"n_below_d": 2e-4, "n_above_d": 5e-5}

@@ -35,6 +35,14 @@ from myconvnet_tpu_torch.train.gan import GANDraws, GANState
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    """Each test runs at this module's thread count (1), whatever module
+    was imported last: a float32 reduction's order follows the threads."""
+    torch.set_num_threads(1)
+
+
 CONFIGS = os.path.join(os.path.dirname(__file__), "..", "configs")
 DCGAN = os.path.join(CONFIGS, "dcgan_cifar10.py")
 PIX2PIX = os.path.join(CONFIGS, "pix2pix.py")

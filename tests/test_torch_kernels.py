@@ -40,6 +40,14 @@ from myconvnet_tpu_torch.ops.kernels import (affine, bn_act, conv_fused,
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    """Each test runs at this module's thread count (1), whatever module
+    was imported last: a float32 reduction's order follows the threads."""
+    torch.set_num_threads(1)
+
+
 ACTS = ["none", "relu", "relu6", "leaky_relu"]
 # the same float32 x*a+b on both sides, possibly fused into one FMA by
 # XLA: 1 float32 ulp, or 1 bf16 ulp (2**-8 relative) after rounding

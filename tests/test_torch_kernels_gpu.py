@@ -174,7 +174,13 @@ PAIR_SITES = [(8, 56, 56, 64, 64, 64), (8, 56, 56, 256, 64, 64),
     (2, 129, 129, 64, 64, 64), (2, 129, 129, 256, 64, 64),
     (2, 65, 65, 512, 128, 128), (2, 33, 33, 1024, 256, 256),
     (16, 129, 129, 256, 64, 64), (16, 33, 33, 1024, 256, 256),
-    (1, 96, 96, 256, 64, 64), (1, 24, 24, 1024, 256, 256)])
+    (1, 96, 96, 256, 64, 64), (1, 24, 24, 1024, 256, 256)] + [
+    # the ArcFace ResNet-50 embedding at 112 x 112 (maps of 28², 14², 7²
+    # and 4², where the SAME halo covers most of a tile), served at 8 and
+    # at the recipe's eval batch of 512
+    (n, hw, hw, cin, cm, cm) for n in (8, 512) for hw, cin, cm in (
+        (28, 64, 64), (28, 256, 64), (14, 512, 128), (7, 1024, 256),
+        (4, 2048, 512))])
 def test_conv_pair_kernel_matches_plain(cuda, shape):
     args = _pair_args(shape, cuda)
     before = conv_pair.conv1x1_conv3x3_bn_relu.launches

@@ -24,6 +24,14 @@ from myconvnet_tpu_torch.ops.conv import same_pads
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    """Each test runs at this module's thread count (1), whatever module
+    was imported last: a float32 reduction's order follows the threads."""
+    torch.set_num_threads(1)
+
+
 # float32 sums of up to 7*7*6 products taken in another order
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -34,6 +34,14 @@ from test_torch_train import (BATCH, CLASSES, HW, _assert_trees_close, _net,
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    """Each test runs at this module's thread count (1), whatever module
+    was imported last: a float32 reduction's order follows the threads."""
+    torch.set_num_threads(1)
+
+
 BASE = dict(name="momentum", momentum_coef=0.9, nesterov=True,
             weight_decay=5e-4, wd_exclude_norms=True,
             lr=dict(kind="cosine", lr=0.1, total_steps=10))

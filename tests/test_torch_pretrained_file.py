@@ -29,6 +29,14 @@ from test_pretrained_torch_file import _Basic, _Bottleneck, \
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    """Each test runs at this module's thread count (2), whatever module
+    was imported last: a float32 reduction's order follows the threads."""
+    torch.set_num_threads(2)
+
+
 CONFIGS = os.path.join(os.path.dirname(__file__), "..", "configs")
 NETS = {18: (_Basic, [2, 2, 2, 2]), 50: (_Bottleneck, [3, 4, 6, 3]),
         101: (_Bottleneck, [3, 4, 23, 3])}

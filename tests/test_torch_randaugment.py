@@ -32,6 +32,14 @@ from myconvnet_tpu_torch.ops.kernels import launch_counts, \
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    """Each test runs at this module's thread count (1), whatever module
+    was imported last: a float32 reduction's order follows the threads."""
+    torch.set_num_threads(1)
+
+
 TOL = dict(rtol=0, atol=1e-6)
 EXACT = {"equalize", "posterize"}
 # |m| in {0, 0.3, 1}, one image each

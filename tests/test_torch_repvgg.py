@@ -41,6 +41,14 @@ from test_torch_zoo import (HW, NEW_NAMES, check_builds, check_eval,
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    """Each test runs at this module's thread count (1), whatever module
+    was imported last: a float32 reduction's order follows the threads."""
+    torch.set_num_threads(1)
+
+
 # the JAX package's ``models.repvgg`` is shadowed by the function of that
 # name in its ``__init__``
 jrepvgg = importlib.import_module("myconvnet_tpu.models.repvgg")

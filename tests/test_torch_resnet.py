@@ -25,6 +25,14 @@ from myconvnet_tpu_torch.models.resnet import Bottleneck
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    """Each test runs at this module's thread count (1), whatever module
+    was imported last: a float32 reduction's order follows the threads."""
+    torch.set_num_threads(1)
+
+
 WIDTH, HW, BATCH, CLASSES = 8, 32, 2, 10
 
 

@@ -55,6 +55,14 @@ from test_torch_zoo import (assert_trees_close, grad_tree, leaf_gap,
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    """Each test runs at this module's thread count (1), whatever module
+    was imported last: a float32 reduction's order follows the threads."""
+    torch.set_num_threads(1)
+
+
 CLASSES = 21
 # case: (registry name, kwargs of both packages, input size, weight seed)
 SEG = {

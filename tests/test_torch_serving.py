@@ -28,6 +28,14 @@ from myconvnet_tpu_torch.core.precision import BF16
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    """Each test runs at this module's thread count (1), whatever module
+    was imported last: a float32 reduction's order follows the threads."""
+    torch.set_num_threads(1)
+
+
 HW, CLASSES, BATCH = 32, 10, 4
 CFG = dict(model="resnet50", model_kwargs=dict(width=8),
            num_classes=CLASSES, input_hw=(HW, HW), precision="f32",

@@ -44,6 +44,14 @@ from myconvnet_tpu_torch.weights import random_jax_params
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    """Each test runs at this module's thread count (2), whatever module
+    was imported last: a float32 reduction's order follows the threads."""
+    torch.set_num_threads(2)
+
+
 HW, BATCH = 64, 2
 SEG_KW = dict(backbone_depth=18, aspp_features=32, decoder_low_features=8)
 SEG_CFG = dict(task="segmentation", model="deeplab_v3_plus",

@@ -35,6 +35,14 @@ from myconvnet_tpu_torch.train.trainer import frozen_stats
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    """Each test runs at this module's thread count (1), whatever module
+    was imported last: a float32 reduction's order follows the threads."""
+    torch.set_num_threads(1)
+
+
 CONFIGS = os.path.join(os.path.dirname(__file__), "..", "configs")
 SNGAN = os.path.join(CONFIGS, "sngan_cifar10.py")
 BATCH = 4

@@ -43,6 +43,14 @@ from myconvnet_tpu_torch.train.ssl import SSLDraws
 jmae = importlib.import_module("myconvnet_tpu.models.mae")
 torch.set_num_threads(2)
 
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    """Each test runs at this module's thread count (2), whatever module
+    was imported last: a float32 reduction's order follows the threads."""
+    torch.set_num_threads(2)
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MAE_CONFIG = os.path.join(ROOT, "configs", "cifar10_mae.py")
 SIMCLR_CONFIG = os.path.join(ROOT, "configs", "cifar10_simclr.py")

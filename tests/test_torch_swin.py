@@ -42,6 +42,14 @@ jswin = importlib.import_module("myconvnet_tpu.models.swin")
 tswin = importlib.import_module("myconvnet_tpu_torch.models.swin")
 torch.set_num_threads(2)
 
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    """Each test runs at this module's thread count (2), whatever module
+    was imported last: a float32 reduction's order follows the threads."""
+    torch.set_num_threads(2)
+
+
 CLASSES, HW = 10, 32
 TEST2 = (16, (2, 2), (2, 2), 4)
 # the Swin-T recipe's optimizer with a schedule short enough that three

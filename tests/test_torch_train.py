@@ -52,6 +52,14 @@ from test_torch_data import jax_mix_draws
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    """Each test runs at this module's thread count (1), whatever module
+    was imported last: a float32 reduction's order follows the threads."""
+    torch.set_num_threads(1)
+
+
 WIDTH, HW, BATCH, CLASSES = 8, 32, 8, 10
 CONFIG = os.path.join(os.path.dirname(__file__), "..", "configs",
                       "cifar100_resnet18.py")
@@ -589,6 +597,13 @@ for _task, _config in (("classification", None), ("flow", FLOW_CONFIG)):
         RECIPE_KEYS.append(("pretrained", _value,
                             _form == "path" or _task == "flow", _config))
         RECIPE_IDS.append(f"pretrained-{_form}-{_task}")
+# a ``pipeline`` block (JAX trains configs/cifar10_vgg16_pp.py as a staged
+# VGG over a GPipe mesh, train.py:112-122): refused by name, where the port
+# would otherwise train its BN VGG-16 instead
+PP_CONFIG = os.path.join(os.path.dirname(CONFIG), "cifar10_vgg16_pp.py")
+RECIPE_KEYS.append(("pipeline", dict(stages=2, microbatches=4), True,
+                    PP_CONFIG))
+RECIPE_IDS.append("pipeline")
 
 
 def _torchvision_file(path, model):
@@ -630,9 +645,11 @@ def _torchvision_file(path, model):
 def test_recipe_keys_are_refused_by_name_or_inert(key, value, refused,
                                                   config, tmp_path):
     cfg = recipes.load_config(config or CONFIG)
-    if config:   # the flow recipe at a tiny size
+    if config == FLOW_CONFIG:   # the flow recipe at a tiny size
         cfg.update(model="tinypwc", model_kwargs={}, synthetic_n=4,
                    input_hw=(32, 32))
+    elif config == PP_CONFIG:   # refused before any model is built
+        assert cfg["pipeline"]
     else:
         cfg["model_kwargs"] = {**cfg.get("model_kwargs", {}),
                                "width": WIDTH}
@@ -663,3 +680,12 @@ def test_recipe_keys_are_refused_by_name_or_inert(key, value, refused,
         trainer, _, _ = recipes.build_trainer(
             cfg, True, device=torch.device("cpu"))
         assert trainer.step == 0
+
+
+def test_train_cli_refuses_a_pipeline_recipe(tmp_path):
+    """``python -m myconvnet_tpu_torch.train`` on the GPipe recipe exits
+    naming the key and ROADMAP A16, before any model is built."""
+    with pytest.raises(SystemExit, match="'pipeline'.*ROADMAP A16"):
+        train_entry.main(["--config", PP_CONFIG, "--synthetic", "--steps",
+                          "1", "--device", "cpu", "--out",
+                          str(tmp_path / "pp")])

@@ -37,6 +37,14 @@ from myconvnet_tpu_torch.train.trainer import Trainer, TrainState
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    """Each test runs at this module's thread count (1), whatever module
+    was imported last: a float32 reduction's order follows the threads."""
+    torch.set_num_threads(1)
+
+
 CLASSES, HW, BATCH = 10, 8, 8
 CONFIG = os.path.join(os.path.dirname(__file__), "..", "configs",
                       "imagenet_vit_b16.py")

@@ -35,6 +35,14 @@ jvit = importlib.import_module("myconvnet_tpu.models.vit")
 tvit = importlib.import_module("myconvnet_tpu_torch.models.vit")
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    """Each test runs at this module's thread count (1), whatever module
+    was imported last: a float32 reduction's order follows the threads."""
+    torch.set_num_threads(1)
+
+
 CLASSES = 10
 DIM64 = (4, 64, 2, 4, 128)   # patch, dim, depth, heads, mlp_dim
 MODELS = {"tinyvit": ("test", 8), "dim64": ("dim64", 16)}

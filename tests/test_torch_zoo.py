@@ -64,6 +64,14 @@ from myconvnet_tpu_torch.train import losses, optim
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    """Each test runs at this module's thread count (1), whatever module
+    was imported last: a float32 reduction's order follows the threads."""
+    torch.set_num_threads(1)
+
+
 HW, CLASSES = 32, 10
 # test name: (registry name in both packages, kwargs of both, the seed
 # of its weights, the train step's batch)
