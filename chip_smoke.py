@@ -268,11 +268,14 @@
     over the same features, within FID_RTOL of the host's (path
     ``sngan_fid``).
 23. Export (``export_run``): each task kind the port exports, at full
-    width from the recipe as written (weights from its seed, synthetic
-    splits cut to a few items): ResNet-50, ViT-B/16 and Swin-T (classify,
+    width from the recipe as written (weights from its seed and a few
+    steps of its family phase's run, synthetic splits cut to a few
+    items): ResNet-50, ViT-B/16 and Swin-T (classify,
     batch 8; Swin-T's graph holds no mcn:: op), DeepLabv3+ at 513 x 513
     (segment, from a VOCdevkit corpus of the fixtures, batch 4), pix2pix (translate, 4), DCGAN (sample, 4) and
-    PWC-Net (flow, 4).  Each: a checkpoint, ``test.main --export`` (no
+    PWC-Net (flow, 4).  Each: the checkpoint of its family phase's
+    ``train.main`` run (kept for this phase by ``keep_run``; a recipe
+    seed's checkpoint where a phase kept none), ``test.main --export`` (no
     launch: traced with fake tensors; the seconds and MB; the graph's
     mcn:: nodes), ``serve.main --artifact`` in the kind's mode over the
     fixtures (one device call), the artifact against the route program
@@ -380,6 +383,24 @@
     (bits, launches by shape), and an ``embed`` route's JSON and JPEG
     requests (unit norm; against the host's route within EMBED_REL_TOL).
     ``check_repr_kernels`` adds the rows of paths ``repr_*`` to step 3's.
+31. Monocular depth and one-stage detection (``depth_detection_run``):
+    ``configs/nyu_depth_unet.py`` (64 at 224 x 288), ``voc_ssd300.py``
+    (32 at 300²) and ``voc_retinanet.py`` (16 at 512²) as written (bf16,
+    synthetic scenes), each: step 1 on the card against the host
+    (float32, TF32 off, batch DET_STEP1); ``train.main`` 2 steps with a
+    validation (AbsRel, val_mAP finite); the step's ms, idle share and
+    peak memory; ``test.main`` on its checkpoint (depth with
+    ``--save_preds``: the 16-bit files equal the eval forward's depth x
+    1000); an eval forward held by shape to the model's sites and B2 1
+    (depth: B4 15, B1 4; SSD300: B4 12, B1 11; RetinaNet: B5 13, B1 7,
+    B4 40); for the detectors the post-process on the card against the
+    host on the same logits and the blocked NMS's host syncs an eval
+    batch; ``test --export``, ``serve --artifact --depth|--detect``, the
+    artifact bit for bit against the in-memory program from the same
+    checkpoint; a route's JPEG request (B2 1, then one device call), the
+    depth route against the host's, the detect artifact route's
+    detections against the in-memory route's.  ``check_det_kernels``
+    adds the rows of paths ``det_*`` to step 3's.
 
 Every kernel's record carries its bound: the larger of the bytes it must
 move over 3.35 TB/s and the operations it must do over the peak rate of
@@ -1363,14 +1384,60 @@ def pair_flip_slack(args, idx):
         * s3.double()[c].abs()
 
 
+# the kernel rows measured in this run, by (kernel, shape, dtype, act): a
+# shape that several paths share is measured once and its row copied into
+# each path (check_kernels empties it)
+_ROWS: dict = {}
+
+
+def _row_again(key, path, count, **fields):
+    """The row already measured at ``key``, as a row of ``path`` with
+    ``count`` sites (None if none is)."""
+    if key not in _ROWS:
+        return None
+    r = dict(_ROWS[key], path=path, sites=count,
+             measured_for=_ROWS[key]["path"], **fields)
+    log(f"{key[0]} {path} {list(key[1])} x{count}: the row of "
+        f"{r['measured_for']}'s shape")
+    return r
+
+
+def _keep_row(key, r):
+    _ROWS[key] = r
+    return r
+
+
+# train.main runs whose checkpoints the export phase reuses: a phase moves
+# its run directory here (keep_run) instead of deleting it, and
+# export_case freezes that run's newest checkpoint rather than writing a
+# fresh one (one checkpoint a family for its test, export and route
+# checks; the export phase empties it)
+KEPT = os.path.join(ROOT, "build", "chip_smoke_kept")
+
+
+def keep_run(run_dir, name):
+    """Move a finished run's directory to KEPT/``name`` (an EXPORT_CASES
+    name)."""
+    import shutil
+    dst = os.path.join(KEPT, name)
+    shutil.rmtree(dst, ignore_errors=True)
+    os.makedirs(KEPT, exist_ok=True)
+    os.replace(run_dir, dst)
+
+
 def conv_pair_row(shape, count, path, g):
     """conv_pair at (n, h, w, cin, cm, cout) against its plain version,
     with its bound and plan, beside cuDNN's unfused bf16 pair: one row
-    (``count`` sites of one forward of ``path``)."""
+    (``count`` sites of one forward of ``path``; a shape measured before
+    in this run is that row again)."""
     import torch
 
     from myconvnet_tpu_torch.ops.kernels import conv_pair
 
+    key = ("conv_pair", tuple(shape), None, None)
+    again = _row_again(key, path, count)
+    if again is not None:
+        return again
     n, h, w, cin, cm, co = shape
     args = pair_args(shape, g)
     out = conv_pair.conv1x1_conv3x3_bn_relu(*args)
@@ -1425,16 +1492,23 @@ def conv_pair_row(shape, count, path, g):
         f"cudnn_bf16_unfused={row['cudnn_bf16_ms']:.4f}ms "
         f"bound={b_ms:.4f}ms ({b_by}) "
         f"wrapper host time={row['host_us']:.1f}us a launch")
-    return row
+    return _keep_row(key, row)
 
 
 def bn_act_row(site, x, a, b, count, path, act="relu", **extra):
     """bn_act (``act``, ReLU by default) on ``x`` against its plain
     version, with its bound and any ``extra`` yardsticks timed: one row
-    (``count`` sites of one forward of ``path``)."""
+    (``count`` sites of one forward of ``path``; without ``extra``, a
+    shape measured before in this run is that row again)."""
     import torch
 
     from myconvnet_tpu_torch.ops.kernels import bn_act
+
+    key = ("bn_act", tuple(x.shape), _name(x.dtype), act)
+    if not extra:
+        again = _row_again(key, path, count, site=site)
+        if again is not None:
+            return again
 
     out = bn_act.fused_scale_shift_act(x, a, b, act)
     ref = bn_act.scale_shift_act_reference(x, a, b, act)
@@ -1458,7 +1532,7 @@ def bn_act_row(site, x, a, b, count, path, act="relu", **extra):
         f"atol={TOL['bn_act']['atol']:.3g}) ok={ok} "
         + " ".join(f"{k}={r[k]:.4f}ms" for k in ("ms", "plain_ms", *extra))
         + f" bound={b_ms:.4f}ms ({b_by})")
-    return r
+    return r if extra else _keep_row(key, r)
 
 
 def check_kernels(dev, plan=None):
@@ -1468,6 +1542,7 @@ def check_kernels(dev, plan=None):
     import torch
 
     g = torch.Generator(device=dev).manual_seed(SEED)
+    _ROWS.clear()
 
     def randn(*shape, scale=1.0):
         return torch.randn(*shape, generator=g, device=dev) * scale
@@ -1495,6 +1570,7 @@ def check_kernels(dev, plan=None):
     details += check_zoo_kernels(dev, g)
     details += check_seg_family_kernels(dev, g)
     details += check_repr_kernels(dev, g)
+    details += check_det_kernels(dev, g)
     for name in SOURCES:
         rows = [r for r in details if r["kernel"] == name]
         on_path = [r for r in rows if r["sites"]]
@@ -1737,11 +1813,16 @@ def conv_fused_row(shape, count, path, g):
     """conv_fused at (n, h, w, c, cout) against its plain version, with its
     bound and plan, beside cuDNN's bf16 conv with an eager epilogue and
     cuDNN's conv alone: one row (``count`` sites of one forward of
-    ``path``)."""
+    ``path``; a shape measured before in this run is that row again)."""
     import torch
     import torch.nn.functional as F
 
     from myconvnet_tpu_torch.ops.kernels import conv_fused
+
+    key = ("conv_fused", tuple(shape), None, None)
+    again = _row_again(key, path, count)
+    if again is not None:
+        return again
 
     def cudnn_conv(x, w3):
         return F.conv2d(x.permute(0, 3, 1, 2), w3.permute(3, 2, 0, 1),
@@ -1783,7 +1864,7 @@ def conv_fused_row(shape, count, path, g):
         + " ".join(f"{k}={r[k]:.4f}ms" for k in (
             "ms", "plain_ms", "cudnn_bf16_ms", "cudnn_conv_ms",
             "bound_ms")) + f" ({b_by})")
-    return r
+    return _keep_row(key, r)
 
 
 def check_classifier_kernels(dev, g):
@@ -1994,12 +2075,14 @@ def launch_shapes(counter):
     the kernel modules' ``launch_cuda`` / ``launch_fwd_cuda``, which the
     wrappers call on CUDA tensors and the mcn:: ops' CUDA implementations
     call from an exported program's graph; with normalize_u8 from the GAN
-    trainer (``train.gan``) and the image route (``serving_http``)."""
-    from myconvnet_tpu_torch import serving_http
+    trainer (``train.gan``), the image route (``serving_http``), the depth
+    recipe's input chain (``recipes``) and the detection input
+    (``train.detection``)."""
+    from myconvnet_tpu_torch import recipes, serving_http
     from myconvnet_tpu_torch.ops.kernels import (bn_act, conv_fused,
                                                  conv_pair, correlation)
     from myconvnet_tpu_torch.ops.kernels import flash_attention as fa
-    from myconvnet_tpu_torch.train import gan
+    from myconvnet_tpu_torch.train import detection, gan
 
     return _recording(counter, [
         (conv_pair, "launch_cuda", lambda x, a, kw: shape_key(
@@ -2013,7 +2096,8 @@ def launch_shapes(counter):
             "flash_attention_fwd", *x.shape)),
         (correlation, "launch_fwd_cuda", lambda x, a, kw: (
             "correlation_fwd", *x.shape)),
-        _b2_site(gan), _b2_site(serving_http)])
+        _b2_site(gan), _b2_site(serving_http), _b2_site(recipes),
+        _b2_site(detection)])
 
 
 def kernel_by_path(name, details, runs, shapes):
@@ -3225,7 +3309,7 @@ def vit_train_and_check(dev):
             or not np.isfinite(card).all() or rel > LOGIT_REL_TOL:
         raise AssertionError("ViT eval logits disagree with the plain path")
     checks.update(top1=score, eval_logit_rel_err=rel)
-    shutil.rmtree(run_dir)
+    keep_run(run_dir, "vit_b16")
     del start, restored
 
     # the recipe's batch: 1024 as 4 microbatches of 256, on the 256
@@ -3538,7 +3622,7 @@ def pwc_train_and_check(dev):
         raise AssertionError("PWC-Net eval flows disagree with the plain "
                              "path")
     checks.update(aepe=score, eval_flow_rel_err=rel)
-    shutil.rmtree(run_dir)
+    keep_run(run_dir, "pwcnet")
     del host, restored, restored_net
 
     # the recipe's step at batch 32, after the runs above (it moves the
@@ -3851,7 +3935,7 @@ def log_rate(what, r):
 
 def classifier_run(dev, what, config, sets, *, steps, batch, val_every,
                    forward, split, check_n, per_step=None, eval_input=None,
-                   rate_iters=3, raw_hw=None, shapes=None):
+                   rate_iters=3, raw_hw=None, shapes=None, keep=None):
     """``train.main`` for ``steps`` steps at ``batch`` (``sets``: the
     overrides) validating every ``val_every`` steps and at the end, then
     ``test.main`` on its checkpoint: each run's launches against
@@ -3862,8 +3946,9 @@ def classifier_run(dev, what, config, sets, *, steps, batch, val_every,
     path on ``check_n`` images; then the step's rate (:func:`step_rate`).
     With ``shapes`` (a dict) each run's launches are also recorded by
     shape (:func:`launch_shapes`) into ``shapes["train"]`` and
-    ``shapes["test"]``.  Returns (train launches, test launches, checks,
-    trainer)."""
+    ``shapes["test"]``.  ``keep``: the run is kept for the export phase's
+    case of that name (:func:`keep_run`).  Returns (train launches, test
+    launches, checks, trainer)."""
     import shutil
     from collections import Counter
 
@@ -3945,7 +4030,10 @@ def classifier_run(dev, what, config, sets, *, steps, batch, val_every,
             or not np.isfinite(card).all() or rel > tol:
         raise AssertionError(f"{what}: eval logits disagree with the "
                              "plain path")
-    shutil.rmtree(run_dir)
+    if keep:
+        keep_run(run_dir, keep)
+    else:
+        shutil.rmtree(run_dir)
     del restored, host, restored_net
     rate, batch_xy = step_rate(dev, trainer, batch,
                                raw_hw or tuple(x.shape[1:3]), rate_iters)
@@ -3973,7 +4061,8 @@ def resnet50_train_and_check(dev, step1):
         [f"accum_steps={R50_ACCUM}", f"synthetic_n={R50_BATCH}"],
         steps=R50_STEPS, batch=R50_BATCH, val_every=0,
         forward=FORWARD["resnet50"], split=R50_BATCH,
-        check_n=STEP1_BATCH["resnet50"], raw_hw=tuple(cfg["raw_hw"]))
+        check_n=STEP1_BATCH["resnet50"], raw_hw=tuple(cfg["raw_hw"]),
+        keep="resnet50")
     checks.update(run)
     f32_cfg = trainer.augment
     bf16_cfg = f32_cfg._replace(interp_dtype="bfloat16")
@@ -4352,7 +4441,7 @@ def deeplab_run(dev):
         host=seg_logits_vs_host("DeepLabv3+ 96x96", trainer, host, x, dev),
         scales=seg_scales_vs_host(trainer, ms_restored, host, x, dev,
                                   *recipes.normalization(cfg)))
-    shutil.rmtree(run_dir)
+    keep_run(run_dir, "deeplab")
     del trainer, restored, ms_restored, host, net, restored_net, ms_net
     torch.cuda.empty_cache()
 
@@ -4585,7 +4674,7 @@ def gan_run(dev):
             f"{int((grid != writer).sum())} of {grid.size} values")
     if len(images) != grids:
         raise AssertionError(f"DCGAN: sample grids {images}, want {grids}")
-    shutil.rmtree(run_dir)
+    keep_run(run_dir, "dcgan")
     checks["dcgan"] = dict(metrics=rows, train_seconds=seconds,
                            grids=images, generator_drift=drift,
                            step=gan_step_rate(dev, trainer))
@@ -4638,7 +4727,7 @@ def gan_run(dev):
     if not same or not rel <= LOGIT_REL_TOL:
         raise AssertionError("pix2pix: restored output differs or the card "
                              "disagrees with the host")
-    shutil.rmtree(run_dir)
+    keep_run(run_dir, "pix2pix")
     del restored, host
     checks["pix2pix"] = dict(metrics=rows, train_seconds=seconds, psnr=psnr,
                              ssim=ssim, host_rel=rel,
@@ -6123,7 +6212,8 @@ def _outputs(out):
 
 def export_case(dev, name, counted, root, inputs, voc_root, case=None):
     """One artifact of the export phase (``case``, else EXPORT_CASES[name]):
-    the recipe's net (or G and D) from its seed saved as a checkpoint,
+    the checkpoint of the family phase's ``train.main`` run of the recipe
+    (KEPT), or the recipe's net (or G and D) from its seed saved as one,
     ``test.main --export``, ``serve.main --artifact`` in the kind's mode,
     the artifact and the in-memory route program on the same wire rows (a
     RepVGG's: its reparameterized deploy program, built from the same
@@ -6141,13 +6231,18 @@ def export_case(dev, name, counted, root, inputs, voc_root, case=None):
     cfg = recipes.apply_overrides(recipes.load_config(config), sets)
     d = os.path.join(root, name)
     ckpt, path = os.path.join(d, "ckpt"), os.path.join(d, f"{name}.pt2")
+    kept = os.path.join(KEPT, name)
     data = ["--synthetic"]
     if name == "deeplab":
         # the recipe's 513 x 513 crop: a synthetic segmenter is built at 96
         cfg["data_dir"] = voc_root
         data = ["--data_dir", voc_root]
+    os.makedirs(d, exist_ok=True)
     t0 = time.perf_counter()
-    if kind in ("translate", "sample"):
+    if os.path.isdir(kept):
+        # the family phase's train.main run of this recipe
+        ckpt = kept
+    elif kind in ("translate", "sample"):
         trainer, _ = recipes_gan.build_gan(cfg, True, device=dev)
         trainer.save(ckpt)
         del trainer
@@ -6158,7 +6253,8 @@ def export_case(dev, name, counted, root, inputs, voc_root, case=None):
         net.save(ckpt)
         del net
     torch.cuda.empty_cache()
-    out = dict(ckpt_s=time.perf_counter() - t0)
+    out = dict(ckpt_s=time.perf_counter() - t0,
+               ckpt_from="train.main run" if ckpt == kept else "recipe seed")
     argv = ["--config", config, "--ckpt", ckpt, "--device", dev.type,
             *data, *[a for kv in sets for a in ("--set", kv)]]
     t0 = time.perf_counter()
@@ -6259,7 +6355,8 @@ def export_case(dev, name, counted, root, inputs, voc_root, case=None):
     del again
     tol = EXPORT_TOL.get(name, 0.0)
     finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
-    log(f"export {name}: checkpoint {out['ckpt_s']:.1f}s, test --export "
+    log(f"export {name}: checkpoint ({out['ckpt_from']}) "
+        f"{out['ckpt_s']:.1f}s, test --export "
         f"{out['export_s']:.1f}s, {out['mb']:.1f} MB, mcn:: nodes "
         f"{meta['ops']}; serve --artifact {out['serve_s']:.1f}s; artifact "
         f"vs in-memory program at {list(shape)}: bit-exact "
@@ -6361,6 +6458,7 @@ def export_run(dev):
             dev, counted, os.path.join(root, "deeplab", "deeplab.pt2"))
     finally:
         shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(KEPT, ignore_errors=True)
     return counted.runs, counted.shapes, checks
 
 
@@ -6407,7 +6505,7 @@ def swin_run(dev):
         [f"accum_steps={SWIN_ACCUM}", f"synthetic_n={SWIN_SPLIT}"],
         steps=SWIN_STEPS, batch=SWIN_BATCH, val_every=0, forward={},
         split=SWIN_SPLIT, check_n=SWIN_STEP1_BATCH, rate_iters=2,
-        raw_hw=(256, 256))
+        raw_hw=(256, 256), keep="swin_t")
     checks.update(run)
     attn = swin_attention_ms(trainer, SWIN_BATCH // SWIN_ACCUM)
     busy = run["step"]["device_busy_ms"]
@@ -6830,7 +6928,8 @@ def step_one_only(specs):
 def zoo_sites(name, n, hw, classes=1000, dtype="bfloat16", **kw):
     """The :func:`shape_key` Counter of one eval forward in ``dtype`` of
     the registry model ``name`` (an ``EMBEDDING_MODELS`` name too;
-    ``repvgg_a0_deploy``: RepVGG-A0's deploy form; ``kw`` its keyword
+    ``repvgg_a0_deploy``: RepVGG-A0's deploy form; a (factory, kwargs)
+    pair: ``factory(classes, **kwargs)``; ``kw`` its keyword
     arguments) on ``n`` images of ``hw``, derived on the host from the
     model itself: its modules run on the meta device (no data, no launch)
     with the kernel wrappers the models call replaced by recorders, so
@@ -6866,7 +6965,9 @@ def zoo_sites(name, n, hw, classes=1000, dtype="bfloat16", **kw):
             setattr(m, a, f)
         dtype = getattr(torch, dtype)
         with torch.device("meta"), torch.no_grad():
-            if name == "repvgg_a0_deploy":
+            if isinstance(name, tuple):   # (factory, its kwargs)
+                model = name[0](classes, **name[1])
+            elif name == "repvgg_a0_deploy":
                 model = repvgg.DEPLOY_FORWARDS["repvgg_a0"](1000)
             elif name in models.EMBEDDING_MODELS:
                 model = models.EMBEDDING_MODELS[name](
@@ -6920,6 +7021,11 @@ def site_rows(dev, g, path, sites, want):
         kernel, *rest = key
         if kernel == "bn_act":
             shape, act = tuple(rest[:4]), rest[5]
+            again = _row_again(("bn_act", shape, rest[4], act), path, count,
+                               site=f"{path} {act}")
+            if again is not None:
+                rows.append(again)
+                continue
             x = torch.randn(*shape, generator=g, device=dev).to(
                 getattr(torch, rest[4]))
             c = shape[-1]
@@ -7834,6 +7940,471 @@ def representation_run(dev):
     return runs, shapes, checks
 
 
+# The depth_detection phase: the monocular-depth recipe and the two
+# one-stage detectors through the port's entry points at the recipes'
+# widths on synthetic scenes (config, sets, eval batch = the recipe's
+# batch, input hw, the artifact's batch = export_batch's default):
+DEPTH_CONFIG = os.path.join(ROOT, "configs", "nyu_depth_unet.py")
+SSD_CONFIG = os.path.join(ROOT, "configs", "voc_ssd300.py")
+RETINA_CONFIG = os.path.join(ROOT, "configs", "voc_retinanet.py")
+DET_FAMILIES = {"depth": (DEPTH_CONFIG, ["synthetic_n=64"], 64, (224, 288),
+                          4),
+                "ssd300": (SSD_CONFIG, [], 32, (300, 300), 8),
+                "retinanet": (RETINA_CONFIG, [], 16, (512, 512), 8)}
+# one bf16 eval forward's launches (ROADMAP B), the shapes from the models
+# (``zoo_sites``): the depth net's encoder as ResNet-18's and its decoder's
+# ten 3x3 convs through B4; SSD300's trunk through B4, its first conv, fc6,
+# fc7 and extras through B1; RetinaNet's ResNet-50 and its heads' 40
+# relu(conv + bias) through B4
+DET_FORWARD = {"depth": {"conv_fused": 15, "bn_act": 4},
+               "ssd300": {"conv_fused": 12, "bn_act": 11},
+               "retinanet": {"conv_pair": 13, "bn_act": 7,
+                             "conv_fused": 40}}
+# step 1 card against host at this batch, float32 with TF32 off (its
+# host halves run in a background thread beside the phase's card work)
+DET_STEP1 = 2
+# the depth route on the card against the host's plain path: depth within
+# DEPTH_REL_TOL of the largest
+DEPTH_REL_TOL = 0.05
+# the paths' runs at the eval batch (the rows' shapes): train.main's
+# validations and test.main
+KERNEL_PATH_RUNS.update({
+    f"det_{name}": (f"det_{name}_train", f"det_{name}_test")
+    for name in DET_FAMILIES})
+
+
+def det_sites(name, n=None):
+    """The :func:`zoo_sites` Counter of one eval forward of family
+    ``name`` at batch ``n`` (its eval batch by default), held to
+    DET_FORWARD."""
+    from myconvnet_tpu_torch import recipes
+    from myconvnet_tpu_torch.models.depth import DEPTH_MODELS
+
+    config, sets, batch, hw, _ = DET_FAMILIES[name]
+    cfg = recipes.apply_overrides(recipes.load_config(config), sets)
+    if name == "depth":
+        kw, build = recipes.depth_model_kwargs(cfg), \
+            DEPTH_MODELS[cfg["model"]]
+    else:
+        from myconvnet_tpu_torch import models
+        kw, build = dict(cfg.get("model_kwargs", {})), \
+            models.DETECTORS[cfg["model"]]
+    sites = zoo_sites((build, kw), n or batch, hw,
+                      cfg.get("num_classes", 0))
+    if zoo_totals(sites) != DET_FORWARD[name]:
+        raise AssertionError(f"{name}: one eval forward's sites "
+                             f"{zoo_totals(sites)}, want {DET_FORWARD[name]}")
+    return sites
+
+
+def check_det_kernels(dev, g):
+    """B1, B4 and B5 at every site of the depth and detection eval
+    forwards (:func:`det_sites`: the depth decoder's 224 x 288 maps,
+    RetinaNet's head levels 64² to 4² and its 128² stage-1 pairs), each
+    against its plain version beside cuDNN's (:func:`site_rows`), and B2
+    at each eval batch's input (:func:`gan_input_row`)."""
+    from myconvnet_tpu_torch.data.augment import IMAGENET_MEAN, \
+        IMAGENET_STD
+
+    rows = []
+    for name, (_, _, batch, hw, _) in DET_FAMILIES.items():
+        rows += site_rows(dev, g, f"det_{name}", det_sites(name),
+                          DET_FORWARD[name])
+        # B2 on an eval batch: x / 255 for depth, the recipe's ImageNet
+        # statistics for the detectors
+        stats = ((0.0,) * 3, (1.0,) * 3) if name == "depth" \
+            else (IMAGENET_MEAN, IMAGENET_STD)
+        rows.append(gan_input_row(f"det_{name}_input", (batch, *hw, 3), g,
+                                  *stats))
+    return rows
+
+
+def _tf32_off():
+    """True float32 convolutions and matmuls inside the block."""
+    import torch
+
+    @contextlib.contextmanager
+    def block():
+        before = (torch.backends.cudnn.allow_tf32,
+                  torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            yield
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = before
+    return block()
+
+
+def _on(obj, dev):
+    """Tensors of a draw (tuples, NamedTuples) on ``dev``."""
+    import torch
+    if isinstance(obj, torch.Tensor):
+        return obj.to(dev)
+    if isinstance(obj, tuple):
+        items = [_on(v, dev) for v in obj]
+        return type(obj)(*items) if hasattr(obj, "_fields") \
+            else tuple(items)
+    return obj
+
+
+def det_step_half(dev, name, cfg):
+    """(loss, {path: gradient norm}) of step 1 of the family's recipe on
+    ``dev`` under float32 (TF32 off on the card) at batch DET_STEP1: the
+    seeded JAX-layout weights, the split's first images and draws made on
+    the host from SEED, so that the card's half and the host's take the
+    same ones (:func:`det_step_one` holds them)."""
+    import numpy as np
+    import torch
+
+    from myconvnet_tpu_torch import recipes, recipes_detection, weights
+    from myconvnet_tpu_torch.train.detection import sample_draws
+    from myconvnet_tpu_torch.train.trainer import StepDraws
+
+    n = DET_STEP1
+    # the splits rendered at the batch's size (the port's synthetic_n)
+    cfg = dict(cfg, precision="f32", synthetic_n=n)
+    g = torch.Generator().manual_seed(SEED)
+    if name == "depth":
+        net, train_set, _ = recipes.build_depth(cfg, True, device=dev)
+        net.build(recipes.optimizer_factory(cfg["optimizer"]))
+        trainer = net.trainer
+        draws = StepDraws(None, None, None, recipe=_on(
+            trainer.input_fns.sample(g, n), dev))
+    else:
+        trainer, train_set, _ = recipes_detection.build_detector(
+            cfg, True, device=dev)
+        draws = _on(sample_draws(g, n, trainer.augment), dev)
+    weights.from_jax(trainer.model,
+                     *weights.random_jax_params(trainer.model, SEED))
+    batch = [torch.from_numpy(np.asarray(a)).to(dev) for a in
+             train_set.source.get_batch(np.arange(n))]
+    with _tf32_off() if dev.type == "cuda" else contextlib.nullcontext():
+        if name == "depth":
+            loss, _, _ = trainer.loss_and_grads(*batch, draws)
+        else:
+            trainer.optimizer.zero_grad()
+            loss, _ = trainer.loss(*batch, draws)
+            loss.backward()
+    return float(loss.detach()), grad_norms(trainer)
+
+
+def det_step_one(name, card, host):
+    """Hold the card's step 1 (:func:`det_step_half`) against the host's
+    within :func:`step_one_verdict`'s own bounds (STEP1_LOSS_RTOL,
+    STEP1_GRAD_*): SSD's hard-negative mining ranks thousands of anchors
+    by float32 cross-entropies the two devices sum apart, so a negative
+    near the cut may be mined on one and not the other."""
+    return step_one_verdict(
+        f"{name} step 1 (float32, batch {DET_STEP1})", card[1], host[1],
+        card[0], host[0])
+
+
+def _det_frames(name, root):
+    """``serve --artifact``'s inputs: the four VOC fixture JPEGs."""
+    d = os.path.join(root, "frames")
+    voc = os.path.join(FIXTURES, "voc", "JPEGImages")
+    for f in sorted(os.listdir(voc)):
+        _link(os.path.join(voc, f), os.path.join(d, f))
+    return d
+
+
+def det_family_run(dev, name, counted, root, host_step):
+    """One family of the depth_detection phase: step 1 on the card against
+    the host's (``host_step``, a future of :func:`det_step_half` on the
+    host); ``train.main`` 2 steps at the recipe's batch with a validation
+    at step 2 (AbsRel or val_mAP finite); ``test.main`` on the checkpoint
+    (depth with ``--save_preds``: the 16-bit files equal the eval
+    forward's depth x 1000, clipped), its eval forwards held by shape to
+    the model's sites, B2 once each; for the detectors the blocked NMS's
+    host syncs an eval batch and the post-process on the card against the
+    host on the same logits; ``test --export``, ``serve --artifact`` (one
+    device call, held), the artifact bit for bit against the in-memory
+    program built from the same checkpoint, launch by launch; a route's
+    JPEG request (B2 once, then one device call); the depth route
+    against the host's within DEPTH_REL_TOL, the detect artifact route's
+    detections against the in-memory route's.  Returns (the record, the
+    trained trainer and a batch of its step's arguments, for
+    :func:`det_rates`)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from myconvnet_tpu_torch import (recipes, recipes_detection, serve,
+                                     serving, serving_http, test, train)
+    from myconvnet_tpu_torch.ops import boxes
+    from myconvnet_tpu_torch.subsets import depth as depth_mod
+    from myconvnet_tpu_torch.subsets import voc
+    from myconvnet_tpu_torch.train.detection import (make_postprocess,
+                                                     preprocess_batch)
+
+    config, sets, batch, hw, art_batch = DET_FAMILIES[name]
+    cfg = recipes.apply_overrides(recipes.load_config(config), sets)
+    kind = "depth" if name == "depth" else "detect"
+    d = os.path.join(root, name)
+    out_dir = os.path.join(d, "run")
+    argv = ["--config", config, "--synthetic", "--device", dev.type,
+            *[a for kv in sets for a in ("--set", kv)]]
+    check, secs = {}, {}
+    t0 = time.perf_counter()
+
+    def lap(what, since):
+        secs[what] = time.perf_counter() - since
+        return time.perf_counter()
+
+    card = det_step_half(dev, name, cfg)
+    torch.cuda.empty_cache()
+    t1 = lap("step1_card", t0)
+    trained = counted(f"det_{name}_train", train.main, argv + [
+        "--steps", "2", "--val_every", "2", "--set", "log_every=1000",
+        "--out", out_dir])
+    t1 = lap("train", t1)
+    # B2 once a step; two validations (at step 2 and the final one), each
+    # over the 64-image val split at the recipe's batch
+    evals = 2 * (64 // batch)
+    expect_only(counted.runs[f"det_{name}_train"],
+                {**{k: evals * v for k, v in DET_FORWARD[name].items()},
+                 "normalize_u8": 2 + evals},
+                f"{name} train.main, 2 steps and {evals} eval forwards")
+    log_name = "train.jsonl" if kind == "depth" else "detection.jsonl"
+    with open(os.path.join(out_dir, log_name)) as f:
+        rows = [json.loads(line) for line in f]
+    val_key = "val_depth" if kind == "depth" else "val_mAP"
+    vals = [r[val_key] for r in rows if val_key in r]
+    if not vals or not all(np.isfinite(vals)):
+        raise AssertionError(f"{name}: validation scores {vals}")
+    check[val_key] = vals
+    # the train step's rate is timed after the phase's host work
+    # (det_rates) on the trained trainer and a seeded batch
+    src = trained.trainer if kind == "depth" else trained
+    if kind == "depth":
+        xs, ys = depth_mod.synthetic_depth_scenes(batch, hw, seed=SEED)
+        args = (torch.from_numpy(xs).to(dev), torch.from_numpy(ys).to(dev))
+    else:
+        xs, bs, ls = voc.synthetic_detection_subset(batch, hw, SEED, 8)
+        args = tuple(torch.from_numpy(a).to(dev) for a in (xs, bs, ls))
+    # test.main on the checkpoint: every eval forward held by shape (the
+    # val split is 64 images: depth one batch, scored and then predicted
+    # for --save_preds; the detectors 64 / batch)
+    preds = os.path.join(d, "preds")
+    extra = ["--save_preds", preds] if kind == "depth" else []
+    boxes.reset_sync_count()
+    score, restored = counted(f"det_{name}_test", test.main,
+                              argv + ["--ckpt", out_dir, *extra])
+    forwards = 2 if kind == "depth" else 64 // batch
+    if kind == "detect":
+        check["nms_syncs_an_eval_batch"] = boxes.sync_count() / forwards
+    t1 = lap("test", t1)
+    check["test_score"] = score
+    if not np.isfinite(score):
+        raise AssertionError(f"{name}: test.main scored {score}")
+    sites = det_sites(name)
+    b2 = shape_key("normalize_u8", (batch, *hw, 3), "float32")
+    want = {k: forwards * v for k, v in sites.items()}
+    want[b2] = forwards
+    if dict(counted.shapes[f"det_{name}_test"]) != want:
+        raise AssertionError(f"{name} test.main: launches by shape "
+                             f"{dict(counted.shapes[f'det_{name}_test'])}, "
+                             f"want {want}")
+    expect_only(counted.runs[f"det_{name}_test"],
+                {**{k: forwards * v for k, v in zoo_totals(sites).items()},
+                 "normalize_u8": forwards},
+                f"{name} test.main, {forwards} eval forwards")
+    if kind == "depth":
+        # the val split's first frame (split seed 1, as test.main renders
+        # it) in its eval batch
+        with cudnn_deterministic():
+            val = depth_mod.synthetic_depth_scenes(batch, hw, seed=1)[0]
+            depth = restored.predict(val, batch_size=batch)[0, ..., 0]
+        mm = np.asarray(Image.open(os.path.join(preds, "00000_depth16.png")))
+        check["save_preds_equal"] = bool(np.array_equal(
+            mm, np.clip(depth * 1000.0, 0, 65535).astype(np.uint16)))
+        if not check["save_preds_equal"]:
+            raise AssertionError("depth: --save_preds' 16-bit file differs "
+                                 "from the forward's depth")
+    else:
+        # the post-process alone, card against host, on the same logits
+        cls, loc = restored.forward_eval(preprocess_batch(
+            args[0], restored.mean, restored.std))
+        chain = recipes_detection.detector_chain(cfg)
+        got = restored.postprocess(cls, loc)
+        host = make_postprocess(torch.from_numpy(chain.anchors),
+                                cfg["num_classes"], **chain.post_kwargs)(
+            cls.cpu(), loc.cpu())
+        same = [torch.equal(a.cpu(), b) for a, b in zip(got, host)]
+        box_diff = float((got[0].cpu() - host[0]).abs().max())
+        check["post_card_vs_host"] = dict(
+            indices_labels_valid_equal=same[2] and same[3],
+            boxes_equal=same[0], scores_equal=same[1],
+            box_max_abs_diff=box_diff, valid=int(host[3].sum()))
+        if not (same[2] and same[3] and box_diff <= 1e-6):
+            raise AssertionError(f"{name}: the post-process on the card "
+                                 f"differs from the host's: "
+                                 f"{check['post_card_vs_host']}")
+        del cls, loc, got
+    del restored
+    t1 = lap("eval_checks", t1)
+    # the artifact: test --export (traced with fake tensors), serve
+    # --artifact (one device call), the artifact bit for bit against the
+    # in-memory program from the same checkpoint
+    art = os.path.join(d, f"{name}.pt2")
+    counted(f"det_{name}_export", test.main, argv + ["--ckpt", out_dir,
+                                                     "--export", art])
+    expect_only(counted.runs[f"det_{name}_export"], {},
+                f"{name}: test --export (traced with fake tensors)")
+    t1 = lap("export", t1)
+    art_sites = det_sites(name, art_batch)
+    frames = _det_frames(name, d)
+    served = counted(f"det_{name}_serve", serve.main, [
+        "--artifact", art, f"--{kind}", "--images", frames, "--device",
+        dev.type, *(["--out", os.path.join(d, "out")] if kind == "depth"
+                    else ["--config", config])])
+    expect_only(counted.runs[f"det_{name}_serve"], zoo_totals(art_sites),
+                f"{name}: serve --artifact, one device call")
+    if len(served) != 4:
+        raise AssertionError(f"{name}: serve --artifact gave {len(served)} "
+                             "results for 4 images")
+    t1 = lap("serve", t1)
+    fn = serving.load_inference(art)
+    route = serving_http.build_route(name, kind, cfg, ckpt=out_dir,
+                                     batch=art_batch, device=dev)
+    rows_in = torch.from_numpy(np.random.RandomState(SEED).rand(
+        art_batch, *hw, 3).astype(np.float32)).to(dev)
+    with cudnn_deterministic():
+        a = _outputs(counted(f"det_{name}_artifact", fn, rows_in))
+        m = _outputs(counted(f"det_{name}_memory", route.fn, rows_in))
+    check["artifact_bit_exact"] = all(torch.equal(u, v) for u, v in
+                                      zip(a, m))
+    for part in ("artifact", "memory"):
+        expect_only(counted.runs[f"det_{name}_{part}"],
+                    zoo_totals(art_sites), f"{name}: the {part} program")
+    if not check["artifact_bit_exact"] \
+            or dict(counted.shapes[f"det_{name}_artifact"]) != art_sites \
+            or dict(counted.shapes[f"det_{name}_memory"]) != art_sites:
+        raise AssertionError(f"{name}: the artifact differs from its "
+                             "in-memory program (or its launches by shape)")
+    check["artifact_ops"] = serving.artifact_meta(art)["ops"]
+    t1 = lap("artifact_vs_memory", t1)
+    # the route: a fixture JPEG (B2 once at the route's size), then one
+    # device call
+    with open(sorted(os.path.join(frames, f)
+                     for f in os.listdir(frames))[0], "rb") as f:
+        body = f.read()
+    server = serving_http.ModelServer([route])
+    reply = counted(f"det_{name}_route", server.predict, name, body,
+                    "image/jpeg")
+    expect_only(counted.runs[f"det_{name}_route"],
+                dict(zoo_totals(art_sites), normalize_u8=1),
+                f"{name} route, a JPEG body")
+    if kind == "depth":
+        host_route = serving_http.build_route(
+            name, kind, cfg, ckpt=out_dir, batch=1,
+            device=torch.device("cpu"))
+        one = rows_in[:1]
+        card_d = route.fn(one).float().cpu()
+        host_d = host_route.fn(one.cpu()).float()
+        gap = float((card_d - host_d).abs().max() / host_d.abs().max())
+        check["route_vs_host_rel"] = gap
+        if not (gap <= DEPTH_REL_TOL and len(reply["depths"]) == 1):
+            raise AssertionError(f"depth route: card vs host {gap:.3g} "
+                                 f"(tol {DEPTH_REL_TOL})")
+    else:
+        # the artifact route's codec over the artifact loaded above
+        art_route = serving_http.Route(
+            name, kind, fn, tuple(fn.input_shapes[0]),
+            mean=np.zeros(3, np.float32), std=np.ones(3, np.float32),
+            device=dev, class_names=route.class_names, artifact=art,
+            threshold=0.0)
+        body_rows = json.dumps({"instances": rows_in[:2].cpu().tolist()}
+                               ).encode()
+        with cudnn_deterministic():
+            r1 = serving_http.ModelServer([art_route]).predict(
+                name, body_rows, threshold=0.0)
+            r2 = serving_http.ModelServer([route]).predict(
+                name, body_rows, threshold=0.0)
+        check["route_detections"] = [len(r) for r in r1["detections"]]
+        if r1 != r2 or len(reply["detections"]) != 1:
+            raise AssertionError(f"{name}: the artifact route's detections "
+                                 "differ from the in-memory route's")
+    del route, fn, server
+    shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+    t1 = lap("route", t1)
+    check["step1"] = det_step_one(name, card, host_step.result())
+    check["seconds"] = secs
+    log(f"{name} {hw[0]}x{hw[1]}: step 1 card vs host ok; train.main 2 "
+        f"steps ({val_key} {vals}); test.main {score:.4f}, {forwards} eval "
+        f"forwards held by shape as the model's sites {zoo_totals(sites)} "
+        f"+ B2 1 each"
+        + (f", NMS host syncs {check['nms_syncs_an_eval_batch']:g} a batch"
+           if kind == "detect" else "")
+        + f"; artifact bit for bit against its program "
+        f"{check['artifact_bit_exact']} ({check['artifact_ops']}); "
+        + ", ".join(f"{k} {v:.1f}s" for k, v in secs.items()))
+    return check, src, args
+
+
+def det_rates(dev, name, trainer, args):
+    """The train step's rate at the recipe's batch (:func:`step_rate`)
+    and one eval forward's CUDA-event ms, on the trained trainer."""
+    import torch
+
+    from myconvnet_tpu_torch.train.detection import preprocess_batch
+
+    _, _, batch, hw, _ = DET_FAMILIES[name]
+    out = {}
+    out["step"], _ = step_rate(dev, trainer, batch, hw, 3, args=args)
+    log_rate(f"{name} {hw[0]}x{hw[1]}", out["step"])
+    if name == "depth":
+        x = args[0]
+        forward = trainer.eval_step
+    else:
+        x = preprocess_batch(args[0], trainer.mean, trainer.std)
+        forward = trainer.forward_eval
+    forward(x)
+    out["eval_ms"], _ = events_ms(lambda: forward(x), 3)
+    del x
+    torch.cuda.empty_cache()
+    return out
+
+
+def depth_detection_run(dev):
+    """The depth_detection phase: the host's halves of the three step-1
+    checks in a background thread (host work only: the card's flags and
+    counts are the main thread's), each DET_FAMILIES family through
+    :func:`det_family_run`, then each family's step rate alone
+    (:func:`det_rates`).  Returns ({run: launches}, {run: Counter of
+    launch shapes}, checks)."""
+    import shutil
+
+    import torch
+
+    from myconvnet_tpu_torch import recipes
+
+    root = os.path.join(ROOT, "build", "chip_smoke_det")
+    shutil.rmtree(root, ignore_errors=True)
+    counted = Counted()
+    checks, keep = {}, {}
+    cpu = torch.device("cpu")
+    cfgs = {name: recipes.apply_overrides(recipes.load_config(config), sets)
+            for name, (config, sets, *_) in DET_FAMILIES.items()}
+    try:
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            hosts = {name: pool.submit(det_step_half, cpu, name, cfgs[name])
+                     for name in DET_FAMILIES}
+            for name in DET_FAMILIES:
+                checks[name], *keep[name] = det_family_run(
+                    dev, name, counted, root, hosts[name])
+        for name, (trainer, args) in keep.items():
+            checks[name].update(det_rates(dev, name, trainer, args))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return counted.runs, counted.shapes, checks
+
+
 def phase(name, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -7866,6 +8437,7 @@ def main() -> int:
                  DCGAN_CONFIG, PIX2PIX_CONFIG, *SMALLNET_CONFIGS.values(),
                  SNGAN_CONFIG, FIXTURES, SWIN_CONFIG, MAE_CONFIG,
                  SIMCLR_CIFAR_CONFIG, SIMCLR_R50_CONFIG, MAE_CIFAR_CONFIG,
+                 DEPTH_CONFIG, SSD_CONFIG, RETINA_CONFIG,
                  *(os.path.join(ROOT, "configs", c)
                    for c, *_ in (*ZOO_RECIPES.values(),
                                  *SEG_FAMILY.values(),
@@ -7878,6 +8450,8 @@ def main() -> int:
     card = run(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"])
     log(card)
+    import shutil
+    shutil.rmtree(KEPT, ignore_errors=True)   # runs of an earlier call
     nvcc = run([_build.nvcc_path(), "--version"]).splitlines()
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{nvcc[-1] if nvcc else 'nvcc ?'}")
@@ -7998,6 +8572,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     repr_runs, repr_shapes, checks["representation"] = phase(
         "representation", representation_run, dev)
+    torch.cuda.empty_cache()
+    det_runs, det_shapes, checks["depth_detection"] = phase(
+        "depth_detection", depth_detection_run, dev)
     runs = {"serve": counts, "train": train_counts, "test": eval_counts,
             "vit_train": vit_train, "vit_test": vit_test,
             **{f"vit_train_{k}": v for k, v in policy_runs.items()},
@@ -8015,7 +8592,7 @@ def main() -> int:
             "mae_b16_train": mae_train, "mae_b16_test": mae_test,
             "mae_cifar_train": mae_cifar_train,
             "mae_cifar_test": mae_cifar_test, **simclr_runs, **zoo_runs,
-            **seg_runs2, **rest_runs, **repr_runs}
+            **seg_runs2, **rest_runs, **repr_runs, **det_runs}
     launches = {name: sum(c[name] for c in runs.values())
                 for name in SOURCES}
     in_forward = checks["bn_act_in_forward_ms"]
@@ -8040,7 +8617,8 @@ def main() -> int:
                                         **route_shapes, **sngan_shapes,
                                         **export_shapes, **simclr_shapes,
                                         **zoo_shapes, **seg_shapes2,
-                                        **rest_shapes, **repr_shapes})}
+                                        **rest_shapes, **repr_shapes,
+                                        **det_shapes})}
             if name in ("conv_pair", "bn_act", "conv_fused") else {}),
          **({"in_forward_ms": summary[name]["in_forward_ms"]}
             if name == "bn_act" else {})}

@@ -55,11 +55,24 @@ def save_checkpoint(directory: str, step: int, state: dict[str, Any], *,
     with open(os.path.join(directory, f"ckpt-{step}.json"), "w") as f:
         json.dump(meta, f)
     if is_best:
-        shutil.copyfile(path, os.path.join(directory, "best.npz"))
+        _link_or_copy(path, os.path.join(directory, "best.npz"))
         with open(os.path.join(directory, "best.json"), "w") as f:
             json.dump(meta, f)
     _prune(directory, keep)
     return path
+
+
+def _link_or_copy(src: str, dst: str) -> None:
+    """``dst`` becomes ``src``'s contents: a hard link (no second write of
+    a checkpoint that may be gigabytes; a later checkpoint written to
+    ``src``'s name replaces that name, not the linked file), or a copy
+    where the file system has no links; atomic either way."""
+    tmp = dst + ".tmp"
+    try:
+        os.link(src, tmp)
+    except OSError:
+        shutil.copyfile(src, tmp)
+    os.replace(tmp, dst)
 
 
 def _prune(directory: str, keep: int) -> None:

@@ -250,18 +250,24 @@ def batched_crop_resize(images: torch.Tensor, boxes: torch.Tensor,
                         out_hw: tuple[int, int],
                         flip: torch.Tensor | None = None,
                         clamp: bool = True,
-                        interp_dtype: str = "float32") -> torch.Tensor:
+                        interp_dtype: str = "float32",
+                        fill: torch.Tensor | None = None) -> torch.Tensor:
     """Crop + bilinear resize (+ horizontal flip) of every image with its
     own box.  images [N, H, W, C] (any dtype), boxes [N, 4] float32
     (y0, x0, h, w) in pixels, flip [N] bool or None -> [N, OH, OW, C]
     float32, by two float32 einsums; under ``interp_dtype="bfloat16"`` the
-    matrices, the pixels and the intermediate are rounded to bf16 first."""
+    matrices, the pixels and the intermediate are rounded to bf16 first.
+    ``fill`` ([C] float32; implies ``clamp=False``): out-of-frame samples
+    read it, weighted by the product of the two axes' row-sum deficits
+    (``augment.py:142-147``, SSD's zoom-out canvas)."""
     if interp_dtype not in _DTYPES:
         raise ValueError(f"interp_dtype {interp_dtype!r}: one of "
                          f"{sorted(_DTYPES)}")
     _, h, w, _ = images.shape
     oh, ow = out_hw
     boxes = boxes.float()
+    if fill is not None:
+        clamp = False
     mh = _axis_matrix(boxes[:, 0], boxes[:, 2], h, oh, clamp=clamp)
     mw = _axis_matrix(boxes[:, 1], boxes[:, 3], w, ow, flip, clamp=clamp)
     bf16 = interp_dtype == "bfloat16"
@@ -270,8 +276,12 @@ def batched_crop_resize(images: torch.Tensor, boxes: torch.Tensor,
         return t.to(torch.bfloat16).float() if bf16 else t
 
     y = torch.einsum("nih,nhwc->niwc", rounded(mh), rounded(images.float()))
-    return torch.einsum("njw,niwc->nijc", rounded(mw),
-                        rounded(y)).contiguous()
+    y = torch.einsum("njw,niwc->nijc", rounded(mw), rounded(y))
+    if fill is not None:
+        cov = (rounded(mh).sum(-1)[:, :, None]
+               * rounded(mw).sum(-1)[:, None, :])
+        y = y + (1.0 - cov)[..., None] * fill.to(y.device, torch.float32)
+    return y.contiguous()
 
 
 def random_resized_crop_boxes(generator: torch.Generator, n: int,

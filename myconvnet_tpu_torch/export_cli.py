@@ -3,8 +3,11 @@
 Port of ``myconvnet_tpu/export_cli.py`` for the tasks whose models the
 port has: ``export_classification`` (``:14``), ``export_segmentation``
 (``:99``), ``export_gan`` (``:161``; DCGAN and pix2pix), ``_dense_chain``
-(``:355``), ``export_flow`` (``:408``) and ``export_metric`` (``:429``),
-and ``CONVNET_EXPORTERS`` (``:525``) restricted to them.  Each writes one
+(``:355``), ``export_depth`` (``:386``), ``export_flow`` (``:408``),
+``export_metric`` (``:429``) and ``CONVNET_EXPORTERS`` (``:525``)
+restricted to them, and the detection export of ``test.py:396-424``
+(``serving.export_detection``: the fused normalize -> forward ->
+post-process chain, its NMS the fixed-trip form).  Each writes one
 ``torch.export`` artifact (``serving.export_*``) on the device the entry
 point runs on, with the wire format of JAX's artifact of the same kind,
 and prints JAX's artifact line and then the artifact's ``mcn::`` kernel
@@ -20,7 +23,7 @@ equivalent and are refused, as in JAX.
 
 Refused by name: ``--int8`` (the quantized programs, ROADMAP A17's
 quantization), the GAN kinds the port does not have (srgan, cyclegan) and
-the other eight exporters (:data:`UNPORTED_EXPORTERS`), each with its A17
+the other seven exporters (:data:`UNPORTED_EXPORTERS`), each with its A17
 family.
 """
 
@@ -34,7 +37,6 @@ UNPORTED_EXPORTERS = {
     "style": ("export_style (export_cli.py:298)",
               "style and super-resolution"),
     "audio": ("export_audio (export_cli.py:328)", "audio"),
-    "depth": ("export_depth (export_cli.py:386)", "depth"),
     "ocr": ("export_ocr (export_cli.py:466)", "OCR"),
     "video": ("export_video (export_cli.py:493)", "video"),
 }
@@ -190,6 +192,23 @@ def _dense_chain(net, take):
     return (lambda x: take(fn.program(x))), fn.model
 
 
+def export_depth(cfg, args, net, val_set):
+    """Raw [0, 1] frames [export_batch (4), H, W, 3] in, metric depth [N,
+    H, W] float32 out (in the recipe's range by the head's sigmoid)."""
+    import numpy as np
+
+    from myconvnet_tpu_torch import serving
+    from myconvnet_tpu_torch.subsets import depth as depth_mod
+
+    hw = tuple(cfg.get("input_hw", depth_mod.DEFAULT_HW))
+    sample = np.zeros((cfg.get("export_batch", 4), *hw, 3), np.float32)
+    fn, model = _dense_chain(net, serving.depth_map)
+    size = serving.export_fn(fn, model, sample, args.export, kind="depth",
+                             policy=net.policy, device=net.device)
+    _report("depth", args.export, size, f"input {sample.shape}",
+            ", meters out")
+
+
 def export_flow(cfg, args, net, val_set):
     """Raw [0, 1] frame pairs [export_batch (4), H, W, 6] in, float32
     flow [N, H, W, 2] in pixels out."""
@@ -229,6 +248,25 @@ def export_metric(cfg, args, net, val_set):
             f", {dim}-d embeddings")
 
 
+def export_detection(cfg, args, trainer, device):
+    """The restored detector's chain (``recipes_detection.
+    make_detector_inference``): raw [0, 1] frames [export_batch (8), H, W,
+    3] in, (boxes, scores, labels, valid) with ``max_detections`` rows
+    out."""
+    import numpy as np
+
+    from myconvnet_tpu_torch import recipes_detection, serving
+
+    chain = recipes_detection.detector_chain(cfg)
+    sample = np.zeros((cfg.get("export_batch", 8), *chain.hw, 3),
+                      np.float32)
+    fn, model = recipes_detection.make_detector_inference(
+        cfg, trainer.model, device)
+    size = serving.export_fn(fn, model, sample, args.export, kind="detect",
+                             policy=trainer.policy, device=device)
+    _report("detection", args.export, size, f"input {sample.shape}")
+
+
 # ConvNet-family exporters keyed by task (GAN checkpoints go to
 # export_gan from test.eval_gan, a distilled student to
 # export_classification from test.eval_distill)
@@ -237,4 +275,5 @@ CONVNET_EXPORTERS = {
     "segmentation": export_segmentation,
     "flow": export_flow,
     "metric": export_metric,
+    "depth": export_depth,
 }

@@ -14,6 +14,9 @@ from myconvnet_tpu_torch.models.xception import (Xception65,
                                                  xception65)
 from myconvnet_tpu_torch.models.embedding import (EmbeddingNet,
                                                   embedding_net, tinyembed)
+from myconvnet_tpu_torch.models.depth import (DEPTH_MODELS, DepthUNet,
+                                              TinyDepth, depth_unet,
+                                              tinydepth)
 from myconvnet_tpu_torch.models.densenet import (DenseNet, densenet121,
                                                  densenet169, densenet201)
 from myconvnet_tpu_torch.models.gan import (DCGANDiscriminator,
@@ -33,6 +36,8 @@ from myconvnet_tpu_torch.models.mobilenetv3 import (MobileNetV3,
 from myconvnet_tpu_torch.models.repvgg import (DEPLOY_FORWARDS, RepVGG,
                                                RepVGGDeploy, repvgg_a0,
                                                repvgg_a1, tinyrepvgg)
+from myconvnet_tpu_torch.models.retinanet import (RetinaNet, TinyRetina,
+                                                  retinanet, tinyretina)
 from myconvnet_tpu_torch.models.resnet import (ResNet, ResNetBackbone,
                                                resnet18, resnet34, resnet50,
                                                resnet101, resnet152,
@@ -47,6 +52,8 @@ from myconvnet_tpu_torch.models.wideresnet import (WideResNet, wide_resnet,
 from myconvnet_tpu_torch.models.mae import (MAE, mae_b16, mae_l16, patchify,
                                             tinymae, unpatchify)
 from myconvnet_tpu_torch.models.smallnet import SmallNet, smallnet
+from myconvnet_tpu_torch.models.ssd import SSD, TinyDet, ssd300, ssd512, \
+    tinydet
 from myconvnet_tpu_torch.models.swin import (Swin, swin_b, swin_s, swin_t,
                                              tinyswin)
 from myconvnet_tpu_torch.models.vgg import VGG, vgg11, vgg16, vgg19
@@ -99,6 +106,20 @@ SSL_MODELS = {"mae_b16": mae_b16, "mae_l16": mae_l16, "tinymae": tinymae}
 # the metric-learning embedders (models/__init__.py:181-184): any
 # classifier above as the backbone, re-headed to a unit-norm embedding
 EMBEDDING_MODELS = {"embedding_net": embedding_net, "tinyembed": tinyembed}
+# the one-stage detectors (models/__init__.py:134-150): each carries
+# input_hw and anchor_spec, RetinaNet's family anchor_kind "retina" and
+# head "sigmoid_focal"; FCOS and the two-stage family are not ported
+DETECTORS = {"ssd300": ssd300, "ssd512": ssd512, "tinydet": tinydet,
+             "retinanet": retinanet, "tinyretina": tinyretina}
+# the JAX detector names the port refuses, with their ROADMAP item
+UNPORTED_DETECTORS = {
+    **dict.fromkeys(("fcos", "tinyfcos"),
+                    "A17c(ii), FCOS: models/fcos.py, train/fcos.py"),
+    **dict.fromkeys(("faster_rcnn", "tinyfrcnn"),
+                    "A17c(ii), the two-stage family"),
+    **dict.fromkeys(("mask_rcnn", "tinymask", "keypoint_rcnn", "tinykp",
+                     "panoptic_fpn", "tinypan"),
+                    "A17c(iii), masks, keypoints and panoptic")}
 
 
 def get_model(name: str, num_classes: int,

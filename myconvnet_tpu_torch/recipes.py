@@ -11,8 +11,11 @@ and torchvision ``.pth`` forms), and the ``ConvNet`` builders of ``registry.conv
 (``registry.py:21``): ``build_classifier`` (``vision.py:23-65``, with the
 focal loss, random erasing and SAM), ``build_segmenter``
 (``vision.py:68-106``, with the VOC source and the mIoU evaluator of
-``common.py:200-202``), ``build_flow`` (``perception.py:284-398``) and
-``build_metric`` (``vision.py:109-172``: an ``EMBEDDING_MODELS`` net with
+``common.py:200-202``), ``build_flow`` (``perception.py:284-398``),
+``build_depth`` (``perception.py:201-281``: the DispNet on a ResNet-18, the
+scale-invariant log loss, the paired flip and the RGB-only jitter, the Eigen
+evaluator of ``common.py:178-183``) and ``build_metric``
+(``vision.py:109-172``: an ``EMBEDDING_MODELS`` net with
 the ArcFace, CosFace or batch-hard triplet loss, PK batches, and the
 retrieval evaluator of ``common.py:194-196``).  A recipe with a
 ``pipeline`` block (GPipe, ``train.py:112-122``) is refused by name
@@ -57,8 +60,10 @@ from myconvnet_tpu_torch.train.losses import (ce_dice_loss, dice_loss,
                                               epe_loss, focal_loss,
                                               multiscale_epe_loss,
                                               pixel_cross_entropy,
+                                              silog_loss,
                                               softmax_cross_entropy,
                                               unsupervised_flow_loss)
+from myconvnet_tpu_torch.ops.kernels.normalize_u8 import normalize_u8
 from myconvnet_tpu_torch.train.trainer import InputFns, Trainer
 from myconvnet_tpu_torch.weights import param_views
 
@@ -232,8 +237,20 @@ def build_evaluator(cfg: dict) -> Evaluator:
                                 cfg.get("ignore_label", 255))
     if task == "metric":
         return RetrievalEvaluator(cfg.get("recall_k", 1))
+    if task == "depth":
+        from myconvnet_tpu_torch.eval.depth import DepthEvaluator
+        return DepthEvaluator(
+            metric=cfg.get("depth_metric", "absrel"),
+            min_depth=cfg.get("eval_min_depth", 1e-3),
+            max_depth=cfg.get("eval_max_depth", np.inf),
+            median_scaling=cfg.get("median_scaling", False))
+    if task == "detection":
+        from myconvnet_tpu_torch.recipes_detection import \
+            detection_evaluator
+        return detection_evaluator(cfg)
     raise ValueError(f"the port has the classification, segmentation, "
-                     f"flow and metric tasks' evaluators, not {task!r}'s")
+                     f"flow, metric, depth and detection tasks' "
+                     f"evaluators, not {task!r}'s")
 
 
 def build_classifier(cfg: dict, synthetic: bool = False, *,
@@ -460,6 +477,91 @@ def build_flow(cfg: dict, synthetic: bool = False, *,
             DataSet(val_src))
 
 
+class DepthDraws(NamedTuple):
+    """One depth train step's draws: the paired flip [N] bool and the
+    colour-jitter factors."""
+    flip: torch.Tensor
+    jitter: JitterDraws | None
+
+
+def depth_input_fns(brightness: float, contrast: float) -> InputFns:
+    """The depth recipe's input chain over uint8 frames and [N, H, W, 1]
+    metres (``perception.py:234-251``): x / 255 (B2 at mean 0 and std 1,
+    as the GAN steps rescale), a flip of frame and depth together, the
+    jitter on the frame alone, a clip to [0, 1]; x / 255 alone in eval."""
+    def unit(x_u8):
+        c = x_u8.shape[-1]
+        return normalize_u8(x_u8.contiguous(), [0.0] * c, [1.0] * c)
+
+    def sample(generator, n, hw=None):
+        flip = torch.rand(n, generator=generator,
+                          device=generator.device) < 0.5
+        return DepthDraws(flip, sample_jitter(generator, n,
+                                              brightness=brightness,
+                                              contrast=contrast))
+
+    def train(x_u8, y, draws):
+        x = unit(x_u8)
+        flip = draws.flip.to(x.device).reshape(-1, 1, 1, 1)
+        x = torch.where(flip, x.flip(2), x)
+        y = torch.where(flip, y.flip(2), y)
+        return color_jitter(x, draws.jitter).clamp(0.0, 1.0), y
+
+    return InputFns(sample, train, unit)
+
+
+def depth_model_kwargs(cfg: dict) -> dict:
+    """The depth model's keywords: ``model_kwargs`` with the recipe's
+    ``min_depth`` and ``max_depth`` (0.1 and 10 m by default)."""
+    mkw = dict(cfg.get("model_kwargs", {}))
+    mkw.setdefault("min_depth", float(cfg.get("min_depth", 0.1)))
+    mkw.setdefault("max_depth", float(cfg.get("max_depth", 10.0)))
+    return mkw
+
+
+def build_depth(cfg: dict, synthetic: bool = False, *,
+                device: torch.device, ckpt_dir: str | None = None,
+                log_dir: str | None = None
+                ) -> tuple[ConvNet, DataSet, DataSet]:
+    """(net, train set, val set) of a monocular-depth recipe
+    (``perception.py:201-281``): a ``DEPTH_MODELS`` net with the recipe's
+    depth range, the scale-invariant log loss (``silog_lambda``), the
+    flip + jitter chain, no accuracy metric; the depth pairs at
+    ``input_hw``."""
+    from myconvnet_tpu_torch.models.depth import DEPTH_MODELS
+    from myconvnet_tpu_torch.subsets import depth as depth_mod
+    name = cfg.get("model", "depth_unet")
+    if name not in DEPTH_MODELS:
+        raise ValueError(f"unknown depth model {name!r}; valid: "
+                         f"{sorted(DEPTH_MODELS)}")
+    hw = tuple(cfg.get("input_hw", depth_mod.DEFAULT_HW))
+    max_depth = float(cfg.get("max_depth", depth_mod.DEFAULT_MAX_DEPTH))
+    lam = float(cfg.get("silog_lambda", 0.5))
+    net = ConvNet(DEPTH_MODELS[name], input_shape=(*hw, 3), num_classes=0,
+                  precision=cfg.get("precision", "f32"),
+                  loss_fn=lambda pred, y: silog_loss(pred, y, lam=lam),
+                  input_fns=depth_input_fns(
+                      float(cfg.get("aug_brightness", 0.2)),
+                      float(cfg.get("aug_contrast", 0.2))),
+                  accuracy_metric=False,
+                  accum_steps=cfg.get("accum_steps", 1),
+                  seed=cfg.get("seed", 0), ckpt_dir=ckpt_dir,
+                  log_dir=log_dir, log_every=cfg.get("log_every", 50),
+                  device=device, **depth_model_kwargs(cfg))
+
+    def src(split):
+        return depth_mod.make_source(
+            cfg.get("data_dir"), split,
+            synthetic=synthetic or cfg.get("data_dir") is None,
+            synthetic_n=cfg.get("synthetic_n", 256), hw=hw,
+            depth_scale=cfg.get("depth_scale",
+                                depth_mod.DEFAULT_DEPTH_SCALE),
+            max_depth=max_depth)
+
+    return (net, DataSet(src("train"), seed=cfg.get("seed", 0)),
+            DataSet(src("val")))
+
+
 def metric_loss(cfg: dict, head: str):
     """The metric recipe's loss of its model's ``head``."""
     if head == "arcface":
@@ -529,19 +631,21 @@ def build_metric(cfg: dict, synthetic: bool = False, *,
             DataSet(val_src, augment))
 
 
-TASKS = ("classification", "segmentation", "flow", "metric", "gan", "ssl",
-         "semisup", "distill")
+TASKS = ("classification", "segmentation", "flow", "metric", "depth", "gan",
+         "ssl", "semisup", "distill", "detection")
 # the tasks that build a ConvNet (``recipes/registry.py:38-56``: the
 # "convnet" rows); the others have step loops of their own
-CONVNET_TASKS = ("classification", "segmentation", "flow", "metric")
+CONVNET_TASKS = ("classification", "segmentation", "flow", "metric",
+                 "depth")
 
 
 def convnet_builder(task: str):
     """The ``ConvNet`` builder of a task (``recipes/registry.py:21``):
-    segmentation, flow and metric have their own, every other task the
-    classifier's."""
+    segmentation, flow, metric and depth have their own, every other task
+    the classifier's."""
     return {"segmentation": build_segmenter, "flow": build_flow,
-            "metric": build_metric}.get(task, build_classifier)
+            "metric": build_metric, "depth": build_depth}.get(
+        task, build_classifier)
 
 
 def check_task(cfg: dict) -> str:

@@ -15,6 +15,10 @@
         --images d/ [--out o/]
     python -m myconvnet_tpu_torch.serve --artifact dcgan.pt2 --sample 64 \\
         [--seed 0] [--out samples.png]
+    python -m myconvnet_tpu_torch.serve --artifact det.pt2 --detect \\
+        --images d/ [--det_threshold 0.5] [--config C]
+    python -m myconvnet_tpu_torch.serve --artifact depth.pt2 --depth \\
+        --images d/ [--out o/]
     # in memory from a recipe and a checkpoint of either package:
     python -m myconvnet_tpu_torch.serve --config configs/imagenet_resnet50.py \\
         --ckpt runs/r50/ --latency [--sizes 1,8,32]
@@ -35,17 +39,21 @@ each image's unit-norm embedding), ``--latency``
 ``--flow`` (``:466``, ``<name>_a.*``/``<name>_b.*`` pairs to
 ``<name>_flow.png``), ``--translate`` (``:646``, ``<name>_out.png``) and
 ``--sample N`` (``:676``, a grid of N images from latents drawn from
-``--seed`` with numpy, as JAX draws them); image directories are read by
-:func:`_iter_image_chunks` (``:302``).  ``--serve`` starts the HTTP server
-(``serving_http``): ``--config``/``--ckpt`` or ``--artifact`` make the
-route named ``default`` (an ``embed`` artifact's route is an embed
-route), each ``--route`` adds one, in either form of
-``serving_http.parse_route_spec``; ``--batch_window_ms`` > 0 coalesces
-concurrent requests to a route into one device call.  ``--device``
-(default cuda) is where the program runs: an artifact exported for
-another device type is refused.  ``--detect``, ``--depth``, ``--clips``,
-``--text``, ``--wav`` and ``--track`` are refused by name (their ROADMAP
-A17 families).  ``main(argv)`` returns what a mode printed, as data.
+``--seed`` with numpy, as JAX draws them), ``--detect`` (``:349``, each
+image's detections at or above ``--det_threshold`` printed, VOC class names
+with a VOC ``--config``) and ``--depth`` (``:438``, the depth range and mean
+printed, ``<name>_depth.png`` min/max-normalized written); image directories
+are read by :func:`_iter_image_chunks` (``:302``). ``--serve`` starts the
+HTTP server (``serving_http``): ``--config``/``--ckpt`` or ``--artifact``
+make the route named ``default`` (an ``embed`` artifact's route is an embed
+route, ``--detect``/``--depth`` a detect or depth one), each ``--route``
+adds one, in either form of ``serving_http.parse_route_spec``
+(``--det_threshold`` the detect routes' score floor); ``--batch_window_ms``
+> 0 coalesces concurrent requests to a route into one device call.
+``--device`` (default cuda) is where the program runs: an artifact exported
+for another device type is refused. ``--clips``, ``--text``, ``--wav`` and
+``--track`` are refused by name (their ROADMAP A17 families). ``main(argv)``
+returns what a mode printed, as data.
 """
 
 from __future__ import annotations
@@ -56,8 +64,7 @@ import os
 import numpy as np
 
 # unported one-shot modes -> their ROADMAP A17 family
-UNPORTED_MODES = {"detect": "detection", "depth": "depth",
-                  "clips": "video", "text": "OCR", "wav": "audio",
+UNPORTED_MODES = {"clips": "video", "text": "OCR", "wav": "audio",
                   "track": "tracking"}
 _IMAGE_EXTS = (".jpg", ".jpeg", ".png")
 
@@ -84,7 +91,7 @@ def main(argv=None):
     ap.add_argument("--topk", type=int, default=5)
     ap.add_argument("--images", default=None,
                     help="directory of images (classify, --segment, "
-                         "--translate, --flow)")
+                         "--detect, --depth, --translate, --flow)")
     ap.add_argument("--calibration", default=None,
                     help="calibration.json of test --calibrate (classify "
                          "--images: the fitted softmax temperature)")
@@ -113,8 +120,15 @@ def main(argv=None):
                     help="--latency of an artifact: H,W (must be its own)")
     ap.add_argument("--serve", metavar="HOST:PORT",
                     help="start the HTTP model server")
-    ap.add_argument("--detect", action="store_true", help="not ported")
-    ap.add_argument("--depth", action="store_true", help="not ported")
+    ap.add_argument("--detect", action="store_true",
+                    help="a detection artifact: raw [0, 1] images in, each "
+                         "image's detections printed")
+    ap.add_argument("--det_threshold", type=float, default=0.5,
+                    help="--detect: the minimum score to print (and the "
+                         "detect routes' default floor)")
+    ap.add_argument("--depth", action="store_true",
+                    help="a depth artifact: raw [0, 1] frames in, "
+                         "<name>_depth.png written")
     ap.add_argument("--text", action="store_true", help="not ported")
     ap.add_argument("--track", action="store_true", help="not ported")
     ap.add_argument("--clips", default=None, help="not ported")
@@ -157,7 +171,8 @@ def main(argv=None):
         return run_latency(fn, art_shape, args)
     run = {"segment": run_segment, "translate": run_translate,
            "flow": run_flow, "sample": run_sample,
-           "classify": run_classify, "embed": run_embed}[mode]
+           "classify": run_classify, "embed": run_embed,
+           "detect": run_detect, "depth": run_depth}[mode]
     return run(fn, art_shape, args)
 
 
@@ -166,6 +181,7 @@ def _mode(args, kind: str) -> str:
     embed artifact (no flag names it)."""
     return ("segment" if args.segment else "translate" if args.translate
             else "flow" if args.flow else "sample" if args.sample
+            else "detect" if args.detect else "depth" if args.depth
             else "embed" if kind == "embed" else "classify")
 
 
@@ -411,6 +427,59 @@ def run_flow(fn, art_shape, args):
     return out
 
 
+def run_detect(fn, art_shape, args):
+    """Detect in the images of ``--images`` (raw [0, 1]; the artifact
+    normalizes): each detection at or above ``--det_threshold`` printed
+    with its class (VOC's names with a VOC ``--config``) and box.  Returns
+    [(file name, [(label, score, box), ...]), ...]."""
+    from myconvnet_tpu_torch import serving_http
+
+    names = serving_http._class_names(_config(args), "detect")
+    batch, h, w, _ = art_shape
+    out = []
+    for paths, chunk in _iter_image_chunks(args.images, batch, h, w):
+        rows = serving_http._detections(
+            tuple(_host(t) for t in fn(chunk)), names, args.det_threshold)
+        for path, dets in zip(paths, rows):
+            base = os.path.basename(path)
+            if not dets:
+                print(f"{base}: no detections >= {args.det_threshold:g}",
+                      flush=True)
+            for d in dets:
+                b = d["box"]
+                print(f"{base}: {d['label']} {d['score']:.2f} "
+                      f"[{b[0]:.3f},{b[1]:.3f},{b[2]:.3f},{b[3]:.3f}]",
+                      flush=True)
+            out.append((base, [(d["label"], d["score"], d["box"])
+                               for d in dets]))
+    return out
+
+
+def run_depth(fn, art_shape, args):
+    """The depth of the frames of ``--images`` (raw [0, 1]): each frame's
+    range and mean printed, ``<name>_depth.png`` (min/max-normalized)
+    written.  Returns [(file name, depth [H, W] metres), ...]."""
+    from myconvnet_tpu_torch.utils.images import save_png
+
+    out_dir = args.out or args.images
+    batch, h, w, _ = art_shape
+    out = []
+    for paths, chunk in _iter_image_chunks(args.images, batch, h, w,
+                                           exclude_suffix=("_depth.png",)):
+        depth = _host(fn(chunk))
+        for i, path in enumerate(paths):
+            d = depth[i]
+            lo, hi = float(d.min()), float(d.max())
+            norm = (d - lo) / max(hi - lo, 1e-6)
+            base = os.path.splitext(os.path.basename(path))[0]
+            dst = save_png(os.path.join(out_dir, base + "_depth.png"),
+                           (norm * 255).astype(np.uint8))
+            print(f"{os.path.basename(path)}: depth [{lo:.2f}, {hi:.2f}]m "
+                  f"mean {float(d.mean()):.2f}m -> {dst}", flush=True)
+            out.append((os.path.basename(path), d))
+    return out
+
+
 def run_sample(fn, art_shape, args):
     """``--sample N``: N latents drawn batch by batch from
     ``np.random.RandomState(--seed)``, a grid PNG to ``--out``.  Returns
@@ -441,7 +510,7 @@ def run_server(args, device):
         kind = _mode(args, serving.artifact_meta(args.artifact)["kind"])
         routes.append(serving_http.artifact_route(
             "default", kind, args.artifact, args.config, device=device,
-            topk=args.topk))
+            topk=args.topk, threshold=args.det_threshold))
     elif args.config is not None:
         routes.append(serving_http.build_route(
             "default", "classify", args.config, ckpt=args.ckpt,
@@ -452,7 +521,8 @@ def run_server(args, device):
         except ValueError as e:
             raise SystemExit(str(e)) from e
         routes.append(serving_http.route_from_spec(
-            parsed, batch=args.batch, device=device, topk=args.topk))
+            parsed, batch=args.batch, device=device, topk=args.topk,
+            threshold=args.det_threshold))
     if not routes:
         raise SystemExit("--serve needs --config/--ckpt or a --route (or "
                          "--artifact)")

@@ -30,9 +30,14 @@ float32); translate takes [0, 1] images and returns [0, 1] images,
 clipped; sample takes [N, latent] latents and returns [0, 1] images; flow
 takes raw [0, 1] frame pairs [N, H, W, 6] and returns float32 [N, H, W,
 2]; embed (a metric recipe's eval forward) takes normalized rows and
-returns the unit-norm float32 embeddings.  The in-memory routes (``serving_http``) run the same programs:
-:func:`segment_program`, :func:`image_to_image_program` and
-:func:`normalizer` are theirs too.
+returns the unit-norm float32 embeddings; depth takes raw [0, 1] frames
+and returns metres [N, H, W] float32 (:func:`depth_map`); detect takes raw
+[0, 1] frames (the recipe's mean and std applied inside) and returns
+(boxes, scores, labels, valid) padded to ``max_detections`` rows, its NMS
+the fixed-trip form (``recipes_detection.make_detector_inference``).  The
+in-memory routes (``serving_http``) run the same programs:
+:func:`segment_program`, :func:`image_to_image_program`,
+:func:`depth_map` and :func:`normalizer` are theirs too.
 
 :func:`load_inference` imports ``torch`` and ``ops.kernels`` (which
 registers the ops) and nothing of ``models``: an artifact runs without
@@ -69,7 +74,12 @@ WIRE = {"classify": "normalized float32 [N, H, W, C] -> float32 logits",
         "flow": "raw [0, 1] float32 frame pairs [N, H, W, 6] -> float32 "
                 "flow [N, H, W, 2]",
         "embed": "normalized float32 [N, H, W, C] -> unit-norm float32 "
-                 "embeddings [N, D]"}
+                 "embeddings [N, D]",
+        "depth": "raw [0, 1] float32 [N, H, W, 3] -> metric depth float32 "
+                 "[N, H, W]",
+        "detect": "raw [0, 1] float32 [N, H, W, 3] -> (boxes float32 [N, D, "
+                  "4] normalized xyxy, scores float32 [N, D], labels int32 "
+                  "[N, D], valid bool [N, D])"}
 
 
 def _prepare(model: nn.Module, params, state, fold_bn: bool,
@@ -140,6 +150,12 @@ def segment_program(fn, hw):
         probs = torch.softmax(logits, -1)
         return logits.argmax(-1).to(torch.int32), probs.amax(-1)
     return segment
+
+
+def depth_map(d: torch.Tensor) -> torch.Tensor:
+    """A depth model's [N, H, W, 1] output -> [N, H, W] float32 metres
+    (``export_cli.py:399-400``)."""
+    return d[..., 0].float()
 
 
 def from_tanh(y):

@@ -1,5 +1,6 @@
 """HTTP model server on the Python stdlib: classify, embed, segment,
-translate and flow routes, with cross-request micro-batching.
+translate, flow, depth and detect routes, with cross-request
+micro-batching.
 
 Port of ``myconvnet_tpu/serving_http.py`` for the route kinds whose models
 the port has:
@@ -19,6 +20,13 @@ the port has:
                       [0, 1] in, [0, 1] out)
          flow      -> {"flows": [{"size", "mean_mag", "max_mag", "png"},
                       ...]}   (JSON [H, W, 6] frame pairs only)
+         depth     -> {"depths": [{"size", "min", "max", "mean", "png"},
+                      ...]}   (metres; the PNG min/max-normalized, near
+                      is bright)
+         detect    -> {"detections": [[{"box", "score", "label"}, ...],
+                      ...]}   (the detections at or above the route's
+                      threshold, 0.5 unless ``?threshold=`` or
+                      ``serve --det_threshold`` says otherwise)
 
 A route is built from a recipe config plus a checkpoint of either package
 (or parameter trees in memory) by :func:`build_route`, or from an artifact
@@ -27,8 +35,9 @@ NAME=KIND:ARTIFACT[:CONFIG]``; :func:`parse_route_spec` tells the two
 forms apart).  A route's program is the chain JAX's exported artifact
 computes (``serving.py:220-277`` for segment, ``:377-427`` with
 ``export_cli.py:226-240`` for translate, ``export_cli.py:355-427`` for
-flow): in memory it runs eagerly on the route's device, and the port's
-artifact of the same kind holds the same program (``serving``'s
+flow and depth, ``recipes/detection.py:458-525`` for detect): in memory it
+runs eagerly on the route's device, and the port's artifact of the same kind
+holds the same program (``serving``'s
 ``segment_program``, ``image_to_image_program``, ``normalizer``).  Each
 request is first brought to the program's input space: an image body is
 decoded on the host with JAX's geometry (Pillow ``convert``, then a
@@ -37,9 +46,10 @@ the route's device by the ``normalize_u8`` kernel (B2), one launch a
 request, with the recipe's mean and std (classify, embed, in-memory
 segment) or
 mean = std = 0.5 (in-memory translate: exactly ``x * 2 - 1``), or mean 0
-and std 1 (segment and translate artifacts, which take [0, 1] and
-normalize inside); a JSON body of raw [0, 1] rows is normalized on the
-host for classify and embed (``serving_http.py:373-374``, ``:383-392``)
+and std 1 (segment and translate artifacts, depth and detect routes, which
+take [0, 1] and normalize inside); a JSON body of raw [0, 1] rows is
+normalized on the host for classify and embed (``serving_http.py:373-374``,
+``:383-392``)
 and inside the program on
 the device for segment and translate, as JAX's artifacts do; flow takes
 its rows raw.  The rows then run through the
@@ -58,6 +68,7 @@ import time
 from dataclasses import dataclass
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, NamedTuple, Optional, Sequence
+from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 import torch
@@ -65,10 +76,15 @@ import torch
 from myconvnet_tpu_torch.ops.kernels.normalize_u8 import (device_stats,
                                                           normalize_u8)
 
-KINDS = ("classify", "embed", "segment", "translate", "flow")
+KINDS = ("classify", "embed", "segment", "translate", "flow", "depth",
+         "detect")
 # the recipe task each kind serves
 TASK_OF = {"classify": "classification", "embed": "metric",
-           "segment": "segmentation", "translate": "gan", "flow": "flow"}
+           "segment": "segmentation", "translate": "gan", "flow": "flow",
+           "depth": "depth", "detect": "detection"}
+# the kinds whose programs take raw [0, 1] frames: an image body goes
+# through B2 at mean 0 and std 1
+RAW_INPUT = ("depth", "detect")
 # the kinds whose JSON rows are normalized on the host, as classify's
 HOST_NORMALIZED = ("classify", "embed")
 
@@ -91,6 +107,7 @@ class Route:
     # step
     pre: Optional[Callable] = None
     artifact: Optional[str] = None   # the file an artifact route serves
+    threshold: float = 0.5           # detect: the default score floor
 
     def describe(self) -> dict:
         return {"name": self.name, "kind": self.kind,
@@ -144,15 +161,17 @@ def parse_route_spec(spec: str) -> RouteSpec:
 
 def route_from_spec(spec: RouteSpec, *, batch: int = 8,
                     device: str | torch.device | None = None,
-                    topk: int = 5) -> "Route":
+                    topk: int = 5, threshold: float = 0.5) -> "Route":
     """The route of a parsed spec: :func:`artifact_route` (on the
     artifact's device unless ``device`` is given; its batch is the
     artifact's) or :func:`build_route`."""
     if spec.artifact is not None:
         return artifact_route(spec.name, spec.kind, spec.artifact,
-                              spec.config, device=device, topk=topk)
+                              spec.config, device=device, topk=topk,
+                              threshold=threshold)
     return build_route(spec.name, spec.kind, spec.config, ckpt=spec.ckpt,
-                       batch=batch, device=device or "cuda", topk=topk)
+                       batch=batch, device=device or "cuda", topk=topk,
+                       threshold=threshold)
 
 
 def _trees(cfg, kind, ckpt, params, state):
@@ -160,8 +179,10 @@ def _trees(cfg, kind, ckpt, params, state):
     if (ckpt is None) == (params is None):
         raise ValueError("pass exactly one of ckpt or params")
     if ckpt is not None:
-        fields = (("g_params", "g_state") if kind == "translate"
-                  else ("params", "model_state"))
+        # a GAN checkpoint's generator; a detector's DetState fields
+        fields = {"translate": ("g_params", "g_state"),
+                  "detect": ("params", "state")}.get(
+            kind, ("params", "model_state"))
         params, state = load_jax_checkpoint(ckpt, fields)
     return params, state or {}
 
@@ -177,13 +198,16 @@ def _class_names(cfg, kind):
     if ds == "voc" and kind == "segment":
         from myconvnet_tpu_torch.subsets.voc import SEG_CLASS_NAMES
         return SEG_CLASS_NAMES
+    if ds == "voc" and kind == "detect":
+        from myconvnet_tpu_torch.subsets.voc import DET_CLASS_NAMES
+        return DET_CLASS_NAMES
     return None
 
 
 def build_route(name: str, kind: str, config: str | dict, *,
                 ckpt: Optional[str] = None, params=None, state=None,
                 batch: int = 8, device: str | torch.device = "cuda",
-                topk: int = 5) -> Route:
+                topk: int = 5, threshold: float = 0.5) -> Route:
     """Build the recipe's model, load a checkpoint of either package
     (``ckpt``; a GAN checkpoint's generator for translate) or parameter
     trees (``params``, ``state``) into it, and wrap its program as a route
@@ -249,32 +273,61 @@ def build_route(name: str, kind: str, config: str | dict, *,
             device=device, policy=policy), post=serving.from_tanh)
         mean = std = np.full(3, 0.5, np.float32)
         nch = 3
-    else:
+    elif kind == "flow":
         h, w = cfg.get("input_hw", (384, 512))
         model = models.FLOW_MODELS[cfg["model"]](
             0, **cfg.get("model_kwargs", {}))
         fn = serving.make_inference_fn(model, params, state, fold_bn=False,
                                        device=device, policy=policy)
         nch = 6
+    elif kind == "depth":
+        # the program export_depth traces: raw [0, 1] in, metres out
+        from myconvnet_tpu_torch.models.depth import DEPTH_MODELS
+        h, w = cfg.get("input_hw", (96, 128))
+        model = DEPTH_MODELS[cfg.get("model", "depth_unet")](
+            0, **recipes.depth_model_kwargs(cfg))
+        inner = serving.make_inference_fn(model, params, state,
+                                          fold_bn=False, device=device,
+                                          policy=policy)
+        fn = lambda x: serving.depth_map(inner(x))  # noqa: E731
+        nch = 3
+    else:
+        from myconvnet_tpu_torch import recipes_detection
+        from myconvnet_tpu_torch.weights import from_jax
+        chain = recipes_detection.detector_chain(cfg)
+        model = chain.model_fn(cfg["num_classes"],
+                               **dict(cfg.get("model_kwargs", {})))
+        from_jax(model, params, state)
+        detect = recipes_detection.make_detector_inference(cfg, model,
+                                                           device)[0]
+
+        @torch.inference_mode()
+        def fn(x):
+            return detect(torch.as_tensor(x).to(device, torch.float32))
+        h, w = chain.hw
+        nch = 3
     if kind in ("segment", "translate"):
         pre = serving.normalizer(mean, std, device)
+    if kind in RAW_INPUT:
+        mean, std = np.zeros(3, np.float32), np.ones(3, np.float32)
     return Route(name=name, kind=kind, fn=fn, input_shape=(batch, h, w, nch),
                  mean=mean, std=std, topk=topk, device=device,
-                 class_names=_class_names(cfg, kind), pre=pre)
+                 class_names=_class_names(cfg, kind), pre=pre,
+                 threshold=threshold)
 
 
 def artifact_route(name: str, kind: str, artifact: str,
                    config: Optional[str | dict] = None, *,
                    device: str | torch.device | None = None,
-                   topk: int = 5) -> Route:
+                   topk: int = 5, threshold: float = 0.5) -> Route:
     """A route of kind ``kind`` over an artifact of ``test --export``
     (``serving_http.py:95-150``): its program and fixed batch are the
     artifact's, and no model code is loaded.  ``config`` (optional) gives
     the class names and, for classify and embed, the normalization (the
     ImageNet statistics without it, as JAX's ``AugmentConfig``
-    defaults).  Segment and translate artifacts take raw [0, 1] rows, so
-    an image body goes through B2 with mean 0 and std 1 (``x / 255``); a
-    JSON body reaches the artifact as it came."""
+    defaults).  Segment, translate, depth and detect artifacts take raw
+    [0, 1] rows, so an image body goes through B2 with mean 0 and std 1
+    (``x / 255``); a JSON body reaches the artifact as it came."""
     from myconvnet_tpu_torch import recipes, serving
 
     if kind not in KINDS:
@@ -295,12 +348,13 @@ def artifact_route(name: str, kind: str, artifact: str,
     mean = std = None
     if kind in HOST_NORMALIZED:
         mean, std = recipes.normalization(cfg, shape[3])
-    elif kind in ("segment", "translate"):
+    elif kind in ("segment", "translate", *RAW_INPUT):
         mean = np.zeros(shape[3], np.float32)
         std = np.ones(shape[3], np.float32)
     return Route(name=name, kind=kind, fn=fn, input_shape=tuple(shape),
                  mean=mean, std=std, topk=topk, device=fn.device,
-                 class_names=_class_names(cfg, kind), artifact=artifact)
+                 class_names=_class_names(cfg, kind), artifact=artifact,
+                 threshold=threshold)
 
 
 def _host(t: torch.Tensor, n: int) -> np.ndarray:
@@ -350,6 +404,26 @@ def _class_coverage(cls: np.ndarray, names=None, top: int = 5) -> dict:
         label = names[cid] if names and cid < len(names) else str(cid)
         cov[label] = round(float(counts[j]) / cls.size, 4)
     return cov
+
+
+def _detections(out, names, threshold: float) -> list:
+    """Each image's valid detections at or above ``threshold``: box
+    (normalized xyxy), score and label (the class name where the recipe
+    has names, else the id)."""
+    boxes, scores, labels, valid = out
+    rows = []
+    for bi, si, li, vi in zip(boxes, scores, labels, valid):
+        dets = []
+        for b, sc, lab, v in zip(bi, si, li, vi):
+            if not v or sc < threshold:
+                continue
+            lab = int(lab)
+            dets.append({"box": [round(float(c), 5) for c in b],
+                         "score": round(float(sc), 5),
+                         "label": names[lab - 1] if names
+                         and 1 <= lab <= len(names) else str(lab)})
+        rows.append(dets)
+    return rows
 
 
 class _Batcher:
@@ -491,7 +565,10 @@ class ModelServer:
         return x
 
     def predict(self, name: str, body: bytes,
-                content_type: str = "application/json") -> dict:
+                content_type: str = "application/json",
+                threshold: Optional[float] = None) -> dict:
+        """The route's reply to a request body; ``threshold`` overrides a
+        detect route's score floor."""
         route = self.routes.get(name)
         if route is None:
             raise KeyError(name)
@@ -526,6 +603,23 @@ class ModelServer:
                 "mean_conf": round(float(np.mean(p)), 4)}
                 for c, p in zip(classes, conf)]}
         from myconvnet_tpu_torch.utils.images import png_bytes
+        if route.kind == "detect":
+            return {"detections": _detections(
+                self._execute(route, x), route.class_names,
+                route.threshold if threshold is None else threshold)}
+        if route.kind == "depth":
+            d = np.asarray(self._execute(route, x), np.float32)
+            out = []
+            for di in d:
+                lo, hi = float(di.min()), float(di.max())
+                vis = 1.0 - (di - lo) / max(hi - lo, 1e-6)
+                out.append({"size": list(di.shape), "min": round(lo, 4),
+                            "max": round(hi, 4),
+                            "mean": round(float(di.mean()), 4),
+                            "png": base64.b64encode(png_bytes(
+                                (vis * 255).astype(np.uint8))).decode(
+                                    "ascii")})
+            return {"depths": out}
         if route.kind == "translate":
             out = self._execute(route, x)
             return {"images": [base64.b64encode(png_bytes(
@@ -582,8 +676,11 @@ def make_http_server(server: ModelServer, host: str = "127.0.0.1",
             body = self.rfile.read(int(self.headers.get("Content-Length",
                                                         0)))
             ctype = self.headers.get("Content-Type", "application/json")
+            qs = parse_qs(urlparse(self.path).query)
             try:
-                result = server.predict(name, body, ctype)
+                thr = (float(qs["threshold"][0]) if "threshold" in qs
+                       else None)
+                result = server.predict(name, body, ctype, threshold=thr)
             except KeyError:
                 return self._send(404, {"error": f"no model {name!r}"})
             except (ValueError, OSError) as e:  # bad payload

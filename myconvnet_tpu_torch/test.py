@@ -1,11 +1,12 @@
 """Evaluation entry point of the port (classification, segmentation,
-optical-flow, metric-learning, pix2pix, self-supervised, semi-supervised
-and distillation recipes).
+optical-flow, metric-learning, depth, detection, pix2pix, self-supervised,
+semi-supervised and distillation recipes).
 
     python -m myconvnet_tpu_torch.test --config configs/cifar100_resnet18.py \\
         --synthetic --ckpt DIR [--batch N] [--best | --average N] [--ema] \\
         [--tta flip|ten_crop] [--topk K] [--report] [--calibrate] \\
-        [--scales S,S,...] [--set KEY=VALUE ...] [--device cuda]
+        [--scales S,S,...] [--save_preds DIR] [--set KEY=VALUE ...] \
+        [--device cuda]
     python -m myconvnet_tpu_torch.test --config configs/sngan_cifar10.py \\
         --synthetic --ckpt DIR --fid \\
         --fid_extractor configs/cifar100_resnet18.py:CLS_DIR [--fid_samples 256]
@@ -45,7 +46,18 @@ stay refused by name.  A self-supervised recipe (``task="ssl"``) goes to
 re-exported beside the checkpoint (``--export`` adds nothing there, as in
 JAX).  A metric recipe is a ConvNet scored by retrieval Recall@K
 (``recall_k``; ``--report`` adds Recall@1-8 and mAP@R), and ``--export``
-writes its ``embed`` artifact (``export_cli.export_metric``).  A FixMatch
+writes its ``embed`` artifact (``export_cli.export_metric``).  A depth
+recipe is a ConvNet scored by the Eigen protocol (``depth_metric``,
+AbsRel by default; ``--report`` prints all seven), exported by
+``export_cli.export_depth``.  ``--save_preds DIR`` (``test.py:272-330``)
+writes the val split's predictions as JAX does: segmentation
+``<i>_mask.png`` and ``<i>_overlay.png``, depth ``<i>_depth16.png``
+(uint16 in the recipe's ``depth_scale``) and ``<i>_depth.png`` (near is
+bright), flow ``<i>_flow.flo`` and ``<i>_flow.png``.  A one-stage
+detection recipe goes to :func:`eval_detection` (``test.py:379-452``):
+VOC mAP, or COCO's mAP@[.5:.95] and its curve with ``--coco``, the
+per-class AP with ``--report``; ``--export`` writes its ``detect``
+artifact (``export_cli.export_detection``).  A FixMatch
 checkpoint goes to :func:`eval_semisup` (``test.py:507-519``: the EMA
 model's top-1), a distillation checkpoint to :func:`eval_distill`
 (``:522-560``: the student's top-1 from the self-contained checkpoint,
@@ -93,6 +105,12 @@ def main(argv=None):
     ap.add_argument("--scales", default=None,
                     help="segmentation: comma-separated input scales of the "
                          "multi-scale + flip eval")
+    ap.add_argument("--save_preds", default=None, metavar="DIR",
+                    help="segmentation, depth, flow: write the val split's "
+                         "predictions as PNGs (and .flo) under DIR")
+    ap.add_argument("--coco", action="store_true",
+                    help="detection: report COCO-style mAP@[.5:.95] (and "
+                         "its per-threshold curve) instead of VOC mAP@0.5")
     ap.add_argument("--calibrate", action="store_true",
                     help="fit a softmax temperature on the val split and "
                          "report ECE before/after (classification)")
@@ -133,6 +151,10 @@ def main(argv=None):
         raise SystemExit("test --fid of a diffusion recipe is not ported "
                          "(the diffusion family, ROADMAP A17)")
     task = recipes.check_task(cfg)
+    if args.save_preds and task not in SAVE_PREDS_TASKS:
+        raise SystemExit(f"test --save_preds writes "
+                         f"{', '.join(SAVE_PREDS_TASKS)} predictions, not "
+                         f"{task!r} ones")
     if task in TASK_EVAL:
         return TASK_EVAL[task](cfg, args, device)
     if args.fid:
@@ -209,7 +231,66 @@ def eval_convnet(cfg: dict, args, device):
     if args.report and hasattr(evaluator, "report"):
         print(evaluator.report(getattr(val_set.source, "class_names",
                                        None)), flush=True)
+    if args.save_preds:
+        save_preds(cfg, args, net, val_set)
     return score, net
+
+
+# the tasks whose predictions --save_preds writes (test.py:272-330)
+SAVE_PREDS_TASKS = ("segmentation", "depth", "flow")
+
+
+def save_preds(cfg: dict, args, net, val_set) -> int:
+    """Write the val split's predictions under ``--save_preds``
+    (``test.py:272-330``); returns the images written."""
+    import numpy as np
+
+    from myconvnet_tpu_torch.utils.images import save_png
+    task, out, batch = cfg["task"], args.save_preds, cfg["batch_size"]
+    os.makedirs(out, exist_ok=True)
+    idx = 0
+    for x, _ in val_set.eval_iter(batch, net.device):
+        if task == "segmentation":
+            from myconvnet_tpu_torch.utils.images import (colorize_mask,
+                                                          overlay_mask)
+            ignore = cfg.get("ignore_label", 255)
+            scales = (tuple(float(s) for s in args.scales.split(","))
+                      if args.scales else (1.0,))
+            pred = net.predict_segmentation(x, scales=scales,
+                                            flip=bool(args.scales),
+                                            batch_size=len(x))
+            img = x.cpu().numpy()
+            for j in range(len(x)):
+                save_png(os.path.join(out, f"{idx:05d}_mask.png"),
+                         colorize_mask(pred[j], ignore_label=ignore))
+                save_png(os.path.join(out, f"{idx:05d}_overlay.png"),
+                         overlay_mask(img[j], pred[j], ignore_label=ignore))
+                idx += 1
+            continue
+        pred = net.predict(x, batch_size=len(x))
+        for j in range(len(x)):
+            if task == "depth":
+                # the corpus's own integer scale, so that the reader takes
+                # back what is written
+                d = pred[j, ..., 0]
+                scale = float(cfg.get("depth_scale", 1000.0))
+                save_png(os.path.join(out, f"{idx:05d}_depth16.png"),
+                         np.clip(d * scale, 0, 65535).astype(np.uint16))
+                vis = np.clip(1.0 - d / float(cfg.get("max_depth", 10.0)),
+                              0.0, 1.0)
+                save_png(os.path.join(out, f"{idx:05d}_depth.png"),
+                         (vis * 255).astype(np.uint8))
+            else:
+                from myconvnet_tpu_torch.subsets.flow import write_flo
+                from myconvnet_tpu_torch.utils.images import flow_to_color
+                write_flo(os.path.join(out, f"{idx:05d}_flow.flo"), pred[j])
+                save_png(os.path.join(out, f"{idx:05d}_flow.png"),
+                         flow_to_color(pred[j]))
+            idx += 1
+    what = {"segmentation": "prediction", "depth": "depth-map",
+            "flow": "flow"}[task]
+    print(f"wrote {idx} {what} pairs to {out}", flush=True)
+    return idx
 
 
 def calibrate(net, val_set, batch: int, ckpt: str) -> dict:
@@ -442,10 +523,51 @@ def eval_gan(cfg: dict, args, device):
     return (psnr, ssim), trainer
 
 
+def eval_detection(cfg: dict, args, device):
+    """Score a detection checkpoint (``test.py:379-452``): VOC mAP over the
+    val split, COCO's mAP@[.5:.95] and its curve with ``--coco``, the AP
+    of each class with ``--report``; ``--best`` restores ``best.npz``;
+    ``--export`` writes the ``detect`` artifact instead.  Returns (score,
+    trainer)."""
+    from myconvnet_tpu_torch import recipes, recipes_detection
+    from myconvnet_tpu_torch.ckpt import checkpoint as ckpt_lib
+    from myconvnet_tpu_torch.eval.detection import COCOMeanAPEvaluator
+
+    trainer, _, val_set = recipes_detection.build_detector(
+        cfg, args.synthetic, device=device)
+    path = args.ckpt
+    if args.best:
+        path = ckpt_lib.best_checkpoint(args.ckpt)
+        if path is None:
+            raise SystemExit(f"no best.npz under {args.ckpt!r}")
+    trainer.restore(path)
+    if args.export:
+        from myconvnet_tpu_torch import export_cli
+        export_cli.export_detection(cfg, args, trainer, device)
+        return args.export
+    if args.coco:
+        cfg = dict(cfg, map_style="coco")
+    evaluator = recipes.build_evaluator(cfg)
+    score = recipes_detection.evaluate_detection(
+        trainer, val_set, cfg["batch_size"], evaluator)
+    if isinstance(evaluator, COCOMeanAPEvaluator):
+        print(f"mAP@[.5:.95]: {score:.4f}", flush=True)
+        for t, v in evaluator.per_threshold().items():
+            print(f"  mAP@{t:.2f}  {v:.4f}", flush=True)
+    else:
+        print(f"mAP@{evaluator.iou_threshold:g}: {score:.4f}", flush=True)
+    if args.report:
+        names = getattr(val_set.source, "class_names", None)
+        for c, ap in sorted(evaluator.per_class_ap().items()):
+            label = names[c - 1] if names else str(c)
+            print(f"  {label:<14} AP {ap:.4f}", flush=True)
+    return score, trainer
+
+
 # task -> its eval function (``test.py:729-737``, the tasks the port has);
 # the ConvNet tasks go to eval_convnet
 TASK_EVAL = {"gan": eval_gan, "ssl": eval_ssl, "semisup": eval_semisup,
-             "distill": eval_distill}
+             "distill": eval_distill, "detection": eval_detection}
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Training entry point of the port (classification, segmentation,
-optical-flow, metric-learning, GAN, self-supervised, semi-supervised and
-distillation recipes).
+optical-flow, metric-learning, depth, detection, GAN, self-supervised,
+semi-supervised and distillation recipes).
 
     python -m myconvnet_tpu_torch.train --config configs/cifar100_resnet18.py \\
         --synthetic --steps N --out DIR [--batch N] [--val_every N] \\
@@ -13,7 +13,9 @@ Port of ``train.py:22-213``: config -> the task's ``ConvNet`` builder ->
 ``pretrained`` warm start unless resuming, ``--resume`` from the newest
 checkpoint under ``--out``, ``ConvNet.train`` under a
 :class:`PreemptionGuard` (and a ``torch.profiler`` trace under
-``--out/trace`` with ``--trace``), the final validation and save.  A
+``--out/trace`` with ``--trace``), the final validation (the state
+saved once a step: ``train.py``'s save after it rewrites what ``fit``
+wrote, and is left out).  A
 crash restarts from the newest checkpoint up to ``--max_restarts`` times
 (``train.py:124-138``); ``MYCONVNET_FAULT_ONCE`` injects one crash after
 training, to test that path.  A GAN recipe (``task="gan"``) goes to
@@ -21,8 +23,10 @@ training, to test that path.  A GAN recipe (``task="gan"``) goes to
 (``train.py:216``, ``:450``); a self-supervised (``task="ssl"``), FixMatch
 (``task="semisup"``) or distillation (``task="distill"``) one to
 :func:`run_steploop` (``train.py:216-327``) through :func:`adapt_ssl`,
-:func:`adapt_semisup` or :func:`adapt_distill` (``:358-404``); a
-metric-learning recipe (``task="metric"``) is a ConvNet run.  A recipe
+:func:`adapt_semisup` or :func:`adapt_distill` (``:358-404``), a
+one-stage detection recipe (``task="detection"``) through
+:func:`adapt_detection` (``:339-355``: ``val_mAP`` the validation score);
+a metric-learning or depth recipe is a ConvNet run.  A recipe
 with a ``pipeline`` block (GPipe, ``train.py:112-122``) is refused by
 name (ROADMAP A16).  ``--tensorboard``
 logs to a ``SummaryWriter`` under ``--out/tb`` where the ``tensorboard``
@@ -207,7 +211,8 @@ def run_supervised(cfg: dict, args, out: str, device: torch.device,
         score = net.evaluate(val_set, evaluator,
                              batch_size=cfg["batch_size"])
         print(f"final val {evaluator.name}: {score:.4f}", flush=True)
-        net.save()
+        # (no save here, as train.py has: net.train's fit wrote this
+        # state, and the evaluation changes nothing of it)
     net.logger.close()
     return net
 
@@ -261,7 +266,8 @@ def run_steploop(cfg: dict, args, out: str, device: torch.device,
     from the newest checkpoint, the metrics (with the uint8 images a
     second) and a checkpoint every ``log_every`` steps (the newest two
     kept), the validation every ``val_every`` steps (``best.npz`` when it
-    improves), the final checkpoint and validation.  Returns the
+    improves), the final checkpoint (unless the last step's was just
+    written) and validation.  Returns the
     trainer."""
     from myconvnet_tpu_torch.ckpt import checkpoint as ckpt_lib
     from myconvnet_tpu_torch.utils.logging import MetricLogger
@@ -276,7 +282,7 @@ def run_steploop(cfg: dict, args, out: str, device: torch.device,
     val_every = cfg.get("val_every", 0)
     validate = spec.get("validate")
     display = spec.get("display", {})
-    best = None
+    best = saved_at = None
     logger = MetricLogger(out, name=name)
     with PreemptionGuard() as guard:
         it = spec["make_iter"]()
@@ -299,6 +305,7 @@ def run_steploop(cfg: dict, args, out: str, device: torch.device,
                                                        - t0)
                     logger.log(trainer.step, host)
                     trainer.save(out)
+                    saved_at = trainer.step
                     t0, window = time.perf_counter(), 0
                 if validate is not None and val_every \
                         and trainer.step % val_every == 0:
@@ -309,10 +316,12 @@ def run_steploop(cfg: dict, args, out: str, device: torch.device,
                     if best is None or score > best:
                         best = score
                         trainer.save(out, metric=score, is_best=True)
+                        saved_at = trainer.step
         finally:
             if hasattr(it, "close"):
                 it.close()
-        trainer.save(out)
+        if saved_at != trainer.step:   # else written at this very step
+            trainer.save(out)
         if validate is not None:
             key, score = validate()
             top = best if best is not None and best > score else score
@@ -385,10 +394,28 @@ def adapt_distill(cfg: dict, args, out: str, device: torch.device) -> dict:
                     val_set.eval_iter(eval_batch, device))))
 
 
+def adapt_detection(cfg: dict, args, out: str, device: torch.device
+                    ) -> dict:
+    """A detection recipe's spec (``train.py:339-355``): the train split's
+    (images, boxes, labels) batches, the val split's mAP as ``val_mAP``."""
+    from myconvnet_tpu_torch import recipes, recipes_detection
+
+    trainer, train_set, val_set = recipes_detection.build_detector(
+        cfg, args.synthetic, device=device)
+    evaluator = recipes.build_evaluator(cfg)
+    batch = cfg["batch_size"]
+    return dict(name="detection", trainer=trainer,
+                make_iter=lambda: train_set.train_iter(batch, device),
+                display={"val_mAP": "val mAP"},
+                validate=lambda: ("val_mAP",
+                                  recipes_detection.evaluate_detection(
+                                      trainer, val_set, batch, evaluator)))
+
+
 # task -> its run_steploop adapter (``train.py:476-484``, the tasks the
 # port has)
 STEPLOOP_ADAPTERS = {"ssl": adapt_ssl, "semisup": adapt_semisup,
-                     "distill": adapt_distill}
+                     "distill": adapt_distill, "detection": adapt_detection}
 
 
 if __name__ == "__main__":

@@ -3,7 +3,8 @@
 Port of ``myconvnet_tpu/train/losses.py``: softmax cross-entropy
 (``:15-28``), its per-pixel form with the ignore label (``:31-44``), the
 soft Dice loss (``:49-68``) and the fused CE + Dice (``:113-139``), the
-focal loss (``:71-110``, over [N, C] or [N, H, W, C]) and the
+focal loss (``:71-110``, over [N, C] or [N, H, W, C]), the
+scale-invariant log loss of monocular depth (``:142-156``) and the
 optical-flow objectives (``:159-334``): the Charbonnier end-point error
 with NaN-masked targets, its multi-scale form for the coarse-to-fine nets,
 and the unsupervised photometric + smoothness objective with its forward-
@@ -138,6 +139,22 @@ def focal_loss(logits: torch.Tensor, labels: torch.Tensor, *,
             w = w * a                          # uniform rescale
     loss = -w * logp_t * valid
     return loss.sum() / valid.sum().clamp(min=1.0)
+
+
+def silog_loss(pred: torch.Tensor, target: torch.Tensor, *,
+               lam: float = 0.5, eps: float = 1e-6) -> torch.Tensor:
+    """Eigen's scale-invariant log loss over the valid pixels (target >
+    0): ``d = log(pred) - log(gt)``, ``mean(d²) - lam mean(d)²``, in
+    float32.  ``jnp.maximum``'s gradient split at a tie with ``eps`` is
+    ``torch.maximum``'s."""
+    p = pred.float()
+    p = torch.maximum(p, p.new_tensor(eps))
+    t = target.float()
+    valid = (t > 0).float()
+    n = torch.clamp(valid.sum(), min=1.0)
+    d = (torch.log(p) - torch.log(torch.maximum(t, t.new_tensor(eps)))) \
+        * valid
+    return (d * d).sum() / n - lam * torch.square(d.sum() / n)
 
 
 def epe_loss(pred: torch.Tensor, target: torch.Tensor, *,

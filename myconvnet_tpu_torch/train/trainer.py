@@ -374,6 +374,7 @@ class Trainer:
         # (end step, start step, metrics), read one step late so that the
         # host's read does not wait on the step it just enqueued
         pending = None
+        saved_at = None   # the step of this run's newest checkpoint
         t0, window, input_wait = time.perf_counter(), 0, 0.0
         it = iter(train_iter)
         try:
@@ -425,6 +426,7 @@ class Trainer:
                         plateau_bad = 0
                     if self.ckpt_dir:
                         self.save(metric=score, is_best=improved)
+                        saved_at = self.step
                     if early_stop_patience \
                             and bad_rounds >= early_stop_patience:
                         self.logger.log(self.step, {"early_stop": 1.0})
@@ -432,7 +434,8 @@ class Trainer:
             if pending is not None:
                 self._log_train(pending[0], pending[2], window, t0,
                                 input_wait)
-            if self.ckpt_dir:
+            if self.ckpt_dir and saved_at != self.step:
+                # (a validation just wrote this step's state)
                 self.save()
         finally:
             if hasattr(train_iter, "close"):

@@ -1,11 +1,13 @@
 """Image artifacts: sample grids, uint8 conversion and PNG files.
 
 Port of ``myconvnet_tpu/utils/images.py`` (``make_grid:17``,
-``to_uint8:36``, ``voc_palette:44``, ``colorize_mask:60``, ``save_png:84``,
-``flow_to_color:94``).  ``to_uint8`` takes a tensor and keeps
-it on its device, with the JAX function's float32 steps.  ``save_png``
-writes the PNG itself with ``zlib`` and ``struct`` (8-bit grayscale or
-RGB, no filter), so no image library is needed.
+``to_uint8:36``, ``voc_palette:44``, ``colorize_mask:60``,
+``overlay_mask:74``, ``save_png:84``, ``flow_to_color:94``).  ``to_uint8``
+takes a tensor and keeps it on its device, with the JAX function's float32
+steps.  ``save_png`` writes the PNG itself with ``zlib`` and ``struct``
+(8-bit grayscale or RGB, or 16-bit grayscale as the depth maps' uint16
+millimetres; no filter), so no image library is needed; Pillow reads back
+the pixels JAX's Pillow writer wrote.
 """
 
 from __future__ import annotations
@@ -54,20 +56,25 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
 
 
 def png_bytes(image: np.ndarray) -> bytes:
-    """[H, W], [H, W, 1] or [H, W, 3] uint8 as the bytes of a PNG."""
+    """[H, W], [H, W, 1] or [H, W, 3] uint8, or [H, W] uint16 (16-bit
+    gray, the depth maps' millimetres), as the bytes of a PNG."""
     arr = np.asarray(image)
     if arr.ndim == 3 and arr.shape[-1] == 1:
         arr = arr[..., 0]
-    if arr.dtype != np.uint8 or not (arr.ndim == 2 or (
-            arr.ndim == 3 and arr.shape[-1] == 3)):
-        raise ValueError(f"save_png writes uint8 gray or RGB, not "
-                         f"{arr.dtype} {arr.shape}")
+    gray16 = arr.dtype == np.uint16 and arr.ndim == 2
+    if not gray16 and (arr.dtype != np.uint8 or not (arr.ndim == 2 or (
+            arr.ndim == 3 and arr.shape[-1] == 3))):
+        raise ValueError(f"save_png writes uint8 gray or RGB or uint16 "
+                         f"gray, not {arr.dtype} {arr.shape}")
     h, w = arr.shape[:2]
     color = 0 if arr.ndim == 2 else 2
-    rows = np.ascontiguousarray(arr).reshape(h, -1)
+    # PNG samples are big-endian
+    rows = np.ascontiguousarray(arr.astype(">u2") if gray16
+                                else arr).reshape(h, -1)
     raw = b"".join(b"\x00" + row.tobytes() for row in rows)
     png = (b"\x89PNG\r\n\x1a\n"
-           + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0,
+           + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h,
+                                         16 if gray16 else 8, color, 0, 0,
                                          0))
            + _chunk(b"IDAT", zlib.compress(raw, 6))
            + _chunk(b"IEND", b""))
@@ -100,8 +107,20 @@ def colorize_mask(mask: np.ndarray, ignore_label: int | None = 255
     return rgb
 
 
+def overlay_mask(image_u8: np.ndarray, mask: np.ndarray,
+                 alpha: float = 0.5,
+                 ignore_label: int | None = 255) -> np.ndarray:
+    """The colourized mask blended over an image (both [H, W, ...] uint8)
+    (``utils/images.py:74-81``)."""
+    color = colorize_mask(mask, ignore_label=ignore_label)
+    out = (np.asarray(image_u8, np.float32) * (1 - alpha)
+           + color.astype(np.float32) * alpha)
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
 def save_png(path: str, image: np.ndarray) -> str:
-    """Write [H, W], [H, W, 1] or [H, W, 3] uint8 as a PNG."""
+    """Write [H, W], [H, W, 1] or [H, W, 3] uint8 (or [H, W] uint16) as a
+    PNG."""
     png = png_bytes(image)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "wb") as f:

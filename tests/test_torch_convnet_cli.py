@@ -320,7 +320,7 @@ def test_recipe_keys_the_port_now_trains(key):
     (dict(cls_loss="hinge"), "cls_loss"),
     (dict(pretrained=dict(path="r50.pth")), "'pretrained'"),
     (dict(pretrained="encoder.npz"), "'pretrained'"),
-    (dict(task="detection"), "tasks")],
+    (dict(task="ocr"), "tasks")],
     ids=["focal_mix", "focal_smoothing", "unknown_loss", "torch_file",
          "bare_path", "task"])
 def test_recipe_values_are_refused_by_name(sets, match):

@@ -532,7 +532,7 @@ def test_route_specs_both_forms(arts, configs, tmp_path):
 @pytest.mark.parametrize("name,kind,match", [
     ("segment", "classify", "'segment' artifact, not 'classify'"),
     ("sample", "translate", "latent-input generator"),
-    ("flow", "detect", "the port serves")],
+    ("flow", "track", "the port serves")],
     ids=["wrong_kind", "dcgan", "unknown_kind"])
 def test_artifact_route_refusals(arts, name, kind, match):
     with pytest.raises(ValueError, match=match):
@@ -833,8 +833,8 @@ def test_export_refusals(tmp_path, config, extra, match):
                          "--export", str(tmp_path / "a.pt2"), *extra])
 
 
-@pytest.mark.parametrize("mode", ["--detect", "--depth", "--text",
-                                  "--track", "--clips=d", "--wav=d"])
+@pytest.mark.parametrize("mode", ["--text", "--track", "--clips=d",
+                                  "--wav=d"])
 def test_serve_refuses_unported_modes(arts, mode):
     with pytest.raises(SystemExit, match="ROADMAP A17's"):
         serve.main(["--artifact", arts["flow"]["port_path"], mode,

@@ -1925,3 +1925,59 @@ def test_xception_depthwise_bn_relu_goes_through_b1(cuda, shape):
         ref = bn_act.scale_shift_act_reference(
             sep.dw(x, add_bias=False).contiguous(), a, b, "relu")
     torch.testing.assert_close(y, ref, **BN_ACT_TOL)
+
+
+# RetinaNet's head layers at a 512 input (P3-P7: 64² to 4², 256 -> 256,
+# batch 2) and the depth decoder's three widest sites at the recipe's
+# width (up5's conv_post at 224 x 288, 16 -> 16; up5's conv_pre at
+# 112 x 144, 32 -> 16; up4's conv_pre at 56 x 72, 64 -> 32; batch 2)
+HEAD_SHAPES = [(2, s, s, 256, 256) for s in (64, 32, 16, 8, 4)]
+DEPTH_DECODER_SHAPES = [(2, 224, 288, 16, 16), (2, 112, 144, 32, 16),
+                        (2, 56, 72, 64, 32)]
+
+
+@pytest.mark.parametrize("shape", HEAD_SHAPES + DEPTH_DECODER_SHAPES)
+def test_detection_and_depth_b4_sites_match_plain(cuda, shape):
+    """B4 at RetinaNet's weight-tied head levels with the conv's bias as
+    its epilogue at scale 1 (relu(conv + bias), ``conv_epilogue(conv,
+    None)``) and at the depth decoder's maps: the plain version at
+    FUSED_TOL, relu(conv + bias) through cuDNN in float32 at 2 bf16 ulps,
+    one launch."""
+    from myconvnet_tpu_torch.nn import Conv, conv_epilogue
+    n, h, w, c, co = shape
+    conv = Conv(c, co, 3, bias=True)
+    rng = np.random.RandomState(c + h)
+    with torch.no_grad():
+        conv.w.copy_(_bf16_grid(rng.randn(3, 3, c, co) / np.sqrt(9 * c)))
+        conv.bias.copy_(torch.from_numpy(
+            (0.3 * rng.randn(co)).astype(np.float32)))
+    conv = conv.to(cuda)
+    a, b = conv_epilogue(conv, None)
+    x = _bf16_grid(rng.randn(n, h, w, c)).to(cuda, torch.bfloat16)
+    wb = conv.w.to(torch.bfloat16)
+    before = conv_fused.conv3x3_bn_relu.launches
+    out = conv_fused.conv3x3_bn_relu(x, wb, a, b)
+    torch.cuda.synchronize()
+    assert conv_fused.conv3x3_bn_relu.launches == before + 1
+    ref = conv_fused.conv3x3_bn_relu_reference(x, wb, a, b)
+    torch.testing.assert_close(out.float(), ref.float(), **FUSED_TOL)
+    with torch.no_grad():
+        plain = torch.relu(conv(x.float()))
+    torch.testing.assert_close(out.float(), plain, **PAIR_TOL)
+
+
+def test_retinanet_head_on_card_matches_host(cuda):
+    """tinyretina's weight-tied heads and RetinaNet's routing in eval under
+    bf16 on the card: (cls, loc) within 0.05 of the host's plain path's
+    largest."""
+    from myconvnet_tpu_torch import models
+    model = models.DETECTORS["tinyretina"](21, width=32)
+    weights.from_jax(model, *random_jax_params(model, 5))
+    x = torch.from_numpy(np.random.RandomState(6).randn(
+        2, 128, 128, 3).astype(np.float32)).bfloat16()
+    with torch.no_grad():
+        host = model.eval().to(torch.bfloat16)(x)
+        card = model.to(cuda)(x.to(cuda))
+    for h_, c_ in zip(host, card):
+        err = float((c_.float().cpu() - h_.float()).abs().max())
+        assert err <= 0.05 * float(h_.float().abs().max()), err
