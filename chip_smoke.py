@@ -383,19 +383,21 @@
     (bits, launches by shape), and an ``embed`` route's JSON and JPEG
     requests (unit norm; against the host's route within EMBED_REL_TOL).
     ``check_repr_kernels`` adds the rows of paths ``repr_*`` to step 3's.
-31. Monocular depth and one-stage detection (``depth_detection_run``):
+31. Monocular depth and detection (``depth_detection_run``):
     ``configs/nyu_depth_unet.py`` (64 at 224 x 288), ``voc_ssd300.py``
-    (32 at 300²) and ``voc_retinanet.py`` (16 at 512²) as written (bf16,
-    synthetic scenes), each: step 1 on the card against the host
-    (float32, TF32 off, batch DET_STEP1); ``train.main`` 2 steps with a
-    validation (AbsRel, val_mAP finite); the step's ms, idle share and
-    peak memory; ``test.main`` on its checkpoint (depth with
-    ``--save_preds``: the 16-bit files equal the eval forward's depth x
-    1000); an eval forward held by shape to the model's sites and B2 1
-    (depth: B4 15, B1 4; SSD300: B4 12, B1 11; RetinaNet: B5 13, B1 7,
-    B4 40); for the detectors the post-process on the card against the
-    host on the same logits and the blocked NMS's host syncs an eval
-    batch; ``test --export``, ``serve --artifact --depth|--detect``, the
+    (32 at 300²), ``voc_retinanet.py``, ``voc_fcos.py`` and
+    ``voc_faster_rcnn.py`` (16 at 512²) as written (bf16, synthetic
+    scenes), each: step 1 on the card against the host (float32, TF32
+    off, batch DET_STEP1; the two-stage RPN and RoI priorities drawn on
+    the host); ``train.main`` 2 steps with a validation (AbsRel, val_mAP
+    finite); the step's ms, idle share and peak memory; ``test.main`` on
+    its checkpoint (depth with ``--save_preds``: the 16-bit files equal
+    the eval forward's depth x 1000); an eval forward held by shape to the
+    model's sites and B2 1 (depth: B4 15, B1 4; SSD300: B4 12, B1 11;
+    RetinaNet and FCOS: B5 13, B1 7, B4 40; Faster R-CNN: B5 13, B1 7, B4
+    4); for the detectors the post-process on the card against the host
+    on the same outputs and the blocked NMS's host syncs a train step and
+    an eval batch; ``test --export``, ``serve --artifact --depth|--detect``, the
     artifact bit for bit against the in-memory program from the same
     checkpoint; a route's JPEG request (B2 1, then one device call), the
     depth route against the host's, the detect artifact route's
@@ -5306,6 +5308,65 @@ def eval_tail_check(dev, counted):
                 finite=bool(np.isfinite(seen[-1].cpu().numpy()).all()))
 
 
+# The seeded synthetic splits the phases render again and again with the
+# same arguments (each train.main, test.main and test --export of a recipe
+# renders its splits; RetinaNet, FCOS and Faster R-CNN the same scenes):
+# (module of myconvnet_tpu_torch.subsets, function); see render_once
+RENDERERS = (("imagenet", "synthetic_subset"), ("voc", "synthetic_subset"),
+             ("voc", "synthetic_detection_subset"),
+             ("depth", "synthetic_depth_scenes"),
+             ("flow", "synthetic_flow_scenes"))
+
+
+def render_once():
+    """Replace each RENDERERS function by one that renders a set of
+    arguments once and hands out copies of the arrays: what a fresh call
+    returns, bit for bit (each renderer is a function of its arguments,
+    its numpy generator seeded from them)."""
+    import importlib
+
+    for module, name in RENDERERS:
+        mod = importlib.import_module(f"myconvnet_tpu_torch.subsets.{module}")
+        render, cache = getattr(mod, name), {}
+
+        def once(*args, _render=render, _cache=cache, **kwargs):
+            key = repr((args, sorted(kwargs.items())))
+            if key not in _cache:
+                _cache[key] = _render(*args, **kwargs)
+            return tuple(a.copy() for a in _cache[key])
+
+        setattr(mod, name, functools.wraps(render)(once))
+
+
+@contextlib.contextmanager
+def one_load_an_artifact():
+    """Inside the block ``serving.load_inference`` loads an artifact file
+    once: ``serve --artifact`` and the checks after it run the same
+    program read from the file (a later call applies the artifact's
+    backend flags again, as a load does)."""
+    from myconvnet_tpu_torch import serving
+
+    load, loaded = serving.load_inference, {}
+
+    def once(path, device=None):
+        st = os.stat(path)
+        meta = serving.artifact_meta(path)
+        key = (os.path.abspath(path), st.st_mtime_ns, st.st_size,
+               meta["device"] if device is None else str(device).split(":")[0])
+        if key not in loaded:
+            loaded[key] = load(path, device)
+        else:
+            serving.apply_backend_flags(serving.get_policy(meta["policy"]))
+        return loaded[key]
+
+    serving.load_inference = once
+    try:
+        yield
+    finally:
+        serving.load_inference = load
+        loaded.clear()
+
+
 class Counted:
     """``counted(run, fn, ...)``: fn(...) with the launch counts set to 0
     just before it and read, with the launches' shapes
@@ -6451,11 +6512,12 @@ def export_run(dev):
     voc_root = voc_files_corpus(os.path.join(root, "voc"))
     checks = {}
     try:
-        for name in EXPORT_CASES:
-            checks[name] = export_case(dev, name, counted, root, inputs,
-                                       voc_root)
-        checks["route"] = export_route_run(
-            dev, counted, os.path.join(root, "deeplab", "deeplab.pt2"))
+        with one_load_an_artifact():
+            for name in EXPORT_CASES:
+                checks[name] = export_case(dev, name, counted, root, inputs,
+                                           voc_root)
+            checks["route"] = export_route_run(
+                dev, counted, os.path.join(root, "deeplab", "deeplab.pt2"))
     finally:
         shutil.rmtree(root, ignore_errors=True)
         shutil.rmtree(KEPT, ignore_errors=True)
@@ -6960,6 +7022,7 @@ def zoo_sites(name, n, hw, classes=1000, dtype="bfloat16", **kw):
              (blocks, "conv3x3_bn_relu", b4),
              (resnet, "conv1x1_conv3x3_bn_relu", b5)]
     saved = [(m, a, getattr(m, a)) for m, a, _ in fakes]
+    call = {}
     try:
         for m, a, f in fakes:
             setattr(m, a, f)
@@ -6967,6 +7030,9 @@ def zoo_sites(name, n, hw, classes=1000, dtype="bfloat16", **kw):
         with torch.device("meta"), torch.no_grad():
             if isinstance(name, tuple):   # (factory, its kwargs)
                 model = name[0](classes, **name[1])
+                if getattr(name[0], "family", "") == "two_stage":
+                    # the proposals' fixed-trip NMS: no host sync on meta
+                    call["nms_method"] = "sequential"
             elif name == "repvgg_a0_deploy":
                 model = repvgg.DEPLOY_FORWARDS["repvgg_a0"](1000)
             elif name in models.EMBEDDING_MODELS:
@@ -6975,7 +7041,8 @@ def zoo_sites(name, n, hw, classes=1000, dtype="bfloat16", **kw):
             else:
                 model = models.get_model(name, classes, input_hw=tuple(hw),
                                          **kw)
-            model.to(dtype).eval()(torch.empty(n, *hw, 3, dtype=dtype))
+            model.to(dtype).eval()(torch.empty(n, *hw, 3, dtype=dtype),
+                                   **call)
     finally:
         for m, a, f in saved:
             setattr(m, a, f)
@@ -7940,26 +8007,36 @@ def representation_run(dev):
     return runs, shapes, checks
 
 
-# The depth_detection phase: the monocular-depth recipe and the two
-# one-stage detectors through the port's entry points at the recipes'
-# widths on synthetic scenes (config, sets, eval batch = the recipe's
-# batch, input hw, the artifact's batch = export_batch's default):
+# The depth_detection phase: the monocular-depth recipe and the four
+# detectors (anchored one-stage, anchor-free, two-stage) through the
+# port's entry points at the recipes' widths on synthetic scenes (config,
+# sets, eval batch = the recipe's batch, input hw, the artifact's batch =
+# export_batch's default):
 DEPTH_CONFIG = os.path.join(ROOT, "configs", "nyu_depth_unet.py")
 SSD_CONFIG = os.path.join(ROOT, "configs", "voc_ssd300.py")
 RETINA_CONFIG = os.path.join(ROOT, "configs", "voc_retinanet.py")
+FCOS_CONFIG = os.path.join(ROOT, "configs", "voc_fcos.py")
+FRCNN_CONFIG = os.path.join(ROOT, "configs", "voc_faster_rcnn.py")
 DET_FAMILIES = {"depth": (DEPTH_CONFIG, ["synthetic_n=64"], 64, (224, 288),
                           4),
                 "ssd300": (SSD_CONFIG, [], 32, (300, 300), 8),
-                "retinanet": (RETINA_CONFIG, [], 16, (512, 512), 8)}
+                "retinanet": (RETINA_CONFIG, [], 16, (512, 512), 8),
+                "fcos": (FCOS_CONFIG, [], 16, (512, 512), 8),
+                "faster_rcnn": (FRCNN_CONFIG, [], 16, (512, 512), 8)}
 # one bf16 eval forward's launches (ROADMAP B), the shapes from the models
 # (``zoo_sites``): the depth net's encoder as ResNet-18's and its decoder's
 # ten 3x3 convs through B4; SSD300's trunk through B4, its first conv, fc6,
-# fc7 and extras through B1; RetinaNet's ResNet-50 and its heads' 40
-# relu(conv + bias) through B4
+# fc7 and extras through B1; RetinaNet's and FCOS's ResNet-50 and their
+# towers' 40 relu(conv + bias) through B4; Faster R-CNN's ResNet-50 and its
+# weight-tied RPN conv at P3-P6 through B4 (its box head's products and
+# RoIAlign take none)
 DET_FORWARD = {"depth": {"conv_fused": 15, "bn_act": 4},
                "ssd300": {"conv_fused": 12, "bn_act": 11},
                "retinanet": {"conv_pair": 13, "bn_act": 7,
-                             "conv_fused": 40}}
+                             "conv_fused": 40},
+               "fcos": {"conv_pair": 13, "bn_act": 7, "conv_fused": 40},
+               "faster_rcnn": {"conv_pair": 13, "bn_act": 7,
+                               "conv_fused": 4}}
 # step 1 card against host at this batch, float32 with TF32 off (its
 # host halves run in a background thread beside the phase's card work)
 DET_STEP1 = 2
@@ -8059,7 +8136,7 @@ def det_step_half(dev, name, cfg):
     import torch
 
     from myconvnet_tpu_torch import recipes, recipes_detection, weights
-    from myconvnet_tpu_torch.train.detection import sample_draws
+    from myconvnet_tpu_torch.train.detection import RCNNDraws, sample_draws
     from myconvnet_tpu_torch.train.trainer import StepDraws
 
     n = DET_STEP1
@@ -8075,7 +8152,14 @@ def det_step_half(dev, name, cfg):
     else:
         trainer, train_set, _ = recipes_detection.build_detector(
             cfg, True, device=dev)
-        draws = _on(sample_draws(g, n, trainer.augment), dev)
+        draws = sample_draws(g, n, trainer.augment)
+        if trainer.family == "two_stage":
+            # the RPN's and the RoI sample's priorities, on the host too
+            m = train_set.source.get_batch(np.arange(1))[1].shape[1]
+            draws = RCNNDraws(draws, torch.rand(
+                n, trainer.anchors.shape[0], generator=g), torch.rand(
+                n, trainer.model.post_train + m, generator=g))
+        draws = _on(draws, dev)
     weights.from_jax(trainer.model,
                      *weights.random_jax_params(trainer.model, SEED))
     batch = [torch.from_numpy(np.asarray(a)).to(dev) for a in
@@ -8138,8 +8222,7 @@ def det_family_run(dev, name, counted, root, host_step):
     from myconvnet_tpu_torch.ops import boxes
     from myconvnet_tpu_torch.subsets import depth as depth_mod
     from myconvnet_tpu_torch.subsets import voc
-    from myconvnet_tpu_torch.train.detection import (make_postprocess,
-                                                     preprocess_batch)
+    from myconvnet_tpu_torch.train.detection import preprocess_batch
 
     config, sets, batch, hw, art_batch = DET_FAMILIES[name]
     cfg = recipes.apply_overrides(recipes.load_config(config), sets)
@@ -8226,14 +8309,18 @@ def det_family_run(dev, name, counted, root, host_step):
             raise AssertionError("depth: --save_preds' 16-bit file differs "
                                  "from the forward's depth")
     else:
-        # the post-process alone, card against host, on the same logits
-        cls, loc = restored.forward_eval(preprocess_batch(
+        # the post-process alone, card against host, on the same outputs
+        # of an eval forward (the two-stage family's proposals and box
+        # head included)
+        out = restored.forward_eval(preprocess_batch(
             args[0], restored.mean, restored.std))
-        chain = recipes_detection.detector_chain(cfg)
-        got = restored.postprocess(cls, loc)
-        host = make_postprocess(torch.from_numpy(chain.anchors),
-                                cfg["num_classes"], **chain.post_kwargs)(
-            cls.cpu(), loc.cpu())
+        got = restored.detections(out)
+        host = recipes_detection.make_chain_postprocess(
+            recipes_detection.detector_chain(cfg), cfg["num_classes"],
+            torch.device("cpu"))
+        out = out._make(t.cpu() for t in out) if hasattr(out, "_make") \
+            else tuple(t.cpu() for t in out)
+        host = host(out) if restored.family == "two_stage" else host(*out)
         same = [torch.equal(a.cpu(), b) for a, b in zip(got, host)]
         box_diff = float((got[0].cpu() - host[0]).abs().max())
         check["post_card_vs_host"] = dict(
@@ -8244,7 +8331,7 @@ def det_family_run(dev, name, counted, root, host_step):
             raise AssertionError(f"{name}: the post-process on the card "
                                  f"differs from the host's: "
                                  f"{check['post_card_vs_host']}")
-        del cls, loc, got
+        del out, got
     del restored
     t1 = lap("eval_checks", t1)
     # the artifact: test --export (traced with fake tensors), serve
@@ -8318,7 +8405,7 @@ def det_family_run(dev, name, counted, root, host_step):
             mean=np.zeros(3, np.float32), std=np.ones(3, np.float32),
             device=dev, class_names=route.class_names, artifact=art,
             threshold=0.0)
-        body_rows = json.dumps({"instances": rows_in[:2].cpu().tolist()}
+        body_rows = json.dumps({"instances": rows_in[:1].cpu().tolist()}
                                ).encode()
         with cudnn_deterministic():
             r1 = serving_http.ModelServer([art_route]).predict(
@@ -8349,13 +8436,23 @@ def det_family_run(dev, name, counted, root, host_step):
 
 def det_rates(dev, name, trainer, args):
     """The train step's rate at the recipe's batch (:func:`step_rate`)
-    and one eval forward's CUDA-event ms, on the trained trainer."""
+    and one eval forward's CUDA-event ms, on the trained trainer; a
+    detector's blocked-NMS host syncs in one train step first."""
     import torch
 
     from myconvnet_tpu_torch.train.detection import preprocess_batch
 
+    from myconvnet_tpu_torch.ops import boxes
+
     _, _, batch, hw, _ = DET_FAMILIES[name]
     out = {}
+    if name != "depth":
+        # the blocked NMS's host syncs in one train step (the two-stage
+        # proposals'; none for the one-stage families)
+        boxes.reset_sync_count()
+        trainer.train_step(*args)
+        torch.cuda.synchronize()
+        out["nms_syncs_a_train_step"] = boxes.sync_count()
     out["step"], _ = step_rate(dev, trainer, batch, hw, 3, args=args)
     log_rate(f"{name} {hw[0]}x{hw[1]}", out["step"])
     if name == "depth":
@@ -8372,7 +8469,7 @@ def det_rates(dev, name, trainer, args):
 
 
 def depth_detection_run(dev):
-    """The depth_detection phase: the host's halves of the three step-1
+    """The depth_detection phase: the host's halves of the step-1
     checks in a background thread (host work only: the card's flags and
     counts are the main thread's), each DET_FAMILIES family through
     :func:`det_family_run`, then each family's step rate alone
@@ -8392,7 +8489,8 @@ def depth_detection_run(dev):
     cfgs = {name: recipes.apply_overrides(recipes.load_config(config), sets)
             for name, (config, sets, *_) in DET_FAMILIES.items()}
     try:
-        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        with concurrent.futures.ThreadPoolExecutor(1) as pool, \
+                one_load_an_artifact():
             hosts = {name: pool.submit(det_step_half, cpu, name, cfgs[name])
                      for name in DET_FAMILIES}
             for name in DET_FAMILIES:
@@ -8437,7 +8535,8 @@ def main() -> int:
                  DCGAN_CONFIG, PIX2PIX_CONFIG, *SMALLNET_CONFIGS.values(),
                  SNGAN_CONFIG, FIXTURES, SWIN_CONFIG, MAE_CONFIG,
                  SIMCLR_CIFAR_CONFIG, SIMCLR_R50_CONFIG, MAE_CIFAR_CONFIG,
-                 DEPTH_CONFIG, SSD_CONFIG, RETINA_CONFIG,
+                 DEPTH_CONFIG, SSD_CONFIG, RETINA_CONFIG, FCOS_CONFIG,
+                 FRCNN_CONFIG,
                  *(os.path.join(ROOT, "configs", c)
                    for c, *_ in (*ZOO_RECIPES.values(),
                                  *SEG_FAMILY.values(),
@@ -8452,6 +8551,7 @@ def main() -> int:
     log(card)
     import shutil
     shutil.rmtree(KEPT, ignore_errors=True)   # runs of an earlier call
+    render_once()
     nvcc = run([_build.nvcc_path(), "--version"]).splitlines()
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{nvcc[-1] if nvcc else 'nvcc ?'}")

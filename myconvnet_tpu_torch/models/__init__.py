@@ -38,6 +38,9 @@ from myconvnet_tpu_torch.models.repvgg import (DEPLOY_FORWARDS, RepVGG,
                                                repvgg_a1, tinyrepvgg)
 from myconvnet_tpu_torch.models.retinanet import (RetinaNet, TinyRetina,
                                                   retinanet, tinyretina)
+from myconvnet_tpu_torch.models.fcos import FCOS, TinyFCOS, fcos, tinyfcos
+from myconvnet_tpu_torch.models.faster_rcnn import (FasterRCNN, TinyFRCNN,
+                                                    faster_rcnn, tinyfrcnn)
 from myconvnet_tpu_torch.models.resnet import (ResNet, ResNetBackbone,
                                                resnet18, resnet34, resnet50,
                                                resnet101, resnet152,
@@ -106,20 +109,18 @@ SSL_MODELS = {"mae_b16": mae_b16, "mae_l16": mae_l16, "tinymae": tinymae}
 # the metric-learning embedders (models/__init__.py:181-184): any
 # classifier above as the backbone, re-headed to a unit-norm embedding
 EMBEDDING_MODELS = {"embedding_net": embedding_net, "tinyembed": tinyembed}
-# the one-stage detectors (models/__init__.py:134-150): each carries
-# input_hw and anchor_spec, RetinaNet's family anchor_kind "retina" and
-# head "sigmoid_focal"; FCOS and the two-stage family are not ported
+# the detectors (models/__init__.py:134-152): each carries input_hw; the
+# anchored one-stage family anchor_spec (RetinaNet's anchor_kind "retina"
+# and head "sigmoid_focal"), FCOS point_spec and family "fcos", the
+# two-stage family rpn_spec and family "two_stage"
 DETECTORS = {"ssd300": ssd300, "ssd512": ssd512, "tinydet": tinydet,
-             "retinanet": retinanet, "tinyretina": tinyretina}
+             "retinanet": retinanet, "tinyretina": tinyretina,
+             "fcos": fcos, "tinyfcos": tinyfcos,
+             "faster_rcnn": faster_rcnn, "tinyfrcnn": tinyfrcnn}
 # the JAX detector names the port refuses, with their ROADMAP item
-UNPORTED_DETECTORS = {
-    **dict.fromkeys(("fcos", "tinyfcos"),
-                    "A17c(ii), FCOS: models/fcos.py, train/fcos.py"),
-    **dict.fromkeys(("faster_rcnn", "tinyfrcnn"),
-                    "A17c(ii), the two-stage family"),
-    **dict.fromkeys(("mask_rcnn", "tinymask", "keypoint_rcnn", "tinykp",
-                     "panoptic_fpn", "tinypan"),
-                    "A17c(iii), masks, keypoints and panoptic")}
+UNPORTED_DETECTORS = dict.fromkeys(
+    ("mask_rcnn", "tinymask", "keypoint_rcnn", "tinykp", "panoptic_fpn",
+     "tinypan"), "A17c(iii), masks, keypoints and panoptic")
 
 
 def get_model(name: str, num_classes: int,

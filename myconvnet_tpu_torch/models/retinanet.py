@@ -139,29 +139,41 @@ class RetinaNet(_Detector):
                              "input must be 512x512")
 
 
+def tiny_trunk(width: int) -> tuple[nn.Module, FPN]:
+    """The CPU detectors' trunk (``faster_rcnn._tiny_trunk``): ``backbone``
+    of five 3x3 stride-2 relu(conv + bias) layers ``c1``-``c5`` and a
+    3-level ``fpn`` over c3-c5, 2 * ``width`` channels."""
+    w = width
+    backbone = nn.Module()
+    for i, (cin, cout) in enumerate(((3, w), (w, w), (w, 2 * w),
+                                     (2 * w, 2 * w), (2 * w, 4 * w))):
+        backbone.add_module(f"c{i + 1}", Conv(cin, cout, 3, stride=2,
+                                              bias=True))
+    return backbone, FPN(2 * w, 2 * w, 4 * w, 2 * w, levels=3)
+
+
+def tiny_pyramid(backbone: nn.Module, fpn: FPN, x: torch.Tensor):
+    """[P3, P4, P5] of :func:`tiny_trunk` (each layer B1 in eval mode)."""
+    feats = []
+    for i in range(5):
+        x = conv_bn_relu(getattr(backbone, f"c{i + 1}"), None, x)
+        feats.append(x)
+    return fpn(*feats[2:])
+
+
 class TinyRetina(_Detector):
     """The CPU detector: 128 x 128 input, levels 16, 8, 4, 2016 anchors."""
 
     def __init__(self, num_classes: int = 21, *, width: int = 32):
         super().__init__()
-        w = width
-        self.backbone = nn.Module()
-        for i, (cin, cout) in enumerate(((3, w), (w, w), (w, 2 * w),
-                                         (2 * w, 2 * w), (2 * w, 4 * w))):
-            self.backbone.add_module(f"c{i + 1}", Conv(cin, cout, 3,
-                                                       stride=2, bias=True))
-        self.fpn = FPN(2 * w, 2 * w, 4 * w, 2 * w, levels=3)
-        self.cls_head = SharedHead(2 * w, num_classes - 1, 1, TINY_APC,
+        self.backbone, self.fpn = tiny_trunk(width)
+        self.cls_head = SharedHead(2 * width, num_classes - 1, 1, TINY_APC,
                                    PRIOR_BIAS)
-        self.box_head = SharedHead(2 * w, 4, 1, TINY_APC)
+        self.box_head = SharedHead(2 * width, 4, 1, TINY_APC)
 
     def forward(self, x: torch.Tensor):
-        feats = []
-        for i in range(5):
-            x = conv_bn_relu(getattr(self.backbone, f"c{i + 1}"), None, x)
-            feats.append(x)
-        return self._pyramid(self.fpn(*feats[2:]), TINYRETINA_SPEC,
-                             "input must be 128x128")
+        return self._pyramid(tiny_pyramid(self.backbone, self.fpn, x),
+                             TINYRETINA_SPEC, "input must be 128x128")
 
 
 def retinanet(num_classes: int = 21, **kwargs) -> RetinaNet:

@@ -18,8 +18,10 @@ Port of ``myconvnet_tpu/train/detection.py``:
   ``:404``), the mosaic (``:477``), ``augment_detection_batch`` (``:437``;
   its first step, uint8 -> x / 255, is B2 at mean 0 and std 1);
 * :class:`DetectionTrainer`, the step of ``make_detection_step``
-  (``:561``) over a module and an optimizer, with JAX's ``DetState``
-  checkpoint layout (``params``, ``state``, ``opt``, ``step``, ``rng``);
+  (``:561``; also of ``train/fcos.py:135`` and ``train/rcnn.py:140`` for
+  the anchor-free and two-stage families) over a module and an
+  optimizer, with JAX's ``DetState`` checkpoint layout (``params``,
+  ``state``, ``opt``, ``step``, ``rng``);
 * ``make_postprocess`` (``:582``): softmax or sigmoid scores, the best
   foreground class, the clipped decode, the top 1000 by a stable sort
   (``lax.top_k``'s tie rule), class-aware NMS (``ops.boxes``), the rows
@@ -27,7 +29,8 @@ Port of ``myconvnet_tpu/train/detection.py``:
 
 The step's random numbers are drawn apart from their use
 (:func:`sample_draws`, from a ``torch.Generator`` reseeded from (seed,
-step)), so that a test hands JAX's draws over.
+step); a two-stage step's RPN and RoI priorities from generators of their
+own, :class:`RCNNDraws`), so that a test hands JAX's draws over.
 """
 
 from __future__ import annotations
@@ -90,6 +93,12 @@ def match_anchors(anchors, gt_boxes, gt_labels, iou_threshold: float = 0.5):
 def _smooth_l1(x: torch.Tensor) -> torch.Tensor:
     ax = x.abs()
     return torch.where(ax < 1.0, 0.5 * x * x, ax - 0.5)
+
+
+def _bce_logits(z: torch.Tensor, y) -> torch.Tensor:
+    """Sigmoid cross-entropy in JAX's stable form (``rcnn.py:39``)."""
+    return (torch.maximum(z, z.new_zeros(())) - z * y
+            + torch.log1p(torch.exp(-z.abs())))
 
 
 def multibox_loss(cls_logits: torch.Tensor, loc: torch.Tensor,
@@ -165,8 +174,7 @@ def focal_det_loss(cls_logits: torch.Tensor, loc: torch.Tensor,
     targets = (((m_labels - 1)[..., None] == classes)
                & positive[..., None]).float()
     p = torch.sigmoid(cls_logits)
-    bce = (torch.maximum(cls_logits, zero) - cls_logits * targets
-           + torch.log1p(torch.exp(-cls_logits.abs())))
+    bce = _bce_logits(cls_logits, targets)
     p_t = p * targets + (1.0 - p) * (1.0 - targets)
     alpha_t = alpha * targets + (1.0 - alpha) * (1.0 - targets)
     focal = alpha_t * (1.0 - p_t) ** gamma * bce
@@ -501,26 +509,45 @@ def make_postprocess(anchors: torch.Tensor, num_classes: int, *,
 # -------------------------------------------------------------- the step
 
 
+class RCNNDraws(NamedTuple):
+    """A two-stage step's draws (JAX splits the step's key into ``aug``,
+    ``rpn`` and ``model`` keys, ``train/rcnn.py:157``): the augmentation's,
+    the RPN sample's uniform priorities [B, A] and the RoI sample's [B,
+    post_train + M]."""
+    aug: DetDraws | None
+    rpn: torch.Tensor
+    rois: torch.Tensor
+
+
 class DetectionTrainer:
-    """A one-stage detector, its optimizer and its step: ``train_step(
-    images_u8, gt_boxes, gt_labels)`` augments on the device, runs the
-    train forward, the loss (``multibox_loss`` or the recipe's focal
-    closure, ``loss_fn(cls, loc, boxes, labels, anchors)``), backward
-    and the optimizer; ``predict(images_u8)`` is the eval chain: B2's
-    normalize, the eval forward, the post-process."""
+    """A detector, its optimizer and its step: ``train_step(images_u8,
+    gt_boxes, gt_labels)`` augments on the device, runs the train forward,
+    the loss, backward and the optimizer; ``predict(images_u8)`` is the
+    eval chain: B2's normalize, the eval forward, the post-process.
+
+    ``family`` names the model's outputs and ``grid``'s meaning:
+    "" (anchored one-stage: ``grid`` the anchors, the model's (cls, loc)
+    to ``loss_fn(cls, loc, boxes, labels, anchors)``: ``multibox_loss`` or
+    the recipe's focal closure), "fcos" (``grid`` the points, (cls, ctr,
+    dists) to ``loss_fn(cls, ctr, dists, boxes, labels, points)``) or
+    "two_stage" (``grid`` the RPN anchors; the forward takes the ground
+    truth and the RoI priorities, its ``FRCNNOut`` goes to ``loss_fn(out,
+    boxes, labels, rpn_rand)``; the RPN and RoI priorities come from
+    generators of their own, apart from the augmentation's)."""
 
     def __init__(self, model: torch.nn.Module, optimizer,
-                 anchors: torch.Tensor, loss_fn: Callable,
+                 grid: torch.Tensor, loss_fn: Callable,
                  postprocess: Callable, *, augment: DetAugment | None,
                  mean, std, device: torch.device, policy: Policy,
-                 seed: int = 0):
+                 seed: int = 0, family: str = ""):
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.optimizer = optimizer
-        self.anchors = anchors.to(self.device)
+        self.anchors = grid.to(self.device)
         self.loss_fn = loss_fn
         self.postprocess = postprocess
         self.augment = augment
+        self.family = family
         self.mean = torch.as_tensor(mean, dtype=torch.float32,
                                     device=self.device)
         self.std = torch.as_tensor(std, dtype=torch.float32,
@@ -529,13 +556,29 @@ class DetectionTrainer:
         self.seed = seed
         self.step = 0
         self._gen = torch.Generator(device=self.device)
+        if family == "two_stage":
+            self._rpn_gen = torch.Generator(device=self.device)
+            self._roi_gen = torch.Generator(device=self.device)
 
-    def sample(self, n: int) -> DetDraws | None:
-        """This step's draws, a function of (seed, step)."""
-        if self.augment is None:
-            return None
-        self._gen.manual_seed((self.seed << 32) + self.step)
-        return sample_draws(self._gen, n, self.augment)
+    def _seeded(self, gen: torch.Generator, stream: int) -> torch.Generator:
+        return gen.manual_seed((self.seed << 32) + self.step + (stream << 60))
+
+    def sample(self, n: int, m: int | None = None):
+        """This step's draws, a function of (seed, step): the augmentation's
+        (None without one); a two-stage trainer's :class:`RCNNDraws` for
+        ``m`` ground-truth rows a image."""
+        aug = None
+        if self.augment is not None:
+            aug = sample_draws(self._seeded(self._gen, 0), n, self.augment)
+        if self.family != "two_stage":
+            return aug
+        if self.augment is not None and self.augment.mosaic_prob > 0.0:
+            m *= 4   # the mosaic's targets
+        rpn = torch.rand((n, self.anchors.shape[0]), device=self.device,
+                         generator=self._seeded(self._rpn_gen, 1))
+        rois = torch.rand((n, self.model.post_train + m), device=self.device,
+                          generator=self._seeded(self._roi_gen, 2))
+        return RCNNDraws(aug, rpn, rois)
 
     def _input(self, images, boxes, labels, draws):
         if self.augment is None:
@@ -547,15 +590,20 @@ class DetectionTrainer:
     def loss(self, images, boxes, labels, draws=None):
         """(loss with its graph, metrics) of one batch, train mode."""
         if draws is None:
-            draws = self.sample(images.shape[0])
-        x, boxes, labels = self._input(images, boxes, labels, draws)
+            draws = self.sample(images.shape[0], boxes.shape[1])
+        two_stage = self.family == "two_stage"
+        x, boxes, labels = self._input(images, boxes, labels,
+                                       draws.aug if two_stage else draws)
         self.model.train()
-        cls_logits, loc = self.model(x.to(self.policy.compute_dtype))
-        return self.loss_fn(cls_logits, loc, boxes, labels, self.anchors)
+        x = x.to(self.policy.compute_dtype)
+        if two_stage:
+            out = self.model(x, gt_boxes=boxes, gt_labels=labels,
+                             roi_rand=draws.rois)
+            return self.loss_fn(out, boxes, labels, draws.rpn)
+        return self.loss_fn(*self.model(x), boxes, labels, self.anchors)
 
     def train_step(self, images: torch.Tensor, boxes: torch.Tensor,
-                   labels: torch.Tensor, draws: DetDraws | None = None
-                   ) -> dict:
+                   labels: torch.Tensor, draws=None) -> dict:
         """One step; the metrics as device tensors (no sync)."""
         self.optimizer.zero_grad()
         loss, metrics = self.loss(images, boxes, labels, draws)
@@ -566,15 +614,21 @@ class DetectionTrainer:
 
     @torch.no_grad()
     def forward_eval(self, x: torch.Tensor):
-        """(cls, loc) of a normalized batch, eval mode (kernels on)."""
+        """The eval forward's outputs of a normalized batch (kernels on)."""
         self.model.eval()
         return self.model(x.to(self.policy.compute_dtype))
+
+    def detections(self, out):
+        """The post-process of an eval forward's outputs."""
+        if self.family == "two_stage":
+            return self.postprocess(out)
+        return self.postprocess(*out)
 
     @torch.no_grad()
     def predict(self, images: torch.Tensor):
         """The post-processed detections of a uint8 (or [0, 1] float)
         batch."""
-        return self.postprocess(*self.forward_eval(
+        return self.detections(self.forward_eval(
             preprocess_batch(images, self.mean, self.std)))
 
     def evaluate(self, batches: Iterable, evaluator) -> float:

@@ -335,8 +335,8 @@ def random_jax_params(model: nn.Module, seed: int) -> tuple[Tree, Tree]:
     intends, so the residual stream stays in range through 16 blocks; the
 last BN of each of Xception's residual blocks, ``sep3/bn_pw``, one in
 [0.01, 0.03], so it does through 20, train-mode BN included), LN
-    with gamma near 1 and a small beta, and the ViT's tokens from
-    normal(0.02).  A depthwise conv's He scale counts its window only
+    with gamma near 1 and a small beta, the ViT's tokens from
+    normal(0.02) and a 0-d scale in [0.8, 1.2].  A depthwise conv's He scale counts its window only
     (one input channel an output)."""
     rng = np.random.RandomState(seed)
     params, state = to_jax(model)
@@ -346,6 +346,9 @@ last BN of each of Xception's residual blocks, ``sep3/bn_pw``, one in
         m = layers.get(scope)
         if m is None:  # a module's own parameters
             for name in sorted(p):
+                if p[name].ndim == 0:   # a learnable scale (FCOS's)
+                    p[name] = np.float32(rng.uniform(0.8, 1.2))
+                    continue
                 p[name] = (0.02 * rng.randn(*p[name].shape)).astype(
                     np.float32)
         elif isinstance(m, NORMS):

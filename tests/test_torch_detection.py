@@ -654,12 +654,13 @@ def test_serve_detect_and_the_route_match_jax(run, jpath, capsys,
 
 
 @pytest.mark.parametrize("sets,match", [
-    (["model=fcos"], "A17c\\(ii\\), FCOS"),
-    (["model=faster_rcnn"], "A17c\\(ii\\)"),
+    (["model=keypoint_rcnn"], "A17c\\(iii\\), masks, keypoints"),
+    (["model=panoptic_fpn"], "A17c\\(iii\\)"),
     (["model=mask_rcnn"], "A17c\\(iii\\)"),
     (["dataset=coco"], "A17c\\(iii\\)"),
     (["pretrained={'path':'v.pth','arch':'vgg16'}"], "VGG-16")],
-    ids=["fcos", "faster_rcnn", "mask_rcnn", "coco", "vgg_pretrained"])
+    ids=["keypoint_rcnn", "panoptic_fpn", "mask_rcnn", "coco",
+         "vgg_pretrained"])
 def test_unported_detection_recipes_are_refused_by_name(sets, match):
     cfg = recipes.apply_overrides(recipes.load_config(SSD_CONFIG), sets)
     with pytest.raises(ValueError, match=match):

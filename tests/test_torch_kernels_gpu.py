@@ -1934,12 +1934,16 @@ def test_xception_depthwise_bn_relu_goes_through_b1(cuda, shape):
 HEAD_SHAPES = [(2, s, s, 256, 256) for s in (64, 32, 16, 8, 4)]
 DEPTH_DECODER_SHAPES = [(2, 224, 288, 16, 16), (2, 112, 144, 32, 16),
                         (2, 56, 72, 64, 32)]
+# Faster R-CNN's weight-tied RPN conv at P3-P6 of a 512 input at the
+# recipe's eval batch of 16 (64² to 8², 256 -> 256)
+RPN_SHAPES = [(16, s, s, 256, 256) for s in (64, 32, 16, 8)]
 
 
-@pytest.mark.parametrize("shape", HEAD_SHAPES + DEPTH_DECODER_SHAPES)
+@pytest.mark.parametrize("shape", HEAD_SHAPES + DEPTH_DECODER_SHAPES
+                         + RPN_SHAPES)
 def test_detection_and_depth_b4_sites_match_plain(cuda, shape):
-    """B4 at RetinaNet's weight-tied head levels with the conv's bias as
-    its epilogue at scale 1 (relu(conv + bias), ``conv_epilogue(conv,
+    """B4 at RetinaNet's and FCOS's weight-tied head levels and Faster
+    R-CNN's RPN levels with the conv's bias as its epilogue at scale 1 (relu(conv + bias), ``conv_epilogue(conv,
     None)``) and at the depth decoder's maps: the plain version at
     FUSED_TOL, relu(conv + bias) through cuDNN in float32 at 2 bf16 ulps,
     one launch."""
@@ -1981,3 +1985,53 @@ def test_retinanet_head_on_card_matches_host(cuda):
     for h_, c_ in zip(host, card):
         err = float((c_.float().cpu() - h_.float()).abs().max())
         assert err <= 0.05 * float(h_.float().abs().max()), err
+
+
+def _eval_card_and_host(name, cuda, seed):
+    from myconvnet_tpu_torch import models
+    model = models.DETECTORS[name](21, width=32)
+    weights.from_jax(model, *random_jax_params(model, seed))
+    x = torch.from_numpy(np.random.RandomState(seed + 1).randn(
+        2, 128, 128, 3).astype(np.float32)).bfloat16()
+    with torch.no_grad():
+        host = model.eval()(x)
+        card = model.to(cuda)(x.to(cuda))
+    return model, x, host, card
+
+
+def _near(card, host, tol=0.05):
+    err = float((card.float().cpu() - host.float()).abs().max())
+    assert err <= tol * float(host.float().abs().max()), err
+
+
+def test_fcos_heads_on_card_match_host(cuda):
+    """tinyfcos in eval under bf16 on the card (its towers through B4, its
+    trunk through B1): (cls, ctr, dists) within 0.05 of the host's plain
+    path's largest; the distances float32 on both."""
+    _, _, host, card = _eval_card_and_host("tinyfcos", cuda, 7)
+    assert card[2].dtype == host[2].dtype == torch.float32
+    for h_, c_ in zip(host, card):
+        _near(c_, h_)
+
+
+def test_two_stage_on_card_matches_host(cuda):
+    """tinyfrcnn in eval under bf16 on the card (the RPN conv through B4):
+    the RPN's outputs within 0.05 of the host's largest, the proposals'
+    count of each image, and the second stage on the host's RoIs (the
+    RoIAlign's float32 crops, the box head) within 0.05."""
+    from myconvnet_tpu_torch.models.retinanet import tiny_pyramid
+    from myconvnet_tpu_torch.ops import roi
+    before = conv_fused.conv3x3_bn_relu.launches
+    model, x, host, card = _eval_card_and_host("tinyfrcnn", cuda, 9)
+    torch.cuda.synchronize()
+    assert conv_fused.conv3x3_bn_relu.launches == before + 3
+    _near(card.rpn_logits, host.rpn_logits)
+    _near(card.rpn_loc, host.rpn_loc)
+    assert card.rois.shape == host.rois.shape == (2, 64, 4)
+    with torch.no_grad():
+        feats = tiny_pyramid(model.backbone, model.fpn, x.to(cuda))
+        crops = roi.multilevel_roi_align(feats, host.rois.to(cuda), 5)
+        assert crops.dtype == torch.float32
+        cls, reg = model.box_head(crops.to(x.dtype))
+    _near(cls, host.roi_cls)
+    _near(reg, host.roi_reg)
